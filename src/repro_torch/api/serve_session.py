@@ -1,0 +1,360 @@
+"""``ServeSession`` — Alg. 3 entropy-gated serving with continuous batching
+(counterpart of ``repro/api/serve_session.py``).
+
+A fixed pool of decode slots serves a stream of requests: a request is
+prefilled alone at its exact prompt length, its cache page is copied into
+a free slot, and every tick decodes one gated token on all slots at once.
+The gate is :func:`repro_torch.core.spmd.make_serve_step`'s: entropy at
+the client-boundary exit head, exit iff H < tau.  Two exit policies, as in
+the JAX package:
+
+  * ``"select"``: every tick computes the exit and the full path and each
+    slot takes one — token for token what :func:`sequential_reference`
+    serves for the request alone.
+  * ``"sticky"``: a slot whose gate fires adopts the client path.  Ticks on
+    which every occupied slot has adopted run segments ``0..boundary`` and
+    the exit head only; on mixed ticks adopted slots get ``tau = +inf`` so
+    they keep taking the exit head's token (their stale server pages are
+    never read for output).  :func:`sequential_sticky_reference` is the
+    oracle.
+
+What JAX's ``vmap`` over slots hid is written out here: ``cache_len``,
+``kv_valid`` and ``tau`` are one value per slot, kept on the device, so the
+kernels read them without a host sync; a tick brings its tokens, exits and
+entropies to the host in one transfer.  The decode step writes each slot's
+new K/V into the pool in place.
+
+``restore`` (serving a ``TrainSession`` checkpoint) and ``mesh=`` come with
+the training slice.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import HeteroProfile, ModelConfig, SplitEEConfig
+from repro_torch.core.spmd import StepConfig, make_serve_step
+from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch
+from repro_torch.models import heads as heads_mod
+from repro_torch.models.backbone import (backbone_forward, init_cache,
+                                         segment_forward)
+from repro_torch.models.common import embed
+
+
+def resolve_serve_boundary(cfg: ModelConfig, boundary: int
+                           ) -> Tuple[Tuple[int, ...], int, float]:
+    """``(exits, cut, skip_frac)`` for gate boundary ``boundary``, all from
+    the one sorted list of exit layers."""
+    exits = tuple(sorted(cfg.exit_layers))
+    if not exits:
+        raise ValueError(f"{cfg.name}: serving needs exit_layers (the gate "
+                         f"sits at an exit head)")
+    if not 0 <= boundary < len(exits):
+        raise ValueError(f"boundary {boundary} out of range for "
+                         f"{len(exits)} exit boundaries {exits}")
+    cut = exits[boundary]
+    return exits, cut, 1.0 - cut / cfg.num_layers
+
+
+def serve_step_config(cfg: ModelConfig, tau: float, boundary: int
+                      ) -> Tuple[StepConfig, int, float]:
+    """The ``StepConfig`` for :func:`make_serve_step` plus ``(cut,
+    skip_frac)``, all derived through :func:`resolve_serve_boundary`."""
+    _, cut, skip_frac = resolve_serve_boundary(cfg, boundary)
+    sc = StepConfig(model=cfg, splitee=SplitEEConfig(
+        profile=HeteroProfile(split_layers=(cut,) * 4),
+        entropy_threshold=tau))
+    return sc, cut, skip_frac
+
+
+@dataclass
+class ServeRequest:
+    rid: int
+    prompt: np.ndarray                 # (P,) int32
+    decode_tokens: int
+
+
+@dataclass
+class ServeResult:
+    """One request's served stream.  ``tokens[0]`` is the prefill token
+    (full path, ungated); ``tokens[1 + i]`` is gated decode tick ``i`` with
+    decision ``exited[i]`` and gate entropy ``entropy[i]``."""
+    rid: int
+    prompt: np.ndarray
+    tokens: List[int] = field(default_factory=list)
+    exited: List[bool] = field(default_factory=list)
+    entropy: List[float] = field(default_factory=list)
+
+    @property
+    def adoption_ratio(self) -> float:
+        return float(np.mean(self.exited)) if self.exited else 0.0
+
+
+@dataclass
+class ServeStats:
+    requests: int = 0
+    decode_ticks: int = 0
+    tokens: int = 0                    # gated decode tokens served
+    exited: int = 0
+    client_only_ticks: int = 0         # sticky ticks that skipped the server
+    wall_s: float = 0.0                # whole ticks, admissions included
+    prefill_s: float = 0.0             # admissions alone (prefill + join)
+
+    @property
+    def adoption_ratio(self) -> float:
+        return self.exited / max(1, self.tokens)
+
+
+def _leaves(tree) -> Iterator[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key])
+    else:
+        for item in tree:
+            yield from _leaves(item)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return [_to_device(v, device) for v in tree]
+
+
+class ServeSession:
+    """Continuous-batching entropy-gated decode over a fixed slot pool."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, tau: float,
+                 boundary: int = 0, slots: int = 8, max_len: int = 128,
+                 exit_policy: str = "select", kernels: Optional[str] = None,
+                 device=None):
+        if exit_policy not in ("select", "sticky"):
+            raise ValueError(f"unknown exit_policy {exit_policy!r}; "
+                             f"expected 'select' or 'sticky'")
+        if kernels is not None:
+            dispatch.resolve_kernels(kernels)     # validate loudly
+            cfg = cfg.with_(kernels=kernels)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.tau = float(tau)
+        self.boundary = boundary
+        self.slots = slots
+        self.max_len = max_len
+        self.exit_policy = exit_policy
+        self.sc, self.cut, self.skip_frac = serve_step_config(
+            cfg, tau, boundary)
+        self.params = _to_device(params, self.device)
+        self._pool = init_cache(cfg, slots, max_len, cfg.dtype, self.device)
+        self._step = make_serve_step(self.sc, boundary=boundary)
+        self._gate = dispatch.backend_for(cfg)
+
+        # host-side scheduler state
+        self._queue: deque = deque()
+        self._slot_res: List[Optional[ServeResult]] = [None] * slots
+        self._slot_left = np.zeros(slots, np.int64)
+        self._slot_sticky = np.zeros(slots, bool)
+        self._active = np.zeros(slots, bool)
+        # per-slot device state: last token and tokens already cached
+        self._toks = torch.zeros(slots, dtype=torch.int32, device=self.device)
+        self._lens = torch.zeros(slots, dtype=torch.int32, device=self.device)
+        self._next_rid = 0
+        self._done: List[ServeResult] = []
+        self.stats = ServeStats()
+
+    # ------------------------------------------------------------ admission
+    def submit(self, prompt: Sequence[int], decode_tokens: int = 16) -> int:
+        """Enqueue one request; returns its id.  The request joins a slot at
+        the next :meth:`step` with one free."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if decode_tokens < 1:
+            raise ValueError(f"decode_tokens must be >= 1, got "
+                             f"{decode_tokens}")
+        if len(prompt) + 1 + decode_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + decode ({decode_tokens}) tokens "
+                f"exceed the slot page (max_len={self.max_len})")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append(ServeRequest(rid, prompt, decode_tokens))
+        return rid
+
+    def _admit(self) -> None:
+        for s in range(self.slots):
+            if self._active[s] or not self._queue:
+                continue
+            t0 = time.perf_counter()
+            req = self._queue.popleft()
+            page, tok0 = _prefill(self.cfg, self.params, req.prompt,
+                                  self.max_len, self.device)
+            for pool_t, page_t in zip(_leaves(self._pool), _leaves(page)):
+                pool_t[s].copy_(page_t[0])
+            self._toks[s] = tok0
+            self._lens[s] = len(req.prompt)
+            self._slot_res[s] = ServeResult(req.rid, req.prompt,
+                                            tokens=[int(tok0)])
+            self._slot_left[s] = req.decode_tokens
+            self._slot_sticky[s] = False
+            self._active[s] = True
+            # int(tok0) above waited for the device, so this is device time
+            self.stats.prefill_s += time.perf_counter() - t0
+
+    # --------------------------------------------------------------- ticks
+    def step(self) -> bool:
+        """One scheduler tick: admit queued requests into free slots, decode
+        one gated token on every occupied slot, evict finished requests.
+        Returns False when queue and slots are both empty."""
+        t0 = time.perf_counter()
+        self._admit()
+        occupied = np.nonzero(self._active)[0]
+        if not len(occupied):
+            return False
+
+        sticky_policy = self.exit_policy == "sticky"
+        client_only = sticky_policy and bool(self._slot_sticky[occupied].all())
+        ctrl = torch.from_numpy(np.stack(
+            [self._active, self._slot_sticky & sticky_policy])).to(self.device)
+        active, sticky = ctrl[0], ctrl[1]
+        tau = torch.full((self.slots,), self.tau, dtype=torch.float32,
+                         device=self.device)
+        if client_only:
+            tokens, exited, H = self._client_tick(tau, sticky)
+        else:
+            # adopted slots are forced onto the exit head: tau = +inf
+            tokens, exited, H = self._full_tick(
+                torch.where(sticky, torch.inf, tau))
+        # the tick's one device-to-host transfer (token ids < 2**24 are
+        # exact in float32)
+        host = torch.stack([tokens.float(), exited.float(), H]).cpu().numpy()
+        self._lens += active.to(torch.int32)
+        self._toks = torch.where(active, tokens, self._toks)
+
+        for s in occupied:
+            res = self._slot_res[s]
+            res.tokens.append(int(host[0, s]))
+            res.exited.append(bool(host[1, s]))
+            res.entropy.append(float(host[2, s]))
+            self._slot_sticky[s] |= bool(host[1, s])
+            self._slot_left[s] -= 1
+            self.stats.tokens += 1
+            self.stats.exited += int(host[1, s])
+            if self._slot_left[s] <= 0:
+                self._done.append(res)
+                self.stats.requests += 1
+                self._slot_res[s] = None
+                self._active[s] = False
+        self.stats.decode_ticks += 1
+        self.stats.client_only_ticks += int(client_only)
+        self.stats.wall_s += time.perf_counter() - t0
+        return bool(self._queue) or bool(self._active.any())
+
+    def _full_tick(self, tau: torch.Tensor):
+        out = self._step(self.params, self._toks[:, None], self._pool,
+                         self._lens, tau=tau)
+        tokens = out["logits"][:, 0].argmax(-1).to(torch.int32)
+        return tokens, out["exited"][:, 0], out["entropy"][:, 0]
+
+    def _client_tick(self, tau: torch.Tensor, sticky: torch.Tensor):
+        """Segments ``0..boundary`` + exit head only: the server layers do
+        no work.  Runs only when every occupied slot has adopted; the
+        server pages it leaves stale are never read for their output."""
+        cfg = self.cfg
+        x = embed(self.params["embed"], self._toks[:, None]).to(cfg.dtype)
+        positions = self._lens.long()[:, None]
+        for si in range(self.boundary + 1):
+            x = segment_forward(self.params, cfg, si, x, positions,
+                                self._pool, self._lens)
+        e_logits = heads_mod.exit_head(
+            self.params["exit_heads"][self.boundary], x, cfg)
+        H, gate = self._gate.entropy_gate(e_logits, tau)
+        tokens = e_logits[:, 0].argmax(-1).to(torch.int32)
+        # every occupied slot has adopted: its token is the exit head's
+        return tokens, sticky | gate[:, 0], H[:, 0]
+
+    def run(self) -> List[ServeResult]:
+        """Drain the queue; returns all finished results in completion
+        order (also kept on ``self.results``)."""
+        while self.step():
+            pass
+        return self.results
+
+    @property
+    def results(self) -> List[ServeResult]:
+        return list(self._done)
+
+
+def _prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray,
+             max_len: int, device) -> Tuple[list, torch.Tensor]:
+    """Prefill one request alone at its exact prompt length into a fresh
+    B=1 page (the previous occupant's tokens never leak): ``(page, first
+    token)``, the token left on the device."""
+    page = init_cache(cfg, 1, max_len, cfg.dtype, device)
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
+    out = backbone_forward(params, cfg, tokens=tokens, cache=page,
+                           cache_len=torch.zeros(1, dtype=torch.int32,
+                                                 device=device),
+                           exit_heads=())
+    return page, out.logits[0, -1].argmax(-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# sequential references (the parity oracles)
+# ---------------------------------------------------------------------------
+
+
+def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
+                decode_tokens: int, *, tau: float, boundary: int,
+                max_len: int, device, sticky_policy: bool) -> ServeResult:
+    device = resolve_device(device)
+    params = _to_device(params, device)
+    sc, _, _ = serve_step_config(cfg, tau, boundary)
+    step = make_serve_step(sc, boundary=boundary)
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    cache, tok = _prefill(cfg, params, prompt, max_len, device)
+    res = ServeResult(rid=-1, prompt=prompt, tokens=[int(tok)])
+    sticky = False
+    for i in range(decode_tokens):
+        tau_i = torch.full((1,), torch.inf if sticky else tau,
+                           dtype=torch.float32, device=device)
+        o = step(params, tok.reshape(1, 1), cache,
+                 torch.full((1,), len(prompt) + i, dtype=torch.int32,
+                            device=device), tau=tau_i)
+        tok = o["logits"][0, 0].argmax(-1).to(torch.int32)
+        res.tokens.append(int(tok))
+        res.exited.append(bool(o["exited"][0, 0]))
+        res.entropy.append(float(o["entropy"][0, 0]))
+        sticky = sticky_policy and (sticky or res.exited[-1])
+    return res
+
+
+def sequential_reference(cfg: ModelConfig, params: dict,
+                         prompt: Sequence[int], decode_tokens: int, *,
+                         tau: float, boundary: int = 0, max_len: int = 128,
+                         device=None) -> ServeResult:
+    """Serve ONE request alone: B=1 prefill + a raw ``make_serve_step``
+    decode loop — the stream the batched engine must reproduce token for
+    token, gate decisions included."""
+    return _sequential(cfg, params, prompt, decode_tokens, tau=tau,
+                       boundary=boundary, max_len=max_len, device=device,
+                       sticky_policy=False)
+
+
+def sequential_sticky_reference(cfg: ModelConfig, params: dict,
+                                prompt: Sequence[int], decode_tokens: int,
+                                *, tau: float, boundary: int = 0,
+                                max_len: int = 128,
+                                device=None) -> ServeResult:
+    """Serve ONE request alone under the sticky policy: after the first gate
+    fire every later tick runs with ``tau = +inf``.  This loop computes the
+    full path every tick, so every cache page stays coherent."""
+    return _sequential(cfg, params, prompt, decode_tokens, tau=tau,
+                       boundary=boundary, max_len=max_len, device=device,
+                       sticky_policy=True)

@@ -1,0 +1,38 @@
+"""Architecture registry of the port (counterpart of ``repro/configs``).
+
+Only glm4-9b is ported so far; every other id of the JAX registry raises a
+``ValueError`` that names the ROADMAP item it waits for."""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = (
+    "phi3_medium_14b",
+    "minitron_8b",
+    "zamba2_1p2b",
+    "whisper_small",
+    "command_r_35b",
+    "deepseek_v3_671b",
+    "glm4_9b",
+    "qwen3_moe_235b_a22b",
+    "paligemma_3b",
+    "rwkv6_3b",
+)
+PORTED = ("glm4_9b",)
+
+# CLI ids use dashes, matching the assignment table.
+CANONICAL = {a.replace("_", "-").replace("-1p2b", "-1.2b"): a for a in ARCH_IDS}
+
+
+def get(arch: str):
+    """Resolve an architecture id (dash or underscore form) to its module."""
+    name = CANONICAL.get(arch, arch).replace("-", "_").replace("1.2b", "1p2b")
+    if name in PORTED:
+        return importlib.import_module(f"repro_torch.configs.{name}")
+    if name in ARCH_IDS:
+        raise ValueError(
+            f"{arch!r} is not ported to repro_torch yet: its mixers and "
+            f"config wait for ROADMAP.md Queue 1, 'Remaining mixers and the "
+            f"configs zoo'; ported: {', '.join(PORTED)}")
+    raise ValueError(f"{arch!r} is not a registered architecture; known: "
+                     f"{', '.join(CANONICAL)}")

@@ -1,0 +1,81 @@
+"""JAX parameters and configs -> the port's.
+
+The caller converts the JAX parameter pytree to numpy first (for example
+``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Stacked
+runs (``lax.scan`` layers) are unstacked along their leading layer axis into
+one dict per layer; every layout (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...)
+is kept, so the conversion is a copy.  This is how the tests give both
+packages the same weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.backbone import build_plan
+
+
+def to_tensor(a, device) -> torch.Tensor:
+    """numpy (including ml_dtypes bfloat16) -> a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy-compatible dtype (``jnp.float32``, ``np.dtype``...) -> torch's."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def config_from_jax(jcfg, **overrides) -> ModelConfig:
+    """The port's ``ModelConfig`` with every field of a JAX ``ModelConfig``
+    (dtypes mapped; ``kernels`` keeps the port's default unless given)."""
+    kw = {}
+    for f in dataclasses.fields(ModelConfig):
+        if f.name == "kernels":
+            continue
+        val = getattr(jcfg, f.name)
+        kw[f.name] = torch_dtype(val) if f.name.endswith("dtype") else val
+    kw.update(overrides)
+    return ModelConfig(**kw)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A JAX ``init_backbone`` parameter tree with numpy leaves -> the
+    port's parameters on ``device`` (default the CUDA card)."""
+    device = resolve_device(device)
+    for key in ("shared_attn", "frontend"):
+        if key in tree:
+            raise NotImplementedError(
+                f"{cfg.name}: parameters {key!r} are not ported yet")
+    conv = lambda t: _map(t, lambda a: to_tensor(a, device))  # noqa: E731
+    segments = []
+    for si, seg in enumerate(build_plan(cfg)):
+        layers = []
+        for ri, run in enumerate(seg):
+            rp = tree["segments"][si][ri]
+            if run.length == 1:
+                layers.append(conv(rp))
+            else:
+                layers.extend(conv(_map(rp, lambda a, i=i: np.asarray(a)[i]))
+                              for i in range(run.length))
+        segments.append(layers)
+    out = {"embed": conv(tree["embed"]), "segments": segments,
+           "head": conv(tree["head"])}
+    if "exit_heads" in tree:
+        out["exit_heads"] = conv(tree["exit_heads"])
+    return out

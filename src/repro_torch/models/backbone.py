@@ -1,0 +1,142 @@
+"""Segmented decoder backbone with Hetero-SplitEE exit heads (counterpart
+of ``repro/models/backbone.py``).
+
+``cfg.exit_layers`` partitions the layers into *segments*; an exit head
+(the paper's client output layer) follows every segment but the last.
+The JAX package stacks runs of identical layers and drives them with
+``lax.scan``; the port keeps one parameter dict per layer
+(``params["segments"][si][li]``) and loops over them in Python.
+``split_ids`` (training's stop-gradient routing) and ``remat`` come with the
+training slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import blocks as blocks_mod
+from repro_torch.models import heads as heads_mod
+from repro_torch.models.common import embed, init_embedding
+
+
+@dataclass(frozen=True)
+class Run:
+    mixer: str            # "attn" | "mla" | "mamba2" | "rwkv6" | "shared_attn"
+    ffn: str
+    start: int            # absolute layer index of the first layer in the run
+    length: int
+
+    @property
+    def shared(self) -> bool:
+        return self.mixer == "shared_attn"
+
+
+def build_plan(cfg: ModelConfig) -> Tuple[Tuple[Run, ...], ...]:
+    """Runs of identical (mixer, ffn) layers, per segment (the layout of the
+    JAX package's stacked parameters, which ``convert`` unstacks)."""
+    plan: List[Tuple[Run, ...]] = []
+    for (lo, hi) in cfg.segments():
+        runs: List[Run] = []
+        l = lo
+        while l < hi:
+            kind = (cfg.block_pattern[l], cfg.ffn_pattern[l])
+            if cfg.block_pattern[l] == "shared_attn":
+                runs.append(Run("shared_attn", cfg.ffn_pattern[l], l, 1))
+                l += 1
+                continue
+            n = 1
+            while (l + n < hi
+                   and (cfg.block_pattern[l + n], cfg.ffn_pattern[l + n]) == kind
+                   and cfg.block_pattern[l + n] != "shared_attn"):
+                n += 1
+            runs.append(Run(kind[0], kind[1], l, n))
+            l += n
+        plan.append(tuple(runs))
+    return tuple(plan)
+
+
+def segment_layers(cfg: ModelConfig, si: int) -> List[Tuple[str, str]]:
+    """(mixer, ffn) of each layer of segment ``si``, in order."""
+    return [(run.mixer, run.ffn) for run in build_plan(cfg)[si]
+            for _ in range(run.length)]
+
+
+def init_backbone(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random weights drawn from ``generator``, on the generator's device."""
+    device = generator.device
+    params: dict = {"embed": init_embedding(cfg.vocab_size, cfg.d_model,
+                                            cfg.param_dtype, generator, device)}
+    params["segments"] = [
+        [blocks_mod.init_block(cfg, mixer, ffn, generator, device)
+         for mixer, ffn in segment_layers(cfg, si)]
+        for si in range(len(cfg.segments()))]
+    if cfg.exit_layers:
+        params["exit_heads"] = [heads_mod.init_exit_head(cfg, generator, device)
+                                for _ in cfg.exit_layers]
+    params["head"] = heads_mod.init_lm_head(cfg, generator, device)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> list:
+    """Decode cache mirroring the parameters: per segment, per layer."""
+    return [[blocks_mod.init_block_cache(cfg, mixer, ffn, batch, max_len,
+                                         dtype, device)
+             for mixer, ffn in segment_layers(cfg, si)]
+            for si in range(len(cfg.segments()))]
+
+
+@dataclass
+class BackboneOutput:
+    logits: torch.Tensor                               # final (server) logits
+    exit_logits: Tuple[Optional[torch.Tensor], ...]    # one per exit boundary
+    cache: Optional[list]                              # updated in place
+
+
+def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
+                    positions: torch.Tensor, cache: Optional[list] = None,
+                    cache_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layers of segment ``si``; their caches are updated in place."""
+    for li, (mixer, ffn) in enumerate(segment_layers(cfg, si)):
+        x, _ = blocks_mod.block_forward(
+            params["segments"][si][li], x, positions, cfg, mixer, ffn,
+            cache=cache[si][li] if cache is not None else None,
+            cache_len=cache_len)
+    return x
+
+
+def backbone_forward(params: dict, cfg: ModelConfig, *,
+                     tokens: torch.Tensor,
+                     cache: Optional[list] = None,
+                     cache_len: Optional[torch.Tensor] = None,
+                     exit_heads: Optional[Iterable[int]] = None
+                     ) -> BackboneOutput:
+    """Run the full network.
+
+    tokens     : (B, T) integers.
+    cache      : decode cache from ``init_cache``, updated in place;
+                 ``cache_len`` (B,) tokens already written per row.
+    exit_heads : the boundaries whose exit logits to compute (``None`` = all;
+                 the others come back as ``None``).  Under ``jit`` XLA drops
+                 exit heads nobody reads; eager PyTorch is told instead.
+    """
+    n_seg = len(cfg.segments())
+    want = set(range(n_seg - 1) if exit_heads is None else exit_heads)
+    x = embed(params["embed"], tokens).to(cfg.dtype)
+    steps = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = (steps[None] if cache_len is None
+                 else cache_len.long()[:, None] + steps)
+
+    exit_logits: List[Optional[torch.Tensor]] = []
+    for si in range(n_seg):
+        x = segment_forward(params, cfg, si, x, positions, cache, cache_len)
+        if si < n_seg - 1:
+            exit_logits.append(
+                heads_mod.exit_head(params["exit_heads"][si], x, cfg)
+                if si in want else None)
+    logits = heads_mod.lm_head(params["head"], x, cfg)
+    return BackboneOutput(logits=logits, exit_logits=tuple(exit_logits),
+                          cache=cache)
