@@ -8,17 +8,27 @@ Phases:
            (one nvcc per source, all started together) and prints the card's
            name and power limit;
   kernels  holds each kernel against its plain PyTorch version on the card,
-           at the serve shapes of full-width glm4-9b plus a sliding-window
-           and an fp32 case;
+           at the serve and train shapes of full-width glm4-9b plus
+           sliding-window, non-causal, head-dim 32 and fp32 cases, and the
+           autograd site of training against autograd of the plain forward;
   parity   glm4-9b smoke in fp32: the batched ServeSession against the
-           port's sequential references, token and gate exact;
-  main     the main path: ServeSession on full-width glm4-9b in bf16 (40
+           port's sequential references, token and gate exact; three train
+           steps (eq1, sum, eq1 with remat) with the kernels against the
+           plain versions;
+  main     the serving path: ServeSession on full-width glm4-9b in bf16 (40
            layers, random weights from a seeded torch.Generator on the card),
            8 slots, 16 requests, under the select and the sticky policy; each
            run starts with every launch count at 0 and must launch both
            kernels;
-  timing   each kernel, its plain version and (for attention) PyTorch's SDPA
-           timed at the main path's shapes, beside the bound for the work.
+  train    the training path: make_train_step on glm4-9b at its published
+           widths with the depth cut to 8 layers (exits 2, 4, 6; 12 client
+           groups), bf16 weights, fp32 Adam, batch 12 x 128 tokens of
+           SyntheticLMDataset(seed=0); warm-up, timed eq1 and sum steps with
+           every launch count set to 0 first, a loss check on the first
+           batch, then a traced window of 2 steps;
+  timing   each kernel, its plain version and PyTorch's one-call equivalent
+           (SDPA forward, SDPA backward) timed at the main path's shapes,
+           beside the bound for the work.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -29,18 +39,26 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# before torch initialises CUDA: the train phase holds ~70 GB in tensors of
+# very different sizes, and the serve phase's freed weights must not
+# fragment the pool it allocates from
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
-PHASES = ("build", "kernels", "parity", "main", "timing")
+PHASES = ("build", "kernels", "parity", "main", "train", "timing")
+KERNELS = ("entropy_exit", "flash_attention", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq")
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -53,9 +71,32 @@ TOL_ATTN_BF16 = 2e-2
 TOL_LSE = 1e-4
 TOL_H = 1e-4
 GATE_MARGIN = 1e-3      # exits must agree wherever |H - tau| exceeds this
+# attention backward: each kernel's fp32 output against its plain version,
+# fp32 and bf16 operands alike (both sides compute in fp32 from the same
+# values: reassociation only; 2e-4 is the JAX kernel-level gate); the
+# wrapper's bf16 gradients compared in fp32 at atol 1e-2 + rtol 1e-2 (one
+# bf16 rounding of the result); the autograd site against autograd of the
+# plain forward at 1e-4 (fp32) and, in bf16, 1e-2 of each tensor's largest
+# magnitude (the kernels form delta = rowsum(dO * O) from the bf16 output,
+# where autograd of the plain forward differentiates through fp32
+# probabilities: 3.4e-3 of the scale with the plain versions on the CPU)
+TOL_BWD = 2e-4
+TOL_BWD_BF16 = 1e-2
+TOL_SITE_F32 = 1e-4
+TOL_SITE_BF16 = 1e-2
+# train-step parity, fp32 smoke: losses 1e-5; params after 3 Adam steps at
+# most 1 element in 10^3 beyond 1e-6 and none beyond lr (Adam's first steps
+# divide by sqrt(v) ~ |g|, which turns a 1e-9 gradient difference near
+# g = 0 into an update difference of up to lr; measured 4.4e-5 of the
+# elements on an H100)
+TOL_TRAIN_LOSS = 1e-5
+TRAIN_PARAM_FRACTION = 1e-3
 
-# the main path's shapes (glm4-9b, 8 slots, max_len 161)
+# the serving path's shapes (glm4-9b, 8 slots, max_len 161)
 SLOTS, REQUESTS, DECODE, MAX_LEN = 8, 16, 32, 161
+# the training path: glm4-9b cut to 8 layers, batch 12 x 128 tokens
+TRAIN_LAYERS, TRAIN_B, TRAIN_T = 8, 12, 128
+TRAIN_WARM, TRAIN_EQ1, TRAIN_SUM = 2, 10, 3
 
 
 class Failed(Exception):
@@ -207,6 +248,103 @@ def phase_kernels(state):
     gate_case("(8,2053) vocab tail", torch.float32, 2048 + 5)
     gate_case("(8,97) vocab tail", torch.bfloat16, 97)
 
+    bwd_kernel_cases(gen, errs)
+    autograd_site_cases(gen)
+
+
+def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
+    """q, k, v, dO in the model's (B, T, H, D) layout, as transposed views."""
+    return tuple(torch.randn(B, T, h, D, generator=gen, device="cuda")
+                 .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+
+
+def bwd_kernel_cases(gen, errs):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_bwd_dq_ref,
+                                         flash_attention_bwd_ref,
+                                         flash_attention_ref)
+
+    def case(name, dtype, *, B, H, Hkv, T, D=128, causal=True, window=None,
+             main=False):
+        q, k, v, do = bwd_inputs(gen, dtype, B=B, H=H, Hkv=Hkv, T=T, D=D)
+        o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        kw = dict(causal=causal, window=window)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse,
+                                                       delta, **kw)
+        want_dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        wants = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        d_dkv = max((dk - want_dk).abs().max().item(),
+                    (dv - want_dv).abs().max().item())
+        d_dq = (dq - want_dq).abs().max().item()
+        check(d_dkv <= TOL_BWD and d_dq <= TOL_BWD,
+              f"attention bwd {name} {dtype}: kernel fp32 outputs max|d| "
+              f"dK/dV {d_dkv:.3e}, dQ {d_dq:.3e} <= {TOL_BWD:g}")
+        tol = TOL_BWD if dtype == torch.float32 else TOL_BWD_BF16
+        ok = all(g.dtype == p.dtype and bool(
+            ((g.float() - w).abs() <= tol + (0 if dtype == torch.float32
+                                             else tol) * w.abs()).all())
+            for g, w, p in zip(grads, wants, (q, k, v)))
+        check(ok, f"attention bwd {name} {dtype}: wrapper grads in the "
+                  f"primal dtype within {tol:g}"
+                  + ("" if dtype == torch.float32 else f" + {tol:g}|g|"))
+        if main:
+            errs["flash_attention_bwd_dkv"] = max(
+                errs.get("flash_attention_bwd_dkv", 0.0), d_dkv)
+            errs["flash_attention_bwd_dq"] = max(
+                errs.get("flash_attention_bwd_dq", 0.0), d_dq)
+
+    train = dict(B=TRAIN_B, H=32, Hkv=2, T=TRAIN_T)
+    case("train (12,32,128,128)/(12,2,128,128) causal GQA16", torch.bfloat16,
+         main=True, **train)
+    case("train shape causal GQA16", torch.float32, **train)
+    case("sliding window 16, T=100", torch.float32, B=2, H=8, Hkv=2, T=100,
+         window=16)
+    case("sliding window 16, T=100", torch.bfloat16, B=2, H=8, Hkv=2, T=100,
+         window=16)
+    case("non-causal T=70", torch.float32, B=2, H=4, Hkv=4, T=70,
+         causal=False)
+    case("head_dim 32 causal T=64", torch.float32, B=2, H=8, Hkv=2, T=64,
+         D=32)
+    case("head_dim 32 causal T=64", torch.bfloat16, B=2, H=8, Hkv=2, T=64,
+         D=32)
+
+
+def autograd_site_cases(gen):
+    """The training site (kernels="auto": FlashAttentionFn over the forward
+    and both backward kernels) against autograd of the plain forward."""
+    from repro_torch.kernels import dispatch
+    for dtype, tol in ((torch.float32, TOL_SITE_F32),
+                       (torch.bfloat16, TOL_SITE_BF16)):
+        leaves = [torch.randn(4, TRAIN_T, h, 128, generator=gen,
+                              device="cuda").to(dtype) for h in (32, 2, 2)]
+        cot = torch.randn(4, TRAIN_T, 32, 128, generator=gen,
+                          device="cuda").to(dtype)
+        res = []
+        for name in ("auto", "ref"):
+            q, k, v = (t.clone().requires_grad_() for t in leaves)
+            out = dispatch.get_backend(name).attention(q, k, v, causal=True)
+            out.backward(cot)
+            res.append([t.float() for t in (out, q.grad, k.grad, v.grad)])
+        torch.cuda.synchronize()
+        scale = ([1.0] * 4 if dtype == torch.float32
+                 else [b.abs().max().item() for b in res[1]])
+        d = [(a - b).abs().max().item() / s
+             for a, b, s in zip(*res, scale)]
+        check(max(d) <= tol,
+              f"autograd site (4,128,32,128)/(4,128,2,128) causal {dtype}: "
+              f"out, dq, dk, dv vs autograd of the plain forward, max|d|"
+              f"{'' if dtype == torch.float32 else ' / max|ref|'} "
+              f"{', '.join(f'{x:.2e}' for x in d)} <= {tol:g}")
+
 
 def phase_parity(state):
     from repro_torch.api.serve_session import (ServeSession,
@@ -249,6 +387,61 @@ def phase_parity(state):
         if tau > math.log(cfg.vocab_size):
             check(sess.stats.client_only_ticks > 0,
                   "smoke sticky above ln V: client-only ticks ran")
+    train_parity()
+
+
+def train_parity(steps: int = 3) -> None:
+    """glm4-9b smoke, fp32, TF32 off: make_train_step with the kernels
+    (kernels="auto") against the plain versions (kernels="ref")."""
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig, TrainConfig)
+    from repro_torch.configs import glm4_9b
+    from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
+                                       make_train_step)
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import tree_leaves
+    base = glm4_9b.smoke()
+    profile = HeteroProfile((1, 1, 2, 2))
+    lr = 1e-3
+    rng = np.random.default_rng(2)
+    sids = boundary_ids_for_batch(profile, base, 8, "cuda")
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, base.vocab_size,
+                                                       (8, 32)), device="cuda"),
+                "labels": torch.as_tensor(rng.integers(0, base.vocab_size,
+                                                       (8, 32)), device="cuda"),
+                "split_ids": sids} for _ in range(steps)]
+    for grad_mode, remat in (("eq1", "none"), ("sum", "none"),
+                             ("eq1", "full")):
+        runs = []
+        for kernels in ("auto", "ref"):
+            cfg = base.with_(kernels=kernels)
+            sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
+                            train=TrainConfig(optimizer=OptimizerConfig(
+                                lr=lr, total_steps=2 * steps), remat=remat),
+                            grad_mode=grad_mode)
+            params = init_backbone(
+                torch.Generator(device="cuda").manual_seed(0), cfg)
+            opt = adam_init(params, sc.train.optimizer)
+            step = make_train_step(sc)
+            losses = []
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                losses.append([float(v) for k, v in sorted(m.items())
+                               if k != "lr"])
+            runs.append((params, np.asarray(losses)))
+        (p0, l0), (p1, l1) = runs
+        d_loss = float(np.abs(l0 - l1).max())
+        d = torch.cat([(a - b).abs().flatten()
+                       for a, b in zip(tree_leaves(p0), tree_leaves(p1))])
+        n_off = int((d > 1e-6).sum())
+        check(d_loss <= TOL_TRAIN_LOSS and d.max().item() <= lr
+              and n_off <= TRAIN_PARAM_FRACTION * d.numel(),
+              f"smoke fp32 train {grad_mode} remat={remat}: {steps} steps "
+              f"kernels vs plain, losses max|d|={d_loss:.2e} <= "
+              f"{TOL_TRAIN_LOSS:g}; params max|d|={d.max().item():.2e} <= lr,"
+              f" {n_off} of {d.numel()} beyond 1e-6 (<= "
+              f"{TRAIN_PARAM_FRACTION:g} of them)")
 
 
 def weight_bytes(tree) -> int:
@@ -356,22 +549,18 @@ def phase_main(state):
     torch.cuda.empty_cache()
 
 
-def profile_ticks(cfg, params, prompts, ticks: int = 5) -> None:
-    """Device busy share over a few select decode ticks (a separate, traced
-    run: the tick times above are measured untraced)."""
+def traced(run, n: int, what: str, top: int = 6) -> dict:
+    """``run()`` n times under torch.profiler: wall time, device busy time
+    (the sum of device kernel times) and idle share per run, and the
+    largest device kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.api.serve_session import ServeSession
-    sess = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=MAX_LEN)
-    for p in prompts[:SLOTS]:
-        sess.submit(p, decode_tokens=DECODE)
-    sess.step()                     # the admission tick, not traced
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            sess.step()
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -379,13 +568,136 @@ def profile_ticks(cfg, params, prompts, ticks: int = 5) -> None:
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile select, {ticks} decode ticks traced: {wall_us / ticks / 1e3:.3f}"
-          f" ms per tick, device busy {busy_us / ticks / 1e3:.3f} ms per tick "
-          f"(idle share {1 - busy_us / wall_us:.3f}), "
-          f"{len(kernels) / ticks:.0f} device kernels per tick")
-    for name, us in top:
-        print(f"  {us / ticks / 1e3:8.3f} ms/tick  {name[:90]}")
+    print(f"profile {what}, {n} traced: {wall_us / n / 1e3:.3f} ms each, "
+          f"device busy {busy_us / n / 1e3:.3f} ms each (idle share "
+          f"{1 - busy_us / wall_us:.3f}), {len(kernels) / n:.0f} device "
+          f"kernels each")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / n / 1e3:8.3f} ms each  {name[:90]}")
+    return dict(wall_ms=wall_us / n / 1e3, busy_ms=busy_us / n / 1e3,
+                idle_share=1 - busy_us / wall_us)
+
+
+def profile_ticks(cfg, params, prompts, ticks: int = 5) -> None:
+    """Device busy share over a few select decode ticks (a separate, traced
+    run: the tick times above are measured untraced)."""
+    from repro_torch.api.serve_session import ServeSession
+    sess = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=MAX_LEN)
+    for p in prompts[:SLOTS]:
+        sess.submit(p, decode_tokens=DECODE)
+    sess.step()                     # the admission tick, not traced
+    traced(sess.step, ticks, "select decode tick")
+
+
+def phase_train(state):
+    from repro_torch.config import OptimizerConfig, SplitEEConfig, TrainConfig
+    from repro_torch.configs import glm4_9b
+    from repro_torch.core.losses import softmax_cross_entropy
+    from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
+                                       make_train_step)
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.models.backbone import backbone_forward, init_backbone
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import tree_leaves
+
+    cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
+    n_steps = TRAIN_WARM + TRAIN_EQ1 + TRAIN_SUM + 2
+    opt_cfg = OptimizerConfig(lr=3e-4, total_steps=n_steps)
+    t0 = time.perf_counter()
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adam_init(params, opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"train: glm4-9b widths cut to {cfg.num_layers} layers, exits "
+          f"{cfg.exit_layers}, {profile.num_groups} client groups "
+          f"{profile.split_layers}; {n_params / 1e9:.3f} B params "
+          f"({weight_bytes(params) / 1e9:.2f} GB bf16) + fp32 Adam m/v "
+          f"({weight_bytes(opt.m) * 2 / 1e9:.2f} GB), set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+                            seed=0)
+    sids = boundary_ids_for_batch(profile, cfg, TRAIN_B, "cuda")
+    batches = [{"tokens": torch.as_tensor(t, device="cuda"),
+                "labels": torch.as_tensor(lab, device="cuda"),
+                "split_ids": sids}
+               for t, lab in ds.batches(TRAIN_B, n_steps)]
+    tokens = TRAIN_B * TRAIN_T
+
+    def first_batch_loss() -> float:
+        with torch.no_grad():
+            out = backbone_forward(params, cfg, tokens=batches[0]["tokens"],
+                                   exit_heads=())
+            return float(softmax_cross_entropy(out.logits,
+                                               batches[0]["labels"]))
+
+    steps = {mode: make_train_step(StepConfig(
+        model=cfg, splitee=SplitEEConfig(profile=profile),
+        train=TrainConfig(optimizer=opt_cfg), grad_mode=mode))
+        for mode in ("eq1", "sum")}
+    loss0 = first_batch_loss()
+    it = iter(batches)
+    metrics = []
+
+    def one_step(mode):
+        nonlocal params, opt
+        params, opt, m = steps[mode](params, opt, next(it))
+        metrics.append(m)
+
+    counters = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+
+    def run(mode, n):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            one_step(mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / n * 1e3
+        return ms, [(c.launches - b) / n for c, b in zip(counters, before)]
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    run("eq1", TRAIN_WARM)
+    timed = {"eq1": run("eq1", TRAIN_EQ1), "sum": run("sum", TRAIN_SUM)}
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    loss1 = first_batch_loss()
+    train = dict(params=n_params, peak_gib=peak / 2**30, loss0=loss0,
+                 loss1=loss1, launches=launches)
+    for mode, (ms, per_step) in timed.items():
+        flops = 6 * n_params * tokens * (1.5 if mode == "eq1" else 1.0)
+        share = flops / (ms / 1e3 * PEAK_OPS_PER_S[torch.bfloat16])
+        print(f"train {mode}: {ms:.1f} ms per step, "
+              f"{tokens / ms * 1e3:,.0f} tokens/s, share of the bf16 peak "
+              f"{share:.4f} (6 x params x tokens"
+              f"{' x 1.5' if mode == 'eq1' else ''} over step time x "
+              f"989 TF/s); launches per step: flash_attention "
+              f"{per_step[0]:g}, dK/dV {per_step[1]:g}, dQ {per_step[2]:g}")
+        train[mode] = dict(ms=ms, tok_s=tokens / ms * 1e3, peak_share=share,
+                           launches_per_step=per_step)
+        check(min(per_step) > 0 and per_step[0] == cfg.num_layers,
+              f"train {mode}: all three attention kernels launched every "
+              f"step, one forward launch per layer")
+    print(f"train: peak memory {peak / 2**30:.2f} GiB; first batch server "
+          f"loss {loss0:.4f} before, {loss1:.4f} after "
+          f"{TRAIN_WARM + TRAIN_EQ1 + TRAIN_SUM} steps")
+    finite = all(math.isfinite(float(v)) for m in metrics
+                 for v in m.values())
+    check(finite, "train: every step's losses finite")
+    check(loss1 < loss0, "train: the first batch's server loss fell")
+    train["profile"] = traced(lambda: one_step("eq1"), 2, "eq1 train step")
+    state["train"] = train
+    for name, n in launches.items():
+        launches_all = state.setdefault("launches", {})
+        launches_all[name] = launches_all.get(name, 0) + n
+    del params, opt, metrics
+    torch.cuda.empty_cache()
 
 
 def phase_timing(state):
@@ -448,7 +760,67 @@ def phase_timing(state):
         library_ms=None,
         bytes=x.numel() * 2 + 3 * 4 * x.shape[0], ops=4 * x.numel(),
         dtype=torch.float32))
+    rows.extend(time_backward(gen, buf, state))
     state["timing"] = rows
+
+
+def time_backward(gen, buf, state):
+    """The two backward kernels at the train shape (B=12, H=32, Hkv=2,
+    T=128, D=128, bf16, causal), each beside its plain version and the
+    backward of PyTorch's SDPA (one call computing dQ, dK and dV)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_bwd_dq_ref,
+                                         flash_attention_ref)
+    B, H, Hkv, T, D = TRAIN_B, 32, 2, TRAIN_T, 128
+    q, k, v, do = bwd_inputs(gen, torch.bfloat16, B=B, H=H, Hkv=Hkv, T=T,
+                             D=D)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    n_pairs = T * (T + 1) // 2
+    mm = 2 * B * H * n_pairs * D            # one block matmul over the band
+    io = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * H * T
+    sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                              enable_gqa=True)
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (sq, sk, sv), do, retain_graph=True), buf)
+    state["train_fwd_timing"] = dict(
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                           return_lse=True), buf),
+        plain_ms=time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, return_lse=True), buf),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), buf),
+        bound_ms=max((2 * q.numel() + 2 * k.numel()) * 2 / HBM_BYTES_PER_S,
+                     2 * mm / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3)
+    shape = "train q/dO (12,32,128,128) bf16, k/v (12,2,128,128), causal"
+    return [
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:313",
+             shape=shape,
+             ms=time_ms(lambda: flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, causal=True), buf),
+             plain_ms=time_ms(lambda: flash_attention_bwd_dkv_ref(
+                 q, k, v, do, lse, delta, causal=True), buf),
+             library_ms=sdpa_ms,
+             bytes=io + 2 * 4 * k.numel(), ops=4 * mm,
+             dtype=torch.bfloat16),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:357",
+             shape=shape,
+             ms=time_ms(lambda: flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta, causal=True), buf),
+             plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
+                 q, k, v, do, lse, delta, causal=True), buf),
+             library_ms=sdpa_ms,
+             bytes=io + 4 * q.numel(), ops=3 * mm,
+             dtype=torch.bfloat16),
+    ]
 
 
 def kernels_line(state) -> dict:
@@ -496,7 +868,8 @@ def main() -> int:
             failed.append(name)
         print(f"== {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    if "timing" in state and "launches" in state and "max_abs_err" in state:
+    if ("timing" in state and "max_abs_err" in state
+            and set(state.get("launches", ())) >= set(KERNELS)):
         line = kernels_line(state)
         if "prefill_timing" in state:
             pt = state["prefill_timing"]
@@ -504,6 +877,14 @@ def main() -> int:
                   f"causal bf16: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}"
                   f" ms, SDPA {pt['library_ms']:.4f} ms, bound "
                   f"{pt['bound_ms']:.5f} ms")
+        if "train_fwd_timing" in state:
+            pt = state["train_fwd_timing"]
+            print("flash_attention train forward with lse (12,32,128,128)/"
+                  f"(12,2,128,128) causal bf16: {pt['ms']:.4f} ms, plain "
+                  f"{pt['plain_ms']:.4f} ms, SDPA {pt['library_ms']:.4f} ms, "
+                  f"bound {pt['bound_ms']:.5f} ms")
+        print("library time of both backward rows: one SDPA backward "
+              "computing dQ, dK and dV together")
         for k in line["kernels"]:
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")

@@ -1,5 +1,6 @@
-"""Public serving API of the port (``TrainSession`` comes with the training
-slice).
+"""Public serving API of the port (``TrainSession`` waits for the paper's
+loop, ROADMAP.md Queue 1 item 3; the fused train steps are in
+``repro_torch.core.spmd``).
 
     from repro_torch.api import ServeSession
     session = ServeSession(cfg, params, tau=2.0, slots=8, max_len=161)

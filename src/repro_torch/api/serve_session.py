@@ -24,15 +24,16 @@ kernels read them without a host sync; a tick brings its tokens, exits and
 entropies to the host in one transfer.  The decode step writes each slot's
 new K/V into the pool in place.
 
-``restore`` (serving a ``TrainSession`` checkpoint) and ``mesh=`` come with
-the training slice.
+``restore`` (serving a ``TrainSession`` checkpoint) waits for checkpoint
+restore and ``mesh=`` for the multi-GPU engine (ROADMAP.md Queue 1 items 6
+and 9).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (backbone_forward, init_cache,
                                          segment_forward)
 from repro_torch.models.common import embed
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def resolve_serve_boundary(cfg: ModelConfig, boundary: int
@@ -111,25 +113,6 @@ class ServeStats:
         return self.exited / max(1, self.tokens)
 
 
-def _leaves(tree) -> Iterator[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _leaves(tree[key])
-    else:
-        for item in tree:
-            yield from _leaves(item)
-
-
-def _to_device(tree, device):
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return [_to_device(v, device) for v in tree]
-
-
 class ServeSession:
     """Continuous-batching entropy-gated decode over a fixed slot pool."""
 
@@ -152,7 +135,7 @@ class ServeSession:
         self.exit_policy = exit_policy
         self.sc, self.cut, self.skip_frac = serve_step_config(
             cfg, tau, boundary)
-        self.params = _to_device(params, self.device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
         self._pool = init_cache(cfg, slots, max_len, cfg.dtype, self.device)
         self._step = make_serve_step(self.sc, boundary=boundary)
         self._gate = dispatch.backend_for(cfg)
@@ -195,7 +178,8 @@ class ServeSession:
             req = self._queue.popleft()
             page, tok0 = _prefill(self.cfg, self.params, req.prompt,
                                   self.max_len, self.device)
-            for pool_t, page_t in zip(_leaves(self._pool), _leaves(page)):
+            for pool_t, page_t in zip(tree_leaves(self._pool),
+                                      tree_leaves(page)):
                 pool_t[s].copy_(page_t[0])
             self._toks[s] = tok0
             self._lens[s] = len(req.prompt)
@@ -314,7 +298,7 @@ def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
                 decode_tokens: int, *, tau: float, boundary: int,
                 max_len: int, device, sticky_policy: bool) -> ServeResult:
     device = resolve_device(device)
-    params = _to_device(params, device)
+    params = tree_map(lambda t: t.to(device), params)
     sc, _, _ = serve_step_config(cfg, tau, boundary)
     step = make_serve_step(sc, boundary=boundary)
     prompt = np.asarray(prompt, np.int32).reshape(-1)

@@ -2,14 +2,15 @@
 
 The JAX module imports ``jax.numpy`` for its dtype defaults, so the port
 keeps its own copy with torch dtypes.  Field names and defaults mirror the
-JAX ``ModelConfig``, ``HeteroProfile`` and ``SplitEEConfig`` one for one
-(tests/test_torch_models.py checks the field lists), so a config reads the
+JAX ``ModelConfig``, ``HeteroProfile``, ``SplitEEConfig``,
+``OptimizerConfig`` and ``TrainConfig`` one for one (tests/test_torch_models.py
+and tests/test_torch_train.py check the field lists), so a config reads the
 same in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
@@ -124,3 +125,35 @@ class SplitEEConfig:
         if self.server_lr_divisor > 0:
             return self.server_lr_divisor
         return float(self.profile.num_groups) if self.strategy == "sequential" else 1.0
+
+
+# ---------------------------------------------------------------------------
+# Training / optimizer config (paper Table II defaults)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"
+    lr: float = 1e-3                   # eta_max
+    min_lr: float = 1e-6               # eta_min
+    schedule: str = "cosine"           # cosine annealing | constant
+    warmup_steps: int = 0
+    total_steps: int = 600
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    state_dtype: Any = torch.float32   # Adam m/v dtype
+    grad_clip: float = 0.0             # 0 = off
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 1024
+    seq_len: int = 0
+    global_rounds: int = 600
+    local_epochs: int = 1
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    remat: str = "none"                # none | full | dots_saveable
+    seed: int = 0

@@ -1,4 +1,4 @@
-"""JAX parameters and configs -> the port's.
+"""JAX parameters, Adam states and configs -> the port's.
 
 The caller converts the JAX parameter pytree to numpy first (for example
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Stacked
@@ -17,6 +17,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import build_plan
+from repro_torch.optim import AdamState
+from repro_torch.tree import tree_map
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -46,14 +48,6 @@ def config_from_jax(jcfg, **overrides) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """A JAX ``init_backbone`` parameter tree with numpy leaves -> the
     port's parameters on ``device`` (default the CUDA card)."""
@@ -62,7 +56,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
         if key in tree:
             raise NotImplementedError(
                 f"{cfg.name}: parameters {key!r} are not ported yet")
-    conv = lambda t: _map(t, lambda a: to_tensor(a, device))  # noqa: E731
+    conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
     segments = []
     for si, seg in enumerate(build_plan(cfg)):
         layers = []
@@ -71,7 +65,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
             if run.length == 1:
                 layers.append(conv(rp))
             else:
-                layers.extend(conv(_map(rp, lambda a, i=i: np.asarray(a)[i]))
+                layers.extend(conv(tree_map(lambda a, i=i: np.asarray(a)[i], rp))
                               for i in range(run.length))
         segments.append(layers)
     out = {"embed": conv(tree["embed"]), "segments": segments,
@@ -79,3 +73,14 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     if "exit_heads" in tree:
         out["exit_heads"] = conv(tree["exit_heads"])
     return out
+
+
+def adam_state_from_jax(state, cfg: ModelConfig, device=None):
+    """A JAX ``AdamState`` with numpy leaves (``jax.tree.map(np.asarray,
+    opt_state)``) -> the port's :class:`repro_torch.optim.AdamState` on
+    ``device`` (default the CUDA card): the moments unstacked as
+    :func:`params_from_jax` unstacks the parameters, the step a host
+    integer.  A JAX run can then be continued in the port."""
+    return AdamState(step=int(np.asarray(state.step)),
+                     m=params_from_jax(state.m, cfg, device),
+                     v=params_from_jax(state.v, cfg, device))

@@ -1,25 +1,293 @@
-"""Step configuration and the gated serve step (counterpart of the serving
-part of ``repro/core/spmd.py``; the training steps come with the training
-slice)."""
+"""Fused Hetero-SplitEE train and serve steps for the production backbone
+(counterpart of ``repro/core/spmd.py``: the monolithic train steps and the
+serve step; the cohort steps of the engines wait for ROADMAP.md Queue 1
+item 4).
+
+Client groups tile the batch; every example runs the full network; the
+paper's gradient routing is a per-example stop-gradient at the example's
+split boundary (``backbone_forward(split_ids=)``), and Eq. (1) cross-layer
+aggregation becomes a per-layer gradient scale over participation counts.
+
+Two gradient modes:
+  * ``eq1`` (paper-faithful): the client-family and the server-family
+    gradients are pulled separately through one shared forward (two
+    ``torch.autograd.grad`` passes) and each layer's gradient is scaled by
+    its participation count: 1/|{g : l_g > l}| for the client family,
+    1/|C_l| for the server family.
+  * ``sum``: one backward pass of the summed loss, no per-layer scaling.
+
+The train steps update the parameters and the Adam moments in place
+(``optim/adam.py`` says why) and return them with the metrics.
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Callable
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig, SplitEEConfig
-from repro_torch.core.losses import softmax_entropy
+from repro_torch.config import (HeteroProfile, ModelConfig, SplitEEConfig,
+                                TrainConfig)
+from repro_torch.core.aggregation import participation_counts
+from repro_torch.core.losses import softmax_cross_entropy, softmax_entropy
+from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
-from repro_torch.models.backbone import backbone_forward
+from repro_torch.models.backbone import BackboneOutput, backbone_forward
+from repro_torch.optim import adam_update, make_schedule
+from repro_torch.tree import tree_leaves, tree_map
+
+GRAD_MODES = ("eq1", "sum")
+
+
+# ---------------------------------------------------------------------------
+# split-id assignment
+# ---------------------------------------------------------------------------
+
+
+def boundary_ids_for_batch(profile: HeteroProfile, cfg: ModelConfig,
+                           batch: int, device=None) -> torch.Tensor:
+    """Per-example boundary index, (batch,) int32 on ``device`` (default
+    the CUDA card): group g (the g-th contiguous slice of the batch) gets
+    the boundary index of its split layer.  Split layers must be members
+    of ``cfg.exit_layers``."""
+    bounds = {l: b for b, l in enumerate(sorted(cfg.exit_layers))}
+    ids: List[int] = []
+    per = batch // profile.num_groups
+    rem = batch - per * profile.num_groups
+    for g, li in enumerate(profile.split_layers):
+        ids.extend([bounds[li]] * (per + (1 if g < rem else 0)))
+    return torch.tensor(ids, dtype=torch.int32, device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# per-layer participation scales (the Eq. 1 normalization)
+# ---------------------------------------------------------------------------
+
+
+def participation_scale_trees(params: Any, cfg: ModelConfig,
+                              profile: HeteroProfile) -> Tuple[Any, Any]:
+    """(client_scale, server_scale), trees shaped like ``params`` with one
+    float per leaf: 1/#participants for the family that trains the leaf,
+    0 when the family never reaches it.  The port keeps one dict per
+    layer, so a layer's scale is one scalar (the JAX package broadcasts a
+    per-layer vector over its stacked runs)."""
+    N = profile.num_groups
+    n_client, n_server = participation_counts(profile.split_layers,
+                                              cfg.num_layers)
+    inv = lambda n: (1.0 / n) if n > 0 else 0.0  # noqa: E731
+    fill = lambda tree, val: tree_map(lambda _: val, tree)  # noqa: E731
+
+    # the embedding is reached by every group's exit loss and never by the
+    # server family (a stop-gradient sits above it on every example's path)
+    cs: Dict[str, Any] = {"embed": fill(params["embed"], inv(N))}
+    ss: Dict[str, Any] = {"embed": fill(params["embed"], 0.0)}
+    cs["segments"], ss["segments"] = [], []
+    for (lo, _), seg in zip(cfg.segments(), params["segments"]):
+        cs["segments"].append([fill(p, inv(n_client[lo + li]))
+                               for li, p in enumerate(seg)])
+        ss["segments"].append([fill(p, inv(n_server[lo + li]))
+                               for li, p in enumerate(seg)])
+    if "exit_heads" in params:
+        cs["exit_heads"], ss["exit_heads"] = [], []
+        for p, l in zip(params["exit_heads"], sorted(cfg.exit_layers)):
+            cnt = sum(1 for s in profile.split_layers if s == l)
+            cs["exit_heads"].append(fill(p, inv(cnt)))
+            ss["exit_heads"].append(fill(p, 0.0))
+    cs["head"] = fill(params["head"], 0.0)
+    ss["head"] = fill(params["head"], inv(N))
+    return cs, ss
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def hetero_losses(out: BackboneOutput, labels: torch.Tensor,
+                  split_ids: torch.Tensor, num_boundaries: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Dict[str, torch.Tensor]]:
+    """(client_total, server_total, metrics).  ``client_total`` sums each
+    boundary's masked-mean exit CE (one term per client group family);
+    ``server_total`` is the final-head CE over all examples."""
+    client_total = torch.zeros((), device=labels.device)
+    metrics: Dict[str, torch.Tensor] = {}
+    for b in range(num_boundaries):
+        mask = (split_ids == b).float()
+        m = mask[:, None].expand(labels.shape) if labels.ndim == 2 else mask
+        ce = softmax_cross_entropy(out.exit_logits[b], labels, m)
+        ce = torch.where(mask.sum() > 0, ce, torch.zeros_like(ce))
+        client_total = client_total + ce
+        metrics[f"client_loss/b{b}"] = ce
+    server_loss = softmax_cross_entropy(out.logits, labels)
+    metrics["server_loss"] = server_loss
+    return client_total, server_loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class StepConfig:
     model: ModelConfig
     splitee: SplitEEConfig
-    train: Any = None                 # TrainConfig, with the training slice
+    train: TrainConfig = field(default_factory=TrainConfig)
     grad_mode: str = "eq1"            # "eq1" | "sum"
+
+
+class _Trainable:
+    """The parameter leaves, made to require grad for the duration of a
+    ``with`` block (their flags are restored after)."""
+
+    def __init__(self, params):
+        self.leaves = list(tree_leaves(params))
+
+    def __enter__(self):
+        self._flags = [p.requires_grad for p in self.leaves]
+        for p in self.leaves:
+            p.requires_grad_(True)
+        return self.leaves
+
+    def __exit__(self, *exc):
+        for p, flag in zip(self.leaves, self._flags):
+            p.requires_grad_(flag)
+
+
+def _scaled_sum(gc: Optional[torch.Tensor], gs: Optional[torch.Tensor],
+                a: float, b: float) -> Optional[torch.Tensor]:
+    """gc * a + gs * b in place in one of the two buffers; a gradient that
+    was not pulled (``None``) counts as zero."""
+    if gc is None:
+        return None if gs is None else gs.mul_(b)
+    return gc.mul_(a) if gs is None else gc.mul_(a).add_(gs, alpha=b)
+
+
+def _pull(loss: torch.Tensor, leaves: List[torch.Tensor],
+          scales: List[float], retain_graph: bool
+          ) -> List[Optional[torch.Tensor]]:
+    """d loss / d leaf for the leaves whose scale is not 0 (``None`` for
+    the others).  Asking only for those keeps autograd off paths whose
+    gradient the scale zeroes: the server loss reaches the layers below
+    the lowest cut and the embedding only through all-zero cotangents (the
+    per-example stop-gradient is a ``where``)."""
+    want = [i for i, s in enumerate(scales) if s != 0]
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    if want:
+        got = torch.autograd.grad(loss, [leaves[i] for i in want],
+                                  retain_graph=retain_graph,
+                                  allow_unused=True)
+        for i, g in zip(want, got):
+            out[i] = g
+    return out
+
+
+def _check_grad_mode(grad_mode: str) -> None:
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}; expected one of "
+                         f"{GRAD_MODES}")
+
+
+def make_train_step(sc: StepConfig) -> Callable:
+    """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``batch`` = {"tokens": (B, T), "labels": (B, T),
+    "split_ids": (B,)} on the parameters' device.  Metrics:
+    ``client_loss/b{i}`` and ``server_loss`` (0-d tensors on the device)
+    and ``lr`` (a float)."""
+    _check_grad_mode(sc.grad_mode)
+    cfg = sc.model
+    nb = len(cfg.exit_layers)
+    schedule = make_schedule(sc.train.optimizer)
+    remat = sc.train.remat != "none"
+
+    def train_step(params, opt_state, batch):
+        with _Trainable(params) as leaves:
+            out = backbone_forward(params, cfg, tokens=batch["tokens"],
+                                   split_ids=batch["split_ids"], remat=remat)
+            client, server, metrics = hetero_losses(
+                out, batch["labels"], batch["split_ids"], nb)
+            del out
+            if sc.grad_mode == "eq1":
+                cs, ss = participation_scale_trees(params, cfg,
+                                                   sc.splitee.profile)
+                cs, ss = list(tree_leaves(cs)), list(tree_leaves(ss))
+                g_client = _pull(client, leaves, cs, retain_graph=True)
+                g_server = _pull(server, leaves, ss, retain_graph=False)
+                grads = [_scaled_sum(gc, gs, a, b) for gc, gs, a, b in zip(
+                    g_client, g_server, cs, ss)]
+                del g_client, g_server
+            else:
+                grads = list(torch.autograd.grad(client + server, leaves,
+                                                 allow_unused=True))
+        lr = schedule(opt_state.step)
+        params, opt_state = adam_update(params, grads, opt_state,
+                                        sc.train.optimizer, lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["lr"] = lr
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_sequential_train_step(sc: StepConfig) -> Callable:
+    """Alg. 1 over the production backbone: one update per client group,
+    in group order.
+
+    Each group's slice of the batch updates the client family (embedding,
+    layers below its cut, its exit head) from its exit loss, and the shared
+    server side from the final loss with the paper's LR divisor (eta/N).
+    One backward pass cannot scale the two families separately on layers
+    both reach, so the gradient is blended by participation (exact on
+    pure-client leaves like the embedding, scale 1, and on pure-server
+    leaves like the head, 1/div).  The learning rate is read once per step,
+    before the group updates, as the JAX step does.
+
+    Batch layout: group-contiguous (see :func:`boundary_ids_for_batch`);
+    the batch must divide evenly by ``num_groups``."""
+    cfg = sc.model
+    nb = len(cfg.exit_layers)
+    schedule = make_schedule(sc.train.optimizer)
+    remat = sc.train.remat != "none"
+    N = sc.splitee.profile.num_groups
+    div = sc.splitee.resolved_server_lr_divisor()
+
+    def train_step(params, opt_state, batch):
+        B = batch["tokens"].shape[0]
+        if B % N:
+            raise ValueError(f"batch {B} does not divide into {N} groups")
+        per = B // N
+        lr = schedule(opt_state.step)
+        cs, ss = participation_scale_trees(params, cfg, sc.splitee.profile)
+        scale = [a * N + b * N / div
+                 for a, b in zip(tree_leaves(cs), tree_leaves(ss))]
+        losses = []
+        for g in range(N):
+            rows = slice(g * per, (g + 1) * per)
+            with _Trainable(params) as leaves:
+                out = backbone_forward(params, cfg,
+                                       tokens=batch["tokens"][rows],
+                                       split_ids=batch["split_ids"][rows],
+                                       remat=remat)
+                client, server, m = hetero_losses(
+                    out, batch["labels"][rows], batch["split_ids"][rows], nb)
+                del out
+                grads = torch.autograd.grad(client + server, leaves,
+                                            allow_unused=True)
+            grads = [None if gr is None else gr.mul_(sk)
+                     for gr, sk in zip(grads, scale)]
+            params, opt_state = adam_update(params, grads, opt_state,
+                                            sc.train.optimizer, lr)
+            losses.append(m["server_loss"].detach())
+        return params, opt_state, {"server_loss": torch.stack(losses).mean(),
+                                   "lr": lr}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve step (decode shapes; Alg. 3 gate fused in)
+# ---------------------------------------------------------------------------
 
 
 def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:

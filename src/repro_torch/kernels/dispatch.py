@@ -1,6 +1,7 @@
 """Kernel-backend dispatch (counterpart of ``repro/kernels/dispatch.py``):
-routes the model's two hot sites on the serving path — GQA attention and
-the Alg. 3 entropy gate — to the CUDA kernels or to their plain versions.
+routes the model's two hot sites — GQA attention (serving and training)
+and the Alg. 3 entropy gate — to the CUDA kernels or to their plain
+versions.
 
 ``ModelConfig.kernels`` in ``{"auto", "ref"}``:
 
@@ -13,6 +14,12 @@ the Alg. 3 entropy gate — to the CUDA kernels or to their plain versions.
 Both backends take the model's layouts — q (B, T, H, hd), k/v
 (B, S, Hkv, hd) — and one ``kv_valid``/``tau`` value per row (the decode
 slots of a ``ServeSession``), and return the same dtypes.
+
+Training differentiates attention.  The ``ref`` backend leaves that to
+autograd of the plain version (the oracle).  The ``cuda`` backend runs the
+training site through :class:`FlashAttentionFn`, the counterpart of the
+JAX package's ``_flash_vjp``: its forward saves the output and the per-row
+LSE, its backward runs the dK/dV and dQ kernels.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 from repro_torch.config import KERNEL_CHOICES
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.entropy_exit import entropy_exit
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 
 
 def resolve_kernels(name: str = "auto") -> str:
@@ -43,6 +51,29 @@ def _gate_rows(logits: torch.Tensor, tau):
     if tau.ndim == 1:
         tau = tau.reshape(tau.shape[0], *([1] * (len(lead) - 1)))
     return logits.reshape(-1, logits.shape[-1]), tau.expand(lead).reshape(-1)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention at the training site (kernel layout
+    (B, H, T, D)): forward = :func:`flash_attention` with ``return_lse``,
+    saving q, k, v, the output and the LSE; backward =
+    :func:`flash_attention_bwd` (the dK/dV and dQ kernels on the card)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 class KernelBackend:
@@ -90,11 +121,16 @@ class ReferenceBackend(KernelBackend):
 
 class CudaBackend(KernelBackend):
     """The kernel wrappers: CUDA kernels for CUDA tensors, the plain
-    versions for CPU tensors."""
+    versions for CPU tensors.  While autograd records (an operand requires
+    grad) attention without ``kv_valid`` goes through
+    :class:`FlashAttentionFn`; the decode path never differentiates."""
 
     name = "cuda"
 
     def _attention(self, q, k, v, *, causal, window, kv_valid):
+        if (kv_valid is None and torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return FlashAttentionFn.apply(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window,
                                kv_valid=kv_valid)
 

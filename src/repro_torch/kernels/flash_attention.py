@@ -1,13 +1,16 @@
-"""Flash attention forward: the wrapper of ``csrc/flash_attention.cu``
-(which replaces the TPU kernel
-``repro/kernels/flash_attention.py:flash_attention_pallas``).
+"""Flash attention: the wrappers of ``csrc/flash_attention.cu`` (the
+forward, which replaces the TPU kernel
+``repro/kernels/flash_attention.py:flash_attention_pallas``) and
+``csrc/flash_attention_bwd.cu`` (the dK/dV and dQ kernels, which replace
+``flash_attention_bwd_dkv_pallas`` and ``flash_attention_bwd_dq_pallas``).
 
-The kernel masks its own ragged edges (keys past ``Tk``, the causal
+The kernels mask their own ragged edges (keys past ``Tk``, the causal
 diagonal of a ragged ``Tq < Tk`` prefill, the decode ring's ``kv_valid``),
 so the padding of ``repro/kernels/ops.py`` has no counterpart here.  For
-tensors on the CPU the wrapper runs the plain version
-(``kernels/ref.py:flash_attention_ref``); for CUDA tensors it launches the
-kernel or raises.  ``flash_attention.launches`` counts kernel launches.
+tensors on the CPU each wrapper runs its plain version
+(``kernels/ref.py``); for CUDA tensors it launches its kernel or raises.
+``flash_attention.launches``, ``flash_attention_bwd_dkv.launches`` and
+``flash_attention_bwd_dq.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -18,7 +21,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                     flash_attention_bwd_dq_ref,
+                                     flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,6 +72,26 @@ def _check_operands(q, k, v, kv_valid) -> None:
                          f"({q.shape[0]},); got {tuple(kv_valid.shape)}")
 
 
+def _check_kernel_operands(name: str, tensors, window) -> None:
+    """What the CUDA kernels take: float32 or bfloat16 operands of one
+    dtype on q's device, a supported head dim, non-empty, unit innermost
+    stride, a positive window."""
+    q = tensors[0]
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"{name}: dtypes "
+                         f"{[str(t.dtype) for t in tensors]}; expected one "
+                         f"of {tuple(_DTYPES)}, all equal")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if any(t.numel() == 0 or t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name}: operands must be non-empty with a unit "
+                         f"innermost stride")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: operands must share a device")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     kv_valid: Optional[torch.Tensor] = None,
@@ -83,22 +109,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_valid=kv_valid, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_kernel_operands("flash_attention", (q, k, v), window)
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes q {q.dtype}, k {k.dtype}, "
-                         f"v {v.dtype}; expected one of {tuple(_DTYPES)}, "
-                         f"all equal")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
-    if min(B, Tq, Tk) == 0 or any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: operands must be non-empty with "
-                         "a unit innermost stride")
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window must be positive, got "
-                         f"{window}")
-    if any(t.device != q.device for t in (k, v)):
-        raise ValueError("flash_attention: q, k and v must share a device")
     if kv_valid is not None and (kv_valid.dtype != torch.int32
                                  or kv_valid.device != q.device
                                  or not kv_valid.is_contiguous()):
@@ -126,3 +139,144 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward: dK/dV and dQ from the saved LSE
+# ---------------------------------------------------------------------------
+
+
+class _FlashBwdParams(ctypes.Structure):
+    """Mirrors ``struct FlashBwdParams`` in csrc/flash_attention_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("q", "k", "v", "dout", "lse", "delta", "dq", "dk",
+                           "dv")]
+                + [(f"{t}_s{a}", ctypes.c_longlong)
+                   for t in ("q", "k", "v", "do") for a in "bht"]
+                + [(n, ctypes.c_int)
+                   for n in ("batch", "heads", "kv_heads", "tq", "tk",
+                             "head_dim", "causal", "window", "dtype")]
+                + [("scale", ctypes.c_float)])
+
+
+_bwd_fns: dict = {}
+
+
+def _bwd_launcher(which: str):
+    if which not in _bwd_fns:
+        fn = getattr(build.load("flash_attention_bwd.cu"),
+                     f"flash_attention_bwd_{which}_launch")
+        fn.argtypes = [ctypes.POINTER(_FlashBwdParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fns[which] = fn
+    return _bwd_fns[which]
+
+
+def _check_bwd_rows(q, do, **rows) -> None:
+    """dO has q's shape; each of ``rows`` (lse, delta) is (B, H, Tq)."""
+    if do.shape != q.shape:
+        raise ValueError(f"cotangent shape {tuple(do.shape)} != q's "
+                         f"{tuple(q.shape)}")
+    for name, t in rows.items():
+        if t.shape != q.shape[:3]:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
+                             f"{tuple(q.shape[:3])}")
+
+
+def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window,
+                outs) -> None:
+    """Checks what the CUDA kernel takes, then launches ``which`` ("dkv" or
+    "dq") writing into ``outs`` (fp32, contiguous); raises on a failed
+    launch."""
+    name = f"flash_attention_bwd_{which}"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_kernel_operands(name, (q, k, v, do), window)
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    if lse.device != q.device or delta.device != q.device:
+        raise ValueError(f"{name}: lse and delta must lie on q's device")
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    ptrs = {n: t.data_ptr() for n, t in outs.items()}
+    p = _FlashBwdParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptrs.get("dq"), ptrs.get("dk"),
+        ptrs.get("dv"),
+        *(s for t in (q, k, v, do) for s in (t.stride(0), t.stride(1),
+                                              t.stride(2))),
+        B, H, Hkv, Tq, Tk, D, int(causal), window or 0, _DTYPES[q.dtype],
+        1.0 / math.sqrt(D))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_launcher(which)(ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"at q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            window: Optional[int] = None):
+    """dK and dV, the GQA group summed: q/do (B, H, Tq, D), k/v
+    (B, Hkv, Tk, D), ``lse`` and ``delta = rowsum(dO * O)`` (B, H, Tq)
+    -> ``(dk, dv)`` (B, Hkv, Tk, D) float32."""
+    _check_operands(q, k, v, None)
+    _check_bwd_rows(q, do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                           causal=causal, window=window)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
+                {"dk": dk, "dv": dv})
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: Optional[int] = None):
+    """dQ: the operands of :func:`flash_attention_bwd_dkv` -> dq
+    (B, H, Tq, D) float32."""
+    _check_operands(q, k, v, None)
+    _check_bwd_rows(q, do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                          causal=causal, window=window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd("dq", q, k, v, do, lse, delta, causal, window, {"dq": dq})
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Gradients of :func:`flash_attention` (``kv_valid`` not given) from
+    its output ``o``, its ``lse`` and the cotangent ``do``: returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v.
+
+    delta = rowsum(dO * O) is one elementwise pass in torch, outside the
+    kernels, as ``repro/kernels/ops.py`` computes it outside the Pallas
+    kernels.  For CPU tensors the plain version
+    (``flash_attention_bwd_ref``) runs."""
+    _check_operands(q, k, v, None)
+    _check_bwd_rows(q, do, lse=lse)
+    if o.shape != q.shape:
+        raise ValueError(f"output shape {tuple(o.shape)} != q's "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+    else:
+        delta = (do.float() * o.float()).sum(dim=-1)
+        do = do.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=causal, window=window)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0

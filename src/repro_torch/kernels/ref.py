@@ -46,6 +46,74 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return out
 
 
+def _pair_mask(Tq: int, Tk: int, causal: bool, window: Optional[int],
+               device) -> torch.Tensor:
+    """(Tq, Tk) bool: the training forward's mask (causal diagonal,
+    sliding window)."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _rebuild_p_ds(q, k, v, do, lse, delta, causal, window):
+    """P = exp(S * scale - LSE), exactly 0 where the forward masked, and
+    dS = P * (dP - delta) * scale with dP = dO V^T, in fp32, grouped as
+    (B, Hkv, G, Tq, Tk).  Returns (q, dO) grouped as (B, Hkv, G, Tq, D),
+    P and dS."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, g, Tq, D)
+    dog = do.float().reshape(B, Hkv, g, Tq, D)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * scale
+    mask = _pair_mask(Tq, Tk, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(
+        B, Hkv, g, Tq, 1)), 0.0)
+    dp = torch.einsum("bhgtd,bhsd->bhgts", dog, v.float())
+    ds = p * (dp - delta.float().reshape(B, Hkv, g, Tq, 1)) * scale
+    return qg, dog, p, ds
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, *,
+                                causal: bool = True,
+                                window: Optional[int] = None):
+    """Plain version of the dK/dV kernel: ``lse``/``delta`` (B, H, Tq)
+    -> (dk, dv) (B, Hkv, Tk, D) fp32, the GQA group summed."""
+    qg, dog, p, ds = _rebuild_p_ds(q, k, v, do, lse, delta, causal, window)
+    dv = torch.einsum("bhgts,bhgtd->bhsd", p, dog)
+    dk = torch.einsum("bhgts,bhgtd->bhsd", ds, qg)
+    return dk, dv
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *,
+                               causal: bool = True,
+                               window: Optional[int] = None):
+    """Plain version of the dQ kernel -> dq (B, H, Tq, D) fp32."""
+    _, _, _, ds = _rebuild_p_ds(q, k, v, do, lse, delta, causal, window)
+    dq = torch.einsum("bhgts,bhsd->bhgtd", ds, k.float())
+    return dq.reshape(q.shape)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: Optional[int] = None):
+    """Plain version of the two backward kernels together: the gradients
+    of ``flash_attention_ref(q, k, v, causal=, window=)`` from its output
+    ``o``, its per-row ``lse`` and the cotangent ``do``, with
+    delta = rowsum(dO * O).  Returns fp32 ``(dq, dk, dv)``."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                         causal=causal, window=window)
+    dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)
+    return dq, dk, dv
+
+
 def entropy_exit_ref(logits, tau):
     """(B, V) logits, ``tau`` a float or (B,) per-row thresholds ->
     ``(entropy (B,) fp32, exit (B,) int32)`` with exit iff H < tau."""

@@ -37,7 +37,7 @@ def main(argv=None) -> None:
                     choices=["select", "sticky"])
     ap.add_argument("--ckpt", default=None,
                     help="TrainSession checkpoint stem (serving a checkpoint "
-                         "comes with the training slice)")
+                         "waits for checkpoint restore)")
     ap.add_argument("--kernels", default="auto", choices=["auto", "ref"],
                     help="auto = the CUDA kernels on the card, the plain "
                          "versions on the CPU; ref = plain everywhere")

@@ -6,8 +6,9 @@ of ``repro/models/backbone.py``).
 The JAX package stacks runs of identical layers and drives them with
 ``lax.scan``; the port keeps one parameter dict per layer
 (``params["segments"][si][li]``) and loops over them in Python.
-``split_ids`` (training's stop-gradient routing) and ``remat`` come with the
-training slice.
+Training passes ``split_ids``: each example's residual stream is cut from
+the gradient at its own boundary (the paper's routing), and ``remat``
+recomputes each block's activations in the backward pass.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 from typing import Iterable, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as blocks_mod
@@ -98,11 +100,21 @@ class BackboneOutput:
 
 def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[list] = None,
-                    cache_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The layers of segment ``si``; their caches are updated in place."""
+                    cache_len: Optional[torch.Tensor] = None,
+                    remat: bool = False) -> torch.Tensor:
+    """The layers of segment ``si``; their caches are updated in place.
+    ``remat`` checkpoints each block (no cache): its activations are
+    recomputed in the backward pass instead of kept."""
     for li, (mixer, ffn) in enumerate(segment_layers(cfg, si)):
+        p = params["segments"][si][li]
+        if remat:
+            x = checkpoint(
+                lambda h, p=p, mixer=mixer, ffn=ffn: blocks_mod.block_forward(
+                    p, h, positions, cfg, mixer, ffn)[0],
+                x, use_reentrant=False)
+            continue
         x, _ = blocks_mod.block_forward(
-            params["segments"][si][li], x, positions, cfg, mixer, ffn,
+            p, x, positions, cfg, mixer, ffn,
             cache=cache[si][li] if cache is not None else None,
             cache_len=cache_len)
     return x
@@ -110,19 +122,30 @@ def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
 
 def backbone_forward(params: dict, cfg: ModelConfig, *,
                      tokens: torch.Tensor,
+                     split_ids: Optional[torch.Tensor] = None,
                      cache: Optional[list] = None,
                      cache_len: Optional[torch.Tensor] = None,
-                     exit_heads: Optional[Iterable[int]] = None
-                     ) -> BackboneOutput:
+                     exit_heads: Optional[Iterable[int]] = None,
+                     remat: bool = False) -> BackboneOutput:
     """Run the full network.
 
     tokens     : (B, T) integers.
+    split_ids  : (B,) boundary index per example (Hetero-SplitEE training):
+                 after boundary ``si`` the residual stream of the examples
+                 with ``split_ids == si`` is detached, so the server loss
+                 trains only the layers above each example's cut.  ``None``
+                 = no split semantics.
     cache      : decode cache from ``init_cache``, updated in place;
                  ``cache_len`` (B,) tokens already written per row.
-    exit_heads : the boundaries whose exit logits to compute (``None`` = all;
-                 the others come back as ``None``).  Under ``jit`` XLA drops
-                 exit heads nobody reads; eager PyTorch is told instead.
+    exit_heads : the boundaries whose exit logits to compute (``None`` = all,
+                 as training needs; the others come back as ``None``).
+                 Under ``jit`` XLA drops exit heads nobody reads; eager
+                 PyTorch is told instead.
+    remat      : recompute each block in the backward pass (training only).
     """
+    if remat and cache is not None:
+        raise ValueError("remat applies to training; a decode cache was "
+                         "given")
     n_seg = len(cfg.segments())
     want = set(range(n_seg - 1) if exit_heads is None else exit_heads)
     x = embed(params["embed"], tokens).to(cfg.dtype)
@@ -132,11 +155,15 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
 
     exit_logits: List[Optional[torch.Tensor]] = []
     for si in range(n_seg):
-        x = segment_forward(params, cfg, si, x, positions, cache, cache_len)
+        x = segment_forward(params, cfg, si, x, positions, cache, cache_len,
+                            remat)
         if si < n_seg - 1:
             exit_logits.append(
                 heads_mod.exit_head(params["exit_heads"][si], x, cfg)
                 if si in want else None)
+            if split_ids is not None:
+                is_cut = (split_ids == si)[:, None, None]
+                x = torch.where(is_cut, x.detach(), x)
     logits = heads_mod.lm_head(params["head"], x, cfg)
     return BackboneOutput(logits=logits, exit_logits=tuple(exit_logits),
                           cache=cache)
