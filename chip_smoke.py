@@ -23,9 +23,11 @@ Phases:
   train    the training path: make_train_step on glm4-9b at its published
            widths with the depth cut to 8 layers (exits 2, 4, 6; 12 client
            groups), bf16 weights, fp32 Adam, batch 12 x 128 tokens of
-           SyntheticLMDataset(seed=0); warm-up, timed eq1 and sum steps with
-           every launch count set to 0 first, a loss check on the first
-           batch, then a traced window of 2 steps;
+           SyntheticLMDataset(seed=0); with every launch count set to 0
+           first, warm-up and one sum step (one step of each mode under
+           FlopCounterMode, for the share of the bf16 peak), timed eq1 and
+           sum steps, a loss check on the first batch, then a traced
+           window of 2 steps;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            (SDPA forward, SDPA backward) timed at the main path's shapes,
            beside the bound for the work.
@@ -68,6 +70,8 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # bf16 outputs compared in fp32 (the two sides round to bf16 at other points)
 TOL_ATTN_F32 = 2e-5
 TOL_ATTN_BF16 = 2e-2
+# the LSE is fp32 on both sides, computed in fp32 from the same operand
+# values, bf16 or fp32: reassociation only, so one tolerance holds for both
 TOL_LSE = 1e-4
 TOL_H = 1e-4
 GATE_MARGIN = 1e-3      # exits must agree wherever |H - tau| exceeds this
@@ -191,9 +195,9 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = state.setdefault("max_abs_err", {})
 
-    def attn_case(name, dtype, tol, *, B, Tq, causal, window=None,
-                  kv_valid=None, lse=False, main=False):
-        q, k, v = attn_inputs(gen, dtype, B=B, Tq=Tq)
+    def attn_case(name, dtype, tol, *, B, Tq, causal, Tk=MAX_LEN,
+                  window=None, kv_valid=None, lse=False, main=False):
+        q, k, v = attn_inputs(gen, dtype, B=B, Tq=Tq, Tk=Tk)
         got = flash_attention(q, k, v, causal=causal, window=window,
                               kv_valid=kv_valid, return_lse=lse)
         want = flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -202,8 +206,8 @@ def phase_kernels(state):
         if lse:
             (got, got_lse), (want, want_lse) = got, want
             d_lse = (got_lse - want_lse).abs().max().item()
-            check(d_lse <= TOL_LSE, f"attention {name} lse max|d|={d_lse:.3e} "
-                                    f"<= {TOL_LSE:g}")
+            check(d_lse <= TOL_LSE, f"attention {name} {dtype} lse max|d|="
+                                    f"{d_lse:.3e} <= {TOL_LSE:g}")
         d = (got.float() - want.float()).abs().max().item()
         check(got.shape == want.shape and d <= tol,
               f"attention {name} {dtype} max|d|={d:.3e} <= {tol:g}")
@@ -217,6 +221,9 @@ def phase_kernels(state):
               TOL_ATTN_BF16, B=1, Tq=128, causal=True, main=True)
     attn_case("prefill (1,32,37,128)/(1,2,161,128) causal", torch.bfloat16,
               TOL_ATTN_BF16, B=1, Tq=37, causal=True, main=True)
+    attn_case("train (12,32,128,128)/(12,2,128,128) causal, with lse",
+              torch.bfloat16, TOL_ATTN_BF16, B=TRAIN_B, Tq=TRAIN_T,
+              Tk=TRAIN_T, causal=True, lse=True, main=True)
     attn_case("decode fp32 kv_valid", torch.float32, TOL_ATTN_F32, B=8, Tq=1,
               causal=False, kv_valid=kv_prefix(8, seed=1), lse=True)
     attn_case("prefill fp32 causal", torch.float32, TOL_ATTN_F32, B=2, Tq=100,
@@ -605,7 +612,9 @@ def phase_train(state):
     from repro_torch.tree import tree_leaves
 
     cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
-    n_steps = TRAIN_WARM + TRAIN_EQ1 + TRAIN_SUM + 2
+    # warm-up (its first step counted), one counted sum step, the timed
+    # steps, the traced window
+    n_steps = TRAIN_WARM + 1 + TRAIN_EQ1 + TRAIN_SUM + 2
     opt_cfg = OptimizerConfig(lr=3e-4, total_steps=n_steps)
     t0 = time.perf_counter()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -660,33 +669,70 @@ def phase_train(state):
         ms = (time.perf_counter() - t) / n * 1e3
         return ms, [(c.launches - b) / n for c, b in zip(counters, before)]
 
+    # one block matmul of an attention kernel over the causal band
+    band_mm = (2 * TRAIN_B * cfg.num_heads * TRAIN_T * (TRAIN_T + 1) // 2
+               * cfg.head_dim)
+
+    def counted_step(mode) -> float:
+        """One step under FlopCounterMode: the FLOPs of the matmuls the
+        step ran (the forward and the backward pulls as autograd pruned
+        them), plus the attention kernels' block matmuls over the band
+        from their launches (2 forward, 4 dK/dV, 3 dQ)."""
+        from torch.utils.flop_counter import FlopCounterMode
+        before = [c.launches for c in counters]
+        with FlopCounterMode(display=False) as fc:
+            one_step(mode)
+        torch.cuda.synchronize()
+        n = [c.launches - b for c, b in zip(counters, before)]
+        return fc.get_total_flops() + band_mm * (2 * n[0] + 4 * n[1]
+                                                 + 3 * n[2])
+
+    # the forward's weight matmuls: every parameter but the embedding
+    # table (a gather) and the norm gains multiplies each token once
+    mm_params = sum(p.numel() for p in tree_leaves(params) if p.ndim >= 2)
+    mm_params -= params["embed"]["table"].numel()
+    fwd_flops = 2 * mm_params * tokens
+
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    run("eq1", TRAIN_WARM)
+    flops = {"eq1": counted_step("eq1")}
+    run("eq1", TRAIN_WARM - 1)
+    flops["sum"] = counted_step("sum")
     timed = {"eq1": run("eq1", TRAIN_EQ1), "sum": run("sum", TRAIN_SUM)}
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
     loss1 = first_batch_loss()
     train = dict(params=n_params, peak_gib=peak / 2**30, loss0=loss0,
                  loss1=loss1, launches=launches)
+    peak_s = PEAK_OPS_PER_S[torch.bfloat16] / 1e3
     for mode, (ms, per_step) in timed.items():
-        flops = 6 * n_params * tokens * (1.5 if mode == "eq1" else 1.0)
-        share = flops / (ms / 1e3 * PEAK_OPS_PER_S[torch.bfloat16])
+        nominal = 6 * n_params * tokens * (1.5 if mode == "eq1" else 1.0)
+        share, share_nominal = flops[mode] / (ms * peak_s), nominal / (
+            ms * peak_s)
         print(f"train {mode}: {ms:.1f} ms per step, "
-              f"{tokens / ms * 1e3:,.0f} tokens/s, share of the bf16 peak "
-              f"{share:.4f} (6 x params x tokens"
-              f"{' x 1.5' if mode == 'eq1' else ''} over step time x "
-              f"989 TF/s); launches per step: flash_attention "
-              f"{per_step[0]:g}, dK/dV {per_step[1]:g}, dQ {per_step[2]:g}")
+              f"{tokens / ms * 1e3:,.0f} tokens/s; launches per step: "
+              f"flash_attention {per_step[0]:g}, dK/dV {per_step[1]:g}, dQ "
+              f"{per_step[2]:g}")
+        print(f"  share of the bf16 peak {share:.4f}: {flops[mode] / 1e12:.3f}"
+              f" TFLOP counted in the step ({flops[mode] / fwd_flops:.3f} x "
+              f"the forward's {fwd_flops / 1e12:.3f}) over step time x 989 "
+              f"TF/s; nominal 6 x params x tokens"
+              f"{' x 1.5' if mode == 'eq1' else ''} = {nominal / 1e12:.3f} "
+              f"TFLOP gives {share_nominal:.4f}")
         train[mode] = dict(ms=ms, tok_s=tokens / ms * 1e3, peak_share=share,
+                           peak_share_nominal=share_nominal,
+                           tflop=flops[mode] / 1e12,
                            launches_per_step=per_step)
         check(min(per_step) > 0 and per_step[0] == cfg.num_layers,
               f"train {mode}: all three attention kernels launched every "
               f"step, one forward launch per layer")
+        # forward + a backward of at least dW and dX for every weight
+        check(flops[mode] >= 2.9 * fwd_flops,
+              f"train {mode}: the counted FLOPs include the backward pulls")
     print(f"train: peak memory {peak / 2**30:.2f} GiB; first batch server "
           f"loss {loss0:.4f} before, {loss1:.4f} after "
-          f"{TRAIN_WARM + TRAIN_EQ1 + TRAIN_SUM} steps")
+          f"{TRAIN_WARM + 1 + TRAIN_EQ1 + TRAIN_SUM} steps")
     finite = all(math.isfinite(float(v)) for m in metrics
                  for v in m.values())
     check(finite, "train: every step's losses finite")

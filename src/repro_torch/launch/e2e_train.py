@@ -66,7 +66,6 @@ def main(argv=None) -> dict:
                     help="recompute each block in the backward pass")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -82,7 +81,7 @@ def main(argv=None) -> dict:
         grad_mode=args.grad_mode)
 
     params = init_backbone(
-        torch.Generator(device=device).manual_seed(args.seed), cfg)
+        torch.Generator(device=device).manual_seed(0), cfg)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"model: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab_size} exits={cfg.exit_layers} "
