@@ -7,30 +7,37 @@ Phases:
   build    builds every CUDA kernel from the sources in the checkout
            (one nvcc per source, all started together) and prints the card's
            name and power limit;
-  kernels  holds each kernel against its plain PyTorch version on the card,
-           at the serve and train shapes of full-width glm4-9b plus
-           sliding-window, non-causal, head-dim 32 and fp32 cases, and the
-           autograd site of training against autograd of the plain forward;
-  parity   glm4-9b smoke in fp32: the batched ServeSession against the
-           port's sequential references, token and gate exact; three train
-           steps (eq1, sum, eq1 with remat) with the kernels against the
-           plain versions;
-  main     the serving path: ServeSession on full-width glm4-9b in bf16 (40
-           layers, random weights from a seeded torch.Generator on the card),
-           8 slots, 16 requests, under the select and the sticky policy; each
-           run starts with every launch count at 0 and must launch both
-           kernels;
+  kernels  holds each kernel against its plain PyTorch version on the card:
+           attention and the gate at the serve and train shapes of
+           full-width glm4-9b plus sliding-window, non-causal, head-dim 32
+           and fp32 cases; the wkv forward and backward at chunks 8-128,
+           fp32 and bf16, ragged T, head dims 16-64, the rwkv6-3b train and
+           prefill shapes, and decays that overflow the plain chunked form
+           (against the token oracle); and both autograd sites of training
+           against autograd of the plain forward;
+  parity   smoke configs in fp32: the glm4-9b ServeSession against the
+           port's sequential references, token and gate exact; the rwkv6
+           ServeSession with the kernels against the plain versions; train
+           steps with the kernels against the plain versions (glm4-9b: eq1,
+           sum, eq1 with remat; rwkv6: eq1, eq1 with remat);
+  main     the serving path: ServeSession on full-width glm4-9b (40 layers)
+           and full-width rwkv6-3b (32 layers) in bf16, random weights from a
+           seeded torch.Generator on the card, 8 slots, 16 requests (rwkv6
+           prompts of 64-512 tokens), under the select and the sticky
+           policy; each run starts with every launch count at 0 and must
+           launch the mixer's kernel and the gate;
   train    the training path: make_train_step on glm4-9b at its published
-           widths with the depth cut to 8 layers (exits 2, 4, 6; 12 client
-           groups), bf16 weights, fp32 Adam, batch 12 x 128 tokens of
-           SyntheticLMDataset(seed=0); with every launch count set to 0
-           first, warm-up and one sum step (one step of each mode under
-           FlopCounterMode, for the share of the bf16 peak), timed eq1 and
-           sum steps, a loss check on the first batch, then a traced
+           widths with the depth cut to 8 layers (exits 2, 4, 6), batch
+           12 x 128, and on rwkv6-3b at its published widths and full depth
+           (exits 8, 16, 24), batch 12 x 512, remat; 12 client groups, bf16
+           weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
+           count set to 0 first, warm-up and one sum step (one step of each
+           mode under FlopCounterMode, for the share of the bf16 peak), timed
+           eq1 and sum steps, a loss check on the first batch, then a traced
            window of 2 steps;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
-           (SDPA forward, SDPA backward) timed at the main path's shapes,
-           beside the bound for the work.
+           where there is one (SDPA forward, SDPA backward) timed at the
+           main path's shapes, beside the bound for the work.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -60,7 +67,7 @@ import torch.nn.functional as F  # noqa: E402
 SRC = Path(__file__).resolve().parent / "src"
 PHASES = ("build", "kernels", "parity", "main", "train", "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq")
+           "flash_attention_bwd_dq", "rwkv_wkv", "rwkv_wkv_bwd")
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -95,12 +102,26 @@ TOL_SITE_BF16 = 1e-2
 # elements on an H100)
 TOL_TRAIN_LOSS = 1e-5
 TRAIN_PARAM_FRACTION = 1e-3
+# wkv: the kernels against their plain versions, each output's largest
+# difference over its largest magnitude (at least 1).  Both sides read the
+# same r/k/v values in fp32; the kernels weight each intra-chunk pair by
+# exp(L_{t-1} - L_i), the plain versions by e^{L_{t-1}} * e^{-L_i}, so the
+# two differ by reassociation and exponential rounding only: 1e-4 forward
+# (the JAX gate for y and the state), 5e-4 backward (the JAX kernel-level
+# gate); bf16 gradients carry one more bf16 rounding (2^-8 of the scale)
+TOL_WKV = 1e-4
+TOL_WKV_BWD = 5e-4
+TOL_WKV_BWD_BF16 = 1e-2
 
 # the serving path's shapes (glm4-9b, 8 slots, max_len 161)
 SLOTS, REQUESTS, DECODE, MAX_LEN = 8, 16, 32, 161
 # the training path: glm4-9b cut to 8 layers, batch 12 x 128 tokens
 TRAIN_LAYERS, TRAIN_B, TRAIN_T = 8, 12, 128
 TRAIN_WARM, TRAIN_EQ1, TRAIN_SUM = 2, 10, 3
+# rwkv6-3b: prompts 64-512 tokens (1-4 chunks of 128), training 12 x 512
+# at full depth
+RWKV_PROMPT_MIN, RWKV_PROMPT_MAX, RWKV_T = 64, 512, 512
+RWKV_WARM, RWKV_EQ1, RWKV_SUM = 2, 4, 2
 
 
 class Failed(Exception):
@@ -257,6 +278,8 @@ def phase_kernels(state):
 
     bwd_kernel_cases(gen, errs)
     autograd_site_cases(gen)
+    wkv_kernel_cases(gen, errs)
+    wkv_site_cases(gen)
 
 
 def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
@@ -353,11 +376,149 @@ def autograd_site_cases(gen):
               f"{', '.join(f'{x:.2e}' for x in d)} <= {tol:g}")
 
 
+def wkv_inputs(gen, dtype, B, T, H=40, K=64, decays="model"):
+    """r, k, v in ``dtype``, log_w and u float32, model layout.  ``decays``:
+    "model" draws log_w = -exp(w), w ~ U(-6, -1) (per-token decay factors
+    e^-0.0025 .. e^-0.37, the range of the model's w_dd around its w_base
+    of -6; at chunk 128 the in-chunk log-decay reaches ~-47, inside fp32
+    for the TPU algebra of the plain version); "strong" draws
+    log_w ~ -U(0.05, 1), the JAX tests' range; "overflow" -U(0.7, 1), where
+    e^{-L} of a 128-token chunk passes fp32's range."""
+    dev = "cuda"
+    r, k, v = (torch.randn(B, T, H, K, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    uni = torch.rand(B, T, H, K, generator=gen, device=dev)
+    log_w = {"model": lambda: -torch.exp(-6.0 + 5.0 * uni),
+             "strong": lambda: -(0.05 + 0.95 * uni),
+             "overflow": lambda: -(0.7 + 0.3 * uni)}[decays]()
+    u = torch.randn(H, K, generator=gen, device=dev)
+    return r, k, v, log_w, u
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in float32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+def wkv_kernel_cases(gen, errs):
+    """The wkv forward (y, S_T, the per-chunk entry states) and backward
+    (dr, dk, dv, dlog_w, du) kernels against their plain versions."""
+    from repro_torch.kernels.ref import rwkv_wkv_ref_model
+    from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
+                                              rwkv_wkv_bwd_plain,
+                                              rwkv_wkv_fwd, rwkv_wkv_plain)
+
+    def case(name, dtype, *, B, T, H=40, K=64, chunk=128, decays="model",
+             main=False):
+        r, k, v, lw, u = wkv_inputs(gen, dtype, B, T, H, K, decays)
+        ch = min(chunk, T)
+        dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
+        dsT = torch.randn(B, H, K, K, generator=gen, device="cuda")
+        n_fwd, n_bwd = rwkv_wkv.launches, rwkv_wkv_bwd.launches
+        (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
+        y2, sT2 = rwkv_wkv(r, k, v, lw, u, chunk=chunk, return_state=True)
+        grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+        want_y, want_sT, want_s0 = rwkv_wkv_plain(r, k, v, lw, u, chunk=ch,
+                                                  emit_chunk_states=True)
+        wants = rwkv_wkv_bwd_plain(r, k, v, lw, u, want_s0, dy, dsT,
+                                   chunk=ch)
+        torch.cuda.synchronize()
+        check(rwkv_wkv.launches == n_fwd + 2
+              and rwkv_wkv_bwd.launches == n_bwd + 1,
+              f"wkv {name}: each call launched its kernel once")
+        d_fwd = max(scaled_err(y, want_y), scaled_err(sT, want_sT),
+                    scaled_err(s0, want_s0))
+        check(d_fwd <= TOL_WKV and torch.equal(y, y2)
+              and torch.equal(sT, sT2),
+              f"wkv fwd {name} {dtype}: y, S_T, S0 vs plain, max|d|/scale "
+              f"{d_fwd:.2e} <= {TOL_WKV:g}; return_state path identical")
+        tol = TOL_WKV_BWD if dtype == torch.float32 else TOL_WKV_BWD_BF16
+        du_want = wants[4].reshape(B, H, K).sum(0)
+        d_bwd = [scaled_err(g, w) for g, w in zip(grads, (*wants[:4],
+                                                          du_want))]
+        check(max(d_bwd) <= tol and all(
+            g.dtype == t.dtype for g, t in zip(grads, (r, k, v, lw, u))),
+              f"wkv bwd {name} {dtype}: dr, dk, dv, dlog_w, du vs plain, "
+              f"max|d|/scale {', '.join(f'{x:.2e}' for x in d_bwd)} <= "
+              f"{tol:g}, in the primal dtypes")
+        if main:
+            errs["rwkv_wkv"] = max(errs.get("rwkv_wkv", 0.0), d_fwd)
+            errs["rwkv_wkv_bwd"] = max(errs.get("rwkv_wkv_bwd", 0.0),
+                                       max(d_bwd))
+
+    for chunk in (8, 16, 32, 64):
+        case(f"(2,128,4,64) chunk {chunk}, decays -U(0.05,1)",
+             torch.float32, B=2, T=128, H=4, chunk=chunk, decays="strong")
+    case("(2,128,4,64) chunk 64, decays -U(0.05,1)", torch.bfloat16, B=2,
+         T=128, H=4, chunk=64, decays="strong")
+    case("(2,100,4,64) chunk 32, T not a chunk multiple", torch.float32,
+         B=2, T=100, H=4, chunk=32, decays="strong")
+    case("(3,19,2,32) chunk 8, head_dim 32, ragged", torch.float32, B=3,
+         T=19, H=2, K=32, chunk=8, decays="strong")
+    case("(2,16,2,16) chunk 32 > T, head_dim 16", torch.float32, B=2, T=16,
+         H=2, K=16, chunk=32, decays="strong")
+    case("prefill (1,300,40,64) chunk 128", torch.bfloat16, B=1, T=300,
+         main=True)
+    case("prefill (1,300,40,64) chunk 128", torch.float32, B=1, T=300)
+    case("train (12,512,40,64) chunk 128", torch.bfloat16, B=TRAIN_B,
+         T=RWKV_T, main=True)
+    case("train (12,512,40,64) chunk 128", torch.float32, B=TRAIN_B,
+         T=RWKV_T)
+
+    # decays at chunk 128 where the TPU algebra's e^{-L} passes fp32's
+    # range and the kernels' pairwise form does not; held against the
+    # token-by-token oracle and autograd through it
+    r, k, v, lw, u = wkv_inputs(gen, torch.float32, 1, 256, 4, 64,
+                                "overflow")
+    dy = torch.randn(1, 256, 4, 64, generator=gen, device="cuda")
+    dsT = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
+    (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=128)
+    grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=128)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    want_y, want_sT = rwkv_wkv_ref_model(*leaves)
+    wants = torch.autograd.grad((want_y * dy).sum() + (want_sT * dsT).sum(),
+                                leaves)
+    plain_y, _ = rwkv_wkv_plain(r, k, v, lw, u, chunk=128)
+    torch.cuda.synchronize()
+    d = [scaled_err(y, want_y.detach()), scaled_err(sT, want_sT.detach()),
+         *(scaled_err(g, w) for g, w in zip(grads, wants))]
+    check(max(d) <= TOL_WKV_BWD,
+          f"wkv (1,256,4,64) chunk 128, decays -U(0.7,1): kernels vs the "
+          f"token oracle and its autograd, max|d|/scale "
+          f"{', '.join(f'{x:.2e}' for x in d)} <= {TOL_WKV_BWD:g} (the "
+          f"plain chunked version is "
+          f"{'finite' if torch.isfinite(plain_y).all() else 'not finite'} "
+          f"here)")
+
+
+def wkv_site_cases(gen):
+    """WkvFn (kernels="auto") against autograd of the plain forward
+    (kernels="ref", models/ssm._wkv_chunked), cotangents on y and S_T."""
+    from repro_torch.kernels import dispatch
+    leaves = wkv_inputs(gen, torch.float32, 2, 256, 8, 64)
+    dy = torch.randn(2, 256, 8, 64, generator=gen, device="cuda")
+    dsT = torch.randn(2, 8, 64, 64, generator=gen, device="cuda")
+    res = []
+    for name in ("auto", "ref"):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        y, sT = dispatch.get_backend(name).wkv(*xs, chunk=128)
+        ((y * dy).sum() + (sT * dsT).sum()).backward()
+        res.append([y.detach(), sT.detach(), *(t.grad for t in xs)])
+    torch.cuda.synchronize()
+    d = [scaled_err(a, b) for a, b in zip(*res)]
+    check(max(d) <= TOL_WKV_BWD,
+          f"wkv autograd site (2,256,8,64) chunk 128 fp32: y, S_T, dr, dk, "
+          f"dv, dlog_w, du vs autograd of the plain forward, max|d|/scale "
+          f"{', '.join(f'{x:.2e}' for x in d)} <= {TOL_WKV_BWD:g}")
+
+
 def phase_parity(state):
     from repro_torch.api.serve_session import (ServeSession,
                                                sequential_reference,
                                                sequential_sticky_reference)
-    from repro_torch.configs import glm4_9b
+    from repro_torch.configs import glm4_9b, rwkv6_3b
     from repro_torch.models.backbone import init_backbone
     cfg = glm4_9b.smoke()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -394,32 +555,77 @@ def phase_parity(state):
         if tau > math.log(cfg.vocab_size):
             check(sess.stats.client_only_ticks > 0,
                   "smoke sticky above ln V: client-only ticks ran")
-    train_parity()
+    train_parity(glm4_9b.smoke(), (("eq1", "none"), ("sum", "none"),
+                                   ("eq1", "full")))
+    rwkv_serve_parity(rwkv6_3b.smoke())
+    train_parity(rwkv6_3b.smoke().with_(exit_layers=(1, 2)),
+                 (("eq1", "none"), ("eq1", "full")), seq=20)
 
 
-def train_parity(steps: int = 3) -> None:
-    """glm4-9b smoke, fp32, TF32 off: make_train_step with the kernels
-    (kernels="auto") against the plain versions (kernels="ref")."""
+def rwkv_serve_parity(cfg) -> None:
+    """rwkv6 smoke, fp32: the batched ServeSession with the kernels
+    (kernels="auto": the wkv forward at prefill, the gate every tick)
+    against the same session on the plain versions (kernels="ref"),
+    prompts of 1-4 chunks of 8 tokens."""
+    from repro_torch.api.serve_session import (ServeSession,
+                                               sequential_reference)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv
+    from repro_torch.models.backbone import init_backbone
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 33)))
+               for _ in range(6)]
+    decodes = [5, 8, 3, 6, 4, 7]
+    probe = sequential_reference(cfg, params, prompts[0], 6, tau=0.0,
+                                 max_len=48)
+    for policy, tau in (("select", 2.0),
+                        ("sticky", float(np.median(probe.entropy)))):
+        runs = []
+        for kernels in ("auto", "ref"):
+            sess = ServeSession(cfg, params, tau=tau, slots=3, max_len=48,
+                                exit_policy=policy, kernels=kernels)
+            for p, d in zip(prompts, decodes):
+                sess.submit(p, decode_tokens=d)
+            n = rwkv_wkv.launches
+            runs.append(({r.rid: r for r in sess.run()},
+                         rwkv_wkv.launches - n, sess.stats))
+        (got, n_auto, st), (want, n_ref, _) = runs
+        same = all(got[i].tokens == want[i].tokens
+                   and got[i].exited == want[i].exited for i in want)
+        worst = max(float(np.abs(np.subtract(got[i].entropy,
+                                             want[i].entropy)).max())
+                    for i in want)
+        flags = [f for r in got.values() for f in r.exited]
+        check(same and worst <= TOL_H and n_auto > 0 and n_ref == 0,
+              f"rwkv6 smoke fp32 {policy} tau={tau:.4f}: 6 requests on 3 slots, "
+              f"kernels token- and exit-exact vs plain, max|dH|="
+              f"{worst:.2e} (exits {sum(flags)}/{len(flags)}, client-only "
+              f"ticks {st.client_only_ticks}, {n_auto} wkv launches)")
+
+
+def train_parity(base, modes, steps: int = 3, seq: int = 32) -> None:
+    """Smoke config ``base`` (fp32, TF32 off): make_train_step with the
+    kernels (kernels="auto") against the plain versions (kernels="ref"),
+    one run per (grad_mode, remat) of ``modes``."""
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
                                     SplitEEConfig, TrainConfig)
-    from repro_torch.configs import glm4_9b
     from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
                                        make_train_step)
     from repro_torch.models.backbone import init_backbone
     from repro_torch.optim import adam_init
     from repro_torch.tree import tree_leaves
-    base = glm4_9b.smoke()
     profile = HeteroProfile((1, 1, 2, 2))
     lr = 1e-3
     rng = np.random.default_rng(2)
     sids = boundary_ids_for_batch(profile, base, 8, "cuda")
     batches = [{"tokens": torch.as_tensor(rng.integers(0, base.vocab_size,
-                                                       (8, 32)), device="cuda"),
+                                                       (8, seq)),
+                                          device="cuda"),
                 "labels": torch.as_tensor(rng.integers(0, base.vocab_size,
-                                                       (8, 32)), device="cuda"),
+                                                       (8, seq)),
+                                          device="cuda"),
                 "split_ids": sids} for _ in range(steps)]
-    for grad_mode, remat in (("eq1", "none"), ("sum", "none"),
-                             ("eq1", "full")):
+    for grad_mode, remat in modes:
         runs = []
         for kernels in ("auto", "ref"):
             cfg = base.with_(kernels=kernels)
@@ -444,8 +650,8 @@ def train_parity(steps: int = 3) -> None:
         n_off = int((d > 1e-6).sum())
         check(d_loss <= TOL_TRAIN_LOSS and d.max().item() <= lr
               and n_off <= TRAIN_PARAM_FRACTION * d.numel(),
-              f"smoke fp32 train {grad_mode} remat={remat}: {steps} steps "
-              f"kernels vs plain, losses max|d|={d_loss:.2e} <= "
+              f"{base.name} fp32 train {grad_mode} remat={remat}: {steps} "
+              f"steps kernels vs plain, losses max|d|={d_loss:.2e} <= "
               f"{TOL_TRAIN_LOSS:g}; params max|d|={d.max().item():.2e} <= lr,"
               f" {n_off} of {d.numel()} beyond 1e-6 (<= "
               f"{TRAIN_PARAM_FRACTION:g} of them)")
@@ -459,24 +665,58 @@ def weight_bytes(tree) -> int:
 
 
 def phase_main(state):
-    from repro_torch.api.serve_session import ServeSession
-    from repro_torch.configs import glm4_9b
-    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.configs import glm4_9b, rwkv6_3b
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models.backbone import init_backbone
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv
+
+    # glm4-9b: prompts of 16-128 tokens, 40 layers of KV pages
     cfg = glm4_9b.config()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(REQUESTS)]
+    kv_bytes = 2 * cfg.num_layers * SLOTS * MAX_LEN * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    serve_main(state, cfg, prompts, MAX_LEN, flash_attention,
+               cache_read=kv_bytes, cache_note="KV pages",
+               counts_per_tick=True)
+
+    # rwkv6-3b: prompts of 64-512 tokens (1-4 chunks); each slot's state,
+    # 40 heads x 64 x 64 fp32 per layer, is read and written every tick
+    cfg = rwkv6_3b.config()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(RWKV_PROMPT_MIN,
+                                             RWKV_PROMPT_MAX + 1)))
+               for _ in range(REQUESTS)]
+    H, K = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    state_bytes = 2 * cfg.num_layers * SLOTS * H * K * K * 4
+    serve_main(state, cfg, prompts, RWKV_PROMPT_MAX + 1 + DECODE, rwkv_wkv,
+               cache_read=state_bytes, cache_note="recurrent states read "
+               "and written", counts_per_tick=False)
+
+
+def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
+               cache_note: str, counts_per_tick: bool) -> None:
+    """ServeSession on ``cfg`` at full width, bf16, random weights from a
+    seeded torch.Generator on the card: 8 slots, the given prompts, 32
+    decode tokens each, the select policy at tau 2.0 and the sticky policy
+    at tau 12.5 (above ln V for both vocabularies).  ``kernel`` is the
+    mixer's kernel wrapper: it must launch once per layer per prefill and,
+    if ``counts_per_tick``, once per layer per tick (every layer on a full
+    tick, the client's on a client-only tick); the gate once per tick."""
+    from repro_torch.api.serve_session import ServeSession
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.models.backbone import init_backbone
+    name = kernel.__name__
     t0 = time.perf_counter()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
     total = weight_bytes(params)
-    print(f"glm4-9b bf16 weights: {total / 1e9:.2f} GB, initialised on the "
-          f"card in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
-               for _ in range(REQUESTS)]
+    print(f"{cfg.name} bf16 weights: {total / 1e9:.2f} GB, initialised on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
 
     # warm-up (cuBLAS handles, first launches); not counted
-    warm = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=MAX_LEN)
+    warm = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=max_len)
     warm.submit(prompts[0][:16], decode_tokens=2)
     warm.run()
     del warm
@@ -485,56 +725,59 @@ def phase_main(state):
     head = weight_bytes(params["head"])
     cut = sorted(cfg.exit_layers)[0]
     per_layer = layers / cfg.num_layers
-    kv_bytes = 2 * cfg.num_layers * SLOTS * MAX_LEN * cfg.num_kv_heads \
-        * cfg.head_dim * 2
-    full_tick = layers + 2 * head + kv_bytes
-    client_tick = cut * per_layer + head + kv_bytes * cut / cfg.num_layers
-    state["tick_bound_ms"] = full_tick / HBM_BYTES_PER_S * 1e3
-    print(f"tick bound: full tick reads {full_tick / 1e9:.2f} GB "
-          f"({cfg.num_layers} layers, exit + LM head, KV pages) -> {state['tick_bound_ms']:.3f} ms; "
-          f"client-only tick {client_tick / 1e9:.2f} GB -> "
-          f"{client_tick / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+    full_tick = layers + 2 * head + cache_read
+    client_tick = cut * per_layer + head + cache_read * cut / cfg.num_layers
+    bound_ms = full_tick / HBM_BYTES_PER_S * 1e3
+    print(f"{cfg.name} tick bound: full tick reads {full_tick / 1e9:.2f} GB "
+          f"({cfg.num_layers} layers, exit + LM head, {cache_note}) -> "
+          f"{bound_ms:.3f} ms; client-only tick {client_tick / 1e9:.2f} GB "
+          f"-> {client_tick / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
 
-    launches = {"flash_attention": 0, "entropy_exit": 0}
+    launches = state.setdefault("launches", {})
     for policy, tau in (("select", 2.0), ("sticky", 12.5)):
         sess = ServeSession(cfg, params, tau=tau, slots=SLOTS,
-                            max_len=MAX_LEN, exit_policy=policy)
+                            max_len=max_len, exit_policy=policy)
         for p in prompts:
             sess.submit(p, decode_tokens=DECODE)
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
+        kernel.launches = 0
         entropy_exit.launches = 0
         results = sess.run()
-        n_attn, n_gate = flash_attention.launches, entropy_exit.launches
+        n_mix, n_gate = kernel.launches, entropy_exit.launches
         peak = torch.cuda.max_memory_allocated()
         st = sess.stats
-        launches["flash_attention"] += n_attn
-        launches["entropy_exit"] += n_gate
+        launches[name] = launches.get(name, 0) + n_mix
+        launches["entropy_exit"] = launches.get("entropy_exit", 0) + n_gate
         decode_s = st.wall_s - st.prefill_s
-        print(f"main {policy} tau={tau}: {st.requests} requests, {st.tokens} "
-              f"tokens, {st.decode_ticks} ticks ({st.client_only_ticks} "
-              f"client-only), adoption {st.adoption_ratio:.3f}")
-        print(f"  {st.tokens / st.wall_s:.1f} tok/s overall, "
-              f"{decode_s / st.decode_ticks * 1e3:.3f} ms per decode tick, "
-              f"{st.prefill_s / st.requests * 1e3:.3f} ms per prefill, "
-              f"peak memory {peak / 2**30:.2f} GiB, "
-              f"launches: flash_attention {n_attn}, entropy_exit {n_gate}")
-        state[f"main_{policy}"] = dict(
-            tok_s=st.tokens / st.wall_s,
-            ms_per_tick=decode_s / st.decode_ticks * 1e3,
-            ms_per_prefill=st.prefill_s / st.requests * 1e3,
+        tok_s = st.tokens / st.wall_s
+        ms_tick = decode_s / st.decode_ticks * 1e3
+        ms_prefill = st.prefill_s / st.requests * 1e3
+        print(f"main {cfg.name} {policy} tau={tau}: {st.requests} requests, "
+              f"{st.tokens} tokens, {st.decode_ticks} ticks "
+              f"({st.client_only_ticks} client-only), adoption "
+              f"{st.adoption_ratio:.3f}")
+        print(f"  {tok_s:.1f} tok/s overall, {ms_tick:.3f} ms per decode "
+              f"tick (bound {bound_ms:.3f} ms), {ms_prefill:.3f} ms per "
+              f"prefill, peak memory {peak / 2**30:.2f} GiB, launches: "
+              f"{name} {n_mix}, entropy_exit {n_gate}")
+        state.setdefault("main", {})[f"{cfg.name}/{policy}"] = dict(
+            tok_s=tok_s, ms_per_tick=ms_tick, ms_per_prefill=ms_prefill,
             peak_gib=peak / 2**30, ticks=st.decode_ticks,
             client_only_ticks=st.client_only_ticks,
-            adoption=st.adoption_ratio, flash_launches=n_attn,
-            gate_launches=n_gate)
+            adoption=st.adoption_ratio, launches=n_mix, gate_launches=n_gate,
+            tick_bound_ms=bound_ms)
         full_ticks = st.decode_ticks - st.client_only_ticks
-        check(n_attn > 0 and n_gate > 0,
-              f"{policy}: both kernels launched on the main path")
-        check(n_attn == cfg.num_layers * (full_ticks + st.requests)
-              + cut * st.client_only_ticks and n_gate == st.decode_ticks,
-              f"{policy}: one attention launch per layer per tick and "
-              f"prefill, one gate launch per tick")
-        ok = len(results) == REQUESTS
+        check(n_mix > 0 and n_gate > 0,
+              f"{cfg.name} {policy}: both kernels launched on the main path")
+        want = cfg.num_layers * st.requests + (
+            cfg.num_layers * full_ticks + cut * st.client_only_ticks
+            if counts_per_tick else 0)
+        check(n_mix == want and n_gate == st.decode_ticks,
+              f"{cfg.name} {policy}: {name} launched {n_mix} times = "
+              f"{cfg.num_layers} per prefill"
+              + (" and one per layer per tick" if counts_per_tick else "")
+              + ", one gate launch per tick")
+        ok = len(results) == len(prompts)
         for r in results:
             ok &= len(r.tokens) == DECODE + 1 and len(r.exited) == DECODE
             ok &= all(0 <= t < cfg.vocab_size for t in r.tokens)
@@ -544,14 +787,14 @@ def phase_main(state):
             if policy == "select":
                 ok &= all(e == (h < tau) for e, h in zip(r.exited, r.entropy)
                           if abs(h - tau) > GATE_MARGIN)
-        check(ok, f"{policy}: every request served {DECODE} finite gated "
-                  f"tokens in range, gate consistent with H < tau")
+        check(ok, f"{cfg.name} {policy}: every request served {DECODE} "
+                  f"finite gated tokens in range, gate consistent with "
+                  f"H < tau")
         if policy == "sticky":
             check(st.adoption_ratio == 1.0 and st.client_only_ticks > 0,
-                  "sticky tau=12.5 > ln(151552): every token exits and "
-                  "client-only ticks run")
-    state["launches"] = launches
-    profile_ticks(cfg, params, prompts)
+                  f"{cfg.name} sticky tau=12.5 > ln({cfg.vocab_size}): every "
+                  f"token exits and client-only ticks run")
+    profile_ticks(cfg, params, prompts, max_len)
     del params
     torch.cuda.empty_cache()
 
@@ -585,56 +828,92 @@ def traced(run, n: int, what: str, top: int = 6) -> dict:
                 idle_share=1 - busy_us / wall_us)
 
 
-def profile_ticks(cfg, params, prompts, ticks: int = 5) -> None:
+def profile_ticks(cfg, params, prompts, max_len, ticks: int = 5) -> None:
     """Device busy share over a few select decode ticks (a separate, traced
     run: the tick times above are measured untraced)."""
     from repro_torch.api.serve_session import ServeSession
-    sess = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=MAX_LEN)
+    sess = ServeSession(cfg, params, tau=2.0, slots=SLOTS, max_len=max_len)
     for p in prompts[:SLOTS]:
         sess.submit(p, decode_tokens=DECODE)
     sess.step()                     # the admission tick, not traced
-    traced(sess.step, ticks, "select decode tick")
+    traced(sess.step, ticks, f"{cfg.name} select decode tick")
 
 
 def phase_train(state):
+    from repro_torch.configs import glm4_9b, rwkv6_3b
+    from repro_torch.kernels.dispatch import wkv_site_flops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.launch.e2e_train import cut_depth
+
+    # glm4-9b at its published widths, depth cut to 8 layers, 12 x 128
+    cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
+    # one block matmul of an attention kernel over the causal band
+    band_mm = (2 * TRAIN_B * cfg.num_heads * TRAIN_T * (TRAIN_T + 1) // 2
+               * cfg.head_dim)
+    state["train"] = train_main(
+        state, cfg, profile, TRAIN_T, "none",
+        (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq),
+        (2 * band_mm, 4 * band_mm, 3 * band_mm),
+        dict(warm=TRAIN_WARM, eq1=TRAIN_EQ1, sum=TRAIN_SUM))
+
+    # rwkv6-3b at its published widths and full depth (exits 8, 16, 24),
+    # 12 x 512 tokens (4 chunks of 128), every block recomputed (remat)
+    cfg, profile = cut_depth(rwkv6_3b.config(), rwkv6_3b.NUM_LAYERS)
+    n_wkv = cfg.num_layers
+    state["train_rwkv"] = train_main(
+        state, cfg, profile, RWKV_T, "full", (rwkv_wkv, rwkv_wkv_bwd),
+        (wkv_site_flops(cfg, TRAIN_B, RWKV_T, "train") / n_wkv,
+         wkv_site_flops(cfg, TRAIN_B, RWKV_T, "bwd") / n_wkv),
+        dict(warm=RWKV_WARM, eq1=RWKV_EQ1, sum=RWKV_SUM))
+
+
+def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
+               n) -> dict:
+    """make_train_step on ``cfg`` (bf16 weights, fp32 Adam, lr 3e-4 cosine),
+    batch 12 x ``T`` tokens of SyntheticLMDataset(seed=0), the Eq. (1)
+    profile ``profile``.  With every launch count of ``counters`` (the
+    mixer's kernel wrappers) set to 0 first: warm-up (its first step under
+    FlopCounterMode), one sum step under FlopCounterMode, the timed eq1 and
+    sum steps, a loss check on the first batch, then a traced window of 2
+    eq1 steps.  A counted step's FLOPs are the matmuls FlopCounterMode saw
+    plus ``flops_per_launch[i]`` for each launch of ``counters[i]``.  The
+    first counter is the forward kernel: one launch per layer, plus, under
+    remat, one per launch of the last counter (a block's backward runs
+    after its forward is recomputed)."""
     from repro_torch.config import OptimizerConfig, SplitEEConfig, TrainConfig
-    from repro_torch.configs import glm4_9b
     from repro_torch.core.losses import softmax_cross_entropy
     from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
                                        make_train_step)
     from repro_torch.data.synthetic import SyntheticLMDataset
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd_dkv,
-                                                     flash_attention_bwd_dq)
-    from repro_torch.launch.e2e_train import cut_depth
     from repro_torch.models.backbone import backbone_forward, init_backbone
     from repro_torch.optim import adam_init
     from repro_torch.tree import tree_leaves
 
-    cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
     # warm-up (its first step counted), one counted sum step, the timed
     # steps, the traced window
-    n_steps = TRAIN_WARM + 1 + TRAIN_EQ1 + TRAIN_SUM + 2
+    n_steps = n["warm"] + 1 + n["eq1"] + n["sum"] + 2
     opt_cfg = OptimizerConfig(lr=3e-4, total_steps=n_steps)
     t0 = time.perf_counter()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     opt = adam_init(params, opt_cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"train: glm4-9b widths cut to {cfg.num_layers} layers, exits "
-          f"{cfg.exit_layers}, {profile.num_groups} client groups "
-          f"{profile.split_layers}; {n_params / 1e9:.3f} B params "
+    print(f"train: {cfg.name} at its published widths, {cfg.num_layers} "
+          f"layers, exits {cfg.exit_layers}, {profile.num_groups} client "
+          f"groups {profile.split_layers}; {n_params / 1e9:.3f} B params "
           f"({weight_bytes(params) / 1e9:.2f} GB bf16) + fp32 Adam m/v "
-          f"({weight_bytes(opt.m) * 2 / 1e9:.2f} GB), set up in "
-          f"{time.perf_counter() - t0:.1f} s")
-    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
-                            seed=0)
+          f"({weight_bytes(opt.m) * 2 / 1e9:.2f} GB); batch {TRAIN_B} x {T}, "
+          f"remat={remat}; set up in {time.perf_counter() - t0:.1f} s")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=T, seed=0)
     sids = boundary_ids_for_batch(profile, cfg, TRAIN_B, "cuda")
     batches = [{"tokens": torch.as_tensor(t, device="cuda"),
                 "labels": torch.as_tensor(lab, device="cuda"),
                 "split_ids": sids}
                for t, lab in ds.batches(TRAIN_B, n_steps)]
-    tokens = TRAIN_B * TRAIN_T
+    tokens = TRAIN_B * T
 
     def first_batch_loss() -> float:
         with torch.no_grad():
@@ -645,7 +924,7 @@ def phase_train(state):
 
     steps = {mode: make_train_step(StepConfig(
         model=cfg, splitee=SplitEEConfig(profile=profile),
-        train=TrainConfig(optimizer=opt_cfg), grad_mode=mode))
+        train=TrainConfig(optimizer=opt_cfg, remat=remat), grad_mode=mode))
         for mode in ("eq1", "sum")}
     loss0 = first_batch_loss()
     it = iter(batches)
@@ -656,39 +935,33 @@ def phase_train(state):
         params, opt, m = steps[mode](params, opt, next(it))
         metrics.append(m)
 
-    counters = (flash_attention, flash_attention_bwd_dkv,
-                flash_attention_bwd_dq)
-
-    def run(mode, n):
+    def run(mode, k):
         before = [c.launches for c in counters]
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for _ in range(n):
+        for _ in range(k):
             one_step(mode)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) / n * 1e3
-        return ms, [(c.launches - b) / n for c, b in zip(counters, before)]
-
-    # one block matmul of an attention kernel over the causal band
-    band_mm = (2 * TRAIN_B * cfg.num_heads * TRAIN_T * (TRAIN_T + 1) // 2
-               * cfg.head_dim)
+        ms = (time.perf_counter() - t) / k * 1e3
+        return ms, [(c.launches - b) / k for c, b in zip(counters, before)]
 
     def counted_step(mode) -> float:
         """One step under FlopCounterMode: the FLOPs of the matmuls the
-        step ran (the forward and the backward pulls as autograd pruned
-        them), plus the attention kernels' block matmuls over the band
-        from their launches (2 forward, 4 dK/dV, 3 dQ)."""
+        step ran (the forward, remat's recomputations and the backward
+        pulls as autograd pruned them), plus the kernels' FLOPs from their
+        launches."""
         from torch.utils.flop_counter import FlopCounterMode
         before = [c.launches for c in counters]
         with FlopCounterMode(display=False) as fc:
             one_step(mode)
         torch.cuda.synchronize()
-        n = [c.launches - b for c, b in zip(counters, before)]
-        return fc.get_total_flops() + band_mm * (2 * n[0] + 4 * n[1]
-                                                 + 3 * n[2])
+        return fc.get_total_flops() + sum(
+            (c.launches - b) * f
+            for c, b, f in zip(counters, before, flops_per_launch))
 
     # the forward's weight matmuls: every parameter but the embedding
-    # table (a gather) and the norm gains multiplies each token once
+    # table (a gather) and the norm gains, lerps and biases multiplies
+    # each token once
     mm_params = sum(p.numel() for p in tree_leaves(params) if p.ndim >= 2)
     mm_params -= params["embed"]["table"].numel()
     fwd_flops = 2 * mm_params * tokens
@@ -697,23 +970,24 @@ def phase_train(state):
     for c in counters:
         c.launches = 0
     flops = {"eq1": counted_step("eq1")}
-    run("eq1", TRAIN_WARM - 1)
+    run("eq1", n["warm"] - 1)
     flops["sum"] = counted_step("sum")
-    timed = {"eq1": run("eq1", TRAIN_EQ1), "sum": run("sum", TRAIN_SUM)}
+    timed = {"eq1": run("eq1", n["eq1"]), "sum": run("sum", n["sum"])}
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
     loss1 = first_batch_loss()
-    train = dict(params=n_params, peak_gib=peak / 2**30, loss0=loss0,
-                 loss1=loss1, launches=launches)
+    train = dict(model=cfg.name, layers=cfg.num_layers, seq=T, params=n_params,
+                 peak_gib=peak / 2**30, loss0=loss0, loss1=loss1,
+                 launches=launches)
     peak_s = PEAK_OPS_PER_S[torch.bfloat16] / 1e3
+    names = ", ".join(c.__name__ for c in counters)
     for mode, (ms, per_step) in timed.items():
         nominal = 6 * n_params * tokens * (1.5 if mode == "eq1" else 1.0)
         share, share_nominal = flops[mode] / (ms * peak_s), nominal / (
             ms * peak_s)
-        print(f"train {mode}: {ms:.1f} ms per step, "
-              f"{tokens / ms * 1e3:,.0f} tokens/s; launches per step: "
-              f"flash_attention {per_step[0]:g}, dK/dV {per_step[1]:g}, dQ "
-              f"{per_step[2]:g}")
+        print(f"train {cfg.name} {mode}: {ms:.1f} ms per step, "
+              f"{tokens / ms * 1e3:,.0f} tokens/s; launches per step ({names})"
+              f": {', '.join(f'{x:g}' for x in per_step)}")
         print(f"  share of the bf16 peak {share:.4f}: {flops[mode] / 1e12:.3f}"
               f" TFLOP counted in the step ({flops[mode] / fwd_flops:.3f} x "
               f"the forward's {fwd_flops / 1e12:.3f}) over step time x 989 "
@@ -724,26 +998,33 @@ def phase_train(state):
                            peak_share_nominal=share_nominal,
                            tflop=flops[mode] / 1e12,
                            launches_per_step=per_step)
-        check(min(per_step) > 0 and per_step[0] == cfg.num_layers,
-              f"train {mode}: all three attention kernels launched every "
-              f"step, one forward launch per layer")
+        recomputed = per_step[-1] if remat == "full" else 0
+        check(min(per_step) > 0
+              and per_step[0] == cfg.num_layers + recomputed,
+              f"train {cfg.name} {mode}: every kernel of the mixer launched "
+              f"every step, one forward launch per layer"
+              + (" and one per backward launch (remat)" if recomputed
+                 else ""))
         # forward + a backward of at least dW and dX for every weight
         check(flops[mode] >= 2.9 * fwd_flops,
-              f"train {mode}: the counted FLOPs include the backward pulls")
-    print(f"train: peak memory {peak / 2**30:.2f} GiB; first batch server "
-          f"loss {loss0:.4f} before, {loss1:.4f} after "
-          f"{TRAIN_WARM + 1 + TRAIN_EQ1 + TRAIN_SUM} steps")
+              f"train {cfg.name} {mode}: the counted FLOPs include the "
+              f"backward pulls")
+    print(f"train {cfg.name}: peak memory {peak / 2**30:.2f} GiB; first batch "
+          f"server loss {loss0:.4f} before, {loss1:.4f} after "
+          f"{n['warm'] + 1 + n['eq1'] + n['sum']} steps")
     finite = all(math.isfinite(float(v)) for m in metrics
                  for v in m.values())
-    check(finite, "train: every step's losses finite")
-    check(loss1 < loss0, "train: the first batch's server loss fell")
-    train["profile"] = traced(lambda: one_step("eq1"), 2, "eq1 train step")
-    state["train"] = train
-    for name, n in launches.items():
-        launches_all = state.setdefault("launches", {})
-        launches_all[name] = launches_all.get(name, 0) + n
+    check(finite, f"train {cfg.name}: every step's losses finite")
+    check(loss1 < loss0, f"train {cfg.name}: the first batch's server loss "
+                         f"fell")
+    train["profile"] = traced(lambda: one_step("eq1"), 2,
+                              f"{cfg.name} eq1 train step")
+    launches_all = state.setdefault("launches", {})
+    for name, k in launches.items():
+        launches_all[name] = launches_all.get(name, 0) + k
     del params, opt, metrics
     torch.cuda.empty_cache()
+    return train
 
 
 def phase_timing(state):
@@ -807,6 +1088,7 @@ def phase_timing(state):
         bytes=x.numel() * 2 + 3 * 4 * x.shape[0], ops=4 * x.numel(),
         dtype=torch.float32))
     rows.extend(time_backward(gen, buf, state))
+    rows.extend(time_wkv(gen, buf, state))
     state["timing"] = rows
 
 
@@ -869,6 +1151,91 @@ def time_backward(gen, buf, state):
     ]
 
 
+def time_wkv(gen, buf, state):
+    """The wkv forward and backward kernels at the rwkv6-3b train shape
+    (B=12, T=512, H=40, K=64, chunk 128, bf16 r/k/v) and the forward at a
+    prefill shape (1, 300, 40, 64), each beside its plain version; no one
+    PyTorch call computes the wkv, so no library time."""
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.kernels.dispatch import wkv_site_flops
+    from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
+                                              rwkv_wkv_bwd_plain,
+                                              rwkv_wkv_fwd, rwkv_wkv_plain)
+    cfg = rwkv6_3b.config()
+    one_layer = cfg.with_(num_layers=1, exit_layers=(),
+                          block_pattern=("rwkv6",), ffn_pattern=("rwkv_cm",))
+    ch = cfg.ssm.chunk_size
+
+    def io_bytes(B, T, H=40, K=64, nc=None):
+        """r/k/v bf16 and log_w fp32 in; u; the entry states when saved."""
+        seq = B * T * H * K
+        return (3 * 2 + 4) * seq + 4 * H * K + (
+            0 if nc is None else 4 * B * H * nc * K * K)
+
+    B, T, H, K = TRAIN_B, RWKV_T, 40, 64
+    r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, B, T)
+    nc = T // ch
+    dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
+    dsT = torch.zeros(B, H, K, K, device="cuda")
+    (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
+    seq, state_b = B * T * H * K, B * H * K * K * 4
+    shape = "train r/k/v (12,512,40,64) bf16, chunk 128"
+    rows = [
+        dict(name="rwkv_wkv", route="cuda",
+             source="src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+             replaces="src/repro/kernels/rwkv_wkv.py:142",
+             shape=shape + ", with the entry states",
+             ms=time_ms(lambda: rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch), buf),
+             plain_ms=time_ms(lambda: rwkv_wkv_plain(
+                 r, k, v, lw, u, chunk=ch, emit_chunk_states=True), buf),
+             library_ms=None,
+             bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b,
+             ops=wkv_site_flops(one_layer, B, T, "train"),
+             dtype=torch.float32),
+        dict(name="rwkv_wkv_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+             replaces="src/repro/kernels/rwkv_wkv.py:265",
+             shape=shape + ", dy fp32",
+             ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
+                                             chunk=ch), buf),
+             plain_ms=time_ms(lambda: rwkv_wkv_bwd_plain(
+                 r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
+             library_ms=None,
+             bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b + 4 * 4 * seq
+             + 4 * B * H * K,
+             ops=wkv_site_flops(one_layer, B, T, "bwd"),
+             dtype=torch.float32),
+    ]
+    # the prefill shape: the forward as prefill runs it (no entry states),
+    # and the backward there too, beside the same bounds
+    Bp, Tp = 1, 300
+    ncp = -(-Tp // ch)
+    r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, Bp, Tp)
+    dy = torch.randn(Bp, Tp, H, K, generator=gen, device="cuda")
+    dsT = torch.zeros(Bp, H, K, K, device="cuda")
+    (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
+    seq, state_b = Bp * Tp * H * K, Bp * H * K * K * 4
+    flops = wkv_site_flops(one_layer, Bp, Tp, "train")
+    state["wkv_prefill_timing"] = {
+        "forward": dict(
+            ms=time_ms(lambda: rwkv_wkv(r, k, v, lw, u, chunk=ch,
+                                        return_state=True), buf),
+            plain_ms=time_ms(lambda: rwkv_wkv_plain(r, k, v, lw, u,
+                                                    chunk=ch), buf),
+            bound_ms=max((io_bytes(Bp, Tp) + 4 * seq + state_b)
+                         / HBM_BYTES_PER_S,
+                         flops / PEAK_OPS_PER_S[torch.float32]) * 1e3),
+        "backward": dict(
+            ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
+                                            chunk=ch), buf),
+            plain_ms=time_ms(lambda: rwkv_wkv_bwd_plain(
+                r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
+            bound_ms=max((io_bytes(Bp, Tp, nc=ncp) + 4 * seq + state_b
+                          + 4 * 4 * seq + 4 * Bp * H * K) / HBM_BYTES_PER_S,
+                         2 * flops / PEAK_OPS_PER_S[torch.float32]) * 1e3)}
+    return rows
+
+
 def kernels_line(state) -> dict:
     out = []
     for r in state["timing"]:
@@ -929,8 +1296,18 @@ def main() -> int:
                   f"(12,2,128,128) causal bf16: {pt['ms']:.4f} ms, plain "
                   f"{pt['plain_ms']:.4f} ms, SDPA {pt['library_ms']:.4f} ms, "
                   f"bound {pt['bound_ms']:.5f} ms")
-        print("library time of both backward rows: one SDPA backward "
-              "computing dQ, dK and dV together")
+        for what, pt in state.get("wkv_prefill_timing", {}).items():
+            print(f"rwkv_wkv {what} at the prefill shape (1,300,40,64) bf16 "
+                  f"chunk 128: {pt['ms']:.4f} ms, plain "
+                  f"{pt['plain_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms")
+        for key in ("train", "train_rwkv"):
+            if key in state:
+                tr = state[key]
+                print(f"{tr['model']} launches per step: eq1 "
+                      f"{tr['eq1']['launches_per_step']}, sum "
+                      f"{tr['sum']['launches_per_step']}")
+        print("library time of both attention backward rows: one SDPA "
+              "backward computing dQ, dK and dV together")
         for k in line["kernels"]:
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")
@@ -941,6 +1318,7 @@ def main() -> int:
         print("ported kernels: " + ", ".join(
             f"{k['name']} ({k['route']}, {k['source']}, replaces "
             f"{k['replaces']})" for k in line["kernels"]))
+    print(card_line())
     if failed or set(phases) != set(PHASES):
         print(f"chip_smoke: failed phases {failed}; phases run {phases}",
               file=sys.stderr)

@@ -2,7 +2,7 @@
 
 The JAX module imports ``jax.numpy`` for its dtype defaults, so the port
 keeps its own copy with torch dtypes.  Field names and defaults mirror the
-JAX ``ModelConfig``, ``HeteroProfile``, ``SplitEEConfig``,
+JAX ``SSMConfig``, ``ModelConfig``, ``HeteroProfile``, ``SplitEEConfig``,
 ``OptimizerConfig`` and ``TrainConfig`` one for one (tests/test_torch_models.py
 and tests/test_torch_train.py check the field lists), so a config reads the
 same in both packages.
@@ -19,11 +19,25 @@ KERNEL_CHOICES = ("auto", "ref")
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """State-space / linear-attention block configuration (Mamba2, RWKV6);
+    the port runs ``kind="rwkv6"``."""
+
+    kind: str = "mamba2"               # "mamba2" | "rwkv6"
+    d_state: int = 64                  # SSM state dim per head
+    d_conv: int = 4                    # depthwise conv width (mamba)
+    expand: int = 2                    # inner expansion factor
+    head_dim: int = 64                 # SSD head dim
+    chunk_size: int = 256              # chunked-scan block length
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """One architecture.  ``block_pattern`` gives the per-layer mixer kind
     and ``ffn_pattern`` the per-layer FFN kind (see ``repro.config``).  The
-    port runs ``"attn"`` + ``"mlp"`` layers; the sub-configs ``moe``,
-    ``mla`` and ``ssm`` are carried for the mixers still to be ported.
+    port runs ``"attn"`` and ``"rwkv6"`` mixers with ``"mlp"`` and
+    ``"rwkv_cm"`` FFNs (``ssm`` an :class:`SSMConfig`); the sub-configs
+    ``moe`` and ``mla`` are carried for the mixers still to be ported.
 
     ``kernels``: ``"auto"`` launches the CUDA kernels for CUDA tensors and
     their plain PyTorch versions for CPU tensors; ``"ref"`` runs the plain
@@ -42,7 +56,7 @@ class ModelConfig:
     ffn_pattern: Tuple[str, ...] = ()      # defaults to all-"mlp"
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rope_theta: float = 10000.0
     use_qkv_bias: bool = False
     use_mlp_bias: bool = False

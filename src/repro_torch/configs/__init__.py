@@ -1,6 +1,6 @@
 """Architecture registry of the port (counterpart of ``repro/configs``).
 
-Only glm4-9b is ported so far; every other id of the JAX registry raises a
+glm4-9b and rwkv6-3b are ported so far; every other id of the JAX registry raises a
 ``ValueError`` that names the ROADMAP item it waits for."""
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ ARCH_IDS = (
     "paligemma_3b",
     "rwkv6_3b",
 )
-PORTED = ("glm4_9b",)
+PORTED = ("glm4_9b", "rwkv6_3b")
 
 # CLI ids use dashes, matching the assignment table.
 CANONICAL = {a.replace("_", "-").replace("-1p2b", "-1.2b"): a for a in ARCH_IDS}

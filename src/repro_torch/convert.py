@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, SSMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import build_plan
 from repro_torch.optim import AdamState
@@ -37,13 +37,19 @@ def torch_dtype(dtype) -> torch.dtype:
 
 def config_from_jax(jcfg, **overrides) -> ModelConfig:
     """The port's ``ModelConfig`` with every field of a JAX ``ModelConfig``
-    (dtypes mapped; ``kernels`` keeps the port's default unless given)."""
+    (dtypes mapped, a JAX ``SSMConfig`` mapped field by field to the
+    port's; ``kernels`` keeps the port's default unless given)."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
         if f.name == "kernels":
             continue
         val = getattr(jcfg, f.name)
-        kw[f.name] = torch_dtype(val) if f.name.endswith("dtype") else val
+        if f.name.endswith("dtype"):
+            val = torch_dtype(val)
+        elif f.name == "ssm" and val is not None:
+            val = SSMConfig(**{g.name: getattr(val, g.name)
+                               for g in dataclasses.fields(SSMConfig)})
+        kw[f.name] = val
     kw.update(overrides)
     return ModelConfig(**kw)
 

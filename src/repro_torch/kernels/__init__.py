@@ -2,12 +2,13 @@
 
   * ``csrc/*.cu``           — the kernels, plain C interface, built by
     ``build.py`` with ``nvcc`` for ``sm_90a`` at first use;
-  * ``entropy_exit.py`` / ``flash_attention.py`` — the wrappers: checks,
-    output allocation, launch on the current stream, launch counts
-    (``flash_attention.py`` holds the forward and the dK/dV and dQ
-    backward kernels' wrappers);
+  * ``entropy_exit.py`` / ``flash_attention.py`` / ``rwkv_wkv.py`` — the
+    wrappers: checks, output allocation, launch on the current stream,
+    launch counts (``flash_attention.py`` holds the forward and the dK/dV
+    and dQ backward kernels' wrappers, ``rwkv_wkv.py`` the chunked wkv
+    forward and backward);
   * ``ref.py``              — the plain versions (CPU path and oracle);
   * ``dispatch.py``         — the ``ref``/``cuda`` backends behind
-    ``ModelConfig.kernels``, and the autograd Function of the training
-    site.
+    ``ModelConfig.kernels``, and the autograd Functions of the training
+    sites.
 """

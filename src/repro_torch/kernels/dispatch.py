@@ -1,7 +1,7 @@
 """Kernel-backend dispatch (counterpart of ``repro/kernels/dispatch.py``):
-routes the model's two hot sites — GQA attention (serving and training)
-and the Alg. 3 entropy gate — to the CUDA kernels or to their plain
-versions.
+routes the model's three hot sites — GQA attention (serving and training),
+the RWKV6 wkv recurrence (prefill and training) and the Alg. 3 entropy
+gate — to the CUDA kernels or to their plain versions.
 
 ``ModelConfig.kernels`` in ``{"auto", "ref"}``:
 
@@ -12,14 +12,17 @@ versions.
     oracle the kernels are held against.
 
 Both backends take the model's layouts — q (B, T, H, hd), k/v
-(B, S, Hkv, hd) — and one ``kv_valid``/``tau`` value per row (the decode
-slots of a ``ServeSession``), and return the same dtypes.
+(B, S, Hkv, hd), r/k/v/log_w (B, T, H, K) — and one ``kv_valid``/``tau``
+value per row (the decode slots of a ``ServeSession``), and return the
+same dtypes.
 
-Training differentiates attention.  The ``ref`` backend leaves that to
-autograd of the plain version (the oracle).  The ``cuda`` backend runs the
-training site through :class:`FlashAttentionFn`, the counterpart of the
-JAX package's ``_flash_vjp``: its forward saves the output and the per-row
-LSE, its backward runs the dK/dV and dQ kernels.
+Training differentiates attention and the wkv.  The ``ref`` backend leaves
+that to autograd of the plain versions (the oracle).  The ``cuda`` backend
+runs the training sites through :class:`FlashAttentionFn`, the counterpart
+of the JAX package's ``_flash_vjp`` (its forward saves the output and the
+per-row LSE, its backward runs the dK/dV and dQ kernels), and
+:class:`WkvFn`, the counterpart of ``_wkv_vjp`` (its forward saves every
+chunk's entry state, its backward runs the reverse chunk walk).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.entropy_exit import entropy_exit
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
+from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
+                                          rwkv_wkv_fwd)
 
 
 def resolve_kernels(name: str = "auto") -> str:
@@ -76,6 +81,28 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class WkvFn(torch.autograd.Function):
+    """Differentiable chunked wkv at the training site (model layout):
+    forward = :func:`rwkv_wkv_fwd`, saving r, k, v, log_w, u and every
+    chunk's entry state; backward = :func:`rwkv_wkv_bwd` (the reverse chunk
+    walk on the card) from ``dy`` and ``dsT``, which autograd hands in as
+    zeros when S_T is unused, as it is in training."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, chunk: int):
+        (y, sT), s0 = rwkv_wkv_fwd(r, k, v, log_w, u, chunk=chunk)
+        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        ctx.chunk = chunk
+        return y, sT
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dsT):
+        r, k, v, log_w, u, s0 = ctx.saved_tensors
+        return (*rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT,
+                              chunk=ctx.chunk), None)
+
+
 class KernelBackend:
     """One implementation of the routed hot sites (model layouts)."""
 
@@ -97,6 +124,11 @@ class KernelBackend:
                               kv_valid=kv_valid)
         return out.transpose(1, 2)
 
+    def wkv(self, r, k, v, log_w, u, *, chunk: int):
+        """RWKV6 wkv.  r/k/v/log_w (B, T, H, K), u (H, K) ->
+        ``(y (B, T, H, K) float32, S_T (B, H, K, K) float32)``."""
+        raise NotImplementedError
+
     def entropy_gate(self, logits: torch.Tensor, tau):
         """logits (..., V); ``tau`` a float or (B,) per leading row ->
         ``(H (...) float32, exit (...) bool)`` with exit iff H < tau."""
@@ -115,6 +147,10 @@ class ReferenceBackend(KernelBackend):
         return kref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         kv_valid=kv_valid)
 
+    def wkv(self, r, k, v, log_w, u, *, chunk: int):
+        from repro_torch.models.ssm import _wkv_chunked
+        return _wkv_chunked(r, k, v, log_w, u, chunk)
+
     def _entropy_exit(self, logits, tau):
         return kref.entropy_exit_ref(logits, tau)
 
@@ -123,7 +159,8 @@ class CudaBackend(KernelBackend):
     """The kernel wrappers: CUDA kernels for CUDA tensors, the plain
     versions for CPU tensors.  While autograd records (an operand requires
     grad) attention without ``kv_valid`` goes through
-    :class:`FlashAttentionFn`; the decode path never differentiates."""
+    :class:`FlashAttentionFn` and the wkv through :class:`WkvFn`; the
+    decode path never differentiates."""
 
     name = "cuda"
 
@@ -133,6 +170,12 @@ class CudaBackend(KernelBackend):
             return FlashAttentionFn.apply(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window,
                                kv_valid=kv_valid)
+
+    def wkv(self, r, k, v, log_w, u, *, chunk: int):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, log_w, u)):
+            return WkvFn.apply(r, k, v, log_w, u, chunk)
+        return rwkv_wkv(r, k, v, log_w, u, chunk=chunk, return_state=True)
 
     def _entropy_exit(self, logits, tau):
         return entropy_exit(logits, tau)
@@ -148,3 +191,21 @@ def get_backend(name: str = "auto") -> KernelBackend:
 def backend_for(cfg) -> KernelBackend:
     """The backend a ``ModelConfig`` selects (``cfg.kernels``)."""
     return get_backend(cfg.kernels)
+
+
+def wkv_site_flops(cfg, batch: int, seq_len: int,
+                   kind: str = "train") -> float:
+    """FLOPs of the routed chunked wkv, over every rwkv6 layer (the count
+    of ``repro/kernels/dispatch.py:wkv_site_flops``).  One forward
+    ("train"/"decode"): per token per head ``4*Q*K`` intra-chunk (scores
+    and values over the Q-token chunk) plus ``4*K*K`` inter-chunk/state
+    work.  "bwd" is the chunked backward, twice the forward."""
+    if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+        return 0.0
+    s, K = cfg.ssm, cfg.ssm.head_dim
+    H = cfg.d_model // K
+    T = 1 if kind == "decode" else seq_len
+    Q = min(s.chunk_size, T)
+    n_wkv = sum(b == "rwkv6" for b in cfg.block_pattern)
+    per_fwd = batch * T * H * K * (4.0 * Q + 4.0 * K) * n_wkv
+    return 2.0 * per_fwd if kind == "bwd" else per_fwd

@@ -121,3 +121,165 @@ def entropy_exit_ref(logits, tau):
     H = -(logp.exp() * logp).sum(dim=-1)
     tau = torch.as_tensor(tau, dtype=torch.float32, device=H.device)
     return H, (H < tau).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv
+# ---------------------------------------------------------------------------
+
+
+def rwkv_wkv_ref_state(r, k, v, log_w, u):
+    """Token-by-token recurrence (the oracle).  r/k/v/log_w (BH, T, K), u
+    (BH, K) -> ``(y (BH, T, K) fp32, S_T (BH, K, K) fp32)``."""
+    BH, T, K = r.shape
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    wf = log_w.float().exp()
+    uf = u.float()
+    S = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]
+        ys.append(torch.einsum("bk,bkv->bv", rf[:, t],
+                               S + uf[..., None] * kv))
+        S = S * wf[:, t, :, None] + kv
+    return torch.stack(ys, dim=1), S
+
+
+def rwkv_wkv_ref_model(r, k, v, log_w, u):
+    """Model-layout oracle: r/k/v/log_w (B, T, H, K), u (H, K) ->
+    ``(y (B, T, H, K) fp32, S_T (B, H, K, K) fp32)``."""
+    B, T, H, K = r.shape
+
+    def flat(x):
+        return x.movedim(2, 1).reshape(B * H, T, K)
+
+    uf = u[None].expand(B, H, K).reshape(B * H, K)
+    y, ST = rwkv_wkv_ref_state(flat(r), flat(k), flat(v), flat(log_w), uf)
+    return y.reshape(B, H, T, K).movedim(1, 2), ST.reshape(B, H, K, K)
+
+
+def _chunk_decays(lw):
+    """Cumulative log-decay L (.., Q, K) of a chunk and its exclusive
+    version L_prev = L - lw."""
+    L = torch.cumsum(lw, dim=-2)
+    return L, L - lw
+
+
+def _chunk_fwd(r, k, v, lw, u, S):
+    """One chunk of the recurrence for every row at once, in fp32: inputs
+    (BH, Q, K), u (BH, 1, K), the carried state S (BH, K, K) -> (y, S')."""
+    Q = r.shape[1]
+    L, L_prev = _chunk_decays(lw)
+    rw = r * L_prev.exp()
+    kw = k * (-L).exp()
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=r.device).tril(-1)
+    scores = torch.where(lower, rw @ kw.transpose(1, 2), 0.0)
+    y = scores @ v + (r * u * k).sum(-1, keepdim=True) * v + rw @ S
+    tail = (L[:, -1:] - L).exp()
+    s_new = L[:, -1, :, None].exp() * S + (k * tail).transpose(1, 2) @ v
+    return y, s_new
+
+
+def _check_wkv_kernel_layout(r, k, v, log_w, u, chunk: int) -> None:
+    BH, T, K = r.shape
+    for name, a in (("k", k), ("v", v), ("log_w", log_w)):
+        if a.shape != r.shape:
+            raise ValueError(f"wkv operand shape mismatch: r "
+                             f"{tuple(r.shape)} vs {name} {tuple(a.shape)}")
+    if tuple(u.shape) != (BH, K):
+        raise ValueError(f"wkv bonus shape mismatch: u {tuple(u.shape)}, "
+                         f"expected (BH, K) = {(BH, K)}")
+    if T % chunk != 0:
+        raise ValueError(f"unpadded sequence length: T={T} must be a "
+                         f"multiple of chunk={chunk}")
+
+
+def rwkv_wkv_chunked_ref(r, k, v, log_w, u, *, chunk: int,
+                         emit_chunk_states: bool = False):
+    """Plain version of the chunked forward kernel, in its layout:
+    r/k/v/log_w (BH, T, K) with T a multiple of ``chunk``, u (BH, K) ->
+    ``(y (BH, T, K), S_T (BH, K, K))``, plus every chunk's entry state
+    ``S0 (BH, T / chunk, K, K)`` with ``emit_chunk_states``; all fp32.
+    Follows the TPU kernel's chunk algebra (``k e^{-L}``, ``r e^{L_prev}``)."""
+    _check_wkv_kernel_layout(r, k, v, log_w, u, chunk)
+    BH, T, K = r.shape
+    uf = u.float()[:, None]
+    S = torch.zeros((BH, K, K), dtype=torch.float32, device=r.device)
+    ys, states = [], []
+    for c0 in range(0, T, chunk):
+        sl = slice(c0, c0 + chunk)
+        states.append(S)
+        y, S = _chunk_fwd(r[:, sl].float(), k[:, sl].float(),
+                          v[:, sl].float(), log_w[:, sl].float(), uf, S)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    if emit_chunk_states:
+        return y, S, torch.stack(states, dim=1)
+    return y, S
+
+
+def rwkv_wkv_bwd_ref(r, k, v, log_w, u, dy, s0, dsT, *, chunk: int):
+    """Plain version of the chunked backward kernel, in its layout: the
+    forward's operands (BH, T, K) and u (BH, K), the cotangent ``dy``
+    (BH, T, K), the entry states ``s0`` (BH, T / chunk, K, K) and the
+    cotangent ``dsT`` (BH, K, K) of the final state -> fp32 ``(dr, dk, dv,
+    dlog_w, du)``, ``du`` (BH, K) summed over the sequence.  Walks the
+    chunks last to first with the state adjoint G, as ``_wkv_bwd_kernel``
+    does."""
+    _check_wkv_kernel_layout(r, k, v, log_w, u, chunk)
+    BH, T, K = r.shape
+    nc = T // chunk
+    if tuple(s0.shape) != (BH, nc, K, K):
+        raise ValueError(f"chunk-state residual shape mismatch: s0 "
+                         f"{tuple(s0.shape)}, expected {(BH, nc, K, K)}")
+    uf = u.float()[:, None]
+    lower = torch.ones((chunk, chunk), dtype=torch.bool,
+                       device=r.device).tril(-1)
+    G = dsT.float()
+    du = torch.zeros((BH, K), dtype=torch.float32, device=r.device)
+    outs = [[None] * nc for _ in range(4)]
+    for c in reversed(range(nc)):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, lw, dyc = (a[:, sl].float()
+                               for a in (r, k, v, log_w, dy))
+        S0 = s0[:, c].float()
+        L, L_prev = _chunk_decays(lw)
+        eLp, eLn = L_prev.exp(), (-L).exp()
+        rw, kw = rc * eLp, kc * eLn
+        eLQ = L[:, -1].exp()                                  # (BH, K)
+        tail = (L[:, -1:] - L).exp()
+
+        # state path: S' = diag(eLQ) S0 + (k * tail)^T v
+        d_kt = vc @ G.transpose(1, 2)
+        dk_state = tail * d_kt
+        d_tail = kc * d_kt
+        dv_state = (kc * tail) @ G
+
+        # output path: y = scores v + (r.u.k) v + rw S0
+        scores = torch.where(lower, rw @ kw.transpose(1, 2), 0.0)
+        d_scores = torch.where(lower, dyc @ vc.transpose(1, 2), 0.0)
+        dv_intra = scores.transpose(1, 2) @ dyc
+        d_rw = d_scores @ kw + dyc @ S0.transpose(1, 2)
+        d_kw = d_scores.transpose(1, 2) @ rw
+        db = (dyc * vc).sum(-1, keepdim=True)
+        b = (rc * uf * kc).sum(-1, keepdim=True)
+
+        dr = d_rw * eLp + uf * kc * db
+        dk = d_kw * eLn + dk_state + uf * rc * db
+        dv = dv_intra + b * dyc + dv_state
+        du = du + (rc * kc * db).sum(1)
+
+        # log-decay path: L = cumsum(lw); L_Q = L[-1] feeds eLQ and tail
+        dLQ = eLQ * (G * S0).sum(-1) + (d_tail * tail).sum(1)
+        dL = -d_kw * kw - d_tail * tail
+        dL_prev = d_rw * rw
+        A = dL + dL_prev
+        A[:, -1] += dLQ
+        revcum = A.sum(1, keepdim=True) - A.cumsum(1) + A
+        dlw = revcum - dL_prev
+        for i, x in enumerate((dr, dk, dv, dlw)):
+            outs[i][c] = x
+        # adjoint of the chunk's entry state = the previous chunk's exit
+        G = eLQ[..., None] * G + rw.transpose(1, 2) @ dyc
+    dr, dk, dv, dlw = (torch.cat(o, dim=1) for o in outs)
+    return dr, dk, dv, dlw, du

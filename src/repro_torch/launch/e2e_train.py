@@ -11,6 +11,8 @@ architecture's smoke config instead (fp32, narrow), with the same cut.
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --layers 8 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.e2e_train --arch rwkv6-3b \
+      --layers 32 --seq 512 --remat --steps 20
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --smoke --layers 4 \\
       --steps 3 --batch 12 --seq 8 --device cpu
 """

@@ -8,6 +8,7 @@ plain PyTorch path on the CPU).  As in the JAX CLI, ``--arch`` selects the
 architecture's smoke config.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --tau 2.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --tau 2.0
 """
 from __future__ import annotations
 

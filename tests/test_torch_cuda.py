@@ -269,3 +269,184 @@ def test_train_step_on_the_card_matches_plain(dev):
                    zip(tree_leaves(p0), tree_leaves(p1))])
     assert d.max().item() <= 1e-3
     assert (d > 1e-6).sum().item() <= 1e-3 * d.numel()
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv: forward and backward kernels, the autograd site, rwkv6 smoke
+# ---------------------------------------------------------------------------
+
+WKV_CASES = [
+    # (B, T, H, K, chunk, log_w range (lo, hi): log_w ~ -U(lo, hi))
+    (2, 128, 4, 64, 8, (0.05, 1.0)),       # the JAX tests' decays
+    (2, 128, 4, 64, 64, (0.05, 1.0)),
+    (2, 100, 4, 64, 32, (0.05, 1.0)),      # T not a chunk multiple
+    (3, 19, 2, 32, 8, (0.05, 1.0)),        # head_dim 32, ragged
+    (2, 16, 2, 16, 32, (0.05, 1.0)),       # chunk > T, head_dim 16
+    (1, 300, 40, 64, 128, (0.0025, 0.37)),  # prefill, value columns split
+    (12, 512, 40, 64, 128, (0.0025, 0.37)),  # the training shape
+]
+
+
+def _wkv_inputs(dev, dtype, B, T, H, K, decay, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(B, T, H, K, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    lo, hi = decay
+    log_w = -(lo + (hi - lo) * torch.rand(B, T, H, K, generator=g,
+                                          device=dev))
+    u = torch.randn(H, K, generator=g, device=dev)
+    dy = torch.randn(B, T, H, K, generator=g, device=dev)
+    dsT = torch.randn(B, H, K, K, generator=g, device=dev)
+    return r, k, v, log_w, u, dy, dsT
+
+
+def _scaled(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,K,chunk,decay", WKV_CASES)
+def test_wkv_kernels_match_plain(dev, dtype, B, T, H, K, chunk, decay):
+    """Each output against the plain version, over its largest magnitude:
+    1e-4 forward, 5e-4 backward (reassociation and the pairwise against the
+    factored exponentials), 1e-2 for bf16 gradients (one bf16 rounding)."""
+    from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
+                                              rwkv_wkv_bwd_plain,
+                                              rwkv_wkv_fwd, rwkv_wkv_plain)
+    r, k, v, lw, u, dy, dsT = _wkv_inputs(dev, dtype, B, T, H, K, decay)
+    n_fwd, n_bwd = rwkv_wkv.launches, rwkv_wkv_bwd.launches
+    (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
+    grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+    ch = min(chunk, T)
+    want_y, want_sT, want_s0 = rwkv_wkv_plain(r, k, v, lw, u, chunk=ch,
+                                              emit_chunk_states=True)
+    wants = rwkv_wkv_bwd_plain(r, k, v, lw, u, want_s0, dy, dsT, chunk=ch)
+    torch.cuda.synchronize()
+    assert (rwkv_wkv.launches, rwkv_wkv_bwd.launches) == (n_fwd + 1,
+                                                         n_bwd + 1)
+    for got, want in ((y, want_y), (sT, want_sT), (s0, want_s0)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _scaled(got, want) <= 1e-4
+    tol = 5e-4 if dtype == torch.float32 else 1e-2
+    wants = (*wants[:4], wants[4].reshape(B, H, K).sum(0))
+    for got, want, primal in zip(grads, wants, (r, k, v, lw, u)):
+        assert got.dtype == primal.dtype and got.shape == primal.shape
+        assert _scaled(got, want) <= tol
+
+
+def test_wkv_kernels_take_decays_the_plain_chunked_form_cannot(dev):
+    """log_w ~ -U(0.7, 1) at chunk 128: e^{-L} passes fp32's range in the
+    TPU algebra; the kernels' pairwise weights match the token oracle and
+    autograd through it."""
+    from repro_torch.kernels.ref import rwkv_wkv_ref_model
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv_bwd, rwkv_wkv_fwd
+    r, k, v, lw, u, dy, dsT = _wkv_inputs(dev, torch.float32, 1, 256, 4, 64,
+                                          (0.7, 1.0), seed=1)
+    (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=128)
+    grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=128)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    want_y, want_sT = rwkv_wkv_ref_model(*leaves)
+    wants = torch.autograd.grad((want_y * dy).sum() + (want_sT * dsT).sum(),
+                                leaves)
+    assert _scaled(y, want_y.detach()) <= 1e-4
+    assert _scaled(sT, want_sT.detach()) <= 1e-4
+    for got, want in zip(grads, wants):
+        assert _scaled(got, want) <= 5e-4
+
+
+def test_wkv_autograd_site_matches_plain_autograd(dev):
+    """CudaBackend.wkv under autograd (WkvFn: both kernels) against
+    autograd of the plain forward (models/ssm._wkv_chunked)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    leaves = _wkv_inputs(dev, torch.float32, 2, 200, 8, 64, (0.0025, 0.37),
+                         seed=2)
+    res = []
+    for name in ("auto", "ref"):
+        xs = [t.clone().requires_grad_() for t in leaves[:5]]
+        counts = (rwkv_wkv.launches, rwkv_wkv_bwd.launches)
+        y, sT = dispatch.get_backend(name).wkv(*xs, chunk=128)
+        ((y * leaves[5]).sum() + (sT * leaves[6]).sum()).backward()
+        torch.cuda.synchronize()
+        launched = (rwkv_wkv.launches - counts[0],
+                    rwkv_wkv_bwd.launches - counts[1])
+        assert launched == ((1, 1) if name == "auto" else (0, 0))
+        res.append([y.detach(), sT.detach(), *(t.grad for t in xs)])
+    for got, want in zip(*res):
+        assert _scaled(got, want) <= 5e-4
+
+
+def test_wkv_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv
+    x = torch.zeros(1, 8, 2, 48, device=dev)             # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        rwkv_wkv(x, x, x, x, torch.zeros(2, 48, device=dev), chunk=4)
+    x = torch.zeros(1, 8, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv_wkv(x, x, x, x.half(), torch.zeros(2, 64, device=dev), chunk=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        rwkv_wkv(*(torch.zeros(1, 512, 2, 64, device=dev),) * 4,
+                 torch.zeros(2, 64, device=dev), chunk=512)
+
+
+def test_rwkv_serve_session_and_train_step_on_the_card(dev):
+    """rwkv6 smoke in fp32 on the card: the batched session equals the
+    sequential oracle (prefill through the forward kernel), and two eq1
+    steps with the kernels match the plain versions."""
+    from repro_torch.api.serve_session import (ServeSession,
+                                               sequential_reference)
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig, TrainConfig)
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
+                                       make_train_step)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import tree_leaves
+    cfg = rwkv6_3b.smoke()
+    params = init_backbone(torch.Generator(device=dev).manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 20)))
+               for _ in range(4)]
+    sess = ServeSession(cfg, params, tau=2.0, slots=2, max_len=32)
+    for p in prompts:
+        sess.submit(p, decode_tokens=5)
+    n_fwd = rwkv_wkv.launches
+    got = {r.rid: r for r in sess.run()}
+    assert rwkv_wkv.launches > n_fwd
+    for rid, p in enumerate(prompts):
+        ref = sequential_reference(cfg, params, p, 5, tau=2.0, max_len=32)
+        assert (got[rid].tokens, got[rid].exited) == (ref.tokens, ref.exited)
+
+    profile = HeteroProfile((1, 1, 2, 2))
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, 512, (8, 20)),
+                                          device=dev),
+                "labels": torch.as_tensor(rng.integers(0, 512, (8, 20)),
+                                          device=dev),
+                "split_ids": boundary_ids_for_batch(
+                    profile, cfg.with_(exit_layers=(1, 2)), 8, dev)}
+               for _ in range(2)]
+    runs = []
+    for kernels in ("auto", "ref"):
+        c = cfg.with_(kernels=kernels, exit_layers=(1, 2))
+        sc = StepConfig(model=c, splitee=SplitEEConfig(profile=profile),
+                        train=TrainConfig(optimizer=OptimizerConfig(
+                            total_steps=4)))
+        p = init_backbone(torch.Generator(device=dev).manual_seed(0), c)
+        opt = adam_init(p, sc.train.optimizer)
+        step = make_train_step(sc)
+        n_bwd = rwkv_wkv_bwd.launches
+        for b in batches:
+            p, opt, m = step(p, opt, b)
+        assert (rwkv_wkv_bwd.launches > n_bwd) == (kernels == "auto")
+        runs.append((p, m))
+    (p0, m0), (p1, m1) = runs
+    for key in m0:
+        assert abs(float(m0[key]) - float(m1[key])) <= 1e-5, key
+    d = torch.cat([(a - b).abs().flatten() for a, b in
+                   zip(tree_leaves(p0), tree_leaves(p1))])
+    assert d.max().item() <= 1e-3
+    assert (d > 1e-6).sum().item() <= 1e-3 * d.numel()

@@ -54,7 +54,7 @@ def smoke_cfg():
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "HeteroProfile",
-                                  "SplitEEConfig"])
+                                  "SplitEEConfig", "SSMConfig"])
 def test_config_fields_mirror_jax(name):
     names = lambda cls: [f.name for f in dataclasses.fields(cls)]  # noqa: E731
     assert names(getattr(tconfig, name)) == names(getattr(jconfig, name))
@@ -72,7 +72,7 @@ def test_glm4_config_matches_jax(which):
 
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
-        tconfigs.get("rwkv6-3b")
+        tconfigs.get("zamba2-1.2b")
     with pytest.raises(ValueError, match="not a registered"):
         tconfigs.get("gpt-17")
     with pytest.raises(ValueError, match="kernels"):
