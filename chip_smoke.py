@@ -19,7 +19,9 @@ Phases:
            port's sequential references, token and gate exact; the rwkv6
            ServeSession with the kernels against the plain versions; train
            steps with the kernels against the plain versions (glm4-9b: eq1,
-           sum, eq1 with remat; rwkv6: eq1, eq1 with remat);
+           sum, eq1 with remat; rwkv6: eq1, eq1 with remat); rwkv6 decay
+           LoRA, bonus u and base decays redrawn from a seed (the init
+           leaves them at 0, 0 and -6);
   main     the serving path: ServeSession on full-width glm4-9b (40 layers)
            and full-width rwkv6-3b (32 layers) in bf16, random weights from a
            seeded torch.Generator on the card, 8 slots, 16 requests (rwkv6
@@ -33,11 +35,13 @@ Phases:
            weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
-           eq1 and sum steps, a loss check on the first batch, then a traced
-           window of 2 steps;
+           eq1 and sum steps, a loss check on the first batch, a traced
+           window of 2 steps (rwkv6-3b: then eq1 steps on the plain
+           versions, the end-to-end baseline);
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
-           main path's shapes, beside the bound for the work.
+           main path's shapes, beside the bound for the work (the wkv's
+           over the causal pairs it needs).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -121,7 +125,7 @@ TRAIN_WARM, TRAIN_EQ1, TRAIN_SUM = 2, 10, 3
 # rwkv6-3b: prompts 64-512 tokens (1-4 chunks of 128), training 12 x 512
 # at full depth
 RWKV_PROMPT_MIN, RWKV_PROMPT_MAX, RWKV_T = 64, 512, 512
-RWKV_WARM, RWKV_EQ1, RWKV_SUM = 2, 4, 2
+RWKV_WARM, RWKV_EQ1, RWKV_SUM, RWKV_REF = 2, 4, 2, 2
 
 
 class Failed(Exception):
@@ -562,16 +566,45 @@ def phase_parity(state):
                  (("eq1", "none"), ("eq1", "full")), seq=20)
 
 
+def live_rwkv(params, seed: int = 0) -> None:
+    """Redraw every rwkv6 mixer's ``w_lora_b`` ~ N(0, 0.1), ``u`` ~ N(0, 1)
+    and ``w_base`` ~ U(-2, 0) in place from ``seed``: the init leaves them
+    at 0, 0 and -6, one decay e^-0.0025 everywhere and no bonus, so a
+    parity run at init would not exercise the data-dependent decay or u."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draw = {"w_lora_b": lambda t: 0.1 * torch.randn(
+                t.shape, generator=gen, device="cuda"),
+            "u": lambda t: torch.randn(t.shape, generator=gen, device="cuda"),
+            "w_base": lambda t: -2.0 * torch.rand(t.shape, generator=gen,
+                                                  device="cuda")}
+
+    def walk(t):
+        if isinstance(t, dict):
+            live = "w_lora_b" in t and "u" in t
+            for k, v in t.items():
+                if live and k in draw:
+                    v.copy_(draw[k](v))
+                else:
+                    walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+
+    with torch.no_grad():
+        walk(params)
+
+
 def rwkv_serve_parity(cfg) -> None:
     """rwkv6 smoke, fp32: the batched ServeSession with the kernels
     (kernels="auto": the wkv forward at prefill, the gate every tick)
     against the same session on the plain versions (kernels="ref"),
-    prompts of 1-4 chunks of 8 tokens."""
+    prompts of 1-4 chunks of 8 tokens, decay LoRA and bonus live."""
     from repro_torch.api.serve_session import (ServeSession,
                                                sequential_reference)
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv
     from repro_torch.models.backbone import init_backbone
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    live_rwkv(params)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 33)))
                for _ in range(6)]
@@ -606,7 +639,8 @@ def rwkv_serve_parity(cfg) -> None:
 def train_parity(base, modes, steps: int = 3, seq: int = 32) -> None:
     """Smoke config ``base`` (fp32, TF32 off): make_train_step with the
     kernels (kernels="auto") against the plain versions (kernels="ref"),
-    one run per (grad_mode, remat) of ``modes``."""
+    one run per (grad_mode, remat) of ``modes``; rwkv6 mixers live
+    (``live_rwkv``)."""
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
                                     SplitEEConfig, TrainConfig)
     from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
@@ -635,6 +669,7 @@ def train_parity(base, modes, steps: int = 3, seq: int = 32) -> None:
                             grad_mode=grad_mode)
             params = init_backbone(
                 torch.Generator(device="cuda").manual_seed(0), cfg)
+            live_rwkv(params)
             opt = adam_init(params, sc.train.optimizer)
             step = make_train_step(sc)
             losses = []
@@ -841,7 +876,7 @@ def profile_ticks(cfg, params, prompts, max_len, ticks: int = 5) -> None:
 
 def phase_train(state):
     from repro_torch.configs import glm4_9b, rwkv6_3b
-    from repro_torch.kernels.dispatch import wkv_site_flops
+    from repro_torch.kernels.dispatch import wkv_causal_flops
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -860,14 +895,15 @@ def phase_train(state):
         dict(warm=TRAIN_WARM, eq1=TRAIN_EQ1, sum=TRAIN_SUM))
 
     # rwkv6-3b at its published widths and full depth (exits 8, 16, 24),
-    # 12 x 512 tokens (4 chunks of 128), every block recomputed (remat)
+    # 12 x 512 tokens (4 chunks of 128), every block recomputed (remat);
+    # then eq1 steps on the plain versions, the end-to-end baseline
     cfg, profile = cut_depth(rwkv6_3b.config(), rwkv6_3b.NUM_LAYERS)
-    n_wkv = cfg.num_layers
+    H, K = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    wkv = (TRAIN_B, RWKV_T, H, K, cfg.ssm.chunk_size)
     state["train_rwkv"] = train_main(
         state, cfg, profile, RWKV_T, "full", (rwkv_wkv, rwkv_wkv_bwd),
-        (wkv_site_flops(cfg, TRAIN_B, RWKV_T, "train") / n_wkv,
-         wkv_site_flops(cfg, TRAIN_B, RWKV_T, "bwd") / n_wkv),
-        dict(warm=RWKV_WARM, eq1=RWKV_EQ1, sum=RWKV_SUM))
+        (wkv_causal_flops(*wkv), wkv_causal_flops(*wkv, "bwd")),
+        dict(warm=RWKV_WARM, eq1=RWKV_EQ1, sum=RWKV_SUM, ref=RWKV_REF))
 
 
 def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
@@ -878,8 +914,11 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     mixer's kernel wrappers) set to 0 first: warm-up (its first step under
     FlopCounterMode), one sum step under FlopCounterMode, the timed eq1 and
     sum steps, a loss check on the first batch, then a traced window of 2
-    eq1 steps.  A counted step's FLOPs are the matmuls FlopCounterMode saw
-    plus ``flops_per_launch[i]`` for each launch of ``counters[i]``.  The
+    eq1 steps; with ``n["ref"]``, then one warm-up and ``n["ref"]`` timed
+    eq1 steps on the plain versions (kernels="ref"), launching none of the
+    counted kernels.  A counted step's FLOPs are the matmuls
+    FlopCounterMode saw plus ``flops_per_launch[i]`` for each launch of
+    ``counters[i]``.  The
     first counter is the forward kernel: one launch per layer, plus, under
     remat, one per launch of the last counter (a block's backward runs
     after its forward is recomputed)."""
@@ -894,7 +933,8 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
 
     # warm-up (its first step counted), one counted sum step, the timed
     # steps, the traced window
-    n_steps = n["warm"] + 1 + n["eq1"] + n["sum"] + 2
+    n_ref = n.get("ref", 0)
+    n_steps = n["warm"] + 1 + n["eq1"] + n["sum"] + 2 + (n_ref and n_ref + 1)
     opt_cfg = OptimizerConfig(lr=3e-4, total_steps=n_steps)
     t0 = time.perf_counter()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -926,6 +966,12 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
         model=cfg, splitee=SplitEEConfig(profile=profile),
         train=TrainConfig(optimizer=opt_cfg, remat=remat), grad_mode=mode))
         for mode in ("eq1", "sum")}
+    if n_ref:
+        steps["ref"] = make_train_step(StepConfig(
+            model=cfg.with_(kernels="ref"),
+            splitee=SplitEEConfig(profile=profile),
+            train=TrainConfig(optimizer=opt_cfg, remat=remat),
+            grad_mode="eq1"))
     loss0 = first_batch_loss()
     it = iter(batches)
     metrics = []
@@ -1019,6 +1065,19 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
                          f"fell")
     train["profile"] = traced(lambda: one_step("eq1"), 2,
                               f"{cfg.name} eq1 train step")
+    if n_ref:
+        before = [c.launches for c in counters]
+        one_step("ref")
+        ms_p = run("ref", n_ref)[0]
+        ms_k = timed["eq1"][0]
+        print(f"train {cfg.name} eq1 on the plain versions (kernels=ref): "
+              f"{ms_p:.1f} ms per step, {tokens / ms_p * 1e3:,.0f} tokens/s "
+              f"({n_ref} timed); with the kernels {ms_k:.1f} ms "
+              f"({ms_p / ms_k:.3f} x)")
+        check(all(c.launches == b for c, b in zip(counters, before)),
+              f"train {cfg.name} eq1 on the plain versions: no kernel of "
+              f"the mixer launched")
+        train["eq1_plain"] = dict(ms=ms_p, tok_s=tokens / ms_p * 1e3)
     launches_all = state.setdefault("launches", {})
     for name, k in launches.items():
         launches_all[name] = launches_all.get(name, 0) + k
@@ -1153,18 +1212,16 @@ def time_backward(gen, buf, state):
 
 def time_wkv(gen, buf, state):
     """The wkv forward and backward kernels at the rwkv6-3b train shape
-    (B=12, T=512, H=40, K=64, chunk 128, bf16 r/k/v) and the forward at a
-    prefill shape (1, 300, 40, 64), each beside its plain version; no one
-    PyTorch call computes the wkv, so no library time."""
+    (B=12, T=512, H=40, K=64, chunk 128, bf16 r/k/v) and at a prefill
+    shape (1, 300, 40, 64), each beside its plain version and its bound
+    over the causal pairs it needs (``wkv_causal_flops``); no one PyTorch
+    call computes the wkv, so no library time."""
     from repro_torch.configs import rwkv6_3b
-    from repro_torch.kernels.dispatch import wkv_site_flops
+    from repro_torch.kernels.dispatch import wkv_causal_flops
     from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
                                               rwkv_wkv_bwd_plain,
                                               rwkv_wkv_fwd, rwkv_wkv_plain)
-    cfg = rwkv6_3b.config()
-    one_layer = cfg.with_(num_layers=1, exit_layers=(),
-                          block_pattern=("rwkv6",), ffn_pattern=("rwkv_cm",))
-    ch = cfg.ssm.chunk_size
+    ch = rwkv6_3b.config().ssm.chunk_size
 
     def io_bytes(B, T, H=40, K=64, nc=None):
         """r/k/v bf16 and log_w fp32 in; u; the entry states when saved."""
@@ -1190,7 +1247,7 @@ def time_wkv(gen, buf, state):
                  r, k, v, lw, u, chunk=ch, emit_chunk_states=True), buf),
              library_ms=None,
              bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b,
-             ops=wkv_site_flops(one_layer, B, T, "train"),
+             ops=wkv_causal_flops(B, T, H, K, ch),
              dtype=torch.float32),
         dict(name="rwkv_wkv_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/rwkv_wkv.cu",
@@ -1203,7 +1260,7 @@ def time_wkv(gen, buf, state):
              library_ms=None,
              bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b + 4 * 4 * seq
              + 4 * B * H * K,
-             ops=wkv_site_flops(one_layer, B, T, "bwd"),
+             ops=wkv_causal_flops(B, T, H, K, ch, "bwd"),
              dtype=torch.float32),
     ]
     # the prefill shape: the forward as prefill runs it (no entry states),
@@ -1215,7 +1272,6 @@ def time_wkv(gen, buf, state):
     dsT = torch.zeros(Bp, H, K, K, device="cuda")
     (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
     seq, state_b = Bp * Tp * H * K, Bp * H * K * K * 4
-    flops = wkv_site_flops(one_layer, Bp, Tp, "train")
     state["wkv_prefill_timing"] = {
         "forward": dict(
             ms=time_ms(lambda: rwkv_wkv(r, k, v, lw, u, chunk=ch,
@@ -1224,7 +1280,8 @@ def time_wkv(gen, buf, state):
                                                     chunk=ch), buf),
             bound_ms=max((io_bytes(Bp, Tp) + 4 * seq + state_b)
                          / HBM_BYTES_PER_S,
-                         flops / PEAK_OPS_PER_S[torch.float32]) * 1e3),
+                         wkv_causal_flops(Bp, Tp, H, K, ch)
+                         / PEAK_OPS_PER_S[torch.float32]) * 1e3),
         "backward": dict(
             ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
                                             chunk=ch), buf),
@@ -1232,7 +1289,8 @@ def time_wkv(gen, buf, state):
                 r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
             bound_ms=max((io_bytes(Bp, Tp, nc=ncp) + 4 * seq + state_b
                           + 4 * 4 * seq + 4 * Bp * H * K) / HBM_BYTES_PER_S,
-                         2 * flops / PEAK_OPS_PER_S[torch.float32]) * 1e3)}
+                         wkv_causal_flops(Bp, Tp, H, K, ch, "bwd")
+                         / PEAK_OPS_PER_S[torch.float32]) * 1e3)}
     return rows
 
 

@@ -53,15 +53,16 @@
 //   r/k/v in fp32 or bf16, log_w, u and dy in fp32; every output is fp32.
 //
 // Bound on this card: operations.  At the training shape (B = 12, T = 512,
-// H = 40, K = 64, chunk 128) the forward does ~12.1 GFLOP of products
-// (B T H K (4Q + 4K), the count the JAX package uses) and moves ~50 MB, so
-// max(50 MB / 3.35 TB/s, 12.1 GFLOP / 67 TFLOP/s fp32) = 0.18 ms; the
-// backward twice that.  These kernels do plain fp32 FMAs and one expf per
-// (t, i, k) triple of the intra-chunk work (Q^2 K / 2 per chunk in the
-// forward, three times that in the backward), so the exponentials, not the
-// products, set their time.  Next: factor the off-diagonal 32-token tiles
-// through a per-tile reference decay (exponents stay <= 0, exponentials
-// drop ~16x), then wgmma for the tile products.
+// H = 40, K = 64, chunk 128) the forward needs 8.08 GFLOP of products over
+// the causal pairs (B T H K (2(Q + 1) + 4K); the JAX package's roofline
+// counts the full Q x Q square) and moves ~50 MB, so max(50 MB / 3.35 TB/s,
+// 8.08 GFLOP / 67 TFLOP/s fp32) = 0.121 ms; the backward needs 18.2 GFLOP
+// (B T H K (5(Q + 1) + 8K)), 0.272 ms.  These kernels do plain fp32 FMAs
+// and one expf per (t, i, k) triple of the intra-chunk work (Q^2 K / 2 per
+// chunk in the forward, three times that in the backward), so the
+// exponentials, not the products, set their time.  Next: factor the
+// off-diagonal 32-token tiles through a per-tile reference decay (exponents
+// stay <= 0, exponentials drop ~16x), then wgmma for the tile products.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -599,17 +600,4 @@ extern "C" int rwkv_wkv_fwd_launch(const WkvParams* p, void* stream) {
 
 extern "C" int rwkv_wkv_bwd_launch(const WkvParams* p, void* stream) {
   return launch_any(p, false, stream);
-}
-
-// Dynamic shared memory each kernel needs (0 for a head dim it does not
-// take), so the wrapper can refuse a chunk that does not fit.
-extern "C" long long rwkv_wkv_smem_bytes(int head_dim, int chunk, int v_split,
-                                         int fwd) {
-  if (chunk <= 0 || v_split <= 0) return 0;
-  switch (head_dim) {
-    case 16: return fwd ? fwd_smem_bytes<16>(chunk, 16 / v_split) : bwd_smem_bytes<16>(chunk);
-    case 32: return fwd ? fwd_smem_bytes<32>(chunk, 32 / v_split) : bwd_smem_bytes<32>(chunk);
-    case 64: return fwd ? fwd_smem_bytes<64>(chunk, 64 / v_split) : bwd_smem_bytes<64>(chunk);
-    default: return 0;
-  }
 }

@@ -209,3 +209,22 @@ def wkv_site_flops(cfg, batch: int, seq_len: int,
     n_wkv = sum(b == "rwkv6" for b in cfg.block_pattern)
     per_fwd = batch * T * H * K * (4.0 * Q + 4.0 * K) * n_wkv
     return 2.0 * per_fwd if kind == "bwd" else per_fwd
+
+
+def wkv_causal_flops(batch: int, seq_len: int, heads: int, head_dim: int,
+                     chunk: int, kind: str = "fwd") -> float:
+    """FLOPs one chunked wkv call needs: only the causal pairs (i <= t,
+    the diagonal being the bonus) of each chunk, the last chunk ragged.
+    Per chunk of q tokens, p = q (q + 1) / 2 pairs and K = V = head_dim:
+    "fwd" 4pK (scores and their values) + 4qK^2 (y from the entry state,
+    the state update); "bwd" 10pK (scores again, dS, dv, dr, dk) + 8qK^2
+    (dr and dk from the states, dv and the adjoint update from G)."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"wkv_causal_flops: kind {kind!r} not fwd/bwd")
+    K, Q = head_dim, min(chunk, seq_len)
+    a, b = (4, 4) if kind == "fwd" else (10, 8)
+    total = 0
+    for t0 in range(0, seq_len, Q):
+        q = min(Q, seq_len - t0)
+        total += a * q * (q + 1) // 2 * K + b * q * K * K
+    return float(batch * heads * total)

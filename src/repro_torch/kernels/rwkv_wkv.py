@@ -27,7 +27,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import rwkv_wkv_bwd_ref, rwkv_wkv_chunked_ref
 
 HEAD_DIMS = (16, 32, 64)
-MAX_SMEM = 232448            # dynamic shared memory a block may use, sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
 
@@ -53,10 +52,6 @@ def _lib(name: str):
             fn.argtypes = [ctypes.POINTER(_WkvParams), ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _fns[fn_name] = fn
-        smem = lib.rwkv_wkv_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
-        smem.restype = ctypes.c_longlong
-        _fns["rwkv_wkv_smem_bytes"] = smem
     return _fns[name]
 
 
@@ -152,14 +147,9 @@ def _check_kernel_operands(name: str, r, k, v, log_w, u) -> None:
                          f"innermost stride")
 
 
-def _params(r, k, v, log_w, u, ch: int, v_split: int, fwd: bool,
+def _params(r, k, v, log_w, u, ch: int, v_split: int,
             dy=None, **ptrs) -> _WkvParams:
     B, T, H, K = r.shape
-    smem = _lib("rwkv_wkv_smem_bytes")(K, ch, v_split, int(fwd))
-    if smem > MAX_SMEM:
-        raise ValueError(f"rwkv_wkv: chunk {ch} at head_dim {K} needs "
-                         f"{smem} bytes of shared memory, more than "
-                         f"{MAX_SMEM}")
     p = _WkvParams(r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                    log_w=log_w.data_ptr(), u=u.data_ptr(),
                    dy=None if dy is None else dy.data_ptr(),
@@ -178,7 +168,9 @@ def _launch(fn_name: str, p: _WkvParams, device, what: str) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _lib(fn_name)(ctypes.byref(p), stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} at "
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"(1: a shape the kernel does not take, or more "
+                           f"shared memory than a block may have) at "
                            f"(B, T, H, K) = ({p.batch}, {p.seq}, {p.heads}, "
                            f"{p.head_dim}), chunk {p.chunk}")
 
@@ -202,7 +194,7 @@ def _kernel_fwd(r, k, v, log_w, u, ch: int, emit: bool):
     s0 = (torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
           if emit else None)
     ptrs = {"y": y, "sT": sT, **({"s0": s0} if emit else {})}
-    p = _params(r, k, v, log_w, u, ch, _v_split(dev, B, H, K), True, **ptrs)
+    p = _params(r, k, v, log_w, u, ch, _v_split(dev, B, H, K), **ptrs)
     _launch("rwkv_wkv_fwd_launch", p, dev, "rwkv_wkv")
     rwkv_wkv.launches += 1
     return (y, sT, s0) if emit else (y, sT)
@@ -273,7 +265,7 @@ def rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT, *, chunk: int = 64):
                                        device=dev) for _ in range(4))
         du = torch.empty((B * H, K), dtype=torch.float32, device=dev)
         scratch = torch.empty((B * H, ch, K), dtype=torch.float32, device=dev)
-        p = _params(r, k, v, log_w, u_c, ch, 1, False, dy=dy, s0_in=s0_c,
+        p = _params(r, k, v, log_w, u_c, ch, 1, dy=dy, s0_in=s0_c,
                     dsT=dsT_c, dr=dr, dk=dk, dv=dv, dlw=dlw, du=du,
                     scratch=scratch)
         _launch("rwkv_wkv_bwd_launch", p, dev, "rwkv_wkv_bwd")

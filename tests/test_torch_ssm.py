@@ -285,6 +285,27 @@ def test_wkv_site_flops_match_jax(smoke_cfg):
         config_from_jax(jconfigs.get("glm4-9b").smoke()), 3, 20) == 0.0
 
 
+@pytest.mark.parametrize("T, chunk", [(512, 128), (300, 128), (19, 8),
+                                      (5, 8)])
+def test_wkv_causal_flops_count_the_causal_pairs(T, chunk):
+    """The causal count against a token-by-token tally: per token t of a
+    chunk, t + 1 pairs (the bonus included) of scores and values over K
+    channels and the state terms; the backward per the same tally."""
+    B, H, K = 2, 3, 16
+    fwd = bwd = 0
+    for t in range(T):
+        pairs = t % min(chunk, T) + 1
+        fwd += 2 * pairs * K * 2 + 4 * K * K
+        bwd += 2 * pairs * K * 5 + 8 * K * K
+    assert tdispatch.wkv_causal_flops(B, T, H, K, chunk) == B * H * fwd
+    assert tdispatch.wkv_causal_flops(B, T, H, K, chunk, "bwd") == B * H * bwd
+    # whole chunks: B T H K (2 (Q + 1) + 4 K) forward, below the JAX count
+    if T % chunk == 0:
+        assert B * H * fwd == B * T * H * K * (2 * (chunk + 1) + 4 * K)
+    with pytest.raises(ValueError, match="kind"):
+        tdispatch.wkv_causal_flops(B, T, H, K, chunk, "train")
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
