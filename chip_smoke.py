@@ -10,8 +10,13 @@ Phases:
   kernels  holds each kernel against its plain PyTorch version on the card:
            attention and the gate at the serve and train shapes of
            full-width glm4-9b plus sliding-window, non-causal, head-dim 32
-           and fp32 cases; the wkv forward and backward at chunks 8-128,
-           fp32 and bf16, ragged T, head dims 16-64, the rwkv6-3b train and
+           and fp32 cases; the tensor-core tile routes of the attention
+           forward and dK/dV (bf16, head dims 64 and 128) at GQA 1, 4 and
+           16, causal and not, windows, per-row kv_valid, ragged Tq and Tk,
+           and shapes just below and above the forward's route threshold,
+           dK/dV also bit for bit across two launches; the wkv forward
+           and backward at chunks 8-128, fp32 and bf16, ragged T, head
+           dims 16-64, the rwkv6-3b train and
            prefill shapes, and decays that overflow the plain chunked form
            (against the token oracle); and both autograd sites of training
            against autograd of the plain forward;
@@ -27,7 +32,8 @@ Phases:
            seeded torch.Generator on the card, 8 slots, 16 requests (rwkv6
            prompts of 64-512 tokens), under the select and the sticky
            policy; each run starts with every launch count at 0 and must
-           launch the mixer's kernel and the gate;
+           launch the mixer's kernel and the gate (glm4-9b: prefill on the
+           attention forward's tile route, decode on its row route);
   train    the training path: make_train_step on glm4-9b at its published
            widths with the depth cut to 8 layers (exits 2, 4, 6), batch
            12 x 128, and on rwkv6-3b at its published widths and full depth
@@ -35,13 +41,19 @@ Phases:
            weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
-           eq1 and sum steps, a loss check on the first batch, a traced
-           window of 2 steps (rwkv6-3b: then eq1 steps on the plain
+           eq1 and sum steps (glm4-9b: every attention forward and dK/dV
+           launch on the tile route), a loss check on the first batch, a
+           traced window of 2 steps (rwkv6-3b: then eq1 steps on the plain
            versions, the end-to-end baseline);
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
-           over the causal pairs it needs).
+           over the causal pairs it needs); the attention forward with LSE
+           and dK/dV also at one long causal shape, q (1,32,2048,128), k/v
+           (1,2,2048,128) bf16, where operations set the bound.  Times are
+           device times: a spin kernel ahead of each timed call keeps the
+           host's enqueue (~50-100 us for a wrapper, more for SDPA's
+           backward) off the clock.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -70,8 +82,9 @@ import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
 PHASES = ("build", "kernels", "parity", "main", "train", "timing")
-KERNELS = ("entropy_exit", "flash_attention", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq", "rwkv_wkv", "rwkv_wkv_bwd")
+KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
+           "rwkv_wkv_bwd")
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +139,8 @@ TRAIN_WARM, TRAIN_EQ1, TRAIN_SUM = 2, 10, 3
 # at full depth
 RWKV_PROMPT_MIN, RWKV_PROMPT_MAX, RWKV_T = 64, 512, 512
 RWKV_WARM, RWKV_EQ1, RWKV_SUM, RWKV_REF = 2, 4, 2, 2
+# the long causal attention shape of phase timing: (1, 32, 2048, 128)
+LONG_T = 2048
 
 
 class Failed(Exception):
@@ -136,6 +151,30 @@ def check(cond: bool, msg: str) -> None:
     print(("  ok    " if cond else "  FAIL  ") + msg, flush=True)
     if not cond:
         raise Failed(msg)
+
+
+def zero_counts(*wrappers) -> None:
+    """Sets every launch count of the kernel wrappers to 0, by route too."""
+    for w in wrappers:
+        for attr in ("launches", "row_launches", "tile_launches"):
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
+
+
+def launch_counts(wrapper) -> dict:
+    """A wrapper's launches by kernel, as the result line names them: the
+    attention forward's routes are two kernels (row: flash_attention,
+    tile: flash_attention_tile); dK/dV's tile route is the main path's
+    flash_attention_bwd_dkv, its row route (fp32, small head dims)
+    flash_attention_bwd_dkv_row."""
+    name = wrapper.__name__
+    if name == "flash_attention":
+        return {name: wrapper.row_launches,
+                "flash_attention_tile": wrapper.tile_launches}
+    if name == "flash_attention_bwd_dkv":
+        return {name: wrapper.tile_launches,
+                "flash_attention_bwd_dkv_row": wrapper.row_launches}
+    return {name: wrapper.launches}
 
 
 def card_line() -> str:
@@ -149,6 +188,12 @@ def flush_l2(buf: torch.Tensor) -> None:
     buf.zero_()         # 128 MB > the 50 MB L2: the next launch starts cold
 
 
+# a spin of ~0.5 ms on the card before each timed call: the host enqueues
+# the call while the card spins, so the events time the device's work and
+# not the Python wrapper's launch path
+HEAD_START_CYCLES = 1_000_000
+
+
 def time_ms(fn, buf, reps: int = 50) -> float:
     """Median device time of one call, L2 flushed before each."""
     for _ in range(3):
@@ -157,6 +202,7 @@ def time_ms(fn, buf, reps: int = 50) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         flush_l2(buf)
+        torch.cuda._sleep(HEAD_START_CYCLES)
         s.record()
         fn()
         e.record()
@@ -221,13 +267,22 @@ def phase_kernels(state):
     errs = state.setdefault("max_abs_err", {})
 
     def attn_case(name, dtype, tol, *, B, Tq, causal, Tk=MAX_LEN,
-                  window=None, kv_valid=None, lse=False, main=False):
-        q, k, v = attn_inputs(gen, dtype, B=B, Tq=Tq, Tk=Tk)
+                  window=None, kv_valid=None, lse=False, main=False, H=32,
+                  Hkv=2, D=128, route="row"):
+        q, k, v = attn_inputs(gen, dtype, B=B, Tq=Tq, Tk=Tk, H=H, Hkv=Hkv,
+                              D=D)
+        counts = launch_counts(flash_attention)
         got = flash_attention(q, k, v, causal=causal, window=window,
                               kv_valid=kv_valid, return_lse=lse)
         want = flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_valid=kv_valid, return_lse=lse)
         torch.cuda.synchronize()
+        kernel = "flash_attention_tile" if route == "tile" else \
+            "flash_attention"
+        launched = {n: c - counts[n]
+                    for n, c in launch_counts(flash_attention).items()}
+        check(launched[kernel] == 1 and sum(launched.values()) == 1,
+              f"attention {name} {dtype}: one launch, {route} route")
         if lse:
             (got, got_lse), (want, want_lse) = got, want
             d_lse = (got_lse - want_lse).abs().max().item()
@@ -237,26 +292,54 @@ def phase_kernels(state):
         check(got.shape == want.shape and d <= tol,
               f"attention {name} {dtype} max|d|={d:.3e} <= {tol:g}")
         if main:
-            errs["flash_attention"] = max(errs.get("flash_attention", 0.0), d)
+            errs[kernel] = max(errs.get(kernel, 0.0), d)
 
-    attn_case("decode (8,32,1,128)/(8,2,161,128) kv_valid", torch.bfloat16,
+    bf16 = torch.bfloat16
+    attn_case("decode (8,32,1,128)/(8,2,161,128) kv_valid", bf16,
               TOL_ATTN_BF16, B=8, Tq=1, causal=False, kv_valid=kv_prefix(8),
               main=True)
-    attn_case("prefill (1,32,128,128)/(1,2,161,128) causal", torch.bfloat16,
-              TOL_ATTN_BF16, B=1, Tq=128, causal=True, main=True)
-    attn_case("prefill (1,32,37,128)/(1,2,161,128) causal", torch.bfloat16,
-              TOL_ATTN_BF16, B=1, Tq=37, causal=True, main=True)
+    attn_case("prefill (1,32,128,128)/(1,2,161,128) causal", bf16,
+              TOL_ATTN_BF16, B=1, Tq=128, causal=True, main=True,
+              route="tile")
+    attn_case("prefill (1,32,37,128)/(1,2,161,128) causal", bf16,
+              TOL_ATTN_BF16, B=1, Tq=37, causal=True, main=True, route="tile")
     attn_case("train (12,32,128,128)/(12,2,128,128) causal, with lse",
-              torch.bfloat16, TOL_ATTN_BF16, B=TRAIN_B, Tq=TRAIN_T,
-              Tk=TRAIN_T, causal=True, lse=True, main=True)
+              bf16, TOL_ATTN_BF16, B=TRAIN_B, Tq=TRAIN_T, Tk=TRAIN_T,
+              causal=True, lse=True, main=True, route="tile")
     attn_case("decode fp32 kv_valid", torch.float32, TOL_ATTN_F32, B=8, Tq=1,
               causal=False, kv_valid=kv_prefix(8, seed=1), lse=True)
     attn_case("prefill fp32 causal", torch.float32, TOL_ATTN_F32, B=2, Tq=100,
               causal=True, lse=True)
     attn_case("sliding window 48, fp32", torch.float32, TOL_ATTN_F32, B=2,
               Tq=MAX_LEN, causal=True, window=48, lse=True)
-    attn_case("sliding window 48, bf16", torch.bfloat16, TOL_ATTN_BF16, B=2,
-              Tq=MAX_LEN, causal=True, window=48)
+    attn_case("sliding window 48, bf16", bf16, TOL_ATTN_BF16, B=2,
+              Tq=MAX_LEN, causal=True, window=48, route="tile")
+    # the tile route at both head dims, GQA 1, 4 and 16, and the rule's
+    # threshold: Tq * G = 48 rows (row route) and 64 rows (tile route)
+    for D in (64, 128):
+        for name, kw in (
+                ("GQA 4 window 16 (2,8,100)/(2,2,100)", dict(
+                    B=2, H=8, Hkv=2, Tq=100, Tk=100, causal=True,
+                    window=16, route="tile")),
+                ("GQA 1 non-causal (3,4,70)/(3,4,70)", dict(
+                    B=3, H=4, Hkv=4, Tq=70, Tk=70, causal=False,
+                    route="tile")),
+                ("GQA 1, 63 rows (3,4,63)/(3,4,70)", dict(
+                    B=3, H=4, Hkv=4, Tq=63, Tk=70, causal=False)),
+                ("GQA 1, 64 rows causal (3,4,64)/(3,4,70)", dict(
+                    B=3, H=4, Hkv=4, Tq=64, Tk=70, causal=True,
+                    route="tile")),
+                ("GQA 16, 48 rows, kv_valid (3,32,3)/(3,2,161)", dict(
+                    B=3, H=32, Hkv=2, Tq=3, Tk=MAX_LEN, causal=False,
+                    kv_valid=kv_prefix(3, seed=3))),
+                ("GQA 16, 64 rows, kv_valid (3,32,4)/(3,2,161)", dict(
+                    B=3, H=32, Hkv=2, Tq=4, Tk=MAX_LEN, causal=False,
+                    kv_valid=kv_prefix(3, seed=4), route="tile")),
+                ("GQA 4 window 33 + kv_valid (2,8,90)/(2,2,130)", dict(
+                    B=2, H=8, Hkv=2, Tq=90, Tk=130, causal=False, window=33,
+                    kv_valid=kv_prefix(2, 130, seed=5), route="tile"))):
+            attn_case(f"{name} D={D}", bf16, TOL_ATTN_BF16, lse=True, D=D,
+                      **kw)
 
     def gate_case(name, dtype, V, main=False):
         x = logits_inputs(gen, dtype, V=V)
@@ -293,7 +376,8 @@ def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
 
 
 def bwd_kernel_cases(gen, errs):
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (dkv_route,
+                                                     flash_attention_bwd,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
     from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
@@ -308,7 +392,11 @@ def bwd_kernel_cases(gen, errs):
                                      return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
         kw = dict(causal=causal, window=window)
+        tile = dkv_route(dtype, D) == "tile"
+        counts = launch_counts(flash_attention_bwd_dkv)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        launched = {n: c - counts[n] for n, c in
+                    launch_counts(flash_attention_bwd_dkv).items()}
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse,
                                                        delta, **kw)
@@ -316,6 +404,18 @@ def bwd_kernel_cases(gen, errs):
         grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         wants = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        check(launched == ({"flash_attention_bwd_dkv": 1,
+                            "flash_attention_bwd_dkv_row": 0} if tile else
+                           {"flash_attention_bwd_dkv": 0,
+                            "flash_attention_bwd_dkv_row": 1}),
+              f"attention bwd {name} {dtype}: dK/dV on the "
+              f"{'tile' if tile else 'row'} route")
+        if tile:
+            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  f"attention bwd {name} {dtype}: dK/dV bit for bit equal "
+                  f"across two launches")
         d_dkv = max((dk - want_dk).abs().max().item(),
                     (dv - want_dv).abs().max().item())
         d_dq = (dq - want_dq).abs().max().item()
@@ -336,26 +436,37 @@ def bwd_kernel_cases(gen, errs):
             errs["flash_attention_bwd_dq"] = max(
                 errs.get("flash_attention_bwd_dq", 0.0), d_dq)
 
+    bf16 = torch.bfloat16
     train = dict(B=TRAIN_B, H=32, Hkv=2, T=TRAIN_T)
-    case("train (12,32,128,128)/(12,2,128,128) causal GQA16", torch.bfloat16,
+    case("train (12,32,128,128)/(12,2,128,128) causal GQA16", bf16,
          main=True, **train)
     case("train shape causal GQA16", torch.float32, **train)
     case("sliding window 16, T=100", torch.float32, B=2, H=8, Hkv=2, T=100,
          window=16)
-    case("sliding window 16, T=100", torch.bfloat16, B=2, H=8, Hkv=2, T=100,
+    case("sliding window 16, T=100", bf16, B=2, H=8, Hkv=2, T=100,
          window=16)
     case("non-causal T=70", torch.float32, B=2, H=4, Hkv=4, T=70,
          causal=False)
     case("head_dim 32 causal T=64", torch.float32, B=2, H=8, Hkv=2, T=64,
          D=32)
-    case("head_dim 32 causal T=64", torch.bfloat16, B=2, H=8, Hkv=2, T=64,
-         D=32)
+    case("head_dim 32 causal T=64", bf16, B=2, H=8, Hkv=2, T=64, D=32)
+    # the tile route at both head dims and GQA 1, 4, 8, 12 (clusters of 6)
+    # and 16, and a long band (T = 1000: 32 query tiles in a block)
+    for D in (64, 128):
+        case(f"non-causal GQA1 T=70 D={D}", bf16, B=2, H=4, Hkv=4, T=70,
+             D=D, causal=False)
+        case(f"non-causal window 8 GQA8 T=45 D={D}", bf16, B=1, H=8, Hkv=1,
+             T=45, D=D, causal=False, window=8)
+        case(f"causal GQA12 T=77 D={D}", bf16, B=2, H=12, Hkv=1, T=77, D=D)
+    case("causal GQA16 T=1000 D=128", bf16, B=1, H=32, Hkv=2, T=1000)
 
 
 def autograd_site_cases(gen):
     """The training site (kernels="auto": FlashAttentionFn over the forward
     and both backward kernels) against autograd of the plain forward."""
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv)
     for dtype, tol in ((torch.float32, TOL_SITE_F32),
                        (torch.bfloat16, TOL_SITE_BF16)):
         leaves = [torch.randn(4, TRAIN_T, h, 128, generator=gen,
@@ -365,9 +476,22 @@ def autograd_site_cases(gen):
         res = []
         for name in ("auto", "ref"):
             q, k, v = (t.clone().requires_grad_() for t in leaves)
+            counts = {**launch_counts(flash_attention),
+                      **launch_counts(flash_attention_bwd_dkv)}
             out = dispatch.get_backend(name).attention(q, k, v, causal=True)
             out.backward(cot)
             res.append([t.float() for t in (out, q.grad, k.grad, v.grad)])
+            if name == "auto":
+                now = {**launch_counts(flash_attention),
+                       **launch_counts(flash_attention_bwd_dkv)}
+                tiles = (now["flash_attention_tile"]
+                         - counts["flash_attention_tile"],
+                         now["flash_attention_bwd_dkv"]
+                         - counts["flash_attention_bwd_dkv"])
+                want = (1, 1) if dtype == torch.bfloat16 else (0, 0)
+                check(tiles == want,
+                      f"autograd site {dtype}: forward and dK/dV tile-route "
+                      f"launches {tiles} == {want}")
         torch.cuda.synchronize()
         scale = ([1.0] * 4 if dtype == torch.float32
                  else [b.abs().max().item() for b in res[1]])
@@ -775,14 +899,14 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
         for p in prompts:
             sess.submit(p, decode_tokens=DECODE)
         torch.cuda.reset_peak_memory_stats()
-        kernel.launches = 0
-        entropy_exit.launches = 0
+        zero_counts(kernel, entropy_exit)
         results = sess.run()
         n_mix, n_gate = kernel.launches, entropy_exit.launches
+        by_kernel = launch_counts(kernel)
         peak = torch.cuda.max_memory_allocated()
         st = sess.stats
-        launches[name] = launches.get(name, 0) + n_mix
-        launches["entropy_exit"] = launches.get("entropy_exit", 0) + n_gate
+        for k, n in {**by_kernel, "entropy_exit": n_gate}.items():
+            launches[k] = launches.get(k, 0) + n
         decode_s = st.wall_s - st.prefill_s
         tok_s = st.tokens / st.wall_s
         ms_tick = decode_s / st.decode_ticks * 1e3
@@ -794,7 +918,9 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
         print(f"  {tok_s:.1f} tok/s overall, {ms_tick:.3f} ms per decode "
               f"tick (bound {bound_ms:.3f} ms), {ms_prefill:.3f} ms per "
               f"prefill, peak memory {peak / 2**30:.2f} GiB, launches: "
-              f"{name} {n_mix}, entropy_exit {n_gate}")
+              f"{name} {n_mix} ("
+              + ", ".join(f"{k} {n}" for k, n in by_kernel.items())
+              + f"), entropy_exit {n_gate}")
         state.setdefault("main", {})[f"{cfg.name}/{policy}"] = dict(
             tok_s=tok_s, ms_per_tick=ms_tick, ms_per_prefill=ms_prefill,
             peak_gib=peak / 2**30, ticks=st.decode_ticks,
@@ -812,6 +938,15 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
               f"{cfg.num_layers} per prefill"
               + (" and one per layer per tick" if counts_per_tick else "")
               + ", one gate launch per tick")
+        if name == "flash_attention":
+            prefill = cfg.num_layers * st.requests
+            check(by_kernel == {"flash_attention": n_mix - prefill,
+                                "flash_attention_tile": prefill},
+                  f"{cfg.name} {policy}: every prefill launch on the tile "
+                  f"route ({prefill}), every decode launch on the row "
+                  f"route ({n_mix - prefill})")
+        state.setdefault("main", {})[f"{cfg.name}/{policy}"][
+            "launches_by_kernel"] = by_kernel
         ok = len(results) == len(prompts)
         for r in results:
             ok &= len(r.tokens) == DECODE + 1 and len(r.exited) == DECODE
@@ -1013,13 +1148,21 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     fwd_flops = 2 * mm_params * tokens
 
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counts(*counters)
     flops = {"eq1": counted_step("eq1")}
     run("eq1", n["warm"] - 1)
     flops["sum"] = counted_step("sum")
     timed = {"eq1": run("eq1", n["eq1"]), "sum": run("sum", n["sum"])}
-    launches = {c.__name__: c.launches for c in counters}
+    launches = {k: v for c in counters for k, v in launch_counts(c).items()}
+    print(f"train {cfg.name} launches by kernel: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if "flash_attention_tile" in launches:
+        check(launches["flash_attention"] == 0
+              and launches["flash_attention_bwd_dkv_row"] == 0
+              and launches["flash_attention_tile"] > 0
+              and launches["flash_attention_bwd_dkv"] > 0,
+              f"train {cfg.name}: every attention forward and dK/dV launch "
+              f"on the tile route")
     peak = torch.cuda.max_memory_allocated()
     loss1 = first_batch_loss()
     train = dict(model=cfg.name, layers=cfg.num_layers, seq=T, params=n_params,
@@ -1151,63 +1294,84 @@ def phase_timing(state):
     state["timing"] = rows
 
 
-def time_backward(gen, buf, state):
-    """The two backward kernels at the train shape (B=12, H=32, Hkv=2,
-    T=128, D=128, bf16, causal), each beside its plain version and the
-    backward of PyTorch's SDPA (one call computing dQ, dK and dV)."""
+def time_causal(gen, buf, B, T, reps, with_dq):
+    """The tile-route forward with LSE, dK/dV and (``with_dq``) dQ at a
+    causal GQA-16 shape (H=32, Hkv=2, D=128, bf16), each beside its plain
+    version, PyTorch's SDPA (forward; backward computing dQ, dK and dV in
+    one call) and its bytes and band operations."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
     from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
                                          flash_attention_bwd_dq_ref,
                                          flash_attention_ref)
-    B, H, Hkv, T, D = TRAIN_B, 32, 2, TRAIN_T, 128
+    H, Hkv, D = 32, 2, 128
     q, k, v, do = bwd_inputs(gen, torch.bfloat16, B=B, H=H, Hkv=Hkv, T=T,
                              D=D)
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
     n_pairs = T * (T + 1) // 2
     mm = 2 * B * H * n_pairs * D            # one block matmul over the band
-    io = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * B * H * T
+    qkv = 2 * (2 * q.numel() + 2 * k.numel())   # q, o or dO, k, v in bf16
+    rows_b = 4 * B * H * T                      # one fp32 value per row
     sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
                                               enable_gqa=True)
-    sdpa_ms = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, (sq, sk, sv), do, retain_graph=True), buf)
-    state["train_fwd_timing"] = dict(
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                           return_lse=True), buf),
-        plain_ms=time_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, return_lse=True), buf),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), buf),
-        bound_ms=max((2 * q.numel() + 2 * k.numel()) * 2 / HBM_BYTES_PER_S,
-                     2 * mm / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (sq, sk, sv), do, retain_graph=True), buf, reps)
+    out = {
+        "flash_attention_tile": dict(
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               return_lse=True), buf, reps),
+            plain_ms=time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=True, return_lse=True), buf, reps),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), buf, reps),
+            bytes=qkv + rows_b, ops=2 * mm),
+        "flash_attention_bwd_dkv": dict(
+            ms=time_ms(lambda: flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal=True), buf, reps),
+            plain_ms=time_ms(lambda: flash_attention_bwd_dkv_ref(
+                q, k, v, do, lse, delta, causal=True), buf, reps),
+            library_ms=sdpa_bwd_ms,
+            bytes=qkv + 2 * rows_b + 2 * 4 * k.numel(), ops=4 * mm)}
+    if with_dq:
+        out["flash_attention_bwd_dq"] = dict(
+            ms=time_ms(lambda: flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal=True), buf, reps),
+            plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
+                q, k, v, do, lse, delta, causal=True), buf, reps),
+            library_ms=sdpa_bwd_ms,
+            bytes=qkv + 2 * rows_b + 4 * q.numel(), ops=3 * mm)
+    for r in out.values():
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S
+        by_ops = r["ops"] / PEAK_OPS_PER_S[torch.bfloat16]
+        r["bound_ms"] = max(by_bytes, by_ops) * 1e3
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return out
+
+
+def time_backward(gen, buf, state):
+    """The tile-route forward, dK/dV and dQ at the train shape (B=12,
+    H=32, Hkv=2, T=128, D=128, bf16, causal) as result-line rows, and the
+    forward and dK/dV at the long shape (B=1, T=2048) for their own
+    lines, 10 launches each there."""
+    src = "src/repro_torch/kernels/csrc/"
+    meta = {
+        "flash_attention_tile": ("flash_attention.cu", 141,
+                                 ", with lse (tile route)"),
+        "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", 313,
+                                    " (tile route)"),
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 357, "")}
+    train = time_causal(gen, buf, TRAIN_B, TRAIN_T, 50, with_dq=True)
+    state["long_timing"] = time_causal(gen, buf, 1, LONG_T, 10,
+                                       with_dq=False)
     shape = "train q/dO (12,32,128,128) bf16, k/v (12,2,128,128), causal"
-    return [
-        dict(name="flash_attention_bwd_dkv", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-             replaces="src/repro/kernels/flash_attention.py:313",
-             shape=shape,
-             ms=time_ms(lambda: flash_attention_bwd_dkv(
-                 q, k, v, do, lse, delta, causal=True), buf),
-             plain_ms=time_ms(lambda: flash_attention_bwd_dkv_ref(
-                 q, k, v, do, lse, delta, causal=True), buf),
-             library_ms=sdpa_ms,
-             bytes=io + 2 * 4 * k.numel(), ops=4 * mm,
-             dtype=torch.bfloat16),
-        dict(name="flash_attention_bwd_dq", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-             replaces="src/repro/kernels/flash_attention.py:357",
-             shape=shape,
-             ms=time_ms(lambda: flash_attention_bwd_dq(
-                 q, k, v, do, lse, delta, causal=True), buf),
-             plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
-                 q, k, v, do, lse, delta, causal=True), buf),
-             library_ms=sdpa_ms,
-             bytes=io + 4 * q.numel(), ops=3 * mm,
-             dtype=torch.bfloat16),
-    ]
+    return [dict(name=name, route="cuda", source=src + meta[name][0],
+                 replaces=f"src/repro/kernels/flash_attention.py:"
+                          f"{meta[name][1]}",
+                 shape=shape + meta[name][2], dtype=torch.bfloat16, **r)
+            for name, r in train.items()]
 
 
 def time_wkv(gen, buf, state):
@@ -1339,21 +1503,27 @@ def main() -> int:
             failed.append(name)
         print(f"== {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    if ("timing" in state and "max_abs_err" in state
-            and set(state.get("launches", ())) >= set(KERNELS)):
+    unlaunched = [k for k in KERNELS
+                  if state.get("launches", {}).get(k, 0) == 0]
+    if set(phases) == set(PHASES) and unlaunched:
+        print(f"chip_smoke: kernels never launched on the main path: "
+              f"{unlaunched}", file=sys.stderr)
+        failed.append("launches")
+    if "timing" in state and "max_abs_err" in state and not unlaunched:
         line = kernels_line(state)
         if "prefill_timing" in state:
             pt = state["prefill_timing"]
-            print("flash_attention prefill (1,32,128,128)/(1,2,161,128) "
-                  f"causal bf16: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}"
-                  f" ms, SDPA {pt['library_ms']:.4f} ms, bound "
-                  f"{pt['bound_ms']:.5f} ms")
-        if "train_fwd_timing" in state:
-            pt = state["train_fwd_timing"]
-            print("flash_attention train forward with lse (12,32,128,128)/"
-                  f"(12,2,128,128) causal bf16: {pt['ms']:.4f} ms, plain "
+            print("flash_attention_tile prefill (1,32,128,128)/(1,2,161,128)"
+                  f" causal bf16: {pt['ms']:.4f} ms, plain "
                   f"{pt['plain_ms']:.4f} ms, SDPA {pt['library_ms']:.4f} ms, "
                   f"bound {pt['bound_ms']:.5f} ms")
+        for name, pt in state.get("long_timing", {}).items():
+            print(f"{name} long causal q (1,32,{LONG_T},128), k/v "
+                  f"(1,2,{LONG_T},128) bf16: {pt['ms']:.4f} ms, plain "
+                  f"{pt['plain_ms']:.4f} ms, SDPA "
+                  f"{'backward ' if 'bwd' in name else ''}"
+                  f"{pt['library_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms "
+                  f"({pt['bound_by']})")
         for what, pt in state.get("wkv_prefill_timing", {}).items():
             print(f"rwkv_wkv {what} at the prefill shape (1,300,40,64) bf16 "
                   f"chunk 128: {pt['ms']:.4f} ms, plain "
@@ -1366,6 +1536,9 @@ def main() -> int:
                       f"{tr['sum']['launches_per_step']}")
         print("library time of both attention backward rows: one SDPA "
               "backward computing dQ, dK and dV together")
+        print("flash_attention_tile: the forward's tile route (wgmma), "
+              "flash_attention: its row route; both replace "
+              "flash_attention_pallas")
         for k in line["kernels"]:
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")

@@ -40,14 +40,48 @@
 // Bound on this card: at the training shape (B = 12, H = 32, Hkv = 2,
 // T = 128, D = 128, bf16) each kernel must move ~30 MB (q and dO dominate)
 // and do 2.4 (dQ) to 3.2 (dK/dV) GFLOP over the causal band, so the bound
-// is bytes, ~9 us.  These kernels do plain fp32 FMAs from shared memory
-// (no wgmma, no TMA) and so run far from it.  At G = 16 a dK/dV block
-// serialises the 16 heads of its group: 12 * 2 * 4 = 96 blocks, less than
-// one wave on 132 SMs.  wgmma tiles, and splitting the group across blocks
-// with a reduction, are later work.
+// is bytes, ~9 us (dK/dV) and ~16 us (dQ).  The kernels above do plain fp32
+// FMAs from shared memory; they remain the dQ kernel and the dK/dV row
+// route (fp32 operands, head dims 16 and 32).
+//
+// dK/dV tile route (flash_bwd_dkv_tile_kernel): bf16 operands, D in
+// {64, 128}.  One block per (b, kv head, 64-key tile, slice of the GQA
+// group); the slices of one key tile form a thread block cluster of cs
+// blocks, cs the largest divisor of G up to 8 (G = 16: 8 slices of 2
+// heads; 12 x 2 x 2 x 8 = 384 blocks at the train shape against 96 for
+// the row route).  K and V are loaded once per block; the slice's query
+// rows, flattened (t, g) over its heads, stream past in 64-row tiles of Q
+// and dO (with their LSE and delta) through a 2-stage cp.async ring, in
+// wgmma's 128-byte-swizzled layout.  Two warpgroups split each tile's
+// work by role: warpgroup 0 runs S^T = K Q^T on wgmma (m64n64k16, both
+// operands from shared memory), rebuilds P = exp(S scale - lse), 0
+// wherever the forward masked, and hands P over in shared memory;
+// warpgroup 1 runs dP^T = V dO^T and forms dS = P (dP - delta) scale;
+// then at once dV += P^T dO (warpgroup 0) and dK += dS^T Q (warpgroup 1)
+// (m64nDk16, A from registers, dO and Q read with the transpose flag).
+// P and dS enter those products split into a bf16 high part and a bf16
+// low part (two products each), so what reaches the tensor cores carries
+// 16 bits of each fp32 value, a residual of ~2^-17 of it; each tile's
+// product starts from zero and is added to the running fp32 dV or dK in
+// registers, since the tensor cores' own accumulation rounds toward zero
+// and that bias would grow with the band.  The fp32 outputs stay within
+// the 2e-4 gate of the plain fp32 version up to T = 2048 at least.  The
+// group sum then runs through distributed shared memory: each block
+// writes its partial dK and dV, and cluster rank r sums rows
+// r * 64 / cs .. of all cs partials in rank order and writes them once:
+// no atomics, the same bits on every launch.
+// Bound: bytes at T = 128 (~9 us); at T = 2048 operations (4 band
+// products, 69 us at 989 TF/s; the split makes them 6).  Measured on an
+// H100 (PERF.md section 6): 0.061 ms at the train shape (the row
+// route took 0.50), 0.43 ms at T = 2048, where the block of the first
+// key tile walks all 4096 query rows of its slice while the tensor cores
+// idle through the softmax, the splits and the barriers between them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <math.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -429,6 +463,348 @@ int launch_any(const FlashBwdParams* p, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV tile route: wgmma, bf16, D in {64, 128}, the group over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kTKeys = 64;     // keys per block
+constexpr int kTRows = 64;     // query rows per tile
+constexpr int kTStages = 2;    // Q/dO ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory of a dK/dV tile block: K, V, then the ring's Q and dO
+// tiles (every tile on a 1024-byte boundary, as the swizzle needs), the
+// ring's LSE and delta rows, and P on its way from one warpgroup to the
+// other; the partials of the group sum reuse it
+template <int D>
+struct DkvTile {
+  static constexpr size_t kOperand = 64 * D * sizeof(__nv_bfloat16);
+  static constexpr size_t kRows = 2 * kTRows * sizeof(float);  // lse, delta
+  static constexpr size_t kP = kTKeys * kTRows * sizeof(float);
+  static constexpr size_t kLoop = (2 + 2 * kTStages) * kOperand +
+                                  kTStages * kRows + kP;
+  static constexpr int kPartStride = D + 8;  // floats; no bank conflicts
+  static constexpr size_t kParts = 2 * kTKeys * kPartStride * sizeof(float);
+  static constexpr size_t kSmem = kLoop > kParts ? kLoop : kParts;
+};
+
+// cp.async of one 64 x D bf16 tile into the swizzled layout of
+// hopper_mma.cuh by the block's kThreads threads; `row_ptr(r)` is row r's
+// first element, or null for a row of zeros (nothing is read; `any` is
+// only a well-formed address)
+template <int D, int kThreads, typename RowPtr>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* any,
+                                                RowPtr row_ptr) {
+  constexpr int kChunks = 64 * D / 8;
+#pragma unroll
+  for (int j = 0; j < kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int r = i / (D / 8), c = i % (D / 8);
+    const __nv_bfloat16* src = row_ptr(r);
+    hopper::cp_async16(
+        reinterpret_cast<char*>(dst) + hopper::chunk_offset<64>(r, c),
+        src != nullptr ? src + c * 8 : any, src != nullptr);
+  }
+}
+
+// a 64 x N fp32 accumulator's A operand for depth step kk, split into
+// bf16 high parts and bf16 low parts (value - high)
+template <int R>
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4],
+                                           const float (&d)[R], int kk) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x0 = d[8 * kk + 2 * e], x1 = d[8 * kk + 2 * e + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[e] = hopper::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
+// Two warpgroups with two roles, per query tile:
+//   warpgroup 0: S^T = K Q^T, P = exp(S scale - lse) (masked), P to shared
+//                memory, then dV += P^T dO;
+//   warpgroup 1: dP^T = V dO^T, then, with P, dS = P (dP - delta) scale
+//                and dK += dS^T Q;
+// so the two products of each pair run at once on the tensor cores, and
+// no score is computed twice.  Each keeps its 64 x D fp32 sum in registers.
+template <int D>
+__global__ void __launch_bounds__(2 * hopper::kWarpgroup)
+flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  using Smem = DkvTile<D>;
+  constexpr int kThreads = 2 * kWarpgroup;
+  constexpr int kO = D / 2;   // dV or dK accumulator registers per thread
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(dkv_smem);
+  bf16* vs = ks + 64 * D;
+  auto stage_q = [&](int st) { return vs + (1 + st) * 64 * D; };
+  auto stage_do = [&](int st) { return vs + (1 + kTStages + st) * 64 * D; };
+  float* rows_s = reinterpret_cast<float*>(vs + (1 + 2 * kTStages) * 64 * D);
+  auto stage_lse = [&](int st) {   // lse [0, 64), delta [64, 128)
+    return rows_s + st * 2 * kTRows;
+  };
+  float* p_x = rows_s + kTStages * 2 * kTRows;   // P: element e of thread
+                                                 // t at e * 128 + t
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.x / cs) * kTKeys;
+  const int group = p.heads / p.kv_heads, gs = group / cs;
+  const int h0 = kvh * group + rank * gs;   // this slice's first head
+  const int wg = threadIdx.x / kWarpgroup;  // 0: P and dV; 1: dS and dK
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.do_sb;
+
+  // the slice's query rows that can meet a key of this tile: positions
+  // [q_begin, q_end) x its gs heads, flattened position-major
+  const int q_begin = p.causal ? k0 : 0;
+  const int q_end = p.window > 0 ? min(p.tq, k0 + kTKeys - 1 + p.window)
+                                 : p.tq;
+  const int n_rows = max(0, q_end - q_begin) * gs;
+  const int n_tiles = (n_rows + kTRows - 1) / kTRows;
+
+  load_tile_async<D, kThreads>(ks, kp, [&](int r) -> const bf16* {
+    return k0 + r < p.tk ? kp + (k0 + r) * p.k_st : nullptr;
+  });
+  load_tile_async<D, kThreads>(vs, vp, [&](int r) -> const bf16* {
+    return k0 + r < p.tk ? vp + (k0 + r) * p.v_st : nullptr;
+  });
+  auto load_rows = [&](int tile) {
+    const int st = tile % kTStages;
+    auto row = [&](int r, int& t, int& h) {
+      const int R = tile * kTRows + r;
+      t = q_begin + R / gs;
+      h = h0 + R % gs;
+      return R < n_rows;
+    };
+    load_tile_async<D, kThreads>(stage_q(st), qp, [&](int r) -> const bf16* {
+      int t, h;
+      return row(r, t, h) ? qp + h * p.q_sh + t * p.q_st : nullptr;
+    });
+    load_tile_async<D, kThreads>(stage_do(st), dop,
+                                 [&](int r) -> const bf16* {
+      int t, h;
+      return row(r, t, h) ? dop + h * p.do_sh + t * p.do_st : nullptr;
+    });
+    // threads 0-63: lse of row r; 64-127: delta of row r - 64
+    if (threadIdx.x < 2 * kTRows) {
+      const int r = threadIdx.x & (kTRows - 1);
+      int t, h;
+      const bool ok = row(r, t, h);
+      const float* src = threadIdx.x < kTRows ? p.lse : p.delta;
+      cp_async4(stage_lse(st) + threadIdx.x,
+                ok ? src + (static_cast<long long>(b) * p.heads + h) * p.tq + t
+                   : src,
+                ok);
+    }
+  };
+  if (n_tiles > 0) load_rows(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_rows(1);
+  cp_async_commit();
+
+  const float sl2 = p.scale * kLog2e;
+  // this thread's accumulator rows are keys k0 + 16 warp + lane / 4 + 8 i,
+  // and see query positions t_first[i] <= t < t_end[i] (none past Tk)
+  int t_first[2], t_end[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * warp + lane / 4 + 8 * i;
+    t_first[i] = p.causal ? key : 0;
+    t_end[i] = key >= p.tk ? 0 : p.window > 0 ? key + p.window : p.tq;
+  }
+  const unsigned long long inv_gs = (1ull << 32) / gs + 1;
+  // the running dV (warpgroup 0) or dK (warpgroup 1): fp32 adds of each
+  // tile's products, since the tensor cores' own accumulation rounds
+  // toward zero, a bias that would grow with the number of tiles
+  float acc[kO], part[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile % kTStages;
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qs = stage_q(st);
+    const bf16* dos = stage_do(st);
+    const float* lse_s = stage_lse(st);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), 64 keys x
+    // 64 query rows
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    fence_regs(x);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss<0>(x, desc_kmajor<64>(wg == 0 ? ks : vs, 0, kk),
+                desc_kmajor<64>(wg == 0 ? qs : dos, 0, kk), kk > 0,
+                Int<64>());
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(x);
+
+    if (wg == 0) {
+      // P in fp32, masked only on tiles that cross an edge, where the
+      // query row of column col is position q_begin + (r0 + col) / gs (a
+      // multiply by floor(2^32 / gs) + 1 and a shift: exact below
+      // 2^32 / gs)
+      const int r0 = tile * kTRows;
+      const int t_min = q_begin + r0 / gs;
+      const int t_max = q_begin + (r0 + kTRows - 1) / gs;
+      const bool edge = r0 + kTRows > n_rows || k0 + kTKeys > p.tk ||
+                        (p.causal && k0 + kTKeys - 1 > t_min) ||
+                        (p.window > 0 && t_max - p.window >= k0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * (lane & 3) + c;
+          const float lse2 = lse_s[col] * kLog2e;
+          const int t = q_begin + static_cast<int>(
+              (static_cast<unsigned long long>(r0 + col) * inv_gs) >> 32);
+          const bool row_ok = r0 + col < n_rows;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            float pr = exp2_ftz(fmaf(x[e], sl2, -lse2));
+            if (edge && !(row_ok && t >= t_first[i] && t < t_end[i]))
+              pr = 0.f;
+            x[e] = pr;
+            p_x[e * kWarpgroup + tid] = pr;
+          }
+        }
+      asm volatile("bar.arrive 1, %0;\n" ::"n"(kThreads) : "memory");
+    } else {
+      // dS = P (dP - delta) scale, P from warpgroup 0
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+      const float* delta_s = lse_s + kTRows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dlt = delta_s[8 * j + 2 * (lane & 3) + c];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            x[e] = p_x[e * kWarpgroup + tid] * (x[e] - dlt) * p.scale;
+          }
+        }
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), the
+    // factor from registers split into bf16 high and low parts
+    {
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) split_frag(hi[kk], lo[kk], x, kk);
+      const bf16* bt = wg == 0 ? dos : qs;
+      fence_regs(part);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bd = desc_mn<64>(bt, 0, kk);
+        mma_rs<1>(part, hi[kk], bd, kk > 0, Int<D>());
+        mma_rs<1>(part, lo[kk], bd, 1, Int<D>());
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < kO; ++i) acc[i] += part[i];
+    }
+
+    __syncthreads();   // every warp is done with stage st and with P
+    if (tile + kTStages < n_tiles) load_rows(tile + kTStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // the partials below reuse the ring's memory
+
+  // the group sum over the cluster: partials to shared memory, then rank r
+  // sums its rows of every block's partial in rank order
+  constexpr int kStride = Smem::kPartStride;
+  float* dk_part = reinterpret_cast<float*>(dkv_smem);
+  float* dv_part = dk_part + kTKeys * kStride;
+  float* mine = wg == 0 ? dv_part : dk_part;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(
+          mine + (16 * warp + lane / 4 + 8 * i) * kStride + 8 * j +
+          2 * (lane & 3)) = make_float2(acc[4 * j + 2 * i],
+                                        acc[4 * j + 2 * i + 1]);
+  cluster.sync();
+  const int per = (kTKeys + cs - 1) / cs;
+  const int row_lo = rank * per, row_hi = min(kTKeys, row_lo + per);
+  const long long out0 =
+      ((static_cast<long long>(b) * p.kv_heads + kvh) * p.tk + k0) * D;
+  for (int idx = threadIdx.x; idx < (row_hi - row_lo) * (D / 4);
+       idx += kThreads) {
+    const int row = row_lo + idx / (D / 4), c4 = idx % (D / 4);
+    if (k0 + row >= p.tk) continue;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int rr = 0; rr < cs; ++rr) {
+      const float4 xk = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(dk_part, rr) + row * kStride + 4 * c4);
+      const float4 xv = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(dv_part, rr) + row * kStride + 4 * c4);
+      sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
+      sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
+    }
+    *reinterpret_cast<float4*>(p.dk + out0 + row * D + 4 * c4) = sk;
+    *reinterpret_cast<float4*>(p.dv + out0 + row * D + 4 * c4) = sv;
+  }
+  cluster.sync();      // no block leaves while another reads its partials
+}
+
+template <int D>
+int launch_dkv_tile(const FlashBwdParams& p, cudaStream_t stream) {
+  const int group = p.heads / p.kv_heads;
+  int cs = 1;   // the largest divisor of G up to 8
+  for (int c = min(group, 8); c > 1; --c)
+    if (group % c == 0) {
+      cs = c;
+      break;
+    }
+  constexpr size_t smem = DkvTile<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tile_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((p.tk + kTKeys - 1) / kTKeys * cs),
+                     static_cast<unsigned>(p.kv_heads),
+                     static_cast<unsigned>(p.batch));
+  cfg.blockDim = dim3(2 * hopper::kWarpgroup);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_tile_kernel<D>, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each returns cudaGetLastError() after its launch (0 = launched).
@@ -440,4 +816,21 @@ extern "C" int flash_attention_bwd_dkv_launch(const FlashBwdParams* p,
 extern "C" int flash_attention_bwd_dq_launch(const FlashBwdParams* p,
                                              void* stream) {
   return launch_any<false>(p, stream);
+}
+
+// The dK/dV tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned
+// rows.
+extern "C" int flash_attention_bwd_dkv_tile_launch(const FlashBwdParams* p,
+                                                   void* stream) {
+  if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
+      p->heads % p->kv_heads != 0 || p->batch > 65535 ||
+      p->kv_heads > 65535 || p->dtype != 1 || p->dk == nullptr ||
+      p->dv == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p->head_dim) {
+    case 64: return launch_dkv_tile<64>(*p, s);
+    case 128: return launch_dkv_tile<128>(*p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

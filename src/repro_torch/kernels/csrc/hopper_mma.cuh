@@ -1,0 +1,280 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core attention
+// kernels: the shared-memory tile layout that wgmma reads, its matrix
+// descriptors, the wgmma wrappers (m64nNk16 for N = 64 and 128, bf16
+// operands, fp32 accumulators; inline PTX, so nvcc builds in seconds),
+// cp.async with zero fill, and the register layouts of a warpgroup's
+// accumulator and of an A operand held in registers.
+//
+// Tile layout (wgmma's 128-byte swizzle): a tile of R rows x D bf16
+// columns (D a multiple of 64) is stored as D / 64 atoms of R rows x 128
+// bytes, atom a (columns 64 a .. 64 a + 63) at byte a * R * 128.  Inside
+// an atom row r starts at byte r * 128, and its 16-byte chunk c (columns
+// 8 c .. 8 c + 7 of the atom) sits at chunk position c ^ (r % 8).  Tiles
+// start on 1024-byte boundaries, so the swizzle's phase is the row's.
+// Eight threads with consecutive indices copy the eight chunks of one row
+// (128 contiguous bytes of the source row, one 128-byte line of shared
+// memory), so loads are coalesced and stores free of bank conflicts, and
+// wgmma reads 8-row groups across all 32 banks.  One layout serves both
+// operand roles:
+//   * K-major (the 16-element depth runs along a row: Q, K, dO, V as a
+//     factor of a product over D): 8-row groups 1024 bytes apart; depth
+//     step kk starts at atom kk / 4, byte (kk % 4) * 32 of the row;
+//   * MN-major (the depth runs down the rows: V in P V, dO in P^T dO, Q
+//     in dS^T Q, read with wgmma's transpose flag): 8-row groups of depth
+//     1024 bytes apart, atoms (64 columns of N) R * 128 bytes apart; depth
+//     step kk (rows 16 kk ..) starts 2048 kk bytes in.
+//
+// Accumulator of a warpgroup (128 threads, warp w, lane l) for a 64 x N
+// product: d[4 j + 2 i + c] holds row 16 w + l / 4 + 8 i, column
+// 8 j + 2 (l % 4) + c, for j < N / 8 and i, c in {0, 1}.  An A operand in
+// registers for depth step kk (columns 16 kk .. 16 kk + 15 of a 64-row
+// matrix) is {pack(d[8kk], d[8kk+1]), pack(d[8kk+2], d[8kk+3]),
+// pack(d[8kk+4], d[8kk+5]), pack(d[8kk+6], d[8kk+7])} of an accumulator
+// of the same shape: a product's probabilities feed the next product
+// without leaving registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace hopper {
+
+template <int N>
+struct Int {};
+
+constexpr int kWarpgroup = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of the 16-byte chunk (row, chunk) of a tile with R rows
+template <int R>
+__device__ __forceinline__ int chunk_offset(int row, int chunk) {
+  return (chunk >> 3) * (R * 128) + row * 128 +
+         (((chunk & 7) ^ (row & 7)) << 4);
+}
+
+// wgmma matrix descriptor, 128-byte swizzle (layout type 1, base offset 0:
+// the tile starts on 1024 bytes): start address, leading and stride byte
+// offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(smem) & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
+}
+
+// K-major operand of a tile with R rows: rows row0 .. row0 + 63 (or the
+// N rows of a B operand from row0), depth step kk (columns 16 kk ..)
+template <int R>
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int row0,
+                                                int kk) {
+  return make_desc(static_cast<const char*>(tile) + (kk >> 2) * (R * 128) +
+                       row0 * 128 + (kk & 3) * 32,
+                   16, 1024);
+}
+
+// MN-major operand (read transposed) of a tile with R rows: N columns
+// from atom col0 / 64, depth step kk (rows 16 kk .. 16 kk + 15)
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int col0,
+                                            int kk) {
+  return make_desc(static_cast<const char*>(tile) + (col0 >> 6) * (R * 128) +
+                       kk * 2048,
+                   R * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keeps the compiler from moving accesses of accumulator registers across
+// an asynchronous wgmma (issue .. wait)
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 16 bytes global -> shared, asynchronously; `valid` false writes zeros
+// and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously; `valid` false writes zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most kPending committed groups of this thread are in
+// flight, then makes its copies visible to wgmma (the async proxy); a
+// __syncthreads() must follow before other threads' copies are read
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x on the special function unit, subnormal results flushed to 0 (the
+// softmax weights that small are below bf16's and fp32's use anyway)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A operand of depth step kk from a 64 x N fp32 accumulator (N >= 16 kk + 16)
+template <int R>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[R],
+                                       int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// D (64 x 64) {=, +=} A (64 x 16, shared) * B (16 x 64, shared)
+template <int kTransB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                       int accumulate, Int<64>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// D (64 x 64) {=, +=} A (64 x 16, registers) * B (16 x 64, shared)
+template <int kTransB>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b, int accumulate, Int<64>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// D (64 x 128) {=, +=} A (64 x 16, shared) * B (16 x 128, shared)
+template <int kTransB>
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                       int accumulate, Int<128>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// D (64 x 128) {=, +=} A (64 x 16, registers) * B (16 x 128, shared)
+template <int kTransB>
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b, int accumulate, Int<128>) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+}  // namespace hopper

@@ -4,13 +4,21 @@ forward, which replaces the TPU kernel
 ``csrc/flash_attention_bwd.cu`` (the dK/dV and dQ kernels, which replace
 ``flash_attention_bwd_dkv_pallas`` and ``flash_attention_bwd_dq_pallas``).
 
+The forward and the dK/dV kernel each have two routes, chosen by a fixed
+rule (:func:`attention_route`, :func:`dkv_route`): a tensor-core "tile"
+route (wgmma, bf16 operands, head dims 64 and 128) and the "row" route of
+plain FMAs for everything else (fp32, other head dims, and forward blocks
+too small to fill a 64-row tile: decode).
+
 The kernels mask their own ragged edges (keys past ``Tk``, the causal
 diagonal of a ragged ``Tq < Tk`` prefill, the decode ring's ``kv_valid``),
 so the padding of ``repro/kernels/ops.py`` has no counterpart here.  For
 tensors on the CPU each wrapper runs its plain version
 (``kernels/ref.py``); for CUDA tensors it launches its kernel or raises.
 ``flash_attention.launches``, ``flash_attention_bwd_dkv.launches`` and
-``flash_attention_bwd_dq.launches`` count kernel launches.
+``flash_attention_bwd_dq.launches`` count kernel launches;
+``row_launches`` and ``tile_launches`` on the forward and dK/dV wrappers
+count them by route.
 """
 from __future__ import annotations
 
@@ -27,8 +35,36 @@ from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
                                      flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
+TILE_HEAD_DIMS = (64, 128)
+TILE_ROWS = 64          # flattened (t, g) query rows of one tile-route block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns: dict = {}
+
+
+def attention_route(dtype: torch.dtype, head_dim: int, tq: int,
+                    group: int) -> str:
+    """The forward kernel for these operands: ``"tile"`` (wgmma) for bf16,
+    head dim 64 or 128 and at least one full tile of Tq * G query rows;
+    ``"row"`` for everything else (fp32 must stay exact to 2e-5; decode's
+    Tq * G = G rows would leave most of a tile empty)."""
+    return ("tile" if dtype == torch.bfloat16 and head_dim in TILE_HEAD_DIMS
+            and tq * group >= TILE_ROWS else "row")
+
+
+def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The dK/dV kernel for these operands: ``"tile"`` (wgmma, the GQA
+    group split across a thread block cluster) for bf16 and head dim 64 or
+    128, ``"row"`` for everything else."""
+    return ("tile" if dtype == torch.bfloat16 and head_dim in TILE_HEAD_DIMS
+            else "row")
+
+
+def _rows_aligned(*tensors) -> bool:
+    """Every row starts on 16 bytes (the tile routes copy rows in 16-byte
+    pieces): aligned base pointers and strides of whole 16-byte units."""
+    return all(t.data_ptr() % 16 == 0
+               and all(t.stride(i) * t.element_size() % 16 == 0
+                       for i in range(3)) for t in tensors)
 
 
 class _FlashParams(ctypes.Structure):
@@ -43,14 +79,15 @@ class _FlashParams(ctypes.Structure):
                 + [("scale", ctypes.c_float)])
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention.cu").flash_attention_launch
+def _launcher(route: str):
+    if route not in _fns:
+        lib = build.load("flash_attention.cu")
+        fn = (lib.flash_attention_tile_launch if route == "tile"
+              else lib.flash_attention_launch)
         fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return _fns[route]
 
 
 def _check_operands(q, k, v, kv_valid) -> None:
@@ -120,6 +157,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    route = attention_route(q.dtype, D, Tq, H // Hkv)
+    if route == "tile" and not _rows_aligned(q, k, v, out):
+        route = "row"
     p = _FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -130,15 +170,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launcher()(ctypes.byref(p), stream)
+        rc = _launcher(route)(ctypes.byref(p), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{rc} at q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"CUDA error {rc} at q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}")
     flash_attention.launches += 1
+    if route == "tile":
+        flash_attention.tile_launches += 1
+    else:
+        flash_attention.row_launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.row_launches = 0
+flash_attention.tile_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +210,7 @@ _bwd_fns: dict = {}
 
 
 def _bwd_launcher(which: str):
+    """``which``: "dkv" (row route), "dkv_tile" or "dq"."""
     if which not in _bwd_fns:
         fn = getattr(build.load("flash_attention_bwd.cu"),
                      f"flash_attention_bwd_{which}_launch")
@@ -184,14 +232,18 @@ def _check_bwd_rows(q, do, **rows) -> None:
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window,
-                outs) -> None:
+                outs) -> str:
     """Checks what the CUDA kernel takes, then launches ``which`` ("dkv" or
     "dq") writing into ``outs`` (fp32, contiguous); raises on a failed
-    launch."""
+    launch.  Returns the route it launched ("row" or "tile"; dQ: "row")."""
     name = f"flash_attention_bwd_{which}"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     _check_kernel_operands(name, (q, k, v, do), window)
+    route = "row"
+    if (which == "dkv" and dkv_route(q.dtype, q.shape[-1]) == "tile"
+            and _rows_aligned(q, k, v, do)):
+        route = "tile"
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
     if lse.device != q.device or delta.device != q.device:
@@ -209,10 +261,12 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window,
         1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_launcher(which)(ctypes.byref(p), stream)
+        rc = _bwd_launcher(which + ("_tile" if route == "tile" else ""))(
+            ctypes.byref(p), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"at q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise RuntimeError(f"{name} {route} kernel launch failed: CUDA error "
+                           f"{rc} at q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return route
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -227,9 +281,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                                            causal=causal, window=window)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
-                {"dk": dk, "dv": dv})
+    route = _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
+                        {"dk": dk, "dv": dv})
     flash_attention_bwd_dkv.launches += 1
+    if route == "tile":
+        flash_attention_bwd_dkv.tile_launches += 1
+    else:
+        flash_attention_bwd_dkv.row_launches += 1
     return dk, dv
 
 
@@ -279,4 +337,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.row_launches = 0
+flash_attention_bwd_dkv.tile_launches = 0
 flash_attention_bwd_dq.launches = 0

@@ -124,6 +124,152 @@ def test_serve_session_on_the_card_matches_sequential(dev):
         np.testing.assert_allclose(got[rid].entropy, ref.entropy, atol=1e-4)
 
 
+# the tile routes (wgmma, bf16, head dims 64 and 128) against the plain
+# versions, at the tolerances chip_smoke.py holds them to
+TILE_FWD_CASES = [
+    # (B, H, Hkv, Tq, Tk, causal, window, kv_valid, route)
+    (2, 32, 2, 128, 161, True, None, None, "tile"),   # prefill over the ring
+    (1, 32, 2, 37, 161, True, None, None, "tile"),    # ragged prefill
+    (2, 8, 2, 100, 100, True, 16, None, "tile"),      # window, GQA 4
+    (3, 4, 4, 70, 70, False, None, None, "tile"),     # non-causal, GQA 1
+    (3, 4, 4, 63, 70, False, None, None, "row"),      # 63 rows: below a tile
+    (3, 4, 4, 64, 70, True, None, None, "tile"),      # 64 rows: one tile
+    (3, 32, 2, 3, 161, False, None, (1, 80, 161), "row"),   # 48 rows
+    (3, 32, 2, 4, 161, False, None, (1, 80, 161), "tile"),  # 64 rows
+    (2, 8, 2, 90, 130, False, 33, (77, 130), "tile"),  # window + kv_valid
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal,window,kv,route",
+                         TILE_FWD_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_tile_route_matches_plain(dev, B, H, Hkv, Tq, Tk,
+                                                  causal, window, kv, route,
+                                                  D):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(B, T, h, D, generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2)
+               for T, h in ((Tq, H), (Tk, Hkv), (Tk, Hkv)))
+    kv = (None if kv is None
+          else torch.tensor(kv, dtype=torch.int32, device=dev))
+    tiles, rows = flash_attention.tile_launches, flash_attention.row_launches
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               kv_valid=kv, return_lse=True)
+    want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, kv_valid=kv,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.tile_launches - tiles,
+            flash_attention.row_launches - rows) == (
+                (1, 0) if route == "tile" else (0, 1))
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+def test_misaligned_rows_take_the_row_route(dev):
+    """The tile routes copy rows in 16-byte pieces: bf16 operands whose
+    rows do not start on 16 bytes (a view one element in) run the row
+    kernels, forward and dK/dV, and still match the plain versions."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv)
+    from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_ref)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(2, 64, h, 129, generator=g, device=dev)
+                   .to(torch.bfloat16)[..., 1:].transpose(1, 2)
+                   for h in (8, 2, 2, 8))
+    counts = (flash_attention.row_launches, flash_attention.tile_launches,
+              flash_attention_bwd_dkv.row_launches,
+              flash_attention_bwd_dkv.tile_launches)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    want, want_lse = flash_attention_ref(q, k, v, causal=True,
+                                         return_lse=True)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   causal=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.row_launches - counts[0],
+            flash_attention.tile_launches - counts[1],
+            flash_attention_bwd_dkv.row_launches - counts[2],
+            flash_attention_bwd_dkv.tile_launches - counts[3]) == (1, 0, 1, 0)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dk, want_dk, atol=2e-4, rtol=0)
+    torch.testing.assert_close(dv, want_dv, atol=2e-4, rtol=0)
+
+
+TILE_BWD_CASES = [
+    # (B, H, Hkv, T, causal, window)
+    (12, 32, 2, 128, True, None),     # the training shape, GQA 16
+    (2, 8, 2, 100, True, 16),         # window, GQA 4, T not a tile multiple
+    (2, 4, 4, 70, False, None),       # non-causal, GQA 1
+    (1, 8, 1, 45, False, 8),          # non-causal window, GQA 8
+    (2, 12, 1, 77, True, None),       # GQA 12: clusters of 6 blocks
+    (1, 32, 2, 1000, True, None),     # long band: 16 query tiles per block
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal,window", TILE_BWD_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_dkv_tile_route_matches_plain(dev, B, H, Hkv, T,
+                                                          causal, window, D):
+    """The cluster dK/dV kernel: fp32 outputs within 2e-4 of the plain
+    version (P and dS split into bf16 high and low parts), and the same
+    bits on a second launch (the group sum runs in a fixed order)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_dkv
+    from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_ref)
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, T, D, seed=5)
+    o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    tiles = flash_attention_bwd_dkv.tile_launches
+    kw = dict(causal=causal, window=window)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dkv.tile_launches == tiles + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    torch.testing.assert_close(dk, want_dk, atol=2e-4, rtol=0)
+    torch.testing.assert_close(dv, want_dv, atol=2e-4, rtol=0)
+
+
+def test_autograd_site_bf16_runs_the_tile_routes(dev):
+    """FlashAttentionFn in bf16 at D = 64, GQA 4, a window and T = 100:
+    the forward and dK/dV take the tile routes, and the site stays within
+    1e-2 of each tensor's largest magnitude of autograd of the plain
+    forward."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv)
+    g = torch.Generator(device=dev).manual_seed(6)
+    leaves = [torch.randn(2, 100, h, 64, generator=g, device=dev)
+              .to(torch.bfloat16) for h in (8, 2, 2)]
+    cot = torch.randn(2, 100, 8, 64, generator=g, device=dev).to(
+        torch.bfloat16)
+    grads = []
+    for name in ("auto", "ref"):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        counts = (flash_attention.tile_launches,
+                  flash_attention_bwd_dkv.tile_launches)
+        out = dispatch.get_backend(name).attention(q, k, v, causal=True,
+                                                   window=24)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert (flash_attention.tile_launches - counts[0],
+                flash_attention_bwd_dkv.tile_launches - counts[1]) == (
+                    (1, 1) if name == "auto" else (0, 0))
+        grads.append((out.float(), q.grad.float(), k.grad.float(),
+                      v.grad.float()))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
 BWD_CASES = [
     # (B, H, Hkv, T, causal, window)
     (12, 32, 2, 128, True, None),     # the training shape, GQA 16

@@ -168,3 +168,49 @@ def test_resolve_kernels():
     assert dispatch.resolve_kernels("ref") == "ref"
     with pytest.raises(ValueError, match="kernels"):
         dispatch.resolve_kernels("pallas")
+
+
+# the forward's route rule: bf16, head dim 64 or 128, Tq * G >= 64 rows
+@pytest.mark.parametrize("dtype,D,Tq,G,route", [
+    (torch.bfloat16, 128, 1, 16, "row"),     # decode: 16 rows of a 64-row tile
+    (torch.bfloat16, 128, 3, 16, "row"),     # 48 rows: just below one tile
+    (torch.bfloat16, 128, 4, 16, "tile"),    # 64 rows: one full tile
+    (torch.bfloat16, 128, 128, 16, "tile"),  # glm4-9b prefill and training
+    (torch.bfloat16, 64, 63, 1, "row"),
+    (torch.bfloat16, 64, 64, 1, "tile"),
+    (torch.bfloat16, 64, 16, 4, "tile"),
+    (torch.bfloat16, 32, 128, 16, "row"),    # head dim 32: row kernel only
+    (torch.bfloat16, 16, 128, 16, "row"),
+    (torch.float32, 128, 128, 16, "row"),    # fp32 stays exact to 2e-5
+    (torch.float16, 128, 128, 16, "row"),
+])
+def test_attention_route_rule(dtype, D, Tq, G, route):
+    from repro_torch.kernels.flash_attention import attention_route
+    assert attention_route(dtype, D, Tq, G) == route
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 128, "tile"), (torch.bfloat16, 64, "tile"),
+    (torch.bfloat16, 32, "row"), (torch.float32, 128, "row"),
+    (torch.float32, 64, "row"),
+])
+def test_dkv_route_rule(dtype, D, route):
+    from repro_torch.kernels.flash_attention import dkv_route
+    assert dkv_route(dtype, D) == route
+
+
+def test_cpu_tensors_take_no_route():
+    """A tile-shaped bf16 call on the CPU runs the plain versions and counts
+    no launch on either route, forward or dK/dV."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_dkv)
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(5, 1, 8, 2, 16, 16,
+                                                      D=64)))
+    counts = (flash_attention.row_launches, flash_attention.tile_launches,
+              flash_attention_bwd_dkv.row_launches,
+              flash_attention_bwd_dkv.tile_launches)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    flash_attention_bwd(q, k, v, out, lse, torch.ones_like(q), causal=True)
+    assert (flash_attention.row_launches, flash_attention.tile_launches,
+            flash_attention_bwd_dkv.row_launches,
+            flash_attention_bwd_dkv.tile_launches) == counts
