@@ -10,11 +10,16 @@ Phases:
   kernels  holds each kernel against its plain PyTorch version on the card:
            attention and the gate at the serve and train shapes of
            full-width glm4-9b plus sliding-window, non-causal, head-dim 32
-           and fp32 cases; the tensor-core tile routes of the attention
-           forward and dK/dV (bf16, head dims 64 and 128) at GQA 1, 4 and
-           16, causal and not, windows, per-row kv_valid, ragged Tq and Tk,
-           and shapes just below and above the forward's route threshold,
-           dK/dV also bit for bit across two launches; the wkv forward
+           and fp32 cases; the attention forward's three routes (decode:
+           mma.sync, keys split across a cluster; tile: wgmma; row) and
+           the dK/dV and dQ routes (tile: wgmma; row), bf16 at head dims 64
+           and 128, GQA 1, 4 and 16, causal and not, windows, per-row
+           kv_valid of 1, ragged and full, ragged Tq and Tk, shapes just
+           below and above the forward's 64-row threshold, a 4096-key cache
+           at every split count the decode rule picks, dQ with delta given
+           and fused (the delta it writes against the plain one), the
+           decode, dK/dV and dQ kernels also bit for bit across two
+           launches, and the row routes forced at the main shapes; the wkv forward
            and backward at chunks 8-128, fp32 and bf16, ragged T, head
            dims 16-64, the rwkv6-3b train and
            prefill shapes, and decays that overflow the plain chunked form
@@ -33,7 +38,7 @@ Phases:
            prompts of 64-512 tokens), under the select and the sticky
            policy; each run starts with every launch count at 0 and must
            launch the mixer's kernel and the gate (glm4-9b: prefill on the
-           attention forward's tile route, decode on its row route);
+           attention forward's tile route, decode on its decode route);
   train    the training path: make_train_step on glm4-9b at its published
            widths with the depth cut to 8 layers (exits 2, 4, 6), batch
            12 x 128, and on rwkv6-3b at its published widths and full depth
@@ -41,16 +46,20 @@ Phases:
            weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
-           eq1 and sum steps (glm4-9b: every attention forward and dK/dV
-           launch on the tile route), a loss check on the first batch, a
+           eq1 and sum steps (glm4-9b: every attention forward, dK/dV and
+           dQ launch on the tile route, and no delta pass in torch), a loss
+           check on the first batch, a
            traced window of 2 steps (rwkv6-3b: then eq1 steps on the plain
            versions, the end-to-end baseline);
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
-           over the causal pairs it needs); the attention forward with LSE
-           and dK/dV also at one long causal shape, q (1,32,2048,128), k/v
-           (1,2,2048,128) bf16, where operations set the bound.  Times are
+           over the causal pairs it needs); the attention forward with LSE,
+           dK/dV and dQ also at one long causal shape, q (1,32,2048,128), k/v
+           (1,2,2048,128) bf16, where operations set the bound; decode also
+           over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
+           row routes of the forward and of dQ beside their redesigned
+           routes at the main shapes.  Times are
            device times: a spin kernel ahead of each timed call keeps the
            host's enqueue (~50-100 us for a wrapper, more for SDPA's
            backward) off the clock.
@@ -110,6 +119,10 @@ GATE_MARGIN = 1e-3      # exits must agree wherever |H - tau| exceeds this
 # probabilities: 3.4e-3 of the scale with the plain versions on the CPU)
 TOL_BWD = 2e-4
 TOL_BWD_BF16 = 1e-2
+# the dQ tile route's fused delta = rowsum(dO * O) against the same sum in
+# torch, both fp32 from the same bf16 values (reassociation only), over the
+# largest |delta|
+TOL_DELTA = 1e-4
 TOL_SITE_F32 = 1e-4
 TOL_SITE_BF16 = 1e-2
 # train-step parity, fp32 smoke: losses 1e-5; params after 3 Adam steps at
@@ -141,6 +154,8 @@ RWKV_PROMPT_MIN, RWKV_PROMPT_MAX, RWKV_T = 64, 512, 512
 RWKV_WARM, RWKV_EQ1, RWKV_SUM, RWKV_REF = 2, 4, 2, 2
 # the long causal attention shape of phase timing: (1, 32, 2048, 128)
 LONG_T = 2048
+# the long decode cache of phases kernels and timing: (8, 2, 4096, 128)
+LONG_CACHE = 4096
 
 
 class Failed(Exception):
@@ -154,26 +169,31 @@ def check(cond: bool, msg: str) -> None:
 
 
 def zero_counts(*wrappers) -> None:
-    """Sets every launch count of the kernel wrappers to 0, by route too."""
+    """Sets every launch count of the kernel wrappers to 0, by route too
+    (and the backward's count of delta passes in torch)."""
     for w in wrappers:
-        for attr in ("launches", "row_launches", "tile_launches"):
+        for attr in ("launches", "row_launches", "tile_launches",
+                     "decode_launches", "torch_delta_passes"):
             if hasattr(w, attr):
                 setattr(w, attr, 0)
 
 
 def launch_counts(wrapper) -> dict:
-    """A wrapper's launches by kernel, as the result line names them: the
-    attention forward's routes are two kernels (row: flash_attention,
-    tile: flash_attention_tile); dK/dV's tile route is the main path's
-    flash_attention_bwd_dkv, its row route (fp32, small head dims)
-    flash_attention_bwd_dkv_row."""
+    """A wrapper's launches by kernel, as the result line names them, each
+    name on the main path's kernel: the attention forward's routes are
+    three kernels (decode: flash_attention, tile: flash_attention_tile,
+    row: flash_attention_row); the dK/dV and dQ tile routes are
+    flash_attention_bwd_dkv and flash_attention_bwd_dq, their row routes
+    (fp32, small head dims) flash_attention_bwd_dkv_row and
+    flash_attention_bwd_dq_row."""
     name = wrapper.__name__
     if name == "flash_attention":
-        return {name: wrapper.row_launches,
-                "flash_attention_tile": wrapper.tile_launches}
-    if name == "flash_attention_bwd_dkv":
+        return {name: wrapper.decode_launches,
+                "flash_attention_tile": wrapper.tile_launches,
+                "flash_attention_row": wrapper.row_launches}
+    if name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         return {name: wrapper.tile_launches,
-                "flash_attention_bwd_dkv_row": wrapper.row_launches}
+                f"{name}_row": wrapper.row_launches}
     return {name: wrapper.launches}
 
 
@@ -266,25 +286,37 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = state.setdefault("max_abs_err", {})
 
-    def attn_case(name, dtype, tol, *, B, Tq, causal, Tk=MAX_LEN,
+    kernel_of = {"decode": "flash_attention", "tile": "flash_attention_tile",
+                 "row": "flash_attention_row"}
+
+    def attn_case(name, dtype, tol, *, B, Tq, causal, route, Tk=MAX_LEN,
                   window=None, kv_valid=None, lse=False, main=False, H=32,
-                  Hkv=2, D=128, route="row"):
+                  Hkv=2, D=128, force=None):
+        """One forward call against the plain version: ``route`` is the
+        route the call must take (``force``: the wrapper's route
+        argument); the decode route is also launched twice and must give
+        the same bits."""
         q, k, v = attn_inputs(gen, dtype, B=B, Tq=Tq, Tk=Tk, H=H, Hkv=Hkv,
                               D=D)
+        kw = dict(causal=causal, window=window, kv_valid=kv_valid,
+                  return_lse=True)
         counts = launch_counts(flash_attention)
-        got = flash_attention(q, k, v, causal=causal, window=window,
-                              kv_valid=kv_valid, return_lse=lse)
-        want = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_valid=kv_valid, return_lse=lse)
+        got, got_lse = flash_attention(q, k, v, route=force, **kw)
+        want, want_lse = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        kernel = "flash_attention_tile" if route == "tile" else \
-            "flash_attention"
+        kernel = kernel_of[route]
         launched = {n: c - counts[n]
                     for n, c in launch_counts(flash_attention).items()}
         check(launched[kernel] == 1 and sum(launched.values()) == 1,
               f"attention {name} {dtype}: one launch, {route} route")
+        if route == "decode":
+            again = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again[0]) and torch.equal(got_lse,
+                                                            again[1]),
+                  f"attention {name} {dtype}: out and lse bit for bit "
+                  f"equal across two launches")
         if lse:
-            (got, got_lse), (want, want_lse) = got, want
             d_lse = (got_lse - want_lse).abs().max().item()
             check(d_lse <= TOL_LSE, f"attention {name} {dtype} lse max|d|="
                                     f"{d_lse:.3e} <= {TOL_LSE:g}")
@@ -297,7 +329,11 @@ def phase_kernels(state):
     bf16 = torch.bfloat16
     attn_case("decode (8,32,1,128)/(8,2,161,128) kv_valid", bf16,
               TOL_ATTN_BF16, B=8, Tq=1, causal=False, kv_valid=kv_prefix(8),
-              main=True)
+              lse=True, main=True, route="decode")
+    attn_case("decode (8,32,1,128)/(8,2,161,128) kv_valid, row route "
+              "forced", bf16, TOL_ATTN_BF16, B=8, Tq=1, causal=False,
+              kv_valid=kv_prefix(8), lse=True, main=True, route="row",
+              force="row")
     attn_case("prefill (1,32,128,128)/(1,2,161,128) causal", bf16,
               TOL_ATTN_BF16, B=1, Tq=128, causal=True, main=True,
               route="tile")
@@ -307,15 +343,17 @@ def phase_kernels(state):
               bf16, TOL_ATTN_BF16, B=TRAIN_B, Tq=TRAIN_T, Tk=TRAIN_T,
               causal=True, lse=True, main=True, route="tile")
     attn_case("decode fp32 kv_valid", torch.float32, TOL_ATTN_F32, B=8, Tq=1,
-              causal=False, kv_valid=kv_prefix(8, seed=1), lse=True)
+              causal=False, kv_valid=kv_prefix(8, seed=1), lse=True,
+              route="row")
     attn_case("prefill fp32 causal", torch.float32, TOL_ATTN_F32, B=2, Tq=100,
-              causal=True, lse=True)
+              causal=True, lse=True, route="row")
     attn_case("sliding window 48, fp32", torch.float32, TOL_ATTN_F32, B=2,
-              Tq=MAX_LEN, causal=True, window=48, lse=True)
+              Tq=MAX_LEN, causal=True, window=48, lse=True, route="row")
     attn_case("sliding window 48, bf16", bf16, TOL_ATTN_BF16, B=2,
               Tq=MAX_LEN, causal=True, window=48, route="tile")
-    # the tile route at both head dims, GQA 1, 4 and 16, and the rule's
-    # threshold: Tq * G = 48 rows (row route) and 64 rows (tile route)
+    # the tile and decode routes at both head dims, GQA 1, 4 and 16, and
+    # the rule's threshold: Tq * G = 48 and 63 rows (decode route) and 64
+    # rows (tile route)
     for D in (64, 128):
         for name, kw in (
                 ("GQA 4 window 16 (2,8,100)/(2,2,100)", dict(
@@ -325,13 +363,14 @@ def phase_kernels(state):
                     B=3, H=4, Hkv=4, Tq=70, Tk=70, causal=False,
                     route="tile")),
                 ("GQA 1, 63 rows (3,4,63)/(3,4,70)", dict(
-                    B=3, H=4, Hkv=4, Tq=63, Tk=70, causal=False)),
+                    B=3, H=4, Hkv=4, Tq=63, Tk=70, causal=False,
+                    route="decode")),
                 ("GQA 1, 64 rows causal (3,4,64)/(3,4,70)", dict(
                     B=3, H=4, Hkv=4, Tq=64, Tk=70, causal=True,
                     route="tile")),
                 ("GQA 16, 48 rows, kv_valid (3,32,3)/(3,2,161)", dict(
                     B=3, H=32, Hkv=2, Tq=3, Tk=MAX_LEN, causal=False,
-                    kv_valid=kv_prefix(3, seed=3))),
+                    kv_valid=kv_prefix(3, seed=3), route="decode")),
                 ("GQA 16, 64 rows, kv_valid (3,32,4)/(3,2,161)", dict(
                     B=3, H=32, Hkv=2, Tq=4, Tk=MAX_LEN, causal=False,
                     kv_valid=kv_prefix(3, seed=4), route="tile")),
@@ -340,6 +379,7 @@ def phase_kernels(state):
                     kv_valid=kv_prefix(2, 130, seed=5), route="tile"))):
             attn_case(f"{name} D={D}", bf16, TOL_ATTN_BF16, lse=True, D=D,
                       **kw)
+    decode_cases(attn_case)
 
     def gate_case(name, dtype, V, main=False):
         x = logits_inputs(gen, dtype, V=V)
@@ -369,6 +409,53 @@ def phase_kernels(state):
     wkv_site_cases(gen)
 
 
+def decode_cases(attn_case):
+    """The decode route (bf16, D 64 and 128, Tq * G < 64 rows) at GQA 1, 4
+    and 16, 1 to 63 rows, kv_valid of 1, ragged and full, ragged Tk, Tq > 1
+    causal with and without a window, and a 4096-key cache at every split
+    count the rule picks (B * Hkv from 16 to 132)."""
+    from repro_torch.kernels.flash_attention import TILE_KEYS, decode_splits
+    bf16 = torch.bfloat16
+
+    def ones(B):
+        return torch.ones(B, dtype=torch.int32, device="cuda")
+
+    for D in (64, 128):
+        for name, kw in (
+                ("GQA 1, 1 row, kv_valid 1 (4,4,1)/(4,4,161)", dict(
+                    B=4, H=4, Hkv=4, Tq=1, causal=False, kv_valid=ones(4))),
+                ("GQA 4, 4 rows, ragged kv_valid (4,8,1)/(4,2,100)", dict(
+                    B=4, H=8, Hkv=2, Tq=1, Tk=100, causal=False,
+                    kv_valid=kv_prefix(4, 100, seed=6))),
+                ("GQA 16, 16 rows, full (3,32,1)/(3,2,65)", dict(
+                    B=3, H=32, Hkv=2, Tq=1, Tk=65, causal=False)),
+                ("GQA 1, 17 rows causal, kv_valid (2,4,17)/(2,4,40)", dict(
+                    B=2, H=4, Hkv=4, Tq=17, Tk=40, causal=True,
+                    kv_valid=kv_prefix(2, 40, seed=7))),
+                ("GQA 4, 32 rows causal, kv_valid 1 (2,8,8)/(2,2,130)", dict(
+                    B=2, H=8, Hkv=2, Tq=8, Tk=130, causal=True,
+                    kv_valid=ones(2))),
+                ("GQA 16, 32 rows causal window 1 (2,32,2)/(2,2,161)", dict(
+                    B=2, H=32, Hkv=2, Tq=2, causal=True, window=1)),
+                ("GQA 4, 60 rows causal window 5 (2,8,15)/(2,2,161)", dict(
+                    B=2, H=8, Hkv=2, Tq=15, causal=True, window=5)),
+                ("GQA 1, 63 rows window 9 (2,4,63)/(2,4,200)", dict(
+                    B=2, H=4, Hkv=4, Tq=63, Tk=200, causal=False,
+                    window=9))):
+            attn_case(f"decode route {name} D={D}", bf16, TOL_ATTN_BF16,
+                      lse=True, D=D, route="decode", **kw)
+    seen = set()
+    for B in (8, 10, 12, 16, 20, 24, 40, 66):
+        splits = decode_splits(2 * B, -(-LONG_CACHE // TILE_KEYS))
+        seen.add(splits)
+        attn_case(f"decode route (B={B},32,1,128)/(B,2,{LONG_CACHE},128), "
+                  f"{splits} splits", bf16, TOL_ATTN_BF16, B=B, Tq=1,
+                  Tk=LONG_CACHE, causal=False, lse=True, route="decode")
+    check(seen == set(range(1, 9)),
+          f"decode route: the {LONG_CACHE}-key cases ran every split count "
+          f"1-8 ({sorted(seen)})")
+
+
 def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
     """q, k, v, dO in the model's (B, T, H, D) layout, as transposed views."""
     return tuple(torch.randn(B, T, h, D, generator=gen, device="cuda")
@@ -376,7 +463,7 @@ def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
 
 
 def bwd_kernel_cases(gen, errs):
-    from repro_torch.kernels.flash_attention import (dkv_route,
+    from repro_torch.kernels.flash_attention import (dkv_route, dq_route,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -385,31 +472,44 @@ def bwd_kernel_cases(gen, errs):
                                          flash_attention_bwd_ref,
                                          flash_attention_ref)
 
+    def launched_by(wrapper, fn):
+        counts = launch_counts(wrapper)
+        out = fn()
+        return out, {n: c - counts[n]
+                     for n, c in launch_counts(wrapper).items()}
+
     def case(name, dtype, *, B, H, Hkv, T, D=128, causal=True, window=None,
-             main=False):
+             main=False, dq_force=None):
+        """dK/dV and dQ (delta given; on the dQ tile route also fused)
+        against the plain versions, each on the route its rule picks
+        (``dq_force``: the dQ wrapper's route argument), the tile routes
+        twice for the same bits; the wrapper's gradients in the primal
+        dtypes."""
         q, k, v, do = bwd_inputs(gen, dtype, B=B, H=H, Hkv=Hkv, T=T, D=D)
         o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
                                      return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
         kw = dict(causal=causal, window=window)
         tile = dkv_route(dtype, D) == "tile"
-        counts = launch_counts(flash_attention_bwd_dkv)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        launched = {n: c - counts[n] for n, c in
-                    launch_counts(flash_attention_bwd_dkv).items()}
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dq_tile = dq_route(dtype, D) == "tile" and dq_force is None
+        (dk, dv), launched = launched_by(
+            flash_attention_bwd_dkv,
+            lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        dq, dq_launched = launched_by(
+            flash_attention_bwd_dq,
+            lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                           route=dq_force, **kw))
         want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse,
                                                        delta, **kw)
         want_dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
         grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         wants = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        check(launched == ({"flash_attention_bwd_dkv": 1,
-                            "flash_attention_bwd_dkv_row": 0} if tile else
-                           {"flash_attention_bwd_dkv": 0,
-                            "flash_attention_bwd_dkv_row": 1}),
-              f"attention bwd {name} {dtype}: dK/dV on the "
-              f"{'tile' if tile else 'row'} route")
+        for what, got, on_tile in (("dK/dV", launched, tile),
+                                   ("dQ", dq_launched, dq_tile)):
+            check(list(got.values()) == ([1, 0] if on_tile else [0, 1]),
+                  f"attention bwd {name} {dtype}: {what} on the "
+                  f"{'tile' if on_tile else 'row'} route")
         if tile:
             dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
             torch.cuda.synchronize()
@@ -419,9 +519,28 @@ def bwd_kernel_cases(gen, errs):
         d_dkv = max((dk - want_dk).abs().max().item(),
                     (dv - want_dv).abs().max().item())
         d_dq = (dq - want_dq).abs().max().item()
+        if dq_tile:
+            dq_f, delta_f = flash_attention_bwd_dq(q, k, v, do, lse, o=o, **kw)
+            dq_f2, delta_f2 = flash_attention_bwd_dq(q, k, v, do, lse, o=o,
+                                                     **kw)
+            dq2 = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(dq, dq2) and torch.equal(dq_f, dq_f2)
+                  and torch.equal(delta_f, delta_f2),
+                  f"attention bwd {name} {dtype}: dQ (delta given and "
+                  f"fused) and the fused delta bit for bit equal across two "
+                  f"launches")
+            d_delta = ((delta_f - delta).abs().max()
+                       / delta.abs().max()).item()
+            check(d_delta <= TOL_DELTA,
+                  f"attention bwd {name} {dtype}: the dQ kernel's delta "
+                  f"max|d| / max|delta| = {d_delta:.3e} <= {TOL_DELTA:g}")
+            d_dq = max(d_dq, (dq_f - want_dq).abs().max().item())
         check(d_dkv <= TOL_BWD and d_dq <= TOL_BWD,
               f"attention bwd {name} {dtype}: kernel fp32 outputs max|d| "
-              f"dK/dV {d_dkv:.3e}, dQ {d_dq:.3e} <= {TOL_BWD:g}")
+              f"dK/dV {d_dkv:.3e}, dQ {d_dq:.3e}"
+              + (" (delta given and fused)" if dq_tile else "")
+              + f" <= {TOL_BWD:g}")
         tol = TOL_BWD if dtype == torch.float32 else TOL_BWD_BF16
         ok = all(g.dtype == p.dtype and bool(
             ((g.float() - w).abs() <= tol + (0 if dtype == torch.float32
@@ -433,13 +552,16 @@ def bwd_kernel_cases(gen, errs):
         if main:
             errs["flash_attention_bwd_dkv"] = max(
                 errs.get("flash_attention_bwd_dkv", 0.0), d_dkv)
-            errs["flash_attention_bwd_dq"] = max(
-                errs.get("flash_attention_bwd_dq", 0.0), d_dq)
+            dq_name = ("flash_attention_bwd_dq" if dq_tile
+                       else "flash_attention_bwd_dq_row")
+            errs[dq_name] = max(errs.get(dq_name, 0.0), d_dq)
 
     bf16 = torch.bfloat16
     train = dict(B=TRAIN_B, H=32, Hkv=2, T=TRAIN_T)
     case("train (12,32,128,128)/(12,2,128,128) causal GQA16", bf16,
          main=True, **train)
+    case("train shape, dQ row route forced", bf16, main=True,
+         dq_force="row", **train)
     case("train shape causal GQA16", torch.float32, **train)
     case("sliding window 16, T=100", torch.float32, B=2, H=8, Hkv=2, T=100,
          window=16)
@@ -450,23 +572,34 @@ def bwd_kernel_cases(gen, errs):
     case("head_dim 32 causal T=64", torch.float32, B=2, H=8, Hkv=2, T=64,
          D=32)
     case("head_dim 32 causal T=64", bf16, B=2, H=8, Hkv=2, T=64, D=32)
-    # the tile route at both head dims and GQA 1, 4, 8, 12 (clusters of 6)
-    # and 16, and a long band (T = 1000: 32 query tiles in a block)
+    # the tile routes at both head dims and GQA 1, 4, 8, 12 (dK/dV
+    # clusters of 6) and 16, and long bands (T = 1000 ragged, T = 2048)
     for D in (64, 128):
         case(f"non-causal GQA1 T=70 D={D}", bf16, B=2, H=4, Hkv=4, T=70,
              D=D, causal=False)
         case(f"non-causal window 8 GQA8 T=45 D={D}", bf16, B=1, H=8, Hkv=1,
              T=45, D=D, causal=False, window=8)
         case(f"causal GQA12 T=77 D={D}", bf16, B=2, H=12, Hkv=1, T=77, D=D)
+        case(f"causal window 24 GQA4 T=150 D={D}", bf16, B=2, H=8, Hkv=2,
+             T=150, D=D, window=24)
+        case(f"causal GQA16 T=77 D={D}", bf16, B=2, H=32, Hkv=2, T=77, D=D)
     case("causal GQA16 T=1000 D=128", bf16, B=1, H=32, Hkv=2, T=1000)
+    case(f"causal GQA16 T={LONG_T} D=128", bf16, B=1, H=32, Hkv=2, T=LONG_T)
 
 
 def autograd_site_cases(gen):
     """The training site (kernels="auto": FlashAttentionFn over the forward
-    and both backward kernels) against autograd of the plain forward."""
+    and both backward kernels) against autograd of the plain forward; in
+    bf16 every kernel on its tile route and no delta pass in torch."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd_dkv)
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    wrappers = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+    tile_names = ("flash_attention_tile", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq")
     for dtype, tol in ((torch.float32, TOL_SITE_F32),
                        (torch.bfloat16, TOL_SITE_BF16)):
         leaves = [torch.randn(4, TRAIN_T, h, 128, generator=gen,
@@ -476,22 +609,23 @@ def autograd_site_cases(gen):
         res = []
         for name in ("auto", "ref"):
             q, k, v = (t.clone().requires_grad_() for t in leaves)
-            counts = {**launch_counts(flash_attention),
-                      **launch_counts(flash_attention_bwd_dkv)}
+            counts = {k_: n for w in wrappers
+                      for k_, n in launch_counts(w).items()}
+            passes = flash_attention_bwd.torch_delta_passes
             out = dispatch.get_backend(name).attention(q, k, v, causal=True)
             out.backward(cot)
             res.append([t.float() for t in (out, q.grad, k.grad, v.grad)])
             if name == "auto":
-                now = {**launch_counts(flash_attention),
-                       **launch_counts(flash_attention_bwd_dkv)}
-                tiles = (now["flash_attention_tile"]
-                         - counts["flash_attention_tile"],
-                         now["flash_attention_bwd_dkv"]
-                         - counts["flash_attention_bwd_dkv"])
-                want = (1, 1) if dtype == torch.bfloat16 else (0, 0)
-                check(tiles == want,
-                      f"autograd site {dtype}: forward and dK/dV tile-route "
-                      f"launches {tiles} == {want}")
+                now = {k_: n for w in wrappers
+                       for k_, n in launch_counts(w).items()}
+                tiles = tuple(now[n] - counts[n] for n in tile_names)
+                torch_passes = flash_attention_bwd.torch_delta_passes - passes
+                want = ((1, 1, 1), 0) if dtype == torch.bfloat16 else (
+                    (0, 0, 0), 1)
+                check((tiles, torch_passes) == want,
+                      f"autograd site {dtype}: forward, dK/dV and dQ "
+                      f"tile-route launches {tiles} and delta passes in "
+                      f"torch {torch_passes} == {want}")
         torch.cuda.synchronize()
         scale = ([1.0] * 4 if dtype == torch.float32
                  else [b.abs().max().item() for b in res[1]])
@@ -941,10 +1075,11 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
         if name == "flash_attention":
             prefill = cfg.num_layers * st.requests
             check(by_kernel == {"flash_attention": n_mix - prefill,
-                                "flash_attention_tile": prefill},
+                                "flash_attention_tile": prefill,
+                                "flash_attention_row": 0},
                   f"{cfg.name} {policy}: every prefill launch on the tile "
-                  f"route ({prefill}), every decode launch on the row "
-                  f"route ({n_mix - prefill})")
+                  f"route ({prefill}), every decode launch on the decode "
+                  f"route ({n_mix - prefill}), none on the row route")
         state.setdefault("main", {})[f"{cfg.name}/{policy}"][
             "launches_by_kernel"] = by_kernel
         ok = len(results) == len(prompts)
@@ -1147,8 +1282,9 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     mm_params -= params["embed"]["table"].numel()
     fwd_flops = 2 * mm_params * tokens
 
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(*counters)
+    zero_counts(*counters, flash_attention_bwd)
     flops = {"eq1": counted_step("eq1")}
     run("eq1", n["warm"] - 1)
     flops["sum"] = counted_step("sum")
@@ -1157,12 +1293,18 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     print(f"train {cfg.name} launches by kernel: "
           + ", ".join(f"{k} {v}" for k, v in launches.items()))
     if "flash_attention_tile" in launches:
+        passes = flash_attention_bwd.torch_delta_passes
+        print(f"train {cfg.name} delta passes in torch: {passes}")
         check(launches["flash_attention"] == 0
+              and launches["flash_attention_row"] == 0
               and launches["flash_attention_bwd_dkv_row"] == 0
+              and launches["flash_attention_bwd_dq_row"] == 0
               and launches["flash_attention_tile"] > 0
-              and launches["flash_attention_bwd_dkv"] > 0,
-              f"train {cfg.name}: every attention forward and dK/dV launch "
-              f"on the tile route")
+              and launches["flash_attention_bwd_dkv"] > 0
+              and launches["flash_attention_bwd_dq"] > 0 and passes == 0,
+              f"train {cfg.name}: every attention forward, dK/dV and dQ "
+              f"launch on the tile route, delta formed in the dQ kernel "
+              f"(no delta pass in torch)")
     peak = torch.cuda.max_memory_allocated()
     loss1 = first_batch_loss()
     train = dict(model=cfg.name, layers=cfg.num_layers, seq=T, params=n_params,
@@ -1237,28 +1379,26 @@ def phase_timing(state):
     buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
 
-    # attention at the decode shape: 8 slots, 161-slot ring, per-row prefix
+    # attention at the decode shape: 8 slots, 161-slot ring, per-row
+    # prefix; the row route beside it
     q, k, v = attn_inputs(gen, torch.bfloat16, B=8, Tq=1)
-    kv_valid = kv_prefix(8, seed=2)
     B, H, _, D = q.shape
     Hkv = k.shape[1]
-    n_keys = int(kv_valid.sum())
-    bytes_ = (q.numel() + q.numel()) * 2 + 2 * n_keys * Hkv * D * 2 + B * 4
-    ops = 4 * H * D * n_keys
-    mask = (torch.arange(k.shape[2], device="cuda")[None]
-            < kv_valid[:, None])[:, None, None, :]
+    dec = time_decode(buf, q, k, v, kv_prefix(8, seed=2))
+    state["decode_row_ms"] = dec.pop("row_ms")
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:141",
-        shape="decode q (8,32,1,128) bf16, kv (8,2,161,128), per-row kv_valid",
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=False,
-                                           kv_valid=kv_valid), buf),
-        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=False,
-                                                     kv_valid=kv_valid), buf),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), buf),
-        bytes=bytes_, ops=ops, dtype=torch.bfloat16))
+        shape="decode q (8,32,1,128) bf16, kv (8,2,161,128), per-row "
+              "kv_valid (decode route)", dtype=torch.bfloat16, **dec))
+    # and over a 4096-key cache, every key valid
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=8, Tq=1, Tk=LONG_CACHE)
+    r = time_decode(buf, q, k, v, torch.full(
+        (8,), LONG_CACHE, dtype=torch.int32, device="cuda"))
+    r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S,
+                        r["ops"] / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3
+    state["decode_long_timing"] = r
 
     # attention at the largest prefill: causal 128 queries over the ring
     q, k, v = attn_inputs(gen, torch.bfloat16, B=1, Tq=128)
@@ -1294,11 +1434,37 @@ def phase_timing(state):
     state["timing"] = rows
 
 
-def time_causal(gen, buf, B, T, reps, with_dq):
-    """The tile-route forward with LSE, dK/dV and (``with_dq``) dQ at a
-    causal GQA-16 shape (H=32, Hkv=2, D=128, bf16), each beside its plain
-    version, PyTorch's SDPA (forward; backward computing dQ, dK and dV in
-    one call) and its bytes and band operations."""
+def time_decode(buf, q, k, v, kv_valid) -> dict:
+    """The forward at a decode shape (Tq = 1, per-row kv_valid): the
+    decode route, the row route forced, the plain version and SDPA with
+    the same key mask, and the work the bound counts: q read and out
+    written, the valid K/V prefix read once, 4 D operations per valid key
+    and head."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, H, _, D = q.shape
+    Hkv = k.shape[1]
+    n_keys = int(kv_valid.sum())
+    mask = (torch.arange(k.shape[2], device="cuda")[None]
+            < kv_valid[:, None])[:, None, None, :]
+    kw = dict(causal=False, kv_valid=kv_valid)
+    return dict(
+        ms=time_ms(lambda: flash_attention(q, k, v, **kw), buf),
+        row_ms=time_ms(lambda: flash_attention(q, k, v, route="row", **kw),
+                       buf),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, **kw), buf),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), buf),
+        bytes=2 * q.numel() * 2 + 2 * n_keys * Hkv * D * 2 + B * 4,
+        ops=4 * H * D * n_keys)
+
+
+def time_causal(gen, buf, B, T, reps, with_row):
+    """The tile-route forward with LSE, dK/dV and dQ (delta fused, as the
+    training site runs it) at a causal GQA-16 shape (H=32, Hkv=2, D=128,
+    bf16), each beside its plain version, PyTorch's SDPA (forward;
+    backward computing dQ, dK and dV in one call) and its bytes and band
+    operations; with ``with_row``, dQ's row route too (``row_ms``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -1335,14 +1501,20 @@ def time_causal(gen, buf, B, T, reps, with_dq):
                 q, k, v, do, lse, delta, causal=True), buf, reps),
             library_ms=sdpa_bwd_ms,
             bytes=qkv + 2 * rows_b + 2 * 4 * k.numel(), ops=4 * mm)}
-    if with_dq:
-        out["flash_attention_bwd_dq"] = dict(
-            ms=time_ms(lambda: flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, causal=True), buf, reps),
-            plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
-                q, k, v, do, lse, delta, causal=True), buf, reps),
-            library_ms=sdpa_bwd_ms,
-            bytes=qkv + 2 * rows_b + 4 * q.numel(), ops=3 * mm)
+    # dQ fused: q, dO, O, k, v and lse read, dq and delta written
+    out["flash_attention_bwd_dq"] = dict(
+        ms=time_ms(lambda: flash_attention_bwd_dq(
+            q, k, v, do, lse, o=o, causal=True), buf, reps),
+        plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
+            q, k, v, do, lse, (do.float() * o.float()).sum(-1),
+            causal=True), buf, reps),
+        library_ms=sdpa_bwd_ms,
+        bytes=qkv + 2 * q.numel() + 2 * rows_b + 4 * q.numel(), ops=3 * mm)
+    if with_row:
+        out["flash_attention_bwd_dq"]["row_ms"] = time_ms(
+            lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                           causal=True, route="row"),
+            buf, reps)
     for r in out.values():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S
         by_ops = r["ops"] / PEAK_OPS_PER_S[torch.bfloat16]
@@ -1353,19 +1525,21 @@ def time_causal(gen, buf, B, T, reps, with_dq):
 
 def time_backward(gen, buf, state):
     """The tile-route forward, dK/dV and dQ at the train shape (B=12,
-    H=32, Hkv=2, T=128, D=128, bf16, causal) as result-line rows, and the
-    forward and dK/dV at the long shape (B=1, T=2048) for their own
-    lines, 10 launches each there."""
+    H=32, Hkv=2, T=128, D=128, bf16, causal) as result-line rows (dQ's row
+    route beside it), and all three at the long shape (B=1, T=2048) for
+    their own lines, 10 launches each there."""
     src = "src/repro_torch/kernels/csrc/"
     meta = {
         "flash_attention_tile": ("flash_attention.cu", 141,
                                  ", with lse (tile route)"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", 313,
                                     " (tile route)"),
-        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 357, "")}
-    train = time_causal(gen, buf, TRAIN_B, TRAIN_T, 50, with_dq=True)
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 357,
+                                   ", delta fused (tile route)")}
+    train = time_causal(gen, buf, TRAIN_B, TRAIN_T, 50, with_row=True)
+    state["dq_row_ms"] = train["flash_attention_bwd_dq"].pop("row_ms")
     state["long_timing"] = time_causal(gen, buf, 1, LONG_T, 10,
-                                       with_dq=False)
+                                       with_row=False)
     shape = "train q/dO (12,32,128,128) bf16, k/v (12,2,128,128), causal"
     return [dict(name=name, route="cuda", source=src + meta[name][0],
                  replaces=f"src/repro/kernels/flash_attention.py:"
@@ -1517,6 +1691,21 @@ def main() -> int:
                   f" causal bf16: {pt['ms']:.4f} ms, plain "
                   f"{pt['plain_ms']:.4f} ms, SDPA {pt['library_ms']:.4f} ms, "
                   f"bound {pt['bound_ms']:.5f} ms")
+        if "decode_row_ms" in state:
+            print(f"flash_attention_row (the forward's row route) at the "
+                  f"decode shape (8,32,1,128)/(8,2,161,128) bf16: "
+                  f"{state['decode_row_ms']:.4f} ms")
+        if "decode_long_timing" in state:
+            pt = state["decode_long_timing"]
+            print(f"flash_attention decode route, q (8,32,1,128), k/v "
+                  f"(8,2,{LONG_CACHE},128) bf16, every key valid: "
+                  f"{pt['ms']:.4f} ms, row route {pt['row_ms']:.4f} ms, "
+                  f"plain {pt['plain_ms']:.4f} ms, SDPA "
+                  f"{pt['library_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms "
+                  f"(bytes)")
+        if "dq_row_ms" in state:
+            print(f"flash_attention_bwd_dq_row (dQ's row route, delta "
+                  f"given) at the train shape: {state['dq_row_ms']:.4f} ms")
         for name, pt in state.get("long_timing", {}).items():
             print(f"{name} long causal q (1,32,{LONG_T},128), k/v "
                   f"(1,2,{LONG_T},128) bf16: {pt['ms']:.4f} ms, plain "
@@ -1536,9 +1725,9 @@ def main() -> int:
                       f"{tr['sum']['launches_per_step']}")
         print("library time of both attention backward rows: one SDPA "
               "backward computing dQ, dK and dV together")
-        print("flash_attention_tile: the forward's tile route (wgmma), "
-              "flash_attention: its row route; both replace "
-              "flash_attention_pallas")
+        print("flash_attention: the forward's decode route (mma.sync, keys "
+              "split across a cluster), flash_attention_tile: its tile "
+              "route (wgmma); both replace flash_attention_pallas")
         for k in line["kernels"]:
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")

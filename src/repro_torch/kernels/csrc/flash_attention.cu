@@ -26,16 +26,43 @@
 // Operands are addressed through their strides (innermost stride 1), so
 // the model's (B, T, H, D) tensors and the KV cache are read in place.
 //
-// Two routes, both counterparts of flash_attention_pallas; the wrapper
+// Three routes, all counterparts of flash_attention_pallas; the wrapper
 // picks one by a fixed rule (kernels/flash_attention.py, attention_route):
 //
 // Row route (flash_attention_kernel): fp32 operands, head dims 16 and 32,
-// and blocks too small to fill a 64-row tile (decode: Tq * G < 64).  The
-// design above.  Bound: bytes.  Decode reads the whole KV cache once per
-// step and does 4*D flops per cached key and head; plain FMAs from shared
-// memory take ~0.04 ms at (8,32,1,128)/(8,2,161,128), where SDPA takes
-// ~0.02 on the card's clock (PERF.md section 6): splitting a row's keys
-// across blocks to fill the 132 SMs is the next design.
+// rows not on 16 bytes.  The design above.  Bound: bytes.  Plain FMAs
+// from shared memory: 0.041 ms at the decode shape
+// (8,32,1,128)/(8,2,161,128), where it served decode until the decode
+// route below (PERF.md section 6).
+//
+// Decode route (flash_attention_decode_kernel): bf16 operands, D in
+// {64, 128}, Tq * G < 64 rows (glm4-9b decode: 16 rows, the GQA group).
+// Bound: bytes, the valid K/V prefix read once (0.2 us at the decode
+// shape, 10 us over a 4096-key cache at (8,2,4096,128)).  The row route
+// read each kv head's prefix once per 4 rows and walked a row's keys in
+// one block of 64 for 132 SMs.  Here one thread block cluster per
+// (batch, kv head) splits the key range, clipped on the device to
+// kv_len[b], Tk and the causal band, into contiguous runs of 64-key tiles,
+// one run per block (cs blocks, cs from kernels/flash_attention.py
+// decode_splits: enough to fill the SMs, at most 8); every block holds
+// all Tq * G rows of the group (padded to 16, 32 or 64), so each K/V byte
+// is read once.  K and V come through 16-byte cp.async into a two-stage
+// ring (the ring is read in place through its strides, keys past kv_len
+// zero-filled).  S = Q K^T and O += P V run on mma.sync m16n8k16 (a
+// 64-row wgmma would be 3/4 empty at 16 rows): Q and K through ldmatrix,
+// P from the S accumulators straight into the A fragment, V through
+// ldmatrix.trans.  The four warps of a block split each tile's keys (16
+// each at 16 rows), each with its own running (m, l, O); after the loop
+// every warp's partial goes to shared memory and cluster rank r merges
+// rows r * per .. of every partial of every block in rank order through
+// distributed shared memory and writes them once: one launch, no second
+// pass, no atomics, the same bits on every launch.  A row that saw no key
+// writes 0 and the row route's LSE.  Measured on an NVIDIA H100 80GB HBM3
+// at 700 W (PERF.md section 6): 0.012 ms at the decode shape (row route
+// 0.041, SDPA 0.021 with the same mask); 0.029 ms over the 4096-key
+// cache (SDPA 0.037), a third of the bound's rate: each block streams its
+// run with one tile in flight, and deeper rings or eight warps were not
+// faster, so more bytes in flight per SM is the next design.
 //
 // Tile route (flash_attention_tile_kernel): bf16 operands, D in {64, 128},
 // Tq * G >= 64.  One warpgroup (128 threads) owns 64 flattened (t, g) rows
@@ -67,6 +94,7 @@
 // later design ping-pongs two warpgroups.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "hopper_mma.cuh"
@@ -471,6 +499,326 @@ int launch_tile(const FlashParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// decode route: mma.sync, bf16, D in {64, 128}, Tq * G < 64, the keys of
+// one (batch, kv head) split across a thread block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kDecKeys = 64;      // keys per K/V tile
+constexpr int kDecWarps = 4;
+
+// shared memory of a decode block: the Q tile (the group's Tq * G rows
+// padded to 64 / KS), then a two-stage ring of (K, V) tile pairs, every
+// tile on a 1024-byte boundary (80 KB at most: D = 128, KS = 1).  After
+// the loop the same memory holds each warp's partial (O, m, l) for the
+// merge: 16 rows x D fp32 per warp.
+template <int D, int KS>
+struct DecodeSmem {
+  static constexpr int kRowsP = 64 / KS;   // padded query rows
+  static constexpr size_t kQ = kRowsP * D * sizeof(__nv_bfloat16);
+  static constexpr size_t kTile = kDecKeys * D * sizeof(__nv_bfloat16);
+  static constexpr size_t kLoop = kQ + 4 * kTile;
+  static constexpr int kPartStride = D + 8;  // floats; no bank conflicts
+  static constexpr size_t kParts =
+      kDecWarps * 16 * (kPartStride + 2) * sizeof(float);
+  static constexpr size_t kSmem = kLoop > kParts ? kLoop : kParts;
+};
+
+// One cluster per (batch, kv head); block `rank` of its cs blocks takes a
+// contiguous run of the 64-key tiles that the row's kv_len, Tk, the causal
+// band and the window leave.  Every block holds all Tq * G query rows of
+// the group.  KS = 4 / (padded rows / 16) warps share one 16-row slice of
+// the rows and split each key tile between them (decode at G = 16: all
+// four warps on the same 16 rows, 16 keys each).
+template <int D, int KS>
+__global__ void __launch_bounds__(kDecWarps * 32)
+flash_attention_decode_kernel(const FlashParams p) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  using Smem = DecodeSmem<D, KS>;
+  constexpr int kRowsP = Smem::kRowsP;
+  constexpr int kNK = kDecKeys / KS;   // keys of a tile per warp
+  constexpr int kNT = kNK / 8;         // 8-key column tiles of S per warp
+  constexpr int kPS = Smem::kPartStride;
+  extern __shared__ __align__(1024) unsigned char dec_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(dec_smem);
+  auto stage_k = [&](int st) {
+    return reinterpret_cast<bf16*>(dec_smem + Smem::kQ + 2 * st * Smem::kTile);
+  };
+  auto stage_v = [&](int st) {
+    return reinterpret_cast<bf16*>(dec_smem + Smem::kQ +
+                                   (2 * st + 1) * Smem::kTile);
+  };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int group = p.heads / p.kv_heads;
+  const int rows = p.tq * group;   // < 64 (the launcher checks)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mi = warp / KS, ks = warp % KS;   // row slice, key slice
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // the keys any row can see, in 64-key tiles; this block's run of them
+  const int kv_limit = p.kv_len ? min(p.tk, p.kv_len[b]) : p.tk;
+  // (the first row is position 0, so the window clips no key in front)
+  const int k_end = p.causal ? min(kv_limit, p.tq) : kv_limit;
+  const int all_tiles = (max(0, k_end) + kDecKeys - 1) / kDecKeys;
+  const int per = (all_tiles + cs - 1) / cs;
+  const int tile_lo = min(all_tiles, rank * per);
+  const int n_tiles = min(all_tiles, tile_lo + per) - tile_lo;
+  const int k_begin = tile_lo * kDecKeys;
+
+  // Q: rows r < rows are (t, g) = (r / G, r % G); the rest zeros
+  for (int i = threadIdx.x; i < kRowsP * D / 8; i += kDecWarps * 32) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    const bool ok = r < rows;
+    const bf16* src =
+        ok ? q + (kvh * group + r % group) * p.q_sh + (r / group) * p.q_st
+           : q;
+    cp_async16(reinterpret_cast<char*>(qs) + chunk_offset<kRowsP>(r, c),
+               src + (ok ? c * 8 : 0), ok);
+  }
+  auto load_kv = [&](int tile) {
+    const int n0 = k_begin + tile * kDecKeys, st = tile & 1;
+    load_tile_async<D>(stage_k(st), kp, [&](int r) -> const bf16* {
+      return n0 + r < kv_limit ? kp + (n0 + r) * p.k_st : nullptr;
+    });
+    load_tile_async<D>(stage_v(st), vp, [&](int r) -> const bf16* {
+      return n0 + r < kv_limit ? vp + (n0 + r) * p.v_st : nullptr;
+    });
+  };
+  if (n_tiles > 0) load_kv(0);   // one cp.async group with Q
+  cp_async_commit();
+
+  // this thread's rows: 16 mi + lane / 4 + 8 i
+  int t_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * mi + lane / 4 + 8 * i;
+    t_row[i] = r < rows ? r / group : 0;
+  }
+  const float sl2 = p.scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile & 1;
+    if (tile + 1 < n_tiles) load_kv(tile + 1);   // into the other stage
+    cp_async_commit();
+    cp_async_wait<1>();   // tile's K and V (and Q) are in
+    __syncthreads();
+    const int n0 = k_begin + tile * kDecKeys;
+    const int key0 = ks * kNK;   // this warp's first key of the tile
+    const char* kt = reinterpret_cast<const char*>(stage_k(st));
+    const char* vt = reinterpret_cast<const char*>(stage_v(st));
+    const char* qt = reinterpret_cast<const char*>(qs);
+
+    // S = Q K^T: 16 rows x kNK keys
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qt + chunk_offset<kRowsP>(
+                              16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1),
+                              2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, kt + chunk_offset<kDecKeys>(
+                                 key0 + 16 * j + (lane & 7) + 8 * (lane >> 4),
+                                 2 * kk + ((lane >> 3) & 1)));
+        mma_16816(s[2 * j], a, bk[0], bk[1]);
+        mma_16816(s[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // masks on tiles that cross an edge (kv_len / Tk, the causal band,
+    // the window), then the online softmax, log2(e) folded into the scale
+    const bool edge = n0 + kDecKeys > kv_limit || p.causal || p.window > 0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[j][2 * i + c];
+          if (edge) {
+            const int key = n0 + key0 + 8 * j + 2 * (lane & 3) + c;
+            bool ok = key < kv_limit;
+            if (p.causal) ok = ok && key <= t_row[i];
+            if (p.window > 0) ok = ok && key > t_row[i] - p.window;
+            if (!ok) x = -INFINITY;
+          }
+          s[j][2 * i + c] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * sl2);
+      alpha[i] = exp2_ftz(m[i] - m_new);   // m starts finite: no inf - inf
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pr = exp2_ftz(fmaf(s[j][2 * i + c], sl2, -m[i]));
+          s[j][2 * i + c] = pr;
+          l[i] += pr;
+        }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    // O += P V: P from the S registers (bf16), V read transposed
+#pragma unroll
+    for (int kk = 0; kk < kNK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(
+            bv, vt + chunk_offset<kDecKeys>(
+                         key0 + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
+                         2 * j + (lane >> 4)));
+        mma_16816(o[2 * j], a, bv[0], bv[1]);
+        mma_16816(o[2 * j + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // the partials below reuse the ring's memory
+
+  // each warp's partial (O, m, l) of its 16 rows; then block rank r merges
+  // rows r * per_r .. of every warp of every block in rank order through
+  // distributed shared memory and writes them once
+  float* part_o = reinterpret_cast<float*>(dec_smem);
+  float* part_m = part_o + kDecWarps * 16 * kPS;
+  float* part_l = part_m + kDecWarps * 16;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int rl = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(part_o + rl * kPS + 8 * j + 2 * (lane & 3)) =
+          make_float2(o[j][2 * i], o[j][2 * i + 1]);
+    if ((lane & 3) == 0) {
+      part_m[rl] = m[i];
+      part_l[rl] = l[i];
+    }
+  }
+  cluster.sync();
+  const int per_r = (rows + cs - 1) / cs;
+  const int r_lo = min(rows, rank * per_r), r_hi = min(rows, r_lo + per_r);
+  bf16* out = static_cast<bf16*>(p.out) + b * p.o_sb;
+  for (int idx = threadIdx.x; idx < (r_hi - r_lo) * (D / 4);
+       idx += kDecWarps * 32) {
+    const int r = r_lo + idx / (D / 4), c4 = idx % (D / 4);
+    const int w0 = (r / 16) * KS, rl = r % 16;   // the row's first warp
+    float M = kNegInf;
+    for (int rr = 0; rr < cs; ++rr) {
+      const float* pm = cluster.map_shared_rank(part_m, rr);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) M = fmaxf(M, pm[(w0 + kk) * 16 + rl]);
+    }
+    float L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int rr = 0; rr < cs; ++rr) {
+      const float* pm = cluster.map_shared_rank(part_m, rr);
+      const float* pl = cluster.map_shared_rank(part_l, rr);
+      const float* po = cluster.map_shared_rank(part_o, rr);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int w = (w0 + kk) * 16 + rl;
+        const float wt = exp2_ftz(pm[w] - M);
+        L += wt * pl[w];
+        const float4 x =
+            *reinterpret_cast<const float4*>(po + w * kPS + 4 * c4);
+        acc.x += wt * x.x;
+        acc.y += wt * x.y;
+        acc.z += wt * x.z;
+        acc.w += wt * x.w;
+      }
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    const int t = r / group, h = kvh * group + r % group;
+    const __nv_bfloat162 lo2 = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+    const __nv_bfloat162 hi2 = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&lo2);
+    packed.y = *reinterpret_cast<const uint32_t*>(&hi2);
+    *reinterpret_cast<uint2*>(out + h * p.o_sh + t * p.o_st + 4 * c4) = packed;
+    // a row that saw no key writes 0 and the row route's LSE
+    if (p.lse != nullptr && c4 == 0)
+      p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + t] =
+          L > 0.f ? (M + log2f(L)) / kLog2e : kNegInf;
+  }
+  cluster.sync();      // no block leaves while another reads its partials
+}
+
+template <int D, int KS>
+int launch_decode_ks(const FlashParams& p, int splits, cudaStream_t stream) {
+  constexpr size_t smem = DecodeSmem<D, KS>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_decode_kernel<D, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(splits),
+                     static_cast<unsigned>(p.kv_heads),
+                     static_cast<unsigned>(p.batch));
+  cfg.blockDim = dim3(kDecWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_attention_decode_kernel<D, KS>, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_decode(const FlashParams& p, int splits, cudaStream_t stream) {
+  const int rows = p.tq * (p.heads / p.kv_heads);
+  if (rows <= 16) return launch_decode_ks<D, 4>(p, splits, stream);
+  if (rows <= 32) return launch_decode_ks<D, 2>(p, splits, stream);
+  return launch_decode_ks<D, 1>(p, splits, stream);
+}
+
 template <typename T, int D>
 int launch(const FlashParams& p, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.tq) * (p.heads / p.kv_heads);
@@ -503,6 +851,24 @@ extern "C" int flash_attention_launch(const FlashParams* p, void* stream) {
   if (p->dtype == 0) return launch_dtype<float>(*p, s);
   if (p->dtype == 1) return launch_dtype<__nv_bfloat16>(*p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The decode route: bf16 operands, head_dim 64 or 128, Tq * G < 64 rows,
+// 16-byte aligned rows; `splits` blocks (1..8) per (batch, kv head), one
+// thread block cluster.
+extern "C" int flash_attention_decode_launch(const FlashParams* p, int splits,
+                                             void* stream) {
+  if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
+      p->heads % p->kv_heads != 0 || p->batch > 65535 ||
+      p->kv_heads > 65535 || p->dtype != 1 || splits < 1 || splits > 8 ||
+      static_cast<long long>(p->tq) * (p->heads / p->kv_heads) >= 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p->head_dim) {
+    case 64: return launch_decode<64>(*p, splits, s);
+    case 128: return launch_decode<128>(*p, splits, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned rows.

@@ -40,9 +40,40 @@
 // Bound on this card: at the training shape (B = 12, H = 32, Hkv = 2,
 // T = 128, D = 128, bf16) each kernel must move ~30 MB (q and dO dominate)
 // and do 2.4 (dQ) to 3.2 (dK/dV) GFLOP over the causal band, so the bound
-// is bytes, ~9 us (dK/dV) and ~16 us (dQ).  The kernels above do plain fp32
-// FMAs from shared memory; they remain the dQ kernel and the dK/dV row
-// route (fp32 operands, head dims 16 and 32).
+// is bytes, ~9 us (dK/dV) and ~16 us (dQ; ~23 us with O read and delta
+// written when dQ forms delta).  The kernels above do plain fp32 FMAs from
+// shared memory; they remain the row routes of dK/dV and dQ (fp32
+// operands, head dims 16 and 32, rows not on 16 bytes).
+//
+// dQ tile route (flash_bwd_dq_tile_kernel): bf16 operands, D in {64, 128}.
+// The row route took 0.21 ms at the train shape: one block per (b, head,
+// 32-query tile), so the 16 heads of a group loaded the same K/V 16
+// times, tiles converted to fp32 behind a barrier, scalar FMAs, and delta
+// a separate torch pass with two fp32 copies of dO and O.  Here one
+// warpgroup per (b, kv head, 64 flattened (t, g) query rows), as the
+// forward's tile route: at G = 16 a block holds 4 positions x 16 heads,
+// so every K/V tile serves the whole group (768 blocks at the train
+// shape), heaviest row tiles first.  Q and dO are loaded once into
+// wgmma's 128-byte-swizzled layout; 64-key K/V tiles of the band and the
+// window stream through a two-stage cp.async ring (tiles outside are never
+// loaded).  S = Q K^T and dP = dO V^T on wgmma m64n64k16 (S committed
+// first, so P = exp(S scale - lse) is formed while dP runs); dS = P (dP -
+// delta) scale in registers; dQ += dS K on m64n64k16 per 64 columns, dS
+// from registers as bf16 high and low parts, K read with the transpose
+// flag, each tile's product started from zero and added to the fp32 dQ
+// outside the tensor cores (PR 14's lesson for the 2e-4 gate).  196
+// registers at D = 128, no spills, 96 KB of shared memory: two blocks an
+// SM.  Given the forward's output (o), the block forms delta =
+// rowsum(dO * O) of its 64 rows in fp32 while the first tiles load, uses
+// it, and writes it once for the dK/dV kernel, so the training backward
+// runs no torch pass for it.  Each block owns its rows: no atomics, the
+// same bits on every launch.  Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md section 6): 0.043 ms at the train shape with delta fused
+// (row route 0.21; SDPA's whole backward 0.108), 0.18 ms at T = 2048
+// (SDPA's backward 0.30); bound by bytes at T = 128 (19 us), by
+// operations at T = 2048 (3 band products, 52 us), where one warpgroup
+// runs the products and the softmax in turn and the block of the last
+// row tile walks all 32 key tiles: overlapping them is the next design.
 //
 // dK/dV tile route (flash_bwd_dkv_tile_kernel): bf16 operands, D in
 // {64, 128}.  One block per (b, kv head, 64-key tile, slice of the GQA
@@ -111,6 +142,12 @@ struct FlashBwdParams {
   int causal, window;  // window <= 0: no sliding window
   int dtype;           // 0 = float32, 1 = bfloat16
   float scale;
+  // the dQ tile route's fused delta: given o (the forward's output, q's
+  // layout), it forms delta = rowsum(dO * O) itself, uses it, and writes
+  // it to delta_out ((B, H, Tq) fp32 contiguous); o null: reads delta
+  const void* o;
+  long long o_sb, o_sh, o_st;
+  float* delta_out;
 };
 
 namespace {
@@ -805,6 +842,286 @@ int launch_dkv_tile(const FlashBwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// dQ tile route: wgmma, bf16, D in {64, 128}, delta fused
+// ---------------------------------------------------------------------------
+
+// shared memory of a dQ tile block: the Q and dO tiles of its 64 rows, then
+// a two-stage ring of (K, V) tile pairs, every tile on a 1024-byte
+// boundary, and the block's 64 delta values: 96.25 KB at D = 128, so two
+// blocks fit on an SM
+template <int D>
+constexpr size_t dq_tile_smem_bytes() {
+  return 6 * 64 * D * sizeof(__nv_bfloat16) + 64 * sizeof(float);
+}
+
+// One block (one warpgroup): 64 flattened (t, g) query rows of one (b, kv
+// head), as the forward's tile route; at G = 16, 4 positions x 16 heads,
+// so every K/V tile serves the whole GQA group.  Row tiles are launched
+// heaviest (latest positions) first.  Per 64-key tile of the band:
+// S = Q K^T and dP = dO V^T on wgmma (both operands from shared memory, S
+// committed first, so P is formed while dP runs), P = exp(S scale - lse)
+// (0 where the forward masked), dS = P (dP - delta) scale, then
+// dQ += dS K with dS from registers, split into bf16 high and low parts,
+// K read with the transpose flag, in two 64-column halves at D = 128 (each
+// tile's product starts from zero and is added to the fp32 dQ outside the
+// tensor cores, whose own accumulation rounds toward zero).
+template <int D>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 2)
+flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  constexpr int kO = D / 2;   // dQ accumulator registers per thread
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(dq_smem);
+  bf16* dos = qs + 64 * D;
+  auto stage_k = [&](int st) { return dos + (1 + 2 * st) * 64 * D; };
+  auto stage_v = [&](int st) { return dos + (2 + 2 * st) * 64 * D; };
+  float* delta_s = reinterpret_cast<float*>(dos + 5 * 64 * D);  // 64 rows
+
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int group = p.heads / p.kv_heads;
+  const int rows = p.tq * group;   // the launcher keeps this below 2^31
+  const int row0 = static_cast<int>(gridDim.x - 1 - blockIdx.x) * kTRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.do_sb;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // keys any row of this block can see
+  const int t_lo = row0 / group;
+  const int t_hi = min(rows - 1, row0 + kTRows - 1) / group;
+  const int k_end = p.causal ? min(p.tk, t_hi + 1) : p.tk;
+  const int k_begin =
+      (p.window > 0 ? max(0, t_lo - p.window + 1) : 0) / kTKeys * kTKeys;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kTKeys - 1) / kTKeys : 0;
+
+  // Q and dO once, with K0 and V0 (one cp.async group), then K1 and V1
+  auto row_of = [&](const bf16* base, long long sh, long long st,
+                    int r) -> const bf16* {
+    const int row = row0 + r;
+    if (row >= rows) return nullptr;
+    return base + (kvh * group + row % group) * sh + (row / group) * st;
+  };
+  load_tile_async<D, kWarpgroup>(qs, qp, [&](int r) {
+    return row_of(qp, p.q_sh, p.q_st, r);
+  });
+  load_tile_async<D, kWarpgroup>(dos, dop, [&](int r) {
+    return row_of(dop, p.do_sh, p.do_st, r);
+  });
+  auto load_kv = [&](int tile) {
+    const int st = tile & 1, n0 = k_begin + tile * kTKeys;
+    load_tile_async<D, kWarpgroup>(stage_k(st), kp, [&](int r) -> const bf16* {
+      return n0 + r < p.tk ? kp + (n0 + r) * p.k_st : nullptr;
+    });
+    load_tile_async<D, kWarpgroup>(stage_v(st), vp, [&](int r) -> const bf16* {
+      return n0 + r < p.tk ? vp + (n0 + r) * p.v_st : nullptr;
+    });
+  };
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_kv(1);
+  cp_async_commit();
+
+  // this thread's two accumulator rows 16 warp + lane / 4 + 8 i: their
+  // query position, lse (log2 units) and delta.  Fused: the block forms
+  // delta = rowsum(dO * O) of its 64 rows in fp32 while the copies run
+  // and writes it once.
+  int t_row[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + lane / 4 + 8 * i;
+    t_row[i] = row < rows ? row / group : p.tq;
+    lse2[i] = row < rows
+                  ? p.lse[(static_cast<long long>(b) * p.heads + kvh * group +
+                           row % group) * p.tq + row / group] * kLog2e
+                  : 0.f;
+    dlt[i] = 0.f;
+  }
+  if (p.o != nullptr) {
+    // thread i reads 16-byte chunk i % (D / 8) of rows i / (D / 8) +
+    // 1024 j / D of dO and O, every load issued before the first product;
+    // the D / 8 threads of a row sum by shuffles, and the rows meet the
+    // accumulator layout in shared memory
+    constexpr int kRowChunks = D / 8, kRowsPer = kWarpgroup / kRowChunks;
+    constexpr int kJ = 64 / kRowsPer;
+    const bf16* op = static_cast<const bf16*>(p.o) + b * p.o_sb;
+    uint4 dv[kJ], ov[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int row = row0 + threadIdx.x / kRowChunks + kRowsPer * j;
+      const int c = threadIdx.x % kRowChunks;
+      dv[j] = ov[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (row < rows) {
+        const int h = kvh * group + row % group, t = row / group;
+        dv[j] = *reinterpret_cast<const uint4*>(dop + h * p.do_sh +
+                                                t * p.do_st + 8 * c);
+        ov[j] = *reinterpret_cast<const uint4*>(op + h * p.o_sh +
+                                                t * p.o_st + 8 * c);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const uint32_t* dw = reinterpret_cast<const uint32_t*>(&dv[j]);
+      const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ov[j]);
+      float x = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x = fmaf(__uint_as_float(dw[e] << 16), __uint_as_float(ow[e] << 16),
+                 x);
+        x = fmaf(__uint_as_float(dw[e] & 0xffff0000u),
+                 __uint_as_float(ow[e] & 0xffff0000u), x);
+      }
+#pragma unroll
+      for (int off = kRowChunks / 2; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      const int r = threadIdx.x / kRowChunks + kRowsPer * j;
+      if (threadIdx.x % kRowChunks == 0) delta_s[r] = x;
+    }
+    __syncthreads();
+    if (threadIdx.x < 64 && row0 + threadIdx.x < rows) {
+      const int row = row0 + threadIdx.x;
+      p.delta_out[(static_cast<long long>(b) * p.heads + kvh * group +
+                   row % group) * p.tq + row / group] = delta_s[threadIdx.x];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dlt[i] = delta_s[16 * warp + lane / 4 + 8 * i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 16 * warp + lane / 4 + 8 * i;
+      if (row < rows)
+        dlt[i] = p.delta[(static_cast<long long>(b) * p.heads + kvh * group +
+                          row % group) * p.tq + row / group];
+    }
+  }
+
+  const float sl2 = p.scale * kLog2e;
+  float acc[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = tile & 1, n0 = k_begin + tile * kTKeys;
+    cp_async_wait<1>();   // K(tile), V(tile) (and Q, dO) are in
+    __syncthreads();
+    const bf16* ks = stage_k(st);
+    const bf16* vs = stage_v(st);
+
+    // S = Q K^T, then dP = dO V^T (64 rows x 64 keys), two groups
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss<0>(s, desc_kmajor<64>(qs, 0, kk), desc_kmajor<64>(ks, 0, kk),
+                kk > 0, Int<64>());
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss<0>(dp, desc_kmajor<64>(dos, 0, kk), desc_kmajor<64>(vs, 0, kk),
+                kk > 0, Int<64>());
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(s);
+
+    // P, masked only on tiles on an edge: Tk, the causal diagonal, the
+    // window's far side (column 8 j + c of this thread is key
+    // n0 + 8 j + 2 (lane % 4) + c)
+    const bool edge = n0 + kTKeys > p.tk ||
+                      (p.causal && n0 + kTKeys - 1 > t_lo) ||
+                      (p.window > 0 && n0 <= t_hi - p.window);
+    int lo[2], hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int base = n0 + 2 * (lane & 3);
+      hi[i] = (p.causal ? min(p.tk - 1, t_row[i]) : p.tk - 1) - base;
+      lo[i] = p.window > 0 ? t_row[i] - p.window + 1 - base : -kTKeys;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float pr = exp2_ftz(fmaf(s[e], sl2, -lse2[i]));
+          if (edge && (8 * j + c > hi[i] || 8 * j + c < lo[i])) pr = 0.f;
+          s[e] = pr;
+        }
+    wg_wait<0>();
+    fence_regs(dp);
+    // dS = P (dP - delta) scale, into S's registers
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = s[e] * (dp[e] - dlt[(e >> 1) & 1]) * p.scale;
+
+    // dQ += dS K: dS from registers as bf16 high and low parts, K (keys x
+    // D) read transposed, 64 columns of dQ at a time
+    uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split_frag(fh[kk], fl[kk], s, kk);
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      float part[32];
+      fence_regs(part);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bd = desc_mn<64>(ks, 64 * half, kk);
+        mma_rs<1>(part, fh[kk], bd, kk > 0, Int<64>());
+        mma_rs<1>(part, fl[kk], bd, 1, Int<64>());
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[32 * half + e] += part[e];
+    }
+
+    __syncthreads();   // every warp is done with stage st
+    if (tile + 2 < n_tiles) load_kv(tile + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // dq rows (fp32, contiguous (B, H, Tq, D)): 8-byte stores, four lanes
+  // per 32 contiguous bytes
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + lane / 4 + 8 * i;
+    if (row >= rows) continue;
+    float* out = p.dq + ((static_cast<long long>(b) * p.heads + kvh * group +
+                          row % group) * p.tq + row / group) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * (lane & 3)) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+template <int D>
+int launch_dq_tile(const FlashBwdParams& p, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(p.tq) * (p.heads / p.kv_heads);
+  const dim3 grid(static_cast<unsigned>((rows + kTRows - 1) / kTRows),
+                  static_cast<unsigned>(p.kv_heads),
+                  static_cast<unsigned>(p.batch));
+  constexpr size_t smem = dq_tile_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tile_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_tile_kernel<D><<<grid, hopper::kWarpgroup, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each returns cudaGetLastError() after its launch (0 = launched).
@@ -816,6 +1133,24 @@ extern "C" int flash_attention_bwd_dkv_launch(const FlashBwdParams* p,
 extern "C" int flash_attention_bwd_dq_launch(const FlashBwdParams* p,
                                              void* stream) {
   return launch_any<false>(p, stream);
+}
+
+// The dQ tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned
+// rows; with o set, delta is formed in the kernel and written to delta_out.
+extern "C" int flash_attention_bwd_dq_tile_launch(const FlashBwdParams* p,
+                                                  void* stream) {
+  if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
+      p->heads % p->kv_heads != 0 || p->batch > 65535 ||
+      p->kv_heads > 65535 || p->dtype != 1 || p->dq == nullptr ||
+      (p->o != nullptr ? p->delta_out == nullptr : p->delta == nullptr) ||
+      static_cast<long long>(p->tq) * p->heads >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p->head_dim) {
+    case 64: return launch_dq_tile<64>(*p, s);
+    case 128: return launch_dq_tile<128>(*p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The dK/dV tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned

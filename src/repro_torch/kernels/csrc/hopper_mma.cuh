@@ -2,6 +2,7 @@
 // kernels: the shared-memory tile layout that wgmma reads, its matrix
 // descriptors, the wgmma wrappers (m64nNk16 for N = 64 and 128, bf16
 // operands, fp32 accumulators; inline PTX, so nvcc builds in seconds),
+// warp-level mma.sync m16n8k16 and ldmatrix for the decode route,
 // cp.async with zero fill, and the register layouts of a warpgroup's
 // accumulator and of an A operand held in registers.
 //
@@ -275,6 +276,51 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
         "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// warp-level tensor-core products (mma.sync m16n8k16, bf16 -> fp32) and
+// ldmatrix, for blocks whose row count is below wgmma's 64 (decode).
+// Fragments of one warp (lane l): A (16 x 16) a[0] = rows l / 4, columns
+// 2 (l % 4) + {0, 1}; a[1] rows + 8; a[2] columns + 8; a[3] both.  B
+// (16 x 8) b[0] = rows 2 (l % 4) + {0, 1}, column l / 4; b[1] rows + 8.
+// C/D (16 x 8) d[0..1] = row l / 4, columns 2 (l % 4) + {0, 1}; d[2..3]
+// row + 8.  The C layout of two 8-column products side by side is the A
+// layout of one 16-deep step: probabilities feed P V from registers.
+// ---------------------------------------------------------------------------
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8 (16 contiguous bytes); register i holds
+// matrix i, the thread's row l / 4, columns 2 (l % 4) + {0, 1}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(smem))
+      : "memory");
+}
+// the same, each matrix transposed: register i holds rows 2 (l % 4) +
+// {0, 1}, column l / 4 of matrix i
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* smem) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(smem))
+      : "memory");
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16) * B (16 x 8, bf16)
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

@@ -4,20 +4,23 @@ forward, which replaces the TPU kernel
 ``csrc/flash_attention_bwd.cu`` (the dK/dV and dQ kernels, which replace
 ``flash_attention_bwd_dkv_pallas`` and ``flash_attention_bwd_dq_pallas``).
 
-The forward and the dK/dV kernel each have two routes, chosen by a fixed
-rule (:func:`attention_route`, :func:`dkv_route`): a tensor-core "tile"
-route (wgmma, bf16 operands, head dims 64 and 128) and the "row" route of
-plain FMAs for everything else (fp32, other head dims, and forward blocks
-too small to fill a 64-row tile: decode).
+Each kernel has routes chosen by a fixed rule (:func:`attention_route`,
+:func:`dkv_route`, :func:`dq_route`): for bf16 and head dims 64 and 128,
+tensor-core "tile" routes (wgmma), and for the forward a "decode" route
+(mma.sync, the keys split across a thread block cluster,
+:func:`decode_splits`) when Tq * G is below one 64-row tile; the "row"
+routes of plain FMAs take everything else (fp32, other head dims, rows
+not on 16 bytes).  The dQ tile route can form delta = rowsum(dO * O)
+itself (``o=``), and :func:`flash_attention_bwd` then hands what it wrote
+to the dK/dV kernel.
 
 The kernels mask their own ragged edges (keys past ``Tk``, the causal
 diagonal of a ragged ``Tq < Tk`` prefill, the decode ring's ``kv_valid``),
 so the padding of ``repro/kernels/ops.py`` has no counterpart here.  For
 tensors on the CPU each wrapper runs its plain version
 (``kernels/ref.py``); for CUDA tensors it launches its kernel or raises.
-``flash_attention.launches``, ``flash_attention_bwd_dkv.launches`` and
-``flash_attention_bwd_dq.launches`` count kernel launches;
-``row_launches`` and ``tile_launches`` on the forward and dK/dV wrappers
+``launches`` on each wrapper counts kernel launches, and
+``row_launches``, ``tile_launches`` and (forward) ``decode_launches``
 count them by route.
 """
 from __future__ import annotations
@@ -37,6 +40,9 @@ from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
 HEAD_DIMS = (16, 32, 64, 128)
 TILE_HEAD_DIMS = (64, 128)
 TILE_ROWS = 64          # flattened (t, g) query rows of one tile-route block
+TILE_KEYS = 64          # keys of one K/V tile
+NUM_SMS = 132           # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8         # the portable thread block cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
 
@@ -45,10 +51,13 @@ def attention_route(dtype: torch.dtype, head_dim: int, tq: int,
                     group: int) -> str:
     """The forward kernel for these operands: ``"tile"`` (wgmma) for bf16,
     head dim 64 or 128 and at least one full tile of Tq * G query rows;
-    ``"row"`` for everything else (fp32 must stay exact to 2e-5; decode's
-    Tq * G = G rows would leave most of a tile empty)."""
-    return ("tile" if dtype == torch.bfloat16 and head_dim in TILE_HEAD_DIMS
-            and tq * group >= TILE_ROWS else "row")
+    ``"decode"`` (mma.sync, the keys split across a cluster) for bf16,
+    head dim 64 or 128 and fewer rows (decode's Tq * G = G rows would
+    leave most of a 64-row tile empty); ``"row"`` for everything else
+    (fp32 must stay exact to 2e-5; head dims 16 and 32)."""
+    if dtype != torch.bfloat16 or head_dim not in TILE_HEAD_DIMS:
+        return "row"
+    return "tile" if tq * group >= TILE_ROWS else "decode"
 
 
 def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -57,6 +66,21 @@ def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
     128, ``"row"`` for everything else."""
     return ("tile" if dtype == torch.bfloat16 and head_dim in TILE_HEAD_DIMS
             else "row")
+
+
+def dq_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The dQ kernel for these operands: ``"tile"`` (wgmma, 64 flattened
+    (t, g) rows a block, delta fused) for bf16 and head dim 64 or 128,
+    ``"row"`` for everything else; the same rule as :func:`dkv_route`."""
+    return dkv_route(dtype, head_dim)
+
+
+def decode_splits(batch_kv_heads: int, key_tiles: int) -> int:
+    """Blocks of the decode route's cluster per (batch, kv head): enough
+    to fill the card's SMs, at most the portable cluster size and at most
+    one per 64-key tile."""
+    want = -(-NUM_SMS // max(1, batch_kv_heads))
+    return max(1, min(MAX_CLUSTER, key_tiles, want))
 
 
 def _rows_aligned(*tensors) -> bool:
@@ -82,12 +106,36 @@ class _FlashParams(ctypes.Structure):
 def _launcher(route: str):
     if route not in _fns:
         lib = build.load("flash_attention.cu")
-        fn = (lib.flash_attention_tile_launch if route == "tile"
-              else lib.flash_attention_launch)
-        fn.argtypes = [ctypes.POINTER(_FlashParams), ctypes.c_void_p]
+        fn = getattr(lib, {"row": "flash_attention_launch",
+                           "tile": "flash_attention_tile_launch",
+                           "decode": "flash_attention_decode_launch"}[route])
+        fn.argtypes = ([ctypes.POINTER(_FlashParams)]
+                       + ([ctypes.c_int] if route == "decode" else [])
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[route] = fn
     return _fns[route]
+
+
+def _pick_route(name: str, rule: str, route: Optional[str], aligned) -> str:
+    """The rule's route, the row route where the tile routes' 16-byte rows
+    do not hold; ``route`` given (a comparison on the card) must be the
+    rule's or "row"."""
+    if rule != "row" and not aligned():
+        rule = "row"
+    if route is None:
+        return rule
+    if route not in (rule, "row"):
+        raise ValueError(f"{name}: route {route!r} cannot take these "
+                         f"operands (the rule picks {rule!r})")
+    return route
+
+
+def _count(wrapper, route: str) -> None:
+    """One launch of ``wrapper``'s kernel on ``route``."""
+    wrapper.launches += 1
+    setattr(wrapper, f"{route}_launches",
+            getattr(wrapper, f"{route}_launches") + 1)
 
 
 def _check_operands(q, k, v, kv_valid) -> None:
@@ -132,14 +180,16 @@ def _check_kernel_operands(name: str, tensors, window) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     kv_valid: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, route: Optional[str] = None):
     """q (B, H, Tq, D); k/v (B, Hkv, Tk, D) with H % Hkv == 0 -> out
     (B, H, Tq, D) in q's dtype [+ lse (B, H, Tq) float32].  ``kv_valid``
     (B,) int32 masks keys at ``kpos >= kv_valid[b]`` in row b.
 
     On the card the operands may have any strides whose innermost one is 1
     (transposed views of the model's (B, T, H, D) tensors are read in
-    place); the output has q's strides."""
+    place); the output has q's strides.  ``route`` None takes
+    :func:`attention_route`'s kernel; "row" forces the row kernel (to
+    compare the two on the card)."""
     _check_operands(q, k, v, kv_valid)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -157,9 +207,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    route = attention_route(q.dtype, D, Tq, H // Hkv)
-    if route == "tile" and not _rows_aligned(q, k, v, out):
-        route = "row"
+    route = _pick_route("flash_attention",
+                        attention_route(q.dtype, D, Tq, H // Hkv), route,
+                        lambda: _rows_aligned(q, k, v, out))
     p = _FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -168,24 +218,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                t.stride(2))),
         B, H, Hkv, Tq, Tk, D, int(causal), window or 0, _DTYPES[q.dtype],
         1.0 / math.sqrt(D))
+    extra = ()
+    if route == "decode":
+        keys = min(Tk, Tq) if causal else Tk
+        extra = (decode_splits(B * Hkv, -(-keys // TILE_KEYS)),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launcher(route)(ctypes.byref(p), stream)
+        rc = _launcher(route)(ctypes.byref(p), *extra, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
                            f"CUDA error {rc} at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}")
-    flash_attention.launches += 1
-    if route == "tile":
-        flash_attention.tile_launches += 1
-    else:
-        flash_attention.row_launches += 1
+    _count(flash_attention, route)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.row_launches = 0
 flash_attention.tile_launches = 0
+flash_attention.decode_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -203,14 +254,16 @@ class _FlashBwdParams(ctypes.Structure):
                 + [(n, ctypes.c_int)
                    for n in ("batch", "heads", "kv_heads", "tq", "tk",
                              "head_dim", "causal", "window", "dtype")]
-                + [("scale", ctypes.c_float)])
+                + [("scale", ctypes.c_float), ("o", ctypes.c_void_p)]
+                + [(f"o_s{a}", ctypes.c_longlong) for a in "bht"]
+                + [("delta_out", ctypes.c_void_p)])
 
 
 _bwd_fns: dict = {}
 
 
 def _bwd_launcher(which: str):
-    """``which``: "dkv" (row route), "dkv_tile" or "dq"."""
+    """``which``: "dkv" or "dq" (row routes), "dkv_tile" or "dq_tile"."""
     if which not in _bwd_fns:
         fn = getattr(build.load("flash_attention_bwd.cu"),
                      f"flash_attention_bwd_{which}_launch")
@@ -231,34 +284,42 @@ def _check_bwd_rows(q, do, **rows) -> None:
                              f"{tuple(q.shape[:3])}")
 
 
-def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window,
-                outs) -> str:
+def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window, outs,
+                route=None, o=None) -> str:
     """Checks what the CUDA kernel takes, then launches ``which`` ("dkv" or
-    "dq") writing into ``outs`` (fp32, contiguous); raises on a failed
-    launch.  Returns the route it launched ("row" or "tile"; dQ: "row")."""
+    "dq") writing into ``outs`` (fp32, contiguous: dk and dv, or dq and,
+    given ``o``, delta); raises on a failed launch.  Returns the route it
+    launched ("row" or "tile")."""
     name = f"flash_attention_bwd_{which}"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    _check_kernel_operands(name, (q, k, v, do), window)
-    route = "row"
-    if (which == "dkv" and dkv_route(q.dtype, q.shape[-1]) == "tile"
-            and _rows_aligned(q, k, v, do)):
-        route = "tile"
+    _check_kernel_operands(name, (q, k, v, do) + ((o,) if o is not None
+                                                  else ()), window)
+    rule = (dkv_route if which == "dkv" else dq_route)(q.dtype, q.shape[-1])
+    route = _pick_route(name, rule, route,
+                        lambda: _rows_aligned(q, k, v, do,
+                                              *(() if o is None else (o,))))
+    if o is not None and route != "tile":
+        raise ValueError(f"{name}: the fused delta (o=) needs the tile "
+                         f"route; these operands take {route!r}")
     lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
-    if lse.device != q.device or delta.device != q.device:
+    if delta is not None:
+        delta = delta.float().contiguous()
+    if any(t is not None and t.device != q.device for t in (lse, delta)):
         raise ValueError(f"{name}: lse and delta must lie on q's device")
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     ptrs = {n: t.data_ptr() for n, t in outs.items()}
     p = _FlashBwdParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), ptrs.get("dq"), ptrs.get("dk"),
-        ptrs.get("dv"),
+        lse.data_ptr(), delta.data_ptr() if delta is not None else None,
+        ptrs.get("dq"), ptrs.get("dk"), ptrs.get("dv"),
         *(s for t in (q, k, v, do) for s in (t.stride(0), t.stride(1),
                                               t.stride(2))),
         B, H, Hkv, Tq, Tk, D, int(causal), window or 0, _DTYPES[q.dtype],
-        1.0 / math.sqrt(D))
+        1.0 / math.sqrt(D), o.data_ptr() if o is not None else None,
+        *((o.stride(0), o.stride(1), o.stride(2)) if o is not None
+          else (0, 0, 0)), ptrs.get("delta"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_launcher(which + ("_tile" if route == "tile" else ""))(
@@ -283,27 +344,47 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     route = _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
                         {"dk": dk, "dv": dv})
-    flash_attention_bwd_dkv.launches += 1
-    if route == "tile":
-        flash_attention_bwd_dkv.tile_launches += 1
-    else:
-        flash_attention_bwd_dkv.row_launches += 1
+    _count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-                           window: Optional[int] = None):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta=None, *,
+                           causal: bool = True, window: Optional[int] = None,
+                           o: Optional[torch.Tensor] = None,
+                           route: Optional[str] = None):
     """dQ: the operands of :func:`flash_attention_bwd_dkv` -> dq
-    (B, H, Tq, D) float32."""
+    (B, H, Tq, D) float32.
+
+    Fused form: given the forward's output ``o`` (q's shape) instead of
+    ``delta``, returns ``(dq, delta)`` with delta = rowsum(dO * O) (B, H,
+    Tq) float32, formed inside the tile-route kernel on the card (the CPU
+    runs the plain expression).  ``route`` None takes :func:`dq_route`'s
+    kernel; "row" forces the row kernel (to compare the two on the
+    card)."""
     _check_operands(q, k, v, None)
-    _check_bwd_rows(q, do, lse=lse, delta=delta)
+    if (o is None) == (delta is None):
+        raise ValueError("flash_attention_bwd_dq: give exactly one of "
+                         "delta and o")
+    if o is not None and o.shape != q.shape:
+        raise ValueError(f"output shape {tuple(o.shape)} != q's "
+                         f"{tuple(q.shape)}")
+    _check_bwd_rows(q, do, lse=lse,
+                    **({"delta": delta} if delta is not None else {}))
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
-                                          causal=causal, window=window)
+        if o is not None:
+            delta = (do.float() * o.float()).sum(dim=-1)
+        dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                        causal=causal, window=window)
+        return (dq, delta) if o is not None else dq
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd("dq", q, k, v, do, lse, delta, causal, window, {"dq": dq})
-    flash_attention_bwd_dq.launches += 1
-    return dq
+    outs = {"dq": dq}
+    if o is not None:
+        outs["delta"] = torch.empty(q.shape[:3], dtype=torch.float32,
+                                    device=q.device)
+    route = _launch_bwd("dq", q, k, v, do, lse, delta, causal, window, outs,
+                        route=route, o=o)
+    _count(flash_attention_bwd_dq, route)
+    return (dq, outs["delta"]) if o is not None else dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -312,10 +393,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     its output ``o``, its ``lse`` and the cotangent ``do``: returns
     ``(dq, dk, dv)`` in the dtypes of q, k and v.
 
-    delta = rowsum(dO * O) is one elementwise pass in torch, outside the
-    kernels, as ``repro/kernels/ops.py`` computes it outside the Pallas
-    kernels.  For CPU tensors the plain version
-    (``flash_attention_bwd_ref``) runs."""
+    delta = rowsum(dO * O): where dQ takes the tile route (bf16, head dim
+    64 or 128, 16-byte rows) the dQ kernel forms it and runs first, and
+    the dK/dV kernel reads what it wrote; elsewhere it is one elementwise
+    pass in torch, outside the kernels, as ``repro/kernels/ops.py``
+    computes it outside the Pallas kernels (counted by
+    ``flash_attention_bwd.torch_delta_passes``).  For CPU tensors the
+    plain version (``flash_attention_bwd_ref``) runs."""
     _check_operands(q, k, v, None)
     _check_bwd_rows(q, do, lse=lse)
     if o.shape != q.shape:
@@ -325,18 +409,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
                                              causal=causal, window=window)
     else:
-        delta = (do.float() * o.float()).sum(dim=-1)
         do = do.to(q.dtype)
         if do.stride(-1) != 1:
             do = do.contiguous()
+        if (dq_route(q.dtype, q.shape[-1]) == "tile" and o.dtype == q.dtype
+                and o.stride(-1) == 1 and _rows_aligned(q, k, v, do, o)):
+            dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, o=o,
+                                               causal=causal, window=window)
+        else:
+            delta = (do.float() * o.float()).sum(dim=-1)
+            flash_attention_bwd.torch_delta_passes += 1
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                        causal=causal, window=window)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                          causal=causal, window=window)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                                    window=window)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+flash_attention_bwd.torch_delta_passes = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.row_launches = 0
 flash_attention_bwd_dkv.tile_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.row_launches = 0
+flash_attention_bwd_dq.tile_launches = 0

@@ -124,17 +124,17 @@ def test_serve_session_on_the_card_matches_sequential(dev):
         np.testing.assert_allclose(got[rid].entropy, ref.entropy, atol=1e-4)
 
 
-# the tile routes (wgmma, bf16, head dims 64 and 128) against the plain
-# versions, at the tolerances chip_smoke.py holds them to
+# the tile and decode routes (bf16, head dims 64 and 128) against the
+# plain versions, at the tolerances chip_smoke.py holds them to
 TILE_FWD_CASES = [
     # (B, H, Hkv, Tq, Tk, causal, window, kv_valid, route)
     (2, 32, 2, 128, 161, True, None, None, "tile"),   # prefill over the ring
     (1, 32, 2, 37, 161, True, None, None, "tile"),    # ragged prefill
     (2, 8, 2, 100, 100, True, 16, None, "tile"),      # window, GQA 4
     (3, 4, 4, 70, 70, False, None, None, "tile"),     # non-causal, GQA 1
-    (3, 4, 4, 63, 70, False, None, None, "row"),      # 63 rows: below a tile
+    (3, 4, 4, 63, 70, False, None, None, "decode"),   # 63 rows: below a tile
     (3, 4, 4, 64, 70, True, None, None, "tile"),      # 64 rows: one tile
-    (3, 32, 2, 3, 161, False, None, (1, 80, 161), "row"),   # 48 rows
+    (3, 32, 2, 3, 161, False, None, (1, 80, 161), "decode"),  # 48 rows
     (3, 32, 2, 4, 161, False, None, (1, 80, 161), "tile"),  # 64 rows
     (2, 8, 2, 90, 130, False, 33, (77, 130), "tile"),  # window + kv_valid
 ]
@@ -154,51 +154,157 @@ def test_flash_attention_tile_route_matches_plain(dev, B, H, Hkv, Tq, Tk,
                for T, h in ((Tq, H), (Tk, Hkv), (Tk, Hkv)))
     kv = (None if kv is None
           else torch.tensor(kv, dtype=torch.int32, device=dev))
-    tiles, rows = flash_attention.tile_launches, flash_attention.row_launches
+    routes = ("tile", "decode", "row")
+    before = [getattr(flash_attention, f"{r}_launches") for r in routes]
     out, lse = flash_attention(q, k, v, causal=causal, window=window,
                                kv_valid=kv, return_lse=True)
     want, want_lse = flash_attention_ref(q, k, v, causal=causal,
                                          window=window, kv_valid=kv,
                                          return_lse=True)
     torch.cuda.synchronize()
-    assert (flash_attention.tile_launches - tiles,
-            flash_attention.row_launches - rows) == (
-                (1, 0) if route == "tile" else (0, 1))
+    assert [getattr(flash_attention, f"{r}_launches") - n
+            for r, n in zip(routes, before)] == [int(r == route)
+                                                 for r in routes]
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
 
 
 def test_misaligned_rows_take_the_row_route(dev):
-    """The tile routes copy rows in 16-byte pieces: bf16 operands whose
-    rows do not start on 16 bytes (a view one element in) run the row
-    kernels, forward and dK/dV, and still match the plain versions."""
+    """The tile and decode routes copy rows in 16-byte pieces: bf16
+    operands whose rows do not start on 16 bytes (a view one element in)
+    run the row kernels, forward (tile- and decode-shaped), dK/dV and dQ,
+    and still match the plain versions."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd_dkv)
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
     from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_bwd_dq_ref,
                                          flash_attention_ref)
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v, do = (torch.randn(2, 64, h, 129, generator=g, device=dev)
                    .to(torch.bfloat16)[..., 1:].transpose(1, 2)
                    for h in (8, 2, 2, 8))
-    counts = (flash_attention.row_launches, flash_attention.tile_launches,
-              flash_attention_bwd_dkv.row_launches,
-              flash_attention_bwd_dkv.tile_launches)
+    wrappers = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+
+    def counts():
+        return [getattr(w, f"{r}_launches") for w in wrappers
+                for r in ("row", "tile", "decode") if hasattr(
+                    w, f"{r}_launches")]
+
+    before = counts()
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    dec = flash_attention(q[:, :, :1], k, v, causal=False)
     delta = (do.float() * out.float()).sum(-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
     want, want_lse = flash_attention_ref(q, k, v, causal=True,
                                          return_lse=True)
+    want_dec = flash_attention_ref(q[:, :, :1], k, v, causal=False)
     want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
                                                    causal=True)
+    want_dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                         causal=True)
     torch.cuda.synchronize()
-    assert (flash_attention.row_launches - counts[0],
-            flash_attention.tile_launches - counts[1],
-            flash_attention_bwd_dkv.row_launches - counts[2],
-            flash_attention_bwd_dkv.tile_launches - counts[3]) == (1, 0, 1, 0)
+    # forward: row 2, tile 0, decode 0; dK/dV: row 1, tile 0; dQ: the same
+    assert [n - b for n, b in zip(counts(), before)] == [2, 0, 0, 1, 0, 1, 0]
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(dec.float(), want_dec.float(), atol=2e-2,
+                               rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
     torch.testing.assert_close(dk, want_dk, atol=2e-4, rtol=0)
     torch.testing.assert_close(dv, want_dv, atol=2e-4, rtol=0)
+    torch.testing.assert_close(dq, want_dq, atol=2e-4, rtol=0)
+    with pytest.raises(ValueError, match="fused delta"):
+        flash_attention_bwd_dq(q, k, v, do, lse, o=out, causal=True)
+
+
+# the decode route (mma.sync, the keys split across a cluster)
+DECODE_CASES = [
+    # (B, H, Hkv, Tq, Tk, causal, window, kv_valid: None, "ones", "ragged")
+    (8, 32, 2, 1, 161, False, None, "ragged"),   # glm4-9b serving
+    (4, 4, 4, 1, 161, False, None, "ones"),      # GQA 1, 1 row
+    (4, 8, 2, 1, 100, False, None, "ragged"),    # GQA 4, ragged Tk
+    (3, 32, 2, 1, 65, False, None, None),        # one key past a tile
+    (2, 4, 4, 17, 40, True, None, "ragged"),     # 17 rows: two 16-row slices
+    (2, 8, 2, 8, 130, True, None, "ones"),       # 32 rows, causal
+    (2, 32, 2, 2, 161, True, 1, None),           # causal window 1
+    (2, 8, 2, 15, 161, True, 5, None),           # 60 rows, window 5
+    (2, 4, 4, 63, 200, False, 9, None),          # 63 rows, window 9
+    (8, 32, 2, 1, 4096, False, None, None),      # 8 splits of a long cache
+    (24, 32, 2, 1, 4096, False, None, "ragged"),  # 3 splits
+    (66, 32, 2, 1, 4096, False, None, None),     # 1 split
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal,window,kv", DECODE_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_decode_route_matches_plain(dev, B, H, Hkv, Tq, Tk,
+                                                    causal, window, kv, D):
+    """Out within 2e-2 (bf16) and LSE within 1e-4 of the plain version,
+    on the decode route, the same bits on a second launch (the cluster
+    merges its blocks' partials in rank order)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(B, T, h, D, generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2)
+               for T, h in ((Tq, H), (Tk, Hkv), (Tk, Hkv)))
+    kv_valid = {None: None,
+                "ones": torch.ones(B, dtype=torch.int32, device=dev),
+                "ragged": torch.randint(1, Tk + 1, (B,), generator=g,
+                                        device=dev, dtype=torch.int32)}[kv]
+    kw = dict(causal=causal, window=window, kv_valid=kv_valid,
+              return_lse=True)
+    before = flash_attention.decode_launches
+    out, lse = flash_attention(q, k, v, **kw)
+    out2, lse2 = flash_attention(q, k, v, **kw)
+    want, want_lse = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.decode_launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+DQ_TILE_CASES = [
+    # (B, H, Hkv, T, causal, window)
+    (12, 32, 2, 128, True, None),     # the training shape, GQA 16
+    (1, 32, 2, 1000, True, None),     # a ragged long band
+    (1, 32, 2, 2048, True, None),     # the long shape of chip_smoke.py
+    (2, 8, 2, 150, True, 24),         # window, GQA 4
+    (2, 4, 4, 70, False, None),       # non-causal, GQA 1
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,causal,window", DQ_TILE_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_dq_tile_route_matches_plain(dev, B, H, Hkv, T,
+                                                         causal, window, D):
+    """The dQ tile route with delta given and with delta fused (``o=``):
+    dQ within 2e-4 of the plain version, the delta it writes within 1e-4
+    of the largest |delta| of the torch sum, the same bits on a second
+    launch (each block owns its rows: no cross-block sum)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_dq
+    from repro_torch.kernels.ref import (flash_attention_bwd_dq_ref,
+                                         flash_attention_ref)
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, B, H, Hkv, T, D, seed=9)
+    o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    kw = dict(causal=causal, window=window)
+    tiles = flash_attention_bwd_dq.tile_launches
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dq_f, delta_f = flash_attention_bwd_dq(q, k, v, do, lse, o=o, **kw)
+    dq_f2, delta_f2 = flash_attention_bwd_dq(q, k, v, do, lse, o=o, **kw)
+    want = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.tile_launches == tiles + 3
+    assert torch.equal(dq_f, dq_f2) and torch.equal(delta_f, delta_f2)
+    torch.testing.assert_close(dq, want, atol=2e-4, rtol=0)
+    torch.testing.assert_close(dq_f, want, atol=2e-4, rtol=0)
+    assert ((delta_f - delta).abs().max()
+            <= 1e-4 * delta.abs().max()).item()
 
 
 TILE_BWD_CASES = [
@@ -241,12 +347,14 @@ def test_flash_attention_bwd_dkv_tile_route_matches_plain(dev, B, H, Hkv, T,
 
 def test_autograd_site_bf16_runs_the_tile_routes(dev):
     """FlashAttentionFn in bf16 at D = 64, GQA 4, a window and T = 100:
-    the forward and dK/dV take the tile routes, and the site stays within
-    1e-2 of each tensor's largest magnitude of autograd of the plain
-    forward."""
+    the forward, dK/dV and dQ take the tile routes, delta is formed in the
+    dQ kernel (no delta pass in torch), and the site stays within 1e-2 of
+    each tensor's largest magnitude of autograd of the plain forward."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd_dkv)
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
     g = torch.Generator(device=dev).manual_seed(6)
     leaves = [torch.randn(2, 100, h, 64, generator=g, device=dev)
               .to(torch.bfloat16) for h in (8, 2, 2)]
@@ -256,14 +364,18 @@ def test_autograd_site_bf16_runs_the_tile_routes(dev):
     for name in ("auto", "ref"):
         q, k, v = (t.clone().requires_grad_() for t in leaves)
         counts = (flash_attention.tile_launches,
-                  flash_attention_bwd_dkv.tile_launches)
+                  flash_attention_bwd_dkv.tile_launches,
+                  flash_attention_bwd_dq.tile_launches,
+                  flash_attention_bwd.torch_delta_passes)
         out = dispatch.get_backend(name).attention(q, k, v, causal=True,
                                                    window=24)
         out.backward(cot)
         torch.cuda.synchronize()
         assert (flash_attention.tile_launches - counts[0],
-                flash_attention_bwd_dkv.tile_launches - counts[1]) == (
-                    (1, 1) if name == "auto" else (0, 0))
+                flash_attention_bwd_dkv.tile_launches - counts[1],
+                flash_attention_bwd_dq.tile_launches - counts[2],
+                flash_attention_bwd.torch_delta_passes - counts[3]) == (
+                    (1, 1, 1, 0) if name == "auto" else (0, 0, 0, 0))
         grads.append((out.float(), q.grad.float(), k.grad.float(),
                       v.grad.float()))
     for got, want in zip(*grads):

@@ -170,13 +170,15 @@ def test_resolve_kernels():
         dispatch.resolve_kernels("pallas")
 
 
-# the forward's route rule: bf16, head dim 64 or 128, Tq * G >= 64 rows
+# the forward's route rule: bf16 and head dim 64 or 128 take the tile
+# route from Tq * G >= 64 rows, the decode route below; the rest the row
+# route
 @pytest.mark.parametrize("dtype,D,Tq,G,route", [
-    (torch.bfloat16, 128, 1, 16, "row"),     # decode: 16 rows of a 64-row tile
-    (torch.bfloat16, 128, 3, 16, "row"),     # 48 rows: just below one tile
+    (torch.bfloat16, 128, 1, 16, "decode"),  # decode: 16 rows, glm4-9b
+    (torch.bfloat16, 128, 3, 16, "decode"),  # 48 rows: just below one tile
     (torch.bfloat16, 128, 4, 16, "tile"),    # 64 rows: one full tile
     (torch.bfloat16, 128, 128, 16, "tile"),  # glm4-9b prefill and training
-    (torch.bfloat16, 64, 63, 1, "row"),
+    (torch.bfloat16, 64, 63, 1, "decode"),
     (torch.bfloat16, 64, 64, 1, "tile"),
     (torch.bfloat16, 64, 16, 4, "tile"),
     (torch.bfloat16, 32, 128, 16, "row"),    # head dim 32: row kernel only
@@ -199,18 +201,60 @@ def test_dkv_route_rule(dtype, D, route):
     assert dkv_route(dtype, D) == route
 
 
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 128, "tile"), (torch.bfloat16, 64, "tile"),
+    (torch.bfloat16, 32, "row"), (torch.bfloat16, 16, "row"),
+    (torch.float32, 128, "row"), (torch.float16, 128, "row"),
+])
+def test_dq_route_rule(dtype, D, route):
+    from repro_torch.kernels.flash_attention import dq_route
+    assert dq_route(dtype, D) == route
+
+
+# the decode route's split rule: (B * Hkv, key tiles) -> blocks per
+# cluster
+@pytest.mark.parametrize("bh,tiles,splits", [
+    (16, 3, 3),        # glm4-9b serving: 8 slots x 2 kv heads, 161 keys
+    (16, 64, 8),       # a 4096-key cache: 8 x 16 = 128 blocks
+    (20, 64, 7), (24, 64, 6), (32, 64, 5), (40, 64, 4), (48, 64, 3),
+    (80, 64, 2),
+    (132, 64, 1),      # one cluster a SM already fills the card
+    (1000, 64, 1),
+    (1, 1, 1),         # one key tile: nothing to split
+    (1, 64, 8),        # the portable cluster size caps it
+])
+def test_decode_split_rule(bh, tiles, splits):
+    from repro_torch.kernels.flash_attention import (MAX_CLUSTER, NUM_SMS,
+                                                     decode_splits)
+    got = decode_splits(bh, tiles)
+    assert got == splits
+    assert 1 <= got <= min(MAX_CLUSTER, tiles)
+    # the fewest splits that fill the SMs, unless a cap binds first
+    assert bh * got >= NUM_SMS or got == min(MAX_CLUSTER, tiles)
+    assert got == 1 or bh * (got - 1) < NUM_SMS
+
+
 def test_cpu_tensors_take_no_route():
-    """A tile-shaped bf16 call on the CPU runs the plain versions and counts
-    no launch on either route, forward or dK/dV."""
+    """Tile- and decode-shaped bf16 calls on the CPU run the plain versions
+    and count no launch on any route, forward, dK/dV or dQ, and no delta
+    pass."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_bwd_dkv)
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    wrappers = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+
+    def counts():
+        return [getattr(w, a, None) for w in wrappers
+                for a in ("launches", "row_launches", "tile_launches",
+                          "decode_launches")] + [
+            flash_attention_bwd.torch_delta_passes]
+
     q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(5, 1, 8, 2, 16, 16,
                                                       D=64)))
-    counts = (flash_attention.row_launches, flash_attention.tile_launches,
-              flash_attention_bwd_dkv.row_launches,
-              flash_attention_bwd_dkv.tile_launches)
+    before = counts()
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    flash_attention(q[:, :, :1], k, v, causal=False)       # decode-shaped
     flash_attention_bwd(q, k, v, out, lse, torch.ones_like(q), causal=True)
-    assert (flash_attention.row_launches, flash_attention.tile_launches,
-            flash_attention_bwd_dkv.row_launches,
-            flash_attention_bwd_dkv.tile_launches) == counts
+    flash_attention_bwd_dq(q, k, v, torch.ones_like(q), lse, o=out)
+    assert counts() == before

@@ -162,6 +162,49 @@ def test_flash_attention_bwd_ref_matches_jax_kernels(H, Hkv, Tq, Tk, causal,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("H,Hkv,Tq,Tk,causal,window", BWD_CASES)
+def test_fused_delta_dq_plain_path_matches_jax(H, Hkv, Tq, Tk, causal,
+                                               window):
+    """The dQ wrapper's fused form (``o=``: delta = rowsum(dO * O) formed
+    beside dQ, as the dQ tile route does on the card) runs its plain
+    version on the CPU: dQ within the 2e-4 kernel gate of the JAX backward
+    kernels (interpret mode), delta within 1e-5 of the same fp32 sum in
+    JAX (16 products of magnitude up to ~10 summed in another order:
+    reassociation only)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_dq
+    q, k, v, do = _qkv_do(3, 2, H, Hkv, Tq, Tk)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jops.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                      window=window, interpret=True)
+    want_dq, _, _ = jops.flash_attention_bwd(jq, jk, jv, o, lse, jdo,
+                                             causal=causal, window=window,
+                                             interpret=True)
+    want_delta = jnp.sum(jdo * o, axis=-1)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    dq, delta = flash_attention_bwd_dq(t(q), t(k), t(v), t(do), t(lse),
+                                       o=t(o), causal=causal, window=window)
+    assert dq.dtype == delta.dtype == torch.float32
+    assert delta.shape == (2, H, Tq)
+    _close(dq, want_dq, 2e-4)
+    _close(delta, want_delta, 1e-5)
+    # the given-delta form with that delta gives the same dQ
+    assert torch.equal(flash_attention_bwd_dq(
+        t(q), t(k), t(v), t(do), t(lse), delta, causal=causal,
+        window=window), dq)
+
+
+def test_dq_wrapper_takes_exactly_one_of_delta_and_o():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_dq
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv_do(4, 1, 4, 2, 6, 6))
+    lse = torch.zeros(1, 4, 6)
+    with pytest.raises(ValueError, match="exactly one"):
+        flash_attention_bwd_dq(q, k, v, do, lse)
+    with pytest.raises(ValueError, match="exactly one"):
+        flash_attention_bwd_dq(q, k, v, do, lse, lse, o=q)
+    with pytest.raises(ValueError, match="output shape"):
+        flash_attention_bwd_dq(q, k, v, do, lse, o=q[:, :, :5])
+
+
 def test_flash_attention_bwd_casts_to_primal_dtypes_and_checks():
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
                    for a in _qkv_do(1, 1, 4, 2, 6, 6))
