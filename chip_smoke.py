@@ -19,17 +19,25 @@ Phases:
            at every split count the decode rule picks, dQ with delta given
            and fused (the delta it writes against the plain one), the
            decode, dK/dV and dQ kernels also bit for bit across two
-           launches, and the row routes forced at the main shapes; the wkv forward
-           and backward at chunks 8-128, fp32 and bf16, ragged T, head
-           dims 16-64, the rwkv6-3b train and
-           prefill shapes, and decays that overflow the plain chunked form
-           (against the token oracle); and both autograd sites of training
-           against autograd of the plain forward;
+           launches, and the row routes forced at the main shapes; the wkv
+           forward and backward at chunks 8-128, fp32 and bf16, ragged T,
+           head dims 16-64, the rwkv6-3b train and prefill shapes, bit for
+           bit across two launches, and decays that overflow the plain
+           chunked form (against the token oracle); and
+           both autograd sites of training against autograd of the plain
+           forward;
   parity   smoke configs in fp32: the glm4-9b ServeSession against the
            port's sequential references, token and gate exact; the rwkv6
            ServeSession with the kernels against the plain versions; train
            steps with the kernels against the plain versions (glm4-9b: eq1,
-           sum, eq1 with remat; rwkv6: eq1, eq1 with remat); rwkv6 decay
+           sum, eq1 with remat; rwkv6: eq1, eq1 with remat); then the bf16
+           smokes at full head width (glm4-9b head dim 64: the attention
+           tile and decode routes; rwkv6 head dim 64, chunk 16: the wkv
+           kernels), ServeSession under both policies against each request
+           served alone on the plain versions, the first step's gradients
+           leaf by leaf and eq1 steps' losses, at the limits of
+           repro_torch/parity.py, each comparison also under a planted
+           fault that it must reject; rwkv6 decay
            LoRA, bonus u and base decays redrawn from a seed (the init
            leaves them at 0, 0 and -6);
   main     the serving path: ServeSession on full-width glm4-9b (40 layers)
@@ -47,19 +55,22 @@ Phases:
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
            eq1 and sum steps (glm4-9b: every attention forward, dK/dV and
-           dQ launch on the tile route, and no delta pass in torch), a loss
-           check on the first batch, a
+           dQ launch on the tile route, and no delta pass in torch;
+           rwkv6-3b: both wkv kernels every step), a loss check on the
+           first batch, a
            traced window of 2 steps (rwkv6-3b: then eq1 steps on the plain
            versions, the end-to-end baseline);
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
-           over the causal pairs it needs); the attention forward with LSE,
+           over the causal pairs it needs, at the fp32-accurate tensor-core
+           rate); the attention forward with LSE,
            dK/dV and dQ also at one long causal shape, q (1,32,2048,128), k/v
            (1,2,2048,128) bf16, where operations set the bound; decode also
            over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
            row routes of the forward and of dQ beside their redesigned
-           routes at the main shapes.  Times are
+           routes at the main shapes; the wkv also at a prefill shape
+           (1,300,40,64).  Times are
            device times: a spin kernel ahead of each timed call keeps the
            host's enqueue (~50-100 us for a wrapper, more for SDPA's
            backward) off the clock.
@@ -71,6 +82,7 @@ and prints no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -95,9 +107,13 @@ KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type
+# NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type;
+# "3xtf32" is an fp32-accurate product on the tensor cores (each operand
+# split into TF32 high and low parts, three TF32 products: 495 / 3 TF/s),
+# the least time fp32 products need on this card
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  "3xtf32": 495e12 / 3}
 
 # tolerances: fp32 kernels against fp32 plain versions (reassociation only);
 # bf16 outputs compared in fp32 (the two sides round to bf16 at other points)
@@ -132,6 +148,8 @@ TOL_SITE_BF16 = 1e-2
 # elements on an H100)
 TOL_TRAIN_LOSS = 1e-5
 TRAIN_PARAM_FRACTION = 1e-3
+# the bf16 smokes at full head width (phase parity) hold the limits of
+# repro_torch/parity.py, set from sound and planted-fault readings
 # wkv: the kernels against their plain versions, each output's largest
 # difference over its largest magnitude (at least 1).  Both sides read the
 # same r/k/v values in fp32; the kernels weight each intra-chunk pair by
@@ -271,7 +289,8 @@ def phase_build(state):
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry function" in line):
                     print(f"  {src}: {line.strip()}")
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -666,11 +685,22 @@ def scaled_err(got, want) -> float:
 
 def wkv_kernel_cases(gen, errs):
     """The wkv forward (y, S_T, the per-chunk entry states) and backward
-    (dr, dk, dv, dlog_w, du) kernels against their plain versions."""
+    (dr, dk, dv, dlog_w, du) kernels against their plain versions, one
+    launch of each, and the same bits on a second launch."""
     from repro_torch.kernels.ref import rwkv_wkv_ref_model
     from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
                                               rwkv_wkv_bwd_plain,
                                               rwkv_wkv_fwd, rwkv_wkv_plain)
+
+    def counted(what, want, counts):
+        """Runs ``want()`` and checks that it launched the forward and the
+        backward ``counts`` times."""
+        before = (rwkv_wkv.launches, rwkv_wkv_bwd.launches)
+        out = want()
+        n = (rwkv_wkv.launches - before[0], rwkv_wkv_bwd.launches - before[1])
+        check(n == counts, f"wkv {what}: {counts[0]} forward and "
+                           f"{counts[1]} backward launches")
+        return out
 
     def case(name, dtype, *, B, T, H=40, K=64, chunk=128, decays="model",
              main=False):
@@ -678,18 +708,20 @@ def wkv_kernel_cases(gen, errs):
         ch = min(chunk, T)
         dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
         dsT = torch.randn(B, H, K, K, generator=gen, device="cuda")
-        n_fwd, n_bwd = rwkv_wkv.launches, rwkv_wkv_bwd.launches
-        (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
-        y2, sT2 = rwkv_wkv(r, k, v, lw, u, chunk=chunk, return_state=True)
-        grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
         want_y, want_sT, want_s0 = rwkv_wkv_plain(r, k, v, lw, u, chunk=ch,
                                                   emit_chunk_states=True)
         wants = rwkv_wkv_bwd_plain(r, k, v, lw, u, want_s0, dy, dsT,
                                    chunk=ch)
+        wants = (*wants[:4], wants[4].reshape(B, H, K).sum(0))
+
+        def run():
+            (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
+            y2, sT2 = rwkv_wkv(r, k, v, lw, u, chunk=chunk,
+                               return_state=True)
+            grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+            return y, sT, s0, y2, sT2, grads
+        y, sT, s0, y2, sT2, grads = counted(f"{name} {dtype}", run, (2, 1))
         torch.cuda.synchronize()
-        check(rwkv_wkv.launches == n_fwd + 2
-              and rwkv_wkv_bwd.launches == n_bwd + 1,
-              f"wkv {name}: each call launched its kernel once")
         d_fwd = max(scaled_err(y, want_y), scaled_err(sT, want_sT),
                     scaled_err(s0, want_s0))
         check(d_fwd <= TOL_WKV and torch.equal(y, y2)
@@ -697,14 +729,19 @@ def wkv_kernel_cases(gen, errs):
               f"wkv fwd {name} {dtype}: y, S_T, S0 vs plain, max|d|/scale "
               f"{d_fwd:.2e} <= {TOL_WKV:g}; return_state path identical")
         tol = TOL_WKV_BWD if dtype == torch.float32 else TOL_WKV_BWD_BF16
-        du_want = wants[4].reshape(B, H, K).sum(0)
-        d_bwd = [scaled_err(g, w) for g, w in zip(grads, (*wants[:4],
-                                                          du_want))]
+        d_bwd = [scaled_err(g, w) for g, w in zip(grads, wants)]
         check(max(d_bwd) <= tol and all(
             g.dtype == t.dtype for g, t in zip(grads, (r, k, v, lw, u))),
               f"wkv bwd {name} {dtype}: dr, dk, dv, dlog_w, du vs plain, "
               f"max|d|/scale {', '.join(f'{x:.2e}' for x in d_bwd)} <= "
               f"{tol:g}, in the primal dtypes")
+        (y3, sT3), s03 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
+        grads3 = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in
+                  zip((y, sT, s0, *grads), (y3, sT3, s03, *grads3))),
+              f"wkv {name} {dtype}: a second launch of the forward and "
+              f"backward gives the same bits")
         if main:
             errs["rwkv_wkv"] = max(errs.get("rwkv_wkv", 0.0), d_fwd)
             errs["rwkv_wkv_bwd"] = max(errs.get("rwkv_wkv_bwd", 0.0),
@@ -717,10 +754,14 @@ def wkv_kernel_cases(gen, errs):
          T=128, H=4, chunk=64, decays="strong")
     case("(2,100,4,64) chunk 32, T not a chunk multiple", torch.float32,
          B=2, T=100, H=4, chunk=32, decays="strong")
+    case("(2,100,3,32) chunk 20, not a multiple of the 16-token sub-tile",
+         torch.float32, B=2, T=100, H=3, K=32, chunk=20, decays="strong")
     case("(3,19,2,32) chunk 8, head_dim 32, ragged", torch.float32, B=3,
          T=19, H=2, K=32, chunk=8, decays="strong")
     case("(2,16,2,16) chunk 32 > T, head_dim 16", torch.float32, B=2, T=16,
          H=2, K=16, chunk=32, decays="strong")
+    case("(12,70,12,32) chunk 32, B*H >= SMs at head_dim 32", torch.bfloat16,
+         B=12, T=70, H=12, K=32, chunk=32, decays="strong")
     case("prefill (1,300,40,64) chunk 128", torch.bfloat16, B=1, T=300,
          main=True)
     case("prefill (1,300,40,64) chunk 128", torch.float32, B=1, T=300)
@@ -730,14 +771,17 @@ def wkv_kernel_cases(gen, errs):
          T=RWKV_T)
 
     # decays at chunk 128 where the TPU algebra's e^{-L} passes fp32's
-    # range and the kernels' pairwise form does not; held against the
-    # token-by-token oracle and autograd through it
+    # range and the kernels' exponents (all <= 0) do not; held
+    # against the token-by-token oracle and autograd through it
     r, k, v, lw, u = wkv_inputs(gen, torch.float32, 1, 256, 4, 64,
                                 "overflow")
     dy = torch.randn(1, 256, 4, 64, generator=gen, device="cuda")
     dsT = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
-    (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=128)
-    grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=128)
+
+    def both():
+        (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=128)
+        return y, sT, rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=128)
+    y, sT, grads = counted("(1,256,4,64) decays -U(0.7,1)", both, (1, 1))
     leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
     want_y, want_sT = rwkv_wkv_ref_model(*leaves)
     wants = torch.autograd.grad((want_y * dy).sum() + (want_sT * dsT).sum(),
@@ -756,24 +800,30 @@ def wkv_kernel_cases(gen, errs):
 
 
 def wkv_site_cases(gen):
-    """WkvFn (kernels="auto") against autograd of the plain forward
-    (kernels="ref", models/ssm._wkv_chunked), cotangents on y and S_T."""
+    """WkvFn (kernels="auto": both kernels) against
+    autograd of the plain forward (kernels="ref", models/ssm._wkv_chunked),
+    cotangents on y and S_T."""
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
     leaves = wkv_inputs(gen, torch.float32, 2, 256, 8, 64)
     dy = torch.randn(2, 256, 8, 64, generator=gen, device="cuda")
     dsT = torch.randn(2, 8, 64, 64, generator=gen, device="cuda")
-    res = []
+    res, launched = [], []
     for name in ("auto", "ref"):
         xs = [t.clone().requires_grad_() for t in leaves]
+        n = (rwkv_wkv.launches, rwkv_wkv_bwd.launches)
         y, sT = dispatch.get_backend(name).wkv(*xs, chunk=128)
         ((y * dy).sum() + (sT * dsT).sum()).backward()
+        launched.append((rwkv_wkv.launches - n[0],
+                         rwkv_wkv_bwd.launches - n[1]))
         res.append([y.detach(), sT.detach(), *(t.grad for t in xs)])
     torch.cuda.synchronize()
     d = [scaled_err(a, b) for a, b in zip(*res)]
-    check(max(d) <= TOL_WKV_BWD,
+    check(max(d) <= TOL_WKV_BWD and launched == [(1, 1), (0, 0)],
           f"wkv autograd site (2,256,8,64) chunk 128 fp32: y, S_T, dr, dk, "
           f"dv, dlog_w, du vs autograd of the plain forward, max|d|/scale "
-          f"{', '.join(f'{x:.2e}' for x in d)} <= {TOL_WKV_BWD:g}")
+          f"{', '.join(f'{x:.2e}' for x in d)} <= {TOL_WKV_BWD:g}; one "
+          f"forward and one backward launch")
 
 
 def phase_parity(state):
@@ -822,34 +872,217 @@ def phase_parity(state):
     rwkv_serve_parity(rwkv6_3b.smoke())
     train_parity(rwkv6_3b.smoke().with_(exit_layers=(1, 2)),
                  (("eq1", "none"), ("eq1", "full")), seq=20)
+    bf16_parity(glm4_9b.smoke_bf16(), rwkv6_3b.smoke_bf16())
 
 
-def live_rwkv(params, seed: int = 0) -> None:
-    """Redraw every rwkv6 mixer's ``w_lora_b`` ~ N(0, 0.1), ``u`` ~ N(0, 1)
-    and ``w_base`` ~ U(-2, 0) in place from ``seed``: the init leaves them
-    at 0, 0 and -6, one decay e^-0.0025 everywhere and no bonus, so a
-    parity run at init would not exercise the data-dependent decay or u."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    draw = {"w_lora_b": lambda t: 0.1 * torch.randn(
-                t.shape, generator=gen, device="cuda"),
-            "u": lambda t: torch.randn(t.shape, generator=gen, device="cuda"),
-            "w_base": lambda t: -2.0 * torch.rand(t.shape, generator=gen,
-                                                  device="cuda")}
+@contextlib.contextmanager
+def planted(name, fault):
+    """A control: ``kernels.dispatch``'s ``name`` (a kernel wrapper the
+    model calls) replaced by ``fault(wrapper)`` while the block runs, so a
+    check can show that it rejects a wrong kernel."""
+    from repro_torch.kernels import dispatch
+    real = getattr(dispatch, name)
+    setattr(dispatch, name, fault(real))
+    try:
+        yield
+    finally:
+        setattr(dispatch, name, real)
 
-    def walk(t):
-        if isinstance(t, dict):
-            live = "w_lora_b" in t and "u" in t
-            for k, v in t.items():
-                if live and k in draw:
-                    v.copy_(draw[k](v))
-                else:
-                    walk(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
 
-    with torch.no_grad():
-        walk(params)
+def dk_zeroed(bwd):
+    """A backward (attention: dq, dk, dv; wkv: dr, dk, dv, dlog_w, du)
+    whose dk is zero."""
+    def wrapped(*a, **kw):
+        out = list(bwd(*a, **kw))
+        out[1] = torch.zeros_like(out[1])
+        return tuple(out)
+    return wrapped
+
+
+# the planted faults of the bf16 parity controls, by family: a forward
+# fault that serving runs and a backward fault that training runs
+FAULTS = {
+    "glm4_9b": (("flash_attention", "the newest key dropped at decode",
+              lambda f: lambda q, k, v, *, kv_valid=None, **kw: f(
+                  q, k, v, kv_valid=None if kv_valid is None
+                  else (kv_valid - 1).clamp(min=1), **kw)),
+             ("flash_attention_bwd", "dK zeroed", dk_zeroed)),
+    "rwkv6_3b": (("rwkv_wkv", "the bonus u dropped",
+               lambda f: lambda r, k, v, lw, u, **kw: f(
+                   r, k, v, lw, torch.zeros_like(u), **kw)),
+              ("rwkv_wkv_bwd", "dk zeroed", dk_zeroed)),
+}
+
+
+def bf16_parity(glm_cfg, rwkv_cfg) -> None:
+    """The bf16 smokes at full head width against the plain versions:
+    glm4-9b (head dim 64: the attention forward's tile and decode routes,
+    the backward's tile routes) and rwkv6 (head dim 64, chunk 16: the wkv
+    kernels); ServeSession under both policies, the first step's gradients
+    leaf by leaf, then eq1 steps' losses (rwkv6 also with remat).  Every
+    comparison also runs under its family's planted fault (``FAULTS``) and
+    must reject it.  Each prints its readings, and failures are raised
+    together at the end."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import TOL_LOSS_BF16
+    rng = np.random.default_rng(5)
+    # prompts of 12-48 tokens: glm4 prefill at G = 2 takes the tile route
+    # from 32 tokens up and the decode route below; rwkv6 1-3 chunks of 16
+    prompts = [rng.integers(0, glm_cfg.vocab_size, int(rng.integers(12, 49)))
+               for _ in range(6)]
+    decodes = [6, 9, 4, 7, 5, 8]
+    # per family: the config, (read, ok, what) of the serving launches and
+    # of the training launches, and the training modes
+    families = {
+        "glm4_9b": (
+            glm_cfg,
+            (lambda: (flash_attention.tile_launches,
+                      flash_attention.decode_launches,
+                      flash_attention.row_launches),
+             lambda n: n[0] > 0 and n[1] > 0 and n[2] == 0,
+             "tile and decode routes"),
+            (lambda: (flash_attention_bwd_dkv.tile_launches,
+                      flash_attention_bwd_dq.tile_launches,
+                      flash_attention_bwd_dkv.row_launches,
+                      flash_attention_bwd_dq.row_launches),
+             lambda n: n[0] > 0 and n[1] > 0 and n[2] == n[3] == 0,
+             "dK/dV and dQ tile routes"),
+            (("eq1", "none"),)),
+        "rwkv6_3b": (
+            rwkv_cfg,
+            (lambda: (rwkv_wkv.launches,), lambda n: n[0] > 0, "wkv kernel"),
+            (lambda: (rwkv_wkv_bwd.launches,), lambda n: n[0] > 0,
+             "wkv backward kernel"),
+            (("eq1", "none"), ("eq1", "full")))}
+    failed = []
+    for family, (cfg, serve_counts, train_counts, modes) in families.items():
+        fwd_fault, bwd_fault = FAULTS[family]
+        runs = [lambda p=p: bf16_serve_parity(cfg, prompts, decodes, p,
+                                              serve_counts, fwd_fault)
+                for p in ("select", "sticky")]
+        runs.append(lambda: bf16_grad_parity(cfg, bwd_fault))
+        runs.append(lambda: train_parity(
+            cfg.with_(exit_layers=(1, 2)), modes,
+            tol_loss=TOL_LOSS_BF16[family], counts=train_counts,
+            fault=bwd_fault))
+        for run in runs:
+            try:
+                run()
+            except Failed as e:
+                failed.append(str(e))
+    if failed:
+        raise Failed("; ".join(failed))
+
+
+def bf16_serve_parity(cfg, prompts, decodes, policy, counts, fault) -> None:
+    """``cfg`` (a bf16 smoke): ServeSession with the kernels, 6 requests on
+    3 slots, against each request served alone on the plain versions
+    (``parity.stream_parity``: a stream may part only at a near tie;
+    entropies within TOL_H_BF16), then the same under the planted forward
+    fault, which the comparison must reject.  ``counts`` = (read, ok,
+    what): the kernels' run must satisfy ``ok(launches)``."""
+    from repro_torch.api.serve_session import (ServeSession,
+                                               sequential_reference,
+                                               sequential_sticky_reference)
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16, live_rwkv,
+                                    stream_parity)
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    live_rwkv(params)
+    max_len = 64
+    probe = ServeSession(cfg, params, tau=0.0, slots=1, max_len=max_len)
+    probe.submit(prompts[0], decode_tokens=6)
+    tau = float(np.median(probe.run()[0].entropy))
+    ref_fn = (sequential_sticky_reference if policy == "sticky"
+              else sequential_reference)
+    ref_cfg = cfg.with_(kernels="ref")
+    wants = [ref_fn(ref_cfg, params, p, d, tau=tau, max_len=max_len)
+             for p, d in zip(prompts, decodes)]
+
+    def served():
+        sess = ServeSession(cfg, params, tau=tau, slots=3, max_len=max_len,
+                            exit_policy=policy)
+        for p, d in zip(prompts, decodes):
+            sess.submit(p, decode_tokens=d)
+        before = counts[0]()
+        got = {r.rid: r for r in sess.run()}
+        return got, [a - b for a, b in zip(counts[0](), before)]
+
+    got, n = served()
+    sound = stream_parity(got, wants, tau)
+    name, what, fault_fn = fault
+    with planted(name, fault_fn):
+        control = stream_parity(served()[0], wants, tau)
+    gaps = [g for w in wants for g in w.top2_gap]
+    print(f"  reading {cfg.name} {policy}: sound max|dH| {sound.max_dh:.3e}, "
+          f"{sound.compared} tokens equal, parted {sound.parted or 'none'}; "
+          f"control ({what}): max|dH| {control.max_dh:.3e}, "
+          f"{control.compared} tokens equal, parted "
+          f"{control.parted or 'none'}, within limits {control.ok}; "
+          f"smallest plain top-2 gap {min(gaps):.3e}")
+    check(sound.ok and sound.max_dh <= TOL_H_BF16 and counts[1](n),
+          f"{cfg.name} {policy} tau={tau:.4f}: 6 requests on 3 slots, "
+          f"kernels vs plain in bf16: {sound.compared} tokens equal, "
+          f"{len(sound.parted)} streams part at a near tie (top-2 gap < "
+          f"{TIE_GAP_BF16:g}, |H - tau| <= {TOL_H_BF16:g}), max|dH| "
+          f"{sound.max_dh:.2e} <= {TOL_H_BF16:g}; the kernels ran on the "
+          f"{counts[2]} (launches {n})")
+    check(not control.ok or control.max_dh > TOL_H_BF16,
+          f"{cfg.name} {policy}: the same comparison rejects a planted "
+          f"fault ({what})")
+
+
+def bf16_grad_parity(cfg, fault) -> None:
+    """The first eq1 step's gradients of ``cfg`` (a bf16 smoke, exits 1
+    and 2) with the kernels against the plain versions, each leaf's
+    ||g - g_plain|| / ||g_plain|| within TOL_GRAD_BF16; under the planted
+    backward fault the largest must exceed it."""
+    from repro_torch.config import HeteroProfile, SplitEEConfig
+    from repro_torch.core.spmd import StepConfig, make_grad_step
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import (TOL_GRAD_BF16, TRAIN_PROFILE,
+                                    grad_rel_errors, live_rwkv, smoke_batches)
+    base = cfg.with_(exit_layers=(1, 2))
+    profile = HeteroProfile(TRAIN_PROFILE)
+    batch = smoke_batches(base)[0]
+
+    def grads(kernels):
+        c = base.with_(kernels=kernels)
+        params = init_backbone(torch.Generator(device="cuda").manual_seed(0),
+                               c)
+        live_rwkv(params)
+        step = make_grad_step(StepConfig(
+            model=c, splitee=SplitEEConfig(profile=profile)))
+        return step(params, batch)[0], leaf_paths(params)
+
+    want, paths = grads("ref")
+    sound = grad_rel_errors(grads("auto")[0], want)
+    name, what, fault_fn = fault
+    with planted(name, fault_fn):
+        control = grad_rel_errors(grads("auto")[0], want)
+    worst = int(np.argmax(sound))
+    print(f"  reading {cfg.name} first-step gradients, max over "
+          f"{len(sound)} leaves of ||g - g_plain|| / ||g_plain||: sound "
+          f"{sound[worst]:.3e} ({paths[worst]}); control ({what}) "
+          f"{max(control):.3e} ({paths[int(np.argmax(control))]})")
+    check(max(sound) <= TOL_GRAD_BF16 < max(control),
+          f"{cfg.name} bf16 first-step gradients, kernels vs plain: every "
+          f"leaf within {TOL_GRAD_BF16:g} (max {max(sound):.2e}); the "
+          f"planted fault ({what}) exceeds it ({max(control):.2e})")
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of ``tree``'s leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in leaf_paths(t, f"{prefix}/{i}")]
+    return [prefix]
 
 
 def rwkv_serve_parity(cfg) -> None:
@@ -861,6 +1094,7 @@ def rwkv_serve_parity(cfg) -> None:
                                                sequential_reference)
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv
     from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import live_rwkv
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     live_rwkv(params)
     rng = np.random.default_rng(3)
@@ -894,40 +1128,41 @@ def rwkv_serve_parity(cfg) -> None:
               f"ticks {st.client_only_ticks}, {n_auto} wkv launches)")
 
 
-def train_parity(base, modes, steps: int = 3, seq: int = 32) -> None:
-    """Smoke config ``base`` (fp32, TF32 off): make_train_step with the
-    kernels (kernels="auto") against the plain versions (kernels="ref"),
-    one run per (grad_mode, remat) of ``modes``; rwkv6 mixers live
-    (``live_rwkv``)."""
+def train_parity(base, modes, steps: int = 3, seq: int = 32,
+                 tol_loss: float = TOL_TRAIN_LOSS, counts=None,
+                 fault=None) -> None:
+    """Smoke config ``base`` (TF32 off): make_train_step with the kernels
+    (kernels="auto") against the plain versions (kernels="ref"), one run
+    per (grad_mode, remat) of ``modes``; rwkv6 mixers live
+    (``parity.live_rwkv``).
+    fp32: losses within ``tol_loss`` and the params as stated at
+    TRAIN_PARAM_FRACTION; bf16 (``base.dtype``): the losses only (the
+    first step's gradients are held leaf by leaf in ``bf16_grad_parity``),
+    and under the planted ``fault`` too, whose reading is printed.
+    ``counts`` = (read, ok, what): the kernels' run must satisfy
+    ``ok(launches by route)``."""
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
                                     SplitEEConfig, TrainConfig)
-    from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
-                                       make_train_step)
+    from repro_torch import parity
+    from repro_torch.core.spmd import StepConfig, make_train_step
     from repro_torch.models.backbone import init_backbone
     from repro_torch.optim import adam_init
     from repro_torch.tree import tree_leaves
-    profile = HeteroProfile((1, 1, 2, 2))
-    lr = 1e-3
-    rng = np.random.default_rng(2)
-    sids = boundary_ids_for_batch(profile, base, 8, "cuda")
-    batches = [{"tokens": torch.as_tensor(rng.integers(0, base.vocab_size,
-                                                       (8, seq)),
-                                          device="cuda"),
-                "labels": torch.as_tensor(rng.integers(0, base.vocab_size,
-                                                       (8, seq)),
-                                          device="cuda"),
-                "split_ids": sids} for _ in range(steps)]
+    profile = HeteroProfile(parity.TRAIN_PROFILE)
+    lr = parity.TRAIN_LR
+    batches = parity.smoke_batches(base, steps, seq)
+    bf16 = base.dtype == torch.bfloat16
     for grad_mode, remat in modes:
-        runs = []
-        for kernels in ("auto", "ref"):
+        def run(kernels):
             cfg = base.with_(kernels=kernels)
+            before = counts[0]() if counts else ()
             sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
                             train=TrainConfig(optimizer=OptimizerConfig(
                                 lr=lr, total_steps=2 * steps), remat=remat),
                             grad_mode=grad_mode)
             params = init_backbone(
                 torch.Generator(device="cuda").manual_seed(0), cfg)
-            live_rwkv(params)
+            parity.live_rwkv(params)
             opt = adam_init(params, sc.train.optimizer)
             step = make_train_step(sc)
             losses = []
@@ -935,17 +1170,40 @@ def train_parity(base, modes, steps: int = 3, seq: int = 32) -> None:
                 params, opt, m = step(params, opt, b)
                 losses.append([float(v) for k, v in sorted(m.items())
                                if k != "lr"])
-            runs.append((params, np.asarray(losses)))
+            if counts and kernels == "auto":
+                n = [a - b for a, b in zip(counts[0](), before)]
+                check(counts[1](n), f"{base.name} train {grad_mode} "
+                      f"remat={remat}: the kernels ran on the {counts[2]} "
+                      f"(launches {n})")
+            return params, np.asarray(losses)
+
+        runs = [run("auto"), run("ref")]
         (p0, l0), (p1, l1) = runs
         d_loss = float(np.abs(l0 - l1).max())
+        if bf16:
+            d_fault = 0.0
+            if fault:
+                with planted(fault[0], fault[2]):
+                    d_fault = float(np.abs(run("auto")[1] - l1).max())
+                print(f"  reading {base.name} train {grad_mode} "
+                      f"remat={remat}: losses max|d| sound {d_loss:.3e}, "
+                      f"control ({fault[1]}) {d_fault:.3e}")
+            check(d_loss <= tol_loss and (not fault or d_fault > tol_loss),
+                  f"{base.name} bf16 train {grad_mode} remat={remat}: "
+                  f"{steps} steps kernels vs plain, losses max|d|="
+                  f"{d_loss:.2e} <= {tol_loss:g} (losses "
+                  f"{l0.min():.3f}..{l0.max():.3f})"
+                  + (f"; the planted fault ({fault[1]}) exceeds it "
+                     f"({d_fault:.2e})" if fault else ""))
+            continue
         d = torch.cat([(a - b).abs().flatten()
                        for a, b in zip(tree_leaves(p0), tree_leaves(p1))])
         n_off = int((d > 1e-6).sum())
-        check(d_loss <= TOL_TRAIN_LOSS and d.max().item() <= lr
+        check(d_loss <= tol_loss and d.max().item() <= lr
               and n_off <= TRAIN_PARAM_FRACTION * d.numel(),
               f"{base.name} fp32 train {grad_mode} remat={remat}: {steps} "
               f"steps kernels vs plain, losses max|d|={d_loss:.2e} <= "
-              f"{TOL_TRAIN_LOSS:g}; params max|d|={d.max().item():.2e} <= lr,"
+              f"{tol_loss:g}; params max|d|={d.max().item():.2e} <= lr,"
               f" {n_off} of {d.numel()} beyond 1e-6 (<= "
               f"{TRAIN_PARAM_FRACTION:g} of them)")
 
@@ -1552,84 +1810,81 @@ def time_wkv(gen, buf, state):
     """The wkv forward and backward kernels at the rwkv6-3b train shape
     (B=12, T=512, H=40, K=64, chunk 128, bf16 r/k/v) and at a prefill
     shape (1, 300, 40, 64), each beside its plain version and its bound
-    over the causal pairs it needs (``wkv_causal_flops``); no one PyTorch
-    call computes the wkv, so no library time."""
+    over the causal pairs it needs (``wkv_causal_flops``, at the
+    fp32-accurate tensor-core rate, "3xtf32"; the kernels run their fp32
+    products on the CUDA cores, whose bound is kept beside it); no one
+    PyTorch call computes the wkv, so no library time."""
     from repro_torch.configs import rwkv6_3b
     from repro_torch.kernels.dispatch import wkv_causal_flops
     from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
                                               rwkv_wkv_bwd_plain,
                                               rwkv_wkv_fwd, rwkv_wkv_plain)
     ch = rwkv6_3b.config().ssm.chunk_size
+    H, K = 40, 64
 
-    def io_bytes(B, T, H=40, K=64, nc=None):
-        """r/k/v bf16 and log_w fp32 in; u; the entry states when saved."""
-        seq = B * T * H * K
-        return (3 * 2 + 4) * seq + 4 * H * K + (
-            0 if nc is None else 4 * B * H * nc * K * K)
+    def io_bytes(B, T, bwd=False, emit=False):
+        """r/k/v bf16, log_w fp32 and u in; y and S_T out (forward, plus
+        the entry states when saved); the backward reads those inputs, the
+        entry states, dy and dS_T and writes dr/dk/dv bf16, dlog_w fp32
+        and du."""
+        seq, states = B * T * H * K, B * H * -(-T // ch) * K * K * 4
+        ins = (3 * 2 + 4) * seq + 4 * H * K
+        if not bwd:
+            return ins + 4 * seq + B * H * K * K * 4 + (states if emit else 0)
+        return (ins + states + 4 * seq + B * H * K * K * 4
+                + (3 * 2 + 4) * seq + 4 * H * K)
 
-    B, T, H, K = TRAIN_B, RWKV_T, 40, 64
-    r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, B, T)
-    nc = T // ch
-    dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
-    dsT = torch.zeros(B, H, K, K, device="cuda")
-    (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
-    seq, state_b = B * T * H * K, B * H * K * K * 4
-    shape = "train r/k/v (12,512,40,64) bf16, chunk 128"
-    rows = [
-        dict(name="rwkv_wkv", route="cuda",
-             source="src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-             replaces="src/repro/kernels/rwkv_wkv.py:142",
-             shape=shape + ", with the entry states",
-             ms=time_ms(lambda: rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch), buf),
-             plain_ms=time_ms(lambda: rwkv_wkv_plain(
-                 r, k, v, lw, u, chunk=ch, emit_chunk_states=True), buf),
-             library_ms=None,
-             bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b,
-             ops=wkv_causal_flops(B, T, H, K, ch),
-             dtype=torch.float32),
-        dict(name="rwkv_wkv_bwd", route="cuda",
-             source="src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-             replaces="src/repro/kernels/rwkv_wkv.py:265",
-             shape=shape + ", dy fp32",
-             ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
-                                             chunk=ch), buf),
-             plain_ms=time_ms(lambda: rwkv_wkv_bwd_plain(
-                 r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
-             library_ms=None,
-             bytes=io_bytes(B, T, nc=nc) + 4 * seq + state_b + 4 * 4 * seq
-             + 4 * B * H * K,
-             ops=wkv_causal_flops(B, T, H, K, ch, "bwd"),
-             dtype=torch.float32),
-    ]
-    # the prefill shape: the forward as prefill runs it (no entry states),
-    # and the backward there too, beside the same bounds
-    Bp, Tp = 1, 300
-    ncp = -(-Tp // ch)
-    r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, Bp, Tp)
-    dy = torch.randn(Bp, Tp, H, K, generator=gen, device="cuda")
-    dsT = torch.zeros(Bp, H, K, K, device="cuda")
-    (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
-    seq, state_b = Bp * Tp * H * K, Bp * H * K * K * 4
-    state["wkv_prefill_timing"] = {
-        "forward": dict(
-            ms=time_ms(lambda: rwkv_wkv(r, k, v, lw, u, chunk=ch,
-                                        return_state=True), buf),
-            plain_ms=time_ms(lambda: rwkv_wkv_plain(r, k, v, lw, u,
-                                                    chunk=ch), buf),
-            bound_ms=max((io_bytes(Bp, Tp) + 4 * seq + state_b)
-                         / HBM_BYTES_PER_S,
-                         wkv_causal_flops(Bp, Tp, H, K, ch)
-                         / PEAK_OPS_PER_S[torch.float32]) * 1e3),
-        "backward": dict(
+    def timed(B, T, emit_fwd):
+        r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, B, T)
+        dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
+        dsT = torch.zeros(B, H, K, K, device="cuda")
+        (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
+
+        def fwd():
+            if emit_fwd:
+                return rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
+            return rwkv_wkv(r, k, v, lw, u, chunk=ch, return_state=True)
+
+        out = {"forward": dict(
+            ms=time_ms(fwd, buf),
+            plain_ms=time_ms(lambda: rwkv_wkv_plain(
+                r, k, v, lw, u, chunk=ch, emit_chunk_states=emit_fwd), buf),
+            bytes=io_bytes(B, T, emit=emit_fwd),
+            ops=wkv_causal_flops(B, T, H, K, ch)),
+            "backward": dict(
             ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
                                             chunk=ch), buf),
             plain_ms=time_ms(lambda: rwkv_wkv_bwd_plain(
                 r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
-            bound_ms=max((io_bytes(Bp, Tp, nc=ncp) + 4 * seq + state_b
-                          + 4 * 4 * seq + 4 * Bp * H * K) / HBM_BYTES_PER_S,
-                         wkv_causal_flops(Bp, Tp, H, K, ch, "bwd")
-                         / PEAK_OPS_PER_S[torch.float32]) * 1e3)}
-    return rows
+            bytes=io_bytes(B, T, bwd=True),
+            ops=wkv_causal_flops(B, T, H, K, ch, "bwd"))}
+        for x in out.values():
+            x["bound_ms"], x["bound_cuda_cores_ms"] = (
+                max(x["bytes"] / HBM_BYTES_PER_S,
+                    x["ops"] / PEAK_OPS_PER_S[peak]) * 1e3
+                for peak in ("3xtf32", torch.float32))
+        return out
+
+    train = timed(TRAIN_B, RWKV_T, True)
+    # the prefill shape: the forward as prefill runs it (no entry states),
+    # and the backward there too
+    prefill = timed(1, 300, False)
+    state["wkv_prefill_timing"] = prefill
+    shape = "train r/k/v (12,512,40,64) bf16, chunk 128"
+    src = "src/repro_torch/kernels/csrc/rwkv_wkv.cu"
+    return [
+        dict(name="rwkv_wkv", route="cuda", source=src,
+             replaces="src/repro/kernels/rwkv_wkv.py:142",
+             shape=shape + ", with the entry states",
+             library_ms=None, dtype="3xtf32",
+             **{k: train["forward"][k]
+                for k in ("ms", "plain_ms", "bytes", "ops")}),
+        dict(name="rwkv_wkv_bwd", route="cuda", source=src,
+             replaces="src/repro/kernels/rwkv_wkv.py:265",
+             shape=shape + ", dy fp32", library_ms=None, dtype="3xtf32",
+             **{k: train["backward"][k]
+                for k in ("ms", "plain_ms", "bytes", "ops")}),
+    ]
 
 
 def kernels_line(state) -> dict:
@@ -1637,6 +1892,10 @@ def kernels_line(state) -> dict:
     for r in state["timing"]:
         bound_b = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_o = r["ops"] / PEAK_OPS_PER_S[r["dtype"]] * 1e3
+        extra = {}
+        if r["dtype"] == "3xtf32":      # and on the CUDA cores, as they run
+            extra["bound_cuda_cores_ms"] = max(
+                bound_b, r["ops"] / PEAK_OPS_PER_S[torch.float32] * 1e3)
         out.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], shape=r["shape"],
@@ -1645,7 +1904,7 @@ def kernels_line(state) -> dict:
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(bound_b, bound_o),
             bound_by="bytes" if bound_b >= bound_o else "operations",
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], **extra))
     return {"kernels": out}
 
 
@@ -1716,7 +1975,9 @@ def main() -> int:
         for what, pt in state.get("wkv_prefill_timing", {}).items():
             print(f"rwkv_wkv {what} at the prefill shape (1,300,40,64) bf16 "
                   f"chunk 128: {pt['ms']:.4f} ms, plain "
-                  f"{pt['plain_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms")
+                  f"{pt['plain_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms "
+                  f"(3xtf32; on the CUDA cores "
+                  f"{pt['bound_cuda_cores_ms']:.5f} ms)")
         for key in ("train", "train_rwkv"):
             if key in state:
                 tr = state[key]
@@ -1731,8 +1992,10 @@ def main() -> int:
         for k in line["kernels"]:
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms']:.4f} ms")
+            cores = ("" if "bound_cuda_cores_ms" not in k else
+                     f"; on the CUDA cores {k['bound_cuda_cores_ms']:.5f} ms")
             print(f"{k['name']} [{k['shape']}]: {k['ms']:.4f} ms, bound "
-                  f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "
+                  f"{k['bound_ms']:.5f} ms ({k['bound_by']}{cores}), plain "
                   f"{k['plain_ms']:.4f} ms, library {lib}, "
                   f"{k['launches']} launches on the main path")
         print("ported kernels: " + ", ".join(

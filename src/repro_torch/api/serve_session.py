@@ -86,12 +86,16 @@ class ServeRequest:
 class ServeResult:
     """One request's served stream.  ``tokens[0]`` is the prefill token
     (full path, ungated); ``tokens[1 + i]`` is gated decode tick ``i`` with
-    decision ``exited[i]`` and gate entropy ``entropy[i]``."""
+    decision ``exited[i]`` and gate entropy ``entropy[i]``.  The sequential
+    references also keep ``top2_gap[j]``, the gap between the two largest
+    logits that chose ``tokens[j]``: two paths that round differently may
+    part only at a near tie."""
     rid: int
     prompt: np.ndarray
     tokens: List[int] = field(default_factory=list)
     exited: List[bool] = field(default_factory=list)
     entropy: List[float] = field(default_factory=list)
+    top2_gap: List[float] = field(default_factory=list)
 
     @property
     def adoption_ratio(self) -> float:
@@ -176,8 +180,9 @@ class ServeSession:
                 continue
             t0 = time.perf_counter()
             req = self._queue.popleft()
-            page, tok0 = _prefill(self.cfg, self.params, req.prompt,
-                                  self.max_len, self.device)
+            page, logits = _prefill(self.cfg, self.params, req.prompt,
+                                    self.max_len, self.device)
+            tok0 = logits.argmax(-1).to(torch.int32)
             for pool_t, page_t in zip(tree_leaves(self._pool),
                                       tree_leaves(page)):
                 pool_t[s].copy_(page_t[0])
@@ -278,15 +283,15 @@ class ServeSession:
 def _prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray,
              max_len: int, device) -> Tuple[list, torch.Tensor]:
     """Prefill one request alone at its exact prompt length into a fresh
-    B=1 page (the previous occupant's tokens never leak): ``(page, first
-    token)``, the token left on the device."""
+    B=1 page (the previous occupant's tokens never leak): ``(page, logits
+    (V,) of the last prompt token)``, left on the device."""
     page = init_cache(cfg, 1, max_len, cfg.dtype, device)
     tokens = torch.as_tensor(prompt, dtype=torch.long, device=device)[None]
     out = backbone_forward(params, cfg, tokens=tokens, cache=page,
                            cache_len=torch.zeros(1, dtype=torch.int32,
                                                  device=device),
                            exit_heads=())
-    return page, out.logits[0, -1].argmax(-1).to(torch.int32)
+    return page, out.logits[0, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +307,17 @@ def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
     sc, _, _ = serve_step_config(cfg, tau, boundary)
     step = make_serve_step(sc, boundary=boundary)
     prompt = np.asarray(prompt, np.int32).reshape(-1)
-    cache, tok = _prefill(cfg, params, prompt, max_len, device)
-    res = ServeResult(rid=-1, prompt=prompt, tokens=[int(tok)])
+    cache, logits = _prefill(cfg, params, prompt, max_len, device)
+    res = ServeResult(rid=-1, prompt=prompt)
+
+    def take(logits):
+        top2 = logits.float().topk(2).values
+        res.top2_gap.append(float(top2[0] - top2[1]))
+        tok = logits.argmax(-1).to(torch.int32)
+        res.tokens.append(int(tok))
+        return tok
+
+    tok = take(logits)
     sticky = False
     for i in range(decode_tokens):
         tau_i = torch.full((1,), torch.inf if sticky else tau,
@@ -311,8 +325,7 @@ def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
         o = step(params, tok.reshape(1, 1), cache,
                  torch.full((1,), len(prompt) + i, dtype=torch.int32,
                             device=device), tau=tau_i)
-        tok = o["logits"][0, 0].argmax(-1).to(torch.int32)
-        res.tokens.append(int(tok))
+        tok = take(o["logits"][0, 0])
         res.exited.append(bool(o["exited"][0, 0]))
         res.entropy.append(float(o["entropy"][0, 0]))
         sticky = sticky_policy and (sticky or res.exited[-1])
@@ -342,3 +355,4 @@ def sequential_sticky_reference(cfg: ModelConfig, params: dict,
     return _sequential(cfg, params, prompt, decode_tokens, tau=tau,
                        boundary=boundary, max_len=max_len, device=device,
                        sticky_policy=True)
+

@@ -30,6 +30,15 @@ def smoke() -> ModelConfig:
     )
 
 
+def smoke_bf16() -> ModelConfig:
+    """The smoke config at a full head width (64) in bf16: the attention
+    forward's tile and decode routes and the backward's tile routes run
+    here, where the fp32 head-dim-32 smoke takes only the row routes."""
+    return smoke().with_(name="glm4-9b-smoke-bf16", num_heads=4,
+                         num_kv_heads=2, head_dim=64, dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16)
+
+
 def profile() -> HeteroProfile:
     return HeteroProfile(split_layers=(EXITS[0],) * 4 + (EXITS[1],) * 4
                          + (EXITS[2],) * 4)

@@ -36,6 +36,17 @@ def smoke() -> ModelConfig:
     )
 
 
+def smoke_bf16() -> ModelConfig:
+    """The smoke config at the model's head width (64, two heads) in bf16
+    with 16-token chunks: the wkv kernels run at the head dim and dtype of
+    rwkv6-3b, where the fp32 smoke runs head dim 32 and chunk 8."""
+    return smoke().with_(name="rwkv6-3b-smoke-bf16", num_heads=2,
+                         num_kv_heads=2, head_dim=64,
+                         ssm=SSMConfig(kind="rwkv6", head_dim=64,
+                                       chunk_size=16),
+                         dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+
 def profile() -> HeteroProfile:
     return HeteroProfile(split_layers=(EXITS[0],) * 4 + (EXITS[1],) * 4
                          + (EXITS[2],) * 4)

@@ -189,19 +189,18 @@ def _check_grad_mode(grad_mode: str) -> None:
                          f"{GRAD_MODES}")
 
 
-def make_train_step(sc: StepConfig) -> Callable:
-    """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``batch`` = {"tokens": (B, T), "labels": (B, T),
-    "split_ids": (B,)} on the parameters' device.  Metrics:
-    ``client_loss/b{i}`` and ``server_loss`` (0-d tensors on the device)
-    and ``lr`` (a float)."""
+def make_grad_step(sc: StepConfig) -> Callable:
+    """Builds ``grad_step(params, batch) -> (grads, metrics)``: the
+    gradients :func:`make_train_step` hands to Adam, one per leaf of
+    ``tree_leaves(params)`` (``None`` for a leaf that gets none), and the
+    metrics ``client_loss/b{i}`` and ``server_loss`` (0-d tensors on the
+    device).  ``batch`` as for :func:`make_train_step`."""
     _check_grad_mode(sc.grad_mode)
     cfg = sc.model
     nb = len(cfg.exit_layers)
-    schedule = make_schedule(sc.train.optimizer)
     remat = sc.train.remat != "none"
 
-    def train_step(params, opt_state, batch):
+    def grad_step(params, batch):
         with _Trainable(params) as leaves:
             out = backbone_forward(params, cfg, tokens=batch["tokens"],
                                    split_ids=batch["split_ids"], remat=remat)
@@ -220,10 +219,25 @@ def make_train_step(sc: StepConfig) -> Callable:
             else:
                 grads = list(torch.autograd.grad(client + server, leaves,
                                                  allow_unused=True))
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    return grad_step
+
+
+def make_train_step(sc: StepConfig) -> Callable:
+    """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: :func:`make_grad_step`'s gradients, then Adam.  ``batch`` =
+    {"tokens": (B, T), "labels": (B, T), "split_ids": (B,)} on the
+    parameters' device.  Metrics: ``client_loss/b{i}`` and ``server_loss``
+    (0-d tensors on the device) and ``lr`` (a float)."""
+    grad_step = make_grad_step(sc)
+    schedule = make_schedule(sc.train.optimizer)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = grad_step(params, batch)
         lr = schedule(opt_state.step)
         params, opt_state = adam_update(params, grads, opt_state,
                                         sc.train.optimizer, lr)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["lr"] = lr
         return params, opt_state, metrics
 

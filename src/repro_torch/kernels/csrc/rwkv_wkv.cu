@@ -1,78 +1,93 @@
-// Chunked RWKV6 wkv, forward and backward, CUDA C++ for Hopper (sm_90a).
+// Chunked RWKV6 wkv, forward and backward: CUDA C++ for Hopper (sm_90a).
 //
-// Replaces: repro/kernels/rwkv_wkv.py,
-//   _wkv_call (rwkv_wkv_pallas and rwkv_wkv_fwd_pallas, one kernel with a
-//   flag that also emits every chunk's entry state), grid (B*H, T/chunk)
-//   with the state S (K x K fp32) carried in VMEM across the sequential
-//   chunk axis, and
-//   rwkv_wkv_bwd_pallas (_wkv_bwd_kernel), the same grid walked in reverse
-//   with the state adjoint G carried in VMEM.
+// Replaces: repro/kernels/rwkv_wkv.py, _wkv_call (rwkv_wkv_pallas and
+// rwkv_wkv_fwd_pallas) and rwkv_wkv_bwd_pallas.  Same function, shapes and
+// outputs; the gradients are written in the primal dtypes.
 //
-// Per head, per key channel k, with log-decays lw_t <= 0 and, inside a chunk
-// of Q tokens, L_t = sum_{s<=t} lw_s (L_{-1} = 0):
-//   y_t  = sum_{i<t} (sum_k r_tk k_ik e^{L_{t-1,k} - L_ik}) v_i      (intra)
-//        + (sum_k r_tk u_k k_tk) v_t                                (bonus)
-//        + sum_k r_tk e^{L_{t-1,k}} S_k                             (inter)
-//   S'_k = e^{L_{Q-1,k}} S_k + sum_i k_ik e^{L_{Q-1,k} - L_ik} v_i
-// and the backward is the adjoint of that algebra, chunk by chunk in reverse
-// (dr, dk, dv, dlog_w, du; G_prev = diag(e^{L_{Q-1}}) G + (r e^{L_prev})^T dy).
+// Algebra.  Each chunk is cut into sub-tiles of 16 tokens starting at the
+// chunk's start.  Inside a tile Λ is the tile-local inclusive cumsum of the
+// log-decays (Λ_{-1} = 0, Λ_e its last row).  With S the state before the
+// tile and G the adjoint of the state after it:
+//   y_t   = (r_t e^{Λ_{t-1}}) S + sum_{i<t} A[t, i] v_i + b_t v_t
+//   A[t, i] = sum_k r_tk k_ik e^{Λ_{t-1,k} - Λ_ik} (i < t), b_t = r_t.(u k_t)
+//   S'    = e^{Λ_e} S + (k e^{Λ_e - Λ})^T v
+//   G_in  = e^{Λ_e} G + (r e^{Λ_{t-1}})^T dy
+//   dr_t  = e^{Λ_{t-1}} (dy_t S^T) + sum_{i<t} dS[t, i] k_i e^{Λ_{t-1}-Λ_i}
+//           + u k_t db_t                      (dS = dy v^T, db_t = dS[t, t])
+//   dk_i  = e^{Λ_e-Λ_i} (v_i G^T) + sum_{t>i} dS[t, i] r_t e^{Λ_{t-1}-Λ_i}
+//           + u r_i db_i
+//   dv_i  = (k_i e^{Λ_e-Λ_i}) G + sum_{t>i} A[t, i] dy_t + b_i dy_i
+//   dlog_w_t = rowsum(G_c * S_c') + sum_{i>t} r_i dr'_i - sum_{i>=t} k_i dk'_i
+// (dr', dk' without the bonus terms; G_c, S_c' the adjoint and the state at
+// the end of the token's chunk, the sums over the chunk's tokens).  The
+// decays are factored per tile: only the diagonal tile's pairs take one
+// exponential per (t, i, k); everything between tiles goes through the
+// state or its adjoint, so every other exponential is one per (t, k) or per
+// tile, and every exponent is <= 0 (no overflow; underflow to 0 is right).
+// The TPU algebra's k e^{-L} does not come back.
 //
-// Numerics.  The TPU kernel forms k e^{-L} and r e^{L_prev} separately; at
-// chunk 128 with strong decays -L passes fp32's ~88 and the product turns
-// into inf * 0.  These kernels use the PAIRWISE form: every intra-chunk
-// weight is computed as expf(L_{t-1,k} - L_ik) with i < t, an exponent <= 0,
-// so nothing overflows; every other exponential here (e^{L_prev},
-// e^{L_{Q-1}}, e^{L_{Q-1} - L_i}) has an exponent <= 0 as well.  The
-// backward's log-decay path is rewritten in the same terms (d_kw * kw =
-// k * dk_intra, d_rw * rw = r * (dr_intra + e^{L_prev} dy S0^T)).  Same
-// function, different rounding: the plain versions follow the TPU algebra.
+// Passes (launches):
+//   forward   1. state pass  (b*h; its value columns split in tiles of 16
+//                 when B*H does not fill the card): S before every chunk
+//                 (the entry states s0) and S_T, 32-token tiles in order;
+//             2. output pass (b*h, chunk): y from the chunk's s0.
+//   backward  1. adjoint pass (b*h, as the state pass): G after every chunk
+//                 from dS_T, tiles in reverse;
+//             2. gradient pass (b*h, chunk): from s0 and G, tiles in order
+//                 (dr and r dr' into dlog_w), then in reverse (dk, dv,
+//                 dlog_w by the in-chunk reverse cumsum, a du partial);
+//             3. du: the per-chunk partials summed over batch and chunks in
+//                 a fixed order (no float atomics: the same bits on every
+//                 launch).
 //
-// Design.  The TPU's sequential chunk axis becomes a loop inside the block.
-//   Forward: one block per (b*h, value-column tile).  y[:, j] and S[:, j]
-//   depend only on v[:, j] and S[:, j], so the value columns split across
-//   blocks with no reduction (the wrapper splits them when b*h alone does
-//   not fill the card, as at prefill: 40 heads on 132 SMs); each block
-//   recomputes the chunk's scores.  The state tile lives in shared memory.
-//   Backward: one block per b*h (dr, dk and dlog_w sum over the value
-//   columns, so a value split would need a reduction), G in shared memory,
-//   seeded from dS_T; four passes per chunk:
-//     A  rows t:    dS[t, i] = dy_t . v_i, dr, and dL_prev (to scratch);
-//     B  columns i: scores A[t, i] and dS[t, i] for t > i, dk, dv, dL;
-//     C  channels k: dL_Q, the in-chunk reverse cumsum giving dlog_w, du;
-//     D  G update.
-//   256 threads (8 warps).  A warp owns one row (or column) at a time:
-//   lane l scores token i0 + l of a 32-token tile, the warp broadcasts the
-//   scores by shuffles and lane l accumulates channels l, l + 32.  Rows of
-//   r/k/L/dy in shared memory are padded to K + 1 words, so reads with a
-//   lane-varying token are free of bank conflicts.  Ragged last chunks:
-//   only the first nv = T - t0 tokens are loaded and every loop stops at
-//   nv, which is what padding with log_w = 0, k = 0 steps computes (the
-//   chunk decay e^{L_{nv-1}} equals e^{L_{Q-1}} of the padded chunk), so
-//   the returned state is that of the T real tokens.  Operands are read
-//   through the model layout's strides (B, T, H, K), innermost stride 1;
-//   r/k/v in fp32 or bf16, log_w, u and dy in fp32; every output is fp32.
+// Products on fp32 register tiles.  128 threads; thread (tm, tn) = (tid % 8,
+// tid / 8) owns rows {tm, 15 - tm} of a 16-token tile (the pairwise loops
+// over i < t and t > i then cost each thread 15 terms) or rows tm + 8 a of
+// a K x K state, and K / 16 adjacent columns tn K / 16 .. .  Operands come
+// from shared memory four at a time along the contraction (rows padded by
+// 16 bytes: eight threads of a quarter-warp read eight rows in distinct
+// banks, or one broadcast address).  r, k and v sit in shared memory at
+// their input width (bf16 on the main path), dy and the log-decays in
+// fp32; the factored operands (r e^{Λ_{t-1}}, k e^{Λ_e - Λ}, transposed
+// where the product wants them) and the state are fp32.  Every pass walks
+// its tiles with the next tile's inputs already in flight: cp.async copies
+// them into the other of two stages while the current tile computes (rows
+// of 16-byte multiples; the wrapper copies an operand whose rows are not
+// on 16 bytes first).  At K = 64 in bf16 a block holds 44 KiB (state
+// pass), 52 KiB (adjoint pass), 50 KiB (output pass) or 64 KiB (gradient
+// pass), the sizes of the *Smem structs below, and ptxas -v gives 128,
+// 128, 119 or 150 registers a thread, the adjoint pass with 8 bytes of
+// spill stores and loads, the others none: 3-4 blocks share an SM.
 //
-// Bound on this card: operations.  At the training shape (B = 12, T = 512,
-// H = 40, K = 64, chunk 128) the forward needs 8.08 GFLOP of products over
-// the causal pairs (B T H K (2(Q + 1) + 4K); the JAX package's roofline
-// counts the full Q x Q square) and moves ~50 MB, so max(50 MB / 3.35 TB/s,
-// 8.08 GFLOP / 67 TFLOP/s fp32) = 0.121 ms; the backward needs 18.2 GFLOP
-// (B T H K (5(Q + 1) + 8K)), 0.272 ms.  These kernels do plain fp32 FMAs
-// and one expf per (t, i, k) triple of the intra-chunk work (Q^2 K / 2 per
-// chunk in the forward, three times that in the backward), so the
-// exponentials, not the products, set their time.  Next: factor the
-// off-diagonal 32-token tiles through a per-tile reference decay (exponents
-// stay <= 0, exponentials drop ~16x), then wgmma for the tile products.
+// Bound on this card.  At the training shape (B = 12, T = 512, H = 40,
+// K = 64, chunk 128) the chunked algebra's causal pairs need 8.08 GFLOP
+// forward, 18.2 backward (dispatch.wkv_causal_flops).  These products are
+// fp32 FMAs on the CUDA cores (67 TFLOP/s: 0.121 / 0.272 ms), but an
+// fp32-accurate product could run on the tensor cores as 3xTF32 (495 / 3
+// TFLOP/s: 0.049 / 0.110 ms), so that rate, or the bytes where they take
+// longer, is the bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <math.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+
+constexpr int kThreads = 128;
+constexpr int kTile = 16;         // tokens of an output / gradient tile
+constexpr int kScanTile = 32;     // tokens of a state / adjoint pass tile
+constexpr int kTP = kTile + 4;    // padded row of a [K][tile] fp32 array
+constexpr int kMaxSmem = 232448;
+
+// a shared-memory row of C elements of T, padded by 16 bytes
+template <typename T, int C>
+__host__ __device__ constexpr int pitch() {
+  return C + 16 / static_cast<int>(sizeof(T));
+}
 
 }  // namespace
 
@@ -81,27 +96,29 @@ struct WkvParams {
   const void* r;        // (B, T, H, K) through strides, dtype below
   const void* k;
   const void* v;
-  const float* log_w;   // (B, T, H, K) through strides, fp32
-  const float* u;       // (H, K) contiguous fp32
-  const float* dy;      // backward: (B, T, H, K) through strides, fp32
-  const float* s0_in;   // backward: (B*H, nc, K, K) contiguous, entry states
+  const float* log_w;   // (B, T, H, K) through strides
+  const float* u;       // (H, K) contiguous
+  const float* dy;      // backward: (B, T, H, K) through strides
   const float* dsT;     // backward: (B*H, K, K) contiguous
+  const float* s0_in;   // backward: (B*H, nc, K, K) contiguous entry states
   float* y;             // forward: (B, T, H, K) contiguous
-  float* sT;            // forward: (B*H, K, K) contiguous
-  float* s0;            // forward: (B*H, nc, K, K) contiguous, or null
-  float* dr;            // backward: (B, T, H, K) contiguous
-  float* dk;
-  float* dv;
-  float* dlw;
-  float* du;            // backward: (B*H, K) per row
-  float* scratch;       // backward: (B*H, chunk, K)
-  long long r_sb, r_st, r_sh;
-  long long k_sb, k_st, k_sh;
+  float* sT;            // forward: (B*H, K, K)
+  float* s0;            // forward: (B*H, nc, K, K), entry states or scratch
+  void* dr;             // backward: (B, T, H, K) contiguous, dtype below
+  void* dk;
+  void* dv;
+  float* dlw;           // backward: (B, T, H, K) contiguous
+  float* du;            // backward: (H, K)
+  float* g;             // backward scratch: (B*H, nc, K, K) exit adjoints
+  float* du_part;       // backward scratch: (B*H, nc, K)
+  long long r_sb, r_st, r_sh;   // strides in elements; every row starts on
+  long long k_sb, k_st, k_sh;   // 16 bytes
   long long v_sb, v_st, v_sh;
   long long w_sb, w_st, w_sh;
   long long dy_sb, dy_st, dy_sh;
-  int batch, seq, heads, head_dim, chunk, v_split;
-  int dtype;            // r/k/v: 0 = float32, 1 = bfloat16
+  int batch, seq, heads, head_dim, chunk;
+  int scan_split;       // state / adjoint pass blocks per b*h: 1 or K / 16
+  int dtype;            // r/k/v and dr/dk/dv: 0 = float32, 1 = bfloat16
 };
 
 namespace {
@@ -110,429 +127,800 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
-__device__ __forceinline__ float warp_sum(float x) {
+// four consecutive elements of shared memory as fp32 (16 or 8 bytes,
+// aligned)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float at(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// RN consecutive elements (RN 1, 2 or 4, aligned to RN elements) as fp32
+template <int RN, typename T>
+__device__ __forceinline__ void ld_cols(float (&out)[RN], const T* p) {
+  if constexpr (RN == 4) {
+    const float4 x = ld4(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else if constexpr (RN == 2 && sizeof(T) == 4) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  } else if constexpr (RN == 2) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = x.x; out[1] = x.y;
+  } else {
+    out[0] = to_float(*p);
+  }
+}
+
+// acc[i][j] += sum_d A[i][d] B[j][d]: every operand row contiguous along d
+// (aligned to 4 elements), D a multiple of 4.
+template <int RM, int RN, int D, typename TA, typename TB>
+__device__ __forceinline__ void mm_nt(float (&acc)[RM][RN],
+                                      const TA* const* a,
+                                      const TB* const* b) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RM], bv[RN];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+    for (int i = 0; i < RM; ++i) av[i] = ld4(a[i] + d);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) bv[j] = ld4(b[j] + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+      }
+  }
 }
 
-template <int K>
-size_t fwd_smem_bytes(int chunk, int vt) {
-  return sizeof(float) * (3 * static_cast<size_t>(chunk) * (K + 1) +
-                          static_cast<size_t>(chunk) * vt +
-                          static_cast<size_t>(K) * vt + kWarps * K);
+// acc[i][j] += sum_d A[i][d] B[d][j]: A rows contiguous along d (fp32), B's
+// row d holds the thread's RN columns contiguously at b + d * ldb
+template <int RM, int RN, int D, typename TB>
+__device__ __forceinline__ void mm_nn(float (&acc)[RM][RN],
+                                      const float* const* a,
+                                      const TB* b, int ldb) {
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) av[i] = ld4(a[i] + d);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      float bv[RN];
+      ld_cols<RN>(bv, b + (d + dd) * ldb);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j)
+          acc[i][j] = fmaf(at(av[i], dd), bv[j], acc[i][j]);
+    }
+  }
 }
 
-template <int K>
-size_t bwd_smem_bytes(int chunk) {
-  return sizeof(float) * (5 * static_cast<size_t>(chunk) * (K + 1) +
-                          2 * static_cast<size_t>(K) * (K + 1) +
-                          2 * kWarps * K + 2 * static_cast<size_t>(chunk));
+// Starts copying rows < n of a (B, T, H, K)-strided operand tile (COLS
+// elements a row from src, the tile's first token and column) into
+// dst[t * P + c] (P = pitch<T, COLS>), rows n .. ROWS - 1 zero-filled:
+// 16-byte cp.async chunks, committed by the caller.
+template <typename T, int COLS, int ROWS>
+__device__ __forceinline__ void async_tile(T* dst, const T* src,
+                                           long long st, int n) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  constexpr int CH = COLS / E;  // chunks a row
+  constexpr int P = pitch<T, COLS>();
+  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+    const int t = i / CH, c = (i % CH) * E;
+    const bool ok = t < n;
+    cp_async16(dst + t * P + c, src + (ok ? t * st + c : 0), ok);
+  }
 }
 
-// In-chunk inclusive cumsum of the log-decays, one thread per channel.
-template <int K>
-__device__ __forceinline__ void chunk_cumsum(float* Ls, int nv) {
-  constexpr int KP = K + 1;
+// tile-local inclusive cumsum down the ROWS rows, one thread per channel;
+// rows past the tile's tokens hold log-decay 0, so the last row is Λ_e
+template <int K, int ROWS>
+__device__ __forceinline__ void tile_cumsum(float* Ls, int ld) {
   if (threadIdx.x < K) {
-    float acc = 0.f;
-    for (int t = 0; t < nv; ++t) {
-      acc += Ls[t * KP + threadIdx.x];
-      Ls[t * KP + threadIdx.x] = acc;
+    float x[ROWS];
+#pragma unroll
+    for (int t = 0; t < ROWS; ++t) x[t] = Ls[t * ld + threadIdx.x];
+#pragma unroll
+    for (int t = 1; t < ROWS; ++t) x[t] += x[t - 1];
+#pragma unroll
+    for (int t = 0; t < ROWS; ++t) Ls[t * ld + threadIdx.x] = x[t];
+  }
+}
+
+// pair p < 120 of the strict lower triangle of a 16 x 16 tile -> (t, i),
+// i < t, rows in order
+__device__ __forceinline__ void strict_pair(int p, int& t, int& i) {
+  t = 1;
+  while ((t + 1) * t / 2 <= p) ++t;
+  i = p - t * (t - 1) / 2;
+}
+
+// A[t][i] = sum_k x_tk y_ik e^{Λ_{t-1,k} - Λ_ik} for one strict pair (x, y
+// rows of pitch XP, Λ rows of pitch LP)
+template <int K, int XP, int LP, typename T>
+__device__ __forceinline__ float pair_dot(const T* xs, const T* ys,
+                                          const float* Ls, int t, int i) {
+  const T* xt = xs + t * XP;
+  const T* yi = ys + i * XP;
+  const float* lp = Ls + (t - 1) * LP;
+  const float* li = Ls + i * LP;
+  float a[4] = {};
+#pragma unroll 4
+  for (int c = 0; c < K; c += 4) {
+    const float4 x = ld4(xt + c), y = ld4(yi + c);
+    const float4 p = ld4(lp + c), q = ld4(li + c);
+    a[0] = fmaf(x.x * y.x, __expf(p.x - q.x), a[0]);
+    a[1] = fmaf(x.y * y.y, __expf(p.y - q.y), a[1]);
+    a[2] = fmaf(x.z * y.z, __expf(p.z - q.z), a[2]);
+    a[3] = fmaf(x.w * y.w, __expf(p.w - q.w), a[3]);
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+template <int K, typename TX, typename TY>
+__device__ __forceinline__ float row_dot(const TX* x, const TY* y) {
+  float a[2] = {};
+#pragma unroll
+  for (int c = 0; c < K; c += 4) {
+    const float4 p = ld4(x + c), q = ld4(y + c);
+    a[(c / 4) & 1] = fmaf(p.x, q.x, fmaf(p.y, q.y, fmaf(p.z, q.z,
+                          fmaf(p.w, q.w, a[(c / 4) & 1]))));
+  }
+  return a[0] + a[1];
+}
+
+// b_t = sum_k r_tk u_k k_tk
+template <int K, typename T>
+__device__ __forceinline__ float row_dot3(const T* x, const float* u,
+                                          const T* y) {
+  float a = 0.f;
+#pragma unroll
+  for (int c = 0; c < K; c += 4) {
+    const float4 p = ld4(x + c), w = ld4(u + c), q = ld4(y + c);
+    a = fmaf(p.x * w.x, q.x, fmaf(p.y * w.y, q.y,
+             fmaf(p.z * w.z, q.z, fmaf(p.w * w.w, q.w, a))));
+  }
+  return a;
+}
+
+// The 16 x 16 pair matrix of a tile written at out[t * ldt + i * ldi]:
+// strict pairs by ``strict(t, i)``, the diagonal by ``diag(t)``; with
+// zero_upper the cells i > t are written 0.  Threads 0..119 take one
+// strict pair each, threads 120..127 and 0..7 one diagonal cell.
+template <typename Strict, typename Diag>
+__device__ __forceinline__ void tile_pairs(float* out, int ldt, int ldi,
+                                           Strict strict, Diag diag,
+                                           bool zero_upper) {
+  const int tid = threadIdx.x;
+  if (tid < 120) {
+    int t, i;
+    strict_pair(tid, t, i);
+    out[t * ldt + i * ldi] = strict(t, i);
+    if (zero_upper) out[i * ldt + t * ldi] = 0.f;
+  } else {
+    const int t = tid - 120;            // 0..7
+    out[t * ldt + t * ldi] = diag(t);
+  }
+  if (tid < 8) out[(tid + 8) * ldt + (tid + 8) * ldi] = diag(tid + 8);
+}
+
+// acc[q][j] += sum_{i < t} dS[t][i] x[i][c] e^{Λ[t-1][c] - Λ[i][c]} for the
+// rows t in {tm, 15 - tm} and columns c = n0 + j: the two rows' 15 terms
+// as one unrolled run (term q < tm is row tm's i = q, the rest row
+// 15 - tm's i = q - tm)
+template <int CN, int XP, int LP, typename T>
+__device__ __forceinline__ void pairs_below(float (&acc)[2][CN], int tm,
+                                            int n0, const float* dSs,
+                                            const T* xs, const float* Ls) {
+  const int t1 = kTile - 1 - tm;
+  float lp[2][CN];
+#pragma unroll
+  for (int j = 0; j < CN; ++j) {
+    lp[0][j] = tm ? Ls[(tm - 1) * LP + n0 + j] : 0.f;
+    lp[1][j] = Ls[(t1 - 1) * LP + n0 + j];
+  }
+#pragma unroll
+  for (int q = 0; q < kTile - 1; ++q) {
+    const bool first = q < tm;
+    const int t = first ? tm : t1;
+    const int i = first ? q : q - tm;
+    const float d = dSs[t * kTP + i];
+    float xv[CN], lv[CN];
+    ld_cols<CN>(xv, xs + i * XP + n0);
+    ld_cols<CN>(lv, Ls + i * LP + n0);
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const float val = d * xv[j] * __expf((first ? lp[0][j] : lp[1][j]) - lv[j]);
+      if (first) acc[0][j] += val; else acc[1][j] += val;
+    }
+  }
+}
+
+// acc[q][j] += sum_{t > i} dS[t][i] x[t][c] e^{Λ[t-1][c] - Λ[i][c]} for the
+// rows i in {tm, 15 - tm}: term q < 15 - tm is row tm's t = tm + 1 + q, the
+// rest row 15 - tm's t = q + 1
+template <int CN, int XP, int LP, typename T>
+__device__ __forceinline__ void pairs_above(float (&acc)[2][CN], int tm,
+                                            int n0, const float* dSs,
+                                            const T* xs, const float* Ls) {
+  const int i1 = kTile - 1 - tm;
+  float li[2][CN];
+#pragma unroll
+  for (int j = 0; j < CN; ++j) {
+    li[0][j] = Ls[tm * LP + n0 + j];
+    li[1][j] = Ls[i1 * LP + n0 + j];
+  }
+#pragma unroll
+  for (int q = 0; q < kTile - 1; ++q) {
+    const bool first = q < i1;
+    const int i = first ? tm : i1;
+    const int t = first ? tm + 1 + q : q + 1;
+    const float d = dSs[t * kTP + i];
+    float xv[CN], lv[CN];
+    ld_cols<CN>(xv, xs + t * XP + n0);
+    ld_cols<CN>(lv, Ls + (t - 1) * LP + n0);
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const float val = d * xv[j] * __expf(lv[j] - (first ? li[0][j] : li[1][j]));
+      if (first) acc[0][j] += val; else acc[1][j] += val;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// state pass (forward) and adjoint pass (backward)
 // ---------------------------------------------------------------------------
 
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads) wkv_fwd_kernel(const WkvParams p) {
-  constexpr int KP = K + 1;
-  constexpr int kC = (K + 31) / 32;  // channels (or value columns) per lane
-  extern __shared__ float smem[];
-  const int Q = p.chunk;
-  const int VT = K / p.v_split;
-  float* rs = smem;            // [Q][KP]
-  float* ks = rs + Q * KP;     // [Q][KP]
-  float* Ls = ks + Q * KP;     // [Q][KP] inclusive cumsum of log_w
-  float* vs = Ls + Q * KP;     // [Q][VT]
-  float* S = vs + Q * VT;      // [K][VT] carried state, this block's columns
-  float* wb = S + K * VT;      // [kWarps][K] per-warp row buffer
+// Grid (B*H, K / VT); each block carries VT value columns of the state
+// (forward: S = e^{Λ_e} S + (k e^{Λ_e-Λ})^T v, tiles in order, S stored
+// before every chunk into s0 and after the last token into sT) or of the
+// adjoint (backward: G = e^{Λ_e} G + (r e^{Λ_{t-1}})^T dy, tiles in
+// reverse from dsT, G stored after every chunk into g).  Thread (tm, tn)
+// keeps rows tm + 8 a and columns tn VT / 16 .. of it in registers.
+template <typename T, typename TY, int K, int VT>
+struct ScanSmem {
+  static constexpr int XP = pitch<T, K>(), LP = K + 4,
+                       YP = pitch<TY, VT>(), SP = kScanTile + 4;
+  T x[2][kScanTile * XP];        // k (or r), two stages
+  float L[2][kScanTile * LP];    // log-decays -> Λ, two stages
+  TY y[2][kScanTile * YP];       // v (or dy), this block's columns
+  float fT[K * SP];              // factored k (or r), transposed
+  float es[K];                   // e^{Λ_e}
+};
+
+template <typename T, typename TY, int K, int VT, bool REV>
+__global__ void __launch_bounds__(kThreads)
+wkv_scan_kernel(const WkvParams p) {
+  using Sm = ScanSmem<T, TY, K, VT>;
+  constexpr int XP = Sm::XP, LP = Sm::LP, YP = Sm::YP, SP = Sm::SP;
+  constexpr int TS = kScanTile;
+  constexpr int RM = K / 8;
+  constexpr int CN = VT / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
 
   const int bh = blockIdx.x;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int col0 = blockIdx.y * VT;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nc = (p.seq + Q - 1) / Q;
+  const int j0 = blockIdx.y * VT;
+  const int tm = threadIdx.x & 7, tn = threadIdx.x >> 3;
+  const int n0 = tn * CN;
+  const int nc = (p.seq + p.chunk - 1) / p.chunk;
+  const int ntf = (p.chunk + TS - 1) / TS;                  // tiles a chunk
+  const int ntl = (p.seq - (nc - 1) * p.chunk + TS - 1) / TS;  // the last's
+  const int nq = (nc - 1) * ntf + ntl;
+  const T* x = static_cast<const T*>(REV ? p.r : p.k)
+               + b * (REV ? p.r_sb : p.k_sb) + h * (REV ? p.r_sh : p.k_sh);
+  const long long x_st = REV ? p.r_st : p.k_st;
+  const TY* yv = REV ? reinterpret_cast<const TY*>(p.dy) + b * p.dy_sb
+                           + h * p.dy_sh + j0
+                     : static_cast<const TY*>(p.v) + b * p.v_sb + h * p.v_sh
+                           + j0;
+  const long long y_st = REV ? p.dy_st : p.v_st;
+  const float* lw = p.log_w + b * p.w_sb + h * p.w_sh;
+  const long long kk = static_cast<long long>(K) * K;
 
+  // tile q of the walk -> chunk c, first token s, tokens n, and whether it
+  // is the chunk's first tile in walking order
+  auto tile = [&](int q, int& c, int& s, int& n) {
+    const int f = REV ? nq - 1 - q : q;
+    c = min(f / ntf, nc - 1);
+    const int tt = f - c * ntf;
+    s = c * p.chunk + tt * TS;
+    n = min(TS, min(c * p.chunk + p.chunk, p.seq) - s);
+    return REV ? tt == (c == nc - 1 ? ntl : ntf) - 1 : tt == 0;
+  };
+  auto issue = [&](int q) {
+    int c, s, n;
+    tile(q, c, s, n);
+    const int st = q & 1;
+    async_tile<T, K, TS>(sm.x[st], x + s * x_st, x_st, n);
+    async_tile<float, K, TS>(sm.L[st], lw + s * p.w_st, p.w_st, n);
+    async_tile<TY, VT, TS>(sm.y[st], yv + s * y_st, y_st, n);
+  };
+
+  float S[RM][CN];
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+      S[a][j] = REV ? p.dsT[bh * kk + (tm + 8 * a) * K + j0 + n0 + j] : 0.f;
+  const float* arow[RM];
+#pragma unroll
+  for (int a = 0; a < RM; ++a) arow[a] = sm.fT + (tm + 8 * a) * SP;
+
+  issue(0);
+  cp_async_commit();
+  for (int q = 0; q < nq; ++q) {
+    const int st = q & 1;
+    if (q + 1 < nq) issue(q + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile q is in stage st; stage st ^ 1 is filling
+    int c, s, n;
+    if (tile(q, c, s, n)) {
+      float* out = (REV ? p.g : p.s0) + (bh * nc + c) * kk + j0 + n0;
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) out[(tm + 8 * a) * K + j] = S[a][j];
+    }
+    float* Ls = sm.L[st];
+    tile_cumsum<K, TS>(Ls, LP);
+    __syncthreads();
+    for (int i = threadIdx.x; i < TS * K; i += kThreads) {
+      const int t = i % TS, cl = i / TS;
+      const float e = REV ? (t ? Ls[(t - 1) * LP + cl] : 0.f)
+                          : Ls[(TS - 1) * LP + cl] - Ls[t * LP + cl];
+      sm.fT[cl * SP + t] = to_float(sm.x[st][t * XP + cl]) * __expf(e);
+    }
+    if (threadIdx.x < K)
+      sm.es[threadIdx.x] = __expf(Ls[(TS - 1) * LP + threadIdx.x]);
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) S[a][j] *= sm.es[tm + 8 * a];
+    mm_nn<RM, CN, TS>(S, arow, sm.y[st] + n0, YP);
+    __syncthreads();  // stage st and fT are free for the next tiles
+  }
+  if (!REV) {
+    float* out = p.sT + bh * kk + j0 + n0;
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) out[(tm + 8 * a) * K + j] = S[a][j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// output pass (forward)
+// ---------------------------------------------------------------------------
+
+template <typename T, int K>
+struct OutSmem {
+  static constexpr int XP = pitch<T, K>(), LP = K + 4;
+  T r[2][kTile * XP];            // two stages of r, k, v (input width)
+  T k[2][kTile * XP];
+  T v[2][kTile * XP];
+  float L[2][kTile * LP];        // and of the log-decays -> Λ
+  float Rt[kTile * LP];          // r e^{Λ_{t-1}}
+  float KtT[K * kTP];            // (k e^{Λ_e - Λ})^T
+  float Ad[kTile * kTP];         // A, b on the diagonal
+  float S[K * LP];               // state
+  float us[K];
+  float es[K];                   // e^{Λ_e}
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+wkv_out_kernel(const WkvParams p) {
+  using Sm = OutSmem<T, K>;
+  constexpr int XP = Sm::XP, LP = Sm::LP;
+  constexpr int CN = K / 16;
+  constexpr int RM = K / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+
+  const int bh = blockIdx.x, c = blockIdx.y;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int tm = threadIdx.x & 7, tn = threadIdx.x >> 3;
+  const int n0 = tn * CN;
+  const int nc = (p.seq + p.chunk - 1) / p.chunk;
+  const int c0 = c * p.chunk;
+  const int nvc = min(p.chunk, p.seq - c0);
+  const int ntiles = (nvc + kTile - 1) / kTile;
   const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + col0;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* lw = p.log_w + b * p.w_sb + h * p.w_sh;
-  float u_l[kC];
+  const long long kk = static_cast<long long>(K) * K;
+  auto issue = [&](int tt) {
+    const int s = c0 + tt * kTile, n = min(kTile, c0 + nvc - s), st = tt & 1;
+    async_tile<T, K, kTile>(sm.r[st], r + s * p.r_st, p.r_st, n);
+    async_tile<T, K, kTile>(sm.k[st], kp + s * p.k_st, p.k_st, n);
+    async_tile<T, K, kTile>(sm.v[st], v + s * p.v_st, p.v_st, n);
+    async_tile<float, K, kTile>(sm.L[st], lw + s * p.w_st, p.w_st, n);
+  };
+  issue(0);
+  cp_async_commit();
+
+  const float* s0 = p.s0 + (bh * nc + c) * kk;
+  for (int i = threadIdx.x; i < K * K; i += kThreads)
+    sm.S[(i / K) * LP + i % K] = s0[i];
+  if (threadIdx.x < K) sm.us[threadIdx.x] = p.u[h * K + threadIdx.x];
+  const int rows[2] = {tm, kTile - 1 - tm};
+
+  for (int tt = 0; tt < ntiles; ++tt) {
+    const int s = c0 + tt * kTile;
+    const int n = min(kTile, c0 + nvc - s);
+    const int st = tt & 1;
+    if (tt + 1 < ntiles) issue(tt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile tt is in stage st (and S, us are written)
+    const T* rs = sm.r[st];
+    const T* ks = sm.k[st];
+    const T* vs = sm.v[st];
+    float* Ls = sm.L[st];
+    tile_cumsum<K, kTile>(Ls, LP);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTile * K; i += kThreads) {
+      const int t = i / K, cl = i % K;
+      sm.Rt[t * LP + cl] = to_float(rs[t * XP + cl])
+          * __expf(t ? Ls[(t - 1) * LP + cl] : 0.f);
+    }
+    for (int i = threadIdx.x; i < kTile * K; i += kThreads) {
+      const int t = i % kTile, cl = i / kTile;
+      sm.KtT[cl * kTP + t] = to_float(ks[t * XP + cl])
+          * __expf(Ls[(kTile - 1) * LP + cl] - Ls[t * LP + cl]);
+    }
+    if (threadIdx.x < K)
+      sm.es[threadIdx.x] = __expf(Ls[(kTile - 1) * LP + threadIdx.x]);
+    tile_pairs(sm.Ad, kTP, 1,
+               [&](int t, int i) { return pair_dot<K, XP, LP>(rs, ks, Ls, t, i); },
+               [&](int t) { return row_dot3<K>(rs + t * XP, sm.us, ks + t * XP); },
+               true);
+    __syncthreads();
+
+    float acc[2][CN] = {};
+    const float* ar[2] = {sm.Rt + rows[0] * LP, sm.Rt + rows[1] * LP};
+    mm_nn<2, CN, K>(acc, ar, sm.S + n0, LP);
+    const float* ad[2] = {sm.Ad + rows[0] * kTP, sm.Ad + rows[1] * kTP};
+    mm_nn<2, CN, kTile>(acc, ad, vs + n0, XP);
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int kk = lane + 32 * c;
-    u_l[c] = kk < K ? p.u[h * K + kk] : 0.f;
+    for (int q = 0; q < 2; ++q) {
+      if (rows[q] < n) {
+        float* y = p.y + ((static_cast<long long>(b) * p.seq + s + rows[q])
+                          * p.heads + h) * K + n0;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) y[j] = acc[q][j];
+      }
+    }
+    if (tt + 1 == ntiles) break;
+    __syncthreads();  // every row has read S
+    float st4[RM][CN];
+    const float* ak[RM];
+#pragma unroll
+    for (int a = 0; a < RM; ++a) {
+      const int m = tm + 8 * a;
+      ak[a] = sm.KtT + m * kTP;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) st4[a][j] = sm.S[m * LP + n0 + j] * sm.es[m];
+    }
+    mm_nn<RM, CN, kTile>(st4, ak, vs + n0, XP);
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) sm.S[(tm + 8 * a) * LP + n0 + j] = st4[a][j];
+    __syncthreads();  // S is updated; stage st is free
   }
-  for (int i = threadIdx.x; i < K * VT; i += kThreads) S[i] = 0.f;
-
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * Q;
-    const int nv = min(Q, p.seq - t0);
-    __syncthreads();  // the previous chunk's state update is complete
-    if (p.s0 != nullptr) {
-      float* s0 = p.s0 + (static_cast<long long>(bh) * nc + ci) * K * K + col0;
-      for (int i = threadIdx.x; i < K * VT; i += kThreads)
-        s0[(i / VT) * K + i % VT] = S[i];
-    }
-    for (int i = threadIdx.x; i < nv * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      const long long tt = t0 + t;
-      rs[t * KP + kk] = to_float(r[tt * p.r_st + kk]);
-      ks[t * KP + kk] = to_float(kp[tt * p.k_st + kk]);
-      Ls[t * KP + kk] = lw[tt * p.w_st + kk];
-    }
-    for (int i = threadIdx.x; i < nv * VT; i += kThreads) {
-      const int t = i / VT, j = i % VT;
-      vs[t * VT + j] = to_float(v[(t0 + t) * p.v_st + j]);
-    }
-    __syncthreads();
-    chunk_cumsum<K>(Ls, nv);
-    __syncthreads();
-
-    for (int t = warp; t < nv; t += kWarps) {
-      const float* rt = rs + t * KP;
-      const float* Lpt = Ls + max(t - 1, 0) * KP;  // read only when t > 0
-      float acc[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-      // intra: lane l scores token i0 + l, the warp broadcasts the scores
-      for (int i0 = 0; i0 < t; i0 += 32) {
-        const int i = i0 + lane;
-        float a = 0.f;
-        if (i < t) {
-          const float* ki = ks + i * KP;
-          const float* Li = Ls + i * KP;
-#pragma unroll 8
-          for (int kk = 0; kk < K; ++kk)
-            a = fmaf(rt[kk] * ki[kk], expf(Lpt[kk] - Li[kk]), a);
-        }
-        const int n = min(32, t - i0);
-        for (int jj = 0; jj < n; ++jj) {
-          const float aj = __shfl_sync(kFull, a, jj);
-          const float* vi = vs + (i0 + jj) * VT;
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            const int j = lane + 32 * c;
-            if (j < VT) acc[c] = fmaf(aj, vi[j], acc[c]);
-          }
-        }
-      }
-      // bonus diagonal, and this row's decayed query into the warp buffer
-      float bonus = 0.f;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        if (kk < K) {
-          bonus += rt[kk] * u_l[c] * ks[t * KP + kk];
-          wb[warp * K + kk] = rt[kk] * expf(t > 0 ? Lpt[kk] : 0.f);
-        }
-      }
-      bonus = warp_sum(bonus);
-      __syncwarp();
-      float* y = p.y + ((static_cast<long long>(b) * p.seq + t0 + t) * p.heads
-                        + h) * K + col0;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int j = lane + 32 * c;
-        if (j < VT) {
-          float inter = 0.f;
-          for (int kk = 0; kk < K; ++kk)
-            inter = fmaf(wb[warp * K + kk], S[kk * VT + j], inter);
-          y[j] = acc[c] + bonus * vs[t * VT + j] + inter;
-        }
-      }
-      __syncwarp();  // the buffer is rewritten by this warp's next row
-    }
-    __syncthreads();
-
-    // state update: k_i e^{L_{nv-1} - L_i} in place, then S' column by column
-    for (int i = threadIdx.x; i < nv * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      ks[t * KP + kk] *= expf(Ls[(nv - 1) * KP + kk] - Ls[t * KP + kk]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < K * VT; i += kThreads) {
-      const int kk = i / VT, j = i % VT;
-      float s = S[i] * expf(Ls[(nv - 1) * KP + kk]);
-      for (int t = 0; t < nv; ++t) s = fmaf(ks[t * KP + kk], vs[t * VT + j], s);
-      S[i] = s;
-    }
-  }
-  __syncthreads();
-  float* sT = p.sT + static_cast<long long>(bh) * K * K + col0;
-  for (int i = threadIdx.x; i < K * VT; i += kThreads)
-    sT[(i / VT) * K + i % VT] = S[i];
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// gradient pass (backward)
 // ---------------------------------------------------------------------------
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads) wkv_bwd_kernel(const WkvParams p) {
-  constexpr int KP = K + 1;
-  constexpr int kC = (K + 31) / 32;
-  extern __shared__ float smem[];
-  const int Q = p.chunk;
-  float* rs = smem;             // [Q][KP]
-  float* ks = rs + Q * KP;      // [Q][KP]
-  float* vs = ks + Q * KP;      // [Q][KP]
-  float* dys = vs + Q * KP;     // [Q][KP]
-  float* Ls = dys + Q * KP;     // [Q][KP] inclusive cumsum of log_w
-  float* S0s = Ls + Q * KP;     // [K][KP] the chunk's entry state
-  float* Gs = S0s + K * KP;     // [K][KP] adjoint of the chunk's exit state
-  float* wb = Gs + K * KP;      // [kWarps][K] per-warp row buffer
-  float* xpart = wb + kWarps * K;  // [kWarps][K] partial sums for dL_Q
-  float* dbs = xpart + kWarps * K;  // [Q] dy_t . v_t
-  float* bs = dbs + Q;              // [Q] sum_k r_tk u_k k_tk
+struct GradSmem {
+  static constexpr int XP = pitch<T, K>(), LP = K + 4;
+  T r[2][kTile * XP];            // two stages of r, k, v (input width)
+  T k[2][kTile * XP];
+  T v[2][kTile * XP];
+  float dy[2][kTile * LP];       // and of dy and the log-decays -> Λ
+  float L[2][kTile * LP];
+  float Kt[kTile * LP];          // k e^{Λ_e - Λ}
+  float dL[kTile * LP];          // -k dk'
+  float fT[K * kTP];             // (k e^{Λ_e-Λ})^T, then (r e^{Λ_{t-1}})^T
+  float dS[kTile * kTP];         // dS[t][i] = dy_t . v_i (i <= t)
+  float AT[kTile * kTP];         // AT[i][t] = A[t][i], b on the diagonal
+  float St[K * LP];              // S, then G
+  float us[K];
+  float es[K];                   // e^{Λ_e}
+  float Cs[K];                   // rowsum(G S_exit)
+};
 
-  const int bh = blockIdx.x;
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+wkv_grad_kernel(const WkvParams p) {
+  using Sm = GradSmem<T, K>;
+  constexpr int XP = Sm::XP, LP = Sm::LP;
+  constexpr int CN = K / 16;
+  constexpr int RM = K / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+
+  const int bh = blockIdx.x, c = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nc = (p.seq + Q - 1) / Q;
-
+  const int tm = threadIdx.x & 7, tn = threadIdx.x >> 3;
+  const int n0 = tn * CN;
+  const int nc = (p.seq + p.chunk - 1) / p.chunk;
+  const int c0 = c * p.chunk;
+  const int nvc = min(p.chunk, p.seq - c0);
+  const int nt = (nvc + kTile - 1) / kTile;
   const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* lw = p.log_w + b * p.w_sb + h * p.w_sh;
   const float* dy = p.dy + b * p.dy_sb + h * p.dy_sh;
-  float* scr = p.scratch + static_cast<long long>(bh) * Q * K;  // [Q][K]
-  float u_l[kC];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int kk = lane + 32 * c;
-    u_l[c] = kk < K ? p.u[h * K + kk] : 0.f;
-  }
+  const long long kk = static_cast<long long>(K) * K;
+  const long long out_st = static_cast<long long>(p.heads) * K;
+  const int rows[2] = {tm, kTile - 1 - tm};
+  auto out_at = [&](int tok, int cl) {
+    return ((static_cast<long long>(b) * p.seq + tok) * p.heads + h) * K + cl;
+  };
+  // the walk: tiles 0 .. nt - 1 in order, then nt - 1 .. 0 in reverse
+  auto tile_of = [&](int q) { return q < nt ? q : 2 * nt - 1 - q; };
+  auto issue = [&](int q) {
+    const int tt = tile_of(q), st = q & 1;
+    const int s = c0 + tt * kTile, n = min(kTile, c0 + nvc - s);
+    async_tile<T, K, kTile>(sm.r[st], r + s * p.r_st, p.r_st, n);
+    async_tile<T, K, kTile>(sm.k[st], kp + s * p.k_st, p.k_st, n);
+    async_tile<T, K, kTile>(sm.v[st], v + s * p.v_st, p.v_st, n);
+    async_tile<float, K, kTile>(sm.dy[st], dy + s * p.dy_st, p.dy_st, n);
+    async_tile<float, K, kTile>(sm.L[st], lw + s * p.w_st, p.w_st, n);
+  };
+  issue(0);
+  cp_async_commit();
+
+  const float* s0 = p.s0_in + (bh * nc + c) * kk;
   for (int i = threadIdx.x; i < K * K; i += kThreads)
-    Gs[(i / K) * KP + i % K] = p.dsT[static_cast<long long>(bh) * K * K + i];
-  float du_acc = 0.f;  // thread k < K owns du[k]
+    sm.St[(i / K) * LP + i % K] = s0[i];
+  if (threadIdx.x < K) sm.us[threadIdx.x] = p.u[h * K + threadIdx.x];
+  float run = 0.f, du_acc = 0.f;
 
-  for (int ci = nc - 1; ci >= 0; --ci) {
-    const int t0 = ci * Q;
-    const int nv = min(Q, p.seq - t0);
-    // element (t, k) of this chunk in the contiguous (B, T, H, K) outputs
-    auto out_at = [&](int t, int kk) {
-      return ((static_cast<long long>(b) * p.seq + t0 + t) * p.heads + h) * K
-             + kk;
-    };
-    __syncthreads();  // the previous (later) chunk is complete
-    for (int i = threadIdx.x; i < nv * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      const long long tt = t0 + t;
-      rs[t * KP + kk] = to_float(r[tt * p.r_st + kk]);
-      ks[t * KP + kk] = to_float(kp[tt * p.k_st + kk]);
-      vs[t * KP + kk] = to_float(v[tt * p.v_st + kk]);
-      dys[t * KP + kk] = dy[tt * p.dy_st + kk];
-      Ls[t * KP + kk] = lw[tt * p.w_st + kk];
+  for (int q = 0; q < 2 * nt; ++q) {
+    const int tt = tile_of(q), st = q & 1;
+    const bool walk_g = q >= nt;     // second walk: dk, dv, dlog_w, G
+    const int s = c0 + tt * kTile;
+    const int n = min(kTile, c0 + nvc - s);
+    if (q + 1 < 2 * nt) issue(q + 1);
+    cp_async_commit();
+    float rdr[kTile];  // r dr' of the first walk, for dlog_w (threads < K)
+    if (walk_g && threadIdx.x < K) {
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        rdr[t] = t < n ? p.dlw[out_at(s + t, threadIdx.x)] : 0.f;
     }
-    const float* s0 = p.s0_in + (static_cast<long long>(bh) * nc + ci) * K * K;
-    for (int i = threadIdx.x; i < K * K; i += kThreads)
-      S0s[(i / K) * KP + i % K] = s0[i];
+    if (q == nt) {  // the chunk's exit adjoint: rowsum(G S_exit), G into St
+      const float* G = p.g + (bh * nc + c) * kk;
+      if (threadIdx.x < K) {
+        float acc = 0.f;
+        for (int j = 0; j < K; j += 4) {
+          const float4 gv = *reinterpret_cast<const float4*>(
+              G + threadIdx.x * K + j);
+          const float4 sv = ld4(sm.St + threadIdx.x * LP + j);
+          acc = fmaf(gv.x, sv.x, fmaf(gv.y, sv.y, fmaf(gv.z, sv.z,
+                     fmaf(gv.w, sv.w, acc))));
+        }
+        run = acc;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < K * K; i += kThreads)
+        sm.St[(i / K) * LP + i % K] = G[i];
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // tile tt is in stage st
+    const T* rs = sm.r[st];
+    const T* ks = sm.k[st];
+    const T* vs = sm.v[st];
+    const float* dys = sm.dy[st];
+    float* Ls = sm.L[st];
+    tile_cumsum<K, kTile>(Ls, LP);
     __syncthreads();
-    chunk_cumsum<K>(Ls, nv);
+    if (threadIdx.x < K)
+      sm.es[threadIdx.x] = __expf(Ls[(kTile - 1) * LP + threadIdx.x]);
+    if (!walk_g) {
+      for (int i = threadIdx.x; i < kTile * K; i += kThreads) {
+        const int t = i % kTile, cl = i / kTile;
+        sm.fT[cl * kTP + t] = to_float(ks[t * XP + cl])
+            * __expf(Ls[(kTile - 1) * LP + cl] - Ls[t * LP + cl]);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTile * K; i += kThreads) {
+        const int t = i / K, cl = i % K;
+        sm.Kt[t * LP + cl] = to_float(ks[t * XP + cl])
+            * __expf(Ls[(kTile - 1) * LP + cl] - Ls[t * LP + cl]);
+      }
+      for (int i = threadIdx.x; i < kTile * K; i += kThreads) {
+        const int t = i % kTile, cl = i / kTile;
+        sm.fT[cl * kTP + t] = to_float(rs[t * XP + cl])
+            * __expf(t ? Ls[(t - 1) * LP + cl] : 0.f);
+      }
+      tile_pairs(sm.AT, 1, kTP,
+                 [&](int t, int i) { return pair_dot<K, XP, LP>(rs, ks, Ls, t, i); },
+                 [&](int t) { return row_dot3<K>(rs + t * XP, sm.us, ks + t * XP); },
+                 true);
+    }
+    tile_pairs(sm.dS, kTP, 1,
+               [&](int t, int i) { return row_dot<K>(dys + t * LP, vs + i * XP); },
+               [&](int t) { return row_dot<K>(dys + t * LP, vs + t * XP); },
+               false);
     __syncthreads();
 
-    // --- pass A, rows t: dr and dL_prev ----------------------------------
-    for (int t = warp; t < nv; t += kWarps) {
-      const float* rt = rs + t * KP;
-      const float* kt = ks + t * KP;
-      const float* dyt = dys + t * KP;
-      float lp[kC], acc[kC];
+    if (!walk_g) {
+      // --- dr = e^{Λ_{t-1}} (dy S^T) + pairs + u k db; r dr' into dlog_w ---
+      float x[2][CN] = {};
+      const float* ad[2] = {dys + rows[0] * LP, dys + rows[1] * LP};
+      const float* bs[CN];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        lp[c] = (kk < K && t > 0) ? Ls[(t - 1) * KP + kk] : 0.f;
-        acc[c] = 0.f;
+      for (int j = 0; j < CN; ++j) bs[j] = sm.St + (n0 + j) * LP;
+      mm_nt<2, CN, K>(x, ad, bs);
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        const int t = rows[qq];
+#pragma unroll
+        for (int j = 0; j < CN; ++j)
+          x[qq][j] *= __expf(t ? Ls[(t - 1) * LP + n0 + j] : 0.f);
       }
-      for (int i0 = 0; i0 < t; i0 += 32) {
-        const int i = i0 + lane;
-        float ds = 0.f;  // dS[t, i] = dy_t . v_i
-        if (i < t) {
-          const float* vi = vs + i * KP;
-#pragma unroll 8
-          for (int j = 0; j < K; ++j) ds = fmaf(dyt[j], vi[j], ds);
-        }
-        const int n = min(32, t - i0);
-        for (int jj = 0; jj < n; ++jj) {
-          const float d = __shfl_sync(kFull, ds, jj);
-          const float* ki = ks + (i0 + jj) * KP;
-          const float* Li = Ls + (i0 + jj) * KP;
+      pairs_below<CN, XP, LP>(x, tm, n0, sm.dS, ks, Ls);
 #pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            const int kk = lane + 32 * c;
-            if (kk < K) acc[c] = fmaf(d * ki[kk], expf(lp[c] - Li[kk]), acc[c]);
+      for (int qq = 0; qq < 2; ++qq) {
+        const int t = rows[qq];
+        if (t >= n) continue;
+        const float db = sm.dS[t * kTP + t];
+        const long long g = out_at(s + t, n0);
+        float kv[CN], rv[CN];
+        ld_cols<CN>(kv, ks + t * XP + n0);
+        ld_cols<CN>(rv, rs + t * XP + n0);
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          store(static_cast<T*>(p.dr) + g + j,
+                x[qq][j] + sm.us[n0 + j] * kv[j] * db);
+          p.dlw[g + j] = rv[j] * x[qq][j];
+        }
+      }
+      __syncthreads();  // every row has read S
+      float sv[RM][CN];
+      const float* ak[RM];
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        const int m = tm + 8 * a;
+        ak[a] = sm.fT + m * kTP;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) sv[a][j] = sm.St[m * LP + n0 + j] * sm.es[m];
+      }
+      mm_nn<RM, CN, kTile>(sv, ak, vs + n0, XP);
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) sm.St[(tm + 8 * a) * LP + n0 + j] = sv[a][j];
+    } else {
+      {  // dk = e^{Λ_e - Λ_i} (v G^T) + pairs + u r db
+        float yv[2][CN] = {};
+        const T* av[2] = {vs + rows[0] * XP, vs + rows[1] * XP};
+        const float* bg[CN];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) bg[j] = sm.St + (n0 + j) * LP;
+        mm_nt<2, CN, K>(yv, av, bg);
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const int i = rows[qq];
+#pragma unroll
+          for (int j = 0; j < CN; ++j)
+            yv[qq][j] *= __expf(Ls[(kTile - 1) * LP + n0 + j]
+                                - Ls[i * LP + n0 + j]);
+        }
+        pairs_above<CN, XP, LP>(yv, tm, n0, sm.dS, rs, Ls);
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const int i = rows[qq];
+          const float db = sm.dS[i * kTP + i];
+          float kv[CN], rv[CN];
+          ld_cols<CN>(kv, ks + i * XP + n0);
+          ld_cols<CN>(rv, rs + i * XP + n0);
+          T* dk = static_cast<T*>(p.dk) + out_at(s + i, n0);
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            sm.dL[i * LP + n0 + j] = -kv[j] * yv[qq][j];
+            if (i < n) store(dk + j, yv[qq][j] + sm.us[n0 + j] * rv[j] * db);
           }
         }
       }
-      float db = 0.f, bb = 0.f;
+      {  // dv = (k e^{Λ_e - Λ}) G + A^T dy (b on A's diagonal)
+        float zv[2][CN] = {};
+        const float* ak[2] = {sm.Kt + rows[0] * LP, sm.Kt + rows[1] * LP};
+        mm_nn<2, CN, K>(zv, ak, sm.St + n0, LP);
+        const float* aa[2] = {sm.AT + rows[0] * kTP, sm.AT + rows[1] * kTP};
+        mm_nn<2, CN, kTile>(zv, aa, dys + n0, LP);
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        if (kk < K) {
-          db += dyt[kk] * vs[t * KP + kk];
-          bb += rt[kk] * u_l[c] * kt[kk];
+        for (int qq = 0; qq < 2; ++qq) {
+          if (rows[qq] >= n) continue;
+          T* dv = static_cast<T*>(p.dv) + out_at(s + rows[qq], n0);
+#pragma unroll
+          for (int j = 0; j < CN; ++j) store(dv + j, zv[qq][j]);
         }
       }
-      db = warp_sum(db);
-      bb = warp_sum(bb);
-      if (lane == 0) {
-        dbs[t] = db;
-        bs[t] = bb;
-      }
+      __syncthreads();  // every row has read G; dL is complete
+      if (tt > 0) {  // G before this tile (not needed before the chunk)
+        float gv[RM][CN];
+        const float* ar[RM];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        if (kk < K) {
-          const float* s0k = S0s + kk * KP;
-          float dys0 = 0.f;  // (dy S0^T)[t, k]
-          for (int j = 0; j < K; ++j) dys0 = fmaf(dyt[j], s0k[j], dys0);
-          const float core = acc[c] + expf(lp[c]) * dys0;  // d_rw * e^{L_prev}
-          p.dr[out_at(t, kk)] = core + u_l[c] * kt[kk] * db;
-          scr[t * K + kk] = rt[kk] * core;  // dL_prev = d_rw * rw
+        for (int a = 0; a < RM; ++a) {
+          const int m = tm + 8 * a;
+          ar[a] = sm.fT + m * kTP;
+#pragma unroll
+          for (int j = 0; j < CN; ++j) gv[a][j] = sm.St[m * LP + n0 + j] * sm.es[m];
+        }
+        mm_nn<RM, CN, kTile>(gv, ar, dys + n0, LP);
+#pragma unroll
+        for (int a = 0; a < RM; ++a)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) sm.St[(tm + 8 * a) * LP + n0 + j] = gv[a][j];
+      }
+      if (threadIdx.x < K) {  // dlog_w by the in-chunk reverse cumsum, du
+        const int cl = threadIdx.x;
+        float* dlw = p.dlw + out_at(s, cl);
+#pragma unroll
+        for (int t = kTile - 1; t >= 0; --t) {
+          if (t >= n) continue;
+          const float dl = sm.dL[t * LP + cl];
+          dlw[t * out_st] = run + dl;
+          run += dl + rdr[t];
+          du_acc = fmaf(to_float(rs[t * XP + cl]) * to_float(ks[t * XP + cl]),
+                        sm.dS[t * kTP + t], du_acc);
         }
       }
     }
-    __syncthreads();
-
-    // --- pass B, columns i: dk, dv, dL ------------------------------------
-    float xacc[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) xacc[c] = 0.f;
-    for (int i = warp; i < nv; i += kWarps) {
-      const float* ki = ks + i * KP;
-      const float* ri = rs + i * KP;
-      const float* vi = vs + i * KP;
-      const float* dyi = dys + i * KP;
-      const float* Li = Ls + i * KP;
-      float li[kC], dk_acc[kC], dv_acc[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        li[c] = kk < K ? Li[kk] : 0.f;
-        dk_acc[c] = 0.f;
-        dv_acc[c] = 0.f;
-      }
-      for (int tb = i + 1; tb < nv; tb += 32) {
-        const int t = tb + lane;
-        float ds = 0.f, a = 0.f;  // dS[t, i] and the score A[t, i]
-        if (t < nv) {
-          const float* dyt = dys + t * KP;
-          const float* rt = rs + t * KP;
-          const float* Lpt = Ls + (t - 1) * KP;
-#pragma unroll 8
-          for (int j = 0; j < K; ++j) ds = fmaf(dyt[j], vi[j], ds);
-#pragma unroll 8
-          for (int kk = 0; kk < K; ++kk)
-            a = fmaf(rt[kk] * ki[kk], expf(Lpt[kk] - Li[kk]), a);
-        }
-        const int n = min(32, nv - tb);
-        for (int tt = 0; tt < n; ++tt) {
-          const float d = __shfl_sync(kFull, ds, tt);
-          const float aa = __shfl_sync(kFull, a, tt);
-          const float* rt = rs + (tb + tt) * KP;
-          const float* Lpt = Ls + (tb + tt - 1) * KP;
-          const float* dyt = dys + (tb + tt) * KP;
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            const int kk = lane + 32 * c;
-            if (kk < K) {
-              dk_acc[c] = fmaf(d * rt[kk], expf(Lpt[kk] - li[c]), dk_acc[c]);
-              dv_acc[c] = fmaf(aa, dyt[kk], dv_acc[c]);
-            }
-          }
-        }
-      }
-      // state path: S' = diag(e^{L_Q}) S0 + (k * tail)^T v
-      float tail[kC], dkt[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;
-        tail[c] = 0.f;
-        dkt[c] = 0.f;
-        if (kk < K) {
-          tail[c] = expf(Ls[(nv - 1) * KP + kk] - li[c]);
-          const float* gk = Gs + kk * KP;
-          float s = 0.f;  // (v G^T)[i, k]
-          for (int j = 0; j < K; ++j) s = fmaf(vi[j], gk[j], s);
-          dkt[c] = s;
-          wb[warp * K + kk] = ki[kk] * tail[c];
-        }
-      }
-      __syncwarp();
-      const float db_i = dbs[i], b_i = bs[i];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int kk = lane + 32 * c;  // channel k, and value column j = kk
-        if (kk < K) {
-          float dvs = 0.f;  // ((k * tail) G)[i, j]
-          for (int m = 0; m < K; ++m)
-            dvs = fmaf(wb[warp * K + m], Gs[m * KP + kk], dvs);
-          const long long g = out_at(i, kk);
-          p.dk[g] = dk_acc[c] + tail[c] * dkt[c] + u_l[c] * ri[kk] * db_i;
-          p.dv[g] = dv_acc[c] + b_i * dyi[kk] + dvs;
-          const float x = ki[kk] * dkt[c] * tail[c];  // d_tail * tail
-          xacc[c] += x;
-          const float dL = -ki[kk] * dk_acc[c] - x;   // -d_kw kw - d_tail tail
-          scr[i * K + kk] += dL;  // dL + dL_prev
-          p.dlw[g] = dL;
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int kk = lane + 32 * c;
-      if (kk < K) xpart[warp * K + kk] = xacc[c];
-    }
-    __syncthreads();
-
-    // --- pass C, channels k: dlog_w by the in-chunk reverse cumsum, du ------
-    if (threadIdx.x < K) {
-      const int kk = threadIdx.x;
-      float gs = 0.f;
-      for (int j = 0; j < K; ++j) gs = fmaf(Gs[kk * KP + j], S0s[kk * KP + j], gs);
-      float run = expf(Ls[(nv - 1) * KP + kk]) * gs;  // dL_Q
-      for (int w = 0; w < kWarps; ++w) run += xpart[w * K + kk];
-      // dlog_w_t = dL_Q + sum_{i>t} (dL_i + dL_prev_i) + dL_t
-#pragma unroll 4
-      for (int t = nv - 1; t >= 0; --t) {
-        const long long g = out_at(t, kk);
-        p.dlw[g] += run;
-        run += scr[t * K + kk];
-        du_acc = fmaf(rs[t * KP + kk] * ks[t * KP + kk], dbs[t], du_acc);
-      }
-    }
-    __syncthreads();
-
-    // --- pass D: G_prev = diag(e^{L_Q}) G + (r e^{L_prev})^T dy -------------
-    for (int i = threadIdx.x; i < nv * K; i += kThreads) {
-      const int t = i / K, kk = i % K;
-      rs[t * KP + kk] *= expf(t > 0 ? Ls[(t - 1) * KP + kk] : 0.f);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < K * K; i += kThreads) {
-      const int kk = i / K, j = i % K;
-      float g = Gs[kk * KP + j] * expf(Ls[(nv - 1) * KP + kk]);
-      for (int t = 0; t < nv; ++t) g = fmaf(rs[t * KP + kk], dys[t * KP + j], g);
-      Gs[kk * KP + j] = g;
-    }
+    __syncthreads();  // the tile's reads are done: stage st may refill
   }
-  if (threadIdx.x < K) p.du[static_cast<long long>(bh) * K + threadIdx.x] = du_acc;
+  if (threadIdx.x < K)
+    p.du_part[(static_cast<long long>(bh) * nc + c) * K + threadIdx.x] = du_acc;
+}
+
+// du[h][k] = sum over batch, then chunks, of the per-chunk partials
+template <int K>
+__global__ void __launch_bounds__(kThreads) wkv_du_kernel(const WkvParams p) {
+  const int h = blockIdx.x;
+  const int nc = (p.seq + p.chunk - 1) / p.chunk;
+  if (threadIdx.x >= K) return;
+  float acc = 0.f;
+  for (int b = 0; b < p.batch; ++b) {
+    const float* part = p.du_part
+        + (static_cast<long long>(b) * p.heads + h) * nc * K + threadIdx.x;
+    for (int c = 0; c < nc; ++c) acc += part[c * K];
+  }
+  p.du[h * K + threadIdx.x] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -540,30 +928,50 @@ __global__ void __launch_bounds__(kThreads) wkv_bwd_kernel(const WkvParams p) {
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
-int launch_kernel(Kernel kernel, dim3 grid, size_t smem, const WkvParams& p,
-                  cudaStream_t stream) {
+int launch(Kernel kernel, dim3 grid, size_t smem, const WkvParams& p,
+           cudaStream_t stream) {
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TY, int K, bool REV>
+int launch_scan(const WkvParams& p, cudaStream_t stream) {
+  const unsigned bh = static_cast<unsigned>(p.batch * p.heads);
+  if (p.scan_split == 1)
+    return launch(wkv_scan_kernel<T, TY, K, K, REV>, dim3(bh, 1),
+                  sizeof(ScanSmem<T, TY, K, K>), p, stream);
+  if (p.scan_split == K / 16)
+    return launch(wkv_scan_kernel<T, TY, K, 16, REV>, dim3(bh, K / 16),
+                  sizeof(ScanSmem<T, TY, K, 16>), p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int K>
 int launch_k(const WkvParams& p, bool fwd, cudaStream_t stream) {
   const unsigned bh = static_cast<unsigned>(p.batch * p.heads);
+  const unsigned nc = static_cast<unsigned>((p.seq + p.chunk - 1) / p.chunk);
+  int rc;
   if (fwd) {
-    if (p.v_split <= 0 || K % p.v_split != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_kernel(wkv_fwd_kernel<T, K>,
-                         dim3(bh, static_cast<unsigned>(p.v_split)),
-                         fwd_smem_bytes<K>(p.chunk, K / p.v_split), p, stream);
+    rc = launch_scan<T, T, K, false>(p, stream);
+    if (rc) return rc;
+    return launch(wkv_out_kernel<T, K>, dim3(bh, nc), sizeof(OutSmem<T, K>),
+                  p, stream);
   }
-  return launch_kernel(wkv_bwd_kernel<T, K>, dim3(bh), bwd_smem_bytes<K>(p.chunk),
-                       p, stream);
+  rc = launch_scan<T, float, K, true>(p, stream);
+  if (rc) return rc;
+  rc = launch(wkv_grad_kernel<T, K>, dim3(bh, nc), sizeof(GradSmem<T, K>), p,
+              stream);
+  if (rc) return rc;
+  return launch(wkv_du_kernel<K>, dim3(static_cast<unsigned>(p.heads)), 0, p,
+                stream);
 }
 
 template <typename T>
@@ -578,12 +986,15 @@ int launch_dtype(const WkvParams& p, bool fwd, cudaStream_t stream) {
 
 int launch_any(const WkvParams* p, bool fwd, void* stream) {
   if (p->batch <= 0 || p->seq <= 0 || p->heads <= 0 || p->chunk <= 0 ||
-      p->chunk > p->seq || static_cast<long long>(p->batch) * p->heads > 2147483647LL)
+      p->chunk > p->seq ||
+      static_cast<long long>(p->batch) * p->heads > 2147483647LL ||
+      (p->seq + p->chunk - 1) / p->chunk > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (fwd ? (p->y == nullptr || p->sT == nullptr)
+  if (fwd ? (p->y == nullptr || p->sT == nullptr || p->s0 == nullptr)
           : (p->dy == nullptr || p->s0_in == nullptr || p->dsT == nullptr ||
              p->dr == nullptr || p->dk == nullptr || p->dv == nullptr ||
-             p->dlw == nullptr || p->du == nullptr || p->scratch == nullptr))
+             p->dlw == nullptr || p->du == nullptr || p->g == nullptr ||
+             p->du_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->dtype == 0) return launch_dtype<float>(*p, fwd, s);
@@ -593,7 +1004,7 @@ int launch_any(const WkvParams* p, bool fwd, void* stream) {
 
 }  // namespace
 
-// Each returns cudaGetLastError() after its launch (0 = launched).
+// Each returns cudaGetLastError() after its last launch (0 = launched).
 extern "C" int rwkv_wkv_fwd_launch(const WkvParams* p, void* stream) {
   return launch_any(p, true, stream);
 }

@@ -22,7 +22,7 @@ runs the training sites through :class:`FlashAttentionFn`, the counterpart
 of the JAX package's ``_flash_vjp`` (its forward saves the output and the
 per-row LSE, its backward runs the dK/dV and dQ kernels), and
 :class:`WkvFn`, the counterpart of ``_wkv_vjp`` (its forward saves every
-chunk's entry state, its backward runs the reverse chunk walk).
+chunk's entry state, its backward runs the adjoint and gradient passes).
 """
 from __future__ import annotations
 
@@ -84,9 +84,9 @@ class FlashAttentionFn(torch.autograd.Function):
 class WkvFn(torch.autograd.Function):
     """Differentiable chunked wkv at the training site (model layout):
     forward = :func:`rwkv_wkv_fwd`, saving r, k, v, log_w, u and every
-    chunk's entry state; backward = :func:`rwkv_wkv_bwd` (the reverse chunk
-    walk on the card) from ``dy`` and ``dsT``, which autograd hands in as
-    zeros when S_T is unused, as it is in training."""
+    chunk's entry state; backward = :func:`rwkv_wkv_bwd` (the adjoint and
+    gradient passes on the card) from ``dy`` and ``dsT``, which autograd
+    hands in as zeros when S_T is unused, as it is in training."""
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, chunk: int):

@@ -283,3 +283,177 @@ def rwkv_wkv_bwd_ref(r, k, v, log_w, u, dy, s0, dsT, *, chunk: int):
         G = eLQ[..., None] * G + rw.transpose(1, 2) @ dyc
     dr, dk, dv, dlw = (torch.cat(o, dim=1) for o in outs)
     return dr, dk, dv, dlw, du
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv, the kernels' factored algebra (tests only)
+#
+# Plain mirrors of csrc/rwkv_wkv.cu, in the kernel layout
+# (BH, T, K) with any T (no padding).  Every chunk is cut into sub-tiles of
+# ``tile`` tokens that start at the chunk's start; Λ is the tile-local
+# inclusive cumsum of the log-decays (Λ_{-1} = 0, Λ_e its last row).  With
+# the state S before a tile and the adjoint G of the state after it:
+#   y_t   = (r_t e^{Λ_{t-1}}) S + sum_{i<t} A[t, i] v_i + b_t v_t
+#   A[t, i] = sum_k r_tk k_ik e^{Λ_{t-1,k} - Λ_ik}      (pairwise, i < t)
+#   S'    = e^{Λ_e} S + (k e^{Λ_e - Λ})^T v
+#   G_in  = e^{Λ_e} G + (r e^{Λ_{t-1}})^T dy
+# Every exponent is <= 0.  The passes:
+#   state pass     S at every chunk start (s0) and S_T, tiles in order;
+#   adjoint pass   G at every chunk end from dS_T, tiles in reverse;
+#   output pass    every chunk from its s0 (tiles in order);
+#   gradient pass  every chunk from its s0 and G: dr and dlog_w's
+#                  r * dr_core in order, then dk, dv and dlog_w in reverse,
+#                  dlog_w_t = rowsum(G * S_exit) + sum_{i>t} r_i dr_core_i
+#                             - sum_{i>=t} k_i dk_i' (dk' without the bonus).
+# ---------------------------------------------------------------------------
+
+WKV_TILE = 16
+
+
+def wkv_tiles(T: int, chunk: int, tile: int = WKV_TILE):
+    """``[(chunk index, [(start, end) of each tile])]``: each chunk of
+    ``chunk`` tokens (the last may be short) cut into tiles of ``tile``
+    tokens from its start (the last may be short)."""
+    return [(c, [(s, min(s + tile, c0 + chunk, T))
+                 for s in range(c0, min(c0 + chunk, T), tile)])
+            for c, c0 in enumerate(range(0, T, chunk))]
+
+
+def wkv_tile_decays(lw):
+    """One tile's decays from its log-decays (BH, n, K): ``(qf, kf, dec,
+    W)`` = e^{Λ_{t-1}} (the query factor), e^{Λ_e - Λ_i} (the key factor),
+    e^{Λ_e} (the tile's decay, (BH, K)) and the pairwise
+    W[t, i] = e^{Λ_{t-1} - Λ_i} for i < t, 0 elsewhere (BH, n, n, K)."""
+    lam = torch.cumsum(lw, dim=1)
+    lam_prev = lam - lw
+    n = lw.shape[1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=lw.device).tril(-1)
+    expo = lam_prev[:, :, None, :] - lam[:, None, :, :]
+    W = torch.where(lower[None, :, :, None],
+                    torch.where(lower[None, :, :, None], expo, 0.0).exp(), 0.0)
+    return lam_prev.exp(), (lam[:, -1:] - lam).exp(), lam[:, -1].exp(), W
+
+
+def _wkv_pair_scores(r, k, u, W):
+    """A[t, i] over a tile, pairwise below the diagonal, b_t on it."""
+    A = torch.einsum("btk,bik,btik->bti", r, k, W)
+    return A + torch.diag_embed((r * u * k).sum(-1))
+
+
+def wkv_state_scan_ref(k, v, log_w, *, chunk: int, tile: int = WKV_TILE):
+    """The forward's state pass: ``(s0 (BH, nc, K, K), S_T (BH, K, K))``,
+    the state before every chunk and after the last token."""
+    BH, T, K = k.shape
+    S = torch.zeros((BH, K, K), dtype=torch.float32, device=k.device)
+    s0 = []
+    for _, tiles in wkv_tiles(T, chunk, tile):
+        s0.append(S)
+        for s, e in tiles:
+            _, kf, dec, _ = wkv_tile_decays(log_w[:, s:e].float())
+            S = dec[..., None] * S + (k[:, s:e].float() * kf).transpose(
+                1, 2) @ v[:, s:e].float()
+    return torch.stack(s0, dim=1), S
+
+
+def wkv_adjoint_scan_ref(r, log_w, dy, dsT, *, chunk: int,
+                         tile: int = WKV_TILE):
+    """The backward's adjoint pass: G (BH, nc, K, K), the adjoint of the
+    state after every chunk, from ``dsT`` back through the tiles."""
+    BH, T, K = r.shape
+    G = dsT.float()
+    out = []
+    for _, tiles in reversed(wkv_tiles(T, chunk, tile)):
+        out.append(G)
+        for s, e in reversed(tiles):
+            qf, _, dec, _ = wkv_tile_decays(log_w[:, s:e].float())
+            G = dec[..., None] * G + (r[:, s:e].float() * qf).transpose(
+                1, 2) @ dy[:, s:e].float()
+    return torch.stack(out[::-1], dim=1)
+
+
+def rwkv_wkv_factored_ref(r, k, v, log_w, u, *, chunk: int,
+                          tile: int = WKV_TILE,
+                          emit_chunk_states: bool = False):
+    """The factored forward (state pass, then the output pass of every
+    chunk from its entry state): r/k/v/log_w (BH, T, K), u (BH, K) ->
+    ``(y, S_T)`` [+ ``s0``], all float32, as ``rwkv_wkv_chunked_ref``."""
+    BH, T, K = r.shape
+    r, k, v, lw = (a.float() for a in (r, k, v, log_w))
+    uf = u.float()[:, None]
+    s0, sT = wkv_state_scan_ref(k, v, lw, chunk=chunk, tile=tile)
+    y = torch.empty((BH, T, K), dtype=torch.float32, device=r.device)
+    for c, tiles in wkv_tiles(T, chunk, tile):
+        S = s0[:, c]
+        for s, e in tiles:
+            qf, kf, dec, W = wkv_tile_decays(lw[:, s:e])
+            rt, kt, vt = r[:, s:e], k[:, s:e], v[:, s:e]
+            y[:, s:e] = (rt * qf) @ S + _wkv_pair_scores(rt, kt, uf, W) @ vt
+            S = dec[..., None] * S + (kt * kf).transpose(1, 2) @ vt
+    return (y, sT, s0) if emit_chunk_states else (y, sT)
+
+
+def wkv_du_sum(parts, heads: int):
+    """du (H, K) from per-chunk partials (B*H, nc, K) in the kernel's fixed
+    order: over the batch, and inside each batch row over the chunks, one
+    float32 add at a time."""
+    BH, nc, K = parts.shape
+    rows = parts.reshape(BH // heads, heads, nc, K)
+    acc = torch.zeros((heads, K), dtype=torch.float32, device=parts.device)
+    for b in range(rows.shape[0]):
+        for c in range(nc):
+            acc = acc + rows[b, :, c]
+    return acc
+
+
+def rwkv_wkv_factored_bwd_ref(r, k, v, log_w, u, dy, s0, dsT, *, chunk: int,
+                              tile: int = WKV_TILE,
+                              heads: Optional[int] = None):
+    """The factored backward (adjoint pass, then the gradient pass of
+    every chunk from its entry state and exit adjoint): the arguments of
+    ``rwkv_wkv_bwd_ref`` with any T -> fp32 ``(dr, dk, dv, dlog_w, du)``,
+    ``du`` (BH, K) summed over each row's chunks in order, or with
+    ``heads`` (H, K) by :func:`wkv_du_sum`, as the kernels sum it."""
+    BH, T, K = r.shape
+    r, k, v, lw, dy = (a.float() for a in (r, k, v, log_w, dy))
+    uf = u.float()[:, None]
+    G_out = wkv_adjoint_scan_ref(r, lw, dy, dsT, chunk=chunk, tile=tile)
+    dr, dk, dv, dlw = (torch.empty((BH, T, K), dtype=torch.float32,
+                                   device=r.device) for _ in range(4))
+    du_parts = []
+    for c, tiles in wkv_tiles(T, chunk, tile):
+        S = s0[:, c].float()
+        dLp = {}
+        for s, e in tiles:                                   # in order
+            qf, kf, dec, W = wkv_tile_decays(lw[:, s:e])
+            rt, kt, vt, dyt = r[:, s:e], k[:, s:e], v[:, s:e], dy[:, s:e]
+            dS = dyt @ vt.transpose(1, 2)                    # dy_t . v_i
+            db = torch.diagonal(dS, dim1=1, dim2=2)[..., None]
+            core = qf * (dyt @ S.transpose(1, 2)) + torch.einsum(
+                "bti,bik,btik->btk", dS, kt, W)
+            dr[:, s:e] = core + uf * kt * db
+            dLp[s] = rt * core
+            S = dec[..., None] * S + (kt * kf).transpose(1, 2) @ vt
+        G = G_out[:, c]
+        run = (G * S).sum(-1)                                # (BH, K)
+        du = torch.zeros((BH, K), dtype=torch.float32, device=r.device)
+        for s, e in reversed(tiles):                         # in reverse
+            qf, kf, dec, W = wkv_tile_decays(lw[:, s:e])
+            rt, kt, vt, dyt = r[:, s:e], k[:, s:e], v[:, s:e], dy[:, s:e]
+            dS = dyt @ vt.transpose(1, 2)
+            db = torch.diagonal(dS, dim1=1, dim2=2)[..., None]
+            dk_in = kf * (vt @ G.transpose(1, 2)) + torch.einsum(
+                "bti,btk,btik->bik", dS, rt, W)
+            dk[:, s:e] = dk_in + uf * rt * db
+            A = _wkv_pair_scores(rt, kt, uf, W)
+            dv[:, s:e] = (kt * kf) @ G + A.transpose(1, 2) @ dyt
+            dL = -kt * dk_in
+            for t in reversed(range(e - s)):
+                dlw[:, s + t] = run + dL[:, t]
+                run = run + dL[:, t] + dLp[s][:, t]
+            du = du + (rt * kt * db).sum(1)
+            G = dec[..., None] * G + (rt * qf).transpose(1, 2) @ dyt
+        du_parts.append(du)
+    parts = torch.stack(du_parts, dim=1)                     # (BH, nc, K)
+    if heads is not None:
+        return dr, dk, dv, dlw, wkv_du_sum(parts, heads)
+    return dr, dk, dv, dlw, wkv_du_sum(parts, BH)

@@ -1,8 +1,13 @@
-"""Chunked RWKV6 wkv: the wrappers of ``csrc/rwkv_wkv.cu``, whose forward
-kernel replaces the TPU kernels
-``repro/kernels/rwkv_wkv.py:rwkv_wkv_pallas`` and ``rwkv_wkv_fwd_pallas``
-(one kernel, ``_wkv_call``, with a flag that also emits the per-chunk entry
-states) and whose backward kernel replaces ``rwkv_wkv_bwd_pallas``.
+"""Chunked RWKV6 wkv: the wrappers of the CUDA kernels that replace the TPU
+kernels ``repro/kernels/rwkv_wkv.py:rwkv_wkv_pallas`` and
+``rwkv_wkv_fwd_pallas`` (one kernel, ``_wkv_call``, with a flag that also
+emits the per-chunk entry states) and ``rwkv_wkv_bwd_pallas``.
+
+The kernels (``csrc/rwkv_wkv.cu``) take head dims 16/32/64, any chunk
+<= T, ragged T and fp32 or bf16 r/k/v.  Decays are factored per 16-token
+sub-tile and the chunks run in parallel: the forward is a state pass and an
+output pass, the backward an adjoint pass, a gradient pass and the du sum;
+gradients are written in the primal dtypes.
 
 The wrappers take the model layout (B, T, H, K), u (H, K), as
 ``repro/kernels/ops.py`` does.  On the card the kernels read the operands
@@ -13,9 +18,10 @@ there; the per-chunk entry states ``s0`` keep the kernel layout
 :func:`rwkv_wkv_bwd`.  For tensors on the CPU each wrapper runs its plain
 version, :func:`rwkv_wkv_plain` or :func:`rwkv_wkv_bwd_plain` (the
 flattening and padding of ``ops`` around ``kernels/ref.py``); for CUDA
-tensors it launches its kernel or raises.  ``rwkv_wkv.launches``
-counts launches of the forward kernel (by :func:`rwkv_wkv` and
-:func:`rwkv_wkv_fwd`), ``rwkv_wkv_bwd.launches`` of the backward kernel.
+tensors it launches its kernels or raises.  ``rwkv_wkv.launches`` counts
+calls that launched the forward (by :func:`rwkv_wkv` and
+:func:`rwkv_wkv_fwd`; two kernels a call), ``rwkv_wkv_bwd.launches`` calls
+of the backward (three kernels a call).
 """
 from __future__ import annotations
 
@@ -34,24 +40,22 @@ _fns: dict = {}
 class _WkvParams(ctypes.Structure):
     """Mirrors ``struct WkvParams`` in csrc/rwkv_wkv.cu."""
     _fields_ = ([(n, ctypes.c_void_p)
-                 for n in ("r", "k", "v", "log_w", "u", "dy", "s0_in", "dsT",
-                           "y", "sT", "s0", "dr", "dk", "dv", "dlw", "du",
-                           "scratch")]
+                 for n in ("r", "k", "v", "log_w", "u", "dy", "dsT", "s0_in",
+                           "y", "sT", "s0", "dr", "dk", "dv", "dlw", "du", "g",
+                           "du_part")]
                 + [(f"{t}_s{a}", ctypes.c_longlong)
                    for t in ("r", "k", "v", "w", "dy") for a in "bth"]
                 + [(n, ctypes.c_int)
                    for n in ("batch", "seq", "heads", "head_dim", "chunk",
-                             "v_split", "dtype")])
+                             "scan_split", "dtype")])
 
 
 def _lib(name: str):
     if name not in _fns:
-        lib = build.load("rwkv_wkv.cu")
-        for fn_name in ("rwkv_wkv_fwd_launch", "rwkv_wkv_bwd_launch"):
-            fn = getattr(lib, fn_name)
-            fn.argtypes = [ctypes.POINTER(_WkvParams), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _fns[fn_name] = fn
+        fn = getattr(build.load("rwkv_wkv.cu"), name)
+        fn.argtypes = [ctypes.POINTER(_WkvParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return _fns[name]
 
 
@@ -147,8 +151,9 @@ def _check_kernel_operands(name: str, r, k, v, log_w, u) -> None:
                          f"innermost stride")
 
 
-def _params(r, k, v, log_w, u, ch: int, v_split: int,
-            dy=None, **ptrs) -> _WkvParams:
+def _params(r, k, v, log_w, u, ch: int, dy=None, **ptrs):
+    """The kernels' parameters for these operands; ``ptrs`` the other
+    buffers by field name."""
     B, T, H, K = r.shape
     p = _WkvParams(r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                    log_w=log_w.data_ptr(), u=u.data_ptr(),
@@ -159,7 +164,8 @@ def _params(r, k, v, log_w, u, ch: int, v_split: int,
         for axis, s in zip("bth", _strides(t)):
             setattr(p, f"{name}_s{axis}", s)
     p.batch, p.seq, p.heads, p.head_dim = B, T, H, K
-    p.chunk, p.v_split, p.dtype = ch, v_split, _DTYPES[r.dtype]
+    p.chunk, p.dtype = ch, _DTYPES[r.dtype]
+    p.scan_split = _scan_split(r.device, B, H, K)
     return p
 
 
@@ -175,15 +181,27 @@ def _launch(fn_name: str, p: _WkvParams, device, what: str) -> None:
                            f"{p.head_dim}), chunk {p.chunk}")
 
 
-def _v_split(device, B: int, H: int, K: int) -> int:
-    """Value-column tiles per head: 1 when B*H rows fill the card, else as
-    many 16-column tiles as K holds (up to 4), so prefill (40 rows) runs
-    160 blocks on 132 SMs."""
+def _scan_split(device, B: int, H: int, K: int) -> int:
+    """Value-column tiles per head of the state and adjoint passes: 1 when
+    B*H rows fill the card, else K / 16 tiles of 16 columns, so prefill (40
+    rows) runs 160 blocks on 132 SMs."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 1 if B * H >= sms else min(4, K // 16)
+    return 1 if B * H >= sms else K // 16
 
 
-def _kernel_fwd(r, k, v, log_w, u, ch: int, emit: bool):
+def _rows_on_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when every (b, t, h) row starts on 16 bytes (the
+    kernels copy rows in 16-byte pieces), else a contiguous copy."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(x * size % 16 == 0
+                                      for x in _strides(t)):
+        return t
+    return t.contiguous()
+
+
+def _kernel_fwd(r, k, v, log_w, u, ch: int):
+    """Launches the forward: ``(y, S_T, s0)``, every chunk's entry state
+    ``s0`` written because the output pass reads it."""
     _check_kernel_operands("rwkv_wkv", r, k, v, log_w, u)
     B, T, H, K = r.shape
     dev = r.device
@@ -191,13 +209,12 @@ def _kernel_fwd(r, k, v, log_w, u, ch: int, emit: bool):
     nc = -(-T // ch)
     y = torch.empty((B, T, H, K), dtype=torch.float32, device=dev)
     sT = torch.empty((B, H, K, K), dtype=torch.float32, device=dev)
-    s0 = (torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
-          if emit else None)
-    ptrs = {"y": y, "sT": sT, **({"s0": s0} if emit else {})}
-    p = _params(r, k, v, log_w, u, ch, _v_split(dev, B, H, K), **ptrs)
+    s0 = torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
+    r, k, v, log_w = (_rows_on_16_bytes(t) for t in (r, k, v, log_w))
+    p = _params(r, k, v, log_w, u, ch, y=y, sT=sT, s0=s0)
     _launch("rwkv_wkv_fwd_launch", p, dev, "rwkv_wkv")
     rwkv_wkv.launches += 1
-    return (y, sT, s0) if emit else (y, sT)
+    return y, sT, s0
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +232,7 @@ def rwkv_wkv(r, k, v, log_w, u, *, chunk: int = 64,
     if r.device.type == "cpu":
         y, sT = rwkv_wkv_plain(r, k, v, log_w, u, chunk=ch)
     else:
-        y, sT = _kernel_fwd(r, k, v, log_w, u, ch, False)
+        y, sT, _ = _kernel_fwd(r, k, v, log_w, u, ch)
     return (y, sT) if return_state else y
 
 
@@ -229,7 +246,7 @@ def rwkv_wkv_fwd(r, k, v, log_w, u, *, chunk: int = 64):
         y, sT, s0 = rwkv_wkv_plain(r, k, v, log_w, u, chunk=ch,
                                    emit_chunk_states=True)
     else:
-        y, sT, s0 = _kernel_fwd(r, k, v, log_w, u, ch, True)
+        y, sT, s0 = _kernel_fwd(r, k, v, log_w, u, ch)
     return (y, sT), s0
 
 
@@ -237,7 +254,9 @@ def rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT, *, chunk: int = 64):
     """Gradients of :func:`rwkv_wkv_fwd` from its residual ``s0`` and the
     cotangents ``dy`` (B, T, H, K) and ``dsT`` (B, H, K, K): ``(dr, dk, dv,
     dlog_w, du)`` in the dtypes of r, k, v, log_w and u, ``du`` (H, K)
-    summed over the batch (as ``ops.rwkv_wkv_bwd``)."""
+    summed over the batch (as ``ops.rwkv_wkv_bwd``).  On the card the
+    kernels write them in those dtypes and sum ``du`` over batch and chunks
+    in a fixed order."""
     _check_operands(r, k, v, log_w, u)
     B, T, H, K = r.shape
     ch = min(chunk, T)
@@ -252,26 +271,28 @@ def rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT, *, chunk: int = 64):
     if r.device.type == "cpu":
         dr, dk, dv, dlw, du = rwkv_wkv_bwd_plain(r, k, v, log_w, u, s0, dy,
                                                  dsT, chunk=ch)
-    else:
-        _check_kernel_operands("rwkv_wkv_bwd", r, k, v, log_w, u)
-        dev = r.device
-        # every buffer the kernel reads is bound here until it has launched
-        dy = dy.float()
-        if dy.stride(-1) != 1:
-            dy = dy.contiguous()
-        u_c, s0_c = u.contiguous(), s0.float().contiguous()
-        dsT_c = dsT.float().contiguous()
-        dr, dk, dv, dlw = (torch.empty((B, T, H, K), dtype=torch.float32,
-                                       device=dev) for _ in range(4))
-        du = torch.empty((B * H, K), dtype=torch.float32, device=dev)
-        scratch = torch.empty((B * H, ch, K), dtype=torch.float32, device=dev)
-        p = _params(r, k, v, log_w, u_c, ch, 1, dy=dy, s0_in=s0_c,
-                    dsT=dsT_c, dr=dr, dk=dk, dv=dv, dlw=dlw, du=du,
-                    scratch=scratch)
-        _launch("rwkv_wkv_bwd_launch", p, dev, "rwkv_wkv_bwd")
-        rwkv_wkv_bwd.launches += 1
-    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
-            dlw.to(log_w.dtype), du.reshape(B, H, K).sum(0).to(u.dtype))
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                dlw.to(log_w.dtype), du.reshape(B, H, K).sum(0).to(u.dtype))
+    _check_kernel_operands("rwkv_wkv_bwd", r, k, v, log_w, u)
+    dev = r.device
+    # every buffer the kernels read is bound here until they have launched
+    dy = dy.float()
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    u_c, s0_c = u.contiguous(), s0.float().contiguous()
+    dsT_c = dsT.float().contiguous()
+    r, k, v, log_w, dy = (_rows_on_16_bytes(t) for t in (r, k, v, log_w, dy))
+    dr, dk, dv = (torch.empty((B, T, H, K), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dlw = torch.empty((B, T, H, K), dtype=torch.float32, device=dev)
+    du = torch.empty((H, K), dtype=torch.float32, device=dev)
+    g = torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B * H, nc, K), dtype=torch.float32, device=dev)
+    p = _params(r, k, v, log_w, u_c, ch, dy=dy, s0_in=s0_c, dsT=dsT_c,
+                dr=dr, dk=dk, dv=dv, dlw=dlw, du=du, g=g, du_part=du_part)
+    _launch("rwkv_wkv_bwd_launch", p, dev, "rwkv_wkv_bwd")
+    rwkv_wkv_bwd.launches += 1
+    return dr, dk, dv, dlw, du
 
 
 rwkv_wkv.launches = 0

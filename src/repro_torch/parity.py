@@ -1,0 +1,150 @@
+"""Kernels against the plain versions where both round in bf16: the
+comparisons and limits that ``chip_smoke.py`` (phase parity) and the card
+tests share.
+
+In bf16 the kernels and the plain versions round at other points (the
+attention tile routes round P and the output to bf16, the wkv writes its
+gradients in bf16), so two served streams may part at a near tie and two
+gradients differ by rounding.  Each limit below sits between the reading
+of sound runs and that of a planted fault (``chip_smoke.py``'s controls:
+the newest key dropped from the decode attention, the wkv bonus u dropped,
+dK or the wkv's dk zeroed in the backward), read on an H100 in the setup
+of ``chip_smoke.py``'s phase parity (seeded, so a rerun reads the same);
+PERF.md lists both readings beside each limit.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.api.serve_session import ServeResult
+
+# a served stream may part from the plain one only where the plain logits'
+# top-2 gap is below TIE_GAP_BF16, or at a gate with |H - tau| <= TOL_H_BF16;
+# gate entropies within TOL_H_BF16 up to there.  Sound runs: max|dH| 1.3e-3
+# (glm4-9b), 1.9e-6 (rwkv6), no stream parts; the faults: 8.1e-3 and
+# 1.4e-2, and streams part at gaps up to 0.52.  TIE_GAP_BF16 is just above
+# one bf16 step of logits in [2, 4) (2^-6 = 0.0156): where the plain top-2
+# logits are one step apart a sound run may take the other token
+TIE_GAP_BF16 = 2e-2
+TOL_H_BF16 = 3e-3
+# the first step's gradients, each leaf's ||g - g_plain|| / ||g_plain||:
+# sound 1.6e-2 (glm4-9b), 4.8e-3 (rwkv6); the faults 1.0 in both
+TOL_GRAD_BF16 = 5e-2
+# eq1 losses (averages over the batch's tokens) over three Adam steps, by
+# config family: sound 8.4e-4 (glm4-9b) and 3.5e-3 (rwkv6), the faults
+# 2.7e-3 and 1.5e-2
+TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3}
+# the training comparisons' setup: exits (1, 2) over client groups
+# (1, 1, 2, 2), Adam at lr 1e-3 over a 6-step schedule, 3 steps of 8 x 32
+# tokens from ``smoke_batches``
+TRAIN_PROFILE = (1, 1, 2, 2)
+TRAIN_LR, TRAIN_STEPS, TRAIN_SEQ = 1e-3, 3, 32
+
+
+def live_rwkv(params, seed: int = 0) -> None:
+    """Redraw every rwkv6 mixer's ``w_lora_b`` ~ N(0, 0.1), ``u`` ~ N(0, 1)
+    and ``w_base`` ~ U(-2, 0) in place from ``seed``: the init leaves them
+    at 0, 0 and -6, one decay e^-0.0025 everywhere and no bonus, so a
+    parity run at init would not exercise the data-dependent decay or u.
+    Other families' params are left as they are."""
+    gen = {}
+
+    def draw(name, t):
+        g = gen.setdefault(t.device, torch.Generator(
+            device=t.device).manual_seed(seed))
+        if name == "w_lora_b":
+            return 0.1 * torch.randn(t.shape, generator=g, device=t.device)
+        if name == "u":
+            return torch.randn(t.shape, generator=g, device=t.device)
+        return -2.0 * torch.rand(t.shape, generator=g, device=t.device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            live = "w_lora_b" in t and "u" in t
+            for k, v in t.items():
+                if live and k in ("w_lora_b", "u", "w_base"):
+                    v.copy_(draw(k, v))
+                else:
+                    walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+
+    with torch.no_grad():
+        walk(params)
+
+
+def smoke_batches(cfg, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
+                  seed: int = 2, device="cuda") -> List[dict]:
+    """``steps`` batches of 8 x ``seq`` random tokens and labels from numpy
+    ``seed``, routed over ``TRAIN_PROFILE``'s client groups."""
+    from repro_torch.config import HeteroProfile
+    from repro_torch.core.spmd import boundary_ids_for_batch
+    rng = np.random.default_rng(seed)
+    sids = boundary_ids_for_batch(HeteroProfile(TRAIN_PROFILE), cfg, 8,
+                                  device)
+    return [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (8, seq)), device=device),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (8, seq)), device=device),
+             "split_ids": sids} for _ in range(steps)]
+
+
+@dataclass
+class StreamParity:
+    """Served streams against the plain sequential references."""
+    ok: bool = True              # every parting at a near tie
+    compared: int = 0            # tokens equal before any parting
+    max_dh: float = 0.0          # largest |H - H_plain| over those ticks
+    parted: List[str] = field(default_factory=list)
+
+
+def stream_parity(got: Dict[int, ServeResult], wants: Sequence[ServeResult],
+                  tau: float, *, tie_gap: float = TIE_GAP_BF16,
+                  tol_h: float = TOL_H_BF16) -> StreamParity:
+    """``got[rid]`` (served with the kernels) against ``wants[rid]``
+    (``sequential_reference`` or ``sequential_sticky_reference`` on the
+    plain versions, which keep each token's top-2 gap), token by token: a
+    stream may part only at a token whose plain logits have a top-2 gap
+    below ``tie_gap`` or at a gate with |H_plain - tau| <= ``tol_h``, and
+    is compared no further.  The caller holds ``max_dh`` against
+    ``tol_h``."""
+    out = StreamParity()
+    for rid, w in enumerate(wants):
+        g = got[rid]
+        out.ok &= len(g.tokens) == len(w.tokens)
+        for i, (a, b) in enumerate(zip(g.tokens, w.tokens)):
+            if i:
+                out.max_dh = max(out.max_dh,
+                                 abs(g.entropy[i - 1] - w.entropy[i - 1]))
+                if g.exited[i - 1] != w.exited[i - 1]:
+                    near = abs(w.entropy[i - 1] - tau)
+                    out.ok &= near <= tol_h
+                    out.parted.append(f"gate at |H - tau| = {near:.3g}")
+                    break
+            if a != b:
+                out.ok &= w.top2_gap[i] < tie_gap
+                out.parted.append(f"token at top-2 gap {w.top2_gap[i]:.3g}")
+                break
+            out.compared += 1
+    return out
+
+
+def grad_rel_errors(got: Sequence[Optional[torch.Tensor]],
+                    want: Sequence[Optional[torch.Tensor]]) -> List[float]:
+    """Each leaf's ||got - want|| / ||want|| in fp32 (0 where neither side
+    has a gradient, inf where only one has, or where ``want`` is 0 and
+    ``got`` is not)."""
+    out = []
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            out.append(0.0 if g is None and w is None else float("inf"))
+            continue
+        d = (g.float() - w.float()).norm().item()
+        n = w.float().norm().item()
+        out.append(d / n if n > 0 else (0.0 if d == 0 else float("inf")))
+    return out

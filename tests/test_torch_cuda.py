@@ -540,6 +540,7 @@ WKV_CASES = [
     (2, 100, 4, 64, 32, (0.05, 1.0)),      # T not a chunk multiple
     (3, 19, 2, 32, 8, (0.05, 1.0)),        # head_dim 32, ragged
     (2, 16, 2, 16, 32, (0.05, 1.0)),       # chunk > T, head_dim 16
+    (12, 70, 12, 32, 32, (0.05, 1.0)),     # B*H >= SMs at head_dim 32
     (1, 300, 40, 64, 128, (0.0025, 0.37)),  # prefill, value columns split
     (12, 512, 40, 64, 128, (0.0025, 0.37)),  # the training shape
 ]
@@ -564,26 +565,32 @@ def _scaled(got, want):
             / want.abs().max().clamp(min=1.0)).item()
 
 
+def _wkv_counts():
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    return [rwkv_wkv.launches, rwkv_wkv_bwd.launches]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,K,chunk,decay", WKV_CASES)
 def test_wkv_kernels_match_plain(dev, dtype, B, T, H, K, chunk, decay):
     """Each output against the plain version, over its largest magnitude:
-    1e-4 forward, 5e-4 backward (reassociation and the pairwise against the
-    factored exponentials), 1e-2 for bf16 gradients (one bf16 rounding)."""
-    from repro_torch.kernels.rwkv_wkv import (rwkv_wkv, rwkv_wkv_bwd,
+    1e-4 forward, 5e-4 backward (reassociation and the factored
+    exponentials against the TPU algebra's), 1e-2 for bf16 gradients (one
+    bf16 rounding); the same bits on a second launch."""
+    from repro_torch.kernels.rwkv_wkv import (rwkv_wkv_bwd,
                                               rwkv_wkv_bwd_plain,
                                               rwkv_wkv_fwd, rwkv_wkv_plain)
     r, k, v, lw, u, dy, dsT = _wkv_inputs(dev, dtype, B, T, H, K, decay)
-    n_fwd, n_bwd = rwkv_wkv.launches, rwkv_wkv_bwd.launches
+    before = _wkv_counts()
     (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
     grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+    after = _wkv_counts()
     ch = min(chunk, T)
     want_y, want_sT, want_s0 = rwkv_wkv_plain(r, k, v, lw, u, chunk=ch,
                                               emit_chunk_states=True)
     wants = rwkv_wkv_bwd_plain(r, k, v, lw, u, want_s0, dy, dsT, chunk=ch)
     torch.cuda.synchronize()
-    assert (rwkv_wkv.launches, rwkv_wkv_bwd.launches) == (n_fwd + 1,
-                                                         n_bwd + 1)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
     for got, want in ((y, want_y), (sT, want_sT), (s0, want_s0)):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _scaled(got, want) <= 1e-4
@@ -592,18 +599,25 @@ def test_wkv_kernels_match_plain(dev, dtype, B, T, H, K, chunk, decay):
     for got, want, primal in zip(grads, wants, (r, k, v, lw, u)):
         assert got.dtype == primal.dtype and got.shape == primal.shape
         assert _scaled(got, want) <= tol
+    (y2, sT2), s02 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=chunk)
+    grads2 = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=chunk)
+    torch.cuda.synchronize()
+    for a, b in zip((y, sT, s0, *grads), (y2, sT2, s02, *grads2)):
+        assert torch.equal(a, b)
 
 
 def test_wkv_kernels_take_decays_the_plain_chunked_form_cannot(dev):
     """log_w ~ -U(0.7, 1) at chunk 128: e^{-L} passes fp32's range in the
-    TPU algebra; the kernels' pairwise weights match the token oracle and
-    autograd through it."""
+    TPU algebra; the kernels' exponents (all <= 0) match the token oracle
+    and autograd through it."""
     from repro_torch.kernels.ref import rwkv_wkv_ref_model
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv_bwd, rwkv_wkv_fwd
     r, k, v, lw, u, dy, dsT = _wkv_inputs(dev, torch.float32, 1, 256, 4, 64,
                                           (0.7, 1.0), seed=1)
+    before = _wkv_counts()
     (y, sT), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=128)
     grads = rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT, chunk=128)
+    assert [a - b for a, b in zip(_wkv_counts(), before)] == [1, 1]
     leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
     want_y, want_sT = rwkv_wkv_ref_model(*leaves)
     wants = torch.autograd.grad((want_y * dy).sum() + (want_sT * dsT).sum(),
@@ -618,19 +632,17 @@ def test_wkv_autograd_site_matches_plain_autograd(dev):
     """CudaBackend.wkv under autograd (WkvFn: both kernels) against
     autograd of the plain forward (models/ssm._wkv_chunked)."""
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
     leaves = _wkv_inputs(dev, torch.float32, 2, 200, 8, 64, (0.0025, 0.37),
                          seed=2)
     res = []
     for name in ("auto", "ref"):
         xs = [t.clone().requires_grad_() for t in leaves[:5]]
-        counts = (rwkv_wkv.launches, rwkv_wkv_bwd.launches)
+        counts = _wkv_counts()
         y, sT = dispatch.get_backend(name).wkv(*xs, chunk=128)
         ((y * leaves[5]).sum() + (sT * leaves[6]).sum()).backward()
         torch.cuda.synchronize()
-        launched = (rwkv_wkv.launches - counts[0],
-                    rwkv_wkv_bwd.launches - counts[1])
-        assert launched == ((1, 1) if name == "auto" else (0, 0))
+        assert [a - b for a, b in zip(_wkv_counts(), counts)] == (
+            [1, 1] if name == "auto" else [0, 0])
         res.append([y.detach(), sT.detach(), *(t.grad for t in xs)])
     for got, want in zip(*res):
         assert _scaled(got, want) <= 5e-4
@@ -644,9 +656,12 @@ def test_wkv_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 8, 2, 64, device=dev)
     with pytest.raises(ValueError, match="float32"):
         rwkv_wkv(x, x, x, x.half(), torch.zeros(2, 64, device=dev), chunk=4)
-    with pytest.raises(RuntimeError, match="shared memory.*chunk 512"):
-        rwkv_wkv(*(torch.zeros(1, 512, 2, 64, device=dev),) * 4,
-                 torch.zeros(2, 64, device=dev), chunk=512)
+    # the kernels walk any chunk in 16-token tiles: a chunk of 512 tokens
+    # needs no more shared memory than one of 16
+    long = (torch.zeros(1, 512, 2, 64, device=dev),) * 4
+    y = rwkv_wkv(*long, torch.zeros(2, 64, device=dev), chunk=512)
+    torch.cuda.synchronize()
+    assert y.shape == long[0].shape and not y.any()
 
 
 def test_rwkv_serve_session_and_train_step_on_the_card(dev):
@@ -708,3 +723,94 @@ def test_rwkv_serve_session_and_train_step_on_the_card(dev):
                    zip(tree_leaves(p0), tree_leaves(p1))])
     assert d.max().item() <= 1e-3
     assert (d > 1e-6).sum().item() <= 1e-3 * d.numel()
+
+
+# bf16 at full head width: the routes the fp32 head-dim-32 smokes never
+# take, held to the limits of repro_torch/parity.py (chip_smoke.py's phase
+# parity holds the same ones and shows each rejects a planted fault)
+
+
+@pytest.mark.parametrize("family", ["glm4_9b", "rwkv6_3b"])
+def test_bf16_smoke_at_full_head_width_matches_plain(dev, family):
+    """glm4-9b smoke at head dim 64 (attention tile and decode routes) and
+    rwkv6 smoke at head dim 64, chunk 16 (the wkv kernels), bf16, in the
+    setup of chip_smoke.py's phase parity (whose readings set the limits):
+    ServeSession with the kernels against each request served alone on the
+    plain versions, the first eq1 step's gradients leaf by leaf, then
+    three eq1 steps' losses."""
+    from repro_torch import configs
+    from repro_torch.api.serve_session import (ServeSession,
+                                               sequential_reference)
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig, TrainConfig)
+    from repro_torch.core.spmd import (StepConfig, make_grad_step,
+                                       make_train_step)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.optim import adam_init
+    from repro_torch.parity import (TOL_GRAD_BF16, TOL_H_BF16, TOL_LOSS_BF16,
+                                    TRAIN_LR, TRAIN_PROFILE, TRAIN_STEPS,
+                                    grad_rel_errors, live_rwkv, smoke_batches,
+                                    stream_parity)
+    cfg = configs.get(family).smoke_bf16()
+    if family == "glm4_9b":
+        counts = lambda: (flash_attention.tile_launches,  # noqa: E731
+                          flash_attention.decode_launches,
+                          flash_attention.row_launches,
+                          flash_attention_bwd_dq.tile_launches)
+        ok = lambda n: n[0] > 0 and n[1] > 0 and n[2] == 0  # noqa: E731
+        trained = lambda n: n[3] > 0  # noqa: E731
+    else:
+        counts = lambda: (rwkv_wkv.launches,  # noqa: E731
+                          rwkv_wkv_bwd.launches)
+        ok = lambda n: n[0] > 0  # noqa: E731
+        trained = lambda n: n[1] > 0  # noqa: E731
+    params = init_backbone(torch.Generator(device=dev).manual_seed(0), cfg)
+    live_rwkv(params)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(12, 49)))
+               for _ in range(6)]
+    decodes = [6, 9, 4, 7, 5, 8]
+    probe = ServeSession(cfg, params, tau=0.0, slots=1, max_len=64)
+    probe.submit(prompts[0], decode_tokens=6)
+    tau = float(np.median(probe.run()[0].entropy))
+    sess = ServeSession(cfg, params, tau=tau, slots=3, max_len=64)
+    for p, d in zip(prompts, decodes):
+        sess.submit(p, decode_tokens=d)
+    before = counts()
+    got = {r.rid: r for r in sess.run()}
+    assert ok([a - b for a, b in zip(counts(), before)])
+    ref_cfg = cfg.with_(kernels="ref")
+    before = counts()
+    wants = [sequential_reference(ref_cfg, params, p, d, tau=tau, max_len=64)
+             for p, d in zip(prompts, decodes)]
+    assert counts() == before
+    res = stream_parity(got, wants, tau)
+    assert res.ok and res.max_dh <= TOL_H_BF16, res
+
+    base = cfg.with_(exit_layers=(1, 2))
+    batches = smoke_batches(base, device=dev)
+    losses, grads = [], []
+    for kernels in ("auto", "ref"):
+        c = base.with_(kernels=kernels)
+        sc = StepConfig(model=c, splitee=SplitEEConfig(
+            profile=HeteroProfile(TRAIN_PROFILE)),
+            train=TrainConfig(optimizer=OptimizerConfig(
+                lr=TRAIN_LR, total_steps=2 * TRAIN_STEPS)))
+        p = init_backbone(torch.Generator(device=dev).manual_seed(0), c)
+        live_rwkv(p)
+        before = counts()
+        grads.append(make_grad_step(sc)(p, batches[0])[0])
+        opt = adam_init(p, sc.train.optimizer)
+        step = make_train_step(sc)
+        ms = []
+        for b in batches:
+            p, opt, m = step(p, opt, b)
+            ms.append([float(v) for k, v in sorted(m.items()) if k != "lr"])
+        n = [a - b for a, b in zip(counts(), before)]
+        assert (trained(n) if kernels == "auto" else not any(n))
+        losses.append(np.asarray(ms))
+    assert max(grad_rel_errors(*grads)) <= TOL_GRAD_BF16
+    assert np.abs(losses[0] - losses[1]).max() <= TOL_LOSS_BF16[family]
