@@ -8,7 +8,12 @@ Phases:
            (one nvcc per source, all started together) and prints the card's
            name and power limit;
   kernels  holds each kernel against its plain PyTorch version on the card:
-           attention and the gate at the serve and train shapes of
+           the gate (each row's vocab split over a cluster) at glm4-9b's
+           and rwkv6-3b's serve shapes, fp32, 1 and 300 rows, vocab tails,
+           rows not on 16 bytes, each row's max in its last split, -inf
+           entries and every cluster size 1-16 forced, each launched twice
+           (the same bits), and a dropped slice it must reject;
+           attention at the serve and train shapes of
            full-width glm4-9b plus sliding-window, non-causal, head-dim 32
            and fp32 cases; the attention forward's three routes (decode:
            mma.sync, keys split across a cluster; tile: wgmma; row) and
@@ -70,7 +75,9 @@ Phases:
            over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
            row routes of the forward and of dQ beside their redesigned
            routes at the main shapes; the wkv also at a prefill shape
-           (1,300,40,64).  Times are
+           (1,300,40,64); the gate also at (8,65536) bf16, (8,151552) fp32
+           and with the portable cluster of 8 forced, beside the launch
+           floor (a one-element torch op timed the same way).  Times are
            device times: a spin kernel ahead of each timed call keeps the
            host's enqueue (~50-100 us for a wrapper, more for SDPA's
            backward) off the clock.
@@ -274,6 +281,43 @@ def logits_inputs(gen, dtype, B=SLOTS, V=151552):
     return x
 
 
+# the gate's inputs beyond plain random rows: "misaligned" is a view at
+# storage offset 1 with row stride V + 3 (no row on 16 bytes); "max last"
+# puts each row's max (8 above the rest) in its last split; "-inf" sets a
+# tenth of the entries to -inf and the first half of row 0 (whole slices
+# of -inf only)
+GATE_LAYOUTS = ("misaligned", "max last", "-inf")
+
+
+def gate_inputs(gen, dtype, B, V, layout=None):
+    if layout == "misaligned":
+        return logits_inputs(gen, dtype, B, V + 3).as_strided(
+            (B, V), (V + 3, 1), 1)
+    x = logits_inputs(gen, dtype, B, V)
+    if layout == "max last":
+        rows = torch.arange(B, device="cuda")
+        x[rows, V - 1 - rows % min(V, 8)] = (x.float().amax() + 8).to(dtype)
+    elif layout == "-inf":
+        off = torch.rand(B, V, generator=gen, device="cuda") < 0.1
+        off[0, :V // 2] = True
+        x = x.masked_fill(off, -torch.inf)
+    return x
+
+
+def gate_plain_input(x):
+    """The plain version's input for ``x``: a -inf logit adds 0 to the
+    kernel's sums, where the plain version's p log p is 0 * -inf = NaN;
+    -1e4 has p = 0 in fp32 as well, so it stands in for -inf there."""
+    return x.masked_fill(x.isneginf(), -1e4)
+
+
+def gate_offsets(B):
+    """Thresholds around each row's entropy, some within the margin."""
+    off = torch.tensor([-0.5, 0.5, -1e-4, 1e-4, -2e-3, 2e-3, -3.0, 3.0],
+                       device="cuda")
+    return off.repeat(-(-B // 8))[:B]
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -299,9 +343,8 @@ def phase_build(state):
 
 
 def phase_kernels(state):
-    from repro_torch.kernels.entropy_exit import entropy_exit
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import entropy_exit_ref, flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = state.setdefault("max_abs_err", {})
 
@@ -400,32 +443,86 @@ def phase_kernels(state):
                       **kw)
     decode_cases(attn_case)
 
-    def gate_case(name, dtype, V, main=False):
-        x = logits_inputs(gen, dtype, V=V)
-        H_ref, _ = entropy_exit_ref(x, 0.0)
-        # thresholds around each row's entropy, some within the margin
-        tau = H_ref + torch.tensor([-0.5, 0.5, -1e-4, 1e-4, -2e-3, 2e-3,
-                                    -3.0, 3.0], device="cuda")
-        H, ex = entropy_exit(x, tau)
-        H_ref, ex_ref = entropy_exit_ref(x, tau)
-        torch.cuda.synchronize()
-        d = (H - H_ref).abs().max().item()
-        check(d <= TOL_H, f"entropy {name} {dtype} max|dH|={d:.3e} <= {TOL_H:g}")
-        far = (H_ref - tau).abs() > GATE_MARGIN
-        check(bool((ex[far] == ex_ref[far]).all()),
-              f"entropy {name} exits equal where |H-tau| > {GATE_MARGIN:g}")
-        if main:
-            errs["entropy_exit"] = max(errs.get("entropy_exit", 0.0), d)
-
-    gate_case("(8,151552)", torch.bfloat16, 151552, main=True)
-    gate_case("(8,151552)", torch.float32, 151552)
-    gate_case("(8,2053) vocab tail", torch.float32, 2048 + 5)
-    gate_case("(8,97) vocab tail", torch.bfloat16, 97)
-
+    gate_cases(gen, errs)
     bwd_kernel_cases(gen, errs)
     autograd_site_cases(gen)
     wkv_kernel_cases(gen, errs)
     wkv_site_cases(gen)
+
+
+def gate_cases(gen, errs):
+    """The gate against its plain version: glm4-9b's and rwkv6-3b's serve
+    shapes, fp32, one row, 300 rows (one block a row), vocab tails, rows
+    not on 16 bytes, each row's max in its last split, -inf entries, and
+    every cluster size forced; each call also launched a second time,
+    which must give the same bits."""
+    from repro_torch.kernels.entropy_exit import (MAX_SPLITS, entropy_exit,
+                                                  gate_splits,
+                                                  max_active_clusters,
+                                                  sm_count)
+    from repro_torch.kernels.ref import entropy_exit_ref, gate_slice_bounds
+
+    def gate_case(name, dtype, V, *, B=SLOTS, layout=None, splits=None,
+                  main=False):
+        """One gate call against the plain version (``splits`` forces the
+        cluster size), and a second launch that must give the same
+        bits."""
+        x = gate_inputs(gen, dtype, B, V, layout)
+        plain = gate_plain_input(x)
+        H_ref, _ = entropy_exit_ref(plain, 0.0)
+        tau = H_ref + gate_offsets(B)
+        n = entropy_exit.launches
+        H, ex = entropy_exit(x, tau, splits=splits)
+        again = entropy_exit(x, tau, splits=splits)
+        H_ref, ex_ref = entropy_exit_ref(plain, tau)
+        torch.cuda.synchronize()
+        cs = splits or gate_splits(B, V, sm_count(0))
+        name = f"entropy {name} {dtype}, {cs} splits"
+        check(entropy_exit.launches == n + 2 and torch.equal(H, again[0])
+              and torch.equal(ex, again[1]),
+              f"{name}: H and exit bit for bit equal across two launches")
+        d = (H - H_ref).abs().max().item()
+        check(d <= TOL_H, f"{name} max|dH|={d:.3e} <= {TOL_H:g}")
+        far = (H_ref - tau).abs() > GATE_MARGIN
+        check(bool((ex[far] == ex_ref[far]).all()),
+              f"{name} exits equal where |H-tau| > {GATE_MARGIN:g}")
+        if main:
+            errs["entropy_exit"] = max(errs.get("entropy_exit", 0.0), d)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gate_case("(8,151552)", bf16, 151552, main=True)
+    gate_case("(8,151552)", f32, 151552)
+    gate_case("(8,65536)", bf16, 65536, main=True)
+    gate_case("(1,151552)", bf16, 151552, B=1)
+    gate_case("(300,151552)", bf16, 151552, B=300)
+    gate_case("(8,2053) vocab tail", f32, 2048 + 5)
+    gate_case("(8,97) vocab tail", bf16, 97)
+    # more rows than grid.y holds: two grid.z slices, padding in the last
+    gate_case("(65537,97) rows beyond grid.y", bf16, 97, B=65537)
+    gate_case("(65537,97) rows beyond grid.y, forced", bf16, 97, B=65537,
+              splits=2)
+    for dtype in (bf16, f32):
+        for layout in GATE_LAYOUTS:
+            gate_case(f"(8,151552) {layout}", dtype, 151552, layout=layout)
+    print("  clusters the card holds at once (bf16 / fp32): "
+          + ", ".join(f"{cs} blocks {max_active_clusters(bf16, cs)} / "
+                      f"{max_active_clusters(f32, cs)}" for cs in (8, 16)))
+    # planted fault: the kernel on rows whose last slice reads -inf (that
+    # slice's triple dropped) must miss the plain version beyond TOL_H
+    x = logits_inputs(gen, bf16)
+    lo = gate_slice_bounds(x.shape[1], gate_splits(*x.shape, sm_count(0)))
+    dropped = x.clone()
+    dropped[:, lo[-1][0]:] = -torch.inf
+    d = (entropy_exit(dropped, 0.0)[0]
+         - entropy_exit_ref(x, 0.0)[0]).abs().max().item()
+    check(d > TOL_H, f"entropy (8,151552) planted fault, the last of "
+                     f"{len(lo)} slices dropped: max|dH|={d:.3e} > {TOL_H:g}")
+    for cs in range(1, MAX_SPLITS + 1):
+        gate_case("(8,151552) forced", bf16, 151552, splits=cs)
+        gate_case("(8,2053) misaligned rows, forced", f32, 2053,
+                  layout="misaligned", splits=cs)
+        gate_case("(3,97) -inf entries, forced", bf16, 97, B=3,
+                  layout="-inf", splits=cs)
 
 
 def decode_cases(attn_case):
@@ -1364,8 +1461,8 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
 
 def traced(run, n: int, what: str, top: int = 6) -> dict:
     """``run()`` n times under torch.profiler: wall time, device busy time
-    (the sum of device kernel times) and idle share per run, and the
-    largest device kernels by time."""
+    (the sum of device kernel times) and idle share per run, the largest
+    device kernels by time, and the entropy gate's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1387,6 +1484,9 @@ def traced(run, n: int, what: str, top: int = 6) -> dict:
           f"kernels each")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / n / 1e3:8.3f} ms each  {name[:90]}")
+    gate_us = sum(us for name, us in by_name.items() if "entropy_exit" in name)
+    if gate_us:
+        print(f"  {gate_us / n / 1e3:8.4f} ms each  the entropy gate")
     return dict(wall_ms=wall_us / n / 1e3, busy_ms=busy_us / n / 1e3,
                 idle_share=1 - busy_us / wall_us)
 
@@ -1630,9 +1730,8 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
 
 
 def phase_timing(state):
-    from repro_torch.kernels.entropy_exit import entropy_exit
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import entropy_exit_ref, flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(1)
     buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
@@ -1674,22 +1773,53 @@ def phase_timing(state):
         bound_ms=max(bytes_p / HBM_BYTES_PER_S,
                      4 * H * D * n_pairs / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3)
 
-    # entropy gate at the serve shape
-    x = logits_inputs(gen, torch.bfloat16)
-    tau = torch.full((x.shape[0],), 2.0, device="cuda")
-    rows.append(dict(
-        name="entropy_exit", route="cuda",
-        source="src/repro_torch/kernels/csrc/entropy_exit.cu",
-        replaces="src/repro/kernels/entropy_exit.py:57",
-        shape="logits (8,151552) bf16, per-row tau",
-        ms=time_ms(lambda: entropy_exit(x, tau), buf),
-        plain_ms=time_ms(lambda: entropy_exit_ref(x, tau), buf),
-        library_ms=None,
-        bytes=x.numel() * 2 + 3 * 4 * x.shape[0], ops=4 * x.numel(),
-        dtype=torch.float32))
+    rows.append(time_gate(gen, buf, state))
     rows.extend(time_backward(gen, buf, state))
     rows.extend(time_wkv(gen, buf, state))
     state["timing"] = rows
+
+
+def time_gate(gen, buf, state) -> dict:
+    """The gate at glm4-9b's serve shape (8,151552) bf16, the result
+    line's row, and beside it rwkv6-3b's (8,65536) bf16, (8,151552) fp32
+    and the serve shape with the portable cluster of 8 forced; each with the
+    plain version, the bound (bytes: the logits and tau read, H and exit
+    written; 4 operations a logit) and the launch floor, a one-element
+    torch op timed the same way."""
+    from repro_torch.kernels.entropy_exit import (entropy_exit, gate_splits,
+                                                  sm_count)
+    from repro_torch.kernels.ref import entropy_exit_ref
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(lambda: one.add_(1.0), buf)
+
+    def timed(dtype, V, splits=None):
+        x = logits_inputs(gen, dtype, V=V)
+        tau = torch.full((x.shape[0],), 2.0, device="cuda")
+        cs = splits or gate_splits(x.shape[0], V, sm_count(0))
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        return dict(
+            shape=f"logits (8,{V}) {name}, per-row tau, {cs} splits (one "
+                  f"cluster of {cs} blocks per row)",
+            ms=time_ms(lambda: entropy_exit(x, tau, splits=splits), buf),
+            plain_ms=time_ms(lambda: entropy_exit_ref(x, tau), buf),
+            bytes=x.numel() * x.element_size() + 3 * 4 * x.shape[0],
+            ops=4 * x.numel(), launch_floor_ms=floor_ms)
+
+    main = timed(torch.bfloat16, 151552)
+    more = {"rwkv6-3b serve shape": timed(torch.bfloat16, 65536),
+            "fp32": timed(torch.float32, 151552),
+            "portable cluster of 8 forced": timed(torch.bfloat16, 151552,
+                                                  8)}
+    for what, r in {"glm4-9b serve shape": main, **more}.items():
+        r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S, r["ops"]
+                            / PEAK_OPS_PER_S[torch.float32]) * 1e3
+        print(f"entropy_exit {what} [{r['shape']}]: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"(bytes), launch floor {r['launch_floor_ms']:.4f} ms")
+    return dict(name="entropy_exit", route="cuda",
+                source="src/repro_torch/kernels/csrc/entropy_exit.cu",
+                replaces="src/repro/kernels/entropy_exit.py:57",
+                library_ms=None, dtype=torch.float32, **main)
 
 
 def time_decode(buf, q, k, v, kv_valid) -> dict:
@@ -1892,7 +2022,8 @@ def kernels_line(state) -> dict:
     for r in state["timing"]:
         bound_b = r["bytes"] / HBM_BYTES_PER_S * 1e3
         bound_o = r["ops"] / PEAK_OPS_PER_S[r["dtype"]] * 1e3
-        extra = {}
+        extra = ({"launch_floor_ms": r["launch_floor_ms"]}
+                 if "launch_floor_ms" in r else {})
         if r["dtype"] == "3xtf32":      # and on the CUDA cores, as they run
             extra["bound_cuda_cores_ms"] = max(
                 bound_b, r["ops"] / PEAK_OPS_PER_S[torch.float32] * 1e3)
@@ -1994,6 +2125,8 @@ def main() -> int:
                    else f"{k['library_ms']:.4f} ms")
             cores = ("" if "bound_cuda_cores_ms" not in k else
                      f"; on the CUDA cores {k['bound_cuda_cores_ms']:.5f} ms")
+            if "launch_floor_ms" in k:
+                cores += f"; launch floor {k['launch_floor_ms']:.4f} ms"
             print(f"{k['name']} [{k['shape']}]: {k['ms']:.4f} ms, bound "
                   f"{k['bound_ms']:.5f} ms ({k['bound_by']}{cores}), plain "
                   f"{k['plain_ms']:.4f} ms, library {lib}, "

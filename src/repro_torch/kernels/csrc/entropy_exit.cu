@@ -7,33 +7,101 @@
 //     m = running max,  S = sum e^{x-m},  U = sum e^{x-m} * x,
 // rescaling S and U by e^{m_old - m_new} on a new max, and finishes with
 //     H = m + log S - U / S   (S clamped >= 1e-30),   exit = H < tau[row].
-// The (B, V) softmax is never written to memory.
+// The (B, V) softmax is never written to memory.  A -inf element adds 0 to
+// S and U; a row or slice of -inf only is the empty triple (m = -inf).
 //
-// Design: one block per row, 256 threads striding the vocab so that
-// neighbouring threads read neighbouring logits.  Each thread keeps its own
-// (m, S, U); the triples merge by warp shuffles, then across the 8 warps
-// through shared memory, with the same e^{m_old - m_new} rescale.  Thread 0
-// writes H and the exit flag.  tau is a device array, one value per row, so
-// reading it never synchronises the host.
+// Bound on this card: bytes (each logit read once, a few operations on
+// it).  At glm4-9b's serve shape, 8 rows of 151552 bf16 (2.4 MB), that is
+// 0.72 us at 3.35 TB/s, below what one launch costs on its own.  The
+// design keeps the launch the only large cost:
 //
-// Bound on this card: bytes.  The kernel reads each logit once (B*V*2 bytes
-// in bf16) and does a few flops per logit.  At the serve shape (8, 151552)
-// only 8 of the 132 SMs have a block, so one SM's load bandwidth, not HBM,
-// limits it.  A later PR would split the vocab of a row across blocks (a
-// second pass, or one merge block, combines the partial triples) and use
-// 16-byte loads.
+//   * Each row's vocab is split over the `splits` blocks of one thread
+//     block cluster (grid (splits, rows), a cluster dimension of
+//     (splits, 1, 1)), so 8 rows keep 128 SMs busy and not 8.  Slice r of
+//     a row is [r * per, (r + 1) * per) clipped to V, per = ceil(V /
+//     splits) rounded up to 8 elements (trailing slices may be empty).
+//     The wrapper picks `splits` (`gate_splits`): up to 16, a non-portable
+//     cluster size, one block a row when the rows alone fill the card.
+//   * Every thread issues kUnroll 16-byte loads (8 bf16 or 4 fp32,
+//     ld.global.nc, no L1 allocation) before it computes on any of them:
+//     at the serve shape the whole 2.4 MB is requested in one round.  A
+//     scalar head runs up to the slice's first 16-byte boundary and a
+//     scalar tail after its last whole vector, so rows need not be aligned.
+//   * No branch per element: a vector's max is taken first and S and U are
+//     rescaled at most once a vector; each element then adds
+//     e = 2^(x log2e - m log2e) (ex2.approx) to S and e x to U.
+//   * A block merges its threads' triples by warp shuffles and across warps
+//     in shared memory, then writes its triple into rank 0's shared memory
+//     (distributed shared memory) and arrives on the cluster barrier with
+//     release semantics; every block but rank 0 then leaves.  Rank 0 waits,
+//     takes the row's max, sums the rescaled S and U in rank order and
+//     writes H and the exit flag.  An arrive at the kernel's start, waited
+//     on before the write, makes sure every block of the cluster has
+//     started.  One launch, no global scratch, no atomics: the same input
+//     gives the same bits.
+//
+// Times on an H100 80GB HBM3 at 700 W: PERF.md, section 6 (chip_smoke.py
+// phase `timing`).  At the serve shape the kernel takes about twice the
+// launch floor (a one-element torch op timed the same way): the launch, a
+// DRAM latency and the merges, not the 0.72 us of bytes, make up its time.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;          // 16-byte loads in flight per thread
+constexpr int kMaxSplits = 16;      // blocks of a cluster (> 8: non-portable)
+constexpr int kSliceAlign = 8;      // slice bounds fall on 8-element steps
+constexpr int kMaxGridY = 65535;    // rows beyond it go to grid.z
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void unpack(uint4 v, float (&x)[n]) {
+    x[0] = __uint_as_float(v.x);
+    x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z);
+    x[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ float one(float x) { return x; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ void unpack(uint4 v, float (&x)[n]) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ float one(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+};
+
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
 struct Triple {
@@ -44,74 +112,250 @@ struct Triple {
 __device__ __forceinline__ Triple merge(Triple a, Triple b) {
   const float m = fmaxf(a.m, b.m);
   if (m == -INFINITY) return a;
-  const float fa = (a.m == -INFINITY) ? 0.f : expf(a.m - m);
-  const float fb = (b.m == -INFINITY) ? 0.f : expf(b.m - m);
+  const float fa =
+      (a.m == -INFINITY) ? 0.f : hopper::exp2_ftz((a.m - m) * kLog2e);
+  const float fb =
+      (b.m == -INFINITY) ? 0.f : hopper::exp2_ftz((b.m - m) * kLog2e);
   return {m, a.s * fa + b.s * fb, a.u * fa + b.u * fb};
 }
 
+__device__ __forceinline__ Triple shfl_merge(Triple t, int off) {
+  Triple o;
+  o.m = __shfl_xor_sync(0xffffffffu, t.m, off);
+  o.s = __shfl_xor_sync(0xffffffffu, t.s, off);
+  o.u = __shfl_xor_sync(0xffffffffu, t.u, off);
+  return merge(t, o);
+}
+
+// Adds N elements to a thread's triple: the max first (one rescale at
+// most), then every element without a branch.  x * log2e - m * log2e
+// keeps each exponent <= 0 up to rounding; a -inf element gives e = 0 and
+// adds 0 * (-FLT_MAX) to U.
+template <int N>
+__device__ __forceinline__ void accumulate(Triple& t, const float (&x)[N]) {
+  float vm = x[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) vm = fmaxf(vm, x[j]);
+  const float m = fmaxf(t.m, vm);
+  const float f = (m == t.m) ? 1.f : hopper::exp2_ftz((t.m - m) * kLog2e);
+  t.s *= f;
+  t.u *= f;
+  t.m = m;
+  const float mb = (m == -INFINITY) ? 0.f : m * kLog2e;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float e = hopper::exp2_ftz(fmaf(x[j], kLog2e, -mb));
+    t.s += e;
+    t.u = fmaf(e, fmaxf(x[j], -FLT_MAX), t.u);
+  }
+}
+
+// barrier.cluster in three steps: an early relaxed arrive, a wait that
+// acquires, an arrive that releases the writes before it
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One cluster per row (row = blockIdx.z * gridDim.y + blockIdx.y); block
+// `rank` reduces slice `rank` of it.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-entropy_exit_kernel(const T* __restrict__ logits, long long row_stride,
-                    int vocab, const float* __restrict__ tau,
-                    float* __restrict__ entropy, int* __restrict__ exit_flag) {
-  const T* x = logits + static_cast<long long>(blockIdx.x) * row_stride;
+entropy_exit_kernel(const T* __restrict__ logits, long long rows,
+                    long long row_stride, int vocab,
+                    const float* __restrict__ tau, float* __restrict__ entropy,
+                    int* __restrict__ exit_flag) {
+  constexpr int kVec = Vec<T>::n;
+  __shared__ Triple warp_part[kWarps];
+  __shared__ Triple parts[kMaxSplits];    // rank 0's: every block's triple
+  cg::cluster_group cluster = cg::this_cluster();
+  // the wait below (after the streaming) then finds every block of the
+  // cluster started, so rank 0's shared memory may be written
+  cluster_arrive_relaxed();
+  const long long row =
+      static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
+  if (row >= rows) return;   // the last grid.z slice's padding clusters
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int per = ((vocab + cs - 1) / cs + kSliceAlign - 1) / kSliceAlign *
+                  kSliceAlign;
+  const int lo = min(vocab, rank * per), hi = min(vocab, lo + per);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* x = logits + row * row_stride;
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(x + lo) & 15) / sizeof(T));
+  const int head = min(hi - lo, mis ? kVec - mis : 0);
+  const int nvec = (hi - lo - head) / kVec;
+  const int tail = lo + head + nvec * kVec;
+  const uint4* vp = reinterpret_cast<const uint4*>(x + lo + head);
+
   Triple t = {-INFINITY, 0.f, 0.f};
-  for (int i = threadIdx.x; i < vocab; i += kThreads) {
-    const float v = to_float(x[i]);
-    if (v > t.m) {
-      const float f = expf(t.m - v);  // 0 while the triple is empty
-      t.s = t.s * f + 1.f;
-      t.u = t.u * f + v;
-      t.m = v;
-    } else {
-      const float e = expf(v - t.m);
-      t.s += e;
-      t.u += e * v;
+  for (int base = threadIdx.x; base < nvec; base += kThreads * kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      v[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (base + k * kThreads < nvec)
+        v[k] = load_stream(vp + base + k * kThreads);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (base + k * kThreads < nvec) {
+        float xs[kVec];
+        Vec<T>::unpack(v[k], xs);
+        accumulate(t, xs);
+      }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Triple o;
-    o.m = __shfl_xor_sync(0xffffffffu, t.m, off);
-    o.s = __shfl_xor_sync(0xffffffffu, t.s, off);
-    o.u = __shfl_xor_sync(0xffffffffu, t.u, off);
-    t = merge(t, o);
+  // the head (< kVec elements) and the tail (< kVec): one element each
+  // for the first threads
+  const int n_tail = hi - tail;
+  int idx = -1;
+  if (threadIdx.x < head) idx = lo + threadIdx.x;
+  else if (threadIdx.x < head + n_tail) idx = tail + threadIdx.x - head;
+  if (idx >= 0) {
+    const float xs[1] = {Vec<T>::one(x[idx])};
+    accumulate(t, xs);
   }
-  __shared__ Triple warp_part[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) t = shfl_merge(t, off);
   if (lane == 0) warp_part[warp] = t;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    Triple r = warp_part[0];
-    for (int w = 1; w < kWarps; ++w) r = merge(r, warp_part[w]);
-    const float S = fmaxf(r.s, 1e-30f);
-    const float H = r.m + logf(S) - r.u / S;
-    entropy[blockIdx.x] = H;
-    exit_flag[blockIdx.x] = H < tau[blockIdx.x] ? 1 : 0;
+  if (warp == 0) {
+    Triple w = {-INFINITY, 0.f, 0.f};
+    if (lane < kWarps) w = warp_part[lane];
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1) w = shfl_merge(w, off);
+    t = w;
   }
+  cluster_wait();
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&parts[rank], 0) = t;
+  cluster_arrive_release();
+  // the other blocks leave now: nothing reads their shared memory
+  if (rank != 0) return;
+  cluster_wait();
+  if (warp == 0) {
+    // lane q holds rank q's triple; the row's max, then each rank's S and
+    // U rescaled to it and summed in rank order by every lane
+    Triple p = {-INFINITY, 0.f, 0.f};
+    if (lane < cs) p = parts[lane];
+    float M = p.m;
+#pragma unroll
+    for (int off = kMaxSplits / 2; off > 0; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    const float w =
+        (p.m == -INFINITY) ? 0.f : hopper::exp2_ftz((p.m - M) * kLog2e);
+    const float ws = p.s * w, wu = p.u * w;
+    float S = 0.f, U = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q) {
+      S += __shfl_sync(0xffffffffu, ws, q);
+      U += __shfl_sync(0xffffffffu, wu, q);
+    }
+    if (lane == 0) {
+      S = fmaxf(S, 1e-30f);
+      const float H = M + logf(S) - U / S;
+      entropy[row] = H;
+      exit_flag[row] = H < tau[row] ? 1 : 0;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t cluster_config(int splits, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  if (splits > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        entropy_exit_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (err != cudaSuccess) return err;
+  }
+  cfg->blockDim = dim3(kThreads);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(splits);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(const void* logits, long long rows, long long row_stride,
+           int vocab, int splits, const float* tau, float* entropy,
+           int* exit_flag, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config<T>(splits, &cfg, attr);
+  if (err == cudaSuccess) {
+    const long long z = (rows + kMaxGridY - 1) / kMaxGridY;
+    cfg.gridDim = dim3(static_cast<unsigned>(splits),
+                       static_cast<unsigned>((rows + z - 1) / z),
+                       static_cast<unsigned>(z));
+    cfg.stream = stream;
+    err = cudaLaunchKernelEx(&cfg, entropy_exit_kernel<T>,
+                             static_cast<const T*>(logits), rows, row_stride,
+                             vocab, tau, entropy, exit_flag);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // clear it: the next launch of another library
+    return static_cast<int>(err);   // must not report it as its own
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; `splits` blocks (1..16) per row, one
+// thread block cluster.  Returns the error of the launch itself, else
+// cudaGetLastError() after it (0 = launched).
 extern "C" int entropy_exit_launch(const void* logits, int dtype,
                                    long long rows, long long row_stride,
-                                   int vocab, const float* tau, float* entropy,
-                                   int* exit_flag, void* stream) {
-  if (rows <= 0 || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(rows));
+                                   int vocab, int splits, const float* tau,
+                                   float* entropy, int* exit_flag,
+                                   void* stream) {
+  if (rows <= 0 || vocab <= 0 || splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(logits, rows, row_stride, vocab, splits, tau,
+                         entropy, exit_flag, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(logits, rows, row_stride, vocab, splits,
+                                 tau, entropy, exit_flag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The number of clusters of `splits` blocks that the card can hold at once
+// (cudaOccupancyMaxActiveClusters) into *count; returns the CUDA error.
+extern "C" int entropy_exit_max_active_clusters(int dtype, int splits,
+                                                int* count) {
+  if (splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
   if (dtype == 0) {
-    entropy_exit_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(logits), row_stride, vocab, tau, entropy,
-        exit_flag);
+    err = cluster_config<float>(splits, &cfg, attr);
+    cfg.gridDim = dim3(static_cast<unsigned>(splits));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(count, entropy_exit_kernel<float>,
+                                           &cfg);
   } else if (dtype == 1) {
-    entropy_exit_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), row_stride, vocab, tau,
-        entropy, exit_flag);
+    err = cluster_config<__nv_bfloat16>(splits, &cfg, attr);
+    cfg.gridDim = dim3(static_cast<unsigned>(splits));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          count, entropy_exit_kernel<__nv_bfloat16>, &cfg);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
 }

@@ -2,13 +2,16 @@
 ``csrc/entropy_exit.cu`` (which replaces the TPU kernel
 ``repro/kernels/entropy_exit.py:entropy_exit_pallas``).
 
-For a tensor on the CPU the wrapper runs the plain version
-(``kernels/ref.py:entropy_exit_ref``); for a CUDA tensor it launches the
-kernel or raises.  ``entropy_exit.launches`` counts kernel launches.
+The kernel splits each row's vocab over the blocks of one thread block
+cluster; :func:`gate_splits` picks how many.  For a tensor on the CPU the
+wrapper runs the plain version (``kernels/ref.py:entropy_exit_ref``); for a
+CUDA tensor it launches the kernel or raises.  ``entropy_exit.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,26 +19,68 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import entropy_exit_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# entropy_exit_launch(logits, dtype, rows, row_stride, vocab, splits, tau,
+#                     entropy, exit_flag, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# entropy_exit_max_active_clusters(dtype, splits, count)
+_CLUSTER_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+MAX_SPLITS = 16      # the kernel's largest cluster (above 8: non-portable)
+# the largest cluster gate_splits picks: 16 blocks beat 8 at glm4-9b's
+# serve shape on an H100 (chip_smoke.py phase timing; PERF.md, section 6)
+CLUSTER_CAP = 16
+MIN_SLICE = 4096     # elements a block takes at least when a row is split
 _lib = None
 
 
-def _launcher():
+def _library():
     global _lib
     if _lib is None:
         lib = build.load("entropy_exit.cu")
-        fn = lib.entropy_exit_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = fn
+        lib.entropy_exit_launch.argtypes = _ARGTYPES
+        lib.entropy_exit_launch.restype = ctypes.c_int
+        lib.entropy_exit_max_active_clusters.argtypes = _CLUSTER_ARGTYPES
+        lib.entropy_exit_max_active_clusters.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 
-def entropy_exit(logits: torch.Tensor, tau):
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gate_splits(rows: int, vocab: int, sms: int,
+                cap: int = CLUSTER_CAP) -> int:
+    """Blocks (one cluster) per row: 1 when the rows alone fill half the
+    SMs or a row holds fewer than 2 x ``MIN_SLICE`` elements; else enough
+    to fill the SMs, at most ``cap`` and at most one per ``MIN_SLICE``
+    elements."""
+    if 2 * rows >= sms:
+        return 1
+    return max(1, min(cap, -(-sms // rows), vocab // MIN_SLICE))
+
+
+def max_active_clusters(dtype: torch.dtype, splits: int) -> int:
+    """Clusters of ``splits`` blocks the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``); 0 means it cannot launch one."""
+    count = ctypes.c_int(0)
+    rc = _library().entropy_exit_max_active_clusters(
+        _DTYPES[dtype], splits, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"entropy_exit: occupancy query for clusters of "
+                           f"{splits} failed: CUDA error {rc}")
+    return count.value
+
+
+def entropy_exit(logits: torch.Tensor, tau, *, splits: int | None = None):
     """logits (B, V) float32 or bfloat16; ``tau`` a float or (B,) per-row
     thresholds -> ``(entropy (B,) float32, exit (B,) int32)``, exit iff
-    H < tau.  ``tau`` stays on the device: reading it does not sync."""
+    H < tau.  ``tau`` stays on the device: reading it does not sync.
+    ``splits`` (1..16) overrides :func:`gate_splits` on the card."""
     if logits.ndim != 2:
         raise ValueError(f"entropy_exit expects (B, V) logits, got "
                          f"{tuple(logits.shape)}")
@@ -53,16 +98,22 @@ def entropy_exit(logits: torch.Tensor, tau):
         raise ValueError(f"entropy_exit: logits {tuple(logits.shape)} with "
                          f"strides {logits.stride()} must be non-empty with "
                          f"a unit vocab stride")
+    if splits is None:
+        splits = gate_splits(B, V, sm_count(logits.device.index))
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"entropy_exit: splits {splits} not in "
+                         f"1..{MAX_SPLITS}")
     H = torch.empty(B, dtype=torch.float32, device=logits.device)
     ex = torch.empty(B, dtype=torch.int32, device=logits.device)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
-        rc = _launcher()(logits.data_ptr(), _DTYPES[logits.dtype], B,
-                         logits.stride(0), V, tau.data_ptr(), H.data_ptr(),
-                         ex.data_ptr(), stream)
+        rc = _library().entropy_exit_launch(
+            logits.data_ptr(), _DTYPES[logits.dtype], B, logits.stride(0), V,
+            splits, tau.data_ptr(), H.data_ptr(), ex.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"entropy_exit kernel launch failed: CUDA error "
-                           f"{rc} at logits {tuple(logits.shape)}")
+                           f"{rc} at logits {tuple(logits.shape)}, a cluster "
+                           f"of {splits} blocks per row")
     entropy_exit.launches += 1
     return H, ex
 
