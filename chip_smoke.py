@@ -11,8 +11,9 @@ Phases:
            the gate (each row's vocab split over a cluster) at glm4-9b's
            and rwkv6-3b's serve shapes, fp32, 1 and 300 rows, vocab tails,
            rows not on 16 bytes, each row's max in its last split, -inf
-           entries and every cluster size 1-16 forced, each launched twice
-           (the same bits), and a dropped slice it must reject;
+           entries and every cluster size 1-16 (row widths at which the
+           wrapper picks each), each launched twice (the same bits), and a
+           dropped slice it must reject;
            attention at the serve and train shapes of
            full-width glm4-9b plus sliding-window, non-causal, head-dim 32
            and fp32 cases; the attention forward's three routes (decode:
@@ -75,12 +76,11 @@ Phases:
            over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
            row routes of the forward and of dQ beside their redesigned
            routes at the main shapes; the wkv also at a prefill shape
-           (1,300,40,64); the gate also at (8,65536) bf16, (8,151552) fp32
-           and with the portable cluster of 8 forced, beside the launch
-           floor (a one-element torch op timed the same way).  Times are
-           device times: a spin kernel ahead of each timed call keeps the
-           host's enqueue (~50-100 us for a wrapper, more for SDPA's
-           backward) off the clock.
+           (1,300,40,64); the gate also at (8,65536) bf16 and (8,151552)
+           fp32, beside the launch floor (a one-element torch op timed the
+           same way).  Times are device times: a spin kernel ahead of each
+           timed call keeps the host's enqueue (~50-100 us for a wrapper,
+           more for SDPA's backward) off the clock.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check exits non-zero
@@ -276,48 +276,6 @@ def kv_prefix(B, Tk=MAX_LEN, seed=0):
                            device="cuda")
 
 
-def logits_inputs(gen, dtype, B=SLOTS, V=151552):
-    x = (3.0 * torch.randn(B, V, generator=gen, device="cuda")).to(dtype)
-    return x
-
-
-# the gate's inputs beyond plain random rows: "misaligned" is a view at
-# storage offset 1 with row stride V + 3 (no row on 16 bytes); "max last"
-# puts each row's max (8 above the rest) in its last split; "-inf" sets a
-# tenth of the entries to -inf and the first half of row 0 (whole slices
-# of -inf only)
-GATE_LAYOUTS = ("misaligned", "max last", "-inf")
-
-
-def gate_inputs(gen, dtype, B, V, layout=None):
-    if layout == "misaligned":
-        return logits_inputs(gen, dtype, B, V + 3).as_strided(
-            (B, V), (V + 3, 1), 1)
-    x = logits_inputs(gen, dtype, B, V)
-    if layout == "max last":
-        rows = torch.arange(B, device="cuda")
-        x[rows, V - 1 - rows % min(V, 8)] = (x.float().amax() + 8).to(dtype)
-    elif layout == "-inf":
-        off = torch.rand(B, V, generator=gen, device="cuda") < 0.1
-        off[0, :V // 2] = True
-        x = x.masked_fill(off, -torch.inf)
-    return x
-
-
-def gate_plain_input(x):
-    """The plain version's input for ``x``: a -inf logit adds 0 to the
-    kernel's sums, where the plain version's p log p is 0 * -inf = NaN;
-    -1e4 has p = 0 in fp32 as well, so it stands in for -inf there."""
-    return x.masked_fill(x.isneginf(), -1e4)
-
-
-def gate_offsets(B):
-    """Thresholds around each row's entropy, some within the margin."""
-    off = torch.tensor([-0.5, 0.5, -1e-4, 1e-4, -2e-3, 2e-3, -3.0, 3.0],
-                       device="cuda")
-    return off.repeat(-(-B // 8))[:B]
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -454,29 +412,30 @@ def gate_cases(gen, errs):
     """The gate against its plain version: glm4-9b's and rwkv6-3b's serve
     shapes, fp32, one row, 300 rows (one block a row), vocab tails, rows
     not on 16 bytes, each row's max in its last split, -inf entries, and
-    every cluster size forced; each call also launched a second time,
-    which must give the same bits."""
+    every cluster size 1-16 (row widths at which ``gate_splits`` picks
+    each); each call also launched a second time, which must give the
+    same bits."""
     from repro_torch.kernels.entropy_exit import (MAX_SPLITS, entropy_exit,
-                                                  gate_splits,
-                                                  max_active_clusters,
-                                                  sm_count)
+                                                  gate_splits, sm_count)
     from repro_torch.kernels.ref import entropy_exit_ref, gate_slice_bounds
+    from repro_torch.parity import (GATE_CLUSTER_ROWS, GATE_LAYOUTS,
+                                    gate_cluster_vocab, gate_logits,
+                                    gate_plain_input, gate_thresholds)
+    sizes = set()
 
-    def gate_case(name, dtype, V, *, B=SLOTS, layout=None, splits=None,
-                  main=False):
-        """One gate call against the plain version (``splits`` forces the
-        cluster size), and a second launch that must give the same
-        bits."""
-        x = gate_inputs(gen, dtype, B, V, layout)
+    def gate_case(name, dtype, V, *, B=SLOTS, layout=None, main=False):
+        """One gate call against the plain version, and a second launch
+        that must give the same bits."""
+        x = gate_logits(gen, dtype, B, V, layout)
         plain = gate_plain_input(x)
-        H_ref, _ = entropy_exit_ref(plain, 0.0)
-        tau = H_ref + gate_offsets(B)
+        tau = gate_thresholds(entropy_exit_ref(plain, 0.0)[0])
         n = entropy_exit.launches
-        H, ex = entropy_exit(x, tau, splits=splits)
-        again = entropy_exit(x, tau, splits=splits)
+        H, ex = entropy_exit(x, tau)
+        again = entropy_exit(x, tau)
         H_ref, ex_ref = entropy_exit_ref(plain, tau)
         torch.cuda.synchronize()
-        cs = splits or gate_splits(B, V, sm_count(0))
+        cs = gate_splits(B, V, sm_count(0))
+        sizes.add(cs)
         name = f"entropy {name} {dtype}, {cs} splits"
         check(entropy_exit.launches == n + 2 and torch.equal(H, again[0])
               and torch.equal(ex, again[1]),
@@ -499,17 +458,22 @@ def gate_cases(gen, errs):
     gate_case("(8,97) vocab tail", bf16, 97)
     # more rows than grid.y holds: two grid.z slices, padding in the last
     gate_case("(65537,97) rows beyond grid.y", bf16, 97, B=65537)
-    gate_case("(65537,97) rows beyond grid.y, forced", bf16, 97, B=65537,
-              splits=2)
     for dtype in (bf16, f32):
         for layout in GATE_LAYOUTS:
             gate_case(f"(8,151552) {layout}", dtype, 151552, layout=layout)
-    print("  clusters the card holds at once (bf16 / fp32): "
-          + ", ".join(f"{cs} blocks {max_active_clusters(bf16, cs)} / "
-                      f"{max_active_clusters(f32, cs)}" for cs in (8, 16)))
+    for cs in range(1, MAX_SPLITS + 1):
+        V = gate_cluster_vocab(cs)
+        gate_case(f"({GATE_CLUSTER_ROWS},{V})", bf16, V, B=GATE_CLUSTER_ROWS)
+        for dtype, layout in ((f32, "misaligned"), (bf16, "max last"),
+                              (bf16, "-inf")):
+            gate_case(f"({GATE_CLUSTER_ROWS},{V}) {layout}", dtype, V,
+                      B=GATE_CLUSTER_ROWS, layout=layout)
+    check(sizes == set(range(1, MAX_SPLITS + 1)),
+          f"entropy: every cluster size 1-{MAX_SPLITS} launched "
+          f"(got {sorted(sizes)})")
     # planted fault: the kernel on rows whose last slice reads -inf (that
     # slice's triple dropped) must miss the plain version beyond TOL_H
-    x = logits_inputs(gen, bf16)
+    x = gate_logits(gen, bf16, SLOTS, 151552)
     lo = gate_slice_bounds(x.shape[1], gate_splits(*x.shape, sm_count(0)))
     dropped = x.clone()
     dropped[:, lo[-1][0]:] = -torch.inf
@@ -517,12 +481,6 @@ def gate_cases(gen, errs):
          - entropy_exit_ref(x, 0.0)[0]).abs().max().item()
     check(d > TOL_H, f"entropy (8,151552) planted fault, the last of "
                      f"{len(lo)} slices dropped: max|dH|={d:.3e} > {TOL_H:g}")
-    for cs in range(1, MAX_SPLITS + 1):
-        gate_case("(8,151552) forced", bf16, 151552, splits=cs)
-        gate_case("(8,2053) misaligned rows, forced", f32, 2053,
-                  layout="misaligned", splits=cs)
-        gate_case("(3,97) -inf entries, forced", bf16, 97, B=3,
-                  layout="-inf", splits=cs)
 
 
 def decode_cases(attn_case):
@@ -1781,35 +1739,33 @@ def phase_timing(state):
 
 def time_gate(gen, buf, state) -> dict:
     """The gate at glm4-9b's serve shape (8,151552) bf16, the result
-    line's row, and beside it rwkv6-3b's (8,65536) bf16, (8,151552) fp32
-    and the serve shape with the portable cluster of 8 forced; each with the
-    plain version, the bound (bytes: the logits and tau read, H and exit
-    written; 4 operations a logit) and the launch floor, a one-element
-    torch op timed the same way."""
+    line's row, and beside it rwkv6-3b's (8,65536) bf16 and (8,151552)
+    fp32; each with the plain version, the bound (bytes: the logits and
+    tau read, H and exit written; 4 operations a logit) and the launch
+    floor, a one-element torch op timed the same way."""
     from repro_torch.kernels.entropy_exit import (entropy_exit, gate_splits,
                                                   sm_count)
     from repro_torch.kernels.ref import entropy_exit_ref
+    from repro_torch.parity import gate_logits
     one = torch.zeros(1, device="cuda")
     floor_ms = time_ms(lambda: one.add_(1.0), buf)
 
-    def timed(dtype, V, splits=None):
-        x = logits_inputs(gen, dtype, V=V)
+    def timed(dtype, V):
+        x = gate_logits(gen, dtype, SLOTS, V)
         tau = torch.full((x.shape[0],), 2.0, device="cuda")
-        cs = splits or gate_splits(x.shape[0], V, sm_count(0))
+        cs = gate_splits(x.shape[0], V, sm_count(0))
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
         return dict(
             shape=f"logits (8,{V}) {name}, per-row tau, {cs} splits (one "
                   f"cluster of {cs} blocks per row)",
-            ms=time_ms(lambda: entropy_exit(x, tau, splits=splits), buf),
+            ms=time_ms(lambda: entropy_exit(x, tau), buf),
             plain_ms=time_ms(lambda: entropy_exit_ref(x, tau), buf),
             bytes=x.numel() * x.element_size() + 3 * 4 * x.shape[0],
             ops=4 * x.numel(), launch_floor_ms=floor_ms)
 
     main = timed(torch.bfloat16, 151552)
     more = {"rwkv6-3b serve shape": timed(torch.bfloat16, 65536),
-            "fp32": timed(torch.float32, 151552),
-            "portable cluster of 8 forced": timed(torch.bfloat16, 151552,
-                                                  8)}
+            "fp32": timed(torch.float32, 151552)}
     for what, r in {"glm4-9b serve shape": main, **more}.items():
         r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S, r["ops"]
                             / PEAK_OPS_PER_S[torch.float32]) * 1e3

@@ -44,6 +44,8 @@
 // phase `timing`).  At the serve shape the kernel takes about twice the
 // launch floor (a one-element torch op timed the same way): the launch, a
 // DRAM latency and the merges, not the 0.72 us of bytes, make up its time.
+#include <atomic>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -267,38 +269,46 @@ entropy_exit_kernel(const T* __restrict__ logits, long long rows,
   }
 }
 
+// cudaFuncAttributeNonPortableClusterSizeAllowed on entropy_exit_kernel<T>,
+// set once per device: the attribute never changes.  A failure is not
+// remembered, so every later launch returns its error again.
 template <typename T>
-cudaError_t cluster_config(int splits, cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr) {
-  if (splits > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        entropy_exit_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
-    if (err != cudaSuccess) return err;
-  }
-  cfg->blockDim = dim3(kThreads);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(splits);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+cudaError_t allow_non_portable_clusters() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> allowed[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev].load(std::memory_order_relaxed))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(entropy_exit_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    allowed[dev].store(true, std::memory_order_relaxed);
+  return err;
 }
 
 template <typename T>
 int launch(const void* logits, long long rows, long long row_stride,
            int vocab, int splits, const float* tau, float* entropy,
            int* exit_flag, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config<T>(splits, &cfg, attr);
+  cudaError_t err =
+      splits > 8 ? allow_non_portable_clusters<T>() : cudaSuccess;
   if (err == cudaSuccess) {
     const long long z = (rows + kMaxGridY - 1) / kMaxGridY;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(splits),
                        static_cast<unsigned>((rows + z - 1) / z),
                        static_cast<unsigned>(z));
+    cfg.blockDim = dim3(kThreads);
     cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, entropy_exit_kernel<T>,
                              static_cast<const T*>(logits), rows, row_stride,
                              vocab, tau, entropy, exit_flag);
@@ -330,32 +340,4 @@ extern "C" int entropy_exit_launch(const void* logits, int dtype,
     return launch<__nv_bfloat16>(logits, rows, row_stride, vocab, splits,
                                  tau, entropy, exit_flag, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The number of clusters of `splits` blocks that the card can hold at once
-// (cudaOccupancyMaxActiveClusters) into *count; returns the CUDA error.
-extern "C" int entropy_exit_max_active_clusters(int dtype, int splits,
-                                                int* count) {
-  if (splits < 1 || splits > kMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cudaError_t err;
-  if (dtype == 0) {
-    err = cluster_config<float>(splits, &cfg, attr);
-    cfg.gridDim = dim3(static_cast<unsigned>(splits));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(count, entropy_exit_kernel<float>,
-                                           &cfg);
-  } else if (dtype == 1) {
-    err = cluster_config<__nv_bfloat16>(splits, &cfg, attr);
-    cfg.gridDim = dim3(static_cast<unsigned>(splits));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(
-          count, entropy_exit_kernel<__nv_bfloat16>, &cfg);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != cudaSuccess) cudaGetLastError();
-  return static_cast<int>(err);
 }

@@ -3,10 +3,10 @@
 ``repro/kernels/entropy_exit.py:entropy_exit_pallas``).
 
 The kernel splits each row's vocab over the blocks of one thread block
-cluster; :func:`gate_splits` picks how many.  For a tensor on the CPU the
-wrapper runs the plain version (``kernels/ref.py:entropy_exit_ref``); for a
-CUDA tensor it launches the kernel or raises.  ``entropy_exit.launches``
-counts kernel launches.
+cluster; :func:`gate_splits` picks how many from the shape.  For a tensor
+on the CPU the wrapper runs the plain version
+(``kernels/ref.py:entropy_exit_ref``); for a CUDA tensor it launches the
+kernel or raises.  ``entropy_exit.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -24,13 +24,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-# entropy_exit_max_active_clusters(dtype, splits, count)
-_CLUSTER_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
-MAX_SPLITS = 16      # the kernel's largest cluster (above 8: non-portable)
-# the largest cluster gate_splits picks: 16 blocks beat 8 at glm4-9b's
-# serve shape on an H100 (chip_smoke.py phase timing; PERF.md, section 6)
-CLUSTER_CAP = 16
+# the kernel's largest cluster (above 8: non-portable), and the largest
+# gate_splits picks: 16 blocks beat 8 at glm4-9b's serve shape on an H100
+# (PERF.md, section 6)
+MAX_SPLITS = 16
 MIN_SLICE = 4096     # elements a block takes at least when a row is split
 _lib = None
 
@@ -41,8 +39,6 @@ def _library():
         lib = build.load("entropy_exit.cu")
         lib.entropy_exit_launch.argtypes = _ARGTYPES
         lib.entropy_exit_launch.restype = ctypes.c_int
-        lib.entropy_exit_max_active_clusters.argtypes = _CLUSTER_ARGTYPES
-        lib.entropy_exit_max_active_clusters.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -53,34 +49,26 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gate_splits(rows: int, vocab: int, sms: int,
-                cap: int = CLUSTER_CAP) -> int:
+def gate_splits(rows: int, vocab: int, sms: int) -> int:
     """Blocks (one cluster) per row: 1 when the rows alone fill half the
     SMs or a row holds fewer than 2 x ``MIN_SLICE`` elements; else enough
-    to fill the SMs, at most ``cap`` and at most one per ``MIN_SLICE``
-    elements."""
+    to fill the SMs, at most ``MAX_SPLITS`` and at most one per
+    ``MIN_SLICE`` elements."""
     if 2 * rows >= sms:
         return 1
-    return max(1, min(cap, -(-sms // rows), vocab // MIN_SLICE))
+    return max(1, min(MAX_SPLITS, -(-sms // rows), vocab // MIN_SLICE))
 
 
-def max_active_clusters(dtype: torch.dtype, splits: int) -> int:
-    """Clusters of ``splits`` blocks the current card holds at once
-    (``cudaOccupancyMaxActiveClusters``); 0 means it cannot launch one."""
-    count = ctypes.c_int(0)
-    rc = _library().entropy_exit_max_active_clusters(
-        _DTYPES[dtype], splits, ctypes.byref(count))
-    if rc != 0:
-        raise RuntimeError(f"entropy_exit: occupancy query for clusters of "
-                           f"{splits} failed: CUDA error {rc}")
-    return count.value
-
-
-def entropy_exit(logits: torch.Tensor, tau, *, splits: int | None = None):
+def entropy_exit(logits: torch.Tensor, tau):
     """logits (B, V) float32 or bfloat16; ``tau`` a float or (B,) per-row
     thresholds -> ``(entropy (B,) float32, exit (B,) int32)``, exit iff
     H < tau.  ``tau`` stays on the device: reading it does not sync.
-    ``splits`` (1..16) overrides :func:`gate_splits` on the card."""
+
+    The answer at a -inf logit depends on the device.  On the card such a
+    logit adds 0 to the kernel's sums: a row with -inf entries has a finite
+    H, and a row of -inf only has H = -inf and exits.  On the CPU the plain
+    version computes p log p = 0 x -inf = NaN there, as the JAX kernel
+    does: either row's H is NaN and it never exits."""
     if logits.ndim != 2:
         raise ValueError(f"entropy_exit expects (B, V) logits, got "
                          f"{tuple(logits.shape)}")
@@ -98,11 +86,7 @@ def entropy_exit(logits: torch.Tensor, tau, *, splits: int | None = None):
         raise ValueError(f"entropy_exit: logits {tuple(logits.shape)} with "
                          f"strides {logits.stride()} must be non-empty with "
                          f"a unit vocab stride")
-    if splits is None:
-        splits = gate_splits(B, V, sm_count(logits.device.index))
-    elif not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"entropy_exit: splits {splits} not in "
-                         f"1..{MAX_SPLITS}")
+    splits = gate_splits(B, V, sm_count(logits.device.index))
     H = torch.empty(B, dtype=torch.float32, device=logits.device)
     ex = torch.empty(B, dtype=torch.int32, device=logits.device)
     with torch.cuda.device(logits.device):

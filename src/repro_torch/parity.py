@@ -1,6 +1,6 @@
-"""Kernels against the plain versions where both round in bf16: the
-comparisons and limits that ``chip_smoke.py`` (phase parity) and the card
-tests share.
+"""Kernels against the plain versions: the comparisons, limits and inputs
+that ``chip_smoke.py`` (phases kernels and parity) and the card tests
+share.
 
 In bf16 the kernels and the plain versions round at other points (the
 attention tile routes round P and the output to bf16, the wkv writes its
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.serve_session import ServeResult
+from repro_torch.kernels.entropy_exit import MIN_SLICE
 
 # a served stream may part from the plain one only where the plain logits'
 # top-2 gap is below TIE_GAP_BF16, or at a gate with |H - tau| <= TOL_H_BF16;
@@ -43,6 +44,57 @@ TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3}
 # tokens from ``smoke_batches``
 TRAIN_PROFILE = (1, 1, 2, 2)
 TRAIN_LR, TRAIN_STEPS, TRAIN_SEQ = 1e-3, 3, 32
+
+
+# the entropy gate's inputs beyond plain random rows: "misaligned" is a
+# view at storage offset 1 with row stride V + 3 (no row on 16 bytes); "max
+# last" puts each row's max (8 above the rest) in its last split; "-inf"
+# sets a tenth of the entries and the first half of row 0 (whole slices of
+# -inf only) to -inf
+GATE_LAYOUTS = ("misaligned", "max last", "-inf")
+# rows of the cases that reach every cluster size (gate_cluster_vocab)
+GATE_CLUSTER_ROWS = 3
+
+
+def gate_logits(gen, dtype, B: int, V: int, layout: Optional[str] = None):
+    """(B, V) logits ~ 3 N(0, 1) in ``dtype`` on ``gen``'s device, laid
+    out as ``layout`` (one of ``GATE_LAYOUTS``, or None) says."""
+    dev = gen.device
+    if layout == "misaligned":
+        x = (3 * torch.randn(B, V + 3, generator=gen, device=dev)).to(dtype)
+        return x.as_strided((B, V), (V + 3, 1), 1)
+    x = (3 * torch.randn(B, V, generator=gen, device=dev)).to(dtype)
+    if layout == "max last":
+        rows = torch.arange(B, device=dev)
+        x[rows, V - 1 - rows % min(V, 8)] = (x.float().amax() + 8).to(dtype)
+    elif layout == "-inf":
+        off = torch.rand(B, V, generator=gen, device=dev) < 0.1
+        off[0, :V // 2] = True
+        x = x.masked_fill(off, -torch.inf)
+    return x
+
+
+def gate_plain_input(x: torch.Tensor) -> torch.Tensor:
+    """The plain version's input for ``x``: a -inf logit adds 0 to the
+    kernel's sums, where the plain version's p log p is 0 * -inf = NaN;
+    -1e4 has p = 0 in fp32 as well, so it stands in for -inf there."""
+    return x.masked_fill(x.isneginf(), -1e4)
+
+
+def gate_thresholds(H: torch.Tensor) -> torch.Tensor:
+    """Per-row thresholds around the entropies ``H``, some within the
+    decision margin of 1e-3."""
+    off = torch.tensor([-0.5, 0.5, -1e-4, 1e-4, -2e-3, 2e-3, -3.0, 3.0],
+                       device=H.device)
+    return H + off.repeat(-(-len(H) // 8))[:len(H)]
+
+
+def gate_cluster_vocab(splits: int) -> int:
+    """A row width at which ``gate_splits`` gives each of
+    ``GATE_CLUSTER_ROWS`` rows a cluster of ``splits`` blocks (1..16) on a
+    card of 46 SMs or more: ``splits`` x ``MIN_SLICE`` and a 5-element
+    tail."""
+    return splits * MIN_SLICE + 5
 
 
 def live_rwkv(params, seed: int = 0) -> None:

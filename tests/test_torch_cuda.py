@@ -68,25 +68,6 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, tol, H, Hkv, Tq, Tk,
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
 
 
-def _gate_input(g, dev, dtype, B, V, layout):
-    """Logits for the gate: "misaligned" is a view at storage offset 1
-    with row stride V + 3; "max last" puts each row's max in its last
-    split; "-inf" sets a tenth of the entries and the first half of row 0
-    to -inf."""
-    if layout == "misaligned":
-        x = (3 * torch.randn(B, V + 3, generator=g, device=dev)).to(dtype)
-        return x.as_strided((B, V), (V + 3, 1), 1)
-    x = (3 * torch.randn(B, V, generator=g, device=dev)).to(dtype)
-    if layout == "max last":
-        rows = torch.arange(B, device=dev)
-        x[rows, V - 1 - rows % min(V, 8)] = (x.float().amax() + 8).to(dtype)
-    elif layout == "-inf":
-        off = torch.rand(B, V, generator=g, device=dev) < 0.1
-        off[0, :V // 2] = True
-        x = x.masked_fill(off, -torch.inf)
-    return x
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,V,layout", [
     (8, 97, None), (8, 2053, None), (8, 151552, None),
@@ -103,12 +84,12 @@ def test_entropy_exit_kernel_matches_plain(dev, dtype, B, V, layout):
     NaN, where the kernel adds 0)."""
     from repro_torch.kernels.entropy_exit import entropy_exit
     from repro_torch.kernels.ref import entropy_exit_ref
+    from repro_torch.parity import (gate_logits, gate_plain_input,
+                                    gate_thresholds)
     g = torch.Generator(device=dev).manual_seed(1)
-    x = _gate_input(g, dev, dtype, B, V, layout)
-    plain = x.masked_fill(x.isneginf(), -1e4)
-    H0, _ = entropy_exit_ref(plain, 0.0)
-    tau = H0 + torch.tensor([-0.5, 0.5, -1e-4, 1e-4, -2e-3, 2e-3, -3, 3],
-                            device=dev).repeat(-(-B // 8))[:B]
+    x = gate_logits(g, dtype, B, V, layout)
+    plain = gate_plain_input(x)
+    tau = gate_thresholds(entropy_exit_ref(plain, 0.0)[0])
     before = entropy_exit.launches
     H, ex = entropy_exit(x, tau)
     H2, ex2 = entropy_exit(x, tau)
@@ -122,23 +103,27 @@ def test_entropy_exit_kernel_matches_plain(dev, dtype, B, V, layout):
 
 
 @pytest.mark.parametrize("splits", range(1, 17))
-@pytest.mark.parametrize("dtype,B,V,layout", [
-    (torch.bfloat16, 8, 151552, None), (torch.float32, 8, 2053, "misaligned"),
-    (torch.bfloat16, 3, 97, "-inf"), (torch.bfloat16, 65537, 97, None)])
-def test_entropy_exit_every_cluster_size(dev, splits, dtype, B, V, layout):
-    """Every cluster size the kernel takes, forced: H within 1e-4 of the
-    plain version (and of the kernel's plain mirror at that split), the
-    same bits from a second launch; the card holds a cluster of each."""
-    from repro_torch.kernels.entropy_exit import (entropy_exit,
-                                                  max_active_clusters)
+@pytest.mark.parametrize("dtype,layout", [
+    (torch.bfloat16, None), (torch.float32, "misaligned"),
+    (torch.bfloat16, "max last"), (torch.bfloat16, "-inf")])
+def test_entropy_exit_every_cluster_size(dev, splits, dtype, layout):
+    """Every cluster size the kernel takes, at a row width for which the
+    wrapper picks it: H within 1e-4 of the plain version (and of the
+    kernel's plain mirror at that split), the same bits from a second
+    launch."""
+    from repro_torch.kernels.entropy_exit import (entropy_exit, gate_splits,
+                                                  sm_count)
     from repro_torch.kernels.ref import (entropy_exit_ref,
                                          entropy_exit_split_ref)
-    assert max_active_clusters(dtype, splits) > 0
+    from repro_torch.parity import (GATE_CLUSTER_ROWS, gate_cluster_vocab,
+                                    gate_logits, gate_plain_input)
+    B, V = GATE_CLUSTER_ROWS, gate_cluster_vocab(splits)
+    assert gate_splits(B, V, sm_count(0)) == splits
     g = torch.Generator(device=dev).manual_seed(splits)
-    x = _gate_input(g, dev, dtype, B, V, layout)
-    H, _ = entropy_exit(x, 0.0, splits=splits)
-    H2, _ = entropy_exit(x, 0.0, splits=splits)
-    H_ref, _ = entropy_exit_ref(x.masked_fill(x.isneginf(), -1e4), 0.0)
+    x = gate_logits(g, dtype, B, V, layout)
+    H, _ = entropy_exit(x, 0.0)
+    H2, _ = entropy_exit(x, 0.0)
+    H_ref, _ = entropy_exit_ref(gate_plain_input(x), 0.0)
     H_mirror, _ = entropy_exit_split_ref(x, 0.0, splits)
     torch.cuda.synchronize()
     assert torch.equal(H, H2)
@@ -154,8 +139,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="dtype"):
         entropy_exit(torch.zeros(2, 10, dtype=torch.float16, device=dev), 1.0)
-    with pytest.raises(ValueError, match="splits"):
-        entropy_exit(torch.zeros(2, 10, device=dev), 1.0, splits=17)
 
 
 def test_serve_session_on_the_card_matches_sequential(dev):

@@ -29,6 +29,7 @@ from repro_torch.kernels.entropy_exit import entropy_exit, gate_splits
 from repro_torch.kernels.ref import (entropy_exit_ref, entropy_exit_split_ref,
                                      gate_merge, gate_slice_bounds,
                                      gate_slice_triples)
+from repro_torch.parity import GATE_CLUSTER_ROWS, gate_cluster_vocab
 
 ATOL_H = 1e-4
 GATE_MARGIN = 1e-3
@@ -144,22 +145,32 @@ def test_dropping_one_slice_fails_the_gate(splits):
         assert np.nanmax(np.abs(H.numpy() - H_k)) > ATOL_H, r
 
 
-@pytest.mark.parametrize("rows,vocab,sms,want,want_portable", [
-    (8, 151552, 132, 16, 8),       # glm4-9b serve tick: 128 blocks
-    (8, 65536, 132, 16, 8),        # rwkv6-3b serve tick
-    (1, 151552, 132, 16, 8),       # one slot: the cap
-    (300, 151552, 132, 1, 1),      # the rows alone fill the card
-    (8, 512, 132, 1, 1),           # the fp32 smokes: too narrow to split
-    (66, 151552, 132, 1, 1),       # rows >= SMs / 2
-    (65, 151552, 132, 3, 3),       # just below: ceil(132 / 65)
-    (9, 151552, 132, 15, 8),       # ceil(132 / 9)
-    (8, 8191, 132, 1, 1), (8, 8192, 132, 2, 2),  # MIN_SLICE elements a block
+@pytest.mark.parametrize("rows,vocab,sms,want", [
+    (8, 151552, 132, 16),          # glm4-9b serve tick: 128 blocks
+    (8, 65536, 132, 16),           # rwkv6-3b serve tick
+    (1, 151552, 132, 16),          # one slot: the largest cluster
+    (300, 151552, 132, 1),         # the rows alone fill the card
+    (8, 512, 132, 1),              # the fp32 smokes: too narrow to split
+    (66, 151552, 132, 1),          # rows >= SMs / 2
+    (65, 151552, 132, 3),          # just below: ceil(132 / 65)
+    (9, 151552, 132, 15),          # ceil(132 / 9)
+    (8, 8191, 132, 1), (8, 8192, 132, 2),  # MIN_SLICE elements a block
 ])
-def test_gate_splits(rows, vocab, sms, want, want_portable):
-    """The cluster size per row, at the default cap (16, non-portable)
-    and at the portable cap of 8."""
+def test_gate_splits(rows, vocab, sms, want):
+    """The cluster size per row."""
     assert gate_splits(rows, vocab, sms) == want
-    assert gate_splits(rows, vocab, sms, cap=8) == want_portable
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_gate_cluster_vocab_reaches_every_cluster_size(splits):
+    """The card cases of every cluster size (tests/test_torch_cuda.py,
+    chip_smoke.py) rely on this row width: ``gate_splits`` gives it
+    ``splits`` blocks on an H100 SXM (132 SMs), an H100 PCIe (114) and
+    the fewest SMs the helper promises (46)."""
+    V = gate_cluster_vocab(splits)
+    for sms in (132, 114, 46):
+        assert gate_splits(GATE_CLUSTER_ROWS, V, sms) == splits
+    assert V % 8 != 0      # a tail after the last whole vector
 
 
 def _c_params(source: str, fn: str):
@@ -181,26 +192,46 @@ def _c_params(source: str, fn: str):
     return params
 
 
-@pytest.mark.parametrize("fn,argtypes", [
-    ("entropy_exit_launch", gate_mod._ARGTYPES),
-    ("entropy_exit_max_active_clusters", gate_mod._CLUSTER_ARGTYPES)])
-def test_ctypes_argtypes_match_the_c_signature(fn, argtypes):
-    params = _c_params("entropy_exit.cu", fn)
-    assert [t for _, t in params] == argtypes
-    if fn == "entropy_exit_launch":
-        assert [n for n, _ in params] == [
-            "logits", "dtype", "rows", "row_stride", "vocab", "splits", "tau",
-            "entropy", "exit_flag", "stream"]
+def test_ctypes_argtypes_match_the_c_signature():
+    params = _c_params("entropy_exit.cu", "entropy_exit_launch")
+    assert [t for _, t in params] == gate_mod._ARGTYPES
+    assert [n for n, _ in params] == [
+        "logits", "dtype", "rows", "row_stride", "vocab", "splits", "tau",
+        "entropy", "exit_flag", "stream"]
 
 
 def test_wrapper_on_the_cpu_runs_the_plain_version():
-    """On a CPU tensor the wrapper is the plain version, whatever
-    ``splits`` says, and launches nothing."""
+    """On a CPU tensor the wrapper is the plain version and launches
+    nothing."""
     x = torch.from_numpy(_logits(2053))
     x = x.masked_fill(x.isneginf(), -1e4)
     before = entropy_exit.launches
-    for splits in (None, 16):
-        H, ex = entropy_exit(x, 2.0, splits=splits)
-        H_ref, ex_ref = entropy_exit_ref(x, 2.0)
-        assert torch.equal(H, H_ref) and torch.equal(ex, ex_ref)
+    H, ex = entropy_exit(x, 2.0)
+    H_ref, ex_ref = entropy_exit_ref(x, 2.0)
+    assert torch.equal(H, H_ref) and torch.equal(ex, ex_ref)
     assert entropy_exit.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minus_inf_logits_answer_by_device(dtype):
+    """Pins the -inf rule the wrapper's docstring states.  On the CPU the
+    wrapper (the plain version) gives NaN for a row with a -inf entry and
+    for a row of -inf only, as the JAX kernel does, and neither exits.
+    The kernel's mirror, which the card's answers are held to, gives the
+    first row the H of its finite entries and the second H = -inf, an
+    exit."""
+    x = torch.from_numpy(_logits(2053)[:2].copy())
+    x[0, 7] = -torch.inf
+    x[1] = -torch.inf
+    x = x.to(dtype)
+    H, ex = entropy_exit(x, 2.0)
+    assert torch.isnan(H).all() and not ex.any()
+    H_k, _ = ops.entropy_exit(jnp.asarray(x.float().numpy()), 2.0,
+                              interpret=True)
+    assert np.isnan(np.asarray(H_k)).all()
+    H_card, ex_card = entropy_exit_split_ref(x, 2.0, 16)
+    finite = torch.cat([x[0, :7], x[0, 8:]])[None]
+    torch.testing.assert_close(H_card[:1], entropy_exit_ref(finite, 2.0)[0],
+                               atol=ATOL_H, rtol=0)
+    assert H_card[1] == -torch.inf and ex_card.tolist() == [
+        int(H_card[0] < 2.0), 1]
