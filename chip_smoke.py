@@ -66,6 +66,29 @@ Phases:
            first batch, a
            traced window of 2 steps (rwkv6-3b: then eq1 steps on the plain
            versions, the end-to-end baseline);
+  paper    the paper's loop, fp32 with TF32 off: TrainSession (reference
+           engine) on the ResNet smoke, clients cut at (3, 3, 4, 5), on the
+           card against the same run on the CPU from one round-0 state,
+           averaging and sequential (losses, the trainables' drift, BN
+           statistics, at repro_torch/parity.py's limits; averaging also
+           under a planted fault, client 0's server left out of Eq. (1),
+           which it must reject); the CPU's final state evaluated on both
+           devices (evaluate and evaluate_adaptive equal; the gate kernel
+           against the plain version row by row at (512,10) and the
+           500-row tail, exits equal where |H - tau| > 1e-4, at tau 0.5,
+           1, 2 and client 0's mean entropy); the gate at
+           (512,10), (512,100) and their 500-row tails; then full-width
+           ResNet-18 (resnet18_cifar.config("cifar10")) with the paper's 12
+           clients at cuts 3/4/5, batch 64, lr 3e-3, the paper's
+           augmentation: with every launch count at 0 first, averaging (1
+           warm-up round, 5 timed, 1 traced) and sequential (1 warm-up, 3
+           timed), ms per round, rounds/s, images/s, each evaluated
+           (evaluate and evaluate_adaptive at tau 0.5, 1.0, 2.0, per-depth
+           accuracies and client ratios), peak memory; the gate must launch
+           in the evaluations; then the averaging run's first client at
+           each cut: its eval-mode logits on the card against the CPU, the
+           gate kernel against the plain version on them, and its accuracy
+           and mean entropy with BatchNorm on running vs batch statistics;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -76,8 +99,9 @@ Phases:
            over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
            row routes of the forward and of dQ beside their redesigned
            routes at the main shapes; the wkv also at a prefill shape
-           (1,300,40,64); the gate also at (8,65536) bf16 and (8,151552)
-           fp32, beside the launch floor (a one-element torch op timed the
+           (1,300,40,64); the gate also at (8,65536) bf16, (8,151552)
+           fp32 and the paper evaluator's (512,10) and (512,100) fp32,
+           beside the launch floor (a one-element torch op timed the
            same way).  Times are device times: a spin kernel ahead of each
            timed call keeps the host's enqueue (~50-100 us for a wrapper,
            more for SDPA's backward) off the clock.
@@ -109,7 +133,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
-PHASES = ("build", "kernels", "parity", "main", "train", "timing")
+PHASES = ("build", "kernels", "parity", "main", "train", "paper", "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
@@ -131,6 +155,8 @@ TOL_ATTN_BF16 = 2e-2
 TOL_LSE = 1e-4
 TOL_H = 1e-4
 GATE_MARGIN = 1e-3      # exits must agree wherever |H - tau| exceeds this
+# phase paper: card against CPU exits compared where |H - tau| exceeds this
+GATE_TAU_MARGIN = 1e-4
 # attention backward: each kernel's fp32 output against its plain version,
 # fp32 and bf16 operands alike (both sides compute in fp32 from the same
 # values: reassociation only; 2e-4 is the JAX kernel-level gate); the
@@ -1687,6 +1713,327 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     return train
 
 
+# phase paper: the full-width leg (resnet18_cifar.config("cifar10"), the
+# paper's 12 clients at cuts 3/4/5, batch 64, lr 3e-3 as the JAX package's
+# benchmarks train it)
+FULL_TRAIN, FULL_TEST, FULL_BATCH, FULL_LR = 12 * 64 * 8, 2048, 64, 3e-3
+FULL_WARM, FULL_AVG, FULL_SEQ = 1, 5, 3
+PAPER_TAUS = (0.5, 1.0, 2.0)
+# the full-width probe: the averaging run's first client at each cut, its
+# eval-mode logits on the card against the same net on the CPU (first
+# WIDE_CPU_ROWS test images), within TOL_WIDE_LOGITS of max(1, max|CPU|)
+WIDE_ROWS, WIDE_CPU_ROWS, TOL_WIDE_LOGITS = 512, 128, 1e-3
+
+
+def phase_paper(state):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"paper: fp32 with TF32 off (torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul."
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    paper_parity()
+    paper_gate_cases()
+    paper_main(state)
+
+
+def paper_parity() -> None:
+    """The ResNet smoke's TrainSession on the card against the same run on
+    the CPU (repro_torch/parity.py's setup and limits), under averaging and
+    sequential: per-round losses, the drift of the trainables, BatchNorm
+    statistics; averaging also under a planted fault (client 0's server
+    left out of Eq. (1)) that it must reject.  Then the CPU run's final
+    state evaluated on both devices: evaluate and evaluate_adaptive equal,
+    and row by row the gate on the card (the kernel) against the CPU's
+    plain version, batches of 512 and the 500-row tail, exits equal where
+    |H - tau| > GATE_TAU_MARGIN, at PAPER_TAUS and at client 0's mean
+    entropy (where exits are mixed)."""
+    from repro_torch.kernels.dispatch import get_backend
+    from repro_torch.parity import (PAPER_EPOCHS, PAPER_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    dropped_aggregation, paper_data,
+                                    paper_drift, paper_session)
+    data, (x_test, y_test), augment = paper_data()
+    gate = get_backend("auto").entropy_gate
+    for strategy in ("averaging", "sequential"):
+        cpu = paper_session("cpu", strategy, data, augment)
+        start = cpu.state.clone()
+        card = paper_session("cuda", strategy, data, augment, state=start)
+        h_cpu = cpu.run(PAPER_ROUNDS, PAPER_EPOCHS)
+        h_card = card.run(PAPER_ROUNDS, PAPER_EPOCHS)
+        dl = max(max(abs(a.client_loss - b.client_loss),
+                     abs(a.server_loss - b.server_loss))
+                 for a, b in zip(h_card, h_cpu))
+        drift = paper_drift(card.state, cpu.state, start)
+        print(f"  reading paper smoke {strategy}: losses "
+              + ", ".join(f"{m.client_loss:.5f}/{m.server_loss:.5f}"
+                          for m in h_card)
+              + f"; max|dloss| {dl:.3e}; drift clients "
+              f"{drift['clients']:.3e} servers {drift['servers']:.3e}; "
+              f"BN max|d| clients {drift['clients_bn']:.3e} servers "
+              f"{drift['servers_bn']:.3e}")
+        check(dl <= TOL_PAPER_LOSS,
+              f"paper smoke {strategy}, {PAPER_ROUNDS} rounds x "
+              f"{PAPER_EPOCHS} epochs, card vs CPU: per-round losses within "
+              f"{TOL_PAPER_LOSS:g} ({dl:.3e})")
+        check(max(drift["clients"], drift["servers"]) <= TOL_PAPER_PARAMS,
+              f"paper smoke {strategy}: trainables drift (||card - CPU|| / "
+              f"||CPU - round 0||) clients {drift['clients']:.3e}, servers "
+              f"{drift['servers']:.3e} <= {TOL_PAPER_PARAMS:g}")
+        if strategy == "averaging":
+            with dropped_aggregation():
+                faulty = paper_session("cuda", strategy, data, augment,
+                                       state=start)
+                faulty.run(PAPER_ROUNDS, PAPER_EPOCHS)
+            fd = paper_drift(faulty.state, cpu.state, start)
+            print(f"  reading paper smoke planted fault (client 0's server "
+                  f"left out of Eq. (1)): drift servers {fd['servers']:.3e}")
+            check(fd["servers"] > TOL_PAPER_PARAMS,
+                  f"paper smoke planted fault rejected: servers drift "
+                  f"{fd['servers']:.3e} > {TOL_PAPER_PARAMS:g}")
+        # the CPU's final state, evaluated on both devices
+        same = paper_session("cuda", strategy, data, augment,
+                             state=cpu.state)
+        ev_cpu, ev_card = cpu.evaluate(x_test, y_test), \
+            same.evaluate(x_test, y_test)
+        check(ev_cpu == ev_card,
+              f"paper smoke {strategy}: evaluate on the card equals the CPU "
+              f"(client {ev_card['client_acc']}, server "
+              f"{ev_card['server_acc']})")
+        xc = torch.from_numpy(x_test)
+        xg = xc.cuda()
+        # and a tau at client 0's mean entropy, where exits are mixed
+        mid = cpu.evaluate_adaptive(x_test, y_test, 0.0)["mean_entropy"][0]
+        for tau in (*PAPER_TAUS, round(mid, 4)):
+            a_cpu = cpu.evaluate_adaptive(x_test, y_test, tau)
+            a_card = same.evaluate_adaptive(x_test, y_test, tau)
+            rows = far = agree = 0
+            worst = 0.0
+            for i, (c, g) in enumerate(zip(cpu.state.clients,
+                                           same.state.clients)):
+                with torch.no_grad():
+                    lc = cpu.model.client_forward(c["trainable"], c["state"],
+                                                  xc, train=False)[1]
+                    lg = same.model.client_forward(g["trainable"],
+                                                   g["state"], xg,
+                                                   train=False)[1]
+                for lo in (0, 512):          # a batch of 512, the tail of 500
+                    Hc, ec = gate(lc[lo:lo + 512], tau)
+                    Hg, eg = gate(lg[lo:lo + 512], tau)
+                    Hg, eg = Hg.cpu(), eg.cpu()
+                    keep = (Hc - tau).abs() > GATE_TAU_MARGIN
+                    rows += len(Hc)
+                    far += int(keep.sum())
+                    agree += int((ec[keep] == eg[keep]).sum())
+                    worst = max(worst, float((Hc - Hg).abs().max()))
+            check(agree == far and worst <= TOL_H
+                  and a_cpu["acc"] == a_card["acc"],
+                  f"paper smoke {strategy} tau={tau}: accuracies equal "
+                  f"({a_card['acc']}), client ratios {a_card['client_ratio']}"
+                  f" (CPU {a_cpu['client_ratio']}); gate kernel vs plain "
+                  f"over {rows} rows (512 + 500 a client): max|dH| "
+                  f"{worst:.2e}, exits equal on the {far} rows with "
+                  f"|H - tau| > {GATE_TAU_MARGIN:g}")
+
+
+def paper_gate_cases() -> None:
+    """The gate at the evaluator's shapes, fp32: (512, 10) and (512, 100)
+    and the 500-row tails, random rows against the plain version."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.ref import entropy_exit_ref
+    from repro_torch.parity import gate_logits
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for B, V in ((512, 10), (500, 10), (512, 100), (500, 100)):
+        x = gate_logits(gen, torch.float32, B, V)
+        tau = 0.5 * math.log(V)
+        H, ex = entropy_exit(x, tau)
+        H_ref, ex_ref = entropy_exit_ref(x, tau)
+        d = float((H - H_ref).abs().max())
+        far = (H_ref - tau).abs() > GATE_TAU_MARGIN
+        check(d <= TOL_H and bool((ex[far] == ex_ref[far]).all()),
+              f"entropy ({B},{V}) fp32 (the evaluator's shape): max|dH| "
+              f"{d:.2e} <= {TOL_H:g}, exits equal where |H-tau| > "
+              f"{GATE_TAU_MARGIN:g} ({int(ex.sum())} exits)")
+
+
+def paper_main(state) -> None:
+    """TrainSession on full-width ResNet-18 (resnet18_cifar.config(
+    "cifar10"): width 1.0, 32x32, 10 classes) with the paper's 12 clients
+    at cuts HETERO_SPLITS, batch 64 a client, the paper's augmentation,
+    on the card: averaging (1 warm-up round, FULL_AVG timed, one traced)
+    then sequential (1 warm-up, FULL_SEQ timed), each evaluated (evaluate
+    and evaluate_adaptive at PAPER_TAUS).  Every launch count is set to 0
+    first; the gate must launch in the evaluations."""
+    from repro_torch.api import TrainSession
+    from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.tree import tree_leaves
+    cfg = resnet18_cifar.config("cifar10")
+    splits = resnet18_cifar.HETERO_SPLITS
+    t0 = time.perf_counter()
+    ds = SyntheticImageDataset(num_classes=10, image_size=32,
+                               train_size=FULL_TRAIN, test_size=FULL_TEST,
+                               seed=0)
+    data = ClientPartitioner(len(splits)).split(*ds.train)
+    x_test, y_test = ds.test
+    print(f"paper: full-width ResNet-18 {cfg}, clients {splits}, batch "
+          f"{FULL_BATCH} a client, lr {FULL_LR}; synthetic "
+          f"CIFAR-10 stand-in {FULL_TRAIN} train / {FULL_TEST} test, made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    images = len(splits) * FULL_BATCH          # one round, one epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = (entropy_exit, flash_attention, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq, rwkv_wkv, rwkv_wkv_bwd)
+    zero_counts(*counted)
+    out = {}
+    for strategy, n in (("averaging", FULL_AVG), ("sequential", FULL_SEQ)):
+        model = ResNetSplitModel(cfg, device="cuda")
+        sess = TrainSession.from_config(
+            model, SplitEEConfig(profile=HeteroProfile(splits),
+                                 strategy=strategy),
+            OptimizerConfig(lr=FULL_LR,
+                            total_steps=FULL_WARM + n + 1),
+            data, FULL_BATCH, augment=ds.augment)
+        if strategy == "averaging":
+            n_params = sum(t.numel() for t in tree_leaves(model.full_params))
+            print(f"paper: {n_params / 1e6:.3f} M parameters in the full "
+                  f"net; engine {sess.engine_name}")
+        sess.train(FULL_WARM)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = sess.train(n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / n * 1e3
+        losses = [(m.client_loss, m.server_loss) for m in hist]
+        check(all(math.isfinite(a) and math.isfinite(b) for a, b in losses),
+              f"paper full width {strategy}: {n} rounds, finite losses "
+              + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in losses))
+        print(f"paper full width {strategy}: {ms:.1f} ms per round "
+              f"({len(splits)} client + {len(splits)} server steps), "
+              f"{1e3 / ms:.2f} rounds/s, {images / ms * 1e3:,.0f} images/s "
+              f"({n} timed after {FULL_WARM} warm-up)")
+        r = dict(ms_round=ms, rounds_s=1e3 / ms,
+                 images_s=images / ms * 1e3, losses=losses)
+        if strategy == "averaging":
+            r["trace"] = traced(lambda: sess.train(1), 1,
+                                f"full-width ResNet-18 {strategy} round")
+        ev = sess.evaluate(x_test, y_test)
+        depth = {li: [i for i, l in enumerate(splits) if l == li]
+                 for li in sorted(set(splits))}
+        mean = lambda accs, li: float(np.mean([accs[i] for i in depth[li]]))  # noqa: E731
+        print(f"paper full width {strategy} evaluate ({FULL_TEST} test "
+              f"images): " + "; ".join(
+                  f"cut {li}: client {mean(ev['client_acc'], li):.4f}, "
+                  f"server {mean(ev['server_acc'], li):.4f}"
+                  for li in depth))
+        r["evaluate"] = ev
+        if strategy == "averaging":
+            wide = (model, {li: sess.state.clients[depth[li][0]]
+                            for li in depth}, ev, depth)
+        for tau in PAPER_TAUS:
+            ad = sess.evaluate_adaptive(x_test, y_test, tau)
+            ok = all(0.0 <= v <= 1.0 for v in ad["acc"] + ad["client_ratio"])
+            check(ok and all(math.isfinite(v) for v in ad["mean_entropy"]),
+                  f"paper full width {strategy} tau={tau}: " + "; ".join(
+                      f"cut {li}: acc {mean(ad['acc'], li):.4f}, client "
+                      f"ratio {mean(ad['client_ratio'], li):.4f}"
+                      for li in depth))
+            r[f"adaptive_{tau}"] = ad
+        out[strategy] = r
+        del sess, model
+    peak = torch.cuda.max_memory_allocated()
+    n_gate = entropy_exit.launches
+    others = {k: n for w in counted[1:] for k, n in launch_counts(w).items()}
+    check(n_gate > 0 and not any(others.values()),
+          f"paper full width: the gate kernel launched {n_gate} times in "
+          f"the evaluations, no other kernel ({others})")
+    print(f"paper full width: peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    launches = state.setdefault("launches", {})
+    launches["entropy_exit"] = launches.get("entropy_exit", 0) + n_gate
+    out.update(peak_gib=peak / 2**30, gate_launches=n_gate)
+    # after the counts were read: the probe's gate launches are comparisons
+    out["probe"] = paper_wide_probe(*wide, x_test, y_test)
+    state["paper"] = out
+    torch.cuda.empty_cache()
+
+
+def paper_wide_probe(model, clients, ev, depth, x_test, y_test) -> dict:
+    """The averaging run's first client at each cut, at full width: its
+    eval-mode logits on the card against the same net on the CPU, and
+    the gate kernel against the plain version row by row on those logits
+    at PAPER_TAUS; then, per cut, the head's accuracy and mean entropy
+    with BatchNorm on its running statistics (what evaluation uses)
+    beside the same with the batch's own statistics, and the share of
+    the most predicted class: where the first is chance and the second is
+    not, the running statistics, not the weights, make the head fail."""
+    from repro_torch.kernels.dispatch import get_backend
+    from repro_torch.kernels.ref import entropy_exit_ref
+    from repro_torch.tree import tree_map
+    gate = get_backend("auto").entropy_gate
+    xg = torch.from_numpy(x_test[:WIDE_ROWS]).cuda()
+    xc = torch.from_numpy(x_test[:WIDE_CPU_ROWS])
+    yg = torch.from_numpy(y_test[:WIDE_ROWS]).cuda()
+    out = {}
+    for li, net in clients.items():
+        with torch.no_grad():
+            lg = model.client_forward(net["trainable"], net["state"], xg,
+                                      train=False)[1]
+            cpu = tree_map(lambda t: t.cpu(), net)
+            lc = model.client_forward(cpu["trainable"], cpu["state"], xc,
+                                      train=False)[1]
+            lt = model.client_forward(net["trainable"], net["state"], xg,
+                                      train=True)[1]
+        scale = max(1.0, float(lc.abs().max()))
+        dl = float((lg[:WIDE_CPU_ROWS].cpu() - lc).abs().max()) / scale
+        check(dl <= TOL_WIDE_LOGITS,
+              f"paper full width cut {li}: eval-mode client logits on the "
+              f"card vs CPU over {WIDE_CPU_ROWS} test images, max|d| "
+              f"{dl:.2e} of max(1, max|logits|) {scale:.3g} <= "
+              f"{TOL_WIDE_LOGITS:g}")
+        rows = far = agree = 0
+        worst = 0.0
+        for tau in PAPER_TAUS:
+            H, ex = gate(lg, tau)
+            H_ref, ex_ref = entropy_exit_ref(lg, tau)
+            keep = (H_ref - tau).abs() > GATE_TAU_MARGIN
+            rows, far = rows + len(H), far + int(keep.sum())
+            agree += int((ex[keep] == ex_ref[keep]).sum())
+            worst = max(worst, float((H - H_ref).abs().max()))
+        check(agree == far and worst <= TOL_H,
+              f"paper full width cut {li}: the gate kernel vs plain on the "
+              f"client's ({len(lg)}, {lg.shape[1]}) fp32 logits at tau "
+              f"{PAPER_TAUS}: max|dH| {worst:.2e}, exits equal on the "
+              f"{far} of {rows} rows with |H - tau| > {GATE_TAU_MARGIN:g}")
+        read = {}
+        for mode, logits in (("running", lg), ("batch", lt)):
+            H = entropy_exit_ref(logits, 0.0)[0]
+            pred = logits.argmax(-1)
+            read[mode] = dict(
+                acc=float((pred == yg).float().mean()),
+                mean_H=float(H.mean()),
+                top_share=float(torch.bincount(pred, minlength=logits.shape[
+                    1]).max()) / len(pred),
+                max_abs=float(logits.abs().max()))
+        accs = [ev["client_acc"][i] for i in depth[li]]
+        print(f"  reading paper full width cut {li} (client "
+              f"{depth[li][0]}; the cut's clients' accuracies {accs}): "
+              + "; ".join(f"BN on {m} statistics: acc {v['acc']:.4f}, "
+                          f"mean H {v['mean_H']:.4f}, most predicted class "
+                          f"{v['top_share']:.3f} of rows, max|logit| "
+                          f"{v['max_abs']:.3g}" for m, v in read.items()))
+        out[li] = dict(d_logits=dl, max_dH=worst, **read)
+    return out
+
+
 def phase_timing(state):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -1739,10 +2086,11 @@ def phase_timing(state):
 
 def time_gate(gen, buf, state) -> dict:
     """The gate at glm4-9b's serve shape (8,151552) bf16, the result
-    line's row, and beside it rwkv6-3b's (8,65536) bf16 and (8,151552)
-    fp32; each with the plain version, the bound (bytes: the logits and
-    tau read, H and exit written; 4 operations a logit) and the launch
-    floor, a one-element torch op timed the same way."""
+    line's row, and beside it rwkv6-3b's (8,65536) bf16, (8,151552) fp32
+    and the paper evaluator's (512,10) and (512,100) fp32; each with the
+    plain version, the bound (bytes: the logits and tau read, H and exit
+    written; 4 operations a logit) and the launch floor, a one-element
+    torch op timed the same way."""
     from repro_torch.kernels.entropy_exit import (entropy_exit, gate_splits,
                                                   sm_count)
     from repro_torch.kernels.ref import entropy_exit_ref
@@ -1750,13 +2098,13 @@ def time_gate(gen, buf, state) -> dict:
     one = torch.zeros(1, device="cuda")
     floor_ms = time_ms(lambda: one.add_(1.0), buf)
 
-    def timed(dtype, V):
-        x = gate_logits(gen, dtype, SLOTS, V)
+    def timed(dtype, V, B=SLOTS):
+        x = gate_logits(gen, dtype, B, V)
         tau = torch.full((x.shape[0],), 2.0, device="cuda")
         cs = gate_splits(x.shape[0], V, sm_count(0))
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
         return dict(
-            shape=f"logits (8,{V}) {name}, per-row tau, {cs} splits (one "
+            shape=f"logits ({B},{V}) {name}, per-row tau, {cs} splits (one "
                   f"cluster of {cs} blocks per row)",
             ms=time_ms(lambda: entropy_exit(x, tau), buf),
             plain_ms=time_ms(lambda: entropy_exit_ref(x, tau), buf),
@@ -1765,13 +2113,16 @@ def time_gate(gen, buf, state) -> dict:
 
     main = timed(torch.bfloat16, 151552)
     more = {"rwkv6-3b serve shape": timed(torch.bfloat16, 65536),
-            "fp32": timed(torch.float32, 151552)}
+            "fp32": timed(torch.float32, 151552),
+            "evaluator, 10 classes": timed(torch.float32, 10, 512),
+            "evaluator, 100 classes": timed(torch.float32, 100, 512)}
     for what, r in {"glm4-9b serve shape": main, **more}.items():
         r["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S, r["ops"]
                             / PEAK_OPS_PER_S[torch.float32]) * 1e3
         print(f"entropy_exit {what} [{r['shape']}]: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"(bytes), launch floor {r['launch_floor_ms']:.4f} ms")
+    state["gate_timing"] = more
     return dict(name="entropy_exit", route="cuda",
                 source="src/repro_torch/kernels/csrc/entropy_exit.cu",
                 replaces="src/repro/kernels/entropy_exit.py:57",
@@ -1983,6 +2334,13 @@ def kernels_line(state) -> dict:
         if r["dtype"] == "3xtf32":      # and on the CUDA cores, as they run
             extra["bound_cuda_cores_ms"] = max(
                 bound_b, r["ops"] / PEAK_OPS_PER_S[torch.float32] * 1e3)
+        if r["name"] == "entropy_exit" and "paper" in state:
+            # the paper path's share of the launches, and its shapes
+            extra["launches_paper"] = state["paper"]["gate_launches"]
+            extra["paper_shapes"] = [
+                {k: g[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                for what, g in state["gate_timing"].items()
+                if what.startswith("evaluator")]
         out.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], shape=r["shape"],
@@ -2065,6 +2423,14 @@ def main() -> int:
                   f"{pt['plain_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms "
                   f"(3xtf32; on the CUDA cores "
                   f"{pt['bound_cuda_cores_ms']:.5f} ms)")
+        if "paper" in state:
+            p = state["paper"]
+            print(f"paper full-width ResNet-18, 12 clients: averaging "
+                  f"{p['averaging']['ms_round']:.1f} ms per round "
+                  f"({p['averaging']['images_s']:,.0f} images/s), "
+                  f"sequential {p['sequential']['ms_round']:.1f} ms; peak "
+                  f"{p['peak_gib']:.2f} GiB; entropy_exit launches "
+                  f"{p['gate_launches']} in its evaluations")
         for key in ("train", "train_rwkv"):
             if key in state:
                 tr = state[key]

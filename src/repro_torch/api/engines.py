@@ -1,0 +1,219 @@
+"""Engine registry and the engine contract (counterpart of
+``repro/api/engines.py``).
+
+An engine executes the paper's strategies as ``TrainState -> TrainState``:
+it receives a state, runs some rounds and returns a new state and the
+per-round metrics, leaving the state it was given untouched.
+
+The port registers ``"reference"``: the per-client loop of Alg. 1/2, every
+strategy.  The JAX package's ``"fused"`` (ROADMAP.md Queue 1 item 4) and
+``"spmd"`` (item 9) engines are not ported yet; asking for one raises, and
+``"auto"`` resolves to the reference engine with a note that says why.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
+
+import numpy as np
+
+from repro_torch.config import OptimizerConfig, SplitEEConfig
+from repro_torch.data.pipeline import batch_iterator, effective_batch_size
+from repro_torch.optim import make_schedule
+
+#: engines of the JAX package that the port does not have yet, and why
+NOT_PORTED = {
+    "spmd": "the spmd engine is not ported yet (ROADMAP.md Queue 1 item 9, "
+            "the multi-GPU engine)",
+    "fused": "the fused cohort engine is not ported yet (ROADMAP.md Queue 1 "
+             "item 4)",
+}
+
+
+class DataCursor:
+    """Seeded per-client batch streams addressed by draw count.
+
+    ``align(cursor)`` positions every client's ``batch_iterator`` after the
+    given number of drawn batches: the live iterators when the cursor
+    matches (one run after another), else rebuilt from the seed and
+    replayed, which reproduces the upcoming batches (and augmentation
+    draws) after a state rewind."""
+
+    def __init__(self, client_data: Sequence[Tuple[np.ndarray, np.ndarray]],
+                 batch_size: int, seed: int, augment=None):
+        self.client_data = client_data
+        self.batch_size = batch_size
+        self.seed = seed
+        self.augment = augment
+        self._iters: Optional[list] = None
+        self._pos: Optional[Tuple[int, ...]] = None
+
+    def align(self, cursor: Sequence[int]) -> None:
+        want = tuple(int(c) for c in cursor)
+        if self._pos == want:
+            return
+        self._iters = [
+            batch_iterator(x, y, self.batch_size, seed=self.seed + i,
+                           augment=self.augment)
+            for i, (x, y) in enumerate(self.client_data)]
+        for it, k in zip(self._iters, want):
+            for _ in range(k):
+                next(it)
+        self._pos = want
+
+    def draw(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        assert self._iters is not None, "align() before draw()"
+        batch = next(self._iters[i])
+        pos = list(self._pos)
+        pos[i] += 1
+        self._pos = tuple(pos)
+        return batch
+
+
+class SessionContext:
+    """What a session and its engine share and never change: the model
+    adapter, the configs, the schedule and the data cursor."""
+
+    def __init__(self, model, splitee_cfg: SplitEEConfig,
+                 opt_cfg: OptimizerConfig,
+                 client_data: Optional[Sequence[Tuple[np.ndarray,
+                                                      np.ndarray]]],
+                 batch_size: int, *, augment=None, seed: int = 0,
+                 mesh=None, recipe=None, population=None):
+        if mesh is not None or recipe is not None:
+            raise ValueError(
+                "mesh= and recipe= select the spmd engine's device mesh and "
+                "sharding, which wait for ROADMAP.md Queue 1 item 9 (the "
+                "multi-GPU engine)")
+        if population is not None:
+            raise ValueError(
+                "population= (client populations and the masked Eq. (1)) "
+                "waits for ROADMAP.md Queue 1 item 8")
+        if client_data is None:
+            raise ValueError("client_data is required")
+        self.model = model
+        self.cfg = splitee_cfg
+        self.opt_cfg = opt_cfg
+        self.batch_size = batch_size
+        self.augment = augment
+        self.seed = seed
+        self.profile = splitee_cfg.profile
+        self.strategy = splitee_cfg.strategy
+        self.N = self.profile.num_groups
+        self.client_data = client_data
+        if len(client_data) != self.N:
+            raise ValueError(f"profile has {self.N} client groups but "
+                             f"{len(client_data)} data shards were given")
+        self.schedule = make_schedule(opt_cfg)
+        self.server_lr_div = splitee_cfg.resolved_server_lr_divisor()
+        self.data = DataCursor(client_data, batch_size, seed, augment)
+
+
+class Engine:
+    """Base class: a ``state -> state`` executor bound to a context."""
+
+    name: str = "?"
+
+    def __init__(self, ctx: SessionContext):
+        reason = self.supports(ctx)
+        if reason:
+            raise ValueError(reason)
+        self.ctx = ctx
+
+    @classmethod
+    def supports(cls, ctx: SessionContext) -> Optional[str]:
+        """``None`` if this engine can run the session, else the reason."""
+        return None
+
+    def run(self, state, rounds: int, local_epochs: int = 1,
+            log_every: int = 0):
+        """Train ``rounds`` rounds from ``state``; returns
+        ``(new_state, [RoundMetrics])``.  Must not change ``state``."""
+        raise NotImplementedError
+
+
+_REGISTRY: Dict[str, Type[Engine]] = {}
+
+#: auto-selection preference, widest engine first (as in the JAX package)
+AUTO_ORDER = ("spmd", "fused", "reference")
+
+
+def register_engine(name: str) -> Callable[[Type[Engine]], Type[Engine]]:
+    def deco(cls: Type[Engine]) -> Type[Engine]:
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_engine(name: str) -> Type[Engine]:
+    if name in NOT_PORTED:
+        raise ValueError(f"engine {name!r}: {NOT_PORTED[name]}")
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown engine {name!r}; registered engines: "
+                         f"{available_engines()}") from None
+
+
+def available_engines() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def resolve_engine(name: str, ctx: SessionContext
+                   ) -> Tuple[Type[Engine], Optional[str]]:
+    """An engine name (or ``"auto"``) resolved against a session: returns
+    ``(engine_cls, selection_note)``.  ``"auto"`` takes the first engine of
+    :data:`AUTO_ORDER` that can run the session, and the note says why
+    each wider one was skipped (``TrainSession.engine_name`` shows it); an
+    explicit name resolves with no note or raises with the reason."""
+    if name == "auto":
+        skipped: List[Tuple[List[str], str]] = []
+        for cand in AUTO_ORDER:
+            reason = NOT_PORTED.get(cand)
+            cls = _REGISTRY.get(cand)
+            if reason is None:
+                reason = cls.supports(ctx)
+            if reason is None:
+                note = "; ".join(f"{'/'.join(names)} unavailable: {r}"
+                                 for names, r in skipped) or None
+                return cls, note
+            if skipped and skipped[-1][1] == reason:
+                skipped[-1][0].append(cand)
+            else:
+                skipped.append(([cand], reason))
+        raise ValueError("no registered engine supports this session ("
+                         + "; ".join(f"{'/'.join(names)}: {r}"
+                                     for names, r in skipped) + ")")
+    cls = get_engine(name)
+    reason = cls.supports(ctx)
+    if reason:
+        raise ValueError(reason)
+    return cls, None
+
+
+def cohort_layout(split_layers: Sequence[int]
+                  ) -> Tuple[Tuple[int, ...], Dict[int, List[int]]]:
+    """Client indices grouped by cut layer: the sorted distinct cut layers
+    and ``{li: [client indices]}``."""
+    lis = tuple(sorted(set(split_layers)))
+    lanes = {li: [i for i, l in enumerate(split_layers) if l == li]
+             for li in lis}
+    return lis, lanes
+
+
+def ragged_cohort_reason(ctx: SessionContext) -> Optional[str]:
+    """Cohort lanes stack into one ``[k, B, ...]`` tensor, so clients that
+    share a cut layer must draw equal effective batch sizes; the offending
+    cohort's description if they do not (the reference engine has no
+    such constraint)."""
+    _, lanes = cohort_layout(ctx.profile.split_layers)
+    for li, members in lanes.items():
+        bs = {i: effective_batch_size(len(ctx.client_data[i][0]),
+                                      ctx.batch_size)
+              for i in members}
+        if len(set(bs.values())) > 1:
+            return (f"cohort l_i={li} mixes effective batch sizes {bs} "
+                    f"(batch_size={ctx.batch_size} clamped to shard "
+                    f"length); equalize client shards or use the "
+                    f"reference engine")
+    return None

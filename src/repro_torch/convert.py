@@ -6,6 +6,10 @@ runs (``lax.scan`` layers) are unstacked along their leading layer axis into
 one dict per layer; every layout (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...)
 is kept, so the conversion is a copy.  This is how the tests give both
 packages the same weights.
+
+The one layout that changes is the ResNet's: the JAX package runs convs
+NHWC with HWIO weights, the port NCHW with OIHW weights.  The two maps
+below are the only place that says so.
 """
 from __future__ import annotations
 
@@ -19,6 +23,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models.backbone import build_plan
 from repro_torch.optim import AdamState
 from repro_torch.tree import tree_map
+
+
+# axis orders: a JAX conv weight (kh, kw, cin, cout) -> the port's (cout,
+# cin, kh, kw); a batch of images (N, H, W, C), as the datasets give them
+# to both packages, -> the port's (N, C, H, W)
+CONV_HWIO_TO_OIHW = (3, 2, 0, 1)
+IMAGES_NHWC_TO_NCHW = (0, 3, 1, 2)
+
+
+def images_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC images -> an NCHW view of them (no copy)."""
+    return x.permute(*IMAGES_NHWC_TO_NCHW)
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -90,3 +106,39 @@ def adam_state_from_jax(state, cfg: ModelConfig, device=None):
     return AdamState(step=int(np.asarray(state.step)),
                      m=params_from_jax(state.m, cfg, device),
                      v=params_from_jax(state.v, cfg, device))
+
+
+def split_net_from_jax(tree, device) -> dict:
+    """A JAX split-model net, or a tree of its Adam moments (numpy or JAX
+    array leaves) -> tensors on ``device``; 4-d leaves are conv weights
+    and go from HWIO to OIHW."""
+    def conv(a):
+        t = to_tensor(a, device)
+        return (t.permute(*CONV_HWIO_TO_OIHW).contiguous() if t.ndim == 4
+                else t)
+    return tree_map(conv, tree)
+
+
+def split_state_from_jax(jax_state, model):
+    """A JAX ``repro.api.state.TrainState`` of a split model (leaves numpy
+    or JAX arrays) -> the port's :class:`repro_torch.api.state.TrainState`
+    on ``model.device``: every client and server net, its BatchNorm state,
+    its Adam moments and step, the round and the per-client draw counts.
+    Tests start both packages' sessions from one state this way, since
+    ``jax.random`` cannot be reproduced in torch."""
+    from repro_torch.api.state import TrainState
+    dev = model.device
+
+    def opt(s):
+        return AdamState(step=int(np.asarray(s.step)),
+                         m=split_net_from_jax(s.m, dev),
+                         v=split_net_from_jax(s.v, dev))
+
+    return TrainState(
+        clients=tuple(split_net_from_jax(c, dev) for c in jax_state.clients),
+        client_opts=tuple(opt(s) for s in jax_state.client_opts),
+        servers=tuple(split_net_from_jax(c, dev) for c in jax_state.servers),
+        server_opts=tuple(opt(s) for s in jax_state.server_opts),
+        round=int(np.asarray(jax_state.round)),
+        batches_drawn=tuple(int(c) for c in np.asarray(
+            jax_state.batches_drawn)))

@@ -1,2 +1,3 @@
-"""Hetero-SplitEE core of the port: losses, Eq. (1) participation counts,
-the fused train steps and the serve step."""
+"""Hetero-SplitEE core of the port: losses, the split-model adapters, Eq. (1)
+aggregation, the client and server steps, Alg. 3 inference, the fused
+train steps and the serve step."""

@@ -1,10 +1,63 @@
-"""Eq. (1) participation counts (counterpart of
-``repro/core/aggregation.py:participation_counts``; the cross-layer
-aggregation of the engines waits for the paper's loop, ROADMAP.md Queue 1
-item 3)."""
+"""Cross-layer aggregation, paper Eq. (1) (counterpart of
+``repro/core/aggregation.py``).
+
+For every layer ``l`` the participation set ``C_l = {i | l_i < l}`` (the
+clients whose server net holds layer l) averages that layer's parameters,
+and each member takes the mean.  Nets are dicts keyed by layer name
+(``layer4``, ``head``, ...), so common layers are found by key across
+heterogeneous server nets.
+
+``cross_layer_aggregate`` is the literal loop the reference engine runs.
+The stacked and masked forms, which the fused cohort engine and client
+populations need, wait for ROADMAP.md Queue 1 items 4 and 8.
+"""
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def _mean_trees(trees: Sequence[Any]) -> Any:
+    """Leaf-wise mean, summed in fp32 in the order given."""
+    n = float(len(trees))
+
+    def mean(*xs):
+        total = xs[0].float()
+        for x in xs[1:]:
+            total = total + x.float()
+        return total.to(xs[0].dtype) / n
+
+    return tree_map(mean, *trees)
+
+
+def cross_layer_aggregate(server_models: Sequence[Dict[str, Any]],
+                          split_layers: Sequence[int],
+                          extra_shared_keys: Sequence[str] = ("head",),
+                          ) -> List[Dict[str, Any]]:
+    """Aggregate the client-specific server nets (Alg. 2 lines 20-30).
+
+    ``server_models[i]`` holds the keys of client i's server net:
+    ``layer{l}`` for l in (l_i, L] plus ``extra_shared_keys``, which
+    every server net has.  Returns new dicts in which every key held by
+    two or more nets is replaced by their mean; each member gets tensors
+    of its own (the port's Adam updates in place), and the inputs are not
+    changed."""
+    assert len(server_models) == len(split_layers)
+    out = [dict(m) for m in server_models]
+    all_keys = set()
+    for m in server_models:
+        all_keys |= set(m.keys())
+    for key in sorted(all_keys):
+        members = [i for i, m in enumerate(server_models) if key in m]
+        if len(members) <= 1:
+            continue
+        mean = _mean_trees([server_models[i][key] for i in members])
+        for j, i in enumerate(members):
+            out[i][key] = mean if j == 0 else tree_map(torch.clone, mean)
+    return out
 
 
 def participation_counts(split_layers: Sequence[int], num_layers: int

@@ -1,1 +1,2 @@
-"""Synthetic data of the port (counterpart of ``repro/data``)."""
+"""Synthetic data and the host-side data pipeline of the port (counterpart
+of ``repro/data``)."""

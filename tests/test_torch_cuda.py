@@ -857,3 +857,57 @@ def test_bf16_smoke_at_full_head_width_matches_plain(dev, family):
         losses.append(np.asarray(ms))
     assert max(grad_rel_errors(*grads)) <= TOL_GRAD_BF16
     assert np.abs(losses[0] - losses[1]).max() <= TOL_LOSS_BF16[family]
+
+
+@pytest.mark.parametrize("B,V", [(512, 10), (500, 10), (512, 100),
+                                 (500, 100)])
+def test_gate_at_the_evaluators_shapes_matches_plain(dev, B, V):
+    """The Alg. 3 gate as the paper's evaluator calls it: fp32 client
+    logits, a batch of 512 and the 500-row tail, 10 and 100 classes."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.ref import entropy_exit_ref
+    from repro_torch.parity import gate_logits
+    g = torch.Generator(device=dev).manual_seed(B + V)
+    x = gate_logits(g, torch.float32, B, V)
+    tau = 0.5 * float(np.log(V))
+    before = entropy_exit.launches
+    H, ex = entropy_exit(x, tau)
+    H_ref, ex_ref = entropy_exit_ref(x, tau)
+    assert entropy_exit.launches == before + 1
+    assert float((H - H_ref).abs().max()) <= 1e-4
+    far = (H_ref - tau).abs() > 1e-4
+    assert torch.equal(ex[far], ex_ref[far])
+
+
+@pytest.mark.parametrize("strategy", ["averaging", "sequential"])
+def test_paper_session_on_the_card_matches_the_cpu(dev, strategy):
+    """The ResNet smoke's TrainSession on the card against the same run on
+    the CPU from one round-0 state (repro_torch/parity.py's setup and
+    limits), and the CPU's final state evaluated on both devices: equal
+    accuracies and client ratios, the gate kernel launched."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.parity import (PAPER_EPOCHS, PAPER_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    paper_data, paper_drift, paper_session)
+    data, (x, y), augment = paper_data()
+    cpu = paper_session("cpu", strategy, data, augment)
+    start = cpu.state.clone()
+    card = paper_session(dev, strategy, data, augment, state=start)
+    for a, b in zip(card.run(PAPER_ROUNDS, PAPER_EPOCHS),
+                    cpu.run(PAPER_ROUNDS, PAPER_EPOCHS)):
+        assert abs(a.client_loss - b.client_loss) <= TOL_PAPER_LOSS
+        assert abs(a.server_loss - b.server_loss) <= TOL_PAPER_LOSS
+    drift = paper_drift(card.state, cpu.state, start)
+    assert max(drift["clients"], drift["servers"]) <= TOL_PAPER_PARAMS
+    same = paper_session(dev, strategy, data, augment, state=cpu.state)
+    before = entropy_exit.launches
+    assert same.evaluate(x, y) == cpu.evaluate(x, y)
+    for tau in (1.0, 2.2):
+        got = same.evaluate_adaptive(x, y, tau)
+        want = cpu.evaluate_adaptive(x, y, tau)
+        assert got["acc"] == want["acc"]
+        assert got["client_ratio"] == want["client_ratio"]
+        np.testing.assert_allclose(got["mean_entropy"], want["mean_entropy"],
+                                   atol=1e-5, rtol=0)
+    # 4 clients x (512 + 500 rows) x 3 evaluations
+    assert entropy_exit.launches - before == 4 * 2 * 3
