@@ -89,6 +89,30 @@ Phases:
            each cut: its eval-mode logits on the card against the CPU, the
            gate kernel against the plain version on them, and its accuracy
            and mean entropy with BatchNorm on running vs batch statistics;
+  fused    the fused cohort engine (clients that share a cut stepped as
+           lanes under torch.func.vmap, Eq. (1) on the stacked servers,
+           staged chunks, one host sync a chunk), fp32 with TF32 off: the
+           ResNet smoke (cuts (3, 3, 4, 5): two lanes at cut 3) on the card
+           against the CPU in eq1 and sum, under a planted fault (client
+           0's lane left out of the stacked Eq. (1)) it must reject, and
+           against the reference engine on the card; then, with every
+           launch count at 0, phase paper's full-width config on the fused
+           engine (eq1 and sum under averaging, eq1 under distributed): ms
+           per round timed as phase paper times it, beside the reference
+           engine's, rounds/s, images/s, host syncs per chunk (the sync
+           debug mode), kernels per round and idle share of 2 traced
+           rounds, peak memory, the staging overlap_fraction, and
+           evaluate_adaptive (the gate); a probe of both engines with
+           cuDNN's algorithm search on (cudnn.benchmark); and
+           BackboneSplitModel on the
+           bf16 smokes at full head width (glm4-9b: 2 lanes at each of cuts
+           1 and 2; rwkv6-3b: 3 lanes at cut 2), 2 rounds of fused eq1 on
+           the kernels, which must launch rows 2-6 under lanes; the launch
+           counts are read there.  Then the legs on the plain versions from
+           the same start (losses and first-step gradients leaf by leaf at
+           repro_torch/parity.py's bf16 limits), and each kernel site's
+           vmap rule against a per-lane loop of plain launches (attention
+           bit for bit, the wkv within 1e-4 of each output's scale);
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -133,7 +157,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
-PHASES = ("build", "kernels", "parity", "main", "train", "paper", "timing")
+PHASES = ("build", "kernels", "parity", "main", "train", "paper", "fused",
+          "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
@@ -1445,8 +1470,9 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
 
 def traced(run, n: int, what: str, top: int = 6) -> dict:
     """``run()`` n times under torch.profiler: wall time, device busy time
-    (the sum of device kernel times) and idle share per run, the largest
-    device kernels by time, and the entropy gate's time."""
+    (the time some device event ran) and idle share per run, the device
+    events per run, the largest device kernels by time, and the entropy
+    gate's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1458,7 +1484,13 @@ def traced(run, n: int, what: str, top: int = 6) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    # busy = the union of the device events' intervals: copies on a stream
+    # of their own (the fused engine's staging) overlap the kernels
+    busy_us, end = 0.0, -math.inf
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        busy_us += max(0.0, e.time_range.end - start)
+        end = max(end, e.time_range.end)
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1472,7 +1504,7 @@ def traced(run, n: int, what: str, top: int = 6) -> dict:
     if gate_us:
         print(f"  {gate_us / n / 1e3:8.4f} ms each  the entropy gate")
     return dict(wall_ms=wall_us / n / 1e3, busy_ms=busy_us / n / 1e3,
-                idle_share=1 - busy_us / wall_us)
+                idle_share=1 - busy_us / wall_us, kernels=len(kernels) / n)
 
 
 def profile_ticks(cfg, params, prompts, max_len, ticks: int = 5) -> None:
@@ -1717,7 +1749,7 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
 # paper's 12 clients at cuts 3/4/5, batch 64, lr 3e-3 as the JAX package's
 # benchmarks train it)
 FULL_TRAIN, FULL_TEST, FULL_BATCH, FULL_LR = 12 * 64 * 8, 2048, 64, 3e-3
-FULL_WARM, FULL_AVG, FULL_SEQ = 1, 5, 3
+FULL_WARM, FULL_AVG, FULL_SEQ, FULL_PROBE = 1, 5, 3, 3
 PAPER_TAUS = (0.5, 1.0, 2.0)
 # the full-width probe: the averaging run's first client at each cut, its
 # eval-mode logits on the card against the same net on the CPU (first
@@ -1901,7 +1933,7 @@ def paper_main(state) -> None:
                                  strategy=strategy),
             OptimizerConfig(lr=FULL_LR,
                             total_steps=FULL_WARM + n + 1),
-            data, FULL_BATCH, augment=ds.augment)
+            data, FULL_BATCH, engine="reference", augment=ds.augment)
         if strategy == "averaging":
             n_params = sum(t.numel() for t in tree_leaves(model.full_params))
             print(f"paper: {n_params / 1e6:.3f} M parameters in the full "
@@ -2032,6 +2064,336 @@ def paper_wide_probe(model, clients, ev, depth, x_test, y_test) -> dict:
                           f"{v['max_abs']:.3g}" for m, v in read.items()))
         out[li] = dict(d_logits=dl, max_dH=worst, **read)
     return out
+
+
+# phase fused: the full-width runs (paper_main's config and timing), each
+# (strategy, grad mode)
+FUSED_RUNS = (("averaging", "eq1"), ("averaging", "sum"),
+              ("distributed", "eq1"))
+# the lane rules against a per-lane loop of plain launches: wkv outputs and
+# gradients within TOL_WKV of each one's largest magnitude.  Folding lanes
+# into the heads changes B*H, and the kernels pick their value-column
+# split (scan_split) from B*H against the SM count, which may reorder the
+# state passes' sums; attention folds lanes into the batch, which only
+# renumbers blocks, so it must come out bit for bit
+TOL_LANE_WKV = TOL_WKV
+
+
+def phase_fused(state):
+    """The fused cohort engine: the ResNet smoke card vs CPU and vs the
+    reference engine (fused_parity), then with every launch count at 0 the
+    full-width runs (fused_main) and the backbone legs' kernel runs, whose
+    launches are read; then the backbone legs against the plain versions
+    and the lane rules against per-lane launches (comparisons: their
+    launches are not counted)."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import LANE_SPLITS, backbone_session
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fused_parity()
+    counted = (entropy_exit, flash_attention, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq, rwkv_wkv, rwkv_wkv_bwd)
+    zero_counts(*counted)
+    fused_main(state)
+    legs = {}
+    for family in LANE_SPLITS:
+        sess = backbone_session(family, "auto", "cuda")
+        start = sess.state.clone()
+        legs[family] = (sess, start, backbone_leg_run(sess, family))
+    counts = {k: n for w in counted for k, n in launch_counts(w).items()}
+    print("fused: launches on the fused paths (full-width runs and their "
+          "evaluations, backbone legs): " + ", ".join(
+              f"{k} {n}" for k, n in counts.items() if n))
+    rows = ("flash_attention_tile", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq", "rwkv_wkv", "rwkv_wkv_bwd")
+    check(all(counts[k] > 0 for k in rows + ("entropy_exit",)),
+          f"fused: rows 2-6 launched under lanes ("
+          + ", ".join(f"{k} {counts[k]}" for k in rows)
+          + f") and the gate in the evaluations ({counts['entropy_exit']})")
+    state["fused_launches"] = counts
+    launches = state.setdefault("launches", {})
+    for k in KERNELS:
+        launches[k] = launches.get(k, 0) + counts.get(k, 0)
+    for family, (sess, start, hist) in legs.items():
+        backbone_leg_checks(family, sess, start, hist)
+    lane_rule_checks()
+
+
+def fused_parity() -> None:
+    """The ResNet smoke (repro_torch/parity.py's setup and limits) on the
+    fused engine: the card against the CPU in eq1 and sum, under a planted
+    fault (client 0's lane left out of the stacked Eq. (1)) that must be
+    rejected, and against the reference engine on the card."""
+    from repro_torch.parity import (PAPER_EPOCHS, PAPER_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    dropped_lane, paper_data, paper_drift,
+                                    paper_session)
+    data, _, augment = paper_data()
+
+    def run(device, start, **kw):
+        sess = paper_session(device, "averaging", data, augment, state=start,
+                             **kw)
+        return sess, sess.run(PAPER_ROUNDS, PAPER_EPOCHS)
+
+    def compare(what, a, ha, b, hb, start):
+        dl = max(max(abs(x.client_loss - y.client_loss),
+                     abs(x.server_loss - y.server_loss))
+                 for x, y in zip(ha, hb))
+        d = paper_drift(a.state, b.state, start)
+        print(f"  reading fused smoke {what}: max|dloss| {dl:.3e}; drift "
+              f"clients {d['clients']:.3e} servers {d['servers']:.3e}; BN "
+              f"max|d| clients {d['clients_bn']:.3e} servers "
+              f"{d['servers_bn']:.3e}")
+        return dl, d
+
+    for grad_mode in ("eq1", "sum"):
+        cpu = paper_session("cpu", "averaging", data, augment,
+                            engine="fused", grad_mode=grad_mode)
+        start = cpu.state.clone()
+        h_cpu = cpu.run(PAPER_ROUNDS, PAPER_EPOCHS)
+        card, h_card = run("cuda", start, engine="fused", grad_mode=grad_mode)
+        check(card.engine.name == "fused" and cpu.engine.name == "fused",
+              f"fused smoke {grad_mode}: both sessions on the fused engine")
+        dl, d = compare(f"{grad_mode} card vs CPU", card, h_card,
+                        cpu, h_cpu, start)
+        check(dl <= TOL_PAPER_LOSS
+              and max(d["clients"], d["servers"]) <= TOL_PAPER_PARAMS,
+              f"fused smoke {grad_mode}, card vs CPU: losses within "
+              f"{TOL_PAPER_LOSS:g} ({dl:.3e}), drift clients "
+              f"{d['clients']:.3e}, servers {d['servers']:.3e} <= "
+              f"{TOL_PAPER_PARAMS:g}")
+        if grad_mode == "eq1":
+            with dropped_lane():
+                faulty, h_f = run("cuda", start, engine="fused")
+            _, fd = compare("planted fault (client 0's lane left out of the "
+                            "stacked Eq. (1)) vs CPU", faulty, h_f, cpu,
+                            h_cpu, start)
+            check(fd["servers"] > TOL_PAPER_PARAMS,
+                  f"fused smoke planted fault rejected: servers drift "
+                  f"{fd['servers']:.3e} > {TOL_PAPER_PARAMS:g}")
+            ref, h_ref = run("cuda", start, engine="reference")
+            dl, d = compare("eq1 fused vs reference, both on the card", card,
+                            h_card, ref, h_ref, start)
+            check(dl <= TOL_PAPER_LOSS
+                  and max(d["clients"], d["servers"]) <= TOL_PAPER_PARAMS,
+                  f"fused smoke, fused vs reference on the card: losses "
+                  f"within {TOL_PAPER_LOSS:g} ({dl:.3e}), drift clients "
+                  f"{d['clients']:.3e}, servers {d['servers']:.3e} <= "
+                  f"{TOL_PAPER_PARAMS:g}")
+
+
+def count_syncs(run):
+    """``run()`` with CUDA's sync debug mode on: the number of synchronizing
+    calls it made (torch warns once a call)."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def fused_main(state) -> None:
+    """The fused engine on paper_main's config (full-width ResNet-18, the
+    paper's 12 clients at cuts HETERO_SPLITS, batch 64, fp32, TF32 off),
+    timed as paper_main times the reference engine: eq1 and sum under
+    averaging, eq1 under distributed; each 1 warm-up round, FULL_AVG timed
+    (host clock, ending in a synchronize; auto chunking), FULL_AVG more
+    under the sync debug mode (host syncs per chunk), 2 traced (kernels
+    per round, busy and idle share), then evaluate_adaptive at
+    PAPER_TAUS (the gate).  Then a probe: both engines with cuDNN's
+    algorithm search on (torch.backends.cudnn.benchmark)."""
+    from repro_torch.api import TrainSession
+    from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    cfg = resnet18_cifar.config("cifar10")
+    splits = resnet18_cifar.HETERO_SPLITS
+    ds = SyntheticImageDataset(num_classes=10, image_size=32,
+                               train_size=FULL_TRAIN, test_size=FULL_TEST,
+                               seed=0)
+    data = ClientPartitioner(len(splits)).split(*ds.train)
+    x_test, y_test = ds.test
+    images = len(splits) * FULL_BATCH
+    ref = state.get("paper", {}).get("averaging")
+
+    def session(engine, strategy="averaging", grad_mode="eq1"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return TrainSession.from_config(
+            ResNetSplitModel(cfg, device="cuda"),
+            SplitEEConfig(profile=HeteroProfile(splits), strategy=strategy),
+            OptimizerConfig(lr=FULL_LR,
+                            total_steps=FULL_WARM + 2 * FULL_AVG + 3),
+            data, FULL_BATCH, engine=engine, grad_mode=grad_mode,
+            augment=ds.augment)
+
+    out = {}
+    for strategy, grad_mode in FUSED_RUNS:
+        what = f"fused full width {strategy} {grad_mode}"
+        sess = session("fused", strategy, grad_mode)
+        sess.train(FULL_WARM)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = sess.train(FULL_AVG)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / FULL_AVG * 1e3
+        stage = dict(sess.engine.last_stage_stats)
+        losses = [(m.client_loss, m.server_loss) for m in hist]
+        check(all(math.isfinite(a) and math.isfinite(b) for a, b in losses),
+              f"{what}: {FULL_AVG} rounds, finite losses "
+              + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in losses))
+        syncs = count_syncs(lambda: sess.train(FULL_AVG))
+        chunks = sess.engine.last_stage_stats["chunks"]
+        torch.cuda.synchronize()
+        tr = traced(lambda: sess.train(2), 1, f"{what}, 2 rounds")
+        peak = torch.cuda.max_memory_allocated()
+        beside = (f"; the reference engine {ref['ms_round']:.1f} ms per "
+                  f"round ({ref['images_s']:,.0f} images/s, phase paper)"
+                  if ref else "")
+        print(f"{what}: {ms:.1f} ms per round, {1e3 / ms:.2f} rounds/s, "
+              f"{images / ms * 1e3:,.0f} images/s ({FULL_AVG} timed after "
+              f"{FULL_WARM} warm-up; chunks {stage['chunks']}, staging "
+              f"overlap_fraction {stage['overlap_fraction']:.3f}){beside}")
+        print(f"{what}: {syncs} synchronizing calls over {chunks} chunks "
+              f"({syncs / chunks:.2f} per chunk; the engine read the losses "
+              f"{sess.engine.last_host_syncs} times); traced "
+              f"{tr['wall_ms'] / 2:.1f} ms per round, busy "
+              f"{tr['busy_ms'] / 2:.1f} ms, idle share "
+              f"{tr['idle_share']:.3f}, {tr['kernels'] / 2:.0f} kernels per "
+              f"round; peak {peak / 2**30:.2f} GiB")
+        check(syncs == chunks,
+              f"{what}: one host sync per chunk ({syncs} over {chunks})")
+        r = dict(ms_round=ms, rounds_s=1e3 / ms, images_s=images / ms * 1e3,
+                 losses=losses, syncs=syncs, chunks=chunks,
+                 overlap_fraction=stage["overlap_fraction"],
+                 traced_ms_round=tr["wall_ms"] / 2,
+                 busy_ms_round=tr["busy_ms"] / 2,
+                 idle_share=tr["idle_share"],
+                 kernels_round=tr["kernels"] / 2, peak_gib=peak / 2**30)
+        for tau in PAPER_TAUS:
+            ad = sess.evaluate_adaptive(x_test, y_test, tau)
+            check(all(0.0 <= v <= 1.0 for v in ad["acc"] + ad["client_ratio"])
+                  and all(math.isfinite(v) for v in ad["mean_entropy"]),
+                  f"{what} tau={tau}: mean acc {np.mean(ad['acc']):.4f}, "
+                  f"mean client ratio {np.mean(ad['client_ratio']):.4f}")
+        out[f"{strategy}_{grad_mode}"] = r
+        del sess
+    # a probe beside the main path: cuDNN's algorithm search
+    # (torch.backends.cudnn.benchmark, off everywhere else) for both
+    # engines under averaging, FULL_PROBE rounds timed after the warm-up
+    # round that searches, and 2 traced
+    torch.backends.cudnn.benchmark = True
+    try:
+        for engine in ("reference", "fused"):
+            what = f"{engine} full width averaging eq1, cudnn.benchmark on"
+            sess = session(engine)
+            sess.train(FULL_WARM)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sess.train(FULL_PROBE)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / FULL_PROBE * 1e3
+            tr = traced(lambda: sess.train(2), 1, f"{what}, 2 rounds")
+            print(f"{what}: {ms:.1f} ms per round ({FULL_PROBE} timed); "
+                  f"traced busy {tr['busy_ms'] / 2:.1f} ms per round, idle "
+                  f"share {tr['idle_share']:.3f}")
+            out[f"benchmark_{engine}"] = dict(
+                ms_round=ms, busy_ms_round=tr["busy_ms"] / 2,
+                idle_share=tr["idle_share"])
+            del sess
+    finally:
+        torch.backends.cudnn.benchmark = False
+    state["fused"] = out
+    torch.cuda.empty_cache()
+
+
+def backbone_leg_run(sess, family: str) -> list:
+    """LANE_ROUNDS rounds of fused eq1 on the kernels."""
+    from repro_torch.parity import LANE_ROUNDS
+    hist = sess.train(LANE_ROUNDS)
+    print(f"  fused {family} bf16 smoke, lanes {sess.ctx.profile.split_layers}"
+          f", kernels: losses " + ", ".join(
+              f"{m.client_loss:.4f}/{m.server_loss:.4f}" for m in hist))
+    return hist
+
+
+def backbone_leg_checks(family: str, sess, start, hist) -> None:
+    """The backbone leg on the plain versions from the same start: losses
+    within TOL_LOSS_BF16 of the family, and the first fused step's
+    gradients leaf by leaf within TOL_GRAD_BF16."""
+    from repro_torch.parity import (LANE_ROUNDS, TOL_GRAD_BF16,
+                                    TOL_LOSS_BF16, backbone_session,
+                                    cohort_first_grads, grad_rel_errors)
+    plain = backbone_session(family, "ref", "cuda", state=start.clone())
+    want = cohort_first_grads(plain)
+    plain_hist = plain.train(LANE_ROUNDS)
+    got = cohort_first_grads(
+        backbone_session(family, "auto", "cuda", state=start.clone()))
+    errs = grad_rel_errors(got, want)
+    dl = max(max(abs(a.client_loss - b.client_loss),
+                 abs(a.server_loss - b.server_loss))
+             for a, b in zip(hist, plain_hist))
+    print(f"  reading fused {family} bf16 smoke, kernels vs plain: max|dloss| "
+          f"{dl:.3e} over {LANE_ROUNDS} rounds; first-step gradients, max "
+          f"over {len(errs)} leaves of ||g - g_plain|| / ||g_plain|| "
+          f"{max(errs):.3e}")
+    check(dl <= TOL_LOSS_BF16[family] and max(errs) <= TOL_GRAD_BF16,
+          f"fused {family} bf16 smoke under lanes, kernels vs plain: losses "
+          f"within {TOL_LOSS_BF16[family]:g} ({dl:.2e}), every gradient leaf "
+          f"within {TOL_GRAD_BF16:g} ({max(errs):.2e})")
+
+
+def lane_rule_checks() -> None:
+    """Each kernel site's vmap rule (lanes folded into one launch) against
+    a per-lane loop of plain launches at the backbone legs' shapes: the
+    attention forward and backward bit for bit, the wkv within
+    TOL_LANE_WKV of each one's largest magnitude; the folded run launches
+    each kernel once."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import lane_loop_gaps, lane_sites
+    sites = lane_sites("cuda")
+    for name, (site, inputs) in sites.items():
+        wrappers = ((flash_attention, flash_attention_bwd_dkv,
+                     flash_attention_bwd_dq) if name == "attention"
+                    else (rwkv_wkv, rwkv_wkv_bwd))
+        before = [w.launches for w in wrappers]
+        r = lane_loop_gaps(site, inputs)
+        torch.cuda.synchronize()
+        lanes = len(inputs[0])
+        made = [w.launches - b for w, b in zip(wrappers, before)]
+        print(f"  reading {name} vmap rule vs {lanes} per-lane launches "
+              f"{tuple(inputs[0].shape[1:])} x {lanes} lanes: outputs "
+              f"max|d| {r['out']:.3e} (scale {r['out_scale']:.3g}), "
+              f"gradients {r['grad']:.3e} (scale {r['grad_scale']:.3g}); "
+              f"launches {made}")
+        ok_launch = all(m == 1 + lanes for m in made)
+        if name == "attention":
+            check(ok_launch and r["out"] == 0.0 and r["grad"] == 0.0,
+                  f"attention vmap rule (lanes into the batch): one launch "
+                  f"of each kernel for all lanes, outputs and gradients bit "
+                  f"for bit equal to per-lane launches")
+        else:
+            worst = max(r["out"] / max(1.0, r["out_scale"]),
+                        r["grad"] / max(1.0, r["grad_scale"]))
+            check(ok_launch and worst <= TOL_LANE_WKV,
+                  f"wkv vmap rule (lanes into the heads, u per lane): one "
+                  f"launch of each kernel for all lanes, outputs and "
+                  f"gradients within {TOL_LANE_WKV:g} of per-lane launches "
+                  f"({worst:.2e})")
 
 
 def phase_timing(state):
@@ -2341,6 +2703,9 @@ def kernels_line(state) -> dict:
                 {k: g[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
                 for what, g in state["gate_timing"].items()
                 if what.startswith("evaluator")]
+        if "fused_launches" in state:   # phase fused's share of them
+            extra["launches_fused"] = state["fused_launches"].get(r["name"],
+                                                                  0)
         out.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], shape=r["shape"],
@@ -2431,6 +2796,15 @@ def main() -> int:
                   f"sequential {p['sequential']['ms_round']:.1f} ms; peak "
                   f"{p['peak_gib']:.2f} GiB; entropy_exit launches "
                   f"{p['gate_launches']} in its evaluations")
+        for key, f in state.get("fused", {}).items():
+            if key.startswith("benchmark"):
+                continue
+            print(f"fused full-width ResNet-18, 12 clients, {key}: "
+                  f"{f['ms_round']:.1f} ms per round ({f['images_s']:,.0f} "
+                  f"images/s), idle share {f['idle_share']:.3f}, "
+                  f"{f['kernels_round']:.0f} kernels per round, peak "
+                  f"{f['peak_gib']:.2f} GiB, {f['syncs']} host syncs over "
+                  f"{f['chunks']} chunks")
         for key in ("train", "train_rwkv"):
             if key in state:
                 tr = state[key]

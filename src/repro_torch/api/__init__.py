@@ -8,15 +8,16 @@
     serve = ServeSession(cfg, params, tau=2.0, slots=8, max_len=161)
     serve.submit(prompt_tokens, decode_tokens=32); results = serve.run()
 
-``TrainSession`` runs the paper's loop on the reference engine (the fused
-engine waits for ROADMAP.md Queue 1 item 4, the spmd engine for item 9,
-checkpoints for item 6); the fused train steps of the backbones are in
-``repro_torch.core.spmd``.
+``TrainSession`` runs the paper's loop on the reference engine or the fused
+cohort engine (the spmd engine waits for ROADMAP.md Queue 1 item 9,
+checkpoints for item 6); the fused train steps of the backbones and the
+cohort step are in ``repro_torch.core.spmd``.
 """
 from repro_torch.api.engines import (AUTO_ORDER, Engine, SessionContext,  # noqa: F401
                                      available_engines, get_engine,
                                      register_engine, resolve_engine)
 from repro_torch.api.evaluation import SplitEvaluator, pad_batches  # noqa: F401
+from repro_torch.api.fused_engine import FusedEngine  # noqa: F401
 from repro_torch.api.protocol import SplitModel, assert_split_model  # noqa: F401
 from repro_torch.api.reference_engine import ReferenceEngine  # noqa: F401
 from repro_torch.api.serve_session import (ServeResult, ServeSession,  # noqa: F401

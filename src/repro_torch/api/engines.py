@@ -5,10 +5,11 @@ An engine executes the paper's strategies as ``TrainState -> TrainState``:
 it receives a state, runs some rounds and returns a new state and the
 per-round metrics, leaving the state it was given untouched.
 
-The port registers ``"reference"``: the per-client loop of Alg. 1/2, every
-strategy.  The JAX package's ``"fused"`` (ROADMAP.md Queue 1 item 4) and
-``"spmd"`` (item 9) engines are not ported yet; asking for one raises, and
-``"auto"`` resolves to the reference engine with a note that says why.
+The port registers ``"reference"`` (the per-client loop of Alg. 1/2, every
+strategy) and ``"fused"`` (cohort lanes, Averaging and distributed).  The
+JAX package's ``"spmd"`` engine (ROADMAP.md Queue 1 item 9) is not ported
+yet; asking for it raises, and ``"auto"`` resolves to the widest engine
+that can run the session with a note that says why spmd was skipped.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 import numpy as np
 
 from repro_torch.config import OptimizerConfig, SplitEEConfig
+from repro_torch.core.spmd import GRAD_MODES
 from repro_torch.data.pipeline import batch_iterator, effective_batch_size
 from repro_torch.optim import make_schedule
 
@@ -24,8 +26,6 @@ from repro_torch.optim import make_schedule
 NOT_PORTED = {
     "spmd": "the spmd engine is not ported yet (ROADMAP.md Queue 1 item 9, "
             "the multi-GPU engine)",
-    "fused": "the fused cohort engine is not ported yet (ROADMAP.md Queue 1 "
-             "item 4)",
 }
 
 
@@ -71,14 +71,16 @@ class DataCursor:
 
 class SessionContext:
     """What a session and its engine share and never change: the model
-    adapter, the configs, the schedule and the data cursor."""
+    adapter, the configs, the gradient mode, the schedule and the data
+    cursor."""
 
     def __init__(self, model, splitee_cfg: SplitEEConfig,
                  opt_cfg: OptimizerConfig,
                  client_data: Optional[Sequence[Tuple[np.ndarray,
                                                       np.ndarray]]],
                  batch_size: int, *, augment=None, seed: int = 0,
-                 mesh=None, recipe=None, population=None):
+                 mesh=None, grad_mode: str = "eq1", recipe=None,
+                 population=None):
         if mesh is not None or recipe is not None:
             raise ValueError(
                 "mesh= and recipe= select the spmd engine's device mesh and "
@@ -90,7 +92,11 @@ class SessionContext:
                 "waits for ROADMAP.md Queue 1 item 8")
         if client_data is None:
             raise ValueError("client_data is required")
+        if grad_mode not in GRAD_MODES:
+            raise ValueError(f"unknown grad_mode {grad_mode!r}; expected "
+                             f"one of {GRAD_MODES}")
         self.model = model
+        self.grad_mode = grad_mode
         self.cfg = splitee_cfg
         self.opt_cfg = opt_cfg
         self.batch_size = batch_size
@@ -125,9 +131,11 @@ class Engine:
         return None
 
     def run(self, state, rounds: int, local_epochs: int = 1,
-            log_every: int = 0):
+            log_every: int = 0, chunk_rounds: int = 0):
         """Train ``rounds`` rounds from ``state``; returns
-        ``(new_state, [RoundMetrics])``.  Must not change ``state``."""
+        ``(new_state, [RoundMetrics])``.  Must not change ``state``.
+        ``chunk_rounds`` bounds the rounds an engine stages at once (0 =
+        the engine's choice)."""
         raise NotImplementedError
 
 

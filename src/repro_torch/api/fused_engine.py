@@ -1,0 +1,389 @@
+"""The fused cohort engine (counterpart of ``repro/api/fused_engine.py``):
+the Averaging and distributed strategies as a ``TrainState -> TrainState``
+executor that steps every cohort's clients at once.
+
+  * **Cohorts as lanes.**  Clients that share a cut layer have nets of one
+    structure, so each cohort is stacked along a leading lane axis once per
+    run and stepped by ``core.spmd.make_cohort_train_step``: the adapter's
+    forward under ``torch.func.vmap``, plain autograd of the lanes' summed
+    losses, one Adam update per stacked leaf.
+  * **Chunks of rounds.**  The minibatches the reference engine would draw
+    are staged as ``{li: [rounds, E, k, B, ...]}`` device tensors a chunk
+    at a time (pinned host buffers, copied on a stream of their own while
+    the previous chunk computes; ``data.staging``).  A Python loop over the
+    chunk's rounds takes the place of the JAX engine's ``lax.scan``: the
+    learning rate comes from the schedule on the host, losses are summed on
+    the device, and the host reads them once per chunk, after the next
+    chunk has been dispatched.
+  * **Eq. (1) on the stacked servers** (``stacked_cross_layer_aggregate``,
+    in place) on the rounds where ``(t + 1) % aggregate_every == 0``; ``t``
+    is a host integer, so the boundary costs no sync.
+
+In ``eq1`` grad mode the engine composes the reference engine's step math
+and matches it to 1e-5 (``tests/test_torch_fused.py``).  The Sequential
+strategy is ordered across clients and stays with the reference engine;
+population masks (ROADMAP.md Queue 1 item 8) are not ported.
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.engines import (Engine, SessionContext, cohort_layout,
+                                     ragged_cohort_reason, register_engine)
+from repro_torch.api.state import TrainState
+from repro_torch.convert import torch_dtype
+from repro_torch.core.aggregation import stacked_cross_layer_aggregate
+from repro_torch.core.splitee import stack_pytrees
+from repro_torch.core.spmd import make_cohort_train_step
+from repro_torch.core.strategies import RoundMetrics
+from repro_torch.data.pipeline import effective_batch_size, prestage_batches
+from repro_torch.data.staging import StagedChunkPipeline
+from repro_torch.optim import AdamState
+
+
+def _stack_opts(opts) -> AdamState:
+    steps = {s.step for s in opts}
+    if len(steps) != 1:
+        raise ValueError(f"a cohort's Adam states stack only at one step; "
+                         f"got steps {sorted(steps)}")
+    return AdamState(step=steps.pop(), m=stack_pytrees([s.m for s in opts]),
+                     v=stack_pytrees([s.v for s in opts]))
+
+
+def _lane(tree, j: int):
+    """Lane ``j`` of a stacked tree, as tensors of its own."""
+    if isinstance(tree, AdamState):
+        return AdamState(step=tree.step, m=_lane(tree.m, j),
+                         v=_lane(tree.v, j))
+    if isinstance(tree, dict):
+        return {k: _lane(v, j) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_lane(v, j) for v in tree]
+    return tree[j].clone()
+
+
+@register_engine("fused")
+class FusedEngine(Engine):
+
+    #: staging budget (bytes) for the auto ``chunk_rounds``: a run whose
+    #: staged ``[rounds, E, k, B, ...]`` batches would exceed it is split
+    #: into budget-sized chunks.  Under the overlapped pipeline it is
+    #: divided by ``pipeline_depth``, so the staged-ahead chunks together
+    #: still fit.  Override per instance or with REPRO_STAGE_BUDGET_MB;
+    #: strictly positive either way.
+    stage_budget_bytes: int = 1 << 30
+
+    #: overlapped staging: stage chunk n+1 on a background thread while
+    #: chunk n computes, and read chunk n's losses only after chunk n+1 is
+    #: dispatched.  The trajectory is bit-identical either way;
+    #: REPRO_OVERLAP_STAGING=0 is the kill switch.
+    overlap_staging: bool = True
+
+    #: staged chunks resident at once under the pipeline (2 = one in
+    #: compute, one staged ahead); also the pinned buffers kept per shape
+    pipeline_depth: int = 2
+
+    #: with overlapped staging, a budget-sized single-chunk plan is cut into
+    #: up to this many chunks so the pipeline has work to overlap (an
+    #: explicit ``chunk_rounds`` is never cut; chunking does not change the
+    #: trajectory)
+    pipeline_min_chunks: int = 4
+
+    def __init__(self, ctx: SessionContext):
+        super().__init__(ctx)
+        self._cohort_lis, self._lanes = cohort_layout(
+            ctx.profile.split_layers)
+        self._counts: Dict[int, int] = {li: len(v)
+                                        for li, v in self._lanes.items()}
+        #: client index -> (cohort cut layer, lane position in the cohort)
+        self._lane_pos: Dict[int, Tuple[int, int]] = {
+            i: (li, j) for li in self._cohort_lis
+            for j, i in enumerate(self._lanes[li])}
+        self._steps: Dict[int, Callable] = {
+            li: make_cohort_train_step(ctx.model, ctx.opt_cfg, li,
+                                       ctx.grad_mode)
+            for li in self._cohort_lis}
+        #: staging accounting of the latest :meth:`run`
+        #: (``data.staging.StageStats.as_dict``)
+        self.last_stage_stats: Dict = {}
+        #: host reads of device results in the latest :meth:`run` (one per
+        #: chunk)
+        self.last_host_syncs = 0
+        self._pinned: Dict[tuple, collections.deque] = {}
+        self._copy_stream = None
+
+    @classmethod
+    def supports(cls, ctx: SessionContext):
+        if ctx.strategy not in ("averaging", "distributed"):
+            return (f"supports averaging/distributed only, not "
+                    f"{ctx.strategy!r} (the Sequential strategy is ordered "
+                    f"across clients: use the reference engine)")
+        return ragged_cohort_reason(ctx)
+
+    # ------------------------------------------------------------- staging
+    def _host_buffer(self, key: tuple, shape, dtype) -> list:
+        """A ``[tensor, copy event]`` host buffer for ``key``.  On the card
+        the buffers are pinned and each shape keeps ``pipeline_depth`` of
+        them in a ring; a buffer is reused only after the copy that last
+        read it has finished (its event)."""
+        dev = self.ctx.model.device
+        if dev.type != "cuda":
+            return [torch.empty(shape, dtype=dtype), None]
+        ring = self._pinned.setdefault(key + (tuple(shape), dtype),
+                                       collections.deque())
+        if len(ring) < self.pipeline_depth:
+            return [torch.empty(shape, dtype=dtype, pin_memory=True), None]
+        entry = ring.popleft()
+        entry[1].synchronize()
+        return entry
+
+    def _put(self, entries: Dict[tuple, list]):
+        """The host buffers on the model's device: on the card, copies on
+        the engine's copy stream and the event the consumer waits on; on
+        the CPU the buffers themselves."""
+        dev = self.ctx.model.device
+        if dev.type != "cuda":
+            return {k: e[0] for k, e in entries.items()}, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(self._copy_stream):
+            out = {k: e[0].to(dev, non_blocking=True)
+                   for k, e in entries.items()}
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        for k, e in entries.items():
+            e[1] = event
+            self._pinned[k + (tuple(e[0].shape), e[0].dtype)].append(e)
+        return out, event
+
+    def _stage_chunk(self, rounds: int, local_epochs: int):
+        """Draw the chunk's minibatches through the session's data cursor
+        (the per-client sequence the reference engine would consume, in
+        client-index order) straight into ``{li: [rounds, E, k, B, ...]}``
+        host buffers, then move them to the device.  Returns ``(xs, ys,
+        event)``."""
+        def drawn(i):
+            while True:
+                yield self.ctx.data.draw(i)
+
+        entries: Dict[tuple, list] = {}
+        for i in range(self.ctx.N):
+            li, j = self._lane_pos[i]
+            it = drawn(i)
+            first = next(it)          # fixes the staged shapes and dtypes
+            if (li, "x") not in entries:
+                k = self._counts[li]
+                for name, a in zip("xy", first):
+                    entries[li, name] = self._host_buffer(
+                        (li, name), (rounds, local_epochs, k, *a.shape),
+                        torch_dtype(a.dtype))
+            bx, by = (entries[li, name][0].numpy() for name in "xy")
+            prestage_batches(itertools.chain([first], it), rounds,
+                             local_epochs, out=(bx[:, :, j], by[:, :, j]))
+        out, event = self._put(entries)
+        return ({li: out[li, "x"] for li in self._cohort_lis},
+                {li: out[li, "y"] for li in self._cohort_lis}, event)
+
+    def _round_stage_bytes(self, local_epochs: int) -> int:
+        """Host bytes one round of staged batches occupies (every client's
+        ``local_epochs`` minibatches, x and y)."""
+        total = 0
+        for x, y in self.ctx.client_data:
+            eb = effective_batch_size(len(x), self.ctx.batch_size)
+            per_example = (x.dtype.itemsize * int(np.prod(x.shape[1:]))
+                           + y.dtype.itemsize * int(np.prod(y.shape[1:])))
+            total += local_epochs * eb * per_example
+        return total
+
+    def _auto_chunk_rounds(self, rounds: int, local_epochs: int,
+                           overlap: bool = False) -> int:
+        """The chunk size for ``chunk_rounds=0``: as many rounds as fit the
+        staging budget (at least one), the budget divided by
+        ``pipeline_depth`` under overlap.  An explicit per-instance
+        ``stage_budget_bytes`` wins over REPRO_STAGE_BUDGET_MB; either must
+        be strictly positive."""
+        budget = self.stage_budget_bytes
+        env = os.environ.get("REPRO_STAGE_BUDGET_MB")
+        if env and budget == FusedEngine.stage_budget_bytes:
+            try:
+                budget = int(env) << 20
+            except ValueError:
+                raise ValueError(
+                    f"REPRO_STAGE_BUDGET_MB={env!r} is not an integer "
+                    f"megabyte count") from None
+            if budget <= 0:
+                raise ValueError(
+                    f"REPRO_STAGE_BUDGET_MB={env} must be strictly "
+                    f"positive: a 0/negative staging budget cannot hold "
+                    f"even one round of staged batches")
+        if budget <= 0:
+            raise ValueError(
+                f"stage_budget_bytes={budget} must be strictly positive: "
+                f"a 0/negative staging budget cannot hold even one round "
+                f"of staged batches (set FusedEngine.stage_budget_bytes "
+                f"or REPRO_STAGE_BUDGET_MB to a real byte/MB count)")
+        if overlap:
+            budget //= self.pipeline_depth
+        per_round = max(1, self._round_stage_bytes(local_epochs))
+        return max(1, min(rounds, budget // per_round))
+
+    def _overlap_enabled(self) -> bool:
+        """The ``overlap_staging`` knob, REPRO_OVERLAP_STAGING (0 / false /
+        off / no disables, anything else enables) taking precedence."""
+        env = os.environ.get("REPRO_OVERLAP_STAGING")
+        if env is not None:
+            return env.strip().lower() not in ("0", "false", "off", "no")
+        return self.overlap_staging
+
+    def _chunk_plan(self, rounds: int, chunk_rounds: int,
+                    local_epochs: int, overlap: bool) -> List[int]:
+        """The run's chunk sizes in execution order.  An explicit
+        ``chunk_rounds`` is honoured exactly; the auto default is the
+        staging-budget chunk, cut into up to ``pipeline_min_chunks`` equal
+        pieces when overlap is on and the budget covers the run in one
+        chunk."""
+        chunk = (chunk_rounds if chunk_rounds > 0
+                 else self._auto_chunk_rounds(rounds, local_epochs, overlap))
+        if (chunk_rounds <= 0 and overlap and chunk >= rounds
+                and rounds >= 2):
+            pieces = min(self.pipeline_min_chunks, rounds)
+            chunk = -(-rounds // pieces)                   # ceil
+        plan = []
+        done = 0
+        while done < rounds:
+            n = min(chunk, rounds - done)
+            plan.append(n)
+            done += n
+        return plan
+
+    # --------------------------------------------------------------- carry
+    def _stack_carry(self, state: TrainState) -> Dict[int, tuple]:
+        """Each cohort's (client, copt, server, sopt) stacked along the lane
+        axis: copies, so the steps' in-place updates leave ``state``
+        alone."""
+        model = self.ctx.model
+        carry = {}
+        for li in self._cohort_lis:
+            lanes = self._lanes[li]
+            carry[li] = (
+                model.stack_clients([state.clients[i] for i in lanes]),
+                _stack_opts([state.client_opts[i] for i in lanes]),
+                model.stack_clients([state.servers[i] for i in lanes]),
+                _stack_opts([state.server_opts[i] for i in lanes]))
+        return carry
+
+    def _unstack_carry(self, carry, state: TrainState) -> TrainState:
+        parts = [list(state.clients), list(state.client_opts),
+                 list(state.servers), list(state.server_opts)]
+        for li in self._cohort_lis:
+            for j, i in enumerate(self._lanes[li]):
+                for part, tree in zip(parts, carry[li]):
+                    part[i] = _lane(tree, j)
+        return state.replace(clients=tuple(parts[0]),
+                             client_opts=tuple(parts[1]),
+                             servers=tuple(parts[2]),
+                             server_opts=tuple(parts[3]))
+
+    # ------------------------------------------------------------ training
+    def _run_chunk(self, carry, t0: int, n: int, xs, ys, local_epochs: int):
+        """``n`` rounds from round ``t0`` on the staged batches; the carry is
+        updated in place.  Returns the per-round (client, server) mean
+        losses as two ``[n]`` float64 tensors on the device."""
+        ctx = self.ctx
+        closs, sloss = [], []
+        for r in range(n):
+            t = t0 + r
+            lr = ctx.schedule(t)
+            lr_s = lr / ctx.server_lr_div
+            for e in range(local_epochs):
+                for li in self._cohort_lis:
+                    c, co, s, so, cl, sl = self._steps[li](
+                        *carry[li], xs[li][r, e], ys[li][r, e], lr, lr_s)
+                    carry[li] = (c, co, s, so)
+                    closs.append(cl)
+                    sloss.append(sl)
+            if (ctx.strategy == "averaging"
+                    and (t + 1) % ctx.cfg.aggregate_every == 0):
+                for part in ("trainable", "state"):
+                    stacked_cross_layer_aggregate(
+                        {li: carry[li][2][part] for li in self._cohort_lis},
+                        self._lanes)
+        denom = float(ctx.N * local_epochs)
+        per_round = lambda ls: (torch.cat(ls).double().view(n, -1)  # noqa: E731
+                                .sum(1) / denom)
+        return per_round(closs), per_round(sloss)
+
+    def _chunk_metrics(self, t0: int, n: int, closs, sloss,
+                       log_every: int) -> List[RoundMetrics]:
+        losses = torch.stack([closs, sloss]).cpu()       # one sync a chunk
+        self.last_host_syncs += 1
+        metrics = []
+        for r in range(n):
+            m = RoundMetrics(t0 + r, float(losses[0, r]),
+                             float(losses[1, r]))
+            metrics.append(m)
+            if log_every and (m.round % log_every == 0):
+                print(f"round {m.round:4d}  client_loss {m.client_loss:.4f}"
+                      f"  server_loss {m.server_loss:.4f}")
+        return metrics
+
+    def run(self, state: TrainState, rounds: int, local_epochs: int = 1,
+            log_every: int = 0, chunk_rounds: int = 0
+            ) -> Tuple[TrainState, List[RoundMetrics]]:
+        """``chunk_rounds`` bounds how many rounds of staged data are
+        resident at once (0 = auto: budget-sized chunks, cut for the
+        staging pipeline; chunking never changes the trajectory).
+
+        The carry is stacked once per run and stays on the device across
+        chunks; a background producer stages chunk n+1 while chunk n's
+        launches run, and the host reads chunk n's losses only after chunk
+        n+1 is dispatched."""
+        if rounds <= 0:
+            return state, []
+        ctx = self.ctx
+        ctx.data.align(state.batches_drawn)
+        overlap = self._overlap_enabled()
+        plan = self._chunk_plan(rounds, chunk_rounds, local_epochs, overlap)
+        carry = self._stack_carry(state)
+        t0 = state.round
+        self.last_host_syncs = 0
+        pipeline = StagedChunkPipeline(
+            lambda n: self._stage_chunk(n, local_epochs), plan,
+            depth=self.pipeline_depth, overlap=overlap)
+        metrics: List[RoundMetrics] = []
+        pending = None                  # (chunk start round, n, closs, sloss)
+        try:
+            t = t0
+            for n in plan:
+                xs, ys, event = pipeline.get()
+                if event is not None:
+                    stream = torch.cuda.current_stream(ctx.model.device)
+                    stream.wait_event(event)
+                    for a in itertools.chain(xs.values(), ys.values()):
+                        a.record_stream(stream)
+                closs, sloss = self._run_chunk(carry, t, n, xs, ys,
+                                               local_epochs)
+                del xs, ys
+                # only now read the previous chunk's losses: reading this
+                # chunk's would wait for its launches to finish
+                if pending is not None:
+                    metrics.extend(self._chunk_metrics(*pending, log_every))
+                    pipeline.release()
+                pending = (t, n, closs, sloss)
+                t += n
+            metrics.extend(self._chunk_metrics(*pending, log_every))
+            pipeline.release()
+        finally:
+            pipeline.close()
+            self.last_stage_stats = pipeline.stats.as_dict()
+        new_state = self._unstack_carry(carry, state).replace(
+            round=t0 + rounds,
+            batches_drawn=tuple(c + rounds * local_epochs
+                                for c in state.batches_drawn))
+        return new_state, metrics

@@ -39,6 +39,10 @@ class ReferenceEngine(Engine):
     def supports(cls, ctx: SessionContext):
         if ctx.strategy not in ("sequential", "averaging", "distributed"):
             return f"unknown strategy {ctx.strategy!r}"
+        if ctx.grad_mode != "eq1":
+            return (f"the reference engine implements the paper-faithful "
+                    f"'eq1' gradient routing only, not {ctx.grad_mode!r}: "
+                    f"use the fused engine for 'sum'")
         return None
 
     def _server_step(self, li: int) -> Callable:
@@ -48,8 +52,10 @@ class ReferenceEngine(Engine):
         return self._sstep[li]
 
     def run(self, state: TrainState, rounds: int, local_epochs: int = 1,
-            log_every: int = 0) -> Tuple[TrainState, List[RoundMetrics]]:
-        """``state`` is cloned first, since the steps update in place."""
+            log_every: int = 0, chunk_rounds: int = 0
+            ) -> Tuple[TrainState, List[RoundMetrics]]:
+        """``state`` is cloned first, since the steps update in place.
+        ``chunk_rounds`` is ignored: this engine stages nothing ahead."""
         ctx = self.ctx
         dev = ctx.model.device
         ctx.data.align(state.batches_drawn)

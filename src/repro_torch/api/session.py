@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.api import fused_engine as _fused_engine  # noqa: F401 (registers)
 from repro_torch.api import reference_engine as _reference_engine  # noqa: F401 (registers)
 from repro_torch.api.engines import SessionContext, resolve_engine
 from repro_torch.api.evaluation import SplitEvaluator
@@ -41,14 +42,15 @@ class TrainSession:
                                                       np.ndarray]]],
                  batch_size: int, *, engine: str = "auto",
                  augment=None, seed: int = 0,
-                 mesh=None, recipe=None, population=None,
+                 mesh=None, grad_mode: str = "eq1", recipe=None,
+                 population=None,
                  state: Optional[TrainState] = None,
                  history: Optional[List[RoundMetrics]] = None):
         assert_split_model(model)
         self.ctx = SessionContext(model, splitee_cfg, opt_cfg, client_data,
                                   batch_size, augment=augment, seed=seed,
-                                  mesh=mesh, recipe=recipe,
-                                  population=population)
+                                  mesh=mesh, grad_mode=grad_mode,
+                                  recipe=recipe, population=population)
         engine_cls, self._engine_note = resolve_engine(engine, self.ctx)
         self.engine = engine_cls(self.ctx)
         self.state = (state if state is not None
@@ -62,14 +64,18 @@ class TrainSession:
                     opt_cfg: OptimizerConfig,
                     data: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]],
                     batch_size: int = 64, *, engine: str = "auto",
-                    augment=None, seed: int = 0, mesh=None, recipe=None,
+                    augment=None, seed: int = 0, mesh=None,
+                    grad_mode: str = "eq1", recipe=None,
                     population=None) -> "TrainSession":
         """The canonical constructor (the arguments of ``__init__``).
+        ``grad_mode`` is ``"eq1"`` (paper-faithful, every engine) or
+        ``"sum"`` (one backward of the summed losses; the fused engine).
         ``mesh``, ``recipe`` (ROADMAP.md Queue 1 item 9) and
         ``population`` (item 8) raise until those items are ported."""
         return cls(model, splitee_cfg, opt_cfg, data, batch_size,
                    engine=engine, augment=augment, seed=seed, mesh=mesh,
-                   recipe=recipe, population=population)
+                   grad_mode=grad_mode, recipe=recipe,
+                   population=population)
 
     @property
     def model(self):
@@ -90,20 +96,21 @@ class TrainSession:
             return f"{self.engine.name} ({self._engine_note})"
         return self.engine.name
 
-    def train(self, rounds: int, local_epochs: int = 1, log_every: int = 0
-              ) -> List[RoundMetrics]:
+    def train(self, rounds: int, local_epochs: int = 1, log_every: int = 0,
+              chunk_rounds: int = 0) -> List[RoundMetrics]:
         """Advance the state by ``rounds`` rounds; returns their metrics
-        (also appended to ``self.history``)."""
+        (also appended to ``self.history``).  ``chunk_rounds`` bounds the
+        rounds the fused engine stages at once (0 = its staging budget)."""
         self.state, metrics = self.engine.run(
             self.state, rounds, local_epochs=local_epochs,
-            log_every=log_every)
+            log_every=log_every, chunk_rounds=chunk_rounds)
         self.history.extend(metrics)
         return metrics
 
-    def run(self, rounds: int, local_epochs: int = 1, log_every: int = 0
-            ) -> List[RoundMetrics]:
+    def run(self, rounds: int, local_epochs: int = 1, log_every: int = 0,
+            chunk_rounds: int = 0) -> List[RoundMetrics]:
         """:meth:`train`, returning the whole history."""
-        self.train(rounds, local_epochs, log_every)
+        self.train(rounds, local_epochs, log_every, chunk_rounds)
         return self.history
 
     def evaluate(self, x, y, batch_size: int = 512) -> Dict[str, Any]:

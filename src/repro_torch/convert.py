@@ -79,22 +79,28 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
             raise NotImplementedError(
                 f"{cfg.name}: parameters {key!r} are not ported yet")
     conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
-    segments = []
-    for si, seg in enumerate(build_plan(cfg)):
-        layers = []
-        for ri, run in enumerate(seg):
-            rp = tree["segments"][si][ri]
-            if run.length == 1:
-                layers.append(conv(rp))
-            else:
-                layers.extend(conv(tree_map(lambda a, i=i: np.asarray(a)[i], rp))
-                              for i in range(run.length))
-        segments.append(layers)
-    out = {"embed": conv(tree["embed"]), "segments": segments,
+    out = {"embed": conv(tree["embed"]),
+           "segments": [segment_from_jax(seg, cfg, si, device)
+                        for si, seg in enumerate(tree["segments"])],
            "head": conv(tree["head"])}
     if "exit_heads" in tree:
         out["exit_heads"] = conv(tree["exit_heads"])
     return out
+
+
+def segment_from_jax(runs, cfg: ModelConfig, si: int, device) -> list:
+    """Segment ``si`` of a JAX backbone (one tree per run of identical
+    layers, stacked along a leading layer axis) -> the port's list of one
+    dict per layer."""
+    conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
+    layers = []
+    for run, rp in zip(build_plan(cfg)[si], runs):
+        if run.length == 1:
+            layers.append(conv(rp))
+        else:
+            layers.extend(conv(tree_map(lambda a, i=i: np.asarray(a)[i], rp))
+                          for i in range(run.length))
+    return layers
 
 
 def adam_state_from_jax(state, cfg: ModelConfig, device=None):
@@ -119,25 +125,54 @@ def split_net_from_jax(tree, device) -> dict:
     return tree_map(conv, tree)
 
 
+def backbone_net_from_jax(tree, cfg: ModelConfig, device) -> dict:
+    """A JAX ``BackboneSplitModel`` net or a tree of its Adam moments: a
+    client's ``{"embed", "segments", "out"}`` or a server's ``{"seg{si}",
+    "head"}`` trainables (``{"trainable", "state"}`` around them, or not)
+    -> the port's, every segment unstacked by :func:`segment_from_jax`."""
+    if "trainable" in tree:
+        return {"trainable": backbone_net_from_jax(tree["trainable"], cfg,
+                                                   device),
+                "state": {}}
+    conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
+    out = {}
+    for key, val in tree.items():
+        if key == "segments":
+            out[key] = [segment_from_jax(seg, cfg, si, device)
+                        for si, seg in enumerate(val)]
+        elif key.startswith("seg"):
+            out[key] = segment_from_jax(val, cfg, int(key[3:]), device)
+        else:
+            out[key] = conv(val)
+    return out
+
+
 def split_state_from_jax(jax_state, model):
     """A JAX ``repro.api.state.TrainState`` of a split model (leaves numpy
     or JAX arrays) -> the port's :class:`repro_torch.api.state.TrainState`
     on ``model.device``: every client and server net, its BatchNorm state,
     its Adam moments and step, the round and the per-client draw counts.
-    Tests start both packages' sessions from one state this way, since
-    ``jax.random`` cannot be reproduced in torch."""
+    A ``BackboneSplitModel`` takes its nets through
+    :func:`backbone_net_from_jax`, the ResNet and MLP adapters through
+    :func:`split_net_from_jax`.  Tests start both packages' sessions from
+    one state this way, since ``jax.random`` cannot be reproduced in
+    torch."""
     from repro_torch.api.state import TrainState
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
     dev = model.device
+    if isinstance(model, BackboneSplitModel):
+        net = lambda t: backbone_net_from_jax(t, model.cfg, dev)  # noqa: E731
+    else:
+        net = lambda t: split_net_from_jax(t, dev)  # noqa: E731
 
     def opt(s):
-        return AdamState(step=int(np.asarray(s.step)),
-                         m=split_net_from_jax(s.m, dev),
-                         v=split_net_from_jax(s.v, dev))
+        return AdamState(step=int(np.asarray(s.step)), m=net(s.m),
+                         v=net(s.v))
 
     return TrainState(
-        clients=tuple(split_net_from_jax(c, dev) for c in jax_state.clients),
+        clients=tuple(net(c) for c in jax_state.clients),
         client_opts=tuple(opt(s) for s in jax_state.client_opts),
-        servers=tuple(split_net_from_jax(c, dev) for c in jax_state.servers),
+        servers=tuple(net(c) for c in jax_state.servers),
         server_opts=tuple(opt(s) for s in jax_state.server_opts),
         round=int(np.asarray(jax_state.round)),
         batches_drawn=tuple(int(c) for c in np.asarray(

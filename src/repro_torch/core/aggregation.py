@@ -7,9 +7,10 @@ and each member takes the mean.  Nets are dicts keyed by layer name
 (``layer4``, ``head``, ...), so common layers are found by key across
 heterogeneous server nets.
 
-``cross_layer_aggregate`` is the literal loop the reference engine runs.
-The stacked and masked forms, which the fused cohort engine and client
-populations need, wait for ROADMAP.md Queue 1 items 4 and 8.
+``cross_layer_aggregate`` is the literal loop the reference engine runs;
+``stacked_cross_layer_aggregate`` is the same mean over cohort-stacked
+server nets, the fused engine's form.  The masked form, which client
+populations need, waits for ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _mean_trees(trees: Sequence[Any]) -> Any:
@@ -58,6 +59,42 @@ def cross_layer_aggregate(server_models: Sequence[Dict[str, Any]],
         for j, i in enumerate(members):
             out[i][key] = mean if j == 0 else tree_map(torch.clone, mean)
     return out
+
+
+def stacked_cross_layer_aggregate(stacked: Dict[int, Dict[str, Any]],
+                                  lanes: Dict[int, Sequence[int]]
+                                  ) -> Dict[int, Dict[str, Any]]:
+    """Eq. (1) over cohort-stacked server nets, in place.
+
+    ``stacked[li]`` is the server net of the cohort cut at ``li``, keyed by
+    layer name, every leaf with a leading lane axis; ``lanes[li]`` names
+    the client behind each lane.  For each key the mean is taken over
+    every lane of every cohort holding it (the participation set C_l of
+    :func:`cross_layer_aggregate`), summed in fp32 lane by lane in client
+    order as ``_mean_trees`` sums, and copied into every member lane.  Keys
+    held by one client are left alone.  Nothing is allocated per member:
+    the mean is broadcast into the stacked leaves with ``copy_``.  Returns
+    ``stacked``."""
+    keys = set()
+    for m in stacked.values():
+        keys |= set(m)
+    for key in sorted(keys):
+        members = [li for li in sorted(stacked) if key in stacked[li]]
+        order = sorted((i, li, j) for li in members
+                       for j, i in enumerate(lanes[li]))
+        if len(order) <= 1:
+            continue
+        trees = {li: list(tree_leaves(stacked[li][key])) for li in members}
+        _, li0, j0 = order[0]
+        total = [x[j0].to(torch.float32, copy=True) for x in trees[li0]]
+        for _, li, j in order[1:]:
+            torch._foreach_add_(total, [x[j].float() for x in trees[li]])
+        n = float(len(order))
+        mean = [t.to(x.dtype) / n for t, x in zip(total, trees[li0])]
+        for li in members:
+            for x, m in zip(trees[li], mean):
+                x.copy_(m.expand_as(x))
+    return stacked
 
 
 def participation_counts(split_layers: Sequence[int], num_layers: int

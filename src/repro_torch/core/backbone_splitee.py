@@ -1,0 +1,143 @@
+"""``BackboneSplitModel``: the production backbones behind the ``SplitModel``
+protocol (counterpart of ``repro/core/backbone_splitee.py``).
+
+The adapter partitions an ``init_backbone`` parameter tree into the paper's
+split-learning shape, so the engines train the backbones through
+:class:`repro_torch.api.TrainSession`:
+
+  * cut layers are the config's ``exit_layers``, the segment boundaries: a
+    client cut at ``l_i = exit_layers[b]`` holds the embedding, segments
+    ``0..b`` (layers 1..l_i) and exit head ``b`` (the paper's client output
+    layer); its server holds segments ``b+1..`` and the LM head;
+  * server trainables are keyed ``seg{si}`` and ``head``: at the cut points
+    a segment is a layer group, so Eq. (1) matches common trunks by key as
+    the ``layer{l}`` keys of the ResNet and MLP adapters do;
+  * clients that share a cut have nets of one structure and the same
+    seeded values (paper §III-B), so the fused engine stacks them into
+    lanes (``_StackMixin``) unchanged.
+
+The task is sequence classification (``data.synthetic.
+SyntheticSeqClsDataset``): ``x`` is ``(B, T)`` int32 tokens, labels are
+class ids below the vocab size, and the exit head and the LM head are
+scored at the last position, giving ``(B, V)`` logits.
+
+The port has the dense GQA and rwkv6 families.  MoE (whose router aux loss
+the JAX adapter adds to each side's loss), Zamba2's shared attention block
+and the Whisper frontend raise: they wait for ROADMAP.md Queue 1 item 7.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.splitee import _seeded, _StackMixin, own_copy
+from repro_torch.device import resolve_device
+from repro_torch.models import heads as heads_mod
+from repro_torch.models.backbone import (build_plan, init_backbone,
+                                         segment_forward)
+from repro_torch.models.common import embed
+from repro_torch.tree import tree_map
+
+_ITEM7 = ("waits for ROADMAP.md Queue 1 item 7 (remaining mixers and the "
+          "configs zoo)")
+
+
+def unsupported_reason(cfg: ModelConfig):
+    """Why the port's adapter cannot split ``cfg`` yet, or ``None``."""
+    if cfg.moe is not None or cfg.arch_type == "moe":
+        return f"{cfg.name}: MoE blocks and their router aux loss {_ITEM7}"
+    if "shared_attn" in cfg.block_pattern:
+        return f"{cfg.name}: Zamba2's shared attention block {_ITEM7}"
+    if cfg.cross_attention:
+        return f"{cfg.name}: the Whisper frontend and cross attention {_ITEM7}"
+    return None
+
+
+@dataclass
+class BackboneSplitModel(_StackMixin):
+    """Split a ``configs/`` backbone at any of its ``exit_layers``.  The
+    weights are drawn from a CPU generator seeded with ``seed`` and moved
+    to ``device`` (default the CUDA card)."""
+
+    cfg: ModelConfig
+    seed: int = 0
+    device: Any = None
+
+    def __post_init__(self):
+        if not self.cfg.exit_layers:
+            raise ValueError(
+                f"{self.cfg.name}: BackboneSplitModel needs exit_layers: "
+                f"cut layers must sit at exit-head boundaries")
+        reason = unsupported_reason(self.cfg)
+        if reason:
+            raise NotImplementedError(reason)
+        self.device = resolve_device(self.device)
+        self.plan = build_plan(self.cfg)
+        self.full_params = tree_map(lambda t: t.to(self.device),
+                                    init_backbone(_seeded(self.seed),
+                                                  self.cfg))
+        self._exits = tuple(sorted(self.cfg.exit_layers))
+        self._boundary = {li: b for b, li in enumerate(self._exits)}
+
+    @property
+    def name(self) -> str:
+        return self.cfg.name
+
+    @property
+    def num_layers(self) -> int:
+        return self.cfg.num_layers
+
+    @property
+    def cut_layers(self) -> Tuple[int, ...]:
+        """The valid cut layers (the sorted exit layers)."""
+        return self._exits
+
+    def _boundary_of(self, li: int) -> int:
+        try:
+            return self._boundary[li]
+        except KeyError:
+            raise ValueError(
+                f"{self.cfg.name}: cut layer {li} is not an exit boundary; "
+                f"valid cut layers are {self._exits}") from None
+
+    # ------------------------------------------------------------ partitions
+    def make_client(self, li: int) -> Dict[str, Any]:
+        b = self._boundary_of(li)
+        p = self.full_params
+        return own_copy({"trainable": {
+            "embed": p["embed"],
+            "segments": [p["segments"][si] for si in range(b + 1)],
+            "out": p["exit_heads"][b]}, "state": {}})
+
+    def make_server(self, li: int) -> Dict[str, Any]:
+        b = self._boundary_of(li)
+        p = self.full_params
+        trainable = {f"seg{si}": p["segments"][si]
+                     for si in range(b + 1, len(self.plan))}
+        trainable["head"] = p["head"]
+        return own_copy({"trainable": trainable, "state": {}})
+
+    # --------------------------------------------------------------- forward
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.arange(x.shape[1], device=x.device)[None]
+
+    def client_forward(self, trainable, state, x, train: bool):
+        h = embed(trainable["embed"], x).to(self.cfg.dtype)
+        positions = self._positions(h)
+        params = {"segments": trainable["segments"]}
+        for si in range(len(trainable["segments"])):
+            h = segment_forward(params, self.cfg, si, h, positions)
+        logits = heads_mod.exit_head(trainable["out"], h[:, -1], self.cfg)
+        return h, logits, state
+
+    def server_forward(self, trainable, state, h, li: int, train: bool):
+        b = self._boundary_of(li)
+        h = h.to(self.cfg.dtype)
+        positions = self._positions(h)
+        for si in range(b + 1, len(self.plan)):
+            h = segment_forward({"segments": {si: trainable[f"seg{si}"]}},
+                                self.cfg, si, h, positions)
+        return heads_mod.lm_head(trainable["head"], h[:, -1], self.cfg), state

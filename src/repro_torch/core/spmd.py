@@ -1,7 +1,7 @@
-"""Fused Hetero-SplitEE train and serve steps for the production backbone
-(counterpart of ``repro/core/spmd.py``: the monolithic train steps and the
-serve step; the cohort steps of the engines wait for ROADMAP.md Queue 1
-item 4).
+"""Fused Hetero-SplitEE train and serve steps for the production backbone,
+and the cohort step of the fused engine (counterpart of
+``repro/core/spmd.py``; the masked cohort step of client populations waits
+for ROADMAP.md Queue 1 item 8).
 
 Client groups tile the batch; every example runs the full network; the
 paper's gradient routing is a per-example stop-gradient at the example's
@@ -297,6 +297,94 @@ def make_sequential_train_step(sc: StepConfig) -> Callable:
                                    "lr": lr}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# cohort step (the fused engine's TrainState boundary)
+# ---------------------------------------------------------------------------
+
+
+def make_cohort_grad_step(model, li: int,
+                          grad_mode: str = "eq1") -> Callable:
+    """The gradients of one cohort step, for a cohort of clients cut at
+    ``li`` with every leaf stacked along a leading lane axis:
+
+        (client, server, x, y) -> (g_client, g_server, client_loss,
+                                   server_loss, client_state, server_state)
+
+    ``client``/``server`` are ``{"trainable", "state"}`` dicts of stacked
+    leaves and ``x``/``y`` ``[k, B, ...]``; the gradients come one per leaf
+    of ``tree_leaves`` of each trainable (``None`` where none reaches it),
+    the losses as ``(k,)`` tensors on the device, never read on the host,
+    with the BatchNorm states of the training forward.
+
+    ``torch.func.vmap`` runs only the forward over the lanes: the adapter's
+    own forwards through ``strategies.client_loss_fn`` / ``server_loss_fn``.
+    Plain autograd then takes gradients of the sum of the lanes' losses
+    with respect to the stacked leaves.  Lanes hold disjoint parameters, so
+    d(sum_j L_j)/d theta_j = dL_j/d theta_j exactly, and the kernels'
+    backward sees plain folded tensors (``kernels/dispatch.py``'s ``vmap``
+    rules), never batched ones.
+
+      * ``"eq1"``: the client losses are pulled against the client leaves,
+        then ``h`` (detached) enters the server forward and the server
+        losses are pulled against the server leaves, the composition the
+        reference engine runs client by client;
+      * ``"sum"``: one pull of the summed client and server losses against
+        both families.  ``h`` is detached in both modes, so the gradients
+        are the same as eq1's."""
+    from torch.func import vmap
+
+    from repro_torch.core.strategies import client_loss_fn, server_loss_fn
+    _check_grad_mode(grad_mode)
+    closs_fn = vmap(client_loss_fn(model))
+    sloss_fn = vmap(server_loss_fn(model, li))
+
+    def grads(loss, leaves):
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    def grad_step(client, server, x, y):
+        ctr, strv = client["trainable"], server["trainable"]
+        with torch.enable_grad(), _Trainable(ctr) as cl, \
+                _Trainable(strv) as sl:
+            closs, (h, cst) = closs_fn(ctr, client["state"], x, y)
+            if grad_mode == "eq1":
+                gc = grads(closs.sum(), cl)
+                sloss, sst = sloss_fn(strv, server["state"], h.detach(), y)
+                gs = grads(sloss.sum(), sl)
+            else:
+                sloss, sst = sloss_fn(strv, server["state"], h.detach(), y)
+                g = grads(closs.sum() + sloss.sum(), cl + sl)
+                gc, gs = g[:len(cl)], g[len(cl):]
+        return gc, gs, closs.detach(), sloss.detach(), cst, sst
+
+    return grad_step
+
+
+def make_cohort_train_step(model, opt_cfg, li: int,
+                           grad_mode: str = "eq1") -> Callable:
+    """One combined client + server step over a cohort of clients cut at
+    ``li`` (the fused engine's step):
+
+        (client, copt, server, sopt, x, y, lr, lr_s)
+            -> (client, copt, server, sopt, client_loss, server_loss)
+
+    :func:`make_cohort_grad_step`'s gradients, then one Adam update per
+    stacked leaf for all lanes, its clip norm taken per lane.  ``copt`` and
+    ``sopt`` hold stacked moments and one host step for the cohort.
+    Parameters and moments are updated in place."""
+    grad_step = make_cohort_grad_step(model, li, grad_mode)
+
+    def step(client, copt, server, sopt, x, y, lr, lr_s):
+        gc, gs, closs, sloss, cst, sst = grad_step(client, server, x, y)
+        ctr, copt = adam_update(client["trainable"], gc, copt, opt_cfg, lr,
+                                lanes=True)
+        strv, sopt = adam_update(server["trainable"], gs, sopt, opt_cfg,
+                                 lr_s, lanes=True)
+        return ({"trainable": ctr, "state": cst}, copt,
+                {"trainable": strv, "state": sst}, sopt, closs, sloss)
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -58,49 +58,117 @@ def _gate_rows(logits: torch.Tensor, tau):
     return logits.reshape(-1, logits.shape[-1]), tau.expand(lead).reshape(-1)
 
 
+def _lanes_first(x, d, n: int):
+    """``x`` with its lane dim ``d`` moved to the front (a view), or
+    broadcast to ``n`` lanes where it has none (``d`` None)."""
+    return x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable flash attention at the training site (kernel layout
     (B, H, T, D)): forward = :func:`flash_attention` with ``return_lse``,
     saving q, k, v, the output and the LSE; backward =
-    :func:`flash_attention_bwd` (the dK/dV and dQ kernels on the card)."""
+    :func:`flash_attention_bwd` (the dK/dV and dQ kernels on the card).
+    ``apply`` returns ``(out, lse)``; the LSE is not differentiable.
+
+    Under ``torch.func.vmap`` (the fused engine's client lanes) the rule
+    :meth:`vmap` folds the lanes into the batch, (k, B, H, T, D) ->
+    (k*B, H, T, D), and applies the Function once on the folded plain
+    tensors: autograd records one forward and one backward launch for all
+    lanes, and the kernels never see a batched tensor.  The fold is a view
+    when the lane and batch strides nest (as the model's projections lay
+    them out), else a copy."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+    def forward(q, k, v, causal: bool, window: Optional[int]):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return out
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        n = info.batch_size
+        q, k, v = (_lanes_first(t, d, n) for t, d in zip((q, k, v), in_dims))
+        fold = lambda t: t.reshape(n * t.shape[1], *t.shape[2:])  # noqa: E731
+        out, lse = FlashAttentionFn.apply(fold(q), fold(k), fold(v), causal,
+                                          window)
+        return ((out.view(n, -1, *out.shape[1:]),
+                 lse.view(n, -1, *lse.shape[1:])), (0, 0))
 
 
 class WkvFn(torch.autograd.Function):
     """Differentiable chunked wkv at the training site (model layout):
     forward = :func:`rwkv_wkv_fwd`, saving r, k, v, log_w, u and every
     chunk's entry state; backward = :func:`rwkv_wkv_bwd` (the adjoint and
-    gradient passes on the card) from ``dy`` and ``dsT``, which autograd
-    hands in as zeros when S_T is unused, as it is in training."""
+    gradient passes on the card) from ``dy`` and ``dsT`` (zeros for the one
+    autograd leaves undefined: S_T is unused in training).  ``apply``
+    returns ``(y, S_T, s0)``; the entry states ``s0`` are not
+    differentiable.
+
+    Under ``torch.func.vmap`` the rule :meth:`vmap` folds the lanes into
+    the *heads*, (k, B, T, H, K) -> (B, T, k*H, K) and u (k, H, K) ->
+    (k*H, K): each lane has its own bonus u and the kernel takes one u for
+    the whole batch, so lanes cannot go into the batch.  The kernel then
+    sums du over the batch per (lane, head), which is each lane's own
+    gradient.  Folding r/k/v/log_w is a copy (lane and head dims are not
+    adjacent in memory); y and S_T unfold as views."""
 
     @staticmethod
-    def forward(ctx, r, k, v, log_w, u, chunk: int):
+    def forward(r, k, v, log_w, u, chunk: int):
         (y, sT), s0 = rwkv_wkv_fwd(r, k, v, log_w, u, chunk=chunk)
-        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        return y, sT, s0
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r, k, v, log_w, u, chunk = inputs
+        ctx.save_for_backward(r, k, v, log_w, u, output[2])
         ctx.chunk = chunk
-        return y, sT
+        ctx.mark_non_differentiable(output[2])
+        ctx.set_materialize_grads(False)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, dy, dsT):
+    def backward(ctx, dy, dsT, _ds0):
         r, k, v, log_w, u, s0 = ctx.saved_tensors
+        B, T, H, K = r.shape
+        if dy is None:
+            dy = torch.zeros((B, T, H, K), dtype=torch.float32,
+                             device=r.device)
+        if dsT is None:
+            dsT = torch.zeros((B, H, K, K), dtype=torch.float32,
+                              device=r.device)
         return (*rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT,
                               chunk=ctx.chunk), None)
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, log_w, u, chunk):
+        n = info.batch_size
+        r, k, v, log_w, u = (_lanes_first(t, d, n) for t, d in
+                             zip((r, k, v, log_w, u), in_dims))
+        _, B, T, H, K = r.shape
+
+        def fold(t):                     # (n, B, T, H, K) -> (B, T, n*H, K)
+            return t.movedim(0, 2).reshape(B, T, n * H, K)
+
+        y, sT, s0 = WkvFn.apply(fold(r), fold(k), fold(v), fold(log_w),
+                                u.reshape(n * H, K), chunk)
+        return ((y.view(B, T, n, H, K), sT.view(B, n, H, K, K),
+                 s0.view(B, n, H, *s0.shape[1:])), (2, 1, 1))
 
 
 class KernelBackend:
@@ -155,26 +223,34 @@ class ReferenceBackend(KernelBackend):
         return kref.entropy_exit_ref(logits, tau)
 
 
+def _via_function(*operands) -> bool:
+    """Whether a training site goes through its autograd Function: an
+    operand batched by ``torch.func.vmap`` (the kernel wrappers take plain
+    tensors only, and a batched tensor reports ``requires_grad`` False
+    whatever it wraps), or grad mode on and an operand requiring grad."""
+    if any(torch._C._functorch.is_batchedtensor(t) for t in operands):
+        return True
+    return torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+
+
 class CudaBackend(KernelBackend):
     """The kernel wrappers: CUDA kernels for CUDA tensors, the plain
     versions for CPU tensors.  While autograd records (an operand requires
-    grad) attention without ``kv_valid`` goes through
-    :class:`FlashAttentionFn` and the wkv through :class:`WkvFn`; the
-    decode path never differentiates."""
+    grad, or is batched by ``torch.func.vmap``) attention without
+    ``kv_valid`` goes through :class:`FlashAttentionFn` and the wkv through
+    :class:`WkvFn`; the decode path never differentiates."""
 
     name = "cuda"
 
     def _attention(self, q, k, v, *, causal, window, kv_valid):
-        if (kv_valid is None and torch.is_grad_enabled()
-                and (q.requires_grad or k.requires_grad or v.requires_grad)):
-            return FlashAttentionFn.apply(q, k, v, causal, window)
+        if kv_valid is None and _via_function(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, causal, window)[0]
         return flash_attention(q, k, v, causal=causal, window=window,
                                kv_valid=kv_valid)
 
     def wkv(self, r, k, v, log_w, u, *, chunk: int):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (r, k, v, log_w, u)):
-            return WkvFn.apply(r, k, v, log_w, u, chunk)
+        if _via_function(r, k, v, log_w, u):
+            return WkvFn.apply(r, k, v, log_w, u, chunk)[:2]
         return rwkv_wkv(r, k, v, log_w, u, chunk=chunk, return_state=True)
 
     def _entropy_exit(self, logits, tau):

@@ -11,6 +11,11 @@ Unlike the JAX function, :func:`adam_update` works in place: the
 parameter and moment tensors it is given are updated and returned.  At the
 published glm4-9b widths the fp32 moments alone are 38 GB, so a second copy
 of parameters and moments would not fit on one card.
+
+The update is elementwise, so one call on cohort-stacked leaves (a leading
+lane axis, the fused engine's layout) steps every lane at once; only the
+clip looks across elements, and ``lanes=True`` takes its norm per lane, as
+JAX's ``vmap`` of the update does.
 """
 from __future__ import annotations
 
@@ -47,6 +52,16 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def lane_norms(tree: Any) -> torch.Tensor:
+    """:func:`global_norm` of each lane of a tree of stacked leaves
+    (leading lane axis): shape (lanes,), fp32.  ``None`` leaves count as
+    zero."""
+    norms = [torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
+                                      dtype=torch.float32)
+             for g in tree_leaves(tree) if g is not None]
+    return torch.linalg.vector_norm(torch.stack(norms), dim=0)
+
+
 def _expand_prefix(prefix, tree):
     """``prefix`` (a tree whose leaves are scalars, or one scalar) spread
     over the leaves of ``tree``."""
@@ -69,7 +84,8 @@ def _update_leaf(p, g, m, v, *, lr, cfg: OptimizerConfig, bc1: float,
     if g is not None:               # an unreached leaf has a zero gradient
         gf = g.to(torch.float32, copy=True)
         if clip is not None:
-            gf.mul_(clip)
+            gf.mul_(clip if clip.ndim == 0
+                    else clip.view(-1, *(1,) * (gf.ndim - 1)))
         m32.add_(gf, alpha=1 - b1)
         v32.addcmul_(gf, gf, value=1 - b2)
     denom = torch.div(v32, bc2, out=gf) if gf is not None else v32 / bc2
@@ -87,18 +103,19 @@ def _update_leaf(p, g, m, v, *, lr, cfg: OptimizerConfig, bc1: float,
 
 def adam_update(params: Any, grads: Any, state: AdamState,
                 cfg: OptimizerConfig, lr,
-                lr_scale_tree: Optional[Any] = None):
+                lr_scale_tree: Optional[Any] = None, *, lanes: bool = False):
     """One Adam step, in place.  ``grads`` has params' structure (``None``
     leaves count as zero gradients); ``lr`` is a float or a 0-d tensor;
     ``lr_scale_tree`` (optional, params' structure or a prefix of it, with
-    scalar leaves) multiplies the per-leaf learning rate.  Returns
-    ``(params, new_state)``: the same parameter and moment tensors,
-    updated."""
+    scalar leaves) multiplies the per-leaf learning rate.  ``lanes``: the
+    leaves are cohort-stacked, and the clip norm is each lane's own
+    (:func:`lane_norms`).  Returns ``(params, new_state)``: the same
+    parameter and moment tensors, updated."""
     step = state.step + 1
     clip = None
     if cfg.grad_clip > 0:
-        clip = torch.clamp(cfg.grad_clip / (global_norm(grads) + 1e-9),
-                           max=1.0)
+        norm = lane_norms(grads) if lanes else global_norm(grads)
+        clip = torch.clamp(cfg.grad_clip / (norm + 1e-9), max=1.0)
     bc1 = 1.0 - cfg.b1 ** step
     bc2 = 1.0 - cfg.b2 ** step
     scales = (tree_map(lambda _: None, params) if lr_scale_tree is None

@@ -239,7 +239,8 @@ def paper_data(seed: int = 0):
         ds.augment
 
 
-def paper_session(device, strategy: str, data, augment, state=None):
+def paper_session(device, strategy: str, data, augment, state=None, *,
+                  engine: str = "reference", grad_mode: str = "eq1"):
     """A ``TrainSession`` of the parity run on ``device``."""
     from repro_torch.api.session import TrainSession
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
@@ -252,7 +253,8 @@ def paper_session(device, strategy: str, data, augment, state=None):
                              strategy=strategy, aggregate_every=2),
         OptimizerConfig(lr=PAPER_LR,
                         total_steps=PAPER_ROUNDS * PAPER_EPOCHS),
-        data, PAPER_BATCH, engine="reference", augment=augment,
+        data, PAPER_BATCH, engine=engine, grad_mode=grad_mode,
+        augment=augment,
         state=None if state is None else state.to(model.device))
 
 
@@ -298,3 +300,147 @@ def dropped_aggregation():
         yield
     finally:
         reference_engine.cross_layer_aggregate = real
+
+
+@contextmanager
+def dropped_lane():
+    """A control: the fused engine's stacked Eq. (1) leaves the first lane
+    of its shallowest cohort (client 0 under ``PAPER_SPLITS``) out of the
+    mean and as it was, while the block runs."""
+    from repro_torch.api import fused_engine
+    from repro_torch.tree import tree_map
+    real = fused_engine.stacked_cross_layer_aggregate
+
+    def fault(stacked, lanes):
+        li = min(stacked)
+        real({**stacked, li: tree_map(lambda x: x[1:], stacked[li])},
+             {**lanes, li: list(lanes[li])[1:]})
+        return stacked
+
+    fused_engine.stacked_cross_layer_aggregate = fault
+    try:
+        yield
+    finally:
+        fused_engine.stacked_cross_layer_aggregate = real
+
+
+# the fused engine's lanes on the card (chip_smoke.py phase fused, the card
+# tests): BackboneSplitModel on the bf16 smokes at full head width, two
+# lanes at each of glm4-9b's cuts 1 and 2 and three at rwkv6-3b's one cut
+# 2, LANE_BATCH sequences of LANE_SEQ tokens a client (T * G = 64 query
+# rows: the attention forward's tile route), LANE_ROUNDS rounds of fused
+# eq1 at TRAIN_LR, Eq. (1) every round.  The limits are those of the
+# backbones' bf16 train comparisons above (TOL_LOSS_BF16, TOL_GRAD_BF16),
+# read on losses averaged over 8 x 32 = 256 tokens; a round's loss here
+# averages each client's LANE_BATCH last positions, and 64 of them give
+# glm4-9b's four clients the same 256 (at 8 a client, 32 rows, an H100
+# read 1.6e-3 at round 0, before any update: the forward's bf16 rounding)
+LANE_SPLITS = {"glm4_9b": (1, 1, 2, 2), "rwkv6_3b": (2, 2, 2)}
+LANE_SEQ, LANE_BATCH, LANE_ROUNDS = 32, 64, 2
+
+
+def backbone_session(family: str, kernels: str, device, state=None, *,
+                     engine: str = "fused"):
+    """A ``TrainSession`` of ``BackboneSplitModel`` on ``family``'s bf16
+    smoke with ``kernels`` ("auto": the kernels; "ref": the plain
+    versions), rwkv6 decays and bonus made live (:func:`live_rwkv`)."""
+    from repro_torch import configs
+    from repro_torch.api.session import TrainSession
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticSeqClsDataset
+    cfg = configs.get(family).smoke_bf16().with_(kernels=kernels)
+    splits = LANE_SPLITS[family]
+    model = BackboneSplitModel(cfg, device=device)
+    live_rwkv(model.full_params)
+    ds = SyntheticSeqClsDataset(vocab_size=cfg.vocab_size, seq_len=LANE_SEQ,
+                                num_classes=8, train_size=len(splits)
+                                * LANE_BATCH * LANE_ROUNDS, test_size=64,
+                                seed=0)
+    return TrainSession(
+        model, SplitEEConfig(profile=HeteroProfile(splits),
+                             strategy="averaging"),
+        OptimizerConfig(lr=TRAIN_LR, total_steps=2 * LANE_ROUNDS),
+        ClientPartitioner(len(splits)).split(*ds.train), LANE_BATCH,
+        engine=engine, state=state)
+
+
+def cohort_first_grads(sess) -> List[Optional[torch.Tensor]]:
+    """The gradients of the first fused step of ``sess`` from its state:
+    every cohort's client then server leaves, in ``tree_leaves`` order
+    (``core.spmd.make_cohort_grad_step`` on each client's first batch)."""
+    from repro_torch.api.engines import DataCursor, cohort_layout
+    from repro_torch.core.spmd import make_cohort_grad_step
+    ctx, st, model = sess.ctx, sess.state, sess.model
+    cursor = DataCursor(ctx.client_data, ctx.batch_size, ctx.seed)
+    cursor.align(st.batches_drawn)
+    lis, lanes = cohort_layout(ctx.profile.split_layers)
+    out: List[Optional[torch.Tensor]] = []
+    for li in lis:
+        batches = [cursor.draw(i) for i in lanes[li]]
+        x, y = (torch.from_numpy(np.stack(b)).to(model.device)
+                for b in zip(*batches))
+        gc, gs = make_cohort_grad_step(model, li)(
+            model.stack_clients([st.clients[i] for i in lanes[li]]),
+            model.stack_clients([st.servers[i] for i in lanes[li]]),
+            x, y)[:2]
+        out += list(gc) + list(gs)
+    return out
+
+
+def lane_loop_gaps(site, inputs: Sequence[torch.Tensor], seed: int = 1
+                   ) -> Dict[str, float]:
+    """``site`` under ``torch.func.vmap`` over the lanes (dim 0 of every
+    input) against a per-lane loop of the same site, both differentiated
+    with one random cotangent per output: the largest gap of the outputs
+    and of the inputs' gradients, and the largest magnitude of each (the
+    loop's), all in fp32."""
+    from torch.func import vmap
+    xs = [t.clone().requires_grad_(True) for t in inputs]
+    outs = vmap(site)(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    cots = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+            for o in outs]
+    grads = torch.autograd.grad(outs, xs, cots)
+    r = dict(out=0.0, grad=0.0, out_scale=0.0, grad_scale=0.0)
+    for j in range(len(inputs[0])):
+        lane = [t.detach()[j].clone().requires_grad_(True) for t in inputs]
+        want = site(*lane)
+        want = want if isinstance(want, tuple) else (want,)
+        wgrads = torch.autograd.grad(want, lane, [c[j] for c in cots])
+        for kind, got_w in (("out", zip([o[j] for o in outs], want)),
+                            ("grad", zip([g[j] for g in grads], wgrads))):
+            for a, b in got_w:
+                a, b = a.detach().float(), b.detach().float()
+                r[kind] = max(r[kind], float((a - b).abs().max()))
+                r[f"{kind}_scale"] = max(r[f"{kind}_scale"],
+                                         float(b.abs().max()))
+    return r
+
+
+def lane_sites(device, seed: int = 0) -> Dict[str, tuple]:
+    """The two training sites of the cuda backend, each with lane-stacked
+    inputs at the backbone legs' shapes (bf16, head dim 64): attention
+    (2 lanes, (8, LANE_SEQ, 4, 64) queries, 2 KV heads, causal) and the
+    wkv (3 lanes, (8, LANE_SEQ, 2, 64), chunk 16, decays in [-2, 0), a
+    bonus u of each lane's own)."""
+    from repro_torch.kernels.dispatch import get_backend
+    be = get_backend("auto")
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    B, T = LANE_BATCH, LANE_SEQ
+    attn = [randn(2, B, T, 4, 64), randn(2, B, T, 2, 64),
+            randn(2, B, T, 2, 64)]
+    log_w = -2 * torch.rand(3, B, T, 2, 64, generator=gen, device=device)
+    wkv = [randn(3, B, T, 2, 64), randn(3, B, T, 2, 64),
+           randn(3, B, T, 2, 64), log_w, randn(3, 2, 64, dtype=torch.float32)]
+    return {"attention": (lambda q, k, v: be.attention(q, k, v, causal=True),
+                          attn),
+            "wkv": (lambda r, k, v, lw, u: be.wkv(r, k, v, lw, u, chunk=16),
+                    wkv)}

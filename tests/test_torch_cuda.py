@@ -911,3 +911,91 @@ def test_paper_session_on_the_card_matches_the_cpu(dev, strategy):
                                    atol=1e-5, rtol=0)
     # 4 clients x (512 + 500 rows) x 3 evaluations
     assert entropy_exit.launches - before == 4 * 2 * 3
+
+
+# ---------------------------------------------------------------------------
+# the fused engine's lanes (repro_torch/parity.py's setups and limits)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("site", ["attention", "wkv"])
+def test_lane_rules_match_per_lane_launches(dev, site):
+    """Each training site's vmap rule launches each kernel once for all
+    lanes, and equals a per-lane loop of plain launches: attention (lanes
+    folded into the batch) bit for bit, the wkv (lanes folded into the
+    heads, u per lane) within 1e-4 of each output's scale."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import lane_loop_gaps, lane_sites
+    fn, inputs = lane_sites(dev)[site]
+    wrappers = ((flash_attention, flash_attention_bwd_dkv,
+                 flash_attention_bwd_dq) if site == "attention"
+                else (rwkv_wkv, rwkv_wkv_bwd))
+    before = [w.launches for w in wrappers]
+    r = lane_loop_gaps(fn, inputs)
+    torch.cuda.synchronize()
+    lanes = len(inputs[0])
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [1 + lanes] * len(wrappers)
+    if site == "attention":
+        assert r["out"] == 0.0 and r["grad"] == 0.0, r
+    else:
+        assert max(r["out"] / max(1.0, r["out_scale"]),
+                   r["grad"] / max(1.0, r["grad_scale"])) <= 1e-4, r
+
+
+@pytest.mark.parametrize("family", ["glm4_9b", "rwkv6_3b"])
+def test_fused_lanes_launch_the_backward_kernels(dev, family):
+    """BackboneSplitModel's bf16 smoke on the fused engine: every cohort
+    step launches each layer's forward and backward kernels once for all
+    its lanes, and the losses stay within the family's bf16 limit of the
+    same run on the plain versions."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import (LANE_ROUNDS, TOL_LOSS_BF16,
+                                    backbone_session)
+    wrappers = ((flash_attention, flash_attention_bwd_dkv,
+                 flash_attention_bwd_dq) if family == "glm4_9b"
+                else (rwkv_wkv, rwkv_wkv_bwd))
+    sess = backbone_session(family, "auto", dev)
+    plain = backbone_session(family, "ref", dev, state=sess.state.clone())
+    assert sess.engine.name == "fused"
+    before = [w.launches for w in wrappers]
+    hist = sess.train(LANE_ROUNDS)
+    torch.cuda.synchronize()
+    cohorts = len(set(sess.ctx.profile.split_layers))
+    per_round = sess.model.num_layers * cohorts
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [LANE_ROUNDS * per_round] * len(wrappers)
+    want = plain.train(LANE_ROUNDS)
+    for a, b in zip(hist, want):
+        assert abs(a.client_loss - b.client_loss) <= TOL_LOSS_BF16[family]
+        assert abs(a.server_loss - b.server_loss) <= TOL_LOSS_BF16[family]
+
+
+@pytest.mark.parametrize("grad_mode", ["eq1", "sum"])
+def test_fused_paper_session_on_the_card_matches_the_cpu(dev, grad_mode):
+    """The ResNet smoke on the fused engine (two lanes at cut 3), the card
+    against the CPU from one round-0 state, at phase paper's limits; one
+    host read of the losses per chunk."""
+    from repro_torch.parity import (PAPER_EPOCHS, PAPER_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    paper_data, paper_drift, paper_session)
+    data, _, augment = paper_data()
+    cpu = paper_session("cpu", "averaging", data, augment, engine="fused",
+                        grad_mode=grad_mode)
+    start = cpu.state.clone()
+    card = paper_session(dev, "averaging", data, augment, state=start,
+                         engine="fused", grad_mode=grad_mode)
+    for a, b in zip(card.run(PAPER_ROUNDS, PAPER_EPOCHS),
+                    cpu.run(PAPER_ROUNDS, PAPER_EPOCHS)):
+        assert abs(a.client_loss - b.client_loss) <= TOL_PAPER_LOSS
+        assert abs(a.server_loss - b.server_loss) <= TOL_PAPER_LOSS
+    drift = paper_drift(card.state, cpu.state, start)
+    assert max(drift["clients"], drift["servers"]) <= TOL_PAPER_PARAMS
+    eng = card.engine
+    assert eng.last_host_syncs == eng.last_stage_stats["chunks"]

@@ -400,14 +400,20 @@ def test_round_zero_state_keeps_paper_init(resnet):
 def test_engine_resolution_and_its_errors(mlp):
     _, (tsc, toc) = _configs("averaging")
     sess = TrainSession(mlp["port"], tsc, toc, mlp["data"], BATCH)
-    assert sess.engine.name == "reference"
-    assert sess.engine_name.startswith("reference (spmd unavailable: ")
-    assert "item 9" in sess.engine_name and "item 4" in sess.engine_name
-    assert tapi.available_engines() == ("reference",)
-    for name, item in (("fused", "item 4"), ("spmd", "item 9")):
-        with pytest.raises(ValueError, match=item):
-            TrainSession(mlp["port"], tsc, toc, mlp["data"], BATCH,
-                         engine=name)
+    assert sess.engine.name == "fused"
+    assert sess.engine_name.startswith("fused (spmd unavailable: ")
+    assert "item 9" in sess.engine_name
+    assert tapi.available_engines() == ("fused", "reference")
+    # Sequential is ordered across clients: auto falls back to reference
+    seq = TrainSession(mlp["port"], SplitEEConfig(HeteroProfile(SPLITS),
+                                                  strategy="sequential"),
+                       toc, mlp["data"], BATCH)
+    assert seq.engine.name == "reference"
+    assert "fused unavailable: supports averaging/distributed only" in \
+        seq.engine_name
+    with pytest.raises(ValueError, match="item 9"):
+        TrainSession(mlp["port"], tsc, toc, mlp["data"], BATCH,
+                     engine="spmd")
     with pytest.raises(ValueError, match="unknown engine"):
         tapi.get_engine("nope")
     for kw, item in ((dict(mesh=object()), "item 9"),
