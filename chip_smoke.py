@@ -113,6 +113,40 @@ Phases:
            repro_torch/parity.py's bf16 limits), and each kernel site's
            vmap rule against a per-lane loop of plain launches (attention
            bit for bit, the wkv within 1e-4 of each output's scale);
+  lifecycle the training entry point's lifecycle, fp32 with TF32 off:
+           the churning population smoke (the ResNet smoke's four slots
+           drawn from 8 Dirichlet clients, participation 0.7, stragglers
+           0.2) on the card against the CPU, then resumed from a mid-run
+           checkpoint against the uninterrupted run, under two planted
+           faults it must reject (inactive lanes counted in the masked
+           Eq. (1); a restored cursor left at round 0), and readings over
+           4 rounds, round by round, of it and of the fixed cohort, card
+           vs CPU, with each slot's Adam steps; then, with every
+           launch count at 0, phase fused's full-width config (12 slots at
+           cuts 3/4/5, batch 64, lr 3e-3, fused eq1) drawn from a
+           Dirichlet population of 36 clients (alpha 0.5, participation
+           0.7, churn seed 3, stragglers 0.2, min shard 64): 8 rounds
+           with save_every=4 and keep_last=2, the run cut after its
+           round-4 save and resumed by restore_latest for 4 more against
+           the uninterrupted 8 (losses and drift at phase fused's limits;
+           these comparisons with cuDNN's deterministic algorithms), save
+           and restore ms and MB on disk, host syncs per chunk, kernels
+           per traced round and operations per round at different active
+           counts (the operations equal, name by name),
+           full participation against the fixed cohort for 3 rounds (at
+           the same limits; ms per round of both), evaluate_adaptive at
+           tau 0.5/1/2, peak memory; the bf16 backbone smokes under a
+           churning population over their lanes, kernels against the plain
+           versions from one start (rows 2-6 launched under masked lanes),
+           and one masked cohort step on each whose masked lane must not
+           move (under a planted fault advancing its Adam step, rejected);
+           ServeSession.restore of the glm4-9b population checkpoint
+           against a session on assemble_serve_params of the live state
+           (tokens and gates equal; the launch counts are read between
+           the two); last, under cuDNN's default algorithms, the fixed
+           cohort against itself, full participation against it and the
+           same under a planted fault (the first lane left out of the
+           masked Eq. (1)), 3 rounds each;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -158,7 +192,7 @@ import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
 PHASES = ("build", "kernels", "parity", "main", "train", "paper", "fused",
-          "timing")
+          "lifecycle", "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
@@ -2396,6 +2430,534 @@ def lane_rule_checks() -> None:
                   f"({worst:.2e})")
 
 
+# phase lifecycle: the full-width population (phase fused's config drawn
+# from POP_CLIENTS Dirichlet clients, the churn leg of
+# benchmarks/population_bench.py), its rounds and checkpoints
+POP_CLIENTS, POP_ROUNDS, POP_SAVE_EVERY, POP_KEEP = 36, 8, 4, 2
+POP_FIXED_ROUNDS, POP_TIMED, POP_TRACED = 3, 3, 3
+# the population smoke's card-vs-CPU readings round by round (drift_by_round)
+POP_DRIFT_ROUNDS = 4
+# full participation against the fixed cohort under cuDNN's default
+# algorithms (run to run they differ: the conv gradients' atomics), losses
+# and drift, near the geometric mean of two H100 readings over 3 rounds:
+# the fixed cohort against itself, 2.2e-5 and 6.0e-3, and a planted fault
+# (the first lane left out of the masked Eq. (1)), 8.3e-3 and 0.21
+TOL_DEFAULT_LOSS, TOL_DEFAULT_PARAMS = 5e-4, 4e-2
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms while the block runs."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def phase_lifecycle(state):
+    """The training entry point's lifecycle (see the module docstring):
+    population_parity (the smoke, card vs CPU, resume, two planted
+    faults), then with every launch count at 0 the full-width population
+    (population_main), the backbone smokes under populations and the
+    restored ServeSession, whose launches are read before the live
+    ServeSession it is held against serves; then the backbone legs on the
+    plain versions, the masked-step checks and the full-width comparison
+    under cuDNN's default algorithms (comparisons)."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.parity import LANE_SPLITS, backbone_session
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    population_parity()
+    counted = (entropy_exit, flash_attention, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq, rwkv_wkv, rwkv_wkv_bwd)
+    zero_counts(*counted)
+    default_algorithms = population_main(state)
+    legs = {}
+    for family in LANE_SPLITS:
+        sess = backbone_session(family, "auto", "cuda", population=True)
+        start = sess.state.clone()
+        legs[family] = (sess, start, backbone_leg_run(sess, family))
+    counts = serve_restored(legs["glm4_9b"][0], lambda: {
+        k: n for w in counted for k, n in launch_counts(w).items()})
+    print("lifecycle: launches on the lifecycle paths (full-width "
+          "population and its evaluations, backbone population legs, the "
+          "restored ServeSession): " + ", ".join(
+              f"{k} {n}" for k, n in counts.items() if n))
+    rows = ("flash_attention_tile", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq", "rwkv_wkv", "rwkv_wkv_bwd")
+    check(all(counts[k] > 0 for k in rows + ("entropy_exit",
+                                              "flash_attention")),
+          "lifecycle: rows 2-6 launched under masked lanes ("
+          + ", ".join(f"{k} {counts[k]}" for k in rows)
+          + f"), the gate ({counts['entropy_exit']}) and decode attention "
+          f"({counts['flash_attention']}) in evaluation and serving")
+    state["lifecycle_launches"] = counts
+    launches = state.setdefault("launches", {})
+    for k in KERNELS:
+        launches[k] = launches.get(k, 0) + counts.get(k, 0)
+    for family, (sess, start, hist) in legs.items():
+        population_leg_checks(family, sess, start, hist)
+    default_algorithms()
+
+
+def population_parity() -> None:
+    """The churning population smoke (repro_torch/parity.py): the card
+    against the CPU from one start, then a run resumed from a mid-run
+    checkpoint against the uninterrupted one on the card; each also under
+    a planted fault that it must reject."""
+    import tempfile
+    from repro_torch.api import TrainSession
+    from repro_torch.parity import (PAPER_EPOCHS, POP_SMOKE_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    inactive_lanes_counted, paper_drift,
+                                    population_session, population_smoke,
+                                    population_smoke_data, unaligned_cursor)
+    x, y = population_smoke_data()
+    n, half = POP_SMOKE_ROUNDS, POP_SMOKE_ROUNDS // 2
+
+    def compare(what, a, ha, b, hb, start):
+        dl = max(max(abs(p.client_loss - q.client_loss),
+                     abs(p.server_loss - q.server_loss))
+                 for p, q in zip(ha, hb))
+        d = paper_drift(a.state, b.state, start)
+        same = ([(m.active_clients, m.stragglers) for m in ha]
+                == [(m.active_clients, m.stragglers) for m in hb])
+        print(f"  reading population smoke {what}: max|dloss| {dl:.3e}; "
+              f"drift clients {d['clients']:.3e} servers {d['servers']:.3e};"
+              f" active per round {[m.active_clients for m in ha]} vs "
+              f"{[m.active_clients for m in hb]}")
+        return (dl <= TOL_PAPER_LOSS and same
+                and max(d["clients"], d["servers"]) <= TOL_PAPER_PARAMS)
+
+    cpu = population_session("cpu", x, y)
+    start = cpu.state.clone()
+    h_cpu = cpu.train(n, PAPER_EPOCHS)
+    plans = [cpu.ctx.population.schedule.plan(t, PAPER_EPOCHS)
+             for t in range(n)]
+    check(all(0 < p.num_active < len(p.slot_mask) for p in plans),
+          f"population smoke: every round aggregates with a lane masked "
+          f"(active per round {[p.num_active for p in plans]}), so the "
+          f"faults below can show")
+    card = population_session("cuda", x, y, state=start)
+    h_card = card.train(n, PAPER_EPOCHS)
+    check(compare("card vs CPU", card, h_card, cpu, h_cpu, start),
+          f"population smoke, card vs CPU: losses within "
+          f"{TOL_PAPER_LOSS:g}, drift within {TOL_PAPER_PARAMS:g}, the "
+          f"same active and straggler counts")
+    with inactive_lanes_counted():
+        bad = population_session("cuda", x, y, state=start)
+        h_bad = bad.train(n, PAPER_EPOCHS)
+    check(not compare("planted fault (inactive lanes counted in the "
+                      "masked Eq. (1)) vs CPU", bad, h_bad, cpu, h_cpu,
+                      start),
+          "population smoke: the planted fault (inactive lanes counted in "
+          "the masked Eq. (1)) rejected")
+    drift_by_round()
+    with tempfile.TemporaryDirectory() as tmp:
+        first = population_session("cuda", x, y, state=start)
+        first.train(half, PAPER_EPOCHS)
+        first.save(os.path.join(tmp, "ckpt"))
+        for planted in (False, True):
+            with (unaligned_cursor() if planted
+                  else contextlib.nullcontext()):
+                back = TrainSession.restore(
+                    os.path.join(tmp, "ckpt"), card.model, None,
+                    population=population_smoke(x, y))
+                back.train(n - half, PAPER_EPOCHS)
+            ok = compare(("planted fault (the restored cursor left at "
+                          "round 0), " if planted else "")
+                         + f"{half} + {n - half} resumed vs {n} on the card",
+                         back, back.history, card, h_card, start)
+            if planted:
+                check(not ok, "population smoke: the planted fault (a "
+                      "restored cursor left at round 0) rejected")
+            else:
+                check(ok, f"population smoke: {half} rounds, save, "
+                      f"restore, {n - half} rounds equal {n} uninterrupted "
+                      f"on the card at the same limits")
+
+
+def drift_by_round() -> None:
+    """Readings, not checks: why the fp32 smoke's card and CPU runs part
+    under churn.  Over POP_DRIFT_ROUNDS rounds (images and schedule sized
+    for them), round by round, the churning population and the fixed
+    cohort on the same images, each card against CPU from one start: the
+    losses' gap, the drift, each slot's Adam steps so far and each slot's
+    ||card - CPU|| (clients, servers)."""
+    from repro_torch.parity import (PAPER_EPOCHS, paper_drift,
+                                    population_session,
+                                    population_smoke_data, slot_gaps)
+    x, y = population_smoke_data(rounds=POP_DRIFT_ROUNDS)
+    for pop in ("churn", None):
+        what = "population" if pop else "fixed cohort"
+        cpu = population_session("cpu", x, y, rounds=POP_DRIFT_ROUNDS,
+                                 population=pop)
+        start = cpu.state.clone()
+        card = population_session("cuda", x, y, state=start,
+                                  rounds=POP_DRIFT_ROUNDS, population=pop)
+        for r in range(POP_DRIFT_ROUNDS):
+            (a,), (b,) = (card.train(1, PAPER_EPOCHS),
+                          cpu.train(1, PAPER_EPOCHS))
+            d = paper_drift(card.state, cpu.state, start)
+            g = slot_gaps(card.state, cpu.state)
+            dl = max(abs(a.client_loss - b.client_loss),
+                     abs(a.server_loss - b.server_loss))
+            print(f"  reading {what} smoke round {r}, card vs CPU: active "
+                  f"{a.active_clients}, Adam steps "
+                  f"{[o.step for o in cpu.state.client_opts]}, max|dloss| "
+                  f"{dl:.3e}, drift clients {d['clients']:.3e} servers "
+                  f"{d['servers']:.3e}; ||card - CPU|| per slot clients "
+                  f"{[f'{v:.2e}' for v in g['clients']]} servers "
+                  f"{[f'{v:.2e}' for v in g['servers']]}")
+
+
+def population_main(state):
+    """Phase fused's full-width config drawn from a Dirichlet population of
+    POP_CLIENTS clients with churn (the module docstring lists the
+    settings): POP_ROUNDS rounds saved every POP_SAVE_EVERY, the run cut
+    after the first save and resumed by restore_latest against the
+    uninterrupted run, checkpoint sizes and times, host syncs per chunk,
+    traced rounds at different active counts, full participation against
+    the fixed cohort, evaluate_adaptive, peak memory.  Returns the
+    comparison under cuDNN's default algorithms, for the caller to run
+    once the launch counts are read."""
+    import shutil
+    import tempfile
+    from repro_torch.api import TrainSession
+    from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    from repro_torch.parity import (POP_CHURN, TOL_PAPER_LOSS,
+                                    TOL_PAPER_PARAMS, masked_lane_left_out,
+                                    paper_drift)
+    from repro_torch.population import ClientPopulation
+    cfg = resnet18_cifar.config("cifar10")
+    splits = resnet18_cifar.HETERO_SPLITS
+    ds = SyntheticImageDataset(num_classes=10, image_size=32,
+                               train_size=FULL_TRAIN, test_size=FULL_TEST,
+                               seed=0)
+    x_test, y_test = ds.test
+    card = card_line()
+    total = POP_ROUNDS + POP_FIXED_ROUNDS + POP_TIMED + 2 * POP_TRACED + 4
+
+    def population(**kw):
+        return ClientPopulation.dirichlet(
+            *ds.train, POP_CLIENTS, splits, min_shard=FULL_BATCH,
+            **{**POP_CHURN, **kw})
+
+    def session(pop=None, data=None, state=None):
+        torch.cuda.synchronize()
+        return TrainSession.from_config(
+            ResNetSplitModel(cfg, device="cuda"),
+            SplitEEConfig(profile=HeteroProfile(splits)),
+            OptimizerConfig(lr=FULL_LR, total_steps=total), data,
+            FULL_BATCH, engine="fused", population=pop)
+
+    def timed(run, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = run()
+        torch.cuda.synchronize()
+        return hist, (time.perf_counter() - t) / n * 1e3
+
+    def drift(what, a, ha, b, hb, start, tol=(TOL_PAPER_LOSS,
+                                              TOL_PAPER_PARAMS),
+              reject=False):
+        dl = max(max(abs(p.client_loss - q.client_loss),
+                     abs(p.server_loss - q.server_loss))
+                 for p, q in zip(ha, hb))
+        d = paper_drift(a.state, b.state, start)
+        print(f"  reading {what}: max|dloss| {dl:.3e}; drift clients "
+              f"{d['clients']:.3e} servers {d['servers']:.3e}; BN max|d| "
+              f"clients {d['clients_bn']:.3e} servers {d['servers_bn']:.3e}")
+        if tol is None:
+            return
+        within = (dl <= tol[0]
+                  and max(d["clients"], d["servers"]) <= tol[1])
+        check(within != reject,
+              f"{what}: {'rejected, ' if reject else ''}losses within "
+              f"{tol[0]:g} ({dl:.3e}), drift clients {d['clients']:.3e}, "
+              f"servers {d['servers']:.3e} <= {tol[1]:g}")
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="lifecycle-")
+    try:
+        pop = population()
+        sess = session(pop)
+        start = sess.state.clone()
+        print(f"lifecycle: full-width ResNet-18, {len(splits)} slots "
+              f"{splits}, population of {POP_CLIENTS} (Dirichlet alpha "
+              f"{POP_CHURN['alpha']}, participation "
+              f"{POP_CHURN['participation_rate']}, churn seed "
+              f"{POP_CHURN['churn_seed']}, stragglers "
+              f"{POP_CHURN['straggler_rate']}, min shard {FULL_BATCH}), "
+              f"shard sizes {min(pop.shard_sizes())}-"
+              f"{max(pop.shard_sizes())}; engine {sess.engine_name}")
+        run_dir = os.path.join(tmp, "run")
+        # the comparisons with cuDNN's deterministic algorithms: with the
+        # default ones two runs of one round on one card differ by a few
+        # ulps (the conv gradients' atomics), which 3-4 rounds amplify
+        with cudnn_deterministic():
+            hist, ms_saving = timed(lambda: sess.train(
+                POP_ROUNDS, save_every=POP_SAVE_EVERY, save_dir=run_dir,
+                keep_last=POP_KEEP), POP_ROUNDS)
+            kept = sorted(f for f in os.listdir(run_dir)
+                          if f.endswith(".npz"))
+            check(kept == [f"ckpt-{r:08d}.npz" for r in
+                           range(POP_ROUNDS - (POP_KEEP - 1) * POP_SAVE_EVERY,
+                                 POP_ROUNDS + 1, POP_SAVE_EVERY)],
+                  f"lifecycle: {POP_ROUNDS} rounds saved every "
+                  f"{POP_SAVE_EVERY}, the newest {POP_KEEP} kept ({kept})")
+            active = [m.active_clients for m in hist]
+            print(f"lifecycle active_per_round {active}, stragglers per "
+                  f"round {[m.stragglers for m in hist]} [{card}]")
+            # the run is cut after its round-POP_SAVE_EVERY save
+            for ext in (".npz", ".json"):
+                os.remove(os.path.join(run_dir,
+                                       f"ckpt-{POP_ROUNDS:08d}{ext}"))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            back = TrainSession.restore_latest(run_dir, ResNetSplitModel(
+                cfg, device="cuda"), None, population=population())
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t) * 1e3
+            check(back.round == POP_SAVE_EVERY
+                  and back.engine.name == "fused",
+                  f"lifecycle: restore_latest resumed at round {back.round}")
+            rest = POP_ROUNDS - POP_SAVE_EVERY
+            back.train(rest)
+            drift(f"full-width population, {POP_SAVE_EVERY} + {rest} "
+                  f"resumed vs {POP_ROUNDS} uninterrupted", back,
+                  back.history, sess, hist, start)
+            del sess
+            path = os.path.join(tmp, "one", "ckpt")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            back.save(path)
+            save_ms = (time.perf_counter() - t) * 1e3
+            mb = sum(os.path.getsize(path + ext)
+                     for ext in (".npz", ".json")) / 1e6
+            print(f"lifecycle checkpoint: save {save_ms:.1f} ms, restore "
+                  f"(restore_latest, state to the card) {restore_ms:.1f} "
+                  f"ms, {mb:.1f} MB on disk (npz + json) [{card}]")
+            # full participation (the 12 shards as a slot-shaped
+            # population) against the fixed cohort on them, one start
+            shards = ClientPartitioner(len(splits)).split(*ds.train)
+            fixed = session(data=shards)
+            start = fixed.state.clone()
+            full = session(ClientPopulation.from_shards(shards, splits))
+            full.state = start.clone()
+            h_fix = fixed.train(POP_FIXED_ROUNDS)
+            h_full = full.train(POP_FIXED_ROUNDS)
+            check(all(m.active_clients == len(splits) for m in h_full),
+                  "lifecycle: full participation, every slot active")
+            drift(f"full participation vs the fixed cohort, "
+                  f"{POP_FIXED_ROUNDS} rounds", full, h_full, fixed, h_fix,
+                  start)
+        # ms per round with cuDNN's default algorithms, the three sessions
+        # in turn
+        _, ms_pop = timed(lambda: back.train(POP_TIMED), POP_TIMED)
+        _, ms_full = timed(lambda: full.train(POP_TIMED), POP_TIMED)
+        _, ms_fix = timed(lambda: fixed.train(POP_TIMED), POP_TIMED)
+        del fixed, full
+        syncs = count_syncs(lambda: back.train(4, chunk_rounds=2))
+        chunks = back.engine.last_stage_stats["chunks"]
+        print(f"lifecycle population: {syncs} synchronizing calls over "
+              f"{chunks} chunks ({syncs / chunks:.2f} per chunk) [{card}]")
+        check(syncs == chunks, f"lifecycle population: one host sync per "
+              f"chunk ({syncs} over {chunks})")
+        # each round once under torch.profiler (kernels, busy, idle), then
+        # once with its operations counted by name as they are dispatched:
+        # the check reads the operations (an H100 once traced 56 cat kernels
+        # fewer in one of three rounds, PERF.md section 6)
+        by_active: dict = {}
+        ops = []
+        for _ in range(POP_TRACED):
+            t0 = back.round
+            tr = traced(lambda: back.train(1), 1,
+                        f"full-width population round {t0}", top=0)
+            kernels_round = tr["kernels"]
+            a = back.history[-1].active_clients
+            counted = round_ops(lambda: back.train(1))
+            a2 = back.history[-1].active_clients
+            by_active.setdefault(a, []).append(("kernels", kernels_round))
+            by_active.setdefault(a2, []).append(("ops",
+                                                 sum(counted.values())))
+            ops.append(counted)
+        print(f"lifecycle kernels (traced) and operations (dispatched) per "
+              f"round by active count "
+              f"{ {a: k for a, k in sorted(by_active.items())} } [{card}]")
+        diff = [dict((ops[0] - c) + (c - ops[0])) for c in ops[1:]]
+        seen = {a for a, ks in by_active.items()
+                if any(kind == "ops" for kind, _ in ks)}
+        check(len(seen) > 1 and not any(diff),
+              f"lifecycle: the same operations, name by name, in rounds of "
+              f"different active counts ({sorted(seen)}; differing: {diff})")
+        for tau in PAPER_TAUS:
+            ad = back.evaluate_adaptive(x_test, y_test, tau)
+            check(all(0.0 <= v <= 1.0 for v in ad["acc"] + ad["client_ratio"])
+                  and all(math.isfinite(v) for v in ad["mean_entropy"]),
+                  f"lifecycle population tau={tau}: mean acc "
+                  f"{np.mean(ad['acc']):.4f}, mean client ratio "
+                  f"{np.mean(ad['client_ratio']):.4f}")
+        del back
+        peak = torch.cuda.max_memory_allocated()
+        print(f"lifecycle ms per round: churning population {ms_pop:.1f}, "
+              f"full-participation population {ms_full:.1f}, fixed cohort "
+              f"{ms_fix:.1f} ({POP_TIMED} rounds each, in turn; "
+              f"{ms_saving:.1f} a round over the first {POP_ROUNDS} with "
+              f"their saves and deterministic convs); peak "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+        out.update(ms_pop=ms_pop, ms_saving=ms_saving, ms_full=ms_full,
+                   ms_fixed=ms_fix, save_ms=save_ms, restore_ms=restore_ms,
+                   mb=mb, syncs=syncs, chunks=chunks, active=active,
+                   kernels_by_active=by_active, peak_gib=peak / 2**30)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["lifecycle"] = out
+    torch.cuda.empty_cache()
+
+    def default_algorithms() -> None:
+        """Full participation against the fixed cohort again, under
+        cuDNN's default algorithms (those of the timed rounds): the fixed
+        cohort against itself, the witness of their run-to-run spread,
+        full participation against it at TOL_DEFAULT_*, and the same under
+        a planted fault it must reject, each from the fixed cohort's
+        start."""
+        def default_run(name):
+            pop = (ClientPopulation.from_shards(shards, splits)
+                   if name in ("full", "fault") else None)
+            run = session(pop, data=None if pop else shards)
+            run.state = start.clone()
+            with (masked_lane_left_out() if name == "fault"
+                  else contextlib.nullcontext()):
+                return run, run.train(POP_FIXED_ROUNDS)
+
+        base = default_run("fixed")
+        tol = (TOL_DEFAULT_LOSS, TOL_DEFAULT_PARAMS)
+        for name, what, limits, reject in (
+                ("again", "the fixed cohort against itself", None, False),
+                ("full", "full participation vs the fixed cohort", tol,
+                 False),
+                ("fault", "planted fault (the first lane left out of the "
+                 "masked Eq. (1)) vs the fixed cohort", tol, True)):
+            drift(f"default algorithms, {what}, {POP_FIXED_ROUNDS} rounds",
+                  *default_run(name), *base, start, tol=limits,
+                  reject=reject)
+        del base
+
+    return default_algorithms
+
+
+def round_ops(run):
+    """A Counter, by name, of the operations ``run()`` dispatches on this
+    thread (below autograd and vmap, each one launch or a few)."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counted: collections.Counter = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counted[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        run()
+    torch.cuda.synchronize()
+    return counted
+
+
+def serve_restored(sess, read_counts):
+    """``ServeSession.restore`` of ``sess``'s checkpoint (the glm4-9b bf16
+    smoke trained under a population) against a ServeSession on
+    ``assemble_serve_params`` of the live state: 4 requests, tokens and
+    gate decisions equal.  Returns ``read_counts()`` as read after the
+    restored session served and before the live one (a comparison) did."""
+    import tempfile
+    from repro_torch.api import ServeSession
+    from repro_torch.api.serve_session import assemble_serve_params
+    model = sess.model
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.cfg.vocab_size, int(rng.integers(8, 40)))
+               for _ in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        sess.save(os.path.join(tmp, "ckpt"))
+        restored = ServeSession.restore(os.path.join(tmp, "ckpt"), model,
+                                        slots=2, max_len=64)
+    live = ServeSession(model.cfg, assemble_serve_params(
+        model, sess.state, restored.boundary), tau=restored.tau,
+        boundary=restored.boundary, slots=2, max_len=64,
+        device=model.device)
+    for s in (restored, live):
+        for p in prompts:
+            s.submit(p, decode_tokens=6)
+    got = {r.rid: r for r in restored.run()}
+    counts = read_counts()
+    want = {r.rid: r for r in live.run()}
+    same = all(got[i].tokens == want[i].tokens
+               and got[i].exited == want[i].exited for i in want)
+    print(f"  reading restored ServeSession: tokens "
+          f"{[got[i].tokens for i in sorted(got)]}, exits "
+          f"{sum(sum(r.exited) for r in got.values())} of "
+          f"{sum(len(r.exited) for r in got.values())}")
+    check(same and len(got) == len(prompts),
+          f"ServeSession.restore of the {model.name} population checkpoint "
+          f"serves the live state's tokens and gates ({len(prompts)} "
+          f"requests, tau {restored.tau})")
+    return counts
+
+
+def population_leg_checks(family: str, sess, start, hist) -> None:
+    """The backbone population leg on the plain versions from the same
+    start (losses within TOL_LOSS_BF16, the same active counts); then one
+    masked cohort step with the kernels whose masked lane must not move,
+    also under a planted fault (its Adam step advances) it must reject."""
+    from repro_torch.parity import (LANE_ROUNDS, TOL_LOSS_BF16,
+                                    advancing_masked_step, backbone_session,
+                                    masked_lane_gaps)
+    plain = backbone_session(family, "ref", "cuda", state=start.clone(),
+                             population=True)
+    plain_hist = plain.train(LANE_ROUNDS)
+    dl = max(max(abs(a.client_loss - b.client_loss),
+                 abs(a.server_loss - b.server_loss))
+             for a, b in zip(hist, plain_hist))
+    active = [m.active_clients for m in hist]
+    print(f"  reading {family} bf16 smoke population leg, kernels vs plain: "
+          f"max|dloss| {dl:.3e} over {LANE_ROUNDS} rounds, active per round "
+          f"{active}")
+    check(dl <= TOL_LOSS_BF16[family]
+          and active == [m.active_clients for m in plain_hist],
+          f"{family} bf16 smoke under a population, kernels vs plain: "
+          f"losses within {TOL_LOSS_BF16[family]:g} ({dl:.2e})")
+    k = sum(1 for s in sess.ctx.profile.split_layers
+            if s == min(sess.ctx.profile.split_layers))
+    mask = [1.0] * (k - 1) + [0.0]
+    gaps = masked_lane_gaps(sess, mask)
+    print(f"  reading {family} masked cohort step, mask {mask}: masked lane "
+          f"max|d| {gaps['masked']:.3e}, its Adam steps {gaps['masked_steps']}"
+          f", active lanes moved {gaps['active']:.3e}")
+    check(gaps["masked"] == 0.0 and gaps["masked_steps"] == 0.0
+          and gaps["active"] > 0.0,
+          f"{family} masked cohort step with the kernels: the masked lane's "
+          f"parameters, moments, statistics and Adam steps unchanged, the "
+          f"active lanes moved")
+    with advancing_masked_step():
+        bad = masked_lane_gaps(sess, mask)
+    check(bad["masked_steps"] != 0.0, f"{family}: the planted fault (a "
+          f"masked lane's Adam step advances) rejected "
+          f"(steps moved by {bad['masked_steps']})")
+
+
 def phase_timing(state):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -2706,6 +3268,9 @@ def kernels_line(state) -> dict:
         if "fused_launches" in state:   # phase fused's share of them
             extra["launches_fused"] = state["fused_launches"].get(r["name"],
                                                                   0)
+        if "lifecycle_launches" in state:   # phase lifecycle's share
+            extra["launches_lifecycle"] = state["lifecycle_launches"].get(
+                r["name"], 0)
         out.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], shape=r["shape"],
@@ -2805,6 +3370,15 @@ def main() -> int:
                   f"{f['kernels_round']:.0f} kernels per round, peak "
                   f"{f['peak_gib']:.2f} GiB, {f['syncs']} host syncs over "
                   f"{f['chunks']} chunks")
+        if "lifecycle" in state:
+            lc = state["lifecycle"]
+            print(f"lifecycle full-width ResNet-18, population of "
+                  f"{POP_CLIENTS} over 12 slots: {lc['ms_pop']:.1f} ms per "
+                  f"churning round, {lc['ms_full']:.1f} full participation, "
+                  f"{lc['ms_fixed']:.1f} fixed cohort; checkpoint "
+                  f"{lc['mb']:.1f} MB, save {lc['save_ms']:.1f} ms, restore "
+                  f"{lc['restore_ms']:.1f} ms; {lc['syncs']} host syncs over "
+                  f"{lc['chunks']} chunks; peak {lc['peak_gib']:.2f} GiB")
         for key in ("train", "train_rwkv"):
             if key in state:
                 tr = state[key]

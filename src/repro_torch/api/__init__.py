@@ -9,9 +9,12 @@
     serve.submit(prompt_tokens, decode_tokens=32); results = serve.run()
 
 ``TrainSession`` runs the paper's loop on the reference engine or the fused
-cohort engine (the spmd engine waits for ROADMAP.md Queue 1 item 9,
-checkpoints for item 6); the fused train steps of the backbones and the
-cohort step are in ``repro_torch.core.spmd``.
+cohort engine (the spmd engine waits for ROADMAP.md Queue 1 item 9), over
+fixed client shards or a client population (``repro_torch.population``),
+and saves and restores checkpoints in the JAX package's format;
+``ServeSession.restore`` serves a trained checkpoint.  The fused train
+steps of the backbones and the cohort steps are in
+``repro_torch.core.spmd``.
 """
 from repro_torch.api.engines import (AUTO_ORDER, Engine, SessionContext,  # noqa: F401
                                      available_engines, get_engine,
@@ -21,7 +24,8 @@ from repro_torch.api.fused_engine import FusedEngine  # noqa: F401
 from repro_torch.api.protocol import SplitModel, assert_split_model  # noqa: F401
 from repro_torch.api.reference_engine import ReferenceEngine  # noqa: F401
 from repro_torch.api.serve_session import (ServeResult, ServeSession,  # noqa: F401
-                                           ServeStats, resolve_serve_boundary,
+                                           ServeStats, assemble_serve_params,
+                                           resolve_serve_boundary,
                                            sequential_reference,
                                            sequential_sticky_reference,
                                            serve_step_config)

@@ -21,6 +21,7 @@ from repro_torch.config import OptimizerConfig, SplitEEConfig
 from repro_torch.core.spmd import GRAD_MODES
 from repro_torch.data.pipeline import batch_iterator, effective_batch_size
 from repro_torch.optim import make_schedule
+from repro_torch.population import PopulationCursor
 
 #: engines of the JAX package that the port does not have yet, and why
 NOT_PORTED = {
@@ -72,7 +73,8 @@ class DataCursor:
 class SessionContext:
     """What a session and its engine share and never change: the model
     adapter, the configs, the gradient mode, the schedule and the data
-    cursor."""
+    cursor, or under a client population (``repro_torch.population``) the
+    population and its round-addressed cursor."""
 
     def __init__(self, model, splitee_cfg: SplitEEConfig,
                  opt_cfg: OptimizerConfig,
@@ -86,12 +88,6 @@ class SessionContext:
                 "mesh= and recipe= select the spmd engine's device mesh and "
                 "sharding, which wait for ROADMAP.md Queue 1 item 9 (the "
                 "multi-GPU engine)")
-        if population is not None:
-            raise ValueError(
-                "population= (client populations and the masked Eq. (1)) "
-                "waits for ROADMAP.md Queue 1 item 8")
-        if client_data is None:
-            raise ValueError("client_data is required")
         if grad_mode not in GRAD_MODES:
             raise ValueError(f"unknown grad_mode {grad_mode!r}; expected "
                              f"one of {GRAD_MODES}")
@@ -102,9 +98,27 @@ class SessionContext:
         self.batch_size = batch_size
         self.augment = augment
         self.seed = seed
+        self.population = population
         self.profile = splitee_cfg.profile
         self.strategy = splitee_cfg.strategy
         self.N = self.profile.num_groups
+        if population is not None:
+            # the population drives the data: its slot layout is the
+            # profile's client groups, and the per-slot "shards" that size
+            # the staging buffers are placeholder views
+            if client_data is not None:
+                raise ValueError(
+                    "pass either client_data or population, not both: a "
+                    "population session draws every staged batch from the "
+                    "population's per-client shards")
+            if augment is not None:
+                raise ValueError(
+                    "augment is not supported with a client population "
+                    "yet; bake augmentation into the population shards")
+            population.validate_for(self.profile.split_layers, batch_size)
+            client_data = population.slot_stubs()
+        elif client_data is None:
+            raise ValueError("client_data is required without a population")
         self.client_data = client_data
         if len(client_data) != self.N:
             raise ValueError(f"profile has {self.N} client groups but "
@@ -112,6 +126,8 @@ class SessionContext:
         self.schedule = make_schedule(opt_cfg)
         self.server_lr_div = splitee_cfg.resolved_server_lr_divisor()
         self.data = DataCursor(client_data, batch_size, seed, augment)
+        self.pop_cursor = (PopulationCursor(population, batch_size, seed)
+                           if population is not None else None)
 
 
 class Engine:

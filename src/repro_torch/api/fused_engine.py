@@ -18,11 +18,19 @@ executor that steps every cohort's clients at once.
   * **Eq. (1) on the stacked servers** (``stacked_cross_layer_aggregate``,
     in place) on the rounds where ``(t + 1) % aggregate_every == 0``; ``t``
     is a host integer, so the boundary costs no sync.
+  * **Client populations** (``repro_torch.population``): each round the
+    producer draws the participation plan, fills each active slot's lane
+    from its assigned client's seeded stream and leaves the other lanes
+    zero, and stages a ``[rounds, k]`` 0/1 mask per cohort beside the
+    batches.  The masked cohort step (``core.spmd.make_masked_cohort_step``)
+    and the masked Eq. (1) read the mask on the device, so a round launches
+    the same kernels whatever its active set, and the host reads no mask:
+    the per-round active and straggler counts and each client's Adam step
+    come from the staged plans.
 
 In ``eq1`` grad mode the engine composes the reference engine's step math
 and matches it to 1e-5 (``tests/test_torch_fused.py``).  The Sequential
-strategy is ordered across clients and stays with the reference engine;
-population masks (ROADMAP.md Queue 1 item 8) are not ported.
+strategy is ordered across clients and stays with the reference engine.
 """
 from __future__ import annotations
 
@@ -38,29 +46,36 @@ from repro_torch.api.engines import (Engine, SessionContext, cohort_layout,
                                      ragged_cohort_reason, register_engine)
 from repro_torch.api.state import TrainState
 from repro_torch.convert import torch_dtype
-from repro_torch.core.aggregation import stacked_cross_layer_aggregate
+from repro_torch.core.aggregation import (masked_stacked_cross_layer_aggregate,
+                                          stacked_cross_layer_aggregate)
 from repro_torch.core.splitee import stack_pytrees
-from repro_torch.core.spmd import make_cohort_train_step
+from repro_torch.core.spmd import (make_cohort_train_step,
+                                   make_masked_cohort_step)
 from repro_torch.core.strategies import RoundMetrics
 from repro_torch.data.pipeline import effective_batch_size, prestage_batches
 from repro_torch.data.staging import StagedChunkPipeline
 from repro_torch.optim import AdamState
+from repro_torch.tree import tree_leaves
 
 
 def _stack_opts(opts) -> AdamState:
-    steps = {s.step for s in opts}
-    if len(steps) != 1:
-        raise ValueError(f"a cohort's Adam states stack only at one step; "
-                         f"got steps {sorted(steps)}")
-    return AdamState(step=steps.pop(), m=stack_pytrees([s.m for s in opts]),
+    """A cohort's Adam states stacked along the lane axis, the host steps
+    becoming an int32 ``[k]`` tensor beside the moments (a pinned host
+    copy on the card, so the upload is no host sync)."""
+    m = stack_pytrees([s.m for s in opts])
+    dev = next(iter(tree_leaves(m))).device
+    steps = torch.tensor([s.step for s in opts], dtype=torch.int32,
+                         pin_memory=dev.type == "cuda")
+    return AdamState(step=steps.to(dev, non_blocking=True), m=m,
                      v=stack_pytrees([s.v for s in opts]))
 
 
-def _lane(tree, j: int):
-    """Lane ``j`` of a stacked tree, as tensors of its own."""
+def _lane(tree, j: int, step: int = 0):
+    """Lane ``j`` of a stacked tree, as tensors of its own; an ``AdamState``
+    takes the host ``step`` (the engine counts steps on the host, so
+    unstacking reads nothing back from the card)."""
     if isinstance(tree, AdamState):
-        return AdamState(step=tree.step, m=_lane(tree.m, j),
-                         v=_lane(tree.v, j))
+        return AdamState(step=step, m=_lane(tree.m, j), v=_lane(tree.v, j))
     if isinstance(tree, dict):
         return {k: _lane(v, j) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -105,9 +120,10 @@ class FusedEngine(Engine):
         self._lane_pos: Dict[int, Tuple[int, int]] = {
             i: (li, j) for li in self._cohort_lis
             for j, i in enumerate(self._lanes[li])}
+        make = (make_masked_cohort_step if ctx.population is not None
+                else make_cohort_train_step)
         self._steps: Dict[int, Callable] = {
-            li: make_cohort_train_step(ctx.model, ctx.opt_cfg, li,
-                                       ctx.grad_mode)
+            li: make(ctx.model, ctx.opt_cfg, li, ctx.grad_mode)
             for li in self._cohort_lis}
         #: staging accounting of the latest :meth:`run`
         #: (``data.staging.StageStats.as_dict``)
@@ -115,6 +131,9 @@ class FusedEngine(Engine):
         #: host reads of device results in the latest :meth:`run` (one per
         #: chunk)
         self.last_host_syncs = 0
+        #: per-round participation accounting of the latest :meth:`run` of
+        #: a population session ({} for fixed cohorts)
+        self.last_participation_stats: Dict = {}
         self._pinned: Dict[tuple, collections.deque] = {}
         self._copy_stream = None
 
@@ -188,7 +207,45 @@ class FusedEngine(Engine):
                              local_epochs, out=(bx[:, :, j], by[:, :, j]))
         out, event = self._put(entries)
         return ({li: out[li, "x"] for li in self._cohort_lis},
-                {li: out[li, "y"] for li in self._cohort_lis}, event)
+                {li: out[li, "y"] for li in self._cohort_lis}, None, event,
+                None)
+
+    def _stage_population_chunk(self, rounds: int, local_epochs: int):
+        """Population staging: per round, the participation plan from the
+        population cursor, each active slot's lane filled from its
+        assigned client's seeded stream, the other lanes zero; beside the
+        batches a ``[rounds, k]`` 0/1 mask per cohort, copied with them.
+        Returns ``(xs, ys, ms, event, plans)``, ``plans`` the host record
+        of each round: ``(active, stragglers, slot mask)``."""
+        ctx = self.ctx
+        entries: Dict[tuple, list] = {}
+        for li in self._cohort_lis:
+            x0, y0 = ctx.client_data[self._lanes[li][0]]
+            k, B = self._counts[li], ctx.batch_size
+            for name, a in (("x", x0), ("y", y0)):
+                entries[li, name] = self._host_buffer(
+                    (li, name), (rounds, local_epochs, k, B, *a.shape[1:]),
+                    torch_dtype(a.dtype))
+            entries[li, "m"] = self._host_buffer((li, "m"), (rounds, k),
+                                                 torch.float32)
+        for e in entries.values():
+            e[0].zero_()                # pinned buffers are reused
+        host = {key: e[0].numpy() for key, e in entries.items()}
+        plans = []
+        for r in range(rounds):
+            plan, slot_batches = ctx.pop_cursor.next_round(local_epochs)
+            plans.append((plan.num_active, plan.num_stragglers,
+                          plan.slot_mask))
+            for e, drawn in slot_batches.items():
+                li, j = self._lane_pos[e]
+                host[li, "m"][r, j] = 1.0
+                for ei, (x, y) in enumerate(drawn):
+                    host[li, "x"][r, ei, j] = x
+                    host[li, "y"][r, ei, j] = y
+        out, event = self._put(entries)
+        return ({li: out[li, "x"] for li in self._cohort_lis},
+                {li: out[li, "y"] for li in self._cohort_lis},
+                {li: out[li, "m"] for li in self._cohort_lis}, event, plans)
 
     def _round_stage_bytes(self, local_epochs: int) -> int:
         """Host bytes one round of staged batches occupies (every client's
@@ -278,23 +335,30 @@ class FusedEngine(Engine):
                 _stack_opts([state.server_opts[i] for i in lanes]))
         return carry
 
-    def _unstack_carry(self, carry, state: TrainState) -> TrainState:
+    def _unstack_carry(self, carry, state: TrainState,
+                       steps: List[Tuple[int, int]]) -> TrainState:
+        """The carry as per-client tensors of their own, client ``i``'s Adam
+        states at the host steps ``steps[i]`` (client, server)."""
         parts = [list(state.clients), list(state.client_opts),
                  list(state.servers), list(state.server_opts)]
         for li in self._cohort_lis:
             for j, i in enumerate(self._lanes[li]):
-                for part, tree in zip(parts, carry[li]):
-                    part[i] = _lane(tree, j)
+                at = (0, steps[i][0], 0, steps[i][1])
+                for part, tree, step in zip(parts, carry[li], at):
+                    part[i] = _lane(tree, j, step)
         return state.replace(clients=tuple(parts[0]),
                              client_opts=tuple(parts[1]),
                              servers=tuple(parts[2]),
                              server_opts=tuple(parts[3]))
 
     # ------------------------------------------------------------ training
-    def _run_chunk(self, carry, t0: int, n: int, xs, ys, local_epochs: int):
-        """``n`` rounds from round ``t0`` on the staged batches; the carry is
-        updated in place.  Returns the per-round (client, server) mean
-        losses as two ``[n]`` float64 tensors on the device."""
+    def _run_chunk(self, carry, t0: int, n: int, xs, ys, ms,
+                   local_epochs: int):
+        """``n`` rounds from round ``t0`` on the staged batches (and, under a
+        population, the staged masks ``ms``); the carry is updated in place.
+        Returns the per-round (client, server) mean losses as two ``[n]``
+        float64 tensors on the device: over every client, or over the
+        round's active clients (an all-masked round reads 0)."""
         ctx = self.ctx
         closs, sloss = [], []
         for r in range(n):
@@ -303,34 +367,50 @@ class FusedEngine(Engine):
             lr_s = lr / ctx.server_lr_div
             for e in range(local_epochs):
                 for li in self._cohort_lis:
+                    m = () if ms is None else (ms[li][r],)
                     c, co, s, so, cl, sl = self._steps[li](
-                        *carry[li], xs[li][r, e], ys[li][r, e], lr, lr_s)
+                        *carry[li], xs[li][r, e], ys[li][r, e], lr, lr_s, *m)
                     carry[li] = (c, co, s, so)
                     closs.append(cl)
                     sloss.append(sl)
             if (ctx.strategy == "averaging"
                     and (t + 1) % ctx.cfg.aggregate_every == 0):
                 for part in ("trainable", "state"):
-                    stacked_cross_layer_aggregate(
-                        {li: carry[li][2][part] for li in self._cohort_lis},
-                        self._lanes)
-        denom = float(ctx.N * local_epochs)
+                    servers = {li: carry[li][2][part]
+                               for li in self._cohort_lis}
+                    if ms is None:
+                        stacked_cross_layer_aggregate(servers, self._lanes)
+                    else:
+                        masked_stacked_cross_layer_aggregate(
+                            servers, {li: ms[li][r] for li in ms},
+                            self._lanes)
+        if ms is None:
+            denom = float(ctx.N * local_epochs)
+        else:
+            active = sum(m.sum(1) for m in ms.values())
+            denom = active.clamp(min=1.0).double() * local_epochs
         per_round = lambda ls: (torch.cat(ls).double().view(n, -1)  # noqa: E731
                                 .sum(1) / denom)
         return per_round(closs), per_round(sloss)
 
-    def _chunk_metrics(self, t0: int, n: int, closs, sloss,
+    def _chunk_metrics(self, t0: int, n: int, closs, sloss, plans,
                        log_every: int) -> List[RoundMetrics]:
+        """The chunk's metrics (``plans``: the staged population plans, or
+        ``None``); the one host read of the chunk."""
         losses = torch.stack([closs, sloss]).cpu()       # one sync a chunk
         self.last_host_syncs += 1
         metrics = []
         for r in range(n):
+            a, st = plans[r][:2] if plans is not None else (-1, 0)
             m = RoundMetrics(t0 + r, float(losses[0, r]),
-                             float(losses[1, r]))
+                             float(losses[1, r]), active_clients=a,
+                             stragglers=st)
             metrics.append(m)
             if log_every and (m.round % log_every == 0):
+                extra = (f"  active {a}/{self.ctx.N}  stragglers {st}"
+                         if plans is not None else "")
                 print(f"round {m.round:4d}  client_loss {m.client_loss:.4f}"
-                      f"  server_loss {m.server_loss:.4f}")
+                      f"  server_loss {m.server_loss:.4f}{extra}")
         return metrics
 
     def run(self, state: TrainState, rounds: int, local_epochs: int = 1,
@@ -347,42 +427,74 @@ class FusedEngine(Engine):
         if rounds <= 0:
             return state, []
         ctx = self.ctx
-        ctx.data.align(state.batches_drawn)
+        population = ctx.population is not None
+        if population:
+            # round-addressed: the seeded schedule replays rounds [0, t0)
+            # after a restore or a rewind
+            ctx.pop_cursor.align(state.round, local_epochs)
+        else:
+            ctx.data.align(state.batches_drawn)
         overlap = self._overlap_enabled()
         plan = self._chunk_plan(rounds, chunk_rounds, local_epochs, overlap)
         carry = self._stack_carry(state)
         t0 = state.round
+        # each client's Adam steps (client, server), counted on the host
+        # from the staged plans
+        steps = [[c.step, s.step] for c, s in zip(state.client_opts,
+                                                  state.server_opts)]
         self.last_host_syncs = 0
+        stage = (self._stage_population_chunk if population
+                 else self._stage_chunk)
         pipeline = StagedChunkPipeline(
-            lambda n: self._stage_chunk(n, local_epochs), plan,
+            lambda n: stage(n, local_epochs), plan,
             depth=self.pipeline_depth, overlap=overlap)
         metrics: List[RoundMetrics] = []
-        pending = None                  # (chunk start round, n, closs, sloss)
+        pending = None          # (chunk start, n, closs, sloss, plans)
         try:
             t = t0
             for n in plan:
-                xs, ys, event = pipeline.get()
+                xs, ys, ms, event, plans = pipeline.get()
                 if event is not None:
                     stream = torch.cuda.current_stream(ctx.model.device)
                     stream.wait_event(event)
-                    for a in itertools.chain(xs.values(), ys.values()):
+                    for a in itertools.chain(xs.values(), ys.values(),
+                                             (ms or {}).values()):
                         a.record_stream(stream)
-                closs, sloss = self._run_chunk(carry, t, n, xs, ys,
+                closs, sloss = self._run_chunk(carry, t, n, xs, ys, ms,
                                                local_epochs)
-                del xs, ys
+                del xs, ys, ms
+                for i in range(ctx.N):
+                    took = local_epochs * (n if plans is None else sum(
+                        p[2][i] > 0 for p in plans))
+                    steps[i] = [steps[i][0] + took, steps[i][1] + took]
                 # only now read the previous chunk's losses: reading this
                 # chunk's would wait for its launches to finish
                 if pending is not None:
                     metrics.extend(self._chunk_metrics(*pending, log_every))
                     pipeline.release()
-                pending = (t, n, closs, sloss)
+                pending = (t, n, closs, sloss, plans)
                 t += n
             metrics.extend(self._chunk_metrics(*pending, log_every))
             pipeline.release()
         finally:
             pipeline.close()
             self.last_stage_stats = pipeline.stats.as_dict()
-        new_state = self._unstack_carry(carry, state).replace(
+        if population:
+            actives = [m.active_clients for m in metrics]
+            strags = [m.stragglers for m in metrics]
+            self.last_participation_stats = {
+                "rounds": len(metrics),
+                "slots": ctx.N,
+                "population": ctx.population.num_clients,
+                "active_total": int(sum(actives)),
+                "active_mean": (float(np.mean(actives)) if actives
+                                else 0.0),
+                "straggler_total": int(sum(strags)),
+                "masked_total": int(len(metrics) * ctx.N - sum(actives)),
+                "active_per_round": actives,
+                "stragglers_per_round": strags,
+            }
+        new_state = self._unstack_carry(carry, state, steps).replace(
             round=t0 + rounds,
             batches_drawn=tuple(c + rounds * local_epochs
                                 for c in state.batches_drawn))

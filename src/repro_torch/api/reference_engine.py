@@ -43,6 +43,10 @@ class ReferenceEngine(Engine):
             return (f"the reference engine implements the paper-faithful "
                     f"'eq1' gradient routing only, not {ctx.grad_mode!r}: "
                     f"use the fused engine for 'sum'")
+        if ctx.population is not None:
+            return ("the client-population simulation runs over masked "
+                    "cohort lanes (repro_torch.population); use the fused "
+                    "or spmd engine")
         return None
 
     def _server_step(self, li: int) -> Callable:

@@ -24,9 +24,10 @@ kernels read them without a host sync; a tick brings its tokens, exits and
 entropies to the host in one transfer.  The decode step writes each slot's
 new K/V into the pool in place.
 
-``restore`` (serving a ``TrainSession`` checkpoint) waits for checkpoint
-restore and ``mesh=`` for the multi-GPU engine (ROADMAP.md Queue 1 items 6
-and 9).
+``restore`` serves a ``TrainSession`` checkpoint (either package's):
+:func:`assemble_serve_params` composes one full network from the trained
+client and server nets.  ``mesh=`` waits for the multi-GPU engine
+(ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -73,6 +74,49 @@ def serve_step_config(cfg: ModelConfig, tau: float, boundary: int
         profile=HeteroProfile(split_layers=(cut,) * 4),
         entropy_threshold=tau))
     return sc, cut, skip_frac
+
+
+def assemble_serve_params(model, state, boundary: int) -> dict:
+    """One full-network parameter tree from a split ``TrainState``.
+
+    ``model`` is a ``BackboneSplitModel`` (``cfg``, ``plan``,
+    ``full_params``); the serving identity is the first client whose cut
+    boundary equals ``boundary``: its embed, segments and exit head cover
+    the layers up to the cut, its server's ``seg{si}`` and ``head`` the
+    rest, the composed network that client's requests went through in
+    training.  The exit heads at other boundaries come from clients that
+    trained them where there are any (else the adapter's init); the
+    forward computes them but the gate never reads them."""
+    cfg = model.cfg
+    exits = tuple(sorted(cfg.exit_layers))
+    # a client at boundary b holds segments 0..b, so its boundary can be
+    # read off the state alone
+    splits = tuple(len(c["trainable"]["segments"]) - 1 for c in state.clients)
+    try:
+        ci = splits.index(boundary)
+    except ValueError:
+        raise ValueError(
+            f"no client in the checkpoint serves boundary {boundary} "
+            f"(cut layer {exits[boundary]}); client boundaries: "
+            f"{sorted(set(splits))}") from None
+    client = state.clients[ci]["trainable"]
+    server = state.servers[ci if len(state.servers) > 1 else 0]["trainable"]
+
+    segments = [client["segments"][si] for si in range(boundary + 1)]
+    for si in range(boundary + 1, len(model.plan)):
+        segments.append(server[f"seg{si}"])
+
+    exit_heads = []
+    for b in range(len(exits)):
+        if b == boundary:
+            exit_heads.append(client["out"])
+            continue
+        owner = next((i for i, sb in enumerate(splits) if sb == b), None)
+        exit_heads.append(state.clients[owner]["trainable"]["out"]
+                          if owner is not None
+                          else model.full_params["exit_heads"][b])
+    return {"embed": client["embed"], "segments": segments,
+            "exit_heads": exit_heads, "head": server["head"]}
 
 
 @dataclass
@@ -156,6 +200,36 @@ class ServeSession:
         self._next_rid = 0
         self._done: List[ServeResult] = []
         self.stats = ServeStats()
+
+    # -------------------------------------------------------------- restore
+    @classmethod
+    def restore(cls, path: str, model, *, tau: Optional[float] = None,
+                boundary: Optional[int] = None, slots: int = 8,
+                max_len: int = 128, exit_policy: str = "select",
+                kernels: Optional[str] = None) -> "ServeSession":
+        """A serving session straight from a ``TrainSession`` checkpoint
+        (the ``path + '.npz'/'.json'`` pair either package's
+        ``TrainSession.save`` writes), on ``model.device``.  ``model`` is
+        the ``BackboneSplitModel`` the run trained: the manifest's kind,
+        format and model are checked before any tensor is read, as
+        ``TrainSession.restore`` checks them.  ``tau`` defaults to the
+        checkpoint's ``entropy_threshold``, ``boundary`` to the shallowest
+        trained cut."""
+        from repro_torch.api.session import manifest_configs, read_manifest
+        from repro_torch.api.state import init_train_state
+        from repro_torch.convert import load_split_state
+        meta = read_manifest(path, model, what="served")
+        splitee_cfg, opt_cfg = manifest_configs(meta)
+        state = load_split_state(
+            path, model, init_train_state(model, splitee_cfg, opt_cfg))
+        if boundary is None:
+            boundary = min(model._boundary_of(li)
+                           for li in splitee_cfg.profile.split_layers)
+        params = assemble_serve_params(model, state, boundary)
+        tau = splitee_cfg.entropy_threshold if tau is None else tau
+        return cls(model.cfg, params, tau=tau, boundary=boundary,
+                   slots=slots, max_len=max_len, exit_policy=exit_policy,
+                   kernels=kernels, device=model.device)
 
     # ------------------------------------------------------------ admission
     def submit(self, prompt: Sequence[int], decode_tokens: int = 16) -> int:

@@ -8,10 +8,14 @@ immutable record (counterpart of ``repro/api/state.py``).
   * ``server_opts[j]``  — an ``AdamState`` per server net
   * ``round``           — rounds completed, a host ``int``
   * ``batches_drawn``   — minibatches drawn per client, a tuple of host
-    ``int``s: the data cursor replays each seeded batch iterator to it
+    ``int``s: the data cursor replays each seeded batch iterator to it.
+    Under a client population they are bookkeeping only: the
+    population's streams are addressed by round, and a restore replays
+    the seeded schedule from round 0 to ``round``
 
-The counters are host integers where the JAX package keeps int32 arrays:
-the engine reads them every round, and a device scalar would cost a sync.
+The counters are host integers where the JAX package keeps int32 arrays
+(a checkpoint writes them as such): the engine reads them every round,
+and a device scalar would cost a sync.
 The record is frozen, but the tensors in it are not; an engine clones the
 state it is given before its in-place Adam steps (``run`` must leave its
 input untouched).

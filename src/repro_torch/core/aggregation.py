@@ -9,8 +9,9 @@ heterogeneous server nets.
 
 ``cross_layer_aggregate`` is the literal loop the reference engine runs;
 ``stacked_cross_layer_aggregate`` is the same mean over cohort-stacked
-server nets, the fused engine's form.  The masked form, which client
-populations need, waits for ROADMAP.md Queue 1 item 8.
+server nets, the fused engine's form, and
+``masked_stacked_cross_layer_aggregate`` its form under a client
+population's participation masks.
 """
 from __future__ import annotations
 
@@ -94,6 +95,67 @@ def stacked_cross_layer_aggregate(stacked: Dict[int, Dict[str, Any]],
         for li in members:
             for x, m in zip(trees[li], mean):
                 x.copy_(m.expand_as(x))
+    return stacked
+
+
+def _mean_over(total: torch.Tensor, dtype, den: torch.Tensor
+               ) -> torch.Tensor:
+    """``total`` (fp32) cast to ``dtype`` and divided by the device count
+    ``den``, rounded as :func:`stacked_cross_layer_aggregate` divides by a
+    host count: in ``dtype``'s compute type (fp32 for bf16 and fp16), on
+    the CPU as a division, on the card as a multiplication by the count's
+    reciprocal taken in double (how CUDA divides by a host number), cast
+    to ``dtype`` after."""
+    t = total.to(dtype)
+    if dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    if t.is_cuda:
+        q = t * den.double().reciprocal().to(t.dtype)
+    else:
+        q = t / den.to(t.dtype)
+    return q.to(dtype)
+
+
+def masked_stacked_cross_layer_aggregate(stacked: Dict[int, Dict[str, Any]],
+                                         masks: Dict[int, torch.Tensor],
+                                         lanes: Dict[int, Sequence[int]]
+                                         ) -> Dict[int, Dict[str, Any]]:
+    """:func:`stacked_cross_layer_aggregate` restricted to a participation
+    set, in place (client populations).
+
+    ``masks[li]`` is the cohort's ``[k]`` 0/1 lane mask for the
+    aggregation boundary's round, a device tensor.  For each key the mean
+    runs over the active lanes only (masked lanes are left out of the sum
+    and of the count) and is copied into every member lane, active or
+    not: a client that rejoins after churn resumes from the aggregate.  A
+    key with no active member keeps its values.  With every mask 1 the
+    result is bit for bit :func:`stacked_cross_layer_aggregate`'s
+    (``x * 1.0`` is exact, the lanes are summed in the same order and the
+    count divides as the host count does).  No host read: the count stays
+    on the device."""
+    keys = set()
+    for m in stacked.values():
+        keys |= set(m)
+    for key in sorted(keys):
+        members = [li for li in sorted(stacked) if key in stacked[li]]
+        order = sorted((i, li, j) for li in members
+                       for j, i in enumerate(lanes[li]))
+        if len(order) <= 1:
+            continue
+        trees = {li: list(tree_leaves(stacked[li][key])) for li in members}
+        _, li0, j0 = order[0]
+        w0 = masks[li0][j0]
+        total = [x[j0].float() * w0 for x in trees[li0]]
+        for _, li, j in order[1:]:
+            w = masks[li][j]
+            torch._foreach_add_(total, [x[j].float() * w for x in trees[li]])
+        den = sum(masks[li].float().sum() for li in members)
+        active = den > 0
+        den = den.clamp(min=1.0)
+        mean = [_mean_over(t, x.dtype, den) for t, x in zip(total, trees[li0])]
+        for li in members:
+            for x, m in zip(trees[li], mean):
+                x.copy_(torch.where(active, m.expand_as(x), x))
     return stacked
 
 

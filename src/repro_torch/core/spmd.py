@@ -1,7 +1,6 @@
 """Fused Hetero-SplitEE train and serve steps for the production backbone,
-and the cohort step of the fused engine (counterpart of
-``repro/core/spmd.py``; the masked cohort step of client populations waits
-for ROADMAP.md Queue 1 item 8).
+and the cohort steps of the fused engine, plain and masked by a client
+population's participation (counterpart of ``repro/core/spmd.py``).
 
 Client groups tile the batch; every example runs the full network; the
 paper's gradient routing is a per-example stop-gradient at the example's
@@ -371,7 +370,7 @@ def make_cohort_train_step(model, opt_cfg, li: int,
 
     :func:`make_cohort_grad_step`'s gradients, then one Adam update per
     stacked leaf for all lanes, its clip norm taken per lane.  ``copt`` and
-    ``sopt`` hold stacked moments and one host step for the cohort.
+    ``sopt`` hold stacked moments and an int32 ``[k]`` step tensor.
     Parameters and moments are updated in place."""
     grad_step = make_cohort_grad_step(model, li, grad_mode)
 
@@ -383,6 +382,41 @@ def make_cohort_train_step(model, opt_cfg, li: int,
                                  lr_s, lanes=True)
         return ({"trainable": ctr, "state": cst}, copt,
                 {"trainable": strv, "state": sst}, sopt, closs, sloss)
+
+    return step
+
+
+def make_masked_cohort_step(model, opt_cfg, li: int,
+                            grad_mode: str = "eq1") -> Callable:
+    """:func:`make_cohort_train_step` gated by a per-lane participation
+    mask:
+
+        (client, copt, server, sopt, x, y, lr, lr_s, m)
+            -> (client, copt, server, sopt, client_loss * m,
+                server_loss * m)
+
+    ``m`` is a ``[k]`` 0/1 device tensor.  Every lane's step is computed
+    (fixed shapes and launches whatever the active set; the kernel sites
+    fold all lanes into one launch as in the unmasked step), then a lane
+    whose mask is 0 keeps its parameters, Adam moments and step (the
+    masked update acts inside Adam, which works in place) and its
+    BatchNorm statistics (``strategies.masked_update``).  With ``m`` all
+    1 every output is bit for bit the unmasked step's: ``x * 1.0 == x``
+    and the gates take the stepped values."""
+    from repro_torch.core.strategies import masked_update
+    grad_step = make_cohort_grad_step(model, li, grad_mode)
+
+    def step(client, copt, server, sopt, x, y, lr, lr_s, m):
+        gc, gs, closs, sloss, cst, sst = grad_step(client, server, x, y)
+        ctr, copt = adam_update(client["trainable"], gc, copt, opt_cfg, lr,
+                                lanes=True, mask=m)
+        strv, sopt = adam_update(server["trainable"], gs, sopt, opt_cfg,
+                                 lr_s, lanes=True, mask=m)
+        cst = masked_update(m, cst, client["state"])
+        sst = masked_update(m, sst, server["state"])
+        return ({"trainable": ctr, "state": cst}, copt,
+                {"trainable": strv, "state": sst}, sopt,
+                closs * m.to(closs.dtype), sloss * m.to(sloss.dtype))
 
     return step
 

@@ -6,6 +6,7 @@ of ``repro/core/strategies.py``).
     reference engine (``repro_torch.api.reference_engine``) runs them one
     client at a time, as Alg. 1/2 do.
   * :class:`RoundMetrics` — the per-round metric record.
+  * :func:`masked_update` — the participation gate of client populations.
 
 Gradients never flow from server to client: ``h`` enters the server step
 as data.  Gradients are ``torch.autograd.grad`` over the trainable leaves
@@ -26,6 +27,7 @@ from repro_torch.config import OptimizerConfig
 from repro_torch.core.losses import softmax_cross_entropy
 from repro_torch.core.spmd import _Trainable
 from repro_torch.optim import adam_update
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -33,6 +35,29 @@ class RoundMetrics:
     round: int
     client_loss: float
     server_loss: float
+    #: slots that contributed to this round's aggregation under a client
+    #: population (-1 = fixed cohort, every client always participates)
+    active_clients: int = -1
+    #: assigned clients masked out of this round for exceeding their step
+    #: budget or deadline (population sessions only)
+    stragglers: int = 0
+
+
+def lane_view(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A ``[k]`` lane mask shaped to broadcast over a leaf whose leading
+    axis is the lane axis."""
+    return mask.view(-1, *(1,) * (leaf.ndim - 1))
+
+
+def masked_update(mask: torch.Tensor, new_tree, old_tree):
+    """Participation-gated state update over cohort-stacked trees: lane j of
+    each leaf takes the stepped value where ``mask[j] > 0`` (``mask`` a
+    ``[k]`` device tensor of 0/1), else keeps the old one.  Out of place,
+    fixed shapes, no host read.  Gating the update and not only the loss
+    matters: a zeroed loss still decays Adam's moments and advances its
+    step, which would move an inactive client's parameters."""
+    return tree_map(lambda n, o: torch.where(lane_view(mask, n) > 0, n, o),
+                    new_tree, old_tree)
 
 
 def client_loss_fn(model) -> Callable:

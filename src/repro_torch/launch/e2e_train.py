@@ -14,7 +14,12 @@ Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --arch rwkv6-3b \
       --layers 32 --seq 512 --remat --steps 20
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --smoke --layers 4 \\
-      --steps 3 --batch 12 --seq 8 --device cpu
+      --steps 3 --batch 12 --seq 8 --device cpu --checkpoint /tmp/e2e
+
+``--checkpoint PATH`` writes ``{"params", "opt"}`` through
+``repro_torch.checkpoint.save_pytree`` in the JAX package's layout (the
+file ``examples/e2e_train_100m.py --checkpoint`` writes), so the JAX
+package's ``load_pytree`` reads it.
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch import configs as configs_mod
+from repro_torch.checkpoint import save_pytree
 from repro_torch.config import (HeteroProfile, ModelConfig, OptimizerConfig,
                                 SplitEEConfig, TrainConfig)
 from repro_torch.core.spmd import (GRAD_MODES, StepConfig,
                                    boundary_ids_for_batch, make_train_step)
+from repro_torch.convert import adam_state_to_jax, params_to_jax
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import init_backbone
@@ -69,6 +76,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--checkpoint", default="",
+                    help="path stem: save {params, opt} after training")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -116,6 +125,13 @@ def main(argv=None) -> dict:
                   f"lr={m['lr']:.2e}  {tok_s:,.0f} tok/s")
     last = float(np.mean(losses[-10:]))
     print(f"\nloss: first={losses[0]:.4f}  last={last:.4f}")
+    if args.checkpoint:
+        # the optimizer state and its step ride along, as in the JAX loop
+        save_pytree(args.checkpoint,
+                    {"params": params_to_jax(params, cfg),
+                     "opt": adam_state_to_jax(opt, cfg)},
+                    metadata={"steps": args.steps, "final_loss": last})
+        print(f"checkpoint -> {args.checkpoint}.npz")
     return {"losses": losses, "params": params, "opt": opt}
 
 

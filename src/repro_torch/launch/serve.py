@@ -9,6 +9,8 @@ architecture's smoke config.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --tau 2.0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --tau 2.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b \
+      --ckpt /tmp/glm4/ckpt-00000003       # a trained checkpoint
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ def main(argv=None) -> None:
     ap.add_argument("--exit-policy", default="select",
                     choices=["select", "sticky"])
     ap.add_argument("--ckpt", default=None,
-                    help="TrainSession checkpoint stem (serving a checkpoint "
-                         "waits for checkpoint restore)")
+                    help="TrainSession checkpoint stem to serve (either "
+                         "package's); default serves seed-initialized "
+                         "weights")
     ap.add_argument("--kernels", default="auto", choices=["auto", "ref"],
                     help="auto = the CUDA kernels on the card, the plain "
                          "versions on the CPU; ref = plain everywhere")
@@ -46,19 +49,24 @@ def main(argv=None) -> None:
                     help="torch device; default the CUDA card")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ckpt:
-        ap.error("--ckpt: checkpoint restore is not ported yet (ROADMAP.md "
-                 "Queue 1, checkpoint restore)")
 
     device = resolve_device(args.device)
     cfg = configs_mod.get(args.arch).smoke().with_(kernels=args.kernels)
     exits, cut, skip_frac = resolve_serve_boundary(cfg, args.boundary)
     max_len = args.prompt_len + 1 + args.decode_tokens
-    params = init_backbone(torch.Generator(device=device).manual_seed(args.seed),
-                           cfg)
-    session = ServeSession(cfg, params, tau=args.tau, boundary=args.boundary,
-                           slots=args.slots, max_len=max_len,
-                           exit_policy=args.exit_policy, device=device)
+    if args.ckpt:
+        from repro_torch.core.backbone_splitee import BackboneSplitModel
+        session = ServeSession.restore(
+            args.ckpt, BackboneSplitModel(cfg, seed=args.seed, device=device),
+            tau=args.tau, boundary=args.boundary, slots=args.slots,
+            max_len=max_len, exit_policy=args.exit_policy)
+    else:
+        params = init_backbone(
+            torch.Generator(device=device).manual_seed(args.seed), cfg)
+        session = ServeSession(cfg, params, tau=args.tau,
+                               boundary=args.boundary, slots=args.slots,
+                               max_len=max_len, exit_policy=args.exit_policy,
+                               device=device)
 
     rng = np.random.default_rng(1)
     for _ in range(args.requests):

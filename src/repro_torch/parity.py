@@ -340,10 +340,12 @@ LANE_SEQ, LANE_BATCH, LANE_ROUNDS = 32, 64, 2
 
 
 def backbone_session(family: str, kernels: str, device, state=None, *,
-                     engine: str = "fused"):
+                     engine: str = "fused", population: bool = False):
     """A ``TrainSession`` of ``BackboneSplitModel`` on ``family``'s bf16
     smoke with ``kernels`` ("auto": the kernels; "ref": the plain
-    versions), rwkv6 decays and bonus made live (:func:`live_rwkv`)."""
+    versions), rwkv6 decays and bonus made live (:func:`live_rwkv`).
+    ``population``: the lanes draw from a churning population of twice as
+    many clients (:data:`POP_CHURN`) over a dataset twice the size."""
     from repro_torch import configs
     from repro_torch.api.session import TrainSession
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
@@ -357,14 +359,21 @@ def backbone_session(family: str, kernels: str, device, state=None, *,
     live_rwkv(model.full_params)
     ds = SyntheticSeqClsDataset(vocab_size=cfg.vocab_size, seq_len=LANE_SEQ,
                                 num_classes=8, train_size=len(splits)
-                                * LANE_BATCH * LANE_ROUNDS, test_size=64,
+                                * LANE_BATCH * LANE_ROUNDS
+                                * (2 if population else 1), test_size=64,
                                 seed=0)
+    data = pop = None
+    if population:
+        from repro_torch.population import ClientPopulation
+        pop = ClientPopulation.dirichlet(*ds.train, 2 * len(splits), splits,
+                                         min_shard=LANE_BATCH, **POP_CHURN)
+    else:
+        data = ClientPartitioner(len(splits)).split(*ds.train)
     return TrainSession(
         model, SplitEEConfig(profile=HeteroProfile(splits),
                              strategy="averaging"),
         OptimizerConfig(lr=TRAIN_LR, total_steps=2 * LANE_ROUNDS),
-        ClientPartitioner(len(splits)).split(*ds.train), LANE_BATCH,
-        engine=engine, state=state)
+        data, LANE_BATCH, engine=engine, state=state, population=pop)
 
 
 def cohort_first_grads(sess) -> List[Optional[torch.Tensor]]:
@@ -444,3 +453,216 @@ def lane_sites(device, seed: int = 0) -> Dict[str, tuple]:
                           attn),
             "wkv": (lambda r, k, v, lw, u: be.wkv(r, k, v, lw, u, chunk=16),
                     wkv)}
+
+
+# client populations (chip_smoke.py phase lifecycle, the population tests):
+# the churn settings of benchmarks/population_bench.py's churn leg
+POP_CHURN = dict(alpha=0.5, participation_rate=0.7, churn_seed=3,
+                 straggler_rate=0.2)
+# the ResNet smoke under a churning population of POP_SMOKE_CLIENTS over
+# PAPER_SPLITS' four slots, Eq. (1) every round, POP_SMOKE_ROUNDS rounds of
+# PAPER_EPOCHS at PAPER_BATCH, the card against the CPU at the limits of
+# the paper's loop (TOL_PAPER_LOSS, TOL_PAPER_PARAMS), over as many rounds
+# as they were read on.  Further on the fp32 runs part: at the round where
+# a slot takes its first Adam step late, that step moves each element by
+# ~lr whatever its gradient's size, so the devices' differing rounding of
+# small gradients becomes +-lr, and Eq. (1) spreads it over the servers
+# (an H100 read the servers' drift 1.8e-3 after round 1, 2.2e-2 after
+# round 2, when slot 0 first stepped, 2.8e-2 after round 3; the fixed
+# cohort 5.6e-3 after round 3; PERF.md section 6).  In float64 the runs
+# stay together (tests/test_torch_cuda.py)
+POP_SMOKE_CLIENTS, POP_SMOKE_ROUNDS = 8, 2
+
+
+def population_smoke_data(seed: int = 0, rounds: int = POP_SMOKE_ROUNDS):
+    """The population smoke's images: POP_SMOKE_CLIENTS shards' worth of
+    PAPER_BATCH x ``rounds`` x PAPER_EPOCHS images."""
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    ds = SyntheticImageDataset(
+        num_classes=10, image_size=32,
+        train_size=(POP_SMOKE_CLIENTS * PAPER_BATCH * rounds
+                    * PAPER_EPOCHS), test_size=8, seed=seed)
+    return ds.train
+
+
+def population_smoke(x, y):
+    """The smoke's churning population of POP_SMOKE_CLIENTS over
+    PAPER_SPLITS' slots."""
+    from repro_torch.population import ClientPopulation
+    return ClientPopulation.dirichlet(x, y, POP_SMOKE_CLIENTS, PAPER_SPLITS,
+                                      min_shard=PAPER_BATCH, **POP_CHURN)
+
+
+def population_session(device, x, y, state=None, *,
+                       rounds: int = POP_SMOKE_ROUNDS,
+                       population: Optional[str] = "churn"):
+    """A ``TrainSession`` of the ResNet smoke on ``device`` under the
+    churning population (fused engine, Eq. (1) every round, the schedule
+    over ``rounds``).  ``population=None``: the fixed cohort of
+    PAPER_SPLITS on the same images, one shard a slot; ``"full"``: those
+    shards as a population in which every slot always takes part."""
+    from repro_torch.api.session import TrainSession
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    model = ResNetSplitModel(resnet18_cifar.smoke(), device=device)
+    from repro_torch.population import ClientPopulation
+    shards = ClientPartitioner(len(PAPER_SPLITS)).split(x, y)
+    pop = {"churn": lambda: population_smoke(x, y),
+           "full": lambda: ClientPopulation.from_shards(shards,
+                                                        PAPER_SPLITS),
+           None: lambda: None}[population]()
+    data = shards if pop is None else None
+    return TrainSession(
+        model, SplitEEConfig(profile=HeteroProfile(PAPER_SPLITS),
+                             strategy="averaging", aggregate_every=1),
+        OptimizerConfig(lr=PAPER_LR, total_steps=rounds * PAPER_EPOCHS),
+        data, PAPER_BATCH, engine="fused", population=pop,
+        state=None if state is None else state.to(model.device))
+
+
+def slot_gaps(got, want) -> Dict[str, List[float]]:
+    """||got - want|| of each slot's client and server trainables
+    (TrainStates; ``want``'s device)."""
+    from repro_torch.tree import tree_leaves
+    dev = next(tree_leaves(want.clients)).device
+
+    def gap(a, b):
+        return float(sum(((x.detach().to(dev, torch.float64)
+                           - y.detach().to(torch.float64)) ** 2).sum()
+                         for x, y in zip(tree_leaves(a), tree_leaves(b)))
+                     ** 0.5)
+
+    return {side: [gap(a["trainable"], b["trainable"])
+                   for a, b in zip(getattr(got, side), getattr(want, side))]
+            for side in ("clients", "servers")}
+
+
+@contextmanager
+def inactive_lanes_counted():
+    """A control: the masked Eq. (1) counts every lane, active or not,
+    while the block runs."""
+    from repro_torch.api import fused_engine
+    real = fused_engine.masked_stacked_cross_layer_aggregate
+
+    def fault(stacked, masks, lanes):
+        return real(stacked, {li: torch.ones_like(m)
+                              for li, m in masks.items()}, lanes)
+
+    fused_engine.masked_stacked_cross_layer_aggregate = fault
+    try:
+        yield
+    finally:
+        fused_engine.masked_stacked_cross_layer_aggregate = real
+
+
+@contextmanager
+def masked_lane_left_out():
+    """A control: the masked Eq. (1) leaves the first lane of its
+    shallowest cohort out of the mean (the lane still takes the mean),
+    while the block runs."""
+    from repro_torch.api import fused_engine
+    real = fused_engine.masked_stacked_cross_layer_aggregate
+
+    def fault(stacked, masks, lanes):
+        li = min(masks)
+        m = masks[li].clone()
+        m[0] = 0.0
+        return real(stacked, {**masks, li: m}, lanes)
+
+    fused_engine.masked_stacked_cross_layer_aggregate = fault
+    try:
+        yield
+    finally:
+        fused_engine.masked_stacked_cross_layer_aggregate = real
+
+
+@contextmanager
+def unaligned_cursor():
+    """A control: a population cursor rebuilt for a restored session
+    starts at round 0 instead of replaying up to the session's round."""
+    from repro_torch.population import PopulationCursor
+    real = PopulationCursor.align
+
+    def fault(self, t, local_epochs):
+        if self._iters is None or self._round != int(t):
+            self._rebuild()
+
+    PopulationCursor.align = fault
+    try:
+        yield
+    finally:
+        PopulationCursor.align = real
+
+
+@contextmanager
+def advancing_masked_step():
+    """A control: the masked cohort step's Adam advances the step of every
+    lane, masked or not, while the block runs."""
+    from repro_torch.core import spmd
+    from repro_torch.optim import AdamState
+    real = spmd.adam_update
+
+    def fault(params, grads, state, cfg, lr, lr_scale_tree=None, *,
+              lanes=False, mask=None):
+        params, new = real(params, grads, state, cfg, lr, lr_scale_tree,
+                           lanes=lanes, mask=mask)
+        if mask is not None:
+            new = AdamState(step=state.step + 1, m=new.m, v=new.v)
+        return params, new
+
+    spmd.adam_update = fault
+    try:
+        yield
+    finally:
+        spmd.adam_update = real
+
+
+def masked_lane_gaps(sess, mask: Sequence[float]) -> Dict[str, float]:
+    """One masked cohort step of ``sess``'s first cohort from its state on
+    its first client's batch repeated over the lanes, ``mask`` over the
+    lanes: the largest |change| of the masked lanes' parameters, moments,
+    BatchNorm statistics and Adam steps (all must read 0), and the largest
+    |change| of the active lanes' parameters (must not)."""
+    from repro_torch.api.engines import cohort_layout
+    from repro_torch.api.fused_engine import _stack_opts
+    from repro_torch.core.spmd import make_masked_cohort_step
+    from repro_torch.tree import tree_leaves
+    ctx, st, model = sess.ctx, sess.state, sess.model
+    lis, lanes = cohort_layout(ctx.profile.split_layers)
+    li = lis[0]
+    ids = lanes[li]
+    k = len(ids)
+    x, y = (torch.from_numpy(np.stack([a] * k)).to(model.device)
+            for a in ctx.client_data[ids[0]])
+    x, y = x[:, :ctx.batch_size], y[:, :ctx.batch_size]
+    carry = (model.stack_clients([st.clients[i] for i in ids]),
+             _stack_opts([st.client_opts[i] for i in ids]),
+             model.stack_clients([st.servers[i] for i in ids]),
+             _stack_opts([st.server_opts[i] for i in ids]))
+
+    def flat(c):
+        nets = [c[0]["trainable"], c[2]["trainable"]]
+        rest = [c[0]["state"], c[2]["state"], c[1].m, c[1].v, c[3].m,
+                c[3].v]
+        return (list(tree_leaves(nets)), list(tree_leaves(rest)),
+                [c[1].step, c[3].step])
+
+    before = [[t.clone() for t in part] for part in flat(carry)]
+    m = torch.tensor(mask, dtype=torch.float32, device=model.device)
+    out = make_masked_cohort_step(model, ctx.opt_cfg, li, ctx.grad_mode)(
+        *carry, x, y, 1e-3, 1e-3, m)
+    off = [j for j in range(k) if mask[j] == 0]
+    on = [j for j in range(k) if mask[j] != 0]
+    gaps = {"masked": 0.0, "masked_steps": 0.0, "active": 0.0}
+    for part, (was, now) in enumerate(zip(before, flat(out[:4]))):
+        for a, b in zip(was, now):
+            d = (a.double() - b.double()).abs()
+            d = d.reshape(k, -1) if d.ndim else d.reshape(1, 1)
+            key = "masked_steps" if part == 2 else "masked"
+            gaps[key] = max(gaps[key], float(d[off].max()) if off else 0.0)
+            if part == 0 and on:
+                gaps["active"] = max(gaps["active"], float(d[on].max()))
+    return gaps

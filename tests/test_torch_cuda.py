@@ -999,3 +999,155 @@ def test_fused_paper_session_on_the_card_matches_the_cpu(dev, grad_mode):
     assert max(drift["clients"], drift["servers"]) <= TOL_PAPER_PARAMS
     eng = card.engine
     assert eng.last_host_syncs == eng.last_stage_stats["chunks"]
+
+
+# ---------------------------------------------------------------------------
+# client populations on the card
+# ---------------------------------------------------------------------------
+
+
+def test_lane_adam_matches_the_per_client_update_bit_for_bit(dev):
+    """The stacked Adam with per-lane steps against the one-net update
+    with a host step (both read their bias corrections from one table on
+    the card), client by client: bit for bit, lanes at different steps; a
+    masked lane keeps parameters, moments and step."""
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.optim import AdamState, adam_init, adam_update
+    cfg = OptimizerConfig(lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k, shape = 3, (64, 33)
+    p0 = [torch.randn(shape, generator=gen, device=dev) for _ in range(k)]
+    grads = [[torch.randn(shape, generator=gen, device=dev)
+              for _ in range(k)] for _ in range(6)]
+    masks = [[1, 1, 1], [1, 0, 1], [0, 1, 1], [1, 1, 0], [1, 1, 1],
+             [0, 0, 1]]
+    ref = [{"w": p.clone()} for p in p0]
+    ropt = [adam_init(r, cfg) for r in ref]
+    st = {"w": torch.stack(p0)}
+    so = AdamState(step=torch.zeros(k, dtype=torch.int32, device=dev),
+                   m={"w": torch.zeros(k, *shape, device=dev)},
+                   v={"w": torch.zeros(k, *shape, device=dev)})
+    for g, m in zip(grads, masks):
+        for j in range(k):
+            if m[j]:
+                ref[j], ropt[j] = adam_update(ref[j], {"w": g[j]}, ropt[j],
+                                              cfg, 1e-3)
+        st, so = adam_update(st, {"w": torch.stack(g)}, so, cfg, 1e-3,
+                             lanes=True, mask=torch.tensor(
+                                 m, dtype=torch.float32, device=dev))
+    assert so.step.tolist() == [r.step for r in ropt]
+    assert len(set(so.step.tolist())) > 1
+    for j in range(k):
+        assert torch.equal(st["w"][j], ref[j]["w"])
+        assert torch.equal(so.m["w"][j], ropt[j].m["w"])
+        assert torch.equal(so.v["w"][j], ropt[j].v["w"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_aggregation_all_ones_is_the_unmasked_one_on_the_card(
+        dev, dtype):
+    """The masked Eq. (1) with every lane active equals the unmasked one
+    bit for bit on the card (the count's reciprocal as CUDA divides by a
+    host count), and with none active leaves every lane alone."""
+    from repro_torch.core.aggregation import (
+        masked_stacked_cross_layer_aggregate, stacked_cross_layer_aggregate)
+    lanes = {1: [0, 2, 4], 2: [1, 3]}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def nets():
+        return {1: {"layer2": {"w": torch.randn(3, 8, 5, generator=gen,
+                                                device=dev).to(dtype)},
+                    "head": {"w": torch.randn(3, 4, generator=gen,
+                                              device=dev).to(dtype)}},
+                2: {"head": {"w": torch.randn(2, 4, generator=gen,
+                                              device=dev).to(dtype)}}}
+
+    a = nets()
+    b = {li: {k: {"w": v["w"].clone()} for k, v in n.items()}
+         for li, n in a.items()}
+    c = {li: {k: {"w": v["w"].clone()} for k, v in n.items()}
+         for li, n in a.items()}
+    stacked_cross_layer_aggregate(a, lanes)
+    ones = {li: torch.ones(len(v), device=dev) for li, v in lanes.items()}
+    masked_stacked_cross_layer_aggregate(b, ones, lanes)
+    zeros = {li: torch.zeros(len(v), device=dev) for li, v in lanes.items()}
+    before = {li: {k: v["w"].clone() for k, v in n.items()}
+              for li, n in c.items()}
+    masked_stacked_cross_layer_aggregate(c, zeros, lanes)
+    for li in a:
+        for k in a[li]:
+            assert torch.equal(a[li][k]["w"], b[li][k]["w"]), (li, k)
+            assert torch.equal(c[li][k]["w"], before[li][k]), (li, k)
+
+
+def test_population_smoke_on_the_card_matches_the_cpu(dev):
+    """The churning population smoke (repro_torch/parity.py) on the card
+    against the CPU from one round-0 state, at phase paper's limits, with
+    the same active counts; one host read of the losses per chunk."""
+    from repro_torch.parity import (PAPER_EPOCHS, POP_SMOKE_ROUNDS,
+                                    TOL_PAPER_LOSS, TOL_PAPER_PARAMS,
+                                    paper_drift, population_session,
+                                    population_smoke_data)
+    x, y = population_smoke_data()
+    cpu = population_session("cpu", x, y)
+    start = cpu.state.clone()
+    card = population_session(dev, x, y, state=start)
+    hc = card.train(POP_SMOKE_ROUNDS, PAPER_EPOCHS)
+    hp = cpu.train(POP_SMOKE_ROUNDS, PAPER_EPOCHS)
+    assert [m.active_clients for m in hc] == [m.active_clients for m in hp]
+    for a, b in zip(hc, hp):
+        assert abs(a.client_loss - b.client_loss) <= TOL_PAPER_LOSS
+        assert abs(a.server_loss - b.server_loss) <= TOL_PAPER_LOSS
+    drift = paper_drift(card.state, cpu.state, start)
+    assert max(drift["clients"], drift["servers"]) <= TOL_PAPER_PARAMS
+    eng = card.engine
+    assert eng.last_host_syncs == eng.last_stage_stats["chunks"]
+
+
+def test_population_smoke_float64_on_the_card_stays_on_the_cpu(dev):
+    """The population smoke in float64 (model, data, Adam moments; Adam's
+    arithmetic stays fp32, as JAX's) on the card against the CPU over
+    twice phase lifecycle's rounds: in fp32 the two runs part further each
+    round (the limits hold over POP_SMOKE_ROUNDS), in float64 they must
+    stay together (an H100 read the drift at 2.7e-6 at most), so no fault
+    of the card's population path hides behind fp32 rounding."""
+    import dataclasses
+    from repro_torch.api import TrainSession
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.parity import (PAPER_BATCH, PAPER_EPOCHS, PAPER_LR,
+                                    PAPER_SPLITS, POP_SMOKE_ROUNDS,
+                                    paper_drift, population_smoke,
+                                    population_smoke_data)
+    x, y = population_smoke_data()
+    x = x.astype(np.float64)
+    rounds = 2 * POP_SMOKE_ROUNDS
+
+    def session(device, state=None):
+        model = ResNetSplitModel(dataclasses.replace(
+            resnet18_cifar.smoke(), dtype=torch.float64), device=device)
+        return TrainSession(
+            model, SplitEEConfig(profile=HeteroProfile(PAPER_SPLITS),
+                                 aggregate_every=1),
+            OptimizerConfig(lr=PAPER_LR, total_steps=rounds * PAPER_EPOCHS,
+                            state_dtype=torch.float64),
+            None, PAPER_BATCH, engine="fused",
+            population=population_smoke(x, y),
+            state=None if state is None else state.to(model.device))
+
+    cpu = session("cpu")
+    start = cpu.state.clone()
+    card = session(dev, start)
+    for r in range(rounds):
+        (a,), (b,) = (card.train(1, PAPER_EPOCHS),
+                      cpu.train(1, PAPER_EPOCHS))
+        d = paper_drift(card.state, cpu.state, start)
+        dl = max(abs(a.client_loss - b.client_loss),
+                 abs(a.server_loss - b.server_loss))
+        print(f"reading float64 population smoke round {r}, card vs CPU: "
+              f"active {a.active_clients}, max|dloss| {dl:.2e}, drift "
+              f"clients {d['clients']:.2e} servers {d['servers']:.2e}")
+        assert a.active_clients == b.active_clients
+        assert dl <= 1e-6 and max(d["clients"], d["servers"]) <= 1e-5

@@ -418,7 +418,8 @@ def test_engine_resolution_and_its_errors(mlp):
         tapi.get_engine("nope")
     for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(recipe="greedy"), "item 9"),
-                     (dict(population=object()), "item 8")):
+                     (dict(population=object()),
+                      "either client_data or population")):
         with pytest.raises(ValueError, match=item):
             TrainSession.from_config(mlp["port"], tsc, toc, mlp["data"],
                                      BATCH, **kw)
@@ -429,7 +430,7 @@ def test_engine_resolution_and_its_errors(mlp):
                                                 strategy="nope"),
                      toc, mlp["data"], BATCH, engine="reference")
     for attr in ("save", "restore", "restore_latest"):
-        assert not hasattr(TrainSession, attr)
+        assert callable(getattr(TrainSession, attr))
 
 
 def test_cohort_helpers_match_jax(mlp):
