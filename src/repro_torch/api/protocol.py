@@ -13,8 +13,15 @@ and training engines (counterpart of ``repro/api/protocol.py``).
     axis.
   * The adapter has a ``device``: where its nets live.
 
-Training and evaluation both go through ``client_forward`` and
-``server_forward``.
+Evaluation goes through ``client_forward`` and ``server_forward``, and so
+does training unless the adapter defines the optional loss hooks, which
+``core.strategies.client_loss_fn`` / ``server_loss_fn`` then use in every
+engine:
+
+  * ``client_loss(trainable, state, x, y) -> (loss, (h, new_state))``
+  * ``server_loss(trainable, state, h, li, y) -> (loss, new_state)``
+
+``BackboneSplitModel`` adds each side's MoE router aux loss there.
 """
 from __future__ import annotations
 

@@ -22,7 +22,10 @@ What JAX's ``vmap`` over slots hid is written out here: ``cache_len``,
 ``kv_valid`` and ``tau`` are one value per slot, kept on the device, so the
 kernels read them without a host sync; a tick brings its tokens, exits and
 entropies to the host in one transfer.  The decode step writes each slot's
-new K/V into the pool in place.
+new K/V into the pool in place.  MoE blocks route each slot's token alone
+(one routing group per slot), as JAX's one-row step does under ``vmap``:
+a slot's expert capacity and drops do not depend on the other slots.
+Prefill routes the one request's prompt as one group.
 
 ``restore`` serves a ``TrainSession`` checkpoint (either package's):
 :func:`assemble_serve_params` composes one full network from the trained
@@ -333,8 +336,9 @@ class ServeSession:
         x = embed(self.params["embed"], self._toks[:, None]).to(cfg.dtype)
         positions = self._lens.long()[:, None]
         for si in range(self.boundary + 1):
-            x = segment_forward(self.params, cfg, si, x, positions,
-                                self._pool, self._lens)
+            x, _ = segment_forward(self.params, cfg, si, x, positions,
+                                   self._pool, self._lens,
+                                   moe_groups=self.slots)
         e_logits = heads_mod.exit_head(
             self.params["exit_heads"][self.boundary], x, cfg)
         H, gate = self._gate.entropy_gate(e_logits, tau)

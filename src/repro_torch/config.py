@@ -2,8 +2,9 @@
 
 The JAX module imports ``jax.numpy`` for its dtype defaults, so the port
 keeps its own copy with torch dtypes.  Field names and defaults mirror the
-JAX ``SSMConfig``, ``ModelConfig``, ``HeteroProfile``, ``SplitEEConfig``,
-``OptimizerConfig`` and ``TrainConfig`` one for one (tests/test_torch_models.py
+JAX ``MoEConfig``, ``MLAConfig``, ``SSMConfig``, ``ModelConfig``,
+``HeteroProfile``, ``SplitEEConfig``, ``OptimizerConfig`` and
+``TrainConfig`` one for one (tests/test_torch_models.py
 and tests/test_torch_train.py check the field lists), so a config reads the
 same in both packages.
 """
@@ -16,6 +17,32 @@ from typing import Any, Optional, Tuple
 import torch
 
 KERNEL_CHOICES = ("auto", "ref")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration (``models/moe.py``)."""
+
+    num_experts: int
+    top_k: int
+    d_expert: int                       # hidden dim of each routed expert
+    num_shared_experts: int = 0         # DeepSeek-style always-on shared expert(s)
+    d_shared_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001    # load-balance loss weight
+    router_dtype: Any = torch.float32
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek Multi-head Latent Attention configuration (carried; the
+    MLA mixer is not ported yet)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -35,9 +62,10 @@ class SSMConfig:
 class ModelConfig:
     """One architecture.  ``block_pattern`` gives the per-layer mixer kind
     and ``ffn_pattern`` the per-layer FFN kind (see ``repro.config``).  The
-    port runs ``"attn"`` and ``"rwkv6"`` mixers with ``"mlp"`` and
-    ``"rwkv_cm"`` FFNs (``ssm`` an :class:`SSMConfig`); the sub-configs
-    ``moe`` and ``mla`` are carried for the mixers still to be ported.
+    port runs ``"attn"`` and ``"rwkv6"`` mixers with ``"mlp"``, ``"moe"``
+    and ``"rwkv_cm"`` FFNs (``moe`` a :class:`MoEConfig`, ``ssm`` an
+    :class:`SSMConfig`); ``mla`` is carried for the MLA mixer still to be
+    ported.
 
     ``kernels``: ``"auto"`` launches the CUDA kernels for CUDA tensors and
     their plain PyTorch versions for CPU tensors; ``"ref"`` runs the plain
@@ -54,8 +82,8 @@ class ModelConfig:
     head_dim: int = 0                  # 0 -> d_model // num_heads
     block_pattern: Tuple[str, ...] = ()    # defaults to all-"attn"
     ffn_pattern: Tuple[str, ...] = ()      # defaults to all-"mlp"
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rope_theta: float = 10000.0
     use_qkv_bias: bool = False

@@ -1,7 +1,8 @@
 """Architecture registry of the port (counterpart of ``repro/configs``).
 
-glm4-9b and rwkv6-3b are ported so far; every other id of the JAX registry raises a
-``ValueError`` that names the ROADMAP item it waits for."""
+glm4-9b, rwkv6-3b, the three dense configs and qwen3-moe are ported so far;
+every other id of the JAX registry raises a ``ValueError`` that names the
+ROADMAP item it waits for."""
 from __future__ import annotations
 
 import importlib
@@ -18,7 +19,8 @@ ARCH_IDS = (
     "paligemma_3b",
     "rwkv6_3b",
 )
-PORTED = ("glm4_9b", "rwkv6_3b")
+PORTED = ("phi3_medium_14b", "minitron_8b", "command_r_35b", "glm4_9b",
+          "qwen3_moe_235b_a22b", "rwkv6_3b")
 
 # CLI ids use dashes, matching the assignment table.
 CANONICAL = {a.replace("_", "-").replace("-1p2b", "-1.2b"): a for a in ARCH_IDS}

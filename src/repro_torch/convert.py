@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import to_numpy
-from repro_torch.config import ModelConfig, SSMConfig
+from repro_torch.config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.backbone import build_plan
 from repro_torch.optim import AdamState
@@ -61,10 +61,25 @@ def torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
+#: the sub-configs a ``ModelConfig`` holds, by field
+_SUB_CONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig}
+
+
+def _mapped(cls, jval):
+    """A JAX config dataclass -> the port's ``cls``, field by field, its
+    dtype fields mapped to torch's."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        val = getattr(jval, f.name)
+        kw[f.name] = torch_dtype(val) if f.name.endswith("dtype") else val
+    return cls(**kw)
+
+
 def config_from_jax(jcfg, **overrides) -> ModelConfig:
     """The port's ``ModelConfig`` with every field of a JAX ``ModelConfig``
-    (dtypes mapped, a JAX ``SSMConfig`` mapped field by field to the
-    port's; ``kernels`` keeps the port's default unless given)."""
+    (dtypes mapped; the JAX ``MoEConfig``, ``MLAConfig`` and ``SSMConfig``
+    mapped field by field to the port's; ``kernels`` keeps the port's
+    default unless given)."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
         if f.name == "kernels":
@@ -72,9 +87,8 @@ def config_from_jax(jcfg, **overrides) -> ModelConfig:
         val = getattr(jcfg, f.name)
         if f.name.endswith("dtype"):
             val = torch_dtype(val)
-        elif f.name == "ssm" and val is not None:
-            val = SSMConfig(**{g.name: getattr(val, g.name)
-                               for g in dataclasses.fields(SSMConfig)})
+        elif f.name in _SUB_CONFIGS and val is not None:
+            val = _mapped(_SUB_CONFIGS[f.name], val)
         kw[f.name] = val
     kw.update(overrides)
     return ModelConfig(**kw)

@@ -21,9 +21,16 @@ SyntheticSeqClsDataset``): ``x`` is ``(B, T)`` int32 tokens, labels are
 class ids below the vocab size, and the exit head and the LM head are
 scored at the last position, giving ``(B, V)`` logits.
 
-The port has the dense GQA and rwkv6 families.  MoE (whose router aux loss
-the JAX adapter adds to each side's loss), Zamba2's shared attention block
-and the Whisper frontend raise: they wait for ROADMAP.md Queue 1 item 7.
+MoE router load-balance aux losses ride the optional ``client_loss`` /
+``server_loss`` hooks (``core.strategies``): each side's training loss is
+its cross-entropy plus the aux total of its own segments (weighted by the
+config's ``router_aux_weight`` inside ``models.moe.route``), so routers on
+both sides of the cut stay balanced, while evaluation logits stay
+aux-free.
+
+The port has the dense GQA, MoE and rwkv6 families.  Zamba2's shared
+attention block and the Whisper frontend raise: they wait for ROADMAP.md
+Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -33,11 +40,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.losses import softmax_cross_entropy
 from repro_torch.core.splitee import _seeded, _StackMixin, own_copy
 from repro_torch.device import resolve_device
 from repro_torch.models import heads as heads_mod
-from repro_torch.models.backbone import (build_plan, init_backbone,
-                                         segment_forward)
+from repro_torch.models.backbone import (add_aux, build_plan,
+                                         init_backbone, segment_forward)
 from repro_torch.models.common import embed
 from repro_torch.tree import tree_map
 
@@ -47,8 +55,6 @@ _ITEM7 = ("waits for ROADMAP.md Queue 1 item 7 (remaining mixers and the "
 
 def unsupported_reason(cfg: ModelConfig):
     """Why the port's adapter cannot split ``cfg`` yet, or ``None``."""
-    if cfg.moe is not None or cfg.arch_type == "moe":
-        return f"{cfg.name}: MoE blocks and their router aux loss {_ITEM7}"
     if "shared_attn" in cfg.block_pattern:
         return f"{cfg.name}: Zamba2's shared attention block {_ITEM7}"
     if cfg.cross_attention:
@@ -124,20 +130,50 @@ class BackboneSplitModel(_StackMixin):
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         return torch.arange(x.shape[1], device=x.device)[None]
 
-    def client_forward(self, trainable, state, x, train: bool):
+    def _client_run(self, trainable, x):
+        """(h, last-position exit logits, aux total over the client's
+        segments, ``None`` without a router)."""
         h = embed(trainable["embed"], x).to(self.cfg.dtype)
         positions = self._positions(h)
         params = {"segments": trainable["segments"]}
+        aux = None
         for si in range(len(trainable["segments"])):
-            h = segment_forward(params, self.cfg, si, h, positions)
+            h, a = segment_forward(params, self.cfg, si, h, positions)
+            aux = add_aux(aux, a)
         logits = heads_mod.exit_head(trainable["out"], h[:, -1], self.cfg)
-        return h, logits, state
+        return h, logits, aux
 
-    def server_forward(self, trainable, state, h, li: int, train: bool):
+    def _server_run(self, trainable, h, li: int):
+        """(last-position head logits, aux total over the server's
+        segments, ``None`` without a router)."""
         b = self._boundary_of(li)
         h = h.to(self.cfg.dtype)
         positions = self._positions(h)
+        aux = None
         for si in range(b + 1, len(self.plan)):
-            h = segment_forward({"segments": {si: trainable[f"seg{si}"]}},
-                                self.cfg, si, h, positions)
-        return heads_mod.lm_head(trainable["head"], h[:, -1], self.cfg), state
+            h, a = segment_forward({"segments": {si: trainable[f"seg{si}"]}},
+                                   self.cfg, si, h, positions)
+            aux = add_aux(aux, a)
+        return heads_mod.lm_head(trainable["head"], h[:, -1], self.cfg), aux
+
+    def client_forward(self, trainable, state, x, train: bool):
+        h, logits, _ = self._client_run(trainable, x)
+        return h, logits, state
+
+    def server_forward(self, trainable, state, h, li: int, train: bool):
+        logits, _ = self._server_run(trainable, h, li)
+        return logits, state
+
+    # ------------------------------------------------------- training losses
+    def client_loss(self, trainable, state, x, y):
+        """The ``core.strategies`` client-loss hook: the exit head's
+        cross-entropy plus the client segments' router aux total."""
+        h, logits, aux = self._client_run(trainable, x)
+        return add_aux(softmax_cross_entropy(logits, y), aux), (h, state)
+
+    def server_loss(self, trainable, state, h, li: int, y):
+        """The server-loss hook: the final head's cross-entropy plus the
+        server segments' router aux total (as ``core.spmd.hetero_losses``
+        adds ``aux_loss`` to the monolithic server loss)."""
+        logits, aux = self._server_run(trainable, h, li)
+        return add_aux(softmax_cross_entropy(logits, y), aux), state

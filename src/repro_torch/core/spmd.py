@@ -108,7 +108,8 @@ def hetero_losses(out: BackboneOutput, labels: torch.Tensor,
                              Dict[str, torch.Tensor]]:
     """(client_total, server_total, metrics).  ``client_total`` sums each
     boundary's masked-mean exit CE (one term per client group family);
-    ``server_total`` is the final-head CE over all examples."""
+    ``server_total`` is the final-head CE over all examples plus the MoE
+    router aux loss (reported as ``metrics["aux_loss"]``)."""
     client_total = torch.zeros((), device=labels.device)
     metrics: Dict[str, torch.Tensor] = {}
     for b in range(num_boundaries):
@@ -120,7 +121,8 @@ def hetero_losses(out: BackboneOutput, labels: torch.Tensor,
         metrics[f"client_loss/b{b}"] = ce
     server_loss = softmax_cross_entropy(out.logits, labels)
     metrics["server_loss"] = server_loss
-    return client_total, server_loss, metrics
+    metrics["aux_loss"] = out.aux_loss
+    return client_total, server_loss + out.aux_loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +194,8 @@ def make_grad_step(sc: StepConfig) -> Callable:
     """Builds ``grad_step(params, batch) -> (grads, metrics)``: the
     gradients :func:`make_train_step` hands to Adam, one per leaf of
     ``tree_leaves(params)`` (``None`` for a leaf that gets none), and the
-    metrics ``client_loss/b{i}`` and ``server_loss`` (0-d tensors on the
-    device).  ``batch`` as for :func:`make_train_step`."""
+    metrics ``client_loss/b{i}``, ``server_loss`` and ``aux_loss`` (0-d
+    tensors on the device).  ``batch`` as for :func:`make_train_step`."""
     _check_grad_mode(sc.grad_mode)
     cfg = sc.model
     nb = len(cfg.exit_layers)
@@ -227,8 +229,8 @@ def make_train_step(sc: StepConfig) -> Callable:
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`make_grad_step`'s gradients, then Adam.  ``batch`` =
     {"tokens": (B, T), "labels": (B, T), "split_ids": (B,)} on the
-    parameters' device.  Metrics: ``client_loss/b{i}`` and ``server_loss``
-    (0-d tensors on the device) and ``lr`` (a float)."""
+    parameters' device.  Metrics: ``client_loss/b{i}``, ``server_loss``
+    and ``aux_loss`` (0-d tensors on the device) and ``lr`` (a float)."""
     grad_step = make_grad_step(sc)
     schedule = make_schedule(sc.train.optimizer)
 
@@ -434,7 +436,10 @@ def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:
     ``backbone_forward`` emits ``exit_logits`` in.  The returned
     ``serve_step(params, tokens, cache, cache_len, tau=None)`` takes
     ``tau`` as a float or one threshold per row on the device (defaults to
-    ``sc.splitee.entropy_threshold``); ``cache`` is updated in place."""
+    ``sc.splitee.entropy_threshold``); ``cache`` is updated in place.
+    MoE blocks route each row alone (one routing group per slot), as the
+    JAX ``ServeSession``'s ``vmap`` of a one-row step does: a slot's
+    capacity and drops never depend on which requests share its tick."""
     cfg = sc.model
     tau_default = sc.splitee.entropy_threshold
     backend = dispatch.backend_for(cfg)
@@ -442,7 +447,8 @@ def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:
     def serve_step(params, tokens, cache, cache_len, tau=None):
         tau_ = tau_default if tau is None else tau
         out = backbone_forward(params, cfg, tokens=tokens, cache=cache,
-                               cache_len=cache_len, exit_heads=(boundary,))
+                               cache_len=cache_len, exit_heads=(boundary,),
+                               moe_groups=tokens.shape[0])
         if cfg.exit_layers:
             e_logits = out.exit_logits[boundary]
             H, exit_now = backend.entropy_gate(e_logits, tau_)   # (B, T)

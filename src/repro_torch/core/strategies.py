@@ -61,8 +61,15 @@ def masked_update(mask: torch.Tensor, new_tree, old_tree):
 
 
 def client_loss_fn(model) -> Callable:
-    """``(trainable, state, x, y) -> (loss, (h, new_state))``: the exit
-    head's cross-entropy."""
+    """``(trainable, state, x, y) -> (loss, (h, new_state))``: the
+    adapter's ``client_loss`` hook where it has one (``BackboneSplitModel``
+    adds its client segments' MoE router aux loss there), else the exit
+    head's cross-entropy.  Evaluation never calls the hook: the aux loss
+    regularises training only."""
+    custom = getattr(model, "client_loss", None)
+    if custom is not None:
+        return custom
+
     def loss_fn(trainable, state, x, y):
         h, logits, new_state = model.client_forward(trainable, state, x,
                                                     train=True)
@@ -72,8 +79,15 @@ def client_loss_fn(model) -> Callable:
 
 
 def server_loss_fn(model, li: int) -> Callable:
-    """``(trainable, state, h, y) -> (loss, new_state)``: the final
-    head's cross-entropy for a server cut at ``li``."""
+    """``(trainable, state, h, y) -> (loss, new_state)`` for a server cut
+    at ``li``: the adapter's ``server_loss(trainable, state, h, li, y)``
+    hook where it has one, else the final head's cross-entropy."""
+    custom = getattr(model, "server_loss", None)
+    if custom is not None:
+        def hooked(trainable, state, h, y):
+            return custom(trainable, state, h, li, y)
+        return hooked
+
     def loss_fn(trainable, state, h, y):
         logits, new_state = model.server_forward(trainable, state, h, li,
                                                  train=True)

@@ -8,7 +8,9 @@
 // rescaling S and U by e^{m_old - m_new} on a new max, and finishes with
 //     H = m + log S - U / S   (S clamped >= 1e-30),   exit = H < tau[row].
 // The (B, V) softmax is never written to memory.  A -inf element adds 0 to
-// S and U; a row or slice of -inf only is the empty triple (m = -inf).
+// S and 0 * -inf = NaN to U, so a row holding one has H = NaN and does not
+// exit, as the JAX kernel's p log p gives it (and the plain version's);
+// a row of -inf only has m = -inf throughout and H = NaN as well.
 //
 // Bound on this card: bytes (each logit read once, a few operations on
 // it).  At glm4-9b's serve shape, 8 rows of 151552 bf16 (2.4 MB), that is
@@ -49,7 +51,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -110,10 +111,12 @@ struct Triple {
   float m, s, u;
 };
 
-// Merge two partial (m, S, U) triples; an empty triple has m = -inf.
+// Merge two partial (m, S, U) triples; an empty triple has m = -inf.  Two
+// triples with m = -inf (empty, or -inf entries only: S = 0, U = 0 or NaN)
+// merge by adding their U, so a NaN is kept.
 __device__ __forceinline__ Triple merge(Triple a, Triple b) {
   const float m = fmaxf(a.m, b.m);
-  if (m == -INFINITY) return a;
+  if (m == -INFINITY) return {m, 0.f, a.u + b.u};
   const float fa =
       (a.m == -INFINITY) ? 0.f : hopper::exp2_ftz((a.m - m) * kLog2e);
   const float fb =
@@ -132,7 +135,8 @@ __device__ __forceinline__ Triple shfl_merge(Triple t, int off) {
 // Adds N elements to a thread's triple: the max first (one rescale at
 // most), then every element without a branch.  x * log2e - m * log2e
 // keeps each exponent <= 0 up to rounding; a -inf element gives e = 0 and
-// adds 0 * (-FLT_MAX) to U.
+// adds fma(0, -inf) = NaN to U (the rescales and merges keep a NaN: 0 x NaN
+// is NaN).
 template <int N>
 __device__ __forceinline__ void accumulate(Triple& t, const float (&x)[N]) {
   float vm = x[0];
@@ -148,7 +152,7 @@ __device__ __forceinline__ void accumulate(Triple& t, const float (&x)[N]) {
   for (int j = 0; j < N; ++j) {
     const float e = hopper::exp2_ftz(fmaf(x[j], kLog2e, -mb));
     t.s += e;
-    t.u = fmaf(e, fmaxf(x[j], -FLT_MAX), t.u);
+    t.u = fmaf(e, x[j], t.u);
   }
 }
 

@@ -64,11 +64,9 @@ def entropy_exit(logits: torch.Tensor, tau):
     thresholds -> ``(entropy (B,) float32, exit (B,) int32)``, exit iff
     H < tau.  ``tau`` stays on the device: reading it does not sync.
 
-    The answer at a -inf logit depends on the device.  On the card such a
-    logit adds 0 to the kernel's sums: a row with -inf entries has a finite
-    H, and a row of -inf only has H = -inf and exits.  On the CPU the plain
-    version computes p log p = 0 x -inf = NaN there, as the JAX kernel
-    does: either row's H is NaN and it never exits."""
+    A row holding a -inf logit, or of -inf only, has H = NaN and never
+    exits, on either device: p log p = 0 x -inf = NaN there, as the JAX
+    kernel computes it."""
     if logits.ndim != 2:
         raise ValueError(f"entropy_exit expects (B, V) logits, got "
                          f"{tuple(logits.shape)}")

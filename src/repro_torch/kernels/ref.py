@@ -135,9 +135,9 @@ def gate_slice_bounds(vocab: int, splits: int):
 
 def gate_slice_triples(logits, splits: int):
     """Each slice's ``(m, S, U)``, each (B,) fp32: m its max, S = sum
-    e^{x-m}, U = sum e^{x-m} x.  A -inf element adds 0 to S and U; an
-    empty slice, or one of -inf only, is the empty triple (m = -inf,
-    S = U = 0)."""
+    e^{x-m}, U = sum e^{x-m} x.  A -inf element adds 0 to S and 0 * -inf
+    = NaN to U, as in the kernel; an empty slice is the empty triple
+    (m = -inf, S = U = 0)."""
     x = logits.float()
     B, V = x.shape
     triples = []
@@ -149,15 +149,16 @@ def gate_slice_triples(logits, splits: int):
         xs = x[:, lo:hi]
         m = xs.max(dim=-1).values
         e = torch.exp(xs - torch.where(m == -torch.inf, 0.0, m)[:, None])
-        u = (e * xs.clamp(min=torch.finfo(torch.float32).min)).sum(dim=-1)
+        u = (e * xs).sum(dim=-1)
         triples.append((m, e.sum(dim=-1), u))
     return triples
 
 
 def gate_merge(triples):
     """The kernel's merge of the slices' triples: the row's max M, then
-    each slice's S and U rescaled by e^{m - M} (0 for an empty slice) and
-    summed in rank order.  Returns ``(M, S, U)``."""
+    each slice's S and U rescaled by e^{m - M} (0 for a slice with m =
+    -inf, whose NaN U stays NaN) and summed in rank order.  Returns
+    ``(M, S, U)``."""
     M = torch.stack([m for m, _, _ in triples]).max(dim=0).values
     S = torch.zeros_like(M)
     U = torch.zeros_like(M)
@@ -172,8 +173,9 @@ def entropy_exit_split_ref(logits, tau, splits: int):
     """Plain mirror of the kernel's algorithm: per-slice triples at its
     slice bounds (:func:`gate_slice_bounds`), merged as it merges them
     (:func:`gate_merge`), finished as it finishes, H = M + log S - U / S
-    with S clamped >= 1e-30.  Same outputs as :func:`entropy_exit_ref`;
-    no path runs it (the tests hold it against the JAX package)."""
+    with S clamped >= 1e-30.  Same outputs as :func:`entropy_exit_ref`,
+    NaN where a row holds a -inf logit; no path runs it (the tests hold it
+    against the JAX package)."""
     M, S, U = gate_merge(gate_slice_triples(logits, splits))
     S = S.clamp(min=1e-30)
     H = M + torch.log(S) - U / S

@@ -8,7 +8,9 @@ The JAX package stacks runs of identical layers and drives them with
 (``params["segments"][si][li]``) and loops over them in Python.
 Training passes ``split_ids``: each example's residual stream is cut from
 the gradient at its own boundary (the paper's routing), and ``remat``
-recomputes each block's activations in the backward pass.
+recomputes each block's activations in the backward pass.  MoE blocks'
+router aux losses are summed per segment, then over the segments, as the
+JAX package sums them per run.
 """
 from __future__ import annotations
 
@@ -95,29 +97,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 class BackboneOutput:
     logits: torch.Tensor                               # final (server) logits
     exit_logits: Tuple[Optional[torch.Tensor], ...]    # one per exit boundary
+    aux_loss: torch.Tensor                             # MoE load balance, fp32
     cache: Optional[list]                              # updated in place
+
+
+def add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]
+            ) -> Optional[torch.Tensor]:
+    """``total + aux``, where ``None`` stands for no router loss."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[list] = None,
                     cache_len: Optional[torch.Tensor] = None,
-                    remat: bool = False) -> torch.Tensor:
-    """The layers of segment ``si``; their caches are updated in place.
-    ``remat`` checkpoints each block (no cache): its activations are
-    recomputed in the backward pass instead of kept."""
+                    remat: bool = False, moe_groups: int = 1
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layers of segment ``si`` -> ``(x, aux)``: ``aux`` sums the MoE
+    blocks' router losses (``None`` in a segment without one).  The
+    caches are updated in place.  ``remat`` checkpoints each block (no
+    cache): its activations are recomputed in the backward pass instead of
+    kept.  ``moe_groups``: the routing groups of ``models/moe.py``."""
+    aux = None
     for li, (mixer, ffn) in enumerate(segment_layers(cfg, si)):
         p = params["segments"][si][li]
         if remat:
-            x = checkpoint(
+            x, a = checkpoint(
                 lambda h, p=p, mixer=mixer, ffn=ffn: blocks_mod.block_forward(
-                    p, h, positions, cfg, mixer, ffn)[0],
+                    p, h, positions, cfg, mixer, ffn,
+                    moe_groups=moe_groups)[::2],
                 x, use_reentrant=False)
-            continue
-        x, _ = blocks_mod.block_forward(
-            p, x, positions, cfg, mixer, ffn,
-            cache=cache[si][li] if cache is not None else None,
-            cache_len=cache_len)
-    return x
+        else:
+            x, _, a = blocks_mod.block_forward(
+                p, x, positions, cfg, mixer, ffn,
+                cache=cache[si][li] if cache is not None else None,
+                cache_len=cache_len, moe_groups=moe_groups)
+        aux = add_aux(aux, a)
+    return x, aux
 
 
 def backbone_forward(params: dict, cfg: ModelConfig, *,
@@ -126,7 +143,8 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                      cache: Optional[list] = None,
                      cache_len: Optional[torch.Tensor] = None,
                      exit_heads: Optional[Iterable[int]] = None,
-                     remat: bool = False) -> BackboneOutput:
+                     remat: bool = False,
+                     moe_groups: int = 1) -> BackboneOutput:
     """Run the full network.
 
     tokens     : (B, T) integers.
@@ -142,6 +160,10 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                  Under ``jit`` XLA drops exit heads nobody reads; eager
                  PyTorch is told instead.
     remat      : recompute each block in the backward pass (training only).
+    moe_groups : routing groups the rows form in MoE blocks (``models/
+                 moe.py``): 1 routes the whole batch together, as training
+                 does; ``B`` routes each row alone, as a decode tick does.
+    ``aux_loss`` sums the MoE blocks' router losses (0 without any).
     """
     if remat and cache is not None:
         raise ValueError("remat applies to training; a decode cache was "
@@ -154,9 +176,11 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                  else cache_len.long()[:, None] + steps)
 
     exit_logits: List[Optional[torch.Tensor]] = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si in range(n_seg):
-        x = segment_forward(params, cfg, si, x, positions, cache, cache_len,
-                            remat)
+        x, aux = segment_forward(params, cfg, si, x, positions, cache,
+                                 cache_len, remat, moe_groups)
+        aux_total = add_aux(aux_total, aux)
         if si < n_seg - 1:
             exit_logits.append(
                 heads_mod.exit_head(params["exit_heads"][si], x, cfg)
@@ -166,4 +190,4 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                 x = torch.where(is_cut, x.detach(), x)
     logits = heads_mod.lm_head(params["head"], x, cfg)
     return BackboneOutput(logits=logits, exit_logits=tuple(exit_logits),
-                          cache=cache)
+                          aux_loss=aux_total, cache=cache)

@@ -1,7 +1,7 @@
 """One pre-norm residual block = mixer + FFN (counterpart of
 ``repro/models/blocks.py``).  The port runs ``"attn"`` (GQA) and
-``"rwkv6"`` mixers and ``"mlp"`` and ``"rwkv_cm"`` FFNs; every other kind
-raises ``NotImplementedError``."""
+``"rwkv6"`` mixers and ``"mlp"``, ``"moe"`` and ``"rwkv_cm"`` FFNs; every
+other kind raises ``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import init_rmsnorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp_forward
@@ -19,7 +20,9 @@ _PENDING = ("not ported to repro_torch yet; see ROADMAP.md Queue 1, "
 
 
 MIXERS = ("attn", "rwkv6")
-FFNS = ("mlp", "rwkv_cm")
+FFNS = ("mlp", "moe", "rwkv_cm")
+FFN_INIT = {"mlp": init_mlp, "moe": moe_mod.init_moe,
+            "rwkv_cm": ssm_mod.init_rwkv_cm}
 
 
 def check_kinds(cfg: ModelConfig, mixer: str, ffn: str) -> None:
@@ -36,11 +39,10 @@ def init_block(cfg: ModelConfig, mixer: str, ffn: str, generator,
     check_kinds(cfg, mixer, ffn)
     init_mixer = (attn_mod.init_gqa if mixer == "attn"
                   else ssm_mod.init_rwkv6)
-    init_ffn = init_mlp if ffn == "mlp" else ssm_mod.init_rwkv_cm
     return {"norm1": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
             "mixer": init_mixer(cfg, generator, device),
             "norm2": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
-            "ffn": init_ffn(cfg, generator, device)}
+            "ffn": FFN_INIT[ffn](cfg, generator, device)}
 
 
 def init_block_cache(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
@@ -61,8 +63,13 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, mixer: str, ffn: str, *,
                   cache: Optional[dict] = None,
                   cache_len: Optional[torch.Tensor] = None,
-                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, cache); the cache is updated in place."""
+                  moe_groups: int = 1,
+                  ) -> Tuple[torch.Tensor, Optional[dict],
+                             Optional[torch.Tensor]]:
+    """Returns (x, cache, aux); the cache is updated in place.  ``aux`` is
+    the MoE router's load-balance loss (fp32 scalar), ``None`` for a block
+    without a router; a ``"moe"`` FFN routes the rows in ``moe_groups``
+    groups (``models/moe.py``)."""
     check_kinds(cfg, mixer, ffn)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     mc = cache["mixer"] if cache else None
@@ -73,11 +80,14 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
         m, _ = ssm_mod.rwkv6_forward(params["mixer"], h, cfg, cache=mc)
     x = x + m
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    aux = None
     if ffn == "mlp":
         f = mlp_forward(params["ffn"], h2, cfg)
+    elif ffn == "moe":
+        f, aux = moe_mod.moe_forward(params["ffn"], h2, cfg, moe_groups)
     else:
         f = ssm_mod.rwkv_cm_forward(params["ffn"], h2, cfg,
                                     last=cache["cm_last"] if cache else None)
         if cache:
             cache["cm_last"].copy_(h2[:, -1:])
-    return x + f, cache
+    return x + f, cache, aux

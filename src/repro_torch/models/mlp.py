@@ -9,8 +9,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.common import activation, fan_in_init
 
 
-def init_mlp(cfg: ModelConfig, generator, device) -> dict:
-    d, dff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, generator, device, d_ff: int = 0) -> dict:
+    d, dff = cfg.d_model, d_ff or cfg.d_ff
     p = {
         "w_gate": fan_in_init((d, dff), cfg.param_dtype, generator, device),
         "w_up": fan_in_init((d, dff), cfg.param_dtype, generator, device),

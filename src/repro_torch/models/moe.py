@@ -1,0 +1,185 @@
+"""Mixture-of-experts FFN: top-k routing and capacity-based dispatch
+(counterpart of ``repro/models/moe.py``).
+
+``moe_forward`` takes the tokens as ``groups`` routing groups: each group
+is routed, capacity-limited and combined on its own, as one call of the
+JAX ``moe_forward`` on that group's tokens would be.  Training routes its
+whole batch as one group (the JAX step's one call); under
+``torch.func.vmap`` (the fused engine's lanes) each lane is a call of its
+own; a serve decode tick routes each slot alone (one group per row), as
+the JAX ``ServeSession``'s ``vmap`` over slots does.
+
+Dispatch, per group of N tokens, capacity ``C = expert_capacity(N)``:
+the N x k (token, expert) entries are sorted by expert (stable), each
+entry's rank within its expert's run decides whether it keeps a slot,
+and each expert's C slots gather their rows.  The groups are then folded
+into each expert's capacity axis, so the expert FFNs stay one batched
+product over E for the whole batch: each expert's weights are read once.
+The combine gathers each entry's expert output back to (N, k) and adds a
+token's k contributions in ascending expert order in ``x.dtype``, the
+order the JAX ``.at[sorted_tok].add`` adds them in on the CPU.  No
+atomics and no in-place writes: the same input gives the same bits, and
+every op has a batching rule under ``vmap``.
+
+``moe_forward_dense`` is the O(N * E) oracle (no capacity), for the tests.
+
+The aux load-balance loss follows Switch: E * sum_e f_e * P_e * weight.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.models.common import activation, fan_in_init
+from repro_torch.models.mlp import init_mlp, mlp_forward
+
+
+def init_moe(cfg: ModelConfig, generator, device) -> dict:
+    m: MoEConfig = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.d_expert
+    p = {
+        "router": fan_in_init((d, E), torch.float32, generator, device),
+        # stacked expert weights: (E, d, d_expert) / (E, d_expert, d)
+        "w_gate": fan_in_init((E, d, f), cfg.param_dtype, generator, device,
+                              fan_in=d),
+        "w_up": fan_in_init((E, d, f), cfg.param_dtype, generator, device,
+                            fan_in=d),
+        "w_down": fan_in_init((E, f, d), cfg.param_dtype, generator, device,
+                              fan_in=f),
+    }
+    if m.num_shared_experts > 0:
+        p["shared"] = init_mlp(cfg, generator, device,
+                               d_ff=m.d_shared_expert * m.num_shared_experts)
+    return p
+
+
+@contextlib.contextmanager
+def _fp32_products():
+    """fp32 matrix products at full precision (no TF32) while the block
+    runs: the top-k choice is discontinuous in the router logits."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def route(params: dict, x: torch.Tensor, m: MoEConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (..., N, d) -> (top_idx (..., N, k), top_w (..., N, k) in
+    ``x.dtype``, aux (...,) fp32), one routing group per leading index.
+    f (each expert's share of the N * k choices) carries no gradient; P
+    (the mean probability) does."""
+    with _fp32_products():
+        logits = x.to(m.router_dtype) @ params["router"].to(m.router_dtype)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = probs.topk(m.top_k, dim=-1)
+    topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)  # renormalize
+    N = x.shape[-2]
+    experts = torch.arange(m.num_experts, device=x.device)
+    counts = (topi[..., None] == experts).to(torch.float32).sum((-3, -2))
+    f = counts * (1.0 / (N * m.top_k))
+    P = probs.mean(dim=-2)
+    aux = m.num_experts * (f * P).sum(-1) * m.router_aux_weight
+    return topi, topv.to(x.dtype), aux
+
+
+def expert_capacity(num_tokens: int, m: MoEConfig) -> int:
+    c = math.ceil(num_tokens * m.top_k / m.num_experts * m.capacity_factor)
+    return max(4, int(c))
+
+
+def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, d) -> (out (B, T, d), aux fp32 scalar: the mean of the
+    groups' aux losses).  The B rows form ``groups`` routing groups of
+    B / groups rows each."""
+    m: MoEConfig = cfg.moe
+    B, T, d = x.shape
+    if groups < 1 or B % groups:
+        raise ValueError(f"{cfg.name}: {B} rows do not split into "
+                         f"{groups} routing groups")
+    G, N = groups, B * T // groups
+    k, E = m.top_k, m.num_experts
+    C = expert_capacity(N, m)
+    xg = x.reshape(G, N, d)
+    topi, topw, aux = route(params, xg, m)
+
+    # ---- dispatch: sort the N*k entries by expert, rank them ---------------
+    flat_e = topi.reshape(G, N * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)       # sorted -> entry
+    experts = torch.arange(E, device=x.device)
+    load = (flat_e[..., None] == experts).sum(-2)            # (G, E)
+    starts = torch.cumsum(load, -1) - load                   # first sorted pos
+    # Capacity, as the JAX package computes it on the CPU
+    # (src/repro/models/moe.py:94-100): a dropped entry's slot is clipped to
+    # the expert's last one, e*C + C-1, and scattered as a zero row with
+    # unique_indices=False; XLA:CPU applies the writes in order, so the last
+    # (a zero row) wins.  An expert whose load exceeds C therefore keeps
+    # only its first C-1 entries in the stable sorted order.  Mirrored here
+    # without the racing scatter; ROADMAP.md Queue 3 records it.
+    kept = torch.where(load > C, C - 1, load)                # (G, E)
+
+    # each expert's C slots gather their rows from the sorted entries
+    c_idx = torch.arange(C, device=x.device)
+    valid = c_idx < kept[..., None]                          # (G, E, C)
+    src = torch.where(valid, starts[..., None] + c_idx, 0).reshape(G, E * C)
+    entry = order.gather(-1, src)                            # (G, E*C)
+    # rows by entry, not by token: each entry is gathered at most once, so
+    # the backward scatters to unique rows (a token's k copies are summed
+    # by the expand's backward, a plain reduction)
+    xe = xg[:, :, None, :].expand(G, N, k, d).reshape(G, N * k, d)
+    rows = xe.gather(1, entry[..., None].expand(G, E * C, d))
+    rows = torch.where(valid.reshape(G, E * C, 1), rows, 0)
+    # the groups folded into each expert's capacity axis: (E, G*C, d)
+    buf = rows.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+
+    # ---- expert FFNs, one batched product over E ---------------------------
+    act = activation(cfg.act)
+    h = act(torch.matmul(buf, params["w_gate"])) * torch.matmul(
+        buf, params["w_up"])
+    eout = torch.matmul(h, params["w_down"])                 # (E, G*C, d)
+    eout = eout.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+
+    # ---- combine: each entry's output, added in ascending expert order -----
+    pos = torch.argsort(order, dim=-1)                       # entry -> sorted
+    rank = pos - starts.gather(-1, flat_e)
+    keep = rank < kept.gather(-1, flat_e)
+    slot = torch.where(keep, flat_e * C + rank, 0)
+    contrib = eout.gather(1, slot[..., None].expand(G, N * k, d))
+    w = topw.reshape(G, N * k) * keep.to(x.dtype)
+    contrib = (contrib * w[..., None]).reshape(G, N, k, d)
+    by_expert = torch.argsort(topi, dim=-1)                  # (G, N, k)
+    contrib = contrib.gather(2, by_expert[..., None].expand(G, N, k, d))
+    out = contrib[:, :, 0]
+    for j in range(1, k):
+        out = out + contrib[:, :, j]
+    out = out.reshape(B, T, d)
+    if "shared" in params:
+        out = out + mlp_forward(params["shared"], x, cfg)
+    return out.to(x.dtype), aux.mean()
+
+
+def moe_forward_dense(params: dict, x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O(N*E) oracle (no capacity drops), for the tests: every expert on
+    every token, weighted by the routing's combine matrix."""
+    m: MoEConfig = cfg.moe
+    B, T, d = x.shape
+    act = activation(cfg.act)
+    xf = x.reshape(B * T, d)
+    topi, topw, aux = route(params, xf, m)
+    combine = torch.zeros((B * T, m.num_experts), dtype=x.dtype,
+                          device=x.device).scatter(-1, topi, topw)
+    h = act(torch.einsum("nd,edf->nef", xf, params["w_gate"])) * \
+        torch.einsum("nd,edf->nef", xf, params["w_up"])
+    eout = torch.einsum("nef,efd->ned", h, params["w_down"])
+    out = torch.einsum("ned,ne->nd", eout, combine).reshape(B, T, d)
+    if "shared" in params:
+        out = out + mlp_forward(params["shared"], x, cfg)
+    return out.to(x.dtype), aux

@@ -38,8 +38,14 @@ TOL_H_BF16 = 3e-3
 TOL_GRAD_BF16 = 5e-2
 # eq1 losses (averages over the batch's tokens) over three Adam steps, by
 # config family: sound 8.4e-4 (glm4-9b) and 3.5e-3 (rwkv6), the faults
-# 2.7e-3 and 1.5e-2
-TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3}
+# 2.7e-3 and 1.5e-2.  The three dense configs' smokes are glm4-9b's smoke
+# with other GQA groups (the same kernels, products and widths): they hold
+# its limit.  qwen3-moe's smoke routes each token to 2 of 4 experts from
+# fp32 router logits of bf16 hidden states, where the kernels and the
+# plain versions round differently; it holds glm4-9b's limit as well
+TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3,
+                 "phi3_medium_14b": 1.5e-3, "minitron_8b": 1.5e-3,
+                 "command_r_35b": 1.5e-3, "qwen3_moe_235b_a22b": 1.5e-3}
 # the training comparisons' setup: exits (1, 2) over client groups
 # (1, 1, 2, 2), Adam at lr 1e-3 over a 6-step schedule, 3 steps of 8 x 32
 # tokens from ``smoke_batches``
@@ -51,7 +57,7 @@ TRAIN_LR, TRAIN_STEPS, TRAIN_SEQ = 1e-3, 3, 32
 # view at storage offset 1 with row stride V + 3 (no row on 16 bytes); "max
 # last" puts each row's max (8 above the rest) in its last split; "-inf"
 # sets a tenth of the entries and the first half of row 0 (whole slices of
-# -inf only) to -inf
+# -inf only) and all of row 1 to -inf (see ``gate_logits``)
 GATE_LAYOUTS = ("misaligned", "max last", "-inf")
 # rows of the cases that reach every cluster size (gate_cluster_vocab)
 GATE_CLUSTER_ROWS = 3
@@ -69,17 +75,16 @@ def gate_logits(gen, dtype, B: int, V: int, layout: Optional[str] = None):
         rows = torch.arange(B, device=dev)
         x[rows, V - 1 - rows % min(V, 8)] = (x.float().amax() + 8).to(dtype)
     elif layout == "-inf":
-        off = torch.rand(B, V, generator=gen, device=dev) < 0.1
+        # row 0: a tenth of its entries and its first half (whole slices)
+        # -inf; row 1 (when there are 3 rows or more): -inf only; the rest
+        # finite.  Both kinds of row have H = NaN and never exit
+        off = torch.zeros(B, V, dtype=torch.bool, device=dev)
+        off[0] = torch.rand(V, generator=gen, device=dev) < 0.1
         off[0, :V // 2] = True
+        if B >= 3:
+            off[1] = True
         x = x.masked_fill(off, -torch.inf)
     return x
-
-
-def gate_plain_input(x: torch.Tensor) -> torch.Tensor:
-    """The plain version's input for ``x``: a -inf logit adds 0 to the
-    kernel's sums, where the plain version's p log p is 0 * -inf = NaN;
-    -1e4 has p = 0 in fp32 as well, so it stands in for -inf there."""
-    return x.masked_fill(x.isneginf(), -1e4)
 
 
 def gate_thresholds(H: torch.Tensor) -> torch.Tensor:
@@ -185,6 +190,70 @@ def stream_parity(got: Dict[int, ServeResult], wants: Sequence[ServeResult],
                 break
             out.compared += 1
     return out
+
+
+@dataclass
+class Routes:
+    """The MoE routing of one run, recorded for another (``pinned_routes``):
+    each ``models.moe.route`` call's top-k choice in call order, and, for
+    a replaying run, how many of its token choices its own top-k would
+    have made otherwise."""
+    choices: List[torch.Tensor] = field(default_factory=list)
+    calls: int = 0
+    flipped: int = 0
+    tokens: int = 0
+
+
+@contextmanager
+def pinned_routes(routes: Routes, replay: bool):
+    """MoE routing held fixed across two runs that must differ in their
+    kernels only.  Top-k routing is discontinuous: where the kernels' and
+    the plain versions' bf16 hidden states straddle a router near-tie, a
+    token takes other experts and its output moves by O(1), whatever the
+    kernels' accuracy.  ``replay=False`` records each ``route`` call's
+    choice; ``replay=True`` makes the i-th call choose the i-th recorded
+    experts, its weights (renormalised) and aux loss from its own
+    probabilities, and counts the tokens whose own top-k differs.  Every
+    run between the two must call ``route`` in the same order (the same
+    model, batches and steps); no ``vmap``.  The router's own arithmetic
+    is ``models.moe.route``'s."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def recording(params, x, m):
+        topi, topw, aux = real(params, x, m)
+        routes.choices.append(topi.detach())
+        return topi, topw, aux
+
+    def replaying(params, x, m):
+        own, _, _ = real(params, x, m)
+        topi = routes.choices[routes.calls]
+        routes.calls += 1
+        with moe._fp32_products():
+            logits = x.to(m.router_dtype) @ params["router"].to(
+                m.router_dtype)
+        probs = torch.softmax(logits, dim=-1)
+        topv = probs.gather(-1, topi)
+        topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+        N = x.shape[-2]
+        experts = torch.arange(m.num_experts, device=x.device)
+        counts = (topi[..., None] == experts).to(torch.float32).sum(
+            (-3, -2))
+        P = probs.mean(dim=-2)
+        aux = m.num_experts * (counts * (1.0 / (N * m.top_k)) * P).sum(
+            -1) * m.router_aux_weight
+        same = (own.sort(-1).values == topi.sort(-1).values).all(-1)
+        routes.flipped += int((~same).sum())
+        routes.tokens += same.numel()
+        return topi, topv.to(x.dtype), aux
+
+    if replay:
+        routes.calls = routes.flipped = routes.tokens = 0
+    moe.route = replaying if replay else recording
+    try:
+        yield routes
+    finally:
+        moe.route = real
 
 
 def grad_rel_errors(got: Sequence[Optional[torch.Tensor]],
@@ -326,8 +395,9 @@ def dropped_lane():
 
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card
 # tests): BackboneSplitModel on the bf16 smokes at full head width, two
-# lanes at each of glm4-9b's cuts 1 and 2 and three at rwkv6-3b's one cut
-# 2, LANE_BATCH sequences of LANE_SEQ tokens a client (T * G = 64 query
+# lanes at each of glm4-9b's cuts 1 and 2, three at rwkv6-3b's one cut 2
+# and two at qwen3-moe's one cut 2 (phase lifecycle's populations take
+# POP_LANE_FAMILIES), LANE_BATCH sequences of LANE_SEQ tokens a client (T * G = 64 query
 # rows: the attention forward's tile route), LANE_ROUNDS rounds of fused
 # eq1 at TRAIN_LR, Eq. (1) every round.  The limits are those of the
 # backbones' bf16 train comparisons above (TOL_LOSS_BF16, TOL_GRAD_BF16),
@@ -335,7 +405,9 @@ def dropped_lane():
 # averages each client's LANE_BATCH last positions, and 64 of them give
 # glm4-9b's four clients the same 256 (at 8 a client, 32 rows, an H100
 # read 1.6e-3 at round 0, before any update: the forward's bf16 rounding)
-LANE_SPLITS = {"glm4_9b": (1, 1, 2, 2), "rwkv6_3b": (2, 2, 2)}
+LANE_SPLITS = {"glm4_9b": (1, 1, 2, 2), "rwkv6_3b": (2, 2, 2),
+               "qwen3_moe_235b_a22b": (2, 2)}
+POP_LANE_FAMILIES = ("glm4_9b", "rwkv6_3b")
 LANE_SEQ, LANE_BATCH, LANE_ROUNDS = 32, 64, 2
 
 

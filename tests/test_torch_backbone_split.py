@@ -1,10 +1,12 @@
 """The port's ``BackboneSplitModel`` (``repro_torch/core/backbone_splitee.
 py``) through ``TrainSession`` on the CPU, mirroring the JAX package's
-``tests/test_backbone_session.py`` (MoE, mamba2, Zamba2, spmd, checkpoint
-and CLI cases left out: those items are not ported): the protocol and the
+``tests/test_backbone_session.py`` (mamba2, Zamba2, spmd, checkpoint and
+CLI cases left out: those items are not ported): the protocol and the
 partition, the port's fused engine against the JAX package's fused engine
-on ``glm4_9b.smoke()`` and ``rwkv6_3b.smoke()`` in fp32, and against the
-port's reference engine.
+on ``glm4_9b.smoke()``, ``rwkv6_3b.smoke()`` and
+``qwen3_moe_235b_a22b.smoke()`` in fp32, and against the port's reference
+engine; the qwen3 smoke's reference engine against JAX's; the MoE router
+aux loss on both sides of the cut through the adapter's loss hooks.
 
 Both packages start from the JAX session's round-0 state
 (``repro_torch.convert.split_state_from_jax``, which unstacks the JAX
@@ -33,7 +35,7 @@ from repro.core.backbone_splitee import BackboneSplitModel as JaxBackbone
 from repro_torch.api import TrainSession
 from repro_torch.api.protocol import SplitModel, assert_split_model
 from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
-from repro_torch.configs import glm4_9b, rwkv6_3b
+from repro_torch.configs import glm4_9b, qwen3_moe_235b_a22b, rwkv6_3b
 from repro_torch.convert import split_state_from_jax
 from repro_torch.core.backbone_splitee import BackboneSplitModel
 from repro_torch.data.pipeline import ClientPartitioner
@@ -45,7 +47,9 @@ LR_JAX, LR = 1e-5, 1e-3
 ROUNDS, BATCH, SEQ = 3, 16, 8
 # (arch id, the port's smoke config, client cut layers)
 ARCHS = {"glm4": ("glm4_9b", glm4_9b.smoke, (1, 1, 2, 2)),
-         "rwkv6": ("rwkv6_3b", rwkv6_3b.smoke, (2, 2, 2))}
+         "rwkv6": ("rwkv6_3b", rwkv6_3b.smoke, (2, 2, 2)),
+         "qwen3": ("qwen3_moe_235b_a22b", qwen3_moe_235b_a22b.smoke,
+                   (2, 2))}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -144,7 +148,8 @@ def test_invalid_cut_layers_and_unported_families(glm4):
     with pytest.raises(ValueError, match="exit_layers"):
         BackboneSplitModel(glm4_9b.smoke().with_(exit_layers=()),
                            device="cpu")
-    for kw, what in ((dict(arch_type="moe"), "MoE"),
+    zamba = dict(block_pattern=("attn", "shared_attn", "attn", "attn"))
+    for kw, what in ((zamba, "Zamba2"),
                      (dict(cross_attention=True), "Whisper")):
         with pytest.raises(NotImplementedError, match=f"{what}.*item 7"):
             BackboneSplitModel(glm4_9b.smoke().with_(**kw), device="cpu")
@@ -201,3 +206,103 @@ def test_fused_matches_port_reference(arch, grad_mode):
     ev = fus.evaluate(xt, yt)
     assert ev == ref.evaluate(xt, yt)
     assert len(ev["client_acc"]) == len(splits)
+
+
+def test_reference_matches_jax_reference_qwen3_moe():
+    """The qwen3 smoke (MoE in every layer, the aux loss on both sides)
+    on the reference engine of both packages, from one round-0 state."""
+    name, smoke, splits = ARCHS["qwen3"]
+    tm = BackboneSplitModel(smoke(), device="cpu")
+    parts, _ = _parts(tm.cfg, len(splits))
+    js = JaxSession.from_config(
+        JaxBackbone(jconfigs.get(name).smoke(), seed=0),
+        JSplitEEConfig(profile=JHeteroProfile(splits), strategy="averaging",
+                       aggregate_every=2),
+        JOptimizerConfig(lr=LR_JAX, total_steps=64), parts, BATCH,
+        engine="reference")
+    start = split_state_from_jax(js.state, tm)
+    js.train(ROUNDS)
+    ts = _port(tm, parts, splits, "reference", start, lr=LR_JAX)
+    ts.train(ROUNDS)
+    gap = _gap(ts.state, split_state_from_jax(js.state, tm))
+    dl = _loss_gap(ts.history, js.history)
+    print(f"reading qwen3 port reference vs JAX reference (lr {LR_JAX}): "
+          f"state {gap:.2e}, losses {dl:.2e}")
+    assert max(gap, dl) <= TOL
+
+
+def _hook_losses(model, x, y, li, nets=None):
+    """(client CE, client hook loss, server CE, server hook loss) of
+    ``model``'s nets at cut ``li`` (``nets``, else fresh ones), as
+    floats."""
+    from repro.core.losses import softmax_cross_entropy as jce
+    from repro_torch.core.losses import softmax_cross_entropy as tce
+    c, s = nets or (model.make_client(li), model.make_server(li))
+    h, logits, _ = model.client_forward(c["trainable"], c["state"], x, True)
+    loss, (h2, _) = model.client_loss(c["trainable"], c["state"], x, y)
+    slogits, _ = model.server_forward(s["trainable"], s["state"], h, li,
+                                      True)
+    sloss, _ = model.server_loss(s["trainable"], s["state"], h, li, y)
+    ce = jce if isinstance(model, JaxBackbone) else tce
+    np.testing.assert_array_equal(np.asarray(h2), np.asarray(h))
+    return [float(v) for v in (ce(logits, y), loss, ce(slogits, y), sloss)]
+
+
+def test_moe_aux_loss_rides_the_hooks_on_both_sides():
+    """The adapter's ``client_loss`` / ``server_loss`` hooks add each
+    side's own segments' aux total to its cross-entropy, as the JAX
+    adapter's do (1e-5 against JAX, both sides nonzero); a dense config
+    pays exactly nothing; the same comparison rejects a planted fault, the
+    router aux weight 10x too large in the port."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    name, smoke, _ = ARCHS["qwen3"]
+    jcfg = jconfigs.get(name).smoke()
+    tm, jm = BackboneSplitModel(smoke(), device="cpu"), JaxBackbone(jcfg)
+    parts, _ = _parts(tm.cfg, 2)
+    x, y = parts[0][0][:8], parts[0][1][:8]
+    from repro_torch.convert import backbone_net_from_jax
+    jnets = (jm.make_client(2), jm.make_server(2))
+    tnets = [backbone_net_from_jax(n, tm.cfg, "cpu") for n in jnets]
+    want = _hook_losses(jm, jnp.asarray(x), jnp.asarray(y), 2, jnets)
+    got = _hook_losses(tm, torch.from_numpy(x), torch.from_numpy(y), 2,
+                       tnets)
+    aux = [want[1] - want[0], want[3] - want[2]]
+    print(f"reading qwen3 hooks: aux client {aux[0]:.4e}, server "
+          f"{aux[1]:.4e}; port - JAX max "
+          f"{max(abs(a - b) for a, b in zip(got, want)):.2e}")
+    assert min(aux) > 0
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    heavy = BackboneSplitModel(smoke().with_(moe=dataclasses.replace(
+        smoke().moe, router_aux_weight=10 * smoke().moe.router_aux_weight)),
+        device="cpu")
+    planted = _hook_losses(heavy, torch.from_numpy(x), torch.from_numpy(y),
+                           2, tnets)
+    np.testing.assert_allclose([planted[1] - planted[0],
+                                planted[3] - planted[2]],
+                               [10 * a for a in aux], rtol=1e-4)
+    assert abs(planted[1] - want[1]) > TOL and abs(planted[3] - want[3]) > TOL
+    dense = BackboneSplitModel(glm4_9b.smoke(), device="cpu")
+    dparts, _ = _parts(dense.cfg, 2)
+    ce, loss, sce, sloss = _hook_losses(
+        dense, torch.from_numpy(dparts[0][0][:8]),
+        torch.from_numpy(dparts[0][1][:8]), 2)
+    assert loss == ce and sloss == sce
+
+
+def test_qwen3_chunked_and_staged_runs_are_bit_identical():
+    """The MoE dispatch and combine hold no atomics and no order that
+    depends on the schedule: one chunk without staging overlap and one
+    chunk a round with it give the same bits."""
+    _, smoke, splits = ARCHS["qwen3"]
+    tm = BackboneSplitModel(smoke(), device="cpu")
+    parts, _ = _parts(tm.cfg, len(splits))
+    one = _port(tm, parts, splits, "fused")
+    many = _port(tm, parts, splits, "fused", one.state)
+    one.engine.overlap_staging, many.engine.overlap_staging = False, True
+    one.train(ROUNDS)
+    many.train(ROUNDS, chunk_rounds=1)
+    assert many.engine.last_stage_stats["chunks"] == ROUNDS
+    assert _gap(one.state, many.state) == 0.0
+    assert _loss_gap(one.history, many.history) == 0.0

@@ -7,10 +7,11 @@ does the same at the kernel's slice bounds; here it is held against the
 JAX package's Pallas kernel (``repro.kernels.ops.entropy_exit``, interpret
 mode) and ``repro.core.losses.softmax_entropy`` on the same seeded numpy
 inputs, at the entropy gate of docs/ENGINES.md (1e-4, fp32), with
-decisions equal wherever |H - tau| > 1e-3.  A row with -inf entries goes to
-the JAX functions with -inf replaced by -1e4: both compute p log p, which
-is 0 * -inf = NaN at -inf, where -1e4 has p = 0 in fp32 and the kernel
-adds 0.  The kernel itself runs on the card only (tests/test_torch_cuda.py,
+decisions equal wherever |H - tau| > 1e-3.  A row with -inf entries has
+H = NaN in the JAX kernel, the plain version and the kernel's mirror alike
+(p log p = 0 * -inf = NaN), and never exits; for the value comparisons the
+row goes to every side with -inf replaced by -1e4 (p = 0 in fp32).  The
+kernel itself runs on the card only (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 import ctypes
@@ -56,13 +57,17 @@ def _logits(V: int) -> np.ndarray:
 _JAX = {}
 
 
+def _finite(x: np.ndarray) -> np.ndarray:
+    """``x`` with -inf read as -1e4 (p = 0 in fp32 either way)."""
+    return np.where(np.isneginf(x), np.float32(-1e4), x)
+
+
 def _jax_entropy(V: int):
     """H from the Pallas kernel (interpret) and from softmax_entropy, and
     each row's JAX decision at its threshold, on ``_logits(V)`` with -inf
     read as -1e4; computed once per V."""
     if V not in _JAX:
-        x = _logits(V)
-        finite = np.where(np.isneginf(x), np.float32(-1e4), x)
+        finite = _finite(_logits(V))
         H_k, _ = ops.entropy_exit(jnp.asarray(finite), 0.0, interpret=True)
         H_k = np.asarray(H_k)
         H_o = np.asarray(jax_softmax_entropy(jnp.asarray(finite)))
@@ -70,7 +75,7 @@ def _jax_entropy(V: int):
                ).astype(np.float32)
         ex = np.array([bool(np.asarray(ops.entropy_exit(
             jnp.asarray(finite[b:b + 1]), jnp.float32(tau[b]),
-            interpret=True)[1])[0]) for b in range(len(x))])
+            interpret=True)[1])[0]) for b in range(len(finite))])
         _JAX[V] = (H_k, H_o, tau, ex)
     return _JAX[V]
 
@@ -80,7 +85,10 @@ def _jax_entropy(V: int):
 def test_split_mirror_matches_jax(splits, V):
     H_k, H_o, tau, ex_jax = _jax_entropy(V)
     np.testing.assert_allclose(H_o, H_k, atol=ATOL_H, rtol=0)
-    H, ex = entropy_exit_split_ref(torch.from_numpy(_logits(V)),
+    raw, _ = entropy_exit_split_ref(torch.from_numpy(_logits(V)), 0.0,
+                                    splits)
+    assert torch.isnan(raw).tolist() == [r == 2 for r in range(6)]
+    H, ex = entropy_exit_split_ref(torch.from_numpy(_finite(_logits(V))),
                                    torch.from_numpy(tau), splits)
     assert ex.dtype == torch.int32
     for want in (H_k, H_o):
@@ -120,7 +128,8 @@ def test_empty_slices_when_the_row_is_narrow():
             assert torch.all(m == -torch.inf) and not s.any() and not u.any()
     H16, _ = entropy_exit_split_ref(x, 0.0, splits)
     H1, _ = entropy_exit_split_ref(x, 0.0, 1)
-    torch.testing.assert_close(H16, H1, atol=ATOL_H, rtol=0)
+    # row 2 holds -inf entries: NaN at every split count
+    torch.testing.assert_close(H16, H1, atol=ATOL_H, rtol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("splits", (2, 3, 8, 16))
@@ -130,7 +139,7 @@ def test_dropping_one_slice_fails_the_gate(splits):
     slice."""
     V = 4099
     H_k, _, _, _ = _jax_entropy(V)
-    x = torch.from_numpy(_logits(V))
+    x = torch.from_numpy(_finite(_logits(V)))
     triples = gate_slice_triples(x, splits)
     M, S, U = gate_merge(triples)
     H = M + torch.log(S.clamp(min=1e-30)) - U / S.clamp(min=1e-30)
@@ -214,24 +223,19 @@ def test_wrapper_on_the_cpu_runs_the_plain_version():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_minus_inf_logits_answer_by_device(dtype):
-    """Pins the -inf rule the wrapper's docstring states.  On the CPU the
-    wrapper (the plain version) gives NaN for a row with a -inf entry and
-    for a row of -inf only, as the JAX kernel does, and neither exits.
-    The kernel's mirror, which the card's answers are held to, gives the
-    first row the H of its finite entries and the second H = -inf, an
-    exit."""
+    """Pins the -inf rule the wrapper's docstring states: a row with a
+    -inf entry and a row of -inf only have H = NaN and do not exit, in the
+    wrapper on the CPU (the plain version), in the JAX kernel and in the
+    kernel's mirror, which the card's answers are held to."""
     x = torch.from_numpy(_logits(2053)[:2].copy())
     x[0, 7] = -torch.inf
     x[1] = -torch.inf
     x = x.to(dtype)
     H, ex = entropy_exit(x, 2.0)
     assert torch.isnan(H).all() and not ex.any()
-    H_k, _ = ops.entropy_exit(jnp.asarray(x.float().numpy()), 2.0,
-                              interpret=True)
-    assert np.isnan(np.asarray(H_k)).all()
-    H_card, ex_card = entropy_exit_split_ref(x, 2.0, 16)
-    finite = torch.cat([x[0, :7], x[0, 8:]])[None]
-    torch.testing.assert_close(H_card[:1], entropy_exit_ref(finite, 2.0)[0],
-                               atol=ATOL_H, rtol=0)
-    assert H_card[1] == -torch.inf and ex_card.tolist() == [
-        int(H_card[0] < 2.0), 1]
+    H_k, ex_k = ops.entropy_exit(jnp.asarray(x.float().numpy()), 2.0,
+                                 interpret=True)
+    assert np.isnan(np.asarray(H_k)).all() and not np.asarray(ex_k).any()
+    for splits in (1, 16):
+        H_card, ex_card = entropy_exit_split_ref(x, 2.0, splits)
+        assert torch.isnan(H_card).all() and not ex_card.any()

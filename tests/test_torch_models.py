@@ -54,20 +54,46 @@ def smoke_cfg():
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "HeteroProfile",
-                                  "SplitEEConfig", "SSMConfig"])
+                                  "SplitEEConfig", "SSMConfig", "MoEConfig",
+                                  "MLAConfig"])
 def test_config_fields_mirror_jax(name):
     names = lambda cls: [f.name for f in dataclasses.fields(cls)]  # noqa: E731
     assert names(getattr(tconfig, name)) == names(getattr(jconfig, name))
 
 
 @pytest.mark.parametrize("which", ["config", "smoke"])
-def test_glm4_config_matches_jax(which):
-    j = getattr(jconfigs.get("glm4-9b"), which)()
-    t = getattr(tconfigs.get("glm4_9b"), which)()
+@pytest.mark.parametrize("arch", tconfigs.PORTED)
+def test_config_matches_jax(arch, which):
+    """Every ported config and its smoke equal ``config_from_jax`` of the
+    JAX package's, sub-configs mapped to the port's own classes."""
+    j = getattr(jconfigs.get(arch), which)()
+    t = getattr(tconfigs.get(arch), which)()
     assert t == config_from_jax(j)
     assert t.segments() == j.segments()
-    assert (tconfigs.get("glm4_9b").profile().split_layers
-            == jconfigs.get("glm4_9b").profile().split_layers)
+    assert (tconfigs.get(arch).profile().split_layers
+            == jconfigs.get(arch).profile().split_layers)
+    for field, cls in (("moe", tconfig.MoEConfig), ("mla", tconfig.MLAConfig),
+                       ("ssm", tconfig.SSMConfig)):
+        sub = getattr(config_from_jax(j), field)
+        assert sub is None or type(sub) is cls
+    if j.moe is not None:
+        assert config_from_jax(j).moe.router_dtype is torch.float32
+
+
+@pytest.mark.parametrize("arch", tconfigs.PORTED)
+def test_bf16_smokes_keep_the_family(arch):
+    """``smoke_bf16``: the smoke at head dim 64 in bf16, with the model's
+    GQA group for command-r (8)."""
+    mod = tconfigs.get(arch)
+    full, smoke, b = mod.config(), mod.smoke(), mod.smoke_bf16()
+    assert (b.dtype, b.param_dtype, b.head_dim) == (torch.bfloat16,
+                                                    torch.bfloat16, 64)
+    assert (b.num_layers, b.d_model, b.exit_layers, b.ffn_pattern,
+            b.block_pattern) == (smoke.num_layers, smoke.d_model,
+                                 smoke.exit_layers, smoke.ffn_pattern,
+                                 smoke.block_pattern)
+    if arch == "command_r_35b":
+        assert b.q_heads_per_kv == full.q_heads_per_kv == 8
 
 
 def test_unported_architectures_raise():
@@ -84,7 +110,7 @@ def test_unported_mixers_raise(smoke_cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbackbone.init_backbone(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.init_block_cache(config_from_jax(smoke_cfg), "attn", "moe",
+        tblocks.init_block_cache(config_from_jax(smoke_cfg), "attn", "none",
                                  1, 8, torch.float32, "cpu")
 
 

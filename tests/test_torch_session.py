@@ -7,6 +7,10 @@ rounds; then evaluation (Alg. 3), engine resolution, the protocol, and
 what the port must keep that JAX gets for free (``run`` leaves its input
 alone; no two nets share storage, since the port's Adam is in place).
 
+The ResNet's Sequential run and its planted fault live in
+tests/test_torch_session_resnet_sequential.py, whose module fixture trains
+on a worker of its own; it imports this module's setups and checks.
+
 Both sessions start from one state: the JAX session's round-0 state,
 converted by ``repro_torch.convert.split_state_from_jax`` and handed to
 the port through ``state=``; both draw the same numpy batches.
@@ -89,8 +93,8 @@ class _JaxResNet(jsplitee.ResNetSplitModel):
                 jax.random.PRNGKey(self.seed), self.cfg)
 
 
-@pytest.fixture(scope="module")
-def mlp():
+def mlp_setup():
+    """The MLP adapters (fp32, lr 3e-3), their client shards and test set."""
     x, y = _blobs(400, 16, 3)
     return dict(jax=lambda: jsplitee.MLPSplitModel(16, 32, 3, num_layers=6),
                 port=tsplitee.MLPSplitModel(16, 32, 3, num_layers=6,
@@ -100,8 +104,9 @@ def mlp():
                 tol=TOL)
 
 
-@pytest.fixture(scope="module")
-def resnet():
+def resnet_setup():
+    """The ResNet smoke adapters (float64 on both sides, lr 3e-5), their
+    client shards, augmentation and test set."""
     ds = SyntheticImageDataset(num_classes=10, image_size=32,
                                train_size=4 * 2 * BATCH, test_size=75,
                                seed=0)
@@ -196,25 +201,24 @@ def _reading(what, gaps):
                                           for k, v in gaps.items()))
 
 
-@pytest.fixture(scope="module")
-def trained(mlp, resnet):
-    """Per (model, strategy): both sessions trained once for the module."""
+def train_runs(setups: dict, cases) -> dict:
+    """Per (model, strategy) of ``cases``: both sessions trained once,
+    the JAX sessions of one model sharing their jitted functions."""
     out = {}
-    for name, setup in (("mlp", mlp), ("resnet", resnet)):
+    for name in dict.fromkeys(m for m, _ in cases):
+        setup = setups[name]
         with jax.enable_x64(setup["x64"]):
             jax_model = setup["jax"]()
         compiled = ({}, {}, {})
-        for strategy in STRATEGIES:
+        for strategy in (s for m, s in cases if m == name):
             out[name, strategy] = _trained(setup, strategy, jax_model,
                                            compiled)
     return out
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("model", ["mlp", "resnet"])
-def test_train_session_matches_jax_reference(trained, model, strategy,
-                                             request):
-    run, tol = trained[model, strategy], request.getfixturevalue(model)["tol"]
+def check_train_session(run, model, strategy, tol):
+    """The port's trained session against JAX's: states, Adam moments and
+    per-round losses within ``tol``, steps and cursors equal."""
     jh, th, ts = run["jax_history"], run["port_history"], run["port"]
     assert len(jh) == len(th) == ROUNDS
     assert [a.round for a in jh] == [b.round for b in th]
@@ -228,28 +232,9 @@ def test_train_session_matches_jax_reference(trained, model, strategy,
     assert len(ts.state.servers) == (1 if strategy == "sequential" else 4)
 
 
-def test_session_parity_rejects_a_planted_fault(trained, resnet):
-    """The comparison above, on the port's ResNet run with the server LR
-    planted 5% too large (Sequential: one shared server): the server
-    trainables alone exceed the float64 limit several times over."""
-    run = trained["resnet", "sequential"]
-    _, (tsc, toc) = _configs("sequential", lr=resnet["lr"], x64=True)
-    ts = TrainSession(resnet["port"], tsc, toc, resnet["data"], BATCH,
-                      engine="reference", augment=resnet["augment"],
-                      state=run["start"])
-    ts.ctx.server_lr_div /= 1.05
-    ts.run(ROUNDS, EPOCHS)
-    gaps = _state_gaps(ts.state, run["jax_state"])
-    _reading("resnet sequential, server LR 5% too large", gaps)
-    assert gaps["servers"] > 5 * resnet["tol"], gaps
-    assert gaps["clients"] <= resnet["tol"], gaps
-
-
-@pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("model", ["mlp", "resnet"])
-def test_evaluation_matches_jax(trained, model, strategy):
-    """75 test samples at batch 32: the tail batch of 11 is scored."""
-    run = trained[model, strategy]
+def check_evaluation(run, strategy):
+    """The port's evaluations of a trained session against JAX's: 75 test
+    samples at batch 32 (the tail batch of 11 is scored)."""
     ts, want, (x, y) = run["port"], run["jax_evals"], run["test"]
     assert ts.evaluate(x, y, batch_size=EVAL_BATCH) == want["plain"]
     if strategy == "distributed":
@@ -263,6 +248,56 @@ def test_evaluation_matches_jax(trained, model, strategy):
                                    rtol=0)
     assert ts.evaluate_adaptive(x, y, 0.0)["client_ratio"] == [0.0] * 4
     assert ts.evaluate_adaptive(x, y, 1e3)["client_ratio"] == [1.0] * 4
+
+
+
+
+# every (model, strategy) pair but the ResNet's Sequential run, which
+# tests/test_torch_session_resnet_sequential.py trains on a worker of its own
+CASES = tuple((m, s) for m in ("mlp", "resnet") for s in STRATEGIES
+              if (m, s) != ("resnet", "sequential"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """At most two torch threads while this module runs (as
+    tests/test_torch_fused.py): the suite runs files in parallel worker
+    processes, and torch's CPU thread pools oversubscribed across workers
+    stall at every parallel region; the float64 ResNet runs here are the
+    suite's longest."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def mlp():
+    return mlp_setup()
+
+
+@pytest.fixture(scope="module")
+def resnet():
+    return resnet_setup()
+
+
+@pytest.fixture(scope="module")
+def trained(mlp, resnet):
+    """Per (model, strategy) of CASES: both sessions trained once for the
+    module."""
+    return train_runs({"mlp": mlp, "resnet": resnet}, CASES)
+
+
+@pytest.mark.parametrize("model,strategy", CASES)
+def test_train_session_matches_jax_reference(trained, model, strategy,
+                                             request):
+    check_train_session(trained[model, strategy], model, strategy,
+                        request.getfixturevalue(model)["tol"])
+
+
+@pytest.mark.parametrize("model,strategy", CASES)
+def test_evaluation_matches_jax(trained, model, strategy):
+    check_evaluation(trained[model, strategy], strategy)
 
 
 def test_evaluation_is_batch_size_invariant(trained):

@@ -378,8 +378,8 @@ def test_rwkv_block_matches_jax(tiny_rwkv):
     kw = dict(mixer="rwkv6", ffn="rwkv_cm")
     want, _, _ = jblocks.block_forward(jp, jnp.asarray(x), jnp.asarray(pos),
                                        tiny_rwkv, **kw)
-    got, _ = tblocks.block_forward(tp, torch.from_numpy(x),
-                                   torch.from_numpy(pos), cfg, **kw)
+    got, _, _ = tblocks.block_forward(tp, torch.from_numpy(x),
+                                      torch.from_numpy(pos), cfg, **kw)
     _close(got, want)
     jc = jblocks.init_block_cache(tiny_rwkv, batch=2, max_len=16,
                                   dtype=jnp.float32, **kw)
@@ -388,10 +388,9 @@ def test_rwkv_block_matches_jax(tiny_rwkv):
     want, jc, _ = jblocks.block_forward(jp, jnp.asarray(x), jnp.asarray(pos),
                                         tiny_rwkv, cache=jc,
                                         cache_len=jnp.int32(0), **kw)
-    got, tc = tblocks.block_forward(tp, torch.from_numpy(x),
-                                    torch.from_numpy(pos), cfg, cache=tc,
-                                    cache_len=torch.zeros(2, dtype=torch.int32),
-                                    **kw)
+    got, tc, _ = tblocks.block_forward(
+        tp, torch.from_numpy(x), torch.from_numpy(pos), cfg, cache=tc,
+        cache_len=torch.zeros(2, dtype=torch.int32), **kw)
     _close(got, want)
     for t in range(2):
         xd = rng.standard_normal((2, 1, 64)).astype(np.float32)
@@ -399,7 +398,7 @@ def test_rwkv_block_matches_jax(tiny_rwkv):
         want, jc, _ = jblocks.block_forward(
             jp, jnp.asarray(xd), jnp.asarray(pd), tiny_rwkv, cache=jc,
             cache_len=jnp.int32(6 + t), **kw)
-        got, tc = tblocks.block_forward(
+        got, tc, _ = tblocks.block_forward(
             tp, torch.from_numpy(xd), torch.from_numpy(pd), cfg, cache=tc,
             cache_len=torch.full((2,), 6 + t, dtype=torch.int32), **kw)
         _close(got, want)
@@ -640,7 +639,7 @@ def test_rwkv_train_step_matches_jax(smoke_cfg, smoke_params, mode):
     for i, b in enumerate(_batches(smoke_cfg, 3)):
         jp, jo, jm = jstep(jp, jo, jax.tree.map(jnp.asarray, b))
         tp, to, tm = tstep(tp, to, _tbatch(b))
-        assert sorted(tm) == sorted(k for k in jm if k != "aux_loss")
+        assert sorted(tm) == sorted(jm)
         for k in tm:
             _close(tm[k] if k != "lr" else np.float32(tm[k]), jm[k])
         if i == 0 and not sequential:

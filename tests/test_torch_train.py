@@ -471,7 +471,7 @@ def test_train_step_matches_jax(fixture, mode, request):
     for i, b in enumerate(_batches(jcfg, splits, 3)):
         jp, jo, jm = jstep(jp, jo, jax.tree.map(jnp.asarray, b))
         tp, to, tm = tstep(tp, to, _tbatch(b))
-        assert sorted(tm) == sorted(k for k in jm if k != "aux_loss")
+        assert sorted(tm) == sorted(jm)
         for k in tm:
             _close(tm[k] if k != "lr" else np.float32(tm[k]), jm[k], 1e-5)
         if i == 0 and not sequential:
