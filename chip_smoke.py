@@ -10,7 +10,8 @@ Phases:
   kernels  holds each kernel against its plain PyTorch version on the card:
            the gate (each row's vocab split over a cluster) at glm4-9b's,
            rwkv6-3b's, phi3's (100352), qwen3-moe's (151936) and
-           minitron's and command-r's (256000) serve shapes, fp32, 1 and
+           minitron's and command-r's (256000), zamba2-1.2b's (32000) and
+           deepseek-v3's (129280) serve shapes, fp32, 1 and
            300 rows, vocab tails, rows not on 16 bytes, each row's max in
            its last split, -inf entries (H = NaN where the plain version's
            is, compared with equal_nan, and no exit) and every cluster
@@ -26,7 +27,10 @@ Phases:
            kv_valid of 1, ragged and full, ragged Tq and Tk, shapes just
            below and above the forward's 64-row threshold, prefill (tile)
            and decode (decode route) at command-r's GQA 8 (H 64, Hkv 8),
-           phi3's H 40 / Hkv 10 and qwen3-moe's H 64 / Hkv 4, a 4096-key cache
+           phi3's H 40 / Hkv 10 and qwen3-moe's H 64 / Hkv 4, zamba2-1.2b's
+           shared block at GQA 1 (H = Hkv = 32, D 64: prefill on the tile
+           route, decode on the decode route, the train shape
+           (12,32,512,64) forward with LSE, dK/dV and dQ), a 4096-key cache
            at every split count the decode rule picks, dQ with delta given
            and fused (the delta it writes against the plain one), the
            decode, dK/dV and dQ kernels also bit for bit across two
@@ -37,8 +41,9 @@ Phases:
            chunked form (against the token oracle); and
            both autograd sites of training against autograd of the plain
            forward;
-  parity   smoke configs in fp32: the glm4-9b ServeSession against the
-           port's sequential references, token and gate exact; the rwkv6
+  parity   smoke configs in fp32: the glm4-9b, zamba2-1.2b and
+           deepseek-v3-671b ServeSessions against the port's sequential
+           references, token and gate exact; the rwkv6
            ServeSession with the kernels against the plain versions; train
            steps with the kernels against the plain versions (glm4-9b: eq1,
            sum, eq1 with remat; rwkv6: eq1, eq1 with remat); then the bf16
@@ -46,7 +51,11 @@ Phases:
            tile and decode routes; rwkv6 head dim 64, chunk 16: the wkv
            kernels; and since the MoE slice every ported config's bf16
            smoke: phi3-medium-14b and minitron-8b at GQA 4, command-r-35b at
-           GQA 8, qwen3-moe with fp32 routers), ServeSession under both
+           GQA 8, qwen3-moe with fp32 routers; since the Mamba2/MLA slice
+           zamba2-1.2b's shared block at GQA 1, head dim 64, and
+           deepseek-v3's MLA, which runs no kernel: its gate is the one
+           kernel, and its planted fault drops the MLA rope half),
+           ServeSession under both
            policies against each request served alone on the plain
            versions, the first step's gradients leaf by leaf and eq1
            steps' losses (qwen3-moe: the kernels' run replays the plain
@@ -59,19 +68,27 @@ Phases:
   main     the serving path: ServeSession on full-width glm4-9b (40 layers)
            and full-width rwkv6-3b (32 layers), and qwen3-moe-235b-a22b
            (~46 GB) and command-r-35b (~32 GB) at their published widths
-           with the depth cut to 8 layers (exits 2, 4, 6), in bf16, random
+           with the depth cut to 8 layers (exits 2, 4, 6), zamba2-1.2b at
+           full width and depth (38 layers, its shared attention block at 6
+           of them; prompts of 64-600 tokens, 1-3 chunks of 256) and
+           deepseek-v3-671b at its published widths cut to 5 layers (3 dense,
+           2 MoE; ~58.8 GB), in bf16, random
            weights from a seeded torch.Generator on the card, 8 slots, 16
            requests (rwkv6 prompts of 64-512 tokens), under the select and
            the sticky policy; each run starts with every launch count at 0
            and must launch the mixer's kernel and the gate (attention:
            prefill on the forward's tile route, decode on its decode
-           route); for qwen3-moe a separate, untimed run prints the routed
+           route; zamba2-1.2b launches attention at its shared layers only,
+           deepseek-v3 the gate only); for qwen3-moe and deepseek-v3 a
+           separate, untimed run prints the routed
            entries dropped by capacity per prefill and per decode tick
            (none on a tick: each slot is routed alone);
   train    the training path: make_train_step on glm4-9b at its published
            widths with the depth cut to 8 layers (exits 2, 4, 6), batch
            12 x 128, and on rwkv6-3b at its published widths and full depth
-           (exits 8, 16, 24), batch 12 x 512, remat; 12 client groups, bf16
+           (exits 8, 16, 24), batch 12 x 512, remat, and on zamba2-1.2b at
+           its published widths and full depth (exits 10, 20, 29), batch
+           12 x 512, remat; 12 client groups, bf16
            weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
@@ -122,7 +139,8 @@ Phases:
            BackboneSplitModel on the
            bf16 smokes at full head width (glm4-9b: 2 lanes at each of cuts
            1 and 2; rwkv6-3b: 3 lanes at cut 2; qwen3-moe: 2 lanes at cut 2,
-           MoE under lanes), 2 rounds of fused eq1 on
+           MoE under lanes; zamba2-1.2b: 2 lanes at cut 2, Mamba2 and the
+           shared attention block under lanes), 2 rounds of fused eq1 on
            the kernels, which must launch rows 2-6 under lanes; the launch
            counts are read there.  Then the legs on the plain versions from
            the same start (losses and first-step gradients leaf by leaf at
@@ -174,7 +192,11 @@ Phases:
            row routes of the forward and of dQ beside their redesigned
            routes at the main shapes; the wkv also at a prefill shape
            (1,300,40,64); the gate also at (8,65536) bf16, (8,151552)
-           fp32 and the paper evaluator's (512,10) and (512,100) fp32,
+           fp32, zamba2-1.2b's (8,32000) and deepseek-v3's (8,129280) bf16
+           and the paper evaluator's (512,10) and (512,100) fp32; attention
+           at zamba2-1.2b's GQA-1 shapes (decode over a 633-slot ring,
+           prefill of 600 tokens, the train shape forward, dK/dV and dQ)
+           beside SDPA,
            beside the launch floor (a one-element torch op timed the
            same way).  Times are device times: a spin kernel ahead of each
            timed call keeps the host's enqueue (~50-100 us for a wrapper,
@@ -284,6 +306,15 @@ RWKV_WARM, RWKV_EQ1, RWKV_SUM, RWKV_REF = 2, 4, 2, 2
 LONG_T = 2048
 # the long decode cache of phases kernels and timing: (8, 2, 4096, 128)
 LONG_CACHE = 4096
+# zamba2-1.2b: prompts of 64-600 tokens (1-3 chunks of 256), each slot's
+# page 633 tokens; training 12 x 512 at full depth
+ZAMBA_PROMPT_MIN, ZAMBA_PROMPT_MAX = 64, 600
+ZAMBA_MAX_LEN = ZAMBA_PROMPT_MAX + 1 + DECODE
+ZAMBA_T = 512
+ZAMBA_WARM, ZAMBA_EQ1, ZAMBA_SUM = 2, 3, 2
+# deepseek-v3-671b's serving depth: 3 dense and 2 MoE layers, ~58.8 GB of
+# bf16 weights (8 layers would be ~128 GB)
+DEEPSEEK_CUT_LAYERS = 5
 
 
 class Failed(Exception):
@@ -517,6 +548,23 @@ def phase_kernels(state):
                   f"kv_valid", bf16, TOL_ATTN_BF16, B=8, Tq=1, causal=False,
                   H=H, Hkv=Hkv, kv_valid=kv_prefix(8, seed=H + Hkv),
                   lse=True, main=True, route="decode")
+    # zamba2-1.2b's shared block, GQA 1 (H = Hkv = 32, D 64): the longest
+    # prefill over the 633-slot page (tile route), a decode tick of 8 slots
+    # (decode route: each (slot, head) fills 1 row of a 16-row mma tile)
+    # and the train shape's forward with LSE (tile route)
+    z = dict(H=32, Hkv=32, D=64, Tk=ZAMBA_MAX_LEN)
+    attn_case(f"zamba2-1.2b GQA 1 prefill (1,32,{ZAMBA_PROMPT_MAX},64)/"
+              f"(1,32,{ZAMBA_MAX_LEN},64) causal", bf16, TOL_ATTN_BF16, B=1,
+              Tq=ZAMBA_PROMPT_MAX, causal=True, lse=True, main=True,
+              route="tile", **z)
+    attn_case(f"zamba2-1.2b GQA 1 decode (8,32,1,64)/(8,32,{ZAMBA_MAX_LEN},"
+              f"64) kv_valid", bf16, TOL_ATTN_BF16, B=8, Tq=1, causal=False,
+              kv_valid=kv_prefix(8, ZAMBA_MAX_LEN, seed=64), lse=True,
+              main=True, route="decode", **z)
+    attn_case(f"zamba2-1.2b GQA 1 train (12,32,{ZAMBA_T},64) causal, with "
+              f"lse", bf16, TOL_ATTN_BF16, B=TRAIN_B, Tq=ZAMBA_T,
+              causal=True, lse=True, main=True, route="tile",
+              **{**z, "Tk": ZAMBA_T})
 
     gate_cases(gen, errs)
     bwd_kernel_cases(gen, errs)
@@ -580,6 +628,8 @@ def gate_cases(gen, errs):
     gate_case("(8,100352)", bf16, 100352, main=True)
     gate_case("(8,256000)", bf16, 256000, main=True)
     gate_case("(8,151936)", bf16, 151936, main=True)   # qwen3-moe
+    gate_case("(8,32000)", bf16, 32000, main=True)     # zamba2-1.2b
+    gate_case("(8,129280)", bf16, 129280, main=True)   # deepseek-v3
     gate_case("(1,151552)", bf16, 151552, B=1)
     gate_case("(300,151552)", bf16, 151552, B=300)
     gate_case("(8,2053) vocab tail", f32, 2048 + 5)
@@ -786,6 +836,9 @@ def bwd_kernel_cases(gen, errs):
              T=150, D=D, window=24)
         case(f"causal GQA16 T=77 D={D}", bf16, B=2, H=32, Hkv=2, T=77, D=D)
     case("causal GQA16 T=1000 D=128", bf16, B=1, H=32, Hkv=2, T=1000)
+    # zamba2-1.2b's shared block at its train shape: GQA 1, D 64
+    case(f"zamba2-1.2b train (12,32,{ZAMBA_T},64) causal GQA1", bf16,
+         main=True, B=TRAIN_B, H=32, Hkv=32, T=ZAMBA_T, D=64)
     case(f"causal GQA16 T={LONG_T} D=128", bf16, B=1, H=32, Hkv=2, T=LONG_T)
 
 
@@ -1010,16 +1063,36 @@ def wkv_site_cases(gen):
 
 
 def phase_parity(state):
+    from repro_torch import configs
+    from repro_torch.configs import (deepseek_v3_671b, glm4_9b, rwkv6_3b,
+                                     zamba2_1p2b)
+    smoke_serve_parity(glm4_9b.smoke(), 4, 10)
+    # zamba2: prompts of 2-19 tokens (1-3 chunks of 8; shorter than the
+    # conv history too); deepseek: 1-12 (MLA's decode step and its causal
+    # prefill)
+    smoke_serve_parity(zamba2_1p2b.smoke(), 2, 20)
+    smoke_serve_parity(deepseek_v3_671b.smoke(), 1, 13)
+    train_parity(glm4_9b.smoke(), (("eq1", "none"), ("sum", "none"),
+                                   ("eq1", "full")))
+    rwkv_serve_parity(rwkv6_3b.smoke())
+    train_parity(rwkv6_3b.smoke().with_(exit_layers=(1, 2)),
+                 (("eq1", "none"), ("eq1", "full")), seq=20)
+    bf16_parity({f: configs.get(f).smoke_bf16() for f in BF16_FAMILIES})
+
+
+def smoke_serve_parity(cfg, lo: int, hi: int) -> None:
+    """``cfg`` (an fp32 smoke) served by ServeSession, 6 requests of
+    ``lo``..``hi - 1`` prompt tokens on 3 slots, against each request
+    served alone (the port's sequential references), token and exit
+    exact: select at tau 2.0, sticky at the median entropy of a probe and
+    above ln V (client-only ticks)."""
     from repro_torch.api.serve_session import (ServeSession,
                                                sequential_reference,
                                                sequential_sticky_reference)
-    from repro_torch import configs
-    from repro_torch.configs import glm4_9b, rwkv6_3b
     from repro_torch.models.backbone import init_backbone
-    cfg = glm4_9b.smoke()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 10)))
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi)))
                for _ in range(6)]
     decodes = [5, 8, 3, 6, 4, 7]
     probe = sequential_reference(cfg, params, prompts[0], 6, tau=0.0,
@@ -1044,33 +1117,30 @@ def phase_parity(state):
                 got[rid].entropy, ref.entropy)).max()))
         flags = [f for r in got.values() for f in r.exited]
         check(same and worst <= TOL_H,
-              f"smoke fp32 {policy} tau={tau:.4f}: 6 requests on 3 slots "
-              f"token- and exit-exact vs the sequential reference, "
+              f"{cfg.name} fp32 {policy} tau={tau:.4f}: 6 requests on 3 "
+              f"slots token- and exit-exact vs the sequential reference, "
               f"max|dH|={worst:.2e} (exits {sum(flags)}/{len(flags)}, "
               f"client-only ticks {sess.stats.client_only_ticks})")
         if tau > math.log(cfg.vocab_size):
             check(sess.stats.client_only_ticks > 0,
-                  "smoke sticky above ln V: client-only ticks ran")
-    train_parity(glm4_9b.smoke(), (("eq1", "none"), ("sum", "none"),
-                                   ("eq1", "full")))
-    rwkv_serve_parity(rwkv6_3b.smoke())
-    train_parity(rwkv6_3b.smoke().with_(exit_layers=(1, 2)),
-                 (("eq1", "none"), ("eq1", "full")), seq=20)
-    bf16_parity({f: configs.get(f).smoke_bf16() for f in BF16_FAMILIES})
+                  f"{cfg.name} sticky above ln V: client-only ticks ran")
 
 
 @contextlib.contextmanager
 def planted(name, fault):
-    """A control: ``kernels.dispatch``'s ``name`` (a kernel wrapper the
-    model calls) replaced by ``fault(wrapper)`` while the block runs, so a
-    check can show that it rejects a wrong kernel."""
-    from repro_torch.kernels import dispatch
-    real = getattr(dispatch, name)
-    setattr(dispatch, name, fault(real))
+    """A control: ``name`` replaced by ``fault(original)`` while the block
+    runs, so a check can show that it rejects a wrong kernel or module:
+    a kernel wrapper of ``kernels.dispatch`` the model calls, or a dotted
+    ``module.function`` of the port."""
+    import importlib
+    module, _, attr = name.rpartition(".")
+    mod = importlib.import_module(module or "repro_torch.kernels.dispatch")
+    real = getattr(mod, attr)
+    setattr(mod, attr, fault(real))
     try:
         yield
     finally:
-        setattr(dispatch, name, real)
+        setattr(mod, attr, real)
 
 
 def dk_zeroed(bwd):
@@ -1090,6 +1160,15 @@ def bwd_zeroed(bwd):
     return wrapped
 
 
+def rope_dropped(project_q):
+    """MLA's query projection with its rope half zeroed: the positional
+    term of every score dropped."""
+    def wrapped(*a, **kw):
+        q_nope, q_rope = project_q(*a, **kw)
+        return q_nope, torch.zeros_like(q_rope)
+    return wrapped
+
+
 # the planted faults of the bf16 parity controls, by mixer: a forward
 # fault that serving runs and a backward fault that training runs
 ATTENTION_FAULTS = (
@@ -1104,6 +1183,21 @@ FAULTS = {
                lambda f: lambda r, k, v, lw, u, **kw: f(
                    r, k, v, lw, torch.zeros_like(u), **kw)),
               ("rwkv_wkv_bwd", "dk zeroed", dk_zeroed)),
+    # zamba2's one shared attention layer among three Mamba2 layers, with
+    # the gate below it: the newest key dropped at decode moved no stream
+    # beyond a tie (one part at top-2 gap 0 in 45 tokens, H-1 of the
+    # page's keys still read), so its serving control reads key slot 0
+    # only, as a stale ring would
+    "shared_attn": (
+        ("flash_attention", "decode reading key slot 0 only",
+         lambda f: lambda q, k, v, *, kv_valid=None, **kw: f(
+             q, k, v, kv_valid=None if kv_valid is None
+             else torch.ones_like(kv_valid), **kw)),
+        ("flash_attention_bwd", "dK zeroed", dk_zeroed)),
+    # MLA runs no kernel: its control is a fault in the mixer itself, in
+    # the kernels' run only (serving and training alike)
+    "mla": (("repro_torch.models.attention._mla_project_q",
+             "the MLA rope half dropped", rope_dropped),) * 2,
 }
 # the MoE smoke's loss comparison: its 4 attention layers carry a small
 # share of the loss beside the MoE FFNs, and on an H100 dK zeroed moved
@@ -1112,11 +1206,32 @@ FAULTS = {
 # attention backward zeroed instead (2.0e-3), and the first-step
 # gradients still reject dK zeroed leaf by leaf (1.0 against 1.6e-2)
 MOE_LOSS_FAULT = ("flash_attention_bwd", "dQ, dK and dV zeroed", bwd_zeroed)
+# zamba2's smoke: its one shared attention layer sits above both exits of
+# the training setup, so only the server loss reads it, and over 3 steps
+# its backward moves that loss little: on an H100 dK zeroed read 1.12e-3
+# and the whole backward zeroed 1.41e-3 against a sound 9.13e-4; the
+# losses are held against the training forward's causal mask dropped
+# instead, and the first-step gradients reject dK zeroed leaf by leaf
+# (1.0 against 2.6e-2)
+CAUSAL_LOSS_FAULT = ("flash_attention", "the causal mask dropped in "
+                     "training", lambda f: lambda q, k, v, *, causal=False,
+                     **kw: f(q, k, v, causal=False, **kw))
 # the bf16 smokes phase parity holds against the plain versions: every
-# ported config's (the three dense ones and qwen3-moe on the attention
-# kernels, rwkv6 on the wkv kernels)
+# ported config's (the three dense ones, qwen3-moe and zamba2's shared
+# block on the attention kernels, rwkv6 on the wkv kernels, deepseek-v3's
+# MLA on none but the gate)
 BF16_FAMILIES = ("glm4_9b", "phi3_medium_14b", "minitron_8b",
-                 "command_r_35b", "qwen3_moe_235b_a22b", "rwkv6_3b")
+                 "command_r_35b", "qwen3_moe_235b_a22b", "rwkv6_3b",
+                 "zamba2_1p2b", "deepseek_v3_671b")
+
+
+def kernel_mixer(cfg) -> str:
+    """The mixer whose kernels a config's layers run: ``"shared_attn"``
+    for Zamba2's shared attention block among its Mamba2 layers, else the
+    first layer's mixer."""
+    if "shared_attn" in cfg.block_pattern:
+        return "shared_attn"
+    return cfg.block_pattern[0]
 
 
 def bf16_parity(cfgs: dict) -> None:
@@ -1124,12 +1239,14 @@ def bf16_parity(cfgs: dict) -> None:
     ``cfgs`` by family: the attention families (head dim 64: the attention
     forward's tile and decode routes, the backward's tile routes; glm4-9b
     GQA 2, phi3 and minitron 4, command-r 8, qwen3-moe 2 with its routers
-    in fp32) and rwkv6 (head dim 64, chunk 16: the wkv kernels);
-    ServeSession under both policies, the first step's gradients leaf by
+    in fp32, zamba2's shared block 1), rwkv6 (head dim 64, chunk 16: the
+    wkv kernels) and deepseek-v3 (MLA: the gate only); ServeSession under
+    both policies, the first step's gradients leaf by
     leaf, then eq1 steps' losses (rwkv6 also with remat).  Every
     comparison also runs under its mixer's planted fault (``FAULTS``) and
     must reject it.  Each prints its readings, and failures are raised
     together at the end."""
+    from repro_torch.kernels.entropy_exit import entropy_exit
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -1138,10 +1255,13 @@ def bf16_parity(cfgs: dict) -> None:
     rng = np.random.default_rng(5)
     # prompts of 12-48 tokens: attention prefill at G = 2 takes the tile
     # route from 32 tokens up and the decode route below; rwkv6 1-3 chunks
-    # of 16
+    # of 16.  At GQA 1 (zamba2) the tile route starts at 64 tokens: its
+    # prompts run to 96
     vocab = min(cfg.vocab_size for cfg in cfgs.values())
     prompts = [rng.integers(0, vocab, int(rng.integers(12, 49)))
                for _ in range(6)]
+    long_prompts = [rng.integers(0, vocab, int(rng.integers(12, 97)))
+                    for _ in range(6)]
     decodes = [6, 9, 4, 7, 5, 8]
     # per mixer: (read, ok, what) of the serving launches and of the
     # training launches, and the training modes
@@ -1163,20 +1283,29 @@ def bf16_parity(cfgs: dict) -> None:
             (lambda: (rwkv_wkv.launches,), lambda n: n[0] > 0, "wkv kernel"),
             (lambda: (rwkv_wkv_bwd.launches,), lambda n: n[0] > 0,
              "wkv backward kernel"),
-            (("eq1", "none"), ("eq1", "full")))}
+            (("eq1", "none"), ("eq1", "full"))),
+        # MLA: the gate is the one kernel; training runs none
+        "mla": (
+            (lambda: (entropy_exit.launches,), lambda n: n[0] > 0,
+             "entropy gate"),
+            None, (("eq1", "none"),))}
+    mixers["shared_attn"] = mixers["attn"]
     failed = []
     for family, cfg in cfgs.items():
-        mixer = cfg.block_pattern[0]
+        mixer = kernel_mixer(cfg)
         serve_counts, train_counts, modes = mixers[mixer]
         fwd_fault, bwd_fault = FAULTS[mixer]
-        runs = [lambda p=p: bf16_serve_parity(cfg, prompts, decodes, p,
-                                              serve_counts, fwd_fault)
+        ps = long_prompts if cfg.q_heads_per_kv == 1 else prompts
+        runs = [lambda p=p, ps=ps: bf16_serve_parity(
+                    cfg, ps, decodes, p, serve_counts, fwd_fault)
                 for p in ("select", "sticky")]
         runs.append(lambda: bf16_grad_parity(cfg, bwd_fault))
         runs.append(lambda: train_parity(
             cfg.with_(exit_layers=(1, 2)), modes,
             tol_loss=TOL_LOSS_BF16[family], counts=train_counts,
-            fault=MOE_LOSS_FAULT if cfg.moe else bwd_fault))
+            fault=(CAUSAL_LOSS_FAULT if mixer == "shared_attn"
+                   else MOE_LOSS_FAULT if cfg.moe and mixer == "attn"
+                   else bwd_fault)))
         for run in runs:
             try:
                 run()
@@ -1201,7 +1330,9 @@ def bf16_serve_parity(cfg, prompts, decodes, policy, counts, fault) -> None:
                                     stream_parity)
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     live_rwkv(params)
-    max_len = 64
+    # 64-token pages, longer where the prompts need (GQA 1's)
+    max_len = max(64, 16 * -(-(max(len(p) for p in prompts) + 1
+                               + max(decodes)) // 16))
     probe = ServeSession(cfg, params, tau=0.0, slots=1, max_len=max_len)
     probe.submit(prompts[0], decode_tokens=6)
     tau = float(np.median(probe.run()[0].entropy))
@@ -1486,6 +1617,45 @@ def phase_main(state):
                    counts_per_tick=True,
                    probe=moe_drops if cfg.moe is not None else None)
 
+    # zamba2-1.2b at full width and depth: prompts of 64-600 tokens (1-3
+    # chunks of 256); per tick each slot's Mamba2 states (64 heads x 64 x
+    # 64 fp32 and the conv tail, read and written) in 32 layers and the
+    # shared block's KV pages in 6
+    from repro_torch.configs import zamba2_1p2b
+    cfg = zamba2_1p2b.config()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(ZAMBA_PROMPT_MIN,
+                                             ZAMBA_PROMPT_MAX + 1)))
+               for _ in range(REQUESTS)]
+    attn_layers = [l for l, b in enumerate(cfg.block_pattern)
+                   if b == "shared_attn"]
+    n_mamba = cfg.num_layers - len(attn_layers)
+    d_inner = cfg.ssm.expand * cfg.d_model
+    conv_ch = d_inner + 2 * cfg.ssm.d_state
+    state_bytes = n_mamba * SLOTS * 2 * (
+        d_inner * cfg.ssm.d_state * 4 + (cfg.ssm.d_conv - 1) * conv_ch * 2)
+    kv_bytes = 2 * len(attn_layers) * SLOTS * ZAMBA_MAX_LEN * \
+        cfg.num_kv_heads * cfg.head_dim * 2
+    serve_main(state, cfg, prompts, ZAMBA_MAX_LEN, flash_attention,
+               cache_read=state_bytes + kv_bytes,
+               cache_note="Mamba2 states read and written, shared-block KV "
+               "pages", counts_per_tick=True, kernel_layers=attn_layers)
+
+    # deepseek-v3-671b at its published widths cut to 5 layers (3 dense,
+    # 2 MoE; exits 1, 2, 3): ~58.8 GB; MLA caches one 512-wide latent and
+    # one 64-wide rope key a token; no attention kernel (the gate only)
+    cfg, _ = cut_depth(configs.get("deepseek_v3_671b").config(),
+                       DEEPSEEK_CUT_LAYERS)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(REQUESTS)]
+    latent_bytes = cfg.num_layers * SLOTS * MAX_LEN * (
+        cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2
+    serve_main(state, cfg, prompts, MAX_LEN, None, cache_read=latent_bytes,
+               cache_note="MLA latent pages", counts_per_tick=True,
+               probe=moe_drops)
+
 
 def moe_drops(cfg, params, prompts, max_len) -> None:
     """A separate serve run of the first SLOTS prompts and 4 decode ticks
@@ -1517,7 +1687,7 @@ def moe_drops(cfg, params, prompts, max_len) -> None:
         sess.run()
     finally:
         moe.moe_forward = real
-    L = cfg.num_layers
+    L = cfg.ffn_pattern.count("moe")
     pre = [sum(drops["prefill"][i:i + L])
            for i in range(0, len(drops["prefill"]), L)]
     dec = [sum(drops["decode"][i:i + L])
@@ -1525,7 +1695,8 @@ def moe_drops(cfg, params, prompts, max_len) -> None:
     cap = [moe.expert_capacity(len(p), cfg.moe) for p in prompts[:SLOTS]]
     print(f"{cfg.name} routed entries dropped by capacity (top-{cfg.moe.top_k}"
           f" of {cfg.moe.num_experts}, capacity factor "
-          f"{cfg.moe.capacity_factor}): per prefill over {L} layers {pre} "
+          f"{cfg.moe.capacity_factor}): per prefill over {L} MoE layers "
+          f"{pre} "
           f"(prompts {[len(p) for p in prompts[:SLOTS]]} tokens, C {cap}); "
           f"per decode tick {dec}")
     check(len(dec) > 0 and not any(dec),
@@ -1534,18 +1705,23 @@ def moe_drops(cfg, params, prompts, max_len) -> None:
 
 
 def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
-               cache_note: str, counts_per_tick: bool, probe=None) -> None:
+               cache_note: str, counts_per_tick: bool, probe=None,
+               kernel_layers=None) -> None:
     """ServeSession on ``cfg`` at full width, bf16, random weights from a
     seeded torch.Generator on the card: 8 slots, the given prompts, 32
     decode tokens each, the select policy at tau 2.0 and the sticky policy
-    at tau 12.5 (above ln V for both vocabularies).  ``kernel`` is the
-    mixer's kernel wrapper: it must launch once per layer per prefill and,
-    if ``counts_per_tick``, once per layer per tick (every layer on a full
-    tick, the client's on a client-only tick); the gate once per tick."""
+    at tau 12.5 (above ln V for every vocabulary).  ``kernel`` is the
+    mixer's kernel wrapper (None: a mixer without one): it must launch
+    once per layer of ``kernel_layers`` (default every layer) per prefill
+    and, if ``counts_per_tick``, once per such layer per tick (each of
+    them on a full tick, the client's on a client-only tick); the gate
+    once per tick."""
     from repro_torch.api.serve_session import ServeSession
     from repro_torch.kernels.entropy_exit import entropy_exit
     from repro_torch.models.backbone import init_backbone
-    name = kernel.__name__
+    name = kernel.__name__ if kernel is not None else "no mixer kernel"
+    if kernel_layers is None:
+        kernel_layers = range(cfg.num_layers)
     t0 = time.perf_counter()
     params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -1559,7 +1735,10 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
     warm.run()
     del warm
 
-    layers = sum(weight_bytes(seg) for seg in params["segments"])
+    # Zamba2's shared block is read at each of its layers
+    layers = (sum(weight_bytes(seg) for seg in params["segments"])
+              + weight_bytes(params.get("shared_attn", {}))
+              * cfg.block_pattern.count("shared_attn"))
     head = weight_bytes(params["head"])
     cut = sorted(cfg.exit_layers)[0]
     per_layer = layers / cfg.num_layers
@@ -1578,10 +1757,11 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
         for p in prompts:
             sess.submit(p, decode_tokens=DECODE)
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(kernel, entropy_exit)
+        zero_counts(*(w for w in (kernel, entropy_exit) if w is not None))
         results = sess.run()
-        n_mix, n_gate = kernel.launches, entropy_exit.launches
-        by_kernel = launch_counts(kernel)
+        n_mix = kernel.launches if kernel is not None else 0
+        n_gate = entropy_exit.launches
+        by_kernel = launch_counts(kernel) if kernel is not None else {}
         peak = torch.cuda.max_memory_allocated()
         st = sess.stats
         for k, n in {**by_kernel, "entropy_exit": n_gate}.items():
@@ -1607,18 +1787,23 @@ def serve_main(state, cfg, prompts, max_len, kernel, *, cache_read: int,
             adoption=st.adoption_ratio, launches=n_mix, gate_launches=n_gate,
             tick_bound_ms=bound_ms)
         full_ticks = st.decode_ticks - st.client_only_ticks
-        check(n_mix > 0 and n_gate > 0,
-              f"{cfg.name} {policy}: both kernels launched on the main path")
-        want = cfg.num_layers * st.requests + (
-            cfg.num_layers * full_ticks + cut * st.client_only_ticks
-            if counts_per_tick else 0)
+        check((n_mix > 0 or kernel is None) and n_gate > 0,
+              f"{cfg.name} {policy}: "
+              + ("both kernels" if kernel is not None else "the gate")
+              + " launched on the main path")
+        n_layers = len(kernel_layers)
+        n_client = sum(1 for l in kernel_layers if l < cut)
+        want = (0 if kernel is None else n_layers * st.requests + (
+            n_layers * full_ticks + n_client * st.client_only_ticks
+            if counts_per_tick else 0))
         check(n_mix == want and n_gate == st.decode_ticks,
               f"{cfg.name} {policy}: {name} launched {n_mix} times = "
-              f"{cfg.num_layers} per prefill"
-              + (" and one per layer per tick" if counts_per_tick else "")
+              f"{n_layers} per prefill"
+              + (f" and one per such layer per tick ({n_client} below the "
+                 f"cut)" if counts_per_tick and kernel is not None else "")
               + ", one gate launch per tick")
         if name == "flash_attention":
-            prefill = cfg.num_layers * st.requests
+            prefill = n_layers * st.requests
             check(by_kernel == {"flash_attention": n_mix - prefill,
                                 "flash_attention_tile": prefill,
                                 "flash_attention_row": 0},
@@ -1708,7 +1893,8 @@ def phase_train(state):
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
-    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.launch.e2e_train import cut_depth, full_depth
 
     # glm4-9b at its published widths, depth cut to 8 layers, 12 x 128
     cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
@@ -1724,7 +1910,7 @@ def phase_train(state):
     # rwkv6-3b at its published widths and full depth (exits 8, 16, 24),
     # 12 x 512 tokens (4 chunks of 128), every block recomputed (remat);
     # then eq1 steps on the plain versions, the end-to-end baseline
-    cfg, profile = cut_depth(rwkv6_3b.config(), rwkv6_3b.NUM_LAYERS)
+    cfg, profile = full_depth(rwkv6_3b.config())
     H, K = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
     wkv = (TRAIN_B, RWKV_T, H, K, cfg.ssm.chunk_size)
     state["train_rwkv"] = train_main(
@@ -1732,9 +1918,22 @@ def phase_train(state):
         (wkv_causal_flops(*wkv), wkv_causal_flops(*wkv, "bwd")),
         dict(warm=RWKV_WARM, eq1=RWKV_EQ1, sum=RWKV_SUM, ref=RWKV_REF))
 
+    # zamba2-1.2b at its published widths and full depth (38 layers, exits
+    # 10, 20, 29), 12 x 512 tokens (2 chunks of 256), remat: the shared
+    # block's attention at its 6 layers on the tile routes, GQA 1, D 64
+    cfg, profile = full_depth(zamba2_1p2b.config())
+    band_mm = (2 * TRAIN_B * cfg.num_heads * ZAMBA_T * (ZAMBA_T + 1) // 2
+               * cfg.head_dim)
+    state["train_zamba"] = train_main(
+        state, cfg, profile, ZAMBA_T, "full",
+        (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq),
+        (2 * band_mm, 4 * band_mm, 3 * band_mm),
+        dict(warm=ZAMBA_WARM, eq1=ZAMBA_EQ1, sum=ZAMBA_SUM),
+        kernel_layers=cfg.block_pattern.count("shared_attn"))
+
 
 def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
-               n) -> dict:
+               n, kernel_layers=None) -> dict:
     """make_train_step on ``cfg`` (bf16 weights, fp32 Adam, lr 3e-4 cosine),
     batch 12 x ``T`` tokens of SyntheticLMDataset(seed=0), the Eq. (1)
     profile ``profile``.  With every launch count of ``counters`` (the
@@ -1745,10 +1944,10 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     eq1 steps on the plain versions (kernels="ref"), launching none of the
     counted kernels.  A counted step's FLOPs are the matmuls
     FlopCounterMode saw plus ``flops_per_launch[i]`` for each launch of
-    ``counters[i]``.  The
-    first counter is the forward kernel: one launch per layer, plus, under
-    remat, one per launch of the last counter (a block's backward runs
-    after its forward is recomputed)."""
+    ``counters[i]``.  The first counter is the forward kernel: one launch
+    per layer that runs it (``kernel_layers`` of them, default every
+    layer), plus, under remat, one per launch of the last counter (a
+    block's backward runs after its forward is recomputed)."""
     from repro_torch.config import OptimizerConfig, SplitEEConfig, TrainConfig
     from repro_torch.core.losses import softmax_cross_entropy
     from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
@@ -1888,7 +2087,8 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
                            launches_per_step=per_step)
         recomputed = per_step[-1] if remat == "full" else 0
         check(min(per_step) > 0
-              and per_step[0] == cfg.num_layers + recomputed,
+              and per_step[0] == (kernel_layers or cfg.num_layers)
+              + recomputed,
               f"train {cfg.name} {mode}: every kernel of the mixer launched "
               f"every step, one forward launch per layer"
               + (" and one per backward launch (remat)" if recomputed
@@ -3155,12 +3355,64 @@ def phase_timing(state):
     rows.extend(time_backward(gen, buf, state))
     rows.extend(time_wkv(gen, buf, state))
     state["timing"] = rows
+    time_zamba(gen, buf, state)
+
+
+def time_zamba(gen, buf, state) -> None:
+    """Attention at zamba2-1.2b's shared block, GQA 1 (H = Hkv = 32, D 64,
+    bf16), each beside its plain version, SDPA and its bound: a decode
+    tick of 8 slots over the 633-slot page (decode route, 1 row of a
+    16-row mma tile per (slot, head)), a 600-token prefill over the page
+    (tile route), and the train shape (12,32,512,64) forward with LSE,
+    dK/dV and dQ (tile routes)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    z = dict(H=32, Hkv=32, D=64)
+    out = {}
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=SLOTS, Tq=1,
+                          Tk=ZAMBA_MAX_LEN, **z)
+    dec = time_decode(buf, q, k, v, kv_prefix(SLOTS, ZAMBA_MAX_LEN, seed=65))
+    out["flash_attention"] = dict(
+        shape=f"decode q (8,32,1,64) bf16, kv (8,32,{ZAMBA_MAX_LEN},64), "
+              f"per-row kv_valid (decode route)", **dec)
+    P = ZAMBA_PROMPT_MAX
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=1, Tq=P, Tk=ZAMBA_MAX_LEN,
+                          **z)
+    causal = torch.ones(P, ZAMBA_MAX_LEN, dtype=torch.bool,
+                        device="cuda").tril()
+    n_pairs = P * (P + 1) // 2
+    out["flash_attention_tile prefill"] = dict(
+        shape=f"prefill q (1,32,{P},64) bf16, kv (1,32,{ZAMBA_MAX_LEN},64), "
+              f"causal (tile route)",
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True), buf),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                         buf),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal), buf),
+        bytes=2 * q.numel() * 2 + 2 * P * 32 * 64 * 2,
+        ops=4 * 32 * 64 * n_pairs)
+    train = time_causal(gen, buf, TRAIN_B, ZAMBA_T, 20, with_row=False, **z)
+    for name, r in train.items():
+        out[name] = dict(shape=f"train q/dO/k/v (12,32,{ZAMBA_T},64) bf16, "
+                               f"causal (tile route)", **r)
+    for name, r in out.items():
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S
+        by_ops = r["ops"] / PEAK_OPS_PER_S[torch.bfloat16]
+        r["bound_ms"] = max(by_bytes, by_ops) * 1e3
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        r.pop("row_ms", None)
+        print(f"zamba2-1.2b {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA{' backward' if 'bwd' in name else ''}"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    state["zamba_timing"] = out
 
 
 def time_gate(gen, buf, state) -> dict:
     """The gate at glm4-9b's serve shape (8,151552) bf16, the result
-    line's row, and beside it rwkv6-3b's (8,65536) bf16, (8,151552) fp32
-    and the paper evaluator's (512,10) and (512,100) fp32; each with the
+    line's row, and beside it rwkv6-3b's (8,65536), zamba2-1.2b's
+    (8,32000) and deepseek-v3's (8,129280) bf16, (8,151552) fp32 and the
+    paper evaluator's (512,10) and (512,100) fp32; each with the
     plain version, the bound (bytes: the logits and tau read, H and exit
     written; 4 operations a logit) and the launch floor, a one-element
     torch op timed the same way."""
@@ -3186,6 +3438,8 @@ def time_gate(gen, buf, state) -> dict:
 
     main = timed(torch.bfloat16, 151552)
     more = {"rwkv6-3b serve shape": timed(torch.bfloat16, 65536),
+            "zamba2-1.2b serve shape": timed(torch.bfloat16, 32000),
+            "deepseek-v3 serve shape": timed(torch.bfloat16, 129280),
             "fp32": timed(torch.float32, 151552),
             "evaluator, 10 classes": timed(torch.float32, 10, 512),
             "evaluator, 100 classes": timed(torch.float32, 100, 512)}
@@ -3227,19 +3481,19 @@ def time_decode(buf, q, k, v, kv_valid) -> dict:
         ops=4 * H * D * n_keys)
 
 
-def time_causal(gen, buf, B, T, reps, with_row):
+def time_causal(gen, buf, B, T, reps, with_row, H=32, Hkv=2, D=128):
     """The tile-route forward with LSE, dK/dV and dQ (delta fused, as the
-    training site runs it) at a causal GQA-16 shape (H=32, Hkv=2, D=128,
-    bf16), each beside its plain version, PyTorch's SDPA (forward;
-    backward computing dQ, dK and dV in one call) and its bytes and band
-    operations; with ``with_row``, dQ's row route too (``row_ms``)."""
+    training site runs it) at a causal shape (default GQA 16: H=32,
+    Hkv=2, D=128; bf16), each beside its plain version, PyTorch's SDPA
+    (forward; backward computing dQ, dK and dV in one call) and its bytes
+    and band operations; with ``with_row``, dQ's row route too
+    (``row_ms``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
     from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
                                          flash_attention_bwd_dq_ref,
                                          flash_attention_ref)
-    H, Hkv, D = 32, 2, 128
     q, k, v, do = bwd_inputs(gen, torch.bfloat16, B=B, H=H, Hkv=Hkv, T=T,
                              D=D)
     o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
@@ -3420,6 +3674,18 @@ def kernels_line(state) -> dict:
         if "lifecycle_launches" in state:   # phase lifecycle's share
             extra["launches_lifecycle"] = state["lifecycle_launches"].get(
                 r["name"], 0)
+        # the same kernel at the shapes of the configs ported since
+        more = [dict(shape=g["shape"], ms=g["ms"], plain_ms=g["plain_ms"],
+                     library_ms=g.get("library_ms"), bound_ms=g["bound_ms"])
+                for what, g in state.get("zamba_timing", {}).items()
+                if what.split()[0] == r["name"]]
+        if r["name"] == "entropy_exit":
+            more += [{k: g[k] for k in ("shape", "ms", "plain_ms",
+                                        "bound_ms")}
+                     for what, g in state.get("gate_timing", {}).items()
+                     if what.startswith(("zamba2", "deepseek"))]
+        if more:
+            extra["more_shapes"] = more
         out.append(dict(
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], shape=r["shape"],
@@ -3528,7 +3794,7 @@ def main() -> int:
                   f"{lc['mb']:.1f} MB, save {lc['save_ms']:.1f} ms, restore "
                   f"{lc['restore_ms']:.1f} ms; {lc['syncs']} host syncs over "
                   f"{lc['chunks']} chunks; peak {lc['peak_gib']:.2f} GiB")
-        for key in ("train", "train_rwkv"):
+        for key in ("train", "train_rwkv", "train_zamba"):
             if key in state:
                 tr = state[key]
                 print(f"{tr['model']} launches per step: eq1 "

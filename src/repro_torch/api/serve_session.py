@@ -118,8 +118,14 @@ def assemble_serve_params(model, state, boundary: int) -> dict:
         exit_heads.append(state.clients[owner]["trainable"]["out"]
                           if owner is not None
                           else model.full_params["exit_heads"][b])
-    return {"embed": client["embed"], "segments": segments,
-            "exit_heads": exit_heads, "head": server["head"]}
+    params = {"embed": client["embed"], "segments": segments,
+              "exit_heads": exit_heads, "head": server["head"]}
+    # Zamba2's shared block: the serving client's copy
+    if "shared_attn" in client:
+        params["shared_attn"] = client["shared_attn"]
+    elif "shared_attn" in model.full_params:
+        params["shared_attn"] = model.full_params["shared_attn"]
+    return params
 
 
 @dataclass

@@ -35,8 +35,8 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek Multi-head Latent Attention configuration (carried; the
-    MLA mixer is not ported yet)."""
+    """DeepSeek Multi-head Latent Attention configuration (the ``"mla"``
+    mixer)."""
 
     q_lora_rank: int = 1536
     kv_lora_rank: int = 512
@@ -47,8 +47,7 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """State-space / linear-attention block configuration (Mamba2, RWKV6);
-    the port runs ``kind="rwkv6"``."""
+    """State-space / linear-attention block configuration (Mamba2, RWKV6)."""
 
     kind: str = "mamba2"               # "mamba2" | "rwkv6"
     d_state: int = 64                  # SSM state dim per head
@@ -62,10 +61,10 @@ class SSMConfig:
 class ModelConfig:
     """One architecture.  ``block_pattern`` gives the per-layer mixer kind
     and ``ffn_pattern`` the per-layer FFN kind (see ``repro.config``).  The
-    port runs ``"attn"`` and ``"rwkv6"`` mixers with ``"mlp"``, ``"moe"``
-    and ``"rwkv_cm"`` FFNs (``moe`` a :class:`MoEConfig`, ``ssm`` an
-    :class:`SSMConfig`); ``mla`` is carried for the MLA mixer still to be
-    ported.
+    port runs ``"attn"``, ``"mla"``, ``"mamba2"``, ``"rwkv6"`` and
+    ``"shared_attn"`` mixers with ``"mlp"``, ``"moe"``, ``"rwkv_cm"`` and
+    ``"none"`` FFNs (``moe`` a :class:`MoEConfig`, ``mla`` an
+    :class:`MLAConfig`, ``ssm`` an :class:`SSMConfig`).
 
     ``kernels``: ``"auto"`` launches the CUDA kernels for CUDA tensors and
     their plain PyTorch versions for CPU tensors; ``"ref"`` runs the plain

@@ -1,7 +1,8 @@
 """Architecture registry of the port (counterpart of ``repro/configs``).
 
-glm4-9b, rwkv6-3b, the three dense configs and qwen3-moe are ported so far;
-every other id of the JAX registry raises a ``ValueError`` that names the
+glm4-9b, rwkv6-3b, the three dense configs, qwen3-moe, zamba2-1.2b and
+deepseek-v3-671b are ported so far; every other id of the JAX registry
+raises a ``ValueError`` that names the
 ROADMAP item it waits for."""
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ ARCH_IDS = (
     "paligemma_3b",
     "rwkv6_3b",
 )
-PORTED = ("phi3_medium_14b", "minitron_8b", "command_r_35b", "glm4_9b",
-          "qwen3_moe_235b_a22b", "rwkv6_3b")
+PORTED = ("phi3_medium_14b", "minitron_8b", "zamba2_1p2b", "command_r_35b",
+          "deepseek_v3_671b", "glm4_9b", "qwen3_moe_235b_a22b", "rwkv6_3b")
 
 # CLI ids use dashes, matching the assignment table.
 CANONICAL = {a.replace("_", "-").replace("-1p2b", "-1.2b"): a for a in ARCH_IDS}

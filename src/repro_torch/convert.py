@@ -96,26 +96,29 @@ def config_from_jax(jcfg, **overrides) -> ModelConfig:
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """A JAX ``init_backbone`` parameter tree with numpy leaves -> the
-    port's parameters on ``device`` (default the CUDA card)."""
+    port's parameters on ``device`` (default the CUDA card).  Zamba2's
+    ``shared_attn`` block is copied as it is and the ``{}`` placeholders
+    of its layers carried through; a Whisper or VLM ``frontend`` raises
+    (not ported)."""
     device = resolve_device(device)
-    for key in ("shared_attn", "frontend"):
-        if key in tree:
-            raise NotImplementedError(
-                f"{cfg.name}: parameters {key!r} are not ported yet")
+    if "frontend" in tree:
+        raise NotImplementedError(
+            f"{cfg.name}: parameters 'frontend' are not ported yet")
     conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
     out = {"embed": conv(tree["embed"]),
            "segments": [segment_from_jax(seg, cfg, si, device)
                         for si, seg in enumerate(tree["segments"])],
            "head": conv(tree["head"])}
-    if "exit_heads" in tree:
-        out["exit_heads"] = conv(tree["exit_heads"])
+    for key in ("exit_heads", "shared_attn"):
+        if key in tree:
+            out[key] = conv(tree[key])
     return out
 
 
 def segment_from_jax(runs, cfg: ModelConfig, si: int, device) -> list:
     """Segment ``si`` of a JAX backbone (one tree per run of identical
     layers, stacked along a leading layer axis) -> the port's list of one
-    dict per layer."""
+    dict per layer (a shared-block layer's ``{}`` stays ``{}``)."""
     conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
     layers = []
     for run, rp in zip(build_plan(cfg)[si], runs):

@@ -28,9 +28,13 @@ config's ``router_aux_weight`` inside ``models.moe.route``), so routers on
 both sides of the cut stay balanced, while evaluation logits stay
 aux-free.
 
-The port has the dense GQA, MoE and rwkv6 families.  Zamba2's shared
-attention block and the Whisper frontend raise: they wait for ROADMAP.md
-Queue 1 item 7.
+Zamba2's globally shared attention block is copied to each side: the
+client family and the server family train their own copy (they start
+equal), as the JAX adapter's ``_side_extras`` does.  Every server net then
+holds the key ``shared_attn``, so Eq. (1) averages the servers' copies as
+it averages any key two server nets hold (``core.aggregation``), as in the
+JAX package.  The Whisper frontend raises: it waits for ROADMAP.md Queue 1
+item 7.
 """
 from __future__ import annotations
 
@@ -55,11 +59,17 @@ _ITEM7 = ("waits for ROADMAP.md Queue 1 item 7 (remaining mixers and the "
 
 def unsupported_reason(cfg: ModelConfig):
     """Why the port's adapter cannot split ``cfg`` yet, or ``None``."""
-    if "shared_attn" in cfg.block_pattern:
-        return f"{cfg.name}: Zamba2's shared attention block {_ITEM7}"
     if cfg.cross_attention:
         return f"{cfg.name}: the Whisper frontend and cross attention {_ITEM7}"
     return None
+
+
+def _shared(params) -> Dict[str, Any]:
+    """Zamba2's shared block of ``params`` (the full tree or one side's
+    trainables) under its key, or nothing: what each side holds a copy of
+    and ``segment_forward`` reads."""
+    return ({"shared_attn": params["shared_attn"]}
+            if "shared_attn" in params else {})
 
 
 @dataclass
@@ -116,7 +126,8 @@ class BackboneSplitModel(_StackMixin):
         return own_copy({"trainable": {
             "embed": p["embed"],
             "segments": [p["segments"][si] for si in range(b + 1)],
-            "out": p["exit_heads"][b]}, "state": {}})
+            "out": p["exit_heads"][b], **_shared(p)},
+            "state": {}})
 
     def make_server(self, li: int) -> Dict[str, Any]:
         b = self._boundary_of(li)
@@ -124,6 +135,7 @@ class BackboneSplitModel(_StackMixin):
         trainable = {f"seg{si}": p["segments"][si]
                      for si in range(b + 1, len(self.plan))}
         trainable["head"] = p["head"]
+        trainable.update(_shared(p))
         return own_copy({"trainable": trainable, "state": {}})
 
     # --------------------------------------------------------------- forward
@@ -135,7 +147,8 @@ class BackboneSplitModel(_StackMixin):
         segments, ``None`` without a router)."""
         h = embed(trainable["embed"], x).to(self.cfg.dtype)
         positions = self._positions(h)
-        params = {"segments": trainable["segments"]}
+        params = {"segments": trainable["segments"],
+                  **_shared(trainable)}
         aux = None
         for si in range(len(trainable["segments"])):
             h, a = segment_forward(params, self.cfg, si, h, positions)
@@ -151,7 +164,8 @@ class BackboneSplitModel(_StackMixin):
         positions = self._positions(h)
         aux = None
         for si in range(b + 1, len(self.plan)):
-            h, a = segment_forward({"segments": {si: trainable[f"seg{si}"]}},
+            h, a = segment_forward({"segments": {si: trainable[f"seg{si}"]},
+                                    **_shared(trainable)},
                                    self.cfg, si, h, positions)
             aux = add_aux(aux, a)
         return heads_mod.lm_head(trainable["head"], h[:, -1], self.cfg), aux

@@ -80,6 +80,12 @@ def participation_scale_trees(params: Any, cfg: ModelConfig,
     # server family (a stop-gradient sits above it on every example's path)
     cs: Dict[str, Any] = {"embed": fill(params["embed"], inv(N))}
     ss: Dict[str, Any] = {"embed": fill(params["embed"], 0.0)}
+    if "shared_attn" in params:
+        # Zamba2's shared block runs on both sides of every cut and both
+        # families reach it: 1/N for each, the JAX package's documented
+        # approximation (its layers' {} placeholders fill to {} below)
+        cs["shared_attn"] = fill(params["shared_attn"], inv(N))
+        ss["shared_attn"] = fill(params["shared_attn"], inv(N))
     cs["segments"], ss["segments"] = [], []
     for (lo, _), seg in zip(cfg.segments(), params["segments"]):
         cs["segments"].append([fill(p, inv(n_client[lo + li]))

@@ -6,13 +6,15 @@
 ``--arch`` takes the architecture at its published widths, with the depth
 cut to ``--layers`` and exit heads after layers N/4, N/2 and 3N/4; the
 profile puts 4 client groups at each exit (12 groups, as
-``configs/glm4_9b.profile()`` does at 40 layers).  ``--smoke`` takes the
+``configs/glm4_9b.profile()`` does at 40 layers).  ``--layers 0`` trains
+it uncut, at its published exits (zamba2-1.2b: 10, 20, 29, where
+``--layers 38`` would put them at 9, 19, 28).  ``--smoke`` takes the
 architecture's smoke config instead (fp32, narrow), with the same cut.
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --layers 8 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --arch rwkv6-3b \
-      --layers 32 --seq 512 --remat --steps 20
+      --layers 0 --seq 512 --remat --steps 20
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --smoke --layers 4 \\
       --steps 3 --batch 12 --seq 8 --device cpu --checkpoint /tmp/e2e
 
@@ -59,13 +61,21 @@ def cut_depth(cfg: ModelConfig, layers: int
                                                  for _ in range(4)))
 
 
+def full_depth(cfg: ModelConfig) -> Tuple[ModelConfig, HeteroProfile]:
+    """``cfg`` uncut, at its own exits, and the profile with 4 client
+    groups at each exit (the configs' ``profile()``)."""
+    return cfg, HeteroProfile(split_layers=tuple(
+        e for e in sorted(cfg.exit_layers) for _ in range(4)))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="glm4_9b")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's smoke config (narrow, fp32)")
     ap.add_argument("--layers", type=int, default=8,
-                    help="depth cut; exits after layers N/4, N/2, 3N/4")
+                    help="depth cut; exits after layers N/4, N/2, 3N/4; "
+                         "0 = the config's own depth and exits")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=12)
     ap.add_argument("--seq", type=int, default=128)
@@ -82,8 +92,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     mod = configs_mod.get(args.arch)
-    cfg, profile = cut_depth(mod.smoke() if args.smoke else mod.config(),
-                             args.layers)
+    base = mod.smoke() if args.smoke else mod.config()
+    cfg, profile = (full_depth(base) if args.layers == 0
+                    else cut_depth(base, args.layers))
     sc = StepConfig(
         model=cfg, splitee=SplitEEConfig(profile=profile),
         train=TrainConfig(

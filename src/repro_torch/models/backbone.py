@@ -6,6 +6,10 @@ of ``repro/models/backbone.py``).
 The JAX package stacks runs of identical layers and drives them with
 ``lax.scan``; the port keeps one parameter dict per layer
 (``params["segments"][si][li]``) and loops over them in Python.
+Zamba2's globally shared attention block is one top-level parameter set,
+``params["shared_attn"]`` (an ``"attn"`` block with the FFN of the first
+shared layer); each shared layer holds an empty ``{}`` in its place, as
+the JAX package's tree does, and has a KV cache of its own.
 Training passes ``split_ids``: each example's residual stream is cut from
 the gradient at its own boundary (the paper's routing), and ``remat``
 recomputes each block's activations in the backward pass.  MoE blocks'
@@ -63,7 +67,8 @@ def build_plan(cfg: ModelConfig) -> Tuple[Tuple[Run, ...], ...]:
 
 
 def segment_layers(cfg: ModelConfig, si: int) -> List[Tuple[str, str]]:
-    """(mixer, ffn) of each layer of segment ``si``, in order."""
+    """(mixer, ffn) of each layer of segment ``si``, in order; a layer of
+    the shared block reads ``"shared_attn"``."""
     return [(run.mixer, run.ffn) for run in build_plan(cfg)[si]
             for _ in range(run.length)]
 
@@ -73,8 +78,13 @@ def init_backbone(generator: torch.Generator, cfg: ModelConfig) -> dict:
     device = generator.device
     params: dict = {"embed": init_embedding(cfg.vocab_size, cfg.d_model,
                                             cfg.param_dtype, generator, device)}
+    if "shared_attn" in cfg.block_pattern:
+        first = cfg.block_pattern.index("shared_attn")
+        params["shared_attn"] = blocks_mod.init_block(
+            cfg, "attn", cfg.ffn_pattern[first], generator, device)
     params["segments"] = [
-        [blocks_mod.init_block(cfg, mixer, ffn, generator, device)
+        [{} if mixer == "shared_attn"      # reads params["shared_attn"]
+         else blocks_mod.init_block(cfg, mixer, ffn, generator, device)
          for mixer, ffn in segment_layers(cfg, si)]
         for si in range(len(cfg.segments()))]
     if cfg.exit_layers:
@@ -86,11 +96,18 @@ def init_backbone(generator: torch.Generator, cfg: ModelConfig) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> list:
-    """Decode cache mirroring the parameters: per segment, per layer."""
-    return [[blocks_mod.init_block_cache(cfg, mixer, ffn, batch, max_len,
-                                         dtype, device)
+    """Decode cache mirroring the parameters: per segment, per layer (each
+    layer of the shared block has a KV cache of its own)."""
+    return [[blocks_mod.init_block_cache(cfg, _mixer(mixer), ffn, batch,
+                                         max_len, dtype, device)
              for mixer, ffn in segment_layers(cfg, si)]
             for si in range(len(cfg.segments()))]
+
+
+def _mixer(kind: str) -> str:
+    """The block kind a layer runs: the shared block is an ``"attn"``
+    block."""
+    return "attn" if kind == "shared_attn" else kind
 
 
 @dataclass
@@ -115,13 +132,16 @@ def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
                     remat: bool = False, moe_groups: int = 1
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layers of segment ``si`` -> ``(x, aux)``: ``aux`` sums the MoE
-    blocks' router losses (``None`` in a segment without one).  The
-    caches are updated in place.  ``remat`` checkpoints each block (no
-    cache): its activations are recomputed in the backward pass instead of
-    kept.  ``moe_groups``: the routing groups of ``models/moe.py``."""
+    blocks' router losses (``None`` in a segment without one).  ``params``
+    holds ``"segments"`` and, for Zamba2, ``"shared_attn"``, which every
+    shared layer runs.  The caches are updated in place.  ``remat``
+    checkpoints each block (no cache): its activations are recomputed in
+    the backward pass instead of kept.  ``moe_groups``: the routing groups of ``models/moe.py``."""
     aux = None
-    for li, (mixer, ffn) in enumerate(segment_layers(cfg, si)):
-        p = params["segments"][si][li]
+    for li, (kind, ffn) in enumerate(segment_layers(cfg, si)):
+        p = (params["shared_attn"] if kind == "shared_attn"
+             else params["segments"][si][li])
+        mixer = _mixer(kind)
         if remat:
             x, a = checkpoint(
                 lambda h, p=p, mixer=mixer, ffn=ffn: blocks_mod.block_forward(

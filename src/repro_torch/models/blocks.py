@@ -1,7 +1,9 @@
 """One pre-norm residual block = mixer + FFN (counterpart of
-``repro/models/blocks.py``).  The port runs ``"attn"`` (GQA) and
-``"rwkv6"`` mixers and ``"mlp"``, ``"moe"`` and ``"rwkv_cm"`` FFNs; every
-other kind raises ``NotImplementedError``."""
+``repro/models/blocks.py``).  Mixers: ``"attn"`` (GQA), ``"mla"``
+(DeepSeek latent attention), ``"mamba2"``, ``"rwkv6"``; FFNs: ``"mlp"``,
+``"moe"``, ``"rwkv_cm"`` and ``"none"`` (a block without ``norm2`` and
+``ffn``, as Zamba2's Mamba2 layers).  Cross attention raises
+``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -19,8 +21,10 @@ _PENDING = ("not ported to repro_torch yet; see ROADMAP.md Queue 1, "
             "'Remaining mixers and the configs zoo'")
 
 
-MIXERS = ("attn", "rwkv6")
-FFNS = ("mlp", "moe", "rwkv_cm")
+MIXER_INIT = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla,
+              "mamba2": ssm_mod.init_mamba2, "rwkv6": ssm_mod.init_rwkv6}
+MIXERS = tuple(MIXER_INIT)
+FFNS = ("mlp", "moe", "rwkv_cm", "none")
 FFN_INIT = {"mlp": init_mlp, "moe": moe_mod.init_moe,
             "rwkv_cm": ssm_mod.init_rwkv_cm}
 
@@ -37,12 +41,12 @@ def check_kinds(cfg: ModelConfig, mixer: str, ffn: str) -> None:
 def init_block(cfg: ModelConfig, mixer: str, ffn: str, generator,
                device) -> dict:
     check_kinds(cfg, mixer, ffn)
-    init_mixer = (attn_mod.init_gqa if mixer == "attn"
-                  else ssm_mod.init_rwkv6)
-    return {"norm1": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
-            "mixer": init_mixer(cfg, generator, device),
-            "norm2": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
-            "ffn": FFN_INIT[ffn](cfg, generator, device)}
+    p = {"norm1": init_rmsnorm(cfg.d_model, cfg.param_dtype, device),
+         "mixer": MIXER_INIT[mixer](cfg, generator, device)}
+    if ffn != "none":
+        p["norm2"] = init_rmsnorm(cfg.d_model, cfg.param_dtype, device)
+        p["ffn"] = FFN_INIT[ffn](cfg, generator, device)
+    return p
 
 
 def init_block_cache(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
@@ -51,6 +55,11 @@ def init_block_cache(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
     if mixer == "attn":
         c = {"mixer": attn_mod.init_gqa_cache(cfg, batch, max_len, dtype,
                                               device)}
+    elif mixer == "mla":
+        c = {"mixer": attn_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                              device)}
+    elif mixer == "mamba2":
+        c = {"mixer": ssm_mod.init_mamba2_cache(cfg, batch, dtype, device)}
     else:
         c = {"mixer": ssm_mod.init_rwkv6_cache(cfg, batch, dtype, device)}
     if ffn == "rwkv_cm":
@@ -76,11 +85,18 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if mixer == "attn":
         m, _ = attn_mod.gqa_forward(params["mixer"], h, positions, cfg,
                                     cache=mc, cache_len=cache_len)
+    elif mixer == "mla":
+        m, _ = attn_mod.mla_forward(params["mixer"], h, positions, cfg,
+                                    cache=mc, cache_len=cache_len)
+    elif mixer == "mamba2":
+        m, _ = ssm_mod.mamba2_forward(params["mixer"], h, cfg, cache=mc)
     else:
         m, _ = ssm_mod.rwkv6_forward(params["mixer"], h, cfg, cache=mc)
     x = x + m
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     aux = None
+    if ffn == "none":
+        return x, cache, aux
+    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "mlp":
         f = mlp_forward(params["ffn"], h2, cfg)
     elif ffn == "moe":

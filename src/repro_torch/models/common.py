@@ -14,12 +14,28 @@ import torch
 import torch.nn.functional as F
 
 
+#: tensors of more elements are drawn in slices along their first axis
+#: (DeepSeek-V3's expert weights, (256, 7168, 2048): whole, their fp32
+#: draw would take 15 GB beside the weights already on the card)
+SLICED_DRAW = 2 ** 31
+
+
 def trunc_normal(shape, std: float, dtype, generator: torch.Generator,
                  device) -> torch.Tensor:
-    """Truncated-normal init (2 sigma), drawn in fp32 then cast."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    """Truncated-normal init (2 sigma), drawn in fp32 then cast; a tensor
+    of more than ``SLICED_DRAW`` elements slice by slice."""
+    def draw(sub):
+        t = torch.empty(sub, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return t.mul_(std).to(dtype)
+
+    if math.prod(shape) <= SLICED_DRAW:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for row in out:
+        row.copy_(draw(row.shape))
+    return out
 
 
 def fan_in_init(shape, dtype, generator, device,

@@ -1,7 +1,17 @@
-"""RWKV6 (Finch) time mix and channel mix (counterpart of the RWKV6 half
-of ``repro/models/ssm.py``; Mamba2 is still to be ported).
+"""State-space and linear-attention mixers: Mamba2 (SSD) and RWKV6 (Finch)
+(counterpart of ``repro/models/ssm.py``).
 
-Recurrence per head, per key channel (decay w_t in (0, 1)):
+Mamba2 recurrence per head (scalar decay a_t = exp(A * dt_t)):
+    h_t = a_t * h_{t-1} + dt_t * x_t (outer) B_t        h: (P, S)
+    y_t = h_t @ C_t + D * x_t
+Train and prefill run the chunked SSD form (:func:`_mamba2_core_chunked`:
+quadratic inside a chunk, a loop over chunk states across chunks) in plain
+torch products, as the JAX package runs it in einsums (no kernel); a
+single-token decode step runs the recurrence above.  The dtypes follow the
+JAX package's promotions: the chunked form computes in fp32 from the
+projections' dtype, the decode step casts its output back to it.
+
+RWKV6 recurrence per head, per key channel (decay w_t in (0, 1)):
     S_t = diag(w_t) S_{t-1} + k_t (outer) v_t           S: (K, V)
     y_t = r_t @ (S_{t-1} + diag(u) k_t (outer) v_t)
 Train and prefill run the chunked parallel form on the ``cfg.kernels``
@@ -9,10 +19,11 @@ backend (the ``cuda`` backend's kernels, or :func:`_wkv_chunked`, the plain
 version); a single-token decode step runs the recurrence above in plain
 torch, as the JAX package does.
 
-Cache contract (decode): ``{"tm_last": (B, 1, d), "cm_last": (B, 1, d),
-"state": (B, H, K, K) fp32}`` — the JAX leaves; the block keeps the channel
-mix's own ``cm_last`` beside it.  A cache is updated IN PLACE (the caller's
-tensors, e.g. the ServeSession slot pool, are written).
+Cache contracts (decode), the JAX leaves: Mamba2 ``{"conv": (B, d_conv-1,
+conv_ch), "state": (B, H, P, S) fp32}``; RWKV6 ``{"tm_last": (B, 1, d),
+"cm_last": (B, 1, d), "state": (B, H, K, K) fp32}``, the block keeping the
+channel mix's own ``cm_last`` beside it.  A cache is updated IN PLACE (the
+caller's tensors, e.g. the ServeSession slot pool, are written).
 """
 from __future__ import annotations
 
@@ -24,6 +35,185 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import fan_in_init, init_rmsnorm, rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+
+
+def _mamba_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nheads = d_inner // s.head_dim
+    conv_ch = d_inner + 2 * s.d_state            # xBC go through the conv
+    return s, d_inner, nheads, conv_ch
+
+
+def init_mamba2(cfg: ModelConfig, generator, device) -> dict:
+    s, d_inner, nheads, conv_ch = _mamba_dims(cfg)
+    d, dt = cfg.d_model, cfg.param_dtype
+    d_proj = 2 * d_inner + 2 * s.d_state + nheads   # z, xBC, dt
+    return {
+        "in_proj": fan_in_init((d, d_proj), dt, generator, device),
+        "conv_w": fan_in_init((s.d_conv, conv_ch), dt, generator, device,
+                              fan_in=s.d_conv),
+        "conv_b": torch.zeros((conv_ch,), dtype=dt, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads,
+                                          device=device)).float(),
+        "dt_bias": torch.zeros((nheads,), dtype=torch.float32,
+                               device=device),
+        "D": torch.ones((nheads,), dtype=torch.float32, device=device),
+        "out_norm": init_rmsnorm(d_inner, dt, device),
+        "out_proj": fan_in_init((d_inner, d), dt, generator, device),
+    }
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    s, _, nheads, conv_ch = _mamba_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, nheads, s.head_dim, s.d_state),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 history: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d.  x (B, T, C), w (K, C); ``history`` is the
+    (B, K-1, C) tail of the previous tokens (decode) or None (zero pad)."""
+    K, T = w.shape[0], x.shape[1]
+    if history is None:
+        history = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([history, x], dim=1)                     # (B, T+K-1, C)
+    out = xp[:, 0:T] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + T] * w[i]
+    return F.silu(out + b)
+
+
+def _mamba2_split(params, x, cfg):
+    _, d_inner, _, conv_ch = _mamba_dims(cfg)
+    proj = x @ params["in_proj"]
+    return (proj[..., :d_inner], proj[..., d_inner:d_inner + conv_ch],
+            proj[..., d_inner + conv_ch:])                  # z, xBC, dt
+
+
+def _mamba2_core_chunked(xh, B, C, log_a, dt, D, chunk: int):
+    """Chunked SSD.  xh (B, T, H, P), B/C (B, T, S), log_a (B, T, H) the
+    per-token log decay (negative), dt (B, T, H) -> ``(y (B, T, H, P),
+    h_T (B, H, P, S) fp32)``; y in the promoted dtype of ``xh`` and ``dt``
+    (fp32 for the fp32 ``dt`` of :func:`mamba2_forward`)."""
+    Bb, T0, H, P = xh.shape
+    S = B.shape[-1]
+    Q = min(chunk, T0)
+    pad = (-T0) % Q
+    if pad:
+        # dt = 0 and log_a = 0 make the padded steps identities (decay 1,
+        # no input), so the final state is unaffected
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        B, C, log_a, dt = (F.pad(a, (0, 0, 0, pad))
+                           for a in (B, C, log_a, dt))
+    T = T0 + pad
+    nc = T // Q
+
+    def r(t):                                   # time -> (chunks, Q)
+        return t.reshape(t.shape[0], nc, Q, *t.shape[2:])
+
+    xh_c, B_c, C_c = r(xh), r(B), r(C)
+    la_c, dt_c = r(log_a).float(), r(dt).float()            # (B, nc, Q, H)
+    Lc = torch.cumsum(la_c, dim=2)                          # within a chunk
+    u = xh_c * dt_c[..., None]                              # weighted input
+
+    # intra-chunk: y_t = sum_{i<=t} exp(L_t - L_i) (C_t . B_i) u_i
+    scores = torch.einsum("bnqs,bnks->bnqk", C_c, B_c)      # (B, nc, Q, Q)
+    seg = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]       # L_t - L_i
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=xh.device).tril()[None, None, :, :, None]
+    # seg is masked BEFORE exp: the non-causal entries (i > t) have seg > 0
+    # and can overflow exp to inf, which the outer where hides in the
+    # forward but turns into inf * 0 = NaN in the backward
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                        0.0)
+    attn = scores[..., None] * decay                        # (B,nc,Q,Q,H)
+    y_intra = torch.einsum("bnqkh,bnkhp->bnqhp", attn.to(u.dtype), u)
+
+    # chunk summary state S_n = sum_i exp(L_Q - L_i) u_i (outer) B_i
+    tail = torch.exp(Lc[:, :, -1:, :] - Lc)                 # (B, nc, Q, H)
+    Sn = torch.einsum("bnqh,bnqhp,bnqs->bnhps", tail.to(u.dtype), u,
+                      B_c.to(u.dtype))                      # (B,nc,H,P,S)
+    chunk_decay = torch.exp(Lc[:, :, -1, :]).float()        # (B, nc, H)
+    h = torch.zeros((Bb, H, P, S), dtype=torch.float32, device=xh.device)
+    h_prev = []
+    for n in range(nc):                 # the state *before* each chunk
+        h_prev.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + Sn[:, n].float()
+    h_prev = torch.stack(h_prev, dim=1)                     # (B,nc,H,P,S)
+
+    # inter-chunk: y_t += exp(L_t) C_t . h_{chunk start}
+    inter_w = torch.exp(Lc).to(u.dtype)                     # (B, nc, Q, H)
+    y_inter = torch.einsum("bnqs,bnhps,bnqh->bnqhp", C_c.to(u.dtype),
+                           h_prev.to(u.dtype), inter_w)
+    y = ((y_intra + y_inter).reshape(Bb, T, H, P)
+         + D[:, None] * xh * dt[..., None])
+    return y[:, :T0], h
+
+
+def mamba2_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   cache: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Train (no cache), prefill (T > 1) or a single-token decode step; the
+    cache is updated in place.  A prefill starts from a zero state, as the
+    JAX package's does."""
+    s, d_inner, nheads, _ = _mamba_dims(cfg)
+    P, S = s.head_dim, s.d_state
+    Bsz, T, _ = x.shape
+    z, xBC, dt = _mamba2_split(params, x, cfg)
+    A = -torch.exp(params["A_log"])                         # (H,) negative
+    dt_sp = F.softplus(dt.float() + params["dt_bias"])
+
+    if cache is None or T > 1:
+        hist = cache["conv"] if cache is not None else None
+        if cache is not None:
+            # concat then tail: a prompt shorter than d_conv - 1 keeps the
+            # older history in front of it
+            new_hist = torch.cat([hist, xBC], dim=1)[:, -(s.d_conv - 1):]
+        xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"],
+                           history=hist)
+        xi = xBC[..., :d_inner].reshape(Bsz, T, nheads, P)
+        Bm, Cm = xBC[..., d_inner:d_inner + S], xBC[..., d_inner + S:]
+        y, hT = _mamba2_core_chunked(xi, Bm, Cm, dt_sp * A, dt_sp,
+                                     params["D"], s.chunk_size)
+        if cache is not None:
+            cache["conv"].copy_(new_hist)
+            cache["state"].copy_(hT)
+    else:
+        hist = cache["conv"]
+        new_hist = torch.cat([hist, xBC], dim=1)[:, 1:]
+        xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"],
+                           history=hist)
+        xi = xBC[..., :d_inner].reshape(Bsz, 1, nheads, P)
+        Bm, Cm = xBC[:, 0, d_inner:d_inner + S], xBC[:, 0, d_inner + S:]
+        a = torch.exp(dt_sp * A)[:, 0]                      # (B, H)
+        u = (xi * dt_sp[..., None])[:, 0]                   # (B, H, P)
+        h = (cache["state"] * a[..., None, None]
+             + u.float()[..., None] * Bm.float()[:, None, None, :])
+        y = (torch.einsum("bhps,bs->bhp", h, Cm.float())
+             + params["D"][:, None] * xi[:, 0] * dt_sp[:, 0, :, None])
+        y = y[:, None].to(x.dtype)                          # (B, 1, H, P)
+        cache["conv"].copy_(new_hist)
+        cache["state"].copy_(h)
+
+    y = y.reshape(Bsz, T, d_inner) * F.silu(z)
+    y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
+    out = y @ params["out_proj"].to(y.dtype)
+    return out.to(x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch)
+# ---------------------------------------------------------------------------
 
 
 def _rwkv_dims(cfg: ModelConfig):

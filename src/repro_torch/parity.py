@@ -43,9 +43,14 @@ TOL_GRAD_BF16 = 5e-2
 # its limit.  qwen3-moe's smoke routes each token to 2 of 4 experts from
 # fp32 router logits of bf16 hidden states, where the kernels and the
 # plain versions round differently; it holds glm4-9b's limit as well
+# zamba2-1.2b's smoke runs one shared attention layer among three Mamba2
+# layers (plain torch products in both runs) and deepseek-v3-671b's MLA
+# runs no kernel at all (its training is the plain versions' on both
+# sides; its serving gate is the one kernel); both hold glm4-9b's limit
 TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3,
                  "phi3_medium_14b": 1.5e-3, "minitron_8b": 1.5e-3,
-                 "command_r_35b": 1.5e-3, "qwen3_moe_235b_a22b": 1.5e-3}
+                 "command_r_35b": 1.5e-3, "qwen3_moe_235b_a22b": 1.5e-3,
+                 "zamba2_1p2b": 1.5e-3, "deepseek_v3_671b": 1.5e-3}
 # the training comparisons' setup: exits (1, 2) over client groups
 # (1, 1, 2, 2), Adam at lr 1e-3 over a 6-step schedule, 3 steps of 8 x 32
 # tokens from ``smoke_batches``
@@ -395,8 +400,10 @@ def dropped_lane():
 
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card
 # tests): BackboneSplitModel on the bf16 smokes at full head width, two
-# lanes at each of glm4-9b's cuts 1 and 2, three at rwkv6-3b's one cut 2
-# and two at qwen3-moe's one cut 2 (phase lifecycle's populations take
+# lanes at each of glm4-9b's cuts 1 and 2, three at rwkv6-3b's one cut 2,
+# two at qwen3-moe's one cut 2 and two at zamba2-1.2b's one cut 2 (its
+# shared attention block on the server lanes; phase lifecycle's
+# populations take
 # POP_LANE_FAMILIES), LANE_BATCH sequences of LANE_SEQ tokens a client (T * G = 64 query
 # rows: the attention forward's tile route), LANE_ROUNDS rounds of fused
 # eq1 at TRAIN_LR, Eq. (1) every round.  The limits are those of the
@@ -406,7 +413,7 @@ def dropped_lane():
 # glm4-9b's four clients the same 256 (at 8 a client, 32 rows, an H100
 # read 1.6e-3 at round 0, before any update: the forward's bf16 rounding)
 LANE_SPLITS = {"glm4_9b": (1, 1, 2, 2), "rwkv6_3b": (2, 2, 2),
-               "qwen3_moe_235b_a22b": (2, 2)}
+               "qwen3_moe_235b_a22b": (2, 2), "zamba2_1p2b": (2, 2)}
 POP_LANE_FAMILIES = ("glm4_9b", "rwkv6_3b")
 LANE_SEQ, LANE_BATCH, LANE_ROUNDS = 32, 64, 2
 

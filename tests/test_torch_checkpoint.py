@@ -10,8 +10,9 @@ under JAX's key paths, with the JAX session's manifest.  So:
   * a port ``save`` loads in the JAX package (``TrainSession.restore``,
     which is ``load_pytree`` into ``init_train_state``) and a JAX ``save``
     restores in the port, every leaf equal, for the MLP, the ResNet (conv
-    layout) and the glm4-9b and rwkv6 smokes in bf16 (stacked segments,
-    widening); the manifests' key, dtype and shape sets are equal;
+    layout) and the glm4-9b, rwkv6 and zamba2 smokes in bf16 (stacked
+    segments, widening; zamba2's shared block on both sides and its
+    layer's ``{}`` placeholder); the manifests' key, dtype and shape sets are equal;
   * resume equivalence: JAX trains k rounds and saves, the port restores
     and trains k more, against JAX training 2k rounds uninterrupted: the
     MLP in fp32 at 1e-5 in every element, the ResNet smoke in float64 at
@@ -260,7 +261,7 @@ def _backbone_setup(family):
 
 
 def _round_trip_setup(name, request):
-    if name in ("glm4-9b", "rwkv6-3b"):
+    if name in ("glm4-9b", "rwkv6-3b", "zamba2-1.2b"):
         return _backbone_setup(name)
     if name == "resnet":
         ds = SyntheticImageDataset(num_classes=10, image_size=32,
@@ -288,7 +289,8 @@ def _randomized(state, seed=0):
     return jax.tree.map(draw, state)
 
 
-@pytest.mark.parametrize("name", ["mlp", "resnet", "glm4-9b", "rwkv6-3b"])
+@pytest.mark.parametrize("name", ["mlp", "resnet", "glm4-9b", "rwkv6-3b",
+                                  "zamba2-1.2b"])
 def test_checkpoints_round_trip_between_packages(name, request, tmp_path):
     setup = _round_trip_setup(name, request)
     (jsc, joc), _ = _configs(setup, splits=setup["splits"])
@@ -311,6 +313,12 @@ def test_checkpoints_round_trip_between_packages(name, request, tmp_path):
     like = list(tree_leaves([fresh.clients, fresh.servers]))
     assert [t.dtype for t in got] == [t.dtype for t in like]
     assert (torch.bfloat16 in {t.dtype for t in got}) == ("-" in name)
+    if name == "zamba2-1.2b":
+        # the shared block on both sides of the cut, its layer's {} kept
+        for net in (ts.state.clients[0], ts.state.servers[0]):
+            assert "shared_attn" in net["trainable"]
+        assert ts.state.servers[0]["trainable"]["seg1"][0] == {}
+        assert ts.state.server_opts[0].m["seg1"][0] == {}
     # port -> JAX: every leaf equal, dtypes narrowed back
     ts.save(str(tmp_path / "port"))
     jb = JaxSession.restore(str(tmp_path / "port"), setup["jax"](),

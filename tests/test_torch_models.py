@@ -98,7 +98,7 @@ def test_bf16_smokes_keep_the_family(arch):
 
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
-        tconfigs.get("zamba2-1.2b")
+        tconfigs.get("whisper-small")
     with pytest.raises(ValueError, match="not a registered"):
         tconfigs.get("gpt-17")
     with pytest.raises(ValueError, match="kernels"):
@@ -106,12 +106,18 @@ def test_unported_architectures_raise():
 
 
 def test_unported_mixers_raise(smoke_cfg):
-    cfg = config_from_jax(smoke_cfg).with_(block_pattern=("attn", "mla") * 2)
+    """Cross attention and the Whisper/VLM ``frontend`` parameters are
+    still unported."""
+    cfg = config_from_jax(smoke_cfg).with_(cross_attention=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbackbone.init_backbone(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.init_block_cache(config_from_jax(smoke_cfg), "attn", "none",
-                                 1, 8, torch.float32, "cpu")
+        tblocks.init_block_cache(cfg, "attn", "mlp", 1, 8, torch.float32,
+                                 "cpu")
+    jp = _np(jbackbone.init_backbone(jax.random.PRNGKey(0), smoke_cfg))
+    with pytest.raises(NotImplementedError, match="frontend"):
+        params_from_jax({**jp, "frontend": {}}, config_from_jax(smoke_cfg),
+                        device="cpu")
 
 
 # ---------------------------------------------------------------------------
