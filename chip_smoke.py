@@ -30,7 +30,13 @@ Phases:
            phi3's H 40 / Hkv 10 and qwen3-moe's H 64 / Hkv 4, zamba2-1.2b's
            shared block at GQA 1 (H = Hkv = 32, D 64: prefill on the tile
            route, decode on the decode route, the train shape
-           (12,32,512,64) forward with LSE, dK/dV and dQ), a 4096-key cache
+           (12,32,512,64) forward with LSE, dK/dV and dQ), head dim 256
+           on all three forward routes and both backward tile routes (GQA
+           8: paligemma-3b's prefill, ragged prefill, window, decode tick,
+           train shape (4,8,512,256) with LSE, dK/dV and dQ; fp32 on the
+           row routes), whisper-small's cross attention at Tq != Tk,
+           non-causal over 1500 source frames (decode (8,12,1,64), train
+           (12,12,448,64) with LSE, dK/dV and dQ), a 4096-key cache
            at every split count the decode rule picks, dQ with delta given
            and fused (the delta it writes against the plain one), the
            decode, dK/dV and dQ kernels also bit for bit across two
@@ -41,9 +47,10 @@ Phases:
            chunked form (against the token oracle); and
            both autograd sites of training against autograd of the plain
            forward;
-  parity   smoke configs in fp32: the glm4-9b, zamba2-1.2b and
-           deepseek-v3-671b ServeSessions against the port's sequential
-           references, token and gate exact; the rwkv6
+  parity   smoke configs in fp32: the glm4-9b, zamba2-1.2b,
+           deepseek-v3-671b, whisper-small and paligemma-3b ServeSessions
+           against the port's sequential references, token and gate
+           exact; the rwkv6
            ServeSession with the kernels against the plain versions; train
            steps with the kernels against the plain versions (glm4-9b: eq1,
            sum, eq1 with remat; rwkv6: eq1, eq1 with remat); then the bf16
@@ -54,7 +61,13 @@ Phases:
            GQA 8, qwen3-moe with fp32 routers; since the Mamba2/MLA slice
            zamba2-1.2b's shared block at GQA 1, head dim 64, and
            deepseek-v3's MLA, which runs no kernel: its gate is the one
-           kernel, and its planted fault drops the MLA rope half),
+           kernel, and its planted fault drops the MLA rope half; since
+           the cross-attention slice whisper-small (self and cross
+           attention, GQA 1, head dim 64; its gradients and losses on a
+           random enc, their planted fault the cross-attention output
+           zeroed: serving runs the zeros stub, where cross attention
+           adds exactly 0) and paligemma-3b (GQA 8, head dim 256, its
+           gradients and losses on random patch embeddings)),
            ServeSession under both
            policies against each request served alone on the plain
            versions, the first step's gradients leaf by leaf and eq1
@@ -72,7 +85,11 @@ Phases:
            full width and depth (38 layers, its shared attention block at 6
            of them; prompts of 64-600 tokens, 1-3 chunks of 256) and
            deepseek-v3-671b at its published widths cut to 5 layers (3 dense,
-           2 MoE; ~58.8 GB), in bf16, random
+           2 MoE; ~58.8 GB), whisper-small at full width and depth (12
+           layers, self and cross attention in each, the cross K/V
+           recomputed from the zeros stub every tick as in the JAX
+           package) and paligemma-3b at full width and depth (18 layers,
+           GQA 8, head dim 256, ~9.2 GB), in bf16, random
            weights from a seeded torch.Generator on the card, 8 slots, 16
            requests (rwkv6 prompts of 64-512 tokens), under the select and
            the sticky policy; each run starts with every launch count at 0
@@ -88,7 +105,12 @@ Phases:
            12 x 128, and on rwkv6-3b at its published widths and full depth
            (exits 8, 16, 24), batch 12 x 512, remat, and on zamba2-1.2b at
            its published widths and full depth (exits 10, 20, 29), batch
-           12 x 512, remat; 12 client groups, bf16
+           12 x 512, remat, and on whisper-small at full width and depth
+           (exits 3, 6, 9), 12 x 448 decoder tokens over 1500 random
+           source frames, and paligemma-3b at its published widths cut to
+           8 layers (exits 2, 4, 6), 4 x (256 random patches + 256
+           tokens), its bytes worked out and printed first; 12 client
+           groups (paligemma: 4), bf16
            weights, fp32 Adam, SyntheticLMDataset(seed=0); with every launch
            count set to 0 first, warm-up and one sum step (one step of each
            mode under FlopCounterMode, for the share of the bf16 peak), timed
@@ -195,8 +217,11 @@ Phases:
            fp32, zamba2-1.2b's (8,32000) and deepseek-v3's (8,129280) bf16
            and the paper evaluator's (512,10) and (512,100) fp32; attention
            at zamba2-1.2b's GQA-1 shapes (decode over a 633-slot ring,
-           prefill of 600 tokens, the train shape forward, dK/dV and dQ)
-           beside SDPA,
+           prefill of 600 tokens, the train shape forward, dK/dV and dQ),
+           at paligemma-3b's head dim 256 (decode, prefill, the train
+           shape forward, dK/dV and dQ) and at whisper-small's cross
+           shapes (decode over 1500 frames, the train shape's forward,
+           dK/dV and dQ over the whole rectangle), beside SDPA,
            beside the launch floor (a one-element torch op timed the
            same way).  Times are device times: a spin kernel ahead of each
            timed call keeps the host's enqueue (~50-100 us for a wrapper,
@@ -315,6 +340,16 @@ ZAMBA_WARM, ZAMBA_EQ1, ZAMBA_SUM = 2, 3, 2
 # deepseek-v3-671b's serving depth: 3 dense and 2 MoE layers, ~58.8 GB of
 # bf16 weights (8 layers would be ~128 GB)
 DEEPSEEK_CUT_LAYERS = 5
+# whisper-small: the decoder trains on 12 x 448 tokens over 1500 random
+# source frames (its cross attention's keys), at full depth
+WHISPER_T, WHISPER_SRC = 448, 1500
+WHISPER_WARM, WHISPER_EQ1, WHISPER_SUM = 2, 4, 2
+# paligemma-3b trains at its published widths with the depth cut to 8
+# layers (exits 2, 4, 6) on 4 x (256 random patches + 256 tokens): its
+# five 257216 x 2048 vocab matrices (the embedding, three exit heads, the
+# LM head) and their Adam moments hold most of the card
+PALI_LAYERS, PALI_B, PALI_T = 8, 4, 512
+PALI_WARM, PALI_EQ1, PALI_SUM = 2, 3, 2
 
 
 class Failed(Exception):
@@ -505,10 +540,10 @@ def phase_kernels(state):
               Tq=MAX_LEN, causal=True, window=48, lse=True, route="row")
     attn_case("sliding window 48, bf16", bf16, TOL_ATTN_BF16, B=2,
               Tq=MAX_LEN, causal=True, window=48, route="tile")
-    # the tile and decode routes at both head dims, GQA 1, 4 and 16, and
-    # the rule's threshold: Tq * G = 48 and 63 rows (decode route) and 64
-    # rows (tile route)
-    for D in (64, 128):
+    # the tile and decode routes at the three head dims, GQA 1, 4 and 16,
+    # and the rule's threshold: Tq * G = 48 and 63 rows (decode route) and
+    # 64 rows (tile route)
+    for D in (64, 128, 256):
         for name, kw in (
                 ("GQA 4 window 16 (2,8,100)/(2,2,100)", dict(
                     B=2, H=8, Hkv=2, Tq=100, Tk=100, causal=True,
@@ -565,6 +600,49 @@ def phase_kernels(state):
               f"lse", bf16, TOL_ATTN_BF16, B=TRAIN_B, Tq=ZAMBA_T,
               causal=True, lse=True, main=True, route="tile",
               **{**z, "Tk": ZAMBA_T})
+    # paligemma-3b's attention, GQA 8 (H 8, Hkv 1), head dim 256: prefill
+    # and a ragged prefill over the ring and a window (tile route), a
+    # decode tick of 8 slots (decode route: 8 rows of a 16-row mma tile),
+    # the row route forced there, the train shape's forward with LSE (tile
+    # route), and fp32 (row route)
+    pg = dict(H=8, Hkv=1, D=256)
+    attn_case("paligemma-3b GQA 8 prefill (1,8,128,256)/(1,1,161,256) "
+              "causal", bf16, TOL_ATTN_BF16, B=1, Tq=128, causal=True,
+              lse=True, main=True, route="tile", **pg)
+    attn_case("paligemma-3b GQA 8 ragged prefill (2,8,37,256)/(2,1,161,256)"
+              " causal", bf16, TOL_ATTN_BF16, B=2, Tq=37, causal=True,
+              lse=True, main=True, route="tile", **pg)
+    attn_case("head dim 256 GQA 8 window 48 (2,8,161)/(2,1,161)", bf16,
+              TOL_ATTN_BF16, B=2, Tq=MAX_LEN, causal=True, window=48,
+              lse=True, route="tile", **pg)
+    attn_case("paligemma-3b GQA 8 decode (8,8,1,256)/(8,1,161,256) "
+              "kv_valid", bf16, TOL_ATTN_BF16, B=8, Tq=1, causal=False,
+              kv_valid=kv_prefix(8, seed=256), lse=True, main=True,
+              route="decode", **pg)
+    attn_case("paligemma-3b GQA 8 decode (8,8,1,256)/(8,1,161,256) "
+              "kv_valid, row route forced", bf16, TOL_ATTN_BF16, B=8, Tq=1,
+              causal=False, kv_valid=kv_prefix(8, seed=257), lse=True,
+              main=True, route="row", force="row", **pg)
+    attn_case(f"paligemma-3b train ({PALI_B},8,{PALI_T},256) causal, with "
+              f"lse", bf16, TOL_ATTN_BF16, B=PALI_B, Tq=PALI_T, Tk=PALI_T,
+              causal=True, lse=True, main=True, route="tile", **pg)
+    attn_case("head dim 256 fp32 ragged prefill (2,8,37)/(2,1,161) causal",
+              torch.float32, TOL_ATTN_F32, B=2, Tq=37, causal=True, lse=True,
+              route="row", **pg)
+    attn_case("head dim 256 fp32 decode (8,8,1)/(8,1,161) kv_valid",
+              torch.float32, TOL_ATTN_F32, B=8, Tq=1, causal=False,
+              kv_valid=kv_prefix(8, seed=258), lse=True, route="row", **pg)
+    # whisper-small's cross attention, GQA 1 (H = Hkv = 12, D 64),
+    # non-causal over 1500 source frames (ragged at 64 keys): the decode
+    # tick (decode route) and the train shape with LSE (tile route)
+    wx = dict(H=12, Hkv=12, D=64, Tk=WHISPER_SRC)
+    attn_case(f"whisper-small cross decode (8,12,1,64)/(8,12,{WHISPER_SRC},"
+              f"64) non-causal", bf16, TOL_ATTN_BF16, B=8, Tq=1,
+              causal=False, lse=True, main=True, route="decode", **wx)
+    attn_case(f"whisper-small cross train (12,12,{WHISPER_T},64)/(12,12,"
+              f"{WHISPER_SRC},64) non-causal, with lse", bf16, TOL_ATTN_BF16,
+              B=TRAIN_B, Tq=WHISPER_T, causal=False, lse=True, main=True,
+              route="tile", **wx)
 
     gate_cases(gen, errs)
     bwd_kernel_cases(gen, errs)
@@ -662,7 +740,7 @@ def gate_cases(gen, errs):
 
 
 def decode_cases(attn_case):
-    """The decode route (bf16, D 64 and 128, Tq * G < 64 rows) at GQA 1, 4
+    """The decode route (bf16, D 64, 128 and 256, Tq * G < 64 rows) at GQA 1, 4
     and 16, 1 to 63 rows, kv_valid of 1, ragged and full, ragged Tk, Tq > 1
     causal with and without a window, and a 4096-key cache at every split
     count the rule picks (B * Hkv from 16 to 132)."""
@@ -672,7 +750,7 @@ def decode_cases(attn_case):
     def ones(B):
         return torch.ones(B, dtype=torch.int32, device="cuda")
 
-    for D in (64, 128):
+    for D in (64, 128, 256):
         for name, kw in (
                 ("GQA 1, 1 row, kv_valid 1 (4,4,1)/(4,4,161)", dict(
                     B=4, H=4, Hkv=4, Tq=1, causal=False, kv_valid=ones(4))),
@@ -708,10 +786,12 @@ def decode_cases(attn_case):
           f"1-8 ({sorted(seen)})")
 
 
-def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D):
-    """q, k, v, dO in the model's (B, T, H, D) layout, as transposed views."""
-    return tuple(torch.randn(B, T, h, D, generator=gen, device="cuda")
-                 .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D, Tk=None):
+    """q, k, v, dO in the model's (B, T, H, D) layout, as transposed views;
+    k and v over ``Tk`` keys (default T)."""
+    return tuple(torch.randn(B, t, h, D, generator=gen, device="cuda")
+                 .to(dtype).transpose(1, 2)
+                 for t, h in ((T, H), (Tk or T, Hkv), (Tk or T, Hkv), (T, H)))
 
 
 def bwd_kernel_cases(gen, errs):
@@ -731,13 +811,14 @@ def bwd_kernel_cases(gen, errs):
                      for n, c in launch_counts(wrapper).items()}
 
     def case(name, dtype, *, B, H, Hkv, T, D=128, causal=True, window=None,
-             main=False, dq_force=None):
+             main=False, dq_force=None, Tk=None):
         """dK/dV and dQ (delta given; on the dQ tile route also fused)
         against the plain versions, each on the route its rule picks
         (``dq_force``: the dQ wrapper's route argument), the tile routes
         twice for the same bits; the wrapper's gradients in the primal
         dtypes."""
-        q, k, v, do = bwd_inputs(gen, dtype, B=B, H=H, Hkv=Hkv, T=T, D=D)
+        q, k, v, do = bwd_inputs(gen, dtype, B=B, H=H, Hkv=Hkv, T=T, D=D,
+                                 Tk=Tk)
         o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
                                      return_lse=True)
         delta = (do.float() * o.float()).sum(-1)
@@ -824,9 +905,10 @@ def bwd_kernel_cases(gen, errs):
     case("head_dim 32 causal T=64", torch.float32, B=2, H=8, Hkv=2, T=64,
          D=32)
     case("head_dim 32 causal T=64", bf16, B=2, H=8, Hkv=2, T=64, D=32)
-    # the tile routes at both head dims and GQA 1, 4, 8, 12 (dK/dV
-    # clusters of 6) and 16, and long bands (T = 1000 ragged, T = 2048)
-    for D in (64, 128):
+    # the tile routes at the three head dims (at 256 each block owns 128
+    # output columns) and GQA 1, 4, 8, 12 (dK/dV clusters of 6) and 16,
+    # and long bands (T = 1000 ragged, T = 2048)
+    for D in (64, 128, 256):
         case(f"non-causal GQA1 T=70 D={D}", bf16, B=2, H=4, Hkv=4, T=70,
              D=D, causal=False)
         case(f"non-causal window 8 GQA8 T=45 D={D}", bf16, B=1, H=8, Hkv=1,
@@ -840,6 +922,19 @@ def bwd_kernel_cases(gen, errs):
     case(f"zamba2-1.2b train (12,32,{ZAMBA_T},64) causal GQA1", bf16,
          main=True, B=TRAIN_B, H=32, Hkv=32, T=ZAMBA_T, D=64)
     case(f"causal GQA16 T={LONG_T} D=128", bf16, B=1, H=32, Hkv=2, T=LONG_T)
+    # paligemma-3b's train shape, GQA 8 at head dim 256 (tile routes), and
+    # head dim 256 in fp32 (row routes)
+    case(f"paligemma-3b train ({PALI_B},8,{PALI_T},256) causal GQA8", bf16,
+         main=True, B=PALI_B, H=8, Hkv=1, T=PALI_T, D=256)
+    case("head dim 256 causal window 24 GQA8 T=100", torch.float32, B=2,
+         H=8, Hkv=1, T=100, D=256, window=24)
+    # whisper-small's cross attention at its train shape: Tq 448 != Tk
+    # 1500, non-causal, GQA 1, D 64 (tile routes), and in fp32 (row routes)
+    case(f"whisper-small cross train (12,12,{WHISPER_T},64)/(12,12,"
+         f"{WHISPER_SRC},64) non-causal", bf16, main=True, B=TRAIN_B, H=12,
+         Hkv=12, T=WHISPER_T, Tk=WHISPER_SRC, D=64, causal=False)
+    case("cross (2,4,45)/(2,4,150) non-causal D=64", torch.float32, B=2,
+         H=4, Hkv=4, T=45, Tk=150, D=64, causal=False)
 
 
 def autograd_site_cases(gen):
@@ -1064,9 +1159,13 @@ def wkv_site_cases(gen):
 
 def phase_parity(state):
     from repro_torch import configs
-    from repro_torch.configs import (deepseek_v3_671b, glm4_9b, rwkv6_3b,
-                                     zamba2_1p2b)
+    from repro_torch.configs import (deepseek_v3_671b, glm4_9b, paligemma_3b,
+                                     rwkv6_3b, whisper_small, zamba2_1p2b)
     smoke_serve_parity(glm4_9b.smoke(), 4, 10)
+    # whisper (cross attention over the zeros stub) and paligemma (token
+    # only), as the JAX package serves them
+    smoke_serve_parity(whisper_small.smoke(), 2, 20)
+    smoke_serve_parity(paligemma_3b.smoke(), 2, 20)
     # zamba2: prompts of 2-19 tokens (1-3 chunks of 8; shorter than the
     # conv history too); deepseek: 1-12 (MLA's decode step and its causal
     # prefill)
@@ -1153,6 +1252,18 @@ def dk_zeroed(bwd):
     return wrapped
 
 
+def dk_half_zeroed(bwd):
+    """An attention backward whose dk is zero in its second half of head
+    columns (at head dim 256, the second column block of the tile
+    routes)."""
+    def wrapped(*a, **kw):
+        dq, dk, dv = bwd(*a, **kw)
+        dk = dk.clone()
+        dk[..., dk.shape[-1] // 2:] = 0
+        return dq, dk, dv
+    return wrapped
+
+
 def bwd_zeroed(bwd):
     """An attention backward whose dq, dk and dv are all zero."""
     def wrapped(*a, **kw):
@@ -1216,21 +1327,41 @@ MOE_LOSS_FAULT = ("flash_attention_bwd", "dQ, dK and dV zeroed", bwd_zeroed)
 CAUSAL_LOSS_FAULT = ("flash_attention", "the causal mask dropped in "
                      "training", lambda f: lambda q, k, v, *, causal=False,
                      **kw: f(q, k, v, causal=False, **kw))
+# whisper's smoke: its serving runs the zeros stub, where cross attention
+# adds exactly 0, so its serving control is decode attention's; its
+# gradients and losses run a random enc, and their control zeroes the
+# cross-attention output (a missing cross attention)
+CROSS_FAULT = ("repro_torch.models.attention.cross_attn_forward",
+               "the cross-attention output zeroed",
+               lambda f: lambda params, x, enc, cfg: torch.zeros_like(x))
+FAULTS["cross"] = (ATTENTION_FAULTS[0], CROSS_FAULT)
+# head dim 256 (paligemma's smoke): the tile backward splits dK's columns
+# between two blocks, so a fault in one block's half is held too.  Its
+# losses cannot tell it from bf16 rounding (6.6e-3 against a sound 5.3e-3
+# on an H100, scripts/bf16_loss_witness.py); its first-step gradients can
+# (0.71 against 1.5e-2)
+WIDE_HEAD_FAULT = ("flash_attention_bwd", "dK's second half of head "
+                   "columns zeroed", dk_half_zeroed)
 # the bf16 smokes phase parity holds against the plain versions: every
-# ported config's (the three dense ones, qwen3-moe and zamba2's shared
-# block on the attention kernels, rwkv6 on the wkv kernels, deepseek-v3's
-# MLA on none but the gate)
+# ported config's (the three dense ones, qwen3-moe, zamba2's shared
+# block, whisper's self and cross attention and paligemma's head dim 256
+# on the attention kernels, rwkv6 on the wkv kernels, deepseek-v3's MLA on
+# none but the gate)
 BF16_FAMILIES = ("glm4_9b", "phi3_medium_14b", "minitron_8b",
                  "command_r_35b", "qwen3_moe_235b_a22b", "rwkv6_3b",
-                 "zamba2_1p2b", "deepseek_v3_671b")
+                 "zamba2_1p2b", "deepseek_v3_671b", "whisper_small",
+                 "paligemma_3b")
 
 
 def kernel_mixer(cfg) -> str:
     """The mixer whose kernels a config's layers run: ``"shared_attn"``
-    for Zamba2's shared attention block among its Mamba2 layers, else the
+    for Zamba2's shared attention block among its Mamba2 layers,
+    ``"cross"`` for attention with cross attention (Whisper), else the
     first layer's mixer."""
     if "shared_attn" in cfg.block_pattern:
         return "shared_attn"
+    if cfg.cross_attention:
+        return "cross"
     return cfg.block_pattern[0]
 
 
@@ -1289,7 +1420,7 @@ def bf16_parity(cfgs: dict) -> None:
             (lambda: (entropy_exit.launches,), lambda n: n[0] > 0,
              "entropy gate"),
             None, (("eq1", "none"),))}
-    mixers["shared_attn"] = mixers["attn"]
+    mixers["shared_attn"] = mixers["cross"] = mixers["attn"]
     failed = []
     for family, cfg in cfgs.items():
         mixer = kernel_mixer(cfg)
@@ -1300,6 +1431,8 @@ def bf16_parity(cfgs: dict) -> None:
                     cfg, ps, decodes, p, serve_counts, fwd_fault)
                 for p in ("select", "sticky")]
         runs.append(lambda: bf16_grad_parity(cfg, bwd_fault))
+        if cfg.head_dim > 128:
+            runs.append(lambda: bf16_grad_parity(cfg, WIDE_HEAD_FAULT))
         runs.append(lambda: train_parity(
             cfg.with_(exit_layers=(1, 2)), modes,
             tol_loss=TOL_LOSS_BF16[family], counts=train_counts,
@@ -1656,6 +1789,42 @@ def phase_main(state):
                cache_note="MLA latent pages", counts_per_tick=True,
                probe=moe_drops)
 
+    # whisper-small at full width and depth (12 layers): prompts of 64-128
+    # tokens, so every prefill's self and cross attention (GQA 1) is on
+    # the tile route; each layer launches both, at prefill and every tick.
+    # As in the JAX package every tick projects the zeros stub of the 1500
+    # encoder frames and recomputes each layer's cross K/V from it: per
+    # tick the stub read, its projection written, and per layer the
+    # projection read twice, K and V written and read by the kernel
+    from repro_torch.configs import paligemma_3b, whisper_small
+    cfg = whisper_small.config()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 129)))
+               for _ in range(REQUESTS)]
+    S, d = cfg.cross_source_len, cfg.d_model
+    kv_bytes = 2 * cfg.num_layers * SLOTS * MAX_LEN * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    cross_bytes = SLOTS * S * (768 + d) * 2 \
+        + cfg.num_layers * 6 * SLOTS * S * d * 2
+    serve_main(state, cfg, prompts, MAX_LEN, flash_attention,
+               cache_read=kv_bytes + cross_bytes,
+               cache_note="KV pages, the cross K/V recomputed from the "
+               "zeros stub", counts_per_tick=True,
+               kernel_layers=list(range(cfg.num_layers)) * 2)
+
+    # paligemma-3b at full width and depth (18 layers, GQA 8, head dim
+    # 256): token-only, as the JAX package serves it; prompts of 16-128
+    # tokens (prefill on the tile route), decode ticks on the decode route
+    cfg = paligemma_3b.config()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(REQUESTS)]
+    kv_bytes = 2 * cfg.num_layers * SLOTS * MAX_LEN * cfg.num_kv_heads \
+        * cfg.head_dim * 2
+    serve_main(state, cfg, prompts, MAX_LEN, flash_attention,
+               cache_read=kv_bytes, cache_note="KV pages",
+               counts_per_tick=True)
+
 
 def moe_drops(cfg, params, prompts, max_len) -> None:
     """A separate serve run of the first SLOTS prompts and 4 decode ticks
@@ -1893,6 +2062,7 @@ def phase_train(state):
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
     from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.config import HeteroProfile
     from repro_torch.configs import zamba2_1p2b
     from repro_torch.launch.e2e_train import cut_depth, full_depth
 
@@ -1931,12 +2101,66 @@ def phase_train(state):
         dict(warm=ZAMBA_WARM, eq1=ZAMBA_EQ1, sum=ZAMBA_SUM),
         kernel_layers=cfg.block_pattern.count("shared_attn"))
 
+    # whisper-small at full width and depth (exits 3, 6, 9), 12 x 448
+    # decoder tokens over 1500 random source frames: per layer a causal
+    # self-attention launch and a cross launch over the full 448 x 1500
+    # rectangle, one of each per step, so a launch's FLOPs average the two
+    from repro_torch.configs import paligemma_3b, whisper_small
+    cfg, profile = full_depth(whisper_small.config())
+    H, D = cfg.num_heads, cfg.head_dim
+    band_mm = 2 * TRAIN_B * H * WHISPER_T * (WHISPER_T + 1) // 2 * D
+    rect_mm = 2 * TRAIN_B * H * WHISPER_T * cfg.cross_source_len * D
+    mm = (band_mm + rect_mm) / 2
+    state["train_whisper"] = train_main(
+        state, cfg, profile, WHISPER_T, "none",
+        (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq),
+        (2 * mm, 4 * mm, 3 * mm),
+        dict(warm=WHISPER_WARM, eq1=WHISPER_EQ1, sum=WHISPER_SUM),
+        kernel_layers=2 * cfg.num_layers)
+
+    # paligemma-3b at its published widths, depth cut to PALI_LAYERS, on
+    # PALI_B x (256 random patches + 256 tokens), one client group at each
+    # exit and one more at the deepest
+    cfg, _ = cut_depth(paligemma_3b.config(), PALI_LAYERS)
+    exits = tuple(sorted(cfg.exit_layers))
+    profile = HeteroProfile(split_layers=exits + exits[-1:])
+    band_mm = (2 * PALI_B * cfg.num_heads * PALI_T * (PALI_T + 1) // 2
+               * cfg.head_dim)
+    state["train_paligemma"] = train_main(
+        state, cfg, profile, PALI_T, "none",
+        (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq),
+        (2 * band_mm, 4 * band_mm, 3 * band_mm),
+        dict(warm=PALI_WARM, eq1=PALI_EQ1, sum=PALI_SUM), batch=PALI_B)
+
+
+def print_train_bytes(cfg, n: int, B: int, T: int) -> None:
+    """The device bytes of an eq1 step of ``cfg`` (``n`` parameters) on
+    B x T positions, worked out before its first step: bf16 weights, fp32
+    Adam moments, the two pulls' bf16 gradients and their sum, and the
+    four vocab heads' logits (bf16) with their fp32 log-softmax and its
+    gradient, summed as if all were live at once (they are not: glm4-9b's
+    leg sums past the card's memory and runs) and without the other
+    activations."""
+    heads = (len(cfg.exit_layers) + 1) * B * T * cfg.vocab_size
+    parts = {"weights (bf16)": 2 * n, "Adam m and v (fp32)": 8 * n,
+             "gradients of both pulls and their sum (bf16)": 6 * n,
+             "vocab heads' logits, log-softmax and its gradient":
+                 heads * (2 + 4 + 4)}
+    print(f"train bytes {cfg.name} {cfg.num_layers} layers, batch {B} x "
+          f"{T}: " + ", ".join(f"{k} {v / 1e9:.1f} GB"
+                               for k, v in parts.items())
+          + f"; {sum(parts.values()) / 1e9:.1f} GB if all were live at "
+          f"once, the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}")
+
 
 def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
-               n, kernel_layers=None) -> dict:
+               n, kernel_layers=None, batch=TRAIN_B) -> dict:
     """make_train_step on ``cfg`` (bf16 weights, fp32 Adam, lr 3e-4 cosine),
-    batch 12 x ``T`` tokens of SyntheticLMDataset(seed=0), the Eq. (1)
-    profile ``profile``.  With every launch count of ``counters`` (the
+    batch ``batch`` x ``T`` tokens of SyntheticLMDataset(seed=0) (audio:
+    with random encoder states; VLM: 256 random patches and T - 256
+    tokens; ``models/frontend.frontend_batch``), the Eq. (1) profile
+    ``profile``.  With every launch count of ``counters`` (the
     mixer's kernel wrappers) set to 0 first: warm-up (its first step under
     FlopCounterMode), one sum step under FlopCounterMode, the timed eq1 and
     sum steps, a loss check on the first batch, then a traced window of 2
@@ -1953,6 +2177,7 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
                                        make_train_step)
     from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.frontend import frontend_batch
     from repro_torch.models.backbone import backbone_forward, init_backbone
     from repro_torch.optim import adam_init
     from repro_torch.tree import tree_leaves
@@ -1971,22 +2196,24 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
           f"layers, exits {cfg.exit_layers}, {profile.num_groups} client "
           f"groups {profile.split_layers}; {n_params / 1e9:.3f} B params "
           f"({weight_bytes(params) / 1e9:.2f} GB bf16) + fp32 Adam m/v "
-          f"({weight_bytes(opt.m) * 2 / 1e9:.2f} GB); batch {TRAIN_B} x {T}, "
+          f"({weight_bytes(opt.m) * 2 / 1e9:.2f} GB); batch {batch} x {T}, "
           f"remat={remat}; set up in {time.perf_counter() - t0:.1f} s")
+    print_train_bytes(cfg, n_params, batch, T)
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=T, seed=0)
-    sids = boundary_ids_for_batch(profile, cfg, TRAIN_B, "cuda")
-    batches = [{"tokens": torch.as_tensor(t, device="cuda"),
-                "labels": torch.as_tensor(lab, device="cuda"),
+    sids = boundary_ids_for_batch(profile, cfg, batch, "cuda")
+    feats = np.random.default_rng(0)
+    batches = [{**frontend_batch(cfg, t, lab, feats, "cuda"),
                 "split_ids": sids}
-               for t, lab in ds.batches(TRAIN_B, n_steps)]
-    tokens = TRAIN_B * T
+               for t, lab in ds.batches(batch, n_steps)]
+    tokens = batch * T
 
     def first_batch_loss() -> float:
+        b = batches[0]
         with torch.no_grad():
-            out = backbone_forward(params, cfg, tokens=batches[0]["tokens"],
+            out = backbone_forward(params, cfg, tokens=b["tokens"],
+                                   embeds=b.get("embeds"), enc=b.get("enc"),
                                    exit_heads=())
-            return float(softmax_cross_entropy(out.logits,
-                                               batches[0]["labels"]))
+            return float(softmax_cross_entropy(out.logits, b["labels"]))
 
     steps = {mode: make_train_step(StepConfig(
         model=cfg, splitee=SplitEEConfig(profile=profile),
@@ -2739,10 +2966,10 @@ def backbone_leg_checks(family: str, sess, start, hist) -> None:
 
 def lane_rule_checks() -> None:
     """Each kernel site's vmap rule (lanes folded into one launch) against
-    a per-lane loop of plain launches at the backbone legs' shapes: the
-    attention forward and backward bit for bit, the wkv within
-    TOL_LANE_WKV of each one's largest magnitude; the folded run launches
-    each kernel once."""
+    a per-lane loop of plain launches (``parity.lane_sites``): the
+    attention and cross-attention forward and backward bit for bit, the
+    wkv within TOL_LANE_WKV of each one's largest magnitude; the folded
+    run launches each kernel once."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -2751,7 +2978,7 @@ def lane_rule_checks() -> None:
     sites = lane_sites("cuda")
     for name, (site, inputs) in sites.items():
         wrappers = ((flash_attention, flash_attention_bwd_dkv,
-                     flash_attention_bwd_dq) if name == "attention"
+                     flash_attention_bwd_dq) if name != "wkv"
                     else (rwkv_wkv, rwkv_wkv_bwd))
         before = [w.launches for w in wrappers]
         r = lane_loop_gaps(site, inputs)
@@ -2764,9 +2991,9 @@ def lane_rule_checks() -> None:
               f"gradients {r['grad']:.3e} (scale {r['grad_scale']:.3g}); "
               f"launches {made}")
         ok_launch = all(m == 1 + lanes for m in made)
-        if name == "attention":
+        if name != "wkv":
             check(ok_launch and r["out"] == 0.0 and r["grad"] == 0.0,
-                  f"attention vmap rule (lanes into the batch): one launch "
+                  f"{name} vmap rule (lanes into the batch): one launch "
                   f"of each kernel for all lanes, outputs and gradients bit "
                   f"for bit equal to per-lane launches")
         else:
@@ -3356,6 +3583,75 @@ def phase_timing(state):
     rows.extend(time_wkv(gen, buf, state))
     state["timing"] = rows
     time_zamba(gen, buf, state)
+    time_wide_and_cross(gen, buf, state)
+
+
+def time_wide_and_cross(gen, buf, state) -> None:
+    """Attention at paligemma-3b's head dim 256 (GQA 8: H 8, Hkv 1) and at
+    whisper-small's cross attention (GQA 1: H = Hkv = 12, D 64,
+    non-causal over 1500 source frames), bf16, each beside its plain
+    version, SDPA and its bound: paligemma's decode tick of 8 slots over
+    the 161-slot ring (decode route), a 128-token prefill (tile route) and
+    its train shape's forward with LSE, dK/dV and dQ (tile routes);
+    whisper's cross decode tick (decode route) and its train shape
+    (tile routes), the operations over the whole 448 x 1500 rectangle."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    out = {}
+    pg = dict(H=8, Hkv=1, D=256)
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=SLOTS, Tq=1, **pg)
+    dec = time_decode(buf, q, k, v, kv_prefix(SLOTS, seed=259))
+    dec.pop("row_ms")
+    out["flash_attention paligemma"] = dict(
+        shape="decode q (8,8,1,256) bf16, kv (8,1,161,256), per-row "
+              "kv_valid (decode route)", **dec)
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=1, Tq=128, **pg)
+    causal = torch.ones(128, MAX_LEN, dtype=torch.bool, device="cuda").tril()
+    out["flash_attention_tile paligemma prefill"] = dict(
+        shape="prefill q (1,8,128,256) bf16, kv (1,1,161,256), causal "
+              "(tile route)",
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True), buf),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                         buf),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal, enable_gqa=True), buf),
+        bytes=2 * q.numel() * 2 + 2 * 128 * 256 * 2,
+        ops=4 * 8 * 256 * (128 * 129 // 2))
+    for name, r in time_causal(gen, buf, PALI_B, PALI_T, 20, with_row=False,
+                               **pg).items():
+        out[f"{name} paligemma train"] = dict(
+            shape=f"train q/dO ({PALI_B},8,{PALI_T},256) bf16, k/v "
+                  f"({PALI_B},1,{PALI_T},256), causal (tile route)", **r)
+    wx = dict(H=12, Hkv=12, D=64)
+    q, k, v = attn_inputs(gen, torch.bfloat16, B=SLOTS, Tq=1,
+                          Tk=WHISPER_SRC, **wx)
+    out["flash_attention whisper cross"] = dict(
+        shape=f"cross decode q (8,12,1,64) bf16, kv (8,12,{WHISPER_SRC},64),"
+              f" non-causal (decode route)",
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=False), buf),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=False),
+                         buf),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           buf),
+        bytes=2 * q.numel() * 2 + 2 * k.numel() * 2,
+        ops=4 * SLOTS * 12 * 64 * WHISPER_SRC)
+    for name, r in time_causal(gen, buf, TRAIN_B, WHISPER_T, 20,
+                               with_row=False, Tk=WHISPER_SRC, causal=False,
+                               **wx).items():
+        out[f"{name} whisper cross train"] = dict(
+            shape=f"cross train q/dO (12,12,{WHISPER_T},64) bf16, k/v "
+                  f"(12,12,{WHISPER_SRC},64), non-causal (tile route)", **r)
+    for name, r in out.items():
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S
+        by_ops = r["ops"] / PEAK_OPS_PER_S[torch.bfloat16]
+        r["bound_ms"] = max(by_bytes, by_ops) * 1e3
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"{name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA"
+              f"{' backward' if 'bwd' in name else ''} "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    state["wide_cross_timing"] = out
 
 
 def time_zamba(gen, buf, state) -> None:
@@ -3481,13 +3777,16 @@ def time_decode(buf, q, k, v, kv_valid) -> dict:
         ops=4 * H * D * n_keys)
 
 
-def time_causal(gen, buf, B, T, reps, with_row, H=32, Hkv=2, D=128):
+def time_causal(gen, buf, B, T, reps, with_row, H=32, Hkv=2, D=128,
+                Tk=None, causal=True):
     """The tile-route forward with LSE, dK/dV and dQ (delta fused, as the
     training site runs it) at a causal shape (default GQA 16: H=32,
     Hkv=2, D=128; bf16), each beside its plain version, PyTorch's SDPA
     (forward; backward computing dQ, dK and dV in one call) and its bytes
     and band operations; with ``with_row``, dQ's row route too
-    (``row_ms``)."""
+    (``row_ms``).  ``Tk`` keys (default T) and ``causal`` False time a
+    cross-attention shape, whose operations cover the whole T x Tk
+    rectangle."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -3495,47 +3794,47 @@ def time_causal(gen, buf, B, T, reps, with_row, H=32, Hkv=2, D=128):
                                          flash_attention_bwd_dq_ref,
                                          flash_attention_ref)
     q, k, v, do = bwd_inputs(gen, torch.bfloat16, B=B, H=H, Hkv=Hkv, T=T,
-                             D=D)
-    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+                             D=D, Tk=Tk)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
-    n_pairs = T * (T + 1) // 2
+    n_pairs = T * (T + 1) // 2 if causal else T * (Tk or T)
     mm = 2 * B * H * n_pairs * D            # one block matmul over the band
     qkv = 2 * (2 * q.numel() + 2 * k.numel())   # q, o or dO, k, v in bf16
     rows_b = 4 * B * H * T                      # one fp32 value per row
     sq, sk, sv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+    sdpa_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal,
                                               enable_gqa=True)
     sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
         sdpa_out, (sq, sk, sv), do, retain_graph=True), buf, reps)
     out = {
         "flash_attention_tile": dict(
-            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                return_lse=True), buf, reps),
             plain_ms=time_ms(lambda: flash_attention_ref(
-                q, k, v, causal=True, return_lse=True), buf, reps),
+                q, k, v, causal=causal, return_lse=True), buf, reps),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), buf, reps),
+                q, k, v, is_causal=causal, enable_gqa=True), buf, reps),
             bytes=qkv + rows_b, ops=2 * mm),
         "flash_attention_bwd_dkv": dict(
             ms=time_ms(lambda: flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, causal=True), buf, reps),
+                q, k, v, do, lse, delta, causal=causal), buf, reps),
             plain_ms=time_ms(lambda: flash_attention_bwd_dkv_ref(
-                q, k, v, do, lse, delta, causal=True), buf, reps),
+                q, k, v, do, lse, delta, causal=causal), buf, reps),
             library_ms=sdpa_bwd_ms,
             bytes=qkv + 2 * rows_b + 2 * 4 * k.numel(), ops=4 * mm)}
     # dQ fused: q, dO, O, k, v and lse read, dq and delta written
     out["flash_attention_bwd_dq"] = dict(
         ms=time_ms(lambda: flash_attention_bwd_dq(
-            q, k, v, do, lse, o=o, causal=True), buf, reps),
+            q, k, v, do, lse, o=o, causal=causal), buf, reps),
         plain_ms=time_ms(lambda: flash_attention_bwd_dq_ref(
             q, k, v, do, lse, (do.float() * o.float()).sum(-1),
-            causal=True), buf, reps),
+            causal=causal), buf, reps),
         library_ms=sdpa_bwd_ms,
         bytes=qkv + 2 * q.numel() + 2 * rows_b + 4 * q.numel(), ops=3 * mm)
     if with_row:
         out["flash_attention_bwd_dq"]["row_ms"] = time_ms(
             lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                           causal=True, route="row"),
+                                           causal=causal, route="row"),
             buf, reps)
     for r in out.values():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S
@@ -3677,7 +3976,8 @@ def kernels_line(state) -> dict:
         # the same kernel at the shapes of the configs ported since
         more = [dict(shape=g["shape"], ms=g["ms"], plain_ms=g["plain_ms"],
                      library_ms=g.get("library_ms"), bound_ms=g["bound_ms"])
-                for what, g in state.get("zamba_timing", {}).items()
+                for key in ("zamba_timing", "wide_cross_timing")
+                for what, g in state.get(key, {}).items()
                 if what.split()[0] == r["name"]]
         if r["name"] == "entropy_exit":
             more += [{k: g[k] for k in ("shape", "ms", "plain_ms",
@@ -3794,7 +4094,8 @@ def main() -> int:
                   f"{lc['mb']:.1f} MB, save {lc['save_ms']:.1f} ms, restore "
                   f"{lc['restore_ms']:.1f} ms; {lc['syncs']} host syncs over "
                   f"{lc['chunks']} chunks; peak {lc['peak_gib']:.2f} GiB")
-        for key in ("train", "train_rwkv", "train_zamba"):
+        for key in ("train", "train_rwkv", "train_zamba", "train_whisper",
+                    "train_paligemma"):
             if key in state:
                 tr = state[key]
                 print(f"{tr['model']} launches per step: eq1 "

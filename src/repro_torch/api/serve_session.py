@@ -27,6 +27,13 @@ new K/V into the pool in place.  MoE blocks route each slot's token alone
 a slot's expert capacity and drops do not depend on the other slots.
 Prefill routes the one request's prompt as one group.
 
+Cross-attending configs (Whisper) are served on the documented zeros
+stub of the encoder states (``models/frontend.stub_enc``), as the JAX
+package serves them: prefill, every tick and both sequential references
+project it and recompute the cross keys and values from it, as the JAX
+package does per tick (caching them is ROADMAP.md performance work).
+VLM configs are served token-only, as in the JAX package.
+
 ``restore`` serves a ``TrainSession`` checkpoint (either package's):
 :func:`assemble_serve_params` composes one full network from the trained
 client and server nets.  ``mesh=`` waits for the multi-GPU engine
@@ -46,6 +53,7 @@ from repro_torch.config import HeteroProfile, ModelConfig, SplitEEConfig
 from repro_torch.core.spmd import StepConfig, make_serve_step
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.models.frontend import project_enc, stub_enc
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (backbone_forward, init_cache,
                                          segment_forward)
@@ -120,11 +128,13 @@ def assemble_serve_params(model, state, boundary: int) -> dict:
                           else model.full_params["exit_heads"][b])
     params = {"embed": client["embed"], "segments": segments,
               "exit_heads": exit_heads, "head": server["head"]}
-    # Zamba2's shared block: the serving client's copy
-    if "shared_attn" in client:
-        params["shared_attn"] = client["shared_attn"]
-    elif "shared_attn" in model.full_params:
-        params["shared_attn"] = model.full_params["shared_attn"]
+    # Zamba2's shared block and Whisper's frontend: the serving client's
+    # copy (a VLM's projector, not trained, the adapter's init)
+    for key in ("shared_attn", "frontend"):
+        if key in client:
+            params[key] = client[key]
+        elif key in model.full_params:
+            params[key] = model.full_params[key]
     return params
 
 
@@ -330,7 +340,8 @@ class ServeSession:
 
     def _full_tick(self, tau: torch.Tensor):
         out = self._step(self.params, self._toks[:, None], self._pool,
-                         self._lens, tau=tau)
+                         self._lens, tau=tau,
+                         enc=stub_enc(self.cfg, self.slots, self.device))
         tokens = out["logits"][:, 0].argmax(-1).to(torch.int32)
         return tokens, out["exited"][:, 0], out["entropy"][:, 0]
 
@@ -341,10 +352,12 @@ class ServeSession:
         cfg = self.cfg
         x = embed(self.params["embed"], self._toks[:, None]).to(cfg.dtype)
         positions = self._lens.long()[:, None]
+        enc = project_enc(self.params,
+                          stub_enc(cfg, self.slots, self.device), cfg)
         for si in range(self.boundary + 1):
             x, _ = segment_forward(self.params, cfg, si, x, positions,
                                    self._pool, self._lens,
-                                   moe_groups=self.slots)
+                                   moe_groups=self.slots, enc=enc)
         e_logits = heads_mod.exit_head(
             self.params["exit_heads"][self.boundary], x, cfg)
         H, gate = self._gate.entropy_gate(e_logits, tau)
@@ -374,7 +387,7 @@ def _prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray,
     out = backbone_forward(params, cfg, tokens=tokens, cache=page,
                            cache_len=torch.zeros(1, dtype=torch.int32,
                                                  device=device),
-                           exit_heads=())
+                           exit_heads=(), enc=stub_enc(cfg, 1, device))
     return page, out.logits[0, -1]
 
 
@@ -408,7 +421,8 @@ def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
                            dtype=torch.float32, device=device)
         o = step(params, tok.reshape(1, 1), cache,
                  torch.full((1,), len(prompt) + i, dtype=torch.int32,
-                            device=device), tau=tau_i)
+                            device=device), tau=tau_i,
+                 enc=stub_enc(cfg, 1, device))
         tok = take(o["logits"][0, 0])
         res.exited.append(bool(o["exited"][0, 0]))
         res.entropy.append(float(o["entropy"][0, 0]))

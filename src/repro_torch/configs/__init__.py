@@ -1,9 +1,9 @@
 """Architecture registry of the port (counterpart of ``repro/configs``).
 
-glm4-9b, rwkv6-3b, the three dense configs, qwen3-moe, zamba2-1.2b and
-deepseek-v3-671b are ported so far; every other id of the JAX registry
-raises a ``ValueError`` that names the
-ROADMAP item it waits for."""
+Every architecture id of the JAX registry is ported: glm4-9b, rwkv6-3b,
+the three dense configs, qwen3-moe, zamba2-1.2b, deepseek-v3-671b,
+whisper-small (cross attention over the stubbed encoder states) and
+paligemma-3b (the stubbed vision patches before the tokens)."""
 from __future__ import annotations
 
 import importlib
@@ -20,8 +20,7 @@ ARCH_IDS = (
     "paligemma_3b",
     "rwkv6_3b",
 )
-PORTED = ("phi3_medium_14b", "minitron_8b", "zamba2_1p2b", "command_r_35b",
-          "deepseek_v3_671b", "glm4_9b", "qwen3_moe_235b_a22b", "rwkv6_3b")
+PORTED = ARCH_IDS
 
 # CLI ids use dashes, matching the assignment table.
 CANONICAL = {a.replace("_", "-").replace("-1p2b", "-1.2b"): a for a in ARCH_IDS}
@@ -32,10 +31,5 @@ def get(arch: str):
     name = CANONICAL.get(arch, arch).replace("-", "_").replace("1.2b", "1p2b")
     if name in PORTED:
         return importlib.import_module(f"repro_torch.configs.{name}")
-    if name in ARCH_IDS:
-        raise ValueError(
-            f"{arch!r} is not ported to repro_torch yet: its mixers and "
-            f"config wait for ROADMAP.md Queue 1, 'Remaining mixers and the "
-            f"configs zoo'; ported: {', '.join(PORTED)}")
     raise ValueError(f"{arch!r} is not a registered architecture; known: "
                      f"{', '.join(CANONICAL)}")

@@ -97,19 +97,17 @@ def config_from_jax(jcfg, **overrides) -> ModelConfig:
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """A JAX ``init_backbone`` parameter tree with numpy leaves -> the
     port's parameters on ``device`` (default the CUDA card).  Zamba2's
-    ``shared_attn`` block is copied as it is and the ``{}`` placeholders
-    of its layers carried through; a Whisper or VLM ``frontend`` raises
-    (not ported)."""
+    ``shared_attn`` block and the audio or VLM ``frontend`` projector are
+    copied as they are, and the ``{}`` placeholders of Zamba2's shared
+    layers carried through; a cross-attending block's ``norm_x`` and
+    ``cross`` ride in its layer's dict."""
     device = resolve_device(device)
-    if "frontend" in tree:
-        raise NotImplementedError(
-            f"{cfg.name}: parameters 'frontend' are not ported yet")
     conv = lambda t: tree_map(lambda a: to_tensor(a, device), t)  # noqa: E731
     out = {"embed": conv(tree["embed"]),
            "segments": [segment_from_jax(seg, cfg, si, device)
                         for si, seg in enumerate(tree["segments"])],
            "head": conv(tree["head"])}
-    for key in ("exit_heads", "shared_attn"):
+    for key in ("exit_heads", "shared_attn", "frontend"):
         if key in tree:
             out[key] = conv(tree[key])
     return out

@@ -28,13 +28,17 @@ config's ``router_aux_weight`` inside ``models.moe.route``), so routers on
 both sides of the cut stay balanced, while evaluation logits stay
 aux-free.
 
-Zamba2's globally shared attention block is copied to each side: the
+Zamba2's globally shared attention block and, for cross-attending
+configs (Whisper), the frontend projector are copied to each side: the
 client family and the server family train their own copy (they start
 equal), as the JAX adapter's ``_side_extras`` does.  Every server net then
-holds the key ``shared_attn``, so Eq. (1) averages the servers' copies as
-it averages any key two server nets hold (``core.aggregation``), as in the
-JAX package.  The Whisper frontend raises: it waits for ROADMAP.md Queue 1
-item 7.
+holds those keys, so Eq. (1) averages the servers' copies as it averages
+any key two server nets hold (``core.aggregation``), as in the JAX
+package.  Each side projects the documented zeros stub of the encoder
+states (``models/frontend.stub_enc``) through its own copy, so cross
+attention adds exactly 0 on this path, as in the JAX package (ROADMAP.md
+Queue 3).  VLM configs train token-only: the vision projector stays out of
+the trainables.
 """
 from __future__ import annotations
 
@@ -47,27 +51,17 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.losses import softmax_cross_entropy
 from repro_torch.core.splitee import _seeded, _StackMixin, own_copy
 from repro_torch.device import resolve_device
+from repro_torch.models import frontend as frontend_mod
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (add_aux, build_plan,
                                          init_backbone, segment_forward)
 from repro_torch.models.common import embed
 from repro_torch.tree import tree_map
 
-_ITEM7 = ("waits for ROADMAP.md Queue 1 item 7 (remaining mixers and the "
-          "configs zoo)")
-
-
-def unsupported_reason(cfg: ModelConfig):
-    """Why the port's adapter cannot split ``cfg`` yet, or ``None``."""
-    if cfg.cross_attention:
-        return f"{cfg.name}: the Whisper frontend and cross attention {_ITEM7}"
-    return None
-
-
 def _shared(params) -> Dict[str, Any]:
     """Zamba2's shared block of ``params`` (the full tree or one side's
-    trainables) under its key, or nothing: what each side holds a copy of
-    and ``segment_forward`` reads."""
+    trainables) under its key, or nothing: what ``segment_forward``
+    reads."""
     return ({"shared_attn": params["shared_attn"]}
             if "shared_attn" in params else {})
 
@@ -87,9 +81,6 @@ class BackboneSplitModel(_StackMixin):
             raise ValueError(
                 f"{self.cfg.name}: BackboneSplitModel needs exit_layers: "
                 f"cut layers must sit at exit-head boundaries")
-        reason = unsupported_reason(self.cfg)
-        if reason:
-            raise NotImplementedError(reason)
         self.device = resolve_device(self.device)
         self.plan = build_plan(self.cfg)
         self.full_params = tree_map(lambda t: t.to(self.device),
@@ -120,13 +111,22 @@ class BackboneSplitModel(_StackMixin):
                 f"valid cut layers are {self._exits}") from None
 
     # ------------------------------------------------------------ partitions
+    def _side_extras(self) -> Dict[str, Any]:
+        """What both sides hold a copy of: Zamba2's shared attention block
+        and, for cross-attending configs, the encoder-state projector."""
+        p = self.full_params
+        extras = _shared(p)
+        if self.cfg.cross_attention and "frontend" in p:
+            extras["frontend"] = p["frontend"]
+        return extras
+
     def make_client(self, li: int) -> Dict[str, Any]:
         b = self._boundary_of(li)
         p = self.full_params
         return own_copy({"trainable": {
             "embed": p["embed"],
             "segments": [p["segments"][si] for si in range(b + 1)],
-            "out": p["exit_heads"][b], **_shared(p)},
+            "out": p["exit_heads"][b], **self._side_extras()},
             "state": {}})
 
     def make_server(self, li: int) -> Dict[str, Any]:
@@ -135,23 +135,33 @@ class BackboneSplitModel(_StackMixin):
         trainable = {f"seg{si}": p["segments"][si]
                      for si in range(b + 1, len(self.plan))}
         trainable["head"] = p["head"]
-        trainable.update(_shared(p))
+        trainable.update(self._side_extras())
         return own_copy({"trainable": trainable, "state": {}})
 
     # --------------------------------------------------------------- forward
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         return torch.arange(x.shape[1], device=x.device)[None]
 
+    def _enc_for(self, trainable, batch: int):
+        """The stubbed encoder states (zeros, the documented frontend
+        carve-out) projected through this side's own projector, for
+        cross-attending configs; else None."""
+        return frontend_mod.project_enc(
+            trainable, frontend_mod.stub_enc(self.cfg, batch, self.device),
+            self.cfg)
+
     def _client_run(self, trainable, x):
         """(h, last-position exit logits, aux total over the client's
         segments, ``None`` without a router)."""
         h = embed(trainable["embed"], x).to(self.cfg.dtype)
         positions = self._positions(h)
+        enc = self._enc_for(trainable, h.shape[0])
         params = {"segments": trainable["segments"],
                   **_shared(trainable)}
         aux = None
         for si in range(len(trainable["segments"])):
-            h, a = segment_forward(params, self.cfg, si, h, positions)
+            h, a = segment_forward(params, self.cfg, si, h, positions,
+                                   enc=enc)
             aux = add_aux(aux, a)
         logits = heads_mod.exit_head(trainable["out"], h[:, -1], self.cfg)
         return h, logits, aux
@@ -162,11 +172,12 @@ class BackboneSplitModel(_StackMixin):
         b = self._boundary_of(li)
         h = h.to(self.cfg.dtype)
         positions = self._positions(h)
+        enc = self._enc_for(trainable, h.shape[0])
         aux = None
         for si in range(b + 1, len(self.plan)):
             h, a = segment_forward({"segments": {si: trainable[f"seg{si}"]},
                                     **_shared(trainable)},
-                                   self.cfg, si, h, positions)
+                                   self.cfg, si, h, positions, enc=enc)
             aux = add_aux(aux, a)
         return heads_mod.lm_head(trainable["head"], h[:, -1], self.cfg), aux
 

@@ -76,10 +76,15 @@ def participation_scale_trees(params: Any, cfg: ModelConfig,
     inv = lambda n: (1.0 / n) if n > 0 else 0.0  # noqa: E731
     fill = lambda tree, val: tree_map(lambda _: val, tree)  # noqa: E731
 
-    # the embedding is reached by every group's exit loss and never by the
-    # server family (a stop-gradient sits above it on every example's path)
-    cs: Dict[str, Any] = {"embed": fill(params["embed"], inv(N))}
-    ss: Dict[str, Any] = {"embed": fill(params["embed"], 0.0)}
+    # the embedding and the frontend projector are reached by every
+    # group's exit loss and never by the server family (a stop-gradient
+    # sits above them on every example's path)
+    cs: Dict[str, Any] = {}
+    ss: Dict[str, Any] = {}
+    for key in ("embed", "frontend"):
+        if key in params:
+            cs[key] = fill(params[key], inv(N))
+            ss[key] = fill(params[key], 0.0)
     if "shared_attn" in params:
         # Zamba2's shared block runs on both sides of every cut and both
         # families reach it: 1/N for each, the JAX package's documented
@@ -209,7 +214,9 @@ def make_grad_step(sc: StepConfig) -> Callable:
 
     def grad_step(params, batch):
         with _Trainable(params) as leaves:
-            out = backbone_forward(params, cfg, tokens=batch["tokens"],
+            out = backbone_forward(params, cfg, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"),
+                                   enc=batch.get("enc"),
                                    split_ids=batch["split_ids"], remat=remat)
             client, server, metrics = hetero_losses(
                 out, batch["labels"], batch["split_ids"], nb)
@@ -235,8 +242,11 @@ def make_train_step(sc: StepConfig) -> Callable:
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`make_grad_step`'s gradients, then Adam.  ``batch`` =
     {"tokens": (B, T), "labels": (B, T), "split_ids": (B,)} on the
-    parameters' device.  Metrics: ``client_loss/b{i}``, ``server_loss``
-    and ``aux_loss`` (0-d tensors on the device) and ``lr`` (a float)."""
+    parameters' device, and for audio and VLM configs ``"enc"`` (B, S,
+    768) or ``"embeds"`` (B, 256, 1152), the stub frontend's inputs (a VLM
+    batch's labels then cover the patches and the tokens).  Metrics:
+    ``client_loss/b{i}``, ``server_loss`` and ``aux_loss`` (0-d tensors on
+    the device) and ``lr`` (a float)."""
     grad_step = make_grad_step(sc)
     schedule = make_schedule(sc.train.optimizer)
 
@@ -274,7 +284,7 @@ def make_sequential_train_step(sc: StepConfig) -> Callable:
     div = sc.splitee.resolved_server_lr_divisor()
 
     def train_step(params, opt_state, batch):
-        B = batch["tokens"].shape[0]
+        B = batch["split_ids"].shape[0]
         if B % N:
             raise ValueError(f"batch {B} does not divide into {N} groups")
         per = B // N
@@ -287,9 +297,12 @@ def make_sequential_train_step(sc: StepConfig) -> Callable:
             rows = slice(g * per, (g + 1) * per)
             with _Trainable(params) as leaves:
                 out = backbone_forward(params, cfg,
-                                       tokens=batch["tokens"][rows],
                                        split_ids=batch["split_ids"][rows],
-                                       remat=remat)
+                                       remat=remat,
+                                       **{key: batch[key][rows]
+                                          for key in ("tokens", "embeds",
+                                                      "enc")
+                                          if batch.get(key) is not None})
                 client, server, m = hetero_losses(
                     out, batch["labels"][rows], batch["split_ids"][rows], nb)
                 del out
@@ -440,7 +453,8 @@ def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:
 
     ``boundary`` indexes ``sorted(cfg.exit_layers)``, the order
     ``backbone_forward`` emits ``exit_logits`` in.  The returned
-    ``serve_step(params, tokens, cache, cache_len, tau=None)`` takes
+    ``serve_step(params, tokens, cache, cache_len, embeds=None, enc=None,
+    tau=None)`` takes ``embeds``/``enc`` as ``backbone_forward`` does and
     ``tau`` as a float or one threshold per row on the device (defaults to
     ``sc.splitee.entropy_threshold``); ``cache`` is updated in place.
     MoE blocks route each row alone (one routing group per slot), as the
@@ -450,10 +464,12 @@ def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:
     tau_default = sc.splitee.entropy_threshold
     backend = dispatch.backend_for(cfg)
 
-    def serve_step(params, tokens, cache, cache_len, tau=None):
+    def serve_step(params, tokens, cache, cache_len, embeds=None, enc=None,
+                   tau=None):
         tau_ = tau_default if tau is None else tau
-        out = backbone_forward(params, cfg, tokens=tokens, cache=cache,
-                               cache_len=cache_len, exit_heads=(boundary,),
+        out = backbone_forward(params, cfg, tokens=tokens, embeds=embeds,
+                               enc=enc, cache=cache, cache_len=cache_len,
+                               exit_heads=(boundary,),
                                moe_groups=tokens.shape[0])
         if cfg.exit_layers:
             e_logits = out.exit_logits[boundary]

@@ -36,7 +36,7 @@
 // route below (PERF.md section 6).
 //
 // Decode route (flash_attention_decode_kernel): bf16 operands, D in
-// {64, 128}, Tq * G < 64 rows (glm4-9b decode: 16 rows, the GQA group).
+// {64, 128, 256}, Tq * G < 64 rows (glm4-9b decode: 16 rows, the GQA group).
 // Bound: bytes, the valid K/V prefix read once (0.2 us at the decode
 // shape, 10 us over a 4096-key cache at (8,2,4096,128)).  The row route
 // read each kv head's prefix once per 4 rows and walked a row's keys in
@@ -64,7 +64,7 @@
 // run with one tile in flight, and deeper rings or eight warps were not
 // faster, so more bytes in flight per SM is the next design.
 //
-// Tile route (flash_attention_tile_kernel): bf16 operands, D in {64, 128},
+// Tile route (flash_attention_tile_kernel): bf16 operands, D in {64, 128, 256},
 // Tq * G >= 64.  One warpgroup (128 threads) owns 64 flattened (t, g) rows
 // of one (batch, kv head) -- at G = 16, 4 positions x 16 heads, so every
 // K/V tile serves the whole GQA group and the causal band per tile stays
@@ -152,13 +152,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// shared memory of a row-route block: Q rows, then K (rows padded by one
+// word) and V of one 32-key tile, fp32.  Static up to D = 128 (35 KB);
+// 69.8 KB at D = 256, past the 48 KB of static shared memory, so there
+// it is dynamic
+template <int D>
+__host__ __device__ constexpr size_t row_smem_bytes() {
+  return sizeof(float) * (kRows * D + kKeys * (D + 1) + kKeys * D);
+}
+template <int D>
+__host__ __device__ constexpr bool row_smem_dynamic() {
+  return row_smem_bytes<D>() > 48 * 1024;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const FlashParams p) {
+__device__ __forceinline__ void row_attention(const FlashParams& p,
+                                              float (*qs)[D],
+                                              float (*ks)[D + 1],
+                                              float (*vs)[D]) {
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
-  __shared__ float qs[kRows][D];
-  __shared__ float ks[kKeys][D + 1];
-  __shared__ float vs[kKeys][D];
 
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int group = p.heads / p.kv_heads;
@@ -247,8 +259,26 @@ flash_attention_kernel(const FlashParams p) {
     p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + t] = m + logf(denom);
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const FlashParams p) {
+  if constexpr (!row_smem_dynamic<D>()) {
+    __shared__ float qs[kRows][D];
+    __shared__ float ks[kKeys][D + 1];
+    __shared__ float vs[kKeys][D];
+    row_attention<T, D>(p, qs, ks, vs);
+  } else {
+    extern __shared__ float row_smem[];
+    row_attention<T, D>(
+        p, reinterpret_cast<float (*)[D]>(row_smem),
+        reinterpret_cast<float (*)[D + 1]>(row_smem + kRows * D),
+        reinterpret_cast<float (*)[D]>(row_smem + kRows * D +
+                                        kKeys * (D + 1)));
+  }
+}
+
 // ---------------------------------------------------------------------------
-// tile route: wgmma, bf16, D in {64, 128}
+// tile route: wgmma, bf16, D in {64, 128, 256}
 // ---------------------------------------------------------------------------
 
 constexpr int kTileRows = 64;   // flattened (t, g) rows per block
@@ -259,7 +289,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // tiles that holds one K and one V tile (K of the next key tile loads
 // while this tile's softmax and P V run, V of the next while its S runs);
 // every tile on a 1024-byte boundary, as the swizzle needs.  48 KB at
-// D = 128: three blocks fit on an SM.
+// D = 128: three blocks fit on an SM; 96 KB at D = 256: two.
 template <int D>
 constexpr size_t tile_smem_bytes() {
   return sizeof(__nv_bfloat16) * 3 * kTileRows * D;
@@ -286,10 +316,18 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
   }
 }
 
+// blocks of the tile route an SM holds: three up to D = 128; at D = 256
+// the 128 fp32 accumulators of O, the 32 of S and P's 16 A-operand
+// registers need ~210 registers a thread, so two
+template <int D>
+constexpr int tile_min_blocks() {
+  return D > 128 ? 2 : 3;
+}
+
 // One block (one warpgroup): 64 flattened (t, g) rows of one (batch, kv
 // head).  Row tiles are launched heaviest (latest positions) first.
 template <int D>
-__global__ void __launch_bounds__(hopper::kWarpgroup, 3)
+__global__ void __launch_bounds__(hopper::kWarpgroup, tile_min_blocks<D>())
 flash_attention_tile_kernel(const FlashParams p) {
   using namespace hopper;
   using bf16 = __nv_bfloat16;
@@ -500,7 +538,7 @@ int launch_tile(const FlashParams& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// decode route: mma.sync, bf16, D in {64, 128}, Tq * G < 64, the keys of
+// decode route: mma.sync, bf16, D in {64, 128, 256}, Tq * G < 64, the keys of
 // one (batch, kv head) split across a thread block cluster
 // ---------------------------------------------------------------------------
 
@@ -825,7 +863,14 @@ int launch(const FlashParams& p, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows),
                   static_cast<unsigned>(p.kv_heads),
                   static_cast<unsigned>(p.batch));
-  flash_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+  constexpr size_t smem = row_smem_dynamic<D>() ? row_smem_bytes<D>() : 0;
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -836,6 +881,7 @@ int launch_dtype(const FlashParams& p, cudaStream_t stream) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
+    case 256: return launch<T, 256>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -853,7 +899,7 @@ extern "C" int flash_attention_launch(const FlashParams* p, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The decode route: bf16 operands, head_dim 64 or 128, Tq * G < 64 rows,
+// The decode route: bf16 operands, head_dim 64, 128 or 256, Tq * G < 64 rows,
 // 16-byte aligned rows; `splits` blocks (1..8) per (batch, kv head), one
 // thread block cluster.
 extern "C" int flash_attention_decode_launch(const FlashParams* p, int splits,
@@ -867,11 +913,13 @@ extern "C" int flash_attention_decode_launch(const FlashParams* p, int splits,
   switch (p->head_dim) {
     case 64: return launch_decode<64>(*p, splits, s);
     case 128: return launch_decode<128>(*p, splits, s);
+    case 256: return launch_decode<256>(*p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned rows.
+// The tile route: bf16 operands, head_dim 64, 128 or 256, 16-byte aligned
+// rows.
 extern "C" int flash_attention_tile_launch(const FlashParams* p,
                                            void* stream) {
   if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
@@ -883,6 +931,7 @@ extern "C" int flash_attention_tile_launch(const FlashParams* p,
   switch (p->head_dim) {
     case 64: return launch_tile<64>(*p, s);
     case 128: return launch_tile<128>(*p, s);
+    case 256: return launch_tile<256>(*p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

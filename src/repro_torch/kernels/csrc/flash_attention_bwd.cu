@@ -483,6 +483,7 @@ int launch_dim(const FlashBwdParams& p, cudaStream_t stream) {
     case 32: return kDkv ? launch_dkv<T, 32>(p, stream) : launch_dq<T, 32>(p, stream);
     case 64: return kDkv ? launch_dkv<T, 64>(p, stream) : launch_dq<T, 64>(p, stream);
     case 128: return kDkv ? launch_dkv<T, 128>(p, stream) : launch_dq<T, 128>(p, stream);
+    case 256: return kDkv ? launch_dkv<T, 256>(p, stream) : launch_dq<T, 256>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -509,6 +510,12 @@ constexpr int kTRows = 64;     // query rows per tile
 constexpr int kTStages = 2;    // Q/dO ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
+// output columns of one tile-route backward block: all D up to 128; at
+// D = 256, 128, so the 64 x 256 fp32 sum a warpgroup would hold (128
+// registers a thread, and as many for the tile's product) is split across
+// two blocks, each of which forms S, P, dP and dS over the full D
+__host__ __device__ constexpr int dcols(int d) { return d > 128 ? 128 : d; }
+
 // shared memory of a dK/dV tile block: K, V, then the ring's Q and dO
 // tiles (every tile on a 1024-byte boundary, as the swizzle needs), the
 // ring's LSE and delta rows, and P on its way from one warpgroup to the
@@ -520,7 +527,7 @@ struct DkvTile {
   static constexpr size_t kP = kTKeys * kTRows * sizeof(float);
   static constexpr size_t kLoop = (2 + 2 * kTStages) * kOperand +
                                   kTStages * kRows + kP;
-  static constexpr int kPartStride = D + 8;  // floats; no bank conflicts
+  static constexpr int kPartStride = dcols(D) + 8;  // floats; no conflicts
   static constexpr size_t kParts = 2 * kTKeys * kPartStride * sizeof(float);
   static constexpr size_t kSmem = kLoop > kParts ? kLoop : kParts;
 };
@@ -575,7 +582,8 @@ flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
   namespace cg = cooperative_groups;
   using Smem = DkvTile<D>;
   constexpr int kThreads = 2 * kWarpgroup;
-  constexpr int kO = D / 2;   // dV or dK accumulator registers per thread
+  constexpr int DC = dcols(D);   // this block's columns of dK and dV
+  constexpr int kO = DC / 2;     // dV or dK accumulator registers per thread
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
   bf16* ks = reinterpret_cast<bf16*>(dkv_smem);
   bf16* vs = ks + 64 * D;
@@ -592,7 +600,11 @@ flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int k0 = static_cast<int>(blockIdx.x / cs) * kTKeys;
+  // clusters along x: (key tile, column slice); blocks of one cluster are
+  // the slices of the GQA group
+  const int cluster_id = static_cast<int>(blockIdx.x) / cs;
+  const int k0 = cluster_id / (D / DC) * kTKeys;
+  const int col0 = cluster_id % (D / DC) * DC;   // first dK/dV column
   const int group = p.heads / p.kv_heads, gs = group / cs;
   const int h0 = kvh * group + rank * gs;   // this slice's first head
   const int wg = threadIdx.x / kWarpgroup;  // 0: P and dV; 1: dS and dK
@@ -753,9 +765,9 @@ flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bd = desc_mn<64>(bt, 0, kk);
-        mma_rs<1>(part, hi[kk], bd, kk > 0, Int<D>());
-        mma_rs<1>(part, lo[kk], bd, 1, Int<D>());
+        const uint64_t bd = desc_mn<64>(bt, col0, kk);
+        mma_rs<1>(part, hi[kk], bd, kk > 0, Int<DC>());
+        mma_rs<1>(part, lo[kk], bd, 1, Int<DC>());
       }
       wg_commit();
       wg_wait<0>();
@@ -778,7 +790,7 @@ flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
   float* dv_part = dk_part + kTKeys * kStride;
   float* mine = wg == 0 ? dv_part : dk_part;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       *reinterpret_cast<float2*>(
@@ -789,10 +801,10 @@ flash_bwd_dkv_tile_kernel(const FlashBwdParams p) {
   const int per = (kTKeys + cs - 1) / cs;
   const int row_lo = rank * per, row_hi = min(kTKeys, row_lo + per);
   const long long out0 =
-      ((static_cast<long long>(b) * p.kv_heads + kvh) * p.tk + k0) * D;
-  for (int idx = threadIdx.x; idx < (row_hi - row_lo) * (D / 4);
+      ((static_cast<long long>(b) * p.kv_heads + kvh) * p.tk + k0) * D + col0;
+  for (int idx = threadIdx.x; idx < (row_hi - row_lo) * (DC / 4);
        idx += kThreads) {
-    const int row = row_lo + idx / (D / 4), c4 = idx % (D / 4);
+    const int row = row_lo + idx / (DC / 4), c4 = idx % (DC / 4);
     if (k0 + row >= p.tk) continue;
     float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
     for (int rr = 0; rr < cs; ++rr) {
@@ -824,7 +836,8 @@ int launch_dkv_tile(const FlashBwdParams& p, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((p.tk + kTKeys - 1) / kTKeys * cs),
+  cfg.gridDim = dim3(static_cast<unsigned>((p.tk + kTKeys - 1) / kTKeys *
+                                           (D / dcols(D)) * cs),
                      static_cast<unsigned>(p.kv_heads),
                      static_cast<unsigned>(p.batch));
   cfg.blockDim = dim3(2 * hopper::kWarpgroup);
@@ -854,6 +867,7 @@ template <int D>
 constexpr size_t dq_tile_smem_bytes() {
   return 6 * 64 * D * sizeof(__nv_bfloat16) + 64 * sizeof(float);
 }
+// (192.25 KB at D = 256: one block an SM)
 
 // One block (one warpgroup): 64 flattened (t, g) query rows of one (b, kv
 // head), as the forward's tile route; at G = 16, 4 positions x 16 heads,
@@ -871,7 +885,8 @@ __global__ void __launch_bounds__(hopper::kWarpgroup, 2)
 flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
   using namespace hopper;
   using bf16 = __nv_bfloat16;
-  constexpr int kO = D / 2;   // dQ accumulator registers per thread
+  constexpr int DC = dcols(D);   // this block's columns of dQ
+  constexpr int kO = DC / 2;     // dQ accumulator registers per thread
   extern __shared__ __align__(1024) unsigned char dq_smem[];
   bf16* qs = reinterpret_cast<bf16*>(dq_smem);
   bf16* dos = qs + 64 * D;
@@ -882,7 +897,11 @@ flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
   const int b = blockIdx.z, kvh = blockIdx.y;
   const int group = p.heads / p.kv_heads;
   const int rows = p.tq * group;   // the launcher keeps this below 2^31
-  const int row0 = static_cast<int>(gridDim.x - 1 - blockIdx.x) * kTRows;
+  // x: (row tile, column slice), heaviest row tiles first
+  constexpr int kSlices = D / DC;
+  const int row0 =
+      static_cast<int>((gridDim.x - 1 - blockIdx.x) / kSlices) * kTRows;
+  const int col0 = static_cast<int>(blockIdx.x % kSlices) * DC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb;
@@ -983,7 +1002,7 @@ flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
       if (threadIdx.x % kRowChunks == 0) delta_s[r] = x;
     }
     __syncthreads();
-    if (threadIdx.x < 64 && row0 + threadIdx.x < rows) {
+    if (col0 == 0 && threadIdx.x < 64 && row0 + threadIdx.x < rows) {
       const int row = row0 + threadIdx.x;
       p.delta_out[(static_cast<long long>(b) * p.heads + kvh * group +
                    row % group) * p.tq + row / group] = delta_s[threadIdx.x];
@@ -1069,13 +1088,13 @@ flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) split_frag(fh[kk], fl[kk], s, kk);
 #pragma unroll
-    for (int half = 0; half < D / 64; ++half) {
+    for (int half = 0; half < DC / 64; ++half) {
       float part[32];
       fence_regs(part);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bd = desc_mn<64>(ks, 64 * half, kk);
+        const uint64_t bd = desc_mn<64>(ks, col0 + 64 * half, kk);
         mma_rs<1>(part, fh[kk], bd, kk > 0, Int<64>());
         mma_rs<1>(part, fl[kk], bd, 1, Int<64>());
       }
@@ -1099,9 +1118,9 @@ flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
     const int row = row0 + 16 * warp + lane / 4 + 8 * i;
     if (row >= rows) continue;
     float* out = p.dq + ((static_cast<long long>(b) * p.heads + kvh * group +
-                          row % group) * p.tq + row / group) * D;
+                          row % group) * p.tq + row / group) * D + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j)
       *reinterpret_cast<float2*>(out + 8 * j + 2 * (lane & 3)) =
           make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
   }
@@ -1110,7 +1129,8 @@ flash_bwd_dq_tile_kernel(const FlashBwdParams p) {
 template <int D>
 int launch_dq_tile(const FlashBwdParams& p, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.tq) * (p.heads / p.kv_heads);
-  const dim3 grid(static_cast<unsigned>((rows + kTRows - 1) / kTRows),
+  const dim3 grid(static_cast<unsigned>((rows + kTRows - 1) / kTRows *
+                                       (D / dcols(D))),
                   static_cast<unsigned>(p.kv_heads),
                   static_cast<unsigned>(p.batch));
   constexpr size_t smem = dq_tile_smem_bytes<D>();
@@ -1135,8 +1155,8 @@ extern "C" int flash_attention_bwd_dq_launch(const FlashBwdParams* p,
   return launch_any<false>(p, stream);
 }
 
-// The dQ tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned
-// rows; with o set, delta is formed in the kernel and written to delta_out.
+// The dQ tile route: bf16 operands, head_dim 64, 128 or 256, 16-byte
+// aligned rows; with o set, delta is formed in the kernel and written to delta_out.
 extern "C" int flash_attention_bwd_dq_tile_launch(const FlashBwdParams* p,
                                                   void* stream) {
   if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
@@ -1149,12 +1169,13 @@ extern "C" int flash_attention_bwd_dq_tile_launch(const FlashBwdParams* p,
   switch (p->head_dim) {
     case 64: return launch_dq_tile<64>(*p, s);
     case 128: return launch_dq_tile<128>(*p, s);
+    case 256: return launch_dq_tile<256>(*p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The dK/dV tile route: bf16 operands, head_dim 64 or 128, 16-byte aligned
-// rows.
+// The dK/dV tile route: bf16 operands, head_dim 64, 128 or 256, 16-byte
+// aligned rows.
 extern "C" int flash_attention_bwd_dkv_tile_launch(const FlashBwdParams* p,
                                                    void* stream) {
   if (p->batch <= 0 || p->tq <= 0 || p->tk <= 0 || p->kv_heads <= 0 ||
@@ -1166,6 +1187,7 @@ extern "C" int flash_attention_bwd_dkv_tile_launch(const FlashBwdParams* p,
   switch (p->head_dim) {
     case 64: return launch_dkv_tile<64>(*p, s);
     case 128: return launch_dkv_tile<128>(*p, s);
+    case 256: return launch_dkv_tile<256>(*p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,8 +5,9 @@ forward, which replaces the TPU kernel
 ``flash_attention_bwd_dkv_pallas`` and ``flash_attention_bwd_dq_pallas``).
 
 Each kernel has routes chosen by a fixed rule (:func:`attention_route`,
-:func:`dkv_route`, :func:`dq_route`): for bf16 and head dims 64 and 128,
-tensor-core "tile" routes (wgmma), and for the forward a "decode" route
+:func:`dkv_route`, :func:`dq_route`): for bf16 and head dims 64, 128 and
+256, tensor-core "tile" routes (wgmma; the backward's at 256 split the
+output columns across two blocks), and for the forward a "decode" route
 (mma.sync, the keys split across a thread block cluster,
 :func:`decode_splits`) when Tq * G is below one 64-row tile; the "row"
 routes of plain FMAs take everything else (fp32, other head dims, rows
@@ -37,8 +38,8 @@ from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
                                      flash_attention_bwd_ref,
                                      flash_attention_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
-TILE_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+TILE_HEAD_DIMS = (64, 128, 256)
 TILE_ROWS = 64          # flattened (t, g) query rows of one tile-route block
 TILE_KEYS = 64          # keys of one K/V tile
 NUM_SMS = 132           # streaming multiprocessors of an H100 SXM
@@ -50,11 +51,11 @@ _fns: dict = {}
 def attention_route(dtype: torch.dtype, head_dim: int, tq: int,
                     group: int) -> str:
     """The forward kernel for these operands: ``"tile"`` (wgmma) for bf16,
-    head dim 64 or 128 and at least one full tile of Tq * G query rows;
-    ``"decode"`` (mma.sync, the keys split across a cluster) for bf16,
-    head dim 64 or 128 and fewer rows (decode's Tq * G = G rows would
-    leave most of a 64-row tile empty); ``"row"`` for everything else
-    (fp32 must stay exact to 2e-5; head dims 16 and 32)."""
+    head dim 64, 128 or 256 and at least one full tile of Tq * G query
+    rows; ``"decode"`` (mma.sync, the keys split across a cluster) for
+    bf16, head dim 64, 128 or 256 and fewer rows (decode's Tq * G = G rows
+    would leave most of a 64-row tile empty); ``"row"`` for everything
+    else (fp32 must stay exact to 2e-5; head dims 16 and 32)."""
     if dtype != torch.bfloat16 or head_dim not in TILE_HEAD_DIMS:
         return "row"
     return "tile" if tq * group >= TILE_ROWS else "decode"
@@ -62,16 +63,17 @@ def attention_route(dtype: torch.dtype, head_dim: int, tq: int,
 
 def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
     """The dK/dV kernel for these operands: ``"tile"`` (wgmma, the GQA
-    group split across a thread block cluster) for bf16 and head dim 64 or
-    128, ``"row"`` for everything else."""
+    group split across a thread block cluster) for bf16 and head dim 64,
+    128 or 256, ``"row"`` for everything else."""
     return ("tile" if dtype == torch.bfloat16 and head_dim in TILE_HEAD_DIMS
             else "row")
 
 
 def dq_route(dtype: torch.dtype, head_dim: int) -> str:
     """The dQ kernel for these operands: ``"tile"`` (wgmma, 64 flattened
-    (t, g) rows a block, delta fused) for bf16 and head dim 64 or 128,
-    ``"row"`` for everything else; the same rule as :func:`dkv_route`."""
+    (t, g) rows a block, delta fused) for bf16 and head dim 64, 128 or
+    256, ``"row"`` for everything else; the same rule as
+    :func:`dkv_route`."""
     return dkv_route(dtype, head_dim)
 
 
@@ -394,7 +396,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``(dq, dk, dv)`` in the dtypes of q, k and v.
 
     delta = rowsum(dO * O): where dQ takes the tile route (bf16, head dim
-    64 or 128, 16-byte rows) the dQ kernel forms it and runs first, and
+    64, 128 or 256, 16-byte rows) the dQ kernel forms it and runs first, and
     the dK/dV kernel reads what it wrote; elsewhere it is one elementwise
     pass in torch, outside the kernels, as ``repro/kernels/ops.py``
     computes it outside the Pallas kernels (counted by

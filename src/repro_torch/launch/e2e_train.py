@@ -12,6 +12,12 @@ it uncut, at its published exits (zamba2-1.2b: 10, 20, 29, where
 architecture's smoke config instead (fp32, narrow), with the same cut.
 Runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 
+Audio and VLM configs take the stub frontend's inputs, drawn from the seed
+(``models/frontend.frontend_batch``): whisper-small ``enc`` (B,
+``cross_source_len``, 768) random encoder states; paligemma-3b ``embeds``
+(B, 256, 1152) random patch embeddings before T - 256 tokens, labels over
+all T positions with the patches labelled 0.
+
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --layers 8 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.e2e_train --arch rwkv6-3b \
       --layers 0 --seq 512 --remat --steps 20
@@ -41,6 +47,7 @@ from repro_torch.core.spmd import (GRAD_MODES, StepConfig,
 from repro_torch.convert import adam_state_to_jax, params_to_jax
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.device import resolve_device
+from repro_torch.models.frontend import frontend_batch
 from repro_torch.models.backbone import init_backbone
 from repro_torch.optim import adam_init
 from repro_torch.tree import tree_leaves
@@ -117,13 +124,13 @@ def main(argv=None) -> dict:
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq,
                             structure=0.9, seed=0)
     sids = boundary_ids_for_batch(profile, cfg, args.batch, device)
+    feats = np.random.default_rng(0)
 
     losses = []
     t0 = time.perf_counter()
     for step, (toks, labels) in enumerate(ds.batches(args.batch,
                                                      args.steps)):
-        batch = {"tokens": torch.as_tensor(toks, device=device),
-                 "labels": torch.as_tensor(labels, device=device),
+        batch = {**frontend_batch(cfg, toks, labels, feats, device),
                  "split_ids": sids}
         params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["server_loss"]))

@@ -1,9 +1,9 @@
-"""Attention mixers: GQA with RoPE and an optional sliding window, and
-DeepSeek's multi-head latent attention (MLA) (counterpart of
-``repro/models/attention.py``; cross attention is still to be ported).
-GQA's score/value contraction routes through ``repro_torch.kernels.
-dispatch``; MLA runs plain torch products, as the JAX package runs it in
-einsums (no kernel).
+"""Attention mixers: GQA with RoPE and an optional sliding window,
+DeepSeek's multi-head latent attention (MLA), and Whisper's cross
+attention (counterpart of ``repro/models/attention.py``).  The
+score/value contractions of GQA and of cross attention route through
+``repro_torch.kernels.dispatch``; MLA runs plain torch products, as the
+JAX package runs it in einsums (no kernel).
 
 Cache contracts (decode), W = window or max_len, token position p at slot
 p % W:
@@ -223,3 +223,36 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     H, hv, d = params["wo"].shape
     out = out.reshape(B, T, H * hv) @ params["wo"].reshape(H * hv, d)
     return out.to(x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(cfg: ModelConfig, generator, device) -> dict:
+    """No biases, even under ``use_qkv_bias`` (as in the JAX package)."""
+    d, hd, H = cfg.d_model, cfg.head_dim, cfg.num_heads
+    dt = cfg.param_dtype
+    return {
+        "wq": fan_in_init((d, H, hd), dt, generator, device, fan_in=d),
+        "wk": fan_in_init((d, H, hd), dt, generator, device, fan_in=d),
+        "wv": fan_in_init((d, H, hd), dt, generator, device, fan_in=d),
+        "wo": fan_in_init((H, hd, d), dt, generator, device, fan_in=H * hd),
+    }
+
+
+def cross_attn_forward(params: dict, x: torch.Tensor, enc: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """x (B, T, d) decoder stream; enc (B, S, d) encoder states (the stub
+    frontend's, projected) -> (B, T, d).  Non-causal over all S states,
+    through the kernel backend: no cache, the keys and values recomputed
+    from ``enc`` on every call, as the JAX package does."""
+    q = _project(x, params["wq"])
+    k = _project(enc, params["wk"])
+    v = _project(enc, params["wv"])
+    out = dispatch.backend_for(cfg).attention(q, k, v)
+    B, T = x.shape[:2]
+    H, hd, d = params["wo"].shape
+    out = out.reshape(B, T, H * hd) @ params["wo"].reshape(H * hd, d)
+    return out.to(x.dtype)

@@ -10,6 +10,10 @@ Zamba2's globally shared attention block is one top-level parameter set,
 ``params["shared_attn"]`` (an ``"attn"`` block with the FFN of the first
 shared layer); each shared layer holds an empty ``{}`` in its place, as
 the JAX package's tree does, and has a KV cache of its own.
+Audio and VLM configs hold the stub frontend's projector,
+``params["frontend"]`` (``models/frontend.py``): Whisper's encoder states
+``enc`` are projected and feed every block's cross attention; paligemma's
+patch embeddings ``embeds`` are projected and come before the tokens.
 Training passes ``split_ids``: each example's residual stream is cut from
 the gradient at its own boundary (the paper's routing), and ``remat``
 recomputes each block's activations in the backward pass.  MoE blocks'
@@ -26,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as blocks_mod
+from repro_torch.models import frontend as frontend_mod
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.common import embed, init_embedding
 
@@ -78,6 +83,11 @@ def init_backbone(generator: torch.Generator, cfg: ModelConfig) -> dict:
     device = generator.device
     params: dict = {"embed": init_embedding(cfg.vocab_size, cfg.d_model,
                                             cfg.param_dtype, generator, device)}
+    feat = {"audio": frontend_mod.WHISPER_FRAME_DIM,
+            "vlm": frontend_mod.SIGLIP_PATCH_DIM}.get(cfg.arch_type)
+    if feat is not None:
+        params["frontend"] = frontend_mod.init_projector(feat, cfg, generator,
+                                                         device)
     if "shared_attn" in cfg.block_pattern:
         first = cfg.block_pattern.index("shared_attn")
         params["shared_attn"] = blocks_mod.init_block(
@@ -129,14 +139,17 @@ def add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]
 def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[list] = None,
                     cache_len: Optional[torch.Tensor] = None,
-                    remat: bool = False, moe_groups: int = 1
+                    remat: bool = False, moe_groups: int = 1,
+                    enc: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layers of segment ``si`` -> ``(x, aux)``: ``aux`` sums the MoE
     blocks' router losses (``None`` in a segment without one).  ``params``
     holds ``"segments"`` and, for Zamba2, ``"shared_attn"``, which every
     shared layer runs.  The caches are updated in place.  ``remat``
     checkpoints each block (no cache): its activations are recomputed in
-    the backward pass instead of kept.  ``moe_groups``: the routing groups of ``models/moe.py``."""
+    the backward pass instead of kept.  ``moe_groups``: the routing groups
+    of ``models/moe.py``.  ``enc`` (B, S, d), the projected encoder
+    states, feeds the blocks' cross attention."""
     aux = None
     for li, (kind, ffn) in enumerate(segment_layers(cfg, si)):
         p = (params["shared_attn"] if kind == "shared_attn"
@@ -146,19 +159,21 @@ def segment_forward(params: dict, cfg: ModelConfig, si: int, x: torch.Tensor,
             x, a = checkpoint(
                 lambda h, p=p, mixer=mixer, ffn=ffn: blocks_mod.block_forward(
                     p, h, positions, cfg, mixer, ffn,
-                    moe_groups=moe_groups)[::2],
+                    moe_groups=moe_groups, enc=enc)[::2],
                 x, use_reentrant=False)
         else:
             x, _, a = blocks_mod.block_forward(
                 p, x, positions, cfg, mixer, ffn,
                 cache=cache[si][li] if cache is not None else None,
-                cache_len=cache_len, moe_groups=moe_groups)
+                cache_len=cache_len, moe_groups=moe_groups, enc=enc)
         aux = add_aux(aux, a)
     return x, aux
 
 
 def backbone_forward(params: dict, cfg: ModelConfig, *,
-                     tokens: torch.Tensor,
+                     tokens: Optional[torch.Tensor] = None,
+                     embeds: Optional[torch.Tensor] = None,
+                     enc: Optional[torch.Tensor] = None,
                      split_ids: Optional[torch.Tensor] = None,
                      cache: Optional[list] = None,
                      cache_len: Optional[torch.Tensor] = None,
@@ -167,7 +182,13 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                      moe_groups: int = 1) -> BackboneOutput:
     """Run the full network.
 
-    tokens     : (B, T) integers.
+    tokens     : (B, T) integers, or None when ``embeds`` is given alone.
+    embeds     : (B, S, feat) precomputed frontend embeddings (VLM
+                 patches), projected by ``params["frontend"]`` and placed
+                 *before* the tokens; positions count them.
+    enc        : (B, S, feat) stubbed encoder states (audio), projected by
+                 ``params["frontend"]`` (where the params hold one) and
+                 attended by every block's cross attention.
     split_ids  : (B,) boundary index per example (Hetero-SplitEE training):
                  after boundary ``si`` the residual stream of the examples
                  with ``split_ids == si`` is detached, so the server loss
@@ -190,8 +211,14 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
                          "given")
     n_seg = len(cfg.segments())
     want = set(range(n_seg - 1) if exit_heads is None else exit_heads)
-    x = embed(params["embed"], tokens).to(cfg.dtype)
-    steps = torch.arange(tokens.shape[1], device=tokens.device)
+    enc = frontend_mod.project_enc(params, enc, cfg)
+    parts = []
+    if embeds is not None and "frontend" in params:
+        parts.append(frontend_mod.project(params["frontend"], embeds))
+    if tokens is not None:
+        parts.append(embed(params["embed"], tokens).to(cfg.dtype))
+    x = torch.cat([t.to(cfg.dtype) for t in parts], dim=1)
+    steps = torch.arange(x.shape[1], device=x.device)
     positions = (steps[None] if cache_len is None
                  else cache_len.long()[:, None] + steps)
 
@@ -199,7 +226,7 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si in range(n_seg):
         x, aux = segment_forward(params, cfg, si, x, positions, cache,
-                                 cache_len, remat, moe_groups)
+                                 cache_len, remat, moe_groups, enc)
         aux_total = add_aux(aux_total, aux)
         if si < n_seg - 1:
             exit_logits.append(

@@ -2,8 +2,10 @@
 ``repro/models/blocks.py``).  Mixers: ``"attn"`` (GQA), ``"mla"``
 (DeepSeek latent attention), ``"mamba2"``, ``"rwkv6"``; FFNs: ``"mlp"``,
 ``"moe"``, ``"rwkv_cm"`` and ``"none"`` (a block without ``norm2`` and
-``ffn``, as Zamba2's Mamba2 layers).  Cross attention raises
-``NotImplementedError``."""
+``ffn``, as Zamba2's Mamba2 layers).  Under ``cfg.cross_attention`` an
+``"attn"`` or ``"mla"`` block also holds ``norm_x`` and ``cross``
+(Whisper's decoder), which attend over the encoder states ``enc`` after
+the mixer and before the FFN; cross attention keeps no cache."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -17,10 +19,6 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import init_rmsnorm, rmsnorm
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
-_PENDING = ("not ported to repro_torch yet; see ROADMAP.md Queue 1, "
-            "'Remaining mixers and the configs zoo'")
-
-
 MIXER_INIT = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla,
               "mamba2": ssm_mod.init_mamba2, "rwkv6": ssm_mod.init_rwkv6}
 MIXERS = tuple(MIXER_INIT)
@@ -31,11 +29,11 @@ FFN_INIT = {"mlp": init_mlp, "moe": moe_mod.init_moe,
 
 def check_kinds(cfg: ModelConfig, mixer: str, ffn: str) -> None:
     if mixer not in MIXERS:
-        raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} is {_PENDING}")
+        raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}; expected "
+                         f"one of {MIXERS}")
     if ffn not in FFNS:
-        raise NotImplementedError(f"{cfg.name}: ffn {ffn!r} is {_PENDING}")
-    if cfg.cross_attention:
-        raise NotImplementedError(f"{cfg.name}: cross attention is {_PENDING}")
+        raise ValueError(f"{cfg.name}: unknown ffn {ffn!r}; expected one "
+                         f"of {FFNS}")
 
 
 def init_block(cfg: ModelConfig, mixer: str, ffn: str, generator,
@@ -46,6 +44,9 @@ def init_block(cfg: ModelConfig, mixer: str, ffn: str, generator,
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, cfg.param_dtype, device)
         p["ffn"] = FFN_INIT[ffn](cfg, generator, device)
+    if cfg.cross_attention and mixer in ("attn", "mla"):
+        p["norm_x"] = init_rmsnorm(cfg.d_model, cfg.param_dtype, device)
+        p["cross"] = attn_mod.init_cross_attn(cfg, generator, device)
     return p
 
 
@@ -73,12 +74,14 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
                   cache: Optional[dict] = None,
                   cache_len: Optional[torch.Tensor] = None,
                   moe_groups: int = 1,
+                  enc: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, Optional[dict],
                              Optional[torch.Tensor]]:
     """Returns (x, cache, aux); the cache is updated in place.  ``aux`` is
     the MoE router's load-balance loss (fp32 scalar), ``None`` for a block
     without a router; a ``"moe"`` FFN routes the rows in ``moe_groups``
-    groups (``models/moe.py``)."""
+    groups (``models/moe.py``).  ``enc`` (B, S, d), the projected encoder
+    states, feeds the block's cross attention where it has one."""
     check_kinds(cfg, mixer, ffn)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     mc = cache["mixer"] if cache else None
@@ -93,6 +96,9 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         m, _ = ssm_mod.rwkv6_forward(params["mixer"], h, cfg, cache=mc)
     x = x + m
+    if "cross" in params and enc is not None:
+        hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
+        x = x + attn_mod.cross_attn_forward(params["cross"], hx, enc, cfg)
     aux = None
     if ffn == "none":
         return x, cache, aux

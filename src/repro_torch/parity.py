@@ -47,10 +47,24 @@ TOL_GRAD_BF16 = 5e-2
 # layers (plain torch products in both runs) and deepseek-v3-671b's MLA
 # runs no kernel at all (its training is the plain versions' on both
 # sides; its serving gate is the one kernel); both hold glm4-9b's limit
+# whisper-small's smoke (self and cross attention over a random enc)
+# read 8.7e-4 sound against 2.9e-2 with the cross output zeroed: glm4-9b's
+# limit.  paligemma-3b's smoke (head dim 256, GQA 8, 16 random patches
+# before 16 tokens, the patches labelled 0) read 5.3e-3 sound against
+# 1.04e-2 with dK zeroed on an H100, while its first-step gradients read
+# 1.5e-2 (glm4-9b's 1.6e-2).  That gap is bf16 rounding: on an H100 the
+# plain versions in bf16 stand 3.2e-3 to 1.1e-2 from the plain versions in
+# fp32 over batch seeds 2-4, the kernels 4.9e-3 to 1.2e-2, and the kernels
+# 2.7e-3 to 5.3e-3 from the plain bf16 run
+# (scripts/bf16_loss_witness.py).  It holds rwkv6's limit.  The losses
+# cannot tell a partial fault from that rounding (dK's second 128-column
+# half zeroed read 6.6e-3 at seed 2); the first-step gradients reject it
+# leaf by leaf (0.71 against 1.5e-2), and phase parity holds them so
 TOL_LOSS_BF16 = {"glm4_9b": 1.5e-3, "rwkv6_3b": 7e-3,
                  "phi3_medium_14b": 1.5e-3, "minitron_8b": 1.5e-3,
                  "command_r_35b": 1.5e-3, "qwen3_moe_235b_a22b": 1.5e-3,
-                 "zamba2_1p2b": 1.5e-3, "deepseek_v3_671b": 1.5e-3}
+                 "zamba2_1p2b": 1.5e-3, "deepseek_v3_671b": 1.5e-3,
+                 "whisper_small": 1.5e-3, "paligemma_3b": 7e-3}
 # the training comparisons' setup: exits (1, 2) over client groups
 # (1, 1, 2, 2), Adam at lr 1e-3 over a 6-step schedule, 3 steps of 8 x 32
 # tokens from ``smoke_batches``
@@ -144,17 +158,30 @@ def live_rwkv(params, seed: int = 0) -> None:
 def smoke_batches(cfg, steps: int = TRAIN_STEPS, seq: int = TRAIN_SEQ,
                   seed: int = 2, device="cuda") -> List[dict]:
     """``steps`` batches of 8 x ``seq`` random tokens and labels from numpy
-    ``seed``, routed over ``TRAIN_PROFILE``'s client groups."""
+    ``seed``, routed over ``TRAIN_PROFILE``'s client groups.  Audio and
+    VLM configs also get the stub frontend's inputs from the same seed
+    (``models/frontend.frontend_batch``): random encoder states, or
+    ``seq // 2`` random patches before ``seq - seq // 2`` tokens; random,
+    not the zeros stub, so cross attention and the projector carry
+    gradients."""
     from repro_torch.config import HeteroProfile
     from repro_torch.core.spmd import boundary_ids_for_batch
+    from repro_torch.models.frontend import frontend_batch
     rng = np.random.default_rng(seed)
     sids = boundary_ids_for_batch(HeteroProfile(TRAIN_PROFILE), cfg, 8,
                                   device)
-    return [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                                    (8, seq)), device=device),
-             "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                                    (8, seq)), device=device),
-             "split_ids": sids} for _ in range(steps)]
+    out = []
+    for _ in range(steps):
+        toks = rng.integers(0, cfg.vocab_size, (8, seq))
+        labels = rng.integers(0, cfg.vocab_size, (8, seq))
+        if cfg.arch_type in ("audio", "vlm"):
+            b = frontend_batch(cfg, toks, labels, rng, device,
+                               patches=seq // 2)
+        else:
+            b = {"tokens": torch.as_tensor(toks, device=device),
+                 "labels": torch.as_tensor(labels, device=device)}
+        out.append({**b, "split_ids": sids})
+    return out
 
 
 @dataclass
@@ -416,6 +443,9 @@ LANE_SPLITS = {"glm4_9b": (1, 1, 2, 2), "rwkv6_3b": (2, 2, 2),
                "qwen3_moe_235b_a22b": (2, 2), "zamba2_1p2b": (2, 2)}
 POP_LANE_FAMILIES = ("glm4_9b", "rwkv6_3b")
 LANE_SEQ, LANE_BATCH, LANE_ROUNDS = 32, 64, 2
+# sequences a lane at lane_sites' cross-attention site (whisper-small's
+# training batch is 12)
+LANE_CROSS_BATCH = 4
 
 
 def backbone_session(family: str, kernels: str, device, state=None, *,
@@ -510,11 +540,14 @@ def lane_loop_gaps(site, inputs: Sequence[torch.Tensor], seed: int = 1
 
 
 def lane_sites(device, seed: int = 0) -> Dict[str, tuple]:
-    """The two training sites of the cuda backend, each with lane-stacked
-    inputs at the backbone legs' shapes (bf16, head dim 64): attention
-    (2 lanes, (8, LANE_SEQ, 4, 64) queries, 2 KV heads, causal) and the
-    wkv (3 lanes, (8, LANE_SEQ, 2, 64), chunk 16, decays in [-2, 0), a
-    bonus u of each lane's own)."""
+    """The training sites of the cuda backend, each with lane-stacked
+    inputs (bf16, head dim 64): attention at the backbone legs' shapes
+    (2 lanes, (8, LANE_SEQ, 4, 64) queries, 2 KV heads, causal); cross
+    attention at whisper-small's training shape with the batch cut to
+    LANE_CROSS_BATCH (2 lanes, (LANE_CROSS_BATCH, 448, 12, 64) queries
+    against 1500 keys, ragged at 64, non-causal); and the wkv (3 lanes,
+    (8, LANE_SEQ, 2, 64), chunk 16, decays in [-2, 0), a bonus u of each
+    lane's own)."""
     from repro_torch.kernels.dispatch import get_backend
     be = get_backend("auto")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -525,11 +558,16 @@ def lane_sites(device, seed: int = 0) -> Dict[str, tuple]:
     B, T = LANE_BATCH, LANE_SEQ
     attn = [randn(2, B, T, 4, 64), randn(2, B, T, 2, 64),
             randn(2, B, T, 2, 64)]
+    Bc = LANE_CROSS_BATCH
+    cross = [randn(2, Bc, 448, 12, 64), randn(2, Bc, 1500, 12, 64),
+             randn(2, Bc, 1500, 12, 64)]
     log_w = -2 * torch.rand(3, B, T, 2, 64, generator=gen, device=device)
     wkv = [randn(3, B, T, 2, 64), randn(3, B, T, 2, 64),
            randn(3, B, T, 2, 64), log_w, randn(3, 2, 64, dtype=torch.float32)]
     return {"attention": (lambda q, k, v: be.attention(q, k, v, causal=True),
                           attn),
+            "cross": (lambda q, k, v: be.attention(q, k, v, causal=False),
+                      cross),
             "wkv": (lambda r, k, v, lw, u: be.wkv(r, k, v, lw, u, chunk=16),
                     wkv)}
 

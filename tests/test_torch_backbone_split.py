@@ -35,7 +35,8 @@ from repro.core.backbone_splitee import BackboneSplitModel as JaxBackbone
 from repro_torch.api import TrainSession
 from repro_torch.api.protocol import SplitModel, assert_split_model
 from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
-from repro_torch.configs import glm4_9b, qwen3_moe_235b_a22b, rwkv6_3b
+from repro_torch.configs import (glm4_9b, qwen3_moe_235b_a22b, rwkv6_3b,
+                                 whisper_small)
 from repro_torch.convert import split_state_from_jax
 from repro_torch.core.backbone_splitee import BackboneSplitModel
 from repro_torch.data.pipeline import ClientPartitioner
@@ -49,7 +50,8 @@ ROUNDS, BATCH, SEQ = 3, 16, 8
 ARCHS = {"glm4": ("glm4_9b", glm4_9b.smoke, (1, 1, 2, 2)),
          "rwkv6": ("rwkv6_3b", rwkv6_3b.smoke, (2, 2, 2)),
          "qwen3": ("qwen3_moe_235b_a22b", qwen3_moe_235b_a22b.smoke,
-                   (2, 2))}
+                   (2, 2)),
+         "whisper": ("whisper_small", whisper_small.smoke, (2, 2))}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -148,9 +150,17 @@ def test_invalid_cut_layers_and_unported_families(glm4):
     with pytest.raises(ValueError, match="exit_layers"):
         BackboneSplitModel(glm4_9b.smoke().with_(exit_layers=()),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Whisper.*item 7"):
-        BackboneSplitModel(glm4_9b.smoke().with_(cross_attention=True),
-                           device="cpu")
+    # cross attention is ported: each side holds its own copy of the
+    # encoder-state projector, the VLM's stays out of the trainables
+    audio = BackboneSplitModel(glm4_9b.smoke().with_(
+        cross_attention=True, arch_type="audio", cross_source_len=4),
+        device="cpu")
+    assert "frontend" in audio.make_client(1)["trainable"]
+    assert "frontend" in audio.make_server(1)["trainable"]
+    vlm = BackboneSplitModel(glm4_9b.smoke().with_(arch_type="vlm"),
+                             device="cpu")
+    assert "frontend" in vlm.full_params
+    assert "frontend" not in vlm.make_client(1)["trainable"]
     # Zamba2's shared block is ported: each side holds its own copy
     zamba = BackboneSplitModel(glm4_9b.smoke().with_(
         block_pattern=("attn", "shared_attn", "attn", "attn")), device="cpu")

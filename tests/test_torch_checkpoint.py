@@ -55,7 +55,8 @@ from repro_torch.api.state import init_train_state
 from repro_torch.checkpoint import key_paths, load_pytree, save_pytree
 from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
 from repro_torch.configs import resnet18_cifar
-from repro_torch.convert import config_from_jax, state_to_jax
+from repro_torch.convert import (config_from_jax, split_state_from_jax,
+                                 state_to_jax)
 from repro_torch.core import splitee as tsplitee
 from repro_torch.core.backbone_splitee import BackboneSplitModel
 from repro_torch.data.pipeline import ClientPartitioner
@@ -261,7 +262,7 @@ def _backbone_setup(family):
 
 
 def _round_trip_setup(name, request):
-    if name in ("glm4-9b", "rwkv6-3b", "zamba2-1.2b"):
+    if name in ("glm4-9b", "rwkv6-3b", "zamba2-1.2b", "whisper-small"):
         return _backbone_setup(name)
     if name == "resnet":
         ds = SyntheticImageDataset(num_classes=10, image_size=32,
@@ -290,7 +291,7 @@ def _randomized(state, seed=0):
 
 
 @pytest.mark.parametrize("name", ["mlp", "resnet", "glm4-9b", "rwkv6-3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "whisper-small"])
 def test_checkpoints_round_trip_between_packages(name, request, tmp_path):
     setup = _round_trip_setup(name, request)
     (jsc, joc), _ = _configs(setup, splits=setup["splits"])
@@ -319,6 +320,14 @@ def test_checkpoints_round_trip_between_packages(name, request, tmp_path):
             assert "shared_attn" in net["trainable"]
         assert ts.state.servers[0]["trainable"]["seg1"][0] == {}
         assert ts.state.server_opts[0].m["seg1"][0] == {}
+    if name == "whisper-small":
+        # each side's own copy of the encoder-state projector, and the
+        # cross attention of each layer
+        for net, opt in ((ts.state.clients[0], ts.state.client_opts[0]),
+                         (ts.state.servers[0], ts.state.server_opts[0])):
+            assert net["trainable"]["frontend"]["w"].shape == (768, 128)
+            assert "frontend" in opt.m
+        assert "cross" in ts.state.clients[0]["trainable"]["segments"][0][0]
     # port -> JAX: every leaf equal, dtypes narrowed back
     ts.save(str(tmp_path / "port"))
     jb = JaxSession.restore(str(tmp_path / "port"), setup["jax"](),
@@ -370,6 +379,61 @@ def test_jax_save_port_resume_equals_uninterrupted_jax(name, request,
     print(f"reading {name}: JAX k + port k vs JAX 2k: state {gap:.2e}, "
           f"losses {dl:.2e}")
     assert max(gap, dl) <= setup["tol"], (gap, dl)
+
+
+@pytest.fixture(scope="module")
+def whisper():
+    """The whisper smoke in fp32 at lr 1e-5 (tests/test_torch_backbone_
+    split.py says why that lr against JAX)."""
+    jcfg = jconfigs.get("whisper-small").smoke()
+    ds = SyntheticSeqClsDataset(vocab_size=jcfg.vocab_size, seq_len=8,
+                                num_classes=8, train_size=128, test_size=8,
+                                seed=0)
+    return dict(jax=lambda: JBackbone(jcfg, seed=0),
+                port=lambda: BackboneSplitModel(config_from_jax(jcfg),
+                                                device="cpu"),
+                data=ClientPartitioner(4).split(*ds.train), augment=None,
+                lr=1e-5, x64=False, tol=TOL)
+
+
+def test_whisper_resume_across_packages_equals_uninterrupted_jax(whisper,
+                                                                 tmp_path):
+    """The whisper smoke (cuts (2, 2, 2, 2): each side's frontend copy
+    in the file) both ways: JAX k + port k, and port k (from the JAX
+    start) + JAX k, each against JAX training 2k rounds: every element of
+    the trainables and moments, and the per-round losses, within 1e-5."""
+    setup = {**whisper}
+    k = 2
+    splits = (2, 2, 2, 2)
+    full = _jax_session(setup, splits=splits)
+    start = full.state
+    full.train(2 * k, EPOCHS)
+    want = _keyed(full.state)
+    # JAX k + port k
+    half = _jax_session(setup, splits=splits)
+    half.train(k, EPOCHS)
+    half.save(str(tmp_path / "jax"))
+    resumed = TrainSession.restore(str(tmp_path / "jax"), setup["port"](),
+                                   setup["data"])
+    resumed.train(k, EPOCHS)
+    gaps = [(_max_gap(_keyed(resumed.state, resumed.model), want),
+             _loss_gap(resumed.history, full.history))]
+    # port k + JAX k
+    model = setup["port"]()
+    port = _port_session(setup, splits=splits,
+                         state=split_state_from_jax(start, model))
+    port.train(k, EPOCHS)
+    port.save(str(tmp_path / "port"))
+    back = JaxSession.restore(str(tmp_path / "port"), setup["jax"](),
+                              setup["data"])
+    back.train(k, EPOCHS)
+    gaps.append((_max_gap(_keyed(back.state), want),
+                 _loss_gap(port.history + back.history[-k:],
+                           full.history)))
+    print(f"reading whisper smoke: JAX k + port k, port k + JAX k vs JAX "
+          f"2k: state and losses {gaps}")
+    for gap, dl in gaps:
+        assert max(gap, dl) <= setup["tol"], gaps
 
 
 # ---------------------------------------------------------------------------

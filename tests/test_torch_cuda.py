@@ -189,7 +189,7 @@ TILE_FWD_CASES = [
 
 @pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal,window,kv,route",
                          TILE_FWD_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_tile_route_matches_plain(dev, B, H, Hkv, Tq, Tk,
                                                   causal, window, kv, route,
                                                   D):
@@ -285,7 +285,7 @@ DECODE_CASES = [
 
 
 @pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal,window,kv", DECODE_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_decode_route_matches_plain(dev, B, H, Hkv, Tq, Tk,
                                                     causal, window, kv, D):
     """Out within 2e-2 (bf16) and LSE within 1e-4 of the plain version,
@@ -325,7 +325,7 @@ DQ_TILE_CASES = [
 
 
 @pytest.mark.parametrize("B,H,Hkv,T,causal,window", DQ_TILE_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_dq_tile_route_matches_plain(dev, B, H, Hkv, T,
                                                          causal, window, D):
     """The dQ tile route with delta given and with delta fused (``o=``):
@@ -366,7 +366,7 @@ TILE_BWD_CASES = [
 
 
 @pytest.mark.parametrize("B,H,Hkv,T,causal,window", TILE_BWD_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_dkv_tile_route_matches_plain(dev, B, H, Hkv, T,
                                                           causal, window, D):
     """The cluster dK/dV kernel: fp32 outputs within 2e-4 of the plain
@@ -390,6 +390,67 @@ def test_flash_attention_bwd_dkv_tile_route_matches_plain(dev, B, H, Hkv, T,
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     torch.testing.assert_close(dk, want_dk, atol=2e-4, rtol=0)
     torch.testing.assert_close(dv, want_dv, atol=2e-4, rtol=0)
+
+
+# cross attention (non-causal, Tq != Tk, Tk ragged at 64 keys): whisper's
+# decode tick and training shapes at D = 64, and paligemma's GQA 8 at
+# D = 256 (H 8, Hkv 1) on a ragged prefill and a decode tick
+CROSS_CASES = [
+    # (B, H, Hkv, Tq, Tk, D, causal, route)
+    (8, 12, 12, 1, 1500, 64, False, "decode"),    # whisper decode tick
+    (12, 12, 12, 448, 1500, 64, False, "tile"),   # whisper training
+    (2, 8, 1, 77, 333, 256, True, "tile"),        # GQA 8, ragged causal
+    (3, 8, 1, 90, 150, 256, False, "tile"),
+    (8, 8, 1, 1, 300, 256, False, "decode"),      # paligemma decode tick
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,D,causal,route", CROSS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_tq_ne_tk_matches_plain(dev, B, H, Hkv, Tq, Tk, D,
+                                                causal, route, dtype):
+    """Forward with LSE, dK/dV and dQ at Tq != Tk against the plain
+    versions, at the limits of the other shapes: bf16 on the tile and
+    decode routes (the backward's tile routes), fp32 on the row routes."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
+                                         flash_attention_bwd_dq_ref,
+                                         flash_attention_ref)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn(B, T, h, D, generator=g, device=dev)
+                   .to(dtype).transpose(1, 2)
+                   for T, h in ((Tq, H), (Tk, Hkv), (Tk, Hkv), (Tq, H)))
+    want_route = route if dtype == torch.bfloat16 else "row"
+    before = getattr(flash_attention, f"{want_route}_launches")
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, f"{want_route}_launches") == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    if Tq == 1:
+        return
+    delta = (do.float() * want.float()).sum(-1)
+    bwd_route = "tile" if dtype == torch.bfloat16 else "row"
+    counts = (getattr(flash_attention_bwd_dkv, f"{bwd_route}_launches"),
+              getattr(flash_attention_bwd_dq, f"{bwd_route}_launches"))
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, want_lse, delta,
+                                     causal=causal)
+    dq = flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal=causal)
+    want_dk, want_dv = flash_attention_bwd_dkv_ref(q, k, v, do, want_lse,
+                                                   delta, causal=causal)
+    want_dq = flash_attention_bwd_dq_ref(q, k, v, do, want_lse, delta,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    assert (getattr(flash_attention_bwd_dkv, f"{bwd_route}_launches"),
+            getattr(flash_attention_bwd_dq, f"{bwd_route}_launches")) == (
+                counts[0] + 1, counts[1] + 1)
+    for got, ref in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
 
 
 def test_autograd_site_bf16_runs_the_tile_routes(dev):
@@ -446,7 +507,7 @@ def _bwd_inputs(dev, dtype, B, H, Hkv, T, D, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,T,causal,window", BWD_CASES)
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 128, 256])
 def test_flash_attention_bwd_kernels_match_plain(dev, dtype, B, H, Hkv, T,
                                                  causal, window, D):
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -980,12 +1041,13 @@ def test_paper_session_on_the_card_matches_the_cpu(dev, strategy):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("site", ["attention", "wkv"])
+@pytest.mark.parametrize("site", ["attention", "cross", "wkv"])
 def test_lane_rules_match_per_lane_launches(dev, site):
     """Each training site's vmap rule launches each kernel once for all
-    lanes, and equals a per-lane loop of plain launches: attention (lanes
-    folded into the batch) bit for bit, the wkv (lanes folded into the
-    heads, u per lane) within 1e-4 of each output's scale."""
+    lanes, and equals a per-lane loop of plain launches: attention and
+    cross attention (Tq != Tk, non-causal; lanes folded into the batch)
+    bit for bit, the wkv (lanes folded into the heads, u per lane) within
+    1e-4 of each output's scale."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
@@ -993,7 +1055,7 @@ def test_lane_rules_match_per_lane_launches(dev, site):
     from repro_torch.parity import lane_loop_gaps, lane_sites
     fn, inputs = lane_sites(dev)[site]
     wrappers = ((flash_attention, flash_attention_bwd_dkv,
-                 flash_attention_bwd_dq) if site == "attention"
+                 flash_attention_bwd_dq) if site != "wkv"
                 else (rwkv_wkv, rwkv_wkv_bwd))
     before = [w.launches for w in wrappers]
     r = lane_loop_gaps(fn, inputs)
@@ -1001,7 +1063,7 @@ def test_lane_rules_match_per_lane_launches(dev, site):
     lanes = len(inputs[0])
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
         [1 + lanes] * len(wrappers)
-    if site == "attention":
+    if site != "wkv":
         assert r["out"] == 0.0 and r["grad"] == 0.0, r
     else:
         assert max(r["out"] / max(1.0, r["out_scale"]),

@@ -640,6 +640,26 @@ def test_attention_vmap_rule_equals_a_per_lane_loop():
     assert bwd[0][0] == ((LANES * 2, 4, 10, 16), False)
 
 
+def test_cross_attention_vmap_rule_equals_a_per_lane_loop():
+    """Cross attention's launch (Tq 6 against Tk 11, non-causal) under the
+    same rule: lanes fold into the batch, one forward and one backward
+    call on plain tensors, equal to a per-lane loop."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(LANES, 2, 6, 4, 16, generator=gen)
+    k, v = (torch.randn(LANES, 2, 11, 4, 16, generator=gen)
+            for _ in range(2))
+    fwd, bwd = [], []
+    with _spy(dispatch, "flash_attention", fwd), \
+            _spy(dispatch, "flash_attention_bwd", bwd):
+        assert _lane_gaps(lambda *a: dispatch.get_backend("auto").attention(
+            *a, causal=False), (q, k, v)) == 0.0
+    assert fwd[0] == [((LANES * 2, 4, 6, 16), False),
+                      ((LANES * 2, 4, 11, 16), False),
+                      ((LANES * 2, 4, 11, 16), False)]
+    assert len(bwd) == 1 + LANES
+    assert all(not batched for _, batched in bwd[0])
+
+
 def test_wkv_vmap_rule_equals_a_per_lane_loop():
     """Lanes fold into the heads (each lane's own u): one forward and one
     backward call on plain (B, T, lanes * H, K) tensors."""

@@ -59,6 +59,44 @@ def test_flash_attention_ref_matches_jax_kernel(H, Hkv, Tq, Tk, causal,
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL_ATTN, rtol=0)
 
 
+# head dim 256 (paligemma-3b: H 8, Hkv 1): ragged Tq != Tk, causal and
+# not, a window; the forward with its LSE and both backward plain
+# versions against the JAX kernels in interpret mode
+D256_CASES = [
+    # (H, Hkv, Tq, Tk, causal, window)
+    (8, 1, 9, 21, True, None),
+    (8, 1, 13, 13, True, 5),
+    (8, 1, 7, 19, False, None),
+    (8, 2, 11, 11, False, None),
+]
+
+
+@pytest.mark.parametrize("H,Hkv,Tq,Tk,causal,window", D256_CASES)
+def test_head_dim_256_plain_versions_match_jax_kernels(H, Hkv, Tq, Tk,
+                                                       causal, window):
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    q, k, v = _qkv(5, 2, H, Hkv, Tq, Tk, D=256)
+    do = np.random.default_rng(6).standard_normal(q.shape).astype(
+        np.float32)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = ops.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                     window=window, interpret=True)
+    got, got_lse = flash_attention_ref(*_t(q, k, v), causal=causal,
+                                       window=window, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(o), atol=ATOL_ATTN,
+                               rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), atol=1e-4,
+                               rtol=0)
+    want = ops.flash_attention_bwd(jq, jk, jv, o, lse, jdo, causal=causal,
+                                   window=window, interpret=True)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    grads = flash_attention_bwd_ref(*_t(q, k, v), t(o), t(lse), t(do),
+                                    causal=causal, window=window)
+    for g, w in zip(grads, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (8, 2), (16, 1)])
 def test_decode_per_row_kv_valid_matches_scalar_jax_calls(H, Hkv):
     """One kv_valid per row in one call == the JAX kernel called row by row
@@ -170,10 +208,15 @@ def test_resolve_kernels():
         dispatch.resolve_kernels("pallas")
 
 
-# the forward's route rule: bf16 and head dim 64 or 128 take the tile
-# route from Tq * G >= 64 rows, the decode route below; the rest the row
-# route
+# the forward's route rule: bf16 and head dim 64, 128 or 256 take the
+# tile route from Tq * G >= 64 rows, the decode route below; the rest the
+# row route
 @pytest.mark.parametrize("dtype,D,Tq,G,route", [
+    (torch.bfloat16, 256, 1, 8, "decode"),   # paligemma decode: 8 rows
+    (torch.bfloat16, 256, 7, 8, "decode"),   # 56 rows: below one tile
+    (torch.bfloat16, 256, 8, 8, "tile"),     # 64 rows: one full tile
+    (torch.bfloat16, 256, 512, 8, "tile"),   # paligemma prefill, training
+    (torch.float32, 256, 512, 8, "row"),
     (torch.bfloat16, 128, 1, 16, "decode"),  # decode: 16 rows, glm4-9b
     (torch.bfloat16, 128, 3, 16, "decode"),  # 48 rows: just below one tile
     (torch.bfloat16, 128, 4, 16, "tile"),    # 64 rows: one full tile
@@ -193,6 +236,7 @@ def test_attention_route_rule(dtype, D, Tq, G, route):
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 128, "tile"), (torch.bfloat16, 64, "tile"),
+    (torch.bfloat16, 256, "tile"), (torch.float32, 256, "row"),
     (torch.bfloat16, 32, "row"), (torch.float32, 128, "row"),
     (torch.float32, 64, "row"),
 ])
@@ -203,6 +247,7 @@ def test_dkv_route_rule(dtype, D, route):
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 128, "tile"), (torch.bfloat16, 64, "tile"),
+    (torch.bfloat16, 256, "tile"), (torch.float32, 256, "row"),
     (torch.bfloat16, 32, "row"), (torch.bfloat16, 16, "row"),
     (torch.float32, 128, "row"), (torch.float16, 128, "row"),
 ])

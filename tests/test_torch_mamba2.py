@@ -408,8 +408,13 @@ def test_params_from_jax_takes_the_shared_block(zamba, zamba_params):
         np.testing.assert_array_equal(
             tp["shared_attn"]["mixer"][name].numpy(),
             zamba_params["shared_attn"]["mixer"][name])
-    with pytest.raises(NotImplementedError, match="frontend"):
-        params_from_jax({**zamba_params, "frontend": {}}, cfg, device="cpu")
+    # a frontend projector beside the shared block is carried leaf for leaf
+    w = np.random.default_rng(0).standard_normal(
+        (768, cfg.d_model)).astype(np.float32)
+    tp = params_from_jax({**zamba_params, "frontend": {"w": w}}, cfg,
+                         device="cpu")
+    np.testing.assert_array_equal(tp["frontend"]["w"].numpy(), w)
+    assert tp["frontend"]["w"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("splits", [(2, 2, 2, 2), (3, 3, 3, 3)])

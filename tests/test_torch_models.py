@@ -82,42 +82,60 @@ def test_config_matches_jax(arch, which):
 
 @pytest.mark.parametrize("arch", tconfigs.PORTED)
 def test_bf16_smokes_keep_the_family(arch):
-    """``smoke_bf16``: the smoke at head dim 64 in bf16, with the model's
-    GQA group for command-r (8)."""
+    """``smoke_bf16``: the smoke at head dim 64 in bf16 (paligemma: its
+    published 256), with the model's GQA group for command-r and
+    paligemma (8)."""
     mod = tconfigs.get(arch)
     full, smoke, b = mod.config(), mod.smoke(), mod.smoke_bf16()
-    assert (b.dtype, b.param_dtype, b.head_dim) == (torch.bfloat16,
-                                                    torch.bfloat16, 64)
+    assert (b.dtype, b.param_dtype, b.head_dim) == (
+        torch.bfloat16, torch.bfloat16,
+        256 if arch == "paligemma_3b" else 64)
     assert (b.num_layers, b.d_model, b.exit_layers, b.ffn_pattern,
             b.block_pattern) == (smoke.num_layers, smoke.d_model,
                                  smoke.exit_layers, smoke.ffn_pattern,
                                  smoke.block_pattern)
-    if arch == "command_r_35b":
+    if arch in ("command_r_35b", "paligemma_3b"):
         assert b.q_heads_per_kv == full.q_heads_per_kv == 8
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tconfigs.get("whisper-small")
+    """Every architecture id of the JAX registry resolves; an unknown id
+    and an unknown kernels setting raise."""
+    for arch in jconfigs.ARCH_IDS:
+        assert tconfigs.get(arch).config() == config_from_jax(
+            jconfigs.get(arch).config())
+    assert tconfigs.get("whisper-small").config().cross_attention
     with pytest.raises(ValueError, match="not a registered"):
         tconfigs.get("gpt-17")
     with pytest.raises(ValueError, match="kernels"):
         tconfigs.get("glm4-9b").smoke().with_(kernels="pallas")
 
 
-def test_unported_mixers_raise(smoke_cfg):
-    """Cross attention and the Whisper/VLM ``frontend`` parameters are
-    still unported."""
-    cfg = config_from_jax(smoke_cfg).with_(cross_attention=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbackbone.init_backbone(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.init_block_cache(cfg, "attn", "mlp", 1, 8, torch.float32,
-                                 "cpu")
-    jp = _np(jbackbone.init_backbone(jax.random.PRNGKey(0), smoke_cfg))
-    with pytest.raises(NotImplementedError, match="frontend"):
-        params_from_jax({**jp, "frontend": {}}, config_from_jax(smoke_cfg),
-                        device="cpu")
+def test_cross_attention_blocks_build_and_convert(smoke_cfg):
+    """Cross attention and the frontend parameters are ported: a
+    cross-attending config initialises ``norm_x``/``cross`` in its
+    attention blocks and a ``frontend`` for audio, keeps no cross cache,
+    and ``params_from_jax`` carries all of them leaf for leaf."""
+    jcfg = smoke_cfg.with_(cross_attention=True, arch_type="audio",
+                           cross_source_len=8)
+    cfg = config_from_jax(jcfg)
+    tp = tbackbone.init_backbone(torch.Generator().manual_seed(0), cfg)
+    assert tp["frontend"]["w"].shape == (768, cfg.d_model)
+    assert {"norm_x", "cross"} <= set(tp["segments"][0][0])
+    cache = tblocks.init_block_cache(cfg, "attn", "mlp", 1, 8,
+                                     torch.float32, "cpu")
+    assert sorted(cache) == ["mixer"]
+    with pytest.raises(ValueError, match="unknown mixer"):
+        tblocks.init_block(cfg, "lstm", "mlp", torch.Generator(), "cpu")
+    jp = _np(jbackbone.init_backbone(jax.random.PRNGKey(0), jcfg))
+    got = params_from_jax(jp, cfg, device="cpu")
+    np.testing.assert_array_equal(got["frontend"]["w"].numpy(),
+                                  jp["frontend"]["w"])
+    assert tbackbone.build_plan(cfg)[0][0].length == 1   # not stacked
+    for k in ("wq", "wk", "wv", "wo"):
+        np.testing.assert_array_equal(
+            got["segments"][0][0]["cross"][k].numpy(),
+            jp["segments"][0][0]["cross"][k])
 
 
 # ---------------------------------------------------------------------------
