@@ -203,6 +203,16 @@ Phases:
            cohort against itself, full participation against it and the
            same under a planted fault (the first lane left out of the
            masked Eq. (1)), 3 rounds each;
+  spmd     the spmd engine over ranks (launch.hostdevices): 2 ranks share
+           the card over gloo with CUDA tensors (and, with 2 cards or more,
+           one rank a card over NCCL); the full-width ResNet-18 loop with
+           its cohort lanes over the ranks and with each lane's batch over
+           them (FSDP, BatchNorm statistics summed over the batch ranks),
+           a float64 data leg, the glm4-9b bf16 smoke under lanes with its
+           attention kernels counted on each rank, each against the fused
+           engine on the same card, and two planted faults (Eq. (1)'s lanes
+           reduce skipped, per-rank BatchNorm statistics) that must be
+           rejected; ms per round and bytes gathered per step are a record;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -255,7 +265,7 @@ import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
 PHASES = ("build", "kernels", "parity", "main", "train", "paper", "fused",
-          "lifecycle", "timing")
+          "lifecycle", "spmd", "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
@@ -3534,6 +3544,295 @@ def population_leg_checks(family: str, sess, start, hist) -> None:
           f"(steps moved by {bad['masked_steps']})")
 
 
+# the spmd engine (phase spmd): ranks spawned by launch.hostdevices, two
+# sharing the one card over gloo (CUDA tensors), and with two cards or more
+# also one rank per card over NCCL.  Each leg runs SPMD_ROUNDS rounds from
+# one round-0 state, round by round (host clock, ending in a synchronize)
+SPMD_ROUNDS = 2
+SPMD_LDM = ("lanes", "data", "model")
+# a leg with a data split against the fused engine in fp32: each rank's
+# convs see its share of the batch (other cuDNN algorithms), BatchNorm sums
+# the shares and the gradients are averaged over the ranks, and Adam's
+# first steps at lr 3e-3 carry that rounding on.  Read on 2 ranks of one
+# H100 (PERF.md section 5): losses 6.50e-5, drift clients 3.25e-2 /
+# servers 3.02e-2, over phase fused's 1e-5 / 2e-2.  The same comparison in float64 must
+# read TOL_SPMD_F64_RATIO of the fp32 gaps or less, which shows that the
+# gap is rounding
+TOL_SPMD_DATA_LOSS = 5e-4
+TOL_SPMD_DATA_PARAMS = 1e-1
+TOL_SPMD_F64_RATIO = 1e-2
+
+
+def phase_spmd(state):
+    """The spmd engine over ranks (``spmd_rank`` on each): the full-width
+    ResNet-18 paper loop of phase fused (12 clients, the Table-I splits,
+    fp32, TF32 off, cuDNN's deterministic algorithms) with (a) the cohort
+    lanes over 2 ranks and (b) each lane's batch over the ranks under
+    recipe greedy (FSDP over "data", the BatchNorm statistics summed over
+    the batch ranks), then the glm4-9b bf16 smoke through
+    BackboneSplitModel with its lanes over 2 ranks; the launch counts are
+    zeroed before these runs and read after, on each rank.  Then, on rank
+    0, the fused engine on the same card from the same states, and the
+    comparisons: losses per round and final trainables at phase fused's
+    limits (TOL_PAPER_LOSS, TOL_PAPER_PARAMS) for a leg without a data
+    split, at TOL_SPMD_DATA_* for one with, after the same data leg in
+    float64 has read 1 % of the fp32 gaps or less; the bf16 lane limits for
+    the backbone (TOL_LOSS_BF16 on the losses, TOL_GRAD_BF16 on the
+    trainables' drift); and two planted faults the ResNet comparison must
+    reject: Eq. (1)'s partial sums left unsummed over the lanes group, and
+    BatchNorm statistics left per rank.  A rank that fails fails the
+    phase."""
+    from repro_torch.launch.hostdevices import HostRanks
+    print(f"spmd card: {card_line()}")
+    runs = [("gloo", 2)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append(("nccl", cards))
+    else:
+        print("spmd: one card: NCCL with more than one rank is not run")
+    out = {}
+    for backend, n in runs:
+        t0 = time.perf_counter()
+        got = HostRanks(n, spmd_rank, (backend,), backend=backend,
+                        timeout=900).wait()
+        for line in got[0][0].splitlines():
+            print(f"  [rank 0] {line}")
+        for r, (log, res) in enumerate(got[1:], start=1):
+            print(f"  [rank {r}] launches "
+                  + ", ".join(f"{k} {v}" for k, v in res["launches"].items()
+                              if v))
+        res = got[0][1]
+        res["wall_s"] = time.perf_counter() - t0
+        res["ranks"] = [r for _, r in got]
+        out[backend] = res
+        launches = state.setdefault("launches", {})
+        for _, r in got:
+            for k, v in r["launches"].items():
+                if k in KERNELS:
+                    launches[k] = launches.get(k, 0) + v
+        print(f"spmd {backend}: {n} ranks in {res['wall_s']:.1f} s")
+    state["spmd"] = out
+
+
+def spmd_rank(backend: str) -> dict:
+    """One rank of phase spmd (run by ``launch.hostdevices``).  Every
+    reading is printed before any comparison is checked."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.api import TrainSession
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.configs import resnet18_cifar
+    from repro_torch.core.splitee import ResNetSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticImageDataset
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parity import (LANE_ROUNDS, TOL_GRAD_BF16,
+                                    TOL_LOSS_BF16, TOL_PAPER_LOSS,
+                                    TOL_PAPER_PARAMS, backbone_session,
+                                    paper_drift, unreduced_lanes,
+                                    unsynced_batch_stats)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's deterministic algorithms: a comparison then reads the same
+    # gap on every run (under the default ones the fused engine against
+    # itself drifts at ~2e-5, PERF.md section 6)
+    torch.backends.cudnn.deterministic = True
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cards = world if backend == "nccl" else 1
+    print(f"spmd: backend={backend} ranks={world} cards={cards} "
+          f"(rank {rank} on {torch.cuda.get_device_name()})")
+    probe = {}
+    for name, op in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(world)], t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0))):
+        try:
+            op(torch.ones(4, device="cuda"))
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except RuntimeError as e:
+            probe[name] = f"refused ({str(e).splitlines()[0][:100]})"
+    print(f"spmd: {backend} collectives on CUDA tensors: " + ", ".join(
+        f"{k} {v}" for k, v in probe.items()))
+    cfg = resnet18_cifar.config("cifar10")
+    splits = resnet18_cifar.HETERO_SPLITS
+    ds = SyntheticImageDataset(num_classes=10, image_size=32,
+                               train_size=FULL_TRAIN, test_size=FULL_TEST,
+                               seed=0)
+    data = ClientPartitioner(len(splits)).split(*ds.train)
+    images = len(splits) * FULL_BATCH
+
+    def session(engine, state=None, dtype=torch.float32, **kw):
+        wide = dtype == torch.float64
+        return TrainSession(
+            ResNetSplitModel(dataclasses.replace(cfg, dtype=dtype),
+                             device="cuda"),
+            SplitEEConfig(profile=HeteroProfile(splits)),
+            OptimizerConfig(lr=FULL_LR, total_steps=SPMD_ROUNDS + 1,
+                            state_dtype=dtype),
+            [(x.astype(np.float64), y) for x, y in data] if wide else data,
+            FULL_BATCH, engine=engine, augment=ds.augment,
+            state=None if state is None else state.clone(), **kw)
+
+    def rounds(sess):
+        """SPMD_ROUNDS rounds one at a time: (history, ms per round)."""
+        hist, ms = [], []
+        for _ in range(SPMD_ROUNDS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hist += sess.train(1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return hist, ms
+
+    # lanes over 2 ranks (a "model" axis takes the rest), the batch over all
+    legs = {"lanes": lambda: make_host_mesh((2, 1, world // 2), SPMD_LDM),
+            "data": lambda: make_host_mesh((1, world, 1), SPMD_LDM)}
+    counted = (entropy_exit, flash_attention, flash_attention_bwd_dkv,
+               flash_attention_bwd_dq)
+    start = session("fused").state.clone()
+    # ---- the main path: every count at 0, read after
+    zero_counts(*counted)
+    res = {}
+    for leg, mesh in legs.items():
+        sess = session("spmd", start, mesh=mesh(), recipe="greedy")
+        hist, ms = rounds(sess)
+        ad = sess.evaluate_adaptive(*ds.test, 1.0)
+        res[leg] = dict(state=sess.state, hist=hist, ms=ms,
+                        engine=sess.engine_name, dp=sess.engine._dp,
+                        gathered=sess.engine.last_gathered_bytes_per_step,
+                        acc=float(np.mean(ad["acc"])))
+        print(f"spmd ResNet {leg} ({sess.engine_name}, {sess.engine._dp} "
+              f"batch ranks): losses " + ", ".join(
+                  f"{m.client_loss:.4f}/{m.server_loss:.4f}" for m in hist)
+              + f"; ms per round " + ", ".join(f"{m:.1f}" for m in ms)
+              + f" ({images / ms[-1] * 1e3:,.0f} images/s in the last); "
+              f"bytes gathered per cohort step on this rank "
+              f"{res[leg]['gathered']:,.0f}; mean adaptive acc "
+              f"{res[leg]['acc']:.4f} at tau 1")
+        del sess
+    bb = backbone_session("glm4_9b", "auto", "cuda", engine="spmd",
+                          mesh=legs["lanes"]())
+    bb_start = bb.state.clone()
+    bb_hist = bb.train(LANE_ROUNDS)
+    counts = {k: n for w in counted for k, n in launch_counts(w).items()}
+    print("spmd: launches on this rank's main path: " + ", ".join(
+        f"{k} {n}" for k, n in counts.items() if n))
+    # ---- comparisons (every rank runs the spmd sides; not counted)
+    faults = {}
+    for leg, fault, what in (
+            ("lanes", unreduced_lanes,
+             "Eq. (1)'s partial sums not summed over the lanes group"),
+            ("data", unsynced_batch_stats, "BatchNorm statistics per rank")):
+        sess = session("spmd", start, mesh=legs[leg](), recipe="greedy")
+        with fault():
+            hist, _ = rounds(sess)
+        faults[leg] = (what, sess.state, hist, sess.engine._dp)
+        del sess
+    start64 = session("fused", dtype=torch.float64).state.clone()
+    s64 = session("spmd", start64, dtype=torch.float64, mesh=legs["data"](),
+                  recipe="greedy")
+    h64, ms64 = rounds(s64)
+    out = {"launches": counts, "rank": rank, "probe": probe}
+    dist.barrier()
+    if rank == 0:
+        checks = []
+        fused = session("fused", start)
+        f_hist, f_ms = rounds(fused)
+        print(f"fused ResNet on the same card: ms per round "
+              + ", ".join(f"{m:.1f}" for m in f_ms))
+        out["fused_ms"] = f_ms
+
+        def compare(what, st, hist, ref, ref_hist, ref_start):
+            dl = max(max(abs(a.client_loss - b.client_loss),
+                         abs(a.server_loss - b.server_loss))
+                     for a, b in zip(hist, ref_hist))
+            d = paper_drift(st, ref.state, ref_start)
+            print(f"  reading spmd {what} vs fused: max|dloss| {dl:.3e}; "
+                  f"drift clients {d['clients']:.3e} servers "
+                  f"{d['servers']:.3e}; BN max|d| clients "
+                  f"{d['clients_bn']:.3e} servers {d['servers_bn']:.3e}")
+            return dl, max(d["clients"], d["servers"]), d
+
+        def limits(dp):
+            return ((TOL_SPMD_DATA_LOSS, TOL_SPMD_DATA_PARAMS) if dp > 1
+                    else (TOL_PAPER_LOSS, TOL_PAPER_PARAMS))
+
+        for leg, r in res.items():
+            dl, dd, d = compare(f"ResNet {leg}", r["state"], r["hist"], fused,
+                                f_hist, start)
+            tl, tp = limits(r["dp"])
+            checks.append((r["engine"] == "spmd" and dl <= tl and dd <= tp,
+                           f"spmd ResNet {leg} ({r['engine']}) = fused: "
+                           f"losses {dl:.2e} <= {tl:g}, drift {dd:.2e} <= "
+                           f"{tp:g}"))
+            out[leg] = dict(ms=r["ms"], gathered=r["gathered"], dloss=dl,
+                            drift=d, dp=r["dp"])
+        # the same data leg in float64: two orders of magnitude closer shows
+        # the fp32 gap is rounding
+        dl32, dd32 = out["data"]["dloss"], max(out["data"]["drift"]["clients"],
+                                               out["data"]["drift"]["servers"])
+        fused64 = session("fused", start64, dtype=torch.float64)
+        f64_hist, _ = rounds(fused64)
+        dl, dd, d = compare("float64 ResNet data", s64.state, h64, fused64,
+                            f64_hist, start64)
+        print(f"spmd float64 ResNet data: ms per round "
+              + ", ".join(f"{m:.1f}" for m in ms64))
+        checks.append((dl <= dl32 * TOL_SPMD_F64_RATIO
+                       and dd <= dd32 * TOL_SPMD_F64_RATIO,
+                       f"spmd float64 ResNet data = fused, the fp32 gap is "
+                       f"rounding: losses {dl:.2e}, drift {dd:.2e}, each <= "
+                       f"{TOL_SPMD_F64_RATIO:g} x fp32's ({dl32:.2e}, "
+                       f"{dd32:.2e})"))
+        out["f64"] = dict(dloss=dl, drift=d, ms=ms64)
+        del fused64
+        for leg, (what, st, hist, dp) in faults.items():
+            dl, dd, d = compare(f"planted fault ({what})", st, hist, fused,
+                                f_hist, start)
+            tl, tp = limits(dp)
+            checks.append((dl > tl or dd > tp,
+                           f"spmd planted fault rejected: {what} (losses "
+                           f"{dl:.2e}, drift {dd:.2e})"))
+            out[f"fault_{leg}"] = dict(dloss=dl, drift=d)
+        plain = backbone_session("glm4_9b", "auto", "cuda",
+                                 state=bb_start.clone())
+        p_hist = plain.train(LANE_ROUNDS)
+        dl = max(max(abs(a.client_loss - b.client_loss),
+                     abs(a.server_loss - b.server_loss))
+                 for a, b in zip(bb_hist, p_hist))
+        d = paper_drift(bb.state, plain.state, bb_start)
+        print(f"  reading spmd glm4-9b bf16 smoke lanes vs fused: max|dloss| "
+              f"{dl:.3e}; drift clients {d['clients']:.3e} servers "
+              f"{d['servers']:.3e}")
+        checks.append((dl <= TOL_LOSS_BF16["glm4_9b"]
+                       and max(d["clients"], d["servers"]) <= TOL_GRAD_BF16,
+                       f"spmd glm4-9b bf16 smoke under lanes = fused: losses "
+                       f"{dl:.2e} <= {TOL_LOSS_BF16['glm4_9b']:g}, drift <= "
+                       f"{TOL_GRAD_BF16:g}"))
+        out["backbone"] = dict(dloss=dl, drift=d)
+        for ok, msg in checks:
+            print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
+        bad = [msg for ok, msg in checks if not ok]
+    dist.barrier()
+    check(all(counts[k] > 0 for k in ("flash_attention_tile",
+                                      "flash_attention_bwd_dkv",
+                                      "flash_attention_bwd_dq",
+                                      "entropy_exit")),
+          f"spmd rank {rank}: the attention forward, dK/dV and dQ kernels "
+          f"and the gate launched")
+    if rank == 0:
+        check(not bad, f"spmd comparisons: {len(bad)} failed")
+    return out
+
+
 def phase_timing(state):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -4094,6 +4393,13 @@ def main() -> int:
                   f"{lc['mb']:.1f} MB, save {lc['save_ms']:.1f} ms, restore "
                   f"{lc['restore_ms']:.1f} ms; {lc['syncs']} host syncs over "
                   f"{lc['chunks']} chunks; peak {lc['peak_gib']:.2f} GiB")
+        for backend, sp in state.get("spmd", {}).items():
+            print(f"spmd full-width ResNet-18 over {len(sp['ranks'])} ranks "
+                  f"({backend}): lanes {sp['lanes']['ms'][-1]:.1f}, data "
+                  f"{sp['data']['ms'][-1]:.1f} ms per round against fused "
+                  f"{sp['fused_ms'][-1]:.1f} on the same card (last of "
+                  f"{SPMD_ROUNDS}); {sp['data']['gathered']:,.0f} bytes "
+                  f"gathered per cohort step a rank under FSDP")
         for key in ("train", "train_rwkv", "train_zamba", "train_whisper",
                     "train_paligemma"):
             if key in state:

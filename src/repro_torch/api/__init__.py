@@ -8,9 +8,10 @@
     serve = ServeSession(cfg, params, tau=2.0, slots=8, max_len=161)
     serve.submit(prompt_tokens, decode_tokens=32); results = serve.run()
 
-``TrainSession`` runs the paper's loop on the reference engine or the fused
-cohort engine (the spmd engine waits for ROADMAP.md Queue 1 item 9), over
-fixed client shards or a client population (``repro_torch.population``),
+``TrainSession`` runs the paper's loop on the reference engine, the fused
+cohort engine or the spmd engine (the fused round body over the ranks of a
+``torch.distributed`` world), over fixed client shards or a client
+population (``repro_torch.population``),
 and saves and restores checkpoints in the JAX package's format;
 ``ServeSession.restore`` serves a trained checkpoint.  The fused train
 steps of the backbones and the cohort steps are in
@@ -30,4 +31,5 @@ from repro_torch.api.serve_session import (ServeResult, ServeSession,  # noqa: F
                                            sequential_sticky_reference,
                                            serve_step_config)
 from repro_torch.api.session import TrainSession  # noqa: F401
+from repro_torch.api.spmd_engine import SpmdEngine  # noqa: F401
 from repro_torch.api.state import TrainState, init_train_state  # noqa: F401

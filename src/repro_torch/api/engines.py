@@ -6,10 +6,11 @@ it receives a state, runs some rounds and returns a new state and the
 per-round metrics, leaving the state it was given untouched.
 
 The port registers ``"reference"`` (the per-client loop of Alg. 1/2, every
-strategy) and ``"fused"`` (cohort lanes, Averaging and distributed).  The
-JAX package's ``"spmd"`` engine (ROADMAP.md Queue 1 item 9) is not ported
-yet; asking for it raises, and ``"auto"`` resolves to the widest engine
-that can run the session with a note that says why spmd was skipped.
+strategy), ``"fused"`` (cohort lanes, Averaging and distributed) and
+``"spmd"`` (the fused round body over the ranks of a ``torch.distributed``
+world, placed by a sharding recipe).  ``"auto"`` resolves to the widest
+engine that can run the session, with a note that says why each wider one
+was skipped.
 """
 from __future__ import annotations
 
@@ -22,13 +23,6 @@ from repro_torch.core.spmd import GRAD_MODES
 from repro_torch.data.pipeline import batch_iterator, effective_batch_size
 from repro_torch.optim import make_schedule
 from repro_torch.population import PopulationCursor
-
-#: engines of the JAX package that the port does not have yet, and why
-NOT_PORTED = {
-    "spmd": "the spmd engine is not ported yet (ROADMAP.md Queue 1 item 9, "
-            "the multi-GPU engine)",
-}
-
 
 class DataCursor:
     """Seeded per-client batch streams addressed by draw count.
@@ -74,7 +68,8 @@ class SessionContext:
     """What a session and its engine share and never change: the model
     adapter, the configs, the gradient mode, the schedule and the data
     cursor, or under a client population (``repro_torch.population``) the
-    population and its round-addressed cursor."""
+    population and its round-addressed cursor; ``mesh`` and the resolved
+    ``recipe`` for the spmd engine."""
 
     def __init__(self, model, splitee_cfg: SplitEEConfig,
                  opt_cfg: OptimizerConfig,
@@ -83,11 +78,12 @@ class SessionContext:
                  batch_size: int, *, augment=None, seed: int = 0,
                  mesh=None, grad_mode: str = "eq1", recipe=None,
                  population=None):
-        if mesh is not None or recipe is not None:
-            raise ValueError(
-                "mesh= and recipe= select the spmd engine's device mesh and "
-                "sharding, which wait for ROADMAP.md Queue 1 item 9 (the "
-                "multi-GPU engine)")
+        # resolved eagerly, so a bad recipe name dies at the facade and not
+        # inside an engine; the spmd engine reads the resolved dataclass
+        from repro_torch.launch.shardings import recipe_name, resolve_recipe
+        self.recipe = resolve_recipe(recipe)
+        self.recipe_name = recipe_name(recipe)
+        self.mesh = mesh
         if grad_mode not in GRAD_MODES:
             raise ValueError(f"unknown grad_mode {grad_mode!r}; expected "
                              f"one of {GRAD_MODES}")
@@ -170,8 +166,6 @@ def register_engine(name: str) -> Callable[[Type[Engine]], Type[Engine]]:
 
 
 def get_engine(name: str) -> Type[Engine]:
-    if name in NOT_PORTED:
-        raise ValueError(f"engine {name!r}: {NOT_PORTED[name]}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -193,10 +187,8 @@ def resolve_engine(name: str, ctx: SessionContext
     if name == "auto":
         skipped: List[Tuple[List[str], str]] = []
         for cand in AUTO_ORDER:
-            reason = NOT_PORTED.get(cand)
-            cls = _REGISTRY.get(cand)
-            if reason is None:
-                reason = cls.supports(ctx)
+            cls = _REGISTRY[cand]
+            reason = cls.supports(ctx)
             if reason is None:
                 note = "; ".join(f"{'/'.join(names)} unavailable: {r}"
                                  for names, r in skipped) or None

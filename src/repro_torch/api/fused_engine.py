@@ -120,11 +120,7 @@ class FusedEngine(Engine):
         self._lane_pos: Dict[int, Tuple[int, int]] = {
             i: (li, j) for li in self._cohort_lis
             for j, i in enumerate(self._lanes[li])}
-        make = (make_masked_cohort_step if ctx.population is not None
-                else make_cohort_train_step)
-        self._steps: Dict[int, Callable] = {
-            li: make(ctx.model, ctx.opt_cfg, li, ctx.grad_mode)
-            for li in self._cohort_lis}
+        self._steps: Dict[int, Callable] = self._build_steps()
         #: staging accounting of the latest :meth:`run`
         #: (``data.staging.StageStats.as_dict``)
         self.last_stage_stats: Dict = {}
@@ -144,6 +140,14 @@ class FusedEngine(Engine):
                     f"{ctx.strategy!r} (the Sequential strategy is ordered "
                     f"across clients: use the reference engine)")
         return ragged_cohort_reason(ctx)
+
+    def _build_steps(self) -> Dict[int, Callable]:
+        """Each cohort's step, as :meth:`_cohort_step` calls it."""
+        ctx = self.ctx
+        make = (make_masked_cohort_step if ctx.population is not None
+                else make_cohort_train_step)
+        return {li: make(ctx.model, ctx.opt_cfg, li, ctx.grad_mode)
+                for li in self._cohort_lis}
 
     # ------------------------------------------------------------- staging
     def _host_buffer(self, key: tuple, shape, dtype) -> list:
@@ -352,13 +356,44 @@ class FusedEngine(Engine):
                              server_opts=tuple(parts[3]))
 
     # ------------------------------------------------------------ training
+    def _cohort_step(self, li: int, carry, x, y, lr, lr_s, m=None):
+        """One step of cohort ``li`` (``m``: its lanes' mask under a
+        population).  Returns the new carry entry and the lanes' (client,
+        server) losses."""
+        c, co, s, so, cl, sl = self._steps[li](
+            *carry, x, y, lr, lr_s, *(() if m is None else (m,)))
+        return (c, co, s, so), cl, sl
+
+    def _aggregate(self, carry, ms, r: int) -> None:
+        """Eq. (1) on the stacked servers of every cohort, in place (masked
+        by round ``r``'s masks under a population)."""
+        for part in ("trainable", "state"):
+            servers = {li: carry[li][2][part] for li in self._cohort_lis}
+            if ms is None:
+                stacked_cross_layer_aggregate(servers, self._lanes)
+            else:
+                masked_stacked_cross_layer_aggregate(
+                    servers, {li: ms[li][r] for li in ms}, self._lanes)
+
+    def _reduce_losses(self, closs, sloss, ms, n: int, local_epochs: int):
+        """The per-round (client, server) mean losses of a chunk's steps'
+        lane losses, as two ``[n]`` float64 tensors on the device: over
+        every client, or over the round's active clients (an all-masked
+        round reads 0)."""
+        if ms is None:
+            denom = float(self.ctx.N * local_epochs)
+        else:
+            active = sum(m.sum(1) for m in ms.values())
+            denom = active.clamp(min=1.0).double() * local_epochs
+        per_round = lambda ls: (torch.cat(ls).double().view(n, -1)  # noqa: E731
+                                .sum(1) / denom)
+        return per_round(closs), per_round(sloss)
+
     def _run_chunk(self, carry, t0: int, n: int, xs, ys, ms,
                    local_epochs: int):
         """``n`` rounds from round ``t0`` on the staged batches (and, under a
         population, the staged masks ``ms``); the carry is updated in place.
-        Returns the per-round (client, server) mean losses as two ``[n]``
-        float64 tensors on the device: over every client, or over the
-        round's active clients (an all-masked round reads 0)."""
+        Returns :meth:`_reduce_losses` of the chunk."""
         ctx = self.ctx
         closs, sloss = [], []
         for r in range(n):
@@ -367,31 +402,15 @@ class FusedEngine(Engine):
             lr_s = lr / ctx.server_lr_div
             for e in range(local_epochs):
                 for li in self._cohort_lis:
-                    m = () if ms is None else (ms[li][r],)
-                    c, co, s, so, cl, sl = self._steps[li](
-                        *carry[li], xs[li][r, e], ys[li][r, e], lr, lr_s, *m)
-                    carry[li] = (c, co, s, so)
+                    carry[li], cl, sl = self._cohort_step(
+                        li, carry[li], xs[li][r, e], ys[li][r, e], lr, lr_s,
+                        None if ms is None else ms[li][r])
                     closs.append(cl)
                     sloss.append(sl)
             if (ctx.strategy == "averaging"
                     and (t + 1) % ctx.cfg.aggregate_every == 0):
-                for part in ("trainable", "state"):
-                    servers = {li: carry[li][2][part]
-                               for li in self._cohort_lis}
-                    if ms is None:
-                        stacked_cross_layer_aggregate(servers, self._lanes)
-                    else:
-                        masked_stacked_cross_layer_aggregate(
-                            servers, {li: ms[li][r] for li in ms},
-                            self._lanes)
-        if ms is None:
-            denom = float(ctx.N * local_epochs)
-        else:
-            active = sum(m.sum(1) for m in ms.values())
-            denom = active.clamp(min=1.0).double() * local_epochs
-        per_round = lambda ls: (torch.cat(ls).double().view(n, -1)  # noqa: E731
-                                .sum(1) / denom)
-        return per_round(closs), per_round(sloss)
+                self._aggregate(carry, ms, r)
+        return self._reduce_losses(closs, sloss, ms, n, local_epochs)
 
     def _chunk_metrics(self, t0: int, n: int, closs, sloss, plans,
                        log_every: int) -> List[RoundMetrics]:

@@ -36,8 +36,8 @@ VLM configs are served token-only, as in the JAX package.
 
 ``restore`` serves a ``TrainSession`` checkpoint (either package's):
 :func:`assemble_serve_params` composes one full network from the trained
-client and server nets.  ``mesh=`` waits for the multi-GPU engine
-(ROADMAP.md Queue 1 item 9).
+client and server nets.  ``mesh=`` (slots over the data ranks by
+``launch.shardings.serve_state_specs``) raises: it is ROADMAP.md item 9b.
 """
 from __future__ import annotations
 
@@ -186,7 +186,12 @@ class ServeSession:
     def __init__(self, cfg: ModelConfig, params: dict, *, tau: float,
                  boundary: int = 0, slots: int = 8, max_len: int = 128,
                  exit_policy: str = "select", kernels: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None:
+            raise ValueError(
+                "ServeSession(mesh=...): serving over ranks (slots over the "
+                "data ranks by serve_state_specs, tensor-parallel compute "
+                "over 'model') is ROADMAP.md item 9b, not ported yet")
         if exit_policy not in ("select", "sticky"):
             raise ValueError(f"unknown exit_policy {exit_policy!r}; "
                              f"expected 'select' or 'sticky'")

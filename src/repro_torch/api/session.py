@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.api import fused_engine as _fused_engine  # noqa: F401 (registers)
 from repro_torch.api import reference_engine as _reference_engine  # noqa: F401 (registers)
+from repro_torch.api import spmd_engine as _spmd_engine  # noqa: F401 (registers)
 from repro_torch.api.engines import SessionContext, resolve_engine
 from repro_torch.api.evaluation import SplitEvaluator
 from repro_torch.api.protocol import assert_split_model
@@ -45,19 +46,11 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
 from repro_torch.convert import load_split_state, state_to_jax
 from repro_torch.core.strategies import RoundMetrics
+from repro_torch.launch.distributed import is_coordinator
+from repro_torch.launch.shardings import recipe_from_meta, recipe_to_meta
 
 #: checkpoint manifest format version (the JAX package's)
 CHECKPOINT_FORMAT = 1
-
-#: the sharding recipe a one-device run records in its manifest: the JAX
-#: package's default ("greedy"), which its fused engine writes on one
-#: device.  The recipe is layout, not math; the port's multi-GPU engine
-#: that reads it waits for ROADMAP.md Queue 1 item 9.
-ONE_DEVICE_RECIPE = {
-    "name": "greedy", "scheme": "greedy", "tp_axis": "model", "fsdp": True,
-    "fsdp_axes": ["data"], "expert_mode": "auto", "min_shard_elems": 65536,
-    "shard_cache_seq": True, "shard_lanes": True}
-
 
 def _model_name(model) -> str:
     """The adapter's identity in a manifest: its ``name``
@@ -146,8 +139,10 @@ class TrainSession:
         ``population`` (a ``repro_torch.population.ClientPopulation``)
         replaces ``data``: each round's batches come from the population's
         scheduled clients, masked onto the profile's cohort slots (the
-        fused engine).  ``mesh`` and ``recipe`` (ROADMAP.md Queue 1 item
-        9) raise until the multi-GPU engine is ported."""
+        fused and spmd engines).  ``mesh`` (a ``launch.mesh`` mesh or a
+        ``MeshSpec`` of the world's size) and ``recipe`` (a
+        ``launch.shardings.NAMED_RECIPES`` name or a ``ShardingRecipe``)
+        place the spmd engine's ranks and tensors."""
         return cls(model, splitee_cfg, opt_cfg, data, batch_size,
                    engine=engine, augment=augment, seed=seed, mesh=mesh,
                    grad_mode=grad_mode, recipe=recipe,
@@ -248,7 +243,10 @@ class TrainSession:
             },
             "optimizer": opt,
             "grad_mode": ctx.grad_mode,
-            "recipe": dict(ONE_DEVICE_RECIPE),
+            # the spmd sharding recipe is layout, not math: recorded, and
+            # read back by restore unless it is given another
+            "recipe": {"name": ctx.recipe_name,
+                       **recipe_to_meta(ctx.recipe)},
             # the kernel backend is layout, not math: recorded only
             "kernels": getattr(getattr(ctx.model, "cfg", None), "kernels",
                                None),
@@ -268,7 +266,10 @@ class TrainSession:
 
     def _save_rotating(self, save_dir: str, keep_last: int) -> None:
         """``save_dir/ckpt-<round>``, then only the newest ``keep_last``
-        ``.npz``/``.json`` pairs are kept."""
+        ``.npz``/``.json`` pairs are kept.  Only the coordinator rank writes
+        (every rank holds the same whole state)."""
+        if not is_coordinator():
+            return
         os.makedirs(save_dir, exist_ok=True)
         self.save(os.path.join(save_dir, f"ckpt-{self.round:08d}"))
         stems = sorted(p[:-5] for p in
@@ -329,8 +330,10 @@ class TrainSession:
         run restores with the same ``population`` (and
         ``client_data=None``); its fingerprint is checked against the
         manifest, so the resumed run replays the same remaining schedule.
-        The manifest's sharding recipe is not read (``mesh``/``recipe``
-        wait for ROADMAP.md Queue 1 item 9)."""
+        ``mesh`` (not serializable) is given again when the spmd engine
+        should run on a particular mesh; ``recipe`` overrides the saved
+        sharding recipe (a recipe is layout, so a state saved under one
+        continues under any other)."""
         meta = read_manifest(path, model)
         if meta["augmented"] != (augment is not None):
             raise ValueError(
@@ -355,6 +358,10 @@ class TrainSession:
                     "instead")
             population.check_meta(saved_pop)
         splitee_cfg, opt_cfg = manifest_configs(meta)
+        if recipe is None and "recipe" in meta:
+            saved = dict(meta["recipe"])
+            name = saved.pop("name", "custom")
+            recipe = name if name != "custom" else recipe_from_meta(saved)
         session = cls(model, splitee_cfg, opt_cfg, client_data,
                       meta["batch_size"], engine=engine or meta["engine"],
                       augment=augment, seed=meta["seed"], mesh=mesh,

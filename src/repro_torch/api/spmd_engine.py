@@ -1,0 +1,561 @@
+"""SPMD engine: the fused round body over the ranks of a
+``torch.distributed`` world, placed by a sharding recipe (counterpart of
+``repro/api/spmd_engine.py``).
+
+This is the scaling story for the Averaging and distributed strategies.
+The JAX engine compiles the fused engine's scanned round body with
+``NamedSharding`` constraints from ``launch.shardings`` and lets XLA's
+partitioner insert the collectives.  The port runs the fused engine's
+chunk loop on every rank and places and moves the tensors itself, by the
+same recipe rules:
+
+  * **Placement.**  Every carry leaf (stacked clients and servers, Adam
+    moments, BatchNorm statistics, each ``[E, ...]``) is placed by
+    ``launch.shardings.train_state_specs`` on the JAX package's layout
+    of the carry (``shardings.jax_layout``; the specs mapped back onto the
+    port's leaves): a lane dim over ``"lanes"`` leaves each rank its slice
+    of the cohort's lanes, a dim over ``"data"`` (FSDP) or ``"model"`` its
+    chunk.  Adam moments mirror their params.
+  * **Batches.**  Every rank draws the same seeded stream (the data layer
+    is deterministic) and keeps its lanes and rows of each staged
+    ``[rounds, local_epochs, E, B, ...]`` chunk by ``stage_batch_spec``:
+    no batch data crosses ranks.  Population masks follow the lanes.
+  * **A step.**  The rank all-gathers its lanes' sharded leaves into whole
+    tensors, runs the cohort's forward and backward on its rows
+    (``core.spmd.make_cohort_grad_step``), averages the gradients over the
+    batch axes, and updates its chunk of each parameter and moment in
+    place (the clip norm taken over the whole gradient).  BatchNorm's
+    batch statistics are summed over the batch axes
+    (``models.sync_stats``), so the forward, the gradients and the running
+    statistics are the whole-batch values.
+  * **Eq. (1)** sums over lanes: with lanes spread over ranks, each rank
+    sums its lanes per layer and the partial sums (and, under a
+    population, the masked counts) are summed over the lanes group before
+    the division (``core.aggregation.partial_cross_layer_aggregate``).
+  * **Results.**  Losses are summed over the lanes and batch ranks once per
+    chunk; the returned ``TrainState`` is whole and identical on every
+    rank (the lanes and shards are gathered at the end of a run), so
+    evaluation and checkpoints read it as they read the fused engine's.
+
+Only all_reduce and all_gather are used (gloo and NCCL both take them).
+True tensor-parallel compute over ``"model"`` and overlapping the gathers
+with compute are later work (ROADMAP.md item 9b): a ``"model"`` axis
+shards storage, and its ranks repeat their group's compute.
+
+Meshes: ``TrainSession(..., mesh=...)`` -- a live mesh from
+``launch.mesh`` (``make_lane_host_mesh(2)``, ``make_host_mesh((2, 2, 1),
+("lanes", "data", "model"))``, ``make_production_mesh()``) or a
+``MeshSpec`` of the world's size -- or none, for the default data mesh
+over every rank.  Recipes: ``TrainSession(..., recipe=...)``, a name of
+``launch.shardings.NAMED_RECIPES`` or a ``ShardingRecipe``.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.api.engines import (SessionContext, cohort_layout,
+                                     register_engine)
+from repro_torch.api.fused_engine import FusedEngine, _stack_opts
+from repro_torch.core.aggregation import partial_cross_layer_aggregate
+from repro_torch.core.spmd import make_cohort_grad_step
+from repro_torch.core.strategies import masked_update
+from repro_torch.data.pipeline import effective_batch_size
+from repro_torch.launch.mesh import (MeshSpec, as_spec, axis_sizes,
+                                     batch_axes, lane_axis, live_mesh,
+                                     world_size)
+from repro_torch.launch.shardings import (_lookup, jax_layout,
+                                          map_with_path, port_specs,
+                                          resolve_recipe, spec_leaves,
+                                          stage_batch_spec,
+                                          train_state_specs, tree_paths)
+from repro_torch.models.sync_stats import synced_batch_stats
+from repro_torch.optim.adam import adam_update, lane_norms
+
+
+def default_mesh_spec() -> MeshSpec:
+    """A 1-D data-parallel mesh over every rank of the world."""
+    return MeshSpec((world_size(), 1), ("data", "model"))
+
+
+def resolve_mesh(ctx: SessionContext):
+    """The mesh this session's spmd engine runs on, as a spec or a live
+    mesh: ``ctx.mesh`` when one was supplied, else the default data
+    mesh."""
+    return ctx.mesh if ctx.mesh is not None else default_mesh_spec()
+
+
+def data_parallelism(mesh) -> int:
+    """Total batch-axis parallelism of ``mesh`` (product of the ``pod`` and
+    ``data`` axis sizes present)."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in batch_axes(mesh))
+
+
+def _model_cfg(model):
+    """The backbone config of a ``BackboneSplitModel`` (its carry is
+    restacked per run for the recipe), else ``None`` (conv weights are the
+    one layout to map)."""
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    return model.cfg if isinstance(model, BackboneSplitModel) else None
+
+
+def _model_num_experts(model) -> int:
+    cfg = getattr(model, "cfg", None)
+    moe = getattr(cfg, "moe", None)
+    return int(moe.num_experts) if moe is not None else -1
+
+
+def abstract_cohort_carry(model, split_layers, opt_cfg):
+    """The engines' cohort carry ``{li: (client, client_opt, server,
+    server_opt)}`` as meta tensors, every leaf with a leading lane dim:
+    one lane's nets are built and their shapes widened to the cohort (no
+    cohort-sized tensor is allocated)."""
+    from repro_torch.api.fused_engine import _stack_opts
+    from repro_torch.optim import adam_init
+    lis, lanes = cohort_layout(split_layers)
+    carry = {}
+    for li in lis:
+        c, s = model.make_client(li), model.make_server(li)
+        one = (model.stack_clients([c]),
+               _stack_opts([adam_init(c["trainable"], opt_cfg)]),
+               model.stack_clients([s]),
+               _stack_opts([adam_init(s["trainable"], opt_cfg)]))
+        k = len(lanes[li])
+        carry[li] = map_with_path(
+            lambda _, t, k=k: torch.empty((k,) + tuple(t.shape[1:]),
+                                          dtype=t.dtype, device="meta"), one)
+    return carry
+
+
+def carry_specs(recipe, mesh, carry, model):
+    """The recipe's spec of every leaf of a port cohort carry (whole or
+    local lanes; only its shapes are read): ``train_state_specs`` on the
+    carry's JAX-package layout, mapped back onto the port's leaves."""
+    cfg = _model_cfg(model)
+    specs = train_state_specs(recipe, mesh, jax_layout(carry, cfg, lead=1),
+                              num_experts=_model_num_experts(model))
+    return port_specs(specs, carry, cfg, lead=1)
+
+
+class MeshComm:
+    """Process groups over sets of axes of a live mesh, and the
+    collectives the engine runs on them.  Groups are made on first use;
+    every rank asks for the same groups in the same order (they follow
+    from the recipe's specs, which every rank computes alike)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        self.sizes = axis_sizes(mesh)
+        self.ranks = mesh.mesh
+        self.coord = dict(zip(self.names, mesh.get_coordinate()))
+        self._groups: Dict[frozenset, tuple] = {}
+        #: bytes this rank received from all_gathers since the last reset
+        self.gathered_bytes = 0
+
+    def size(self, axes) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's chunk index along ``axes`` (row-major, in the
+        tuple's order, as a JAX ``PartitionSpec`` entry splits a dim)."""
+        i = 0
+        for a in axes:
+            i = i * self.sizes[a] + self.coord[a]
+        return i
+
+    def _group(self, axes) -> Tuple[object, List[int]]:
+        """``(process group, its global ranks sorted)`` of the ranks that
+        share this rank's coordinates off ``axes``."""
+        import torch.distributed as dist
+        key = frozenset(axes)
+        if key not in self._groups:
+            others = [a for a in self.names if a not in key]
+            mine = None
+            for fixed in itertools.product(
+                    *(range(self.sizes[a]) for a in others)):
+                index = []
+                for a in self.names:
+                    index.append(fixed[others.index(a)] if a in others
+                                 else slice(None))
+                ranks = sorted(int(r) for r in
+                               self.ranks[tuple(index)].flatten().tolist())
+                pg = dist.new_group(ranks=ranks)
+                if all(self.coord[a] == f for a, f in zip(others, fixed)):
+                    mine = (pg, ranks)
+            self._groups[key] = mine
+        return self._groups[key]
+
+    def _rank_at(self, axes, chunk: int) -> int:
+        """The global rank holding chunk ``chunk`` along ``axes`` among
+        this rank's group."""
+        index = []
+        rest = chunk
+        for a in reversed(axes):
+            index.append(rest % self.sizes[a])
+            rest //= self.sizes[a]
+        pos = dict(zip(reversed(axes), index))
+        at = tuple(pos[a] if a in pos else self.coord[a] for a in self.names)
+        return int(self.ranks[at])
+
+    def all_reduce(self, tensors: List[torch.Tensor], axes) -> None:
+        """Sum ``tensors`` over the ranks along ``axes``, in place, in one
+        collective per dtype."""
+        import torch.distributed as dist
+        axes = tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+        if not axes or not tensors:
+            return
+        pg, _ = self._group(axes)
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, group=pg)
+            off = 0
+            for t in ts:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+
+    def gather(self, items) -> List[torch.Tensor]:
+        """The whole tensors of ``items``, ``(chunk, dim, axes)`` triples:
+        each chunk split along ``dim`` over ``axes``.  One all_gather per
+        (axes, dtype): the chunks travel flattened in one buffer."""
+        import torch.distributed as dist
+        out: List[Optional[torch.Tensor]] = [None] * len(items)
+        groups: Dict[tuple, List[int]] = {}
+        for i, (t, _, axes) in enumerate(items):
+            groups.setdefault((tuple(axes), t.dtype), []).append(i)
+        for (axes, _), idx in groups.items():
+            pg, ranks = self._group(axes)
+            flat = torch.cat([items[i][0].reshape(-1) for i in idx])
+            parts = [torch.empty_like(flat) for _ in ranks]
+            dist.all_gather(parts, flat, group=pg)
+            self.gathered_bytes += (flat.numel() * flat.element_size()
+                                    * (len(ranks) - 1))
+            by_rank = dict(zip(ranks, parts))
+            chunks = [by_rank[self._rank_at(axes, c)]
+                      for c in range(len(ranks))]
+            off = 0
+            for i in idx:
+                t, d, _ = items[i]
+                n = t.numel()
+                out[i] = torch.cat([c[off:off + n].view_as(t)
+                                    for c in chunks], dim=d)
+                off += n
+        return out
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@register_engine("spmd")
+class SpmdEngine(FusedEngine):
+    """The fused engine's round body over the ranks of a mesh, placed by a
+    sharding recipe: the fused chunk loop with its step, Eq. (1) and loss
+    hooks run over this rank's lanes and rows."""
+
+    def __init__(self, ctx: SessionContext):
+        super().__init__(ctx)
+        mesh = resolve_mesh(ctx)
+        self.mesh = live_mesh(mesh) if isinstance(mesh, MeshSpec) else mesh
+        self.recipe = resolve_recipe(ctx.recipe)
+        self.comm = MeshComm(self.mesh)
+        sizes = axis_sizes(self.mesh)
+        self._batch_axes = tuple(a for a in batch_axes(self.mesh)
+                                 if sizes[a] > 1)
+        self._dp = self.comm.size(self._batch_axes)
+        lax_name = lane_axis(self.mesh)
+        self._lane_axes = ((lax_name,) if lax_name and sizes[lax_name] > 1
+                           else ())
+        # per cohort: the local lanes (positions in the cohort) and rows
+        self._local: Dict[int, List[int]] = {}
+        self._rows: Dict[int, Optional[slice]] = {}
+        self._owned: Dict[int, bool] = {}
+        self._lane_sharded = False
+        for li in self._cohort_lis:
+            i0 = self._lanes[li][0]
+            eb = effective_batch_size(len(ctx.client_data[i0][0]),
+                                      ctx.batch_size)
+            spec = stage_batch_spec(self.recipe, self.mesh, self._counts[li],
+                                    eb)
+            k = self._counts[li]
+            if spec[2] is not None:
+                n = self.comm.size(_axes(spec[2]))
+                j = self.comm.index(_axes(spec[2]))
+                self._local[li] = list(range(j * k // n, (j + 1) * k // n))
+                self._owned[li] = True
+                self._lane_sharded = True
+            else:
+                self._local[li] = list(range(k))
+                self._owned[li] = all(self.comm.coord[a] == 0
+                                      for a in self._lane_axes)
+            if spec[3] is not None:
+                n = self.comm.size(_axes(spec[3]))
+                j = self.comm.index(_axes(spec[3]))
+                self._rows[li] = slice(j * eb // n, (j + 1) * eb // n)
+            else:
+                self._rows[li] = None
+        self._specs: Dict[int, tuple] = {}
+        #: bytes gathered per cohort step in the latest run (this rank)
+        self.last_gathered_bytes_per_step = 0.0
+
+    @classmethod
+    def supports(cls, ctx: SessionContext) -> Optional[str]:
+        reason = super().supports(ctx)           # strategy + ragged cohorts
+        if reason:
+            return reason
+        n = world_size()
+        if ctx.mesh is None and n < 2:
+            return ("needs a mesh (TrainSession(..., mesh=...)) or more "
+                    "than one rank (launch with --host-devices N or "
+                    "--distributed); only 1 rank in the torch.distributed "
+                    "world")
+        mesh = resolve_mesh(ctx)
+        spec = as_spec(mesh)
+        recipe = resolve_recipe(ctx.recipe)
+        sizes = axis_sizes(mesh)
+        dp = data_parallelism(mesh)
+        lax_name = lane_axis(mesh)
+        lane_sz = (sizes.get(lax_name, 1)
+                   if lax_name and recipe.shard_lanes else 1)
+        if dp < 2 and lane_sz < 2:
+            if lax_name and sizes.get(lax_name, 1) > 1:
+                return (f"mesh {sizes} only has parallelism on its lanes "
+                        f"axis, which recipe {ctx.recipe_name!r} disables "
+                        f"(shard_lanes=False); pick a lane-sharding recipe "
+                        f"or a mesh with batch-axis parallelism")
+            return (f"mesh {sizes} has no parallelism on its batch axes "
+                    f"{batch_axes(mesh)} or a lanes axis")
+        for i, (xd, _) in enumerate(ctx.client_data):
+            eb = effective_batch_size(len(xd), ctx.batch_size)
+            if dp > 1 and eb % dp != 0:
+                return (f"client {i}'s effective batch size {eb} does not "
+                        f"divide over the data-parallel size {dp}; adjust "
+                        f"batch_size or the mesh")
+        if lane_sz > 1:
+            _, lanes = cohort_layout(ctx.profile.split_layers)
+            counts = {li: len(v) for li, v in lanes.items()}
+            if not any(c % lane_sz == 0 for c in counts.values()):
+                return (f"the mesh's {lane_sz}-way lanes axis divides no "
+                        f"cohort's lane count {counts}; equalize cohort "
+                        f"sizes, shrink the lanes axis, or use a mesh "
+                        f"without one")
+        if dp > 1 and _model_num_experts(ctx.model) > 1:
+            # expert capacity and the router aux loss are statistics of
+            # the whole batch, which a rank's rows do not give
+            return (f"a data split ({dp} batch ranks) of a mixture-of-"
+                    f"experts model would route each rank's rows alone; "
+                    f"use a lanes-only mesh")
+        if spec.size != n:
+            return (f"mesh {sizes} has {spec.size} ranks but the "
+                    f"torch.distributed world has {n}")
+        return None
+
+    # ------------------------------------------------------------- layout
+    def _carry_specs(self, carry) -> Dict[int, tuple]:
+        """The spec of every leaf of the local-lane carry, computed on the
+        whole carry's shapes."""
+        def whole(path, t):
+            k = self._counts[path[0]]
+            return torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               device="meta")
+        return carry_specs(self.recipe, self.mesh,
+                           map_with_path(whole, carry), self.ctx.model)
+
+    def _shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's chunk of a local-lane tensor (its lane dim already
+        local): a tensor of its own where the spec splits a dim, else
+        ``t``."""
+        out = t
+        for d, entry in enumerate(spec[1:], start=1):
+            axes = _axes(entry)
+            if not axes:
+                continue
+            n = self.comm.size(axes)
+            c = t.shape[d] // n
+            out = out.narrow(d, self.comm.index(axes) * c, c)
+        return out if out is t else out.clone()
+
+    def _unshard(self, tree, specs, lanes: bool = False):
+        """``tree`` with every leaf whole again: each sharded dim gathered
+        over its axes (and, with ``lanes``, the lane dim over the lanes
+        axis), all leaves of a pass in one collective per group."""
+        paths, cur, todo = [], [], []
+        for path, t in tree_paths(tree):
+            spec = _lookup(specs, path)
+            dims = [(d, _axes(e)) for d, e in enumerate(spec)
+                    if d > 0 and _axes(e)]
+            if lanes:
+                dims.insert(0, (0, self._lane_axes))
+            paths.append(path)
+            cur.append(t)
+            todo.append(dims)
+        while any(todo):
+            idx = [i for i, dims in enumerate(todo) if dims]
+            items = [(cur[i],) + todo[i].pop() for i in idx]
+            for i, whole in zip(idx, self.comm.gather(items)):
+                cur[i] = whole
+        by_path = dict(zip(paths, cur))
+        return map_with_path(lambda p, t: by_path[p], tree)
+
+    def _tree(self, fn, tree, specs):
+        return map_with_path(lambda p, t: fn(t, _lookup(specs, p)), tree)
+
+    # --------------------------------------------------------------- carry
+    def _stack_carry(self, state):
+        """This rank's lanes of each cohort, stacked, each leaf cut to its
+        chunk by the recipe."""
+        model = self.ctx.model
+        carry = {}
+        for li in self._cohort_lis:
+            ids = [self._lanes[li][j] for j in self._local[li]]
+            carry[li] = (
+                model.stack_clients([state.clients[i] for i in ids]),
+                _stack_opts([state.client_opts[i] for i in ids]),
+                model.stack_clients([state.servers[i] for i in ids]),
+                _stack_opts([state.server_opts[i] for i in ids]))
+        self._specs = self._carry_specs(carry)
+        return {li: self._tree(self._shard, carry[li], self._specs[li])
+                for li in carry}
+
+    def _unstack_carry(self, carry, state, steps):
+        """The whole carry on every rank -- shards and lanes gathered --
+        unstacked as the fused engine does."""
+        full = {li: self._unshard(
+                    carry[li], self._specs[li],
+                    lanes=len(self._local[li]) != self._counts[li])
+                for li in self._cohort_lis}
+        return super()._unstack_carry(full, state, steps)
+
+    # ------------------------------------------------------------- staging
+    def _keep_local(self, xs, ys, ms):
+        """This rank's lanes and rows of a staged chunk (views)."""
+        def cut(t, li, rows=True):
+            lanes = self._local[li]
+            if len(lanes) != self._counts[li]:
+                t = t.narrow(2 if rows else 1, lanes[0], len(lanes))
+            if rows and self._rows[li] is not None:
+                r = self._rows[li]
+                t = t.narrow(3, r.start, r.stop - r.start)
+            return t
+        xs = {li: cut(t, li) for li, t in xs.items()}
+        ys = {li: cut(t, li) for li, t in ys.items()}
+        if ms is not None:
+            ms = {li: cut(t, li, rows=False) for li, t in ms.items()}
+        return xs, ys, ms
+
+    def _stage_chunk(self, rounds: int, local_epochs: int):
+        xs, ys, ms, event, plans = super()._stage_chunk(rounds, local_epochs)
+        return (*self._keep_local(xs, ys, ms), event, plans)
+
+    def _stage_population_chunk(self, rounds: int, local_epochs: int):
+        xs, ys, ms, event, plans = super()._stage_population_chunk(
+            rounds, local_epochs)
+        return (*self._keep_local(xs, ys, ms), event, plans)
+
+    # ------------------------------------------------------------ training
+    def _build_steps(self):
+        """Each cohort's forward and backward; Adam runs on the shards in
+        :meth:`_cohort_step`."""
+        ctx = self.ctx
+        return {li: make_cohort_grad_step(ctx.model, li, ctx.grad_mode)
+                for li in self._cohort_lis}
+
+    def _cohort_step(self, li: int, carry, x, y, lr, lr_s, m=None):
+        """One cohort step on this rank's lanes and rows: gather, forward
+        and backward, gradients averaged over the batch axes, the shards
+        updated in place.  Returns the new carry entry and this rank's
+        share of the lanes' (client, server) losses: float64, masked, and
+        weighted so that their sum over the lanes and batch ranks counts
+        every lane once."""
+        c, co, s, so = carry
+        sc, _, ss, _ = self._specs[li]
+        before = self.comm.gathered_bytes
+        fc = self._unshard(c, sc)
+        fs = self._unshard(s, ss)
+        self._gathered += self.comm.gathered_bytes - before
+        self._steps_run += 1
+        if self._dp > 1:
+            pg, _ = self.comm._group(self._batch_axes)
+            sync = synced_batch_stats(pg, self._dp)
+        else:
+            sync = contextlib.nullcontext()
+        with sync:
+            gc, gs, closs, sloss, cst, sst = self._steps[li](fc, fs, x, y)
+        gc, gs = list(gc), list(gs)
+        if self._dp > 1:
+            live = [g for g in gc + gs if g is not None]
+            self.comm.all_reduce(live, self._batch_axes)
+            for g in live:
+                g.div_(self._dp)
+        w = (1.0 if self._owned[li] else 0.0) / self._dp
+        if m is not None:
+            cst = masked_update(m, cst, fc["state"])
+            sst = masked_update(m, sst, fs["state"])
+            closs, sloss = closs * m.to(closs.dtype), sloss * m.to(sloss.dtype)
+        out = []
+        for net, full, g, opt, specs, st, rate in (
+                (c, fc, gc, co, sc, cst, lr), (s, fs, gs, so, ss, sst, lr_s)):
+            norms = lane_norms(g) if self.ctx.opt_cfg.grad_clip > 0 else None
+            leaf_specs = spec_leaves(specs["trainable"], net["trainable"])
+            g = [None if gr is None else self._shard(gr, sp)
+                 for gr, sp in zip(g, leaf_specs)]
+            tr, opt = adam_update(net["trainable"], g, opt, self.ctx.opt_cfg,
+                                  rate, lanes=True, mask=m, norms=norms)
+            out += [{"trainable": tr,
+                     "state": self._tree(self._shard, st, specs["state"])},
+                    opt]
+        return tuple(out), closs.double() * w, sloss.double() * w
+
+    def _aggregate(self, carry, ms, r: int) -> None:
+        """Eq. (1) on the stacked servers of every cohort: the fused
+        engine's in-rank form while no cohort's lanes are spread over
+        ranks, else partial sums over the lanes group."""
+        if not self._lane_sharded:
+            return super()._aggregate(carry, ms, r)
+        masks = None if ms is None else {li: ms[li][r] for li in ms}
+        lanes = {li: [self._lanes[li][j] for j in self._local[li]]
+                 for li in self._cohort_lis}
+        for part in ("trainable", "state"):
+            servers = {li: carry[li][2][part] for li in self._cohort_lis}
+            partial_cross_layer_aggregate(
+                servers, lanes, self._counts, self._owned,
+                lambda ts: self.comm.all_reduce(ts, self._lane_axes), masks)
+
+    def _reduce_losses(self, closs, sloss, ms, n: int, local_epochs: int):
+        """The fused engine's per-round means, the sums (and, under a
+        population, the active counts of the owned lanes) summed over the
+        lanes and batch ranks first: one all_reduce a chunk."""
+        sums = [torch.cat(ls).view(n, -1).sum(1) for ls in (closs, sloss)]
+        if ms is not None:
+            lead = all(self.comm.coord[a] == 0 for a in self._batch_axes)
+            active = torch.zeros_like(sums[0])
+            for li in self._cohort_lis:
+                if self._owned[li] and lead:
+                    active += ms[li].double().sum(1)
+            sums.append(active)
+        self.comm.all_reduce(sums, self._lane_axes + self._batch_axes)
+        if ms is None:
+            denom = float(self.ctx.N * local_epochs)
+        else:
+            denom = sums[2].clamp(min=1.0) * local_epochs
+        return sums[0] / denom, sums[1] / denom
+
+    def run(self, state, rounds: int, local_epochs: int = 1,
+            log_every: int = 0, chunk_rounds: int = 0):
+        self._gathered = 0
+        self._steps_run = 0
+        out = super().run(state, rounds, local_epochs, log_every,
+                          chunk_rounds)
+        self.last_gathered_bytes_per_step = (
+            self._gathered / max(1, self._steps_run))
+        return out

@@ -15,7 +15,7 @@ population's participation masks.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -167,3 +167,71 @@ def participation_counts(split_layers: Sequence[int], num_layers: int
                 for l in range(num_layers)]
     n_server = [len(split_layers) - c for c in n_client]
     return n_client, n_server
+
+
+def partial_cross_layer_aggregate(stacked: Dict[int, Dict[str, Any]],
+                                  lanes: Dict[int, Sequence[int]],
+                                  counts: Dict[int, int],
+                                  owned: Dict[int, bool], reduce,
+                                  masks: Optional[Dict[int, torch.Tensor]]
+                                  = None) -> Dict[int, Dict[str, Any]]:
+    """Eq. (1) over cohort-stacked server nets whose lanes are spread over
+    ranks (the spmd engine), in place.
+
+    ``stacked[li]`` holds this rank's lanes of cohort ``li`` (leaves
+    ``[k_local, ...]``, or their shards: every rank that shares the lanes
+    group holds the same slice), ``lanes[li]`` the client behind each local
+    lane and ``counts[li]`` the cohort's whole lane count.  Each rank sums
+    its ``owned`` cohorts' lanes per key in fp32, in client order (a cohort
+    replicated over the lanes axis is owned by one rank of it), and
+    ``reduce(tensors)`` sums the partial sums over the lanes group in place,
+    all keys in one call.  The mean is then copied into every local member
+    lane.  ``masks`` (population runs): each local lane's 0/1 weight, the
+    masked counts reduced beside the sums, as in
+    :func:`masked_stacked_cross_layer_aggregate`.  Returns ``stacked``."""
+    keys = set()
+    for m in stacked.values():
+        keys |= set(m)
+    plans = []
+    partial: List[torch.Tensor] = []
+    for key in sorted(keys):
+        members = [li for li in sorted(stacked) if key in stacked[li]]
+        if sum(counts[li] for li in members) <= 1:
+            continue
+        trees = {li: list(tree_leaves(stacked[li][key])) for li in members}
+        ref = trees[members[0]]
+        total = [torch.zeros(x.shape[1:], dtype=torch.float32,
+                             device=x.device) for x in ref]
+        order = sorted((i, li, j) for li in members if owned[li]
+                       for j, i in enumerate(lanes[li]))
+        for _, li, j in order:
+            xs = [x[j].float() for x in trees[li]]
+            if masks is not None:
+                xs = [x * masks[li][j] for x in xs]
+            torch._foreach_add_(total, xs)
+        den = None
+        if masks is not None:
+            den = sum((masks[li].float().sum() if owned[li]
+                       else masks[li].new_zeros((), dtype=torch.float32))
+                      for li in members).reshape(1)
+            partial.append(den)
+        partial.extend(total)
+        plans.append((members, trees, total, den,
+                      float(sum(counts[li] for li in members))))
+    if partial:
+        reduce(partial)
+    for members, trees, total, den, n in plans:
+        ref = trees[members[0]]
+        if den is None:
+            mean = [t.to(x.dtype) / n for t, x in zip(total, ref)]
+            for li in members:
+                for x, m in zip(trees[li], mean):
+                    x.copy_(m.expand_as(x))
+            continue
+        active = den[0] > 0
+        d = den[0].clamp(min=1.0)
+        mean = [_mean_over(t, x.dtype, d) for t, x in zip(total, ref)]
+        for li in members:
+            for x, m in zip(trees[li], mean):
+                x.copy_(torch.where(active, m.expand_as(x), x))
+    return stacked

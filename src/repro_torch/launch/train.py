@@ -1,22 +1,32 @@
-"""The training entry point of the port: the one-card part of
-``repro.launch.train``, built on ``repro_torch.api.TrainSession``.
+"""The training entry point of the port (counterpart of
+``repro.launch.train``), built on ``repro_torch.api.TrainSession``.
 
 Runs on the CUDA card (``--device cpu`` runs the plain PyTorch path on the
-CPU).  ``--engine auto`` picks the fused cohort engine for Averaging and
-distributed and the reference engine for Sequential, and says why the
-spmd engine was skipped.  The JAX entry point's mesh and multi-host flags
-(``--mesh``, ``--recipe``, ``--lanes``, ``--host-devices``,
-``--distributed``, ``--coordinator``, ``--num-processes``,
-``--process-id``) are parsed, and set to anything but their defaults they
-stop the run: the multi-GPU engine waits for ROADMAP.md Queue 1 item 9.
+CPU).  ``--engine auto`` picks the spmd engine when there is more than one
+rank or a mesh, else the fused cohort engine for Averaging and distributed
+(saying why spmd was skipped) and the reference engine for Sequential.
+
+Every scale runs the same code path:
+  * ``--host-devices N`` runs N ranks on this host (``launch.hostdevices``:
+    gloo, or NCCL when each rank has a card of its own); rank 0's output is
+    printed;
+  * ``--distributed --coordinator HOST:PORT --num-processes N --process-id
+    I`` (or the ``REPRO_*`` environment fallbacks) runs this process as
+    one rank of an N-process world (``launch.distributed``);
+  * ``--lanes L`` factors a cohort-lane axis out of the ranks
+    (``make_lane_host_mesh``); ``--mesh single|multi`` builds the 256/512
+    rank production mesh; ``--recipe`` picks how lanes, parameters and Adam
+    moments spread over the mesh (``launch/shardings.py``; default
+    ``greedy``, or the checkpoint's recipe on ``--resume``).
 
 Checkpointing is the session's: ``--save-every N`` rotates ``ckpt-<round>``
 pairs under ``--checkpoint-dir`` (the newest ``--keep-last``), a
 ``driver.json`` sidecar records the knobs that shape the data and the
 model, and ``--resume`` continues from the newest readable checkpoint,
-training only what is left of ``--rounds``.  ``--population P`` trains a
-pool of P simulated clients (a Dirichlet partition of the data, seeded
-churn and stragglers) over the ``--clients`` cohort slots.
+training only what is left of ``--rounds``.  Only the coordinator rank
+writes them.  ``--population P`` trains a pool of P simulated clients (a
+Dirichlet partition of the data, seeded churn and stragglers) over the
+``--clients`` cohort slots.
 
 Besides the paper-scale ``--model mlp|resnet`` adapters, ``--arch <name>``
 trains a ``configs/`` backbone through ``BackboneSplitModel`` on a
@@ -28,6 +38,9 @@ config).
       --save-every 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --model mlp --clients 4 --rounds 14 --checkpoint-dir /tmp/run --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --model mlp --clients 4 --splits 1,1,2,2 --host-devices 4 --lanes 2 \\
+      --recipe greedy
   PYTHONPATH=src python -m repro_torch.launch.train --model resnet \\
       --clients 12 --population 36 --participation-rate 0.7 \\
       --straggler-rate 0.2 --churn-seed 3 --rounds 8
@@ -38,6 +51,7 @@ import argparse
 import glob
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -51,6 +65,11 @@ from repro_torch.data.pipeline import ClientPartitioner
 from repro_torch.data.synthetic import (SyntheticImageDataset,
                                         SyntheticSeqClsDataset)
 from repro_torch.device import resolve_device
+from repro_torch.launch import distributed as distributed_mod
+from repro_torch.launch.hostdevices import RankFailed, run_host_ranks
+from repro_torch.launch.mesh import (make_lane_host_mesh,
+                                     make_production_mesh, world_size)
+from repro_torch.launch.shardings import NAMED_RECIPES
 from repro_torch.models.resnet import ResNetConfig
 
 #: default cut layers per model family (clients split shallow, mid, deep)
@@ -63,13 +82,6 @@ DATA_KNOBS = ("model", "arch", "smoke", "seq_len", "clients", "splits",
               "strategy", "aggregate_every", "batch", "grad_mode", "seed",
               "train_size", "test_size", "population", "dirichlet_alpha",
               "participation_rate", "churn_seed", "straggler_rate")
-
-#: the JAX entry point's mesh and multi-host flags with their defaults
-MULTI_GPU_FLAGS = {"mesh": "auto", "recipe": None, "lanes": 1,
-                   "host_devices": 0, "distributed": False,
-                   "coordinator": None, "num_processes": None,
-                   "process_id": None}
-
 
 def driver_knobs(args, splits) -> dict:
     d = {k: getattr(args, k) for k in DATA_KNOBS if k != "splits"}
@@ -198,18 +210,30 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device; default the CUDA card")
     ap.add_argument("--mesh", default="auto",
                     choices=["auto", "single", "multi"],
-                    help="the production mesh (multi-GPU engine)")
-    ap.add_argument("--recipe", default=None,
-                    help="the spmd sharding recipe (multi-GPU engine)")
+                    help="auto: the engine's default over the ranks; "
+                         "single/multi: the 256/512-rank production mesh")
+    ap.add_argument("--recipe", default=None, choices=sorted(NAMED_RECIPES),
+                    help="spmd sharding recipe (launch/shardings.py): how "
+                         "cohort lanes, params and Adam moments spread over "
+                         "the mesh; 'replicate' is batch-only sharding.  "
+                         "Default: 'greedy' for fresh runs, the "
+                         "checkpoint's recipe on --resume")
     ap.add_argument("--lanes", type=int, default=1,
-                    help="a cohort-lane mesh axis (multi-GPU engine)")
+                    help="factor a cohort-lane axis of this size out of the "
+                         "ranks (each rank holds and steps its lanes only)")
     ap.add_argument("--host-devices", type=int, default=0,
-                    help="fake host devices (the JAX entry point's spmd demo)")
+                    help="run N ranks on this host (gloo, or NCCL with a "
+                         "card per rank)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host run (multi-GPU engine)")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+                    help="run as one rank of a multi-process world (env "
+                         "fallbacks REPRO_DISTRIBUTED/REPRO_COORDINATOR/...)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rendezvous address host:port for --distributed "
+                         "(implies it)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total process count for --distributed")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank for --distributed")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--save-every", type=int, default=0)
     ap.add_argument("--keep-last", type=int, default=3)
@@ -244,14 +268,38 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
-    for flag, default in MULTI_GPU_FLAGS.items():
-        if getattr(args, flag) != default:
-            raise SystemExit(
-                f"--{flag.replace('_', '-')}: the multi-GPU engine and "
-                f"launch are not ported yet (ROADMAP.md Queue 1 item 9); "
-                f"this entry point trains on one card")
+    opts = distributed_mod.resolve_options(["train", *argv])
+    if args.host_devices > 1:
+        if opts.enabled:
+            raise SystemExit("--host-devices runs every rank on this host; "
+                             "it does not combine with --distributed")
+        try:
+            logs = run_host_ranks(args.host_devices, train, (argv,),
+                                  device=args.device)
+        except RankFailed as e:
+            raise SystemExit(f"--host-devices {args.host_devices}: {e}"
+                             ) from None
+        print(logs[0][0], end="")
+        return
+    try:
+        distributed_mod.maybe_initialize(opts, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--distributed: {e}") from None
+    try:
+        train(argv)
+    finally:
+        import torch.distributed as dist
+        if opts.enabled and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train(argv) -> None:
+    """One rank's run (the whole run without a process group)."""
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
+    coordinator = distributed_mod.is_coordinator()
 
     arch_cfg = resolve_arch_config(args)
     if args.splits:
@@ -283,6 +331,16 @@ def main(argv=None) -> None:
                                                           device)
     population = (build_population(args, splits, x, y)
                   if args.population > 0 else None)
+    try:
+        if args.mesh != "auto":
+            mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                        lanes=args.lanes)
+        elif args.lanes > 1:
+            mesh = make_lane_host_mesh(args.lanes)
+        else:
+            mesh = None
+    except ValueError as e:
+        raise SystemExit(f"--lanes/--mesh: {e}") from None
     splitee_cfg = SplitEEConfig(profile=HeteroProfile(splits),
                                 strategy=args.strategy,
                                 aggregate_every=args.aggregate_every,
@@ -299,7 +357,7 @@ def main(argv=None) -> None:
         try:
             session = TrainSession.restore_latest(
                 args.checkpoint_dir, model, data, engine=args.engine,
-                population=population)
+                mesh=mesh, recipe=args.recipe, population=population)
         except Exception as e:                            # noqa: BLE001
             raise SystemExit(
                 f"--resume: cannot restore from {args.checkpoint_dir!r}: "
@@ -321,8 +379,9 @@ def main(argv=None) -> None:
         try:
             session = TrainSession.from_config(
                 model, splitee_cfg, opt_cfg, data, batch_size=args.batch,
-                engine=args.engine, seed=args.seed,
-                grad_mode=args.grad_mode, population=population)
+                engine=args.engine, seed=args.seed, mesh=mesh,
+                grad_mode=args.grad_mode, recipe=args.recipe,
+                population=population)
         except ValueError as e:
             raise SystemExit(f"--engine {args.engine}: {e}") from None
 
@@ -336,11 +395,21 @@ def main(argv=None) -> None:
              f"stragglers={args.straggler_rate}, "
              f"churn_seed={args.churn_seed})"
              if population is not None else ""))
-    print(f"device={device}  engine={session.engine_name}"
+    n = world_size()
+    print(f"devices={n}"
+          + (f" ({n} processes, rank {distributed_mod.process_index()})"
+             if n > 1 else "")
+          + f"  engine={session.engine_name}"
+          + (f"  recipe={session.ctx.recipe_name}"
+             if session.engine.name == "spmd" else "")
+          + f"  device={device}"
           + (f"  [resumed at round {session.round}]" if resumed else ""))
 
+    # checkpoints and the sidecar are shared-filesystem side effects: only
+    # the coordinator writes them (every rank restores, and every rank
+    # runs the same save_every segments, so their collectives line up)
     ckpt_dir = args.checkpoint_dir
-    if ckpt_dir:
+    if ckpt_dir and coordinator:
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(os.path.join(ckpt_dir, "driver.json"), "w") as f:
             json.dump(driver_knobs(args, splits), f, indent=1)
@@ -373,7 +442,7 @@ def main(argv=None) -> None:
                   f"stragglers {sum(m.stragglers for m in ms)}  "
                   f"masked {remaining * slots - sum(actives)} "
                   f"(pool of {population.num_clients})")
-        if ckpt_dir:
+        if ckpt_dir and coordinator:
             print(f"checkpoints -> {ckpt_dir} "
                   f"(newest: round {session.round})")
 

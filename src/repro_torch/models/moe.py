@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.models import sharding_ctx
 from repro_torch.models.common import activation, fan_in_init
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
@@ -136,14 +137,21 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xe = xg[:, :, None, :].expand(G, N, k, d).reshape(G, N * k, d)
     rows = xe.gather(1, entry[..., None].expand(G, E * C, d))
     rows = torch.where(valid.reshape(G, E * C, 1), rows, 0)
+    rows = sharding_ctx.constrain(rows, None, "data", "model")
     # the groups folded into each expert's capacity axis: (E, G*C, d)
     buf = rows.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    # expert-parallel placement of the dispatch buffer: the full grid, then
+    # data-only expert parallelism (the JAX package's candidates)
+    buf = sharding_ctx.constrain(buf, [("data", "model"), "data"], None,
+                                 [None, "model"])
 
     # ---- expert FFNs, one batched product over E ---------------------------
     act = activation(cfg.act)
     h = act(torch.matmul(buf, params["w_gate"])) * torch.matmul(
         buf, params["w_up"])
     eout = torch.matmul(h, params["w_down"])                 # (E, G*C, d)
+    eout = sharding_ctx.constrain(eout, [("data", "model"), "data"], None,
+                                  [None, "model"])
     eout = eout.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # ---- combine: each entry's output, added in ascending expert order -----

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import fan_in_init
+from repro_torch.models.sync_stats import batch_mean_var
 
 BN_EPS = 1e-5
 
@@ -96,8 +97,7 @@ def _bn(params: dict, state: dict, x: torch.Tensor, train: bool,
     """BatchNorm over (N, H, W); the new running statistics come out
     detached (they are state, not a function of the parameters)."""
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
+        mean, var = batch_mean_var(x, (0, 2, 3))
         new_state = {
             "mean": (momentum * state["mean"]
                      + (1 - momentum) * mean.detach()),

@@ -163,7 +163,8 @@ def _update_leaf(p, g, m, v, *, lr, cfg: OptimizerConfig, bc1, bc2, clip,
 def adam_update(params: Any, grads: Any, state: AdamState,
                 cfg: OptimizerConfig, lr,
                 lr_scale_tree: Optional[Any] = None, *, lanes: bool = False,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                norms: Optional[torch.Tensor] = None):
     """One Adam step, in place.  ``grads`` has params' structure (``None``
     leaves count as zero gradients); ``lr`` is a float or a 0-d tensor;
     ``lr_scale_tree`` (optional, params' structure or a prefix of it, with
@@ -172,13 +173,18 @@ def adam_update(params: Any, grads: Any, state: AdamState,
     tensor; a host integer is taken for every lane) and the clip norm is
     each lane's own (:func:`lane_norms`).  ``mask`` (with ``lanes``, a
     ``[k]`` 0/1 device tensor): lanes where it is 0 keep their parameters,
-    moments and step unchanged.  Returns ``(params, new_state)``: the same
-    parameter and moment tensors, updated."""
+    moments and step unchanged.  ``norms``: the clip's gradient norms
+    (per lane with ``lanes``), given when ``params``, ``grads`` and the
+    moments are shards of the whole tensors (the spmd engine's sharded
+    update), whose own norms would be partial.  Returns ``(params,
+    new_state)``: the same parameter and moment tensors, updated."""
     if mask is not None and not lanes:
         raise ValueError("adam_update: mask= needs lanes=True")
     clip = None
     if cfg.grad_clip > 0:
-        norm = lane_norms(grads) if lanes else global_norm(grads)
+        norm = norms
+        if norm is None:
+            norm = lane_norms(grads) if lanes else global_norm(grads)
         clip = torch.clamp(cfg.grad_clip / (norm + 1e-9), max=1.0)
     first = next(iter(tree_leaves(params)))
     keep = None

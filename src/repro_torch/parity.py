@@ -425,6 +425,40 @@ def dropped_lane():
         fused_engine.stacked_cross_layer_aggregate = real
 
 
+@contextmanager
+def unreduced_lanes():
+    """A control: the spmd engine's Eq. (1) divides each rank's partial
+    sums over its own lanes, without summing them over the lanes group,
+    while the block runs."""
+    from repro_torch.api import spmd_engine
+    real = spmd_engine.partial_cross_layer_aggregate
+
+    def fault(stacked, lanes, counts, owned, reduce, masks=None):
+        return real(stacked, lanes, counts, owned, lambda ts: None, masks)
+
+    spmd_engine.partial_cross_layer_aggregate = fault
+    try:
+        yield
+    finally:
+        spmd_engine.partial_cross_layer_aggregate = real
+
+
+@contextmanager
+def unsynced_batch_stats():
+    """A control: under a data split the spmd engine's BatchNorm takes
+    each rank's batch statistics of its own rows, while the block runs."""
+    import contextlib
+
+    from repro_torch.api import spmd_engine
+    real = spmd_engine.synced_batch_stats
+    spmd_engine.synced_batch_stats = (
+        lambda *a, **kw: contextlib.nullcontext())
+    try:
+        yield
+    finally:
+        spmd_engine.synced_batch_stats = real
+
+
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card
 # tests): BackboneSplitModel on the bf16 smokes at full head width, two
 # lanes at each of glm4-9b's cuts 1 and 2, three at rwkv6-3b's one cut 2,
@@ -449,12 +483,14 @@ LANE_CROSS_BATCH = 4
 
 
 def backbone_session(family: str, kernels: str, device, state=None, *,
-                     engine: str = "fused", population: bool = False):
+                     engine: str = "fused", population: bool = False,
+                     mesh=None):
     """A ``TrainSession`` of ``BackboneSplitModel`` on ``family``'s bf16
     smoke with ``kernels`` ("auto": the kernels; "ref": the plain
     versions), rwkv6 decays and bonus made live (:func:`live_rwkv`).
     ``population``: the lanes draw from a churning population of twice as
-    many clients (:data:`POP_CHURN`) over a dataset twice the size."""
+    many clients (:data:`POP_CHURN`) over a dataset twice the size.
+    ``mesh``: the spmd engine's (with ``engine="spmd"``)."""
     from repro_torch import configs
     from repro_torch.api.session import TrainSession
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
@@ -482,7 +518,8 @@ def backbone_session(family: str, kernels: str, device, state=None, *,
         model, SplitEEConfig(profile=HeteroProfile(splits),
                              strategy="averaging"),
         OptimizerConfig(lr=TRAIN_LR, total_steps=2 * LANE_ROUNDS),
-        data, LANE_BATCH, engine=engine, state=state, population=pop)
+        data, LANE_BATCH, engine=engine, state=state, population=pop,
+        mesh=mesh)
 
 
 def cohort_first_grads(sess) -> List[Optional[torch.Tensor]]:

@@ -732,8 +732,17 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     with pytest.raises(SystemExit, match="--resume mismatch"):
         train_cli.main(_CLI + ["--rounds", "8", "--checkpoint-dir", ckdir,
                                "--resume", "--arch", "glm4_9b", "--smoke"])
-    with pytest.raises(SystemExit, match="item 9"):
-        train_cli.main(_CLI + ["--host-devices", "4"])
+    # the same run resumed on 4 host ranks: the spmd engine over the
+    # default data mesh, rank 0's output printed
+    train_cli.main(_CLI + ["--rounds", "8", "--checkpoint-dir", ckdir,
+                           "--resume", "--host-devices", "4"])
+    out = capsys.readouterr().out
+    assert "devices=4 (4 processes, rank 0)  engine=spmd  recipe=greedy" \
+        in out
+    assert "[resumed at round 7]" in out and "trained 1 rounds" in out
+    with pytest.raises(SystemExit, match="does not divide the 4 devices"):
+        train_cli.main(_CLI + ["--rounds", "9", "--host-devices", "4",
+                               "--lanes", "3"])
 
 
 def test_e2e_train_checkpoint_loads_in_jax(tmp_path):

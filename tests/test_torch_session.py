@@ -437,8 +437,8 @@ def test_engine_resolution_and_its_errors(mlp):
     sess = TrainSession(mlp["port"], tsc, toc, mlp["data"], BATCH)
     assert sess.engine.name == "fused"
     assert sess.engine_name.startswith("fused (spmd unavailable: ")
-    assert "item 9" in sess.engine_name
-    assert tapi.available_engines() == ("fused", "reference")
+    assert "only 1 rank" in sess.engine_name
+    assert tapi.available_engines() == ("fused", "reference", "spmd")
     # Sequential is ordered across clients: auto falls back to reference
     seq = TrainSession(mlp["port"], SplitEEConfig(HeteroProfile(SPLITS),
                                                   strategy="sequential"),
@@ -446,13 +446,21 @@ def test_engine_resolution_and_its_errors(mlp):
     assert seq.engine.name == "reference"
     assert "fused unavailable: supports averaging/distributed only" in \
         seq.engine_name
-    with pytest.raises(ValueError, match="item 9"):
+    # the spmd engine needs ranks: one process is a world of one
+    with pytest.raises(ValueError, match="needs a mesh"):
         TrainSession(mlp["port"], tsc, toc, mlp["data"], BATCH,
                      engine="spmd")
     with pytest.raises(ValueError, match="unknown engine"):
         tapi.get_engine("nope")
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(recipe="greedy"), "item 9"),
+    # mesh= and recipe= are taken (the one-rank mesh leaves auto on fused)
+    from repro_torch.launch.mesh import MeshSpec
+    one = TrainSession.from_config(mlp["port"], tsc, toc, mlp["data"], BATCH,
+                                   mesh=MeshSpec((1, 1), ("data", "model")),
+                                   recipe="fsdp-off")
+    assert one.engine.name == "fused" and "no parallelism" in \
+        one.engine_name
+    assert one.ctx.recipe_name == "fsdp-off"
+    for kw, item in ((dict(recipe="nope"), "unknown sharding recipe"),
                      (dict(population=object()),
                       "either client_data or population")):
         with pytest.raises(ValueError, match=item):

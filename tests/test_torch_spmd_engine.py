@@ -1,0 +1,427 @@
+"""The port's spmd engine (``repro_torch.api.spmd_engine``) over 2 and 4
+CPU ranks (gloo), held against the JAX package's fused engine and the
+port's own.
+
+The ranks are spawned once per world size (``launch.hostdevices``) in a
+module fixture that runs every leg of ``tests/torch_spmd_legs.py``; each
+leg's result, or its traceback, is stored under its own key, so one broken
+leg fails its own tests only.  Limits:
+
+  * lanes spread over ranks, no data split: 1e-5 against the port's and
+    the JAX package's fused engines (the engine-equivalence bound);
+  * a data split (FSDP on and off): 1e-4, the JAX spmd tests' own
+    reduction-order bound (tests/test_spmd_engine.py);
+  * the float64 ResNet with BatchNorm under a data split: 1e-6 against the
+    JAX fused engine, and the same run with per-rank statistics must miss
+    it;
+  * the population run: tests/test_torch_population.py's MLP bound, 1e-5.
+
+The refusals (``SpmdEngine.supports``) are compared with the JAX engine's
+in this process, on device-free ``MeshSpec``s.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_spmd_legs as legs
+from repro.api import TrainSession as JaxSession
+from repro.api.engines import SessionContext as JContext
+from repro.api.spmd_engine import SpmdEngine as JSpmd
+from repro.config import HeteroProfile as JHeteroProfile
+from repro.config import OptimizerConfig as JOptimizerConfig
+from repro.config import SplitEEConfig as JSplitEEConfig
+from repro.core import splitee as jsplitee
+from repro.launch.mesh import MeshSpec as JMeshSpec
+from repro.models import resnet as jresnet
+from repro.population import ClientPopulation as JPopulation
+from repro_torch.api import TrainSession
+from repro_torch.api.engines import SessionContext
+from repro_torch.api.spmd_engine import SpmdEngine
+from repro_torch.convert import split_net_to_jax, split_state_from_jax
+from repro_torch.data.pipeline import ClientPartitioner
+from repro_torch.data.synthetic import SyntheticImageDataset
+from repro_torch.launch.hostdevices import HostRanks
+from repro_torch.launch.mesh import MeshSpec
+
+TOL_LANES = 1e-5
+TOL_DATA = 1e-4
+TOL_F64 = 1e-6
+TOL_POP = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """At most two torch threads in this process (tests/test_torch_fused.py
+    says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_keyed(state):
+    return {"/".join(str(p) for p in path): (
+        np.asarray(leaf, np.float64) if np.asarray(leaf).dtype.kind == "f"
+        else np.asarray(leaf))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(state)[0]}
+
+
+def _gap(a, b):
+    """The largest element gap of two keyed states; integer leaves (Adam
+    steps, round, draw counts) must be equal."""
+    assert set(a) == set(b)
+    gap = 0.0
+    for k in a:
+        if a[k].dtype.kind in "iu":
+            assert np.array_equal(a[k], b[k]), k
+        elif a[k].size:
+            gap = max(gap, float(np.max(np.abs(a[k] - b[k]))))
+    return gap
+
+
+def _loss_gap(ha, hb):
+    assert len(ha) == len(hb)
+    return max(max(abs(a[0] - b[0]), abs(a[1] - b[1]))
+               for a, b in zip(ha, hb))
+
+
+def _jhist(h):
+    return [(m.client_loss, m.server_loss, m.active_clients, m.stragglers)
+            for m in h]
+
+
+@dataclasses.dataclass
+class _JaxResNet(jsplitee.ResNetSplitModel):
+    """The JAX adapter holding the port model's initial weights (the JAX
+    init compiles for seconds in float64; the runs are compared from one
+    state either way)."""
+
+    port: object = None
+
+    def __post_init__(self):
+        self.full_params = _to_jax(self.port.full_params)
+        self.full_state = _to_jax(self.port.full_state)
+
+    def make_client(self, li):
+        return _to_jax(self.port.make_client(li))
+
+
+def _to_jax(tree):
+    return jax.tree.map(jnp.asarray, split_net_to_jax(tree))
+
+
+def _wide_bn(js):
+    """The JAX ResNet's BatchNorm statistics started in float64 (the
+    scanned carry refuses a dtype change)."""
+    wide = lambda nets: tuple(  # noqa: E731
+        {**n, "state": jax.tree.map(lambda a: a.astype(jnp.float64),
+                                    n["state"])} for n in nets)
+    js.state = js.state.replace(clients=wide(js.state.clients),
+                                servers=wide(js.state.servers))
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    """The inputs of every leg, the ranks of both world sizes started on
+    them, then the JAX package's fused runs while the ranks work."""
+    tmp = tmp_path_factory.mktemp("spmd")
+    out = {"tmp": str(tmp)}
+    data = legs.mlp_data()
+    js = JaxSession.from_config(
+        jsplitee.MLPSplitModel(16, 32, 3, num_layers=4),
+        JSplitEEConfig(profile=JHeteroProfile(legs.MLP_SPLITS),
+                       aggregate_every=legs.MLP_AGG),
+        JOptimizerConfig(lr=legs.MLP_LR, total_steps=30), data,
+        legs.MLP_BATCH, engine="fused")
+    out["mlp_data"] = data
+    out["mlp_start"] = split_state_from_jax(js.state, legs.mlp_model())
+    out["jax_ckpt"] = str(tmp / "jax-ckpt")
+    js.save(out["jax_ckpt"])                      # a JAX checkpoint, round 0
+    ds = SyntheticImageDataset(num_classes=10,
+                               image_size=legs.RES_CFG["image_size"],
+                               train_size=4 * 2 * legs.RES_BATCH,
+                               test_size=8, seed=0)
+    out["res_data"] = [(x.astype(np.float64), y)
+                       for x, y in ClientPartitioner(4).split(*ds.train)]
+    with jax.enable_x64(True):
+        jr = JaxSession.from_config(
+            _JaxResNet(dataclasses.replace(
+                jresnet.ResNetConfig(**legs.RES_CFG), dtype=jnp.float64),
+                port=legs.resnet_model()),
+            JSplitEEConfig(profile=JHeteroProfile(legs.RES_SPLITS)),
+            JOptimizerConfig(lr=legs.RES_LR, total_steps=20,
+                             state_dtype=jnp.float64),
+            out["res_data"], legs.RES_BATCH, engine="fused")
+        jr.engine.overlap_staging = False
+        _wide_bn(jr)
+        out["res_start"] = split_state_from_jax(jr.state, legs.resnet_model())
+    x, y = legs.pop_data()
+    jp = JaxSession.from_config(
+        jsplitee.MLPSplitModel(16, 32, 3, num_layers=4),
+        JSplitEEConfig(profile=JHeteroProfile(legs.POP_SLOTS)),
+        JOptimizerConfig(lr=3e-3, total_steps=30), None,
+        batch_size=legs.POP_BATCH, engine="fused",
+        population=JPopulation.dirichlet(
+            x, y, 10, legs.POP_SLOTS, alpha=0.5, seed=0,
+            min_shard=legs.POP_BATCH, **legs.CHURN))
+    out["pop_start"] = split_state_from_jax(jp.state, legs.mlp_model())
+
+    ranks = {w: HostRanks(w, legs.run_legs, (w, dict(out)), device="cpu",
+                          timeout=900) for w in (2, 4)}
+    try:
+        js.train(legs.MLP_ROUNDS)
+        out["mlp_want"] = (_jax_keyed(js.state), _jhist(js.history))
+        with jax.enable_x64(True):
+            jr.train(legs.RES_ROUNDS)
+            out["res_want"] = (_jax_keyed(jr.state), _jhist(jr.history))
+        jp.train(legs.POP_ROUNDS, legs.POP_EPOCHS, chunk_rounds=4)
+        out["pop_want"] = (_jax_keyed(jp.state), _jhist(jp.history))
+        # the port's fused engine on the tiny dense backbone
+        out["backbone_want"] = legs.backbone_run("fused")
+    finally:
+        out["ranks"] = {w: [r for _, r in h.wait()] for w, h in ranks.items()}
+    return out
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def runs(request, refs):
+    """Every leg's result on ``world`` ranks: ``(world, [per rank])``."""
+    return request.param, refs["ranks"][request.param]
+
+
+def _leg(runs, name):
+    world, ranks = runs
+    res = ranks[0][name]
+    assert "error" not in res, res["error"]
+    return world, res
+
+
+def _reading(what, world, gaps):
+    print(f"reading {what} world {world}: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+
+
+# ---------------------------------------------------------------------------
+# the MLP: lanes, data split, Eq. (1), sum mode
+# ---------------------------------------------------------------------------
+
+
+def test_lanes_match_both_fused_engines(runs, refs):
+    world, res = _leg(runs, "lanes")
+    want, jh = refs["mlp_want"]
+    gaps = {"vs JAX fused": _gap(res["state"], want),
+            "losses vs JAX": _loss_gap(res["history"], jh),
+            "vs port fused": _gap(res["state"], res["fused"]),
+            "losses vs port": _loss_gap(res["history"],
+                                        res["fused_history"])}
+    _reading("mlp lanes", world, gaps)
+    assert res["engine"] == "spmd"
+    assert max(gaps.values()) <= TOL_LANES, gaps
+
+
+@pytest.mark.parametrize("leg", ["data_fsdp", "data_nofsdp"])
+def test_data_split_matches_jax_fused(runs, refs, leg):
+    world, res = _leg(runs, leg)
+    want, jh = refs["mlp_want"]
+    gaps = {"state": _gap(res["state"], want),
+            "losses": _loss_gap(res["history"], jh)}
+    _reading(f"mlp {leg}", world, gaps)
+    assert res["engine"] == "spmd"
+    assert max(gaps.values()) <= TOL_DATA, gaps
+
+
+def test_skipped_eq1_lane_reduce_is_rejected(runs, refs):
+    """The planted fault: Eq. (1)'s partial sums not summed over the lanes
+    group.  The lanes comparison must see it."""
+    world, res = _leg(runs, "lanes_eq1_fault")
+    gap = _gap(res["state"], refs["mlp_want"][0])
+    _reading("mlp eq1 lanes fault", world, {"state": gap})
+    assert gap > TOL_LANES
+
+
+def test_sum_mode_converges(runs):
+    world, res = _leg(runs, "sum")
+    h = res["history"]
+    assert all(np.isfinite(v) for m in h for v in m[:2])
+    assert h[-1][0] < h[0][0] and h[-1][1] < h[0][1], h
+
+
+def test_ranks_hold_the_same_results(runs):
+    world, ranks = runs
+    for name in ("lanes", "data_fsdp", "resnet", "population"):
+        a = ranks[0][name]
+        assert "error" not in a, a["error"]
+        for other in ranks[1:]:
+            b = other[name]
+            assert b["history"] == a["history"], name
+            assert _gap(a["state"], b["state"]) == 0.0, name
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm under a data split
+# ---------------------------------------------------------------------------
+
+
+def test_resnet_synced_batchnorm_matches_jax(runs, refs):
+    world, res = _leg(runs, "resnet")
+    want, jh = refs["res_want"]
+    gaps = {"state": _gap(res["state"], want),
+            "losses": _loss_gap(res["history"], jh)}
+    _reading("resnet f64 data split", world, gaps)
+    assert max(gaps.values()) <= TOL_F64, gaps
+
+
+def test_resnet_per_rank_statistics_are_rejected(runs, refs):
+    world, res = _leg(runs, "resnet_bn_fault")
+    gap = _gap(res["state"], refs["res_want"][0])
+    _reading("resnet per-rank BatchNorm fault", world, {"state": gap})
+    assert gap > TOL_F64
+
+
+# ---------------------------------------------------------------------------
+# populations, the backbone, shards
+# ---------------------------------------------------------------------------
+
+
+def test_population_matches_jax(runs, refs):
+    world, res = _leg(runs, "population")
+    want, jh = refs["pop_want"]
+    gaps = {"state": _gap(res["state"], want),
+            "losses": _loss_gap(res["history"], jh)}
+    _reading("population masked spmd", world, gaps)
+    assert res["engine"] == "spmd"
+    assert max(gaps.values()) <= TOL_POP, gaps
+    assert [m[2:] for m in res["history"]] == [m[2:] for m in jh]
+
+
+def test_backbone_under_lanes_matches_fused(runs, refs):
+    world, res = _leg(runs, "backbone")
+    want = refs["backbone_want"]
+    gaps = {"state": _gap(res["state"], want["state"]),
+            "losses": _loss_gap(res["history"], want["history"])}
+    _reading("glm4 smoke lanes vs fused", world, gaps)
+    assert res["engine"] == "spmd" and want["engine"] == "fused"
+    assert max(gaps.values()) <= TOL_LANES, gaps
+
+
+def test_lane_fsdp_shards_are_real(runs):
+    """Every stored leaf holds 1/size of the whole cohort tensor where its
+    spec splits it: its lanes and its chunk of every sharded dim."""
+    world, res = _leg(runs, "shards")
+    sizes = res["sizes"]
+    split = 0
+    for li, path, shape, spec, numel, whole in res["leaves"]:
+        n = 1
+        for entry in spec:
+            for a in legs._axes(entry):
+                n *= sizes[a]
+        assert numel * n == whole, (li, path, shape, spec)
+        split += any(e is not None for e in spec[1:])
+    assert split > 0
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def test_resume_across_recipes_and_engines(runs):
+    world, res = _leg(runs, "resume")
+    assert res["replicate_engine"] == "spmd"
+    assert res["replicate_recipe"] == "replicate"
+    assert res["fused_engine"] == "fused"
+    for name in ("replicate", "fused"):
+        gaps = {"state": _gap(res[name], res["full"]),
+                "losses": _loss_gap(res[f"{name}_history"],
+                                    res["full_history"])}
+        _reading(f"resume under {name}", world, gaps)
+        assert max(gaps.values()) <= TOL_DATA, (name, gaps)
+
+
+def test_only_the_coordinator_wrote_the_checkpoint(runs):
+    world, res = _leg(runs, "resume")
+    assert res["files"] == ["ckpt-00000002.json", "ckpt-00000002.npz"]
+
+
+def test_spmd_checkpoint_loads_in_jax(runs):
+    """The spmd run's round-2 checkpoint restores in the JAX package, every
+    leaf equal to the state the ranks held."""
+    world, res = _leg(runs, "resume")
+    js = JaxSession.restore(res["ckpt"],
+                            jsplitee.MLPSplitModel(16, 32, 3, num_layers=4),
+                            legs.mlp_data(), engine="fused")
+    assert _gap(_jax_keyed(js.state), res["saved"]) == 0.0
+    assert js.ctx.recipe_name == "custom"
+
+
+def test_jax_checkpoint_resumes_under_spmd(runs, refs):
+    world, res = _leg(runs, "jax_checkpoint")
+    want, jh = refs["mlp_want"]
+    gaps = {"state": _gap(res["state"], want),
+            "losses": _loss_gap(res["history"], jh)}
+    _reading("JAX checkpoint resumed under spmd", world, gaps)
+    assert res["engine"] == "spmd" and res["recipe"] == "greedy"
+    assert max(gaps.values()) <= TOL_LANES, gaps
+
+
+# ---------------------------------------------------------------------------
+# refusals, reason for reason
+# ---------------------------------------------------------------------------
+
+LDM = ("lanes", "data", "model")
+
+
+@pytest.mark.parametrize("mesh,recipe,batch,phrase", [
+    (None, None, 32, "needs a mesh"),
+    (((2, 1, 1), LDM), "replicate", 32, "only has parallelism on its lanes"),
+    (((1, 1), ("data", "model")), None, 32, "has no parallelism"),
+    (((3, 1), ("data", "model")), None, 32, "does not divide over the "
+                                            "data-parallel size"),
+    (((3, 1, 1), LDM), None, 30, "divides no cohort's lane count"),
+], ids=["no-ranks", "lanes-disabled", "no-parallelism", "batch",
+        "lanes-divide-none"])
+def test_refusals_mirror_jax(mesh, recipe, batch, phrase):
+    data = legs.mlp_data()
+    jm = None if mesh is None else JMeshSpec(*mesh)
+    tm = None if mesh is None else MeshSpec(*mesh)
+    jctx = JContext(jsplitee.MLPSplitModel(16, 32, 3, num_layers=4),
+                    JSplitEEConfig(profile=JHeteroProfile(legs.MLP_SPLITS)),
+                    JOptimizerConfig(), data, batch, mesh=jm, recipe=recipe)
+    tctx = SessionContext(legs.mlp_model(),
+                          legs.mlp_configs()[0], legs.mlp_configs()[1], data,
+                          batch, mesh=tm, recipe=recipe)
+    jr, tr = JSpmd.supports(jctx), SpmdEngine.supports(tctx)
+    assert jr is not None and phrase in jr, jr
+    assert tr is not None and phrase in tr, tr
+    with pytest.raises(ValueError, match=phrase.split("'")[0]):
+        TrainSession(legs.mlp_model(), *legs.mlp_configs(), data, batch,
+                     engine="spmd", mesh=tm, recipe=recipe)
+
+
+def test_mesh_of_another_size_and_moe_data_split_are_refused():
+    """The port's two further reasons: a mesh that does not match the
+    world, and a data split of a mixture-of-experts model."""
+    data = legs.mlp_data()
+    tctx = SessionContext(legs.mlp_model(), *legs.mlp_configs(), data, 32,
+                          mesh=MeshSpec((2, 1), ("data", "model")))
+    assert "the torch.distributed world has 1" in SpmdEngine.supports(tctx)
+    from repro_torch.configs import qwen3_moe_235b_a22b
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    moe = BackboneSplitModel(qwen3_moe_235b_a22b.smoke(), device="cpu")
+    tctx = SessionContext(moe, legs.mlp_configs()[0].__class__(
+        profile=legs.mlp_configs()[0].profile.__class__(
+            (sorted(moe.cfg.exit_layers)[0],) * 4)),
+        legs.mlp_configs()[1], data, 32,
+        mesh=MeshSpec((2, 1), ("data", "model")))
+    assert "mixture-of-experts" in SpmdEngine.supports(tctx)
+
+
+def test_unknown_recipe_dies_at_the_facade():
+    with pytest.raises(ValueError, match="unknown sharding recipe"):
+        SessionContext(legs.mlp_model(), *legs.mlp_configs(),
+                       legs.mlp_data(), 32, recipe="nope")
+

@@ -1,0 +1,309 @@
+"""Rank-side legs of the port's spmd engine tests (imported by the spawned
+ranks of ``tests/test_torch_spmd_engine.py``; it imports no JAX).
+
+``run_legs(world, inputs)`` runs every leg on this rank and returns
+``{leg: result}``, a leg that raised holding ``{"error": traceback}``: one
+broken leg fails its own tests only.  Results are numpy (keyed states in
+the JAX package's layout, loss histories) so the test process compares
+them with the JAX package's runs.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.api import TrainSession
+from repro_torch.checkpoint import key_paths
+from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
+from repro_torch.configs import glm4_9b
+from repro_torch.convert import state_to_jax
+from repro_torch.core import splitee as tsplitee
+from repro_torch.core.backbone_splitee import BackboneSplitModel
+from repro_torch.data.synthetic import SyntheticSeqClsDataset
+from repro_torch.data.pipeline import ClientPartitioner
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.shardings import (ShardingRecipe, spec_leaves,
+                                          tree_paths)
+from repro_torch.parity import unreduced_lanes, unsynced_batch_stats
+from repro_torch.models.resnet import ResNetConfig
+from repro_torch.population import ClientPopulation
+
+LDM = ("lanes", "data", "model")
+
+#: the MLP setting: Eq. (1) across an aggregate_every=2 boundary
+MLP_SPLITS, MLP_ROUNDS, MLP_BATCH, MLP_LR, MLP_AGG = (1, 1, 2, 2), 4, 32, \
+    3e-3, 2
+#: the float64 ResNet setting (BatchNorm under a data split)
+RES_SPLITS, RES_ROUNDS, RES_BATCH, RES_LR = (3, 3, 3, 3), 2, 8, 3e-5
+RES_CFG = dict(num_classes=10, width_mult=0.125, image_size=8)
+#: the population setting (tests/test_torch_population.py's MLP pair)
+POP_SLOTS, POP_ROUNDS, POP_EPOCHS, POP_BATCH = (1, 1, 2, 2), 6, 2, 32
+CHURN = dict(participation_rate=0.7, churn_seed=3, straggler_rate=0.25)
+#: FSDP that shards the small MLP's matrices (the default recipe keeps
+#: leaves under 65536 elements whole)
+SMALL_FSDP = ShardingRecipe(min_shard_elems=64)
+
+
+def blobs(n, d, classes, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(classes, d)) * 2.0
+    y = rng.integers(0, classes, n).astype(np.int32)
+    x = (centers[y] + rng.normal(size=(n, d))).astype(np.float32)
+    return x, y
+
+
+def mlp_data():
+    return ClientPartitioner(4).split(*blobs(400, 16, 3))
+
+
+def mlp_model():
+    return tsplitee.MLPSplitModel(16, 32, 3, num_layers=4, device="cpu")
+
+
+def mlp_configs(grad_mode_total_steps=30):
+    return (SplitEEConfig(profile=HeteroProfile(MLP_SPLITS),
+                          aggregate_every=MLP_AGG),
+            OptimizerConfig(lr=MLP_LR, total_steps=grad_mode_total_steps))
+
+
+def resnet_model():
+    return tsplitee.ResNetSplitModel(
+        ResNetConfig(dtype=torch.float64, **RES_CFG), device="cpu")
+
+
+def resnet_configs():
+    return (SplitEEConfig(profile=HeteroProfile(RES_SPLITS)),
+            OptimizerConfig(lr=RES_LR, total_steps=20,
+                            state_dtype=torch.float64))
+
+
+def pop_data():
+    return blobs(1200, 16, 3, seed=4)
+
+
+def pop_configs():
+    return (SplitEEConfig(profile=HeteroProfile(POP_SLOTS)),
+            OptimizerConfig(lr=3e-3, total_steps=30))
+
+
+def population():
+    x, y = pop_data()
+    return ClientPopulation.dirichlet(x, y, 10, POP_SLOTS, alpha=0.5, seed=0,
+                                      min_shard=POP_BATCH, **CHURN)
+
+
+def keyed(state, model):
+    """A port state keyed by its JAX-layout paths, as float64 numpy."""
+    return {k: (np.asarray(v, np.float64) if np.asarray(v).dtype.kind == "f"
+                else np.asarray(v))
+            for k, v in key_paths(state_to_jax(state, model))}
+
+
+def history(h):
+    return [(m.client_loss, m.server_loss, m.active_clients, m.stragglers)
+            for m in h]
+
+
+def _meshes(world):
+    """The leg meshes at ``world`` ranks: lanes only (a model axis fills
+    4 ranks), lanes and data (4 ranks) or data only (2 ranks)."""
+    lanes = make_host_mesh((2, 1, world // 2), LDM)
+    data = (make_host_mesh((2, 2, 1), LDM) if world == 4
+            else make_host_mesh((1, 2, 1), LDM))
+    return lanes, data
+
+
+def _mlp_run(inputs, mesh, recipe, *, engine="spmd", grad_mode="eq1",
+             rounds=MLP_ROUNDS, fault=contextlib.nullcontext):
+    sc, oc = mlp_configs()
+    model = mlp_model()
+    s = TrainSession(model, sc, oc, inputs["mlp_data"], MLP_BATCH,
+                     engine=engine, mesh=mesh, recipe=recipe,
+                     grad_mode=grad_mode,
+                     state=copy.deepcopy(inputs["mlp_start"]))
+    with fault():
+        s.train(rounds)
+    return s, model
+
+
+def _result(session, model, **extra):
+    return {"state": keyed(session.state, model),
+            "history": history(session.history),
+            "engine": session.engine_name, **extra}
+
+
+def leg_lanes(world, inputs, meshes):
+    s, m = _mlp_run(inputs, meshes[0], "greedy")
+    f, _ = _mlp_run(inputs, None, None, engine="fused")
+    return _result(s, m, fused=keyed(f.state, m),
+                   fused_history=history(f.history))
+
+
+def leg_lanes_eq1_fault(world, inputs, meshes):
+    s, m = _mlp_run(inputs, meshes[0], "greedy",
+                    fault=unreduced_lanes)
+    return _result(s, m)
+
+
+def leg_data_fsdp(world, inputs, meshes):
+    s, m = _mlp_run(inputs, meshes[1] if world == 4 else None, SMALL_FSDP)
+    return _result(s, m)
+
+
+def leg_data_nofsdp(world, inputs, meshes):
+    s, m = _mlp_run(inputs, meshes[1], "fsdp-off")
+    return _result(s, m)
+
+
+def leg_sum(world, inputs, meshes):
+    s, m = _mlp_run(inputs, meshes[0], "greedy", grad_mode="sum", rounds=8)
+    return _result(s, m)
+
+
+def leg_shards(world, inputs, meshes):
+    """Each stored leaf of the lane+FSDP carry on this rank, with its whole
+    (all lanes, unsharded) element count and its spec."""
+    sc, oc = mlp_configs()
+    s = TrainSession(mlp_model(), sc, oc, inputs["mlp_data"], MLP_BATCH,
+                     engine="spmd", mesh=meshes[1], recipe=SMALL_FSDP,
+                     state=copy.deepcopy(inputs["mlp_start"]))
+    eng = s.engine
+    carry = eng._stack_carry(s.state)
+    out = []
+    for li, parts in carry.items():
+        k = eng._counts[li]
+        for part, specs in zip(parts, eng._specs[li]):
+            for (path, t), spec in zip(tree_paths(part),
+                                       spec_leaves(specs, part)):
+                whole = k
+                for d in range(1, t.ndim):
+                    n = eng.comm.size(_axes(spec[d]))
+                    whole *= t.shape[d] * n
+                out.append((li, path, tuple(t.shape), spec, t.numel(),
+                            whole))
+    return {"leaves": out, "sizes": dict(eng.comm.sizes)}
+
+
+def _axes(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def leg_resume(world, inputs, meshes):
+    """Save at round 2 under lanes+FSDP, restore under "replicate" and
+    under the fused engine; both continuations and the uninterrupted run."""
+    d = os.path.join(inputs["tmp"], f"w{world}")
+    sc, oc = mlp_configs()
+    model = mlp_model()
+    first = TrainSession(model, sc, oc, inputs["mlp_data"], MLP_BATCH,
+                         engine="spmd", mesh=meshes[1], recipe=SMALL_FSDP,
+                         state=copy.deepcopy(inputs["mlp_start"]))
+    first.train(2, save_every=2, save_dir=d)
+    dist.barrier()
+    ckpt = os.path.join(d, "ckpt-00000002")
+    out = {"saved": keyed(first.state, model), "ckpt": ckpt,
+           "files": sorted(os.listdir(d)) if os.path.isdir(d) else []}
+    for name, kw in (("replicate", dict(mesh=meshes[1],
+                                        recipe="replicate")),
+                     ("fused", dict(engine="fused"))):
+        r = TrainSession.restore(ckpt, mlp_model(), inputs["mlp_data"], **kw)
+        out[f"{name}_engine"] = r.engine_name
+        out[f"{name}_recipe"] = r.ctx.recipe_name
+        r.train(2)
+        out[name] = keyed(r.state, model)
+        out[f"{name}_history"] = history(r.history)
+    full, _ = _mlp_run(inputs, meshes[1], SMALL_FSDP)
+    out["full"] = keyed(full.state, model)
+    out["full_history"] = history(full.history)
+    return out
+
+
+def leg_jax_checkpoint(world, inputs, meshes):
+    """A JAX checkpoint (round 0) resumed under the spmd engine."""
+    model = mlp_model()
+    r = TrainSession.restore(inputs["jax_ckpt"], model, inputs["mlp_data"],
+                             engine="spmd", mesh=meshes[0])
+    r.train(MLP_ROUNDS - r.round)
+    return _result(r, model, recipe=r.ctx.recipe_name)
+
+
+def leg_resnet(world, inputs, meshes, fault=contextlib.nullcontext):
+    sc, oc = resnet_configs()
+    model = resnet_model()
+    s = TrainSession(model, sc, oc, inputs["res_data"], RES_BATCH,
+                     engine="spmd", mesh=meshes[1] if world == 4 else None,
+                     state=copy.deepcopy(inputs["res_start"]))
+    with fault():
+        s.train(RES_ROUNDS)
+    return _result(s, model)
+
+
+def leg_resnet_bn_fault(world, inputs, meshes):
+    return leg_resnet(world, inputs, meshes, fault=unsynced_batch_stats)
+
+
+def leg_population(world, inputs, meshes):
+    sc, oc = pop_configs()
+    model = mlp_model()
+    s = TrainSession(model, sc, oc, None, POP_BATCH, engine="spmd",
+                     mesh=meshes[0], population=population(),
+                     state=copy.deepcopy(inputs["pop_start"]))
+    s.train(POP_ROUNDS, POP_EPOCHS, chunk_rounds=4)
+    return _result(s, model)
+
+
+def backbone_setup():
+    """The tiny dense backbone (the glm4-9b smoke, fp32): model factory,
+    configs, client shards and batch size."""
+    cfg = glm4_9b.smoke()
+    cuts = sorted(cfg.exit_layers)
+    splits = (cuts[0], cuts[0], cuts[-1], cuts[-1])
+    ds = SyntheticSeqClsDataset(vocab_size=cfg.vocab_size, seq_len=8,
+                                num_classes=8, train_size=32, test_size=8,
+                                seed=0)
+    return (lambda: BackboneSplitModel(cfg, seed=0, device="cpu"),
+            SplitEEConfig(profile=HeteroProfile(splits)),
+            OptimizerConfig(lr=1e-5, total_steps=10),
+            ClientPartitioner(4).split(*ds.train), 8)
+
+
+def backbone_run(engine, mesh=None):
+    make, sc, oc, parts, batch = backbone_setup()
+    model = make()
+    s = TrainSession(model, sc, oc, parts, batch, engine=engine, mesh=mesh)
+    s.train(2)
+    return _result(s, model)
+
+
+def leg_backbone(world, inputs, meshes):
+    """The tiny dense backbone under lanes (the test process runs the
+    port's fused engine on it)."""
+    return backbone_run("spmd", meshes[0])
+
+
+LEGS = {name[4:]: fn for name, fn in globals().items()
+        if name.startswith("leg_")}
+
+
+def run_legs(world, inputs):
+    torch.manual_seed(0)
+    meshes = _meshes(world)
+    out = {}
+    for name, fn in LEGS.items():
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(world, inputs, meshes)
+        except Exception:                                 # noqa: BLE001
+            out[name] = {"error": traceback.format_exc()}
+        dist.barrier()
+        print(f"leg {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
