@@ -120,6 +120,18 @@ Phases:
            first batch, a
            traced window of 2 steps (rwkv6-3b: then eq1 steps on the plain
            versions, the end-to-end baseline);
+  dryrun   the dry run's step analysis (launch/step_analysis.py) of one
+           real step on the card after warm-up against a fake trace of the
+           same step (FakeTensorMode on fake CPU tensors, as
+           launch/dryrun.py traces one rank): phase train's glm4-9b eq1
+           step (attention forward, dK/dV, dQ), rwkv6-3b whole at 12 x 512
+           with remat (wkv forward and backward) and one select tick of
+           phase main's glm4-9b ServeSession (decode attention, the gate);
+           FLOPs, site FLOPs and site calls equal exactly, site calls equal
+           the wrappers' launch counts, the fake peak within 5 % of the
+           card's allocated peak above the bytes allocated before the
+           step; then the two MLP examples (repro_torch/examples) on the
+           card, the gate kernel launched by both (not main-path counts);
   paper    the paper's loop, fp32 with TF32 off: TrainSession (reference
            engine) on the ResNet smoke, clients cut at (3, 3, 4, 5), on the
            card against the same run on the CPU from one round-0 state,
@@ -212,7 +224,9 @@ Phases:
            attention kernels counted on each rank, each against the fused
            engine on the same card, and two planted faults (Eq. (1)'s lanes
            reduce skipped, per-rank BatchNorm statistics) that must be
-           rejected; ms per round and bytes gathered per step are a record;
+           rejected; ms per round and bytes gathered per step are a record,
+           and the gather plan (api/spmd_engine.unshard_plan, which the dry
+           run reads) must predict the bytes gathered to the byte;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -245,6 +259,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -264,8 +279,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 SRC = Path(__file__).resolve().parent / "src"
-PHASES = ("build", "kernels", "parity", "main", "train", "paper", "fused",
-          "lifecycle", "spmd", "timing")
+PHASES = ("build", "kernels", "parity", "main", "train", "dryrun", "paper",
+          "fused", "lifecycle", "spmd", "timing")
 KERNELS = ("entropy_exit", "flash_attention", "flash_attention_tile",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rwkv_wkv",
            "rwkv_wkv_bwd")
@@ -2365,6 +2380,233 @@ def train_main(state, cfg, profile, T, remat, counters, flops_per_launch,
     return train
 
 
+# phase dryrun: the dry run's step analysis (launch/step_analysis.py) of
+# one real step on the card against a fake trace of the same step
+# (launch/dryrun.py's way: FakeTensorMode on fake CPU tensors, nothing
+# launched).  FLOPs, site FLOPs and site calls must agree exactly, the
+# site calls must equal the wrappers' launch counts, and the fake peak must
+# sit within TOL_DRYRUN_PEAK of the card's allocated peak above the bytes
+# allocated before the step (peaks reset after warm-up; the caching
+# allocator rounds each block up to 512 bytes, and cuBLAS's workspace was
+# allocated in the warm-up)
+TOL_DRYRUN_PEAK = 0.05
+DRYRUN_SERVE_TAU = 2.0
+
+
+def fake_copy(tree):
+    """A fake CPU tensor of each real leaf's shape and dtype (call under the
+    fake mode)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def dryrun_compare(leg: str, real_step, fake_step, counters) -> dict:
+    """``real_step()`` once on the card under the step analysis, the peak
+    reset first, and ``fake_step()`` (which builds its fake inputs under
+    the fake mode and returns the analysis of the same step); checks the
+    readings agree.  ``counters``: site name -> the wrapper whose launches
+    it counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.step_analysis import StepAnalysis
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    launched = {s: w.launches for s, w in counters.items()}
+    t0 = time.perf_counter()
+    with StepAnalysis() as a:
+        real_step()
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    launched = {s: w.launches - launched[s] for s, w in counters.items()}
+    real = a.result()
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = fake_step()
+    fake_s = time.perf_counter() - t0
+    gap = abs(fake["peak_bytes"] - peak) / peak
+    print(f"dryrun {leg}: flops card {real['flops']:.6e} fake "
+          f"{fake['flops']:.6e}; site FLOPs card "
+          f"{sum(real['site_flops'].values()):.6e} fake "
+          f"{sum(fake['site_flops'].values()):.6e}; site calls card "
+          f"{real['site_calls']} fake {fake['site_calls']}; launches "
+          f"{launched}; peak card {peak:,} fake {fake['peak_bytes']:,} "
+          f"bytes ({gap:.4%}); in sites card {real['site_op_flops']:.0f}; "
+          f"hbm bytes card {real['hbm_bytes']:.6e} fake "
+          f"{fake['hbm_bytes']:.6e}; step {real_s:.2f} s under the "
+          f"analysis, fake trace {fake_s:.2f} s")
+    check(real["flops"] == fake["flops"]
+          and real["site_flops"] == fake["site_flops"]
+          and real["site_calls"] == fake["site_calls"],
+          f"dryrun {leg}: the fake trace's flops, site FLOPs and site calls "
+          f"equal the card step's")
+    check(all(real["site_calls"].get(s, 0) == n for s, n in launched.items())
+          and set(real["site_calls"]) <= set(counters)
+          and min(launched.values()) > 0,
+          f"dryrun {leg}: site calls equal the launch counts {launched}")
+    check(real["site_op_flops"] == 0 and fake["site_op_flops"] == 0,
+          f"dryrun {leg}: no aten FLOPs inside the sites on the card or "
+          f"the fake trace")
+    check(gap <= TOL_DRYRUN_PEAK,
+          f"dryrun {leg}: fake peak within {TOL_DRYRUN_PEAK:.0%} of the "
+          f"card's ({gap:.4%})")
+    return dict(flops=real["flops"], site_flops=real["site_flops"],
+                site_calls=real["site_calls"], launches=launched,
+                peak_card=peak, peak_fake=fake["peak_bytes"], peak_gap=gap,
+                hbm_bytes=real["hbm_bytes"], step_s=real_s, fake_s=fake_s)
+
+
+def dryrun_train_leg(leg, cfg, profile, T, remat, counters, warm=2) -> dict:
+    """``make_train_step`` (eq1) of ``cfg`` at 12 x ``T`` on the card after
+    ``warm`` steps, against its fake trace."""
+    from repro_torch.config import OptimizerConfig, SplitEEConfig, TrainConfig
+    from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
+                                       make_train_step)
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch.inputs import abstract_params
+    from repro_torch.launch.step_analysis import StepAnalysis
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.models.frontend import frontend_batch
+    from repro_torch.optim import adam_init
+
+    opt_cfg = OptimizerConfig(lr=3e-4, total_steps=warm + 2)
+    sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
+                    train=TrainConfig(optimizer=opt_cfg, remat=remat),
+                    grad_mode="eq1")
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adam_init(params, opt_cfg)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=T, seed=0)
+    sids = boundary_ids_for_batch(profile, cfg, TRAIN_B, "cuda")
+    feats = np.random.default_rng(0)
+    batches = [{**frontend_batch(cfg, t, lab, feats, "cuda"),
+                "split_ids": sids}
+               for t, lab in ds.batches(TRAIN_B, warm + 1)]
+    step = make_train_step(sc)
+    for b in batches[:warm]:
+        params, opt, _ = step(params, opt, b)
+    del b
+    last = batches[-1]
+
+    def real_step():
+        step(params, opt, last)
+
+    def fake_step():
+        fp = fake_copy(abstract_params(cfg))
+        fo = adam_init(fp, opt_cfg)
+        fb = fake_copy(last)
+        with StepAnalysis() as a:
+            make_train_step(sc)(fp, fo, fb)
+        return a.result()
+
+    out = dryrun_compare(leg, real_step, fake_step, counters)
+    del params, opt, batches, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_serve_leg(leg, cfg) -> dict:
+    """One select tick of a ``ServeSession`` of ``cfg`` (phase main's 8
+    slots over ``MAX_LEN`` pages) on the card after 4 requests were
+    served, against the same tick of a session on fake tensors: the
+    session's full tick (``make_serve_step``: every layer's decode
+    attention, the gate at the first exit)."""
+    from repro_torch.api.serve_session import ServeSession
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.inputs import abstract_params
+    from repro_torch.launch.step_analysis import StepAnalysis
+    from repro_torch.models.backbone import init_backbone
+
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sess = ServeSession(cfg, params, tau=DRYRUN_SERVE_TAU, slots=SLOTS,
+                        max_len=MAX_LEN)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        sess.submit(rng.integers(0, cfg.vocab_size, 16), decode_tokens=2)
+    sess.run()
+    tau = torch.full((SLOTS,), DRYRUN_SERVE_TAU, dtype=torch.float32,
+                     device="cuda")
+
+    def real_step():
+        sess._full_tick(tau)
+
+    def fake_step():
+        fs = ServeSession(cfg, fake_copy(abstract_params(cfg)),
+                          tau=DRYRUN_SERVE_TAU, slots=SLOTS, max_len=MAX_LEN,
+                          device="cpu")
+        ftau = torch.full((SLOTS,), DRYRUN_SERVE_TAU, dtype=torch.float32)
+        with StepAnalysis() as a:
+            fs._full_tick(ftau)
+        return a.result()
+
+    out = dryrun_compare(leg, real_step, fake_step,
+                         {"attention_fwd": flash_attention,
+                          "gate": entropy_exit})
+    del sess, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_examples(state) -> None:
+    """The two MLP examples on the card (``repro_torch/examples``): finite
+    losses, and the gate kernel launched by quickstart's
+    ``evaluate_adaptive`` and by the adaptive router."""
+    from repro_torch.examples import adaptive_serving, quickstart
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    n0 = entropy_exit.launches
+    t0 = time.perf_counter()
+    sess = quickstart.main(log_every=0)
+    n1 = entropy_exit.launches
+    losses = [(m.client_loss, m.server_loss) for m in sess.history]
+    print(f"dryrun example quickstart on the card: {sess.engine_name}, "
+          f"{len(losses)} rounds, last losses {losses[-1][0]:.4f}/"
+          f"{losses[-1][1]:.4f}, {n1 - n0} gate launches, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(math.isfinite(x) for pair in losses for x in pair)
+          and n1 - n0 > 0 and losses[-1][1] < losses[0][1],
+          "dryrun example quickstart: finite falling losses, the gate "
+          "kernel launched by evaluate_adaptive")
+    t0 = time.perf_counter()
+    table = adaptive_serving.main()
+    n2 = entropy_exit.launches
+    print(f"dryrun example adaptive_serving on the card: {n2 - n1} gate "
+          f"launches, {time.perf_counter() - t0:.1f} s")
+    check(n2 - n1 > 0 and all(0.0 <= acc <= 1.0 for acc, _, _ in
+                              table.values()),
+          "dryrun example adaptive_serving: the gate kernel routed the "
+          "requests")
+    state["dryrun_examples"] = dict(quickstart_gate_launches=n1 - n0,
+                                    adaptive_gate_launches=n2 - n1)
+
+
+def phase_dryrun(state):
+    from repro_torch.configs import glm4_9b, rwkv6_3b
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.launch.e2e_train import cut_depth, full_depth
+
+    out = state.setdefault("dryrun", {})
+    # phase train's glm4-9b leg: published widths, 8 layers, 12 x 128, eq1
+    cfg, profile = cut_depth(glm4_9b.config(), TRAIN_LAYERS)
+    out["glm4-9b train"] = dryrun_train_leg(
+        "glm4-9b train", cfg, profile, TRAIN_T, "none",
+        {"attention_fwd": flash_attention,
+         "attention_dkv": flash_attention_bwd_dkv,
+         "attention_dq": flash_attention_bwd_dq})
+    # rwkv6-3b whole, 12 x 512, remat
+    cfg, profile = full_depth(rwkv6_3b.config())
+    out["rwkv6-3b train"] = dryrun_train_leg(
+        "rwkv6-3b train", cfg, profile, RWKV_T, "full",
+        {"wkv_fwd": rwkv_wkv, "wkv_bwd": rwkv_wkv_bwd})
+    # one select tick of phase main's glm4-9b ServeSession
+    out["glm4-9b serve tick"] = dryrun_serve_leg("glm4-9b serve tick",
+                                                 glm4_9b.config())
+    dryrun_examples(state)
+
+
 # phase paper: the full-width leg (resnet18_cifar.config("cifar10"), the
 # paper's 12 clients at cuts 3/4/5, batch 64, lr 3e-3 as the JAX package's
 # benchmarks train it)
@@ -3709,6 +3951,7 @@ def spmd_rank(backend: str) -> dict:
         res[leg] = dict(state=sess.state, hist=hist, ms=ms,
                         engine=sess.engine_name, dp=sess.engine._dp,
                         gathered=sess.engine.last_gathered_bytes_per_step,
+                        planned=sess.engine.planned_gathered_bytes_per_step(),
                         acc=float(np.mean(ad["acc"])))
         print(f"spmd ResNet {leg} ({sess.engine_name}, {sess.engine._dp} "
               f"batch ranks): losses " + ", ".join(
@@ -3716,7 +3959,8 @@ def spmd_rank(backend: str) -> dict:
               + f"; ms per round " + ", ".join(f"{m:.1f}" for m in ms)
               + f" ({images / ms[-1] * 1e3:,.0f} images/s in the last); "
               f"bytes gathered per cohort step on this rank "
-              f"{res[leg]['gathered']:,.0f}; mean adaptive acc "
+              f"{res[leg]['gathered']:,.0f} (the gather plan predicts "
+              f"{res[leg]['planned']:,.0f}); mean adaptive acc "
               f"{res[leg]['acc']:.4f} at tau 1")
         del sess
     bb = backbone_session("glm4_9b", "auto", "cuda", engine="spmd",
@@ -3774,8 +4018,14 @@ def spmd_rank(backend: str) -> dict:
                            f"spmd ResNet {leg} ({r['engine']}) = fused: "
                            f"losses {dl:.2e} <= {tl:g}, drift {dd:.2e} <= "
                            f"{tp:g}"))
-            out[leg] = dict(ms=r["ms"], gathered=r["gathered"], dloss=dl,
-                            drift=d, dp=r["dp"])
+            checks.append((r["planned"] == r["gathered"],
+                           f"spmd ResNet {leg}: the gather plan "
+                           f"(api/spmd_engine.unshard_plan) predicts the "
+                           f"bytes gathered per step, {r['planned']:,.0f} "
+                           f"= {r['gathered']:,.0f}"))
+            out[leg] = dict(ms=r["ms"], gathered=r["gathered"],
+                            planned=r["planned"], dloss=dl, drift=d,
+                            dp=r["dp"])
         # the same data leg in float64: two orders of magnitude closer shows
         # the fp32 gap is rounding
         dl32, dd32 = out["data"]["dloss"], max(out["data"]["drift"]["clients"],
@@ -4323,6 +4573,11 @@ def main() -> int:
         except Exception:       # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
+            # the failed phase's tensors go with its frames: hand their
+            # cached blocks back before the next phase (phase spmd's ranks
+            # are processes of their own)
+            gc.collect()
+            torch.cuda.empty_cache()
         print(f"== {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     unlaunched = [k for k in KERNELS

@@ -65,6 +65,7 @@ from repro_torch.core.aggregation import partial_cross_layer_aggregate
 from repro_torch.core.spmd import make_cohort_grad_step
 from repro_torch.core.strategies import masked_update
 from repro_torch.data.pipeline import effective_batch_size
+from repro_torch.kernels import sites
 from repro_torch.launch.mesh import (MeshSpec, as_spec, axis_sizes,
                                      batch_axes, lane_axis, live_mesh,
                                      world_size)
@@ -142,6 +143,113 @@ def carry_specs(recipe, mesh, carry, model):
     return port_specs(specs, carry, cfg, lead=1)
 
 
+# ---------------------------------------------------------------------------
+# the collectives of a step, as pure functions of shapes, specs and the mesh
+# ---------------------------------------------------------------------------
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _elsize(dtype) -> int:
+    return torch.empty((), dtype=dtype, device="meta").element_size()
+
+
+def gather_plan(items, sizes) -> List[dict]:
+    """The all_gathers :meth:`MeshComm.gather` issues for ``items``,
+    ``(chunk shape, dtype, dim, axes)`` each: one per (axes, dtype), in
+    the order of first appearance, the chunks travelling flattened in one
+    buffer.  Each entry: ``axes``, ``dtype``, ``index`` (the items it
+    carries), ``elements`` (of this rank's buffer) and ``bytes`` (received
+    by this rank: the buffers of the group's other ranks)."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, (_, dtype, _, axes) in enumerate(items):
+        groups.setdefault((tuple(axes), dtype), []).append(i)
+    plan = []
+    for (axes, dtype), idx in groups.items():
+        n = sum(math.prod(items[i][0]) for i in idx)
+        ranks = math.prod(sizes[a] for a in axes)
+        plan.append({"axes": axes, "dtype": dtype, "index": idx,
+                     "elements": n,
+                     "bytes": n * _elsize(dtype) * (ranks - 1)})
+    return plan
+
+
+def _gather_dims(spec, lane_axes=(), lead: int = 1) -> List[tuple]:
+    """The (dim, axes) a leaf is gathered along, in the order
+    :func:`unshard_plan` pops them (the last first): each sharded dim from
+    ``lead`` on (1: past an engine carry's lane dim; 0 for a parameter
+    tree), and with ``lane_axes`` the lane dim first."""
+    dims = [(d, _axes(e)) for d, e in enumerate(spec)
+            if d >= lead and _axes(e)]
+    if lane_axes:
+        dims.insert(0, (0, tuple(lane_axes)))
+    return dims
+
+
+def unshard_plan(tree, specs, sizes, lane_axes=(),
+                 lead: int = 1) -> List[List[dict]]:
+    """The passes of :meth:`SpmdEngine._unshard` over ``tree`` (this rank's
+    chunks: anything with ``.shape`` and ``.dtype``) placed by ``specs``:
+    per pass, the :func:`gather_plan` of the leaves that still have a dim
+    to gather, each leaf's last remaining dim (``lead`` as for
+    :func:`_gather_dims`)."""
+    shapes, dtypes, todo = [], [], []
+    for path, t in tree_paths(tree):
+        shapes.append(list(t.shape))
+        dtypes.append(t.dtype)
+        todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead))
+    passes = []
+    while any(todo):
+        idx = [i for i, dims in enumerate(todo) if dims]
+        items = []
+        for i in idx:
+            d, axes = todo[i].pop()
+            items.append((tuple(shapes[i]), dtypes[i], d, axes))
+        passes.append(gather_plan(items, sizes))
+        for i, (_, _, d, axes) in zip(idx, items):
+            shapes[i][d] *= math.prod(sizes[a] for a in axes)
+    return passes
+
+
+def plan_bytes(passes) -> int:
+    """Bytes a rank receives over the passes of :func:`unshard_plan`."""
+    return sum(g["bytes"] for plan in passes for g in plan)
+
+
+def all_reduce_plan(items, axes, sizes) -> List[dict]:
+    """The all_reduces :meth:`MeshComm.all_reduce` issues for ``items``,
+    ``(shape, dtype)`` each, over ``axes``: one per dtype, in the order of
+    first appearance (none when the axes hold one rank).  Each entry:
+    ``dtype``, ``index``, ``elements`` and ``bytes`` of the buffer."""
+    if not [a for a in axes if sizes.get(a, 1) > 1]:
+        return []
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, (_, dtype) in enumerate(items):
+        groups.setdefault(dtype, []).append(i)
+    plan = []
+    for dtype, idx in groups.items():
+        n = sum(math.prod(items[i][0]) for i in idx)
+        plan.append({"dtype": dtype, "index": idx, "elements": n,
+                     "bytes": n * _elsize(dtype)})
+    return plan
+
+
+def chunk_shapes(tree, specs, sizes, lead: int = 1):
+    """Meta tensors of this rank's chunk of every leaf of ``tree`` (whole
+    shapes) placed by ``specs``: each sharded dim from ``lead`` on divided
+    by its axes' sizes, as :meth:`SpmdEngine._shard` cuts it."""
+    def chunk(path, t):
+        shape = list(t.shape)
+        for d, axes in _gather_dims(_lookup(specs, path), lead=lead):
+            shape[d] //= math.prod(sizes[a] for a in axes)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return map_with_path(chunk, tree)
+
+
 class MeshComm:
     """Process groups over sets of axes of a live mesh, and the
     collectives the engine runs on them.  Groups are made on first use;
@@ -211,12 +319,12 @@ class MeshComm:
         if not axes or not tensors:
             return
         pg, _ = self._group(axes)
-        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        for ts in by_dtype.values():
+        for entry in all_reduce_plan([(t.shape, t.dtype) for t in tensors],
+                                     axes, self.sizes):
+            ts = [tensors[i] for i in entry["index"]]
             flat = torch.cat([t.reshape(-1) for t in ts])
             dist.all_reduce(flat, group=pg)
+            sites.collective("all_reduce", entry["bytes"])
             off = 0
             for t in ts:
                 t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -225,19 +333,20 @@ class MeshComm:
     def gather(self, items) -> List[torch.Tensor]:
         """The whole tensors of ``items``, ``(chunk, dim, axes)`` triples:
         each chunk split along ``dim`` over ``axes``.  One all_gather per
-        (axes, dtype): the chunks travel flattened in one buffer."""
+        (axes, dtype): the chunks travel flattened in one buffer, as
+        :func:`gather_plan` lays them out."""
         import torch.distributed as dist
         out: List[Optional[torch.Tensor]] = [None] * len(items)
-        groups: Dict[tuple, List[int]] = {}
-        for i, (t, _, axes) in enumerate(items):
-            groups.setdefault((tuple(axes), t.dtype), []).append(i)
-        for (axes, _), idx in groups.items():
+        plan = gather_plan([(tuple(t.shape), t.dtype, d, axes)
+                            for t, d, axes in items], self.sizes)
+        for entry in plan:
+            axes, idx = entry["axes"], entry["index"]
             pg, ranks = self._group(axes)
             flat = torch.cat([items[i][0].reshape(-1) for i in idx])
             parts = [torch.empty_like(flat) for _ in ranks]
             dist.all_gather(parts, flat, group=pg)
-            self.gathered_bytes += (flat.numel() * flat.element_size()
-                                    * (len(ranks) - 1))
+            self.gathered_bytes += entry["bytes"]
+            sites.collective("all_gather", entry["bytes"])
             by_rank = dict(zip(ranks, parts))
             chunks = [by_rank[self._rank_at(axes, c)]
                       for c in range(len(ranks))]
@@ -249,12 +358,6 @@ class MeshComm:
                                     for c in chunks], dim=d)
                 off += n
         return out
-
-
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
 @register_engine("spmd")
@@ -391,14 +494,10 @@ class SpmdEngine(FusedEngine):
         axis), all leaves of a pass in one collective per group."""
         paths, cur, todo = [], [], []
         for path, t in tree_paths(tree):
-            spec = _lookup(specs, path)
-            dims = [(d, _axes(e)) for d, e in enumerate(spec)
-                    if d > 0 and _axes(e)]
-            if lanes:
-                dims.insert(0, (0, self._lane_axes))
             paths.append(path)
             cur.append(t)
-            todo.append(dims)
+            todo.append(_gather_dims(_lookup(specs, path),
+                                     self._lane_axes if lanes else ()))
         while any(todo):
             idx = [i for i, dims in enumerate(todo) if dims]
             items = [(cur[i],) + todo[i].pop() for i in idx]
@@ -424,8 +523,23 @@ class SpmdEngine(FusedEngine):
                 model.stack_clients([state.servers[i] for i in ids]),
                 _stack_opts([state.server_opts[i] for i in ids]))
         self._specs = self._carry_specs(carry)
-        return {li: self._tree(self._shard, carry[li], self._specs[li])
-                for li in carry}
+        out = {li: self._tree(self._shard, carry[li], self._specs[li])
+               for li in carry}
+        self._chunks = {li: map_with_path(
+            lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            out[li]) for li in out}
+        return out
+
+    def planned_gathered_bytes_per_step(self) -> float:
+        """The bytes a cohort step gathers on this rank by
+        :func:`unshard_plan` (the client's and the server's chunks of each
+        cohort), averaged over the cohorts, which step equally often: what
+        :attr:`last_gathered_bytes_per_step` measures."""
+        per = [plan_bytes(unshard_plan(self._chunks[li][part],
+                                       self._specs[li][part], self.comm.sizes))
+               for li in self._cohort_lis for part in (0, 2)]
+        n = len(self._cohort_lis)
+        return sum(per) / n
 
     def _unstack_carry(self, carry, state, steps):
         """The whole carry on every rank -- shards and lanes gathered --

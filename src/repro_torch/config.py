@@ -6,7 +6,9 @@ JAX ``MoEConfig``, ``MLAConfig``, ``SSMConfig``, ``ModelConfig``,
 ``HeteroProfile``, ``SplitEEConfig``, ``OptimizerConfig`` and
 ``TrainConfig`` one for one (tests/test_torch_models.py
 and tests/test_torch_train.py check the field lists), so a config reads the
-same in both packages.
+same in both packages.  ``ShapeConfig`` and ``INPUT_SHAPES``, the dry
+run's input shapes, are copied as they are; the TPU constants beside them
+in the JAX module are not.
 """
 from __future__ import annotations
 
@@ -198,3 +200,26 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     remat: str = "none"                # none | full | dots_saveable
     seed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry run's; ``repro/config.py``'s, copied)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}

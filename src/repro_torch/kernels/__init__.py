@@ -8,6 +8,8 @@
     and dQ backward kernels' wrappers, ``rwkv_wkv.py`` the chunked wkv
     forward and backward);
   * ``ref.py``              — the plain versions (CPU path and oracle);
+  * ``sites.py``            — the site scopes the wrappers open, which a
+    step analysis (``launch/step_analysis.py``) reads;
   * ``dispatch.py``         — the ``ref``/``cuda`` backends behind
     ``ModelConfig.kernels``, and the autograd Functions of the training
     sites.

@@ -23,6 +23,14 @@ of the JAX package's ``_flash_vjp`` (its forward saves the output and the
 per-row LSE, its backward runs the dK/dV and dQ kernels), and
 :class:`WkvFn`, the counterpart of ``_wkv_vjp`` (its forward saves every
 chunk's entry state, its backward runs the adjoint and gradient passes).
+
+Under a ``FakeTensor`` (a dry run, ``launch/dryrun.py``) the ``cuda``
+backend takes the card's route on any device: the Functions record the
+card's saved tensors (O and the LSE, every chunk's entry state) and the
+wrappers allocate their outputs without launching.  The wrappers open
+the site scopes of ``kernels/sites.py``; the ``ref`` backend opens the
+forward sites around its plain versions (their backward is autograd of
+the plain forward: aten ops outside any site).
 """
 from __future__ import annotations
 
@@ -31,7 +39,11 @@ from typing import Optional
 import torch
 
 from repro_torch.config import KERNEL_CHOICES
+from repro_torch.kernels import entropy_exit as _gate_mod
+from repro_torch.kernels import flash_attention as _attn_mod
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rwkv_wkv as _wkv_mod
+from repro_torch.kernels import sites
 from repro_torch.kernels.entropy_exit import entropy_exit
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
@@ -207,20 +219,26 @@ class KernelBackend:
 
 
 class ReferenceBackend(KernelBackend):
-    """The plain PyTorch versions, on any device."""
+    """The plain PyTorch versions, on any device, each in its forward site
+    scope (the sites the wrappers record)."""
 
     name = "ref"
 
     def _attention(self, q, k, v, *, causal, window, kv_valid):
-        return kref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        kv_valid=kv_valid)
+        with sites.scope(lambda: _attn_mod.fwd_site(q, k, v, window, False,
+                                                    kv_valid)):
+            return kref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, kv_valid=kv_valid)
 
     def wkv(self, r, k, v, log_w, u, *, chunk: int):
         from repro_torch.models.ssm import _wkv_chunked
-        return _wkv_chunked(r, k, v, log_w, u, chunk)
+        ch = min(chunk, r.shape[1])
+        with sites.scope(lambda: _wkv_mod.fwd_site(r, k, v, log_w, u, ch)):
+            return _wkv_chunked(r, k, v, log_w, u, chunk)
 
     def _entropy_exit(self, logits, tau):
-        return kref.entropy_exit_ref(logits, tau)
+        with sites.scope(lambda: _gate_mod.gate_site(logits)):
+            return kref.entropy_exit_ref(logits, tau)
 
 
 def _via_function(*operands) -> bool:
@@ -269,22 +287,58 @@ def backend_for(cfg) -> KernelBackend:
     return get_backend(cfg.kernels)
 
 
+# ---------------------------------------------------------------------------
+# model-level FLOP counts of the routed sites
+# ---------------------------------------------------------------------------
+#
+# These are the counts the JAX package's roofline uses
+# (``repro/kernels/dispatch.py``): attention over the full Tq x Tk
+# rectangle and the wkv over whole chunks, whatever the mask.  They stay
+# the same whatever implements a site (a Pallas kernel, a CUDA kernel, a
+# plain version), so a share of the step (an MFU) built on them compares
+# implementations.  PERF.md section 6's bounds count instead the causal
+# band and causal chunk pairs (``wkv_causal_flops``): the work a causal
+# kernel does, about half of these on causal shapes (T (T + 1) / 2 pairs
+# of the T^2), which bounds a kernel's time.  Each count answers its own
+# question, so both exist.
+
+
+def attention_site_flops(cfg, batch: int, seq_len: int,
+                         kind: str = "train") -> float:
+    """FLOPs of the routed attention matmuls over every attention layer
+    (``"attn"`` and ``"shared_attn"``; the count of
+    ``repro/kernels/dispatch.py:attention_site_flops``).  ``kind``
+    "train"/"prefill" is one forward, ``2 * 2 * B * H * Tq * Tk_eff * hd``
+    per layer (Tk_eff the window where one caps it); "decode" the same at
+    Tq = 1 against a ``seq_len``-deep cache; "bwd" the fused backward,
+    3.5 x forward, whose per-kernel shares are "bwd_dkv" (2.0 x: S, dP,
+    dV, dK) and "bwd_dq" (1.5 x: S, dP, dQ)."""
+    Tq = 1 if kind == "decode" else seq_len
+    kernels = {"bwd": ("dkv", "dq"), "bwd_dkv": ("dkv",),
+               "bwd_dq": ("dq",)}.get(kind, ("fwd",))
+    per_layer = sum(sites.attention_call_flops(
+        batch, cfg.num_heads, Tq, seq_len, cfg.head_dim, cfg.sliding_window,
+        k) for k in kernels)
+    n_attn = sum(b in ("attn", "shared_attn") for b in cfg.block_pattern)
+    return per_layer * n_attn
+
+
 def wkv_site_flops(cfg, batch: int, seq_len: int,
                    kind: str = "train") -> float:
     """FLOPs of the routed chunked wkv, over every rwkv6 layer (the count
     of ``repro/kernels/dispatch.py:wkv_site_flops``).  One forward
     ("train"/"decode"): per token per head ``4*Q*K`` intra-chunk (scores
     and values over the Q-token chunk) plus ``4*K*K`` inter-chunk/state
-    work.  "bwd" is the chunked backward, twice the forward."""
+    work.  "bwd" is the chunked backward, twice the forward (one kernel
+    call: its share is all of it)."""
     if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
         return 0.0
-    s, K = cfg.ssm, cfg.ssm.head_dim
-    H = cfg.d_model // K
+    K = cfg.ssm.head_dim
     T = 1 if kind == "decode" else seq_len
-    Q = min(s.chunk_size, T)
     n_wkv = sum(b == "rwkv6" for b in cfg.block_pattern)
-    per_fwd = batch * T * H * K * (4.0 * Q + 4.0 * K) * n_wkv
-    return 2.0 * per_fwd if kind == "bwd" else per_fwd
+    return n_wkv * sites.wkv_call_flops(
+        batch, T, cfg.d_model // K, K, cfg.ssm.chunk_size,
+        "bwd" if kind == "bwd" else "fwd")
 
 
 def wkv_causal_flops(batch: int, seq_len: int, heads: int, head_dim: int,

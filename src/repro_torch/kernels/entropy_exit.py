@@ -6,7 +6,10 @@ The kernel splits each row's vocab over the blocks of one thread block
 cluster; :func:`gate_splits` picks how many from the shape.  For a tensor
 on the CPU the wrapper runs the plain version
 (``kernels/ref.py:entropy_exit_ref``); for a CUDA tensor it launches the
-kernel or raises.  ``entropy_exit.launches`` counts kernel launches.
+kernel or raises; for a ``FakeTensor`` on any device (a dry run) it
+allocates the kernel's outputs and launches nothing.  It opens the
+``gate`` site scope (``kernels/sites.py``) on every device.
+``entropy_exit.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sites
 from repro_torch.kernels.ref import entropy_exit_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,6 +62,12 @@ def gate_splits(rows: int, vocab: int, sms: int) -> int:
     return max(1, min(MAX_SPLITS, -(-sms // rows), vocab // MIN_SLICE))
 
 
+def gate_site(logits):
+    """The gate's site entry: no dot FLOPs; the (B, V) logits read once, H
+    and the exit flags (B,) written once."""
+    return (("gate", 0.0, sites.nbytes(logits) + 8.0 * logits.shape[0]),)
+
+
 def entropy_exit(logits: torch.Tensor, tau):
     """logits (B, V) float32 or bfloat16; ``tau`` a float or (B,) per-row
     thresholds -> ``(entropy (B,) float32, exit (B,) int32)``, exit iff
@@ -71,12 +80,20 @@ def entropy_exit(logits: torch.Tensor, tau):
         raise ValueError(f"entropy_exit expects (B, V) logits, got "
                          f"{tuple(logits.shape)}")
     B, V = logits.shape
-    tau = torch.as_tensor(tau, dtype=torch.float32,
-                          device=logits.device).expand(B).contiguous()
-    if logits.device.type == "cpu":
-        return entropy_exit_ref(logits, tau)
-    if logits.device.type != "cuda":
-        raise ValueError(f"entropy_exit: unsupported device {logits.device}")
+    with sites.scope(lambda: gate_site(logits)):
+        tau = torch.as_tensor(tau, dtype=torch.float32,
+                              device=logits.device).expand(B).contiguous()
+        fake = sites.is_fake(logits)
+        if logits.device.type == "cpu" and not fake:
+            return entropy_exit_ref(logits, tau)
+        if logits.device.type != "cuda" and not fake:
+            raise ValueError(f"entropy_exit: unsupported device "
+                             f"{logits.device}")
+        return _entropy_exit_kernel(logits, tau, fake)
+
+
+def _entropy_exit_kernel(logits, tau, fake: bool):
+    B, V = logits.shape
     if logits.dtype not in _DTYPES:
         raise ValueError(f"entropy_exit: dtype {logits.dtype} not supported; "
                          f"expected one of {tuple(_DTYPES)}")
@@ -84,9 +101,11 @@ def entropy_exit(logits: torch.Tensor, tau):
         raise ValueError(f"entropy_exit: logits {tuple(logits.shape)} with "
                          f"strides {logits.stride()} must be non-empty with "
                          f"a unit vocab stride")
-    splits = gate_splits(B, V, sm_count(logits.device.index))
     H = torch.empty(B, dtype=torch.float32, device=logits.device)
     ex = torch.empty(B, dtype=torch.int32, device=logits.device)
+    if fake:
+        return H, ex
+    splits = gate_splits(B, V, sm_count(logits.device.index))
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         rc = _library().entropy_exit_launch(

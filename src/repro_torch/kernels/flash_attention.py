@@ -19,10 +19,14 @@ The kernels mask their own ragged edges (keys past ``Tk``, the causal
 diagonal of a ragged ``Tq < Tk`` prefill, the decode ring's ``kv_valid``),
 so the padding of ``repro/kernels/ops.py`` has no counterpart here.  For
 tensors on the CPU each wrapper runs its plain version
-(``kernels/ref.py``); for CUDA tensors it launches its kernel or raises.
-``launches`` on each wrapper counts kernel launches, and
-``row_launches``, ``tile_launches`` and (forward) ``decode_launches``
-count them by route.
+(``kernels/ref.py``) and returns its results in the kernel's layout; for
+CUDA tensors it launches its kernel or raises;
+for a ``FakeTensor`` on any device (a dry run, ``launch/dryrun.py``) it
+allocates what the launching branch allocates, by the same function, and
+launches nothing.  Each wrapper opens a site scope (``kernels/sites.py``)
+around its work on every device.  ``launches`` on each wrapper counts
+kernel launches, and ``row_launches``, ``tile_launches`` and (forward)
+``decode_launches`` count them by route.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sites
 from repro_torch.kernels.ref import (flash_attention_bwd_dkv_ref,
                                      flash_attention_bwd_dq_ref,
                                      flash_attention_bwd_ref,
@@ -85,12 +89,52 @@ def decode_splits(batch_kv_heads: int, key_tiles: int) -> int:
     return max(1, min(MAX_CLUSTER, key_tiles, want))
 
 
+def _base_aligned(t: torch.Tensor) -> bool:
+    """``t``'s first element sits on 16 bytes: its address on the card; a
+    fake tensor has none, and its offset into its storage stands in (the
+    caching allocator's blocks start on 512 bytes)."""
+    if sites.is_fake(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
+
+
 def _rows_aligned(*tensors) -> bool:
     """Every row starts on 16 bytes (the tile routes copy rows in 16-byte
     pieces): aligned base pointers and strides of whole 16-byte units."""
-    return all(t.data_ptr() % 16 == 0
+    return all(_base_aligned(t)
                and all(t.stride(i) * t.element_size() % 16 == 0
                        for i in range(3)) for t in tensors)
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernel path: a CUDA tensor (launches) or a
+    fake tensor on any device (allocates only); False for a real CPU
+    tensor (the plain version); raises for any other device."""
+    if sites.is_fake(t) or t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def fwd_site(q, k, v, window, return_lse, kv_valid):
+    """The forward's site entry: the model-level FLOPs; q, k, v (and
+    kv_valid) read, the output (and the LSE) written once."""
+    B, H, Tq, D = q.shape
+    lse = B * H * Tq * 4 if return_lse else 0
+    return (("attention_fwd",
+             sites.attention_call_flops(B, H, Tq, k.shape[2], D, window),
+             sites.nbytes(q, k, v, kv_valid, q) + lse),)
+
+
+def _fwd_outputs(q, return_lse: bool):
+    """The forward's outputs as the kernels write them: out with q's
+    strides, the LSE (B, H, Tq) float32."""
+    B, H, Tq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    return out, lse
 
 
 class _FlashParams(ctypes.Structure):
@@ -193,11 +237,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`attention_route`'s kernel; "row" forces the row kernel (to
     compare the two on the card)."""
     _check_operands(q, k, v, kv_valid)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_valid=kv_valid, return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    with sites.scope(lambda: fwd_site(q, k, v, window, return_lse,
+                                       kv_valid)):
+        if not _on_card("flash_attention", q):
+            # the plain version's results in the kernel's layout
+            got = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      kv_valid=kv_valid, return_lse=True)
+            out, lse = _fwd_outputs(q, return_lse)
+            out.copy_(got[0])
+            if return_lse:
+                lse.copy_(got[1])
+            return (out, lse) if return_lse else out
+        return _flash_attention_kernel(q, k, v, causal, window, kv_valid,
+                                       return_lse, route)
+
+
+def _flash_attention_kernel(q, k, v, causal, window, kv_valid, return_lse,
+                            route):
     _check_kernel_operands("flash_attention", (q, k, v), window)
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
@@ -206,9 +262,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  or not kv_valid.is_contiguous()):
         raise ValueError("flash_attention: kv_valid must be a contiguous "
                          "int32 tensor on q's device")
-    out = torch.empty_like(q)
-    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    out, lse = _fwd_outputs(q, return_lse)
+    if sites.is_fake(q):
+        return (out, lse) if return_lse else out
     route = _pick_route("flash_attention",
                         attention_route(q.dtype, D, Tq, H // Hkv), route,
                         lambda: _rows_aligned(q, k, v, out))
@@ -286,15 +342,32 @@ def _check_bwd_rows(q, do, **rows) -> None:
                              f"{tuple(q.shape[:3])}")
 
 
+def _bwd_site(which: str, q, k, v, window, fused: bool = True):
+    """A backward kernel's site entry: the model-level FLOPs (dK/dV 2.0 x,
+    dQ 1.5 x the forward); read once: q, k, v, dO (in q's dtype), the LSE
+    and delta (dK/dV) or, fused, the output O (dQ, which writes delta);
+    written once: dk and dv, or dq (and delta), in float32."""
+    B, H, Tq, D = q.shape
+    rows = B * H * Tq * 4
+    operands = sites.nbytes(q, k, v, q)
+    if which == "dkv":
+        nb = operands + 2 * rows + 2 * 4 * k.numel()
+    else:
+        nb = (operands + rows + (sites.nbytes(q) + rows if fused else rows)
+              + 4 * q.numel())
+    return (f"attention_{which}",
+            sites.attention_call_flops(B, H, Tq, k.shape[2], D, window,
+                                       which), nb)
+
+
 def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window, outs,
-                route=None, o=None) -> str:
+                route=None, o=None) -> Optional[str]:
     """Checks what the CUDA kernel takes, then launches ``which`` ("dkv" or
     "dq") writing into ``outs`` (fp32, contiguous: dk and dv, or dq and,
     given ``o``, delta); raises on a failed launch.  Returns the route it
-    launched ("row" or "tile")."""
+    launched ("row" or "tile"), or None for fake operands (nothing
+    launched)."""
     name = f"flash_attention_bwd_{which}"
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
     _check_kernel_operands(name, (q, k, v, do) + ((o,) if o is not None
                                                   else ()), window)
     rule = (dkv_route if which == "dkv" else dq_route)(q.dtype, q.shape[-1])
@@ -309,6 +382,8 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, causal, window, outs,
         delta = delta.float().contiguous()
     if any(t is not None and t.device != q.device for t in (lse, delta)):
         raise ValueError(f"{name}: lse and delta must lie on q's device")
+    if sites.is_fake(q):
+        return None
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     ptrs = {n: t.data_ptr() for n, t in outs.items()}
@@ -339,15 +414,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     -> ``(dk, dv)`` (B, Hkv, Tk, D) float32."""
     _check_operands(q, k, v, None)
     _check_bwd_rows(q, do, lse=lse, delta=delta)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                           causal=causal, window=window)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    route = _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
-                        {"dk": dk, "dv": dv})
-    _count(flash_attention_bwd_dkv, route)
-    return dk, dv
+    with sites.scope(lambda: (_bwd_site("dkv", q, k, v, window),)):
+        if not _on_card("flash_attention_bwd_dkv", q):
+            return tuple(t.contiguous() for t in flash_attention_bwd_dkv_ref(
+                q, k, v, do, lse, delta, causal=causal, window=window))
+        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+        route = _launch_bwd("dkv", q, k, v, do, lse, delta, causal, window,
+                            {"dk": dk, "dv": dv})
+        if route is not None:
+            _count(flash_attention_bwd_dkv, route)
+        return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta=None, *,
@@ -372,21 +449,25 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta=None, *,
                          f"{tuple(q.shape)}")
     _check_bwd_rows(q, do, lse=lse,
                     **({"delta": delta} if delta is not None else {}))
-    if q.device.type == "cpu":
+    with sites.scope(lambda: (_bwd_site("dq", q, k, v, window,
+                                        fused=o is not None),)):
+        if not _on_card("flash_attention_bwd_dq", q):
+            if o is not None:
+                delta = (do.float() * o.float()).sum(dim=-1)
+            dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                            causal=causal,
+                                            window=window).contiguous()
+            return (dq, delta) if o is not None else dq
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        outs = {"dq": dq}
         if o is not None:
-            delta = (do.float() * o.float()).sum(dim=-1)
-        dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
-                                        causal=causal, window=window)
-        return (dq, delta) if o is not None else dq
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    outs = {"dq": dq}
-    if o is not None:
-        outs["delta"] = torch.empty(q.shape[:3], dtype=torch.float32,
-                                    device=q.device)
-    route = _launch_bwd("dq", q, k, v, do, lse, delta, causal, window, outs,
-                        route=route, o=o)
-    _count(flash_attention_bwd_dq, route)
-    return (dq, outs["delta"]) if o is not None else dq
+            outs["delta"] = torch.empty(q.shape[:3], dtype=torch.float32,
+                                        device=q.device)
+        route = _launch_bwd("dq", q, k, v, do, lse, delta, causal, window,
+                            outs, route=route, o=o)
+        if route is not None:
+            _count(flash_attention_bwd_dq, route)
+        return (dq, outs["delta"]) if o is not None else dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -401,16 +482,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     pass in torch, outside the kernels, as ``repro/kernels/ops.py``
     computes it outside the Pallas kernels (counted by
     ``flash_attention_bwd.torch_delta_passes``).  For CPU tensors the
-    plain version (``flash_attention_bwd_ref``) runs."""
+    plain version (``flash_attention_bwd_ref``) runs.  On every device it
+    records the dQ and dK/dV sites, the card's pair of kernels."""
     _check_operands(q, k, v, None)
     _check_bwd_rows(q, do, lse=lse)
     if o.shape != q.shape:
         raise ValueError(f"output shape {tuple(o.shape)} != q's "
                          f"{tuple(q.shape)}")
-    if q.device.type == "cpu":
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                             causal=causal, window=window)
-    else:
+    with sites.scope(lambda: (_bwd_site("dq", q, k, v, window),
+                              _bwd_site("dkv", q, k, v, window))):
+        if not _on_card("flash_attention_bwd", q):
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                 causal=causal, window=window)
+            return tuple(g.to(t.dtype).contiguous()
+                         for g, t in ((dq, q), (dk, k), (dv, v)))
         do = do.to(q.dtype)
         if do.stride(-1) != 1:
             do = do.contiguous()
@@ -420,12 +505,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                                causal=causal, window=window)
         else:
             delta = (do.float() * o.float()).sum(dim=-1)
-            flash_attention_bwd.torch_delta_passes += 1
+            if not sites.is_fake(q):
+                flash_attention_bwd.torch_delta_passes += 1
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                         causal=causal, window=window)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                          causal=causal, window=window)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 flash_attention_bwd.torch_delta_passes = 0

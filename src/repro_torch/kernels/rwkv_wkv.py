@@ -17,11 +17,15 @@ there; the per-chunk entry states ``s0`` keep the kernel layout
 (B*H, ceil(T / chunk), K, K), an opaque residual handed back to
 :func:`rwkv_wkv_bwd`.  For tensors on the CPU each wrapper runs its plain
 version, :func:`rwkv_wkv_plain` or :func:`rwkv_wkv_bwd_plain` (the
-flattening and padding of ``ops`` around ``kernels/ref.py``); for CUDA
-tensors it launches its kernels or raises.  ``rwkv_wkv.launches`` counts
-calls that launched the forward (by :func:`rwkv_wkv` and
-:func:`rwkv_wkv_fwd`; two kernels a call), ``rwkv_wkv_bwd.launches`` calls
-of the backward (three kernels a call).
+flattening and padding of ``ops`` around ``kernels/ref.py``), its results
+in the kernel's layout (contiguous); for CUDA tensors it launches its
+kernels or raises; for a ``FakeTensor`` on any device (a dry run) it
+allocates what the launching branch allocates, by the same code, and
+launches nothing.  Each wrapper opens a site scope (``kernels/sites.py``)
+around its work on every device.  ``rwkv_wkv.launches`` counts calls that
+launched the forward (by :func:`rwkv_wkv` and :func:`rwkv_wkv_fwd`; two
+kernels a call), ``rwkv_wkv_bwd.launches`` calls of the backward (three
+kernels a call).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sites
 from repro_torch.kernels.ref import rwkv_wkv_bwd_ref, rwkv_wkv_chunked_ref
 
 HEAD_DIMS = (16, 32, 64)
@@ -129,12 +133,40 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _on_card(name: str, r) -> bool:
+    """Whether ``r`` takes the kernel path: a CUDA tensor (launches) or a
+    fake tensor on any device (allocates only); False for a real CPU
+    tensor (the plain version); raises for any other device."""
+    if sites.is_fake(r) or r.device.type == "cuda":
+        return True
+    if r.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {r.device}")
+
+
+def fwd_site(r, k, v, log_w, u, ch: int):
+    """The forward's site entry: the model-level FLOPs; r, k, v, log_w and
+    u read once; y, S_T and every chunk's entry state written once."""
+    B, T, H, K = r.shape
+    states = B * H * (1 + -(-T // ch)) * K * K * 4
+    return (("wkv_fwd", sites.wkv_call_flops(B, T, H, K, ch),
+             sites.nbytes(r, k, v, log_w, u) + 4 * r.numel() + states),)
+
+
+def _bwd_site(r, k, v, log_w, u, s0, ch: int):
+    """The backward's site entry: twice the forward's FLOPs; the operands,
+    s0, dy and dS_T (float32) read once; the gradients written once (dr,
+    dk, dv in r's dtype, dlog_w and du float32)."""
+    B, T, H, K = r.shape
+    return (("wkv_bwd", sites.wkv_call_flops(B, T, H, K, ch, "bwd"),
+             2 * sites.nbytes(r, k, v, log_w, u) + sites.nbytes(s0)
+             + 4 * (r.numel() + B * H * K * K)),)
+
+
 def _check_kernel_operands(name: str, r, k, v, log_w, u) -> None:
     """What the CUDA kernels take: r/k/v float32 or bfloat16 of one dtype,
     log_w and u float32, a supported head dim, all on r's device, unit
     innermost strides."""
-    if r.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {r.device}")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"{name}: r/k/v dtypes {r.dtype}, {k.dtype}, "
                          f"{v.dtype}; expected one of {tuple(_DTYPES)}, all "
@@ -193,15 +225,19 @@ def _rows_on_16_bytes(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when every (b, t, h) row starts on 16 bytes (the
     kernels copy rows in 16-byte pieces), else a contiguous copy."""
     size = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(x * size % 16 == 0
-                                      for x in _strides(t)):
+    # a fake tensor has no address: its offset into its storage stands in
+    # (the caching allocator's blocks start on 512 bytes)
+    base = (t.storage_offset() * size if sites.is_fake(t)
+            else t.data_ptr())
+    if base % 16 == 0 and all(x * size % 16 == 0 for x in _strides(t)):
         return t
     return t.contiguous()
 
 
 def _kernel_fwd(r, k, v, log_w, u, ch: int):
     """Launches the forward: ``(y, S_T, s0)``, every chunk's entry state
-    ``s0`` written because the output pass reads it."""
+    ``s0`` written because the output pass reads it (fake operands: the
+    buffers, unwritten)."""
     _check_kernel_operands("rwkv_wkv", r, k, v, log_w, u)
     B, T, H, K = r.shape
     dev = r.device
@@ -211,6 +247,8 @@ def _kernel_fwd(r, k, v, log_w, u, ch: int):
     sT = torch.empty((B, H, K, K), dtype=torch.float32, device=dev)
     s0 = torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
     r, k, v, log_w = (_rows_on_16_bytes(t) for t in (r, k, v, log_w))
+    if sites.is_fake(r):
+        return y, sT, s0
     p = _params(r, k, v, log_w, u, ch, y=y, sT=sT, s0=s0)
     _launch("rwkv_wkv_fwd_launch", p, dev, "rwkv_wkv")
     rwkv_wkv.launches += 1
@@ -229,10 +267,12 @@ def rwkv_wkv(r, k, v, log_w, u, *, chunk: int = 64,
     state S_T (B, H, K, K) float32, that of the T tokens alone."""
     _check_operands(r, k, v, log_w, u)
     ch = min(chunk, r.shape[1])
-    if r.device.type == "cpu":
-        y, sT = rwkv_wkv_plain(r, k, v, log_w, u, chunk=ch)
-    else:
-        y, sT, _ = _kernel_fwd(r, k, v, log_w, u, ch)
+    with sites.scope(lambda: fwd_site(r, k, v, log_w, u, ch)):
+        if not _on_card("rwkv_wkv", r):
+            y, sT = (t.contiguous() for t in rwkv_wkv_plain(
+                r, k, v, log_w, u, chunk=ch))
+        else:
+            y, sT, _ = _kernel_fwd(r, k, v, log_w, u, ch)
     return (y, sT) if return_state else y
 
 
@@ -242,11 +282,12 @@ def rwkv_wkv_fwd(r, k, v, log_w, u, *, chunk: int = 64):
     backward replays chunks from."""
     _check_operands(r, k, v, log_w, u)
     ch = min(chunk, r.shape[1])
-    if r.device.type == "cpu":
-        y, sT, s0 = rwkv_wkv_plain(r, k, v, log_w, u, chunk=ch,
-                                   emit_chunk_states=True)
-    else:
-        y, sT, s0 = _kernel_fwd(r, k, v, log_w, u, ch)
+    with sites.scope(lambda: fwd_site(r, k, v, log_w, u, ch)):
+        if not _on_card("rwkv_wkv_fwd", r):
+            y, sT, s0 = (t.contiguous() for t in rwkv_wkv_plain(
+                r, k, v, log_w, u, chunk=ch, emit_chunk_states=True))
+        else:
+            y, sT, s0 = _kernel_fwd(r, k, v, log_w, u, ch)
     return (y, sT), s0
 
 
@@ -268,11 +309,20 @@ def rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT, *, chunk: int = 64):
         raise ValueError(f"cotangent shapes dy {tuple(dy.shape)}, dsT "
                          f"{tuple(dsT.shape)}; expected {tuple(r.shape)} and "
                          f"{(B, H, K, K)}")
-    if r.device.type == "cpu":
-        dr, dk, dv, dlw, du = rwkv_wkv_bwd_plain(r, k, v, log_w, u, s0, dy,
-                                                 dsT, chunk=ch)
-        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                dlw.to(log_w.dtype), du.reshape(B, H, K).sum(0).to(u.dtype))
+    with sites.scope(lambda: _bwd_site(r, k, v, log_w, u, s0, ch)):
+        if not _on_card("rwkv_wkv_bwd", r):
+            dr, dk, dv, dlw, du = rwkv_wkv_bwd_plain(r, k, v, log_w, u, s0,
+                                                     dy, dsT, chunk=ch)
+            return (*(g.to(t.dtype).contiguous() for g, t in
+                      ((dr, r), (dk, k), (dv, v), (dlw, log_w))),
+                    du.reshape(B, H, K).sum(0).to(u.dtype))
+        return _kernel_bwd(r, k, v, log_w, u, s0, dy, dsT, ch)
+
+
+def _kernel_bwd(r, k, v, log_w, u, s0, dy, dsT, ch: int):
+    """Launches the backward (fake operands: its buffers, unwritten)."""
+    B, T, H, K = r.shape
+    nc = -(-T // ch)
     _check_kernel_operands("rwkv_wkv_bwd", r, k, v, log_w, u)
     dev = r.device
     # every buffer the kernels read is bound here until they have launched
@@ -288,6 +338,8 @@ def rwkv_wkv_bwd(r, k, v, log_w, u, s0, dy, dsT, *, chunk: int = 64):
     du = torch.empty((H, K), dtype=torch.float32, device=dev)
     g = torch.empty((B * H, nc, K, K), dtype=torch.float32, device=dev)
     du_part = torch.empty((B * H, nc, K), dtype=torch.float32, device=dev)
+    if sites.is_fake(r):
+        return dr, dk, dv, dlw, du
     p = _params(r, k, v, log_w, u_c, ch, dy=dy, s0_in=s0_c, dsT=dsT_c,
                 dr=dr, dk=dk, dv=dv, dlw=dlw, du=du, g=g, du_part=du_part)
     _launch("rwkv_wkv_bwd_launch", p, dev, "rwkv_wkv_bwd")

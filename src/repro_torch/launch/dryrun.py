@@ -1,0 +1,340 @@
+"""Dry run: what one rank of the port runs, per arch x input shape x
+production mesh, counted without a card (counterpart of
+``repro/launch/dryrun.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+        --shape all --mesh single --out dryrun.jsonl
+
+The JAX package lowers and compiles each step for a 256/512-device host
+mesh and reads XLA's memory and HLO analyses.  The port has no program to
+compile: :func:`run_one` traces the step one rank runs, eagerly, under
+``FakeTensorMode`` on fake CPU tensors (nothing allocated, nothing
+computed; the kernel wrappers take the card's route and allocate their
+outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
+:class:`StepAnalysis`.  What one rank runs:
+
+  * train: the rank's chunks of the parameters and bf16 Adam moments
+    (``launch/shardings.param_specs`` by the recipe) are gathered whole by
+    ``api/spmd_engine.unshard_plan``'s all_gathers, ``make_grad_step``
+    runs on the rank's rows (global batch / data ranks), the gradients
+    are all-reduced over the batch ranks (``all_reduce_plan``) and Adam
+    updates the rank's chunks -- the spmd engine's step;
+  * prefill: ``backbone_forward`` on the rank's rows (``--last-token-heads``
+    as JAX's ``prefill_step``);
+  * decode: ``make_serve_step`` on the rank's slots.  ``ServeSession(mesh=)``
+    raises today (ROADMAP.md item 9b): serving records hold the whole tree
+    on every rank (``"placement": "replicated (ROADMAP 9b)"``).
+
+Per rank the record gives persistent bytes (parameter and optimizer
+chunks, or the whole tree and the rank's cache slots), the bytes gathered
+per step, the traced peak above them and the total, whether that fits the
+card (``--hbm-bytes``, default the H100's 80 GB), the analysis' FLOPs,
+site FLOPs, op-level HBM bytes and collectives, ``replicated_over_model``
+(the ``"model"`` ranks that repeat this compute: the port shards storage
+over ``"model"``, not compute, ROADMAP.md item 9b) and the trace seconds.
+An arch x shape that raises is a record with ``"status": "error"`` and
+its traceback.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import configs as configs_mod
+from repro_torch.api.spmd_engine import (all_reduce_plan, chunk_shapes,
+                                         plan_bytes, unshard_plan)
+from repro_torch.config import (INPUT_SHAPES, SHAPES_BY_NAME, ModelConfig,
+                                OptimizerConfig, SplitEEConfig, TrainConfig)
+from repro_torch.core.losses import softmax_entropy
+from repro_torch.core.spmd import StepConfig, make_grad_step, make_serve_step
+from repro_torch.kernels import sites
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.inputs import (abstract_params, serve_input_specs,
+                                       train_input_specs)
+from repro_torch.launch.mesh import axis_sizes, batch_axes, production_mesh_spec
+from repro_torch.launch.step_analysis import StepAnalysis
+from repro_torch.models.backbone import backbone_forward
+from repro_torch.optim import adam_update
+from repro_torch.optim.adam import AdamState
+from repro_torch.tree import tree_leaves, tree_map
+
+# ---------------------------------------------------------------------------
+# long-context policy (docs/DESIGN.md section 4): SSM/hybrid run natively;
+# dense archs get a 4096-token sliding-window variant; whisper is skipped.
+# ---------------------------------------------------------------------------
+LONG_SWA_WINDOW = 4096
+LONG_NATIVE = {"zamba2-1.2b", "rwkv6-3b"}
+LONG_SKIP = {"whisper-small"}
+
+#: the H100 80GB HBM3's device memory
+HBM_BYTES = 80e9
+
+RECIPES = {
+    "greedy": None,
+    "megatron": sh.ShardingRecipe(scheme="megatron"),
+    "megatron-nofsdp": sh.ShardingRecipe(scheme="megatron", fsdp=False),
+    "hybrid": sh.ShardingRecipe(scheme="hybrid"),
+}
+
+
+def arch_config(arch: str, shape_name: str) -> Optional[ModelConfig]:
+    mod = configs_mod.get(arch)
+    if shape_name == "long_500k":
+        name = mod.config().name
+        if name in LONG_SKIP:
+            return None
+        if name in LONG_NATIVE:
+            return mod.config()
+        return mod.config(sliding_window=LONG_SWA_WINDOW)
+    return mod.config()
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _fake_like(tree):
+    """A fake CPU tensor (uninitialised) for every meta leaf of ``tree``;
+    call under the fake mode."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
+
+
+def rank_rows(batch: int, dp: int) -> int:
+    """A rank's rows of a global batch: split over the data ranks where
+    they divide it, else every row (``shardings.batch_specs``)."""
+    return batch // dp if batch % dp == 0 else batch
+
+
+def _chunk_of(t: torch.Tensor, shape) -> torch.Tensor:
+    """Rank 0's chunk of ``t`` (``shape``): a copy where a dim is cut, as
+    ``SpmdEngine._shard`` makes one."""
+    out = t
+    for d, n in enumerate(shape):
+        if n != t.shape[d]:
+            out = out.narrow(d, 0, n)
+    return out if out is t else out.clone()
+
+
+def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
+                rec):
+    """Traces one rank's train step; fills ``rec`` with the persistent and
+    gathered bytes; returns the analysis."""
+    sizes = axis_sizes(mesh)
+    params_abs = abstract_params(cfg)
+    pspecs = sh.port_specs(sh.param_specs(sh.jax_layout(params_abs, cfg),
+                                          cfg, mesh, recipe), params_abs, cfg)
+    chunks = chunk_shapes(params_abs, pspecs, sizes, lead=0)
+    opt_cfg = OptimizerConfig(state_dtype=torch.bfloat16, total_steps=10_000)
+    moments = tree_map(lambda t: torch.empty(t.shape, dtype=torch.bfloat16,
+                                             device="meta"), chunks)
+    rec["persistent_bytes"] = tree_bytes(chunks) + 2 * tree_bytes(moments)
+    gathers = [g for plan in unshard_plan(chunks, pspecs, sizes, lead=0)
+               for g in plan]
+    reduces = all_reduce_plan([(t.shape, t.dtype)
+                               for t in tree_leaves(params_abs)],
+                              batch_axes(mesh), sizes)
+    rec["gathered_bytes"] = plan_bytes([gathers])
+    sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
+                    train=TrainConfig(seq_len=shape.seq_len,
+                                      batch_size=shape.global_batch,
+                                      remat=remat, optimizer=opt_cfg),
+                    grad_mode=grad_mode)
+    grad_step = make_grad_step(sc)
+    specs = train_input_specs(cfg, dataclasses.replace(shape,
+                                                       global_batch=rows))
+    batch = _fake_like(specs)
+    p_chunks, opt = _fake_like(chunks), AdamState(
+        step=0, m=_fake_like(moments), v=_fake_like(moments))
+    with StepAnalysis() as a:
+        # the all_gathers' outputs: the whole parameters, for this step
+        for g in gathers:
+            sites.collective("all_gather", g["bytes"])
+        params = _fake_like(params_abs)
+        grads, _ = grad_step(params, batch)
+        del params
+        for r in reduces:
+            sites.collective("all_reduce", r["bytes"])
+        grads = [None if g is None else _chunk_of(g, c.shape)
+                 for g, c in zip(grads, tree_leaves(chunks))]
+        adam_update(p_chunks, grads, opt, opt_cfg, 1e-4)
+        del grads
+    return a
+
+
+def _prefill_step(cfg, shape, rows, last_token_heads, rec):
+    params_abs = abstract_params(cfg)
+    rec["persistent_bytes"] = tree_bytes(params_abs)
+    specs = train_input_specs(cfg, dataclasses.replace(shape,
+                                                       global_batch=rows))
+    specs.pop("labels")
+    batch, params = _fake_like(specs), _fake_like(params_abs)
+    with torch.no_grad(), StepAnalysis() as a:
+        out = backbone_forward(params, cfg, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"),
+                               enc=batch.get("enc"),
+                               split_ids=batch["split_ids"])
+        if last_token_heads:
+            # serving prefill needs only the next-token position
+            ent = [softmax_entropy(e[:, -1:]) for e in out.exit_logits]
+            logits = out.logits[:, -1:]
+        else:
+            ent = [softmax_entropy(e) for e in out.exit_logits]
+            logits = out.logits
+        del out, ent, logits
+    return a
+
+
+def _decode_step(cfg, profile, shape, rows, rec):
+    params_abs = abstract_params(cfg)
+    specs = serve_input_specs(cfg, dataclasses.replace(shape,
+                                                       global_batch=rows))
+    rec["persistent_bytes"] = (tree_bytes(params_abs)
+                               + tree_bytes(specs["cache"]))
+    serve = make_serve_step(StepConfig(
+        model=cfg, splitee=SplitEEConfig(profile=profile)), boundary=0)
+    params, ins = _fake_like(params_abs), _fake_like(specs)
+    with torch.no_grad(), StepAnalysis() as a:
+        out = serve(params, ins["tokens"], ins["cache"], ins["cache_len"],
+                    enc=ins.get("enc"))
+        del out
+    return a
+
+
+def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
+            grad_mode: str = "eq1", remat: str = "full",
+            recipe: Optional[sh.ShardingRecipe] = None,
+            last_token_heads: bool = False, mesh=None,
+            hbm_bytes: float = HBM_BYTES,
+            layers: Optional[int] = None) -> Dict[str, Any]:
+    """The record of one arch x shape x mesh (``mesh`` a ``MeshSpec``,
+    default the production mesh); see the module docstring.  ``layers``
+    cuts the depth (``e2e_train.cut_depth``: a quick trace at the
+    published widths)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    shape = SHAPES_BY_NAME[shape_name]
+    cfg = arch_config(arch, shape_name)
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
+                           "mesh": "multi_pod" if multi_pod else "single_pod",
+                           "kind": shape.kind, "grad_mode": grad_mode,
+                           "remat": remat,
+                           "recipe": recipe.scheme if recipe else "greedy"}
+    if cfg is None:
+        rec["status"] = "skipped"
+        rec["reason"] = "long_500k inapplicable (see docs/DESIGN.md §4)"
+        return rec
+    profile = configs_mod.get(arch).profile()
+    if layers:
+        from repro_torch.launch.e2e_train import cut_depth
+        cfg, profile = cut_depth(cfg, layers)
+    rec["layers"] = cfg.num_layers
+    mesh = mesh if mesh is not None else production_mesh_spec(
+        multi_pod=multi_pod)
+    sizes = axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in batch_axes(mesh))
+    rows = rank_rows(shape.global_batch, dp)
+    rec.update(last_token_heads=last_token_heads, ranks=mesh.size,
+               rows_per_rank=rows,
+               replicated_over_model=sizes.get("model", 1))
+    if shape.kind == "train":
+        rec["placement"] = "spmd engine step (chunks gathered whole)"
+        if cfg.moe is not None and dp > 1:
+            rec["note"] = ("the spmd engine refuses a data split of a MoE "
+                           "model (ROADMAP 9b): each rank's rows routed "
+                           "alone")
+    else:
+        rec["placement"] = "replicated (ROADMAP 9b)"
+        rec["gathered_bytes"] = 0
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        if shape.kind == "train":
+            a = _train_step(cfg, profile, shape, rows, grad_mode,
+                            "none" if remat == "none" else "full", mesh,
+                            recipe or sh.default_recipe(cfg, mesh), rec)
+        elif shape.kind == "prefill":
+            a = _prefill_step(cfg, shape, rows, last_token_heads, rec)
+        else:
+            a = _decode_step(cfg, profile, shape, rows, rec)
+    res = a.result()
+    rec["trace_s"] = round(time.perf_counter() - t0, 2)
+    rec["peak_bytes"] = res["peak_bytes"]
+    rec["total_bytes"] = rec["persistent_bytes"] + res["peak_bytes"]
+    rec["hbm_bytes_card"] = hbm_bytes
+    rec["fits"] = rec["total_bytes"] <= hbm_bytes
+    rec["analysis"] = res
+    rec["flops_per_rank"] = res["flops"] + sum(res["site_flops"].values())
+    rec["status"] = "ok"
+    return rec
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="per-rank dry run of the port")
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", choices=["single", "multi", "both"],
+                    default="single")
+    ap.add_argument("--grad-mode", default="eq1", choices=["eq1", "sum"])
+    ap.add_argument("--remat", default="full", choices=["full", "none"])
+    ap.add_argument("--recipe", default="greedy", choices=sorted(RECIPES))
+    ap.add_argument("--last-token-heads", action="store_true")
+    ap.add_argument("--fsdp-pod", action="store_true",
+                    help="3-axis FSDP: shard params/optimizer over "
+                         "('pod','data') -- multi-pod mesh only")
+    ap.add_argument("--hbm-bytes", type=float, default=HBM_BYTES,
+                    help="device memory a rank fits in (default the "
+                         "H100 80GB's)")
+    ap.add_argument("--out", default="", help="append JSON lines here")
+    args = ap.parse_args()
+
+    archs = list(configs_mod.CANONICAL) if args.arch == "all" else [args.arch]
+    shapes = ([s.name for s in INPUT_SHAPES] if args.shape == "all"
+              else [args.shape])
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    recipe = RECIPES[args.recipe]
+    if args.fsdp_pod:
+        recipe = dataclasses.replace(recipe or sh.ShardingRecipe(),
+                                     fsdp_axes=("pod", "data"))
+    out_f = open(args.out, "a") if args.out else None
+    print(f"# dry run of one rank per arch x shape (recipe={args.recipe}, "
+          f"fake tensors, no device)")
+    for multi_pod in meshes:
+        for arch in archs:
+            for shape in shapes:
+                tag = f"{arch} x {shape} x {'multi' if multi_pod else 'single'}"
+                try:
+                    rec = run_one(arch, shape, multi_pod,
+                                  grad_mode=args.grad_mode, remat=args.remat,
+                                  recipe=recipe,
+                                  last_token_heads=args.last_token_heads,
+                                  hbm_bytes=args.hbm_bytes)
+                except Exception:                             # noqa: BLE001
+                    rec = {"arch": arch, "shape": shape,
+                           "mesh": "multi_pod" if multi_pod else "single_pod",
+                           "grad_mode": args.grad_mode,
+                           "status": "error",
+                           "error": traceback.format_exc(limit=25)}
+                status = rec["status"]
+                extra = ""
+                if status == "ok":
+                    extra = (f" flops/rank={rec['flops_per_rank']:.3e}"
+                             f" total={rec['total_bytes'] / 1e9:.1f}GB"
+                             f" fits={rec['fits']}"
+                             f" gathered={rec['gathered_bytes']:.3e}"
+                             f" trace={rec['trace_s']}s")
+                print(f"[{status:7s}] {tag}{extra}", flush=True)
+                if out_f:
+                    out_f.write(json.dumps(rec) + "\n")
+                    out_f.flush()
+    if out_f:
+        out_f.close()
+
+
+if __name__ == "__main__":
+    main()

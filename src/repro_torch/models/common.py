@@ -23,7 +23,12 @@ SLICED_DRAW = 2 ** 31
 def trunc_normal(shape, std: float, dtype, generator: torch.Generator,
                  device) -> torch.Tensor:
     """Truncated-normal init (2 sigma), drawn in fp32 then cast; a tensor
-    of more than ``SLICED_DRAW`` elements slice by slice."""
+    of more than ``SLICED_DRAW`` elements slice by slice.  On the meta
+    device (a tree of shapes, ``launch/inputs.abstract_params``) nothing
+    is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+
     def draw(sub):
         t = torch.empty(sub, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import OptimizerConfig
+from repro_torch.kernels.sites import is_fake
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -62,7 +63,10 @@ def _correction_table(beta: float, device) -> torch.Tensor:
         table = torch.from_numpy(bc[:done[0] + 2] if done.size else bc)
         if dev.type == "cuda":      # pinned and non-blocking: no host sync
             table = table.pin_memory()
-        _TABLES[key] = table.to(dev, non_blocking=True)
+        table = table.to(dev, non_blocking=True)
+        if is_fake(table):          # under a dry run's fake mode: not kept
+            return table
+        _TABLES[key] = table
     return _TABLES[key]
 
 

@@ -250,6 +250,22 @@ def test_sum_mode_converges(runs):
     assert h[-1][0] < h[0][0] and h[-1][1] < h[0][1], h
 
 
+@pytest.mark.parametrize("leg", ["data_fsdp", "lanes"])
+def test_gather_plan_matches_measured_bytes(runs, leg):
+    """``api/spmd_engine.unshard_plan`` (what the dry run reads) predicts
+    the bytes each cohort step gathered on every rank, to the byte, on the
+    FSDP data leg (gathers over "data") and the lanes leg."""
+    world, ranks = runs
+    for r in ranks:
+        res = r[leg]
+        assert "error" not in res, res["error"]
+        print(f"reading gathered bytes {leg} world {world}: measured "
+              f"{res['gathered']:.1f}, planned {res['planned']:.1f}")
+        assert res["planned"] == res["gathered"]
+    if leg == "data_fsdp":
+        assert ranks[0][leg]["gathered"] > 0
+
+
 def test_ranks_hold_the_same_results(runs):
     world, ranks = runs
     for name in ("lanes", "data_fsdp", "resnet", "population"):

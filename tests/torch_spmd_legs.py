@@ -139,11 +139,19 @@ def _result(session, model, **extra):
             "engine": session.engine_name, **extra}
 
 
+def _gathered(session):
+    """The bytes a cohort step gathered on this rank, measured and as
+    ``api/spmd_engine.unshard_plan`` predicts them."""
+    eng = session.engine
+    return {"gathered": eng.last_gathered_bytes_per_step,
+            "planned": eng.planned_gathered_bytes_per_step()}
+
+
 def leg_lanes(world, inputs, meshes):
     s, m = _mlp_run(inputs, meshes[0], "greedy")
     f, _ = _mlp_run(inputs, None, None, engine="fused")
     return _result(s, m, fused=keyed(f.state, m),
-                   fused_history=history(f.history))
+                   fused_history=history(f.history), **_gathered(s))
 
 
 def leg_lanes_eq1_fault(world, inputs, meshes):
@@ -154,7 +162,7 @@ def leg_lanes_eq1_fault(world, inputs, meshes):
 
 def leg_data_fsdp(world, inputs, meshes):
     s, m = _mlp_run(inputs, meshes[1] if world == 4 else None, SMALL_FSDP)
-    return _result(s, m)
+    return _result(s, m, **_gathered(s))
 
 
 def leg_data_nofsdp(world, inputs, meshes):
