@@ -44,7 +44,11 @@ Phases:
            forward and backward at chunks 8-128, fp32 and bf16, ragged T,
            head dims 16-64, the rwkv6-3b train and prefill shapes, bit for
            bit across two launches, and decays that overflow the plain
-           chunked form (against the token oracle); and
+           chunked form (against the token oracle); the decode route
+           (bf16) and the row route (fp32) with the LSE on one part of a
+           decode ring split over ranks, rows with kv_valid 0 among them
+           (their LSE must read "no key" on both sides, which the parts'
+           combine weights 0); and
            both autograd sites of training against autograd of the plain
            forward;
   parity   smoke configs in fp32: the glm4-9b, zamba2-1.2b,
@@ -225,8 +229,23 @@ Phases:
            engine on the same card, and two planted faults (Eq. (1)'s lanes
            reduce skipped, per-rank BatchNorm statistics) that must be
            rejected; ms per round and bytes gathered per step are a record,
-           and the gather plan (api/spmd_engine.unshard_plan, which the dry
-           run reads) must predict the bytes gathered to the byte;
+           and the gather plan (launch/meshcomm.unshard_plan, which the dry
+           run reads) must predict the bytes gathered to the byte; then
+           serving over the ranks: ServeSession(mesh=, recipe="greedy") on
+           glm4-9b at its published widths cut to 4 layers, bf16, on a
+           data mesh (the slots over the ranks) and a model mesh (the
+           decode ring's sequence split over "model", the parts' attention
+           combined by their LSEs), select and sticky, the decode route and
+           the gate counted on every rank, ms a tick, bytes gathered a tick
+           and peak memory per rank, against the one-rank session on the
+           same card and each request served alone at the bf16 stream
+           limits, and a planted fault (the parts not combined) that must
+           be rejected; last, the qwen3-moe bf16 smoke with its batch over
+           the ranks (expert loads summed over them) against the one-rank
+           fused engine with the routing pinned, and one forward of it
+           (capacity factor 0.5: experts drop entries) with its rows over
+           the ranks against one rank, where a planted fault (the loads
+           left per rank) must be rejected;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -594,6 +613,7 @@ def phase_kernels(state):
             attn_case(f"{name} D={D}", bf16, TOL_ATTN_BF16, lse=True, D=D,
                       **kw)
     decode_cases(attn_case)
+    ring_part_cases(gen)
     # the dense and MoE configs' head layouts: command-r-35b's GQA 8 (H 64,
     # Hkv 8), phi3-medium-14b's H 40 / Hkv 10, qwen3-moe's H 64 / Hkv 4;
     # prefill on the tile route, a decode tick of 8 slots on the decode
@@ -809,6 +829,51 @@ def decode_cases(attn_case):
     check(seen == set(range(1, 9)),
           f"decode route: the {LONG_CACHE}-key cases ran every split count "
           f"1-8 ({sorted(seen)})")
+
+
+def ring_part_cases(gen):
+    """The decode route (bf16) and the row route (fp32) on one part of a
+    decode ring split over ranks (``models.attention.ShardedRing``):
+    glm4-9b's heads (8 slots, H 32, Hkv 2, D 128) over half of phase
+    spmd's 160-slot ring, with the LSE, at per-row ``kv_valid`` of 0 (the
+    row's valid prefix lies wholly in the other part), 1, ragged and
+    full.  Rows with keys: out and LSE against the plain version.  Rows
+    without: both sides' LSE reads "no key" (at most NEG_INF / 2, which
+    the combine weights 0) and the kernel's output is finite."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
+    part = SPMD_SERVE_MAX_LEN // 2
+    valid = torch.tensor([0, 1, 37, part, 0, 5, part - 1, 0],
+                         dtype=torch.int32, device="cuda")
+    has = valid > 0
+    for dtype, route, tol in ((torch.bfloat16, "decode", TOL_ATTN_BF16),
+                              (torch.float32, "row", TOL_ATTN_F32)):
+        q, k, v = attn_inputs(gen, dtype, B=8, Tq=1, Tk=part)
+        before = launch_counts(flash_attention)
+        got, got_lse = flash_attention(q, k, v, causal=False,
+                                       kv_valid=valid, return_lse=True)
+        want, want_lse = flash_attention_ref(q, k, v, causal=False,
+                                             kv_valid=valid, return_lse=True)
+        torch.cuda.synchronize()
+        kernel = {"decode": "flash_attention", "row": "flash_attention_row"}[
+            route]
+        launched = {n: c - before[n]
+                    for n, c in launch_counts(flash_attention).items()}
+        name = f"ring part (8,32,1,128)/(8,2,{part},128) kv_valid with 0 rows"
+        check(launched[kernel] == 1 and sum(launched.values()) == 1,
+              f"attention {name} {dtype}: one launch, {route} route")
+        d = (got[has].float() - want[has].float()).abs().max().item()
+        d_lse = (got_lse[has] - want_lse[has]).abs().max().item()
+        check(d <= tol and d_lse <= TOL_LSE,
+              f"attention {name} {dtype}: rows with keys max|d| {d:.3e} <= "
+              f"{tol:g}, lse {d_lse:.3e} <= {TOL_LSE:g}")
+        empty_k = got_lse[~has].max().item()
+        empty_p = want_lse[~has].max().item()
+        check(bool(torch.isfinite(got).all()) and max(empty_k, empty_p)
+              <= NEG_INF / 2,
+              f"attention {name} {dtype}: rows without keys read no key "
+              f"(lse {empty_k:.3g} kernel, {empty_p:.3g} plain), output "
+              f"finite")
 
 
 def bwd_inputs(gen, dtype, *, B, H, Hkv, T, D, Tk=None):
@@ -2529,7 +2594,7 @@ def dryrun_serve_leg(leg, cfg) -> dict:
                      device="cuda")
 
     def real_step():
-        sess._full_tick(tau)
+        sess._full_tick(sess.params, sess._pool, tau)
 
     def fake_step():
         fs = ServeSession(cfg, fake_copy(abstract_params(cfg)),
@@ -2537,7 +2602,7 @@ def dryrun_serve_leg(leg, cfg) -> dict:
                           device="cpu")
         ftau = torch.full((SLOTS,), DRYRUN_SERVE_TAU, dtype=torch.float32)
         with StepAnalysis() as a:
-            fs._full_tick(ftau)
+            fs._full_tick(fs.params, fs._pool, ftau)
         return a.result()
 
     out = dryrun_compare(leg, real_step, fake_step,
@@ -3803,6 +3868,22 @@ SPMD_LDM = ("lanes", "data", "model")
 TOL_SPMD_DATA_LOSS = 5e-4
 TOL_SPMD_DATA_PARAMS = 1e-1
 TOL_SPMD_F64_RATIO = 1e-2
+# serving over the ranks (phase spmd): glm4-9b at its published widths cut
+# to SPMD_SERVE_LAYERS layers by phase main's rule, bf16, 8 slots, 8
+# requests of 16-128 tokens, 2 decode tokens each (a tick gathers ~3.9 GB
+# of weights a rank through gloo, which stages them in pinned host memory
+# that the allocator keeps: legs at 8 and at 4 layers in one run took the
+# machine's 96 GiB), a 160-slot ring (even: split in two over "model").  At 4 layers every run is one layer, so the rules
+# split every layer's ring along its sequence; at phase main's 8 (runs of
+# two) they put the cache's slot dim over "model" instead
+# (launch/shardings.cache_specs)
+SPMD_SERVE_LAYERS = 4
+# the MoE split's block check: a capacity factor at which every expert of
+# the qwen3-moe smoke (4 experts, top 2) drops entries, so capacity reads
+# the whole batch's loads
+SPMD_MOE_TIGHT = 0.5
+SPMD_SERVE_SLOTS, SPMD_SERVE_REQUESTS, SPMD_SERVE_DECODE = 8, 8, 2
+SPMD_SERVE_MAX_LEN = 160
 
 
 def phase_spmd(state):
@@ -3822,8 +3903,9 @@ def phase_spmd(state):
     the backbone (TOL_LOSS_BF16 on the losses, TOL_GRAD_BF16 on the
     trainables' drift); and two planted faults the ResNet comparison must
     reject: Eq. (1)'s partial sums left unsummed over the lanes group, and
-    BatchNorm statistics left per rank.  A rank that fails fails the
-    phase."""
+    BatchNorm statistics left per rank.  Then serving over the ranks
+    (``spmd_serve_legs``) and a MoE model's data split
+    (``spmd_moe_leg``).  A rank that fails fails the phase."""
     from repro_torch.launch.hostdevices import HostRanks
     print(f"spmd card: {card_line()}")
     runs = [("gloo", 2)]
@@ -4020,7 +4102,7 @@ def spmd_rank(backend: str) -> dict:
                            f"{tp:g}"))
             checks.append((r["planned"] == r["gathered"],
                            f"spmd ResNet {leg}: the gather plan "
-                           f"(api/spmd_engine.unshard_plan) predicts the "
+                           f"(launch/meshcomm.unshard_plan) predicts the "
                            f"bytes gathered per step, {r['planned']:,.0f} "
                            f"= {r['gathered']:,.0f}"))
             out[leg] = dict(ms=r["ms"], gathered=r["gathered"],
@@ -4080,7 +4162,312 @@ def spmd_rank(backend: str) -> dict:
           f"and the gate launched")
     if rank == 0:
         check(not bad, f"spmd comparisons: {len(bad)} failed")
+    out["serve"] = spmd_serve_legs(rank, world, counts)
+    out["moe"] = spmd_moe_leg(rank, world, counts)
     return out
+
+
+def spmd_serve_legs(rank: int, world: int, counts: dict) -> dict:
+    """Serving over the ranks: ``ServeSession(mesh=, recipe="greedy")`` on
+    glm4-9b at its published widths cut to SPMD_SERVE_LAYERS layers by
+    phase main's rule (exits after N/4, N/2, 3N/4), bf16, on the kernels,
+    over a data mesh (the slots over the ranks, the weights FSDP over
+    "data") and a model mesh (the weights over "model", every layer's
+    decode ring split along its sequence: each rank attends over its part
+    and the parts are combined by their LSEs), each under the select (tau
+    2.0) and the sticky policy (tau 12.5 > ln V: every token exits,
+    client-only ticks run).  The launch counts are zeroed before the four
+    runs and read after: on every rank the decode route launches once a
+    layer a full tick (the client's layers on a client-only tick) and the
+    gate once a tick.  Each rank prints ms a tick, bytes gathered a tick,
+    its peak device memory and its pinned host memory (gloo stages each
+    CUDA tensor through it).  Then, on rank 0, the one-rank ServeSession
+    on the same card (timed the same way) and each request served alone
+    (``sequential_reference`` on the kernels): every rank's streams equal,
+    and the streams of the one-rank and of the multi-rank sessions each
+    held to the references at the bf16 limits of repro_torch/parity.py;
+    the planted fault, each rank's part of the ring taken as the whole
+    (``parity.uncombined_parts``), must part from them."""
+    import torch.distributed as dist
+
+    from repro_torch.api.serve_session import (ServeResult, ServeSession,
+                                               sequential_reference,
+                                               sequential_sticky_reference)
+    from repro_torch.configs import glm4_9b
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import ShardedRing
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16, stream_parity,
+                                    uncombined_parts)
+    cfg, _ = cut_depth(glm4_9b.config(), SPMD_SERVE_LAYERS)
+    cut = sorted(cfg.exit_layers)[0]
+
+    def weights():
+        # drawn anew for each session (the same seed), so that a rank
+        # holds only its shards while the sessions over the ranks run
+        return init_backbone(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+
+    def pinned_gib():
+        stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+        if stats is None:
+            return float("nan")
+        return stats().get("allocated_bytes.current", float("nan")) / 2**30
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(SPMD_SERVE_REQUESTS)]
+    meshes = {"data": (world, 1), "model": (world // 2, 2)}
+    taus = {"select": 2.0, "sticky": 12.5}
+    warm = ServeSession(cfg, weights(), tau=2.0, slots=SPMD_SERVE_SLOTS,
+                        max_len=SPMD_SERVE_MAX_LEN)
+    warm.submit(prompts[0][:16], decode_tokens=2)
+    warm.run()
+    del warm
+
+    def serve(policy, mesh=None, fault=contextlib.nullcontext):
+        sess = ServeSession(
+            cfg, weights(), tau=taus[policy], slots=SPMD_SERVE_SLOTS,
+            max_len=SPMD_SERVE_MAX_LEN, exit_policy=policy, recipe="greedy",
+            mesh=None if mesh is None else make_host_mesh(
+                meshes[mesh], ("data", "model")))
+        for p in prompts:
+            sess.submit(p, decode_tokens=SPMD_SERVE_DECODE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (flash_attention.decode_launches, entropy_exit.launches)
+        with fault():
+            done = sess.run()
+        torch.cuda.synchronize()
+        st = sess.stats
+        rings = 0
+        if sess.placement is not None:
+            cache, _ = sess.placement.working_cache()
+            rings = sum(isinstance(layer["mixer"], ShardedRing)
+                        for seg in cache for layer in seg)
+            del cache
+        reading = dict(
+            ms_per_tick=(st.wall_s - st.prefill_s) / st.decode_ticks * 1e3,
+            gathered_per_tick=st.gathered_bytes_per_tick,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            pinned_gib=pinned_gib(), ticks=st.decode_ticks,
+            client_only=st.client_only_ticks,
+            decode=flash_attention.decode_launches - before[0],
+            gate=entropy_exit.launches - before[1], split_rings=rings)
+        streams = {r.rid: (r.tokens, r.exited, r.entropy) for r in done}
+        del sess
+        return streams, reading
+
+    # ---- the main path: every count at 0, read after
+    zero_counts(flash_attention, entropy_exit)
+    runs, readings = {}, {}
+    for mesh in meshes:
+        for policy in taus:
+            runs[mesh, policy], r = serve(policy, mesh)
+            readings[f"{mesh}/{policy}"] = r
+            want = (cfg.num_layers * (r["ticks"] - r["client_only"])
+                    + cut * r["client_only"])
+            print(f"spmd serve glm4-9b {cfg.num_layers} layers {mesh} mesh "
+                  f"{meshes[mesh]} {policy} (rank {rank}): "
+                  f"{r['ms_per_tick']:.3f} ms a tick over {r['ticks']} ticks"
+                  f" ({r['client_only']} client-only), "
+                  f"{r['gathered_per_tick']:,.0f} bytes gathered a tick, "
+                  f"peak {r['peak_gib']:.2f} GiB, pinned host "
+                  f"{r['pinned_gib']:.2f} GiB, rings split on "
+                  f"{r['split_rings']} of {cfg.num_layers} layers, launches: "
+                  f"decode route {r['decode']}, gate {r['gate']}", flush=True)
+            check(r["decode"] == want and r["gate"] == r["ticks"] > 0,
+                  f"spmd serve {mesh} {policy} rank {rank}: the decode route "
+                  f"launched {r['decode']} = {want} times (a layer a full "
+                  f"tick, the client's a client-only tick), the gate once a "
+                  f"tick")
+            if mesh == "model":
+                check(r["split_rings"] == cfg.num_layers,
+                      f"spmd serve model {policy}: every layer's ring split "
+                      f"along its sequence")
+    main = {k: c for w in (flash_attention, entropy_exit)
+            for k, c in launch_counts(w).items()}
+    for k, c in main.items():
+        counts[k] = counts.get(k, 0) + c
+    fault, _ = serve("select", "model", uncombined_parts)
+    every = [None] * world
+    dist.all_gather_object(every, {"runs": runs, "fault": fault})
+    if rank == 0:
+        checks = []
+
+        def as_res(st):
+            return {i: ServeResult(i, None, tokens=t, exited=e, entropy=h)
+                    for i, (t, e, h) in st.items()}
+
+        params = weights()
+        alone = {policy: [
+            (sequential_sticky_reference if policy == "sticky"
+             else sequential_reference)(
+                cfg, params, p, SPMD_SERVE_DECODE, tau=taus[policy],
+                max_len=SPMD_SERVE_MAX_LEN) for p in prompts]
+            for policy in taus}
+        del params
+        one = {}
+        for policy in taus:
+            one[policy], r = serve(policy)
+            readings[f"one rank/{policy}"] = r
+            print(f"spmd serve glm4-9b {cfg.num_layers} layers one-rank "
+                  f"{policy} on the same card: {r['ms_per_tick']:.3f} ms a "
+                  f"tick over {r['ticks']} ticks, peak {r['peak_gib']:.2f} "
+                  f"GiB", flush=True)
+            sp = stream_parity(as_res(one[policy]), alone[policy],
+                               taus[policy])
+            print(f"  reading spmd serve one-rank {policy} vs each request "
+                  f"alone: compared {sp.compared}, max|dH| {sp.max_dh:.3e},"
+                  f" parted {sp.parted}")
+            checks.append((sp.ok and sp.max_dh <= TOL_H_BF16,
+                           f"spmd serve one-rank {policy}: streams within "
+                           f"the bf16 limits"))
+        for mesh in meshes:
+            for policy in taus:
+                got = every[0]["runs"][mesh, policy]
+                same = all(e["runs"][mesh, policy] == got for e in every)
+                sp = stream_parity(as_res(got), alone[policy], taus[policy])
+                agree = sum(a == b for rid in got
+                            for a, b in zip(got[rid][0], one[policy][rid][0]))
+                print(f"  reading spmd serve {mesh} {policy} vs each request"
+                      f" alone: compared {sp.compared}, max|dH| "
+                      f"{sp.max_dh:.3e}, parted {sp.parted}; {agree} tokens "
+                      f"equal to the one-rank session's")
+                checks.append((same and sp.ok and sp.max_dh <= TOL_H_BF16,
+                               f"spmd serve {mesh} {policy}: every rank "
+                               f"holds the same streams, within the bf16 "
+                               f"limits (tie gap {TIE_GAP_BF16:g}, |dH| "
+                               f"{TOL_H_BF16:g})"))
+        verdicts = []
+        for r, e in enumerate(every):
+            sp = stream_parity(as_res(e["fault"]), alone["select"], 2.0)
+            verdicts.append(sp.ok and sp.max_dh <= TOL_H_BF16)
+            print(f"  reading spmd serve planted fault (each rank's part of "
+                  f"the ring as the whole) rank {r}: max|dH| "
+                  f"{sp.max_dh:.3e}, parted {sp.parted}")
+        checks.append((not all(verdicts),
+                       "spmd serve planted fault rejected: the parts of the "
+                       "ring not combined"))
+        for ok, msg in checks:
+            print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
+        check(all(ok for ok, _ in checks), "spmd serve comparisons")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return {"readings": readings}
+
+
+def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
+    """A data split of a MoE model: the qwen3-moe bf16 smoke through
+    BackboneSplitModel (two lanes at cut 2) on the kernels, its batch over
+    the ranks (``models/moe.py`` routes the whole batch: capacity from the
+    global N, expert loads summed over the batch ranks), LANE_ROUNDS rounds
+    replaying the routing of the one-rank fused engine's run on the same
+    card (``parity.pinned_routes``), against that run at the bf16 lane
+    limits; the launch counts are zeroed before the split run and read
+    after (the attention forward, dK/dV and dQ on every rank).  The aux
+    loss's weight (1e-3) leaves the loads' effect on a round's loss inside
+    bf16 rounding, so the split's routing is also held at the block: one
+    forward of the smoke with capacity factor SPMD_MOE_TIGHT (experts drop
+    entries) on this rank's rows under the batch group against the whole
+    batch on one rank, routes pinned: logits and aux loss within
+    TOL_GRAD_BF16 of their norms.  The planted fault, each rank's expert
+    loads left unsummed (``parity.unsummed_expert_loads``), must miss
+    there."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_moe_235b_a22b
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.backbone import backbone_forward, init_backbone
+    from repro_torch.models.sync_stats import synced_batch_stats
+    from repro_torch.parity import (LANE_ROUNDS, LANE_SEQ, TOL_GRAD_BF16,
+                                    TOL_LOSS_BF16, Routes, backbone_session,
+                                    paper_drift, pinned_routes,
+                                    unsummed_expert_loads)
+    fam = "qwen3_moe_235b_a22b"
+    routes = Routes()
+    fused = backbone_session(fam, "auto", "cuda")
+    start = fused.state.clone()
+    with pinned_routes(routes, replay=False):
+        f_hist = fused.train(LANE_ROUNDS)
+    attn = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    zero_counts(*attn)
+    sess = backbone_session(fam, "auto", "cuda", state=start.clone(),
+                            engine="spmd",
+                            mesh=make_host_mesh((world, 1), ("data", "model")))
+    with pinned_routes(routes, replay=True):
+        hist = sess.train(LANE_ROUNDS)
+    main = {k: n for w in attn for k, n in launch_counts(w).items()}
+    for k, n in main.items():
+        counts[k] = counts.get(k, 0) + n
+    dl = max(max(abs(a.client_loss - b.client_loss),
+                 abs(a.server_loss - b.server_loss))
+             for a, b in zip(hist, f_hist))
+    d = paper_drift(sess.state, fused.state, start)
+    dd = max(d["clients"], d["servers"])
+    print(f"spmd moe qwen3 bf16 smoke, batch over {world} ranks (rank "
+          f"{rank}, {sess.engine_name}): vs the one-rank fused run (pinned, "
+          f"{routes.flipped} of {routes.tokens} choices replayed against "
+          f"their own) max|dloss| {dl:.3e}, drift {dd:.3e}; launches "
+          + ", ".join(f"{k} {n}" for k, n in main.items() if n), flush=True)
+    check(all(main[k] > 0 for k in ("flash_attention_tile",
+                                    "flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq")),
+          f"spmd moe rank {rank}: the attention forward, dK/dV and dQ "
+          f"kernels launched")
+    lim = TOL_LOSS_BF16[fam]
+    check(sess.engine_name == "spmd" and dl <= lim and dd <= TOL_GRAD_BF16,
+          f"spmd moe qwen3 bf16 data split = one-rank fused: losses "
+          f"{dl:.2e} <= {lim:g}, drift {dd:.2e} <= {TOL_GRAD_BF16:g}")
+    del sess, fused
+
+    # the block: one forward, the batch over the ranks against one rank
+    smoke = qwen3_moe_235b_a22b.smoke_bf16()
+    cfg = smoke.with_(moe=dataclasses.replace(
+        smoke.moe, capacity_factor=SPMD_MOE_TIGHT))
+    params = init_backbone(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2 * world * 4, LANE_SEQ)), device="cuda")
+    n = tokens.shape[0] // world
+    mine = slice(rank * n, (rank + 1) * n)
+    block = Routes()
+    with torch.no_grad(), pinned_routes(block, replay=False):
+        whole = backbone_forward(params, cfg, tokens=tokens)
+
+    def split(fault=contextlib.nullcontext):
+        with torch.no_grad(), pinned_routes(block, replay=True), \
+                synced_batch_stats(dist.group.WORLD, world, rank), fault():
+            part = backbone_forward(params, cfg, tokens=tokens[mine])
+        want = whole.logits[mine].float()
+        return (float((part.logits.float() - want).norm() / want.norm()),
+                float((part.aux_loss - whole.aux_loss).abs()
+                      / whole.aux_loss.abs()))
+
+    gl, ga = split()
+    fl, fa = split(unsummed_expert_loads)
+    print(f"  reading spmd moe block, capacity factor {SPMD_MOE_TIGHT}, "
+          f"rows over {world} ranks vs one rank (rank {rank}): logits "
+          f"{gl:.3e}, aux loss {ga:.3e} (relative); planted fault (expert "
+          f"loads per rank): logits {fl:.3e}, aux loss {fa:.3e}", flush=True)
+    check(gl <= TOL_GRAD_BF16 and ga <= TOL_GRAD_BF16,
+          f"spmd moe block split = one rank: logits {gl:.2e}, aux loss "
+          f"{ga:.2e} <= {TOL_GRAD_BF16:g}")
+    check(fl > TOL_GRAD_BF16 or fa > TOL_GRAD_BF16,
+          f"spmd moe planted fault rejected: expert loads per rank "
+          f"(logits {fl:.2e}, aux loss {fa:.2e})")
+    del params, whole
+    torch.cuda.empty_cache()
+    return {"dloss": dl, "drift": d, "block": (gl, ga),
+            "block_fault": (fl, fa), "flipped": routes.flipped,
+            "tokens": routes.tokens}
 
 
 def phase_timing(state):

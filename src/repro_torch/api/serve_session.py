@@ -36,11 +36,32 @@ VLM configs are served token-only, as in the JAX package.
 
 ``restore`` serves a ``TrainSession`` checkpoint (either package's):
 :func:`assemble_serve_params` composes one full network from the trained
-client and server nets.  ``mesh=`` (slots over the data ranks by
-``launch.shardings.serve_state_specs``) raises: it is ROADMAP.md item 9b.
+client and server nets.
+
+Sharding rides the recipe rules training uses.  ``ServeSession(mesh=,
+recipe=)`` serves over the ranks of a ``torch.distributed`` world
+(:class:`RankPlacement`): ``launch.shardings.serve_state_specs`` places
+the parameter tree (per ``ShardingRecipe``) and the slot-paged cache
+(slot dim over the batch axes, the decode ring's sequence over
+``"model"``), computed on the JAX package's layout of the serving tree
+and mapped back onto the port's leaves, and each rank keeps only its
+chunk of every leaf.  Every rank runs the host scheduler on the same
+submissions and makes the same admissions.  A tick gathers the sharded
+weights whole (freed at its end); the data group that owns a free slot
+prefills its request whole, each of its ranks keeping its part of the
+page; every rank decodes its data group's slots, attention over its part
+of each split ring combined over the ring's ranks
+(``models.attention.combine_parts``), and the tick's tokens, gates and
+entropies are all-gathered over the batch ranks, so ``results``, the
+counts of ``stats`` and ``run()`` are the same on every rank.  Where the
+slots do not divide over the batch ranks they stay replicated and every
+data group runs every slot.  Tensor-parallel products over ``"model"``
+are ROADMAP.md item 9b-3: until then the ranks of a ``"model"`` group
+repeat their group's compute on whole weights.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -53,10 +74,17 @@ from repro_torch.config import HeteroProfile, ModelConfig, SplitEEConfig
 from repro_torch.core.spmd import StepConfig, make_serve_step
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import (MeshSpec, axis_sizes, batch_axes,
+                                     live_mesh)
+from repro_torch.launch.meshcomm import MeshComm, _axes, chunk_shapes
+from repro_torch.launch.shardings import (_lookup, jax_layout,
+                                          map_with_path, port_specs,
+                                          resolve_recipe, serve_state_specs)
 from repro_torch.models.frontend import project_enc, stub_enc
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (backbone_forward, init_cache,
                                          segment_forward)
+from repro_torch.models.attention import RingPart, ShardedRing
 from repro_torch.models.common import embed
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -174,10 +202,176 @@ class ServeStats:
     client_only_ticks: int = 0         # sticky ticks that skipped the server
     wall_s: float = 0.0                # whole ticks, admissions included
     prefill_s: float = 0.0             # admissions alone (prefill + join)
+    gathered_bytes: int = 0            # received by this rank's all_gathers
+
+    @property
+    def gathered_bytes_per_tick(self) -> float:
+        return self.gathered_bytes / max(1, self.decode_ticks)
 
     @property
     def adoption_ratio(self) -> float:
         return self.exited / max(1, self.tokens)
+
+
+_RING_KEYS = ("k", "v", "ckv", "k_rope")
+
+
+def serve_placement(recipe, mesh, cfg: ModelConfig, params, pool):
+    """``(param specs, cache specs)`` of a serving tree (any leaves with
+    ``.shape``, e.g. meta tensors) on ``mesh`` (live or a ``MeshSpec``):
+    ``serve_state_specs`` on the JAX package's layout of the tree, mapped
+    back onto the port's leaves, the axes of one rank dropped (they move
+    nothing)."""
+    sizes = axis_sizes(mesh)
+    specs = serve_state_specs(
+        recipe, mesh, jax_layout(params, cfg),
+        jax_layout({"segments": pool}, cfg)["segments"], cfg)
+    pspecs = port_specs(specs["params"], params, cfg)
+    cspecs = port_specs({"segments": specs["cache"]}, {"segments": pool},
+                        cfg)["segments"]
+
+    def live(spec):
+        return tuple(e if math.prod(sizes[a] for a in _axes(e)) > 1
+                     else None for e in spec)
+    return (map_with_path(lambda p, t: live(_lookup(pspecs, p)), params),
+            map_with_path(lambda p, t: live(_lookup(cspecs, p)), pool))
+
+
+class RankPlacement:
+    """A serving session's state over the ranks of a mesh: this rank's
+    chunk of every parameter and cache leaf, placed by
+    :func:`serve_placement` under ``recipe``, and the collectives of a
+    tick (``launch.meshcomm.MeshComm``).
+
+    A cache leaf's slot dim over the batch axes leaves this rank its data
+    group's slots ``[lo, hi)``; a decode ring's sequence over ``"model"``
+    stays split (:class:`~repro_torch.models.attention.ShardedRing`);
+    any other split dim (a recurrent state's heads, or the slot dim where
+    the rules put a stacked run's layers over the batch axes) is gathered
+    for the tick and this rank's chunk written back after it.  A leaf
+    whose slot dim is not split holds every slot, of which only the owning
+    data group's rows are kept current: no rank reads another group's."""
+
+    def __init__(self, mesh, recipe, cfg: ModelConfig, params: dict,
+                 slots: int, max_len: int, device):
+        mesh = live_mesh(mesh) if isinstance(mesh, MeshSpec) else mesh
+        self.comm = comm = MeshComm(mesh)
+        self.recipe = resolve_recipe(recipe)
+        pool = init_cache(cfg, slots, max_len, cfg.dtype, "meta")
+        self.param_specs, self.cache_specs = serve_placement(
+            self.recipe, mesh, cfg, params, pool)
+        self.params = map_with_path(
+            lambda p, t: comm.shard(t.to(device), _lookup(self.param_specs,
+                                                          p), lead=0),
+            params)
+        self.pool = map_with_path(
+            lambda p, t: torch.zeros(t.shape, dtype=t.dtype, device=device),
+            chunk_shapes(pool, self.cache_specs, comm.sizes, lead=0))
+        self._batch_all = batch_axes(mesh)
+        self.batch = tuple(a for a in self._batch_all
+                           if comm.sizes[a] > 1)
+        dp = comm.size(self.batch)
+        if dp > 1 and slots % dp == 0:
+            n = slots // dp
+            self.lo = comm.index(self.batch) * n
+            self.hi = self.lo + n
+            self.slots_split = True
+        else:
+            self.lo, self.hi, self.slots_split = 0, slots, False
+        self.slots = slots
+        # per cache leaf: the dims a tick gathers (the rest kept split)
+        self._gather_specs = map_with_path(self._gather_spec, pool)
+
+    def _gather_spec(self, path, t) -> tuple:
+        """The dims of a cache leaf a tick gathers: every split dim but
+        the slot dim over the batch axes and a ring's sequence."""
+        spec = list(_lookup(self.cache_specs, path))
+        if set(_axes(spec[0])) <= set(self._batch_all):
+            spec[0] = None                      # this group's slots
+        if path[-1] in _RING_KEYS:
+            spec[1] = None                      # the ring stays split
+        return tuple(spec)
+
+    # ------------------------------------------------------------- a tick
+    def whole_params(self) -> dict:
+        """The parameter tree whole (each sharded leaf all-gathered)."""
+        return self.comm.unshard(self.params, self.param_specs, lead=0)
+
+    def _range(self, spec, d: int, size: int):
+        """(start, length) of this rank's chunk of dim ``d`` (``size``
+        whole)."""
+        axes = _axes(spec[d])
+        n = size // self.comm.size(axes)
+        return self.comm.index(axes) * n, n
+
+    def admit_page(self, s: int, page) -> None:
+        """Copies slot ``s``'s whole prefilled page (B = 1) into this
+        rank's chunks: its part of every split dim, where its chunk holds
+        slot ``s``."""
+        def put(path, chunk):
+            spec = _lookup(self.cache_specs, path)
+            src = _lookup(page, path)[0]
+            start, n = self._range(spec, 0, self.slots)
+            if not start <= s < start + n:
+                return chunk
+            for d in range(1, chunk.dim()):
+                lo, n_d = self._range(spec, d, src.shape[d - 1])
+                src = src.narrow(d - 1, lo, n_d)
+            chunk[s - start].copy_(src)
+            return chunk
+        map_with_path(put, self.pool)
+
+    def working_cache(self):
+        """The tick's cache of this group's slots: each leaf's rows
+        ``[lo, hi)`` (views of this rank's chunks, or of leaves gathered
+        whole), split rings wrapped with their part.  Returns it and the
+        gathered leaves to :meth:`write_back`."""
+        whole = self.comm.unshard(self.pool, self._gather_specs, lead=0)
+        back = []
+
+        def rows(path, t):
+            chunk = _lookup(self.pool, path)
+            if t is not chunk:
+                back.append((chunk, t, _lookup(self._gather_specs, path)))
+            # a leaf that holds every slot: this group's rows of it
+            return (t[self.lo:self.hi] if t.shape[0] != self.hi - self.lo
+                    else t)
+        cache = map_with_path(rows, whole)
+        for si, seg in enumerate(cache):
+            for li, layer in enumerate(seg):
+                mixer = layer["mixer"]
+                key = next((k for k in mixer if k in _RING_KEYS), None)
+                if key is None:
+                    continue
+                axes = _axes(_lookup(self.cache_specs,
+                                     (si, li, "mixer", key))[1])
+                if axes:
+                    layer["mixer"] = ShardedRing(mixer, RingPart(
+                        width=mixer[key].shape[1] * self.comm.size(axes),
+                        parts=self.comm.size(axes),
+                        index=self.comm.index(axes),
+                        gather=lambda x, axes=axes: self.comm.gather(
+                            [(x[None], 0, axes)])[0]))
+        return cache, back
+
+    def write_back(self, back) -> None:
+        """This rank's chunk of every leaf :meth:`working_cache` gathered
+        (its part of each gathered dim), written back into its stored
+        chunk."""
+        for chunk, whole, spec in back:
+            src = whole
+            for d in range(chunk.dim()):
+                lo, n = self._range(spec, d, whole.shape[d])
+                src = src.narrow(d, lo, n)
+            chunk.copy_(src)
+
+    def gather_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (..., hi - lo) of this group's slots -> (..., slots), every
+        group's in slot order (``x`` itself when the slots are not
+        split)."""
+        if not self.slots_split:
+            return x
+        return self.comm.gather([(x, x.dim() - 1, self.batch)])[0]
 
 
 class ServeSession:
@@ -186,12 +380,7 @@ class ServeSession:
     def __init__(self, cfg: ModelConfig, params: dict, *, tau: float,
                  boundary: int = 0, slots: int = 8, max_len: int = 128,
                  exit_policy: str = "select", kernels: Optional[str] = None,
-                 device=None, mesh=None):
-        if mesh is not None:
-            raise ValueError(
-                "ServeSession(mesh=...): serving over ranks (slots over the "
-                "data ranks by serve_state_specs, tensor-parallel compute "
-                "over 'model') is ROADMAP.md item 9b, not ported yet")
+                 device=None, mesh=None, recipe=None):
         if exit_policy not in ("select", "sticky"):
             raise ValueError(f"unknown exit_policy {exit_policy!r}; "
                              f"expected 'select' or 'sticky'")
@@ -207,8 +396,19 @@ class ServeSession:
         self.exit_policy = exit_policy
         self.sc, self.cut, self.skip_frac = serve_step_config(
             cfg, tau, boundary)
-        self.params = tree_map(lambda t: t.to(self.device), params)
-        self._pool = init_cache(cfg, slots, max_len, cfg.dtype, self.device)
+        if mesh is not None:
+            #: the placement over the mesh's ranks (``None`` on one rank)
+            self.placement = RankPlacement(mesh, recipe, cfg, params, slots,
+                                           max_len, self.device)
+            self.params = self.placement.params     # this rank's chunks
+            self._pool = self.placement.pool
+            self._lo, self._hi = self.placement.lo, self.placement.hi
+        else:
+            self.placement = None
+            self.params = tree_map(lambda t: t.to(self.device), params)
+            self._pool = init_cache(cfg, slots, max_len, cfg.dtype,
+                                    self.device)
+            self._lo, self._hi = 0, slots
         self._step = make_serve_step(self.sc, boundary=boundary)
         self._gate = dispatch.backend_for(cfg)
 
@@ -218,9 +418,11 @@ class ServeSession:
         self._slot_left = np.zeros(slots, np.int64)
         self._slot_sticky = np.zeros(slots, bool)
         self._active = np.zeros(slots, bool)
-        # per-slot device state: last token and tokens already cached
+        # per-slot device state: last token, tokens already cached, and
+        # the prefill token of a slot admitted this tick
         self._toks = torch.zeros(slots, dtype=torch.int32, device=self.device)
         self._lens = torch.zeros(slots, dtype=torch.int32, device=self.device)
+        self._tok0 = torch.zeros(slots, dtype=torch.int32, device=self.device)
         self._next_rid = 0
         self._done: List[ServeResult] = []
         self.stats = ServeStats()
@@ -230,7 +432,8 @@ class ServeSession:
     def restore(cls, path: str, model, *, tau: Optional[float] = None,
                 boundary: Optional[int] = None, slots: int = 8,
                 max_len: int = 128, exit_policy: str = "select",
-                kernels: Optional[str] = None) -> "ServeSession":
+                kernels: Optional[str] = None, mesh=None,
+                recipe=None) -> "ServeSession":
         """A serving session straight from a ``TrainSession`` checkpoint
         (the ``path + '.npz'/'.json'`` pair either package's
         ``TrainSession.save`` writes), on ``model.device``.  ``model`` is
@@ -238,7 +441,7 @@ class ServeSession:
         format and model are checked before any tensor is read, as
         ``TrainSession.restore`` checks them.  ``tau`` defaults to the
         checkpoint's ``entropy_threshold``, ``boundary`` to the shallowest
-        trained cut."""
+        trained cut; ``mesh`` and ``recipe`` as for the constructor."""
         from repro_torch.api.session import manifest_configs, read_manifest
         from repro_torch.api.state import init_train_state
         from repro_torch.convert import load_split_state
@@ -253,7 +456,8 @@ class ServeSession:
         tau = splitee_cfg.entropy_threshold if tau is None else tau
         return cls(model.cfg, params, tau=tau, boundary=boundary,
                    slots=slots, max_len=max_len, exit_policy=exit_policy,
-                   kernels=kernels, device=model.device)
+                   kernels=kernels, device=model.device, mesh=mesh,
+                   recipe=recipe)
 
     # ------------------------------------------------------------ admission
     def submit(self, prompt: Sequence[int], decode_tokens: int = 16) -> int:
@@ -272,58 +476,85 @@ class ServeSession:
         self._queue.append(ServeRequest(rid, prompt, decode_tokens))
         return rid
 
-    def _admit(self) -> None:
+    def _admit(self, params: dict) -> List[int]:
+        """Queued requests into the free slots, in slot order; returns the
+        slots admitted.  A slot of this rank's data group is prefilled
+        here; the other groups' admissions move no data on this rank."""
+        admitted = []
         for s in range(self.slots):
             if self._active[s] or not self._queue:
                 continue
             t0 = time.perf_counter()
             req = self._queue.popleft()
-            page, logits = _prefill(self.cfg, self.params, req.prompt,
-                                    self.max_len, self.device)
-            tok0 = logits.argmax(-1).to(torch.int32)
-            for pool_t, page_t in zip(tree_leaves(self._pool),
-                                      tree_leaves(page)):
-                pool_t[s].copy_(page_t[0])
-            self._toks[s] = tok0
+            if self._lo <= s < self._hi:
+                page, logits = _prefill(self.cfg, params, req.prompt,
+                                        self.max_len, self.device)
+                tok0 = int(logits.argmax(-1))
+                if self.placement is None:
+                    for pool_t, page_t in zip(tree_leaves(self._pool),
+                                              tree_leaves(page)):
+                        pool_t[s].copy_(page_t[0])
+                else:
+                    self.placement.admit_page(s, page)
+                self._toks[s] = tok0
+                self._tok0[s] = tok0
+                # int(...) above waited for the device: this is device time
+                self.stats.prefill_s += time.perf_counter() - t0
             self._lens[s] = len(req.prompt)
-            self._slot_res[s] = ServeResult(req.rid, req.prompt,
-                                            tokens=[int(tok0)])
+            self._slot_res[s] = ServeResult(req.rid, req.prompt)
             self._slot_left[s] = req.decode_tokens
             self._slot_sticky[s] = False
             self._active[s] = True
-            # int(tok0) above waited for the device, so this is device time
-            self.stats.prefill_s += time.perf_counter() - t0
+            admitted.append(s)
+        return admitted
 
     # --------------------------------------------------------------- ticks
     def step(self) -> bool:
         """One scheduler tick: admit queued requests into free slots, decode
         one gated token on every occupied slot, evict finished requests.
         Returns False when queue and slots are both empty."""
-        t0 = time.perf_counter()
-        self._admit()
-        occupied = np.nonzero(self._active)[0]
-        if not len(occupied):
+        if not self._queue and not self._active.any():
             return False
+        t0 = time.perf_counter()
+        pl = self.placement
+        before = pl.comm.gathered_bytes if pl is not None else 0
+        params = pl.whole_params() if pl is not None else self.params
+        admitted = self._admit(params)
+        occupied = np.nonzero(self._active)[0]
 
         sticky_policy = self.exit_policy == "sticky"
         client_only = sticky_policy and bool(self._slot_sticky[occupied].all())
         ctrl = torch.from_numpy(np.stack(
             [self._active, self._slot_sticky & sticky_policy])).to(self.device)
         active, sticky = ctrl[0], ctrl[1]
-        tau = torch.full((self.slots,), self.tau, dtype=torch.float32,
-                         device=self.device)
+        mine = slice(self._lo, self._hi)
+        tau = torch.full((self._hi - self._lo,), self.tau,
+                         dtype=torch.float32, device=self.device)
+        if pl is not None:
+            cache, back = pl.working_cache()
+        else:
+            cache, back = self._pool, ()
         if client_only:
-            tokens, exited, H = self._client_tick(tau, sticky)
+            tokens, exited, H = self._client_tick(params, cache, tau,
+                                                  sticky[mine])
         else:
             # adopted slots are forced onto the exit head: tau = +inf
             tokens, exited, H = self._full_tick(
-                torch.where(sticky, torch.inf, tau))
-        # the tick's one device-to-host transfer (token ids < 2**24 are
-        # exact in float32)
-        host = torch.stack([tokens.float(), exited.float(), H]).cpu().numpy()
+                params, cache, torch.where(sticky[mine], torch.inf, tau))
+        if pl is not None:
+            pl.write_back(back)
+        del params, cache, back
+        # every slot's token, gate, entropy and prefill token (token ids
+        # < 2**24 are exact in float32), every group's gathered
+        rows = torch.stack([tokens.float(), exited.float(), H,
+                            self._tok0[mine].float()])
+        rows = pl.gather_slots(rows) if pl is not None else rows
+        host = rows.cpu().numpy()     # the tick's one device-to-host copy
         self._lens += active.to(torch.int32)
-        self._toks = torch.where(active, tokens, self._toks)
+        self._toks = torch.where(active, rows[0].to(torch.int32), self._toks)
 
+        for s in admitted:
+            self._slot_res[s].tokens.append(int(host[3, s]))
         for s in occupied:
             res = self._slot_res[s]
             res.tokens.append(int(host[0, s]))
@@ -340,31 +571,36 @@ class ServeSession:
                 self._active[s] = False
         self.stats.decode_ticks += 1
         self.stats.client_only_ticks += int(client_only)
+        if pl is not None:
+            self.stats.gathered_bytes += pl.comm.gathered_bytes - before
         self.stats.wall_s += time.perf_counter() - t0
         return bool(self._queue) or bool(self._active.any())
 
-    def _full_tick(self, tau: torch.Tensor):
-        out = self._step(self.params, self._toks[:, None], self._pool,
-                         self._lens, tau=tau,
-                         enc=stub_enc(self.cfg, self.slots, self.device))
+    def _full_tick(self, params: dict, cache, tau: torch.Tensor):
+        mine = slice(self._lo, self._hi)
+        out = self._step(params, self._toks[mine, None], cache,
+                         self._lens[mine], tau=tau,
+                         enc=stub_enc(self.cfg, self._hi - self._lo,
+                                      self.device))
         tokens = out["logits"][:, 0].argmax(-1).to(torch.int32)
         return tokens, out["exited"][:, 0], out["entropy"][:, 0]
 
-    def _client_tick(self, tau: torch.Tensor, sticky: torch.Tensor):
+    def _client_tick(self, params: dict, cache, tau: torch.Tensor,
+                     sticky: torch.Tensor):
         """Segments ``0..boundary`` + exit head only: the server layers do
         no work.  Runs only when every occupied slot has adopted; the
         server pages it leaves stale are never read for their output."""
         cfg = self.cfg
-        x = embed(self.params["embed"], self._toks[:, None]).to(cfg.dtype)
-        positions = self._lens.long()[:, None]
-        enc = project_enc(self.params,
-                          stub_enc(cfg, self.slots, self.device), cfg)
+        mine = slice(self._lo, self._hi)
+        n = self._hi - self._lo
+        x = embed(params["embed"], self._toks[mine, None]).to(cfg.dtype)
+        positions = self._lens[mine].long()[:, None]
+        enc = project_enc(params, stub_enc(cfg, n, self.device), cfg)
         for si in range(self.boundary + 1):
-            x, _ = segment_forward(self.params, cfg, si, x, positions,
-                                   self._pool, self._lens,
-                                   moe_groups=self.slots, enc=enc)
-        e_logits = heads_mod.exit_head(
-            self.params["exit_heads"][self.boundary], x, cfg)
+            x, _ = segment_forward(params, cfg, si, x, positions, cache,
+                                   self._lens[mine], moe_groups=n, enc=enc)
+        e_logits = heads_mod.exit_head(params["exit_heads"][self.boundary],
+                                       x, cfg)
         H, gate = self._gate.entropy_gate(e_logits, tau)
         tokens = e_logits[:, 0].argmax(-1).to(torch.int32)
         # every occupied slot has adopted: its token is the exit head's

@@ -27,7 +27,10 @@ same recipe rules:
     place (the clip norm taken over the whole gradient).  BatchNorm's
     batch statistics are summed over the batch axes
     (``models.sync_stats``), so the forward, the gradients and the running
-    statistics are the whole-batch values.
+    statistics are the whole-batch values.  A MoE block routes the whole
+    batch as one group through the same context (``models/moe.py``): the
+    capacity and the router aux loss are taken over the whole batch, the
+    expert loads summed over the batch ranks.
   * **Eq. (1)** sums over lanes: with lanes spread over ranks, each rank
     sums its lanes per layer and the partial sums (and, under a
     population, the masked counts) are summed over the lanes group before
@@ -37,10 +40,13 @@ same recipe rules:
     rank (the lanes and shards are gathered at the end of a run), so
     evaluation and checkpoints read it as they read the fused engine's.
 
-Only all_reduce and all_gather are used (gloo and NCCL both take them).
-True tensor-parallel compute over ``"model"`` and overlapping the gathers
-with compute are later work (ROADMAP.md item 9b): a ``"model"`` axis
-shards storage, and its ranks repeat their group's compute.
+Only all_reduce and all_gather are used (gloo and NCCL both take them;
+``launch/meshcomm.py``).  Two parts of ROADMAP.md item 9b remain: tensor-
+parallel compute over ``"model"`` (9b-3; until then a ``"model"`` axis
+shards storage, and its ranks repeat their group's compute), and
+overlapping the gathers with compute.  The expert-parallel placement of
+the MoE dispatch buffer is a storage placement for the same reason: the
+expert weights are gathered for compute.
 
 Meshes: ``TrainSession(..., mesh=...)`` -- a live mesh from
 ``launch.mesh`` (``make_lane_host_mesh(2)``, ``make_host_mesh((2, 2, 1),
@@ -52,9 +58,8 @@ over every rank.  Recipes: ``TrainSession(..., recipe=...)``, a name of
 from __future__ import annotations
 
 import contextlib
-import itertools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 
@@ -65,15 +70,17 @@ from repro_torch.core.aggregation import partial_cross_layer_aggregate
 from repro_torch.core.spmd import make_cohort_grad_step
 from repro_torch.core.strategies import masked_update
 from repro_torch.data.pipeline import effective_batch_size
-from repro_torch.kernels import sites
 from repro_torch.launch.mesh import (MeshSpec, as_spec, axis_sizes,
                                      batch_axes, lane_axis, live_mesh,
                                      world_size)
+from repro_torch.launch.meshcomm import (  # noqa: F401 (re-exported)
+    MeshComm, _axes, all_reduce_plan, chunk_shapes, gather_plan, plan_bytes,
+    unshard_plan)
 from repro_torch.launch.shardings import (_lookup, jax_layout,
                                           map_with_path, port_specs,
                                           resolve_recipe, spec_leaves,
                                           stage_batch_spec,
-                                          train_state_specs, tree_paths)
+                                          train_state_specs)
 from repro_torch.models.sync_stats import synced_batch_stats
 from repro_torch.optim.adam import adam_update, lane_norms
 
@@ -141,223 +148,6 @@ def carry_specs(recipe, mesh, carry, model):
     specs = train_state_specs(recipe, mesh, jax_layout(carry, cfg, lead=1),
                               num_experts=_model_num_experts(model))
     return port_specs(specs, carry, cfg, lead=1)
-
-
-# ---------------------------------------------------------------------------
-# the collectives of a step, as pure functions of shapes, specs and the mesh
-# ---------------------------------------------------------------------------
-
-
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, tuple) else (entry,)
-
-
-def _elsize(dtype) -> int:
-    return torch.empty((), dtype=dtype, device="meta").element_size()
-
-
-def gather_plan(items, sizes) -> List[dict]:
-    """The all_gathers :meth:`MeshComm.gather` issues for ``items``,
-    ``(chunk shape, dtype, dim, axes)`` each: one per (axes, dtype), in
-    the order of first appearance, the chunks travelling flattened in one
-    buffer.  Each entry: ``axes``, ``dtype``, ``index`` (the items it
-    carries), ``elements`` (of this rank's buffer) and ``bytes`` (received
-    by this rank: the buffers of the group's other ranks)."""
-    groups: Dict[tuple, List[int]] = {}
-    for i, (_, dtype, _, axes) in enumerate(items):
-        groups.setdefault((tuple(axes), dtype), []).append(i)
-    plan = []
-    for (axes, dtype), idx in groups.items():
-        n = sum(math.prod(items[i][0]) for i in idx)
-        ranks = math.prod(sizes[a] for a in axes)
-        plan.append({"axes": axes, "dtype": dtype, "index": idx,
-                     "elements": n,
-                     "bytes": n * _elsize(dtype) * (ranks - 1)})
-    return plan
-
-
-def _gather_dims(spec, lane_axes=(), lead: int = 1) -> List[tuple]:
-    """The (dim, axes) a leaf is gathered along, in the order
-    :func:`unshard_plan` pops them (the last first): each sharded dim from
-    ``lead`` on (1: past an engine carry's lane dim; 0 for a parameter
-    tree), and with ``lane_axes`` the lane dim first."""
-    dims = [(d, _axes(e)) for d, e in enumerate(spec)
-            if d >= lead and _axes(e)]
-    if lane_axes:
-        dims.insert(0, (0, tuple(lane_axes)))
-    return dims
-
-
-def unshard_plan(tree, specs, sizes, lane_axes=(),
-                 lead: int = 1) -> List[List[dict]]:
-    """The passes of :meth:`SpmdEngine._unshard` over ``tree`` (this rank's
-    chunks: anything with ``.shape`` and ``.dtype``) placed by ``specs``:
-    per pass, the :func:`gather_plan` of the leaves that still have a dim
-    to gather, each leaf's last remaining dim (``lead`` as for
-    :func:`_gather_dims`)."""
-    shapes, dtypes, todo = [], [], []
-    for path, t in tree_paths(tree):
-        shapes.append(list(t.shape))
-        dtypes.append(t.dtype)
-        todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead))
-    passes = []
-    while any(todo):
-        idx = [i for i, dims in enumerate(todo) if dims]
-        items = []
-        for i in idx:
-            d, axes = todo[i].pop()
-            items.append((tuple(shapes[i]), dtypes[i], d, axes))
-        passes.append(gather_plan(items, sizes))
-        for i, (_, _, d, axes) in zip(idx, items):
-            shapes[i][d] *= math.prod(sizes[a] for a in axes)
-    return passes
-
-
-def plan_bytes(passes) -> int:
-    """Bytes a rank receives over the passes of :func:`unshard_plan`."""
-    return sum(g["bytes"] for plan in passes for g in plan)
-
-
-def all_reduce_plan(items, axes, sizes) -> List[dict]:
-    """The all_reduces :meth:`MeshComm.all_reduce` issues for ``items``,
-    ``(shape, dtype)`` each, over ``axes``: one per dtype, in the order of
-    first appearance (none when the axes hold one rank).  Each entry:
-    ``dtype``, ``index``, ``elements`` and ``bytes`` of the buffer."""
-    if not [a for a in axes if sizes.get(a, 1) > 1]:
-        return []
-    groups: Dict[torch.dtype, List[int]] = {}
-    for i, (_, dtype) in enumerate(items):
-        groups.setdefault(dtype, []).append(i)
-    plan = []
-    for dtype, idx in groups.items():
-        n = sum(math.prod(items[i][0]) for i in idx)
-        plan.append({"dtype": dtype, "index": idx, "elements": n,
-                     "bytes": n * _elsize(dtype)})
-    return plan
-
-
-def chunk_shapes(tree, specs, sizes, lead: int = 1):
-    """Meta tensors of this rank's chunk of every leaf of ``tree`` (whole
-    shapes) placed by ``specs``: each sharded dim from ``lead`` on divided
-    by its axes' sizes, as :meth:`SpmdEngine._shard` cuts it."""
-    def chunk(path, t):
-        shape = list(t.shape)
-        for d, axes in _gather_dims(_lookup(specs, path), lead=lead):
-            shape[d] //= math.prod(sizes[a] for a in axes)
-        return torch.empty(shape, dtype=t.dtype, device="meta")
-    return map_with_path(chunk, tree)
-
-
-class MeshComm:
-    """Process groups over sets of axes of a live mesh, and the
-    collectives the engine runs on them.  Groups are made on first use;
-    every rank asks for the same groups in the same order (they follow
-    from the recipe's specs, which every rank computes alike)."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self.names = tuple(mesh.mesh_dim_names)
-        self.sizes = axis_sizes(mesh)
-        self.ranks = mesh.mesh
-        self.coord = dict(zip(self.names, mesh.get_coordinate()))
-        self._groups: Dict[frozenset, tuple] = {}
-        #: bytes this rank received from all_gathers since the last reset
-        self.gathered_bytes = 0
-
-    def size(self, axes) -> int:
-        return math.prod(self.sizes[a] for a in axes)
-
-    def index(self, axes) -> int:
-        """This rank's chunk index along ``axes`` (row-major, in the
-        tuple's order, as a JAX ``PartitionSpec`` entry splits a dim)."""
-        i = 0
-        for a in axes:
-            i = i * self.sizes[a] + self.coord[a]
-        return i
-
-    def _group(self, axes) -> Tuple[object, List[int]]:
-        """``(process group, its global ranks sorted)`` of the ranks that
-        share this rank's coordinates off ``axes``."""
-        import torch.distributed as dist
-        key = frozenset(axes)
-        if key not in self._groups:
-            others = [a for a in self.names if a not in key]
-            mine = None
-            for fixed in itertools.product(
-                    *(range(self.sizes[a]) for a in others)):
-                index = []
-                for a in self.names:
-                    index.append(fixed[others.index(a)] if a in others
-                                 else slice(None))
-                ranks = sorted(int(r) for r in
-                               self.ranks[tuple(index)].flatten().tolist())
-                pg = dist.new_group(ranks=ranks)
-                if all(self.coord[a] == f for a, f in zip(others, fixed)):
-                    mine = (pg, ranks)
-            self._groups[key] = mine
-        return self._groups[key]
-
-    def _rank_at(self, axes, chunk: int) -> int:
-        """The global rank holding chunk ``chunk`` along ``axes`` among
-        this rank's group."""
-        index = []
-        rest = chunk
-        for a in reversed(axes):
-            index.append(rest % self.sizes[a])
-            rest //= self.sizes[a]
-        pos = dict(zip(reversed(axes), index))
-        at = tuple(pos[a] if a in pos else self.coord[a] for a in self.names)
-        return int(self.ranks[at])
-
-    def all_reduce(self, tensors: List[torch.Tensor], axes) -> None:
-        """Sum ``tensors`` over the ranks along ``axes``, in place, in one
-        collective per dtype."""
-        import torch.distributed as dist
-        axes = tuple(a for a in axes if self.sizes.get(a, 1) > 1)
-        if not axes or not tensors:
-            return
-        pg, _ = self._group(axes)
-        for entry in all_reduce_plan([(t.shape, t.dtype) for t in tensors],
-                                     axes, self.sizes):
-            ts = [tensors[i] for i in entry["index"]]
-            flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.all_reduce(flat, group=pg)
-            sites.collective("all_reduce", entry["bytes"])
-            off = 0
-            for t in ts:
-                t.copy_(flat[off:off + t.numel()].view_as(t))
-                off += t.numel()
-
-    def gather(self, items) -> List[torch.Tensor]:
-        """The whole tensors of ``items``, ``(chunk, dim, axes)`` triples:
-        each chunk split along ``dim`` over ``axes``.  One all_gather per
-        (axes, dtype): the chunks travel flattened in one buffer, as
-        :func:`gather_plan` lays them out."""
-        import torch.distributed as dist
-        out: List[Optional[torch.Tensor]] = [None] * len(items)
-        plan = gather_plan([(tuple(t.shape), t.dtype, d, axes)
-                            for t, d, axes in items], self.sizes)
-        for entry in plan:
-            axes, idx = entry["axes"], entry["index"]
-            pg, ranks = self._group(axes)
-            flat = torch.cat([items[i][0].reshape(-1) for i in idx])
-            parts = [torch.empty_like(flat) for _ in ranks]
-            dist.all_gather(parts, flat, group=pg)
-            self.gathered_bytes += entry["bytes"]
-            sites.collective("all_gather", entry["bytes"])
-            by_rank = dict(zip(ranks, parts))
-            chunks = [by_rank[self._rank_at(axes, c)]
-                      for c in range(len(ranks))]
-            off = 0
-            for i in idx:
-                t, d, _ = items[i]
-                n = t.numel()
-                out[i] = torch.cat([c[off:off + n].view_as(t)
-                                    for c in chunks], dim=d)
-                off += n
-        return out
 
 
 @register_engine("spmd")
@@ -452,12 +242,6 @@ class SpmdEngine(FusedEngine):
                         f"cohort's lane count {counts}; equalize cohort "
                         f"sizes, shrink the lanes axis, or use a mesh "
                         f"without one")
-        if dp > 1 and _model_num_experts(ctx.model) > 1:
-            # expert capacity and the router aux loss are statistics of
-            # the whole batch, which a rank's rows do not give
-            return (f"a data split ({dp} batch ranks) of a mixture-of-"
-                    f"experts model would route each rank's rows alone; "
-                    f"use a lanes-only mesh")
         if spec.size != n:
             return (f"mesh {sizes} has {spec.size} ranks but the "
                     f"torch.distributed world has {n}")
@@ -476,35 +260,14 @@ class SpmdEngine(FusedEngine):
 
     def _shard(self, t: torch.Tensor, spec) -> torch.Tensor:
         """This rank's chunk of a local-lane tensor (its lane dim already
-        local): a tensor of its own where the spec splits a dim, else
-        ``t``."""
-        out = t
-        for d, entry in enumerate(spec[1:], start=1):
-            axes = _axes(entry)
-            if not axes:
-                continue
-            n = self.comm.size(axes)
-            c = t.shape[d] // n
-            out = out.narrow(d, self.comm.index(axes) * c, c)
-        return out if out is t else out.clone()
+        local)."""
+        return self.comm.shard(t, spec)
 
     def _unshard(self, tree, specs, lanes: bool = False):
-        """``tree`` with every leaf whole again: each sharded dim gathered
-        over its axes (and, with ``lanes``, the lane dim over the lanes
-        axis), all leaves of a pass in one collective per group."""
-        paths, cur, todo = [], [], []
-        for path, t in tree_paths(tree):
-            paths.append(path)
-            cur.append(t)
-            todo.append(_gather_dims(_lookup(specs, path),
-                                     self._lane_axes if lanes else ()))
-        while any(todo):
-            idx = [i for i, dims in enumerate(todo) if dims]
-            items = [(cur[i],) + todo[i].pop() for i in idx]
-            for i, whole in zip(idx, self.comm.gather(items)):
-                cur[i] = whole
-        by_path = dict(zip(paths, cur))
-        return map_with_path(lambda p, t: by_path[p], tree)
+        """``tree`` with every leaf whole again (and, with ``lanes``, the
+        lane dim gathered over the lanes axis)."""
+        return self.comm.unshard(tree, specs,
+                                 self._lane_axes if lanes else ())
 
     def _tree(self, fn, tree, specs):
         return map_with_path(lambda p, t: fn(t, _lookup(specs, p)), tree)
@@ -599,8 +362,9 @@ class SpmdEngine(FusedEngine):
         self._gathered += self.comm.gathered_bytes - before
         self._steps_run += 1
         if self._dp > 1:
-            pg, _ = self.comm._group(self._batch_axes)
-            sync = synced_batch_stats(pg, self._dp)
+            pg, _ = self.comm.group(self._batch_axes)
+            sync = synced_batch_stats(pg, self._dp,
+                                      self.comm.index(self._batch_axes))
         else:
             sync = contextlib.nullcontext()
         with sync:

@@ -194,6 +194,18 @@ class KernelBackend:
     def _entropy_exit(self, logits, tau):
         raise NotImplementedError
 
+    def _attention_lse(self, q, k, v, *, kv_valid):
+        raise NotImplementedError
+
+    def attention_lse(self, q, k, v, *, kv_valid: torch.Tensor):
+        """Non-causal attention over a part of a decode ring, with its LSE:
+        q (B,T,H,hd), k/v (B,S,Hkv,hd), ``kv_valid`` (B,) int32 (0 where a
+        row has no key in the part) -> ``(out (B,T,H,hd), lse (B,H,T)
+        float32)``, what the parts' combine reads."""
+        out, lse = self._attention_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), kv_valid=kv_valid)
+        return out.transpose(1, 2), lse
+
     def attention(self, q, k, v, *, causal: bool = False,
                   window: Optional[int] = None,
                   kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,6 +242,13 @@ class ReferenceBackend(KernelBackend):
             return kref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window, kv_valid=kv_valid)
 
+    def _attention_lse(self, q, k, v, *, kv_valid):
+        with sites.scope(lambda: _attn_mod.fwd_site(q, k, v, None, True,
+                                                    kv_valid)):
+            return kref.flash_attention_ref(q, k, v, causal=False,
+                                            kv_valid=kv_valid,
+                                            return_lse=True)
+
     def wkv(self, r, k, v, log_w, u, *, chunk: int):
         from repro_torch.models.ssm import _wkv_chunked
         ch = min(chunk, r.shape[1])
@@ -265,6 +284,10 @@ class CudaBackend(KernelBackend):
             return FlashAttentionFn.apply(q, k, v, causal, window)[0]
         return flash_attention(q, k, v, causal=causal, window=window,
                                kv_valid=kv_valid)
+
+    def _attention_lse(self, q, k, v, *, kv_valid):
+        return flash_attention(q, k, v, causal=False, kv_valid=kv_valid,
+                               return_lse=True)
 
     def wkv(self, r, k, v, log_w, u, *, chunk: int):
         if _via_function(r, k, v, log_w, u):

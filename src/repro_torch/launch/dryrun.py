@@ -15,7 +15,7 @@ outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
 
   * train: the rank's chunks of the parameters and bf16 Adam moments
     (``launch/shardings.param_specs`` by the recipe) are gathered whole by
-    ``api/spmd_engine.unshard_plan``'s all_gathers, ``make_grad_step``
+    ``launch/meshcomm.unshard_plan``'s all_gathers, ``make_grad_step``
     runs on the rank's rows (global batch / data ranks), the gradients
     are all-reduced over the batch ranks (``all_reduce_plan``) and Adam
     updates the rank's chunks -- the spmd engine's step;
@@ -48,7 +48,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import configs as configs_mod
-from repro_torch.api.spmd_engine import (all_reduce_plan, chunk_shapes,
+from repro_torch.launch.meshcomm import (all_reduce_plan, chunk_shapes,
                                          plan_bytes, unshard_plan)
 from repro_torch.config import (INPUT_SHAPES, SHAPES_BY_NAME, ModelConfig,
                                 OptimizerConfig, SplitEEConfig, TrainConfig)

@@ -32,7 +32,7 @@ recomputation, the optimizer -- on real CPU tensors, real CUDA tensors or
     to it), shared by its views;
   * ``collectives``: bytes and counts by kind (``all_gather``: bytes
     received by this rank; ``all_reduce`` and ``broadcast``: bytes of the
-    buffer), recorded by ``api/spmd_engine.MeshComm`` and the dry run
+    buffer), recorded by ``launch/meshcomm.MeshComm`` and the dry run
     through ``kernels/sites.collective``.
 
 Use: ``with StepAnalysis() as a: step(...)`` then ``a.result()``.

@@ -13,11 +13,23 @@ p % W:
         normed latent and the roped shared key.
 ``cache_len`` (B,) holds the tokens already written in each row: JAX vmaps
 a B=1 step over the decode slots, the port writes the slot batch out.
+
+A ring split over ranks along its sequence (a ``ServeSession`` over a
+mesh whose recipe shards the decode cache's sequence over ``"model"``) is
+a :class:`ShardedRing`: each rank holds slots ``[i * W/P, (i+1) * W/P)``
+of the whole ring.  A token is written only by the rank that owns its
+slot, and a decode step attends over this rank's part alone
+(:meth:`KernelBackend.attention_lse`, its ``kv_valid`` the part of the
+row's valid prefix that falls here, 0 where none does) and combines the
+parts' outputs by their LSEs (:func:`combine_parts`), the reduction XLA's
+partitioner emits for a contraction over a sharded dim.  No rank gathers
+the keys.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -54,6 +66,54 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+@dataclass(frozen=True)
+class RingPart:
+    """This rank's part of a decode ring split along its sequence:
+    ``index`` of ``parts`` equal parts of a ring of ``width`` slots;
+    ``gather(x)`` all-gathers ``x`` over the ring's ranks, ``(parts,
+    *x.shape)`` in part order."""
+    width: int
+    parts: int
+    index: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+class ShardedRing(dict):
+    """A layer's decode cache (``{"k", "v"}`` or ``{"ckv", "k_rope"}``,
+    each ``(B, W/P, ...)``) that holds one :class:`RingPart` of the ring."""
+
+    def __init__(self, leaves: dict, part: RingPart):
+        super().__init__(leaves)
+        self.part = part
+
+
+def combine_parts(out: torch.Tensor, lse: torch.Tensor,
+                  has_keys: torch.Tensor, part: RingPart) -> torch.Tensor:
+    """The attention over a whole ring from each rank's part: ``out`` (B,
+    T, H, D) and ``lse`` (B, H, T) of this rank's part, ``has_keys`` (B,)
+    whether the row has a valid key here.  O = sum_r exp(LSE_r - LSE) O_r
+    with LSE = logsumexp_r LSE_r, in fp32, one all-gather of the small
+    ``(B, T, H, D + 1)`` buffer; a part without a key adds exactly 0
+    (whatever its output and LSE read).  Every rank computes the same
+    sum in the same order."""
+    lse = lse.transpose(1, 2).float()                          # (B, T, H)
+    lse = torch.where(has_keys[:, None, None], lse, -torch.inf)
+    o = torch.where(has_keys[:, None, None, None], out.float(), 0.0)
+    every = part.gather(torch.cat([o, lse[..., None]], dim=-1))
+    lses = every[..., -1]                                      # (P, B, T, H)
+    w = torch.exp(lses - lses.amax(0))
+    o = (w[..., None] * every[..., :-1]).sum(0) / w.sum(0)[..., None]
+    return o.to(out.dtype)
+
+
+def _part_valid(cache_len: torch.Tensor, part: RingPart, width: int
+                ) -> torch.Tensor:
+    """(B,) int32: the keys of each row's valid ring prefix that fall in
+    this rank's part of ``width`` slots."""
+    n_valid = torch.clamp(cache_len.long() + 1, max=part.width)
+    return (n_valid - part.index * width).clamp(0, width).to(torch.int32)
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B,T,d) x (d,heads,hd) -> (B,T,heads,hd), one plain matrix product."""
     d, heads, hd = w.shape
@@ -78,12 +138,21 @@ def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
+    part = getattr(cache, "part", None)
     if cache is not None:
         _ring_write(cache, {"k": k, "v": v}, cache_len)
-    if cache is None or T >= max(2, cache["k"].shape[1]):
-        # train, or a prefill longer than the window: full in-flight SWA
-        # attention (the ring kept the last W tokens)
+    if cache is None or T >= max(2, cache["k"].shape[1]) or (
+            part is not None and T > 1):
+        # train, a prefill longer than the window (the ring kept the last
+        # W tokens), or a prefill into a split ring (its slots [0, T) hold
+        # these keys): full in-flight SWA attention
         out = backend.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    elif part is not None:
+        # decode over this rank's part of the ring, combined over the parts
+        valid = _part_valid(cache_len, part, cache["k"].shape[1])
+        out, lse = backend.attention_lse(q, cache["k"], cache["v"],
+                                         kv_valid=valid)
+        out = combine_parts(out, lse, valid > 0, part)
     elif T > 1:
         # short prefill: causal over the freshly written [0, T) slots
         # (ragged Tq < Tk: the diagonal masks slots >= T)
@@ -102,19 +171,38 @@ def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
 def _ring_write(cache: dict, new: dict, cache_len: torch.Tensor) -> None:
     """Writes each leaf of ``new`` (B, T, ...) into ``cache``'s ring in
     place: row b's tokens at (cache_len[b] + t) % W, or, for a prefill of
-    T >= W tokens, the last W rolled to slot p % W."""
+    T >= W tokens, the last W rolled to slot p % W.  Into a
+    :class:`ShardedRing` only the slots of this rank's part are written."""
     some = next(iter(new.values()))
     B, T = some.shape[:2]
-    W = next(iter(cache.values())).shape[1]
+    width = next(iter(cache.values())).shape[1]
+    part = getattr(cache, "part", None)
+    W = part.width if part is not None else width
+    lo = part.index * width if part is not None else 0
     if T > 1 and T >= W:
         for key, t in new.items():
-            cache[key].copy_(torch.roll(t[:, T - W:], (T - W) % W, dims=1))
+            cache[key].copy_(torch.roll(t[:, T - W:], (T - W) % W,
+                                        dims=1)[:, lo:lo + width])
         return
     rows = torch.arange(B, device=some.device)[:, None]
     slots = (cache_len.long()[:, None]
-             + torch.arange(T, device=some.device)) % W
+             + torch.arange(T, device=some.device)) % W - lo
+    if part is None:
+        for key, t in new.items():
+            cache[key][rows, slots] = t
+        return
+    mine = (slots >= 0) & (slots < width)
+    if T == 1:
+        # one token a row: a row whose slot is elsewhere rewrites its
+        # own slot 0 with what it holds (no host sync)
+        at = torch.where(mine, slots, 0)
+        for key, t in new.items():
+            keep = mine.reshape(B, 1, *([1] * (t.dim() - 2)))
+            cache[key][rows, at] = torch.where(keep, t,
+                                               cache[key][rows, at])
+        return
     for key, t in new.items():
-        cache[key][rows, slots] = t
+        cache[key][rows.expand(B, T)[mine], slots[mine]] = t[mine]
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +296,9 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         _ring_write(cache, {"ckv": ckv, "k_rope": k_rope}, cache_len)
         W = cache["ckv"].shape[1]
-        n_valid = torch.clamp(cache_len.long() + 1, max=W)
+        part = getattr(cache, "part", None)
+        n_valid = (torch.clamp(cache_len.long() + 1, max=W) if part is None
+                   else _part_valid(cache_len, part, W))
         mask = (torch.arange(W, device=x.device)[None, :]
                 < n_valid[:, None])[:, None, None, :]          # (B,1,1,W)
         # q_abs[b,t,h,:] = w_uk[:, h, :] @ q_nope[b,t,h,:]
@@ -219,6 +309,10 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         o_lat = torch.einsum("bhts,bsr->bthr", probs, cache["ckv"])
+        if part is not None:
+            # this rank's part of the latent ring, combined over the parts
+            o_lat = combine_parts(o_lat, torch.logsumexp(logits, dim=-1),
+                                  n_valid > 0, part)
         out = torch.einsum("bthr,rhk->bthk", o_lat, params["w_uv"])
     H, hv, d = params["wo"].shape
     out = out.reshape(B, T, H * hv) @ params["wo"].reshape(H * hv, d)

@@ -21,9 +21,19 @@ order the JAX ``.at[sorted_tok].add`` adds them in on the CPU.  No
 atomics and no in-place writes: the same input gives the same bits, and
 every op has a batching rule under ``vmap``.
 
+Under the spmd engine's data split (``models.sync_stats``'s batch group
+is active) a routing group is the one-rank engine's whole group, its rows
+spread over the batch ranks, as the JAX package routes the global batch
+that XLA's partitioner splits: the capacity comes from the global N, each
+expert's load is the sum over the batch ranks (:func:`summed_loads`), and
+an entry's rank within its expert is the earlier ranks' load plus its
+local rank -- the order the one-rank stable sort gives contiguous row
+blocks.  Each rank then computes its own entries' expert outputs.
+
 ``moe_forward_dense`` is the O(N * E) oracle (no capacity), for the tests.
 
-The aux load-balance loss follows Switch: E * sum_e f_e * P_e * weight.
+The aux load-balance loss follows Switch: E * sum_e f_e * P_e * weight,
+with f and P over the whole batch (:func:`aux_loss`).
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.config import ModelConfig, MoEConfig
-from repro_torch.models import sharding_ctx
+from repro_torch.models import sharding_ctx, sync_stats
 from repro_torch.models.common import activation, fan_in_init
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
@@ -70,24 +80,58 @@ def _fp32_products():
         torch.set_float32_matmul_precision(prev)
 
 
+def router_probs(params: dict, x: torch.Tensor, m: MoEConfig
+                 ) -> torch.Tensor:
+    """x (..., N, d) -> the router's softmax probabilities (..., N, E)."""
+    with _fp32_products():
+        logits = x.to(m.router_dtype) @ params["router"].to(m.router_dtype)
+    return torch.softmax(logits, dim=-1)
+
+
+def summed_loads(load: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(before, total)`` of this rank's per-expert counts ``load`` (...,
+    E): the counts of the batch ranks before this one and the sum over
+    all of them (0 and ``load`` itself outside a data split)."""
+    if sync_stats.batch_group() is None:
+        return torch.zeros_like(load), load
+    _, _, index = sync_stats.batch_group()
+    every = sync_stats.gather_over_batch(load)
+    return every[:index].sum(0), every.sum(0)
+
+
+def aux_loss(probs: torch.Tensor, topi: torch.Tensor, m: MoEConfig
+             ) -> torch.Tensor:
+    """Switch's load-balance loss (...,) fp32 of one routing group per
+    leading index: f (each expert's share of the N * k choices) carries no
+    gradient, P (the mean probability) does.  Under a data split both are
+    whole-batch values: the counts summed over the batch ranks, P's sum
+    through ``GroupSumFn``, whose backward sums P's cotangent over the
+    ranks, so each rank's probabilities carry ``dp`` times their share and
+    the engine's gradient average gives the one-rank gradient."""
+    N = probs.shape[-2]
+    experts = torch.arange(m.num_experts, device=probs.device)
+    counts = (topi[..., None] == experts).to(torch.float32).sum((-3, -2))
+    batch = sync_stats.batch_group()
+    if batch is None:
+        P = probs.mean(dim=-2)
+    else:
+        group, size, _ = batch
+        N = N * size
+        P = sync_stats.GroupSumFn.apply(probs.sum(dim=-2), group) / N
+    _, counts = summed_loads(counts)
+    f = counts * (1.0 / (N * m.top_k))
+    return m.num_experts * (f * P).sum(-1) * m.router_aux_weight
+
+
 def route(params: dict, x: torch.Tensor, m: MoEConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (..., N, d) -> (top_idx (..., N, k), top_w (..., N, k) in
-    ``x.dtype``, aux (...,) fp32), one routing group per leading index.
-    f (each expert's share of the N * k choices) carries no gradient; P
-    (the mean probability) does."""
-    with _fp32_products():
-        logits = x.to(m.router_dtype) @ params["router"].to(m.router_dtype)
-    probs = torch.softmax(logits, dim=-1)
+    ``x.dtype``, aux (...,) fp32), one routing group per leading index."""
+    probs = router_probs(params, x, m)
     topv, topi = probs.topk(m.top_k, dim=-1)
     topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)  # renormalize
-    N = x.shape[-2]
-    experts = torch.arange(m.num_experts, device=x.device)
-    counts = (topi[..., None] == experts).to(torch.float32).sum((-3, -2))
-    f = counts * (1.0 / (N * m.top_k))
-    P = probs.mean(dim=-2)
-    aux = m.num_experts * (f * P).sum(-1) * m.router_aux_weight
-    return topi, topv.to(x.dtype), aux
+    return topi, topv.to(x.dtype), aux_loss(probs, topi, m)
 
 
 def expert_capacity(num_tokens: int, m: MoEConfig) -> int:
@@ -99,15 +143,20 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) -> (out (B, T, d), aux fp32 scalar: the mean of the
     groups' aux losses).  The B rows form ``groups`` routing groups of
-    B / groups rows each."""
+    B / groups rows each; under a data split they are this rank's rows of
+    one group spread over the batch ranks."""
     m: MoEConfig = cfg.moe
     B, T, d = x.shape
     if groups < 1 or B % groups:
         raise ValueError(f"{cfg.name}: {B} rows do not split into "
                          f"{groups} routing groups")
+    batch = sync_stats.batch_group()
+    if batch is not None and groups != 1:
+        raise ValueError(f"{cfg.name}: a data split routes one group over "
+                         f"the batch ranks, not {groups}")
     G, N = groups, B * T // groups
     k, E = m.top_k, m.num_experts
-    C = expert_capacity(N, m)
+    C = expert_capacity(N * (batch[1] if batch else 1), m)
     xg = x.reshape(G, N, d)
     topi, topw, aux = route(params, xg, m)
 
@@ -123,8 +172,12 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # unique_indices=False; XLA:CPU applies the writes in order, so the last
     # (a zero row) wins.  An expert whose load exceeds C therefore keeps
     # only its first C-1 entries in the stable sorted order.  Mirrored here
-    # without the racing scatter; ROADMAP.md Queue 3 records it.
-    kept = torch.where(load > C, C - 1, load)                # (G, E)
+    # without the racing scatter; ROADMAP.md Queue 3 records it.  The rule
+    # reads the whole batch's load; this rank keeps the entries whose
+    # global rank (the earlier ranks' load plus the local rank) it admits.
+    before, total = summed_loads(load)
+    kept = torch.where(total > C, C - 1, total)              # (G, E)
+    kept = torch.minimum((kept - before).clamp(min=0), load)
 
     # each expert's C slots gather their rows from the sorted entries
     c_idx = torch.arange(C, device=x.device)

@@ -33,6 +33,13 @@ from repro_torch.kernels.entropy_exit import MIN_SLICE
 # logits are one step apart a sound run may take the other token
 TIE_GAP_BF16 = 2e-2
 TOL_H_BF16 = 3e-3
+# the same comparison in fp32, where the served streams and the plain
+# references differ only by the order of fp32 sums (a decode ring split
+# over ranks combines its parts' softmax sums, log-sum-exp weighted): the
+# limits tests/test_torch_serve.py holds the port's session to against the
+# JAX package's, a top-2 gap of 1e-5 and entropies within 1e-4
+TIE_GAP_F32 = 1e-5
+TOL_H_F32 = 1e-4
 # the first step's gradients, each leaf's ||g - g_plain|| / ||g_plain||:
 # sound 1.6e-2 (glm4-9b), 4.8e-3 (rwkv6); the faults 1.0 in both
 TOL_GRAD_BF16 = 5e-2
@@ -227,57 +234,89 @@ def stream_parity(got: Dict[int, ServeResult], wants: Sequence[ServeResult],
 @dataclass
 class Routes:
     """The MoE routing of one run, recorded for another (``pinned_routes``):
-    each ``models.moe.route`` call's top-k choice in call order, and, for
-    a replaying run, how many of its token choices its own top-k would
-    have made otherwise."""
+    each ``models.moe.route`` call's top-k choice in call order (under
+    ``vmap``, every lane's), and, for a replaying run, how many of its
+    token choices its own top-k would have made otherwise.  A replaying
+    run that holds a part of the recorded run's lanes names them in
+    ``lanes`` (a slice, set by the caller before each step); under a data
+    split each rank replays its own rows of the batch."""
     choices: List[torch.Tensor] = field(default_factory=list)
     calls: int = 0
     flipped: int = 0
     tokens: int = 0
+    lanes: Optional[slice] = None
+
+
+def _pin(own: torch.Tensor, routes: Routes, replay: bool,
+         lanes: bool) -> torch.Tensor:
+    if not replay:
+        routes.choices.append(own.clone())
+        return own
+    from repro_torch.models import sync_stats
+    topi = routes.choices[routes.calls]
+    routes.calls += 1
+    if lanes and routes.lanes is not None:
+        topi = topi[routes.lanes]
+    if topi.shape[-2] != own.shape[-2]:
+        # a data split: this rank's token rows of the recorded group
+        _, _, index = sync_stats.batch_group()
+        n = own.shape[-2]
+        topi = topi.narrow(-2, index * n, n)
+    same = (own.sort(-1).values == topi.sort(-1).values).all(-1)
+    routes.flipped += int((~same).sum())
+    routes.tokens += same.numel()
+    return topi.to(own.device)
+
+
+class _PinFn(torch.autograd.Function):
+    """One ``route`` call's choice recorded or replayed; the ``vmap`` rule
+    records and replays the lanes stacked."""
+
+    @staticmethod
+    def forward(own, routes, replay):
+        return _pin(own, routes, replay, lanes=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, own, routes, replay):
+        if in_dims[0] is None:
+            return _pin(own, routes, replay, lanes=False), None
+        return _pin(own.movedim(in_dims[0], 0), routes, replay,
+                    lanes=True), 0
 
 
 @contextmanager
 def pinned_routes(routes: Routes, replay: bool):
     """MoE routing held fixed across two runs that must differ in their
-    kernels only.  Top-k routing is discontinuous: where the kernels' and
-    the plain versions' bf16 hidden states straddle a router near-tie, a
-    token takes other experts and its output moves by O(1), whatever the
+    kernels, or in their ranks, only.  Top-k routing is discontinuous:
+    where two runs' hidden states straddle a router near-tie, a token
+    takes other experts and its output moves by O(1), whatever the
     kernels' accuracy.  ``replay=False`` records each ``route`` call's
     choice; ``replay=True`` makes the i-th call choose the i-th recorded
     experts, its weights (renormalised) and aux loss from its own
-    probabilities, and counts the tokens whose own top-k differs.  Every
-    run between the two must call ``route`` in the same order (the same
-    model, batches and steps); no ``vmap``.  The router's own arithmetic
-    is ``models.moe.route``'s."""
+    probabilities (``models.moe.aux_loss``, whole-batch under a data
+    split), and counts the tokens whose own top-k differs.  Every run
+    between the two must call ``route`` in the same order (the same
+    model, batches and steps); under ``vmap`` the lanes are recorded
+    together (``Routes.lanes``).  The router's own arithmetic is
+    ``models.moe``'s."""
     from repro_torch.models import moe
     real = moe.route
 
     def recording(params, x, m):
         topi, topw, aux = real(params, x, m)
-        routes.choices.append(topi.detach())
-        return topi, topw, aux
+        return _PinFn.apply(topi, routes, False), topw, aux
 
     def replaying(params, x, m):
-        own, _, _ = real(params, x, m)
-        topi = routes.choices[routes.calls]
-        routes.calls += 1
-        with moe._fp32_products():
-            logits = x.to(m.router_dtype) @ params["router"].to(
-                m.router_dtype)
-        probs = torch.softmax(logits, dim=-1)
+        probs = moe.router_probs(params, x, m)
+        own = probs.topk(m.top_k, dim=-1).indices
+        topi = _PinFn.apply(own, routes, True)
         topv = probs.gather(-1, topi)
         topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
-        N = x.shape[-2]
-        experts = torch.arange(m.num_experts, device=x.device)
-        counts = (topi[..., None] == experts).to(torch.float32).sum(
-            (-3, -2))
-        P = probs.mean(dim=-2)
-        aux = m.num_experts * (counts * (1.0 / (N * m.top_k)) * P).sum(
-            -1) * m.router_aux_weight
-        same = (own.sort(-1).values == topi.sort(-1).values).all(-1)
-        routes.flipped += int((~same).sum())
-        routes.tokens += same.numel()
-        return topi, topv.to(x.dtype), aux
+        return topi, topv.to(x.dtype), moe.aux_loss(probs, topi, m)
 
     if replay:
         routes.calls = routes.flipped = routes.tokens = 0
@@ -457,6 +496,34 @@ def unsynced_batch_stats():
         yield
     finally:
         spmd_engine.synced_batch_stats = real
+
+
+@contextmanager
+def unsummed_expert_loads():
+    """A control: under a data split each rank's MoE blocks take their
+    expert loads (capacity and the aux loss's f) from their own rows
+    alone, not summed over the batch ranks, while the block runs."""
+    from repro_torch.models import moe
+    real = moe.summed_loads
+    moe.summed_loads = lambda load: (torch.zeros_like(load), load)
+    try:
+        yield
+    finally:
+        moe.summed_loads = real
+
+
+@contextmanager
+def uncombined_parts():
+    """A control: each rank of a decode ring split over ranks takes the
+    attention over its own part of the ring as the whole
+    (``models.attention.combine_parts`` skipped), while the block runs."""
+    from repro_torch.models import attention
+    real = attention.combine_parts
+    attention.combine_parts = lambda out, lse, has_keys, part: out
+    try:
+        yield
+    finally:
+        attention.combine_parts = real
 
 
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card

@@ -419,12 +419,16 @@ def test_refusals_mirror_jax(mesh, recipe, batch, phrase):
 
 
 def test_mesh_of_another_size_and_moe_data_split_are_refused():
-    """The port's two further reasons: a mesh that does not match the
-    world, and a data split of a mixture-of-experts model."""
+    """The port's one further reason, a mesh that does not match the
+    world, is refused; a data split of a mixture-of-experts model is not
+    (``models/moe.py`` routes the whole batch over the batch ranks;
+    tests/test_torch_moe_split.py runs it): on a world of one rank its
+    only reason is the world's size."""
     data = legs.mlp_data()
     tctx = SessionContext(legs.mlp_model(), *legs.mlp_configs(), data, 32,
                           mesh=MeshSpec((2, 1), ("data", "model")))
-    assert "the torch.distributed world has 1" in SpmdEngine.supports(tctx)
+    world = SpmdEngine.supports(tctx)
+    assert "the torch.distributed world has 1" in world
     from repro_torch.configs import qwen3_moe_235b_a22b
     from repro_torch.core.backbone_splitee import BackboneSplitModel
     moe = BackboneSplitModel(qwen3_moe_235b_a22b.smoke(), device="cpu")
@@ -433,7 +437,7 @@ def test_mesh_of_another_size_and_moe_data_split_are_refused():
             (sorted(moe.cfg.exit_layers)[0],) * 4)),
         legs.mlp_configs()[1], data, 32,
         mesh=MeshSpec((2, 1), ("data", "model")))
-    assert "mixture-of-experts" in SpmdEngine.supports(tctx)
+    assert SpmdEngine.supports(tctx) == world
 
 
 def test_unknown_recipe_dies_at_the_facade():
