@@ -3884,6 +3884,19 @@ SPMD_SERVE_LAYERS = 4
 SPMD_MOE_TIGHT = 0.5
 SPMD_SERVE_SLOTS, SPMD_SERVE_REQUESTS, SPMD_SERVE_DECODE = 8, 8, 2
 SPMD_SERVE_MAX_LEN = 160
+# tensor parallelism over "model" (phase spmd, spmd_tp_legs): the same
+# glm4-9b, 4 decode tokens a request; SPMD_TP_STEPS rounds of one client
+# cut at SPMD_TP_CUT, SPMD_TP_BATCH sequences of parity.TRAIN_SEQ tokens.
+# The loss limit of the tensor-parallel session against the fused engine
+# on one rank comes from its own readings (PERF.md section 5, NVIDIA H100
+# 80GB HBM3, 700 W): the sound session read 8.204e-3 and the bf16 control
+# (the one-rank session on the plain versions against the kernels)
+# 1.641e-2 over 3 rounds (a loss of ~12.5 at the published vocab, each
+# round's mean over 8 rows, Adam carrying the rounding on); the planted
+# faults read 8.328e-1 (row) and 7.268e-1 (sum exp).  The limit sits 3 x
+# above the control and 14 x below the smallest fault
+SPMD_TP_DECODE, SPMD_TP_STEPS, SPMD_TP_BATCH, SPMD_TP_CUT = 4, 3, 8, 2
+TOL_SPMD_TP_LOSS = 5e-2
 
 
 def phase_spmd(state):
@@ -3904,10 +3917,13 @@ def phase_spmd(state):
     trainables' drift); and two planted faults the ResNet comparison must
     reject: Eq. (1)'s partial sums left unsummed over the lanes group, and
     BatchNorm statistics left per rank.  Then serving over the ranks
-    (``spmd_serve_legs``) and a MoE model's data split
-    (``spmd_moe_leg``).  A rank that fails fails the phase."""
+    (``spmd_serve_legs``), a MoE model's data split (``spmd_moe_leg``)
+    and tensor parallelism over "model" in serving and in the spmd
+    engine (``spmd_tp_legs``).  A rank that fails fails the phase."""
     from repro_torch.launch.hostdevices import HostRanks
-    print(f"spmd card: {card_line()}")
+    print(f"spmd card: {card_line()}; this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)")
     runs = [("gloo", 2)]
     cards = torch.cuda.device_count()
     if cards >= 2:
@@ -4162,8 +4178,14 @@ def spmd_rank(backend: str) -> dict:
           f"and the gate launched")
     if rank == 0:
         check(not bad, f"spmd comparisons: {len(bad)} failed")
+        del fused, plain
+    # the legs below run at published widths: this leg's states go first
+    del res, faults, s64, start64, start, bb, bb_start
+    gc.collect()
+    torch.cuda.empty_cache()
     out["serve"] = spmd_serve_legs(rank, world, counts)
     out["moe"] = spmd_moe_leg(rank, world, counts)
+    out["tp"] = spmd_tp_legs(rank, world, counts)
     return out
 
 
@@ -4172,9 +4194,10 @@ def spmd_serve_legs(rank: int, world: int, counts: dict) -> dict:
     glm4-9b at its published widths cut to SPMD_SERVE_LAYERS layers by
     phase main's rule (exits after N/4, N/2, 3N/4), bf16, on the kernels,
     over a data mesh (the slots over the ranks, the weights FSDP over
-    "data") and a model mesh (the weights over "model", every layer's
-    decode ring split along its sequence: each rank attends over its part
-    and the parts are combined by their LSEs), each under the select (tau
+    "data") and a model mesh (the weights over "model", their products
+    tensor-parallel under greedy's placement, every layer's decode ring
+    split along its sequence: each rank attends over its part and the
+    parts are combined by their LSEs), each under the select (tau
     2.0) and the sticky policy (tau 12.5 > ln V: every token exits,
     client-only ticks run).  The launch counts are zeroed before the four
     runs and read after: on every rank the decode route launches once a
@@ -4468,6 +4491,261 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     return {"dloss": dl, "drift": d, "block": (gl, ga),
             "block_fault": (fl, fa), "flipped": routes.flipped,
             "tokens": routes.tokens}
+
+
+def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
+    """Tensor parallelism over "model" (``launch/tensor_parallel.py``):
+    glm4-9b at its published widths cut to SPMD_SERVE_LAYERS layers, bf16,
+    on the kernels, recipe megatron, on the model mesh (world / 2, 2):
+    every rank multiplies with its chunk of attention's and the SwiGLU's
+    weights, of the embedding and of the heads split over the vocab.  The
+    launch counts are zeroed before the sessions below and read after.
+    Serving (``ServeSession(mesh=, recipe=)``): 8 slots, 8 requests
+    (16-128 tokens), SPMD_TP_DECODE decode tokens, select (tau 2.0) and
+    sticky (tau 12.5); each rank prints ms a tick, the bytes of weights
+    gathered a tick, the tensor-parallel bytes of a decode tick and of the
+    admissions, and its peak memory.  Training (``TrainSession`` on the
+    spmd engine over the same mesh): one client cut at SPMD_TP_CUT (the
+    model's one exit there), SPMD_TP_STEPS rounds of SPMD_TP_BATCH x
+    ``parity.TRAIN_SEQ`` tokens with labels over the whole vocab (so
+    every rank owns some), Adam with bf16 moments; then the same session
+    under each planted fault (a row-parallel product's partial sum taken
+    as the whole; the cross entropy's sum of exponentials left per rank).
+    Then, on rank 0: the one-rank serving session (timed the same way)
+    and each request served alone on the kernels, the streams within the
+    bf16 limits of repro_torch/parity.py; the same training session on
+    the fused engine on one rank from the same seed, and on the plain
+    versions (the bf16 control: two sound one-rank runs).  The losses of
+    the tensor-parallel session and of the control must lie within
+    TOL_SPMD_TP_LOSS of the fused engine's, each planted fault beyond
+    it."""
+    import torch.distributed as dist
+
+    from repro_torch import parity
+    from repro_torch.api import TrainSession
+    from repro_torch.api.serve_session import (ServeResult, ServeSession,
+                                               sequential_reference,
+                                               sequential_sticky_reference)
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.configs import glm4_9b
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticSeqClsDataset
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import tree_paths
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16,
+                                    per_rank_sumexp, stream_parity,
+                                    unreduced_row_products)
+    cfg, _ = cut_depth(glm4_9b.config(), SPMD_SERVE_LAYERS)
+    shape = (world // 2, 2)
+    mesh = make_host_mesh(shape, ("data", "model"))
+
+    def weights():
+        return init_backbone(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(SPMD_SERVE_REQUESTS)]
+    taus = {"select": 2.0, "sticky": 12.5}
+    wrappers = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq, entropy_exit)
+    kinds = {}
+
+    def serve(policy, over_ranks=True):
+        sess = ServeSession(
+            cfg, weights(), tau=taus[policy], slots=SPMD_SERVE_SLOTS,
+            max_len=SPMD_SERVE_MAX_LEN, exit_policy=policy,
+            recipe="megatron", mesh=mesh if over_ranks else None)
+        if over_ranks:
+            for _, r in tree_paths(sess.placement.roles):
+                kinds[r.kind] = kinds.get(r.kind, 0) + 1
+        for p in prompts:
+            sess.submit(p, decode_tokens=SPMD_TP_DECODE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        done = sess.run()
+        torch.cuda.synchronize()
+        st = sess.stats
+        reading = dict(
+            ms_per_tick=(st.wall_s - st.prefill_s) / st.decode_ticks * 1e3,
+            weights_per_tick=st.weight_gathered_bytes_per_tick,
+            tp_decode_per_tick=st.tp_decode_bytes_per_tick,
+            tp_prefill=st.tp_prefill_bytes, ticks=st.decode_ticks,
+            client_only=st.client_only_ticks,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del sess
+        return {r.rid: (r.tokens, r.exited, r.entropy) for r in done}, reading
+
+    tcfg = cfg.with_(exit_layers=(SPMD_TP_CUT,))
+    ds = SyntheticSeqClsDataset(
+        vocab_size=cfg.vocab_size, seq_len=parity.TRAIN_SEQ,
+        num_classes=cfg.vocab_size,
+        train_size=SPMD_TP_BATCH * SPMD_TP_STEPS, test_size=8, seed=0)
+    data = ClientPartitioner(1).split(*ds.train)
+
+    def train(engine="spmd", kernels="auto", fault=contextlib.nullcontext):
+        """SPMD_TP_STEPS rounds: (client and server losses a round, the
+        engine's readings)."""
+        model = BackboneSplitModel(tcfg.with_(kernels=kernels),
+                                   device="cuda")
+        kw = dict(mesh=mesh, recipe="megatron") if engine == "spmd" else {}
+        sess = TrainSession(
+            model, SplitEEConfig(profile=HeteroProfile((SPMD_TP_CUT,)),
+                                 strategy="averaging"),
+            OptimizerConfig(lr=parity.TRAIN_LR,
+                            total_steps=2 * SPMD_TP_STEPS,
+                            state_dtype=torch.bfloat16),
+            data, SPMD_TP_BATCH, engine=engine, **kw)
+        # the model's own tree only seeds the session's first state (two
+        # ranks share the card: its 5.4 GB would be held twice)
+        model.full_params = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with fault():
+            hist = sess.train(SPMD_TP_STEPS)
+        torch.cuda.synchronize()
+        eng = sess.engine
+        reading = dict(
+            engine=sess.engine_name,
+            ms_per_round=(time.perf_counter() - t0) / SPMD_TP_STEPS * 1e3,
+            tp_per_step=getattr(eng, "last_tp_bytes_per_step", 0.0),
+            gathered_per_step=getattr(eng, "last_gathered_bytes_per_step",
+                                      0.0),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        losses = np.asarray([[m.client_loss, m.server_loss] for m in hist])
+        del sess, model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, reading
+
+    # ---- the main path: every count at 0, read after
+    zero_counts(*wrappers)
+    runs, readings = {}, {}
+    for policy in taus:
+        runs[policy], r = serve(policy)
+        readings[policy] = r
+        print(f"spmd tp serve glm4-9b {cfg.num_layers} layers megatron mesh "
+              f"{shape} {policy} (rank {rank}): {r['ms_per_tick']:.3f} ms a "
+              f"tick over {r['ticks']} ticks ({r['client_only']} "
+              f"client-only), weights gathered a tick "
+              f"{r['weights_per_tick']:,.0f} bytes, tensor-parallel bytes "
+              f"a decode tick {r['tp_decode_per_tick']:,.0f}, admissions "
+              f"{r['tp_prefill']:,.0f}, peak {r['peak_gib']:.2f} GiB; "
+              f"roles {kinds}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, tr = train()
+    main = {k: n for w in wrappers for k, n in launch_counts(w).items()}
+    for k, n in main.items():
+        counts[k] = counts.get(k, 0) + n
+    print(f"spmd tp train glm4-9b {cfg.num_layers} layers megatron mesh "
+          f"{shape} ({tr['engine']} engine, rank {rank}): "
+          f"{tr['ms_per_round']:.1f} ms a round, tensor-parallel bytes a "
+          f"step {tr['tp_per_step']:,.0f}, weights gathered a step "
+          f"{tr['gathered_per_step']:,.0f}, peak {tr['peak_gib']:.2f} GiB; "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in main.items() if n),
+          flush=True)
+    check(tr["engine"] == "spmd" and all(
+              main[k] > 0 for k in ("flash_attention", "flash_attention_tile",
+                                    "flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq",
+                                    "entropy_exit")),
+          f"spmd tp rank {rank}: the spmd engine trained; the decode and "
+          f"tile routes, dK/dV, dQ and the gate launched")
+    faults = {name: train(fault=f)[0] for name, f in (
+        ("row", unreduced_row_products), ("sumexp", per_rank_sumexp))}
+    every = [None] * world
+    dist.all_gather_object(every, {"runs": runs, "losses": losses,
+                                   "faults": faults})
+    out = {"readings": readings, "train": tr, "launches": main}
+    dist.barrier()
+    if rank == 0:
+        checks = []
+
+        def as_res(st):
+            return {i: ServeResult(i, None, tokens=t, exited=e, entropy=h)
+                    for i, (t, e, h) in st.items()}
+
+        params = weights()
+        alone = {policy: [
+            (sequential_sticky_reference if policy == "sticky"
+             else sequential_reference)(
+                cfg, params, p, SPMD_TP_DECODE, tau=taus[policy],
+                max_len=SPMD_SERVE_MAX_LEN) for p in prompts]
+            for policy in taus}
+        del params
+        for policy in taus:
+            one, r = serve(policy, over_ranks=False)
+            readings[f"one rank/{policy}"] = r
+            got = every[0]["runs"][policy]
+            same = all(e["runs"][policy] == got for e in every)
+            sp = stream_parity(as_res(got), alone[policy], taus[policy])
+            agree = sum(a == b for rid in got
+                        for a, b in zip(got[rid][0], one[rid][0]))
+            print(f"  reading spmd tp serve {policy}: one-rank session "
+                  f"{r['ms_per_tick']:.3f} ms a tick (tensor-parallel "
+                  f"{readings[policy]['ms_per_tick']:.3f}); vs each request "
+                  f"alone: compared {sp.compared}, max|dH| {sp.max_dh:.3e}, "
+                  f"parted {sp.parted}; {agree} tokens equal to the "
+                  f"one-rank session's", flush=True)
+            checks.append((same and sp.ok and sp.max_dh <= TOL_H_BF16,
+                           f"spmd tp serve {policy}: every rank holds the "
+                           f"same streams, within the bf16 limits (tie gap "
+                           f"{TIE_GAP_BF16:g}, |dH| {TOL_H_BF16:g})"))
+        checks.append((all(readings[p]["weights_per_tick"] == 0
+                           for p in taus) and all(
+                           readings[p]["tp_decode_per_tick"] < 10e6
+                           for p in taus),
+                       "spmd tp serve: no weight gathered a tick, under "
+                       "10 MB of tensor-parallel collectives a decode tick"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        want, one_tr = train("fused")
+        ctl, _ = train("fused", kernels="ref")
+        lim = TOL_SPMD_TP_LOSS
+
+        def gap(a):
+            return np.abs(a - want).max(1)
+
+        gaps = np.max([gap(e["losses"]) for e in every], 0)
+        dl, dc = float(gaps.max()), float(gap(ctl).max())
+        print(f"  reading spmd tp train: fused engine on one rank "
+              f"{one_tr['ms_per_round']:.1f} ms a round, peak "
+              f"{one_tr['peak_gib']:.2f} GiB (tensor-parallel "
+              f"{tr['ms_per_round']:.1f}); losses max|d| {dl:.3e}, by "
+              f"round " + ", ".join(f"{g:.3e}" for g in gaps)
+              + f" (losses {want.min():.3f}..{want.max():.3f}); bf16 "
+              f"control (one rank, plain versions) max|d| {dc:.3e}, by "
+              f"round " + ", ".join(f"{g:.3e}" for g in gap(ctl)),
+              flush=True)
+        checks.append((dl <= lim, f"spmd tp train {SPMD_TP_STEPS} rounds "
+                       f"= the fused engine on one rank: losses {dl:.2e} "
+                       f"<= {lim:g}"))
+        checks.append((dc <= lim, f"spmd tp train: the bf16 control lies "
+                       f"within the limit ({dc:.2e} <= {lim:g})"))
+        for name in faults:
+            df = max(float(gap(e["faults"][name]).max()) for e in every)
+            print(f"  reading spmd tp planted fault ({name}): losses max|d| "
+                  f"{df:.3e}", flush=True)
+            checks.append((df > lim, f"spmd tp planted fault rejected: "
+                           f"{name} ({df:.2e} > {lim:g})"))
+        out["train_one"] = one_tr
+        out["dloss"], out["dloss_control"] = dl, dc
+        for ok, msg in checks:
+            print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
+        check(all(ok for ok, _ in checks), "spmd tp comparisons")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_timing(state):
@@ -4960,11 +5238,11 @@ def main() -> int:
         except Exception:       # report every phase, then fail the run
             traceback.print_exc()
             failed.append(name)
-            # the failed phase's tensors go with its frames: hand their
-            # cached blocks back before the next phase (phase spmd's ranks
-            # are processes of their own)
-            gc.collect()
-            torch.cuda.empty_cache()
+        # a phase's tensors go with its frames: hand their cached blocks
+        # back before the next phase (phase spmd's ranks are processes of
+        # their own and share the card with this one)
+        gc.collect()
+        torch.cuda.empty_cache()
         print(f"== {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     unlaunched = [k for k in KERNELS

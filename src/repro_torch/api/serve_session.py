@@ -55,9 +55,21 @@ of each split ring combined over the ring's ranks
 entropies are all-gathered over the batch ranks, so ``results``, the
 counts of ``stats`` and ``run()`` are the same on every rank.  Where the
 slots do not divide over the batch ranks they stay replicated and every
-data group runs every slot.  Tensor-parallel products over ``"model"``
-are ROADMAP.md item 9b-3: until then the ranks of a ``"model"`` group
-repeat their group's compute on whole weights.
+data group runs every slot.
+
+Over ``"model"`` the products are tensor-parallel
+(``launch/tensor_parallel.py``): a leaf that ``launch.shardings.tp_roles``
+finds ``column`` or ``row`` (attention's and the SwiGLU's weights, the
+embedding and the heads split over the vocab) is read in place as this
+rank's chunk, gathered over its data axes only, and the tick runs inside
+``model_parallel`` over the rank's model group; only the other leaves
+(MLA, RWKV6, Mamba2, experts, the frontend; ROADMAP.md item 9b-4) are
+gathered whole.  A decode over a split ring gathers the new token's q, k
+and v heads, attends over this rank's part for every head and keeps its
+own heads for ``wo``; the logits are gathered over the vocab for the gate
+(the entropy kernel runs on whole rows) and the token pick.
+``stats.weight_gathered_bytes`` counts the weights a tick gathers,
+``stats.tp_bytes`` the tensor-parallel collectives.
 """
 from __future__ import annotations
 
@@ -77,9 +89,11 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import (MeshSpec, axis_sizes, batch_axes,
                                      live_mesh)
 from repro_torch.launch.meshcomm import MeshComm, _axes, chunk_shapes
-from repro_torch.launch.shardings import (_lookup, jax_layout,
-                                          map_with_path, port_specs,
-                                          resolve_recipe, serve_state_specs)
+from repro_torch.launch.shardings import (_lookup, compute_spec,
+                                          jax_layout, map_with_path,
+                                          port_specs, resolve_recipe,
+                                          serve_state_specs, tp_roles)
+from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
 from repro_torch.models.frontend import project_enc, stub_enc
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (backbone_forward, init_cache,
@@ -203,10 +217,28 @@ class ServeStats:
     wall_s: float = 0.0                # whole ticks, admissions included
     prefill_s: float = 0.0             # admissions alone (prefill + join)
     gathered_bytes: int = 0            # received by this rank's all_gathers
+    weight_gathered_bytes: int = 0     # of them, the weights' gathers
+    tp_bytes: float = 0.0              # tensor-parallel collectives
+    tp_prefill_bytes: float = 0.0      # of them, the admissions'
 
     @property
     def gathered_bytes_per_tick(self) -> float:
         return self.gathered_bytes / max(1, self.decode_ticks)
+
+    @property
+    def weight_gathered_bytes_per_tick(self) -> float:
+        return self.weight_gathered_bytes / max(1, self.decode_ticks)
+
+    @property
+    def tp_bytes_per_tick(self) -> float:
+        return self.tp_bytes / max(1, self.decode_ticks)
+
+    @property
+    def tp_decode_bytes_per_tick(self) -> float:
+        """The tensor-parallel bytes of a tick's decode step alone (the
+        admissions' prefills left out)."""
+        return ((self.tp_bytes - self.tp_prefill_bytes)
+                / max(1, self.decode_ticks))
 
     @property
     def adoption_ratio(self) -> float:
@@ -237,11 +269,28 @@ def serve_placement(recipe, mesh, cfg: ModelConfig, params, pool):
             map_with_path(lambda p, t: live(_lookup(cspecs, p)), pool))
 
 
+def tick_gather_spec(path, spec, batch_all) -> tuple:
+    """The dims of a cache leaf (at ``path``, placed by ``spec``) that a
+    tick gathers: every split dim but the slot dim over the batch axes
+    ``batch_all`` and a decode ring's sequence."""
+    spec = list(spec)
+    if set(_axes(spec[0])) <= set(batch_all):
+        spec[0] = None                          # this group's slots
+    if path[-1] in _RING_KEYS:
+        spec[1] = None                          # the ring stays split
+    return tuple(spec)
+
+
 class RankPlacement:
     """A serving session's state over the ranks of a mesh: this rank's
     chunk of every parameter and cache leaf, placed by
     :func:`serve_placement` under ``recipe``, and the collectives of a
     tick (``launch.meshcomm.MeshComm``).
+
+    A parameter leaf whose ``"model"`` chunk a tensor-parallel product
+    reads (``roles``, ``launch.shardings.tp_roles``) is gathered for a
+    tick over its other axes only (``compute_specs``); ``tp`` is the
+    rank's model group (``None`` without a model split).
 
     A cache leaf's slot dim over the batch axes leaves this rank its data
     group's slots ``[lo, hi)``; a decode ring's sequence over ``"model"``
@@ -267,6 +316,19 @@ class RankPlacement:
         self.pool = map_with_path(
             lambda p, t: torch.zeros(t.shape, dtype=t.dtype, device=device),
             chunk_shapes(pool, self.cache_specs, comm.sizes, lead=0))
+        ax = self.recipe.tp_axis
+        self.tp: Optional[ModelGroup] = None
+        self.roles = None
+        self.compute_specs = self.param_specs
+        if comm.sizes.get(ax, 1) > 1:
+            pg, _ = comm.group((ax,))
+            self.tp = ModelGroup(pg, comm.sizes[ax], comm.index((ax,)))
+            self.roles = tp_roles(params, self.param_specs, mesh, cfg,
+                                  self.recipe)
+            self.compute_specs = map_with_path(
+                lambda p, _: compute_spec(_lookup(self.param_specs, p),
+                                          _lookup(self.roles, p), ax),
+                params)
         self._batch_all = batch_axes(mesh)
         self.batch = tuple(a for a in self._batch_all
                            if comm.sizes[a] > 1)
@@ -280,22 +342,16 @@ class RankPlacement:
             self.lo, self.hi, self.slots_split = 0, slots, False
         self.slots = slots
         # per cache leaf: the dims a tick gathers (the rest kept split)
-        self._gather_specs = map_with_path(self._gather_spec, pool)
-
-    def _gather_spec(self, path, t) -> tuple:
-        """The dims of a cache leaf a tick gathers: every split dim but
-        the slot dim over the batch axes and a ring's sequence."""
-        spec = list(_lookup(self.cache_specs, path))
-        if set(_axes(spec[0])) <= set(self._batch_all):
-            spec[0] = None                      # this group's slots
-        if path[-1] in _RING_KEYS:
-            spec[1] = None                      # the ring stays split
-        return tuple(spec)
+        self._gather_specs = map_with_path(
+            lambda p, _: tick_gather_spec(p, _lookup(self.cache_specs, p),
+                                          self._batch_all), pool)
 
     # ------------------------------------------------------------- a tick
     def whole_params(self) -> dict:
-        """The parameter tree whole (each sharded leaf all-gathered)."""
-        return self.comm.unshard(self.params, self.param_specs, lead=0)
+        """The parameter tree a tick computes with: each sharded leaf
+        all-gathered, a tensor-parallel leaf over its other axes only (its
+        ``"model"`` chunk read in place)."""
+        return self.comm.unshard(self.params, self.compute_specs, lead=0)
 
     def _range(self, spec, d: int, size: int):
         """(start, length) of this rank's chunk of dim ``d`` (``size``
@@ -517,9 +573,20 @@ class ServeSession:
             return False
         t0 = time.perf_counter()
         pl = self.placement
+        with model_parallel(pl.tp if pl is not None else None):
+            return self._tick(t0, pl)
+
+    def _tick(self, t0: float, pl) -> bool:
         before = pl.comm.gathered_bytes if pl is not None else 0
+        tp_before = pl.tp.total_bytes if pl is not None and pl.tp else 0.0
         params = pl.whole_params() if pl is not None else self.params
+        if pl is not None:
+            self.stats.weight_gathered_bytes += (pl.comm.gathered_bytes
+                                                 - before)
+        tp_admit = pl.tp.total_bytes if pl is not None and pl.tp else 0.0
         admitted = self._admit(params)
+        if pl is not None and pl.tp is not None:
+            self.stats.tp_prefill_bytes += pl.tp.total_bytes - tp_admit
         occupied = np.nonzero(self._active)[0]
 
         sticky_policy = self.exit_policy == "sticky"
@@ -573,6 +640,8 @@ class ServeSession:
         self.stats.client_only_ticks += int(client_only)
         if pl is not None:
             self.stats.gathered_bytes += pl.comm.gathered_bytes - before
+            if pl.tp is not None:
+                self.stats.tp_bytes += pl.tp.total_bytes - tp_before
         self.stats.wall_s += time.perf_counter() - t0
         return bool(self._queue) or bool(self._active.any())
 
@@ -593,14 +662,15 @@ class ServeSession:
         cfg = self.cfg
         mine = slice(self._lo, self._hi)
         n = self._hi - self._lo
-        x = embed(params["embed"], self._toks[mine, None]).to(cfg.dtype)
+        x = embed(params["embed"], self._toks[mine, None],
+                  cfg.vocab_size).to(cfg.dtype)
         positions = self._lens[mine].long()[:, None]
         enc = project_enc(params, stub_enc(cfg, n, self.device), cfg)
         for si in range(self.boundary + 1):
             x, _ = segment_forward(params, cfg, si, x, positions, cache,
                                    self._lens[mine], moe_groups=n, enc=enc)
-        e_logits = heads_mod.exit_head(params["exit_heads"][self.boundary],
-                                       x, cfg)
+        e_logits = heads_mod.whole_logits(heads_mod.exit_head(
+            params["exit_heads"][self.boundary], x, cfg), cfg)
         H, gate = self._gate.entropy_gate(e_logits, tau)
         tokens = e_logits[:, 0].argmax(-1).to(torch.int32)
         # every occupied slot has adopted: its token is the exit head's
@@ -629,7 +699,7 @@ def _prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray,
                            cache_len=torch.zeros(1, dtype=torch.int32,
                                                  device=device),
                            exit_heads=(), enc=stub_enc(cfg, 1, device))
-    return page, out.logits[0, -1]
+    return page, heads_mod.whole_logits(out.logits[0, -1], cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -40,13 +40,27 @@ same recipe rules:
     rank (the lanes and shards are gathered at the end of a run), so
     evaluation and checkpoints read it as they read the fused engine's.
 
+  * **Tensor parallelism over ``"model"``** (a ``BackboneSplitModel``).
+    ``launch.shardings.tp_roles`` reads each leaf's ``"model"`` dim
+    against its product: attention's ``wq``/``wk``/``wv``/``wo``, the
+    SwiGLU's three weights, the embedding and the heads' unembedding
+    split over the vocab are ``column`` or ``row`` and stay this rank's
+    ``"model"`` chunk for compute (gathered over their FSDP/data axes
+    only); the step runs inside ``launch.tensor_parallel.model_parallel``
+    over the rank's model group, whose products multiply with the chunks
+    (the logits stay split over the vocab into the vocab-parallel cross
+    entropy), and their gradients are the chunks' own.  Every other leaf
+    (MLA, RWKV6, Mamba2, expert stacks, the frontend, norms; ROADMAP.md
+    item 9b-4) is gathered whole as before, and its gradient is whole and
+    equal on every model rank.  The clip norm sums the split leaves'
+    squares over the group and counts the others once.
+
 Only all_reduce and all_gather are used (gloo and NCCL both take them;
-``launch/meshcomm.py``).  Two parts of ROADMAP.md item 9b remain: tensor-
-parallel compute over ``"model"`` (9b-3; until then a ``"model"`` axis
-shards storage, and its ranks repeat their group's compute), and
-overlapping the gathers with compute.  The expert-parallel placement of
-the MoE dispatch buffer is a storage placement for the same reason: the
-expert weights are gathered for compute.
+``launch/meshcomm.py``).  What ROADMAP.md item 9b-4 lists stays
+storage-only over ``"model"`` (its ranks repeat that compute), and the
+gathers do not overlap compute.  The expert-parallel placement of the MoE
+dispatch buffer is a storage placement for the same reason: the expert
+weights are gathered for compute.
 
 Meshes: ``TrainSession(..., mesh=...)`` -- a live mesh from
 ``launch.mesh`` (``make_lane_host_mesh(2)``, ``make_host_mesh((2, 2, 1),
@@ -58,6 +72,7 @@ over every rank.  Recipes: ``TrainSession(..., recipe=...)``, a name of
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Dict, List, Optional
 
@@ -76,11 +91,13 @@ from repro_torch.launch.mesh import (MeshSpec, as_spec, axis_sizes,
 from repro_torch.launch.meshcomm import (  # noqa: F401 (re-exported)
     MeshComm, _axes, all_reduce_plan, chunk_shapes, gather_plan, plan_bytes,
     unshard_plan)
-from repro_torch.launch.shardings import (_lookup, jax_layout,
-                                          map_with_path, port_specs,
-                                          resolve_recipe, spec_leaves,
-                                          stage_batch_spec,
-                                          train_state_specs)
+from repro_torch.launch.shardings import (_lookup, compute_spec,
+                                          jax_layout, map_with_path,
+                                          port_specs, resolve_recipe,
+                                          spec_leaves, stage_batch_spec,
+                                          tp_roles, train_state_specs,
+                                          tree_paths)
+from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
 from repro_torch.models.sync_stats import synced_batch_stats
 from repro_torch.optim.adam import adam_update, lane_norms
 
@@ -150,6 +167,14 @@ def carry_specs(recipe, mesh, carry, model):
     return port_specs(specs, carry, cfg, lead=1)
 
 
+def _on_meta(_, t):
+    """A tensor's shape and dtype on the meta device (anything else as
+    it is: an Adam state's host step)."""
+    if isinstance(t, torch.Tensor):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    return t
+
+
 @register_engine("spmd")
 class SpmdEngine(FusedEngine):
     """The fused engine's round body over the ranks of a mesh, placed by a
@@ -198,8 +223,20 @@ class SpmdEngine(FusedEngine):
             else:
                 self._rows[li] = None
         self._specs: Dict[int, tuple] = {}
+        # the tensor-parallel group over the model axis (a backbone only)
+        tp_axis = self.recipe.tp_axis
+        self._tp: Optional[ModelGroup] = None
+        if (_model_cfg(ctx.model) is not None
+                and sizes.get(tp_axis, 1) > 1):
+            pg, _ = self.comm.group((tp_axis,))
+            self._tp = ModelGroup(pg, sizes[tp_axis],
+                                  self.comm.index((tp_axis,)))
+        self._roles: Dict[int, tuple] = {}
+        self._cspecs: Dict[int, tuple] = {}
         #: bytes gathered per cohort step in the latest run (this rank)
         self.last_gathered_bytes_per_step = 0.0
+        #: bytes of the tensor-parallel collectives per cohort step
+        self.last_tp_bytes_per_step = 0.0
 
     @classmethod
     def supports(cls, ctx: SessionContext) -> Optional[str]:
@@ -220,7 +257,9 @@ class SpmdEngine(FusedEngine):
         lax_name = lane_axis(mesh)
         lane_sz = (sizes.get(lax_name, 1)
                    if lax_name and recipe.shard_lanes else 1)
-        if dp < 2 and lane_sz < 2:
+        tensor_parallel = (_model_cfg(ctx.model) is not None
+                           and sizes.get(recipe.tp_axis, 1) > 1)
+        if dp < 2 and lane_sz < 2 and not tensor_parallel:
             if lax_name and sizes.get(lax_name, 1) > 1:
                 return (f"mesh {sizes} only has parallelism on its lanes "
                         f"axis, which recipe {ctx.recipe_name!r} disables "
@@ -275,22 +314,46 @@ class SpmdEngine(FusedEngine):
     # --------------------------------------------------------------- carry
     def _stack_carry(self, state):
         """This rank's lanes of each cohort, stacked, each leaf cut to its
-        chunk by the recipe."""
+        chunk by the recipe.  The specs are read on the stacked shapes
+        alone, and each part of a cohort is stacked and cut before the
+        next, so a rank never holds a stacked copy of the whole carry."""
         model = self.ctx.model
-        carry = {}
-        for li in self._cohort_lis:
+        stackers = (model.stack_clients, _stack_opts, model.stack_clients,
+                    _stack_opts)
+
+        def lanes(li, on_meta=False):
             ids = [self._lanes[li][j] for j in self._local[li]]
-            carry[li] = (
-                model.stack_clients([state.clients[i] for i in ids]),
-                _stack_opts([state.client_opts[i] for i in ids]),
-                model.stack_clients([state.servers[i] for i in ids]),
-                _stack_opts([state.server_opts[i] for i in ids]))
+            parts = ([state.clients[i] for i in ids],
+                     [state.client_opts[i] for i in ids],
+                     [state.servers[i] for i in ids],
+                     [state.server_opts[i] for i in ids])
+            if on_meta:
+                parts = tuple([map_with_path(_on_meta, t) for t in trees]
+                              for trees in parts)
+            return parts
+
+        carry = {li: tuple(stack(trees) for stack, trees in zip(
+                     stackers, lanes(li, on_meta=True)))
+                 for li in self._cohort_lis}
         self._specs = self._carry_specs(carry)
-        out = {li: self._tree(self._shard, carry[li], self._specs[li])
+        cfg = _model_cfg(self.ctx.model)
+        for li in carry:
+            specs = self._specs[li]
+            if self._tp is None:
+                self._cspecs[li] = specs
+                continue
+            roles = tp_roles(carry[li], specs, self.mesh, cfg, self.recipe,
+                             lead=1)
+            self._roles[li] = roles
+            self._cspecs[li] = map_with_path(
+                lambda p, _: compute_spec(_lookup(specs, p),
+                                          _lookup(roles, p),
+                                          self.recipe.tp_axis), carry[li])
+        out = {li: tuple(self._tree(self._shard, stack(trees), specs)
+                         for stack, trees, specs in zip(
+                             stackers, lanes(li), self._specs[li]))
                for li in carry}
-        self._chunks = {li: map_with_path(
-            lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
-            out[li]) for li in out}
+        self._chunks = {li: map_with_path(_on_meta, out[li]) for li in out}
         return out
 
     def planned_gathered_bytes_per_step(self) -> float:
@@ -299,19 +362,47 @@ class SpmdEngine(FusedEngine):
         cohort), averaged over the cohorts, which step equally often: what
         :attr:`last_gathered_bytes_per_step` measures."""
         per = [plan_bytes(unshard_plan(self._chunks[li][part],
-                                       self._specs[li][part], self.comm.sizes))
+                                       self._cspecs[li][part],
+                                       self.comm.sizes))
                for li in self._cohort_lis for part in (0, 2)]
         n = len(self._cohort_lis)
         return sum(per) / n
 
     def _unstack_carry(self, carry, state, steps):
         """The whole carry on every rank -- shards and lanes gathered --
-        unstacked as the fused engine does."""
-        full = {li: self._unshard(
-                    carry[li], self._specs[li],
-                    lanes=len(self._local[li]) != self._counts[li])
-                for li in self._cohort_lis}
-        return super()._unstack_carry(full, state, steps)
+        unstacked as the fused engine does (client ``i``'s Adam states at
+        the host steps ``steps[i]``).  One leaf at a time: each chunk is
+        let go once gathered and each whole leaf once cut into its lanes,
+        so beside the new state a rank holds at most one whole leaf."""
+        parts = [list(state.clients), list(state.client_opts),
+                 list(state.servers), list(state.server_opts)]
+        for li in self._cohort_lis:
+            ids = self._lanes[li]
+            lane_axes = (self._lane_axes
+                         if len(self._local[li]) != self._counts[li] else ())
+            entry, carry[li] = list(carry[li]), None
+            for k in range(4):
+                flat, entry[k] = list(tree_paths(entry[k])), None
+                cut = {}
+                for n in range(len(flat)):
+                    (path, t), flat[n] = flat[n], None
+                    whole = self.comm.unshard(
+                        t, _lookup(self._specs[li][k], path), lane_axes)
+                    del t
+                    cut[path] = ([whole[0]] if len(ids) == 1 else
+                                 [whole[j].clone() for j in range(len(ids))])
+                    del whole
+                for j, i in enumerate(ids):
+                    tree = map_with_path(lambda p, _: cut[p][j],
+                                         self._chunks[li][k])
+                    if k % 2:
+                        tree = dataclasses.replace(tree,
+                                                   step=steps[i][k // 2])
+                    parts[k][i] = tree
+        return state.replace(clients=tuple(parts[0]),
+                             client_opts=tuple(parts[1]),
+                             servers=tuple(parts[2]),
+                             server_opts=tuple(parts[3]))
 
     # ------------------------------------------------------------- staging
     def _keep_local(self, xs, ys, ms):
@@ -355,19 +446,20 @@ class SpmdEngine(FusedEngine):
         weighted so that their sum over the lanes and batch ranks counts
         every lane once."""
         c, co, s, so = carry
-        sc, _, ss, _ = self._specs[li]
+        sc, _, ss, _ = self._cspecs[li]
         before = self.comm.gathered_bytes
         fc = self._unshard(c, sc)
         fs = self._unshard(s, ss)
         self._gathered += self.comm.gathered_bytes - before
         self._steps_run += 1
+        tp_before = self._tp.total_bytes if self._tp is not None else 0.0
         if self._dp > 1:
             pg, _ = self.comm.group(self._batch_axes)
             sync = synced_batch_stats(pg, self._dp,
                                       self.comm.index(self._batch_axes))
         else:
             sync = contextlib.nullcontext()
-        with sync:
+        with sync, model_parallel(self._tp):
             gc, gs, closs, sloss, cst, sst = self._steps[li](fc, fs, x, y)
         gc, gs = list(gc), list(gs)
         if self._dp > 1:
@@ -381,9 +473,16 @@ class SpmdEngine(FusedEngine):
             sst = masked_update(m, sst, fs["state"])
             closs, sloss = closs * m.to(closs.dtype), sloss * m.to(sloss.dtype)
         out = []
-        for net, full, g, opt, specs, st, rate in (
-                (c, fc, gc, co, sc, cst, lr), (s, fs, gs, so, ss, sst, lr_s)):
-            norms = lane_norms(g) if self.ctx.opt_cfg.grad_clip > 0 else None
+        roles = self._roles.get(li)
+        for part, (net, full, g, opt, specs, st, rate) in zip((0, 2), (
+                (c, fc, gc, co, sc, cst, lr), (s, fs, gs, so, ss, sst, lr_s))):
+            norms = None
+            if self.ctx.opt_cfg.grad_clip > 0:
+                split = (None if roles is None else
+                         [_lookup(roles[part]["trainable"], p).split
+                          for p, _ in tree_paths(net["trainable"])])
+                norms = lane_norms(g, split, lambda ts: self.comm.all_reduce(
+                    ts, (self.recipe.tp_axis,)))
             leaf_specs = spec_leaves(specs["trainable"], net["trainable"])
             g = [None if gr is None else self._shard(gr, sp)
                  for gr, sp in zip(g, leaf_specs)]
@@ -392,6 +491,8 @@ class SpmdEngine(FusedEngine):
             out += [{"trainable": tr,
                      "state": self._tree(self._shard, st, specs["state"])},
                     opt]
+        if self._tp is not None:
+            self._tp_bytes += self._tp.total_bytes - tp_before
         return tuple(out), closs.double() * w, sloss.double() * w
 
     def _aggregate(self, carry, ms, r: int) -> None:
@@ -431,9 +532,12 @@ class SpmdEngine(FusedEngine):
     def run(self, state, rounds: int, local_epochs: int = 1,
             log_every: int = 0, chunk_rounds: int = 0):
         self._gathered = 0
+        self._tp_bytes = 0.0
         self._steps_run = 0
         out = super().run(state, rounds, local_epochs, log_every,
                           chunk_rounds)
         self.last_gathered_bytes_per_step = (
             self._gathered / max(1, self._steps_run))
+        self.last_tp_bytes_per_step = (
+            self._tp_bytes / max(1, self._steps_run))
         return out

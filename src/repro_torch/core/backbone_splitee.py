@@ -153,7 +153,7 @@ class BackboneSplitModel(_StackMixin):
     def _client_run(self, trainable, x):
         """(h, last-position exit logits, aux total over the client's
         segments, ``None`` without a router)."""
-        h = embed(trainable["embed"], x).to(self.cfg.dtype)
+        h = embed(trainable["embed"], x, self.cfg.vocab_size).to(self.cfg.dtype)
         positions = self._positions(h)
         enc = self._enc_for(trainable, h.shape[0])
         params = {"segments": trainable["segments"],
@@ -194,11 +194,15 @@ class BackboneSplitModel(_StackMixin):
         """The ``core.strategies`` client-loss hook: the exit head's
         cross-entropy plus the client segments' router aux total."""
         h, logits, aux = self._client_run(trainable, x)
-        return add_aux(softmax_cross_entropy(logits, y), aux), (h, state)
+        return add_aux(softmax_cross_entropy(logits, y,
+                                             vocab=self.cfg.vocab_size),
+                       aux), (h, state)
 
     def server_loss(self, trainable, state, h, li: int, y):
         """The server-loss hook: the final head's cross-entropy plus the
         server segments' router aux total (as ``core.spmd.hetero_losses``
         adds ``aux_loss`` to the monolithic server loss)."""
         logits, aux = self._server_run(trainable, h, li)
-        return add_aux(softmax_cross_entropy(logits, y), aux), state
+        return add_aux(softmax_cross_entropy(logits, y,
+                                             vocab=self.cfg.vocab_size),
+                       aux), state

@@ -31,7 +31,9 @@ from repro_torch.core.aggregation import participation_counts
 from repro_torch.core.losses import softmax_cross_entropy, softmax_entropy
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.backbone import BackboneOutput, backbone_forward
+from repro_torch.models.heads import whole_logits
 from repro_torch.optim import adam_update, make_schedule
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -114,23 +116,25 @@ def participation_scale_trees(params: Any, cfg: ModelConfig,
 
 
 def hetero_losses(out: BackboneOutput, labels: torch.Tensor,
-                  split_ids: torch.Tensor, num_boundaries: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                  split_ids: torch.Tensor, num_boundaries: int,
+                  vocab: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
                              Dict[str, torch.Tensor]]:
     """(client_total, server_total, metrics).  ``client_total`` sums each
     boundary's masked-mean exit CE (one term per client group family);
     ``server_total`` is the final-head CE over all examples plus the MoE
-    router aux loss (reported as ``metrics["aux_loss"]``)."""
+    router aux loss (reported as ``metrics["aux_loss"]``).  ``vocab``: the
+    whole V, where vocab-parallel heads left the logits split (required
+    under an active model group: ``tp.vocab_split`` raises without it)."""
     client_total = torch.zeros((), device=labels.device)
     metrics: Dict[str, torch.Tensor] = {}
     for b in range(num_boundaries):
         mask = (split_ids == b).float()
         m = mask[:, None].expand(labels.shape) if labels.ndim == 2 else mask
-        ce = softmax_cross_entropy(out.exit_logits[b], labels, m)
+        ce = softmax_cross_entropy(out.exit_logits[b], labels, m, vocab)
         ce = torch.where(mask.sum() > 0, ce, torch.zeros_like(ce))
         client_total = client_total + ce
         metrics[f"client_loss/b{b}"] = ce
-    server_loss = softmax_cross_entropy(out.logits, labels)
+    server_loss = softmax_cross_entropy(out.logits, labels, vocab=vocab)
     metrics["server_loss"] = server_loss
     metrics["aux_loss"] = out.aux_loss
     return client_total, server_loss + out.aux_loss, metrics
@@ -219,7 +223,8 @@ def make_grad_step(sc: StepConfig) -> Callable:
                                    enc=batch.get("enc"),
                                    split_ids=batch["split_ids"], remat=remat)
             client, server, metrics = hetero_losses(
-                out, batch["labels"], batch["split_ids"], nb)
+                out, batch["labels"], batch["split_ids"], nb,
+                cfg.vocab_size)
             del out
             if sc.grad_mode == "eq1":
                 cs, ss = participation_scale_trees(params, cfg,
@@ -238,6 +243,13 @@ def make_grad_step(sc: StepConfig) -> Callable:
     return grad_step
 
 
+def _refuse_clip_over_group(sc: StepConfig) -> None:
+    if sc.train.optimizer.grad_clip > 0 and tp.active() is not None:
+        raise ValueError("a clip norm over a model group's chunks needs the "
+                         "spmd engine (its norm sums the split leaves over "
+                         "the group)")
+
+
 def make_train_step(sc: StepConfig) -> Callable:
     """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`make_grad_step`'s gradients, then Adam.  ``batch`` =
@@ -251,6 +263,7 @@ def make_train_step(sc: StepConfig) -> Callable:
     schedule = make_schedule(sc.train.optimizer)
 
     def train_step(params, opt_state, batch):
+        _refuse_clip_over_group(sc)
         grads, metrics = grad_step(params, batch)
         lr = schedule(opt_state.step)
         params, opt_state = adam_update(params, grads, opt_state,
@@ -284,6 +297,7 @@ def make_sequential_train_step(sc: StepConfig) -> Callable:
     div = sc.splitee.resolved_server_lr_divisor()
 
     def train_step(params, opt_state, batch):
+        _refuse_clip_over_group(sc)
         B = batch["split_ids"].shape[0]
         if B % N:
             raise ValueError(f"batch {B} does not divide into {N} groups")
@@ -304,7 +318,8 @@ def make_sequential_train_step(sc: StepConfig) -> Callable:
                                                       "enc")
                                           if batch.get(key) is not None})
                 client, server, m = hetero_losses(
-                    out, batch["labels"][rows], batch["split_ids"][rows], nb)
+                    out, batch["labels"][rows], batch["split_ids"][rows], nb,
+                    cfg.vocab_size)
                 del out
                 grads = torch.autograd.grad(client + server, leaves,
                                             allow_unused=True)
@@ -471,8 +486,9 @@ def make_serve_step(sc: StepConfig, boundary: int = 0) -> Callable:
                                enc=enc, cache=cache, cache_len=cache_len,
                                exit_heads=(boundary,),
                                moe_groups=tokens.shape[0])
+        out.logits = whole_logits(out.logits, cfg)
         if cfg.exit_layers:
-            e_logits = out.exit_logits[boundary]
+            e_logits = whole_logits(out.exit_logits[boundary], cfg)
             H, exit_now = backend.entropy_gate(e_logits, tau_)   # (B, T)
             final = torch.where(exit_now[..., None], e_logits, out.logits)
         else:

@@ -14,30 +14,42 @@ outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
 :class:`StepAnalysis`.  What one rank runs:
 
   * train: the rank's chunks of the parameters and bf16 Adam moments
-    (``launch/shardings.param_specs`` by the recipe) are gathered whole by
-    ``launch/meshcomm.unshard_plan``'s all_gathers, ``make_grad_step``
-    runs on the rank's rows (global batch / data ranks), the gradients
-    are all-reduced over the batch ranks (``all_reduce_plan``) and Adam
-    updates the rank's chunks -- the spmd engine's step;
+    (``launch/shardings.param_specs`` by the recipe) are gathered by
+    ``launch/meshcomm.unshard_plan``'s all_gathers -- a leaf that
+    ``shardings.tp_roles`` finds ``column`` or ``row`` over its data axes
+    only, keeping its ``"model"`` chunk, any other whole --
+    ``make_grad_step`` runs on the rank's rows (global batch / data ranks)
+    inside ``launch.tensor_parallel.model_parallel`` over a counting model
+    group (its collectives recorded, nothing sent), a MoE block's loads
+    summed over the batch ranks, the gradients are all-reduced over the
+    batch ranks (``all_reduce_plan``) and Adam updates the rank's chunks
+    -- the spmd engine's step;
   * prefill: ``backbone_forward`` on the rank's rows (``--last-token-heads``
-    as JAX's ``prefill_step``);
-  * decode: ``make_serve_step`` on the rank's slots.  ``ServeSession(mesh=)``
-    raises today (ROADMAP.md item 9b): serving records hold the whole tree
-    on every rank (``"placement": "replicated (ROADMAP 9b)"``).
+    as JAX's ``prefill_step``) with the weights ``ServeSession``'s
+    ``RankPlacement`` gathers a tick;
+  * decode: ``make_serve_step`` on the rank's slots, with its chunks of
+    the weights and of the slot-paged cache as ``RankPlacement`` holds and
+    gathers them (rings split over ``"model"`` combined by a counting
+    gather).
 
 Per rank the record gives persistent bytes (parameter and optimizer
-chunks, or the whole tree and the rank's cache slots), the bytes gathered
-per step, the traced peak above them and the total, whether that fits the
-card (``--hbm-bytes``, default the H100's 80 GB), the analysis' FLOPs,
-site FLOPs, op-level HBM bytes and collectives, ``replicated_over_model``
-(the ``"model"`` ranks that repeat this compute: the port shards storage
-over ``"model"``, not compute, ROADMAP.md item 9b) and the trace seconds.
+chunks, or the parameter and cache chunks), the bytes gathered per step
+or tick (``weight_gathered_bytes``: of them, the weights'), the
+tensor-parallel collectives (``tp_collectives``), the traced peak above
+the persistent bytes and the total, whether that fits the card
+(``--hbm-bytes``, default the H100's 80 GB), the analysis' FLOPs, site
+FLOPs, op-level HBM bytes and collectives, ``replicated_over_model`` and
+the trace seconds.  ``replicated_over_model`` is measured: one rank's
+product FLOPs (:func:`product_flops`) over its model group's whole step's
+product FLOPs divided by the model axis' size (a second trace, on whole
+weights): 1 where every product splits, the model size where none does.
 An arch x shape that raises is a record with ``"status": "error"`` and
 its traceback.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -48,6 +60,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import configs as configs_mod
+from repro_torch.api.serve_session import (_RING_KEYS, serve_placement,
+                                           tick_gather_spec)
 from repro_torch.launch.meshcomm import (all_reduce_plan, chunk_shapes,
                                          plan_bytes, unshard_plan)
 from repro_torch.config import (INPUT_SHAPES, SHAPES_BY_NAME, ModelConfig,
@@ -58,9 +72,15 @@ from repro_torch.kernels import sites
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.inputs import (abstract_params, serve_input_specs,
                                        train_input_specs)
+from repro_torch.launch import tensor_parallel as tp_mod
 from repro_torch.launch.mesh import axis_sizes, batch_axes, production_mesh_spec
+from repro_torch.launch.meshcomm import _axes
 from repro_torch.launch.step_analysis import StepAnalysis
+from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
+from repro_torch.models.attention import RingPart, ShardedRing
 from repro_torch.models.backbone import backbone_forward
+from repro_torch.models.heads import whole_logits
+from repro_torch.models.sync_stats import synced_batch_stats
 from repro_torch.optim import adam_update
 from repro_torch.optim.adam import AdamState
 from repro_torch.tree import tree_leaves, tree_map
@@ -122,25 +142,55 @@ def _chunk_of(t: torch.Tensor, shape) -> torch.Tensor:
     return out if out is t else out.clone()
 
 
-def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
-                rec):
-    """Traces one rank's train step; fills ``rec`` with the persistent and
-    gathered bytes; returns the analysis."""
+def _placement(cfg, params_abs, mesh, recipe):
+    """One rank's placement of the parameter tree: ``(stored chunks,
+    compute shapes, the weight gathers of a step or tick, model group)``.
+    A leaf that ``shardings.tp_roles`` finds ``column`` or ``row`` keeps
+    its ``"model"`` chunk for compute and is gathered over its other axes
+    only; any other is gathered whole (``launch/meshcomm.unshard_plan``).
+    The model group counts its collectives and sends nothing."""
     sizes = axis_sizes(mesh)
+    specs = sh.port_specs(sh.param_specs(sh.jax_layout(params_abs, cfg),
+                                         cfg, mesh, recipe), params_abs, cfg)
+    roles = sh.tp_roles(params_abs, specs, mesh, cfg, recipe)
+    cspecs = sh.map_with_path(
+        lambda p, _: sh.compute_spec(sh._lookup(specs, p),
+                                     sh._lookup(roles, p), recipe.tp_axis),
+        params_abs)
+    chunks = chunk_shapes(params_abs, specs, sizes, lead=0)
+    kept = sh.map_with_path(
+        lambda p, _: tuple(None if e == c else e for e, c in zip(
+            sh._lookup(specs, p), sh._lookup(cspecs, p))), params_abs)
+    compute = chunk_shapes(params_abs, kept, sizes, lead=0)
+    gathers = [g for plan in unshard_plan(chunks, cspecs, sizes, lead=0)
+               for g in plan]
+    P = sizes.get(recipe.tp_axis, 1)
+    group = ModelGroup(None, P, 0) if P > 1 else None
+    return chunks, compute, gathers, group
+
+
+def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
+                rec, tp: bool = True):
+    """Traces one rank's train step; fills ``rec`` with the persistent and
+    gathered bytes; returns the analysis.  ``tp=False`` traces the step
+    its model group computes, on whole weights and without collectives
+    (``replicated_over_model`` reads it)."""
+    sizes = axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in batch_axes(mesh))
     params_abs = abstract_params(cfg)
-    pspecs = sh.port_specs(sh.param_specs(sh.jax_layout(params_abs, cfg),
-                                          cfg, mesh, recipe), params_abs, cfg)
-    chunks = chunk_shapes(params_abs, pspecs, sizes, lead=0)
+    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
+                                                 recipe)
+    if not tp:
+        compute, gathers, group = params_abs, [], None
     opt_cfg = OptimizerConfig(state_dtype=torch.bfloat16, total_steps=10_000)
     moments = tree_map(lambda t: torch.empty(t.shape, dtype=torch.bfloat16,
                                              device="meta"), chunks)
     rec["persistent_bytes"] = tree_bytes(chunks) + 2 * tree_bytes(moments)
-    gathers = [g for plan in unshard_plan(chunks, pspecs, sizes, lead=0)
-               for g in plan]
     reduces = all_reduce_plan([(t.shape, t.dtype)
-                               for t in tree_leaves(params_abs)],
-                              batch_axes(mesh), sizes)
+                               for t in tree_leaves(compute)],
+                              batch_axes(mesh), sizes) if tp else []
     rec["gathered_bytes"] = plan_bytes([gathers])
+    rec["grad_reduce_bytes"] = sum(r["bytes"] for r in reduces)
     sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
                     train=TrainConfig(seq_len=shape.seq_len,
                                       batch_size=shape.global_batch,
@@ -152,12 +202,17 @@ def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
     batch = _fake_like(specs)
     p_chunks, opt = _fake_like(chunks), AdamState(
         step=0, m=_fake_like(moments), v=_fake_like(moments))
+    # a MoE block's loads summed over the batch ranks (models/moe.py)
+    loads = (synced_batch_stats(None, dp, 0)
+             if cfg.moe is not None and dp > 1
+             else contextlib.nullcontext())
     with StepAnalysis() as a:
-        # the all_gathers' outputs: the whole parameters, for this step
+        # the all_gathers' outputs: the parameters for this step
         for g in gathers:
             sites.collective("all_gather", g["bytes"])
-        params = _fake_like(params_abs)
-        grads, _ = grad_step(params, batch)
+        params = _fake_like(compute)
+        with model_parallel(group), loads:
+            grads, _ = grad_step(params, batch)
         del params
         for r in reduces:
             sites.collective("all_reduce", r["bytes"])
@@ -165,46 +220,128 @@ def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
                  for g, c in zip(grads, tree_leaves(chunks))]
         adam_update(p_chunks, grads, opt, opt_cfg, 1e-4)
         del grads
+    if group is not None:
+        rec["tp_collectives"] = dict(group.bytes)
     return a
 
 
-def _prefill_step(cfg, shape, rows, last_token_heads, rec):
+def _prefill_step(cfg, shape, rows, last_token_heads, mesh, recipe, rec,
+                  tp: bool = True):
+    """One rank's prefill over its rows, with its chunks and the weight
+    gathers of ``ServeSession``'s ``RankPlacement`` (``tp=False``: the
+    whole step of its model group)."""
     params_abs = abstract_params(cfg)
-    rec["persistent_bytes"] = tree_bytes(params_abs)
+    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
+                                                 recipe)
+    if not tp:
+        compute, gathers, group = params_abs, [], None
+    rec["persistent_bytes"] = tree_bytes(chunks)
+    rec["gathered_bytes"] = plan_bytes([gathers])
     specs = train_input_specs(cfg, dataclasses.replace(shape,
                                                        global_batch=rows))
     specs.pop("labels")
-    batch, params = _fake_like(specs), _fake_like(params_abs)
-    with torch.no_grad(), StepAnalysis() as a:
+    batch, params = _fake_like(specs), _fake_like(compute)
+    with torch.no_grad(), StepAnalysis() as a, model_parallel(group):
+        for g in gathers:
+            sites.collective("all_gather", g["bytes"])
         out = backbone_forward(params, cfg, tokens=batch.get("tokens"),
                                embeds=batch.get("embeds"),
                                enc=batch.get("enc"),
                                split_ids=batch["split_ids"])
         if last_token_heads:
             # serving prefill needs only the next-token position
-            ent = [softmax_entropy(e[:, -1:]) for e in out.exit_logits]
-            logits = out.logits[:, -1:]
+            ent = [softmax_entropy(whole_logits(e[:, -1:], cfg))
+                   for e in out.exit_logits]
+            logits = whole_logits(out.logits[:, -1:], cfg)
         else:
-            ent = [softmax_entropy(e) for e in out.exit_logits]
-            logits = out.logits
+            ent = [softmax_entropy(whole_logits(e, cfg))
+                   for e in out.exit_logits]
+            logits = whole_logits(out.logits, cfg)
         del out, ent, logits
+    if group is not None:
+        rec["tp_collectives"] = dict(group.bytes)
     return a
 
 
-def _decode_step(cfg, profile, shape, rows, rec):
+def _tick_cache(cfg, pool, mesh, recipe, params_abs, rows, group):
+    """A tick's cache on one rank as ``RankPlacement.working_cache`` holds
+    it: fake tensors of this rank's slots, each leaf's split dims gathered
+    but the slot dim over the batch axes and a decode ring's sequence,
+    the rings split over ``"model"`` wrapped as ``ShardedRing`` with a
+    counting gather.  Returns ``(stored chunks, the tick's gathers,
+    cache)``."""
+    sizes = axis_sizes(mesh)
+    batch_all = batch_axes(mesh)
+    _, cspecs = serve_placement(recipe, mesh, cfg, params_abs, pool)
+    stored = chunk_shapes(pool, cspecs, sizes, lead=0)
+    gspecs = sh.map_with_path(
+        lambda p, _: tick_gather_spec(p, sh._lookup(cspecs, p), batch_all),
+        pool)
+    gathers = [g for plan in unshard_plan(stored, gspecs, sizes, lead=0)
+               for g in plan]
+    kept = sh.map_with_path(
+        lambda p, _: tuple(None if e == w else e for e, w in zip(
+            sh._lookup(cspecs, p), sh._lookup(gspecs, p))), pool)
+    work = chunk_shapes(pool, kept, sizes, lead=0)
+    cache = tree_map(lambda t: torch.empty((rows,) + tuple(t.shape[1:]),
+                                           dtype=t.dtype), work)
+    for si, seg in enumerate(cache):
+        for li, layer in enumerate(seg):
+            mixer = layer["mixer"]
+            key = next((k for k in mixer if k in _RING_KEYS), None)
+            axes = () if key is None else _axes(
+                sh._lookup(cspecs, (si, li, "mixer", key))[1])
+            if axes and group is not None:
+                n = math.prod(sizes[a] for a in axes)
+                layer["mixer"] = ShardedRing(mixer, RingPart(
+                    width=mixer[key].shape[1] * n, parts=n, index=0,
+                    gather=lambda x, n=n: tp_mod.all_gather(
+                        x[None], ModelGroup(None, n, 0), 0)))
+    return stored, gathers, cache
+
+
+def _decode_step(cfg, profile, shape, rows, mesh, recipe, rec,
+                 tp: bool = True):
+    """One select tick on one rank's slots: its chunks of the weights and
+    of the slot-paged cache, the tick's gathers, the products over its
+    model group (``tp=False``: its group's whole tick on a whole
+    cache)."""
     params_abs = abstract_params(cfg)
-    specs = serve_input_specs(cfg, dataclasses.replace(shape,
-                                                       global_batch=rows))
-    rec["persistent_bytes"] = (tree_bytes(params_abs)
-                               + tree_bytes(specs["cache"]))
+    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
+                                                 recipe)
+    specs = serve_input_specs(cfg, shape)
+    if tp:
+        stored, cgathers, cache = _tick_cache(cfg, specs["cache"], mesh,
+                                              recipe, params_abs, rows,
+                                              group)
+    else:
+        compute, gathers, group = params_abs, [], None
+        stored, cgathers = specs["cache"], []
+        cache = _fake_like(serve_input_specs(
+            cfg, dataclasses.replace(shape, global_batch=rows))["cache"])
+    rec["persistent_bytes"] = tree_bytes(chunks) + tree_bytes(stored)
+    rec["gathered_bytes"] = plan_bytes([gathers + cgathers])
+    rec["weight_gathered_bytes"] = plan_bytes([gathers])
+    ins = _fake_like(serve_input_specs(
+        cfg, dataclasses.replace(shape, global_batch=rows)))
     serve = make_serve_step(StepConfig(
         model=cfg, splitee=SplitEEConfig(profile=profile)), boundary=0)
-    params, ins = _fake_like(params_abs), _fake_like(specs)
-    with torch.no_grad(), StepAnalysis() as a:
-        out = serve(params, ins["tokens"], ins["cache"], ins["cache_len"],
+    params = _fake_like(compute)
+    with torch.no_grad(), StepAnalysis() as a, model_parallel(group):
+        for g in gathers + cgathers:
+            sites.collective("all_gather", g["bytes"])
+        out = serve(params, ins["tokens"], cache, ins["cache_len"],
                     enc=ins.get("enc"))
         del out
+    if group is not None:
+        rec["tp_collectives"] = dict(group.bytes)
     return a
+
+
+def product_flops(res: dict) -> float:
+    """The products' FLOPs of an analysis: dots outside the sites and the
+    sites' model-level counts."""
+    return res["flops"] + sum(res["site_flops"].values())
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
@@ -236,33 +373,42 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
     rec["layers"] = cfg.num_layers
     mesh = mesh if mesh is not None else production_mesh_spec(
         multi_pod=multi_pod)
+    recipe = recipe or sh.default_recipe(cfg, mesh)
     sizes = axis_sizes(mesh)
     dp = math.prod(sizes[a] for a in batch_axes(mesh))
+    model = sizes.get(recipe.tp_axis, 1)
     rows = rank_rows(shape.global_batch, dp)
     rec.update(last_token_heads=last_token_heads, ranks=mesh.size,
-               rows_per_rank=rows,
-               replicated_over_model=sizes.get("model", 1))
+               rows_per_rank=rows)
     if shape.kind == "train":
-        rec["placement"] = "spmd engine step (chunks gathered whole)"
-        if cfg.moe is not None and dp > 1:
-            rec["note"] = ("the spmd engine refuses a data split of a MoE "
-                           "model (ROADMAP 9b): each rank's rows routed "
-                           "alone")
+        rec["placement"] = ("spmd engine step (tensor-parallel leaves kept "
+                            "as model chunks, the rest gathered whole)")
     else:
-        rec["placement"] = "replicated (ROADMAP 9b)"
-        rec["gathered_bytes"] = 0
+        rec["placement"] = ("ServeSession over ranks (RankPlacement: "
+                            "tensor-parallel leaves read in place, the "
+                            "rest gathered each tick)")
+
+    def trace(tp, into):
+        if shape.kind == "train":
+            return _train_step(cfg, profile, shape, rows, grad_mode,
+                               "none" if remat == "none" else "full", mesh,
+                               recipe, into, tp)
+        if shape.kind == "prefill":
+            return _prefill_step(cfg, shape, rows, last_token_heads, mesh,
+                                 recipe, into, tp)
+        return _decode_step(cfg, profile, shape, rows, mesh, recipe, into,
+                            tp)
+
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True):
-        if shape.kind == "train":
-            a = _train_step(cfg, profile, shape, rows, grad_mode,
-                            "none" if remat == "none" else "full", mesh,
-                            recipe or sh.default_recipe(cfg, mesh), rec)
-        elif shape.kind == "prefill":
-            a = _prefill_step(cfg, shape, rows, last_token_heads, rec)
-        else:
-            a = _decode_step(cfg, profile, shape, rows, rec)
-    res = a.result()
+        a = trace(True, rec)
+        res = a.result()
+        group_flops = product_flops(res) * model
+        if model > 1:
+            group_flops = product_flops(trace(False, {}).result())
     rec["trace_s"] = round(time.perf_counter() - t0, 2)
+    rec["replicated_over_model"] = (product_flops(res)
+                                    / (group_flops / model))
     rec["peak_bytes"] = res["peak_bytes"]
     rec["total_bytes"] = rec["persistent_bytes"] + res["peak_bytes"]
     rec["hbm_bytes_card"] = hbm_bytes

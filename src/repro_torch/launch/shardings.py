@@ -624,3 +624,156 @@ def _lookup(specs, path):
 
 def _drop(spec, i: int) -> Spec:
     return tuple(spec[:i]) + tuple(spec[i + 1:])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel roles: how each leaf's "model" split enters its product
+# ---------------------------------------------------------------------------
+
+
+class Role:
+    """A leaf's part in the tensor-parallel products
+    (``launch/tensor_parallel.py``): ``"column"`` (its ``"model"`` dim
+    ``dim`` is an output dim), ``"row"`` (the contracting dim), or
+    ``"gathered"`` (held whole for compute, as before: ``reason`` says
+    why).  Not a tuple or a record, so a tree of roles is walked as the
+    tree it mirrors."""
+
+    __slots__ = ("kind", "dim", "reason")
+
+    def __init__(self, kind: str, dim: Optional[int] = None,
+                 reason: str = ""):
+        self.kind, self.dim, self.reason = kind, dim, reason
+
+    @property
+    def split(self) -> bool:
+        return self.kind in ("column", "row")
+
+    def __repr__(self):
+        return f"Role({self.kind!r}, {self.dim}, {self.reason!r})"
+
+
+#: per family, per leaf name: the leaf's dims (after the lane dims) that
+#: a product splits, and how.  Attention weights (d, heads, hd) and (H,
+#: hd, d); the SwiGLU's (d, d_ff) and (d_ff, d); the embedding (V, d); a
+#: head's unembedding (d, V), split over the vocab only.
+_TP_DIMS = {
+    "attn": {"wq": {0: "row", 1: "column"}, "wk": {0: "row", 1: "column"},
+             "wv": {0: "row", 1: "column"}, "wo": {0: "row", 2: "column"},
+             "bq": {0: "column"}, "bk": {0: "column"}, "bv": {0: "column"}},
+    "mlp": {"w_gate": {0: "row", 1: "column"},
+            "w_up": {0: "row", 1: "column"},
+            "w_down": {0: "row", 1: "column"}, "b_up": {0: "column"}},
+    "embed": {"table": {0: "column"}},
+    "head": {"w": {1: "column"}},
+}
+
+#: why a family keeps its "model" chunks gathered (ROADMAP.md item 9b-4)
+_NOT_COVERED = {
+    "mla": "MLA's projections are not tensor-parallel (ROADMAP 9b-4)",
+    "rwkv6": "RWKV6 time-mix is not tensor-parallel (ROADMAP 9b-4)",
+    "mamba2": "Mamba2's projections are not tensor-parallel (ROADMAP 9b-4)",
+    "moe": "expert stacks are not tensor-parallel (ROADMAP 9b-4)",
+    "rwkv_cm": "RWKV6 channel mix is not tensor-parallel (ROADMAP 9b-4)",
+    "frontend": "the stub frontend's projector stays whole",
+    "norm": "a norm scale stays whole",
+}
+
+
+def _families(cfg, path) -> Tuple[Optional[str], str]:
+    """``(family, leaf name)`` of a leaf at ``path`` in a port tree (full
+    tree, client or server net, carry or Adam state) of a backbone."""
+    keys = [k for k in path if isinstance(k, str)]
+    name = keys[-1] if keys else ""
+    if "frontend" in keys:
+        return "frontend", name
+    if "embed" in keys:
+        return "embed", name
+    if any(k in ("head", "out", "exit_heads") for k in keys):
+        return ("head" if name == "w" else "norm"), name
+    from repro_torch.models.backbone import segment_layers
+    kind = None
+    for i, k in enumerate(path):
+        if k == "shared_attn":
+            first = cfg.block_pattern.index("shared_attn")
+            kind = ("attn", cfg.ffn_pattern[first])
+            break
+        if k == "segments" and i + 2 < len(path):
+            kind = segment_layers(cfg, path[i + 1])[path[i + 2]]
+            break
+        if isinstance(k, str) and _SEG_KEY_RE.match(k) and i + 1 < len(path):
+            kind = segment_layers(cfg, int(k[3:]))[path[i + 1]]
+            break
+    if kind is None:
+        return None, name
+    mixer, ffn = kind
+    mixer = "attn" if mixer == "shared_attn" else mixer
+    if "cross" in keys:
+        return "attn", name
+    if "mixer" in keys:
+        return mixer, name
+    if "ffn" in keys:
+        return ffn, name
+    return "norm", name
+
+
+def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
+             lead: int = 0):
+    """The :class:`Role` of every leaf of a port backbone tree (any leaves
+    with ``.shape``) placed by ``specs`` on ``mesh``: its ``"model"`` dim
+    (``recipe.tp_axis``) read against the family's products
+    (:data:`_TP_DIMS`), the ``lead`` lane dims skipped.  A leaf that a
+    product of this slice splits is ``column`` or ``row``; any other,
+    ``gathered`` with its reason.  GQA's query heads go column only where
+    each rank's heads read whole KV groups (or one KV head), and a bias
+    only beside its column-parallel weight."""
+    recipe = recipe or default_recipe(cfg, mesh)
+    ax = recipe.tp_axis
+    P = axis_sizes(mesh).get(ax, 1)
+
+    def first(path, t) -> Role:
+        spec = tuple(_lookup(specs, path))
+        dims = [d for d, e in enumerate(spec) if e == ax]
+        if not dims:
+            if any(isinstance(e, tuple) and ax in e for e in spec):
+                return Role("gathered", reason=f"split over a tuple of "
+                            f"axes {spec}")
+            return Role("gathered", reason="no dim over the model axis")
+        d = dims[0]
+        fam, name = _families(cfg, path)
+        rules = _TP_DIMS.get(fam, {}).get(name)
+        if rules is None:
+            return Role("gathered", d, _NOT_COVERED.get(
+                fam, f"{fam} leaf {name!r} is not tensor-parallel"))
+        kind = rules.get(d - lead)
+        if kind is None:
+            return Role("gathered", d, f"{name}'s dim {d - lead} over the "
+                        f"model axis enters no split product")
+        if fam == "attn" and name == "wq" and kind == "column":
+            G = cfg.num_heads // cfg.num_kv_heads
+            per = cfg.num_heads // P
+            if per % G and G % per:
+                return Role("gathered", d, f"{per} query heads a rank do "
+                            f"not read whole KV groups of {G}")
+        return Role(kind, d)
+
+    roles = map_with_path(first, tree)
+
+    def bias(path, _) -> Role:
+        r, name = _lookup(roles, path), path[-1]
+        if r.kind == "column" and name in ("bq", "bk", "bv", "b_up"):
+            w = {"bq": "wq", "bk": "wk", "bv": "wv", "b_up": "w_up"}[name]
+            if _lookup(roles, tuple(path[:-1]) + (w,)).kind != "column":
+                return Role("gathered", r.dim, f"{name} beside a {w} that "
+                            f"is not column-parallel")
+        return r
+    return map_with_path(bias, tree)
+
+
+def compute_spec(spec, role: Role, tp_axis: str = "model") -> Spec:
+    """The spec a leaf is gathered to for compute: a split leaf keeps its
+    ``tp_axis`` chunk (that entry dropped), any other is gathered
+    whole."""
+    if not role.split:
+        return tuple(spec)
+    return tuple(None if e == tp_axis else e for e in spec)

@@ -24,6 +24,20 @@ row's valid prefix that falls here, 0 where none does) and combines the
 parts' outputs by their LSEs (:func:`combine_parts`), the reduction XLA's
 partitioner emits for a contraction over a sharded dim.  No rank gathers
 the keys.
+
+Over a ``"model"`` group (``launch/tensor_parallel.py``) GQA and cross
+attention multiply with each rank's chunk of their weights.  Under
+``megatron`` ``wq``/``wk``/``wv`` are column-parallel over heads and
+``wo`` row-parallel: each rank runs the attention kernels on its query
+heads and the KV heads they read (replicated ``wk``/``wv``, where H_kv
+does not divide over the group, are computed whole and cut to those).
+Other placements (``greedy``'s ``d``-split ``wq``, a column-parallel
+``wo``) take the same products with the activations gathered or cut
+where a product needs them so.  A decode cache is written with every KV
+head; a decode over a split ring attends over all heads of this rank's
+part (the new token's q, k and v gathered over the group), and the
+output keeps this rank's heads for ``wo``; a whole cache is read for
+this rank's KV heads only.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.common import fan_in_init, init_rmsnorm, rmsnorm
 from repro_torch.models.rope import apply_rope
 
@@ -114,10 +129,39 @@ def _part_valid(cache_len: torch.Tensor, part: RingPart, width: int
     return (n_valid - part.index * width).clamp(0, width).to(torch.int32)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B,T,d) x (d,heads,hd) -> (B,T,heads,hd), one plain matrix product."""
-    d, heads, hd = w.shape
-    return (x @ w.reshape(d, heads * hd)).view(*x.shape[:2], heads, hd)
+def _project(x: torch.Tensor, w: torch.Tensor, heads: int = 0
+             ) -> Tuple[torch.Tensor, bool]:
+    """(B,T,k) x (k,heads,hd) -> ``(y, split)``: y (B,T,heads,hd), one
+    plain matrix product.  Over an active ``"model"`` group the weight
+    may be this rank's chunk of k or of the whole ``heads`` (``split``: y
+    holds this rank's heads); ``heads`` 0: the weight is held whole."""
+    k, h, hd = w.shape
+    y, split = tp.linear(x, w.reshape(k, h * hd), x.shape[-1],
+                         (heads or h) * hd)
+    return y.view(*x.shape[:2], -1, hd), split
+
+
+def _heads_for(t, split: bool, q_split: bool, heads: int, kv_heads: int):
+    """Keys or values ``t`` (B, S, kv heads or this rank's chunk, hd) as
+    the attention over the query heads reads them: whole where the
+    queries are whole, else the KV heads this rank's query heads read."""
+    if not q_split:
+        return tp.whole(t, split, dim=-2)
+    if split:                          # kv chunk r serves query chunk r
+        return t
+    g = tp.active()
+    first, n = tp.head_range(heads, kv_heads, g)
+    return tp.copy_in(t, g).narrow(-2, first, n)
+
+
+def _out_proj(out, split: bool, wo, heads: int, d: int) -> torch.Tensor:
+    """``out`` (B, T, heads or this rank's, hd) by ``wo`` (H, hd, d), held
+    whole or as this rank's chunk of H or d -> (B, T, d)."""
+    B, T = out.shape[:2]
+    h, hd, dl = wo.shape
+    y, ysplit = tp.linear(out.reshape(B, T, -1), wo.reshape(h * hd, dl),
+                          heads * hd, d, split_in=split)
+    return tp.whole(y, ysplit)
 
 
 def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -129,43 +173,58 @@ def gqa_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     tensors, e.g. the ServeSession slot pool, are updated) and attends over
     it.  ``positions`` (B, T) or (1, T); ``cache_len`` (B,) integers."""
     backend = dispatch.backend_for(cfg)
-    B, T, _ = x.shape
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    T = x.shape[1]
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    q, qs = _project(x, params["wq"], H)
+    k, ks = _project(x, params["wk"], Hkv)
+    v, vs = _project(x, params["wv"], Hkv)
     if cfg.use_qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = q + tp.local(params["bq"], q.shape[-2], dim=-2)
+        k = k + tp.local(params["bk"], k.shape[-2], dim=-2)
+        v = v + tp.local(params["bv"], v.shape[-2], dim=-2)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     part = getattr(cache, "part", None)
     if cache is not None:
+        # the cache holds every KV head
+        k, v = tp.whole(k, ks, dim=-2), tp.whole(v, vs, dim=-2)
+        ks = vs = False
         _ring_write(cache, {"k": k, "v": v}, cache_len)
     if cache is None or T >= max(2, cache["k"].shape[1]) or (
             part is not None and T > 1):
         # train, a prefill longer than the window (the ring kept the last
         # W tokens), or a prefill into a split ring (its slots [0, T) hold
         # these keys): full in-flight SWA attention
-        out = backend.attention(q, k, v, causal=True, window=cfg.sliding_window)
+        out = backend.attention(q, _heads_for(k, ks, qs, H, Hkv),
+                                _heads_for(v, vs, qs, H, Hkv), causal=True,
+                                window=cfg.sliding_window)
     elif part is not None:
-        # decode over this rank's part of the ring, combined over the parts
+        # decode over this rank's part of the ring, combined over the
+        # parts: every head (the token's q gathered over a model group),
+        # this rank's heads kept for wo
         valid = _part_valid(cache_len, part, cache["k"].shape[1])
-        out, lse = backend.attention_lse(q, cache["k"], cache["v"],
+        out, lse = backend.attention_lse(tp.whole(q, qs, dim=-2),
+                                         cache["k"], cache["v"],
                                          kv_valid=valid)
         out = combine_parts(out, lse, valid > 0, part)
-    elif T > 1:
-        # short prefill: causal over the freshly written [0, T) slots
-        # (ragged Tq < Tk: the diagonal masks slots >= T)
-        out = backend.attention(q, cache["k"], cache["v"], causal=True,
-                                window=cfg.sliding_window)
+        if qs:
+            out = tp.scatter_in(out, tp.active(), -2)
     else:
-        # decode: each row's valid ring prefix, on the device
-        n_valid = torch.clamp(cache_len + 1,
-                              max=cache["k"].shape[1]).to(torch.int32)
-        out = backend.attention(q, cache["k"], cache["v"], kv_valid=n_valid)
-    H, hd, d = params["wo"].shape
-    out = out.reshape(B, T, H * hd) @ params["wo"].reshape(H * hd, d)
-    return out.to(x.dtype), cache
+        # a whole cache, read for the KV heads this rank's queries read
+        ck = _heads_for(cache["k"], False, qs, H, Hkv)
+        cv = _heads_for(cache["v"], False, qs, H, Hkv)
+        if T > 1:
+            # short prefill: causal over the freshly written [0, T) slots
+            # (ragged Tq < Tk: the diagonal masks slots >= T)
+            out = backend.attention(q, ck, cv, causal=True,
+                                    window=cfg.sliding_window)
+        else:
+            # decode: each row's valid ring prefix, on the device
+            n_valid = torch.clamp(cache_len + 1,
+                                  max=cache["k"].shape[1]).to(torch.int32)
+            out = backend.attention(q, ck, cv, kv_valid=n_valid)
+    return _out_proj(out, qs, params["wo"], H, cfg.d_model).to(x.dtype), cache
 
 
 def _ring_write(cache: dict, new: dict, cache_len: torch.Tensor) -> None:
@@ -243,7 +302,7 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def _mla_project_q(params, x, positions, cfg):
     m = cfg.mla
     cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
-    q = _project(cq, params["w_uq"])
+    q = _project(cq, params["w_uq"])[0]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
     return q[..., :m.qk_nope_head_dim], q_rope
@@ -278,8 +337,8 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     ckv, k_rope = _mla_project_kv(params, x, positions, cfg)
 
     if cache is None or T > 1:
-        k_nope = _project(ckv, params["w_uk"])
-        v = _project(ckv, params["w_uv"])
+        k_nope = _project(ckv, params["w_uk"])[0]
+        v = _project(ckv, params["w_uv"])[0]
         logits = (torch.einsum("bthk,bshk->bhts", q_nope, k_nope)
                   + torch.einsum("bthk,bsk->bhts", q_rope, k_rope)
                   ).float() * scale
@@ -342,11 +401,10 @@ def cross_attn_forward(params: dict, x: torch.Tensor, enc: torch.Tensor,
     frontend's, projected) -> (B, T, d).  Non-causal over all S states,
     through the kernel backend: no cache, the keys and values recomputed
     from ``enc`` on every call, as the JAX package does."""
-    q = _project(x, params["wq"])
-    k = _project(enc, params["wk"])
-    v = _project(enc, params["wv"])
-    out = dispatch.backend_for(cfg).attention(q, k, v)
-    B, T = x.shape[:2]
-    H, hd, d = params["wo"].shape
-    out = out.reshape(B, T, H * hd) @ params["wo"].reshape(H * hd, d)
-    return out.to(x.dtype)
+    H = cfg.num_heads
+    q, qs = _project(x, params["wq"], H)
+    k, ks = _project(enc, params["wk"], H)
+    v, vs = _project(enc, params["wv"], H)
+    out = dispatch.backend_for(cfg).attention(
+        q, _heads_for(k, ks, qs, H, H), _heads_for(v, vs, qs, H, H))
+    return _out_proj(out, qs, params["wo"], H, cfg.d_model).to(x.dtype)

@@ -216,7 +216,8 @@ def backbone_forward(params: dict, cfg: ModelConfig, *,
     if embeds is not None and "frontend" in params:
         parts.append(frontend_mod.project(params["frontend"], embeds))
     if tokens is not None:
-        parts.append(embed(params["embed"], tokens).to(cfg.dtype))
+        parts.append(embed(params["embed"], tokens,
+                           cfg.vocab_size).to(cfg.dtype))
     x = torch.cat([t.to(cfg.dtype) for t in parts], dim=1)
     steps = torch.arange(x.shape[1], device=x.device)
     positions = (steps[None] if cache_len is None

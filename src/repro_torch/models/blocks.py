@@ -104,7 +104,7 @@ def block_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
         return x, cache, aux
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if ffn == "mlp":
-        f = mlp_forward(params["ffn"], h2, cfg)
+        f = mlp_forward(params["ffn"], h2, cfg, d_ff=cfg.d_ff)
     elif ffn == "moe":
         f, aux = moe_mod.moe_forward(params["ffn"], h2, cfg, moe_groups)
     else:

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import tensor_parallel as tp
+
 
 #: tensors of more elements are drawn in slices along their first axis
 #: (DeepSeek-V3's expert weights, (256, 7168, 2048): whole, their fp32
@@ -66,8 +68,16 @@ def init_embedding(vocab: int, d: int, dtype, generator, device) -> dict:
     return {"table": trunc_normal((vocab, d), 1.0, dtype, generator, device)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: dict, tokens: torch.Tensor, vocab: int = 0
+          ) -> torch.Tensor:
+    """Rows of ``params["table"]`` (V, d).  A table held as this rank's
+    chunk of the vocab (``vocab`` the whole V, over an active ``"model"``
+    group) looks up the ids in its range and sums the rows over the group
+    (``launch/tensor_parallel.embed_lookup``)."""
+    table = params["table"]
+    if tp.vocab_split(table.shape[0], vocab):
+        return tp.embed_lookup(table, tokens)
+    return table[tokens]
 
 
 def activation(name: str):

@@ -4,9 +4,13 @@
 The JAX package's step functions activate a context with the mesh's axis
 sizes, and model code pins hot intermediate activations (the MoE dispatch
 buffers) with ``lax.with_sharding_constraint``.  The port keeps the API
-and the rule that chooses an axis per dim (:func:`constrained_spec`).  In
-the port's spmd engine every rank holds whole local tensors and computes
-on them, so :func:`constrain` returns ``x`` itself, inside the context or
+and the rule that chooses an axis per dim (:func:`constrained_spec`).  The
+port splits its compute explicitly instead: over ``"model"`` the products
+of attention, the SwiGLU and the vocab heads run on each rank's chunks of
+their weights (``launch/tensor_parallel.py``), their activations whole or
+split along their last dim as each product needs; the MoE dispatch
+buffers and the other mixers (ROADMAP.md item 9b-4) stay whole on every
+rank.  So :func:`constrain` returns ``x`` itself, inside the context or
 not: the chosen spec says where the JAX package would place it.
 """
 from __future__ import annotations
@@ -73,6 +77,8 @@ def constrained_spec(shape, *dim_axes) -> Optional[Tuple]:
 
 
 def constrain(x, *dim_axes):
-    """``x`` placed by :func:`constrained_spec` -- in the port, whose ranks
-    hold whole local tensors, ``x`` itself."""
+    """``x`` placed by :func:`constrained_spec` -- in the port, whose
+    tensor-parallel products place their own activations
+    (``launch/tensor_parallel.py``) and whose MoE buffers stay whole on
+    every rank, ``x`` itself."""
     return x

@@ -14,6 +14,9 @@ The sum is :class:`GroupSumFn`, an autograd Function whose backward sums
 the cotangents over the same group (each rank's partial sum reaches every
 rank's loss) and whose ``vmap`` rule folds the lanes into one collective,
 so it runs inside the fused engine's ``torch.func.vmap`` over lanes.
+Each sum is recorded as an all_reduce (``kernels/sites.collective``); a
+context with no process group (the dry run's, on fake tensors) records
+and sends nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import threading
 from typing import Sequence
 
 import torch
+
+from repro_torch.kernels import sites
 
 _state = threading.local()
 
@@ -46,16 +51,22 @@ def batch_group():
     return getattr(_state, "group", None)
 
 
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    out = x.contiguous().clone()
+    sites.collective("all_reduce", out.numel() * out.element_size())
+    if group is not None and not sites.is_fake(out):
+        dist.all_reduce(out, group=group)
+    return out
+
+
 class GroupSumFn(torch.autograd.Function):
     """``x`` summed over a process group; the backward sums the cotangent
     over the same group."""
 
     @staticmethod
     def forward(x, group):
-        import torch.distributed as dist
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _summed(x, group)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -64,10 +75,7 @@ class GroupSumFn(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _summed(g, ctx.group), None
 
     @staticmethod
     def vmap(info, in_dims, x, group):

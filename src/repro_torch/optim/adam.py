@@ -100,14 +100,32 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def lane_norms(tree: Any) -> torch.Tensor:
+def lane_norms(tree: Any, split=None, reduce=None) -> torch.Tensor:
     """:func:`global_norm` of each lane of a tree of stacked leaves
     (leading lane axis): shape (lanes,), fp32.  ``None`` leaves count as
-    zero."""
-    norms = [torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
-                                      dtype=torch.float32)
-             for g in tree_leaves(tree) if g is not None]
-    return torch.linalg.vector_norm(torch.stack(norms), dim=0)
+    zero.  ``split`` (one flag per leaf) marks leaves held as this rank's
+    chunk of a tensor split over a ``"model"`` group: their squares are
+    summed over the group by ``reduce`` (an in-place all-reduce of a list
+    of tensors), the other leaves, whole and equal on every rank, counted
+    once."""
+    leaves = list(tree_leaves(tree))
+    flags = [False] * len(leaves) if split is None else list(split)
+
+    def squares(want):
+        sq = [torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
+                                       dtype=torch.float32).square()
+              for g, f in zip(leaves, flags) if g is not None and f == want]
+        return torch.stack(sq).sum(0) if sq else None
+
+    if not any(flags):
+        norms = [torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
+                                          dtype=torch.float32)
+                 for g in leaves if g is not None]
+        return torch.linalg.vector_norm(torch.stack(norms), dim=0)
+    parts = squares(True)
+    reduce([parts])
+    rest = squares(False)
+    return (parts if rest is None else parts + rest).sqrt()
 
 
 def _expand_prefix(prefix, tree):

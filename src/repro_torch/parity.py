@@ -526,6 +526,38 @@ def uncombined_parts():
         attention.combine_parts = real
 
 
+@contextmanager
+def unreduced_row_products():
+    """A control: over a ``"model"`` group each rank takes its partial
+    sum of a row-parallel product (and of the vocab-split embedding) as
+    the whole (``launch.tensor_parallel.reduce_out`` skipped), while the
+    block runs."""
+    from repro_torch.launch import tensor_parallel as tp
+    real = tp.reduce_out
+    tp.reduce_out = lambda x, g: x
+    try:
+        yield
+    finally:
+        tp.reduce_out = real
+
+
+@contextmanager
+def per_rank_sumexp():
+    """A control: the vocab-parallel cross entropy takes each rank's sum
+    of exponentials over its own chunk of the vocab as the whole row's
+    (the gold logit still summed), while the block runs."""
+    from repro_torch.launch import tensor_parallel as tp
+    real = tp._sumexp_and_gold
+
+    def per_rank(both, g):
+        return torch.stack([both[0], real(both, g)[1]])
+    tp._sumexp_and_gold = per_rank
+    try:
+        yield
+    finally:
+        tp._sumexp_and_gold = real
+
+
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card
 # tests): BackboneSplitModel on the bf16 smokes at full head width, two
 # lanes at each of glm4-9b's cuts 1 and 2, three at rwkv6-3b's one cut 2,

@@ -4,9 +4,13 @@ stand-ins against ``repro.launch.inputs``, the fake path of the kernel
 wrappers (nothing launched, the card's output layouts), a fake trace
 against a real CPU run of the same step, the peak of a hand-built region,
 and ``dryrun.run_one`` on four architectures at their published widths,
-depth cut.  The counts against the JAX package's HLO are
+depth cut, with two of its records' repairs: a MoE train record with a
+data split counts its summed expert loads, and a serving record counts
+what ``ServeSession``'s ``RankPlacement`` gathers a tick.  The counts against the JAX package's HLO are
 tests/test_torch_dryrun.py's.
 """
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -28,9 +32,16 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_dkv,
                                                  flash_attention_bwd_dq)
 from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd, rwkv_wkv_fwd
+from repro_torch.api.serve_session import serve_placement
 from repro_torch.launch import dryrun
 from repro_torch.launch import inputs as tinputs
+from repro_torch.launch import shardings as tsh
+from repro_torch.launch.e2e_train import cut_depth
+from repro_torch.launch.inputs import abstract_params
+from repro_torch.launch.mesh import MeshSpec, axis_sizes
+from repro_torch.launch.meshcomm import chunk_shapes, plan_bytes, unshard_plan
 from repro_torch.launch.shardings import jax_layout, tree_paths
+from repro_torch.models.backbone import init_cache
 from repro_torch.launch.step_analysis import StepAnalysis
 from repro_torch.optim import adam as tadam
 from repro_torch.tree import tree_map
@@ -252,27 +263,87 @@ def test_peak_of_a_hand_built_region_is_exact():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _record(arch: str, shape: str, recipe: str = "greedy") -> dict:
+    """``run_one`` at published widths, depth cut to 4 layers, on the
+    production mesh (one trace per arguments for the module)."""
+    return dryrun.run_one(arch, shape, layers=4,
+                          recipe=dryrun.RECIPES[recipe])
+
+
 @pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-moe-235b-a22b",
                                   "rwkv6-3b", "whisper-small"])
 def test_run_one_records(arch):
     """``run_one`` at published widths (depth cut to 4 layers) on the
     production mesh: train and decode records are ``"ok"`` with the per
-    rank fields; whisper's ``long_500k`` is ``"skipped"``."""
+    rank fields, ``replicated_over_model`` measured between 1 and the
+    model axis' 16, and the all_gathers traced are the planned weight
+    (and cache) gathers beside the tensor-parallel ones; whisper's
+    ``long_500k`` is ``"skipped"``."""
     for shape in ("train_4k", "decode_32k"):
-        rec = dryrun.run_one(arch, shape, layers=4)
+        rec = _record(arch, shape)
         assert rec["status"] == "ok", rec
         assert rec["rows_per_rank"] == tconfig.SHAPES_BY_NAME[
             shape].global_batch // 16
-        assert rec["replicated_over_model"] == 16
+        assert 1 <= rec["replicated_over_model"] <= 16
         assert rec["total_bytes"] == rec["persistent_bytes"] + rec[
             "peak_bytes"]
         assert rec["flops_per_rank"] > 0 and rec["analysis"]["site_calls"]
+        gathered = rec["analysis"]["collectives"]["all_gather"]["bytes"]
+        assert rec["gathered_bytes"] > 0
         if shape == "train_4k":
-            assert rec["gathered_bytes"] > 0
-            assert rec["analysis"]["collectives"]["all_gather"]["bytes"] == (
-                rec["gathered_bytes"])
+            assert gathered == (rec["gathered_bytes"]
+                                + rec["tp_collectives"]["all_gather"])
         else:
-            assert rec["placement"] == "replicated (ROADMAP 9b)"
+            assert rec["placement"].startswith("ServeSession over ranks")
+            assert gathered >= (rec["gathered_bytes"]
+                                + rec["tp_collectives"]["all_gather"])
             assert rec["analysis"]["site_calls"]["gate"] == 1
     if arch == "whisper-small":
         assert dryrun.run_one(arch, "long_500k")["status"] == "skipped"
+
+
+def test_moe_train_record_counts_the_summed_loads():
+    """A MoE train record with a data split carries no refusal note, and
+    its all_reduces are the gradients', the tensor-parallel products' and
+    the expert loads summed over the batch ranks (a dense record has
+    none of the last)."""
+    moe = _record("qwen3-moe-235b-a22b", "train_4k")
+    dense = _record("glm4-9b", "train_4k")
+    for rec, loads in ((moe, True), (dense, False)):
+        assert rec["status"] == "ok", rec
+        assert "note" not in rec
+        reduced = rec["analysis"]["collectives"]["all_reduce"]["bytes"]
+        rest = rec["grad_reduce_bytes"] + rec["tp_collectives"]["all_reduce"]
+        print(f"reading {rec['arch']}: all_reduce {reduced:.0f} bytes, "
+              f"gradients + tensor-parallel {rest:.0f}")
+        assert (reduced > rest) if loads else (reduced == rest)
+
+
+@pytest.mark.parametrize("recipe", ["greedy", "megatron"])
+def test_serving_records_count_what_a_tick_gathers(recipe):
+    """A decode record's persistent bytes are a rank's chunks of the
+    weights and the cache, and its gathered bytes are what
+    ``RankPlacement`` gathers a tick: the weights that are not
+    tensor-parallel, whole (the split leaves over their other axes)."""
+    cfg, _ = cut_depth(dryrun.arch_config("glm4-9b", "decode_32k"), 4)
+    rc = dryrun.RECIPES[recipe] or tsh.ShardingRecipe()
+    rec = _record("glm4-9b", "decode_32k", recipe)
+    params = abstract_params(cfg)
+    mesh = MeshSpec((16, 16), ("data", "model"))
+    sizes = axis_sizes(mesh)
+    pspecs, _ = serve_placement(rc, mesh, cfg, params,
+                                init_cache(cfg, 8, 16, cfg.dtype, "meta"))
+    roles = tsh.tp_roles(params, pspecs, mesh, cfg, rc)
+    cspecs = tsh.map_with_path(lambda p, _: tsh.compute_spec(
+        tsh._lookup(pspecs, p), tsh._lookup(roles, p)), params)
+    chunks = chunk_shapes(params, pspecs, sizes, lead=0)
+    want = plan_bytes(unshard_plan(chunks, cspecs, sizes, lead=0))
+    print(f"reading glm4-9b decode {recipe}: weights gathered a tick "
+          f"{rec['weight_gathered_bytes']:,}, all {rec['gathered_bytes']:,}"
+          f", persistent {rec['persistent_bytes']:,}")
+    assert rec["weight_gathered_bytes"] == want > 0
+    assert rec["gathered_bytes"] >= want
+    whole = sum(t.numel() * t.element_size()
+                for _, t in tsh.tree_paths(params))
+    assert rec["persistent_bytes"] < whole

@@ -26,6 +26,7 @@ six requests on four slots (mid-stream admissions), all fp32.  Limits:
     whole, must part from the references.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ import pytest
 import torch
 
 import torch_serve_legs as legs
+import torch_tp_legs as tl
 from repro import configs as jconfigs
 from repro.api.serve_session import ServeSession as JaxServeSession
 from repro.config import ModelConfig as JModelConfig
@@ -55,11 +57,18 @@ from repro_torch.tree import tree_leaves
 from repro_torch.parity import TIE_GAP_F32, TOL_H_F32, stream_parity
 
 TOL_H_DATA = 1e-5
+#: threads for the JAX package's inits and sessions (each compiles its
+#: own small programs for most of its time)
+JAX_THREADS = 4
 JAX_IDS = {"glm4": "glm4-9b", "rwkv6": "rwkv6-3b",
-           "deepseek": "deepseek-v3-671b", "qwen3": "qwen3-moe-235b-a22b"}
+           "deepseek": "deepseek-v3-671b", "qwen3": "qwen3-moe-235b-a22b",
+           "whisper": "whisper-small"}
 #: the (config, policy) pairs also served by the JAX package's session
 NAMES = list(legs.CONFIGS) + list(legs.SPLIT_ONLY)
-JAX_SERVED = [(n, "select") for n in NAMES] + [("glm4", "sticky")]
+#: served only by the tensor-parallel legs (cross attention)
+TP_ONLY = ["whisper"]
+JAX_SERVED = ([(n, "select") for n in NAMES + TP_ONLY]
+              + [("glm4", "sticky")])
 CASES = [(w, c) for w in (2, 4) for c in legs.cases(w)]
 
 
@@ -104,9 +113,15 @@ def refs(tmp_path_factory):
     out = {"jcfg": {}, "jparams": {}}
     inputs = {"params": {}, "cfg": {}, "tau": {},
               "tmp": str(tmp_path_factory.mktemp("serve-ranks"))}
-    for name in NAMES:
+
+    def init(name):
         jcfg = _jax_cfg(name)
-        jp = jax_init_backbone(jax.random.PRNGKey(0), jcfg)
+        return jcfg, jax_init_backbone(jax.random.PRNGKey(0), jcfg)
+
+    # the JAX inits compile their ops for most of their time: in threads
+    with ThreadPoolExecutor(JAX_THREADS) as pool:
+        inits = dict(zip(NAMES + TP_ONLY, pool.map(init, NAMES + TP_ONLY)))
+    for name, (jcfg, jp) in inits.items():
         cfg = config_from_jax(jcfg)
         params = params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                                  device="cpu")
@@ -126,10 +141,40 @@ def refs(tmp_path_factory):
     return out
 
 
+def _jax_session(out, inputs, name, policy):
+    """The JAX package's session on a 1x1 mesh, "greedy"."""
+    from jax.sharding import Mesh
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    js = JaxServeSession(out["jcfg"][name], out["jparams"][name],
+                         tau=inputs["tau"][name], slots=legs.SLOTS,
+                         max_len=legs.MAX_LEN, exit_policy=policy,
+                         mesh=mesh, recipe="greedy")
+    for p in legs.prompts(name, inputs["cfg"][name]):
+        js.submit(p, decode_tokens=legs.DECODE)
+    return _streams(js.run())
+
+
 def _references(inputs, out):
     """Per (config, policy, slots): the port's one-rank session and its
-    sequential references; per JAX_SERVED pair, the JAX session."""
-    one, seq, jax_res = {}, {}, {}
+    sequential references; per JAX_SERVED pair, the JAX session (in
+    threads beside the port's, each session alone)."""
+    pool = ThreadPoolExecutor(JAX_THREADS)
+    jax_runs = {pair: pool.submit(_jax_session, out, inputs, *pair)
+                for pair in JAX_SERVED}
+    one, seq = {}, {}
+    for name in TP_ONLY:
+        cfg, params = inputs["cfg"][name], inputs["params"][name]
+        s = ServeSession(cfg, params, tau=inputs["tau"][name],
+                         slots=legs.SLOTS, max_len=legs.MAX_LEN,
+                         device="cpu")
+        for p in legs.prompts(name, cfg):
+            s.submit(p, legs.DECODE)
+        one[name, "select", legs.SLOTS] = _streams(s.run())
+        seq[name, "select"] = [
+            sequential_reference(cfg, params, p, legs.DECODE,
+                                 tau=inputs["tau"][name],
+                                 max_len=legs.MAX_LEN, device="cpu")
+            for p in legs.prompts(name, cfg)]
     for name in NAMES:
         cfg, params = inputs["cfg"][name], inputs["params"][name]
         tau = inputs["tau"][name]
@@ -147,17 +192,8 @@ def _references(inputs, out):
                 for p in ps:
                     s.submit(p, legs.DECODE)
                 one[name, policy, slots] = _streams(s.run())
-    for name, policy in JAX_SERVED:
-        from jax.sharding import Mesh
-        mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                    ("data", "model"))
-        js = JaxServeSession(out["jcfg"][name], out["jparams"][name],
-                             tau=inputs["tau"][name], slots=legs.SLOTS,
-                             max_len=legs.MAX_LEN, exit_policy=policy,
-                             mesh=mesh, recipe="greedy")
-        for p in legs.prompts(name, inputs["cfg"][name]):
-            js.submit(p, decode_tokens=legs.DECODE)
-        jax_res[name, policy] = _streams(js.run())
+    jax_res = {pair: f.result() for pair, f in jax_runs.items()}
+    pool.shutdown()
     return {"one": one, "seq": seq, "jax": jax_res}
 
 
@@ -355,3 +391,60 @@ def test_weight_gather_plan_at_published_widths(shape, layers):
     print(f"reading glm4-9b {layers} layers {shape}: whole {whole:,} bytes, "
           f"stored a rank {stored:,}, gathered a tick {gathered:,}")
     assert gathered == whole - stored > 0
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model" (tests/torch_tp_legs.py, served in these
+# worlds: (1, 2) on 2 ranks, (2, 2) on 4)
+# ---------------------------------------------------------------------------
+
+TP_CASES = [(w, c) for w in (2, 4) for c in tl.serve_cases(w)]
+
+
+def _tp(refs, world, cid, rank=0):
+    res = refs["ranks"][world][rank]["tp"][cid]
+    assert "error" not in res, res["error"]
+    return res
+
+
+@pytest.mark.parametrize("world,case", TP_CASES,
+                         ids=[f"w{w}-{c[0]}" for w, c in TP_CASES])
+def test_tp_serves_the_one_rank_and_jax_sessions(refs, world, case):
+    """Every rank's streams under tensor-parallel products: tokens and gate
+    decisions equal to the port's one-rank session, entropies within
+    1e-5, and the JAX package's session's, parting only at a near tie of
+    the port's plain logits."""
+    cid, name, _, _, policy = case
+    got = _tp(refs, world, cid)["results"]
+    _same_streams(got, refs["one"][name, policy, legs.SLOTS], "one-rank",
+                  TOL_H_DATA)
+    for r in range(1, world):
+        assert _tp(refs, world, cid, r)["results"] == got, r
+    want = refs["jax"][name, policy]
+    for rid in want:
+        g, w = got[rid], want[rid]
+        for i, (a, b) in enumerate(zip(g[0], w[0])):
+            if i:
+                assert g[1][i - 1] == w[1][i - 1], (rid, i)
+                assert abs(g[2][i - 1] - w[2][i - 1]) <= 1e-4, (rid, i)
+            if a != b:
+                assert refs["seq"][name, policy][rid].top2_gap[i] < \
+                    TIE_GAP_F32, (rid, i)
+                break
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_ticks_gather_no_covered_weight(refs, world):
+    """Under megatron every leaf of the glm4-9b smoke that the model axis
+    splits is tensor-parallel: on (1, 2) a tick gathers no weight at all,
+    on (2, 2) only over "data"; the tensor-parallel collectives move
+    bytes every tick."""
+    m = "x".join(map(str, tl.MESH[world]))
+    res = _tp(refs, world, f"tp-glm4-{m}-megatron-select")
+    print(f"reading tp serve w{world}: weights gathered a tick "
+          f"{res['weights_per_tick']:.0f}, tensor-parallel bytes a tick "
+          f"{res['tp_per_tick']:.0f}, roles {res['kinds']}")
+    assert res["tp_per_tick"] > 0
+    assert "column" in res["kinds"] and "row" in res["kinds"]
+    if world == 2:
+        assert res["weights_per_tick"] == 0

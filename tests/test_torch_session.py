@@ -40,6 +40,7 @@ Tolerances (``docs/ENGINES.md`` sets 1e-5 for engines of one package):
   * evaluation: accuracies and client ratios equal, mean entropies 1e-5.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -148,10 +149,21 @@ def _trained(setup, strategy, jax_model, compiled):
                                     augment=setup["augment"])
         js.engine._cstep, js.engine._sstep, js._evaluator._fns = compiled
         start = split_state_from_jax(js.state, setup["port"])
-        ts = TrainSession(setup["port"], tsc, toc, setup["data"], BATCH,
-                          engine="reference", augment=setup["augment"],
-                          state=start)
-        jh, th = js.run(ROUNDS, EPOCHS), ts.run(ROUNDS, EPOCHS)
+    ts = TrainSession(setup["port"], tsc, toc, setup["data"], BATCH,
+                      engine="reference", augment=setup["augment"],
+                      state=start)
+
+    def jax_run():
+        with jax.enable_x64(setup["x64"]):        # a thread's own setting
+            return js.run(ROUNDS, EPOCHS)
+
+    # the two sessions share nothing: the JAX one (compiling for most of
+    # its time) in a thread beside the port's
+    with ThreadPoolExecutor(1) as pool:
+        jax_history = pool.submit(jax_run)
+        th = ts.run(ROUNDS, EPOCHS)
+        jh = jax_history.result()
+    with jax.enable_x64(setup["x64"]):
         want = split_state_from_jax(js.state, setup["port"])
         evals = {"plain": js.evaluate(x, y, batch_size=EVAL_BATCH)}
         if strategy != "distributed":

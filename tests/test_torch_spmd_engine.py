@@ -14,12 +14,17 @@ leg fails its own tests only.  Limits:
   * the float64 ResNet with BatchNorm under a data split: 1e-6 against the
     JAX fused engine, and the same run with per-rank statistics must miss
     it;
-  * the population run: tests/test_torch_population.py's MLP bound, 1e-5.
+  * the population run: tests/test_torch_population.py's MLP bound, 1e-5;
+  * tensor parallelism over "model" (the glm4-9b smoke, fp32, on (1, 2)
+    and (2, 2) under megatron and greedy; tests/torch_tp_legs.py): the
+    step and two rounds of the session against the one-rank port at 1e-5,
+    and two planted faults that must miss.
 
 The refusals (``SpmdEngine.supports``) are compared with the JAX engine's
 in this process, on device-free ``MeshSpec``s.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -172,16 +177,29 @@ def refs(tmp_path_factory):
 
     ranks = {w: HostRanks(w, legs.run_legs, (w, dict(out)), device="cpu",
                           timeout=900) for w in (2, 4)}
-    try:
+
+    def mlp():
         js.train(legs.MLP_ROUNDS)
-        out["mlp_want"] = (_jax_keyed(js.state), _jhist(js.history))
-        with jax.enable_x64(True):
+        return _jax_keyed(js.state), _jhist(js.history)
+
+    def resnet():
+        with jax.enable_x64(True):          # a thread's own setting
             jr.train(legs.RES_ROUNDS)
-            out["res_want"] = (_jax_keyed(jr.state), _jhist(jr.history))
+            return _jax_keyed(jr.state), _jhist(jr.history)
+
+    def pop():
         jp.train(legs.POP_ROUNDS, legs.POP_EPOCHS, chunk_rounds=4)
-        out["pop_want"] = (_jax_keyed(jp.state), _jhist(jp.history))
-        # the port's fused engine on the tiny dense backbone
-        out["backbone_want"] = legs.backbone_run("fused")
+        return _jax_keyed(jp.state), _jhist(jp.history)
+
+    try:
+        # the references, each run alone in a thread of its own (the JAX
+        # runs compile for most of their time), and the port's fused
+        # engine on the tiny dense backbone
+        with ThreadPoolExecutor(3) as pool:
+            runs = {k: pool.submit(f) for k, f in (
+                ("mlp_want", mlp), ("res_want", resnet), ("pop_want", pop))}
+            out["backbone_want"] = legs.backbone_run("fused")
+            out.update({k: f.result() for k, f in runs.items()})
     finally:
         out["ranks"] = {w: [r for _, r in h.wait()] for w, h in ranks.items()}
     return out
@@ -445,3 +463,131 @@ def test_unknown_recipe_dies_at_the_facade():
         SessionContext(legs.mlp_model(), *legs.mlp_configs(),
                        legs.mlp_data(), 32, recipe="nope")
 
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model" (tests/torch_tp_legs.py, run in these
+# worlds: (1, 2) on 2 ranks, (2, 2) on 4)
+# ---------------------------------------------------------------------------
+
+TOL_TP = 1e-5
+
+
+def _tp(runs, name, rank=0):
+    world, ranks = runs
+    res = ranks[rank]["tp"][name]
+    assert "error" not in res, res["error"]
+    return world, res
+
+
+@pytest.mark.parametrize("recipe", ["megatron", "greedy"])
+def test_tp_step_matches_one_rank(runs, recipe):
+    """On every rank the tensor-parallel train step's client and server
+    losses and every gradient (its chunks gathered) equal the one-rank
+    step's, the clip norm of the chunks equals the whole gradients', and
+    the vocab-parallel accuracy finds the whole logits' argmax."""
+    world, ranks = runs
+    for r in range(world):
+        _, res = _tp(runs, f"step-{recipe}", r)
+        gaps = {k: abs(res["metrics"][k] - res["want_metrics"][k])
+                for k in res["want_metrics"]}
+        gaps["gradients"] = res["grad_gap"]
+        gaps["clip norm (relative)"] = res["norm_gap"]
+        if r == 0:
+            _reading(f"tp step {recipe}", world, gaps)
+        assert max(gaps.values()) <= TOL_TP, (r, gaps)
+        assert res["tp_bytes"]["all_reduce"] > 0
+        # the accuracy over vocab-split logits: every argmax found
+        assert res["logits_split"] and res["argmax_hits"] == 1.0, r
+
+
+@pytest.mark.parametrize("recipe", ["megatron", "greedy"])
+def test_tp_session_matches_one_rank(runs, refs, recipe):
+    """Two rounds of ``TrainSession`` over the model mesh equal the port's
+    one-rank fused run (Adam states included), every rank holds the same
+    state, and a step gathers exactly what the plan says: on (1, 2) no
+    weight at all (every split leaf's chunk is read in place)."""
+    world, res = _tp(runs, f"session-{recipe}")
+    want = refs["backbone_want"]
+    gaps = {"state": _gap(res["state"], want["state"]),
+            "losses": _loss_gap(res["history"], want["history"])}
+    _reading(f"tp session {recipe}", world, gaps)
+    assert res["engine"] == "spmd"
+    assert max(gaps.values()) <= TOL_TP, gaps
+    for r in range(1, world):
+        other = _tp(runs, f"session-{recipe}", r)[1]
+        assert _gap(other["state"], res["state"]) == 0.0, r
+        assert other["history"] == res["history"], r
+    assert res["gathered"] == res["planned"]
+    if world == 2:
+        assert res["gathered"] == 0
+    assert res["tp_bytes"] > 0
+
+
+def test_tp_clip_norm_sums_the_split_leaves(runs):
+    """With a clip norm that clips, the tensor-parallel session equals the
+    one-rank fused run: the norm sums the split leaves' squares over the
+    model group and counts the whole leaves once."""
+    world, res = _tp(runs, "clip")
+    gaps = {"state": _gap(res["spmd"]["state"], res["fused"]["state"]),
+            "losses": _loss_gap(res["spmd"]["history"],
+                                res["fused"]["history"])}
+    _reading("tp clip", world, gaps)
+    assert max(gaps.values()) <= TOL_TP, gaps
+
+
+@pytest.mark.parametrize("fault", ["fault-row", "fault-sumexp"])
+def test_tp_planted_faults_are_rejected(runs, fault):
+    """A row-parallel output left un-reduced, and a vocab-parallel cross
+    entropy whose sum of exponentials is left per rank: the step
+    comparison must miss on some rank."""
+    world, ranks = runs
+    worst = 0.0
+    for r in range(world):
+        _, res = _tp(runs, fault, r)
+        gaps = [abs(res["metrics"][k] - res["want_metrics"][k])
+                for k in res["want_metrics"]] + [res["grad_gap"]]
+        worst = max(worst, max(gaps))
+    _reading(f"tp {fault}", world, {"worst": worst})
+    assert worst > TOL_TP
+
+
+@pytest.mark.parametrize("recipe", ["megatron", "greedy"])
+def test_tp_fake_trace_counts_the_real_step(runs, recipe):
+    """The dry run's trace of the tensor-parallel step on fake tensors (a
+    counting model group, nothing sent) counts the FLOPs, the kernel
+    sites and the collectives that rank 0's real step counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import torch_tp_legs as tl
+    from repro_torch.core.spmd import make_grad_step
+    from repro_torch.launch import tensor_parallel as tpm
+    from repro_torch.launch.shardings import (_lookup, jax_layout,
+                                              map_with_path, param_specs,
+                                              port_specs, resolve_recipe,
+                                              tp_roles)
+    from repro_torch.launch.step_analysis import StepAnalysis
+    world, res = _tp(runs, f"step-{recipe}")
+    cfg, params, batch, sc = tl.step_setup()
+    mesh = MeshSpec(tl.MESH[world], tl.DM)
+    rc = resolve_recipe(recipe)
+    specs = port_specs(param_specs(jax_layout(params, cfg), cfg, mesh, rc),
+                       params, cfg)
+    roles = tp_roles(params, specs, mesh, cfg, rc)
+    g = tpm.ModelGroup(None, 2, 0)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        local = map_with_path(lambda p, t: torch.empty(
+            [n // 2 if _lookup(roles, p).split and d == _lookup(
+                roles, p).dim else n for d, n in enumerate(t.shape)],
+            dtype=t.dtype), params)
+        fake_batch = {k: torch.empty(v.shape, dtype=v.dtype)
+                      for k, v in batch.items()}
+        with StepAnalysis() as a, tpm.model_parallel(g):
+            make_grad_step(sc)(local, fake_batch)
+    fake, real = a.result(), res["analysis"]
+    print(f"reading tp fake vs real {recipe} world {world}: flops "
+          f"{fake['flops']:.0f} / {real['flops']:.0f}, collectives "
+          f"{fake['collectives']} / {real['collectives']}")
+    for key in ("flops", "site_flops", "site_calls", "collectives"):
+        assert fake[key] == real[key], key
+    assert fake["collectives"]["all_reduce"]["bytes"] > 0

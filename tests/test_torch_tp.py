@@ -1,0 +1,146 @@
+"""Tensor-parallel compute over the mesh's "model" axis
+(``repro_torch.launch.tensor_parallel``, ``shardings.tp_roles``) on the
+CPU, in one process: the role of every leaf held against the JAX
+package's ``param_specs``, and the dry run's ``replicated_over_model``
+(its two repairs are tests/test_torch_dryrun_trace.py's).  The spawned
+legs (``tests/torch_tp_legs.py``) run in
+the worlds that tests/test_torch_spmd_engine.py and
+tests/test_torch_serve_ranks.py already spawn, and are checked there.
+"""
+import jax
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro import configs as jconfigs
+from repro.launch import mesh as jmesh
+from repro.launch import shardings as jsh
+from repro.models.backbone import init_backbone as jinit_backbone
+from repro_torch import configs as tconfigs
+from repro_torch.launch import dryrun
+from repro_torch.launch import shardings as tsh
+from repro_torch.launch.inputs import abstract_params
+from repro_torch.launch.mesh import MeshSpec
+
+DM = ("data", "model")
+MESHES = [(1, 2), (2, 2), (16, 16)]
+SMOKES = ["glm4-9b", "paligemma-3b", "whisper-small"]
+
+
+def _port_specs_of_jax(jspecs, jparams, params, cfg):
+    """The JAX package's spec of every port leaf: its specs, padded to
+    each leaf's rank, mapped back through ``port_specs``."""
+    ps = jax.tree.leaves(jspecs, is_leaf=lambda s: isinstance(s, P))
+    flat = jax.tree.leaves(jparams)
+    padded = iter([tuple(p) + (None,) * (len(leaf.shape) - len(tuple(p)))
+                   for p, leaf in zip(ps, flat)])
+    layout = tsh.jax_layout(params, cfg)
+    tree = tsh.map_with_path(lambda _, t: next(padded), layout)
+    return tsh.port_specs(tree, params, cfg)
+
+
+@pytest.mark.parametrize("recipe", ["greedy", "megatron", "hybrid"])
+@pytest.mark.parametrize("arch", SMOKES)
+def test_roles_follow_the_jax_specs(arch, recipe):
+    """Each dense, VLM and audio smoke on (1, 2), (2, 2) and the
+    production mesh: every ``column``/``row`` leaf has the JAX spec its
+    role implies (its dim over "model"), every ``gathered`` leaf says
+    why, and the split products exist on every mesh but the production
+    one (whose 16-way axis divides few smoke dims)."""
+    jcfg = jconfigs.get(arch).smoke()
+    cfg = tconfigs.get(arch).smoke()
+    jparams = jax.eval_shape(lambda: jinit_backbone(jax.random.PRNGKey(0),
+                                                    jcfg))
+    params = abstract_params(cfg)
+    for shape in MESHES:
+        jspecs = jsh.param_specs(jparams, jcfg, jmesh.MeshSpec(shape, DM),
+                                 jsh.NAMED_RECIPES[recipe])
+        specs = _port_specs_of_jax(jspecs, jparams, params, cfg)
+        mesh = MeshSpec(shape, DM)
+        roles = tsh.tp_roles(params, specs, mesh, cfg,
+                             tsh.resolve_recipe(recipe))
+        kinds = {}
+        for path, r in tsh.tree_paths(roles):
+            spec = tsh._lookup(specs, path)
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+            if r.split:
+                assert spec[r.dim] == "model", (path, spec, r)
+                fam, name = tsh._families(cfg, path)
+                assert tsh._TP_DIMS[fam][name][r.dim] == r.kind, (path, r)
+            else:
+                assert r.reason, path
+                if "model" in spec:
+                    assert r.dim == spec.index("model"), (path, r)
+        print(f"reading {arch} {recipe} {shape}: {kinds}")
+        if shape != (16, 16):
+            assert kinds.get("column", 0) > 0, (shape, kinds)
+
+
+@pytest.mark.parametrize("recipe,want", [
+    ("greedy", {"wq": "row", "wk": "row", "wv": "row", "wo": "column",
+                "w_gate": "column", "w_up": "column", "w_down": "row",
+                "table": "column", "w": "column"}),
+    ("megatron", {"wq": "column", "wk": "gathered", "wv": "gathered",
+                  "wo": "row", "w_gate": "column", "w_up": "column",
+                  "w_down": "row", "table": "column", "w": "column"}),
+])
+def test_glm4_roles_at_published_widths(recipe, want):
+    """glm4-9b whole on the production mesh: greedy splits ``d`` in the
+    q/k/v products (row-parallel) and in ``wo``'s output (column), the
+    hidden 13696 in the SwiGLU; megatron splits the heads, and its 2 KV
+    heads do not divide 16 ranks, so ``wk``/``wv`` stay whole (each rank
+    reads the one KV head its query heads need)."""
+    cfg = tconfigs.get("glm4-9b").config()
+    params = abstract_params(cfg)
+    mesh = MeshSpec((16, 16), DM)
+    rc = tsh.resolve_recipe(recipe)
+    specs = tsh.port_specs(tsh.param_specs(tsh.jax_layout(params, cfg), cfg,
+                                           mesh, rc), params, cfg)
+    roles = tsh.tp_roles(params, specs, mesh, cfg, rc)
+    seen = {}
+    for path, r in tsh.tree_paths(roles):
+        name = path[-1]
+        if name in want and "shared_attn" not in path:
+            seen.setdefault(name, set()).add(r.kind)
+    assert seen == {k: {v} for k, v in want.items()}, seen
+
+
+@pytest.mark.parametrize("recipe,mesh,want", [
+    ("megatron", (1, 2), 1.0), ("replicate", (16, 16), 16.0)])
+def test_replicated_over_model_is_measured(recipe, mesh, want):
+    """glm4-9b at published widths (4 layers), a train step: on (1, 2)
+    under megatron every product splits (1); under "replicate" none does
+    (the model axis' 16)."""
+    rc = tsh.resolve_recipe(recipe)
+    rec = dryrun.run_one("glm4-9b", "train_4k", layers=4, recipe=rc,
+                         mesh=MeshSpec(mesh, DM))
+    print(f"reading replicated_over_model {recipe} {mesh}: "
+          f"{rec['replicated_over_model']}")
+    assert rec["replicated_over_model"] == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("fn", ["cross_entropy", "accuracy", "embed"])
+def test_vocab_sized_calls_need_the_vocab_under_a_group(fn):
+    """Under an active model group (a counting group: no process group) a
+    vocab-sized call that does not name the whole V raises, rather than
+    reading one rank's chunk as the whole row; named, whole logits and
+    tables take the one-rank path, and without a group nothing changes."""
+    import torch
+
+    from repro_torch.core.losses import accuracy, softmax_cross_entropy
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.models.common import embed
+
+    V = 8
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(3, V, generator=gen)
+    labels = torch.tensor([1, 5, 7])
+    table = {"table": torch.randn(V, 4, generator=gen)}
+    call = {"cross_entropy": lambda **kw: softmax_cross_entropy(
+                logits, labels, **kw),
+            "accuracy": lambda **kw: accuracy(logits, labels, **kw),
+            "embed": lambda **kw: embed(table, labels, **kw)}[fn]
+    alone = call()
+    with tp.model_parallel(tp.ModelGroup(None, 2, 0)):
+        with pytest.raises(ValueError, match="whole vocab"):
+            call()
+        torch.testing.assert_close(call(vocab=V), alone, rtol=0, atol=0)

@@ -202,4 +202,9 @@ def run_legs(world, inputs):
             out[name] = {"error": traceback.format_exc()}
         dist.barrier()
         print(f"leg {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    # the tensor-parallel serving legs (tests/torch_tp_legs.py)
+    import torch_tp_legs
+    t0 = time.perf_counter()
+    out["tp"] = torch_tp_legs.serve_legs(world, inputs, meshes, serve)
+    print(f"legs tp: {time.perf_counter() - t0:.2f} s", flush=True)
     return out

@@ -313,5 +313,10 @@ def run_legs(world, inputs):
             out[name] = {"error": traceback.format_exc()}
         dist.barrier()
         print(f"leg {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    # the tensor-parallel legs (tests/torch_tp_legs.py) in this world
+    import torch_tp_legs
+    t0 = time.perf_counter()
+    out["tp"] = torch_tp_legs.train_legs(world)
+    print(f"legs tp: {time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
