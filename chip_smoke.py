@@ -245,7 +245,16 @@ Phases:
            fused engine with the routing pinned, and one forward of it
            (capacity factor 0.5: experts drop entries) with its rows over
            the ranks against one rank, where a planted fault (the loads
-           left per rank) must be rejected;
+           left per rank) must be rejected; then tensor parallelism over
+           "model" (mesh (1, 2), bf16): glm4-9b at published widths cut to
+           4 layers served and trained under megatron, and on two fresh
+           ranks deepseek-v3-671b cut to 4 layers (MLA over heads, 128
+           experts a rank over the grid) and zamba2-1.2b cut to 6 layers
+           (Mamba2's projections, greedy) served against the one-rank
+           session, rwkv6-3b cut to 4 layers trained under megatron (the
+           wkv kernels on 20 heads a rank) against the fused engine on one
+           rank and a plain-version control, each with its planted
+           faults; phase spmd prints its seconds;
   timing   each kernel, its plain version and PyTorch's one-call equivalent
            where there is one (SDPA forward, SDPA backward) timed at the
            main path's shapes, beside the bound for the work (the wkv's
@@ -256,7 +265,7 @@ Phases:
            over a 4096-key cache, q (8,32,1,128), k/v (8,2,4096,128); the
            row routes of the forward and of dQ beside their redesigned
            routes at the main shapes; the wkv also at a prefill shape
-           (1,300,40,64); the gate also at (8,65536) bf16, (8,151552)
+           (1,300,40,64) and at a tensor-parallel rank's (12,512,20,64); the gate also at (8,65536) bf16, (8,151552)
            fp32, zamba2-1.2b's (8,32000) and deepseek-v3's (8,129280) bf16
            and the paper evaluator's (512,10) and (512,100) fp32; attention
            at zamba2-1.2b's GQA-1 shapes (decode over a 633-slot ring,
@@ -406,14 +415,31 @@ def check(cond: bool, msg: str) -> None:
         raise Failed(msg)
 
 
+COUNT_ATTRS = ("launches", "row_launches", "tile_launches",
+               "decode_launches", "torch_delta_passes")
+
+
 def zero_counts(*wrappers) -> None:
     """Sets every launch count of the kernel wrappers to 0, by route too
     (and the backward's count of delta passes in torch)."""
     for w in wrappers:
-        for attr in ("launches", "row_launches", "tile_launches",
-                     "decode_launches", "torch_delta_passes"):
+        for attr in COUNT_ATTRS:
             if hasattr(w, attr):
                 setattr(w, attr, 0)
+
+
+@contextlib.contextmanager
+def uncounted(wrappers, fault):
+    """``fault``'s context with the wrappers' launch counts left as they
+    were before it: a planted fault's run is off the main path."""
+    saved = [(w, a, getattr(w, a)) for w in wrappers for a in COUNT_ATTRS
+             if hasattr(w, a)]
+    try:
+        with fault():
+            yield
+    finally:
+        for w, a, n in saved:
+            setattr(w, a, n)
 
 
 def launch_counts(wrapper) -> dict:
@@ -1365,8 +1391,8 @@ def rope_dropped(project_q):
     """MLA's query projection with its rope half zeroed: the positional
     term of every score dropped."""
     def wrapped(*a, **kw):
-        q_nope, q_rope = project_q(*a, **kw)
-        return q_nope, torch.zeros_like(q_rope)
+        q_nope, q_rope, split = project_q(*a, **kw)
+        return q_nope, torch.zeros_like(q_rope), split
     return wrapped
 
 
@@ -3893,10 +3919,38 @@ SPMD_SERVE_MAX_LEN = 160
 # (the one-rank session on the plain versions against the kernels)
 # 1.641e-2 over 3 rounds (a loss of ~12.5 at the published vocab, each
 # round's mean over 8 rows, Adam carrying the rounding on); the planted
-# faults read 8.328e-1 (row) and 7.268e-1 (sum exp).  The limit sits 3 x
-# above the control and 14 x below the smallest fault
+# faults read 8.328e-1 (row) and 7.268e-1 (sum exp) over 3 rounds and
+# 1.100e-1 and 6.933e-1 in the one round they now run.  The limit sits
+# 3 x above the control and 2 x below the smallest fault
 SPMD_TP_DECODE, SPMD_TP_STEPS, SPMD_TP_BATCH, SPMD_TP_CUT = 4, 3, 8, 2
 TOL_SPMD_TP_LOSS = 5e-2
+# the MoE, MLA, RWKV6 and Mamba2 legs over "model" (spmd_family_legs, on
+# phase spmd's ranks after the others, mesh (1, 2), bf16, published widths):
+# deepseek-v3-671b cut to 4 layers (3 dense-MLP layers and 1 MoE layer of
+# 256 experts top 8, ~32 GB whole, ~16 GB a rank) served under megatron
+# (MLA's 128 heads and the experts over the grid: 64 heads and 128
+# experts a rank); zamba2-1.2b cut to 6 layers (5 Mamba2 layers and the
+# shared attention block at layer 6) served under greedy (Mamba2's
+# projections split only there); rwkv6-3b cut to 4 layers trained under
+# megatron (the wkv on 20 of its 40 heads a rank), one client cut at
+# SPMD_TP_CUT, SPMD_TP_STEPS rounds of TRAIN_B x RWKV_T tokens
+SPMD_DEEPSEEK_LAYERS, SPMD_ZAMBA_LAYERS, SPMD_RWKV_LAYERS = 4, 6, 4
+# the rwkv6 train leg's loss limit against the fused engine on one rank,
+# from its own readings (PERF.md section 5, NVIDIA H100 80GB HBM3, 700 W):
+# the sound session 5.845e-3 and the bf16 control (the one-rank session on
+# the plain versions against the kernels) 1.044e-2 over 3 rounds (losses
+# ~11.4-11.9 at the published vocab, each round's mean over 12 rows); the
+# planted fault (the output norm's sum of squares left per rank) 1.660e-1
+# over 3 rounds and 1.139e-1 in the one round it now runs.  The limit
+# sits ~5 x above the control and ~2 x below the fault
+TOL_SPMD_RWKV_TP_LOSS = 5e-2
+# the family serving legs against the one-rank session
+# (``parity.session_parity``): a row-parallel product in bf16 rounds each
+# rank's partial sum to bf16 and then their sum, where one rank rounds the
+# whole sum once, so a logit may move by up to two bf16 steps; a stream may
+# part where the request alone has its top-2 logits at most that far apart
+# (TIE_GAP_BF16 and the default of one step encode a single rounding)
+SPMD_TP_TIE_STEPS = 2
 
 
 def phase_spmd(state):
@@ -3919,7 +3973,8 @@ def phase_spmd(state):
     BatchNorm statistics left per rank.  Then serving over the ranks
     (``spmd_serve_legs``), a MoE model's data split (``spmd_moe_leg``)
     and tensor parallelism over "model" in serving and in the spmd
-    engine (``spmd_tp_legs``).  A rank that fails fails the phase."""
+    engine (``spmd_tp_legs``; the MoE, MLA, RWKV6 and Mamba2 families in
+    ``spmd_family_legs``).  A rank that fails fails the phase."""
     from repro_torch.launch.hostdevices import HostRanks
     print(f"spmd card: {card_line()}; this process holds "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -4186,6 +4241,9 @@ def spmd_rank(backend: str) -> dict:
     out["serve"] = spmd_serve_legs(rank, world, counts)
     out["moe"] = spmd_moe_leg(rank, world, counts)
     out["tp"] = spmd_tp_legs(rank, world, counts)
+    t0 = time.perf_counter()
+    out["family"] = spmd_family_legs(rank, world, counts)
+    print(f"spmd family legs: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -4509,8 +4567,9 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     model's one exit there), SPMD_TP_STEPS rounds of SPMD_TP_BATCH x
     ``parity.TRAIN_SEQ`` tokens with labels over the whole vocab (so
     every rank owns some), Adam with bf16 moments; then the same session
-    under each planted fault (a row-parallel product's partial sum taken
-    as the whole; the cross entropy's sum of exponentials left per rank).
+    for one round under each planted fault (a row-parallel product's
+    partial sum taken as the whole; the cross entropy's sum of
+    exponentials left per rank).
     Then, on rank 0: the one-rank serving session (timed the same way)
     and each request served alone on the kernels, the streams within the
     bf16 limits of repro_torch/parity.py; the same training session on
@@ -4522,14 +4581,10 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     import torch.distributed as dist
 
     from repro_torch import parity
-    from repro_torch.api import TrainSession
-    from repro_torch.api.serve_session import (ServeResult, ServeSession,
+    from repro_torch.api.serve_session import (ServeResult,
                                                sequential_reference,
                                                sequential_sticky_reference)
-    from repro_torch.config import (HeteroProfile, OptimizerConfig,
-                                    SplitEEConfig)
     from repro_torch.configs import glm4_9b
-    from repro_torch.core.backbone_splitee import BackboneSplitModel
     from repro_torch.data.pipeline import ClientPartitioner
     from repro_torch.data.synthetic import SyntheticSeqClsDataset
     from repro_torch.kernels.entropy_exit import entropy_exit
@@ -4538,7 +4593,6 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
                                                      flash_attention_bwd_dq)
     from repro_torch.launch.e2e_train import cut_depth
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.shardings import tree_paths
     from repro_torch.models.backbone import init_backbone
     from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16,
                                     per_rank_sumexp, stream_parity,
@@ -4557,32 +4611,11 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     taus = {"select": 2.0, "sticky": 12.5}
     wrappers = (flash_attention, flash_attention_bwd_dkv,
                 flash_attention_bwd_dq, entropy_exit)
-    kinds = {}
 
     def serve(policy, over_ranks=True):
-        sess = ServeSession(
-            cfg, weights(), tau=taus[policy], slots=SPMD_SERVE_SLOTS,
-            max_len=SPMD_SERVE_MAX_LEN, exit_policy=policy,
-            recipe="megatron", mesh=mesh if over_ranks else None)
-        if over_ranks:
-            for _, r in tree_paths(sess.placement.roles):
-                kinds[r.kind] = kinds.get(r.kind, 0) + 1
-        for p in prompts:
-            sess.submit(p, decode_tokens=SPMD_TP_DECODE)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        done = sess.run()
-        torch.cuda.synchronize()
-        st = sess.stats
-        reading = dict(
-            ms_per_tick=(st.wall_s - st.prefill_s) / st.decode_ticks * 1e3,
-            weights_per_tick=st.weight_gathered_bytes_per_tick,
-            tp_decode_per_tick=st.tp_decode_bytes_per_tick,
-            tp_prefill=st.tp_prefill_bytes, ticks=st.decode_ticks,
-            client_only=st.client_only_ticks,
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        del sess
-        return {r.rid: (r.tokens, r.exited, r.entropy) for r in done}, reading
+        return tp_serve_run(cfg, weights(), prompts, policy, taus[policy],
+                            mesh=mesh if over_ranks else None,
+                            recipe="megatron")[:2]
 
     tcfg = cfg.with_(exit_layers=(SPMD_TP_CUT,))
     ds = SyntheticSeqClsDataset(
@@ -4591,41 +4624,13 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
         train_size=SPMD_TP_BATCH * SPMD_TP_STEPS, test_size=8, seed=0)
     data = ClientPartitioner(1).split(*ds.train)
 
-    def train(engine="spmd", kernels="auto", fault=contextlib.nullcontext):
-        """SPMD_TP_STEPS rounds: (client and server losses a round, the
+    def train(engine="spmd", kernels="auto", fault=contextlib.nullcontext,
+              steps=SPMD_TP_STEPS):
+        """``steps`` rounds: (client and server losses a round, the
         engine's readings)."""
-        model = BackboneSplitModel(tcfg.with_(kernels=kernels),
-                                   device="cuda")
-        kw = dict(mesh=mesh, recipe="megatron") if engine == "spmd" else {}
-        sess = TrainSession(
-            model, SplitEEConfig(profile=HeteroProfile((SPMD_TP_CUT,)),
-                                 strategy="averaging"),
-            OptimizerConfig(lr=parity.TRAIN_LR,
-                            total_steps=2 * SPMD_TP_STEPS,
-                            state_dtype=torch.bfloat16),
-            data, SPMD_TP_BATCH, engine=engine, **kw)
-        # the model's own tree only seeds the session's first state (two
-        # ranks share the card: its 5.4 GB would be held twice)
-        model.full_params = None
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with fault():
-            hist = sess.train(SPMD_TP_STEPS)
-        torch.cuda.synchronize()
-        eng = sess.engine
-        reading = dict(
-            engine=sess.engine_name,
-            ms_per_round=(time.perf_counter() - t0) / SPMD_TP_STEPS * 1e3,
-            tp_per_step=getattr(eng, "last_tp_bytes_per_step", 0.0),
-            gathered_per_step=getattr(eng, "last_gathered_bytes_per_step",
-                                      0.0),
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        losses = np.asarray([[m.client_loss, m.server_loss] for m in hist])
-        del sess, model, eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        return losses, reading
+        return tp_train_run(tcfg, data, engine=engine, kernels=kernels,
+                            mesh=mesh, recipe="megatron",
+                            batch=SPMD_TP_BATCH, steps=steps, fault=fault)
 
     # ---- the main path: every count at 0, read after
     zero_counts(*wrappers)
@@ -4640,7 +4645,7 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
               f"{r['weights_per_tick']:,.0f} bytes, tensor-parallel bytes "
               f"a decode tick {r['tp_decode_per_tick']:,.0f}, admissions "
               f"{r['tp_prefill']:,.0f}, peak {r['peak_gib']:.2f} GiB; "
-              f"roles {kinds}", flush=True)
+              f"roles {r['roles']}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     losses, tr = train()
@@ -4661,7 +4666,8 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
                                     "entropy_exit")),
           f"spmd tp rank {rank}: the spmd engine trained; the decode and "
           f"tile routes, dK/dV, dQ and the gate launched")
-    faults = {name: train(fault=f)[0] for name, f in (
+    # a fault moves the forward, so its first round shows it
+    faults = {name: train(fault=f, steps=1)[0] for name, f in (
         ("row", unreduced_row_products), ("sumexp", per_rank_sumexp))}
     every = [None] * world
     dist.all_gather_object(every, {"runs": runs, "losses": losses,
@@ -4714,7 +4720,7 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
         lim = TOL_SPMD_TP_LOSS
 
         def gap(a):
-            return np.abs(a - want).max(1)
+            return np.abs(a - want[:len(a)]).max(1)
 
         gaps = np.max([gap(e["losses"]) for e in every], 0)
         dl, dc = float(gaps.max()), float(gap(ctl).max())
@@ -4743,6 +4749,433 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
         for ok, msg in checks:
             print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
         check(all(ok for ok, _ in checks), "spmd tp comparisons")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+class LazyLeaf:
+    """A weight of ``shape`` drawn where it is moved to (``.to(device)``)
+    from a generator of its own seeded with ``seed``: truncated normal of
+    ``std`` as ``models.common.trunc_normal`` draws it, or ones (a norm
+    scale).  A tree of them stands for a model whose whole tree two ranks
+    sharing the card cannot each hold: ``ServeSession(mesh=)`` cuts each
+    leaf to this rank's chunk as it draws it (one whole leaf at a time),
+    and every draw of a leaf gives the same values."""
+
+    def __init__(self, shape, dtype, std, seed: int):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.std, self.seed = std, seed
+
+    def to(self, device):
+        from repro_torch.models.common import trunc_normal
+        if self.std is None:
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        return trunc_normal(tuple(self.shape), self.std, self.dtype, gen,
+                            device)
+
+
+def lazy_weights(cfg, seed: int = 0) -> dict:
+    """``cfg``'s weight tree as :class:`LazyLeaf` s: the shapes, dtypes and
+    standard deviations ``init_backbone`` gives (read on the meta device),
+    each leaf seeded by ``seed`` and its place in the tree.  For families
+    whose every leaf is drawn or a norm scale (not RWKV6's or Mamba2's
+    constant leaves)."""
+    from repro_torch.launch.inputs import abstract_params
+    from repro_torch.launch.shardings import map_with_path
+    from repro_torch.models import common
+    stds, real = {}, common.trunc_normal
+
+    def record(shape, std, dtype, generator, device):
+        t = real(shape, std, dtype, generator, device)
+        stds[id(t)] = std
+        return t
+    common.trunc_normal = record
+    try:
+        meta = abstract_params(cfg)
+    finally:
+        common.trunc_normal = real
+    count = iter(range(1 << 30))
+
+    def lazy(path, t):
+        std = stds.get(id(t))
+        if std is None and path[-1] != "scale":
+            raise ValueError(f"{path}: neither drawn nor a norm scale")
+        return LazyLeaf(t.shape, t.dtype, std, seed * 1_000_003 + next(count))
+    return map_with_path(lazy, meta)
+
+
+def tp_serve_run(cfg, params, prompts, policy, tau, *, mesh, recipe,
+                 faults=None):
+    """``ServeSession`` of ``cfg`` over ``mesh`` under ``recipe`` (or one
+    rank: ``mesh`` None), 8 slots, SPMD_TP_DECODE decode tokens a request:
+    ``(streams, readings, fault streams)``, readings of ms a tick, weights
+    gathered a tick, tensor-parallel bytes a decode tick and of the
+    admissions, peak GiB and roles; then the same requests served again
+    by the same session under each planted fault of ``faults`` (``{name:
+    context}``), untimed."""
+    from repro_torch.api.serve_session import ServeSession
+    from repro_torch.launch.shardings import tree_paths
+    sess = ServeSession(cfg, params, tau=tau, slots=SPMD_SERVE_SLOTS,
+                        max_len=SPMD_SERVE_MAX_LEN, exit_policy=policy,
+                        recipe=recipe, mesh=mesh)
+    kinds = {}
+    if mesh is not None:
+        for _, r in tree_paths(sess.placement.roles):
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    rids = [sess.submit(p, decode_tokens=SPMD_TP_DECODE) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    done = sess.run()
+    torch.cuda.synchronize()
+    st = sess.stats
+    tp_kinds = dict(sess.placement.tp.bytes) if (
+        mesh is not None and sess.placement.tp is not None) else {}
+    reading = dict(
+        ms_per_tick=(st.wall_s - st.prefill_s) / st.decode_ticks * 1e3,
+        weights_per_tick=st.weight_gathered_bytes_per_tick,
+        tp_decode_per_tick=st.tp_decode_bytes_per_tick,
+        tp_prefill=st.tp_prefill_bytes, tp_by_kind=tp_kinds,
+        ticks=st.decode_ticks, client_only=st.client_only_ticks,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, roles=kinds)
+
+    def streams(results, rids):
+        """The requests ``rids`` (``run`` returns every finished one) by
+        their submission order."""
+        by_rid = {r.rid: r for r in results}
+        return {i: (by_rid[rid].tokens, by_rid[rid].exited,
+                    by_rid[rid].entropy) for i, rid in enumerate(rids)}
+    faulted = {}
+    for name, fault in (faults or {}).items():
+        again = [sess.submit(p, decode_tokens=SPMD_TP_DECODE)
+                 for p in prompts]
+        with fault():
+            faulted[name] = streams(sess.run(), again)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams(done, rids), reading, faulted
+
+
+def tp_serve_checks(cfg, host, prompts, taus, every, readings, checks,
+                    faults=()) -> None:
+    """Rank 0, after the ranks let go of their sessions: the one-rank
+    session on the same weights (timed the same way) and each request
+    served alone, both on the kernels.  Every rank's streams must equal
+    the one-rank session's within the bf16 limits of
+    ``repro_torch/parity.py`` (``parity.session_parity``: a token parts
+    only at a near tie, where the request alone has a top-2 gap below
+    TIE_GAP_BF16 or of SPMD_TP_TIE_STEPS bf16 steps, or where it and the
+    one-rank session already choose differently; entropies within
+    TOL_H_BF16); each planted fault's streams (served under select) must
+    part beyond them."""
+    from repro_torch.api.serve_session import (ServeResult,
+                                               sequential_reference,
+                                               sequential_sticky_reference)
+    from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16,
+                                    session_parity, stream_parity)
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda t: t.to("cuda"), host)
+
+    def as_res(st):
+        return {i: ServeResult(i, None, tokens=t, exited=e, entropy=h)
+                for i, (t, e, h) in st.items()}
+
+    for policy, tau in taus.items():
+        alone = [(sequential_sticky_reference if policy == "sticky"
+                  else sequential_reference)(
+                      cfg, params, p, SPMD_TP_DECODE, tau=tau,
+                      max_len=SPMD_SERVE_MAX_LEN) for p in prompts]
+        one, r, _ = tp_serve_run(cfg, params, prompts, policy, tau,
+                                 mesh=None, recipe=None)
+        readings[f"one rank/{policy}"] = r
+        got = every[0]["runs"][policy]
+        same = all(e["runs"][policy] == got for e in every)
+        sp = session_parity(as_res(got), as_res(one), alone, tau,
+                            tie_steps=SPMD_TP_TIE_STEPS)
+        sp1 = stream_parity(as_res(one), alone, tau)
+        agree = sum(a == b for rid in got
+                    for a, b in zip(got[rid][0], one[rid][0]))
+        print(f"  reading spmd tp serve {cfg.name} {policy}: one-rank "
+              f"session {r['ms_per_tick']:.3f} ms a tick (tensor-parallel "
+              f"{readings[policy]['ms_per_tick']:.3f}), peak "
+              f"{r['peak_gib']:.2f} GiB; vs the one-rank session: compared "
+              f"{sp.compared}, max|dH| {sp.max_dh:.3e}, parted {sp.parted}; "
+              f"{agree} tokens equal to the one-rank session's; the "
+              f"one-rank session vs each request alone: compared "
+              f"{sp1.compared}, max|dH| {sp1.max_dh:.3e}, parted "
+              f"{sp1.parted}", flush=True)
+        checks.append((same and sp.ok and sp.max_dh <= TOL_H_BF16,
+                       f"spmd tp serve {cfg.name} {policy}: every rank "
+                       f"holds the same streams, the one-rank session's "
+                       f"within the bf16 limits (tie gap {TIE_GAP_BF16:g} "
+                       f"or {SPMD_TP_TIE_STEPS} bf16 steps, |dH| "
+                       f"{TOL_H_BF16:g})"))
+        for name in faults if policy == "select" else ():
+            fp = session_parity(as_res(every[0]["faults"][name]),
+                                as_res(one), alone, tau,
+                                tie_steps=SPMD_TP_TIE_STEPS)
+            print(f"  reading spmd tp serve {cfg.name} planted fault "
+                  f"({name}): compared {fp.compared}, max|dH| "
+                  f"{fp.max_dh:.3e}, parted {fp.parted}", flush=True)
+            checks.append((not (fp.ok and fp.max_dh <= TOL_H_BF16),
+                           f"spmd tp serve {cfg.name} planted fault "
+                           f"rejected: {name}"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_train_run(cfg, data, *, engine="spmd", kernels="auto", mesh=None,
+                 recipe=None, batch, steps, fault=contextlib.nullcontext):
+    """``TrainSession`` of ``BackboneSplitModel`` on ``cfg`` (one client
+    at its one exit), ``steps`` rounds, Adam with bf16 moments: ``(client
+    and server losses a round, readings)``.  RWKV6's decays and bonus stay
+    at their init (``parity.live_rwkv``'s draws at published widths take
+    the plain chunked wkv, the control, past fp32's range)."""
+    from repro_torch import parity
+    from repro_torch.api import TrainSession
+    from repro_torch.config import (HeteroProfile, OptimizerConfig,
+                                    SplitEEConfig)
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    model = BackboneSplitModel(cfg.with_(kernels=kernels), device="cuda")
+    kw = dict(mesh=mesh, recipe=recipe) if engine == "spmd" else {}
+    sess = TrainSession(
+        model, SplitEEConfig(profile=HeteroProfile(cfg.exit_layers),
+                             strategy="averaging"),
+        OptimizerConfig(lr=parity.TRAIN_LR, total_steps=2 * steps,
+                        state_dtype=torch.bfloat16),
+        data, batch, engine=engine, **kw)
+    model.full_params = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with fault():
+        hist = sess.train(steps)
+    torch.cuda.synchronize()
+    eng = sess.engine
+    reading = dict(
+        engine=sess.engine_name,
+        ms_per_round=(time.perf_counter() - t0) / steps * 1e3,
+        tp_per_step=getattr(eng, "last_tp_bytes_per_step", 0.0),
+        gathered_per_step=getattr(eng, "last_gathered_bytes_per_step",
+                                  0.0),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    losses = np.asarray([[m.client_loss, m.server_loss] for m in hist])
+    del sess, model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, reading
+
+
+def spmd_family_legs(rank: int, world: int, counts: dict) -> dict:
+    """Phase spmd's MoE, MLA, RWKV6 and Mamba2 legs over "model" on this
+    rank, on the mesh (world / 2, 2), bf16, on the kernels, at published
+    widths.  The launch counts are zeroed before the three runs below and
+    read after (and added to ``counts``).  deepseek-v3-671b cut to
+    SPMD_DEEPSEEK_LAYERS layers served under megatron (select at tau 2.0,
+    sticky at 12.5; 8 slots, 8 requests of 16-128 tokens); zamba2-1.2b cut
+    to SPMD_ZAMBA_LAYERS layers served under greedy (select); rwkv6-3b cut
+    to SPMD_RWKV_LAYERS layers trained under megatron through
+    ``TrainSession(engine="spmd")``.  Each rank prints per leg ms a tick
+    or a round, the weights gathered, the tensor-parallel bytes by kind,
+    its peak and its launches (the wkv's heads a launch).  Then each
+    planted fault's run: deepseek's select requests served again by the
+    same session with each rank's experts taken as the whole MoE
+    (``parity.unsummed_expert_parts``), rwkv6 trained one round with the
+    output norm's sum of squares left per rank
+    (``parity.per_rank_norm_squares``).  Then, on rank 0, after the ranks
+    let go of their sessions: the one-rank serving sessions and each
+    request alone (``tp_serve_checks``), and the rwkv6 session on the
+    fused engine on one rank from the same seed, on the kernels and on the
+    plain versions (the bf16 control); the train losses must lie within
+    TOL_SPMD_RWKV_TP_LOSS of the fused engine's, the control within it
+    and the fault beyond it."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import deepseek_v3_671b, rwkv6_3b, zamba2_1p2b
+    from repro_torch.data.pipeline import ClientPartitioner
+    from repro_torch.data.synthetic import SyntheticSeqClsDataset
+    from repro_torch.kernels import rwkv_wkv as wkv_mod
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv, rwkv_wkv_bwd
+    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.backbone import init_backbone
+    from repro_torch.parity import (per_rank_norm_squares,
+                                    unsummed_expert_parts)
+    from repro_torch.tree import tree_leaves
+    shape = (world // 2, 2)
+    mesh = make_host_mesh(shape, ("data", "model"))
+    wrappers = (flash_attention, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq, entropy_exit, rwkv_wkv, rwkv_wkv_bwd)
+    taus = {"select": 2.0, "sticky": 12.5}
+    # the wkv's heads a launch, read off its kernel calls (a monitor, not
+    # a count)
+    heads = {}
+
+    real_kernels = {name: getattr(wkv_mod, name)
+                    for name in ("_kernel_fwd", "_kernel_bwd")}
+
+    def watch(name, real):
+        def seen(r, *a, **kw):
+            heads.setdefault(name, set()).add(r.shape[2])
+            return real(r, *a, **kw)
+        setattr(wkv_mod, name, seen)
+    for name, real in real_kernels.items():
+        watch(name, real)
+
+    def report(what, r):
+        print(f"spmd tp {what} (rank {rank}): "
+              + (f"{r['ms_per_tick']:.3f} ms a tick over {r['ticks']} "
+                 f"ticks, weights gathered a tick "
+                 f"{r['weights_per_tick']:,.0f} bytes, tensor-parallel "
+                 f"bytes a decode tick {r['tp_decode_per_tick']:,.0f}, "
+                 f"admissions {r['tp_prefill']:,.0f}, by kind "
+                 f"{r['tp_by_kind']}, roles {r['roles']}"
+                 if "ms_per_tick" in r else
+                 f"{r['ms_per_round']:.1f} ms a round, tensor-parallel "
+                 f"bytes a step {r['tp_per_step']:,.0f}, weights gathered "
+                 f"a step {r['gathered_per_step']:,.0f}")
+              + f", peak {r['peak_gib']:.2f} GiB", flush=True)
+
+    rng = np.random.default_rng(0)
+    ds_cfg, _ = cut_depth(deepseek_v3_671b.config(), SPMD_DEEPSEEK_LAYERS)
+    ds_prompts = [rng.integers(0, ds_cfg.vocab_size,
+                               int(rng.integers(16, 129)))
+                  for _ in range(SPMD_SERVE_REQUESTS)]
+    zb_cfg, _ = cut_depth(zamba2_1p2b.config(), SPMD_ZAMBA_LAYERS)
+    zb_prompts = [rng.integers(0, zb_cfg.vocab_size,
+                               int(rng.integers(16, 129)))
+                  for _ in range(SPMD_SERVE_REQUESTS)]
+    rw_cfg = cut_depth(rwkv6_3b.config(), SPMD_RWKV_LAYERS)[0].with_(
+        exit_layers=(SPMD_TP_CUT,))
+    ds = SyntheticSeqClsDataset(
+        vocab_size=rw_cfg.vocab_size, seq_len=RWKV_T,
+        num_classes=rw_cfg.vocab_size, train_size=TRAIN_B * SPMD_TP_STEPS,
+        test_size=8, seed=0)
+    rw_data = ClientPartitioner(1).split(*ds.train)
+    # deepseek-v3's weights are drawn leaf by leaf as each session places
+    # them (two whole trees do not fit beside the ranks' chunks); zamba2's
+    # are drawn whole on each rank
+    ds_host = lazy_weights(ds_cfg)
+    zb_host = init_backbone(torch.Generator(device="cuda").manual_seed(0),
+                            zb_cfg)
+    ds_bytes = sum(t.shape.numel() * t.dtype.itemsize
+                   for t in tree_leaves(ds_host))
+    print(f"spmd tp weights (rank {rank}): {ds_cfg.name} "
+          f"{ds_bytes / 1e9:.2f} GB (drawn leaf by leaf), {zb_cfg.name} "
+          f"{weight_bytes(zb_host) / 1e9:.2f} GB", flush=True)
+
+    # ---- the main path: every count at 0, read after
+    zero_counts(*wrappers)
+    runs, readings = {"deepseek": {}, "zamba2": {}}, {}
+    fault_name, ds_faults = "experts' outputs unsummed", {}
+    for policy, tau in taus.items():
+        runs["deepseek"][policy], r, faulted = tp_serve_run(
+            ds_cfg, ds_host, ds_prompts, policy, tau, mesh=mesh,
+            recipe="megatron", faults={fault_name: lambda: uncounted(
+                wrappers, unsummed_expert_parts)}
+            if policy == "select" else None)
+        ds_faults.update(faulted)
+        readings[f"deepseek/{policy}"] = r
+        report(f"serve {ds_cfg.name} megatron {policy}", r)
+    runs["zamba2"]["select"], r, _ = tp_serve_run(
+        zb_cfg, zb_host, zb_prompts, "select", taus["select"], mesh=mesh,
+        recipe="greedy")
+    readings["zamba2/select"] = r
+    report(f"serve {zb_cfg.name} greedy select", r)
+    losses, tr = tp_train_run(rw_cfg, rw_data, mesh=mesh, recipe="megatron",
+                              batch=TRAIN_B, steps=SPMD_TP_STEPS)
+    readings["rwkv6/train"] = tr
+    report(f"train {rw_cfg.name} megatron", tr)
+    main = {k: n for w in wrappers for k, n in launch_counts(w).items()}
+    for k, n in main.items():
+        counts[k] = counts.get(k, 0) + n
+    print(f"spmd tp family legs (rank {rank}): launches " + ", ".join(
+        f"{k} {n}" for k, n in main.items() if n) + f"; wkv heads a launch "
+        f"{ {k: sorted(v) for k, v in heads.items()} }", flush=True)
+    check(tr["engine"] == "spmd" and all(
+              main[k] > 0 for k in ("rwkv_wkv", "rwkv_wkv_bwd",
+                                    "flash_attention", "entropy_exit"))
+          and heads.get("_kernel_fwd") == {20}
+          and heads.get("_kernel_bwd") == {20},
+          f"spmd tp family legs rank {rank}: the spmd engine trained; the "
+          f"wkv forward and backward launched on 20 heads a rank, the "
+          f"decode route and the gate launched")
+    # the fault moves the forward, so its first round shows it
+    rw_fault, _ = tp_train_run(rw_cfg, rw_data, mesh=mesh,
+                               recipe="megatron", batch=TRAIN_B, steps=1,
+                               fault=per_rank_norm_squares)
+    for name, real in real_kernels.items():
+        setattr(wkv_mod, name, real)
+    every = [None] * world
+    dist.all_gather_object(every, {"runs": runs, "losses": losses,
+                                   "fault": rw_fault,
+                                   "ds_fault": ds_faults})
+    out = {"readings": readings, "launches": main}
+    if rank != 0:
+        del ds_host, zb_host
+    dist.barrier()
+    if rank == 0:
+        checks = []
+        tp_serve_checks(ds_cfg, ds_host, ds_prompts, taus,
+                        [dict(runs=e["runs"]["deepseek"],
+                              faults=e["ds_fault"]) for e in every],
+                        {p: readings[f"deepseek/{p}"] for p in taus},
+                        checks, faults=(fault_name,))
+        del ds_host
+        tp_serve_checks(zb_cfg, zb_host, zb_prompts,
+                        {"select": taus["select"]},
+                        [dict(runs=e["runs"]["zamba2"]) for e in every],
+                        {"select": readings["zamba2/select"]}, checks)
+        del zb_host
+        want, one_tr = tp_train_run(rw_cfg, rw_data, engine="fused",
+                                    batch=TRAIN_B, steps=SPMD_TP_STEPS)
+        ctl, _ = tp_train_run(rw_cfg, rw_data, engine="fused",
+                              kernels="ref", batch=TRAIN_B,
+                              steps=SPMD_TP_STEPS)
+        lim = TOL_SPMD_RWKV_TP_LOSS
+
+        def gap(a):
+            return np.abs(a - want[:len(a)]).max(1)
+
+        gaps = np.max([gap(e["losses"]) for e in every], 0)
+        dl, dc = float(gaps.max()), float(gap(ctl).max())
+        df = max(float(gap(e["fault"]).max()) for e in every)
+        print(f"  reading spmd tp train {rw_cfg.name}: fused engine on one "
+              f"rank {one_tr['ms_per_round']:.1f} ms a round, peak "
+              f"{one_tr['peak_gib']:.2f} GiB (tensor-parallel "
+              f"{tr['ms_per_round']:.1f}); losses max|d| {dl:.3e}, by round "
+              + ", ".join(f"{g:.3e}" for g in gaps)
+              + f" (losses {want.min():.3f}..{want.max():.3f}); bf16 control "
+              f"(one rank, plain versions) max|d| {dc:.3e}, by round "
+              + ", ".join(f"{g:.3e}" for g in gap(ctl))
+              + f"; planted fault (out_norm's sum of squares per rank) "
+              f"max|d| {df:.3e}", flush=True)
+        checks.append((dl <= lim, f"spmd tp train {rw_cfg.name} "
+                       f"{SPMD_TP_STEPS} rounds = the fused engine on one "
+                       f"rank: losses {dl:.2e} <= {lim:g}"))
+        checks.append((dc <= lim, f"spmd tp train {rw_cfg.name}: the bf16 "
+                       f"control lies within the limit ({dc:.2e} <= "
+                       f"{lim:g})"))
+        checks.append((df > lim, f"spmd tp planted fault rejected: the "
+                       f"out_norm's sum of squares per rank ({df:.2e} > "
+                       f"{lim:g})"))
+        if shape[0] == 1:
+            checks.append((all(
+                readings[f"deepseek/{p}"]["weights_per_tick"] == 0
+                for p in taus), f"spmd tp serve {ds_cfg.name}: no weight "
+                "gathered a tick"))
+        out["train_one"] = one_tr
+        out["dloss"], out["dloss_control"], out["dloss_fault"] = dl, dc, df
+        for ok, msg in checks:
+            print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
+        check(all(ok for ok, _ in checks), "spmd tp family comparisons")
     dist.barrier()
     torch.cuda.empty_cache()
     return out
@@ -5097,9 +5530,9 @@ def time_wkv(gen, buf, state):
                                               rwkv_wkv_bwd_plain,
                                               rwkv_wkv_fwd, rwkv_wkv_plain)
     ch = rwkv6_3b.config().ssm.chunk_size
-    H, K = 40, 64
+    K = 64
 
-    def io_bytes(B, T, bwd=False, emit=False):
+    def io_bytes(B, T, bwd=False, emit=False, H=40):
         """r/k/v bf16, log_w fp32 and u in; y and S_T out (forward, plus
         the entry states when saved); the backward reads those inputs, the
         entry states, dy and dS_T and writes dr/dk/dv bf16, dlog_w fp32
@@ -5111,8 +5544,8 @@ def time_wkv(gen, buf, state):
         return (ins + states + 4 * seq + B * H * K * K * 4
                 + (3 * 2 + 4) * seq + 4 * H * K)
 
-    def timed(B, T, emit_fwd):
-        r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, B, T)
+    def timed(B, T, emit_fwd, H=40):
+        r, k, v, lw, u = wkv_inputs(gen, torch.bfloat16, B, T, H=H)
         dy = torch.randn(B, T, H, K, generator=gen, device="cuda")
         dsT = torch.zeros(B, H, K, K, device="cuda")
         (_, _), s0 = rwkv_wkv_fwd(r, k, v, lw, u, chunk=ch)
@@ -5126,14 +5559,14 @@ def time_wkv(gen, buf, state):
             ms=time_ms(fwd, buf),
             plain_ms=time_ms(lambda: rwkv_wkv_plain(
                 r, k, v, lw, u, chunk=ch, emit_chunk_states=emit_fwd), buf),
-            bytes=io_bytes(B, T, emit=emit_fwd),
+            bytes=io_bytes(B, T, emit=emit_fwd, H=H),
             ops=wkv_causal_flops(B, T, H, K, ch)),
             "backward": dict(
             ms=time_ms(lambda: rwkv_wkv_bwd(r, k, v, lw, u, s0, dy, dsT,
                                             chunk=ch), buf),
             plain_ms=time_ms(lambda: rwkv_wkv_bwd_plain(
                 r, k, v, lw, u, s0, dy, dsT, chunk=ch), buf),
-            bytes=io_bytes(B, T, bwd=True),
+            bytes=io_bytes(B, T, bwd=True, H=H),
             ops=wkv_causal_flops(B, T, H, K, ch, "bwd"))}
         for x in out.values():
             x["bound_ms"], x["bound_cuda_cores_ms"] = (
@@ -5147,6 +5580,18 @@ def time_wkv(gen, buf, state):
     # and the backward there too
     prefill = timed(1, 300, False)
     state["wkv_prefill_timing"] = prefill
+    # one rank's heads of phase spmd's rwkv6-3b train leg (megatron over
+    # two ranks: 20 of the 40 heads)
+    tp = timed(TRAIN_B, RWKV_T, True, H=20)
+    tp_shape = "tensor-parallel rank (12,512,20,64) bf16, chunk 128"
+    state["wkv_tp_timing"] = {
+        f"{name} {tp_shape}": dict(
+            shape=tp_shape + extra, ms=x["ms"], plain_ms=x["plain_ms"],
+            library_ms=None, bound_ms=x["bound_ms"],
+            bound_cuda_cores_ms=x["bound_cuda_cores_ms"])
+        for name, extra, x in (
+            ("rwkv_wkv", ", with the entry states", tp["forward"]),
+            ("rwkv_wkv_bwd", ", dy fp32", tp["backward"]))}
     shape = "train r/k/v (12,512,40,64) bf16, chunk 128"
     src = "src/repro_torch/kernels/csrc/rwkv_wkv.cu"
     return [
@@ -5190,7 +5635,8 @@ def kernels_line(state) -> dict:
         # the same kernel at the shapes of the configs ported since
         more = [dict(shape=g["shape"], ms=g["ms"], plain_ms=g["plain_ms"],
                      library_ms=g.get("library_ms"), bound_ms=g["bound_ms"])
-                for key in ("zamba_timing", "wide_cross_timing")
+                for key in ("zamba_timing", "wide_cross_timing",
+                            "wkv_tp_timing")
                 for what, g in state.get(key, {}).items()
                 if what.split()[0] == r["name"]]
         if r["name"] == "entropy_exit":
@@ -5281,6 +5727,10 @@ def main() -> int:
                   f"{'backward ' if 'bwd' in name else ''}"
                   f"{pt['library_ms']:.4f} ms, bound {pt['bound_ms']:.5f} ms "
                   f"({pt['bound_by']})")
+        for what, pt in state.get("wkv_tp_timing", {}).items():
+            print(f"{what}: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f} "
+                  f"ms, bound {pt['bound_ms']:.5f} ms (3xtf32; on the CUDA "
+                  f"cores {pt['bound_cuda_cores_ms']:.5f} ms)")
         for what, pt in state.get("wkv_prefill_timing", {}).items():
             print(f"rwkv_wkv {what} at the prefill shape (1,300,40,64) bf16 "
                   f"chunk 128: {pt['ms']:.4f} ms, plain "

@@ -59,15 +59,19 @@ data group runs every slot.
 
 Over ``"model"`` the products are tensor-parallel
 (``launch/tensor_parallel.py``): a leaf that ``launch.shardings.tp_roles``
-finds ``column`` or ``row`` (attention's and the SwiGLU's weights, the
+finds ``column``, ``row`` or ``expert`` (attention's, MLA's, RWKV6's and
+Mamba2's projections, the SwiGLU's weights, the expert stacks, the
 embedding and the heads split over the vocab) is read in place as this
-rank's chunk, gathered over its data axes only, and the tick runs inside
-``model_parallel`` over the rank's model group; only the other leaves
-(MLA, RWKV6, Mamba2, experts, the frontend; ROADMAP.md item 9b-4) are
-gathered whole.  A decode over a split ring gathers the new token's q, k
-and v heads, attends over this rank's part for every head and keeps its
-own heads for ``wo``; the logits are gathered over the vocab for the gate
-(the entropy kernel runs on whole rows) and the token pick.
+rank's chunk, gathered over its data axes only (a grid-placed expert
+stack: this rank's experts), and the tick runs inside ``model_parallel``
+over the rank's model group; only the other leaves (norms, the router,
+the token-shift mixes, Mamba2's conv and scan parameters, the frontend)
+are gathered whole.  A decode over a split ring gathers the new token's
+q, k and v heads (MLA: its absorbed query), attends over this rank's
+part for every head and keeps its own heads for ``wo``; an RWKV6 decode
+step runs every head on the whole state; the logits are gathered over
+the vocab for the gate (the entropy kernel runs on whole rows) and the
+token pick.
 ``stats.weight_gathered_bytes`` counts the weights a tick gathers,
 ``stats.tp_bytes`` the tensor-parallel collectives.
 """
@@ -90,7 +94,8 @@ from repro_torch.launch.mesh import (MeshSpec, axis_sizes, batch_axes,
                                      live_mesh)
 from repro_torch.launch.meshcomm import MeshComm, _axes, chunk_shapes
 from repro_torch.launch.shardings import (_lookup, compute_spec,
-                                          jax_layout, map_with_path,
+                                          expert_blocks, jax_layout,
+                                          map_with_path,
                                           port_specs, resolve_recipe,
                                           serve_state_specs, tp_roles)
 from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
@@ -193,14 +198,15 @@ class ServeResult:
     (full path, ungated); ``tokens[1 + i]`` is gated decode tick ``i`` with
     decision ``exited[i]`` and gate entropy ``entropy[i]``.  The sequential
     references also keep ``top2_gap[j]``, the gap between the two largest
-    logits that chose ``tokens[j]``: two paths that round differently may
-    part only at a near tie."""
+    logits that chose ``tokens[j]``, and ``top_logit[j]``, the largest:
+    two paths that round differently may part only at a near tie."""
     rid: int
     prompt: np.ndarray
     tokens: List[int] = field(default_factory=list)
     exited: List[bool] = field(default_factory=list)
     entropy: List[float] = field(default_factory=list)
     top2_gap: List[float] = field(default_factory=list)
+    top_logit: List[float] = field(default_factory=list)
 
     @property
     def adoption_ratio(self) -> float:
@@ -325,6 +331,7 @@ class RankPlacement:
             self.tp = ModelGroup(pg, comm.sizes[ax], comm.index((ax,)))
             self.roles = tp_roles(params, self.param_specs, mesh, cfg,
                                   self.recipe)
+            self.tp.expert_blocks = expert_blocks(self.roles)
             self.compute_specs = map_with_path(
                 lambda p, _: compute_spec(_lookup(self.param_specs, p),
                                           _lookup(self.roles, p), ax),
@@ -721,6 +728,7 @@ def _sequential(cfg: ModelConfig, params: dict, prompt: Sequence[int],
     def take(logits):
         top2 = logits.float().topk(2).values
         res.top2_gap.append(float(top2[0] - top2[1]))
+        res.top_logit.append(float(top2[0]))
         tok = logits.argmax(-1).to(torch.int32)
         res.tokens.append(int(tok))
         return tok

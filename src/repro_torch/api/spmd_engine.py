@@ -42,25 +42,27 @@ same recipe rules:
 
   * **Tensor parallelism over ``"model"``** (a ``BackboneSplitModel``).
     ``launch.shardings.tp_roles`` reads each leaf's ``"model"`` dim
-    against its product: attention's ``wq``/``wk``/``wv``/``wo``, the
-    SwiGLU's three weights, the embedding and the heads' unembedding
-    split over the vocab are ``column`` or ``row`` and stay this rank's
-    ``"model"`` chunk for compute (gathered over their FSDP/data axes
-    only); the step runs inside ``launch.tensor_parallel.model_parallel``
-    over the rank's model group, whose products multiply with the chunks
-    (the logits stay split over the vocab into the vocab-parallel cross
+    against its product: attention's, MLA's, RWKV6's (time and channel
+    mix) and Mamba2's projections, the SwiGLU's three weights (a MoE
+    block's shared expert too), the embedding and the heads' unembedding
+    split over the vocab are ``column`` or ``row``, and an expert stack
+    is ``expert`` over the grid or ``column``/``row`` over its hidden
+    dims; each stays this rank's ``"model"`` chunk for compute (gathered
+    over its FSDP/data axes only: a grid-placed expert stack then holds
+    this rank's strided set of experts, ``ModelGroup.expert_blocks``).
+    The step runs inside ``launch.tensor_parallel.model_parallel`` over
+    the rank's model group, whose products multiply with the chunks (the
+    logits stay split over the vocab into the vocab-parallel cross
     entropy), and their gradients are the chunks' own.  Every other leaf
-    (MLA, RWKV6, Mamba2, expert stacks, the frontend, norms; ROADMAP.md
-    item 9b-4) is gathered whole as before, and its gradient is whole and
-    equal on every model rank.  The clip norm sums the split leaves'
-    squares over the group and counts the others once.
+    (norms, the router, the token-shift mixes, Mamba2's conv and scan
+    parameters, the frontend, an indivisible head count; each role says
+    why) is gathered whole, and its gradient is whole and equal on every
+    model rank.  The clip norm sums the split leaves' squares over the
+    group and counts the others once.
 
 Only all_reduce and all_gather are used (gloo and NCCL both take them;
-``launch/meshcomm.py``).  What ROADMAP.md item 9b-4 lists stays
-storage-only over ``"model"`` (its ranks repeat that compute), and the
-gathers do not overlap compute.  The expert-parallel placement of the MoE
-dispatch buffer is a storage placement for the same reason: the expert
-weights are gathered for compute.
+``launch/meshcomm.py``).  Sequence parallelism, reduce-scatter and
+overlapping the gathers with compute are not done (ROADMAP.md item 9b-4).
 
 Meshes: ``TrainSession(..., mesh=...)`` -- a live mesh from
 ``launch.mesh`` (``make_lane_host_mesh(2)``, ``make_host_mesh((2, 2, 1),
@@ -92,7 +94,8 @@ from repro_torch.launch.meshcomm import (  # noqa: F401 (re-exported)
     MeshComm, _axes, all_reduce_plan, chunk_shapes, gather_plan, plan_bytes,
     unshard_plan)
 from repro_torch.launch.shardings import (_lookup, compute_spec,
-                                          jax_layout, map_with_path,
+                                          expert_blocks, jax_layout,
+                                          map_with_path,
                                           port_specs, resolve_recipe,
                                           spec_leaves, stage_batch_spec,
                                           tp_roles, train_state_specs,
@@ -345,6 +348,7 @@ class SpmdEngine(FusedEngine):
             roles = tp_roles(carry[li], specs, self.mesh, cfg, self.recipe,
                              lead=1)
             self._roles[li] = roles
+            self._tp.expert_blocks = expert_blocks(roles)
             self._cspecs[li] = map_with_path(
                 lambda p, _: compute_spec(_lookup(specs, p),
                                           _lookup(roles, p),

@@ -347,21 +347,25 @@ def attention_site_flops(cfg, batch: int, seq_len: int,
 
 
 def wkv_site_flops(cfg, batch: int, seq_len: int,
-                   kind: str = "train") -> float:
+                   kind: str = "train", ranks: int = 1) -> float:
     """FLOPs of the routed chunked wkv, over every rwkv6 layer (the count
     of ``repro/kernels/dispatch.py:wkv_site_flops``).  One forward
     ("train"/"decode"): per token per head ``4*Q*K`` intra-chunk (scores
     and values over the Q-token chunk) plus ``4*K*K`` inter-chunk/state
     work.  "bwd" is the chunked backward, twice the forward (one kernel
-    call: its share is all of it)."""
+    call: its share is all of it).  ``ranks``: one rank's share over a
+    ``"model"`` group of that size, whose wkv runs on the rank's H /
+    ranks heads where they divide (``models/ssm.rwkv6_forward``), else
+    on every head."""
     if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
         return 0.0
     K = cfg.ssm.head_dim
+    H = cfg.d_model // K
     T = 1 if kind == "decode" else seq_len
     n_wkv = sum(b == "rwkv6" for b in cfg.block_pattern)
     return n_wkv * sites.wkv_call_flops(
-        batch, T, cfg.d_model // K, K, cfg.ssm.chunk_size,
-        "bwd" if kind == "bwd" else "fwd")
+        batch, T, H // ranks if H % ranks == 0 else H, K,
+        cfg.ssm.chunk_size, "bwd" if kind == "bwd" else "fwd")
 
 
 def wkv_causal_flops(batch: int, seq_len: int, heads: int, head_dim: int,

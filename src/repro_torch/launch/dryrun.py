@@ -16,8 +16,10 @@ outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
   * train: the rank's chunks of the parameters and bf16 Adam moments
     (``launch/shardings.param_specs`` by the recipe) are gathered by
     ``launch/meshcomm.unshard_plan``'s all_gathers -- a leaf that
-    ``shardings.tp_roles`` finds ``column`` or ``row`` over its data axes
-    only, keeping its ``"model"`` chunk, any other whole --
+    ``shardings.tp_roles`` finds ``column``, ``row`` or ``expert`` over
+    its data axes only, keeping its ``"model"`` chunk (an expert stack:
+    the rank's experts, whose dispatch buffers alone it builds), any
+    other whole --
     ``make_grad_step`` runs on the rank's rows (global batch / data ranks)
     inside ``launch.tensor_parallel.model_parallel`` over a counting model
     group (its collectives recorded, nothing sent), a MoE block's loads
@@ -145,9 +147,10 @@ def _chunk_of(t: torch.Tensor, shape) -> torch.Tensor:
 def _placement(cfg, params_abs, mesh, recipe):
     """One rank's placement of the parameter tree: ``(stored chunks,
     compute shapes, the weight gathers of a step or tick, model group)``.
-    A leaf that ``shardings.tp_roles`` finds ``column`` or ``row`` keeps
-    its ``"model"`` chunk for compute and is gathered over its other axes
-    only; any other is gathered whole (``launch/meshcomm.unshard_plan``).
+    A leaf that ``shardings.tp_roles`` finds ``column``, ``row`` or
+    ``expert`` keeps its ``"model"`` chunk for compute and is gathered
+    over its other axes only; any other is gathered whole
+    (``launch/meshcomm.unshard_plan``).
     The model group counts its collectives and sends nothing."""
     sizes = axis_sizes(mesh)
     specs = sh.port_specs(sh.param_specs(sh.jax_layout(params_abs, cfg),
@@ -159,13 +162,14 @@ def _placement(cfg, params_abs, mesh, recipe):
         params_abs)
     chunks = chunk_shapes(params_abs, specs, sizes, lead=0)
     kept = sh.map_with_path(
-        lambda p, _: tuple(None if e == c else e for e, c in zip(
-            sh._lookup(specs, p), sh._lookup(cspecs, p))), params_abs)
+        lambda p, _: sh.kept_spec(sh._lookup(specs, p), sh._lookup(roles, p),
+                                  recipe.tp_axis), params_abs)
     compute = chunk_shapes(params_abs, kept, sizes, lead=0)
     gathers = [g for plan in unshard_plan(chunks, cspecs, sizes, lead=0)
                for g in plan]
     P = sizes.get(recipe.tp_axis, 1)
-    group = ModelGroup(None, P, 0) if P > 1 else None
+    group = (ModelGroup(None, P, 0, expert_blocks=sh.expert_blocks(roles))
+             if P > 1 else None)
     return chunks, compute, gathers, group
 
 

@@ -57,15 +57,20 @@ def gather_plan(items, sizes) -> List[dict]:
     return plan
 
 
-def _gather_dims(spec, lane_axes=(), lead: int = 1) -> List[tuple]:
+def _gather_dims(spec, lane_axes=(), lead: int = 1,
+                 sizes=None) -> List[tuple]:
     """The (dim, axes) a leaf is gathered along, in the order
     :func:`unshard_plan` pops them (the last first): each sharded dim from
     ``lead`` on (1: past an engine carry's lane dim; 0 for a parameter
-    tree), and with ``lane_axes`` the lane dim first."""
+    tree), and with ``lane_axes`` the lane dim first.  With ``sizes``, a
+    dim over axes of one rank in all is left out (nothing to gather: a
+    grid-placed expert stack's "data" part on a mesh of one data rank)."""
     dims = [(d, _axes(e)) for d, e in enumerate(spec)
             if d >= lead and _axes(e)]
     if lane_axes:
         dims.insert(0, (0, tuple(lane_axes)))
+    if sizes is not None:
+        dims = [(d, a) for d, a in dims if math.prod(sizes[x] for x in a) > 1]
     return dims
 
 
@@ -80,7 +85,8 @@ def unshard_plan(tree, specs, sizes, lane_axes=(),
     for path, t in tree_paths(tree):
         shapes.append(list(t.shape))
         dtypes.append(t.dtype)
-        todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead))
+        todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead,
+                                 sizes))
     passes = []
     while any(todo):
         idx = [i for i, dims in enumerate(todo) if dims]
@@ -259,7 +265,8 @@ class MeshComm:
         for path, t in tree_paths(tree):
             paths.append(path)
             cur.append(t)
-            todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead))
+            todo.append(_gather_dims(_lookup(specs, path), lane_axes, lead,
+                                     self.sizes))
         while any(todo):
             idx = [i for i, dims in enumerate(todo) if dims]
             items = [(cur[i],) + todo[i].pop() for i in idx]

@@ -634,29 +634,43 @@ def _drop(spec, i: int) -> Spec:
 class Role:
     """A leaf's part in the tensor-parallel products
     (``launch/tensor_parallel.py``): ``"column"`` (its ``"model"`` dim
-    ``dim`` is an output dim), ``"row"`` (the contracting dim), or
-    ``"gathered"`` (held whole for compute, as before: ``reason`` says
-    why).  Not a tuple or a record, so a tree of roles is walked as the
-    tree it mirrors."""
+    ``dim`` is an output dim), ``"row"`` (the contracting dim),
+    ``"expert"`` (an expert stack whose expert dim ``dim`` is split over
+    a tuple of axes ending in ``"model"``, data-major: after the gather
+    over the other axes, ``blocks`` of them, model rank m holds the
+    experts of chunks m, P + m, 2P + m, ... -- ``tensor_parallel.
+    expert_ids``), or ``"gathered"`` (held whole for compute: ``reason``
+    says why).  A split role may carry a ``reason`` too (a note on the
+    compute it feeds).  Not a tuple or a record, so a tree of roles is
+    walked as the tree it mirrors."""
 
-    __slots__ = ("kind", "dim", "reason")
+    __slots__ = ("kind", "dim", "reason", "blocks")
 
     def __init__(self, kind: str, dim: Optional[int] = None,
-                 reason: str = ""):
+                 reason: str = "", blocks: int = 1):
         self.kind, self.dim, self.reason = kind, dim, reason
+        self.blocks = blocks
 
     @property
     def split(self) -> bool:
-        return self.kind in ("column", "row")
+        return self.kind in ("column", "row", "expert")
 
     def __repr__(self):
         return f"Role({self.kind!r}, {self.dim}, {self.reason!r})"
 
 
+_ROW_COL = {0: "row", 1: "column"}
+
 #: per family, per leaf name: the leaf's dims (after the lane dims) that
 #: a product splits, and how.  Attention weights (d, heads, hd) and (H,
-#: hd, d); the SwiGLU's (d, d_ff) and (d_ff, d); the embedding (V, d); a
-#: head's unembedding (d, V), split over the vocab only.
+#: hd, d); the SwiGLU's (d, d_ff) and (d_ff, d) (a MoE block's shared
+#: expert too); the embedding (V, d); a head's unembedding (d, V), split
+#: over the vocab only.  MLA's latent projections (d, rank) and per-head
+#: expansions (rank, H, hd); RWKV6's (d, d) projections and decay LoRA,
+#: the channel mix's three; Mamba2's in_proj (d, z|xBC|dt) and out_proj;
+#: an expert stack's (E, d, f) / (E, f, d) split over its hidden dims
+#: (the data layout; the grid layout is the ``expert`` role).  A head-dim
+#: split (dim 2 of a per-head weight) enters no split product.
 _TP_DIMS = {
     "attn": {"wq": {0: "row", 1: "column"}, "wk": {0: "row", 1: "column"},
              "wv": {0: "row", 1: "column"}, "wo": {0: "row", 2: "column"},
@@ -666,15 +680,33 @@ _TP_DIMS = {
             "w_down": {0: "row", 1: "column"}, "b_up": {0: "column"}},
     "embed": {"table": {0: "column"}},
     "head": {"w": {1: "column"}},
+    "mla": {"w_dq": _ROW_COL, "w_dkv": _ROW_COL, "w_uq": _ROW_COL,
+            "w_uk": _ROW_COL, "w_uv": _ROW_COL,
+            "wo": {0: "row", 2: "column"}},
+    "rwkv6": {n: _ROW_COL for n in ("wr", "wk", "wv", "wg", "wo",
+                                    "w_lora_a", "w_lora_b")},
+    "rwkv_cm": {n: _ROW_COL for n in ("wk", "wv", "wr")},
+    "mamba2": {"in_proj": _ROW_COL, "out_proj": _ROW_COL},
+    "moe": {n: {1: "row", 2: "column"} for n in ("w_gate", "w_up",
+                                                 "w_down")},
 }
 
-#: why a family keeps its "model" chunks gathered (ROADMAP.md item 9b-4)
+#: why a leaf of a covered family is held whole for compute
+_KEPT_WHOLE = {
+    "rwkv6": {"mix": "the token-shift mix is elementwise: no product "
+                     "splits it",
+              "u": "the wkv's bonus is elementwise: narrowed to the "
+                   "rank's heads where the wkv runs on them"},
+    "rwkv_cm": {"mix": "the token-shift mix is elementwise: no product "
+                       "splits it"},
+    "mamba2": {n: "the depthwise conv and the chunked SSD scan stay whole"
+               for n in ("conv_w", "conv_b", "A_log", "dt_bias", "D")},
+    "moe": {"router": "the router's logits decide a discrete top-k: a "
+                      "split sum would reorder them"},
+}
+
+#: why a family keeps its "model" chunks gathered
 _NOT_COVERED = {
-    "mla": "MLA's projections are not tensor-parallel (ROADMAP 9b-4)",
-    "rwkv6": "RWKV6 time-mix is not tensor-parallel (ROADMAP 9b-4)",
-    "mamba2": "Mamba2's projections are not tensor-parallel (ROADMAP 9b-4)",
-    "moe": "expert stacks are not tensor-parallel (ROADMAP 9b-4)",
-    "rwkv_cm": "RWKV6 channel mix is not tensor-parallel (ROADMAP 9b-4)",
     "frontend": "the stub frontend's projector stays whole",
     "norm": "a norm scale stays whole",
 }
@@ -713,7 +745,8 @@ def _families(cfg, path) -> Tuple[Optional[str], str]:
     if "mixer" in keys:
         return mixer, name
     if "ffn" in keys:
-        return ffn, name
+        # a MoE block's shared expert is a SwiGLU
+        return ("mlp" if ffn == "moe" and "shared" in keys else ffn), name
     return "norm", name
 
 
@@ -723,28 +756,38 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
     with ``.shape``) placed by ``specs`` on ``mesh``: its ``"model"`` dim
     (``recipe.tp_axis``) read against the family's products
     (:data:`_TP_DIMS`), the ``lead`` lane dims skipped.  A leaf that a
-    product of this slice splits is ``column`` or ``row``; any other,
-    ``gathered`` with its reason.  GQA's query heads go column only where
-    each rank's heads read whole KV groups (or one KV head), and a bias
-    only beside its column-parallel weight."""
+    product splits is ``column`` or ``row``, an expert stack over the
+    grid ``expert``; any other, ``gathered`` with its reason.  GQA's query
+    heads go column only where each rank's heads read whole KV groups (or
+    one KV head), and a bias only beside its column-parallel weight.  An
+    RWKV6 projection whose chunk does not hold whole heads (P does not
+    divide H) says that the wkv runs whole."""
     recipe = recipe or default_recipe(cfg, mesh)
     ax = recipe.tp_axis
-    P = axis_sizes(mesh).get(ax, 1)
+    sizes = axis_sizes(mesh)
+    P = sizes.get(ax, 1)
 
     def first(path, t) -> Role:
         spec = tuple(_lookup(specs, path))
+        fam, name = _families(cfg, path)
         dims = [d for d, e in enumerate(spec) if e == ax]
         if not dims:
-            if any(isinstance(e, tuple) and ax in e for e in spec):
-                return Role("gathered", reason=f"split over a tuple of "
-                            f"axes {spec}")
-            return Role("gathered", reason="no dim over the model axis")
+            tup = [d for d, e in enumerate(spec)
+                   if isinstance(e, tuple) and ax in e]
+            if not tup:
+                return Role("gathered", reason="no dim over the model axis")
+            d = tup[0]
+            if (fam == "moe" and name in _TP_DIMS["moe"] and d == lead
+                    and spec[d][-1] == ax):
+                return Role("expert", d, blocks=math.prod(
+                    sizes.get(a, 1) for a in spec[d][:-1]))
+            return Role("gathered", d, f"split over a tuple of axes {spec}")
         d = dims[0]
-        fam, name = _families(cfg, path)
         rules = _TP_DIMS.get(fam, {}).get(name)
         if rules is None:
-            return Role("gathered", d, _NOT_COVERED.get(
-                fam, f"{fam} leaf {name!r} is not tensor-parallel"))
+            why = _KEPT_WHOLE.get(fam, {}).get(name) or _NOT_COVERED.get(
+                fam, f"{fam} leaf {name!r} is not tensor-parallel")
+            return Role("gathered", d, why)
         kind = rules.get(d - lead)
         if kind is None:
             return Role("gathered", d, f"{name}'s dim {d - lead} over the "
@@ -755,6 +798,9 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
             if per % G and G % per:
                 return Role("gathered", d, f"{per} query heads a rank do "
                             f"not read whole KV groups of {G}")
+        if fam == "rwkv6" and cfg.num_heads % P:
+            return Role(kind, d, f"the wkv runs whole: {cfg.num_heads} "
+                        f"heads do not divide over {P} ranks")
         return Role(kind, d)
 
     roles = map_with_path(first, tree)
@@ -772,8 +818,34 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
 
 def compute_spec(spec, role: Role, tp_axis: str = "model") -> Spec:
     """The spec a leaf is gathered to for compute: a split leaf keeps its
-    ``tp_axis`` chunk (that entry dropped), any other is gathered
-    whole."""
+    ``tp_axis`` chunk (that entry dropped, or ``tp_axis`` dropped from a
+    tuple entry: an expert stack is gathered over its other axes only),
+    any other is gathered whole."""
     if not role.split:
         return tuple(spec)
-    return tuple(None if e == tp_axis else e for e in spec)
+    out = []
+    for e in spec:
+        if isinstance(e, tuple) and tp_axis in e:
+            rest = tuple(a for a in e if a != tp_axis)
+            e = rest if len(rest) > 1 else (rest[0] if rest else None)
+        out.append(None if e == tp_axis else e)
+    return tuple(out)
+
+
+def kept_spec(spec, role: Role, tp_axis: str = "model") -> Spec:
+    """The split a leaf keeps for compute: ``tp_axis`` where its spec
+    holds it (alone or in a tuple) and the role is split, else None --
+    the compute chunk's shape is the whole shape cut by this spec."""
+    return tuple(tp_axis if role.split and (
+        e == tp_axis or (isinstance(e, tuple) and tp_axis in e)) else None
+        for e in spec)
+
+
+def expert_blocks(roles) -> int:
+    """The ``blocks`` of the expert stacks in a tree of roles (1 where no
+    leaf has the ``expert`` role): the model group's
+    ``ModelGroup.expert_blocks``."""
+    for _, r in tree_paths(roles):
+        if r.kind == "expert":
+            return r.blocks
+    return 1

@@ -42,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -56,12 +56,15 @@ class ModelGroup:
     """The ranks of one ``"model"`` group: ``group`` the process group
     (``None``: count only), ``size`` ranks, this rank the ``index``-th
     (its chunk of every split dim).  ``bytes`` sums the collectives run
-    on it by kind."""
+    on it by kind.  ``expert_blocks``: how many blocks of experts a
+    grid-placed expert stack holds on this rank after its gather over
+    the data axes (``shardings.Role``, :func:`expert_ids`)."""
     group: object
     size: int
     index: int
     bytes: Dict[str, float] = field(default_factory=lambda: {
         "all_gather": 0.0, "all_reduce": 0.0})
+    expert_blocks: int = 1
 
     @property
     def total_bytes(self) -> float:
@@ -260,23 +263,24 @@ def scatter_in(x, g, dim: int = -1):
 
 def linear(x: torch.Tensor, w: torch.Tensor, k: int, n: int,
            split_in: bool = False) -> Tuple[torch.Tensor, bool]:
-    """``x @ w`` for a weight of whole shape (k, n) held as this rank's
-    chunk -- rows (``row``), columns (``column``) or whole -- with ``x``
-    (..., k) whole, or (..., k / P) this rank's chunk when ``split_in``.
-    Returns ``(y, split)``: ``y`` whole, or this rank's chunk of its n
-    columns when ``split``.  A row-parallel product ends in one
-    all-reduce; a column-parallel one leaves its output split.  Without
-    an active group this is ``x @ w``."""
+    """``x @ w`` for a weight of whole shape (..., k, n) (leading dims
+    batched: an expert stack) held as this rank's chunk -- rows
+    (``row``), columns (``column``) or whole -- with ``x`` (..., k)
+    whole, or (..., k / P) this rank's chunk when ``split_in``.  Returns
+    ``(y, split)``: ``y`` whole, or this rank's chunk of its n columns
+    when ``split``.  A row-parallel product ends in one all-reduce; a
+    column-parallel one leaves its output split.  Without an active group
+    this is ``x @ w``."""
     g = active()
     if g is None:
         return x @ w, False
-    if w.shape[0] != k:                                   # row
+    if w.shape[-2] != k:                                  # row
         if not split_in:
             x = scatter_in(x, g)
         return reduce_out(x @ w, g), False
     if split_in:
         x = gather_out(x, g)
-    if w.shape[1] != n:                                   # column
+    if w.shape[-1] != n:                                  # column
         return copy_in(x, g) @ w, True
     return x @ w, False
 
@@ -293,6 +297,28 @@ def local(b: torch.Tensor, n_local: int, dim: int = -1) -> torch.Tensor:
     if b.shape[dim] == n_local:
         return b
     return scatter_in(b, active(), dim)
+
+
+def sum_over_group(x: torch.Tensor, g: ModelGroup) -> torch.Tensor:
+    """``x`` (each rank's partial sum, e.g. of a norm's squares over its
+    chunk of a split dim) summed over the group, where every rank goes on
+    with the sum for its own chunk: one all-reduce forward and one
+    backward (:class:`ReduceOut` then :class:`CopyIn`)."""
+    return copy_in(reduce_out(x, g), g)
+
+
+def expert_ids(num_experts: int, n_local: int) -> List[int]:
+    """The expert ids of this rank's ``n_local`` experts of a stack placed
+    over the grid (``shardings.Role`` ``"expert"``): chunk ``b * P + i``
+    of each of the ``expert_blocks`` blocks, in the order the gather over
+    the data axes lays them out."""
+    g = active()
+    D, P = g.expert_blocks, g.size
+    n = num_experts // (D * P)
+    if n * D * P != num_experts or n * D != n_local:
+        raise ValueError(f"{n_local} experts a rank do not split "
+                         f"{num_experts} over {D} x {P} chunks")
+    return [(b * P + g.index) * n + j for b in range(D) for j in range(n)]
 
 
 def head_range(heads: int, kv_heads: int, g: ModelGroup) -> Tuple[int, int]:

@@ -25,8 +25,9 @@ parts' outputs by their LSEs (:func:`combine_parts`), the reduction XLA's
 partitioner emits for a contraction over a sharded dim.  No rank gathers
 the keys.
 
-Over a ``"model"`` group (``launch/tensor_parallel.py``) GQA and cross
-attention multiply with each rank's chunk of their weights.  Under
+Over a ``"model"`` group (``launch/tensor_parallel.py``) GQA, cross
+attention and MLA (:func:`mla_forward`) multiply with each rank's chunk
+of their weights.  Under
 ``megatron`` ``wq``/``wk``/``wv`` are column-parallel over heads and
 ``wo`` row-parallel: each rank runs the attention kernels on its query
 heads and the KV heads they read (replicated ``wk``/``wv``, where H_kv
@@ -299,22 +300,80 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                                   dtype=dtype, device=device)}
 
 
+def _latent(x, w, n: int):
+    """x (B, T, d) by a latent down-projection of whole shape (d, n), held
+    whole or as this rank's chunk of either dim -> (B, T, n) whole: the
+    norm and the rope part read the whole latent."""
+    y, split = tp.linear(x, w, x.shape[-1], n)
+    return tp.whole(y, split)
+
+
 def _mla_project_q(params, x, positions, cfg):
+    """-> ``(q_nope, q_rope, split)``: every head, or this rank's heads
+    where ``w_uq`` is column-parallel over them (``split``)."""
     m = cfg.mla
-    cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
-    q = _project(cq, params["w_uq"])[0]
+    cq = rmsnorm(params["q_norm"], _latent(x, params["w_dq"],
+                                           m.q_lora_rank), cfg.norm_eps)
+    q, split = _project(cq, params["w_uq"], cfg.num_heads)
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
-    return q[..., :m.qk_nope_head_dim], q_rope
+    return q[..., :m.qk_nope_head_dim], q_rope, split
 
 
 def _mla_project_kv(params, x, positions, cfg):
     m = cfg.mla
-    dkv = x @ params["w_dkv"]
+    dkv = _latent(x, params["w_dkv"],
+                  m.kv_lora_rank + m.qk_rope_head_dim)
     ckv = rmsnorm(params["kv_norm"], dkv[..., :m.kv_lora_rank], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., m.kv_lora_rank:].unsqueeze(-2), positions,
                         cfg.rope_theta)[..., 0, :]
     return ckv, k_rope                            # (B,T,r), (B,T,rope)
+
+
+def _own_heads(w, dim: int, heads: int):
+    """This rank's heads of a per-head weight held whole (its cotangent
+    summed over the group)."""
+    g = tp.active()
+    n = heads // g.size
+    return tp.copy_in(w, g).narrow(dim, g.index * n, n)
+
+
+def _absorb_q(q, w, mine: bool, heads: int, rank: int):
+    """q_abs = q_nope (B,T,h,k) through ``w_uk`` (rank, H, k) -> (B,T,h,
+    rank), over this rank's heads where ``mine`` (q holds them) or every
+    head; ``w_uk`` held whole, as its chunk of the heads, or of the latent
+    (then q holds every head, and q_abs's latent chunks are gathered)."""
+    g = tp.active()
+    if g is None:
+        return torch.einsum("bthk,rhk->bthr", q, w)
+    if w.shape[0] != rank:
+        return tp.gather_out(torch.einsum("bthk,rhk->bthr",
+                                          tp.copy_in(q, g), w), g, -1)
+    if w.shape[1] != heads:
+        if mine:
+            return torch.einsum("bthk,rhk->bthr", q, w)
+        return tp.gather_out(torch.einsum(
+            "bthk,rhk->bthr", tp.scatter_in(q, g, -2), w), g, -2)
+    return torch.einsum("bthk,rhk->bthr", q,
+                        _own_heads(w, 1, heads) if mine else w)
+
+
+def _absorb_out(o, w, mine: bool, heads: int, rank: int):
+    """The latent output o (B,T,h,rank) through ``w_uv`` (rank, H, v) ->
+    ``(out (B,T,h',v), split)``, ``split``: out holds this rank's heads
+    (o holds them where ``mine``, else every head)."""
+    g = tp.active()
+    if g is None:
+        return torch.einsum("bthr,rhk->bthk", o, w), False
+    if w.shape[0] != rank:
+        return tp.reduce_out(torch.einsum(
+            "bthr,rhk->bthk", tp.scatter_in(o, g, -1), w), g), False
+    if w.shape[1] != heads:
+        if not mine:
+            o = tp.scatter_in(o, g, -2)
+        return torch.einsum("bthr,rhk->bthk", o, w), True
+    return torch.einsum("bthr,rhk->bthk", o,
+                        _own_heads(w, 1, heads) if mine else w), mine
 
 
 def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -329,18 +388,34 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
     latent through ``w_uk``, the output through ``w_uv``), each row over
     its own valid prefix.  (The JAX package takes the decode branch for a
     prefill with a cache too, where each prompt token sees slot 0 only;
-    ROADMAP.md Queue 3.)"""
+    ROADMAP.md Queue 3.)
+
+    Over a ``"model"`` group each projection multiplies with this rank's
+    chunk (``shardings.tp_roles``): the latent down-projections' outputs
+    are gathered before their norms; ``w_uq``/``w_uk``/``w_uv`` split
+    over the heads give this rank's heads (``wo`` row-parallel over
+    them), split over the latent they contract a chunk and reduce.  The
+    weight-absorbed decode runs on this rank's heads where the queries and
+    both absorbed weights hold them and the ring is whole; over a ring
+    split along its sequence it attends over this rank's part for every
+    head (the parts combined by their LSEs) and keeps its own heads for
+    ``w_uv`` and ``wo``, as GQA does."""
     m = cfg.mla
+    H = cfg.num_heads
     B, T, _ = x.shape
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope = _mla_project_q(params, x, positions, cfg)
+    q_nope, q_rope, qs = _mla_project_q(params, x, positions, cfg)
     ckv, k_rope = _mla_project_kv(params, x, positions, cfg)
 
     if cache is None or T > 1:
-        k_nope = _project(ckv, params["w_uk"])[0]
-        v = _project(ckv, params["w_uv"])[0]
+        k_nope, ks = _project(ckv, params["w_uk"], H)
+        v, vs = _project(ckv, params["w_uv"], H)
+        k_nope = _heads_for(k_nope, ks, qs, H, H)
+        v = _heads_for(v, vs, qs, H, H)
+        # the shared rope key enters every rank's heads
+        kr = tp.copy_in(k_rope, tp.active()) if qs else k_rope
         logits = (torch.einsum("bthk,bshk->bhts", q_nope, k_nope)
-                  + torch.einsum("bthk,bsk->bhts", q_rope, k_rope)
+                  + torch.einsum("bthk,bsk->bhts", q_rope, kr)
                   ).float() * scale
         qpos = torch.arange(T, device=x.device)[:, None]
         kpos = torch.arange(T, device=x.device)[None, :]
@@ -350,6 +425,7 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhts,bshk->bthk", probs, v)
+        split = qs
         if cache is not None:
             _ring_write(cache, {"ckv": ckv, "k_rope": k_rope}, cache_len)
     else:
@@ -360,8 +436,14 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    else _part_valid(cache_len, part, W))
         mask = (torch.arange(W, device=x.device)[None, :]
                 < n_valid[:, None])[:, None, None, :]          # (B,1,1,W)
+        r = m.kv_lora_rank
+        mine = (qs and part is None and params["w_uk"].shape[0] == r
+                and params["w_uv"].shape[0] == r)
+        if qs and not mine:
+            q_nope = tp.whole(q_nope, True, dim=-2)
+            q_rope = tp.whole(q_rope, True, dim=-2)
         # q_abs[b,t,h,:] = w_uk[:, h, :] @ q_nope[b,t,h,:]
-        q_abs = torch.einsum("bthk,rhk->bthr", q_nope, params["w_uk"])
+        q_abs = _absorb_q(q_nope, params["w_uk"], mine, H, r)
         logits = (torch.einsum("bthr,bsr->bhts", q_abs, cache["ckv"])
                   + torch.einsum("bthk,bsk->bhts", q_rope, cache["k_rope"])
                   ).float() * scale
@@ -372,10 +454,9 @@ def mla_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
             # this rank's part of the latent ring, combined over the parts
             o_lat = combine_parts(o_lat, torch.logsumexp(logits, dim=-1),
                                   n_valid > 0, part)
-        out = torch.einsum("bthr,rhk->bthk", o_lat, params["w_uv"])
-    H, hv, d = params["wo"].shape
-    out = out.reshape(B, T, H * hv) @ params["wo"].reshape(H * hv, d)
-    return out.to(x.dtype), cache
+        out, split = _absorb_out(o_lat, params["w_uv"], mine, H, r)
+    return _out_proj(out, split, params["wo"], H, cfg.d_model).to(x.dtype), \
+        cache
 
 
 # ---------------------------------------------------------------------------

@@ -30,9 +30,10 @@ def init_mlp(cfg: ModelConfig, generator, device, d_ff: int = 0) -> dict:
 
 def mlp_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 d_ff: int = 0) -> torch.Tensor:
-    """``d_ff``: the whole hidden width, where a block's FFN weights may be
-    this rank's chunks over an active ``"model"`` group; 0 (the MoE's
-    shared expert): the weights are held whole."""
+    """``d_ff``: the whole hidden width, where the weights may be this
+    rank's chunks over an active ``"model"`` group (a block's FFN, a MoE
+    block's shared expert, an expert stack's batched product); 0: the
+    weights are held whole."""
     act = activation(cfg.act)
     d = x.shape[-1]
     d_ff = d_ff or params["w_gate"].shape[1]

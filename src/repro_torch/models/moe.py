@@ -30,6 +30,19 @@ an entry's rank within its expert is the earlier ranks' load plus its
 local rank -- the order the one-rank stable sort gives contiguous row
 blocks.  Each rank then computes its own entries' expert outputs.
 
+Over a ``"model"`` group (``launch/tensor_parallel.py``) the routing is
+computed whole and alike on every rank of the group (its tokens are the
+same there), so no token crosses ranks.  An expert stack placed over the
+grid (``shardings.Role`` ``"expert"``: E over ("data", "model")) holds
+this rank's experts (``tensor_parallel.expert_ids``): the rank builds the
+dispatch buffer of those experts alone, runs their products, combines its
+own entries' contributions and sums the partial outputs over the group
+in one all-reduce (:func:`sum_expert_parts`), which reorders the one-rank
+ascending-expert addition.  An expert stack in the data layout (E over
+"data", a hidden dim over "model") multiplies with its chunks through
+``tensor_parallel.linear`` over the batched product.  The shared expert
+is a SwiGLU with the MLP's rules; the router stays whole.
+
 ``moe_forward_dense`` is the O(N * E) oracle (no capacity), for the tests.
 
 The aux load-balance loss follows Switch: E * sum_e f_e * P_e * weight,
@@ -44,6 +57,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import sharding_ctx, sync_stats
 from repro_torch.models.common import activation, fan_in_init
 from repro_torch.models.mlp import init_mlp, mlp_forward
@@ -179,39 +193,57 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     kept = torch.where(total > C, C - 1, total)              # (G, E)
     kept = torch.minimum((kept - before).clamp(min=0), load)
 
-    # each expert's C slots gather their rows from the sorted entries
+    # each expert's C slots gather their rows from the sorted entries;
+    # over a model group whose expert stacks are split over the grid, only
+    # this rank's experts (the routing above is whole and the same on
+    # every rank of the group: the group's tokens are the same)
+    g = tp.active()
+    n_loc = params["w_gate"].shape[0]
+    mine = None
+    if g is not None and n_loc != E:
+        mine = torch.tensor(tp.expert_ids(E, n_loc), device=x.device)
+        xg, topw = tp.copy_in(xg, g), tp.copy_in(topw, g)
     c_idx = torch.arange(C, device=x.device)
     valid = c_idx < kept[..., None]                          # (G, E, C)
-    src = torch.where(valid, starts[..., None] + c_idx, 0).reshape(G, E * C)
-    entry = order.gather(-1, src)                            # (G, E*C)
+    src = torch.where(valid, starts[..., None] + c_idx, 0)
+    if mine is not None:
+        valid, src = valid[:, mine], src[:, mine]            # (G, n_loc, C)
+    entry = order.gather(-1, src.reshape(G, n_loc * C))      # (G, n_loc*C)
     # rows by entry, not by token: each entry is gathered at most once, so
     # the backward scatters to unique rows (a token's k copies are summed
     # by the expand's backward, a plain reduction)
     xe = xg[:, :, None, :].expand(G, N, k, d).reshape(G, N * k, d)
-    rows = xe.gather(1, entry[..., None].expand(G, E * C, d))
-    rows = torch.where(valid.reshape(G, E * C, 1), rows, 0)
+    rows = xe.gather(1, entry[..., None].expand(G, n_loc * C, d))
+    rows = torch.where(valid.reshape(G, n_loc * C, 1), rows, 0)
     rows = sharding_ctx.constrain(rows, None, "data", "model")
-    # the groups folded into each expert's capacity axis: (E, G*C, d)
-    buf = rows.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    # the groups folded into each expert's capacity axis: (n_loc, G*C, d)
+    buf = rows.reshape(G, n_loc, C, d).transpose(0, 1).reshape(
+        n_loc, G * C, d)
     # expert-parallel placement of the dispatch buffer: the full grid, then
     # data-only expert parallelism (the JAX package's candidates)
     buf = sharding_ctx.constrain(buf, [("data", "model"), "data"], None,
                                  [None, "model"])
 
-    # ---- expert FFNs, one batched product over E ---------------------------
-    act = activation(cfg.act)
-    h = act(torch.matmul(buf, params["w_gate"])) * torch.matmul(
-        buf, params["w_up"])
-    eout = torch.matmul(h, params["w_down"])                 # (E, G*C, d)
+    # ---- expert FFNs, one batched product over the experts (the data
+    # layout's chunks of the hidden dims through tensor_parallel.linear)
+    eout = mlp_forward({w: params[w] for w in ("w_gate", "w_up", "w_down")},
+                       buf, cfg, d_ff=m.d_expert)            # (n_loc, G*C, d)
     eout = sharding_ctx.constrain(eout, [("data", "model"), "data"], None,
                                   [None, "model"])
-    eout = eout.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    eout = eout.reshape(n_loc, G, C, d).transpose(0, 1).reshape(
+        G, n_loc * C, d)
 
     # ---- combine: each entry's output, added in ascending expert order -----
     pos = torch.argsort(order, dim=-1)                       # entry -> sorted
     rank = pos - starts.gather(-1, flat_e)
     keep = rank < kept.gather(-1, flat_e)
-    slot = torch.where(keep, flat_e * C + rank, 0)
+    at = flat_e
+    if mine is not None:
+        local = torch.full((E,), -1, dtype=torch.long, device=x.device)
+        local[mine] = torch.arange(n_loc, device=x.device)
+        at = local[flat_e]
+        keep = keep & (at >= 0)
+    slot = torch.where(keep, at * C + rank, 0)
     contrib = eout.gather(1, slot[..., None].expand(G, N * k, d))
     w = topw.reshape(G, N * k) * keep.to(x.dtype)
     contrib = (contrib * w[..., None]).reshape(G, N, k, d)
@@ -220,10 +252,20 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]
+    if mine is not None:
+        out = sum_expert_parts(out, g)
     out = out.reshape(B, T, d)
     if "shared" in params:
-        out = out + mlp_forward(params["shared"], x, cfg)
+        out = out + mlp_forward(params["shared"], x, cfg,
+                                d_ff=m.d_shared_expert * m.num_shared_experts)
     return out.to(x.dtype), aux.mean()
+
+
+def sum_expert_parts(out: torch.Tensor, g) -> torch.Tensor:
+    """The combined outputs of each rank's experts summed over the model
+    group (a module function: ``parity.unsummed_expert_parts`` replaces
+    it)."""
+    return tp.reduce_out(out, g)
 
 
 def moe_forward_dense(params: dict, x: torch.Tensor, cfg: ModelConfig

@@ -6,12 +6,13 @@ sizes, and model code pins hot intermediate activations (the MoE dispatch
 buffers) with ``lax.with_sharding_constraint``.  The port keeps the API
 and the rule that chooses an axis per dim (:func:`constrained_spec`).  The
 port splits its compute explicitly instead: over ``"model"`` the products
-of attention, the SwiGLU and the vocab heads run on each rank's chunks of
-their weights (``launch/tensor_parallel.py``), their activations whole or
-split along their last dim as each product needs; the MoE dispatch
-buffers and the other mixers (ROADMAP.md item 9b-4) stay whole on every
-rank.  So :func:`constrain` returns ``x`` itself, inside the context or
-not: the chosen spec says where the JAX package would place it.
+of every mixer, the SwiGLU, the expert stacks and the vocab heads run on
+each rank's chunks of their weights (``launch/tensor_parallel.py``),
+their activations whole or split as each product needs; a grid-placed
+expert stack's dispatch buffer holds this rank's experts alone
+(``models/moe.py``).  So :func:`constrain` returns ``x`` itself, inside
+the context or not: the chosen spec says where the JAX package would
+place it.
 """
 from __future__ import annotations
 

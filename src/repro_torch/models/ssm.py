@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.common import fan_in_init, init_rmsnorm, rmsnorm
 
 
@@ -94,8 +95,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _mamba2_split(params, x, cfg):
-    _, d_inner, _, conv_ch = _mamba_dims(cfg)
-    proj = x @ params["in_proj"]
+    """z, xBC, dt from ``in_proj`` (d, 2 d_inner + 2 S + H), held whole or
+    as this rank's chunk of either dim: a column chunk straddles z / xBC /
+    dt, so its output is gathered (the conv and the SSD scan run whole)."""
+    s, d_inner, nheads, conv_ch = _mamba_dims(cfg)
+    proj, split = tp.linear(x, params["in_proj"], x.shape[-1],
+                            2 * d_inner + 2 * s.d_state + nheads)
+    proj = tp.whole(proj, split)
     return (proj[..., :d_inner], proj[..., d_inner:d_inner + conv_ch],
             proj[..., d_inner + conv_ch:])                  # z, xBC, dt
 
@@ -207,8 +213,9 @@ def mamba2_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     y = y.reshape(Bsz, T, d_inner) * F.silu(z)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
-    out = y @ params["out_proj"].to(y.dtype)
-    return out.to(x.dtype), cache
+    out, split = tp.linear(y, params["out_proj"].to(y.dtype), d_inner,
+                           cfg.d_model)
+    return tp.whole(out, split).to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +229,17 @@ def _rwkv_dims(cfg: ModelConfig):
     return s, cfg.d_model // K, K
 
 
+def _lora_dim(d: int) -> int:
+    """The decay LoRA's width."""
+    return max(32, d // 16)
+
+
 def init_rwkv6(cfg: ModelConfig, generator, device) -> dict:
     """RWKV6 time mix: token-shift lerp, r/k/v/g projections, data-dependent
     per-channel decay w via a LoRA on the shifted input, bonus u."""
     _, H, K = _rwkv_dims(cfg)
     d, dt = cfg.d_model, cfg.param_dtype
-    lora = max(32, d // 16)
+    lora = _lora_dim(d)
     init = lambda shape: fan_in_init(shape, dt, generator, device)  # noqa: E731
     return {
         "mix": torch.full((5, d), 0.5, dtype=dt, device=device),  # r,k,v,g,w
@@ -306,42 +318,96 @@ def _wkv_chunked(r, k, v, log_w, u, chunk: int):
     return y[:, :T0], S
 
 
+def _heads(t: torch.Tensor, split: bool, local: bool) -> torch.Tensor:
+    """A projection's output (..., d), whole or this rank's chunk
+    (``split``), as the wkv reads it: this rank's heads where ``local``,
+    else every head."""
+    if not local:
+        return tp.whole(t, split)
+    return t if split else tp.scatter_in(t, tp.active())
+
+
+def _norm_squares(s: torch.Tensor) -> torch.Tensor:
+    """A split row's sums of squares summed over the model group (a module
+    function: ``parity.per_rank_norm_squares`` replaces it)."""
+    return tp.sum_over_group(s, tp.active())
+
+
+def _out_norm(params: dict, y: torch.Tensor, d: int, eps: float
+              ) -> torch.Tensor:
+    """RMSNorm over the whole ``d`` of ``y``, held whole or as this rank's
+    chunk of its last dim (its sum of squares taken over the group, the
+    scale narrowed to the chunk)."""
+    if y.shape[-1] == d:
+        return rmsnorm(params, y, eps)
+    yf = y.float()
+    var = _norm_squares(yf.square().sum(dim=-1, keepdim=True)) / d
+    scale = tp.local(params["scale"], y.shape[-1]).float()
+    return (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
 def rwkv6_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   cache: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Train (no cache), chunked prefill (T > 1) or a single-token decode
+    step; the cache is updated in place.
+
+    Over a ``"model"`` group each projection multiplies with this rank's
+    chunk (``shardings.tp_roles``).  Where the group's size divides H, the
+    wkv of train and prefill runs on this rank's H/P heads: r, k, v, g and
+    the decay reach it as this rank's chunk (a whole output cut to it),
+    ``u`` narrowed; the output norm takes its sum of squares over the
+    group and ``wo`` reads the chunk row-parallel.  A prefill gathers its
+    final state's heads into the cache, whose state stays whole.  A decode
+    step, and any step where P does not divide H, runs every head: the
+    split outputs are gathered (a decode's r, k, v, w are (B, 1, d), the
+    state it would otherwise gather B x H x K x K)."""
     s, H, K = _rwkv_dims(cfg)
     B, T, d = x.shape
+    g = tp.active()
+    local = (g is not None and H % g.size == 0
+             and (cache is None or T > 1))
+    h = H // g.size if local else H
     last = cache["tm_last"] if cache is not None else None
     xs = _token_shift(x, last)
     mixed = [x + m * (xs - x) for m in params["mix"]]       # r,k,v,g,w inputs
-    r = (mixed[0] @ params["wr"]).view(B, T, H, K)
-    k = (mixed[1] @ params["wk"]).view(B, T, H, K)
-    v = (mixed[2] @ params["wv"]).view(B, T, H, K)
-    g = F.silu(mixed[3] @ params["wg"])
-    w_dd = (params["w_base"]
-            + ((mixed[4] @ params["w_lora_a"]) @ params["w_lora_b"]).float())
-    log_w = -torch.exp(w_dd).view(B, T, H, K)               # < 0
+
+    def proj(i, name):
+        return _heads(*tp.linear(mixed[i], params[name], d, d), local)
+
+    r = proj(0, "wr").view(B, T, h, K)
+    k = proj(1, "wk").view(B, T, h, K)
+    v = proj(2, "wv").view(B, T, h, K)
+    gate = F.silu(proj(3, "wg"))
+    lora = _lora_dim(d)
+    a, asplit = tp.linear(mixed[4], params["w_lora_a"], d, lora)
+    dd = _heads(*tp.linear(a, params["w_lora_b"], lora, d, split_in=asplit),
+                local)
+    w_dd = tp.local(params["w_base"], dd.shape[-1]) + dd.float()
+    log_w = -torch.exp(w_dd).view(B, T, h, K)               # < 0
+    u = tp.local(params["u"], h, dim=0)
 
     if cache is None or T > 1:
         # train / chunked prefill on the cfg.kernels backend
-        y, ST = dispatch.backend_for(cfg).wkv(r, k, v, log_w, params["u"],
+        y, ST = dispatch.backend_for(cfg).wkv(r, k, v, log_w, u,
                                               chunk=s.chunk_size)
         if cache is not None:
             cache["tm_last"].copy_(x[:, -1:])
-            cache["state"].copy_(ST)
+            cache["state"].copy_(tp.whole(ST, local, dim=1))
     else:
         S = cache["state"]                                  # (B, H, K, V)
         r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
         w1 = torch.exp(log_w[:, 0])                         # (B, H, K)
         kv = k1[..., None] * v1[..., None, :]
         y = torch.einsum("bhk,bhkv->bhv", r1,
-                         S + params["u"][None, :, :, None] * kv)[:, None]
+                         S + u[None, :, :, None] * kv)[:, None]
         cache["state"].copy_(S * w1[..., None] + kv)
         cache["tm_last"].copy_(x)
 
-    y = y.reshape(B, T, d).to(x.dtype) * g.to(x.dtype)
-    y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
-    return (y @ params["wo"]).to(x.dtype), cache
+    y = y.reshape(B, T, h * K).to(x.dtype) * gate.to(x.dtype)
+    y = _out_norm(params["out_norm"], y, d, cfg.norm_eps)
+    out, split = tp.linear(y, params["wo"], d, d, split_in=local)
+    return tp.whole(out, split).to(x.dtype), cache
 
 
 # --- RWKV channel mix (the FFN of an RWKV block) ---------------------------
@@ -359,9 +425,16 @@ def init_rwkv_cm(cfg: ModelConfig, generator, device) -> dict:
 
 def rwkv_cm_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Over a ``"model"`` group each of the three products multiplies with
+    this rank's chunk through ``tensor_parallel.linear`` (megatron: ``wk``
+    column-parallel over d_ff, the hidden gathered for ``wv``'s
+    column-parallel output, ``wr`` whole)."""
+    d = x.shape[-1]
     xs = _token_shift(x, last)
     xk = x + params["mix"][0] * (xs - x)
     xr = x + params["mix"][1] * (xs - x)
-    k = torch.square(F.relu(xk @ params["wk"]))
-    r = torch.sigmoid(xr @ params["wr"])
-    return (r * (k @ params["wv"])).to(x.dtype)
+    k, ks = tp.linear(xk, params["wk"], d, cfg.d_ff)
+    k = torch.square(F.relu(k))
+    v, vs = tp.linear(k, params["wv"], cfg.d_ff, d, split_in=ks)
+    r, rs = tp.linear(xr, params["wr"], d, d)
+    return (torch.sigmoid(tp.whole(r, rs)) * tp.whole(v, vs)).to(x.dtype)

@@ -231,6 +231,68 @@ def stream_parity(got: Dict[int, ServeResult], wants: Sequence[ServeResult],
     return out
 
 
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at ``x``'s magnitude (8 significand
+    bits): 2^-6 in [2, 4), 2^-5 in [4, 8)."""
+    import math
+    if x == 0 or not math.isfinite(x):
+        return 0.0
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def session_parity(got: Dict[int, ServeResult], one: Dict[int, ServeResult],
+                   alone: Sequence[ServeResult], tau: float, *,
+                   tie_gap: float = TIE_GAP_BF16,
+                   tol_h: float = TOL_H_BF16,
+                   tie_steps: int = 1) -> StreamParity:
+    """``got[rid]`` (served over ranks) against ``one[rid]`` (the same
+    requests in the one-rank session on the same weights and kernels),
+    token by token.  A stream may part from the one-rank session only at
+    a near tie: where the request served alone (``alone[rid]``,
+    ``sequential_reference``) has a top-2 gap below ``tie_gap`` or of at
+    most ``tie_steps`` bf16 steps at its largest logit's magnitude (one:
+    the rule TIE_GAP_BF16 encodes for logits in [2, 4), at any magnitude,
+    where the two logits' order is one rounding's), where that alone run and
+    the one-rank session -- two sound runs -- choose different tokens, or
+    at a gate with |H_alone - tau| <= ``tol_h``.
+    Where the one-rank session parts from the alone run, the contexts
+    differ and the stream is compared no further.  The caller holds
+    ``max_dh`` (against the one-rank session) against ``tol_h``."""
+    out = StreamParity()
+    for rid, w in enumerate(alone):
+        g, o = got[rid], one[rid]
+        out.ok &= len(g.tokens) == len(o.tokens)
+        for i, (a, b) in enumerate(zip(g.tokens, o.tokens)):
+            if i:
+                out.max_dh = max(out.max_dh,
+                                 abs(g.entropy[i - 1] - o.entropy[i - 1]))
+                if g.exited[i - 1] != o.exited[i - 1]:
+                    near = abs(w.entropy[i - 1] - tau)
+                    out.ok &= near <= tol_h
+                    out.parted.append(f"gate at |H - tau| = {near:.3g}")
+                    break
+            sound_tie = b != w.tokens[i]
+            if a != b:
+                step = (bf16_step(w.top_logit[i]) if w.top_logit
+                        else 0.0)
+                out.ok &= (sound_tie or w.top2_gap[i] < tie_gap
+                           or w.top2_gap[i] <= tie_steps * step)
+                out.parted.append(
+                    f"token at top-2 gap {w.top2_gap[i]:.3g}"
+                    + (f" ({w.top2_gap[i] / step:.3g} bf16 steps at "
+                       f"{w.top_logit[i]:.3g})" if step else "")
+                    + (" (the one-rank session parts from the request "
+                       "alone there)" if sound_tie else ""))
+                break
+            if sound_tie:
+                out.parted.append(f"the one-rank session parts from the "
+                                  f"request alone at top-2 gap "
+                                  f"{w.top2_gap[i]:.3g}")
+                break
+            out.compared += 1
+    return out
+
+
 @dataclass
 class Routes:
     """The MoE routing of one run, recorded for another (``pinned_routes``):
@@ -556,6 +618,35 @@ def per_rank_sumexp():
         yield
     finally:
         tp._sumexp_and_gold = real
+
+
+@contextmanager
+def unsummed_expert_parts():
+    """A control: over a ``"model"`` group whose expert stacks are split
+    over the grid, each rank takes the combined output of its own experts
+    as the whole MoE output (``models.moe.sum_expert_parts`` skipped),
+    while the block runs."""
+    from repro_torch.models import moe
+    real = moe.sum_expert_parts
+    moe.sum_expert_parts = lambda out, g: out
+    try:
+        yield
+    finally:
+        moe.sum_expert_parts = real
+
+
+@contextmanager
+def per_rank_norm_squares():
+    """A control: RWKV6's output norm over a row split over the model
+    group takes each rank's sum of squares over its own chunk as the whole
+    row's (``models.ssm._norm_squares`` skipped), while the block runs."""
+    from repro_torch.models import ssm
+    real = ssm._norm_squares
+    ssm._norm_squares = lambda s: s
+    try:
+        yield
+    finally:
+        ssm._norm_squares = real
 
 
 # the fused engine's lanes on the card (chip_smoke.py phase fused, the card

@@ -17,7 +17,8 @@ from repro_torch.core.spmd import (StepConfig, boundary_ids_for_batch,
 from repro_torch.models.backbone import backbone_forward, init_backbone
 from repro_torch.optim import adam_init, adam_update, make_schedule
 from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16, grad_rel_errors,
-                                live_rwkv, smoke_batches, stream_parity)
+                                bf16_step, live_rwkv, session_parity,
+                                smoke_batches, stream_parity)
 from repro_torch.tree import tree_leaves
 
 
@@ -51,6 +52,62 @@ def test_stream_parity_lets_streams_part_only_at_near_ties(
                         tau=2.0, tie_gap=0.05, tol_h=0.01)
     assert (res.ok, res.compared, len(res.parted)) == (ok, compared, parted)
     assert res.max_dh == pytest.approx(max_dh, abs=1e-9)
+
+
+ONE = _stream([5, 6, 7, 8], [False, True, False], [3.0, 1.0, 2.005], [])
+
+
+@pytest.mark.parametrize("tokens,alone,ok,compared,parted", [
+    # the same stream as the one-rank session
+    (ONE.tokens, WANT.tokens, True, 4, 0),
+    # parts from the one-rank session where the alone run's gap is 0.01
+    ([5, 6, 9, 8], WANT.tokens, True, 2, 1),
+    # parts where the gap (0.5) is not a tie and the two sound runs agree
+    ([5, 4, 7, 8], WANT.tokens, False, 1, 1),
+    # parts where the gap (0.5) is wide but the one-rank session and the
+    # request alone already choose different tokens
+    ([5, 4, 7, 8], [5, 3, 7, 8], True, 1, 1),
+    # the one-rank session parts from the request alone: compared no
+    # further, whatever follows
+    ([5, 6, 7, 1], [5, 6, 7, 2], True, 3, 1),
+])
+def test_session_parity_parts_only_at_ties_of_sound_runs(
+        tokens, alone, ok, compared, parted):
+    """Streams over ranks against the one-rank session: a parting is a
+    tie where the request alone has a top-2 gap below the limit, or where
+    it and the one-rank session (two sound runs) disagree."""
+    want = _stream(alone, WANT.exited, WANT.entropy, WANT.top2_gap)
+    res = session_parity({0: _stream(tokens, ONE.exited, ONE.entropy, [])},
+                         {0: ONE}, [want], tau=2.0, tie_gap=0.05,
+                         tol_h=0.01)
+    assert (res.ok, res.compared, len(res.parted)) == (ok, compared, parted)
+
+
+def test_session_parity_counts_one_bf16_step_at_the_logit_as_a_tie():
+    """At logits in [4, 8) one bf16 step is 2^-5, above TIE_GAP_BF16: a
+    stream may part from the one-rank session there at a gap of one step,
+    not of two (by default); at logits in [2, 4) the step is below
+    TIE_GAP_BF16."""
+    assert bf16_step(5.0) == 2.0 ** -5 and bf16_step(-3.0) == 2.0 ** -6
+    assert bf16_step(2.0 ** -6 * 3) == 2.0 ** -12 and bf16_step(0.0) == 0.0
+    for gap, ok in ((2.0 ** -5, True), (2.0 ** -4, False)):
+        want = _stream([5, 6], [False], [3.0], [1.0, gap])
+        want.top_logit = [6.0, 6.0]
+        res = session_parity({0: _stream([5, 7], [False], [3.0], [])},
+                             {0: _stream([5, 6], [False], [3.0], [])},
+                             [want], tau=2.0)
+        assert res.ok == ok, gap
+        # two steps pass where the caller allows two (a tensor-parallel
+        # product rounds its partial sums too), four do not
+        res = session_parity({0: _stream([5, 7], [False], [3.0], [])},
+                             {0: _stream([5, 6], [False], [3.0], [])},
+                             [want], tau=2.0, tie_steps=2)
+        assert res.ok and "bf16 steps" in res.parted[0], gap
+    want.top2_gap[1] = 2.0 ** -3
+    res = session_parity({0: _stream([5, 7], [False], [3.0], [])},
+                         {0: _stream([5, 6], [False], [3.0], [])},
+                         [want], tau=2.0, tie_steps=2)
+    assert not res.ok
 
 
 def test_default_limits_let_one_bf16_step_part_a_stream():

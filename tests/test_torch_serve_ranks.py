@@ -23,7 +23,10 @@ six requests on four slots (mid-stream admissions), all fp32.  Limits:
     weights: the same streams, parting only at a near tie of the port's
     plain logits (tests/test_torch_serve.py's limits);
   * the planted fault, each rank's part of the attention taken as the
-    whole, must part from the references.
+    whole, must part from the references;
+  * tensor parallelism over "model" (tests/torch_tp_legs.py): the glm4-9b,
+    whisper-small, deepseek-v3, qwen3-moe, rwkv6 and zamba2 smokes'
+    streams equal to the one-rank session's and the JAX session's.
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -62,11 +65,11 @@ TOL_H_DATA = 1e-5
 JAX_THREADS = 4
 JAX_IDS = {"glm4": "glm4-9b", "rwkv6": "rwkv6-3b",
            "deepseek": "deepseek-v3-671b", "qwen3": "qwen3-moe-235b-a22b",
-           "whisper": "whisper-small"}
+           "whisper": "whisper-small", "zamba2": "zamba2-1.2b"}
 #: the (config, policy) pairs also served by the JAX package's session
 NAMES = list(legs.CONFIGS) + list(legs.SPLIT_ONLY)
-#: served only by the tensor-parallel legs (cross attention)
-TP_ONLY = ["whisper"]
+#: served only by the tensor-parallel legs (cross attention; Mamba2)
+TP_ONLY = ["whisper", "zamba2"]
 JAX_SERVED = ([(n, "select") for n in NAMES + TP_ONLY]
               + [("glm4", "sticky")])
 CASES = [(w, c) for w in (2, 4) for c in legs.cases(w)]
@@ -431,6 +434,24 @@ def test_tp_serves_the_one_rank_and_jax_sessions(refs, world, case):
                 assert refs["seq"][name, policy][rid].top2_gap[i] < \
                     TIE_GAP_F32, (rid, i)
                 break
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_family_ticks_gather_no_covered_weight(refs, world):
+    """Under megatron at a lowered ``min_shard_elems`` every leaf of the
+    deepseek (MLA, experts over the grid), qwen3-moe and rwkv6 smokes
+    that the model axis splits is split for compute: on (1, 2) a tick
+    gathers no weight, and the expert stacks hold the expert role."""
+    m = "x".join(map(str, tl.MESH[world]))
+    for name in ("deepseek", "qwen3", "rwkv6"):
+        res = _tp(refs, world, f"tp-{name}-{m}-megatron-select")
+        print(f"reading tp serve {name} w{world}: weights gathered a tick "
+              f"{res['weights_per_tick']:.0f}, tensor-parallel bytes a "
+              f"tick {res['tp_per_tick']:.0f}, roles {res['kinds']}")
+        assert res["tp_per_tick"] > 0
+        assert ("expert" in res["kinds"]) == (name != "rwkv6"), name
+        if world == 2:
+            assert res["weights_per_tick"] == 0, name
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -16,9 +16,11 @@ leg fails its own tests only.  Limits:
     it;
   * the population run: tests/test_torch_population.py's MLP bound, 1e-5;
   * tensor parallelism over "model" (the glm4-9b smoke, fp32, on (1, 2)
-    and (2, 2) under megatron and greedy; tests/torch_tp_legs.py): the
-    step and two rounds of the session against the one-rank port at 1e-5,
-    and two planted faults that must miss.
+    and (2, 2) under megatron and greedy; the deepseek-v3, qwen3-moe,
+    rwkv6 and zamba2 smokes at a lowered ``min_shard_elems``;
+    tests/torch_tp_legs.py): the steps and two rounds of the sessions
+    against the one-rank port at 1e-5, four planted faults that must
+    miss, and the dry run's fake trace equal to the real step's counts.
 
 The refusals (``SpmdEngine.supports``) are compared with the JAX engine's
 in this process, on device-free ``MeshSpec``s.
@@ -33,6 +35,7 @@ import pytest
 import torch
 
 import torch_spmd_legs as legs
+import torch_tp_legs as tl_legs
 from repro.api import TrainSession as JaxSession
 from repro.api.engines import SessionContext as JContext
 from repro.api.spmd_engine import SpmdEngine as JSpmd
@@ -536,10 +539,15 @@ def test_tp_clip_norm_sums_the_split_leaves(runs):
     assert max(gaps.values()) <= TOL_TP, gaps
 
 
-@pytest.mark.parametrize("fault", ["fault-row", "fault-sumexp"])
+@pytest.mark.parametrize("fault", ["fault-row", "fault-sumexp",
+                                   "fault-expert-parts",
+                                   "fault-norm-squares"])
 def test_tp_planted_faults_are_rejected(runs, fault):
-    """A row-parallel output left un-reduced, and a vocab-parallel cross
-    entropy whose sum of exponentials is left per rank: the step
+    """A row-parallel output left un-reduced, a vocab-parallel cross
+    entropy whose sum of exponentials is left per rank, the deepseek
+    smoke's expert outputs left unsummed over the model group (each
+    rank's own experts taken as the whole MoE), and the rwkv6 smoke's
+    output norm taking each rank's sum of squares as the row's: the step
     comparison must miss on some rank."""
     world, ranks = runs
     worst = 0.0
@@ -552,42 +560,139 @@ def test_tp_planted_faults_are_rejected(runs, fault):
     assert worst > TOL_TP
 
 
-@pytest.mark.parametrize("recipe", ["megatron", "greedy"])
-def test_tp_fake_trace_counts_the_real_step(runs, recipe):
-    """The dry run's trace of the tensor-parallel step on fake tensors (a
-    counting model group, nothing sent) counts the FLOPs, the kernel
-    sites and the collectives that rank 0's real step counted."""
+def _fake_trace(world, name, recipe):
+    """The dry run's trace of smoke ``name``'s tensor-parallel step under
+    ``recipe`` on fake tensors: a counting model group (nothing sent),
+    each leaf at rank 0's compute shape."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import torch_tp_legs as tl
     from repro_torch.core.spmd import make_grad_step
     from repro_torch.launch import tensor_parallel as tpm
-    from repro_torch.launch.shardings import (_lookup, jax_layout,
+    from repro_torch.launch.meshcomm import chunk_shapes
+    from repro_torch.launch.shardings import (_lookup, expert_blocks,
+                                              jax_layout, kept_spec,
                                               map_with_path, param_specs,
                                               port_specs, resolve_recipe,
                                               tp_roles)
     from repro_torch.launch.step_analysis import StepAnalysis
-    world, res = _tp(runs, f"step-{recipe}")
-    cfg, params, batch, sc = tl.step_setup()
+    cfg, params, batch, sc = tl.step_setup(name)
     mesh = MeshSpec(tl.MESH[world], tl.DM)
     rc = resolve_recipe(recipe)
     specs = port_specs(param_specs(jax_layout(params, cfg), cfg, mesh, rc),
                        params, cfg)
     roles = tp_roles(params, specs, mesh, cfg, rc)
-    g = tpm.ModelGroup(None, 2, 0)
+    g = tpm.ModelGroup(None, 2, 0, expert_blocks=expert_blocks(roles))
+    shapes = chunk_shapes(params, map_with_path(
+        lambda p, _: kept_spec(_lookup(specs, p), _lookup(roles, p)),
+        params), {"data": tl.MESH[world][0], "model": 2}, lead=0)
     with FakeTensorMode(allow_non_fake_inputs=True):
-        local = map_with_path(lambda p, t: torch.empty(
-            [n // 2 if _lookup(roles, p).split and d == _lookup(
-                roles, p).dim else n for d, n in enumerate(t.shape)],
-            dtype=t.dtype), params)
+        local = map_with_path(lambda _, t: torch.empty(t.shape,
+                                                       dtype=t.dtype),
+                              shapes)
         fake_batch = {k: torch.empty(v.shape, dtype=v.dtype)
                       for k, v in batch.items()}
         with StepAnalysis() as a, tpm.model_parallel(g):
             make_grad_step(sc)(local, fake_batch)
-    fake, real = a.result(), res["analysis"]
-    print(f"reading tp fake vs real {recipe} world {world}: flops "
-          f"{fake['flops']:.0f} / {real['flops']:.0f}, collectives "
+    return a.result()
+
+
+def _same_counts(fake, real, what):
+    print(f"reading tp fake vs real {what}: flops "
+          f"{fake['flops']:.0f} / {real['flops']:.0f}, site flops "
+          f"{fake['site_flops']} / {real['site_flops']}, collectives "
           f"{fake['collectives']} / {real['collectives']}")
     for key in ("flops", "site_flops", "site_calls", "collectives"):
         assert fake[key] == real[key], key
     assert fake["collectives"]["all_reduce"]["bytes"] > 0
+
+
+@pytest.mark.parametrize("recipe", ["megatron", "greedy"])
+def test_tp_fake_trace_counts_the_real_step(runs, recipe):
+    """The dry run's trace of the tensor-parallel step on fake tensors (a
+    counting model group, nothing sent) counts the FLOPs, the kernel
+    sites and the collectives that rank 0's real step counted."""
+    world, res = _tp(runs, f"step-{recipe}")
+    _same_counts(_fake_trace(world, "glm4", recipe), res["analysis"],
+                 f"{recipe} world {world}")
+
+
+# ---------------------------------------------------------------------------
+# the MoE, MLA, RWKV6 and Mamba2 smokes over "model" (tests/torch_tp_legs.py
+# FAMILY_STEPS, FAMILY_SESSIONS: a recipe with a lowered min_shard_elems)
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = [leg for leg, _, _ in tl_legs.FAMILY_STEPS]
+
+
+@pytest.mark.parametrize("leg", FAMILY_STEPS)
+def test_tp_family_step_matches_one_rank(runs, leg):
+    """deepseek-v3 (MLA over heads and over its latent, experts over the
+    grid), qwen3-moe (experts over the grid and in the data layout),
+    rwkv6 (the wkv on each rank's heads) and zamba2 (Mamba2's projections)
+    smokes: on every rank the step's losses and every gradient equal the
+    one-rank step's (a split leaf's gradient its chunk, an expert stack's
+    its experts') at 1e-5, the clip norm of the chunks the whole
+    gradients', and some leaf of the family is split."""
+    world, ranks = runs
+    for r in range(world):
+        _, res = _tp(runs, f"step-{leg}", r)
+        gaps = {k: abs(res["metrics"][k] - res["want_metrics"][k])
+                for k in res["want_metrics"]}
+        gaps["gradients"] = res["grad_gap"]
+        gaps["clip norm (relative)"] = res["norm_gap"]
+        if r == 0:
+            _reading(f"tp step {leg}", world, gaps)
+        assert max(gaps.values()) <= TOL_TP, (r, gaps)
+        assert res["tp_bytes"]["all_reduce"] > 0
+        assert res["logits_split"] and res["argmax_hits"] == 1.0, r
+    kinds = {}
+    for path, kind in res["roles"]:
+        if any(k in path for k in ("mixer", "ffn", "shared_attn")):
+            kinds[kind] = kinds.get(kind, 0) + 1
+    print(f"reading tp step {leg} block roles: {kinds}")
+    assert kinds.get("column", 0) + kinds.get("expert", 0) > 0, kinds
+    if leg.startswith(("deepseek", "qwen3-grid")):
+        assert kinds.get("expert", 0) > 0, kinds
+
+
+@pytest.mark.parametrize("leg", list(tl_legs.FAMILY_SESSIONS))
+def test_tp_family_session_matches_one_rank(runs, leg):
+    """Two rounds of ``TrainSession`` on the spmd engine over the model
+    mesh equal the port's fused engine on one rank (Adam states
+    included), and every rank holds the same state."""
+    world, res = _tp(runs, f"session-{leg}")
+    got, want = res["spmd"], res["fused"]
+    gaps = {"state": _gap(got["state"], want["state"]),
+            "losses": _loss_gap(got["history"], want["history"])}
+    _reading(f"tp session {leg}", world, gaps)
+    assert got["engine"] == "spmd"
+    assert max(gaps.values()) <= TOL_TP, gaps
+    assert got["tp_bytes"] > 0
+    for r in range(1, world):
+        other = _tp(runs, f"session-{leg}", r)[1]["spmd"]
+        assert _gap(other["state"], got["state"]) == 0.0, r
+        assert other["history"] == got["history"], r
+
+
+@pytest.mark.parametrize("leg,name,recipe", [
+    ("deepseek-megatron", "deepseek", "megatron"),
+    ("rwkv6-megatron", "rwkv6", "megatron")])
+def test_tp_family_fake_trace_counts_the_real_step(runs, leg, name, recipe):
+    """The dry run's fake trace of the deepseek (a rank's experts) and
+    rwkv6 (the wkv on a rank's heads) steps counts what rank 0's real
+    step counted: FLOPs, the wkv site's FLOPs and calls, collectives; the
+    wkv sites count one rank's heads (``dispatch.wkv_site_flops(...,
+    ranks=2)``, below the whole model's)."""
+    from repro_torch.kernels.dispatch import wkv_site_flops
+    world, res = _tp(runs, f"step-{leg}")
+    fake = _fake_trace(world, name, tl_legs.family_recipe(recipe))
+    _same_counts(fake, res["analysis"], f"{leg} world {world}")
+    if name == "rwkv6":
+        cfg = tl_legs.SMOKES[name]()
+        for kind in ("fwd", "bwd"):
+            assert fake["site_flops"][f"wkv_{kind}"] == wkv_site_flops(
+                cfg, tl_legs.STEP_B, tl_legs.STEP_T,
+                "train" if kind == "fwd" else kind, ranks=2) < \
+                wkv_site_flops(cfg, tl_legs.STEP_B, tl_legs.STEP_T,
+                               "train" if kind == "fwd" else kind), kind

@@ -11,6 +11,8 @@ import jax
 import pytest
 from jax.sharding import PartitionSpec as P
 
+import torch_tp_legs as tl
+
 from repro import configs as jconfigs
 from repro.launch import mesh as jmesh
 from repro.launch import shardings as jsh
@@ -28,13 +30,18 @@ SMOKES = ["glm4-9b", "paligemma-3b", "whisper-small"]
 
 def _port_specs_of_jax(jspecs, jparams, params, cfg):
     """The JAX package's spec of every port leaf: its specs, padded to
-    each leaf's rank, mapped back through ``port_specs``."""
-    ps = jax.tree.leaves(jspecs, is_leaf=lambda s: isinstance(s, P))
-    flat = jax.tree.leaves(jparams)
-    padded = iter([tuple(p) + (None,) * (len(leaf.shape) - len(tuple(p)))
-                   for p, leaf in zip(ps, flat)])
+    each leaf's rank, looked up by path in the JAX layout of the port
+    tree and mapped back through ``port_specs``."""
+    def key(path):
+        return tuple(getattr(k, "key", getattr(k, "idx", None))
+                     for k in path)
+    ps = dict(jax.tree_util.tree_flatten_with_path(
+        jspecs, is_leaf=lambda s: isinstance(s, P))[0])
+    by_path = {key(path): tuple(ps[path]) + (None,) * (
+        len(leaf.shape) - len(tuple(ps[path])))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]}
     layout = tsh.jax_layout(params, cfg)
-    tree = tsh.map_with_path(lambda _, t: next(padded), layout)
+    tree = tsh.map_with_path(lambda path, _: by_path[tuple(path)], layout)
     return tsh.port_specs(tree, params, cfg)
 
 
@@ -73,6 +80,63 @@ def test_roles_follow_the_jax_specs(arch, recipe):
         print(f"reading {arch} {recipe} {shape}: {kinds}")
         if shape != (16, 16):
             assert kinds.get("column", 0) > 0, (shape, kinds)
+
+
+#: the MoE, MLA, RWKV6 and Mamba2 smokes (d = 128: their leaves fall
+#: below the default ``min_shard_elems``, so the recipes here lower it on
+#: both sides) and the recipes they are held under: the three schemes and
+#: an expert stack in the data layout (E over "data", a hidden dim over
+#: "model") in place of the grid
+FAMILY_SMOKES = ["deepseek-v3-671b", "qwen3-moe-235b-a22b", "rwkv6-3b",
+                 "zamba2-1.2b"]
+FAMILY_RECIPES = list(tl.FAMILY_RECIPES)
+COVERED = ("mla", "rwkv6", "rwkv_cm", "mamba2", "moe")
+
+
+@pytest.mark.parametrize("recipe", FAMILY_RECIPES)
+@pytest.mark.parametrize("arch", FAMILY_SMOKES)
+def test_family_roles_follow_the_jax_specs(arch, recipe):
+    """The MoE, MLA, RWKV6 and Mamba2 smokes on (1, 2), (2, 2) and the
+    production mesh, at a lowered ``min_shard_elems``: a ``column`` or
+    ``row`` leaf has "model" on the dim its role names, an ``expert``
+    leaf its expert dim over a tuple ending in "model" (the grid); a leaf
+    of these families whose JAX spec puts "model" on a dim that a product
+    splits is split, and every gathered leaf says why."""
+    jcfg = jconfigs.get(arch).smoke()
+    cfg = tconfigs.get(arch).smoke()
+    jparams = jax.eval_shape(lambda: jinit_backbone(jax.random.PRNGKey(0),
+                                                    jcfg))
+    params = abstract_params(cfg)
+    rc = tl.family_recipe(recipe)
+    for shape in MESHES:
+        jspecs = jsh.param_specs(jparams, jcfg, jmesh.MeshSpec(shape, DM),
+                                 tl.family_recipe(recipe, jsh))
+        specs = _port_specs_of_jax(jspecs, jparams, params, cfg)
+        roles = tsh.tp_roles(params, specs, MeshSpec(shape, DM), cfg, rc)
+        kinds = {}
+        for path, r in tsh.tree_paths(roles):
+            spec = tsh._lookup(specs, path)
+            fam, name = tsh._families(cfg, path)
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+            if r.kind == "expert":
+                assert spec[r.dim][-1] == "model" and fam == "moe", path
+            elif r.split:
+                assert spec[r.dim] == "model", (path, spec, r)
+                assert tsh._TP_DIMS[fam][name][r.dim] == r.kind, (path, r)
+            else:
+                assert r.reason, path
+                if fam in COVERED and "model" in spec:
+                    d = spec.index("model")
+                    assert d not in tsh._TP_DIMS.get(fam, {}).get(name, {}), \
+                        (path, spec, r)
+        print(f"reading {arch} {recipe} {shape}: {kinds}")
+        if shape != (16, 16):
+            assert kinds.get("column", 0) + kinds.get("expert", 0) > 0, \
+                (shape, kinds)
+        if cfg.moe is not None and recipe != "data-experts":
+            grid = shape[0] * shape[1]
+            assert (kinds.get("expert", 0) > 0) == (
+                cfg.moe.num_experts % grid == 0), (shape, kinds)
 
 
 @pytest.mark.parametrize("recipe,want", [
@@ -116,6 +180,27 @@ def test_replicated_over_model_is_measured(recipe, mesh, want):
     print(f"reading replicated_over_model {recipe} {mesh}: "
           f"{rec['replicated_over_model']}")
     assert rec["replicated_over_model"] == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("arch,layers,recipe,most", [
+    ("deepseek-v3-671b", 4, "megatron", 1.01),
+    ("qwen3-moe-235b-a22b", 4, "megatron", 1.01),
+    ("rwkv6-3b", 4, "megatron", 1.1),
+    ("zamba2-1.2b", 6, "greedy", 1.1)])
+def test_family_replicated_over_model(arch, layers, recipe, most):
+    """The MoE, MLA, RWKV6 and Mamba2 archs at published widths (cut to
+    ``layers``, deepseek-v3 past its 3 dense layers, zamba2 to its first
+    shared attention block), a train step on (1, 2): the experts, MLA's
+    heads, the wkv's heads and Mamba2's projections split, so a rank
+    computes about half its group's step (the model axis' 2 where none
+    would); what stays repeated is the router, RWKV6's ``wr`` under
+    megatron and Mamba2's conv and scan."""
+    rec = dryrun.run_one(arch, "train_4k", layers=layers,
+                         recipe=tsh.resolve_recipe(recipe),
+                         mesh=MeshSpec((1, 2), DM))
+    print(f"reading replicated_over_model {arch} {recipe} (1, 2): "
+          f"{rec['replicated_over_model']}")
+    assert 1.0 <= rec["replicated_over_model"] < most
 
 
 @pytest.mark.parametrize("fn", ["cross_entropy", "accuracy", "embed"])

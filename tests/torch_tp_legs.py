@@ -3,14 +3,20 @@ ranks of ``tests/test_torch_spmd_engine.py`` and
 ``tests/test_torch_serve_ranks.py``, which run them in the worlds they
 already spawn; it imports no JAX).
 
-The meshes are ``("data", "model")``: (1, 2) on 2 ranks and (2, 2) on 4,
-under the recipes megatron and greedy.  :func:`train_legs` holds the
-glm4-9b smoke (fp32) to the port on one rank: the train step's losses and
-gradients, two rounds of ``TrainSession``, the two planted faults, and the
-step's counts for the dry run.  :func:`serve_legs` serves the glm4-9b
-smoke (both policies) and, on 2 ranks, the whisper-small smoke (cross
-attention) over the same meshes.  Every leg's result or traceback is
-stored under its own key.
+The meshes are ``("data", "model")``: (1, 2) on 2 ranks and (2, 2) on 4.
+:func:`train_legs` holds the glm4-9b smoke (fp32, recipes megatron and
+greedy) to the port on one rank: the train step's losses and gradients,
+two rounds of ``TrainSession``, the two planted faults, and the step's
+counts for the dry run; then the MoE, MLA, RWKV6 and Mamba2 smokes
+(:data:`FAMILY_STEPS`, :data:`FAMILY_SESSIONS`, at a recipe that lowers
+``min_shard_elems`` so that their d = 128 leaves split): deepseek-v3,
+qwen3-moe (experts over the grid and in the data layout), rwkv6 and
+zamba2, each step and session against one rank, and two more planted
+faults (the experts' partial outputs unsummed, RWKV6's output norm with a
+per-rank sum of squares).  :func:`serve_legs` serves the glm4-9b smoke
+(both policies), on 2 ranks the whisper-small smoke (cross attention),
+and the :data:`FAMILY_SERVES` smokes over the same meshes.  Every leg's
+result or traceback is stored under its own key.
 """
 from __future__ import annotations
 
@@ -23,20 +29,25 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import HeteroProfile, SplitEEConfig
-from repro_torch.configs import glm4_9b
+from repro_torch.configs import (deepseek_v3_671b, glm4_9b,
+                                 qwen3_moe_235b_a22b, rwkv6_3b, zamba2_1p2b)
 from repro_torch.core.losses import accuracy
 from repro_torch.core.spmd import StepConfig, make_grad_step
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.meshcomm import MeshComm
-from repro_torch.launch.shardings import (_lookup, jax_layout, map_with_path,
+from repro_torch.launch.shardings import (ShardingRecipe, _lookup,
+                                          compute_spec, expert_blocks,
+                                          jax_layout, map_with_path,
                                           param_specs, port_specs,
                                           resolve_recipe, tp_roles,
                                           tree_paths)
 from repro_torch.launch.step_analysis import StepAnalysis
 from repro_torch.models.backbone import backbone_forward, init_backbone
 from repro_torch.optim.adam import lane_norms
-from repro_torch.parity import per_rank_sumexp, unreduced_row_products
+from repro_torch.parity import (live_rwkv, per_rank_norm_squares,
+                                per_rank_sumexp, unreduced_row_products,
+                                unsummed_expert_parts)
 
 DM = ("data", "model")
 MESH = {2: (1, 2), 4: (2, 2)}
@@ -44,53 +55,98 @@ RECIPES = ("megatron", "greedy")
 #: a clip norm below the glm4-9b smoke's gradient norms (so it clips)
 CLIP = 1e-2
 #: the train step's batch: 4 sequences of 8 tokens, two per boundary
-STEP_B, STEP_T, STEP_SPLITS = 4, 8, (0, 0, 1, 1)
+STEP_B, STEP_T = 4, 8
+
+#: the smokes (fp32, d = 128) of the tensor-parallel legs
+SMOKES = {"glm4": glm4_9b.smoke, "deepseek": deepseek_v3_671b.smoke,
+          "qwen3": qwen3_moe_235b_a22b.smoke, "rwkv6": rwkv6_3b.smoke,
+          "zamba2": zamba2_1p2b.smoke}
+#: the smokes' leaves fall below the default ``min_shard_elems``: the MoE,
+#: MLA, RWKV6 and Mamba2 legs hold them under a recipe that lowers it
+#: (on both packages' sides where the JAX rules are read)
+LOW_SHARD = 256
+FAMILY_RECIPES = {"greedy": {}, "megatron": {"scheme": "megatron"},
+                  "hybrid": {"scheme": "hybrid"},
+                  "data-experts": {"expert_mode": "data"}}
+#: (leg, smoke, recipe): deepseek's MLA over heads (megatron) and over
+#: its latent (greedy) with its experts over the grid, qwen3-moe's
+#: experts over the grid and in the data layout, RWKV6's wkv on each
+#: rank's heads under both schemes, Mamba2's projections (greedy)
+FAMILY_STEPS = (("deepseek-megatron", "deepseek", "megatron"),
+                ("deepseek-greedy", "deepseek", "greedy"),
+                ("qwen3-grid", "qwen3", "megatron"),
+                ("qwen3-data", "qwen3", "data-experts"),
+                ("rwkv6-megatron", "rwkv6", "megatron"),
+                ("rwkv6-greedy", "rwkv6", "greedy"),
+                ("zamba2-greedy", "zamba2", "greedy"))
+#: the legs also run as two rounds of ``TrainSession``
+FAMILY_SESSIONS = ("deepseek-megatron", "qwen3-data", "rwkv6-megatron",
+                   "zamba2-greedy")
 
 
-def step_setup():
-    """The glm4-9b smoke's weights (seed 0), a seeded batch and the eq1
-    step config."""
-    cfg = glm4_9b.smoke()
+def family_recipe(name: str, module=None):
+    """FAMILY_RECIPES[name] at LOW_SHARD, a ``ShardingRecipe`` of
+    ``module`` (the port's ``launch.shardings`` by default)."""
+    cls = ShardingRecipe if module is None else module.ShardingRecipe
+    return cls(min_shard_elems=LOW_SHARD, **FAMILY_RECIPES[name])
+
+
+def step_setup(name: str = "glm4"):
+    """A smoke's weights (seed 0; rwkv6's decays and bonus made live), a
+    seeded batch and the eq1 step config: two sequences at each of its
+    first and last exits."""
+    cfg = SMOKES[name]()
     params = init_backbone(torch.Generator().manual_seed(0), cfg)
+    live_rwkv(params)
+    cuts = sorted(cfg.exit_layers)
+    splits = (cuts[0], cuts[0], cuts[-1], cuts[-1])
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
                  rng.integers(0, cfg.vocab_size, (STEP_B, STEP_T))),
              "labels": torch.from_numpy(
                  rng.integers(0, cfg.vocab_size, (STEP_B, STEP_T))),
-             "split_ids": torch.tensor(STEP_SPLITS)}
+             "split_ids": torch.tensor([sorted(set(splits)).index(c)
+                                        for c in splits])}
     sc = StepConfig(model=cfg, splitee=SplitEEConfig(
-        profile=HeteroProfile((1, 1, 2, 2))))
+        profile=HeteroProfile(splits)))
     return cfg, params, batch, sc
 
 
 def placement(cfg, params, mesh, recipe):
     """``(roles, model group)`` of ``params`` on ``mesh`` under
-    ``recipe``, and this rank's local tree: each split leaf cut to its
-    ``"model"`` chunk, every other whole."""
+    ``recipe``, and this rank's local tree as the spmd engine computes
+    with it: each leaf cut to its chunk by its spec, then gathered over
+    its compute spec (a split leaf keeps its ``"model"`` chunk, an expert
+    stack its experts; any other whole)."""
     recipe = resolve_recipe(recipe)
     specs = port_specs(param_specs(jax_layout(params, cfg), cfg, mesh,
                                    recipe), params, cfg)
     roles = tp_roles(params, specs, mesh, cfg, recipe)
     comm = MeshComm(mesh)
     pg, _ = comm.group(("model",))
-    g = tp.ModelGroup(pg, comm.size(("model",)), comm.index(("model",)))
+    g = tp.ModelGroup(pg, comm.size(("model",)), comm.index(("model",)),
+                      expert_blocks=expert_blocks(roles))
+    chunks = map_with_path(
+        lambda p, t: comm.shard(t, _lookup(specs, p), lead=0), params)
+    local = comm.unshard(chunks, map_with_path(
+        lambda p, _: compute_spec(_lookup(specs, p), _lookup(roles, p)),
+        params), lead=0)
+    return roles, g, map_with_path(lambda _, t: t.clone(), local)
 
-    def cut(path, t):
-        r = _lookup(roles, path)
-        return (tp.own_slice(t, g, r.dim).clone() if r.split
-                else t.clone())
-    return roles, g, map_with_path(cut, params)
 
-
-def _gathered(grads, params, roles, g):
-    """Each gradient whole: a split leaf's chunks gathered over the
-    group."""
+def _local_want(want, params, roles, g):
+    """The one-rank gradients cut to this rank's compute chunks: a split
+    leaf's chunk, an expert stack's experts, any other whole."""
     out = []
-    for (path, _), gr in zip(tree_paths(params), grads):
-        r = _lookup(roles, path)
-        if gr is not None and r.split:
-            gr = tp.all_gather(gr, g, r.dim)
-        out.append(None if gr is None else gr.numpy().copy())
+    with tp.model_parallel(g):
+        for (path, t), w in zip(tree_paths(params), want):
+            r = _lookup(roles, path)
+            if w is not None and r.kind == "expert":
+                n = t.shape[0] // g.size
+                w = w[torch.tensor(tp.expert_ids(t.shape[0], n))]
+            elif w is not None and r.split:
+                w = tp.own_slice(w, g, r.dim)
+            out.append(w)
     return out
 
 
@@ -98,12 +154,12 @@ def _metrics(m):
     return {k: float(v) for k, v in m.items()}
 
 
-def leg_step(world, recipe, mesh, one_rank, fault=None):
-    """The TP train step against the one-rank step (``one_rank``: its
-    gradients and metrics) on every rank: the metrics, every gradient
-    gathered whole, the roles, and (without a planted ``fault``) the
-    step's analysis."""
-    cfg, params, batch, sc = step_setup()
+def leg_step(world, recipe, mesh, one_rank, fault=None, name="glm4"):
+    """The TP train step of smoke ``name`` against the one-rank step
+    (``one_rank``: its gradients and metrics) on every rank: the metrics,
+    every gradient against the one-rank gradient's chunk, the roles, and
+    (without a planted ``fault``) the step's analysis."""
+    cfg, params, batch, sc = step_setup(name)
     want, wm = one_rank
     roles, g, local = placement(cfg, params, mesh, recipe)
     count = StepAnalysis() if fault is None else contextlib.nullcontext()
@@ -128,9 +184,9 @@ def leg_step(world, recipe, mesh, one_rank, fault=None):
                                      tokens=batch["tokens"]).logits
             hits = float(accuracy(split, whole.argmax(-1),
                                   vocab=cfg.vocab_size))
-    got = _gathered(got, params, roles, g)
-    gaps = [float(np.max(np.abs(x - w.numpy()))) if w is not None else 0.0
-            for x, w in zip(got, want)]
+    wants = _local_want(want, params, roles, g)
+    gaps = [float((x - w).abs().max()) if w is not None else 0.0
+            for x, w in zip(got, wants)]
     return {"metrics": _metrics(gm), "want_metrics": _metrics(wm),
             "grad_gap": max(gaps), "analysis": res,
             "tp_bytes": moved, "index": g.index, "argmax_hits": hits,
@@ -181,30 +237,75 @@ def leg_clip(world, mesh):
     return out
 
 
-def _run(out, name, fn, *args):
+def leg_family_session(world, name, recipe, mesh):
+    """Two rounds of ``TrainSession`` of smoke ``name`` (four clients at
+    its first and last exits) on the spmd engine over the model mesh
+    under ``recipe``, and on the fused engine on this rank alone."""
+    import dataclasses
+
+    from torch_spmd_legs import _result, backbone_setup
+
+    from repro_torch.api import TrainSession
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    cfg = SMOKES[name]()
+    _, sc, oc, parts, batch = backbone_setup()
+    cuts = sorted(cfg.exit_layers)
+    sc = dataclasses.replace(sc, profile=HeteroProfile(
+        (cuts[0], cuts[0], cuts[-1], cuts[-1])))
+    parts = [(np.minimum(x, cfg.vocab_size - 1), y) for x, y in parts]
+    out = {}
+    for engine, kw in (("fused", {}),
+                       ("spmd", dict(mesh=mesh,
+                                     recipe=family_recipe(recipe)))):
+        model = BackboneSplitModel(cfg, seed=0, device="cpu")
+        live_rwkv(model.full_params)
+        s = TrainSession(model, sc, oc, parts, batch, engine=engine, **kw)
+        s.train(2)
+        out[engine] = _result(s, model, tp_bytes=getattr(
+            s.engine, "last_tp_bytes_per_step", 0.0))
+    return out
+
+
+def _run(out, key, fn, *args, **kw):
     try:
-        out[name] = fn(*args)
+        out[key] = fn(*args, **kw)
     except Exception:                                     # noqa: BLE001
-        out[name] = {"error": traceback.format_exc()}
+        out[key] = {"error": traceback.format_exc()}
     dist.barrier()
 
 
 def train_legs(world):
     """Every train leg on this rank, ``{name: result}``: the one-rank
-    step once, then each tensor-parallel leg on one model mesh."""
-    _, params, batch, sc = step_setup()
-    one_rank = make_grad_step(sc)(params, batch)
+    step once per smoke, then each tensor-parallel leg on one model
+    mesh."""
     mesh = make_host_mesh(MESH[world], DM)
+    one = {}
+    for name in ("glm4",) + tuple(n for _, n, _ in FAMILY_STEPS):
+        if name not in one:
+            _, params, batch, sc = step_setup(name)
+            one[name] = make_grad_step(sc)(params, batch)
     out = {}
     for recipe in RECIPES:
         _run(out, f"step-{recipe}", leg_step, world, recipe, mesh,
-             one_rank)
+             one["glm4"])
         _run(out, f"session-{recipe}", leg_session, world, recipe, mesh)
     _run(out, "clip", leg_clip, world, mesh)
-    _run(out, "fault-row", leg_step, world, "megatron", mesh, one_rank,
+    _run(out, "fault-row", leg_step, world, "megatron", mesh, one["glm4"],
          unreduced_row_products)
-    _run(out, "fault-sumexp", leg_step, world, "megatron", mesh, one_rank,
-         per_rank_sumexp)
+    _run(out, "fault-sumexp", leg_step, world, "megatron", mesh,
+         one["glm4"], per_rank_sumexp)
+    for leg, name, recipe in FAMILY_STEPS:
+        _run(out, f"step-{leg}", leg_step, world, family_recipe(recipe),
+             mesh, one[name], name=name)
+        if leg in FAMILY_SESSIONS:
+            _run(out, f"session-{leg}", leg_family_session, world, name,
+                 recipe, mesh)
+    _run(out, "fault-expert-parts", leg_step, world,
+         family_recipe("megatron"), mesh, one["deepseek"],
+         unsummed_expert_parts, name="deepseek")
+    _run(out, "fault-norm-squares", leg_step, world,
+         family_recipe("megatron"), mesh, one["rwkv6"],
+         per_rank_norm_squares, name="rwkv6")
     return out
 
 
@@ -213,10 +314,19 @@ def train_legs(world):
 # ---------------------------------------------------------------------------
 
 
+#: (smoke, recipe) served over the model mesh under select, at LOW_SHARD:
+#: deepseek-v3 (MLA's heads and the experts over the grid, 1-token
+#: prompts), qwen3-moe (experts over the grid), rwkv6 (the wkv on each
+#: rank's heads at prefill, every head at decode) and zamba2 (Mamba2's
+#: projections, split only under greedy)
+FAMILY_SERVES = (("deepseek", "megatron"), ("qwen3", "megatron"),
+                 ("rwkv6", "megatron"), ("zamba2", "greedy"))
+
+
 def serve_cases(world):
     """``(case id, config, mesh, recipe, policy)``: the glm4-9b smoke under
-    both recipes and policies, and on 2 ranks the whisper-small smoke
-    under megatron (select)."""
+    both recipes and policies, on 2 ranks the whisper-small smoke under
+    megatron (select), and the FAMILY_SERVES smokes."""
     shape = MESH[world]
     m = "x".join(map(str, shape))
     out = [(f"tp-glm4-{m}-{r}-{p}", "glm4", shape, r, p)
@@ -224,6 +334,8 @@ def serve_cases(world):
     if world == 2:
         out.append((f"tp-whisper-{m}-megatron-select", "whisper", shape,
                     "megatron", "select"))
+    out += [(f"tp-{name}-{m}-{r}-select", name, shape, family_recipe(r),
+             "select") for name, r in FAMILY_SERVES]
     return out
 
 
