@@ -240,12 +240,18 @@ Phases:
            and peak memory per rank, against the one-rank session on the
            same card and each request served alone at the bf16 stream
            limits, and a planted fault (the parts not combined) that must
-           be rejected; last, the qwen3-moe bf16 smoke with its batch over
-           the ranks (expert loads summed over them) against the one-rank
-           fused engine with the routing pinned, and one forward of it
-           (capacity factor 0.5: experts drop entries) with its rows over
-           the ranks against one rank, where a planted fault (the loads
-           left per rank) must be rejected; then tensor parallelism over
+           be rejected; last, the qwen3-moe bf16 smoke with its batch and
+           its experts over the ranks (expert loads summed over them, E / 2
+           experts a rank, none of their weights gathered, the dispatch
+           and combine an exchange) against the one-rank fused engine with
+           the routing pinned, and one forward of it (capacity factor 0.5:
+           experts drop entries) with its rows and experts over the ranks
+           against one rank, where a planted fault (the loads left per
+           rank) must be rejected; one qwen3-moe-235b-a22b MoE block at its
+           published widths, forward and backward on 2 x 4 x 512 tokens,
+           64 of its 128 experts a rank, against the block whole on one
+           rank (output and gradients, routes pinned), its ms against one
+           rank, peak and bytes exchanged printed; then tensor parallelism over
            "model" (mesh (1, 2), bf16): glm4-9b at published widths cut to
            4 layers served and trained under megatron, and on two fresh
            ranks deepseek-v3-671b cut to 4 layers (MLA over heads, 128
@@ -3908,6 +3914,25 @@ SPMD_SERVE_LAYERS = 4
 # the qwen3-moe smoke (4 experts, top 2) drops entries, so capacity reads
 # the whole batch's loads
 SPMD_MOE_TIGHT = 0.5
+# the loss limit of the qwen3-moe bf16 smoke's batch and experts over the
+# ranks against the one-rank fused run comes from its own readings
+# (scripts/moe_split_witness.py, PERF.md section 5, NVIDIA H100 80GB
+# HBM3, 700 W), as TOL_SPMD_TP_LOSS does: over seeds 0-7 the split read
+# 8.2e-5 to 1.586e-3, the bf16 control (the one-rank run on the plain
+# versions against the kernels) 3.83e-4 to 1.455e-3, the planted faults
+# 1.408e-2 to 2.742e-2 (expert gradients all-reduced) and 6.621e-2 to
+# 1.158e-1 (local slots).  One step's expert gradients equal one rank's;
+# every other leaf's carries the data split's rounding of each rank's
+# partial sum, which Adam's first step turns into whole learning-rate
+# steps, so parity.TOL_LOSS_BF16 (1.5e-3) lies inside the sound spread.
+# The limit sits 3 x above the largest sound reading and 2.8 x below the
+# smallest fault's
+TOL_SPMD_MOE_LOSS = 5e-3
+# expert parallelism at published widths (spmd_moe_block_leg): one
+# qwen3-moe-235b-a22b MoE block, its rows over the ranks, each rank
+# SPMD_MOE_BLOCK_ROWS sequences of SPMD_MOE_BLOCK_SEQ tokens, timed over
+# SPMD_MOE_BLOCK_ITERS forward and backward passes after one warm one
+SPMD_MOE_BLOCK_ROWS, SPMD_MOE_BLOCK_SEQ, SPMD_MOE_BLOCK_ITERS = 4, 512, 3
 SPMD_SERVE_SLOTS, SPMD_SERVE_REQUESTS, SPMD_SERVE_DECODE = 8, 8, 2
 SPMD_SERVE_MAX_LEN = 160
 # tensor parallelism over "model" (phase spmd, spmd_tp_legs): the same
@@ -4048,7 +4073,9 @@ def spmd_rank(backend: str) -> dict:
             ("all_reduce", lambda t: dist.all_reduce(t)),
             ("all_gather", lambda t: dist.all_gather(
                 [torch.empty_like(t) for _ in range(world)], t)),
-            ("broadcast", lambda t: dist.broadcast(t, 0))):
+            ("broadcast", lambda t: dist.broadcast(t, 0)),
+            ("all_to_all_single", lambda t: dist.all_to_all_single(
+                torch.empty_like(t), t))):
         try:
             op(torch.ones(4, device="cuda"))
             torch.cuda.synchronize()
@@ -4240,6 +4267,7 @@ def spmd_rank(backend: str) -> dict:
     torch.cuda.empty_cache()
     out["serve"] = spmd_serve_legs(rank, world, counts)
     out["moe"] = spmd_moe_leg(rank, world, counts)
+    out["moe_block"] = spmd_moe_block_leg(rank, world)
     out["tp"] = spmd_tp_legs(rank, world, counts)
     t0 = time.perf_counter()
     out["family"] = spmd_family_legs(rank, world, counts)
@@ -4445,16 +4473,24 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     """A data split of a MoE model: the qwen3-moe bf16 smoke through
     BackboneSplitModel (two lanes at cut 2) on the kernels, its batch over
     the ranks (``models/moe.py`` routes the whole batch: capacity from the
-    global N, expert loads summed over the batch ranks), LANE_ROUNDS rounds
+    global N, expert loads summed over the batch ranks) and its experts
+    too (E / ranks a rank, none of their weights gathered, the dispatch
+    and combine an exchange over the ranks), LANE_ROUNDS rounds
     replaying the routing of the one-rank fused engine's run on the same
-    card (``parity.pinned_routes``), against that run at the bf16 lane
-    limits; the launch counts are zeroed before the split run and read
-    after (the attention forward, dK/dV and dQ on every rank).  The aux
+    card (``parity.pinned_routes``), against that run: the losses within
+    TOL_SPMD_MOE_LOSS, as the bf16 control's (the one-rank run on the
+    plain versions) must be, and each planted fault's beyond it (entries
+    at their local slots, ``parity.local_slots``; the expert gradients
+    all-reduced over the ranks, ``parity.reduced_expert_grads``), the
+    drift within TOL_GRAD_BF16; the launch counts are zeroed before the
+    split run and read after (the attention forward, dK/dV and dQ on
+    every rank).  The aux
     loss's weight (1e-3) leaves the loads' effect on a round's loss inside
     bf16 rounding, so the split's routing is also held at the block: one
     forward of the smoke with capacity factor SPMD_MOE_TIGHT (experts drop
-    entries) on this rank's rows under the batch group against the whole
-    batch on one rank, routes pinned: logits and aux loss within
+    entries) on this rank's rows and experts under the batch group and
+    the expert group against the whole batch on one rank, routes pinned:
+    logits and aux loss within
     TOL_GRAD_BF16 of their norms.  The planted fault, each rank's expert
     loads left unsummed (``parity.unsummed_expert_loads``), must miss
     there."""
@@ -4466,12 +4502,15 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
+    from repro_torch.launch import tensor_parallel as tp
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import is_expert_stack, map_with_path
     from repro_torch.models.backbone import backbone_forward, init_backbone
     from repro_torch.models.sync_stats import synced_batch_stats
     from repro_torch.parity import (LANE_ROUNDS, LANE_SEQ, TOL_GRAD_BF16,
-                                    TOL_LOSS_BF16, Routes, backbone_session,
+                                    Routes, backbone_session, local_slots,
                                     paper_drift, pinned_routes,
+                                    reduced_expert_grads,
                                     unsummed_expert_loads)
     fam = "qwen3_moe_235b_a22b"
     routes = Routes()
@@ -4479,36 +4518,74 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     start = fused.state.clone()
     with pinned_routes(routes, replay=False):
         f_hist = fused.train(LANE_ROUNDS)
+    mesh = make_host_mesh((world, 1), ("data", "model"))
+
+    def run(kernels="auto", fault=contextlib.nullcontext, **kw):
+        """The session from the same start, routes replayed: (session,
+        max |dloss| against the one-rank fused run)."""
+        s = backbone_session(fam, kernels, "cuda", state=start.clone(), **kw)
+        with pinned_routes(routes, replay=True), fault():
+            hist = s.train(LANE_ROUNDS)
+        return s, max(max(abs(a.client_loss - b.client_loss),
+                          abs(a.server_loss - b.server_loss))
+                      for a, b in zip(hist, f_hist))
+
     attn = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
     zero_counts(*attn)
-    sess = backbone_session(fam, "auto", "cuda", state=start.clone(),
-                            engine="spmd",
-                            mesh=make_host_mesh((world, 1), ("data", "model")))
-    with pinned_routes(routes, replay=True):
-        hist = sess.train(LANE_ROUNDS)
+    sess, dl = run(engine="spmd", mesh=mesh)
     main = {k: n for w in attn for k, n in launch_counts(w).items()}
     for k, n in main.items():
         counts[k] = counts.get(k, 0) + n
-    dl = max(max(abs(a.client_loss - b.client_loss),
-                 abs(a.server_loss - b.server_loss))
-             for a, b in zip(hist, f_hist))
     d = paper_drift(sess.state, fused.state, start)
     dd = max(d["clients"], d["servers"])
+    eng = sess.engine
+    E = sess.model.cfg.moe.num_experts
+    experts = eng.experts_per_rank
+    expert_gathered = eng.planned_gathered_bytes_per_step(experts=True)
+    gathered, planned = (eng.last_gathered_bytes_per_step,
+                         eng.planned_gathered_bytes_per_step())
+    exchanged = eng.last_exchange_bytes_per_step
     print(f"spmd moe qwen3 bf16 smoke, batch over {world} ranks (rank "
           f"{rank}, {sess.engine_name}): vs the one-rank fused run (pinned, "
           f"{routes.flipped} of {routes.tokens} choices replayed against "
-          f"their own) max|dloss| {dl:.3e}, drift {dd:.3e}; launches "
+          f"their own) max|dloss| {dl:.3e}, drift {dd:.3e}; {experts} of {E} "
+          f"experts a rank, expert weights gathered {expert_gathered:,.0f} "
+          f"B a step (all weights {gathered:,.0f}, planned {planned:,.0f}), "
+          f"exchanged {exchanged:,.0f} B a step; launches "
           + ", ".join(f"{k} {n}" for k, n in main.items() if n), flush=True)
+    check(experts == E // world and expert_gathered == 0 and exchanged > 0
+          and gathered == planned,
+          f"spmd moe rank {rank}: {experts} = {E} / {world} experts a rank, "
+          f"0 bytes of expert weights gathered ({expert_gathered:,.0f} of "
+          f"the plan, which the step gathered: {gathered:,.0f} B), "
+          f"{exchanged:,.0f} bytes exchanged a step")
     check(all(main[k] > 0 for k in ("flash_attention_tile",
                                     "flash_attention_bwd_dkv",
                                     "flash_attention_bwd_dq")),
           f"spmd moe rank {rank}: the attention forward, dK/dV and dQ "
           f"kernels launched")
-    lim = TOL_LOSS_BF16[fam]
-    check(sess.engine_name == "spmd" and dl <= lim and dd <= TOL_GRAD_BF16,
+    spmd = sess.engine_name == "spmd"
+    del sess
+    dc = run("ref")[1]
+    faults = {"local slots": run(engine="spmd", mesh=mesh,
+                                 fault=local_slots)[1],
+              "expert gradients all-reduced": run(
+                  engine="spmd", mesh=mesh, fault=reduced_expert_grads)[1]}
+    lim = TOL_SPMD_MOE_LOSS
+    print(f"  reading spmd moe qwen3 bf16 session vs the one-rank fused run "
+          f"(rank {rank}): max|dloss| split {dl:.3e}, bf16 control (plain "
+          f"versions) {dc:.3e}, planted faults "
+          + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()),
+          flush=True)
+    check(spmd and dl <= lim and dc <= lim and dd <= TOL_GRAD_BF16,
           f"spmd moe qwen3 bf16 data split = one-rank fused: losses "
-          f"{dl:.2e} <= {lim:g}, drift {dd:.2e} <= {TOL_GRAD_BF16:g}")
-    del sess, fused
+          f"{dl:.2e} <= {lim:g} (the bf16 control {dc:.2e}), drift "
+          f"{dd:.2e} <= {TOL_GRAD_BF16:g}")
+    check(min(faults.values()) > lim,
+          f"spmd moe planted faults rejected: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in faults.items())
+          + f" > {lim:g}")
+    del fused
 
     # the block: one forward, the batch over the ranks against one rank
     smoke = qwen3_moe_235b_a22b.smoke_bf16()
@@ -4522,20 +4599,27 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     block = Routes()
     with torch.no_grad(), pinned_routes(block, replay=False):
         whole = backbone_forward(params, cfg, tokens=tokens)
+    ep = tp.ExpertGroup(dist.group.WORLD, world, rank,
+                        cfg.moe.num_experts // world)
+    own = map_with_path(lambda p, t: tp.own_slice(t, ep, 0)
+                        if is_expert_stack(cfg, p) else t, params)
 
     def split(fault=contextlib.nullcontext):
         with torch.no_grad(), pinned_routes(block, replay=True), \
-                synced_batch_stats(dist.group.WORLD, world, rank), fault():
-            part = backbone_forward(params, cfg, tokens=tokens[mine])
+                synced_batch_stats(dist.group.WORLD, world, rank), \
+                tp.expert_parallel(ep), fault():
+            part = backbone_forward(own, cfg, tokens=tokens[mine])
         want = whole.logits[mine].float()
         return (float((part.logits.float() - want).norm() / want.norm()),
                 float((part.aux_loss - whole.aux_loss).abs()
                       / whole.aux_loss.abs()))
 
     gl, ga = split()
+    sent = ep.bytes["all_to_all"]
     fl, fa = split(unsummed_expert_loads)
     print(f"  reading spmd moe block, capacity factor {SPMD_MOE_TIGHT}, "
-          f"rows over {world} ranks vs one rank (rank {rank}): logits "
+          f"rows and experts over {world} ranks ({sent:,.0f} B exchanged) "
+          f"vs one rank (rank {rank}): logits "
           f"{gl:.3e}, aux loss {ga:.3e} (relative); planted fault (expert "
           f"loads per rank): logits {fl:.3e}, aux loss {fa:.3e}", flush=True)
     check(gl <= TOL_GRAD_BF16 and ga <= TOL_GRAD_BF16,
@@ -4544,11 +4628,142 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     check(fl > TOL_GRAD_BF16 or fa > TOL_GRAD_BF16,
           f"spmd moe planted fault rejected: expert loads per rank "
           f"(logits {fl:.2e}, aux loss {fa:.2e})")
-    del params, whole
+    del params, own, whole
     torch.cuda.empty_cache()
     return {"dloss": dl, "drift": d, "block": (gl, ga),
             "block_fault": (fl, fa), "flipped": routes.flipped,
-            "tokens": routes.tokens}
+            "tokens": routes.tokens, "experts": experts,
+            "expert_gathered": expert_gathered, "exchanged": exchanged,
+            "control": dc, "faults": faults}
+
+
+def spmd_moe_block_leg(rank: int, world: int) -> dict:
+    """Expert parallelism at published widths: one qwen3-moe-235b-a22b MoE
+    block (d 4096, 128 experts top 8, d_expert 1536, capacity factor
+    1.25; bf16 experts, fp32 router), forward and backward on world x
+    SPMD_MOE_BLOCK_ROWS x SPMD_MOE_BLOCK_SEQ tokens, the rows over the
+    ranks and each rank's E / world experts alone (the dispatch and
+    combine an exchange over the ranks, ``models/moe.py``), against the
+    same block whole on one rank with routes pinned: the output, the
+    router's gradient (averaged over the ranks, as the spmd engine
+    averages it) and each rank's expert-weight gradients (its chunk of
+    the whole block's) within TOL_GRAD_BF16 of their norms.  The loss is
+    each rank's mean of its rows' outputs against a seeded cotangent plus
+    the aux loss, the engine's convention.  Prints the ms of a forward
+    and backward split and on one rank (the other rank idle; its first
+    pass, which loads cuBLAS's kernels and grows the allocator, apart),
+    the peak a rank and the bytes exchanged."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_moe_235b_a22b
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.models.moe import init_moe, moe_forward
+    from repro_torch.models.sync_stats import synced_batch_stats
+    from repro_torch.parity import TOL_GRAD_BF16, Routes, pinned_routes
+    cfg = qwen3_moe_235b_a22b.config()
+    m = cfg.moe
+    B, T, d = world * SPMD_MOE_BLOCK_ROWS, SPMD_MOE_BLOCK_SEQ, cfg.d_model
+    params = init_moe(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, T, d, generator=gen, device="cuda").to(cfg.dtype)
+    cot = torch.randn(B, T, d, generator=gen, device="cuda")
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def step(p, xs, cs):
+        """Forward and backward: (output, gradients of ``names``)."""
+        p = {k: v.detach().requires_grad_() for k, v in p.items()}
+        out, aux = moe_forward(p, xs, cfg)
+        loss = (out.float() * cs).sum() / (xs.shape[0] * T) + aux
+        return out.detach(), torch.autograd.grad(loss, [p[k] for k in names])
+
+    def timed(fn, n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3 / n
+
+    # the whole block on one rank at a time (the other waits), its routes
+    # recorded for the split run
+    routes = Routes()
+    one_ms = cold_ms = None
+    for r in range(world):
+        torch.cuda.synchronize()         # nothing of this rank's left queued
+        dist.barrier()
+        if r == rank:
+            t0 = time.perf_counter()
+            with pinned_routes(routes, replay=False):
+                whole, wgrads = step(params, x, cot)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            step(params, x, cot)                         # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SPMD_MOE_BLOCK_ITERS):
+                step(params, x, cot)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3 / SPMD_MOE_BLOCK_ITERS
+    n = B // world
+    rows = slice(rank * n, (rank + 1) * n)
+    E_loc = m.num_experts // world
+    ep = tp.ExpertGroup(dist.group.WORLD, world, rank, E_loc)
+    own = {k: (tp.own_slice(v, ep, 0) if k != "router" else v)
+           for k, v in params.items()}
+
+    def split():
+        with pinned_routes(routes, replay=True), \
+                synced_batch_stats(dist.group.WORLD, world, rank), \
+                tp.expert_parallel(ep):
+            return step(own, x[rows], cot[rows])
+
+    split()                                              # warm
+    ep.bytes["all_to_all"] = 0.0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (out, grads), split_ms = timed(split, SPMD_MOE_BLOCK_ITERS)
+    peak = torch.cuda.max_memory_allocated()
+    exchanged = ep.bytes["all_to_all"] / SPMD_MOE_BLOCK_ITERS
+    router = grads[0].clone()
+    dist.all_reduce(router)
+    router /= world
+    got = {"router": router, **{k: g / world
+                                for k, g in zip(names[1:], grads[1:])}}
+    want = {"router": wgrads[0], **{k: tp.own_slice(g, ep, 0) for k, g in
+                                    zip(names[1:], wgrads[1:])}}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    gaps = {"output": rel(out, whole[rows]),
+            **{k: rel(got[k], want[k]) for k in names}}
+    print(f"  reading spmd moe block qwen3-moe-235b-a22b at published "
+          f"widths ({B} x {T} tokens, {E_loc} of {m.num_experts} experts a "
+          f"rank, rank {rank}; {routes.flipped} of {routes.tokens} choices "
+          f"replayed against their own): relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f"; forward and backward {split_ms:.1f} ms over {world} ranks "
+          f"against {one_ms:.1f} ms on one rank (its first pass "
+          f"{cold_ms:.1f} ms); peak "
+          f"{peak / 2**30:.2f} GiB a rank ({held / 2**30:.2f} GiB held "
+          f"before the pass, the whole block's reference included); "
+          f"exchanged {exchanged:,.0f} B a pass on {card_line()}",
+          flush=True)
+    check(own["w_gate"].shape[0] == E_loc == m.num_experts // world,
+          f"spmd moe block rank {rank}: {E_loc} experts a rank")
+    check(max(gaps.values()) <= TOL_GRAD_BF16,
+          f"spmd moe block split = one rank: output and gradients within "
+          f"{TOL_GRAD_BF16:g} ({max(gaps.values()):.2e})")
+    del params, own, x, cot, whole, wgrads, out, grads, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "split_ms": split_ms, "one_ms": one_ms,
+            "one_cold_ms": cold_ms,
+            "peak": peak, "held": held, "exchanged": exchanged,
+            "experts": E_loc}
 
 
 def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:

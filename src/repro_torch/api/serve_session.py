@@ -332,9 +332,12 @@ class RankPlacement:
             self.roles = tp_roles(params, self.param_specs, mesh, cfg,
                                   self.recipe)
             self.tp.expert_blocks = expert_blocks(self.roles)
+            # serving gathers an expert stack over the batch ranks: a
+            # tick's slots are not split over them as a step's rows are
             self.compute_specs = map_with_path(
                 lambda p, _: compute_spec(_lookup(self.param_specs, p),
-                                          _lookup(self.roles, p), ax),
+                                          _lookup(self.roles, p), ax,
+                                          experts=False),
                 params)
         self._batch_all = batch_axes(mesh)
         self.batch = tuple(a for a in self._batch_all

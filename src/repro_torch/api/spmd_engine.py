@@ -48,8 +48,8 @@ same recipe rules:
     split over the vocab are ``column`` or ``row``, and an expert stack
     is ``expert`` over the grid or ``column``/``row`` over its hidden
     dims; each stays this rank's ``"model"`` chunk for compute (gathered
-    over its FSDP/data axes only: a grid-placed expert stack then holds
-    this rank's strided set of experts, ``ModelGroup.expert_blocks``).
+    over its FSDP axes only; an expert stack keeps its "data" chunk too,
+    below).
     The step runs inside ``launch.tensor_parallel.model_parallel`` over
     the rank's model group, whose products multiply with the chunks (the
     logits stay split over the vocab into the vocab-parallel cross
@@ -60,7 +60,20 @@ same recipe rules:
     model rank.  The clip norm sums the split leaves' squares over the
     group and counts the others once.
 
-Only all_reduce and all_gather are used (gloo and NCCL both take them;
+  * **Expert parallelism over the batch ranks** (a MoE backbone whose
+    expert stacks have E over "data": the grid, or the data layout).
+    Each rank keeps its chunk of the experts for compute -- over the
+    grid chunk i * P + m of rank (i, m) -- and no expert weight is
+    gathered in a step.  The step runs inside
+    ``launch.tensor_parallel.expert_parallel`` over the rank's data
+    group, where a MoE block's dispatch and combine are an all_to_all
+    over it (``models/moe.py``).  An owner's expert gradient already sums
+    every batch rank's entries: those leaves skip the all-reduce over the
+    batch axes they are kept over (:func:`grad_reduce_axes`) but take the
+    same ``/dp``, and the clip norm sums their squares over their axes.
+
+The gathers and the gradients' reduction use all_reduce and all_gather,
+the experts' exchange all_to_all (gloo and NCCL take them;
 ``launch/meshcomm.py``).  Sequence parallelism, reduce-scatter and
 overlapping the gathers with compute are not done (ROADMAP.md item 9b-4).
 
@@ -94,13 +107,17 @@ from repro_torch.launch.meshcomm import (  # noqa: F401 (re-exported)
     MeshComm, _axes, all_reduce_plan, chunk_shapes, gather_plan, plan_bytes,
     unshard_plan)
 from repro_torch.launch.shardings import (_lookup, compute_spec,
-                                          expert_blocks, jax_layout,
+                                          expert_axes, is_expert_stack,
+                                          jax_layout, kept_experts,
+                                          kept_spec,
                                           map_with_path,
                                           port_specs, resolve_recipe,
                                           spec_leaves, stage_batch_spec,
                                           tp_roles, train_state_specs,
                                           tree_paths)
-from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
+from repro_torch.launch.tensor_parallel import (ExpertGroup, ModelGroup,
+                                                expert_parallel,
+                                                model_parallel)
 from repro_torch.models.sync_stats import synced_batch_stats
 from repro_torch.optim.adam import adam_update, lane_norms
 
@@ -178,6 +195,14 @@ def _on_meta(_, t):
     return t
 
 
+def grad_reduce_axes(batch_axes, experts) -> tuple:
+    """The axes a leaf's gradient is all-reduced over: the batch axes but
+    those its expert stack keeps its chunk over, where an owner's
+    gradient already sums every batch rank's entries (a module function:
+    ``parity.reduced_expert_grads`` replaces it)."""
+    return tuple(a for a in batch_axes if a not in experts)
+
+
 @register_engine("spmd")
 class SpmdEngine(FusedEngine):
     """The fused engine's round body over the ranks of a mesh, placed by a
@@ -236,10 +261,19 @@ class SpmdEngine(FusedEngine):
                                   self.comm.index((tp_axis,)))
         self._roles: Dict[int, tuple] = {}
         self._cspecs: Dict[int, tuple] = {}
+        # the expert-parallel group over the batch ranks (set with the
+        # roles, where an expert stack keeps its chunk over them)
+        self._ep: Optional[ExpertGroup] = None
         #: bytes gathered per cohort step in the latest run (this rank)
         self.last_gathered_bytes_per_step = 0.0
         #: bytes of the tensor-parallel collectives per cohort step
         self.last_tp_bytes_per_step = 0.0
+        #: bytes of the experts' dispatch and combine exchanges per cohort
+        #: step (this rank's entries' rows that crossed ranks, both ways)
+        self.last_exchange_bytes_per_step = 0.0
+        #: the experts of an expert stack a rank holds for compute (0: no
+        #: expert stack)
+        self.experts_per_rank = 0
 
     @classmethod
     def supports(cls, ctx: SessionContext) -> Optional[str]:
@@ -342,17 +376,30 @@ class SpmdEngine(FusedEngine):
         cfg = _model_cfg(self.ctx.model)
         for li in carry:
             specs = self._specs[li]
-            if self._tp is None:
+            if cfg is None:
                 self._cspecs[li] = specs
                 continue
             roles = tp_roles(carry[li], specs, self.mesh, cfg, self.recipe,
                              lead=1)
             self._roles[li] = roles
-            self._tp.expert_blocks = expert_blocks(roles)
+            axes = expert_axes(roles)
+            if axes and self._ep is None:
+                pg, _ = self.comm.group(axes)
+                self._ep = ExpertGroup(pg, self.comm.size(axes),
+                                       self.comm.index(axes), kept_experts(
+                                           roles, cfg.moe.num_experts,
+                                           self.comm.sizes,
+                                           self.recipe.tp_axis))
             self._cspecs[li] = map_with_path(
                 lambda p, _: compute_spec(_lookup(specs, p),
                                           _lookup(roles, p),
                                           self.recipe.tp_axis), carry[li])
+            for p, t in tree_paths(carry[li]):
+                if is_expert_stack(cfg, p):
+                    kept = kept_spec(_lookup(specs, p), _lookup(roles, p),
+                                     self.recipe.tp_axis)
+                    self.experts_per_rank = t.shape[1] // self.comm.size(
+                        _axes(kept[1]))
         out = {li: tuple(self._tree(self._shard, stack(trees), specs)
                          for stack, trees, specs in zip(
                              stackers, lanes(li), self._specs[li]))
@@ -360,12 +407,25 @@ class SpmdEngine(FusedEngine):
         self._chunks = {li: map_with_path(_on_meta, out[li]) for li in out}
         return out
 
-    def planned_gathered_bytes_per_step(self) -> float:
+    def planned_gathered_bytes_per_step(self, experts: bool = False
+                                        ) -> float:
         """The bytes a cohort step gathers on this rank by
         :func:`unshard_plan` (the client's and the server's chunks of each
         cohort), averaged over the cohorts, which step equally often: what
-        :attr:`last_gathered_bytes_per_step` measures."""
-        per = [plan_bytes(unshard_plan(self._chunks[li][part],
+        :attr:`last_gathered_bytes_per_step` measures.  ``experts``: of
+        the expert stacks' leaves alone (0 where they keep their chunks
+        over the batch ranks)."""
+        cfg = _model_cfg(self.ctx.model)
+
+        def only(li, part):
+            tree = self._chunks[li][part]
+            if not experts:
+                return tree
+            return map_with_path(
+                lambda p, t: t if cfg is not None and is_expert_stack(
+                    cfg, p) else None, tree)
+
+        per = [plan_bytes(unshard_plan(only(li, part),
                                        self._cspecs[li][part],
                                        self.comm.sizes))
                for li in self._cohort_lis for part in (0, 2)]
@@ -457,36 +517,50 @@ class SpmdEngine(FusedEngine):
         self._gathered += self.comm.gathered_bytes - before
         self._steps_run += 1
         tp_before = self._tp.total_bytes if self._tp is not None else 0.0
+        ep_before = self._ep.total_bytes if self._ep is not None else 0.0
         if self._dp > 1:
             pg, _ = self.comm.group(self._batch_axes)
             sync = synced_batch_stats(pg, self._dp,
                                       self.comm.index(self._batch_axes))
         else:
             sync = contextlib.nullcontext()
-        with sync, model_parallel(self._tp):
+        with sync, model_parallel(self._tp), expert_parallel(self._ep):
             gc, gs, closs, sloss, cst, sst = self._steps[li](fc, fs, x, y)
         gc, gs = list(gc), list(gs)
+        roles = self._roles.get(li)
+
+        def leaf_roles(part, net):
+            return [None if roles is None else
+                    _lookup(roles[part]["trainable"], p)
+                    for p, _ in tree_paths(net["trainable"])]
+
         if self._dp > 1:
-            live = [g for g in gc + gs if g is not None]
-            self.comm.all_reduce(live, self._batch_axes)
-            for g in live:
-                g.div_(self._dp)
+            # one all-reduce over the batch axes; an expert stack kept over
+            # some of them is summed over the others alone
+            by_axes: Dict[tuple, list] = {}
+            for part, net, grads in ((0, c, gc), (2, s, gs)):
+                for r, g in zip(leaf_roles(part, net), grads):
+                    if g is not None:
+                        by_axes.setdefault(grad_reduce_axes(
+                            self._batch_axes, r.experts if r else ()),
+                            []).append(g)
+            for axes, live in by_axes.items():
+                self.comm.all_reduce(live, axes)
+                for g in live:
+                    g.div_(self._dp)
         w = (1.0 if self._owned[li] else 0.0) / self._dp
         if m is not None:
             cst = masked_update(m, cst, fc["state"])
             sst = masked_update(m, sst, fs["state"])
             closs, sloss = closs * m.to(closs.dtype), sloss * m.to(sloss.dtype)
         out = []
-        roles = self._roles.get(li)
         for part, (net, full, g, opt, specs, st, rate) in zip((0, 2), (
                 (c, fc, gc, co, sc, cst, lr), (s, fs, gs, so, ss, sst, lr_s))):
             norms = None
             if self.ctx.opt_cfg.grad_clip > 0:
-                split = (None if roles is None else
-                         [_lookup(roles[part]["trainable"], p).split
-                          for p, _ in tree_paths(net["trainable"])])
-                norms = lane_norms(g, split, lambda ts: self.comm.all_reduce(
-                    ts, (self.recipe.tp_axis,)))
+                split = [self._norm_axes(r) for r in leaf_roles(part, net)]
+                norms = lane_norms(g, split if any(split) else None,
+                                   self.comm.all_reduce)
             leaf_specs = spec_leaves(specs["trainable"], net["trainable"])
             g = [None if gr is None else self._shard(gr, sp)
                  for gr, sp in zip(g, leaf_specs)]
@@ -497,7 +571,19 @@ class SpmdEngine(FusedEngine):
                     opt]
         if self._tp is not None:
             self._tp_bytes += self._tp.total_bytes - tp_before
+        if self._ep is not None:
+            self._ep_bytes += self._ep.total_bytes - ep_before
         return tuple(out), closs.double() * w, sloss.double() * w
+
+    def _norm_axes(self, role) -> tuple:
+        """The axes over which a leaf's gradient is split, so its squares
+        are summed over them for the clip norm: an expert stack's batch
+        axes, a tensor-parallel chunk's model axis (those of one rank
+        left out)."""
+        if role is None:
+            return ()
+        axes = role.experts + ((self.recipe.tp_axis,) if role.split else ())
+        return tuple(a for a in axes if self.comm.sizes.get(a, 1) > 1)
 
     def _aggregate(self, carry, ms, r: int) -> None:
         """Eq. (1) on the stacked servers of every cohort: the fused
@@ -536,12 +622,12 @@ class SpmdEngine(FusedEngine):
     def run(self, state, rounds: int, local_epochs: int = 1,
             log_every: int = 0, chunk_rounds: int = 0):
         self._gathered = 0
-        self._tp_bytes = 0.0
+        self._tp_bytes = self._ep_bytes = 0.0
         self._steps_run = 0
         out = super().run(state, rounds, local_epochs, log_every,
                           chunk_rounds)
-        self.last_gathered_bytes_per_step = (
-            self._gathered / max(1, self._steps_run))
-        self.last_tp_bytes_per_step = (
-            self._tp_bytes / max(1, self._steps_run))
+        steps = max(1, self._steps_run)
+        self.last_gathered_bytes_per_step = self._gathered / steps
+        self.last_tp_bytes_per_step = self._tp_bytes / steps
+        self.last_exchange_bytes_per_step = self._ep_bytes / steps
         return out

@@ -17,15 +17,18 @@ outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
     (``launch/shardings.param_specs`` by the recipe) are gathered by
     ``launch/meshcomm.unshard_plan``'s all_gathers -- a leaf that
     ``shardings.tp_roles`` finds ``column``, ``row`` or ``expert`` over
-    its data axes only, keeping its ``"model"`` chunk (an expert stack:
-    the rank's experts, whose dispatch buffers alone it builds), any
-    other whole --
+    its FSDP axes only, keeping its ``"model"`` chunk, an expert stack
+    whose E dim is over "data" not at all (it keeps the rank's experts,
+    whose dispatch buffers alone it builds), any other whole --
     ``make_grad_step`` runs on the rank's rows (global batch / data ranks)
-    inside ``launch.tensor_parallel.model_parallel`` over a counting model
-    group (its collectives recorded, nothing sent), a MoE block's loads
-    summed over the batch ranks, the gradients are all-reduced over the
-    batch ranks (``all_reduce_plan``) and Adam updates the rank's chunks
-    -- the spmd engine's step;
+    inside ``launch.tensor_parallel.model_parallel`` and
+    ``expert_parallel`` over counting groups (their collectives recorded,
+    nothing sent; the experts' exchange as all_to_all at a bound the real
+    one cannot exceed: every entry's row and slot out, every row back,
+    ``exchange_bytes``), a MoE block's loads summed over the batch ranks,
+    the gradients but the experts' all-reduced over the batch ranks
+    (``all_reduce_plan``), and Adam updates the rank's chunks -- the spmd
+    engine's step;
   * prefill: ``backbone_forward`` on the rank's rows (``--last-token-heads``
     as JAX's ``prefill_step``) with the weights ``ServeSession``'s
     ``RankPlacement`` gathers a tick;
@@ -64,6 +67,7 @@ import torch
 from repro_torch import configs as configs_mod
 from repro_torch.api.serve_session import (_RING_KEYS, serve_placement,
                                            tick_gather_spec)
+from repro_torch.api.spmd_engine import grad_reduce_axes
 from repro_torch.launch.meshcomm import (all_reduce_plan, chunk_shapes,
                                          plan_bytes, unshard_plan)
 from repro_torch.config import (INPUT_SHAPES, SHAPES_BY_NAME, ModelConfig,
@@ -78,7 +82,8 @@ from repro_torch.launch import tensor_parallel as tp_mod
 from repro_torch.launch.mesh import axis_sizes, batch_axes, production_mesh_spec
 from repro_torch.launch.meshcomm import _axes
 from repro_torch.launch.step_analysis import StepAnalysis
-from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
+from repro_torch.launch.tensor_parallel import (ModelGroup, expert_parallel,
+                                                model_parallel)
 from repro_torch.models.attention import RingPart, ShardedRing
 from repro_torch.models.backbone import backbone_forward
 from repro_torch.models.heads import whole_logits
@@ -144,55 +149,82 @@ def _chunk_of(t: torch.Tensor, shape) -> torch.Tensor:
     return out if out is t else out.clone()
 
 
-def _placement(cfg, params_abs, mesh, recipe):
+def _placement(cfg, params_abs, mesh, recipe, experts: bool = False):
     """One rank's placement of the parameter tree: ``(stored chunks,
-    compute shapes, the weight gathers of a step or tick, model group)``.
-    A leaf that ``shardings.tp_roles`` finds ``column``, ``row`` or
-    ``expert`` keeps its ``"model"`` chunk for compute and is gathered
-    over its other axes only; any other is gathered whole
-    (``launch/meshcomm.unshard_plan``).
-    The model group counts its collectives and sends nothing."""
+    compute shapes, the weight gathers of a step or tick, model group,
+    expert group, its model group's compute shapes)``.  A leaf that
+    ``shardings.tp_roles`` finds ``column``, ``row`` or ``expert`` keeps
+    its ``"model"`` chunk for compute and is gathered over its other axes
+    only; with ``experts`` (a train step) an expert stack keeps its chunk
+    over the batch ranks too (``Role.experts``) and the expert group
+    counts its exchanges; any other leaf is gathered whole
+    (``launch/meshcomm.unshard_plan``).  The model group's compute shapes
+    are the whole shapes cut by the expert split alone (its whole step,
+    for ``replicated_over_model``).  The groups count their collectives
+    and send nothing."""
     sizes = axis_sizes(mesh)
     specs = sh.port_specs(sh.param_specs(sh.jax_layout(params_abs, cfg),
                                          cfg, mesh, recipe), params_abs, cfg)
     roles = sh.tp_roles(params_abs, specs, mesh, cfg, recipe)
-    cspecs = sh.map_with_path(
-        lambda p, _: sh.compute_spec(sh._lookup(specs, p),
-                                     sh._lookup(roles, p), recipe.tp_axis),
-        params_abs)
+
+    def by_role(fn, **kw):
+        return sh.map_with_path(
+            lambda p, _: fn(sh._lookup(specs, p), sh._lookup(roles, p),
+                            recipe.tp_axis, experts=experts, **kw),
+            params_abs)
+
+    cspecs = by_role(sh.compute_spec)
     chunks = chunk_shapes(params_abs, specs, sizes, lead=0)
-    kept = sh.map_with_path(
-        lambda p, _: sh.kept_spec(sh._lookup(specs, p), sh._lookup(roles, p),
-                                  recipe.tp_axis), params_abs)
-    compute = chunk_shapes(params_abs, kept, sizes, lead=0)
+    compute = chunk_shapes(params_abs, by_role(sh.kept_spec), sizes, lead=0)
+    group_compute = chunk_shapes(params_abs, sh.map_with_path(
+        lambda p, _: sh.kept_spec(sh._lookup(specs, p), sh.Role(
+            "gathered", experts=sh._lookup(roles, p).experts),
+            recipe.tp_axis, experts=experts), params_abs), sizes, lead=0)
     gathers = [g for plan in unshard_plan(chunks, cspecs, sizes, lead=0)
                for g in plan]
     P = sizes.get(recipe.tp_axis, 1)
     group = (ModelGroup(None, P, 0, expert_blocks=sh.expert_blocks(roles))
              if P > 1 else None)
-    return chunks, compute, gathers, group
+    axes = sh.expert_axes(roles) if experts else ()
+    ep = (tp_mod.ExpertGroup(None, math.prod(sizes[a] for a in axes), 0,
+                             sh.kept_experts(roles, cfg.moe.num_experts,
+                                             sizes, recipe.tp_axis))
+          if axes else None)
+    return chunks, compute, gathers, group, ep, group_compute, roles
 
 
 def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
                 rec, tp: bool = True):
-    """Traces one rank's train step; fills ``rec`` with the persistent and
-    gathered bytes; returns the analysis.  ``tp=False`` traces the step
-    its model group computes, on whole weights and without collectives
-    (``replicated_over_model`` reads it)."""
+    """Traces one rank's train step; fills ``rec`` with the persistent,
+    gathered and exchanged bytes; returns the analysis.  ``tp=False``
+    traces the step its model group computes, on weights whole over the
+    model axis and without its collectives (``replicated_over_model``
+    reads it)."""
     sizes = axis_sizes(mesh)
     dp = math.prod(sizes[a] for a in batch_axes(mesh))
     params_abs = abstract_params(cfg)
-    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
-                                                 recipe)
+    chunks, compute, gathers, group, ep, group_compute, roles = _placement(
+        cfg, params_abs, mesh, recipe, experts=True)
     if not tp:
-        compute, gathers, group = params_abs, [], None
+        compute, gathers, group = group_compute, [], None
+        if ep is not None:               # the experts over the batch alone
+            ep = tp_mod.ExpertGroup(None, ep.size, 0,
+                                    cfg.moe.num_experts // ep.size)
     opt_cfg = OptimizerConfig(state_dtype=torch.bfloat16, total_steps=10_000)
     moments = tree_map(lambda t: torch.empty(t.shape, dtype=torch.bfloat16,
                                              device="meta"), chunks)
     rec["persistent_bytes"] = tree_bytes(chunks) + 2 * tree_bytes(moments)
-    reduces = all_reduce_plan([(t.shape, t.dtype)
-                               for t in tree_leaves(compute)],
-                              batch_axes(mesh), sizes) if tp else []
+    # the gradients' all-reduce over the batch ranks; an expert stack kept
+    # over them is summed over the others alone (spmd_engine)
+    reduces = []
+    if tp:
+        by_axes: Dict[tuple, list] = {}
+        for path, t in sh.tree_paths(compute):
+            axes = grad_reduce_axes(batch_axes(mesh),
+                                    sh._lookup(roles, path).experts)
+            by_axes.setdefault(axes, []).append((t.shape, t.dtype))
+        for axes, items in by_axes.items():
+            reduces += all_reduce_plan(items, axes, sizes)
     rec["gathered_bytes"] = plan_bytes([gathers])
     rec["grad_reduce_bytes"] = sum(r["bytes"] for r in reduces)
     sc = StepConfig(model=cfg, splitee=SplitEEConfig(profile=profile),
@@ -215,7 +247,7 @@ def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
         for g in gathers:
             sites.collective("all_gather", g["bytes"])
         params = _fake_like(compute)
-        with model_parallel(group), loads:
+        with model_parallel(group), expert_parallel(ep), loads:
             grads, _ = grad_step(params, batch)
         del params
         for r in reduces:
@@ -226,6 +258,9 @@ def _train_step(cfg, profile, shape, rows, grad_mode, remat, mesh, recipe,
         del grads
     if group is not None:
         rec["tp_collectives"] = dict(group.bytes)
+    if ep is not None and tp:
+        rec["exchange_bytes"] = ep.bytes["all_to_all"]
+        rec["experts_per_rank"] = ep.experts
     return a
 
 
@@ -236,7 +271,7 @@ def _prefill_step(cfg, shape, rows, last_token_heads, mesh, recipe, rec,
     whole step of its model group)."""
     params_abs = abstract_params(cfg)
     chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
-                                                 recipe)
+                                                 recipe)[:4]
     if not tp:
         compute, gathers, group = params_abs, [], None
     rec["persistent_bytes"] = tree_bytes(chunks)
@@ -312,7 +347,7 @@ def _decode_step(cfg, profile, shape, rows, mesh, recipe, rec,
     cache)."""
     params_abs = abstract_params(cfg)
     chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
-                                                 recipe)
+                                                 recipe)[:4]
     specs = serve_input_specs(cfg, shape)
     if tp:
         stored, cgathers, cache = _tick_cache(cfg, specs["cache"], mesh,
@@ -386,7 +421,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
                rows_per_rank=rows)
     if shape.kind == "train":
         rec["placement"] = ("spmd engine step (tensor-parallel leaves kept "
-                            "as model chunks, the rest gathered whole)")
+                            "as model chunks, expert stacks as the rank's "
+                            "experts, the rest gathered whole)")
     else:
         rec["placement"] = ("ServeSession over ranks (RankPlacement: "
                             "tensor-parallel leaves read in place, the "

@@ -11,8 +11,10 @@ plans (:func:`gather_plan`, :func:`unshard_plan`, :func:`all_reduce_plan`)
 are pure functions of shapes, specs and axis sizes: the dry run reads them
 without a world, and the ranks count the bytes they move
 (:attr:`MeshComm.gathered_bytes`, ``kernels.sites.collective``) by the same
-plans.  Only all_reduce and all_gather are used (gloo and NCCL both take
-them).
+plans.  The gathers and reductions here are all_reduce and all_gather;
+a train step's expert exchange is an all_to_all
+(``launch/tensor_parallel.dispatch``).  gloo and NCCL take all three,
+on CUDA tensors too.
 """
 from __future__ import annotations
 

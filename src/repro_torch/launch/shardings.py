@@ -636,27 +636,34 @@ class Role:
     (``launch/tensor_parallel.py``): ``"column"`` (its ``"model"`` dim
     ``dim`` is an output dim), ``"row"`` (the contracting dim),
     ``"expert"`` (an expert stack whose expert dim ``dim`` is split over
-    a tuple of axes ending in ``"model"``, data-major: after the gather
+    a tuple of axes ending in ``"model"``, data-major: after a gather
     over the other axes, ``blocks`` of them, model rank m holds the
     experts of chunks m, P + m, 2P + m, ... -- ``tensor_parallel.
-    expert_ids``), or ``"gathered"`` (held whole for compute: ``reason``
-    says why).  A split role may carry a ``reason`` too (a note on the
-    compute it feeds).  Not a tuple or a record, so a tree of roles is
-    walked as the tree it mirrors."""
+    expert_ids``, the serving path), or ``"gathered"`` (held whole for
+    compute: ``reason`` says why).  A split role may carry a ``reason``
+    too (a note on the compute it feeds).  ``experts``: the batch axes
+    over which an expert stack's expert dim stays split for a train
+    step (``("data",)`` where that axis holds more than one rank, else
+    empty) -- expert parallelism, the dispatch and combine an exchange
+    over those ranks (``tensor_parallel.ExpertGroup``).  Not a tuple or
+    a record, so a tree of roles is walked as the tree it mirrors."""
 
-    __slots__ = ("kind", "dim", "reason", "blocks")
+    __slots__ = ("kind", "dim", "reason", "blocks", "experts")
 
     def __init__(self, kind: str, dim: Optional[int] = None,
-                 reason: str = "", blocks: int = 1):
+                 reason: str = "", blocks: int = 1,
+                 experts: Tuple[str, ...] = ()):
         self.kind, self.dim, self.reason = kind, dim, reason
-        self.blocks = blocks
+        self.blocks, self.experts = blocks, experts
 
     @property
     def split(self) -> bool:
         return self.kind in ("column", "row", "expert")
 
     def __repr__(self):
-        return f"Role({self.kind!r}, {self.dim}, {self.reason!r})"
+        return (f"Role({self.kind!r}, {self.dim}, {self.reason!r}"
+                + (f", experts={self.experts}" if self.experts else "")
+                + ")")
 
 
 _ROW_COL = {0: "row", 1: "column"}
@@ -750,6 +757,13 @@ def _families(cfg, path) -> Tuple[Optional[str], str]:
     return "norm", name
 
 
+def is_expert_stack(cfg, path) -> bool:
+    """Whether the leaf at ``path`` of a port backbone tree is one of a
+    MoE block's stacked expert weights (E, d, f) / (E, f, d)."""
+    fam, name = _families(cfg, path)
+    return fam == "moe" and name in _TP_DIMS["moe"]
+
+
 def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
              lead: int = 0):
     """The :class:`Role` of every leaf of a port backbone tree (any leaves
@@ -757,7 +771,9 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
     (``recipe.tp_axis``) read against the family's products
     (:data:`_TP_DIMS`), the ``lead`` lane dims skipped.  A leaf that a
     product splits is ``column`` or ``row``, an expert stack over the
-    grid ``expert``; any other, ``gathered`` with its reason.  GQA's query
+    grid ``expert``; any other, ``gathered`` with its reason.  An expert
+    stack whose E dim is over "data" (of more than one rank) also names
+    that axis in ``Role.experts``, whatever its kind.  GQA's query
     heads go column only where each rank's heads read whole KV groups (or
     one KV head), and a bias only beside its column-parallel weight.  An
     RWKV6 projection whose chunk does not hold whole heads (P does not
@@ -803,7 +819,14 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
                         f"heads do not divide over {P} ranks")
         return Role(kind, d)
 
-    roles = map_with_path(first, tree)
+    def role(path, t) -> Role:
+        r = first(path, t)
+        if (sizes.get("data", 1) > 1 and is_expert_stack(cfg, path)
+                and "data" in _entry_axes(tuple(_lookup(specs, path))[lead])):
+            r.experts = ("data",)
+        return r
+
+    roles = map_with_path(role, tree)
 
     def bias(path, _) -> Role:
         r, name = _lookup(roles, path), path[-1]
@@ -816,29 +839,70 @@ def tp_roles(tree, specs, mesh, cfg, recipe: Optional[ShardingRecipe] = None,
     return map_with_path(bias, tree)
 
 
-def compute_spec(spec, role: Role, tp_axis: str = "model") -> Spec:
-    """The spec a leaf is gathered to for compute: a split leaf keeps its
-    ``tp_axis`` chunk (that entry dropped, or ``tp_axis`` dropped from a
-    tuple entry: an expert stack is gathered over its other axes only),
-    any other is gathered whole."""
-    if not role.split:
+def _entry_axes(e) -> Tuple[str, ...]:
+    if e is None:
+        return ()
+    return tuple(e) if isinstance(e, tuple) else (e,)
+
+
+def _entry(axes: Tuple[str, ...]):
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def _kept_axes(role: Role, tp_axis: str, experts: bool) -> set:
+    keep = set(role.experts) if experts else set()
+    if role.split:
+        keep.add(tp_axis)
+    return keep
+
+
+def compute_spec(spec, role: Role, tp_axis: str = "model",
+                 experts: bool = True) -> Spec:
+    """The spec a leaf is gathered over for compute: a split leaf keeps
+    its ``tp_axis`` chunk (that axis dropped from its entry), and with
+    ``experts`` (a train step; serving passes False) an expert stack
+    keeps its chunk over ``role.experts`` too, so an expert stack over
+    the grid is not gathered at all and one in the data layout only over
+    a "pod" split; any other leaf is gathered whole."""
+    keep = _kept_axes(role, tp_axis, experts)
+    if not keep:
         return tuple(spec)
-    out = []
-    for e in spec:
-        if isinstance(e, tuple) and tp_axis in e:
-            rest = tuple(a for a in e if a != tp_axis)
-            e = rest if len(rest) > 1 else (rest[0] if rest else None)
-        out.append(None if e == tp_axis else e)
-    return tuple(out)
+    return tuple(_entry(tuple(a for a in _entry_axes(e) if a not in keep))
+                 for e in spec)
 
 
-def kept_spec(spec, role: Role, tp_axis: str = "model") -> Spec:
-    """The split a leaf keeps for compute: ``tp_axis`` where its spec
-    holds it (alone or in a tuple) and the role is split, else None --
-    the compute chunk's shape is the whole shape cut by this spec."""
-    return tuple(tp_axis if role.split and (
-        e == tp_axis or (isinstance(e, tuple) and tp_axis in e)) else None
-        for e in spec)
+def kept_spec(spec, role: Role, tp_axis: str = "model",
+              experts: bool = True) -> Spec:
+    """The split a leaf keeps for compute (what :func:`compute_spec`
+    leaves out): the compute chunk's shape is the whole shape cut by this
+    spec."""
+    keep = _kept_axes(role, tp_axis, experts)
+    return tuple(_entry(tuple(a for a in _entry_axes(e) if a in keep))
+                 for e in spec)
+
+
+def expert_axes(roles) -> Tuple[str, ...]:
+    """The batch axes the expert stacks of a tree of roles keep their
+    chunks over for a train step (``Role.experts``; empty where none
+    does)."""
+    for _, r in tree_paths(roles):
+        if r.experts:
+            return r.experts
+    return ()
+
+
+def kept_experts(roles, num_experts: int, sizes, tp_axis: str = "model"
+                 ) -> int:
+    """The experts a rank keeps of each expert stack split over the batch
+    ranks for a train step (the first role with ``Role.experts``): E over
+    those ranks, and over ``tp_axis`` too in the grid (an ``"expert"``
+    role); 0 where no stack keeps such a chunk.  The
+    ``tensor_parallel.ExpertGroup``'s ``experts``."""
+    for _, r in tree_paths(roles):
+        if r.experts:
+            n = num_experts // math.prod(sizes[a] for a in r.experts)
+            return n // sizes.get(tp_axis, 1) if r.kind == "expert" else n
+    return 0
 
 
 def expert_blocks(roles) -> int:

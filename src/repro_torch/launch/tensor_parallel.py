@@ -25,7 +25,17 @@ and so is its gradient: the gradient of a replicated or gathered leaf is
 the whole gradient, and that of a covered leaf is its chunk of it.  Each
 Function has a ``torch.func.vmap`` rule (the fused and spmd engines run
 the forward under ``vmap`` over lanes, ``models/sync_stats.GroupSumFn``'s
-pattern).  Only all_reduce and all_gather are used.
+pattern).
+
+Expert parallelism over the batch ranks (a train step): an
+:class:`ExpertGroup` of the ranks along ``"data"`` keeps each expert
+stack split over them, rank i the i-th contiguous chunk of the experts.
+Each rank routes its own rows; :func:`dispatch` sends each kept entry's
+row to the rank that owns its expert, which writes it at the entry's
+global slot of its (E/D, C, d) buffer, and :func:`collect` brings the
+expert outputs back: one ``all_to_all`` each way, its transpose the
+backward (:class:`Dispatch`, :class:`Collect`, both with ``vmap``
+rules that fold the lanes into one exchange).
 
 The group is a :class:`ModelGroup` made active by :func:`model_parallel`
 in the calling thread; model code asks :func:`active`.  Outside the
@@ -71,6 +81,30 @@ class ModelGroup:
         return sum(self.bytes.values())
 
 
+@dataclass
+class ExpertGroup:
+    """The ranks over which a train step's expert stacks are split (the
+    mesh's ``"data"`` axis, the ranks sharing this rank's other
+    coordinates): ``group`` the process group (``None``: count only),
+    ``size`` ranks, this rank the ``index``-th, holding the ``index``-th
+    chunk of each stack's experts (in the grid, model rank m holds chunk
+    ``index * P + m``), ``experts`` of them a stack
+    (``shardings.kept_experts``: the roles decide).  ``bytes`` sums the exchanges run on it: the
+    rows of this rank's own entries that cross to another rank, out in a
+    dispatch and back in a collect, with the slot indices and counts that
+    travel along."""
+    group: object
+    size: int
+    index: int
+    experts: int
+    bytes: Dict[str, float] = field(default_factory=lambda: {
+        "all_to_all": 0.0})
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes.values())
+
+
 @contextlib.contextmanager
 def model_parallel(group: Optional[ModelGroup]):
     """Run the products of this thread's model code over ``group`` (no
@@ -86,6 +120,25 @@ def model_parallel(group: Optional[ModelGroup]):
 def active() -> Optional[ModelGroup]:
     """The active :class:`ModelGroup` of more than one rank, else None."""
     g = getattr(_state, "group", None)
+    return g if g is not None and g.size > 1 else None
+
+
+@contextlib.contextmanager
+def expert_parallel(group: Optional[ExpertGroup]):
+    """Run this thread's MoE blocks with their experts split over
+    ``group`` (no change for ``None``)."""
+    prev = getattr(_state, "experts", None)
+    _state.experts = group
+    try:
+        yield group
+    finally:
+        _state.experts = prev
+
+
+def active_experts() -> Optional[ExpertGroup]:
+    """The active :class:`ExpertGroup` of more than one rank, else
+    None."""
+    g = getattr(_state, "experts", None)
     return g if g is not None and g.size > 1 else None
 
 
@@ -319,6 +372,188 @@ def expert_ids(num_experts: int, n_local: int) -> List[int]:
         raise ValueError(f"{n_local} experts a rank do not split "
                          f"{num_experts} over {D} x {P} chunks")
     return [(b * P + g.index) * n + j for b in range(D) for j in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: the dispatch and combine as an exchange
+# ---------------------------------------------------------------------------
+
+
+class ExchangePlan:
+    """What a :func:`dispatch` learnt for its :func:`collect`: ``order``
+    (the flat entries this rank sent, in sending order), ``sent`` (rows
+    sent to each rank), ``slots`` (the flat buffer slots of the rows
+    received, in receiving order) and ``received`` (rows from each
+    rank)."""
+
+    __slots__ = ("order", "sent", "slots", "received")
+
+
+def _a2a(rows: torch.Tensor, received: List[int], sent: List[int],
+         g: ExpertGroup) -> torch.Tensor:
+    import torch.distributed as dist
+    out = rows.new_empty((sum(received),) + tuple(rows.shape[1:]))
+    dist.all_to_all_single(out, rows.contiguous(), received, sent,
+                           group=g.group)
+    return out
+
+
+def _crossing(counts: List[int], g: ExpertGroup) -> int:
+    return sum(counts) - counts[g.index]
+
+
+def _counting(x: torch.Tensor, g: ExpertGroup) -> bool:
+    return g.group is None or sites.is_fake(x)
+
+
+def _record_exchange(g: ExpertGroup, nbytes: float) -> None:
+    g.bytes["all_to_all"] += nbytes
+    sites.collective("all_to_all", nbytes)
+
+
+def _dispatch(x: torch.Tensor, dest: torch.Tensor, slot: torch.Tensor,
+              n_slots: int, g: ExpertGroup, plan: ExchangePlan
+              ) -> torch.Tensor:
+    """Entries (G, S, d) -> the owners' buffers (G, n_slots, d): each
+    entry with ``dest`` >= 0 goes to that rank's slot ``slot`` of its
+    group; the counts go first, the slots with the rows (their int64
+    bytes appended to each row)."""
+    G, S, d = x.shape
+    row = d * x.element_size()
+    if _counting(x, g):
+        # a bound: every entry's row and slot out, and the counts
+        _record_exchange(g, G * S * (row + 8) + 8 * g.size)
+        return x.new_zeros((G, n_slots, d))
+    import torch.distributed as dist
+    dest, slot = dest.reshape(-1), slot.reshape(-1)
+    flat = (torch.arange(G, device=x.device)[:, None] * n_slots
+            + slot.reshape(G, S)).reshape(-1)
+    sent = dest >= 0
+    key = torch.where(sent, dest * (G * n_slots) + flat, g.size * G * n_slots)
+    order = torch.argsort(key)[:int(sent.sum())]
+    counts = torch.bincount(dest[sent], minlength=g.size)
+    got = torch.empty_like(counts)
+    dist.all_to_all_single(got, counts, group=g.group)
+    plan.sent, plan.received = counts.tolist(), got.tolist()
+    plan.order = order
+    tag = flat[order].unsqueeze(1).view(x.dtype)
+    rows = _a2a(torch.cat([x.reshape(G * S, d)[order], tag], 1),
+                plan.received, plan.sent, g)
+    plan.slots = rows[:, d:].contiguous().view(torch.int64).squeeze(1)
+    _record_exchange(g, _crossing(plan.sent, g) * (row + 8)
+                     + 8 * (g.size - 1))
+    out = x.new_zeros((G * n_slots, d))
+    out[plan.slots] = rows[:, :d]
+    return out.reshape(G, n_slots, d)
+
+
+def _to_owners(x: torch.Tensor, n_slots: int, g: ExpertGroup,
+               plan: ExchangePlan) -> torch.Tensor:
+    """Entries (G, S, d) -> buffers (G, n_slots, d) along a known plan
+    (a collect's backward)."""
+    G, S, d = x.shape
+    if _counting(x, g):
+        _record_exchange(g, G * S * d * x.element_size())
+        return x.new_zeros((G, n_slots, d))
+    rows = _a2a(x.reshape(G * S, d)[plan.order], plan.received, plan.sent,
+                g)
+    _record_exchange(g, _crossing(plan.sent, g) * d * x.element_size())
+    out = x.new_zeros((G * n_slots, d))
+    out[plan.slots] = rows
+    return out.reshape(G, n_slots, d)
+
+
+def _from_owners(y: torch.Tensor, S: int, g: ExpertGroup,
+                 plan: ExchangePlan) -> torch.Tensor:
+    """Buffers (G, n_slots, d) -> each sent entry's row back at the
+    sender (G, S, d), zeros for the entries it did not send."""
+    G, _, d = y.shape
+    if _counting(y, g):
+        _record_exchange(g, G * S * d * y.element_size())
+        return y.new_zeros((G, S, d))
+    rows = _a2a(y.reshape(-1, d)[plan.slots], plan.sent, plan.received, g)
+    _record_exchange(g, _crossing(plan.sent, g) * d * y.element_size())
+    out = y.new_zeros((G * S, d))
+    out[plan.order] = rows
+    return out.reshape(G, S, d)
+
+
+def _fold(t, in_dim, n: int):
+    """A vmap argument with its lanes first (expanded where unbatched),
+    the lanes folded into its leading dim."""
+    t = t.expand(n, *t.shape) if in_dim is None else t.movedim(in_dim, 0)
+    return t.flatten(0, 1)
+
+
+class Dispatch(torch.autograd.Function):
+    """:func:`_dispatch` forward; the cotangents of the owners' slots
+    brought back to the entries backward."""
+
+    @staticmethod
+    def forward(x, dest, slot, n_slots, g, plan):
+        return _dispatch(x, dest, slot, n_slots, g, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.S, ctx.g, ctx.plan = inputs[0].shape[1], inputs[4], inputs[5]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        return (_from_owners(dy, ctx.S, ctx.g, ctx.plan), None, None, None,
+                None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dest, slot, n_slots, g, plan):
+        n = info.batch_size
+        out = Dispatch.apply(_fold(x, in_dims[0], n),
+                             _fold(dest, in_dims[1], n),
+                             _fold(slot, in_dims[2], n), n_slots, g, plan)
+        return out.unflatten(0, (n, -1)), 0
+
+
+class Collect(torch.autograd.Function):
+    """:func:`_from_owners` forward along a dispatch's plan; the entries'
+    cotangents sent to the owners' slots backward."""
+
+    @staticmethod
+    def forward(y, S, g, plan):
+        return _from_owners(y, S, g, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n_slots, ctx.g, ctx.plan = inputs[0].shape[1], inputs[2], \
+            inputs[3]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dx):
+        return _to_owners(dx, ctx.n_slots, ctx.g, ctx.plan), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, y, S, g, plan):
+        n = info.batch_size
+        out = Collect.apply(_fold(y, in_dims[0], n), S, g, plan)
+        return out.unflatten(0, (n, -1)), 0
+
+
+def dispatch(x: torch.Tensor, dest: torch.Tensor, slot: torch.Tensor,
+             n_slots: int, g: ExpertGroup, plan: ExchangePlan
+             ) -> torch.Tensor:
+    """Entries ``x`` (G, S, d) to their owners: entry (j, s) with
+    ``dest[j, s]`` >= 0 lands at slot ``slot[j, s]`` of group j of rank
+    ``dest[j, s]``'s buffer (G, ``n_slots``, d), zeros elsewhere.  The
+    slots a rank receives must be distinct.  Fills ``plan`` for the
+    :func:`collect` of the same entries."""
+    return Dispatch.apply(x, dest, slot, n_slots, g, plan)
+
+
+def collect(y: torch.Tensor, S: int, g: ExpertGroup, plan: ExchangePlan
+            ) -> torch.Tensor:
+    """The owners' buffers ``y`` (G, n_slots, d) back to the entries that
+    :func:`dispatch` sent (G, ``S``, d), zeros for the entries it did
+    not."""
+    return Collect.apply(y, S, g, plan)
 
 
 def head_range(heads: int, kv_heads: int, g: ModelGroup) -> Tuple[int, int]:

@@ -27,17 +27,34 @@ spread over the batch ranks, as the JAX package routes the global batch
 that XLA's partitioner splits: the capacity comes from the global N, each
 expert's load is the sum over the batch ranks (:func:`summed_loads`), and
 an entry's rank within its expert is the earlier ranks' load plus its
-local rank -- the order the one-rank stable sort gives contiguous row
-blocks.  Each rank then computes its own entries' expert outputs.
+local rank (:func:`global_positions`) -- the order the one-rank stable
+sort gives contiguous row blocks.  Routing stays local to each rank.
+
+Expert parallelism (a train step: a ``tensor_parallel.ExpertGroup`` of D
+data ranks is active and the stack holds E/D experts): batch rank i
+keeps the i-th chunk of the experts.  Each rank sends each kept entry's
+row to the rank that owns its expert (``tensor_parallel.dispatch``, one
+``all_to_all``), which writes it at the entry's global slot of its (E/D,
+C, d) buffer -- the one-rank buffer's rows of those experts -- runs its
+experts and sends the outputs back (``tensor_parallel.collect``); the
+sender weights and adds its entries' contributions in ascending expert
+order.  The backward is the reverse exchange, so an owner's expert
+gradient sums every batch rank's entries.  The group names how many
+experts its roles keep a rank (``ExpertGroup.experts``); a stack its role
+keeps whole (too small to split) runs as without the group, and a stack
+of any other size raises.
 
 Over a ``"model"`` group (``launch/tensor_parallel.py``) the routing is
 computed whole and alike on every rank of the group (its tokens are the
-same there), so no token crosses ranks.  An expert stack placed over the
-grid (``shardings.Role`` ``"expert"``: E over ("data", "model")) holds
-this rank's experts (``tensor_parallel.expert_ids``): the rank builds the
-dispatch buffer of those experts alone, runs their products, combines its
-own entries' contributions and sums the partial outputs over the group
-in one all-reduce (:func:`sum_expert_parts`), which reorders the one-rank
+same there).  An expert stack placed over the grid (``shardings.Role``
+``"expert"``: E over ("data", "model"), data-major) holds this rank's
+experts: chunk i * P + m under expert parallelism (the exchange runs over
+the data ranks of model rank m, which sends only the entries of model
+rank m's experts), or, serving, the strided chunks its gather over
+"data" leaves (``tensor_parallel.expert_ids``), whose dispatch buffer the
+rank builds alone.  Either way the rank combines its own experts'
+contributions and the partial outputs are summed over the group in one
+all-reduce (:func:`sum_expert_parts`), which reorders the one-rank
 ascending-expert addition.  An expert stack in the data layout (E over
 "data", a hidden dim over "model") multiplies with its chunks through
 ``tensor_parallel.linear`` over the batched product.  The shared expert
@@ -193,31 +210,54 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     kept = torch.where(total > C, C - 1, total)              # (G, E)
     kept = torch.minimum((kept - before).clamp(min=0), load)
 
-    # each expert's C slots gather their rows from the sorted entries;
-    # over a model group whose expert stacks are split over the grid, only
-    # this rank's experts (the routing above is whole and the same on
-    # every rank of the group: the group's tokens are the same)
-    g = tp.active()
+    pos = torch.argsort(order, dim=-1)                       # entry -> sorted
+    rank = pos - starts.gather(-1, flat_e)
+    keep = rank < kept.gather(-1, flat_e)
+
+    # which experts this rank runs: all E, or this rank's chunk of them
+    # over the batch ranks (expert parallelism, a train step) and/or over
+    # the model group (the grid: then only this model rank's experts'
+    # entries, and the routing above is whole and the same on every rank
+    # of the group: the group's tokens are the same)
+    g, ep = tp.active(), tp.active_experts()
     n_loc = params["w_gate"].shape[0]
-    mine = None
-    if g is not None and n_loc != E:
-        mine = torch.tensor(tp.expert_ids(E, n_loc), device=x.device)
+    P = g.size if g else 1
+    if ep is not None and n_loc == E:
+        ep = None                       # its role keeps this stack whole
+    if ep is not None and n_loc != ep.experts:
+        raise ValueError(f"{cfg.name}: a stack of {n_loc} experts under an "
+                         f"expert group that keeps {ep.experts} of {E}")
+    D = ep.size if ep else 1
+    part = None
+    if n_loc * D != E:
+        if g is None or n_loc * D * P != E:
+            raise ValueError(f"{cfg.name}: {n_loc} experts a rank do not "
+                             f"split {E} over {D} x {P} ranks")
+        part = g.index
         xg, topw = tp.copy_in(xg, g), tp.copy_in(topw, g)
-    c_idx = torch.arange(C, device=x.device)
-    valid = c_idx < kept[..., None]                          # (G, E, C)
-    src = torch.where(valid, starts[..., None] + c_idx, 0)
-    if mine is not None:
-        valid, src = valid[:, mine], src[:, mine]            # (G, n_loc, C)
-    entry = order.gather(-1, src.reshape(G, n_loc * C))      # (G, n_loc*C)
     # rows by entry, not by token: each entry is gathered at most once, so
     # the backward scatters to unique rows (a token's k copies are summed
     # by the expand's backward, a plain reduction)
     xe = xg[:, :, None, :].expand(G, N, k, d).reshape(G, N * k, d)
-    rows = xe.gather(1, entry[..., None].expand(G, n_loc * C, d))
-    rows = torch.where(valid.reshape(G, n_loc * C, 1), rows, 0)
-    rows = sharding_ctx.constrain(rows, None, "data", "model")
+    if ep is None:
+        buf, local = _gathered_rows(xe, order, starts, kept, C, n_loc, E,
+                                    part)
+    else:
+        # expert chunk c = e // n_loc lives on batch rank c (c // P in the
+        # grid, whose model rank c % P runs it); an entry lands at its
+        # expert's slot of the whole batch on that rank
+        plan = tp.ExchangePlan()
+        chunk = flat_e // n_loc
+        owner = chunk
+        if part is not None:
+            owner, keep = chunk // P, keep & (chunk % P == part)
+        slot = ((flat_e - chunk * n_loc) * C
+                + global_positions(before.gather(-1, flat_e), rank))
+        buf = tp.dispatch(xe, torch.where(keep, owner, -1),
+                          torch.where(keep, slot, 0), n_loc * C, ep, plan)
+    buf = sharding_ctx.constrain(buf, None, "data", "model")
     # the groups folded into each expert's capacity axis: (n_loc, G*C, d)
-    buf = rows.reshape(G, n_loc, C, d).transpose(0, 1).reshape(
+    buf = buf.reshape(G, n_loc, C, d).transpose(0, 1).reshape(
         n_loc, G * C, d)
     # expert-parallel placement of the dispatch buffer: the full grid, then
     # data-only expert parallelism (the JAX package's candidates)
@@ -234,17 +274,13 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
         G, n_loc * C, d)
 
     # ---- combine: each entry's output, added in ascending expert order -----
-    pos = torch.argsort(order, dim=-1)                       # entry -> sorted
-    rank = pos - starts.gather(-1, flat_e)
-    keep = rank < kept.gather(-1, flat_e)
-    at = flat_e
-    if mine is not None:
-        local = torch.full((E,), -1, dtype=torch.long, device=x.device)
-        local[mine] = torch.arange(n_loc, device=x.device)
-        at = local[flat_e]
+    if ep is None:
+        at = flat_e if local is None else local[flat_e]
         keep = keep & (at >= 0)
-    slot = torch.where(keep, at * C + rank, 0)
-    contrib = eout.gather(1, slot[..., None].expand(G, N * k, d))
+        contrib = eout.gather(1, torch.where(keep, at * C + rank, 0)[
+            ..., None].expand(G, N * k, d))
+    else:
+        contrib = tp.collect(eout, N * k, ep, plan)
     w = topw.reshape(G, N * k) * keep.to(x.dtype)
     contrib = (contrib * w[..., None]).reshape(G, N, k, d)
     by_expert = torch.argsort(topi, dim=-1)                  # (G, N, k)
@@ -252,13 +288,45 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     out = contrib[:, :, 0]
     for j in range(1, k):
         out = out + contrib[:, :, j]
-    if mine is not None:
+    if part is not None:
         out = sum_expert_parts(out, g)
     out = out.reshape(B, T, d)
     if "shared" in params:
         out = out + mlp_forward(params["shared"], x, cfg,
                                 d_ff=m.d_shared_expert * m.num_shared_experts)
     return out.to(x.dtype), aux.mean()
+
+
+def _gathered_rows(xe, order, starts, kept, C: int, n_loc: int, E: int,
+                   part):
+    """Each expert's C slots gather their rows from the sorted entries:
+    every expert, or (``part``, over the grid) this model rank's
+    ``n_loc`` experts of the stacks gathered over the data axes
+    (``tensor_parallel.expert_ids``).  Returns ``(rows (G, n_loc * C,
+    d), local)``: ``local`` (E,) each expert's index among them (-1:
+    another rank's), ``None`` where they are all E."""
+    G, _, d = xe.shape
+    c_idx = torch.arange(C, device=xe.device)
+    valid = c_idx < kept[..., None]                          # (G, E, C)
+    src = torch.where(valid, starts[..., None] + c_idx, 0)
+    local = None
+    if part is not None:
+        mine = torch.tensor(tp.expert_ids(E, n_loc), device=xe.device)
+        valid, src = valid[:, mine], src[:, mine]            # (G, n_loc, C)
+        local = torch.full((E,), -1, dtype=torch.long, device=xe.device)
+        local[mine] = torch.arange(n_loc, device=xe.device)
+    entry = order.gather(-1, src.reshape(G, n_loc * C))      # (G, n_loc*C)
+    rows = xe.gather(1, entry[..., None].expand(G, n_loc * C, d))
+    return torch.where(valid.reshape(G, n_loc * C, 1), rows, 0), local
+
+
+def global_positions(before: torch.Tensor, rank: torch.Tensor
+                     ) -> torch.Tensor:
+    """Each entry's position among its expert's entries of the whole
+    batch: the earlier batch ranks' load of its expert (``before``) plus
+    its rank here, the one-rank stable sort's order (a module function:
+    ``parity.local_slots`` replaces it)."""
+    return before + rank
 
 
 def sum_expert_parts(out: torch.Tensor, g) -> torch.Tensor:

@@ -8,11 +8,13 @@ and the rule that chooses an axis per dim (:func:`constrained_spec`).  The
 port splits its compute explicitly instead: over ``"model"`` the products
 of every mixer, the SwiGLU, the expert stacks and the vocab heads run on
 each rank's chunks of their weights (``launch/tensor_parallel.py``),
-their activations whole or split as each product needs; a grid-placed
-expert stack's dispatch buffer holds this rank's experts alone
-(``models/moe.py``).  So :func:`constrain` returns ``x`` itself, inside
-the context or not: the chosen spec says where the JAX package would
-place it.
+their activations whole or split as each product needs; in a train step
+an expert stack whose E dim is over "data" stays this rank's chunk of
+the experts, and the dispatch buffer of those experts alone, (E/D, C, d),
+is filled by an exchange over the batch ranks (``models/moe.py``), as
+the JAX package's constraint on that buffer places it.  So
+:func:`constrain` returns ``x`` itself, inside the context or not: the
+chosen spec says where the JAX package would place it.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ def constrained_spec(shape, *dim_axes) -> Optional[Tuple]:
 def constrain(x, *dim_axes):
     """``x`` placed by :func:`constrained_spec` -- in the port, whose
     tensor-parallel products place their own activations
-    (``launch/tensor_parallel.py``) and whose MoE buffers stay whole on
-    every rank, ``x`` itself."""
+    (``launch/tensor_parallel.py``) and whose MoE blocks build the
+    dispatch buffers of the rank's own experts (``models/moe.py``), ``x``
+    itself."""
     return x

@@ -103,18 +103,20 @@ def global_norm(tree: Any) -> torch.Tensor:
 def lane_norms(tree: Any, split=None, reduce=None) -> torch.Tensor:
     """:func:`global_norm` of each lane of a tree of stacked leaves
     (leading lane axis): shape (lanes,), fp32.  ``None`` leaves count as
-    zero.  ``split`` (one flag per leaf) marks leaves held as this rank's
-    chunk of a tensor split over a ``"model"`` group: their squares are
-    summed over the group by ``reduce`` (an in-place all-reduce of a list
-    of tensors), the other leaves, whole and equal on every rank, counted
-    once."""
+    zero.  ``split`` (one entry per leaf) marks leaves held as this rank's
+    chunk of a tensor split over ranks: a true entry (the axes it is
+    split over) has the squares of its leaves summed over those ranks by
+    ``reduce(tensors, entry)`` (an in-place all-reduce of a list of
+    tensors), one call per distinct entry in order of first appearance;
+    the other leaves, whole and equal on every rank, are counted once."""
     leaves = list(tree_leaves(tree))
     flags = [False] * len(leaves) if split is None else list(split)
 
     def squares(want):
         sq = [torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1,
                                        dtype=torch.float32).square()
-              for g, f in zip(leaves, flags) if g is not None and f == want]
+              for g, f in zip(leaves, flags)
+              if g is not None and (f == want if want else not f)]
         return torch.stack(sq).sum(0) if sq else None
 
     if not any(flags):
@@ -122,10 +124,14 @@ def lane_norms(tree: Any, split=None, reduce=None) -> torch.Tensor:
                                           dtype=torch.float32)
                  for g in leaves if g is not None]
         return torch.linalg.vector_norm(torch.stack(norms), dim=0)
-    parts = squares(True)
-    reduce([parts])
-    rest = squares(False)
-    return (parts if rest is None else parts + rest).sqrt()
+    total = squares(False)
+    for key in dict.fromkeys(f for f in flags if f):
+        parts = squares(key)
+        if parts is None:                   # None on every rank alike
+            continue
+        reduce([parts], key)
+        total = parts if total is None else parts + total
+    return total.sqrt()
 
 
 def _expand_prefix(prefix, tree):

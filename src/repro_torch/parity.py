@@ -636,6 +636,37 @@ def unsummed_expert_parts():
 
 
 @contextmanager
+def local_slots():
+    """A control: under expert parallelism each rank writes its entries
+    at their rank among its own rows' entries of their expert, not at
+    their position in the whole batch (``models.moe.global_positions``
+    skipped), while the block runs."""
+    from repro_torch.models import moe
+    real = moe.global_positions
+    moe.global_positions = lambda before, rank: rank
+    try:
+        yield
+    finally:
+        moe.global_positions = real
+
+
+@contextmanager
+def reduced_expert_grads():
+    """A control: the spmd engine all-reduces an expert stack's gradient
+    over every batch axis, also those it keeps its chunk over, where the
+    owner's gradient already sums every rank's entries
+    (``api.spmd_engine.grad_reduce_axes`` without its exception)."""
+    from repro_torch.api import spmd_engine
+    real = spmd_engine.grad_reduce_axes
+    spmd_engine.grad_reduce_axes = lambda batch_axes, experts: tuple(
+        batch_axes)
+    try:
+        yield
+    finally:
+        spmd_engine.grad_reduce_axes = real
+
+
+@contextmanager
 def per_rank_norm_squares():
     """A control: RWKV6's output norm over a row split over the model
     group takes each rank's sum of squares over its own chunk as the whole

@@ -6,7 +6,8 @@ against a real CPU run of the same step, the peak of a hand-built region,
 and ``dryrun.run_one`` on four architectures at their published widths,
 depth cut, with two of its records' repairs: a MoE train record with a
 data split counts its summed expert loads, and a serving record counts
-what ``ServeSession``'s ``RankPlacement`` gathers a tick.  The counts against the JAX package's HLO are
+what ``ServeSession``'s ``RankPlacement`` gathers a tick; a MoE train
+record keeps each rank's experts and counts their exchange.  The counts against the JAX package's HLO are
 tests/test_torch_dryrun.py's.
 """
 import functools
@@ -318,6 +319,52 @@ def test_moe_train_record_counts_the_summed_loads():
         print(f"reading {rec['arch']}: all_reduce {reduced:.0f} bytes, "
               f"gradients + tensor-parallel {rest:.0f}")
         assert (reduced > rest) if loads else (reduced == rest)
+
+
+@pytest.mark.parametrize("arch,experts", [("qwen3-moe-235b-a22b", 8),
+                                          ("deepseek-v3-671b", 1)])
+def test_moe_train_record_keeps_each_ranks_experts(arch, experts):
+    """A MoE train record on the production mesh (depth cut to 4 layers;
+    deepseek-v3's dense layers first, so 1 MoE layer): each rank computes
+    with E / 16 of the experts (qwen3-moe's data layout: 8 of 128;
+    deepseek-v3's grid: 1 of 256), no expert weight is gathered (the
+    serving placement gathers them over "data": the difference between
+    the decode record's weight gathers and the train record's is exactly
+    the expert chunks' other 15 / 16), their gradients leave the batch
+    all-reduce, and the exchange is counted as all_to_all at its bound:
+    each call at most every entry's row and slot out and the counts."""
+    rec = _record(arch, "train_4k")
+    decode = _record(arch, "decode_32k")
+    cfg, _ = cut_depth(tconfigs.get(arch).config(), 4)
+    params = abstract_params(cfg)
+    mesh = MeshSpec((16, 16), ("data", "model"))
+    *_, roles = dryrun._placement(cfg, params, mesh,
+                                  tsh.resolve_recipe("greedy"),
+                                  experts=True)
+    compute = dryrun._placement(cfg, params, mesh,
+                                tsh.resolve_recipe("greedy"),
+                                experts=True)[1]
+    expert_chunks = [(t.numel() // 256) * t.element_size() * 15
+                     for p, t in tree_paths(params)
+                     if tsh.is_expert_stack(cfg, p)]
+    rest = sum(t.numel() * t.element_size() for p, t in tree_paths(compute)
+               if not tsh.is_expert_stack(cfg, p))
+    a2a = rec["analysis"]["collectives"]["all_to_all"]
+    S = rec["rows_per_rank"] * 4096 * cfg.moe.top_k
+    bound = S * (cfg.d_model * 2 + 8) + 8 * 16
+    print(f"reading {arch} train_4k: {rec['experts_per_rank']} experts a "
+          f"rank, gathered {rec['gathered_bytes']:.0f} (decode "
+          f"{decode['weight_gathered_bytes']:.0f}, expert chunks "
+          f"{sum(expert_chunks):.0f}), all_to_all {a2a}, bound a call "
+          f"{bound}")
+    assert rec["experts_per_rank"] == experts
+    assert all(r.experts == ("data",) for p, r in tree_paths(roles)
+               if tsh.is_expert_stack(cfg, p))
+    assert (decode["weight_gathered_bytes"] - rec["gathered_bytes"]
+            == sum(expert_chunks) > 0)
+    assert rec["grad_reduce_bytes"] == rest
+    assert a2a["bytes"] == rec["exchange_bytes"] > 0
+    assert a2a["bytes"] <= a2a["count"] * bound
 
 
 @pytest.mark.parametrize("recipe", ["greedy", "megatron"])

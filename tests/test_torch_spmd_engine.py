@@ -25,6 +25,7 @@ leg fails its own tests only.  Limits:
 The refusals (``SpmdEngine.supports``) are compared with the JAX engine's
 in this process, on device-free ``MeshSpec``s.
 """
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
@@ -563,21 +564,26 @@ def test_tp_planted_faults_are_rejected(runs, fault):
 def _fake_trace(world, name, recipe):
     """The dry run's trace of smoke ``name``'s tensor-parallel step under
     ``recipe`` on fake tensors: a counting model group (nothing sent),
-    each leaf at rank 0's compute shape."""
+    each leaf at rank 0's compute shape; where the expert stacks keep
+    their chunks over the data ranks, rank 0's rows under a counting
+    batch group and expert group, as its real step ran them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import torch_tp_legs as tl
     from repro_torch.core.spmd import make_grad_step
     from repro_torch.launch import tensor_parallel as tpm
     from repro_torch.launch.meshcomm import chunk_shapes
-    from repro_torch.launch.shardings import (_lookup, expert_blocks,
-                                              jax_layout, kept_spec,
-                                              map_with_path, param_specs,
-                                              port_specs, resolve_recipe,
-                                              tp_roles)
+    from repro_torch.launch.shardings import (_lookup, expert_axes,
+                                              expert_blocks, jax_layout,
+                                              kept_experts, kept_spec,
+                                              map_with_path,
+                                              param_specs, port_specs,
+                                              resolve_recipe, tp_roles)
     from repro_torch.launch.step_analysis import StepAnalysis
+    from repro_torch.models.sync_stats import synced_batch_stats
     cfg, params, batch, sc = tl.step_setup(name)
     mesh = MeshSpec(tl.MESH[world], tl.DM)
+    sizes = {"data": tl.MESH[world][0], "model": 2}
     rc = resolve_recipe(recipe)
     specs = port_specs(param_specs(jax_layout(params, cfg), cfg, mesh, rc),
                        params, cfg)
@@ -585,25 +591,43 @@ def _fake_trace(world, name, recipe):
     g = tpm.ModelGroup(None, 2, 0, expert_blocks=expert_blocks(roles))
     shapes = chunk_shapes(params, map_with_path(
         lambda p, _: kept_spec(_lookup(specs, p), _lookup(roles, p)),
-        params), {"data": tl.MESH[world][0], "model": 2}, lead=0)
+        params), sizes, lead=0)
+    split = contextlib.nullcontext()
+    if expert_axes(roles):
+        D = sizes["data"]
+        batch = {k: v[:tl.STEP_B // D] for k, v in batch.items()}
+        split = contextlib.ExitStack()
+        split.enter_context(synced_batch_stats(None, D, 0))
+        split.enter_context(tpm.expert_parallel(tpm.ExpertGroup(
+            None, D, 0, kept_experts(roles, cfg.moe.num_experts, sizes))))
     with FakeTensorMode(allow_non_fake_inputs=True):
         local = map_with_path(lambda _, t: torch.empty(t.shape,
                                                        dtype=t.dtype),
                               shapes)
         fake_batch = {k: torch.empty(v.shape, dtype=v.dtype)
                       for k, v in batch.items()}
-        with StepAnalysis() as a, tpm.model_parallel(g):
+        with StepAnalysis() as a, tpm.model_parallel(g), split:
             make_grad_step(sc)(local, fake_batch)
     return a.result()
 
 
 def _same_counts(fake, real, what):
+    """The fake trace counts the real step's FLOPs, kernel sites and
+    collectives; an expert exchange, whose rows the routing decides, at
+    a bound the real one cannot exceed (every entry's row)."""
     print(f"reading tp fake vs real {what}: flops "
           f"{fake['flops']:.0f} / {real['flops']:.0f}, site flops "
           f"{fake['site_flops']} / {real['site_flops']}, collectives "
           f"{fake['collectives']} / {real['collectives']}")
-    for key in ("flops", "site_flops", "site_calls", "collectives"):
+    for key in ("flops", "site_flops", "site_calls"):
         assert fake[key] == real[key], key
+    fk, rk = dict(fake["collectives"]), dict(real["collectives"])
+    bound, moved = fk.pop("all_to_all", None), rk.pop("all_to_all", None)
+    assert fk == rk
+    assert (bound is None) == (moved is None)
+    if bound is not None:
+        assert bound["count"] == moved["count"]
+        assert bound["bytes"] >= moved["bytes"] > 0
     assert fake["collectives"]["all_reduce"]["bytes"] > 0
 
 
@@ -656,6 +680,48 @@ def test_tp_family_step_matches_one_rank(runs, leg):
         assert kinds.get("expert", 0) > 0, kinds
 
 
+@pytest.mark.parametrize("leg", ["deepseek-megatron", "deepseek-greedy",
+                                 "qwen3-grid", "qwen3-data"])
+def test_tp_family_experts_stay_split(runs, leg):
+    """The MoE smokes' expert stacks stay this rank's chunk for the step:
+    over (1, 2) the grid's E / 2 experts a rank; over (2, 2) E / 4 over
+    the grid and E / 2 in the data layout (``"data-experts"``: E over
+    "data", the hidden dims over "model"), the batch split over the data
+    ranks and the dispatch and combine an exchange over them."""
+    world, ranks = runs
+    for r in range(world):
+        _, res = _tp(runs, f"step-{leg}", r)
+        E = tl_legs.SMOKES[leg.split("-")[0]]().moe.num_experts
+        per = E // res["expert_ranks"]
+        if not leg.endswith("data"):
+            per //= 2
+        if r == 0:
+            print(f"reading tp step {leg} world {world}: experts a rank "
+                  f"{sorted(set(res['experts']))} of {E}, exchanged "
+                  f"{res['exchanged']:.0f} B")
+        assert set(res["experts"]) == {per}, (r, res["experts"])
+        assert res["expert_ranks"] == tl_legs.MESH[world][0]
+        assert (res["exchanged"] > 0) == (world == 4)
+
+
+@pytest.mark.parametrize("leg", ["deepseek-megatron", "qwen3-data"])
+def test_tp_family_session_keeps_the_experts(runs, leg):
+    """Two rounds of ``TrainSession`` over the model mesh: a rank holds
+    its experts alone for compute and gathers no expert weight; over
+    (2, 2) its entries cross the exchange."""
+    world, res = _tp(runs, f"session-{leg}")
+    got = res["spmd"]
+    E = tl_legs.SMOKES[leg.split("-")[0]]().moe.num_experts
+    per = E // tl_legs.MESH[world][0] // (1 if leg.endswith("data") else 2)
+    print(f"reading tp session {leg} world {world}: {got['experts']} "
+          f"experts a rank, expert weights gathered "
+          f"{got['expert_gathered']:.0f} B a step, exchanged "
+          f"{got['exchanged']:.0f} B a step")
+    assert got["experts"] == per
+    assert got["expert_gathered"] == 0
+    assert (got["exchanged"] > 0) == (world == 4)
+
+
 @pytest.mark.parametrize("leg", list(tl_legs.FAMILY_SESSIONS))
 def test_tp_family_session_matches_one_rank(runs, leg):
     """Two rounds of ``TrainSession`` on the spmd engine over the model
@@ -677,13 +743,17 @@ def test_tp_family_session_matches_one_rank(runs, leg):
 
 @pytest.mark.parametrize("leg,name,recipe", [
     ("deepseek-megatron", "deepseek", "megatron"),
+    ("qwen3-data", "qwen3", "data-experts"),
     ("rwkv6-megatron", "rwkv6", "megatron")])
 def test_tp_family_fake_trace_counts_the_real_step(runs, leg, name, recipe):
-    """The dry run's fake trace of the deepseek (a rank's experts) and
-    rwkv6 (the wkv on a rank's heads) steps counts what rank 0's real
-    step counted: FLOPs, the wkv site's FLOPs and calls, collectives; the
-    wkv sites count one rank's heads (``dispatch.wkv_site_flops(...,
-    ranks=2)``, below the whole model's)."""
+    """The dry run's fake trace of the deepseek (a rank's experts over
+    the grid), qwen3-moe (in the data layout) and rwkv6 (the wkv on a
+    rank's heads) steps counts what rank 0's real step counted: FLOPs,
+    the wkv site's FLOPs and calls, collectives -- over (2, 2), where the
+    experts keep their chunks over the data ranks, the exchange at its
+    bound, at or above the real exchange's bytes; the wkv sites count
+    one rank's heads (``dispatch.wkv_site_flops(..., ranks=2)``, below
+    the whole model's)."""
     from repro_torch.kernels.dispatch import wkv_site_flops
     world, res = _tp(runs, f"step-{leg}")
     fake = _fake_trace(world, name, tl_legs.family_recipe(recipe))

@@ -229,3 +229,84 @@ def test_vocab_sized_calls_need_the_vocab_under_a_group(fn):
         with pytest.raises(ValueError, match="whole vocab"):
             call()
         torch.testing.assert_close(call(vocab=V), alone, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch,recipe,shape,layout,experts", [
+    ("qwen3-moe-235b-a22b", "megatron", (16, 16), "data", 8),
+    ("qwen3-moe-235b-a22b", "greedy", (16, 16), "data", 8),
+    ("deepseek-v3-671b", "megatron", (16, 16), "grid", 1),
+    ("deepseek-v3-671b", "megatron", (2, 2), "grid", 64),
+    ("deepseek-v3-671b", "megatron", (1, 2), "grid", 128),
+    ("qwen3-moe-235b-a22b", "data-experts", (2, 2), "data", 64)])
+def test_expert_stacks_keep_their_batch_chunk(arch, recipe, shape, layout,
+                                              experts):
+    """Meta shapes, no ranks: at published widths an expert stack whose
+    expert dim is over "data" (the grid, or the data layout with a hidden
+    dim over "model": ``column`` or ``row``) has ``Role.experts``
+    ("data",) where that axis holds
+    more than one rank, and its compute spec gathers over no axis of more
+    than one rank (the compute
+    chunk: ``experts`` of E); serving's (``experts=False``) still gathers
+    it over "data"; every other leaf's compute spec is the same either
+    way."""
+    cfg = tconfigs.get(arch).config()
+    params = abstract_params(cfg)
+    mesh = MeshSpec(shape, DM)
+    rc = (tsh.ShardingRecipe(**tl.FAMILY_RECIPES[recipe])
+          if recipe in tl.FAMILY_RECIPES else tsh.resolve_recipe(recipe))
+    specs = tsh.port_specs(tsh.param_specs(tsh.jax_layout(params, cfg), cfg,
+                                           mesh, rc), params, cfg)
+    roles = tsh.tp_roles(params, specs, mesh, cfg, rc)
+    sizes = {"data": shape[0], "model": shape[1]}
+    seen = 0
+    for path, r in tsh.tree_paths(roles):
+        spec = tsh._lookup(specs, path)
+        train = tsh.compute_spec(spec, r)
+        serve = tsh.compute_spec(spec, r, experts=False)
+        if not tsh.is_expert_stack(cfg, path):
+            assert not r.experts and train == serve, path
+            continue
+        seen += 1
+        assert (r.kind == "expert") == (layout == "grid") and r.split, \
+            (path, r)
+        assert r.experts == (("data",) if shape[0] > 1 else ()), (path, r)
+        assert all(sizes[a] == 1 for e in train
+                   for a in tsh._entry_axes(e)), (path, train)
+        kept = tsh.kept_spec(spec, r)
+        n = tsh._lookup(params, path).shape[0]
+        for a in tsh._entry_axes(kept[0]):
+            n //= sizes[a]
+        assert n == experts, (path, kept)
+        if shape[0] > 1:
+            assert "data" in tsh._entry_axes(serve[0]), (path, serve)
+    assert seen > 0
+    # the expert group's count, from the same roles
+    assert tsh.kept_experts(roles, cfg.moe.num_experts, sizes) == (
+        experts if shape[0] > 1 else 0)
+
+
+def test_moe_forward_refuses_a_stack_its_group_does_not_keep():
+    """Under an expert group that keeps 2 of the qwen3-moe smoke's 4
+    experts a rank, a block runs a stack of 2 (exchanging, here through a
+    counting group) or of 4 (its role keeps it whole: no exchange) and
+    raises on any other."""
+    import torch
+
+    from repro_torch.launch import tensor_parallel as tpm
+    from repro_torch.models.moe import init_moe, moe_forward
+    from repro_torch.models.sync_stats import synced_batch_stats
+    cfg = tconfigs.get("qwen3-moe-235b-a22b").smoke()
+    params = init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    for n, sent in ((2, True), (4, False), (3, None)):
+        ep = tpm.ExpertGroup(None, 2, 0, 2)
+        cut = {k: v[:n] if k != "router" else v for k, v in params.items()}
+        with synced_batch_stats(None, 2, 0), tpm.expert_parallel(ep):
+            if sent is None:
+                with pytest.raises(ValueError, match="keeps 2 of 4"):
+                    moe_forward(cut, x, cfg)
+                continue
+            out, _ = moe_forward(cut, x, cfg)
+        assert out.shape == x.shape
+        assert (ep.bytes["all_to_all"] > 0) == sent, (n, ep.bytes)

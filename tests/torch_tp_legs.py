@@ -37,13 +37,16 @@ from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.meshcomm import MeshComm
 from repro_torch.launch.shardings import (ShardingRecipe, _lookup,
-                                          compute_spec, expert_blocks,
-                                          jax_layout, map_with_path,
-                                          param_specs, port_specs,
-                                          resolve_recipe, tp_roles,
-                                          tree_paths)
+                                          compute_spec, expert_axes,
+                                          expert_blocks, is_expert_stack,
+                                          jax_layout, kept_experts,
+                                          kept_spec, map_with_path,
+                                          param_specs,
+                                          port_specs, resolve_recipe,
+                                          tp_roles, tree_paths)
 from repro_torch.launch.step_analysis import StepAnalysis
 from repro_torch.models.backbone import backbone_forward, init_backbone
+from repro_torch.models.sync_stats import synced_batch_stats
 from repro_torch.optim.adam import lane_norms
 from repro_torch.parity import (live_rwkv, per_rank_norm_squares,
                                 per_rank_sumexp, unreduced_row_products,
@@ -113,11 +116,13 @@ def step_setup(name: str = "glm4"):
 
 
 def placement(cfg, params, mesh, recipe):
-    """``(roles, model group)`` of ``params`` on ``mesh`` under
-    ``recipe``, and this rank's local tree as the spmd engine computes
-    with it: each leaf cut to its chunk by its spec, then gathered over
-    its compute spec (a split leaf keeps its ``"model"`` chunk, an expert
-    stack its experts; any other whole)."""
+    """``(specs, roles, comm, model group, expert group, local tree)`` of
+    ``params`` on ``mesh`` under ``recipe``: this rank's local tree as
+    the spmd engine computes with it, each leaf cut to its chunk by its
+    spec, then gathered over its compute spec (a split leaf keeps its
+    ``"model"`` chunk, an expert stack its experts: over the grid, or
+    over the data ranks too -- the expert group, ``None`` where the data
+    axis holds one rank; any other whole)."""
     recipe = resolve_recipe(recipe)
     specs = port_specs(param_specs(jax_layout(params, cfg), cfg, mesh,
                                    recipe), params, cfg)
@@ -126,67 +131,116 @@ def placement(cfg, params, mesh, recipe):
     pg, _ = comm.group(("model",))
     g = tp.ModelGroup(pg, comm.size(("model",)), comm.index(("model",)),
                       expert_blocks=expert_blocks(roles))
+    axes = expert_axes(roles)
+    ep = None
+    if axes:
+        epg, _ = comm.group(axes)
+        ep = tp.ExpertGroup(epg, comm.size(axes), comm.index(axes),
+                            kept_experts(roles, cfg.moe.num_experts,
+                                         comm.sizes))
     chunks = map_with_path(
         lambda p, t: comm.shard(t, _lookup(specs, p), lead=0), params)
     local = comm.unshard(chunks, map_with_path(
         lambda p, _: compute_spec(_lookup(specs, p), _lookup(roles, p)),
         params), lead=0)
-    return roles, g, map_with_path(lambda _, t: t.clone(), local)
+    return (specs, roles, comm, g, ep,
+            map_with_path(lambda _, t: t.clone(), local))
 
 
-def _local_want(want, params, roles, g):
+def _local_want(want, params, specs, roles, comm):
     """The one-rank gradients cut to this rank's compute chunks: a split
     leaf's chunk, an expert stack's experts, any other whole."""
-    out = []
-    with tp.model_parallel(g):
-        for (path, t), w in zip(tree_paths(params), want):
-            r = _lookup(roles, path)
-            if w is not None and r.kind == "expert":
-                n = t.shape[0] // g.size
-                w = w[torch.tensor(tp.expert_ids(t.shape[0], n))]
-            elif w is not None and r.split:
-                w = tp.own_slice(w, g, r.dim)
-            out.append(w)
-    return out
+    return [w if w is None else comm.shard(
+                w, kept_spec(_lookup(specs, p), _lookup(roles, p)), lead=0)
+            for (p, _), w in zip(tree_paths(params), want)]
 
 
 def _metrics(m):
     return {k: float(v) for k, v in m.items()}
 
 
+def rank_major(batch, D: int):
+    """The batch's rows reordered into D contiguous blocks of every D-th
+    row: under a data split each rank then holds a row of each exit
+    (STEP_B = 4, two per exit), so the means of its masked exit losses
+    average to the whole batch's."""
+    perm = torch.cat([torch.arange(i, STEP_B, D) for i in range(D)])
+    return {k: v[perm] for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def data_split(comm, ep):
+    """The batch group over the data ranks and the expert group ``ep``
+    active (nothing without one)."""
+    if ep is None:
+        yield
+        return
+    pg, _ = comm.group(("data",))
+    with synced_batch_stats(pg, ep.size, ep.index), tp.expert_parallel(ep):
+        yield
+
+
 def leg_step(world, recipe, mesh, one_rank, fault=None, name="glm4"):
     """The TP train step of smoke ``name`` against the one-rank step
     (``one_rank``: its gradients and metrics) on every rank: the metrics,
     every gradient against the one-rank gradient's chunk, the roles, and
-    (without a planted ``fault``) the step's analysis."""
+    (without a planted ``fault``) the step's analysis.  Where the expert
+    stacks keep their chunks over the data ranks, the batch is split
+    over them as the spmd engine splits it (each rank its block of
+    :func:`rank_major`'s rows, against the one-rank step on those rows
+    in that order), the MoE blocks exchange their entries, and the
+    gradients and metrics are averaged over the data ranks as the engine
+    averages them (an expert stack's divided alone)."""
     cfg, params, batch, sc = step_setup(name)
     want, wm = one_rank
-    roles, g, local = placement(cfg, params, mesh, recipe)
+    specs, roles, comm, g, ep, local = placement(cfg, params, mesh, recipe)
+    rows = slice(None)
+    if ep is not None:
+        batch = rank_major(batch, ep.size)
+        want, wm = make_grad_step(sc)(params, batch)
+        n = STEP_B // ep.size
+        rows = slice(ep.index * n, (ep.index + 1) * n)
+        dpg, _ = comm.group(("data",))
+    mine = {k: v[rows] for k, v in batch.items()}
     count = StepAnalysis() if fault is None else contextlib.nullcontext()
-    with count as a, tp.model_parallel(g), (fault or
-                                           contextlib.nullcontext)():
-        got, gm = make_grad_step(sc)(local, batch)
+    with count as a, tp.model_parallel(g), data_split(comm, ep), (
+            fault or contextlib.nullcontext)():
+        got, gm = make_grad_step(sc)(local, mine)
     res = a.result() if fault is None else None
     moved = dict(g.bytes)
+    if ep is not None:
+        for (p, _), x in zip(tree_paths(params), got):
+            if x is not None:
+                if not _lookup(roles, p).experts:
+                    dist.all_reduce(x, group=dpg)
+                x.div_(ep.size)
+        for v in gm.values():
+            dist.all_reduce(v, group=dpg)
+            v.div_(ep.size)
     # the clip norm of the chunks (split leaves' squares summed over the
-    # group) against the whole gradients' norm
-    flags = [_lookup(roles, p).split for p, _ in tree_paths(params)]
-    norm = lane_norms([None if x is None else x[None] for x in got], flags,
-                      lambda ts: [t.copy_(tp.all_reduce(t, g)) for t in ts])
+    # ranks they are split over) against the whole gradients' norm
+    axes = [tuple(a for a in _lookup(roles, p).experts + (
+                ("model",) if _lookup(roles, p).split else ())
+                  if comm.sizes[a] > 1) for p, _ in tree_paths(params)]
+    norm = lane_norms([None if x is None else x[None] for x in got], axes,
+                      comm.all_reduce)
     whole_norm = lane_norms([w[None] for w in want if w is not None])
     norm_gap = float((norm - whole_norm).abs().max() / whole_norm.max())
     # the vocab-parallel accuracy (argmax over the ranks' chunks) of the
     # split logits, against the whole logits' own argmax
     with torch.no_grad():
-        whole = backbone_forward(params, cfg, tokens=batch["tokens"]).logits
-        with tp.model_parallel(g):
+        whole = backbone_forward(params, cfg,
+                                 tokens=batch["tokens"]).logits[rows]
+        with tp.model_parallel(g), data_split(comm, ep):
             split = backbone_forward(local, cfg,
-                                     tokens=batch["tokens"]).logits
+                                     tokens=mine["tokens"]).logits
             hits = float(accuracy(split, whole.argmax(-1),
                                   vocab=cfg.vocab_size))
-    wants = _local_want(want, params, roles, g)
+    wants = _local_want(want, params, specs, roles, comm)
     gaps = [float((x - w).abs().max()) if w is not None else 0.0
             for x, w in zip(got, wants)]
+    experts = [tuple(t.shape)[0] for p, t in tree_paths(local)
+               if is_expert_stack(cfg, p)]
     return {"metrics": _metrics(gm), "want_metrics": _metrics(wm),
             "grad_gap": max(gaps), "analysis": res,
             "tp_bytes": moved, "index": g.index, "argmax_hits": hits,
@@ -194,6 +248,8 @@ def leg_step(world, recipe, mesh, one_rank, fault=None, name="glm4"):
             "logits_split": split.shape[-1] < whole.shape[-1],
             "local_shapes": [tuple(t.shape) for t in
                              (x for _, x in tree_paths(local))],
+            "experts": experts, "expert_ranks": ep.size if ep else 1,
+            "exchanged": ep.bytes["all_to_all"] if ep else 0.0,
             "roles": [(p, _lookup(roles, p).kind) for p, _ in
                       tree_paths(params)]}
 
@@ -261,8 +317,13 @@ def leg_family_session(world, name, recipe, mesh):
         live_rwkv(model.full_params)
         s = TrainSession(model, sc, oc, parts, batch, engine=engine, **kw)
         s.train(2)
-        out[engine] = _result(s, model, tp_bytes=getattr(
-            s.engine, "last_tp_bytes_per_step", 0.0))
+        eng = s.engine
+        out[engine] = _result(s, model, **({} if engine == "fused" else dict(
+            tp_bytes=eng.last_tp_bytes_per_step,
+            experts=eng.experts_per_rank,
+            expert_gathered=eng.planned_gathered_bytes_per_step(
+                experts=True),
+            exchanged=eng.last_exchange_bytes_per_step)))
     return out
 
 
