@@ -3948,6 +3948,13 @@ SPMD_SERVE_MAX_LEN = 160
 # 1.100e-1 and 6.933e-1 in the one round they now run.  The limit sits
 # 3 x above the control and 2 x below the smallest fault
 SPMD_TP_DECODE, SPMD_TP_STEPS, SPMD_TP_BATCH, SPMD_TP_CUT = 4, 3, 8, 2
+# serving with the experts kept over the batch ranks
+# (spmd_serve_experts_leg): qwen3-moe-235b-a22b cut to 8 layers (weights
+# of 46.0 GB whole, 38.65 GB of them the expert stacks, reckoned from
+# their shapes), its experts over "data", the other weights whole on each
+# rank (fsdp-off: a rank holds 26.7 GB and a tick gathers nothing; the
+# data-parallel attention beside split experts of serving deployments)
+SPMD_EXPERT_LAYERS, SPMD_EXPERT_RECIPE = 8, "fsdp-off"
 TOL_SPMD_TP_LOSS = 5e-2
 # the MoE, MLA, RWKV6 and Mamba2 legs over "model" (spmd_family_legs, on
 # phase spmd's ranks after the others, mesh (1, 2), bf16, published widths):
@@ -4128,7 +4135,8 @@ def spmd_rank(backend: str) -> dict:
         sess = session("spmd", start, mesh=mesh(), recipe="greedy")
         hist, ms = rounds(sess)
         ad = sess.evaluate_adaptive(*ds.test, 1.0)
-        res[leg] = dict(state=sess.state, hist=hist, ms=ms,
+        # the whole state on every rank (collective): rank 0 compares it
+        res[leg] = dict(state=sess.state.whole(), hist=hist, ms=ms,
                         engine=sess.engine_name, dp=sess.engine._dp,
                         gathered=sess.engine.last_gathered_bytes_per_step,
                         planned=sess.engine.planned_gathered_bytes_per_step(),
@@ -4147,6 +4155,7 @@ def spmd_rank(backend: str) -> dict:
                           mesh=legs["lanes"]())
     bb_start = bb.state.clone()
     bb_hist = bb.train(LANE_ROUNDS)
+    bb_state = bb.state.whole()
     counts = {k: n for w in counted for k, n in launch_counts(w).items()}
     print("spmd: launches on this rank's main path: " + ", ".join(
         f"{k} {n}" for k, n in counts.items() if n))
@@ -4159,12 +4168,13 @@ def spmd_rank(backend: str) -> dict:
         sess = session("spmd", start, mesh=legs[leg](), recipe="greedy")
         with fault():
             hist, _ = rounds(sess)
-        faults[leg] = (what, sess.state, hist, sess.engine._dp)
+        faults[leg] = (what, sess.state.whole(), hist, sess.engine._dp)
         del sess
     start64 = session("fused", dtype=torch.float64).state.clone()
     s64 = session("spmd", start64, dtype=torch.float64, mesh=legs["data"](),
                   recipe="greedy")
     h64, ms64 = rounds(s64)
+    s64_state = s64.state.whole()
     out = {"launches": counts, "rank": rank, "probe": probe}
     dist.barrier()
     if rank == 0:
@@ -4212,7 +4222,7 @@ def spmd_rank(backend: str) -> dict:
                                                out["data"]["drift"]["servers"])
         fused64 = session("fused", start64, dtype=torch.float64)
         f64_hist, _ = rounds(fused64)
-        dl, dd, d = compare("float64 ResNet data", s64.state, h64, fused64,
+        dl, dd, d = compare("float64 ResNet data", s64_state, h64, fused64,
                             f64_hist, start64)
         print(f"spmd float64 ResNet data: ms per round "
               + ", ".join(f"{m:.1f}" for m in ms64))
@@ -4238,7 +4248,7 @@ def spmd_rank(backend: str) -> dict:
         dl = max(max(abs(a.client_loss - b.client_loss),
                      abs(a.server_loss - b.server_loss))
                  for a, b in zip(bb_hist, p_hist))
-        d = paper_drift(bb.state, plain.state, bb_start)
+        d = paper_drift(bb_state, plain.state, bb_start)
         print(f"  reading spmd glm4-9b bf16 smoke lanes vs fused: max|dloss| "
               f"{dl:.3e}; drift clients {d['clients']:.3e} servers "
               f"{d['servers']:.3e}")
@@ -4262,12 +4272,13 @@ def spmd_rank(backend: str) -> dict:
         check(not bad, f"spmd comparisons: {len(bad)} failed")
         del fused, plain
     # the legs below run at published widths: this leg's states go first
-    del res, faults, s64, start64, start, bb, bb_start
+    del res, faults, s64, s64_state, start64, start, bb, bb_state, bb_start
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = spmd_serve_legs(rank, world, counts)
     out["moe"] = spmd_moe_leg(rank, world, counts)
     out["moe_block"] = spmd_moe_block_leg(rank, world)
+    out["moe_serve"] = spmd_serve_experts_leg(rank, world, counts)
     out["tp"] = spmd_tp_legs(rank, world, counts)
     t0 = time.perf_counter()
     out["family"] = spmd_family_legs(rank, world, counts)
@@ -4536,7 +4547,7 @@ def spmd_moe_leg(rank: int, world: int, counts: dict) -> dict:
     main = {k: n for w in attn for k, n in launch_counts(w).items()}
     for k, n in main.items():
         counts[k] = counts.get(k, 0) + n
-    d = paper_drift(sess.state, fused.state, start)
+    d = paper_drift(sess.state.whole(), fused.state, start)
     dd = max(d["clients"], d["servers"])
     eng = sess.engine
     E = sess.model.cfg.moe.num_experts
@@ -4766,6 +4777,98 @@ def spmd_moe_block_leg(rank: int, world: int) -> dict:
             "experts": E_loc}
 
 
+def spmd_serve_experts_leg(rank: int, world: int, counts: dict) -> dict:
+    """Serving with the experts kept over the batch ranks
+    (``RankPlacement.ep``): qwen3-moe-235b-a22b at its published widths
+    cut to SPMD_EXPERT_LAYERS layers by phase main's rule (exits 2, 4, 6),
+    bf16, on the kernels, over the data mesh (world, 1) under
+    SPMD_EXPERT_RECIPE (the expert stacks E over "data", 64 of 128 a
+    rank; the other weights whole on each rank: nothing is gathered a
+    tick), 8 slots, 8 requests of 16-128 tokens, SPMD_TP_DECODE decode
+    tokens, select (tau 2.0) and sticky (tau 12.5).  The weights are
+    ``lazy_weights``: each leaf drawn on the card where it is placed (two
+    ranks' whole trees, 46.0 GB each by their shapes, do not fit it).
+    The launch counts are zeroed before the two runs and read after.
+    Each rank prints ms a
+    tick, the experts it holds and their bytes, the expert bytes a tick
+    gathers (0), the exchange's bytes a decode tick and of the
+    admissions, and its peak.  Then the select requests again, each entry
+    sent to the owner of the next chunk (``parity.misrouted_entries``).
+    Then, on rank 0, after every rank has let go of its chunks:
+    ``tp_serve_checks`` (the one-rank session and each request served
+    alone, the bf16 limits; the fault must part)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_moe_235b_a22b
+    from repro_torch.kernels.entropy_exit import entropy_exit
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.e2e_train import cut_depth
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parity import misrouted_entries
+    cfg, _ = cut_depth(qwen3_moe_235b_a22b.config(), SPMD_EXPERT_LAYERS)
+    mesh = make_host_mesh((world, 1), ("data", "model"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129)))
+               for _ in range(SPMD_SERVE_REQUESTS)]
+    taus = {"select": 2.0, "sticky": 12.5}
+    faults = {"misrouted entries": misrouted_entries}
+    t0 = time.perf_counter()
+    # ---- the main path: every count at 0, read after
+    zero_counts(flash_attention, entropy_exit)
+    runs, readings = {}, {}
+    for policy, tau in taus.items():
+        runs[policy], r, _ = tp_serve_run(
+            cfg, lazy_weights(cfg), prompts, policy, tau, mesh=mesh,
+            recipe=SPMD_EXPERT_RECIPE)
+        readings[policy] = r
+        print(f"spmd serve experts {cfg.name} {cfg.num_layers} layers "
+              f"data mesh ({world}, 1) {SPMD_EXPERT_RECIPE} {policy} (rank "
+              f"{rank}): {r['ms_per_tick']:.3f} ms a tick over "
+              f"{r['ticks']} ticks ({r['client_only']} client-only), "
+              f"{r['experts']} of {cfg.moe.num_experts} experts a stack "
+              f"({r['expert_bytes']:,} B of expert weights, "
+              f"{r['held_bytes']:,} B in all), expert bytes gathered a "
+              f"tick {r['expert_gathers']:,}, weights gathered a tick "
+              f"{r['weights_per_tick']:,.0f}, exchange a decode tick "
+              f"{r['exchange_decode_per_tick']:,.0f} B, admissions "
+              f"{r['exchange_prefill']:,.0f} B, peak {r['peak_gib']:.2f} "
+              f"GiB", flush=True)
+        check(r["experts"] == r["stack_experts"][0]
+              == cfg.moe.num_experts // world and r["expert_gathers"] == 0
+              and r["exchange_decode_per_tick"] > 0,
+              f"spmd serve experts {policy} rank {rank}: "
+              f"{cfg.moe.num_experts // world} experts a rank kept, none "
+              f"gathered, the entries exchanged")
+    main = {k: c for w in (flash_attention, entropy_exit)
+            for k, c in launch_counts(w).items()}
+    for k, c in main.items():
+        counts[k] = counts.get(k, 0) + c
+    check(main.get("entropy_exit", 0) > 0
+          and main.get("flash_attention", 0) > 0,
+          f"spmd serve experts rank {rank}: the gate and the decode route "
+          f"launched ({main})")
+    # the select requests served again under the planted fault (untimed)
+    faulted = tp_serve_run(cfg, lazy_weights(cfg), prompts, "select",
+                           taus["select"], mesh=mesh,
+                           recipe=SPMD_EXPERT_RECIPE, faults=faults)[2]
+    every = [None] * world
+    dist.all_gather_object(every, {"runs": runs, "faults": faulted})
+    dist.barrier()
+    out = {"readings": readings, "launches": main}
+    if rank == 0:
+        checks = []
+        tp_serve_checks(cfg, lazy_weights(cfg), prompts, taus, every,
+                        readings, checks, faults=tuple(faults))
+        for ok, msg in checks:
+            print(("  ok    " if ok else "  FAIL  ") + msg, flush=True)
+        check(all(ok for ok, _ in checks), "spmd serve experts comparisons")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    print(f"spmd serve experts leg: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     """Tensor parallelism over "model" (``launch/tensor_parallel.py``):
     glm4-9b at its published widths cut to SPMD_SERVE_LAYERS layers, bf16,
@@ -4781,10 +4884,16 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     spmd engine over the same mesh): one client cut at SPMD_TP_CUT (the
     model's one exit there), SPMD_TP_STEPS rounds of SPMD_TP_BATCH x
     ``parity.TRAIN_SEQ`` tokens with labels over the whole vocab (so
-    every rank owns some), Adam with bf16 moments; then the same session
-    for one round under each planted fault (a row-parallel product's
-    partial sum taken as the whole; the cross entropy's sum of
-    exponentials left per rank).
+    every rank owns some), Adam with bf16 moments, in two ``train``
+    calls, the second from the first's chunks; each rank prints the
+    bytes of the state it holds, the dry run's reckoning of them and its
+    peak memory against the 38.25 GiB a rank that kept the whole state
+    beside its chunks (PERF.md section 5, run R2, NVIDIA H100 80GB HBM3,
+    700 W).  Then the same session for one
+    round under each planted fault (a row-parallel product's partial sum
+    taken as the whole; the cross entropy's sum of exponentials left per
+    rank), and for two rounds whose second run's carry is re-cut with
+    this rank's chunk index off by one (``parity.shifted_chunks``).
     Then, on rank 0: the one-rank serving session (timed the same way)
     and each request served alone on the kernels, the streams within the
     bf16 limits of repro_torch/parity.py; the same training session on
@@ -4810,8 +4919,8 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.backbone import init_backbone
     from repro_torch.parity import (TIE_GAP_BF16, TOL_H_BF16,
-                                    per_rank_sumexp, stream_parity,
-                                    unreduced_row_products)
+                                    per_rank_sumexp, shifted_chunks,
+                                    stream_parity, unreduced_row_products)
     cfg, _ = cut_depth(glm4_9b.config(), SPMD_SERVE_LAYERS)
     shape = (world // 2, 2)
     mesh = make_host_mesh(shape, ("data", "model"))
@@ -4840,12 +4949,13 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
     data = ClientPartitioner(1).split(*ds.train)
 
     def train(engine="spmd", kernels="auto", fault=contextlib.nullcontext,
-              steps=SPMD_TP_STEPS):
+              steps=SPMD_TP_STEPS, **kw):
         """``steps`` rounds: (client and server losses a round, the
         engine's readings)."""
         return tp_train_run(tcfg, data, engine=engine, kernels=kernels,
                             mesh=mesh, recipe="megatron",
-                            batch=SPMD_TP_BATCH, steps=steps, fault=fault)
+                            batch=SPMD_TP_BATCH, steps=steps, fault=fault,
+                            **kw)
 
     # ---- the main path: every count at 0, read after
     zero_counts(*wrappers)
@@ -4863,7 +4973,8 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
               f"roles {r['roles']}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    losses, tr = train()
+    # two train calls: the second starts from the first's chunks
+    losses, tr = train(runs=(1, SPMD_TP_STEPS - 1))
     main = {k: n for w in wrappers for k, n in launch_counts(w).items()}
     for k, n in main.items():
         counts[k] = counts.get(k, 0) + n
@@ -4874,6 +4985,16 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
           f"{tr['gathered_per_step']:,.0f}, peak {tr['peak_gib']:.2f} GiB; "
           f"launches " + ", ".join(f"{k} {n}" for k, n in main.items() if n),
           flush=True)
+    print(f"spmd tp train state (rank {rank}): state_bytes "
+          f"{tr['state_bytes']:,} after {SPMD_TP_STEPS} rounds in two "
+          f"runs; chunk_shapes and the dry run reckon "
+          f"{tr['reckoned_bytes']:,} (the whole state {tr['whole_bytes']:,}"
+          f"); peak {tr['peak_gib']:.2f} GiB against 38.25 GiB a rank with "
+          f"the whole state kept beside the chunks (PERF.md section 5, run "
+          f"R2, NVIDIA H100 80GB HBM3, 700 W)", flush=True)
+    check(tr["state_bytes"] == tr["reckoned_bytes"] < tr["whole_bytes"],
+          f"spmd tp rank {rank}: the rank holds its chunks of the state, "
+          f"{tr['state_bytes']:,} B as reckoned")
     check(tr["engine"] == "spmd" and all(
               main[k] > 0 for k in ("flash_attention", "flash_attention_tile",
                                     "flash_attention_bwd_dkv",
@@ -4881,9 +5002,12 @@ def spmd_tp_legs(rank: int, world: int, counts: dict) -> dict:
                                     "entropy_exit")),
           f"spmd tp rank {rank}: the spmd engine trained; the decode and "
           f"tile routes, dK/dV, dQ and the gate launched")
-    # a fault moves the forward, so its first round shows it
+    # a fault moves the forward, so its first round shows it; the
+    # shifted chunks, the second run's
     faults = {name: train(fault=f, steps=1)[0] for name, f in (
         ("row", unreduced_row_products), ("sumexp", per_rank_sumexp))}
+    faults["shifted chunks"] = train(fault=shifted_chunks, steps=2,
+                                     runs=(1, 1), fault_from=1)[0]
     every = [None] * world
     dist.all_gather_object(every, {"runs": runs, "losses": losses,
                                    "faults": faults})
@@ -5045,15 +5169,37 @@ def tp_serve_run(cfg, params, prompts, policy, tau, *, mesh, recipe,
     done = sess.run()
     torch.cuda.synchronize()
     st = sess.stats
-    tp_kinds = dict(sess.placement.tp.bytes) if (
-        mesh is not None and sess.placement.tp is not None) else {}
+    pl = sess.placement
+    tp_kinds = dict(pl.tp.bytes) if (
+        mesh is not None and pl.tp is not None) else {}
     reading = dict(
         ms_per_tick=(st.wall_s - st.prefill_s) / st.decode_ticks * 1e3,
         weights_per_tick=st.weight_gathered_bytes_per_tick,
         tp_decode_per_tick=st.tp_decode_bytes_per_tick,
         tp_prefill=st.tp_prefill_bytes, tp_by_kind=tp_kinds,
+        exchange_decode_per_tick=st.exchange_decode_bytes_per_tick,
+        exchange_prefill=st.exchange_prefill_bytes,
         ticks=st.decode_ticks, client_only=st.client_only_ticks,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, roles=kinds)
+    if mesh is not None and pl.ep is not None:
+        # the expert stacks this rank holds, and what a tick gathers of them
+        from repro_torch.launch.meshcomm import plan_bytes, unshard_plan
+        from repro_torch.launch.shardings import (is_expert_stack,
+                                                  map_with_path)
+        experts = map_with_path(
+            lambda p, t: t if is_expert_stack(cfg, p) else None, pl.params)
+        reading.update(
+            experts=pl.ep.experts,
+            stack_experts=sorted({t.shape[0] for _, t in
+                                  tree_paths(experts)}),
+            expert_bytes=sum(t.numel() * t.element_size()
+                             for _, t in tree_paths(experts)),
+            expert_gathers=plan_bytes(unshard_plan(
+                experts, pl.compute_specs, pl.comm.sizes, lead=0)),
+            held_bytes=sum(t.numel() * t.element_size()
+                           for _, t in tree_paths(pl.params)))
+        del experts
+    del pl
 
     def streams(results, rids):
         """The requests ``rids`` (``run`` returns every finished one) by
@@ -5143,31 +5289,40 @@ def tp_serve_checks(cfg, host, prompts, taus, every, readings, checks,
 
 
 def tp_train_run(cfg, data, *, engine="spmd", kernels="auto", mesh=None,
-                 recipe=None, batch, steps, fault=contextlib.nullcontext):
+                 recipe=None, batch, steps, fault=contextlib.nullcontext,
+                 runs=None, fault_from: int = 0):
     """``TrainSession`` of ``BackboneSplitModel`` on ``cfg`` (one client
-    at its one exit), ``steps`` rounds, Adam with bf16 moments: ``(client
-    and server losses a round, readings)``.  RWKV6's decays and bonus stay
-    at their init (``parity.live_rwkv``'s draws at published widths take
-    the plain chunked wkv, the control, past fp32's range)."""
+    at its one exit), ``steps`` rounds in ``train`` calls of ``runs``
+    rounds each (default one call), Adam with bf16 moments: ``(client and
+    server losses a round, readings)``; ``fault`` is active from call
+    ``fault_from`` on.  The spmd engine's readings add the bytes of the
+    state a rank holds after the rounds (``state_bytes``) beside the dry
+    run's reckoning of its chunks and of the whole state
+    (``launch.dryrun.session_state_bytes``).  RWKV6's decays and bonus
+    stay at their init (``parity.live_rwkv``'s draws at published widths
+    take the plain chunked wkv, the control, past fp32's range)."""
     from repro_torch import parity
     from repro_torch.api import TrainSession
     from repro_torch.config import (HeteroProfile, OptimizerConfig,
                                     SplitEEConfig)
     from repro_torch.core.backbone_splitee import BackboneSplitModel
+    from repro_torch.launch.dryrun import session_state_bytes
+    from repro_torch.launch.mesh import MeshSpec
     model = BackboneSplitModel(cfg.with_(kernels=kernels), device="cuda")
     kw = dict(mesh=mesh, recipe=recipe) if engine == "spmd" else {}
-    sess = TrainSession(
-        model, SplitEEConfig(profile=HeteroProfile(cfg.exit_layers),
-                             strategy="averaging"),
-        OptimizerConfig(lr=parity.TRAIN_LR, total_steps=2 * steps,
-                        state_dtype=torch.bfloat16),
-        data, batch, engine=engine, **kw)
+    sc = SplitEEConfig(profile=HeteroProfile(cfg.exit_layers),
+                       strategy="averaging")
+    oc = OptimizerConfig(lr=parity.TRAIN_LR, total_steps=2 * steps,
+                         state_dtype=torch.bfloat16)
+    sess = TrainSession(model, sc, oc, data, batch, engine=engine, **kw)
     model.full_params = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with fault():
-        hist = sess.train(steps)
+    hist = []
+    for i, n in enumerate(runs or (steps,)):
+        with fault() if i >= fault_from else contextlib.nullcontext():
+            hist += sess.train(n)
     torch.cuda.synchronize()
     eng = sess.engine
     reading = dict(
@@ -5177,6 +5332,15 @@ def tp_train_run(cfg, data, *, engine="spmd", kernels="auto", mesh=None,
         gathered_per_step=getattr(eng, "last_gathered_bytes_per_step",
                                   0.0),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if engine == "spmd":
+        splits = sc.profile.split_layers
+        reading.update(
+            state_bytes=eng.state_bytes,
+            reckoned_bytes=session_state_bytes(model, splits, oc, mesh,
+                                               recipe, batch),
+            whole_bytes=session_state_bytes(
+                model, splits, oc, MeshSpec((1, 1), ("data", "model")),
+                recipe, batch))
     losses = np.asarray([[m.client_loss, m.server_loss] for m in hist])
     del sess, model, eng
     gc.collect()

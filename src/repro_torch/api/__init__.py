@@ -32,4 +32,5 @@ from repro_torch.api.serve_session import (ServeResult, ServeSession,  # noqa: F
                                            serve_step_config)
 from repro_torch.api.session import TrainSession  # noqa: F401
 from repro_torch.api.spmd_engine import SpmdEngine  # noqa: F401
-from repro_torch.api.state import TrainState, init_train_state  # noqa: F401
+from repro_torch.api.state import (ShardedTrainState, TrainState,  # noqa: F401
+                                   init_train_state)

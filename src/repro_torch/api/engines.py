@@ -3,7 +3,10 @@
 
 An engine executes the paper's strategies as ``TrainState -> TrainState``:
 it receives a state, runs some rounds and returns a new state and the
-per-round metrics, leaving the state it was given untouched.
+per-round metrics, leaving the state it was given untouched.  The spmd
+engine's state is each rank's chunks (``api.state.ShardedTrainState``),
+which its next run takes as its carry; ``Engine.place`` turns a state
+into the form an engine's runs take.
 
 The port registers ``"reference"`` (the per-client loop of Alg. 1/2, every
 strategy), ``"fused"`` (cohort lanes, Averaging and distributed) and
@@ -142,12 +145,20 @@ class Engine:
         """``None`` if this engine can run the session, else the reason."""
         return None
 
+    def place(self, state):
+        """``state`` as this engine's runs take it: a whole ``TrainState``
+        (another engine's chunks gathered: collective over its ranks).
+        The session keeps what this returns, so a state it replaces can
+        be let go before a run."""
+        return state.whole()
+
     def run(self, state, rounds: int, local_epochs: int = 1,
             log_every: int = 0, chunk_rounds: int = 0):
         """Train ``rounds`` rounds from ``state``; returns
-        ``(new_state, [RoundMetrics])``.  Must not change ``state``.
-        ``chunk_rounds`` bounds the rounds an engine stages at once (0 =
-        the engine's choice)."""
+        ``(new_state, [RoundMetrics])``.  Must not change ``state`` (the
+        spmd engine's chunks are the exception: a run takes them as its
+        carry).  ``chunk_rounds`` bounds the rounds an engine stages at
+        once (0 = the engine's choice)."""
         raise NotImplementedError
 
 

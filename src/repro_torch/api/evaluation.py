@@ -3,7 +3,9 @@
 
 The test set is padded to whole batches with a validity mask, so the tail
 batch is scored, not dropped.  Per client, the batches' sums accumulate
-in one 5-vector on the device and the host reads it once.  The Alg. 3
+in one 5-vector on the device and the host reads it once.  Each client's
+nets come from ``state.nets``: a state kept as each rank's chunks (the
+spmd engine's) gathers one client's nets at a time, on every rank.  The Alg. 3
 gate is the kernel backend's ``entropy_gate``: on the card the kernel of
 ``kernels/csrc/entropy_exit.cu``, on the CPU its plain version (the JAX
 evaluator computes the same entropy with plain ``softmax_entropy``).
@@ -82,8 +84,9 @@ class SplitEvaluator:
         out = []
         for i, li in enumerate(self.profile.split_layers):
             sidx = 0 if self.strategy == "sequential" else i
-            out.append(self._sums(li, state.clients[i], state.servers[sidx],
-                                  xb, yb, mask, tau))
+            client, server = state.nets(i, sidx)
+            out.append(self._sums(li, client, server, xb, yb, mask, tau))
+            del client, server
         return out, n
 
     def evaluate(self, state: TrainState, x, y, batch_size: int = 512

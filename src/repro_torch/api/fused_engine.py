@@ -339,6 +339,11 @@ class FusedEngine(Engine):
                 _stack_opts([state.server_opts[i] for i in lanes]))
         return carry
 
+    def _host_steps(self, state: TrainState) -> List[List[int]]:
+        """Each client's Adam steps ``[client, server]`` on the host."""
+        return [[c.step, s.step] for c, s in zip(state.client_opts,
+                                                 state.server_opts)]
+
     def _unstack_carry(self, carry, state: TrainState,
                        steps: List[Tuple[int, int]]) -> TrainState:
         """The carry as per-client tensors of their own, client ``i``'s Adam
@@ -455,12 +460,11 @@ class FusedEngine(Engine):
             ctx.data.align(state.batches_drawn)
         overlap = self._overlap_enabled()
         plan = self._chunk_plan(rounds, chunk_rounds, local_epochs, overlap)
-        carry = self._stack_carry(state)
-        t0 = state.round
         # each client's Adam steps (client, server), counted on the host
         # from the staged plans
-        steps = [[c.step, s.step] for c, s in zip(state.client_opts,
-                                                  state.server_opts)]
+        steps = self._host_steps(state)
+        carry = self._stack_carry(state)
+        t0 = state.round
         self.last_host_syncs = 0
         stage = (self._stage_population_chunk if population
                  else self._stage_chunk)

@@ -47,15 +47,31 @@ the parameter tree (per ``ShardingRecipe``) and the slot-paged cache
 and mapped back onto the port's leaves, and each rank keeps only its
 chunk of every leaf.  Every rank runs the host scheduler on the same
 submissions and makes the same admissions.  A tick gathers the sharded
-weights whole (freed at its end); the data group that owns a free slot
-prefills its request whole, each of its ranks keeping its part of the
-page; every rank decodes its data group's slots, attention over its part
-of each split ring combined over the ring's ranks
+weights whole (freed at its end) but the expert stacks; the data group
+that owns a free slot prefills its request whole, each of its ranks
+keeping its part of the page; every rank decodes its data group's slots,
+attention over its part of each split ring combined over the ring's ranks
 (``models.attention.combine_parts``), and the tick's tokens, gates and
 entropies are all-gathered over the batch ranks, so ``results``, the
 counts of ``stats`` and ``run()`` are the same on every rank.  Where the
 slots do not divide over the batch ranks they stay replicated and every
 data group runs every slot.
+
+An expert stack whose E dim lies over the batch axes (``"data"``: the
+data layout, or the ``("data", "model")`` grid) stays this rank's chunk
+-- E / D experts, over the grid chunk i * P + m of rank (i, m), as a
+train step keeps it -- and the tick runs inside
+``launch.tensor_parallel.expert_parallel`` over the rank's data group
+(:attr:`RankPlacement.ep`): each MoE block sends every kept entry to its
+expert's owner and back (``models/moe.py``).  Each slot is still its
+own routing group, whole on its data group, so a slot's capacity and
+drops do not depend on the other slots and no loads are summed; the
+owners' buffers hold every data rank's groups side by side
+(``ExpertGroup.groups``).  Every data rank makes the same exchanges in
+the same order: a tick decodes every rank's slots, occupied or not, and
+a data rank whose group does not prefill a request runs its experts'
+side of each MoE block of that prefill (``models.moe.serve_exchange``).
+``stats.exchange_bytes`` counts the exchange.
 
 Over ``"model"`` the products are tensor-parallel
 (``launch/tensor_parallel.py``): a leaf that ``launch.shardings.tp_roles``
@@ -63,17 +79,20 @@ finds ``column``, ``row`` or ``expert`` (attention's, MLA's, RWKV6's and
 Mamba2's projections, the SwiGLU's weights, the expert stacks, the
 embedding and the heads split over the vocab) is read in place as this
 rank's chunk, gathered over its data axes only (a grid-placed expert
-stack: this rank's experts), and the tick runs inside ``model_parallel``
+stack over one data rank: this rank's experts), and the tick runs inside
+``model_parallel``
 over the rank's model group; only the other leaves (norms, the router,
 the token-shift mixes, Mamba2's conv and scan parameters, the frontend)
-are gathered whole.  A decode over a split ring gathers the new token's
+are gathered whole (an expert stack over the batch axes is not
+gathered at all).  A decode over a split ring gathers the new token's
 q, k and v heads (MLA: its absorbed query), attends over this rank's
 part for every head and keeps its own heads for ``wo``; an RWKV6 decode
 step runs every head on the whole state; the logits are gathered over
 the vocab for the gate (the entropy kernel runs on whole rows) and the
 token pick.
-``stats.weight_gathered_bytes`` counts the weights a tick gathers,
-``stats.tp_bytes`` the tensor-parallel collectives.
+``stats.weight_gathered_bytes`` counts the weights a tick gathers (the
+kept expert stacks read 0), ``stats.tp_bytes`` the tensor-parallel
+collectives.
 """
 from __future__ import annotations
 
@@ -94,11 +113,15 @@ from repro_torch.launch.mesh import (MeshSpec, axis_sizes, batch_axes,
                                      live_mesh)
 from repro_torch.launch.meshcomm import MeshComm, _axes, chunk_shapes
 from repro_torch.launch.shardings import (_lookup, compute_spec,
-                                          expert_blocks, jax_layout,
+                                          expert_axes, expert_blocks,
+                                          jax_layout, kept_experts,
                                           map_with_path,
                                           port_specs, resolve_recipe,
                                           serve_state_specs, tp_roles)
-from repro_torch.launch.tensor_parallel import ModelGroup, model_parallel
+from repro_torch.launch.tensor_parallel import (ExpertGroup, ModelGroup,
+                                                expert_parallel,
+                                                model_parallel,
+                                                routing_groups)
 from repro_torch.models.frontend import project_enc, stub_enc
 from repro_torch.models import heads as heads_mod
 from repro_torch.models.backbone import (backbone_forward, init_cache,
@@ -144,7 +167,10 @@ def assemble_serve_params(model, state, boundary: int) -> dict:
     rest, the composed network that client's requests went through in
     training.  The exit heads at other boundaries come from clients that
     trained them where there are any (else the adapter's init); the
-    forward computes them but the gate never reads them."""
+    forward computes them but the gate never reads them.  A state kept
+    as each rank's chunks (the spmd engine's) is gathered whole first
+    (collective over its ranks)."""
+    state = state.whole()
     cfg = model.cfg
     exits = tuple(sorted(cfg.exit_layers))
     # a client at boundary b holds segments 0..b, so its boundary can be
@@ -226,6 +252,21 @@ class ServeStats:
     weight_gathered_bytes: int = 0     # of them, the weights' gathers
     tp_bytes: float = 0.0              # tensor-parallel collectives
     tp_prefill_bytes: float = 0.0      # of them, the admissions'
+    exchange_bytes: float = 0.0        # the experts' dispatch and combine
+    exchange_prefill_bytes: float = 0.0    # of them, the admissions'
+
+    @property
+    def exchange_bytes_per_tick(self) -> float:
+        """The experts' exchange bytes of this rank's entries a tick
+        (admissions included), as a train step's
+        ``SpmdEngine.last_exchange_bytes_per_step`` counts them."""
+        return self.exchange_bytes / max(1, self.decode_ticks)
+
+    @property
+    def exchange_decode_bytes_per_tick(self) -> float:
+        """The experts' exchange bytes of a tick's decode step alone."""
+        return ((self.exchange_bytes - self.exchange_prefill_bytes)
+                / max(1, self.decode_ticks))
 
     @property
     def gathered_bytes_per_tick(self) -> float:
@@ -296,7 +337,11 @@ class RankPlacement:
     A parameter leaf whose ``"model"`` chunk a tensor-parallel product
     reads (``roles``, ``launch.shardings.tp_roles``) is gathered for a
     tick over its other axes only (``compute_specs``); ``tp`` is the
-    rank's model group (``None`` without a model split).
+    rank's model group (``None`` without a model split).  An expert
+    stack whose E dim lies over the batch axes stays this rank's chunk
+    (``Role.experts``): ``ep`` is the rank's expert group over the data
+    ranks (``None`` where no stack keeps such a chunk), whose MoE blocks
+    exchange their entries with the experts' owners.
 
     A cache leaf's slot dim over the batch axes leaves this rank its data
     group's slots ``[lo, hi)``; a decode ring's sequence over ``"model"``
@@ -324,24 +369,38 @@ class RankPlacement:
             chunk_shapes(pool, self.cache_specs, comm.sizes, lead=0))
         ax = self.recipe.tp_axis
         self.tp: Optional[ModelGroup] = None
+        self.ep: Optional[ExpertGroup] = None
         self.roles = None
         self.compute_specs = self.param_specs
-        if comm.sizes.get(ax, 1) > 1:
-            pg, _ = comm.group((ax,))
-            self.tp = ModelGroup(pg, comm.sizes[ax], comm.index((ax,)))
+        split = comm.sizes.get(ax, 1) > 1
+        if split or cfg.moe is not None:
             self.roles = tp_roles(params, self.param_specs, mesh, cfg,
                                   self.recipe)
-            self.tp.expert_blocks = expert_blocks(self.roles)
-            # serving gathers an expert stack over the batch ranks: a
-            # tick's slots are not split over them as a step's rows are
+            # a split leaf keeps its "model" chunk, an expert stack its
+            # chunk over the batch ranks too: no expert weight is gathered
             self.compute_specs = map_with_path(
                 lambda p, _: compute_spec(_lookup(self.param_specs, p),
-                                          _lookup(self.roles, p), ax,
-                                          experts=False),
+                                          _lookup(self.roles, p), ax),
                 params)
+        if split:
+            pg, _ = comm.group((ax,))
+            self.tp = ModelGroup(pg, comm.sizes[ax], comm.index((ax,)),
+                                 expert_blocks=expert_blocks(self.roles))
         self._batch_all = batch_axes(mesh)
         self.batch = tuple(a for a in self._batch_all
                            if comm.sizes[a] > 1)
+        axes = expert_axes(self.roles) if self.roles is not None else ()
+        if axes:
+            if tuple(axes) != self.batch:
+                raise ValueError(
+                    f"{cfg.name}: serving keeps the experts over {axes}, "
+                    f"but the slots split over the batch axes "
+                    f"{self.batch}; the expert exchange needs them to be "
+                    f"the same axes")
+            pg, _ = comm.group(axes)
+            self.ep = ExpertGroup(pg, comm.size(axes), comm.index(axes),
+                                  kept_experts(self.roles, cfg.moe.num_experts,
+                                               comm.sizes, ax))
         dp = comm.size(self.batch)
         if dp > 1 and slots % dp == 0:
             n = slots // dp
@@ -360,7 +419,8 @@ class RankPlacement:
     def whole_params(self) -> dict:
         """The parameter tree a tick computes with: each sharded leaf
         all-gathered, a tensor-parallel leaf over its other axes only (its
-        ``"model"`` chunk read in place)."""
+        ``"model"`` chunk read in place), a kept expert stack not at
+        all."""
         return self.comm.unshard(self.params, self.compute_specs, lead=0)
 
     def _range(self, spec, d: int, size: int):
@@ -545,16 +605,29 @@ class ServeSession:
     def _admit(self, params: dict) -> List[int]:
         """Queued requests into the free slots, in slot order; returns the
         slots admitted.  A slot of this rank's data group is prefilled
-        here; the other groups' admissions move no data on this rank."""
+        here; the other groups' admissions move no data on this rank, but
+        where the experts are split over the data ranks this rank runs
+        its experts' side of each MoE block's exchange
+        (``models.moe.serve_exchange``)."""
         admitted = []
+        ep = self.placement.ep if self.placement is not None else None
+        # a request is one routing group: its one data group's where the
+        # slots split, else each data rank's copy of it
+        first, total = ((0, 1) if ep is None or self.placement.slots_split
+                        else (ep.index, ep.size))
         for s in range(self.slots):
             if self._active[s] or not self._queue:
                 continue
             t0 = time.perf_counter()
             req = self._queue.popleft()
-            if self._lo <= s < self._hi:
-                page, logits = _prefill(self.cfg, params, req.prompt,
-                                        self.max_len, self.device)
+            if not self._lo <= s < self._hi:
+                if ep is not None:
+                    with routing_groups(ep, first, total):
+                        _join_prefill(self.cfg, params, len(req.prompt))
+            else:
+                with routing_groups(ep, first, total):
+                    page, logits = _prefill(self.cfg, params, req.prompt,
+                                            self.max_len, self.device)
                 tok0 = int(logits.argmax(-1))
                 if self.placement is None:
                     for pool_t, page_t in zip(tree_leaves(self._pool),
@@ -583,20 +656,33 @@ class ServeSession:
             return False
         t0 = time.perf_counter()
         pl = self.placement
-        with model_parallel(pl.tp if pl is not None else None):
+        with model_parallel(pl.tp if pl is not None else None), \
+                expert_parallel(pl.ep if pl is not None else None):
             return self._tick(t0, pl)
+
+    def _slot_groups(self):
+        """The routing groups of a decode tick over the expert group: this
+        rank's slots, one group each, after the lower data ranks'."""
+        ep = self.placement.ep if self.placement is not None else None
+        n = self._hi - self._lo
+        return routing_groups(ep, ep.index * n if ep else 0,
+                              ep.size * n if ep else n)
 
     def _tick(self, t0: float, pl) -> bool:
         before = pl.comm.gathered_bytes if pl is not None else 0
         tp_before = pl.tp.total_bytes if pl is not None and pl.tp else 0.0
+        ep_before = pl.ep.total_bytes if pl is not None and pl.ep else 0.0
         params = pl.whole_params() if pl is not None else self.params
         if pl is not None:
             self.stats.weight_gathered_bytes += (pl.comm.gathered_bytes
                                                  - before)
         tp_admit = pl.tp.total_bytes if pl is not None and pl.tp else 0.0
+        ep_admit = pl.ep.total_bytes if pl is not None and pl.ep else 0.0
         admitted = self._admit(params)
         if pl is not None and pl.tp is not None:
             self.stats.tp_prefill_bytes += pl.tp.total_bytes - tp_admit
+        if pl is not None and pl.ep is not None:
+            self.stats.exchange_prefill_bytes += pl.ep.total_bytes - ep_admit
         occupied = np.nonzero(self._active)[0]
 
         sticky_policy = self.exit_policy == "sticky"
@@ -611,13 +697,14 @@ class ServeSession:
             cache, back = pl.working_cache()
         else:
             cache, back = self._pool, ()
-        if client_only:
-            tokens, exited, H = self._client_tick(params, cache, tau,
-                                                  sticky[mine])
-        else:
-            # adopted slots are forced onto the exit head: tau = +inf
-            tokens, exited, H = self._full_tick(
-                params, cache, torch.where(sticky[mine], torch.inf, tau))
+        with self._slot_groups():
+            if client_only:
+                tokens, exited, H = self._client_tick(params, cache, tau,
+                                                      sticky[mine])
+            else:
+                # adopted slots are forced onto the exit head: tau = +inf
+                tokens, exited, H = self._full_tick(
+                    params, cache, torch.where(sticky[mine], torch.inf, tau))
         if pl is not None:
             pl.write_back(back)
         del params, cache, back
@@ -652,6 +739,8 @@ class ServeSession:
             self.stats.gathered_bytes += pl.comm.gathered_bytes - before
             if pl.tp is not None:
                 self.stats.tp_bytes += pl.tp.total_bytes - tp_before
+            if pl.ep is not None:
+                self.stats.exchange_bytes += pl.ep.total_bytes - ep_before
         self.stats.wall_s += time.perf_counter() - t0
         return bool(self._queue) or bool(self._active.any())
 
@@ -696,6 +785,20 @@ class ServeSession:
     @property
     def results(self) -> List[ServeResult]:
         return list(self._done)
+
+
+def _join_prefill(cfg: ModelConfig, params: dict, n_tokens: int) -> None:
+    """This rank's part in another data group's prefill of ``n_tokens``
+    tokens: its experts' side of every MoE block's exchange, in the
+    order the prefill runs the blocks (``models.moe.serve_exchange``)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.backbone import segment_layers
+    for si in range(len(cfg.segments())):
+        for li, (kind, ffn) in enumerate(segment_layers(cfg, si)):
+            if ffn == "moe":
+                p = (params["shared_attn"] if kind == "shared_attn"
+                     else params["segments"][si][li])
+                moe_mod.serve_exchange(p["ffn"], cfg, n_tokens)
 
 
 def _prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray,

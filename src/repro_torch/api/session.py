@@ -16,6 +16,13 @@ the CUDA card unless the adapter was built with ``device="cpu"``).
     session.evaluate(x_test, y_test)
     session.evaluate_adaptive(x_test, y_test, tau=1.0)
 
+Under the spmd engine ``session.state`` is each rank's chunks
+(``api.state.ShardedTrainState``); ``session.state.whole()`` returns the
+whole ``TrainState`` on every engine (collective over the spmd engine's
+ranks).  The session's initial state is whole, as the JAX package builds
+it on one device before placing it; the session lets go of it once the
+first run's carry is cut.
+
 Checkpoints are the JAX package's: ``save`` writes the state in the JAX
 layout (``convert.state_to_jax``) through ``repro_torch.checkpoint`` with
 the JAX session's manifest, so a checkpoint written by either package's
@@ -41,7 +48,8 @@ from repro_torch.api import spmd_engine as _spmd_engine  # noqa: F401 (registers
 from repro_torch.api.engines import SessionContext, resolve_engine
 from repro_torch.api.evaluation import SplitEvaluator
 from repro_torch.api.protocol import assert_split_model
-from repro_torch.api.state import TrainState, init_train_state
+from repro_torch.api.state import (ShardedTrainState, TrainState,
+                                   init_train_state)
 from repro_torch.checkpoint import save_pytree
 from repro_torch.config import HeteroProfile, OptimizerConfig, SplitEEConfig
 from repro_torch.convert import load_split_state, state_to_jax
@@ -198,6 +206,10 @@ class TrainSession:
 
     def _train_segment(self, rounds, local_epochs, log_every, chunk_rounds
                        ) -> List[RoundMetrics]:
+        # the engine's form of the state first, so the session lets go of
+        # a state it replaces (the spmd engine's: the whole state once its
+        # chunks are cut) before the run
+        self.state = self.engine.place(self.state)
         self.state, metrics = self.engine.run(
             self.state, rounds, local_epochs=local_epochs,
             log_every=log_every, chunk_rounds=chunk_rounds)
@@ -211,6 +223,9 @@ class TrainSession:
         return self.history
 
     def evaluate(self, x, y, batch_size: int = 512) -> Dict[str, Any]:
+        """Per-client accuracy of the exit and of the server.  Under the
+        spmd engine every rank calls it (each client's nets are gathered
+        in turn) and every rank gets the same numbers."""
         return self._evaluator.evaluate(self.state, x, y, batch_size)
 
     def evaluate_adaptive(self, x, y, tau: float, batch_size: int = 512
@@ -223,7 +238,15 @@ class TrainSession:
         """Write ``path + '.npz'`` (the whole ``TrainState`` in the JAX
         package's layout) and ``path + '.json'`` (the manifest, with the
         JAX session's metadata).  The model adapter and the data are not
-        saved: pass the same ones to :meth:`restore`."""
+        saved: pass the same ones to :meth:`restore`.  A state kept as
+        each rank's chunks (the spmd engine) is gathered one leaf at a
+        time to host memory: every rank calls ``save`` and only the
+        coordinator writes."""
+        state = self.state
+        if isinstance(state, ShardedTrainState):
+            state = state.whole(device="cpu")
+            if not is_coordinator():
+                return
         ctx = self.ctx
         opt = dataclasses.asdict(ctx.opt_cfg)
         opt["state_dtype"] = _dtype_name(opt["state_dtype"])
@@ -262,16 +285,20 @@ class TrainSession:
             "round": self.round,
             "history": [dataclasses.asdict(m) for m in self.history],
         }
-        save_pytree(path, state_to_jax(self.state, ctx.model), metadata=meta)
+        save_pytree(path, state_to_jax(state, ctx.model), metadata=meta)
 
     def _save_rotating(self, save_dir: str, keep_last: int) -> None:
         """``save_dir/ckpt-<round>``, then only the newest ``keep_last``
         ``.npz``/``.json`` pairs are kept.  Only the coordinator rank writes
-        (every rank holds the same whole state)."""
+        (a whole state is the same on every rank; chunks are gathered by
+        every rank's :meth:`save`)."""
+        if is_coordinator():
+            os.makedirs(save_dir, exist_ok=True)
+        elif not isinstance(self.state, ShardedTrainState):
+            return
+        self.save(os.path.join(save_dir, f"ckpt-{self.round:08d}"))
         if not is_coordinator():
             return
-        os.makedirs(save_dir, exist_ok=True)
-        self.save(os.path.join(save_dir, f"ckpt-{self.round:08d}"))
         stems = sorted(p[:-5] for p in
                        _glob.glob(os.path.join(save_dir, "ckpt-*.json")))
         for stem in stems[:-max(1, keep_last)]:

@@ -36,9 +36,19 @@ same recipe rules:
     population, the masked counts) are summed over the lanes group before
     the division (``core.aggregation.partial_cross_layer_aggregate``).
   * **Results.**  Losses are summed over the lanes and batch ranks once per
-    chunk; the returned ``TrainState`` is whole and identical on every
-    rank (the lanes and shards are gathered at the end of a run), so
-    evaluation and checkpoints read it as they read the fused engine's.
+    chunk.  A run returns the state as this rank's chunks
+    (``api.state.ShardedTrainState``): the carry itself, each leaf cut by
+    the specs above and only this rank's lanes of a cohort spread over
+    the lanes axis, the Adam steps on the host beside them -- the port's
+    counterpart of the JAX engine's device-resident slices.  The next run
+    on the same engine takes them as its carry (no gather, no cut); a
+    whole ``TrainState`` (the session's initial one, a restored
+    checkpoint, another engine's state) is cut once, by :meth:`place`.
+    Whole values are read explicitly and collectively:
+    ``ShardedTrainState.whole`` (checkpoints, hand-offs: one leaf at a
+    time) and ``ShardedTrainState.nets`` (evaluation: one client's nets
+    at a time).  :attr:`SpmdEngine.state_bytes` counts the bytes a rank
+    holds.
 
   * **Tensor parallelism over ``"model"``** (a ``BackboneSplitModel``).
     ``launch.shardings.tp_roles`` reads each leaf's ``"model"`` dim
@@ -96,6 +106,7 @@ import torch
 from repro_torch.api.engines import (SessionContext, cohort_layout,
                                      register_engine)
 from repro_torch.api.fused_engine import FusedEngine, _stack_opts
+from repro_torch.api.state import ShardedTrainState, TrainState
 from repro_torch.core.aggregation import partial_cross_layer_aggregate
 from repro_torch.core.spmd import make_cohort_grad_step
 from repro_torch.core.strategies import masked_update
@@ -203,6 +214,13 @@ def grad_reduce_axes(batch_axes, experts) -> tuple:
     return tuple(a for a in batch_axes if a not in experts)
 
 
+def resume_carry(engine: "SpmdEngine", state: ShardedTrainState):
+    """The carry of a run that starts from ``engine``'s own chunks: the
+    chunks themselves, taken from ``state`` (a module function:
+    ``parity.shifted_chunks`` replaces it)."""
+    return state.take()
+
+
 @register_engine("spmd")
 class SpmdEngine(FusedEngine):
     """The fused engine's round body over the ranks of a mesh, placed by a
@@ -274,6 +292,9 @@ class SpmdEngine(FusedEngine):
         #: the experts of an expert stack a rank holds for compute (0: no
         #: expert stack)
         self.experts_per_rank = 0
+        #: bytes of the session's state this rank holds (its chunks of the
+        #: latest state this engine placed or returned)
+        self.state_bytes = 0
 
     @classmethod
     def supports(cls, ctx: SessionContext) -> Optional[str]:
@@ -349,7 +370,31 @@ class SpmdEngine(FusedEngine):
         return map_with_path(lambda p, t: fn(t, _lookup(specs, p)), tree)
 
     # --------------------------------------------------------------- carry
+    def place(self, state) -> ShardedTrainState:
+        """``state`` as this rank's chunks: this engine's own chunks as
+        they are; a whole ``TrainState`` cut by :meth:`_cut`; another
+        engine's chunks gathered whole first (collective)."""
+        if isinstance(state, ShardedTrainState):
+            if state.engine is self:
+                return state
+            state = state.whole()
+        out = ShardedTrainState(
+            self, self._cut(state), self._host_steps(state), state.round,
+            state.batches_drawn)
+        self.state_bytes = out.nbytes
+        return out
+
+    def _host_steps(self, state) -> List[List[int]]:
+        if isinstance(state, ShardedTrainState):
+            return [list(s) for s in state.steps]
+        return super()._host_steps(state)
+
     def _stack_carry(self, state):
+        """The run's carry: the chunks of ``state`` placed by
+        :meth:`place` (:func:`resume_carry`)."""
+        return resume_carry(self, self.place(state))
+
+    def _cut(self, state: TrainState):
         """This rank's lanes of each cohort, stacked, each leaf cut to its
         chunk by the recipe.  The specs are read on the stacked shapes
         alone, and each part of a cohort is stacked and cut before the
@@ -432,27 +477,38 @@ class SpmdEngine(FusedEngine):
         n = len(self._cohort_lis)
         return sum(per) / n
 
-    def _unstack_carry(self, carry, state, steps):
-        """The whole carry on every rank -- shards and lanes gathered --
-        unstacked as the fused engine does (client ``i``'s Adam states at
-        the host steps ``steps[i]``).  One leaf at a time: each chunk is
-        let go once gathered and each whole leaf once cut into its lanes,
-        so beside the new state a rank holds at most one whole leaf."""
-        parts = [list(state.clients), list(state.client_opts),
-                 list(state.servers), list(state.server_opts)]
+    def _unstack_carry(self, carry, state, steps) -> ShardedTrainState:
+        """The carry as the run's result: this rank's chunks, the host
+        steps beside them (nothing gathered)."""
+        out = ShardedTrainState(self, carry, steps, state.round,
+                                state.batches_drawn)
+        self.state_bytes = out.nbytes
+        return out
+
+    def _lane_axes_of(self, li: int) -> tuple:
+        """The axes cohort ``li``'s lanes are spread over (none where each
+        rank holds them all)."""
+        return (self._lane_axes
+                if len(self._local[li]) != self._counts[li] else ())
+
+    def whole_state(self, sts: ShardedTrainState, device=None) -> TrainState:
+        """``ShardedTrainState.whole``: every leaf gathered over its shards
+        and lanes and unstacked as the fused engine does (client ``i``'s
+        Adam states at its host steps).  One leaf at a time: beside the
+        chunks and the whole state a rank holds at most one whole stacked
+        leaf; with ``device`` each whole leaf moves there first."""
+        carry = sts.carry
+        parts = [[None] * sts.num_clients for _ in range(4)]
         for li in self._cohort_lis:
             ids = self._lanes[li]
-            lane_axes = (self._lane_axes
-                         if len(self._local[li]) != self._counts[li] else ())
-            entry, carry[li] = list(carry[li]), None
             for k in range(4):
-                flat, entry[k] = list(tree_paths(entry[k])), None
                 cut = {}
-                for n in range(len(flat)):
-                    (path, t), flat[n] = flat[n], None
+                for path, t in tree_paths(carry[li][k]):
                     whole = self.comm.unshard(
-                        t, _lookup(self._specs[li][k], path), lane_axes)
-                    del t
+                        t, _lookup(self._specs[li][k], path),
+                        self._lane_axes_of(li))
+                    if device is not None:
+                        whole = whole.to(device)
                     cut[path] = ([whole[0]] if len(ids) == 1 else
                                  [whole[j].clone() for j in range(len(ids))])
                     del whole
@@ -460,13 +516,33 @@ class SpmdEngine(FusedEngine):
                     tree = map_with_path(lambda p, _: cut[p][j],
                                          self._chunks[li][k])
                     if k % 2:
-                        tree = dataclasses.replace(tree,
-                                                   step=steps[i][k // 2])
+                        tree = dataclasses.replace(
+                            tree, step=sts.steps[i][k // 2])
                     parts[k][i] = tree
-        return state.replace(clients=tuple(parts[0]),
-                             client_opts=tuple(parts[1]),
-                             servers=tuple(parts[2]),
-                             server_opts=tuple(parts[3]))
+        return TrainState(clients=tuple(parts[0]),
+                          client_opts=tuple(parts[1]),
+                          servers=tuple(parts[2]),
+                          server_opts=tuple(parts[3]), round=sts.round,
+                          batches_drawn=sts.batches_drawn)
+
+    def client_nets(self, sts: ShardedTrainState, i: int):
+        """``ShardedTrainState.nets``: client ``i``'s client and server
+        nets whole, its lane alone gathered over the shards (and, where
+        the cohort's lanes are spread, from the rank that holds it)."""
+        li, j = self._lane_pos[i]
+        axes = self._lane_axes_of(li)
+        at, owner = j, 0
+        if axes:
+            per = len(self._local[li])
+            owner = j // per
+            at = j - owner * per if self.comm.index(axes) == owner else 0
+
+        def net(part):
+            lane = map_with_path(lambda _, t: t.narrow(0, at, 1),
+                                 sts.carry[li][part])
+            whole = self.comm.unshard(lane, self._specs[li][part], axes)
+            return map_with_path(lambda _, t: t[owner], whole)
+        return net(0), net(2)
 
     # ------------------------------------------------------------- staging
     def _keep_local(self, xs, ys, ms):
@@ -621,6 +697,11 @@ class SpmdEngine(FusedEngine):
 
     def run(self, state, rounds: int, local_epochs: int = 1,
             log_every: int = 0, chunk_rounds: int = 0):
+        """The fused engine's run from this rank's chunks (``state``
+        placed by :meth:`place`); returns the new chunks.  The chunks of a
+        ``ShardedTrainState`` this engine returned are taken as the carry
+        and updated in place."""
+        state = self.place(state)
         self._gathered = 0
         self._tp_bytes = self._ep_bytes = 0.0
         self._steps_run = 0

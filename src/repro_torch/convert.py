@@ -309,8 +309,11 @@ def state_to_jax(state, model) -> JaxTrainState:
     """Inverse of :func:`split_state_from_jax`: the port's ``TrainState`` as
     host numpy arrays in the JAX package's layout (conv weights HWIO,
     backbone segments restacked per run, bf16 widened to fp32), the Adam
-    steps, the round and the draw counts as int32."""
+    steps, the round and the draw counts as int32.  A state kept as each
+    rank's chunks is gathered whole first (``state.whole()``: collective
+    over the spmd engine's ranks)."""
     from repro_torch.core.backbone_splitee import BackboneSplitModel
+    state = state.whole()
     if isinstance(model, BackboneSplitModel):
         net = lambda t: backbone_net_to_jax(t, model.cfg)  # noqa: E731
     else:

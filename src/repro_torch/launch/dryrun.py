@@ -36,6 +36,10 @@ outputs, ``kernels/sites.py``) inside ``launch/step_analysis.py``'s
     the weights and of the slot-paged cache as ``RankPlacement`` holds and
     gathers them (rings split over ``"model"`` combined by a counting
     gather).
+  Serving keeps an expert stack whose E dim is over "data" as the rank's
+  experts, as a train step does: no expert weight is gathered, and the
+  expert group counts the exchange at its bound, each rank's rows (the
+  prefill's) or slots (a tick's) routed as groups of their own.
 
 Per rank the record gives persistent bytes (parameter and optimizer
 chunks, or the parameter and cache chunks), the bytes gathered per step
@@ -83,7 +87,8 @@ from repro_torch.launch.mesh import axis_sizes, batch_axes, production_mesh_spec
 from repro_torch.launch.meshcomm import _axes
 from repro_torch.launch.step_analysis import StepAnalysis
 from repro_torch.launch.tensor_parallel import (ModelGroup, expert_parallel,
-                                                model_parallel)
+                                                model_parallel,
+                                                routing_groups)
 from repro_torch.models.attention import RingPart, ShardedRing
 from repro_torch.models.backbone import backbone_forward
 from repro_torch.models.heads import whole_logits
@@ -270,8 +275,8 @@ def _prefill_step(cfg, shape, rows, last_token_heads, mesh, recipe, rec,
     gathers of ``ServeSession``'s ``RankPlacement`` (``tp=False``: the
     whole step of its model group)."""
     params_abs = abstract_params(cfg)
-    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
-                                                 recipe)[:4]
+    chunks, compute, gathers, group, ep = _placement(
+        cfg, params_abs, mesh, recipe, experts=True)[:5]
     if not tp:
         compute, gathers, group = params_abs, [], None
     rec["persistent_bytes"] = tree_bytes(chunks)
@@ -280,7 +285,10 @@ def _prefill_step(cfg, shape, rows, last_token_heads, mesh, recipe, rec,
                                                        global_batch=rows))
     specs.pop("labels")
     batch, params = _fake_like(specs), _fake_like(compute)
-    with torch.no_grad(), StepAnalysis() as a, model_parallel(group):
+    # the rank's rows routed as one group, every data rank's beside it
+    with torch.no_grad(), StepAnalysis() as a, model_parallel(group), \
+            expert_parallel(ep), routing_groups(ep, 0, ep.size if ep
+                                                else 1):
         for g in gathers:
             sites.collective("all_gather", g["bytes"])
         out = backbone_forward(params, cfg, tokens=batch.get("tokens"),
@@ -299,7 +307,17 @@ def _prefill_step(cfg, shape, rows, last_token_heads, mesh, recipe, rec,
         del out, ent, logits
     if group is not None:
         rec["tp_collectives"] = dict(group.bytes)
+    _serve_exchange(rec, ep, tp)
     return a
+
+
+def _serve_exchange(rec, ep, tp: bool) -> None:
+    """A serving record's expert exchange: this rank's experts a stack
+    and the exchange at its bound (``ExpertGroup`` counting), as the
+    train record gives them."""
+    if ep is not None and tp:
+        rec["exchange_bytes"] = ep.bytes["all_to_all"]
+        rec["experts_per_rank"] = ep.experts
 
 
 def _tick_cache(cfg, pool, mesh, recipe, params_abs, rows, group):
@@ -346,8 +364,8 @@ def _decode_step(cfg, profile, shape, rows, mesh, recipe, rec,
     model group (``tp=False``: its group's whole tick on a whole
     cache)."""
     params_abs = abstract_params(cfg)
-    chunks, compute, gathers, group = _placement(cfg, params_abs, mesh,
-                                                 recipe)[:4]
+    chunks, compute, gathers, group, ep = _placement(
+        cfg, params_abs, mesh, recipe, experts=True)[:5]
     specs = serve_input_specs(cfg, shape)
     if tp:
         stored, cgathers, cache = _tick_cache(cfg, specs["cache"], mesh,
@@ -366,7 +384,10 @@ def _decode_step(cfg, profile, shape, rows, mesh, recipe, rec,
     serve = make_serve_step(StepConfig(
         model=cfg, splitee=SplitEEConfig(profile=profile)), boundary=0)
     params = _fake_like(compute)
-    with torch.no_grad(), StepAnalysis() as a, model_parallel(group):
+    # one routing group a slot, every data rank's slots beside the rank's
+    with torch.no_grad(), StepAnalysis() as a, model_parallel(group), \
+            expert_parallel(ep), routing_groups(
+                ep, 0, ep.size * rows if ep else rows):
         for g in gathers + cgathers:
             sites.collective("all_gather", g["bytes"])
         out = serve(params, ins["tokens"], cache, ins["cache_len"],
@@ -374,7 +395,41 @@ def _decode_step(cfg, profile, shape, rows, mesh, recipe, rec,
         del out
     if group is not None:
         rec["tp_collectives"] = dict(group.bytes)
+    _serve_exchange(rec, ep, tp)
     return a
+
+
+def session_state_bytes(model, split_layers, opt_cfg, mesh, recipe=None,
+                        batch: int = 1) -> int:
+    """The persistent bytes of a ``TrainSession``'s state on one rank of
+    the spmd engine: its chunks of each cohort's carry (the cohort's
+    lanes this rank holds, each leaf cut by the recipe's specs), what
+    ``SpmdEngine.state_bytes`` reads after a run.  ``model`` a split
+    adapter (a backbone's nets are built on the meta device), ``mesh`` a
+    ``MeshSpec`` or a live mesh, ``batch`` each client's effective batch
+    size (it decides whether the cohorts' lanes split)."""
+    import copy
+
+    from repro_torch.api.spmd_engine import abstract_cohort_carry, carry_specs
+    from repro_torch.core.backbone_splitee import BackboneSplitModel
+    recipe = sh.resolve_recipe(recipe)
+    if isinstance(model, BackboneSplitModel):
+        model = copy.copy(model)
+        model.full_params = abstract_params(model.cfg)
+    carry = abstract_cohort_carry(model, split_layers, opt_cfg)
+    specs = carry_specs(recipe, mesh, carry, model)
+    sizes = axis_sizes(mesh)
+    total = 0
+    for li, entry in carry.items():
+        k = next(t for _, t in sh.tree_paths(entry)).shape[0]
+        lanes = sh.stage_batch_spec(recipe, mesh, k, batch)[2]
+        n = math.prod(sizes[a] for a in _axes(lanes))
+        local = sh.map_with_path(
+            lambda _, t: torch.empty((k // n,) + tuple(t.shape[1:]),
+                                     dtype=t.dtype, device="meta"), entry)
+        total += sum(t.numel() * t.element_size() for _, t in
+                     sh.tree_paths(chunk_shapes(local, specs[li], sizes)))
+    return total
 
 
 def product_flops(res: dict) -> float:
@@ -425,8 +480,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, *,
                             "experts, the rest gathered whole)")
     else:
         rec["placement"] = ("ServeSession over ranks (RankPlacement: "
-                            "tensor-parallel leaves read in place, the "
-                            "rest gathered each tick)")
+                            "tensor-parallel leaves read in place, expert "
+                            "stacks as the rank's experts, the rest "
+                            "gathered each tick)")
 
     def trace(tp, into):
         if shape.kind == "train":

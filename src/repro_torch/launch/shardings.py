@@ -639,14 +639,15 @@ class Role:
     a tuple of axes ending in ``"model"``, data-major: after a gather
     over the other axes, ``blocks`` of them, model rank m holds the
     experts of chunks m, P + m, 2P + m, ... -- ``tensor_parallel.
-    expert_ids``, the serving path), or ``"gathered"`` (held whole for
-    compute: ``reason`` says why).  A split role may carry a ``reason``
-    too (a note on the compute it feeds).  ``experts``: the batch axes
-    over which an expert stack's expert dim stays split for a train
-    step (``("data",)`` where that axis holds more than one rank, else
-    empty) -- expert parallelism, the dispatch and combine an exchange
-    over those ranks (``tensor_parallel.ExpertGroup``).  Not a tuple or
-    a record, so a tree of roles is walked as the tree it mirrors."""
+    expert_ids``, where no batch axis keeps the experts), or
+    ``"gathered"`` (held whole for compute: ``reason`` says why).  A
+    split role may carry a ``reason`` too (a note on the compute it
+    feeds).  ``experts``: the batch axes over which an expert stack's
+    expert dim stays split for compute, in a train step and serving
+    (``("data",)`` where that axis holds more than one rank, else empty)
+    -- expert parallelism, the dispatch and combine an exchange over
+    those ranks (``tensor_parallel.ExpertGroup``).  Not a tuple or a
+    record, so a tree of roles is walked as the tree it mirrors."""
 
     __slots__ = ("kind", "dim", "reason", "blocks", "experts")
 
@@ -860,10 +861,10 @@ def compute_spec(spec, role: Role, tp_axis: str = "model",
                  experts: bool = True) -> Spec:
     """The spec a leaf is gathered over for compute: a split leaf keeps
     its ``tp_axis`` chunk (that axis dropped from its entry), and with
-    ``experts`` (a train step; serving passes False) an expert stack
-    keeps its chunk over ``role.experts`` too, so an expert stack over
-    the grid is not gathered at all and one in the data layout only over
-    a "pod" split; any other leaf is gathered whole."""
+    ``experts`` (a train step and serving alike) an expert stack keeps
+    its chunk over ``role.experts`` too, so an expert stack over the grid
+    is not gathered at all and one in the data layout only over a "pod"
+    split; any other leaf is gathered whole."""
     keep = _kept_axes(role, tp_axis, experts)
     if not keep:
         return tuple(spec)
@@ -883,8 +884,8 @@ def kept_spec(spec, role: Role, tp_axis: str = "model",
 
 def expert_axes(roles) -> Tuple[str, ...]:
     """The batch axes the expert stacks of a tree of roles keep their
-    chunks over for a train step (``Role.experts``; empty where none
-    does)."""
+    chunks over, in a train step and serving (``Role.experts``; empty
+    where none does)."""
     for _, r in tree_paths(roles):
         if r.experts:
             return r.experts
@@ -894,7 +895,7 @@ def expert_axes(roles) -> Tuple[str, ...]:
 def kept_experts(roles, num_experts: int, sizes, tp_axis: str = "model"
                  ) -> int:
     """The experts a rank keeps of each expert stack split over the batch
-    ranks for a train step (the first role with ``Role.experts``): E over
+    ranks (the first role with ``Role.experts``): E over
     those ranks, and over ``tp_axis`` too in the grid (an ``"expert"``
     role); 0 where no stack keeps such a chunk.  The
     ``tensor_parallel.ExpertGroup``'s ``experts``."""

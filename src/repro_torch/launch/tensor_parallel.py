@@ -27,15 +27,17 @@ Function has a ``torch.func.vmap`` rule (the fused and spmd engines run
 the forward under ``vmap`` over lanes, ``models/sync_stats.GroupSumFn``'s
 pattern).
 
-Expert parallelism over the batch ranks (a train step): an
-:class:`ExpertGroup` of the ranks along ``"data"`` keeps each expert
-stack split over them, rank i the i-th contiguous chunk of the experts.
-Each rank routes its own rows; :func:`dispatch` sends each kept entry's
-row to the rank that owns its expert, which writes it at the entry's
-global slot of its (E/D, C, d) buffer, and :func:`collect` brings the
-expert outputs back: one ``all_to_all`` each way, its transpose the
-backward (:class:`Dispatch`, :class:`Collect`, both with ``vmap``
-rules that fold the lanes into one exchange).
+Expert parallelism over the batch ranks: an :class:`ExpertGroup` of the
+ranks along ``"data"`` keeps each expert stack split over them, rank i
+the i-th contiguous chunk of the experts.  Each rank routes its own
+rows; :func:`dispatch` sends each kept entry's row to the rank that owns
+its expert, which writes it at the entry's slot of its (E/D, C, d)
+buffer -- a train step's global slot of its one group, or, serving, the
+slot of the sender's own group among every rank's
+(:attr:`ExpertGroup.groups`) -- and :func:`collect` brings the expert
+outputs back: one ``all_to_all`` each way, its transpose the backward
+(:class:`Dispatch`, :class:`Collect`, both with ``vmap`` rules that fold
+the lanes into one exchange).
 
 The group is a :class:`ModelGroup` made active by :func:`model_parallel`
 in the calling thread; model code asks :func:`active`.  Outside the
@@ -83,22 +85,29 @@ class ModelGroup:
 
 @dataclass
 class ExpertGroup:
-    """The ranks over which a train step's expert stacks are split (the
-    mesh's ``"data"`` axis, the ranks sharing this rank's other
-    coordinates): ``group`` the process group (``None``: count only),
-    ``size`` ranks, this rank the ``index``-th, holding the ``index``-th
-    chunk of each stack's experts (in the grid, model rank m holds chunk
-    ``index * P + m``), ``experts`` of them a stack
-    (``shardings.kept_experts``: the roles decide).  ``bytes`` sums the exchanges run on it: the
-    rows of this rank's own entries that cross to another rank, out in a
-    dispatch and back in a collect, with the slot indices and counts that
-    travel along."""
+    """The ranks over which the expert stacks are split (the mesh's
+    ``"data"`` axis, the ranks sharing this rank's other coordinates):
+    ``group`` the process group (``None``: count only), ``size`` ranks,
+    this rank the ``index``-th, holding the ``index``-th chunk of each
+    stack's experts (in the grid, model rank m holds chunk ``index * P +
+    m``), ``experts`` of them a stack (``shardings.kept_experts``: the
+    roles decide).  ``bytes`` sums the exchanges run on it: the rows of
+    this rank's own entries that cross to another rank, out in a dispatch
+    and back in a collect, with the slot indices and counts that travel
+    along.
+
+    ``groups``: ``None`` in a train step, whose batch is one routing group
+    spread over the ranks; serving, ``(first, total)`` -- each rank routes
+    its own groups whole (its slots, or the request it prefills), and its
+    j-th group is group ``first + j`` of ``total`` in every owner's
+    dispatch buffer (:func:`routing_groups` sets it)."""
     group: object
     size: int
     index: int
     experts: int
     bytes: Dict[str, float] = field(default_factory=lambda: {
         "all_to_all": 0.0})
+    groups: Optional[Tuple[int, int]] = None
 
     @property
     def total_bytes(self) -> float:
@@ -133,6 +142,22 @@ def expert_parallel(group: Optional[ExpertGroup]):
         yield group
     finally:
         _state.experts = prev
+
+
+@contextlib.contextmanager
+def routing_groups(group: Optional[ExpertGroup], first: int, total: int):
+    """Serving: this rank's routing groups are groups ``first`` .. of
+    ``total`` over ``group``'s ranks while the block runs (no change for
+    ``None``)."""
+    if group is None:
+        yield group
+        return
+    prev = group.groups
+    group.groups = (first, total)
+    try:
+        yield group
+    finally:
+        group.groups = prev
 
 
 def active_experts() -> Optional[ExpertGroup]:

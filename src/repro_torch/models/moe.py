@@ -30,9 +30,9 @@ an entry's rank within its expert is the earlier ranks' load plus its
 local rank (:func:`global_positions`) -- the order the one-rank stable
 sort gives contiguous row blocks.  Routing stays local to each rank.
 
-Expert parallelism (a train step: a ``tensor_parallel.ExpertGroup`` of D
-data ranks is active and the stack holds E/D experts): batch rank i
-keeps the i-th chunk of the experts.  Each rank sends each kept entry's
+Expert parallelism (a ``tensor_parallel.ExpertGroup`` of D data ranks is
+active and the stack holds E/D experts): batch rank i keeps the i-th
+chunk of the experts.  Each rank sends each kept entry's
 row to the rank that owns its expert (``tensor_parallel.dispatch``, one
 ``all_to_all``), which writes it at the entry's global slot of its (E/D,
 C, d) buffer -- the one-rank buffer's rows of those experts -- runs its
@@ -44,15 +44,24 @@ experts its roles keep a rank (``ExpertGroup.experts``); a stack its role
 keeps whole (too small to split) runs as without the group, and a stack
 of any other size raises.
 
+Serving over the batch ranks (``api/serve_session.py``) keeps the same
+chunks, but each data rank routes its own groups whole -- one a slot, or
+the one request it prefills -- so there are no summed loads:
+``ExpertGroup.groups`` gives this rank's groups' place among every
+rank's, and an entry lands at its rank within its expert in its own
+group of the owner's (groups, E/D, C, d) buffer.  A data rank whose
+group does not prefill a request still runs the owner's side of each
+block's exchange (:func:`serve_exchange`).
+
 Over a ``"model"`` group (``launch/tensor_parallel.py``) the routing is
 computed whole and alike on every rank of the group (its tokens are the
 same there).  An expert stack placed over the grid (``shardings.Role``
 ``"expert"``: E over ("data", "model"), data-major) holds this rank's
 experts: chunk i * P + m under expert parallelism (the exchange runs over
 the data ranks of model rank m, which sends only the entries of model
-rank m's experts), or, serving, the strided chunks its gather over
-"data" leaves (``tensor_parallel.expert_ids``), whose dispatch buffer the
-rank builds alone.  Either way the rank combines its own experts'
+rank m's experts), or, with one data rank, the strided chunks of
+``tensor_parallel.expert_ids``, whose dispatch buffer the rank builds
+alone.  Either way the rank combines its own experts'
 contributions and the partial outputs are summed over the group in one
 all-reduce (:func:`sum_expert_parts`), which reorders the one-rank
 ascending-expert addition.  An expert stack in the data layout (E over
@@ -185,8 +194,25 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if batch is not None and groups != 1:
         raise ValueError(f"{cfg.name}: a data split routes one group over "
                          f"the batch ranks, not {groups}")
-    G, N = groups, B * T // groups
     k, E = m.top_k, m.num_experts
+    # which experts this rank runs: all E, or this rank's chunk of them
+    # over the batch ranks (expert parallelism) and/or over the model
+    # group (the grid: then only this model rank's experts' entries, and
+    # the routing is whole and the same on every rank of the group: the
+    # group's tokens are the same)
+    g, ep = tp.active(), tp.active_experts()
+    n_loc = params["w_gate"].shape[0]
+    if ep is not None and n_loc == E:
+        ep = None                       # its role keeps this stack whole
+    serving = ep is not None and ep.groups is not None
+    if serving:
+        # serving over the batch ranks: this rank's groups are whole here
+        groups, first, n_groups = slot_groups(groups, *ep.groups)
+        if first < 0 or first + groups > n_groups:
+            raise ValueError(f"{cfg.name}: routing groups {first}.."
+                             f"{first + groups - 1} lie outside the "
+                             f"{n_groups} over the expert group")
+    G, N = groups, B * T // groups
     C = expert_capacity(N * (batch[1] if batch else 1), m)
     xg = x.reshape(G, N, d)
     topi, topw, aux = route(params, xg, m)
@@ -214,16 +240,7 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     rank = pos - starts.gather(-1, flat_e)
     keep = rank < kept.gather(-1, flat_e)
 
-    # which experts this rank runs: all E, or this rank's chunk of them
-    # over the batch ranks (expert parallelism, a train step) and/or over
-    # the model group (the grid: then only this model rank's experts'
-    # entries, and the routing above is whole and the same on every rank
-    # of the group: the group's tokens are the same)
-    g, ep = tp.active(), tp.active_experts()
-    n_loc = params["w_gate"].shape[0]
     P = g.size if g else 1
-    if ep is not None and n_loc == E:
-        ep = None                       # its role keeps this stack whole
     if ep is not None and n_loc != ep.experts:
         raise ValueError(f"{cfg.name}: a stack of {n_loc} experts under an "
                          f"expert group that keeps {ep.experts} of {E}")
@@ -239,26 +256,41 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # the backward scatters to unique rows (a token's k copies are summed
     # by the expand's backward, a plain reduction)
     xe = xg[:, :, None, :].expand(G, N, k, d).reshape(G, N * k, d)
+    Gb = G                      # the routing groups of the dispatch buffer
     if ep is None:
         buf, local = _gathered_rows(xe, order, starts, kept, C, n_loc, E,
                                     part)
     else:
         # expert chunk c = e // n_loc lives on batch rank c (c // P in the
-        # grid, whose model rank c % P runs it); an entry lands at its
-        # expert's slot of the whole batch on that rank
+        # grid, whose model rank c % P runs it)
         plan = tp.ExchangePlan()
         chunk = flat_e // n_loc
-        owner = chunk
+        owner = expert_owner(chunk, E // n_loc,
+                             1 if part is None else P)
         if part is not None:
-            owner, keep = chunk // P, keep & (chunk % P == part)
-        slot = ((flat_e - chunk * n_loc) * C
-                + global_positions(before.gather(-1, flat_e), rank))
-        buf = tp.dispatch(xe, torch.where(keep, owner, -1),
-                          torch.where(keep, slot, 0), n_loc * C, ep, plan)
+            keep = keep & (chunk % P == part)
+        at = (flat_e - chunk * n_loc) * C
+        dest = torch.where(keep, owner, -1)
+        if not serving:
+            # a train step: an entry lands at its expert's slot of the
+            # whole batch on that rank
+            slot = at + global_positions(before.gather(-1, flat_e), rank)
+            buf = tp.dispatch(xe, dest, torch.where(keep, slot, 0),
+                              n_loc * C, ep, plan)
+        else:
+            # serving: this rank's group j is group first + j of the
+            # owner's buffer, the entry at its rank within its expert
+            Gb = n_groups
+            grp = first + torch.arange(G, device=x.device)[:, None]
+            slot = grp * (n_loc * C) + at + rank
+            buf = tp.dispatch(xe.reshape(1, G * N * k, d),
+                              dest.reshape(1, -1),
+                              torch.where(keep, slot, 0).reshape(1, -1),
+                              Gb * n_loc * C, ep, plan)
     buf = sharding_ctx.constrain(buf, None, "data", "model")
-    # the groups folded into each expert's capacity axis: (n_loc, G*C, d)
-    buf = buf.reshape(G, n_loc, C, d).transpose(0, 1).reshape(
-        n_loc, G * C, d)
+    # the groups folded into each expert's capacity axis: (n_loc, Gb*C, d)
+    buf = buf.reshape(Gb, n_loc, C, d).transpose(0, 1).reshape(
+        n_loc, Gb * C, d)
     # expert-parallel placement of the dispatch buffer: the full grid, then
     # data-only expert parallelism (the JAX package's candidates)
     buf = sharding_ctx.constrain(buf, [("data", "model"), "data"], None,
@@ -267,11 +299,11 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     # ---- expert FFNs, one batched product over the experts (the data
     # layout's chunks of the hidden dims through tensor_parallel.linear)
     eout = mlp_forward({w: params[w] for w in ("w_gate", "w_up", "w_down")},
-                       buf, cfg, d_ff=m.d_expert)            # (n_loc, G*C, d)
+                       buf, cfg, d_ff=m.d_expert)            # (n_loc, Gb*C, d)
     eout = sharding_ctx.constrain(eout, [("data", "model"), "data"], None,
                                   [None, "model"])
-    eout = eout.reshape(n_loc, G, C, d).transpose(0, 1).reshape(
-        G, n_loc * C, d)
+    eout = eout.reshape(n_loc, Gb, C, d).transpose(0, 1).reshape(
+        Gb, n_loc * C, d)
 
     # ---- combine: each entry's output, added in ascending expert order -----
     if ep is None:
@@ -279,8 +311,11 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
         keep = keep & (at >= 0)
         contrib = eout.gather(1, torch.where(keep, at * C + rank, 0)[
             ..., None].expand(G, N * k, d))
-    else:
+    elif not serving:
         contrib = tp.collect(eout, N * k, ep, plan)
+    else:
+        contrib = tp.collect(eout.reshape(1, Gb * n_loc * C, d),
+                             G * N * k, ep, plan).reshape(G, N * k, d)
     w = topw.reshape(G, N * k) * keep.to(x.dtype)
     contrib = (contrib * w[..., None]).reshape(G, N, k, d)
     by_expert = torch.argsort(topi, dim=-1)                  # (G, N, k)
@@ -318,6 +353,50 @@ def _gathered_rows(xe, order, starts, kept, C: int, n_loc: int, E: int,
     entry = order.gather(-1, src.reshape(G, n_loc * C))      # (G, n_loc*C)
     rows = xe.gather(1, entry[..., None].expand(G, n_loc * C, d))
     return torch.where(valid.reshape(G, n_loc * C, 1), rows, 0), local
+
+
+def serve_exchange(params: dict, cfg: ModelConfig, n_tokens: int) -> None:
+    """A data rank's part in a MoE block of a prefill that another data
+    group runs (serving over the batch ranks, the request's routing
+    groups those of :attr:`ExpertGroup.groups`, ``n_tokens`` tokens
+    each): it sends no entries, receives those routed to its experts,
+    runs them and sends the outputs back -- the exchanges of
+    :func:`moe_forward`, in its order, so that no rank waits on
+    another.  Nothing where the stack is kept whole."""
+    m: MoEConfig = cfg.moe
+    ep = tp.active_experts()
+    n_loc = params["w_gate"].shape[0]
+    if ep is None or n_loc == m.num_experts:
+        return
+    _, total = ep.groups
+    C, d = expert_capacity(n_tokens, m), cfg.d_model
+    dev = params["w_gate"].device
+    none = torch.zeros((1, 0), dtype=torch.long, device=dev)
+    plan = tp.ExchangePlan()
+    buf = tp.dispatch(torch.zeros((1, 0, d), dtype=cfg.dtype, device=dev),
+                      none, none, total * n_loc * C, ep, plan)
+    buf = buf.reshape(total, n_loc, C, d).transpose(0, 1).reshape(
+        n_loc, total * C, d)
+    eout = mlp_forward({w: params[w] for w in ("w_gate", "w_up", "w_down")},
+                       buf, cfg, d_ff=m.d_expert)
+    eout = eout.reshape(n_loc, total, C, d).transpose(0, 1).reshape(
+        1, total * n_loc * C, d)
+    tp.collect(eout, 0, ep, plan)
+
+
+def slot_groups(groups: int, first: int, total: int
+                ) -> Tuple[int, int, int]:
+    """Serving over the batch ranks: ``(groups, first, total)`` of this
+    rank's rows, one routing group a slot (a module function:
+    ``parity.pooled_slots`` replaces it)."""
+    return groups, first, total
+
+
+def expert_owner(chunk: torch.Tensor, chunks: int, P: int) -> torch.Tensor:
+    """The batch rank that holds expert chunk ``chunk`` of ``chunks`` (P
+    chunks a batch rank over the grid; a module function:
+    ``parity.misrouted_entries`` replaces it)."""
+    return chunk // P
 
 
 def global_positions(before: torch.Tensor, rank: torch.Tensor

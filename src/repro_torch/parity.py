@@ -667,6 +667,82 @@ def reduced_expert_grads():
 
 
 @contextmanager
+def misrouted_entries():
+    """A control: under expert parallelism each entry is sent to the
+    rank that holds the next chunk of the experts
+    (``models.moe.expert_owner`` off by one chunk), while the block
+    runs."""
+    from repro_torch.models import moe
+    real = moe.expert_owner
+    moe.expert_owner = lambda chunk, chunks, P: real(
+        (chunk + 1) % chunks, chunks, P)
+    try:
+        yield
+    finally:
+        moe.expert_owner = real
+
+
+@contextmanager
+def pooled_slots():
+    """A control: serving over the batch ranks, each rank routes its
+    slots as one group, so the capacity and the drops are taken over
+    them together (``models.moe.slot_groups`` pooled), while the block
+    runs."""
+    from repro_torch.models import moe
+    real = moe.slot_groups
+    moe.slot_groups = lambda groups, first, total: (
+        1, first // groups, total // groups)
+    try:
+        yield
+    finally:
+        moe.slot_groups = real
+
+
+@contextmanager
+def shifted_chunks():
+    """A control: a run of the spmd engine that starts from the engine's
+    own chunks re-cuts its carry from the whole state with this rank's
+    chunk index off by one (every split dim of every leaf takes the next
+    rank's chunk, and a cohort whose lanes are spread the next rank's
+    lanes), where ``api.spmd_engine.resume_carry`` takes the chunks as
+    they are."""
+    from repro_torch.api import spmd_engine
+    from repro_torch.launch.meshcomm import _gather_dims
+    real = spmd_engine.resume_carry
+
+    def shifted(engine, state):
+        whole = state.whole()
+        state.take()
+        comm = engine.comm
+
+        def shard(t, spec):
+            out = t
+            for d, axes in _gather_dims(spec):
+                n = comm.size(axes)
+                c = t.shape[d] // n
+                out = out.narrow(d, (comm.index(axes) + 1) % n * c, c)
+            return out if out is t else out.clone()
+        local = dict(engine._local)
+        for li, lanes in local.items():
+            axes = engine._lane_axes_of(li)
+            if axes:
+                n, k = comm.size(axes), engine._counts[li]
+                j = (comm.index(axes) + 1) % n
+                engine._local[li] = list(range(j * k // n, (j + 1) * k // n))
+        engine._shard = shard
+        try:
+            return engine._cut(whole)
+        finally:
+            del engine._shard
+            engine._local = local
+    spmd_engine.resume_carry = shifted
+    try:
+        yield
+    finally:
+        spmd_engine.resume_carry = real
+
+
+@contextmanager
 def per_rank_norm_squares():
     """A control: RWKV6's output norm over a row split over the model
     group takes each rank's sum of squares over its own chunk as the whole

@@ -328,11 +328,12 @@ def test_moe_train_record_keeps_each_ranks_experts(arch, experts):
     deepseek-v3's dense layers first, so 1 MoE layer): each rank computes
     with E / 16 of the experts (qwen3-moe's data layout: 8 of 128;
     deepseek-v3's grid: 1 of 256), no expert weight is gathered (the
-    serving placement gathers them over "data": the difference between
-    the decode record's weight gathers and the train record's is exactly
-    the expert chunks' other 15 / 16), their gradients leave the batch
-    all-reduce, and the exchange is counted as all_to_all at its bound:
-    each call at most every entry's row and slot out and the counts."""
+    serving placement keeps them too: the decode record's weight gathers
+    equal the train record's, none of them the expert chunks' other 15 /
+    16, and it exchanges its slots' entries with the same experts a
+    rank), their gradients leave the batch all-reduce, and the exchange
+    is counted as all_to_all at its bound: each call at most every
+    entry's row and slot out and the counts."""
     rec = _record(arch, "train_4k")
     decode = _record(arch, "decode_32k")
     cfg, _ = cut_depth(tconfigs.get(arch).config(), 4)
@@ -360,8 +361,10 @@ def test_moe_train_record_keeps_each_ranks_experts(arch, experts):
     assert rec["experts_per_rank"] == experts
     assert all(r.experts == ("data",) for p, r in tree_paths(roles)
                if tsh.is_expert_stack(cfg, p))
-    assert (decode["weight_gathered_bytes"] - rec["gathered_bytes"]
-            == sum(expert_chunks) > 0)
+    assert decode["weight_gathered_bytes"] == rec["gathered_bytes"]
+    assert sum(expert_chunks) > 0
+    assert decode["experts_per_rank"] == experts
+    assert decode["exchange_bytes"] > 0
     assert rec["grad_reduce_bytes"] == rest
     assert a2a["bytes"] == rec["exchange_bytes"] > 0
     assert a2a["bytes"] <= a2a["count"] * bound

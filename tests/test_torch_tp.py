@@ -246,9 +246,8 @@ def test_expert_stacks_keep_their_batch_chunk(arch, recipe, shape, layout,
     ("data",) where that axis holds
     more than one rank, and its compute spec gathers over no axis of more
     than one rank (the compute
-    chunk: ``experts`` of E); serving's (``experts=False``) still gathers
-    it over "data"; every other leaf's compute spec is the same either
-    way."""
+    chunk: ``experts`` of E); with ``experts=False`` it is gathered over
+    "data"; every other leaf's compute spec is the same either way."""
     cfg = tconfigs.get(arch).config()
     params = abstract_params(cfg)
     mesh = MeshSpec(shape, DM)

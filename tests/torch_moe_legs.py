@@ -163,7 +163,7 @@ def _fused_run(arch, start, tight):
         with pinned_routes(routes, replay=False):
             fused = session(arch, start, "fused", tight=tight)
             fused.train(ROUNDS)
-        _FUSED[arch, tight] = (routes, flat_state(fused.state),
+        _FUSED[arch, tight] = (routes, flat_state(fused.state.whole()),
                                history(fused.history))
     return _FUSED[arch, tight]
 
@@ -176,7 +176,8 @@ def _split_run(arch, world, start, fault=contextlib.nullcontext,
             fault():
         spmd.train(ROUNDS)
     eng = spmd.engine
-    return {"engine": spmd.engine_name, "state": flat_state(spmd.state),
+    return {"engine": spmd.engine_name,
+            "state": flat_state(spmd.state.whole()),
             "history": history(spmd.history),
             "fused": fused_state, "fused_history": fused_history,
             "flipped": routes.flipped, "tokens": routes.tokens,

@@ -208,3 +208,149 @@ def run_legs(world, inputs):
     out["tp"] = torch_tp_legs.serve_legs(world, inputs, meshes, serve)
     print(f"legs tp: {time.perf_counter() - t0:.2f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the experts kept over the batch ranks (tests/test_torch_serve_experts.py)
+# ---------------------------------------------------------------------------
+
+#: the MoE smokes served with their experts over the data ranks
+EXPERT_CONFIGS = {"deepseek": deepseek_v3_671b.smoke,
+                  "qwen3": qwen3_moe_235b_a22b.smoke}
+#: the pooled-slots fault's setting: copies of one prompt on SLOTS_POOLED
+#: slots (6 a data rank), whose decode tokens route alike, so a rank's
+#: slots pooled as one group load an expert past its capacity of 4
+SLOTS_POOLED, DECODE_POOLED = 12, 3
+
+
+def expert_prompts(name: str, cfg):
+    """:func:`prompts`, for qwen3-moe the last replaced by one that
+    repeats a token (12 times): its prefill loads its experts past their
+    capacity.  Six requests on four slots: the second wave fills slots 0
+    and 1, so the data group of slots 2 and 3 holds none."""
+    out = prompts(name, cfg)
+    if name == "qwen3":
+        out[-1] = np.full(12, 7, dtype=np.int64)
+    return out
+
+
+def expert_cases(world: int):
+    """``(case id, config, mesh, recipe name, policy)``: both smokes and
+    policies with the experts over (2, 1) (data layout, greedy) on 2
+    ranks and over the (2, 2) grid (megatron) on 4; qwen3-moe in the
+    data layout (E over "data", its hidden dims over "model") on 4."""
+    out = []
+    shape, recipe = ((2, 1), "greedy") if world == 2 else ((2, 2),
+                                                          "megatron")
+    m = "x".join(map(str, shape))
+    for name in EXPERT_CONFIGS:
+        for policy in POLICIES:
+            out.append((f"{name}-{m}-{recipe}-{policy}", name, shape,
+                        recipe, policy))
+    if world == 4:
+        out.append((f"qwen3-{m}-data-experts-select", "qwen3", shape,
+                    "data-experts", "select"))
+    return out
+
+
+def _serve_experts(cfg, params, mesh, recipe, policy, tau, ps, slots,
+                   decode, fault=contextlib.nullcontext):
+    """Serve ``ps`` over ``mesh``; returns the session, its streams and the
+    ticks on which this rank's data group held no occupied slot."""
+    s = ServeSession(cfg, params, tau=tau, slots=slots, max_len=MAX_LEN,
+                     exit_policy=policy, device="cpu", mesh=mesh,
+                     recipe=recipe)
+    idle = []
+    for name in ("_full_tick", "_client_tick"):
+        def watched(*a, real=getattr(s, name)):
+            idle.append(not s._active[s._lo:s._hi].any())
+            return real(*a)
+        setattr(s, name, watched)
+    for p in ps:
+        s.submit(p, decode)
+    with fault():
+        done = s.run()
+    return s, {r.rid: (list(r.tokens), list(r.exited), list(r.entropy))
+               for r in done}, sum(idle)
+
+
+def _dryrun_tick(cfg, mesh, recipe, slots):
+    """The dry run's decode record of ``cfg`` on a ``MeshSpec`` of
+    ``mesh``'s shape, ``slots`` slots of MAX_LEN tokens."""
+    import dataclasses
+
+    from repro_torch.config import SHAPES_BY_NAME, HeteroProfile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec, axis_sizes
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    sizes = axis_sizes(mesh)
+    spec = MeshSpec(tuple(sizes[a] for a in DM), DM)
+    shape = dataclasses.replace(SHAPES_BY_NAME["decode_32k"],
+                                global_batch=slots, seq_len=MAX_LEN)
+    rec = {}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dryrun._decode_step(cfg, HeteroProfile((min(cfg.exit_layers),) * 4),
+                            shape, slots // sizes["data"], spec, recipe, rec)
+    return rec
+
+
+def expert_legs(world, inputs):
+    """Every case of :func:`expert_cases` on this rank with its readings,
+    then the two planted faults on the first case's mesh, each beside its
+    control: each entry sent to the owner of the next chunk
+    (``parity.misrouted_entries``), and a rank's slots routed as one
+    group (``parity.pooled_slots``).  ``{case: result}``, a case that
+    raised holding ``{"error": traceback}``."""
+    from torch_tp_legs import _run, family_recipe
+
+    from repro_torch.launch.meshcomm import plan_bytes, unshard_plan
+    from repro_torch.launch.shardings import (is_expert_stack,
+                                              map_with_path)
+    from repro_torch.parity import misrouted_entries, pooled_slots
+    torch.set_num_threads(1)
+    torch.manual_seed(0)
+    out = {}
+    for cid, name, shape, rname, policy in expert_cases(world):
+        def one():
+            cfg, recipe = inputs["cfg"][name], family_recipe(rname)
+            mesh = make_host_mesh(shape, DM)
+            s, res, idle = _serve_experts(
+                cfg, copy.deepcopy(inputs["params"][name]), mesh, recipe,
+                policy, inputs["tau"][name], expert_prompts(name, cfg),
+                SLOTS, DECODE)
+            pl, st = s.placement, s.stats
+            experts = map_with_path(
+                lambda p, t: t if is_expert_stack(cfg, p) else None,
+                pl.params)
+            rec = _dryrun_tick(cfg, mesh, recipe, SLOTS)
+            return {"results": res, "idle_ticks": idle,
+                    "client_only": st.client_only_ticks,
+                    "experts": pl.ep.experts if pl.ep else 0,
+                    "stack_experts": sorted({t.shape[0] for p, t in
+                                             tree_paths(experts)}),
+                    "expert_gathers": plan_bytes(unshard_plan(
+                        experts, pl.compute_specs, pl.comm.sizes,
+                        lead=0)),
+                    "weights_per_tick": st.weight_gathered_bytes_per_tick,
+                    "exchange_per_tick": st.exchange_bytes_per_tick,
+                    "exchange_decode": st.exchange_decode_bytes_per_tick,
+                    "dryrun": {k: rec.get(k) for k in (
+                        "weight_gathered_bytes", "exchange_bytes",
+                        "experts_per_rank")}}
+        _run(out, cid, one)
+    shape = expert_cases(world)[0][2]
+    recipe = family_recipe(expert_cases(world)[0][3])
+    cfg = inputs["cfg"]["qwen3"]
+    same = [expert_prompts("qwen3", cfg)[0]] * SLOTS_POOLED
+    for key, fault, ps, slots, decode in (
+            ("fault-misrouted", misrouted_entries,
+             expert_prompts("qwen3", cfg), SLOTS, DECODE),
+            ("pooled-control", contextlib.nullcontext, same, SLOTS_POOLED,
+             DECODE_POOLED),
+            ("fault-pooled", pooled_slots, same, SLOTS_POOLED,
+             DECODE_POOLED)):
+        _run(out, key, lambda: _serve_experts(
+            cfg, copy.deepcopy(inputs["params"]["qwen3"]),
+            make_host_mesh(shape, DM), recipe, "select",
+            inputs["tau"]["qwen3"], ps, slots, decode, fault)[1])
+    return out

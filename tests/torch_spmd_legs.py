@@ -134,7 +134,7 @@ def _mlp_run(inputs, mesh, recipe, *, engine="spmd", grad_mode="eq1",
 
 
 def _result(session, model, **extra):
-    return {"state": keyed(session.state, model),
+    return {"state": keyed(session.state.whole(), model),
             "history": history(session.history),
             "engine": session.engine_name, **extra}
 
@@ -150,7 +150,7 @@ def _gathered(session):
 def leg_lanes(world, inputs, meshes):
     s, m = _mlp_run(inputs, meshes[0], "greedy")
     f, _ = _mlp_run(inputs, None, None, engine="fused")
-    return _result(s, m, fused=keyed(f.state, m),
+    return _result(s, m, fused=keyed(f.state.whole(), m),
                    fused_history=history(f.history), **_gathered(s))
 
 
@@ -217,7 +217,7 @@ def leg_resume(world, inputs, meshes):
     first.train(2, save_every=2, save_dir=d)
     dist.barrier()
     ckpt = os.path.join(d, "ckpt-00000002")
-    out = {"saved": keyed(first.state, model), "ckpt": ckpt,
+    out = {"saved": keyed(first.state.whole(), model), "ckpt": ckpt,
            "files": sorted(os.listdir(d)) if os.path.isdir(d) else []}
     for name, kw in (("replicate", dict(mesh=meshes[1],
                                         recipe="replicate")),
@@ -226,10 +226,10 @@ def leg_resume(world, inputs, meshes):
         out[f"{name}_engine"] = r.engine_name
         out[f"{name}_recipe"] = r.ctx.recipe_name
         r.train(2)
-        out[name] = keyed(r.state, model)
+        out[name] = keyed(r.state.whole(), model)
         out[f"{name}_history"] = history(r.history)
     full, _ = _mlp_run(inputs, meshes[1], SMALL_FSDP)
-    out["full"] = keyed(full.state, model)
+    out["full"] = keyed(full.state.whole(), model)
     out["full_history"] = history(full.history)
     return out
 
@@ -320,3 +320,156 @@ def run_legs(world, inputs):
     print(f"legs tp: {time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the state kept as each rank's chunks (tests/test_torch_state_chunks.py)
+# ---------------------------------------------------------------------------
+
+#: rounds of a run: the chunk legs train K, K again, and 2K at once
+CHUNK_K = {"mlp": 2, "backbone": 1}
+
+
+def chunk_cases(world):
+    """``(case, kind, mesh shape, mesh axes, recipe)``: the MLP's lanes
+    and FSDP data split, the glm4-9b smoke's tensor parallelism, and the
+    qwen3-moe smoke's experts over the data ranks (the data layout, and
+    on 4 ranks the grid)."""
+    from torch_tp_legs import family_recipe
+    DM = ("data", "model")
+    out = [("lanes", "mlp", (2, 1, world // 2), LDM, "greedy"),
+           ("fsdp", "mlp", (1, 2, 1) if world == 2 else (2, 2, 1), LDM,
+            SMALL_FSDP),
+           ("tp", "glm4", (world // 2, 2), DM, "megatron"),
+           ("qwen3-data", "qwen3", (2, world // 2), DM,
+            family_recipe("data-experts"))]
+    if world == 4:
+        out.append(("qwen3-grid", "qwen3", (2, 2), DM,
+                    family_recipe("megatron")))
+    return out
+
+
+def _chunk_setup(kind, inputs):
+    """``(model factory, configs, client shards, batch, start state, eval
+    set)`` of a chunk leg."""
+    if kind == "mlp":
+        sc, oc = mlp_configs()
+        return (mlp_model, sc, oc, inputs["mlp_data"], MLP_BATCH,
+                inputs["mlp_start"], blobs(100, 16, 3, seed=9))
+    import dataclasses
+
+    from torch_tp_legs import SMOKES
+
+    from repro_torch.api.state import init_train_state
+    make, sc, oc, parts, batch = backbone_setup()
+    cfg = SMOKES[kind]()
+    if kind != "glm4":
+        cuts = sorted(cfg.exit_layers)
+        sc = dataclasses.replace(sc, profile=HeteroProfile(
+            (cuts[0], cuts[0], cuts[-1], cuts[-1])))
+        make = lambda: BackboneSplitModel(cfg, seed=0,  # noqa: E731
+                                          device="cpu")
+    parts = [(np.minimum(x, cfg.vocab_size - 1), y) for x, y in parts]
+    ds = SyntheticSeqClsDataset(vocab_size=cfg.vocab_size, seq_len=8,
+                                num_classes=8, train_size=8, test_size=12,
+                                seed=1)
+    return (make, sc, oc, parts, batch, init_train_state(make(), sc, oc),
+            ds.test)
+
+
+def _held_chunks(sess):
+    """Whether every tensor of ``sess.state`` on this rank is its chunk:
+    each cohort's local lanes of the whole state, stacked, cut by the
+    engine's specs (``MeshComm.shard``), compared shape by shape
+    (``chunk_shapes``) and value by value.  Returns ``(mismatches, bytes
+    held, bytes reckoned)``."""
+    from repro_torch.api.fused_engine import _stack_opts
+    from repro_torch.launch.meshcomm import chunk_shapes
+    from repro_torch.launch.shardings import _lookup
+    eng, st, model = sess.engine, sess.state, sess.model
+    whole = st.whole()
+    stackers = (model.stack_clients, _stack_opts, model.stack_clients,
+                _stack_opts)
+    fields = (whole.clients, whole.client_opts, whole.servers,
+              whole.server_opts)
+    bad, held, reckoned = [], 0, 0
+    for li, entry in st.carry.items():
+        ids = [eng._lanes[li][j] for j in eng._local[li]]
+        for k in range(4):
+            stacked = stackers[k]([fields[k][i] for i in ids])
+            specs = eng._specs[li][k]
+            shapes = chunk_shapes(stacked, specs, eng.comm.sizes)
+            for path, t in tree_paths(entry[k]):
+                want = _lookup(shapes, path)
+                ref = eng.comm.shard(_lookup(stacked, path),
+                                     _lookup(specs, path))
+                held += t.numel() * t.element_size()
+                reckoned += want.numel() * want.element_size()
+                if t.shape != want.shape or not torch.equal(t, ref):
+                    bad.append((li, k, path))
+    return bad, held, reckoned
+
+
+def _chunk_leg(inputs, kind, mesh, recipe):
+    from repro_torch.launch.dryrun import session_state_bytes
+    from repro_torch.parity import shifted_chunks
+    make, sc, oc, parts, batch, start, (xt, yt) = _chunk_setup(kind, inputs)
+    K = CHUNK_K["mlp" if kind == "mlp" else "backbone"]
+
+    def session(engine="spmd"):
+        kw = dict(mesh=mesh, recipe=recipe) if engine == "spmd" else {}
+        return TrainSession(make(), sc, oc, parts, batch, engine=engine,
+                            state=copy.deepcopy(start), **kw)
+
+    out = {}
+    split = session()
+    split.train(K)
+    bad, held, reckoned = _held_chunks(split)
+    out["chunks"] = dict(
+        bad=bad, held=held, reckoned=reckoned,
+        state_bytes=split.engine.state_bytes,
+        dryrun=session_state_bytes(make(), sc.profile.split_layers, oc, mesh,
+                                   recipe, batch),
+        whole=sum(t.numel() * t.element_size() for _, t in tree_paths(
+            split.state.whole())
+            if isinstance(t, torch.Tensor)))
+    split.train(K)
+    once = session()
+    once.train(2 * K)
+    parent = session()
+    parent.train(K)
+    parent.state = parent.state.whole()        # the gather between runs
+    parent.train(K)
+    fault = session()
+    fault.train(K)
+    with shifted_chunks():
+        fault.train(K)
+    fused = session("fused")
+    fused.train(2 * K)
+    for name, s in (("split", split), ("once", once), ("parent", parent),
+                    ("fault", fault), ("fused", fused)):
+        out[name] = keyed(s.state.whole(), s.model)
+        out[f"{name}_history"] = history(s.history)
+    out["engine"] = split.engine_name
+    for name, s in (("split", split), ("fused", fused)):
+        out[f"{name}_eval"] = (s.evaluate(xt, yt),
+                               s.evaluate_adaptive(xt, yt, tau=0.5))
+    return out
+
+
+def chunk_legs(world, inputs):
+    """Every chunk leg on this rank, ``{case: result}``."""
+    torch.set_num_threads(1)
+    torch.manual_seed(0)
+    out = {}
+    for case, kind, shape, axes, recipe in chunk_cases(world):
+        t0 = time.perf_counter()
+        try:
+            out[case] = _chunk_leg(inputs, kind, make_host_mesh(shape, axes),
+                                   recipe)
+        except Exception:                                 # noqa: BLE001
+            out[case] = {"error": traceback.format_exc()}
+        dist.barrier()
+        print(f"chunk leg {case}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    return out
